@@ -22,10 +22,10 @@ _PKG = Path(__file__).resolve().parent
 _BUILD_DIR = _PKG.parent / "build" / "mic_tpu_torch"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 _SIGNATURES = {
     # q, cache_k, cache_v, k_step, v_step, ancestry, out,
@@ -34,6 +34,12 @@ _SIGNATURES = {
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 4 + [_P],
+    # hidden, weight, bias, part_m, part_s, part_z, lse_out, zsum_out,
+    # n, d, vocab, runs, stream
+    "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
+    # dbias_out, low, conf - low, n, d, vocab, runs, stream
+    "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -64,12 +70,24 @@ def build() -> Path:
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    # one nvcc per source, all at once, then one link
+    nvcc = _nvcc()
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects))
+    ]
+    steps = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in compiles]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, done.stderr, done.returncode))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    for cmd, stderr, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{stderr}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -25,11 +25,20 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}") from None
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict (and the same leaves of
+    the trees in ``rest``, which share its structure)."""
     if isinstance(tree, dict):
-        return {key: tree_map(fn, value) for key, value in tree.items()}
-    return fn(tree)
+        return {key: tree_map(fn, value, *(r[key] for r in rest))
+                for key, value in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree, path=()) -> list:
+    """[(key path, leaf)] in sorted-key order, the order of jax.tree.leaves."""
+    if isinstance(tree, dict):
+        return [item for key in sorted(tree) for item in tree_leaves(tree[key], path + (key,))]
+    return [(path, tree)]
 
 
 def make_serving_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:

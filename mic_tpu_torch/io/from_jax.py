@@ -24,3 +24,12 @@ def _leaf(array, device) -> torch.Tensor:
 
 def from_jax(tree: Params, device=None) -> Params:
     return tree_map(lambda a: _leaf(a, device), tree)
+
+
+def opt_state_from_jax(state, device=None):
+    """mic_tpu's FusedAdamWState (count, mu, nu; ``jax.device_get`` of it)
+    -> the port's, moments in their stored dtypes (bf16 stays bf16)."""
+    from mic_tpu_torch.train.fused_adamw import FusedAdamWState
+
+    return FusedAdamWState(int(np.asarray(state.count)), from_jax(state.mu, device),
+                           from_jax(state.nu, device))

@@ -1,5 +1,7 @@
 """The captioner: CLIP-ViT encoder + mBART decoder with a tied LM head
-(mic_tpu/models/captioner.py), for beam-search serving.
+(mic_tpu/models/captioner.py): the teacher-forced training forward
+(``encode``, ``decode_hidden``, ``__call__``, ``lm_logits``) and beam-search
+serving (``generate``).
 
 ``generate`` decodes with the lazy beam cache and always selects candidates
 through the fused LM head (ops/fused_head.py).  DecodeConfig's "auto"
@@ -18,6 +20,7 @@ from mic_tpu_torch.generate import search
 from mic_tpu_torch.models import clip_vit, mbart_decoder
 from mic_tpu_torch.nn.cache import LazyDecoderCache, init_lazy_cache
 from mic_tpu_torch.nn.layers import dense, init_dense, init_embed
+from mic_tpu_torch.nn.stacked import remat_policy
 from mic_tpu_torch.ops.fused_head import fused_head_topk
 
 
@@ -38,20 +41,57 @@ def init_params(config: CaptionerConfig, generator: torch.Generator, device=None
 
 
 class Captioner:
-    def __init__(self, config: CaptionerConfig):
+    def __init__(self, config: CaptionerConfig, remat=False):
         if not config.tie_word_embeddings:
             raise NotImplementedError("only the tied LM head is ported")
         clip_vit.check_clip_style(config.vision)
         mbart_decoder.check_pre_norm(config.decoder)
         self.config = config
         self.dtype = torch_dtype(config.dtype)
+        remat_policy(remat)
+        self.remat = remat
 
-    def encode(self, params: Params, pixel_values: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Params, pixel_values: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """pixel_values (B, H, W, 3) float -> projected encoder states
-        (B, 1 + num_patches, d_model)."""
+        (B, 1 + num_patches, d_model); ``generator`` drives dropout."""
         out = clip_vit.apply_vision(params["vision"], pixel_values, self.config.vision,
-                                    self.dtype)
+                                    self.dtype, generator, self.remat)
         return dense(params["proj"], out, self.dtype)
+
+    def decode_hidden(self, params: Params, enc_states: torch.Tensor,
+                      decoder_input_ids: torch.Tensor, decoder_attention_mask: torch.Tensor,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        """Teacher-forced decoder hidden states (B, T, d_model) before the LM
+        head: what ops/fused_ce.py takes, so training never stores logits."""
+        return mbart_decoder.apply_decoder(
+            params["decoder"], params["shared"], decoder_input_ids, decoder_attention_mask,
+            enc_states, None, self.config.decoder, self.dtype, generator, self.remat,
+        )
+
+    def decode_train(self, params: Params, enc_states: torch.Tensor,
+                     decoder_input_ids: torch.Tensor, decoder_attention_mask: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        hidden = self.decode_hidden(params, enc_states, decoder_input_ids,
+                                    decoder_attention_mask, generator)
+        return self.lm_logits(params, hidden)
+
+    def __call__(self, params: Params, pixel_values: torch.Tensor,
+                 decoder_input_ids: torch.Tensor, decoder_attention_mask: torch.Tensor,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """Teacher-forced forward -> logits (B, T, vocab) in the compute dtype.
+        The encoder and then the decoder draw their dropout masks from the
+        one ``generator``."""
+        enc_states = self.encode(params, pixel_values, generator)
+        return self.decode_train(params, enc_states, decoder_input_ids,
+                                 decoder_attention_mask, generator)
+
+    def lm_logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied head: hidden @ embedding^T + final_logits_bias, all in the
+        compute dtype."""
+        weight = params["shared"]["embedding"].to(self.dtype)
+        logits = hidden.to(self.dtype) @ weight.T
+        return logits + params["final_logits_bias"].to(self.dtype)
 
     def init_decode_cache(self, params: Params, enc_states: torch.Tensor, max_length: int,
                           beams: int) -> LazyDecoderCache:

@@ -57,9 +57,16 @@ def init_vision(generator: torch.Generator, cfg: VisionConfig, device=None) -> P
 
 
 def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """pixels (B, image_size, image_size, 3) -> last hidden state (B, 1+N, H)."""
+                 dtype: torch.dtype = torch.float32, rng=None,
+                 remat=False) -> torch.Tensor:
+    """pixels (B, image_size, image_size, 3) -> last hidden state (B, 1+N, H).
+
+    ``rng`` (a torch.Generator) drives attention-weight dropout, the tower's
+    only dropout (CLIP has no hidden dropout); ``remat`` as in
+    nn/stacked.py::scan_apply."""
     check_clip_style(cfg)
+    if cfg.attention_dropout == 0.0:
+        rng = None
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     x = patchify(pixels.to(dtype), cfg.patch_size) @ params["patch_embed"]["kernel"].to(dtype)
@@ -68,12 +75,12 @@ def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
     x = x + params["pos_embed"]["embedding"].to(dtype)[None]
     x = layer_norm(params["pre_ln"], x, eps)
 
-    def layer(h, p):
+    def layer(h, p, lrng):
         r = h
         h = layer_norm(p["ln1"], h, eps)
-        h = r + mha(p["attn"], h, h, None, cfg.num_heads)
+        h = r + mha(p["attn"], h, h, None, cfg.num_heads, cfg.attention_dropout, lrng)
         r = h
         h = layer_norm(p["ln2"], h, eps)
         return r + dense(p["fc2"], act(dense(p["fc1"], h)))
 
-    return scan_apply(layer, x, params["layers"])
+    return scan_apply(layer, x, params["layers"], rng, remat)

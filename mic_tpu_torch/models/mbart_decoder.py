@@ -1,5 +1,6 @@
-"""mBART-style pre-norm decoder, cached single-token decoding on the lazy
-beam cache (mic_tpu/models/mbart_decoder.py).
+"""mBART-style pre-norm decoder (mic_tpu/models/mbart_decoder.py): the
+teacher-forced full-sequence pass for training (``apply_decoder``) and
+cached single-token decoding on the lazy beam cache (``decoder_step``).
 
 Token embeddings are the shared table scaled by sqrt(d_model) in the
 compute dtype; learned positions are offset by 2; every layer is
@@ -16,6 +17,7 @@ from mic_tpu.core.config import DecoderConfig
 from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.attention import (
     init_mha,
+    mha,
     mha_cross_grouped,
     mha_decode_step_lazy,
     project_kv,
@@ -24,12 +26,13 @@ from mic_tpu_torch.nn.cache import LazyDecoderCache
 from mic_tpu_torch.nn.layers import (
     ACTIVATIONS,
     dense,
+    dropout,
     embed,
     init_dense,
     init_layer_norm,
     layer_norm,
 )
-from mic_tpu_torch.nn.stacked import init_stacked, layer_slice
+from mic_tpu_torch.nn.stacked import init_stacked, layer_slice, scan_apply
 
 
 def check_pre_norm(cfg: DecoderConfig) -> None:
@@ -82,6 +85,64 @@ def embed_tokens(shared: Params, ids: torch.Tensor, cfg: DecoderConfig,
                  dtype: torch.dtype) -> torch.Tensor:
     scale = cfg.d_model**0.5 if cfg.scale_embedding else 1.0
     return embed(shared, ids, dtype) * torch.tensor(scale, dtype=dtype, device=ids.device)
+
+
+def _causal_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B, T) padding mask -> (B, 1, T, T) boolean causal+padding mask."""
+    t = attention_mask.shape[-1]
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=attention_mask.device))
+    return causal[None, None] & attention_mask.bool()[:, None, None, :]
+
+
+def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
+                  attention_mask: torch.Tensor, enc_states: torch.Tensor, enc_mask,
+                  cfg: DecoderConfig, dtype: torch.dtype = torch.float32, rng=None,
+                  remat=False, position_ids=None) -> torch.Tensor:
+    """Teacher-forced full-sequence decode: input_ids and attention_mask
+    (B, T), enc_states (B, S, D) already projected, enc_mask (B, S) or None
+    -> hidden states (B, T, D) after the final LN.
+
+    Dropout at mic_tpu's sites, drawn from ``rng`` (a torch.Generator, or
+    None for none) in this order: the embeddings, then per layer the
+    self-attention weights, the self-attention output, the cross-attention
+    weights, the cross-attention output, the activation and the MLP output.
+    ``remat`` as in nn/stacked.py::scan_apply."""
+    check_pre_norm(cfg)
+    b, t = input_ids.shape
+    eps = cfg.layer_norm_eps
+    act = ACTIVATIONS[cfg.activation]
+    if position_ids is None:
+        position_ids = torch.arange(t, device=input_ids.device).expand(b, t)
+    x = embed_tokens(shared, input_ids, cfg, dtype)
+    x = x + embed(params["pos_embed"], position_ids + cfg.pos_offset, dtype)
+    x = layer_norm(params["ln_embed"], x, eps)
+    x = dropout(x, cfg.dropout, rng)
+
+    self_mask = _causal_mask(attention_mask)
+    cross_mask = None if enc_mask is None else enc_mask.bool()[:, None, None, :]
+    enc_states = enc_states.to(dtype)
+
+    def layer(h, p, lrng):
+        r = h
+        h = layer_norm(p["ln_self"], h, eps)
+        h = mha(p["self_attn"], h, h, self_mask, cfg.num_heads, cfg.attention_dropout, lrng)
+        h = r + dropout(h, cfg.dropout, lrng)
+        r = h
+        h = layer_norm(p["ln_cross"], h, eps)
+        h = mha(p["cross_attn"], h, enc_states, cross_mask, cfg.num_heads,
+                cfg.attention_dropout, lrng)
+        h = r + dropout(h, cfg.dropout, lrng)
+        r = h
+        h = layer_norm(p["ln_mlp"], h, eps)
+        h = act(dense(p["fc1"], h))
+        h = dropout(h, cfg.activation_dropout, lrng)
+        h = dense(p["fc2"], h)
+        return r + dropout(h, cfg.dropout, lrng)
+
+    x = scan_apply(layer, x, params["layers"], rng, remat)
+    if cfg.use_final_ln:
+        x = layer_norm(params["final_ln"], x, eps)
+    return x
 
 
 def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfig,

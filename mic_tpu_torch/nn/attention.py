@@ -31,12 +31,14 @@ def project_kv(params: Params, kv_states: torch.Tensor, num_heads: int,
 
 
 def mha(params: Params, x: torch.Tensor, kv_states: torch.Tensor, mask,
-        num_heads: int) -> torch.Tensor:
-    """Full-sequence attention: self-attention when kv_states is x."""
+        num_heads: int, dropout_rate: float = 0.0, dropout_rng=None) -> torch.Tensor:
+    """Full-sequence attention: self-attention when kv_states is x; optional
+    dropout on the attention weights."""
     head_dim = x.shape[-1] // num_heads
     q = split_heads(dense(params["q"], x) * (head_dim**-0.5), num_heads)
     k, v = project_kv(params, kv_states, num_heads, x.dtype)
-    return dense(params["o"], merge_heads(xla_attention(q, k, v, mask)))
+    out = xla_attention(q, k, v, mask, dropout_rate, dropout_rng)
+    return dense(params["o"], merge_heads(out))
 
 
 def mha_cross_grouped(params: Params, x: torch.Tensor, k: torch.Tensor,

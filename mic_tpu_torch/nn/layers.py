@@ -69,6 +69,27 @@ ACTIVATIONS = {
 }
 
 
+def keep_mask(rng, shape, keep: float, device) -> torch.Tensor:
+    """Bernoulli(keep) boolean mask: uniform < keep, as jax.random.bernoulli
+    draws it.  ``rng`` is a torch.Generator on ``device`` or a per-layer
+    mask stream of nn/stacked.py (remat)."""
+    if isinstance(rng, torch.Generator):
+        return torch.rand(shape, generator=rng, device=device) < keep
+    return rng.keep_mask(shape, keep, device)
+
+
+def dropout(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
+    """Inverted dropout; identity when rng is None (deterministic) or
+    rate == 0 (mic_tpu/nn/layers.py::dropout).  The masks come from torch's
+    Philox stream, not jax.random's: keep rate and scale are the same, the
+    bits are not, so a step with dropout on is never bit-equal to JAX's."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask(rng, x.shape, keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, t, d = x.shape
     return x.reshape(b, t, num_heads, d // num_heads)

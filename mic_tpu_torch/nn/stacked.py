@@ -1,13 +1,14 @@
 """Stacked layers (mic_tpu/nn/stacked.py): every leaf of a stack carries a
 leading layer axis L.  ``lax.scan`` over the stack becomes a Python loop
 over layer slices; PyTorch runs eagerly, so there is nothing to compile
-once."""
+once.  Rematerialization is ``torch.utils.checkpoint`` per layer."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mic_tpu_torch.core.params import Params, tree_map
 
@@ -33,8 +34,83 @@ def layer_slice(stacked: Params, layer: int) -> Params:
     return tree_map(lambda a: a[layer], stacked)
 
 
-def scan_apply(body: Callable, h: torch.Tensor, stacked: Params) -> torch.Tensor:
-    """Run ``body(h, layer_params) -> h`` over the layers in order."""
+class MaskStream:
+    """Dropout keep-masks for one run of a layer body, in the order the body
+    asks for them: drawn from ``generator`` (each appended to ``record`` when
+    given), or handed back from ``replay``."""
+
+    def __init__(self, generator=None, record=None, replay=None):
+        self._generator = generator
+        self._record = record
+        self._replay = replay
+
+    def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
+        if self._replay is not None:
+            return next(self._replay)
+        mask = torch.rand(shape, generator=self._generator, device=device) < keep
+        if self._record is not None:
+            self._record.append(mask)
+        return mask
+
+
+class _LayerRng:
+    """The dropout randomness of one checkpointed layer.  Its forward draws
+    from the caller's generator; the backward's recompute must see the same
+    masks.  ``torch.utils.checkpoint`` restores only the default generators,
+    never a user's, so "masks" keeps the masks the forward drew and replays
+    them (mic_tpu's save_only_these_names("dropout_mask")), and "full" keeps
+    only the generator's state and draws them again from a copy."""
+
+    def __init__(self, generator: torch.Generator, keep_masks: bool):
+        self._generator = generator
+        self._masks = [] if keep_masks else None
+        self._state = None if keep_masks else generator.get_state()
+        self._runs = 0
+
+    def stream(self) -> MaskStream:
+        self._runs += 1
+        if self._runs == 1:
+            return MaskStream(self._generator, record=self._masks)
+        if self._masks is not None:
+            return MaskStream(replay=iter(self._masks))
+        copy = torch.Generator(device=self._generator.device)
+        copy.set_state(self._state)
+        return MaskStream(copy)
+
+
+def remat_policy(remat) -> str | None:
+    """None, "full" or "masks"; raises for a policy not ported."""
+    if remat in (False, None, "none"):
+        return None
+    if remat in (True, "full"):
+        return "full"
+    if remat == "masks":
+        return "masks"
+    if remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported yet (ROADMAP A6)")
+    raise ValueError(f"unknown remat policy: {remat!r}")
+
+
+def scan_apply(body: Callable, h: torch.Tensor, stacked: Params, rng=None,
+               remat=False) -> torch.Tensor:
+    """Run ``body(h, layer_params, rng) -> h`` over the layers in order.
+
+    ``rng`` is the dropout generator (or None); the layers draw from it in
+    order.  ``remat``: False/"none" keeps every activation; "full"
+    checkpoints each layer and recomputes its dropout masks from the saved
+    generator state; "masks" checkpoints each layer but keeps its boolean
+    dropout masks.  All three draw the same masks from the same generator,
+    so their gradients are equal."""
+    policy = remat_policy(remat)
     for layer in range(num_layers_of(stacked)):
-        h = body(h, layer_slice(stacked, layer))
+        p = layer_slice(stacked, layer)
+        if policy is None:
+            h = body(h, p, rng)
+            continue
+        layer_rng = None if rng is None else _LayerRng(rng, keep_masks=policy == "masks")
+
+        def run(x, p=p, layer_rng=layer_rng):
+            return body(x, p, None if layer_rng is None else layer_rng.stream())
+
+        h = checkpoint(run, h, use_reentrant=False)
     return h

@@ -1,0 +1,150 @@
+"""Label-smoothed cross-entropy fused with the tied LM head
+(mic_tpu/ops/fused_ce.py::fused_lm_loss): the loss of lm_logits +
+train/loss.py without a (B, T, V) logits tensor, as a
+``torch.autograd.Function`` whose backward recomputes what it needs.
+
+Routes (``mode``, TrainConfig.flash_ce; the environment variable
+MIC_TPU_FLASH_CE wins when set, through mic_tpu.core.knobs.override):
+
+- "" ("0", "off"; what "auto" resolves to on the CPU): the chunked path.
+  Each chunk of rows gets its f32 logits from the f32 table, reduced and
+  dropped; the backward recomputes them chunk by chunk.
+- "dl" (what "auto" resolves to on CUDA): ops/flash_ce.py's forward kernel,
+  which saves lse; the backward's dl kernel with rowscale = mask * g / denom.
+  Above ``dl_max_rows`` rows the backward takes the chunked path instead,
+  as mic_tpu routes it (its bf16 (N, V) dl would not fit); the dl kernel's
+  launch counter then stays where it was.
+
+The flash routes read ``emb_cast`` (the bf16 training shadow) when given;
+the f32 ``embedding`` always receives the f32 demb.  "fwd", "1"/"split" and
+"save" are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mic_tpu.core.knobs import override
+from mic_tpu_torch.ops.flash_ce import dlogits, flash_ce_backward_dl, flash_ce_forward
+
+
+def _resolve_mode(mode: str, device: torch.device) -> str:
+    raw = override("MIC_TPU_FLASH_CE")
+    if raw is not None:
+        mode = raw
+    if mode in ("", "0", "off"):
+        return ""
+    if mode == "auto":
+        return "dl" if device.type == "cuda" else ""
+    if mode == "dl":
+        return mode
+    if mode in ("fwd", "1", "split", "save"):
+        raise NotImplementedError(f"flash-CE mode {mode!r} is not ported yet (ROADMAP B8, B9)")
+    raise ValueError(f"unknown flash-CE mode {mode!r}")
+
+
+def normalizing(label_smoothing: float, vocab: int) -> float:
+    """The smoothed target's entropy, in float32 as mic_tpu computes it."""
+    if label_smoothing <= 0.0:
+        return 0.0
+    f32 = np.float32
+    conf = 1.0 - label_smoothing
+    low = label_smoothing / (vocab - 1)
+    return float(-(f32(conf) * np.log(f32(conf))
+                   + f32((vocab - 1) * low) * np.log(f32(low + 1e-20))))
+
+
+def expected_logit(label_logit, sum_logits, label_smoothing: float, vocab: int):
+    """The smoothed target's expected logit, c * z_y + l * (sum_z - z_y)."""
+    if label_smoothing <= 0.0:
+        return label_logit
+    conf = 1.0 - label_smoothing
+    low = label_smoothing / (vocab - 1)
+    return conf * label_logit + low * (sum_logits - label_logit)
+
+
+def _chunked_forward(h2, embedding, bias, labels, m2, label_smoothing, chunk):
+    vocab = embedding.shape[0]
+    emb, bias_f = embedding.float(), bias.float()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h2.device)
+    for i in range(0, h2.shape[0], chunk):
+        logits = h2[i:i + chunk].float() @ emb.T + bias_f
+        mx = logits.amax(dim=-1)
+        lse = mx + torch.log(torch.exp(logits - mx[:, None]).sum(dim=-1))
+        label_logit = logits.gather(1, labels[i:i + chunk, None].long())[:, 0]
+        sum_logits = logits.sum(dim=-1) if label_smoothing > 0.0 else None
+        expected = expected_logit(label_logit, sum_logits, label_smoothing, vocab)
+        loss_sum = loss_sum + ((lse - expected) * m2[i:i + chunk]).sum()
+    return loss_sum
+
+
+def _chunked_backward(h2, embedding, bias, labels, rowscale, label_smoothing, chunk):
+    """(dh in h2.dtype, demb f32, dbias f32), as mic_tpu's chunked backward:
+    dl rounded to the compute dtype before both contractions, dh against
+    the f32 table."""
+    emb, bias_f = embedding.float(), bias.float()
+    demb = torch.zeros_like(emb)
+    dbias = torch.zeros_like(bias_f)
+    dh = []
+    for i in range(0, h2.shape[0], chunk):
+        h_c = h2[i:i + chunk]
+        p = torch.softmax(h_c.float() @ emb.T + bias_f, dim=-1)
+        d32 = dlogits(p, labels[i:i + chunk], rowscale[i:i + chunk], label_smoothing)
+        dl = d32.to(h2.dtype).float()
+        dh.append((dl @ emb).to(h2.dtype))
+        demb += dl.T @ h_c.float()
+        dbias += d32.sum(dim=0)
+    return torch.cat(dh), demb, dbias
+
+
+class _FusedLMLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, embedding, bias, labels, mask, label_smoothing, chunk, emb_cast,
+                flash, max_rows):
+        b, t, d = hidden.shape
+        n = b * t
+        vocab = embedding.shape[0]
+        h2 = hidden.reshape(n, d)
+        y = labels.reshape(n)
+        m2 = mask.reshape(n).float()
+        lse = None
+        if flash:
+            lse, label_logit, sum_logits = flash_ce_forward(h2, embedding, bias, y, emb_cast)
+            expected = expected_logit(label_logit, sum_logits, label_smoothing, vocab)
+            loss_sum = ((lse - expected) * m2).sum()
+        else:
+            loss_sum = _chunked_forward(h2, embedding, bias, y, m2, label_smoothing,
+                                        min(chunk, n))
+        denom = m2.sum()
+        ctx.save_for_backward(h2, embedding, bias, y, m2, denom, lse, emb_cast)
+        ctx.shape = hidden.shape
+        ctx.label_smoothing, ctx.chunk, ctx.max_rows = label_smoothing, chunk, max_rows
+        return loss_sum / denom - normalizing(label_smoothing, vocab)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, embedding, bias, y, m2, denom, lse, emb_cast = ctx.saved_tensors
+        n = h2.shape[0]
+        rowscale = m2 * (g / denom)
+        if lse is not None and n <= ctx.max_rows:
+            dh, demb, dbias = flash_ce_backward_dl(h2, embedding, bias, y, lse, rowscale,
+                                                   ctx.label_smoothing, emb_cast)
+        else:
+            dh, demb, dbias = _chunked_backward(h2, embedding, bias, y, rowscale,
+                                                ctx.label_smoothing, min(ctx.chunk, n))
+        return (dh.reshape(ctx.shape), demb.to(embedding.dtype), dbias.to(bias.dtype),
+                None, None, None, None, None, None, None)
+
+
+def fused_lm_loss(hidden, embedding, bias, labels, mask, label_smoothing: float = 0.0,
+                  chunk: int = 512, emb_cast=None, mode: str = "auto",
+                  dl_max_rows: int = 8192) -> torch.Tensor:
+    """hidden (B, T, D) in the compute dtype, embedding (V, D) the tied
+    table, bias (V,) final_logits_bias, labels and mask (B, T) -> the masked
+    mean label-smoothed CE, a float32 scalar.  Gradients reach hidden,
+    embedding and bias."""
+    flash = _resolve_mode(mode, hidden.device)
+    max_rows = int(override("MIC_TPU_DL_MAX_ROWS", str(dl_max_rows)))
+    return _FusedLMLoss.apply(hidden, embedding, bias, labels, mask, label_smoothing, chunk,
+                              emb_cast, flash, max_rows)

@@ -55,3 +55,12 @@ def preprocess_images(images_u8: torch.Tensor, out_size: int = 224,
     mean = torch.from_numpy(CLIP_MEAN).to(device)
     std = torch.from_numpy(CLIP_STD).to(device)
     return ((x - mean) / std).to(dtype)
+
+
+def maybe_preprocess(pixel_values: torch.Tensor, image_size: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Train/eval steps take either raw uint8 crops (resized and normalized
+    here) or ready float images (cast to ``dtype``)."""
+    if pixel_values.dtype == torch.uint8:
+        return preprocess_images(pixel_values, image_size, dtype)
+    return pixel_values.to(dtype)

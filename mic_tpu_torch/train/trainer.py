@@ -1,0 +1,248 @@
+"""The training loop on one device (mic_tpu/train/trainer.py): state
+init, the train and eval steps, the epoch loop with logging to
+``<output_dir>/metrics.jsonl``, and eval (loss, and with ``gen_eval`` BLEU
+from beam-search captions).
+
+The step runs the model from the bf16 shadow (train/shadow.py), the loss
+through ops/fused_ce.py (on CUDA the two flash-CE kernels), autograd for
+the gradients and the fused AdamW in place.  Not ported yet, and raising:
+checkpoints and resume, the mesh options (dp > 1, tp > 1, fsdp) and the
+profiler range; ``train()`` says in its output that it wrote no checkpoint.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mic_tpu.core.config import CaptionerConfig, DataConfig, TrainConfig
+from mic_tpu.data.tokenizer import TokenizerBase, load_tokenizer
+from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
+from mic_tpu_torch.models.captioner import Captioner, init_params
+from mic_tpu_torch.ops.fused_ce import fused_lm_loss
+from mic_tpu_torch.ops.image_prep import maybe_preprocess
+from mic_tpu_torch.train.fused_adamw import apply_gradients
+from mic_tpu_torch.train.loss import label_smoothed_cross_entropy
+from mic_tpu_torch.train.metrics import MetricLogger, StepTimer
+from mic_tpu_torch.train.schedule import linear_warmup_linear_decay
+from mic_tpu_torch.train.shadow import ce_embedding, shadow_spec, shadowed_params
+from mic_tpu_torch.train.state import TrainState, make_optimizer
+from mic_tpu_torch.train.steps import count_params
+
+
+class Trainer:
+    def __init__(self, model_config: CaptionerConfig, data_config: DataConfig,
+                 train_config: TrainConfig, tokenizer: Optional[TokenizerBase] = None,
+                 tokenizer_path: Optional[str] = None, device=None):
+        tc = train_config
+        if tc.resume_from is not None:
+            raise NotImplementedError("resume_from: checkpoints are not ported yet (ROADMAP A5)")
+        if tc.dp not in (-1, 1) or tc.tp != 1 or tc.fsdp:
+            raise NotImplementedError("dp > 1, tp > 1 and fsdp are not ported yet (ROADMAP A7)")
+        if tc.profile_steps:
+            raise NotImplementedError("profile_steps is not ported yet")
+        # tc.prng_impl picks the TPU's hardware RNG in mic_tpu; dropout here
+        # always draws from torch's Philox generator, so it is ignored.
+        self.mc, self.dc, self.tc = model_config, data_config, train_config
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.dtype = torch_dtype(model_config.dtype)
+        self.model = Captioner(model_config, remat=tc.remat if tc.remat != "none" else False)
+        self.tokenizer = tokenizer or load_tokenizer(tokenizer_path)
+        self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
+        self.global_batch = tc.per_device_batch_size
+        self.eval_batch = tc.eval_batch_size or tc.per_device_batch_size
+        self._shadow_spec = None
+
+    # -- data -----------------------------------------------------------------
+
+    def make_loaders(self):
+        # the loader decodes images with PIL: imported only where data is read
+        from mic_tpu.data.dataset import CaptionDataset
+        from mic_tpu.data.loader import CaptionLoader
+
+        dc = self.dc
+        train_loader = CaptionLoader(
+            CaptionDataset(dc.train_file, dc.images_dir, dc.lang_codes), self.tokenizer,
+            self.global_batch, image_size=dc.decode_size, max_length=dc.max_seq_length,
+            shuffle=True, drop_last=True, seed=dc.shuffle_seed, num_workers=dc.num_workers,
+            lang_codes=dc.lang_codes,
+        )
+        eval_loaders = {}
+        if dc.validation_file:
+            val_ds = CaptionDataset(dc.validation_file, dc.images_dir, dc.lang_codes)
+            for lang, sub in val_ds.split_by_language().items():
+                eval_loaders[lang] = CaptionLoader(
+                    sub, self.tokenizer, self.eval_batch, image_size=dc.decode_size,
+                    max_length=dc.max_seq_length, shuffle=False, drop_last=False, seed=0,
+                    num_workers=0, lang_codes=dc.lang_codes,
+                )
+        return train_loader, eval_loaders
+
+    def put_batch(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+
+    # -- steps ----------------------------------------------------------------
+
+    def build(self, steps_per_epoch: int) -> None:
+        tc = self.tc
+        self.lr_fn = linear_warmup_linear_decay(
+            tc.learning_rate, steps_per_epoch * tc.num_epochs, tc.warmup_steps)
+        self.optimizer = make_optimizer(
+            self.lr_fn, weight_decay=tc.weight_decay, b1=tc.adam_b1, b2=tc.adam_b2,
+            eps=tc.adam_eps, max_grad_norm=tc.max_grad_norm, mu_dtype=tc.adam_mu_dtype,
+            nu_dtype=tc.adam_nu_dtype, fused=tc.fused_adamw,
+        )
+        self._shadow_dtype = (self.dtype if tc.shadow_params and self.dtype != torch.float32
+                              else None)
+
+    def init_state(self, params=None) -> TrainState:
+        """The state at step 0: float32 ``params`` (e.g. from io/from_jax.py),
+        or params drawn from ``tc.seed`` on the device; they come to require
+        grad.  Call ``build`` first."""
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
+            params = init_params(self.mc, gen, self.device)
+        for _, leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        if self._shadow_dtype is not None:
+            self._shadow_spec = shadow_spec(params, self._shadow_dtype)
+        return TrainState.create(params, self.optimizer, self.generator, self._shadow_dtype)
+
+    def compute_loss(self, params, pixels, batch, generator=None, loss_mask=None, shadow=None):
+        """The model from the shadow (or the params), then the loss; loss_mask
+        defaults to the decoder attention mask."""
+        tc, model = self.tc, self.model
+        if loss_mask is None:
+            loss_mask = batch["decoder_attention_mask"]
+        cp = shadowed_params(params, shadow)
+        if tc.fused_ce and tc.ce_chunk > 0:
+            enc = model.encode(cp, pixels, generator)
+            hidden = model.decode_hidden(cp, enc, batch["decoder_input_ids"],
+                                         batch["decoder_attention_mask"], generator)
+            return fused_lm_loss(
+                hidden, params["shared"]["embedding"], params["final_logits_bias"],
+                batch["labels"], loss_mask, tc.label_smoothing, tc.ce_chunk,
+                ce_embedding(shadow), mode=tc.flash_ce, dl_max_rows=tc.dl_max_rows,
+            )
+        logits = model(cp, pixels, batch["decoder_input_ids"], batch["decoder_attention_mask"],
+                       generator)
+        return label_smoothed_cross_entropy(logits, batch["labels"], loss_mask,
+                                            tc.label_smoothing)
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One optimizer step on a device batch -> (state, {"loss" (a device
+        scalar), "learning_rate"}).  Params and moments change in place."""
+        pixels = maybe_preprocess(batch["pixel_values"], self.mc.vision.image_size, self.dtype)
+        leaves = [leaf for _, leaf in tree_leaves(state.params)]
+        with torch.enable_grad():
+            loss = self.compute_loss(state.params, pixels, batch, state.generator,
+                                     shadow=state.shadow)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        by_leaf = {id(leaf): g for leaf, g in zip(leaves, grads)}
+        lr = self.lr_fn(state.opt_state.count)
+        out = apply_gradients(self.optimizer, state.params,
+                              tree_map(lambda p: by_leaf[id(p)], state.params),
+                              state.opt_state, shadow_spec=self._shadow_spec,
+                              shadow_dtype=self.dtype)
+        new_state = TrainState(out[0], out[1], state.step + 1, state.generator,
+                               out[2] if len(out) == 3 else None)
+        return new_state, {"loss": loss.detach(), "learning_rate": lr}
+
+    @torch.no_grad()
+    def eval_step(self, params, batch: dict) -> dict:
+        pixels = maybe_preprocess(batch["pixel_values"], self.mc.vision.image_size, self.dtype)
+        loss_mask = batch["decoder_attention_mask"] * batch["loss_weight"][:, None]
+        loss = self.compute_loss(params, pixels, batch, None, loss_mask=loss_mask)
+        return {"loss": loss, "ntok": loss_mask.sum()}
+
+    @torch.no_grad()
+    def generate_step(self, params, pixels_u8, lang_token: int) -> torch.Tensor:
+        """Beam-4 captions as training sees them: the PAD start token, then
+        the language code forced at position 1."""
+        pixels = maybe_preprocess(pixels_u8, self.mc.vision.image_size, self.dtype)
+        out = self.model.generate(
+            params, pixels, max_length=self.dc.max_seq_length, num_beams=4,
+            decoder_start_token_id=self.mc.decoder.pad_token_id,
+            forced_bos_token_id=lang_token,
+        )
+        return out.sequences
+
+    # -- eval -----------------------------------------------------------------
+
+    @staticmethod
+    def _pad_to_multiple(batch: dict, multiple: int) -> tuple[dict, int]:
+        """Pad a ragged eval batch to ``multiple`` by repeating its first
+        example, with a per-example ``loss_weight`` zeroing the padding."""
+        n = batch["pixel_values"].shape[0]
+        pad = (-n) % multiple
+        out = {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)]) if pad else v
+               for k, v in batch.items()}
+        out["loss_weight"] = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+        return out, n
+
+    def evaluate(self, params, eval_loaders) -> dict:
+        # BLEU is shared host code; it is needed only here
+        from mic_tpu.evals.bleu import bleu_1_to_4
+
+        metrics = {}
+        for lang, loader in eval_loaders.items():
+            losses, ntoks, preds, refs = [], [], [], []
+            loader.next_batch = 0
+            for batch in loader.epoch_iterator(epoch=0):
+                batch, n_real = self._pad_to_multiple(dict(batch), self.eval_batch)
+                dev_batch = self.put_batch(batch)
+                m = self.eval_step(params, dev_batch)
+                losses.append(float(m["loss"]))
+                ntoks.append(float(m["ntok"]))
+                if self.tc.gen_eval:
+                    seqs = self.generate_step(params, dev_batch["pixel_values"],
+                                              self.tokenizer.lang_code_to_id[lang])
+                    preds.extend(self.tokenizer.batch_decode(seqs.cpu().numpy())[:n_real])
+                    refs.extend(self.tokenizer.batch_decode(batch["labels"][:n_real]))
+            if losses:
+                metrics[f"{lang}/loss"] = float(np.average(losses, weights=ntoks))
+            if preds:
+                for k, v in bleu_1_to_4(preds, refs, lang[:2]).items():
+                    metrics[f"{lang}/{k}"] = v
+        return metrics
+
+    # -- main loop ------------------------------------------------------------
+
+    def train(self) -> TrainState:
+        train_loader, eval_loaders = self.make_loaders()
+        self.build(len(train_loader))
+        state = self.init_state()
+        logger = MetricLogger(self.tc.output_dir)
+        logger.log(0, {"param_count_m": count_params(state.params) / 1e6})
+        timer = StepTimer()
+        step = state.step
+        try:
+            while train_loader.epoch < self.tc.num_epochs:
+                for batch in train_loader.epoch_iterator():
+                    state, metrics = self.train_step(state, self.put_batch(batch))
+                    step += 1
+                    timer.tick()
+                    if step % self.tc.logging_steps == 0:
+                        scalars = {k: float(v) for k, v in metrics.items()}
+                        scalars.update(timer.rates(self.global_batch))
+                        logger.log(step, scalars, prefix="train")
+                        timer.reset()
+                    if eval_loaders and step % self.tc.eval_steps == 0:
+                        logger.log(step, self.evaluate(state.params, eval_loaders), prefix="eval")
+            if eval_loaders:
+                logger.log(step, self.evaluate(state.params, eval_loaders), prefix="eval")
+        finally:
+            train_loader.close()
+            for loader in eval_loaders.values():
+                loader.close()
+            logger.close()
+        print(f"[mic_tpu_torch] trained {step} steps; no checkpoint or model directory was "
+              f"written under {os.path.abspath(self.tc.output_dir)}: checkpoints are not "
+              "ported yet (ROADMAP A5)", flush=True)
+        return state

@@ -8,7 +8,8 @@ imports no JAX (the card's machine has none); run it there with
 Tolerances: the kernels compute in bfloat16 with float32 accumulation in
 another order than the plain versions: attention outputs within 2e-2 (one
 bfloat16 rounding of values near 1), head log-probs within 2e-3 and lse
-within 1e-3 relative; cache contents and candidate ids exactly.
+within 1e-3 relative; cache contents and candidate ids exactly; the
+flash-CE kernels as each test states (bf16 dl within one bf16 rounding).
 """
 
 import pytest
@@ -17,6 +18,13 @@ import torch
 from mic_tpu.core.config import CaptionerConfig, DecoderConfig, VisionConfig
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.models.captioner import Captioner, init_params
+from mic_tpu_torch.ops.flash_ce import (
+    flash_ce_backward_dl,
+    flash_ce_backward_dl_plain,
+    flash_ce_dl,
+    flash_ce_forward,
+    flash_ce_forward_plain,
+)
 from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_plain
@@ -113,3 +121,76 @@ def test_generate_runs_through_both_kernels(cuda):
     assert lazy_attention.launches == config.decoder.num_layers * out.steps
     assert fused_head_topk.launches >= out.steps
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+def _ce_inputs(cuda, n, d, v, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn((n, d), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((v, d), generator=g, device=cuda) * 0.05).bfloat16()
+    b = torch.randn((v,), generator=g, device=cuda) * 0.1
+    y = torch.randint(0, v, (n,), generator=g, device=cuda, dtype=torch.int32)
+    y[:3] = v - 1 - torch.arange(3, device=cuda, dtype=torch.int32)  # labels in the ragged tail
+    return h, w, b, y
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099)])  # a partial row tile; ragged vocab
+def test_flash_ce_forward_kernel_matches_plain(cuda, n, v):
+    """lse and label logit within 1e-5 relative, sum of logits within 1e-4 of
+    the row's sum of |logits|; a second launch bit-equal."""
+    h, w, b, y = _ce_inputs(cuda, n, 128, v, n)
+    launches = flash_ce_forward.launches
+    out = flash_ce_forward(h, w, b, y)
+    again = flash_ce_forward(h, w, b, y)
+    ref = flash_ce_forward_plain(h, w, b, y)
+    torch.cuda.synchronize()
+    assert flash_ce_forward.launches == launches + 2
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-5)
+    l1 = (h.float() @ w.float().T + b).abs().sum(-1)
+    assert bool(((out[2] - ref[2]).abs() <= 1e-4 * l1).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing):
+    """dl within one bf16 rounding of the plain dl (and of its terms where
+    they cancel), rows with rowscale 0 all
+    zero, columns >= V never written, dbias within 1e-4 of its largest
+    entry; dh/demb from the kernel's dl; a second launch bit-equal."""
+    import mic_tpu_torch.ops.flash_ce as flash
+
+    n, d, v = 70, 128, 997
+    h, w, b, y = _ce_inputs(cuda, n, d, v, 7)
+    lse = flash_ce_forward_plain(h, w, b, y)[0]
+    rs = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    rs[::5] = 0.0
+    # dl written into a buffer with guard entries past its end, which must stay untouched
+    buf = torch.full((n * v + 64,), 7.0, dtype=torch.bfloat16, device=cuda)
+    launches = flash_ce_backward_dl.launches
+    dl, dbias = flash_ce_dl(h, w, b, y, lse, rs, smoothing, out=buf[: n * v].view(n, v))
+    dh, demb, dbias2 = flash_ce_backward_dl(h, w, b, y, lse, rs, smoothing)
+    again = flash_ce_backward_dl(h, w, b, y, lse, rs, smoothing)
+    dl_ref = flash._dl_plain(h, w, b, y, lse, rs, smoothing)
+    torch.cuda.synchronize()
+    assert flash_ce_backward_dl.launches == launches + 3
+    assert torch.equal(dbias, dbias2)
+    dl = dl.float()
+    assert bool(buf[n * v:].eq(7.0).all())
+    assert bool((dl[rs == 0] == 0).all())
+    # one bf16 rounding of dl, plus one of its terms |p| + |target| where
+    # p - target cancels
+    low, conf_low = flash._targets(smoothing, v)
+    target = torch.full_like(dl_ref, low)
+    target.scatter_(1, y[:, None].long(), low + conf_low)
+    terms = dl_ref.abs() + 2 * target * rs[:, None]
+    assert bool(((dl - dl_ref.bfloat16().float()).abs()
+                 <= (dl_ref.abs() + terms) * 2.0**-7 + 1e-30).all())
+    torch.testing.assert_close(dbias, dl_ref.sum(0), rtol=0,
+                               atol=1e-4 * dl_ref.sum(0).abs().max().item())
+    assert all(torch.equal(a, c) for a, c in zip((dh, demb, dbias), again))
+    ref = flash_ce_backward_dl_plain(h, w, b, y, lse, rs, smoothing)
+    torch.testing.assert_close(demb, ref[1], rtol=0, atol=1e-3 * ref[1].abs().max().item())
+    torch.testing.assert_close(dh.float(), ref[0].float(), rtol=0,
+                               atol=2**-7 * ref[0].float().abs().max().item())
