@@ -28,7 +28,20 @@ Phases, each of which raises on failure (none catches its own):
      "masks", bf16 moments and shadow params), twice from one seed, with
      launch counts that prove both CE kernels ran once a step, bit-equal
      reruns, and a step-time smoke figure (not a benchmark);
- 11. three train steps at a small width on the card against the CPU.
+ 11. three train steps at a small width on the card against the CPU;
+ 12. the int8 bucket head kernel against its plain version (N in {4, 1024},
+     D=1024, V=250054, k in {1, 9});
+ 13. the exact/window select kernel, bf16 and int8, against the plain
+     versions at the same shapes and at a ragged V=997 (int8 ids equal);
+ 14. the int8-cache lazy-attention kernel against its plain version at the
+     flagship decode shape (int8 values and scales bit-equal);
+ 15. each new kernel's time beside its plain version's;
+ 16. the flagship int8 path (int8 weights and KV): 8 images with launch
+     counts and a second run, then the exact and window selects (and a bf16
+     exact-select run), so that every head kernel carries a whole generate;
+     B=1 and B=256 smoke figures;
+ 17. at a small width, the trees quantized on the card and on the CPU
+     bit-equal, and int8 generate (bucket and exact) card against CPU.
 It then prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -140,13 +153,14 @@ def check_fused_head(dev):
     return worst, *times[1024]
 
 
-def run_whole_path(dev):
+def flagship(dev):
+    """Flagship-width random bf16 serving params (CLIP ViT-B/32 -> 12-layer
+    mBART-50 -> tied 250054-token head), the model, the generate arguments
+    and a maker of preprocessed random images."""
     from mic_tpu.core.config import CaptionerConfig
     from mic_tpu_torch.core.params import make_serving_params
     from mic_tpu_torch.models.captioner import Captioner, init_params
-    from mic_tpu_torch.ops.fused_head import fused_head_topk
     from mic_tpu_torch.ops.image_prep import preprocess_images
-    from mic_tpu_torch.ops.lazy_attention import lazy_attention
 
     config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
     t0 = time.perf_counter()
@@ -155,7 +169,6 @@ def run_whole_path(dev):
     )
     torch.cuda.synchronize()
     print(f"flagship params made on the card in {time.perf_counter() - t0:.2f} s", flush=True)
-    model = Captioner(config)
     kw = dict(num_beams=4, max_length=64, forced_bos_token_id=FLAGSHIP_BOS)
 
     def pixels(n, seed):
@@ -163,26 +176,41 @@ def run_whole_path(dev):
         return preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size,
                                  torch.bfloat16)
 
-    px = pixels(8, 0)
-    lazy_attention.launches = 0
-    fused_head_topk.launches = 0
+    return config, params, Captioner(config), kw, pixels
+
+
+def _counters():
+    """Every kernel wrapper's launch counter on the serving path, by name."""
+    from mic_tpu_torch.ops.fused_head import fused_head_select, fused_head_topk, fused_head_topk_q8
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+
+    return {"lazy_attention": lazy_attention, "fused_head": fused_head_topk,
+            "lazy_attention_q8": lazy_attention_q8, "fused_head_bucket_q8": fused_head_topk_q8,
+            "fused_head_select": fused_head_select}
+
+
+def drive(model, params, px, **kw):
+    """One generate with every launch counter set to 0 just before it and
+    read just after -> (output, launches by name)."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     out = model.generate(params, px, **kw)
     torch.cuda.synchronize()
-    launches = {"lazy_attention": lazy_attention.launches,
-                "fused_head": fused_head_topk.launches}
-    seqs = out.sequences.cpu()
-    print(f"whole path, 8 images: {out.steps} decode steps, launches {launches}, "
-          f"sequences {tuple(seqs.shape)}", flush=True)
-    require(seqs.shape == (8, 64), f"sequences of shape {tuple(seqs.shape)}")
-    require(bool((seqs[:, 1] == FLAGSHIP_BOS).all()), "forced BOS missing")
-    require(bool(torch.isfinite(out.scores).all()), "non-finite scores")
-    require(launches["lazy_attention"] == config.decoder.num_layers * out.steps,
-            "lazy_attention launches != layers x decode steps")
-    require(launches["fused_head"] >= out.steps, "fused_head launched less than once a step")
-    again = model.generate(params, px, **kw)
-    require(torch.equal(again.sequences.cpu(), seqs), "a second run gave other sequences")
-    print("whole path: second run gave identical sequences", flush=True)
+    return out, {name: fn.launches for name, fn in counters.items()}
 
+
+def check_path_output(out, n, max_length, what):
+    seqs = out.sequences.cpu()
+    require(seqs.shape == (n, max_length), f"{what}: sequences of shape {tuple(seqs.shape)}")
+    require(bool((seqs[:, 1] == FLAGSHIP_BOS).all()), f"{what}: forced BOS missing")
+    require(bool(torch.isfinite(out.scores).all()), f"{what}: non-finite scores")
+    return seqs
+
+
+def smoke_figures(model, params, pixels, kw, label):
+    """B=1 and B=256 generates, two runs each, timed on the host clock
+    around a synchronised generate: smoke figures, not a benchmark."""
     for b in (1, 256):
         px = pixels(b, 1)
         for attempt in (1, 2):
@@ -191,10 +219,28 @@ def run_whole_path(dev):
             out = model.generate(params, px, **kw)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            require(bool(torch.isfinite(out.scores).all()), f"non-finite scores at B={b}")
-            print(f"smoke figure (not a benchmark), run {attempt}: B={b} beam 4 max_length 64, "
-                  f"{out.steps} steps in {seconds:.3f} s = {b / seconds:.1f} captions/s",
-                  flush=True)
+            require(bool(torch.isfinite(out.scores).all()), f"{label}: non-finite scores at B={b}")
+            print(f"smoke figure (not a benchmark), {label}, run {attempt}: B={b} beam 4 "
+                  f"max_length 64, {out.steps} steps in {seconds:.3f} s = "
+                  f"{b / seconds:.1f} captions/s", flush=True)
+
+
+def run_whole_path(dev, flag):
+    """Phase 5: the bf16 flagship path with the default (bucket) select."""
+    config, params, model, kw, pixels = flag
+    px = pixels(8, 0)
+    out, counts = drive(model, params, px, **kw)
+    launches = {"lazy_attention": counts["lazy_attention"], "fused_head": counts["fused_head"]}
+    seqs = check_path_output(out, 8, 64, "whole path")
+    print(f"whole path, 8 images: {out.steps} decode steps, launches {launches}, "
+          f"sequences {tuple(seqs.shape)}", flush=True)
+    require(launches["lazy_attention"] == config.decoder.num_layers * out.steps,
+            "lazy_attention launches != layers x decode steps")
+    require(launches["fused_head"] >= out.steps, "fused_head launched less than once a step")
+    again = model.generate(params, px, **kw)
+    require(torch.equal(again.sequences.cpu(), seqs), "a second run gave other sequences")
+    print("whole path: second run gave identical sequences", flush=True)
+    smoke_figures(model, params, pixels, kw, "bf16")
     return launches
 
 
@@ -508,6 +554,283 @@ def check_training_small_against_cpu(dev):
     require(param_err < 2 * 3 * 1e-3, "card and CPU params differ")
 
 
+HEAD_D, HEAD_V = 1024, 250054  # the flagship tied head
+
+
+def _head_table(dev):
+    """A flagship-size bf16 tied embedding and bias, and its int8 form
+    (per vocab row scales, ops/quant.py)."""
+    from mic_tpu_torch.ops.quant import quantize_array
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    weight = (torch.randn((HEAD_V, HEAD_D), generator=g, device=dev) * 0.02).bfloat16()
+    bias = (torch.randn((HEAD_V,), generator=g, device=dev) * 0.1).bfloat16()
+    wq, ws = quantize_array(weight, axis=1)
+    return weight, bias, wq, ws
+
+
+def _hidden(dev, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, d), generator=g, device=dev).bfloat16()
+
+
+def _near_tie_ids(ids, rids, logits, what):
+    """PR 1's rule: an id may differ from the plain version's only where the
+    two logits are within 1e-2 (a near tie in bf16 products) -> count."""
+    differ = ids != rids
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    require(bool((gap[differ] < 1e-2).all()), f"{what}: an id differs beyond a near-tie")
+    return int(differ.sum())
+
+
+def check_fused_head_q8_bucket(dev, table):
+    """Phase 12: the int8 bucket kernel against its plain version (the same
+    bf16 x int8-as-bf16 logits in f32): lse within 1e-3 relative, lp within
+    2e-3, ids equal but at near-ties."""
+    from mic_tpu_torch.ops.fused_head import _logits_q8_bucket, fused_head_topk_q8, \
+        fused_head_topk_q8_plain
+
+    _, bias, wq, ws = table
+    worst = 0.0
+    for n in (4, 1024):
+        hidden = _hidden(dev, n, HEAD_D, 40 + n)
+        logits = _logits_q8_bucket(hidden, wq, ws, bias)
+        for k in (1, 9):
+            lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, k, "bucket")
+            rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, k, "bucket")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+            torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+            ties = _near_tie_ids(ids, rids, logits, f"fused_head_bucket_q8 N={n} k={k}")
+            err = (lp - rlp).abs().max().item()
+            worst = max(worst, err)
+            print(f"fused_head_bucket_q8 N={n} k={k}: lp max_abs_err={err:.6g}, lse "
+                  f"max_rel_err={((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
+                  f"near-tie id differences={ties}", flush=True)
+        del logits
+    return worst
+
+
+def check_fused_head_select(dev, table):
+    """Phase 13: the exact/window select kernel, bf16 (row 5) and int8 (row
+    6), against the plain versions at N in {4, 1024} and a ragged V=997.
+    int8: the kernel's logits are the plain version's bit for bit, so ids
+    are equal, lp within 1e-4 and lse within 1e-5 relative (sums of 250054
+    exps in another order).  bf16: ids equal but at near-ties, lse within
+    1e-3 relative, lp within 2e-3 where the ids agree."""
+    from mic_tpu_torch.ops.fused_head import _logits, _logits_q8, fused_head_topk, \
+        fused_head_topk_plain, fused_head_topk_q8, fused_head_topk_q8_plain
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    weight, bias, wq, ws = table
+    cases = [(n, HEAD_V, k) for n in (4, 1024) for k in (1, 9)] + [(70, 997, 1), (70, 997, 7)]
+    worst = 0.0
+    for n, v, k in cases:
+        hidden = _hidden(dev, n, HEAD_D, 50 + n + k)
+        w, b, q, s = weight[:v], bias[:v], wq[:v], ws[:v]
+        for q8 in (False, True):
+            logits = (_logits_q8(*quantize_rows_dynamic(hidden), q, s, b) if q8
+                      else _logits(hidden, w, b))
+            for select in ("exact", "window"):
+                if q8:
+                    lp, ids, lse = fused_head_topk_q8(hidden, q, s, b, k, select)
+                    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, q, s, b, k, select)
+                else:
+                    lp, ids, lse = fused_head_topk(hidden, w, b, k, select)
+                    rlp, rids, rlse = fused_head_topk_plain(hidden, w, b, k, select)
+                torch.cuda.synchronize()
+                what = f"fused_head_select {'int8' if q8 else 'bf16'} {select} N={n} V={v} k={k}"
+                same = ids == rids
+                if q8:
+                    require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+                    torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
+                    ties = 0
+                else:
+                    ties = _near_tie_ids(ids, rids, logits, what)
+                    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+                    torch.testing.assert_close(lp[same], rlp[same], rtol=0, atol=2e-3)
+                err = (lp[same] - rlp[same]).abs().max().item()
+                worst = max(worst, err)
+                print(f"{what}: lp max_abs_err={err:.6g}, lse max_rel_err="
+                      f"{((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
+                      f"near-tie id differences={ties}", flush=True)
+            del logits
+    return worst
+
+
+def check_lazy_attention_q8(dev):
+    """Phase 14: the int8-cache attention kernel against its plain version
+    at the flagship decode shape: outputs within 2e-2 (bf16 weights, f32
+    sums in another order), the cache's int8 values and scales bit-equal,
+    columns past ``index`` untouched."""
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention_q8, lazy_attention_q8_plain
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    b, beams, t, heads, dh = 256, 4, 64, 16, 64
+    hd = heads * dh
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    def int8_cache():
+        q, s = quantize_rows_dynamic(rand(b * beams, t, hd))
+        return {"q": q, "s": s[..., 0].contiguous()}
+
+    worst = 0.0
+    for index in (0, 1, 17, 63):
+        q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+        ck, cv = int8_cache(), int8_cache()
+        anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+        anc[:, :, index:] = torch.arange(beams, device=dev, dtype=torch.int32)[None, :, None]
+        before = [{n: a.clone() for n, a in c.items()} for c in (ck, cv)]
+        pk, pv = ({n: a.clone() for n, a in c.items()} for c in (ck, cv))
+        out = lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
+        ref = lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, index, heads)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        for mine, plain, old in zip((ck, cv), (pk, pv), before):
+            for name in ("q", "s"):
+                require(torch.equal(mine[name], plain[name]), "int8 cache differs from plain")
+                require(torch.equal(mine[name][:, index + 1:], old[name][:, index + 1:]),
+                        "a column past index was written")
+        print(f"lazy_attention_q8 index={index}: max_abs_err={err:.6g}, int8 values and "
+              "scales bit-equal, columns > index untouched", flush=True)
+    return worst, (q, ck, cv, ks, vs, anc, pk, pv)
+
+
+def time_int8_kernels(dev, table, attn_inputs):
+    """Phase 15: each new kernel and its plain version, medians of 25
+    CUDA-event runs: the heads at N in {4, 1024}, k=9; the int8 attention
+    at index 63."""
+    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain, \
+        fused_head_topk_q8, fused_head_topk_q8_plain
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention_q8, lazy_attention_q8_plain
+
+    weight, bias, wq, ws = table
+    t = {}
+    for n in (4, 1024):
+        hidden = _hidden(dev, n, HEAD_D, 60 + n)
+        runs = {
+            ("bucket_q8", n): (lambda: fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket"),
+                               lambda: fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, "bucket")),
+        }
+        for select in ("exact", "window"):
+            runs[(f"{select}_q8", n)] = (
+                lambda s=select: fused_head_topk_q8(hidden, wq, ws, bias, 9, s),
+                lambda s=select: fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, s))
+            runs[(f"{select}_bf16", n)] = (
+                lambda s=select: fused_head_topk(hidden, weight, bias, 9, s),
+                lambda s=select: fused_head_topk_plain(hidden, weight, bias, 9, s))
+        for key, (kernel, plain) in runs.items():
+            t[key] = (median_ms(kernel), median_ms(plain))
+            print(f"fused_head {key[0]} time at N={n} D={HEAD_D} V={HEAD_V} k=9: kernel "
+                  f"{t[key][0]:.4f} ms, plain {t[key][1]:.4f} ms", flush=True)
+    q, ck, cv, ks, vs, anc, pk, pv = attn_inputs
+    t["lazy_q8"] = (median_ms(lambda: lazy_attention_q8(q, ck, cv, ks, vs, anc, 63, 16)),
+                    median_ms(lambda: lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, 63, 16)))
+    print(f"lazy_attention_q8 time at B=256 K=4 T=64 H=16 index=63: kernel "
+          f"{t['lazy_q8'][0]:.4f} ms, plain {t['lazy_q8'][1]:.4f} ms", flush=True)
+    return t
+
+
+def run_int8_path(dev, flag):
+    """Phase 16: the flagship int8 path (int8 decoder and head, int8 KV
+    cache), 8 images: the default select with launch counts and a second
+    run; then the exact and window selects, and a bf16 exact-select run, so
+    that every head kernel carries a whole generate; smoke figures."""
+    from mic_tpu_torch.models.captioner import Captioner
+
+    config, params, model, kw, pixels = flag
+    layers = config.decoder.num_layers
+    px = pixels(8, 0)
+    q8 = dict(kw, quantize="int8", kv_quant="int8")
+    out, counts = drive(model, params, px, **q8)
+    seqs = check_path_output(out, 8, 64, "int8 path")
+    print(f"int8 path, 8 images, default select: {out.steps} decode steps, launches {counts}",
+          flush=True)
+    require(counts["lazy_attention_q8"] == layers * out.steps,
+            "lazy_attention_q8 launches != layers x decode steps")
+    require(counts["fused_head_bucket_q8"] >= out.steps,
+            "the int8 bucket head launched less than once a step")
+    require(counts["lazy_attention"] == 0 and counts["fused_head"] == 0,
+            "a bf16 kernel ran on the int8 path")
+    again = model.generate(params, px, **q8)
+    require(torch.equal(again.sequences.cpu(), seqs), "int8 path: a second run gave other sequences")
+    print("int8 path: second run gave identical sequences", flush=True)
+    launches = {"lazy_attention_q8": counts["lazy_attention_q8"],
+                "fused_head_bucket_q8": counts["fused_head_bucket_q8"], "fused_head_select": 0}
+    for select, extra in (("exact", q8), ("window", q8), ("exact", kw)):
+        chosen = Captioner(config.replace(decode=config.decode.replace(fused_select=select)))
+        out, counts = drive(chosen, params, px, **extra)
+        label = f"{'int8' if 'quantize' in extra else 'bf16'} path, select {select}"
+        check_path_output(out, 8, 64, label)
+        print(f"{label}: {out.steps} decode steps, launches {counts}", flush=True)
+        require(counts["fused_head_select"] >= out.steps,
+                f"{label}: the select kernel launched less than once a step")
+        require(counts["fused_head"] == counts["fused_head_bucket_q8"] == 0,
+                f"{label}: a bucket kernel ran")
+        launches["fused_head_select"] += counts["fused_head_select"]
+    smoke_figures(model, params, pixels, q8, "int8 weights + int8 KV")
+    return launches
+
+
+def check_int8_small_against_cpu(dev):
+    """Phase 17: at a small width (d_model 128, head_dim 64) the int8 trees
+    quantized on the card and on the CPU are bit-equal, and int8 generate
+    (int8 weights and KV) with the bucket and the exact select gives the
+    same sequences on the card (kernels) as on the CPU (plain versions),
+    scores within 5e-2 (bf16 activations summed in other orders can move a
+    row's int8 rounding by one step)."""
+    from mic_tpu.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params, tree_leaves, tree_map
+    from mic_tpu_torch.models import mbart_decoder
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+    from mic_tpu_torch.ops.quant import quantize_params_for_decode
+
+    def config(select):
+        return CaptionerConfig(
+            vision=VisionConfig.tiny(),
+            decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                       max_position_embeddings=64),
+            decode=DecodeConfig(fused_select=select), dtype="bfloat16",
+        )
+
+    params = make_serving_params(init_params(config("bucket"),
+                                             torch.Generator(device=dev).manual_seed(7), dev))
+    host = tree_map(lambda x: x.cpu(), params)
+
+    def quantized(p):  # generate's order: compute dtype, fused QKV, int8
+        return tree_leaves(quantize_params_for_decode(
+            {**p, "decoder": mbart_decoder.fuse_qkv_params(p["decoder"])}))
+
+    card, cpu = quantized(params), quantized(host)
+    require([p for p, _ in card] == [p for p, _ in cpu], "quantized trees differ in layout")
+    require(all(a.dtype == b.dtype and torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(card, cpu)),
+            "the int8 trees quantized on the card and on the CPU differ")
+    n_int8 = sum(a.dtype == torch.int8 for _, a in card)
+    print(f"small width: the quantized trees on the card and the CPU are bit-equal "
+          f"({len(card)} leaves, {n_int8} of them int8)", flush=True)
+    u8 = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (4, 40, 40, 3),
+                                                            dtype=np.uint8))
+    kw = dict(num_beams=4, max_length=16, forced_bos_token_id=7, quantize="int8",
+              kv_quant="int8")
+    for select in ("bucket", "exact"):
+        model = Captioner(config(select))
+        gpu = model.generate(params, preprocess_images(u8.to(dev), 32, torch.bfloat16), **kw)
+        ref = model.generate(host, preprocess_images(u8, 32, torch.bfloat16), **kw)
+        score_err = (gpu.scores.cpu() - ref.scores).abs().max().item()
+        same = torch.equal(gpu.sequences.cpu(), ref.sequences)
+        print(f"small width, int8 {select} select, card vs CPU: sequences equal={same}, "
+              f"max score difference={score_err:.3g}", flush=True)
+        require(same, f"int8 {select}: card and CPU sequences differ")
+        require(score_err < 5e-2, f"int8 {select}: card and CPU scores differ")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -526,7 +849,8 @@ def main() -> None:
     attn_err, attn_ms, attn_plain_ms = check_lazy_attention(dev)
     head_err, head_ms, head_plain_ms = check_fused_head(dev)
     torch.cuda.empty_cache()
-    launches = run_whole_path(dev)
+    flag = flagship(dev)
+    launches = run_whole_path(dev, flag)
     torch.cuda.empty_cache()
     check_small_against_cpu(dev)
     weight, bias = _ce_table(dev)
@@ -538,6 +862,19 @@ def main() -> None:
     launches.update(run_training(dev))
     torch.cuda.empty_cache()
     check_training_small_against_cpu(dev)
+
+    table = _head_table(dev)
+    q8_bucket_err = check_fused_head_q8_bucket(dev, table)
+    select_err = check_fused_head_select(dev, table)
+    torch.cuda.empty_cache()
+    attn_q8_err, attn_inputs = check_lazy_attention_q8(dev)
+    q8_ms = time_int8_kernels(dev, table, attn_inputs)
+    del table, attn_inputs
+    torch.cuda.empty_cache()
+    launches.update(run_int8_path(dev, flag))
+    del flag
+    torch.cuda.empty_cache()
+    check_int8_small_against_cpu(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -565,6 +902,21 @@ def main() -> None:
          "replaces": "mic_tpu/ops/flash_ce.py:725",
          "launches": launches["flash_ce_backward_dl"], "max_abs_err": dl_err,
          "ms": ce_ms["dl"], "plain_ms": ce_ms["dl_plain"]},
+        {"name": "fused_head_bucket_q8", "route": "cuda",
+         "source": "mic_tpu_torch/csrc/fused_head.cu",
+         "replaces": "mic_tpu/ops/fused_head.py:461",
+         "launches": launches["fused_head_bucket_q8"], "max_abs_err": q8_bucket_err,
+         "ms": q8_ms[("bucket_q8", 1024)][0], "plain_ms": q8_ms[("bucket_q8", 1024)][1]},
+        {"name": "fused_head_select", "route": "cuda",
+         "source": "mic_tpu_torch/csrc/fused_head.cu",
+         "replaces": "mic_tpu/ops/fused_head.py:290",
+         "launches": launches["fused_head_select"], "max_abs_err": select_err,
+         "ms": q8_ms[("exact_q8", 1024)][0], "plain_ms": q8_ms[("exact_q8", 1024)][1]},
+        {"name": "lazy_attention_q8", "route": "cuda",
+         "source": "mic_tpu_torch/csrc/lazy_attention.cu",
+         "replaces": "mic_tpu/ops/lazy_attention.py:560",
+         "launches": launches["lazy_attention_q8"], "max_abs_err": attn_q8_err,
+         "ms": q8_ms["lazy_q8"][0], "plain_ms": q8_ms["lazy_q8"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     # the run uses one card, whatever else the machine shows

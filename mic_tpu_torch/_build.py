@@ -31,9 +31,21 @@ _SIGNATURES = {
     # q, cache_k, cache_v, k_step, v_step, ancestry, out,
     # batch, beams, t_max, heads, head_dim, index, stream
     "mic_lazy_attention_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, ancestry, out,
+    # batch, beams, t_max, heads, head_dim, index, stream
+    "mic_lazy_attention_q8": [_P] * 9 + [_I] * 6 + [_P],
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 4 + [_P],
+    # hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
+    # rmax_part, rid_part, n, d, vocab, splits, stream
+    "mic_fused_head_bucket_q8": [_P] * 10 + [_I] * 4 + [_P],
+    # hidden, weight, bias, part_m, part_l, part_v, part_i, lp, ids, lse,
+    # n, d, vocab, k, runs, window, stream
+    "mic_fused_head_select_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    # xq, xs, weight_q, wscale, bias, part_m, part_l, part_v, part_i, lp,
+    # ids, lse, n, d, vocab, k, runs, window, stream
+    "mic_fused_head_select_q8": [_P] * 12 + [_I] * 6 + [_P],
     # hidden, weight, bias, part_m, part_s, part_z, lse_out, zsum_out,
     # n, d, vocab, runs, stream
     "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],

@@ -33,11 +33,22 @@
 // run writes its own three planes, and a merge kernel folds them in chunk
 // order -- sums added, and the strict > so that the earliest chunk still wins
 // ties -- giving the planes of one walk over all chunks.
+//
+// The int8-weight variant (kInt8) replaces fused_head_topk_q8's bucket
+// kernels (_kernel_q8_bucket, _kernel_q8_bucket_acc): the (V, D) weight is
+// int8 with one f32 scale per vocab row.  Each slice streams half the bytes
+// into an int8 ring, is converted to bf16 in shared memory (every int8
+// value is exact in bf16) and goes through the same bf16 tensor-core
+// product; the epilogue is s * ws[col] + b[col] in f32, with no FMA
+// contraction (__fmul_rn, __fadd_rn), as the TPU computes it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -70,15 +81,23 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
 }
 
-size_t smem_bytes(int d) {
-  return static_cast<size_t>(kBM) * (d + kPad) * 2 +
-         static_cast<size_t>(kStages) * kBC * (kBK + kPad) * 2 +
+constexpr int kPadQ = 16;      // int8 ring row padding (keeps 16-byte rows)
+
+// bf16: resident hidden tile, a bf16 slice ring, the score tile.  int8: the
+// ring holds int8 slices, plus one bf16 slice the product reads.
+size_t smem_bytes(int d, bool int8) {
+  const size_t ring = int8 ? static_cast<size_t>(kStages) * kBC * (kBK + kPadQ) +
+                                 static_cast<size_t>(kBC) * (kBK + kPad) * 2
+                           : static_cast<size_t>(kStages) * kBC * (kBK + kPad) * 2;
+  return static_cast<size_t>(kBM) * (d + kPad) * 2 + ring +
          static_cast<size_t>(kBM) * (kBC + kPadS) * 4;
 }
 
+template <bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
-                         const __nv_bfloat16* __restrict__ weight,  // (V, D)
+                         const void* __restrict__ weight_raw,       // (V, D) bf16 or int8
+                         const float* __restrict__ wscale,          // (V,), int8 only
                          const float* __restrict__ bias,            // (V,)
                          float* __restrict__ l_out,                 // (splits, N, 512)
                          float* __restrict__ rmax_out,              // (splits, N, 512)
@@ -88,9 +107,13 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
   const int lda = d + kPad;
   constexpr int ldb = kBK + kPad;
   constexpr int lds = kBC + kPadS;
+  constexpr int ldq = kBK + kPadQ;
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // bf16: the ring; int8: the one converted slice, then the int8 ring
   __nv_bfloat16* bs = as + kBM * lda;
-  float* ss = reinterpret_cast<float*>(bs + kStages * kBC * ldb);
+  int8_t* qs = reinterpret_cast<int8_t*>(bs + (kInt8 ? 1 : kStages) * kBC * ldb);
+  float* ss = kInt8 ? reinterpret_cast<float*>(qs + kStages * kBC * ldq)
+                    : reinterpret_cast<float*>(qs);
 
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBC;
@@ -120,13 +143,20 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
   auto load_slice = [&](int s) {
     const int chunk = c_begin + s / nk;
     const int kk = (s % nk) * kBK;
-    __nv_bfloat16* dst = bs + (s % kStages) * kBC * ldb;
-    for (int i = tid; i < kBC * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8);
-      const int c = (i % (kBK / 8)) * 8;
+    // 16-byte pieces of a weight row: 8 bf16 or 16 int8 values
+    constexpr int kPer = kInt8 ? 16 : 8;
+    for (int i = tid; i < kBC * (kBK / kPer); i += kThreads) {
+      const int r = i / (kBK / kPer);
+      const int c = (i % (kBK / kPer)) * kPer;
       // the ragged last chunk re-reads row V-1; its scores are masked below
-      const int v = min(chunk * kBuckets + col0 + r, vocab - 1);
-      cp_async16(dst + r * ldb + c, weight + static_cast<size_t>(v) * d + kk + c);
+      const size_t src = static_cast<size_t>(min(chunk * kBuckets + col0 + r, vocab - 1)) * d + kk + c;
+      if constexpr (kInt8) {
+        cp_async16(qs + (s % kStages) * kBC * ldq + r * ldq + c,
+                   static_cast<const int8_t*>(weight_raw) + src);
+      } else {
+        cp_async16(bs + (s % kStages) * kBC * ldb + r * ldb + c,
+                   static_cast<const __nv_bfloat16*>(weight_raw) + src);
+      }
     }
   };
 
@@ -161,7 +191,29 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
     if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
     cp_async_commit();
 
-    const __nv_bfloat16* b_tile = bs + (s % kStages) * kBC * ldb;
+    if constexpr (kInt8) {
+      // int8 slice -> bf16 slice; the next write of bs follows the next
+      // iteration's barrier, after every warp's product below
+      // (one 16-byte load of 16 values, two 16-byte stores of their bf16)
+      const int8_t* src = qs + (s % kStages) * kBC * ldq;
+      for (int i = tid; i < kBC * (kBK / 16); i += kThreads) {
+        const int r = i / (kBK / 16);
+        const int c = (i % (kBK / 16)) * 16;
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * ldq + c);
+        const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+        __align__(16) __nv_bfloat162 pairs[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          pairs[j] = __floats2bfloat162_rn(static_cast<float>(v[2 * j]),
+                                           static_cast<float>(v[2 * j + 1]));
+        }
+        uint4* dst = reinterpret_cast<uint4*>(bs + r * ldb + c);
+        dst[0] = reinterpret_cast<const uint4*>(pairs)[0];
+        dst[1] = reinterpret_cast<const uint4*>(pairs)[1];
+      }
+      __syncthreads();
+    }
+    const __nv_bfloat16* b_tile = bs + (kInt8 ? 0 : (s % kStages) * kBC * ldb);
     const int kk = ks * kBK;
 #pragma unroll
     for (int k16 = 0; k16 < kBK; k16 += 16) {
@@ -196,7 +248,11 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
         const int r = e / kBC;
         const int c = e % kBC;
         const int v = base + c;
-        const float sc = v < vocab ? ss[r * lds + c] + bias[v] : kNegInf;
+        float sc = kNegInf;
+        if (v < vocab) {
+          sc = kInt8 ? __fadd_rn(__fmul_rn(ss[r * lds + c], wscale[v]), bias[v])
+                     : ss[r * lds + c] + bias[v];
+        }
         l_acc[i] += expf(fminf(sc, kExpClamp));
         if (sc > m_acc[i]) {
           m_acc[i] = sc;
@@ -248,29 +304,27 @@ __global__ void fused_head_bucket_merge_kernel(const float* __restrict__ l_part,
   rid_out[i] = id;
 }
 
-}  // namespace
-
 // With splits == 1 the walk writes the (N, 512) outputs directly and the
 // *_part pointers are unused; with splits > 1 it writes (splits, N, 512)
 // partial planes there, which the merge kernel folds into the outputs.
-extern "C" int mic_fused_head_bucket_bf16(void* hidden, void* weight, void* bias, void* l_out,
-                                          void* rmax_out, void* rid_out, void* l_part,
-                                          void* rmax_part, void* rid_part, int n, int d,
-                                          int vocab, int splits, void* stream) {
-  const size_t smem = smem_bytes(d);
+template <bool kInt8>
+int launch_bucket(void* hidden, void* weight, void* wscale, void* bias, void* l_out,
+                  void* rmax_out, void* rid_out, void* l_part, void* rmax_part, void* rid_part,
+                  int n, int d, int vocab, int splits, void* stream) {
+  const size_t smem = smem_bytes(d, kInt8);
   const int nchunks = (vocab + kBuckets - 1) / kBuckets;
   if (n < 1 || vocab < 1 || d % kBK != 0 || smem > 232448 || splits < 1 || splits > nchunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(fused_head_bucket_kernel,
+  cudaError_t err = cudaFuncSetAttribute(fused_head_bucket_kernel<kInt8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool split = splits > 1;
   const dim3 grid((n + kBM - 1) / kBM, kBuckets / kBC, splits);
-  fused_head_bucket_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(hidden), static_cast<const __nv_bfloat16*>(weight),
+  fused_head_bucket_kernel<kInt8><<<grid, kThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(hidden), weight, static_cast<const float*>(wscale),
       static_cast<const float*>(bias), static_cast<float*>(split ? l_part : l_out),
       static_cast<float*>(split ? rmax_part : rmax_out),
       static_cast<int32_t*>(split ? rid_part : rid_out), n, d, vocab);
@@ -284,4 +338,406 @@ extern "C" int mic_fused_head_bucket_bf16(void* hidden, void* weight, void* bias
         static_cast<float*>(rmax_out), static_cast<int32_t*>(rid_out), total, splits);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Exact and window candidate select.
+//
+// Replaces fused_head_topk(select="exact"/"window") (the _kernel Pallas
+// kernel of mic_tpu/ops/fused_head.py) and the exact/window path of
+// fused_head_topk_q8 (_kernel_q8).  Per hidden row it computes the row's
+// online (max, sum of exps) of the logits and its candidates: the exact
+// top-k (on equal values the lowest id first, the leftmost max of
+// _select_topk), or the top-k over the 128-wide windows' top-1s (inside a
+// window the highest lane wins a tie, between windows the lowest window).
+// bf16 operands multiply on bf16 tensor cores into f32 and s = acc + b.  int8
+// operands (the row-quantized activation, scale xs, and the int8 weight,
+// scale ws) multiply on int8 tensor cores into exact int32, and
+// s = acc * xs[row] * ws[col] + b[col] with no FMA contraction: these
+// logits equal the plain version's bit for bit.
+//
+// The TPU walks the vocab in order with its running state in scratch; here
+// blocks run in no order.  A block owns 64 rows and a run of consecutive
+// 128-wide vocab tiles and keeps, four threads a row, its run's online
+// (max, sum) and candidates (for exact, each thread a running top-16 over
+// every fourth column of the tiles; for window, one list a row).  A second
+// kernel merges the runs per row, with no atomics: the order of candidates
+// is total (value, then id), so the merge does not depend on which run
+// finishes first.
+//
+// Bound: as the bucket kernel's -- a stream of the weight at a few rows, the
+// GEMM at N = 1024 rows -- with one block an SM (the resident 64-row tile is
+// 128 KB in bf16 at D = 1024, 64 KB in int8).  The caller makes the runs as
+// many as fill the SMs; the blocks of one run start together and mostly meet
+// in L2.  Operands are kept in shared memory in 16-wide k slabs, so every
+// tensor-core fragment (bf16 or int8) starts 32-byte aligned.
+
+constexpr int kSN = 128;       // vocab columns per tile (= the 128-wide window)
+constexpr int kSK = 32;        // depth of one weight slice
+constexpr int kSThreads = 256; // 8 warps: 2 x 4, each 32 rows x 32 columns
+constexpr int kSLds = kSN + 4; // row pitch of the score tile
+constexpr int kTopK = 16;      // the largest k served
+
+size_t select_smem_bytes(int d, size_t elem) {
+  return static_cast<size_t>(kBM) * d * elem + static_cast<size_t>(kStages) * kSN * kSK * elem +
+         static_cast<size_t>(kBM) * kSLds * 4;
+}
+
+// (v, id) ranks before (tv, ti): higher value, or the same value and lower id
+__device__ __forceinline__ bool ranks_before(float v, int id, float tv, int ti) {
+  return v > tv || (v == tv && id < ti);
+}
+
+// Insert (v, id) into a list kept in rank order; the last entry drops out.
+__device__ __forceinline__ void topk_insert(float (&tv)[kTopK], int (&ti)[kTopK], float v,
+                                            int id) {
+  if (!ranks_before(v, id, tv[kTopK - 1], ti[kTopK - 1])) return;
+  bool placed = false;
+#pragma unroll
+  for (int i = kTopK - 1; i >= 0; --i) {
+    if (!placed) {
+      if (i > 0 && ranks_before(v, id, tv[i - 1], ti[i - 1])) {
+        tv[i] = tv[i - 1];
+        ti[i] = ti[i - 1];
+      } else {
+        tv[i] = v;
+        ti[i] = id;
+        placed = true;
+      }
+    }
+  }
+}
+
+template <typename T, bool kWindow>
+__global__ void __launch_bounds__(kSThreads)
+fused_head_select_kernel(const T* __restrict__ x,           // (N, D) bf16 hidden or int8 rows
+                         const float* __restrict__ xscale,  // (N,), int8 only
+                         const T* __restrict__ weight,      // (V, D)
+                         const float* __restrict__ wscale,  // (V,), int8 only
+                         const float* __restrict__ bias,    // (V,)
+                         float* __restrict__ part_m,        // (runs, N)
+                         float* __restrict__ part_l,        // (runs, N)
+                         float* __restrict__ part_v,        // (runs, N, k)
+                         int32_t* __restrict__ part_i,      // (runs, N, k)
+                         int n, int d, int vocab, int k) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  using Frag = typename std::conditional<kInt8, signed char, __nv_bfloat16>::type;
+  constexpr int kPer = 16 / sizeof(T);  // values in a 16-byte piece
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* as = reinterpret_cast<T*>(smem_raw);          // [D/16][64 rows][16]
+  T* bs = as + kBM * d;                            // [stage][2][128 cols][16]
+  Acc* ss = reinterpret_cast<Acc*>(bs + kStages * kSN * kSK);
+
+  const int row0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 2) * 32;
+  const int wn = (warp & 3) * 32;
+
+  for (int i = tid; i < kBM * (d / kPer); i += kSThreads) {
+    const int r = i / (d / kPer);
+    const int c = (i % (d / kPer)) * kPer;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n) v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row0 + r) * d + c);
+    *reinterpret_cast<uint4*>(as + (c / 16) * (kBM * 16) + r * 16 + c % 16) = v;
+  }
+
+  const int nk = d / kSK;
+  const int ntiles = (vocab + kSN - 1) / kSN;
+  const int t_begin = static_cast<int>(static_cast<int64_t>(blockIdx.y) * ntiles / gridDim.y);
+  const int t_end = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * ntiles / gridDim.y);
+  const int nslices = (t_end - t_begin) * nk;
+  auto load_slice = [&](int s) {
+    const int tile = t_begin + s / nk;
+    const int kk = (s % nk) * kSK;
+    T* dst = bs + (s % kStages) * kSN * kSK;
+    for (int i = tid; i < kSN * (kSK / kPer); i += kSThreads) {
+      const int r = i / (kSK / kPer);
+      const int c = (i % (kSK / kPer)) * kPer;
+      // the ragged last tile re-reads row V-1; its columns are skipped below
+      const int v = min(tile * kSN + r, vocab - 1);
+      cp_async16(dst + (c / 16) * (kSN * 16) + r * 16 + c % 16,
+                 weight + static_cast<size_t>(v) * d + kk + c);
+    }
+  };
+
+  // this thread's row of the tile and its quarter of the columns
+  const int er = tid >> 2;
+  const int eq = tid & 3;
+  const float xs_r = (kInt8 && row0 + er < n) ? xscale[row0 + er] : 0.f;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+  float tv[kTopK];
+  int ti[kTopK];
+#pragma unroll
+  for (int i = 0; i < kTopK; ++i) {
+    tv[i] = -INFINITY;
+    ti[i] = INT32_MAX;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nslices) load_slice(s);
+    cp_async_commit();
+  }
+
+  fragment<accumulator, 16, 16, 16, Acc> acc[2][2];
+  for (int s = 0; s < nslices; ++s) {
+    const int ks = s % nk;
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], static_cast<Acc>(0));
+    }
+    cp_async_wait_one();
+    __syncthreads();
+    if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
+    cp_async_commit();
+
+    const T* b_tile = bs + (s % kStages) * kSN * kSK;
+#pragma unroll
+    for (int j16 = 0; j16 < kSK / 16; ++j16) {
+      const int slab = ks * (kSK / 16) + j16;
+      fragment<matrix_a, 16, 16, 16, Frag, row_major> fa[2];
+      fragment<matrix_b, 16, 16, 16, Frag, col_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        nvcuda::wmma::load_matrix_sync(
+            fa[i], reinterpret_cast<const Frag*>(as + slab * (kBM * 16) + (wm + 16 * i) * 16), 16);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        nvcuda::wmma::load_matrix_sync(
+            fb[j], reinterpret_cast<const Frag*>(b_tile + j16 * (kSN * 16) + (wn + 16 * j) * 16),
+            16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+
+    if (ks == nk - 1) {
+      // tile complete: products through shared memory into the row state;
+      // the score tile is next written after at least one more barrier
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          nvcuda::wmma::store_matrix_sync(ss + (wm + 16 * i) * kSLds + wn + 16 * j, acc[i][j],
+                                          kSLds, mem_row_major);
+      __syncthreads();
+      const int base = (t_begin + s / nk) * kSN;
+      float sv[kSN / 4];
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kSN / 4; ++j) {
+        const int col = base + eq + 4 * j;
+        float sc = -INFINITY;
+        if (col < vocab) {
+          if constexpr (kInt8) {
+            sc = __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(ss[er * kSLds + eq + 4 * j]), xs_r),
+                                     wscale[col]),
+                           bias[col]);
+          } else {
+            sc = ss[er * kSLds + eq + 4 * j] + bias[col];
+          }
+        }
+        sv[j] = sc;
+        cmax = fmaxf(cmax, sc);
+      }
+      // online sum of exps over this thread's columns
+      if (cmax > -INFINITY) {
+        const float m_new = fmaxf(m_run, cmax);
+        float l = l_run * expf(m_run - m_new);
+#pragma unroll
+        for (int j = 0; j < kSN / 4; ++j) l += expf(sv[j] - m_new);
+        m_run = m_new;
+        l_run = l;
+      }
+      if constexpr (kWindow) {
+        // the tile is one window: its top-1, the highest column on ties
+        float wv = -INFINITY;
+        int wi = -1;
+#pragma unroll
+        for (int j = 0; j < kSN / 4; ++j) {
+          if (base + eq + 4 * j < vocab && sv[j] >= wv) {
+            wv = sv[j];
+            wi = base + eq + 4 * j;
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, wv, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, wi, o);
+          if (ov > wv || (ov == wv && oi > wi)) {
+            wv = ov;
+            wi = oi;
+          }
+        }
+        if (eq == 0) topk_insert(tv, ti, wv, wi);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kSN / 4; ++j) {
+          if (base + eq + 4 * j < vocab) topk_insert(tv, ti, sv[j], base + eq + 4 * j);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+
+  // the row's (max, sum) over its four threads
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m_run, o);
+    const float ol = __shfl_xor_sync(0xffffffffu, l_run, o);
+    const float mm = fmaxf(m_run, om);
+    float l = 0.f;
+    if (m_run > -INFINITY) l += l_run * expf(m_run - mm);
+    if (om > -INFINITY) l += ol * expf(om - mm);
+    m_run = mm;
+    l_run = l;
+  }
+  if constexpr (!kWindow) {
+    // the row's four lists through shared memory into thread 0's
+    __syncthreads();
+    float* lv = reinterpret_cast<float*>(ss);
+    int* li = reinterpret_cast<int*>(lv + kBM * 4 * kTopK);
+#pragma unroll
+    for (int i = 0; i < kTopK; ++i) {
+      lv[(er * 4 + eq) * kTopK + i] = tv[i];
+      li[(er * 4 + eq) * kTopK + i] = ti[i];
+    }
+    __syncthreads();
+    if (eq == 0) {
+      for (int other = 1; other < 4; ++other)
+#pragma unroll
+        for (int i = 0; i < kTopK; ++i)
+          topk_insert(tv, ti, lv[(er * 4 + other) * kTopK + i], li[(er * 4 + other) * kTopK + i]);
+    }
+  }
+  const int grow = row0 + er;
+  if (eq == 0 && grow < n) {
+    const size_t o = static_cast<size_t>(blockIdx.y) * n + grow;
+    part_m[o] = m_run;
+    part_l[o] = l_run;
+#pragma unroll
+    for (int i = 0; i < kTopK; ++i) {
+      if (i < k) {
+        part_v[o * k + i] = tv[i];
+        part_i[o * k + i] = ti[i];
+      }
+    }
+  }
+}
+
+// One thread a row: folds the runs' (max, sum) into lse = log(sum) + max and
+// their candidate lists into the row's top-k; lp = value - lse.
+__global__ void fused_head_select_merge_kernel(const float* __restrict__ part_m,
+                                               const float* __restrict__ part_l,
+                                               const float* __restrict__ part_v,
+                                               const int32_t* __restrict__ part_i,
+                                               float* __restrict__ lp, int32_t* __restrict__ ids,
+                                               float* __restrict__ lse, int n, int k, int runs) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float m = -INFINITY;
+  for (int z = 0; z < runs; ++z) m = fmaxf(m, part_m[static_cast<size_t>(z) * n + row]);
+  float l = 0.f;
+  for (int z = 0; z < runs; ++z) {
+    const float mz = part_m[static_cast<size_t>(z) * n + row];
+    if (mz > -INFINITY) l += part_l[static_cast<size_t>(z) * n + row] * expf(mz - m);
+  }
+  const float lse_r = logf(l) + m;
+  float tv[kTopK];
+  int ti[kTopK];
+#pragma unroll
+  for (int i = 0; i < kTopK; ++i) {
+    tv[i] = -INFINITY;
+    ti[i] = INT32_MAX;
+  }
+  for (int z = 0; z < runs; ++z) {
+    const size_t o = (static_cast<size_t>(z) * n + row) * k;
+    for (int i = 0; i < k; ++i) topk_insert(tv, ti, part_v[o + i], part_i[o + i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kTopK; ++i) {
+    if (i < k) {
+      lp[static_cast<size_t>(row) * k + i] = tv[i] - lse_r;
+      ids[static_cast<size_t>(row) * k + i] = ti[i];
+    }
+  }
+  lse[row] = lse_r;
+}
+
+template <typename T, bool kWindow>
+int launch_select(const void* x, const void* xscale, const void* weight, const void* wscale,
+                  const void* bias, void* part_m, void* part_l, void* part_v, void* part_i,
+                  void* lp, void* ids, void* lse, int n, int d, int vocab, int k, int runs,
+                  void* stream) {
+  const size_t smem = select_smem_bytes(d, sizeof(T));
+  const int ntiles = (vocab + kSN - 1) / kSN;
+  if (n < 1 || vocab < 1 || d % kSK != 0 || smem > 232448 || k < 1 || k > kTopK || runs < 1 ||
+      runs > ntiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(fused_head_select_kernel<T, kWindow>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // row tiles vary fastest, so the blocks of one run are scheduled together
+  const dim3 grid((n + kBM - 1) / kBM, runs);
+  fused_head_select_kernel<T, kWindow><<<grid, kSThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(xscale), static_cast<const T*>(weight),
+      static_cast<const float*>(wscale), static_cast<const float*>(bias),
+      static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_v),
+      static_cast<int32_t*>(part_i), n, d, vocab, k);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_head_select_merge_kernel<<<(n + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_v), static_cast<const int32_t*>(part_i),
+      static_cast<float*>(lp), static_cast<int32_t*>(ids), static_cast<float*>(lse), n, k, runs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mic_fused_head_bucket_bf16(void* hidden, void* weight, void* bias, void* l_out,
+                                          void* rmax_out, void* rid_out, void* l_part,
+                                          void* rmax_part, void* rid_part, int n, int d,
+                                          int vocab, int splits, void* stream) {
+  return launch_bucket<false>(hidden, weight, nullptr, bias, l_out, rmax_out, rid_out, l_part,
+                              rmax_part, rid_part, n, d, vocab, splits, stream);
+}
+
+extern "C" int mic_fused_head_bucket_q8(void* hidden, void* weight_q, void* wscale, void* bias,
+                                        void* l_out, void* rmax_out, void* rid_out,
+                                        void* l_part, void* rmax_part, void* rid_part, int n,
+                                        int d, int vocab, int splits, void* stream) {
+  return launch_bucket<true>(hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
+                             rmax_part, rid_part, n, d, vocab, splits, stream);
+}
+
+// The exact/window select on bf16 operands (window != 0 selects "window").
+extern "C" int mic_fused_head_select_bf16(void* hidden, void* weight, void* bias, void* part_m,
+                                          void* part_l, void* part_v, void* part_i, void* lp,
+                                          void* ids, void* lse, int n, int d, int vocab, int k,
+                                          int runs, int window, void* stream) {
+  auto launch = window ? launch_select<__nv_bfloat16, true> : launch_select<__nv_bfloat16, false>;
+  return launch(hidden, nullptr, weight, nullptr, bias, part_m, part_l, part_v, part_i, lp, ids,
+                lse, n, d, vocab, k, runs, stream);
+}
+
+// The same on int8 operands: xq (N, D) with row scales xs (N,), weight_q
+// (V, D) with row scales wscale (V,).
+extern "C" int mic_fused_head_select_q8(void* xq, void* xs, void* weight_q, void* wscale,
+                                        void* bias, void* part_m, void* part_l, void* part_v,
+                                        void* part_i, void* lp, void* ids, void* lse, int n,
+                                        int d, int vocab, int k, int runs, int window,
+                                        void* stream) {
+  auto launch = window ? launch_select<int8_t, true> : launch_select<int8_t, false>;
+  return launch(xq, xs, weight_q, wscale, bias, part_m, part_l, part_v, part_i, lp, ids, lse, n,
+                d, vocab, k, runs, stream);
 }

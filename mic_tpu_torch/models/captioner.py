@@ -7,7 +7,11 @@ serving (``generate``).
 through the fused LM head (ops/fused_head.py).  DecodeConfig's "auto"
 fields resolve by the device of the tensors: on CUDA the candidate select
 is "bucket" (the kernel, as on the TPU), on the CPU "exact" in the plain
-version, which equals mic_tpu's dense CPU path at float32.
+version, which equals mic_tpu's dense CPU path at float32.  Int8 serving
+(``quantize="int8"``: int8 decoder and tied head, ops/quant.py;
+``kv_quant="int8"``: an int8 self-attention cache) resolves as mic_tpu's
+does: the per-call argument, then the environment override
+(core/knobs.py), then the DecodeConfig field.
 """
 
 from __future__ import annotations
@@ -15,13 +19,15 @@ from __future__ import annotations
 import torch
 
 from mic_tpu.core.config import CaptionerConfig
+from mic_tpu.core.knobs import override
 from mic_tpu_torch.core.params import Params, torch_dtype, tree_map
 from mic_tpu_torch.generate import search
 from mic_tpu_torch.models import clip_vit, mbart_decoder
 from mic_tpu_torch.nn.cache import LazyDecoderCache, init_lazy_cache
 from mic_tpu_torch.nn.layers import dense, init_dense, init_embed
 from mic_tpu_torch.nn.stacked import remat_policy
-from mic_tpu_torch.ops.fused_head import fused_head_topk
+from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
+from mic_tpu_torch.ops.quant import int8_matmul, quantize_params_for_decode, quantize_rows_dynamic
 
 
 def init_params(config: CaptionerConfig, generator: torch.Generator, device=None) -> Params:
@@ -88,36 +94,64 @@ class Captioner:
 
     def lm_logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head: hidden @ embedding^T + final_logits_bias, all in the
-        compute dtype."""
-        weight = params["shared"]["embedding"].to(self.dtype)
+        compute dtype.  An int8 table multiplies the row-quantized hidden
+        state int8 x int8, then acc * hs * scale in f32, cast, + bias."""
+        shared = params["shared"]
+        if "embedding_q" in shared:
+            hq, hs = quantize_rows_dynamic(hidden)
+            acc = int8_matmul(hq.reshape(-1, hq.shape[-1]), shared["embedding_q"].T)
+            acc = acc.reshape(*hidden.shape[:-1], acc.shape[-1])
+            logits = (acc.float() * hs * shared["embedding_scale"]).to(self.dtype)
+            return logits + params["final_logits_bias"].to(self.dtype)
+        weight = shared["embedding"].to(self.dtype)
         logits = hidden.to(self.dtype) @ weight.T
         return logits + params["final_logits_bias"].to(self.dtype)
 
     def init_decode_cache(self, params: Params, enc_states: torch.Tensor, max_length: int,
-                          beams: int) -> LazyDecoderCache:
+                          beams: int, kv_quant: str | None = None) -> LazyDecoderCache:
         """enc_states is true-batch (B, S, D): cross K/V are kept once per
-        image; only the self cache is per beam."""
+        image; only the self cache is per beam (int8 with kv_quant="int8")."""
         cross_k, cross_v = mbart_decoder.init_cross_cache(
             params["decoder"], enc_states, self.config.decoder, self.dtype
         )
-        return init_lazy_cache(cross_k, cross_v, beams, max_length)
+        return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant)
 
-    def _candidate_head(self, params: Params, device: torch.device) -> search.CandidateHead:
-        sel = self.config.decode.fused_select
-        if sel == "auto":
-            sel = "bucket" if device.type == "cuda" else "exact"
-        weight = params["shared"]["embedding"]
+    def _candidate_head(self, params: Params, sel: str) -> search.CandidateHead:
+        """The fused head over the tied table, int8 or not, with the forced
+        token's numerator in the same arithmetic as the head's logits."""
+        shared = params["shared"]
         bias = params["final_logits_bias"]
+        if "embedding_q" in shared:
+            weight_q, scale = shared["embedding_q"], shared["embedding_scale"]
+
+            def head(hidden, k):
+                return fused_head_topk_q8(hidden, weight_q, scale, bias, k, sel)
+
+            def tok_logit(hidden, tok):
+                if sel == "bucket":  # bf16 x int8-as-bf16, no activation quantization
+                    row = weight_q[tok].to(torch.bfloat16).float()
+                    acc = hidden.to(torch.bfloat16).float() @ row
+                    return acc * scale[tok].float() + bias[tok].float()
+                xq, xs = quantize_rows_dynamic(hidden)
+                acc = (xq.int() * weight_q[tok].int()).sum(-1)   # exact int32 dot
+                return acc.float() * xs[:, 0] * scale[tok].float() + bias[tok].float()
+        else:
+            weight = shared["embedding"]
+
+            def head(hidden, k):
+                return fused_head_topk(hidden, weight, bias, k, sel)
+
+            def tok_logit(hidden, tok):
+                return hidden.float() @ weight[tok].float() + bias[tok].float()
 
         def topk(hidden, k):
-            lp, ids, _ = fused_head_topk(hidden, weight, bias, k, sel)
+            lp, ids, _ = head(hidden, k)
             return lp, ids
 
         def token_lp(hidden, tok):
             # one weight row for the numerator, the row lse from a k=1 pass
-            _, _, lse = fused_head_topk(hidden, weight, bias, 1, sel)
-            logit = hidden.float() @ weight[tok].float() + bias[tok].float()
-            return logit - lse[:, 0]
+            _, _, lse = head(hidden, 1)
+            return tok_logit(hidden, tok) - lse[:, 0]
 
         return search.CandidateHead(topk=topk, token_lp=token_lp,
                                     vocab_size=self.config.decoder.vocab_size)
@@ -127,10 +161,20 @@ class Captioner:
                  **overrides) -> search.GenerateOutput:
         """Beam-search captions for a batch of images; defaults come from
         config.generation, overridable per call (max_length, num_beams,
-        min_length, forced_bos_token_id, length_penalty, ...)."""
+        min_length, forced_bos_token_id, length_penalty, ...), as are
+        ``quantize`` and ``kv_quant`` (None or "int8")."""
         dcfg = self.config.decode
-        if dcfg.quantize or dcfg.kv_quant:
-            raise NotImplementedError("int8 weights and int8 KV are not ported yet")
+        quantize = overrides.pop("quantize", None) or override(
+            "MIC_TPU_DECODE_QUANT", dcfg.quantize
+        )
+        kv_quant = overrides.pop("kv_quant", None) or override(
+            "MIC_TPU_KV_QUANT", dcfg.kv_quant
+        ) or None
+        if quantize not in (None, "", "int8"):
+            raise ValueError(f"unsupported quantize: {quantize!r}")
+        sel = override("MIC_TPU_FUSED_SELECT", dcfg.fused_select)
+        if sel == "auto":
+            sel = "bucket" if pixel_values.device.type == "cuda" else "exact"
         gen = self.config.generation.replace(**overrides)
         if gen.do_sample or gen.num_beams < 2:
             raise NotImplementedError("only beam search (num_beams > 1) is ported")
@@ -142,15 +186,20 @@ class Captioner:
         batch = pixel_values.shape[0]
 
         # weights in the compute dtype once, outside the decode loop (a
-        # no-op on make_serving_params output), and the fused QKV view
+        # no-op on make_serving_params output), then the fused QKV view,
+        # then int8 (so the fused kernel is scaled per channel, and the f32
+        # scales are never rounded to the compute dtype)
         params = tree_map(
             lambda x: x.to(self.dtype) if x.is_floating_point() else x, params
         )
         params = {**params, "decoder": mbart_decoder.fuse_qkv_params(params["decoder"])}
+        if quantize == "int8":
+            params = quantize_params_for_decode(params)
 
         enc_states = self.encode(params, pixel_values)
-        cache = self.init_decode_cache(params, enc_states, gen.max_length, gen.num_beams)
-        head = self._candidate_head(params, pixel_values.device)
+        cache = self.init_decode_cache(params, enc_states, gen.max_length, gen.num_beams,
+                                       kv_quant)
+        head = self._candidate_head(params, sel)
 
         def step_fn(token_ids, cache):
             hidden, cache = mbart_decoder.decoder_step(

@@ -11,7 +11,7 @@ import torch
 from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.layers import dense, init_dense, merge_heads, split_heads
 from mic_tpu_torch.ops.attention import xla_attention
-from mic_tpu_torch.ops.lazy_attention import lazy_attention
+from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
 
 
 def init_mha(generator: torch.Generator, d_model: int, std: float = 0.02,
@@ -62,7 +62,8 @@ def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     """Cached beam self-attention on the lazy cache (never reordered).
 
     x (B*K, 1, D); params hold the fused "qkv" projection
-    (models/mbart_decoder.py::fuse_qkv_params); merged caches (B*K, T, D)
+    (models/mbart_decoder.py::fuse_qkv_params), int8 or not; merged caches
+    (B*K, T, D), or int8 ones ({"q", "s"} dicts, ops/lazy_attention.py),
     gain column ``index`` in place.  Returns the (B*K, 1, D) output."""
     bk, one, d = x.shape
     b = bk // beams
@@ -70,7 +71,8 @@ def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     qkv = dense(params["qkv"], x)                            # (BK, 1, 3D)
     q, k_step, v_step = torch.split(qkv, d, dim=-1)
     q = q * (head_dim**-0.5)
-    out = lazy_attention(
+    attend = lazy_attention_q8 if isinstance(cache_k, dict) else lazy_attention
+    out = attend(
         q.reshape(b, beams, d).contiguous(), cache_k, cache_v,
         k_step.reshape(b, beams, d).contiguous(),
         v_step.reshape(b, beams, d).contiguous(),

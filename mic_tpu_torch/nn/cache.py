@@ -4,11 +4,14 @@ Row b*K + k of each layer's self K/V always holds what running slot k of
 image b wrote at each step; which row holds a beam's token at position t is
 tracked in ``ancestry``.  A beam reorder therefore moves no cache bytes: it
 composes the ancestry.  The port has one layout, the merged
-(B*K, T, H*Dh) one the attention kernel reads, and the decode step writes
-each layer's new column into it in place.
+(B*K, T, H*Dh) one the attention kernels read, and the decode step writes
+each layer's new column into it in place.  With ``kv_quant="int8"`` each
+layer's K and V are {"q": (B*K, T, H*Dh) int8, "s": (B*K, T) f32}: one
+scale per cached ROW, mic_tpu's merged int8 layout (its per-head-scale
+canonical layout is not ported).
 
 Shapes:
-  self_k / self_v : L-list of (B*K, max_len, H*Dh)
+  self_k / self_v : L-list of (B*K, max_len, H*Dh), or of int8 dicts
   cross_k/ cross_v: (L, B, enc_len, H, Dh) -- per image, beam-invariant
   ancestry        : (B, K, max_len) int32
   index           : host int -- number of positions already written
@@ -45,17 +48,26 @@ class LazyDecoderCache:
 
 
 def init_lazy_cache(cross_k: torch.Tensor, cross_v: torch.Tensor, num_beams: int,
-                    max_len: int) -> LazyDecoderCache:
-    """Zeroed merged self K/V (one tensor per layer) and identity ancestry
-    around the projected cross K/V (L, B, S, H, Dh), whose layer count,
-    batch, heads, dtype and device the self cache takes."""
+                    max_len: int, kv_quant: str | None = None) -> LazyDecoderCache:
+    """Zeroed merged self K/V (one tensor, or int8 dict, per layer) and
+    identity ancestry around the projected cross K/V (L, B, S, H, Dh), whose
+    layer count, batch, heads, dtype and device the self cache takes."""
     num_layers, batch, _, num_heads, head_dim = cross_k.shape
-    kw = dict(dtype=cross_k.dtype, device=cross_k.device)
+    device = cross_k.device
     shape = (batch * num_beams, max_len, num_heads * head_dim)
-    ancestry = torch.arange(num_beams, dtype=torch.int32, device=cross_k.device)
+    if kv_quant == "int8":
+        def kv():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:2], dtype=torch.float32, device=device)}
+    elif kv_quant:
+        raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
+    else:
+        def kv():
+            return torch.zeros(shape, dtype=cross_k.dtype, device=device)
+    ancestry = torch.arange(num_beams, dtype=torch.int32, device=device)
     return LazyDecoderCache(
-        self_k=[torch.zeros(shape, **kw) for _ in range(num_layers)],
-        self_v=[torch.zeros(shape, **kw) for _ in range(num_layers)],
+        self_k=[kv() for _ in range(num_layers)],
+        self_v=[kv() for _ in range(num_layers)],
         cross_k=cross_k,
         cross_v=cross_v,
         ancestry=ancestry[None, :, None].expand(batch, num_beams, max_len).contiguous(),

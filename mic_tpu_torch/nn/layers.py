@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from mic_tpu_torch.core.params import Params
+from mic_tpu_torch.ops.quant import dequant_dense, int8_dense
 
 
 def init_dense(generator: torch.Generator, d_in: int, d_out: int,
@@ -32,9 +33,19 @@ def init_embed(generator: torch.Generator, vocab: int, dim: int,
 
 
 def dense(params: Params, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """x @ kernel + bias with inputs and output in ``dtype`` (x's by default)."""
+    """x @ kernel + bias with inputs and output in ``dtype`` (x's by default).
+
+    An int8 dense (ops/quant.py): a 2-D ``kernel_q`` runs the int8 x int8
+    product on the row-quantized activation; a stacked (L, in, out) one is
+    dequantized to ``dtype`` and contracted as ``jnp.dot`` contracts it."""
     dtype = dtype or x.dtype
-    y = x.to(dtype) @ params["kernel"].to(dtype)
+    if "kernel_q" in params:
+        if params["kernel_q"].ndim == 2:
+            return int8_dense(params, x, dtype)
+        kernel = dequant_dense(params, dtype)
+        y = torch.tensordot(x.to(dtype), kernel, dims=([x.ndim - 1], [kernel.ndim - 2]))
+    else:
+        y = x.to(dtype) @ params["kernel"].to(dtype)
     if "bias" in params:
         y = y + params["bias"].to(dtype)
     return y
@@ -50,7 +61,13 @@ def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tens
 
 
 def embed(params: Params, ids: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Gather rows, then cast (only the looked-up rows are converted)."""
+    """Gather rows, then cast (only the looked-up rows are converted).  An
+    int8 table gathers int8 rows and scales and multiplies them in ``dtype``
+    (float32 by default)."""
+    if "embedding_q" in params:
+        dtype = dtype or torch.float32
+        rows = params["embedding_q"][ids.long()].to(dtype)
+        return rows * params["embedding_scale"][ids.long()].to(dtype)[..., None]
     rows = params["embedding"][ids.long()]
     return rows if dtype is None else rows.to(dtype)
 

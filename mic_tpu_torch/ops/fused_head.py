@@ -1,19 +1,30 @@
 """Fused tied LM head + candidate top-k + row logsumexp.
 
-Counterpart of mic_tpu/ops/fused_head.py::fused_head_topk.  Per hidden row
-it returns the top-k candidate log-probs and ids of
-log_softmax(hidden @ weight^T + bias) and the row lse.
+Counterpart of mic_tpu/ops/fused_head.py::fused_head_topk and
+::fused_head_topk_q8.  Per hidden row they return the top-k candidate
+log-probs and ids of log_softmax(hidden @ weight^T + bias) and the row lse.
 
 - ``select="bucket"``: candidates are the top-k of 512 bucket winners, each
   the running max of one column position over the vocab's 512-wide chunks
   (earliest chunk wins ties).  The TPU serving default.
-- ``select="exact"``: the exact top-k (the CPU default).
+- ``select="exact"``: the exact top-k, lower id first on equal values (the
+  CPU default).
+- ``select="window"``: the top-1 of every 128-wide window (the highest
+  lane on equal values), then the top-k of those (the lower window first).
 
-``fused_head_topk`` takes the plain versions for tensors on the CPU.  On a
-CUDA device it runs the bucket kernel (csrc/fused_head.cu), which never
-stores logits, and finishes lse and top-k in torch as the TPU's n > 512
-path finishes in XLA; the exact select has no CUDA kernel yet and raises.
-The weight is the tied embedding as stored, (V, D): no transposed copy.
+``fused_head_topk_q8`` takes the int8 tied embedding (V, D) with one f32
+scale per vocab row.  Its bucket select multiplies the hidden state rounded
+to bfloat16 by the int8 weight converted to bfloat16 (no activation
+quantization); its exact and window selects quantize the hidden state per
+row (ops/quant.py) and multiply int8 by int8 into int32, so that
+logits = acc * xs * ws + b.
+
+Each function takes the plain versions for tensors on the CPU.  On a CUDA
+device the bucket selects run the bucket kernels of csrc/fused_head.cu,
+which never store logits and leave lse and the top-k of the 512 winners to
+torch, as the TPU's n > 512 path leaves them to XLA; the exact and window
+selects run its select kernel.  The weight is the tied embedding as stored,
+(V, D): no transposed copy.
 """
 
 from __future__ import annotations
@@ -21,15 +32,31 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch import _build
+from mic_tpu_torch.ops.quant import int8_matmul, quantize_rows_dynamic
 from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
 BUCKETS = 512  # bv of mic_tpu/ops/fused_head.py::_bucket_tiles at every N
+WINDOW = 128   # _WINDOW of mic_tpu/ops/fused_head.py
 _ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBM)
-_COL_TILE = 64  # bucket columns per block of csrc/fused_head.cu (kBC)
+_COL_TILE = 64  # bucket columns per block of the bucket kernel (kBC)
+_TOPK_MAX = 16  # the largest k of the select kernel (kTopK)
+SELECTS = ("bucket", "exact", "window")
 
 
 def _logits(hidden, weight, bias) -> torch.Tensor:
     return hidden.float() @ weight.float().T + bias.float()
+
+
+def _logits_q8_bucket(hidden, weight_q, weight_scale, bias) -> torch.Tensor:
+    """bf16 hidden x int8 weight as bf16, f32 sums; then * ws + b."""
+    acc = hidden.to(torch.bfloat16).float() @ weight_q.float().T
+    return acc * weight_scale.float() + bias.float()
+
+
+def _logits_q8(xq, xs, weight_q, weight_scale, bias) -> torch.Tensor:
+    """int8 x int8 into int32 (exact); then acc * xs * ws + b in f32."""
+    acc = int8_matmul(xq, weight_q.T)
+    return acc.float() * xs * weight_scale.float() + bias.float()
 
 
 def bucket_topk_dense(logits: torch.Tensor, k: int):
@@ -49,12 +76,32 @@ def bucket_topk_dense(logits: torch.Tensor, k: int):
     return tv, ids.gather(1, pick).to(torch.int32)
 
 
-def fused_head_topk_plain(hidden, weight, bias, k: int, select: str = "bucket"):
-    """Materialized-logits version: -> (lp (N, k) f32, ids (N, k) int32,
-    lse (N, 1) f32)."""
-    logits = _logits(hidden, weight, bias)
+def window_topk_dense(logits: torch.Tensor, k: int):
+    """mic_tpu/ops/fused_head.py::_window_topk_dense: the top-1 of every
+    128-wide window (highest lane on ties), then the top-k of the window
+    winners (lower window on ties) -> (values (N, k), int32 ids (N, k))."""
+    n, v = logits.shape
+    pad = (-v) % WINDOW
+    if pad:
+        fill = torch.full((n, pad), NEG_INF, dtype=logits.dtype, device=logits.device)
+        logits = torch.cat([logits, fill], dim=1)
+    s3 = logits.reshape(n, -1, WINDOW)
+    if k > s3.shape[1]:
+        raise ValueError(f"window select: k={k} exceeds the {s3.shape[1]} windows of V={v}")
+    wmax = s3.amax(dim=-1)
+    lane = torch.arange(WINDOW, device=logits.device)
+    widx = torch.where(s3 == wmax[..., None], lane, -1).amax(dim=-1)
+    wids = torch.arange(s3.shape[1], device=logits.device) * WINDOW + widx
+    vals, pick = top_k(wmax, k)
+    return vals, wids.gather(1, pick).to(torch.int32)
+
+
+def _select_dense(logits: torch.Tensor, k: int, select: str):
+    """-> (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32) of f32 logits."""
     if select == "bucket":
         vals, ids = bucket_topk_dense(logits, k)
+    elif select == "window":
+        vals, ids = window_topk_dense(logits, k)
     elif select == "exact":
         vals, idx = top_k(logits, k)
         ids = idx.to(torch.int32)
@@ -62,6 +109,23 @@ def fused_head_topk_plain(hidden, weight, bias, k: int, select: str = "bucket"):
         raise ValueError(f"unknown select {select!r}")
     lse = torch.logsumexp(logits, dim=-1, keepdim=True)
     return vals - lse, ids, lse
+
+
+def fused_head_topk_plain(hidden, weight, bias, k: int, select: str = "bucket"):
+    """Materialized-logits version: -> (lp (N, k) f32, ids (N, k) int32,
+    lse (N, 1) f32)."""
+    return _select_dense(_logits(hidden, weight, bias), k, select)
+
+
+def fused_head_topk_q8_plain(hidden, weight_q, weight_scale, bias, k: int,
+                             select: str = "bucket"):
+    """Materialized-logits version of the int8 head (mic_tpu's non-TPU
+    path of fused_head_topk_q8)."""
+    if select == "bucket":
+        logits = _logits_q8_bucket(hidden, weight_q, weight_scale, bias)
+    else:
+        logits = _logits_q8(*quantize_rows_dynamic(hidden), weight_q, weight_scale, bias)
+    return _select_dense(logits, k, select)
 
 
 def bucket_finish(k: int, l, rmax, rid):
@@ -74,36 +138,43 @@ def bucket_finish(k: int, l, rmax, rid):
     return tv - lse, rid.gather(1, pick), lse
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _chunk_splits(n: int, v: int, device: torch.device) -> int:
-    """How many consecutive runs the kernel cuts the chunk walk into: as many
-    as fill the SMs left idle by the (row tile x column group) blocks, one
-    block per SM, and never more than there are chunks."""
+    """How many consecutive runs the bucket kernel cuts the chunk walk into:
+    as many as fill the SMs left idle by the (row tile x column group)
+    blocks, one block per SM, and never more than there are chunks."""
     blocks = -(-n // _ROW_TILE) * (BUCKETS // _COL_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-v // BUCKETS), sms // blocks))
+    return max(1, min(-(-v // BUCKETS), _sms(device) // blocks))
 
 
-def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
-    """hidden (N, D), weight (V, D) tied embedding, bias (V,) ->
-    (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32)."""
-    if hidden.device.type == "cpu":
-        return fused_head_topk_plain(hidden, weight, bias, k, select)
-    if hidden.device.type != "cuda":
-        raise ValueError(f"fused_head_topk: unsupported device {hidden.device}")
-    if select != "bucket":
-        raise NotImplementedError(f"fused_head_topk: no CUDA kernel for select={select!r}")
+def _select_runs(n: int, v: int, device: torch.device) -> int:
+    """How many runs of 128-wide vocab tiles the select kernel cuts the
+    vocab into: one block per SM over the row tiles, at most one run a tile."""
+    return max(1, min(-(-v // WINDOW), _sms(device) // -(-n // _ROW_TILE)))
+
+
+def _check_operands(name: str, *tensors) -> None:
+    device = tensors[0].device
+    for x in tensors:
+        if x.device != device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: tensors must be contiguous, 16-byte aligned "
+                             "and on one device")
+
+
+def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
+    """Launch a bucket accumulator kernel (bf16 weight when ``wscale`` is
+    None, else int8) and finish in torch -> (lp, ids, lse)."""
     n, d = hidden.shape
     v = weight.shape[0]
-    if hidden.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError("fused_head_topk kernel: hidden and weight must be bfloat16")
     if weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not 1 <= k <= BUCKETS:
-        raise ValueError(f"fused_head_topk kernel: hidden {tuple(hidden.shape)}, "
-                         f"weight {tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}")
+        raise ValueError(f"{entry}: hidden {tuple(hidden.shape)}, weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}")
     bias32 = bias.float().contiguous()
-    for x in (hidden, weight, bias32):
-        if x.device != hidden.device or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError("fused_head_topk kernel: tensors must be contiguous, "
-                             "16-byte aligned and on one device")
+    scale = () if wscale is None else (wscale.float().contiguous(),)
+    _check_operands(entry, hidden, weight, bias32, *scale)
     splits = _chunk_splits(n, v, hidden.device)
     f32 = dict(dtype=torch.float32, device=hidden.device)
     i32 = dict(dtype=torch.int32, device=hidden.device)
@@ -114,15 +185,104 @@ def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
         l_part, rmax_part = torch.empty((2, splits, n, BUCKETS), **f32)
         rid_part = torch.empty((splits, n, BUCKETS), **i32)
         parts = (l_part.data_ptr(), rmax_part.data_ptr(), rid_part.data_ptr())
-    lib = _build.lib()
-    err = lib.mic_fused_head_bucket_bf16(
-        hidden.data_ptr(), weight.data_ptr(), bias32.data_ptr(),
+    err = getattr(_build.lib(), entry)(
+        hidden.data_ptr(), weight.data_ptr(), *(x.data_ptr() for x in scale), bias32.data_ptr(),
         l.data_ptr(), rmax.data_ptr(), rid.data_ptr(), *parts,
         n, d, v, splits, torch.cuda.current_stream(hidden.device).cuda_stream,
     )
-    _build.check(err, "mic_fused_head_bucket_bf16")
-    fused_head_topk.launches += 1
+    _build.check(err, entry)
     return bucket_finish(k, l, rmax, rid)
 
 
+def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
+    """The exact/window select kernel on CUDA tensors: x (N, D) bf16 hidden
+    with weight (V, D) bf16 (``xscale``, ``wscale`` None), or x int8 rows with
+    xscale (N,) and weight int8 with wscale (V,) -> (lp (N, k) f32, ids
+    (N, k) int32, lse (N, 1) f32)."""
+    n, d = x.shape
+    v = weight.shape[0]
+    q8 = xscale is not None
+    entry = "mic_fused_head_select_q8" if q8 else "mic_fused_head_select_bf16"
+    candidates = -(-v // WINDOW) if window else v
+    if (weight.shape != (v, d) or bias.shape != (v,) or d % 32
+            or not 1 <= k <= min(_TOPK_MAX, candidates)):
+        raise ValueError(f"{entry}: x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
+                         f"bias {tuple(bias.shape)}, k={k}")
+    want = torch.int8 if q8 else torch.bfloat16
+    if x.dtype != want or weight.dtype != want:
+        raise TypeError(f"{entry}: x and weight must be {want}")
+    bias32 = bias.float().contiguous()
+    scales = (xscale.float().contiguous(), wscale.float().contiguous()) if q8 else ()
+    _check_operands(entry, x, weight, bias32, *scales)
+    runs = _select_runs(n, v, x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_m, part_l = torch.empty((2, runs, n), **f32)
+    part_v = torch.empty((runs, n, k), **f32)
+    part_i = torch.empty((runs, n, k), dtype=torch.int32, device=x.device)
+    lp = torch.empty((n, k), **f32)
+    ids = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    lse = torch.empty((n, 1), **f32)
+    operands = (x, scales[0], weight, scales[1], bias32) if q8 else (x, weight, bias32)
+    err = getattr(_build.lib(), entry)(
+        *(t.data_ptr() for t in operands),
+        *(t.data_ptr() for t in (part_m, part_l, part_v, part_i, lp, ids, lse)),
+        n, d, v, k, runs, int(window), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, entry)
+    fused_head_select.launches += 1
+    return lp, ids, lse
+
+
+fused_head_select.launches = 0
+
+
+def _check_select(select: str) -> None:
+    if select not in SELECTS:
+        raise ValueError(f"unknown select {select!r}")
+
+
+def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
+    """hidden (N, D), weight (V, D) tied embedding, bias (V,) ->
+    (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32).  ``launches`` counts
+    the bf16 bucket kernel; the exact/window kernel counts in
+    ``fused_head_select.launches``."""
+    _check_select(select)
+    if hidden.device.type == "cpu":
+        return fused_head_topk_plain(hidden, weight, bias, k, select)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"fused_head_topk: unsupported device {hidden.device}")
+    if hidden.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+        raise TypeError("fused_head_topk kernel: hidden and weight must be bfloat16")
+    if select != "bucket":
+        return fused_head_select(hidden, None, weight, None, bias, k, select == "window")
+    out = _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k)
+    fused_head_topk.launches += 1
+    return out
+
+
 fused_head_topk.launches = 0
+
+
+def fused_head_topk_q8(hidden, weight_q, weight_scale, bias, k: int, select: str = "bucket"):
+    """hidden (N, D), weight_q (V, D) int8 tied embedding, weight_scale (V,)
+    f32, bias (V,) -> (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32).
+    ``launches`` counts the int8 bucket kernel; the exact/window kernel
+    counts in ``fused_head_select.launches``."""
+    _check_select(select)
+    if hidden.device.type == "cpu":
+        return fused_head_topk_q8_plain(hidden, weight_q, weight_scale, bias, k, select)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"fused_head_topk_q8: unsupported device {hidden.device}")
+    if weight_q.dtype != torch.int8:
+        raise TypeError("fused_head_topk_q8 kernel: weight_q must be int8")
+    if select != "bucket":
+        xq, xs = quantize_rows_dynamic(hidden)
+        return fused_head_select(xq, xs[:, 0], weight_q, weight_scale, bias, k,
+                                 select == "window")
+    out = _bucket_kernel("mic_fused_head_bucket_q8", hidden.to(torch.bfloat16).contiguous(),
+                         weight_q, weight_scale, bias, k)
+    fused_head_topk_q8.launches += 1
+    return out
+
+
+fused_head_topk_q8.launches = 0

@@ -23,12 +23,16 @@ from mic_tpu.models import mbart_decoder as jax_dec
 from mic_tpu.models.captioner import Captioner as JaxCaptioner
 from mic_tpu.nn.cache import init_lazy_cache as jax_init_lazy_cache
 from mic_tpu.ops.image_prep import preprocess_images as jax_preprocess
+from mic_tpu.ops.quant import quantize_params_for_decode as jax_quantize_params
+from mic_tpu.ops.quant import quantize_rows_dynamic as jax_quantize_rows
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.io.from_jax import from_jax
+from mic_tpu_torch.models import captioner as captioner_mod
 from mic_tpu_torch.models import mbart_decoder
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.nn.cache import LazyDecoderCache
 from mic_tpu_torch.ops.image_prep import preprocess_images
+from mic_tpu_torch.ops.quant import quantize_params_for_decode
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -154,6 +158,94 @@ def test_decoder_step_matches_jax(index):
         np.testing.assert_allclose(got[:, index], ref[:, index], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_decoder_step_on_a_quantized_tree_matches_jax(kv_quant):
+    """One lazy decode step on int8 weights (quantized by each package from
+    the same fused tree), with a float or an int8 cache, against mic_tpu's
+    _decoder_step_lazy (its XLA path, merged layout).  The cross caches and,
+    with the float cache, the hidden states within 1e-5 (the int8 products
+    are exact on both sides); columns other than `index` untouched.  With
+    the int8 cache the XLA path attends to each layer's step row quantized,
+    the port (as the TPU kernel) to it unquantized: hidden states within
+    1e-2 of their largest magnitude (1.1e-3 measured), layer 0's step column
+    within one int8 step and its scale within 1e-6 (the same row, up to the
+    LayerNorm's summation order), the later layers' dequantized columns
+    within 3e-2 of their largest magnitude (8.0e-3 measured)."""
+    config = _config()
+    cfg = config.decoder
+    jax_model, jparams, model, tparams = _models(config, seed=4)
+    b, beams, t, index = 2, 4, 8, 5
+    rng = np.random.default_rng(5)
+    enc = rng.normal(size=(b, config.vision.seq_len, cfg.d_model)).astype(np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (b * beams, 1)).astype(np.int32)
+    anc = rng.integers(0, beams, (b, beams, t)).astype(np.int32)
+    anc[:, :, index:] = np.arange(beams)[None, :, None]
+    prefix = []
+    for _ in range(2 * cfg.num_layers):
+        p = rng.normal(size=(b * beams, t, cfg.d_model)).astype(np.float32)
+        p[:, index:] = 0.0
+        if kv_quant:
+            q, sc = jax_quantize_rows(jnp.asarray(p))
+            p = {"q": np.array(q), "s": np.array(sc[..., 0])}
+        prefix.append(p)
+
+    jtree = jax_quantize_params(dict(jparams, decoder=jax_dec.fuse_qkv_params(jparams["decoder"])))
+    ttree = quantize_params_for_decode(
+        dict(tparams, decoder=mbart_decoder.fuse_qkv_params(tparams["decoder"]))
+    )
+    ck, cv = jax_dec.init_cross_cache(jtree["decoder"], jnp.asarray(enc), cfg)
+    jcache = jax_init_lazy_cache(
+        cfg.num_layers, b, beams, t, enc.shape[1], cfg.num_heads, cfg.head_dim,
+        kv_quant=kv_quant, merged=True,
+    )._replace(
+        self_k=tuple(jax.tree.map(jnp.asarray, p) for p in prefix[: cfg.num_layers]),
+        self_v=tuple(jax.tree.map(jnp.asarray, p) for p in prefix[cfg.num_layers:]),
+        cross_k=ck, cross_v=cv, ancestry=jnp.asarray(anc), index=jnp.asarray(index, jnp.int32),
+    )
+    step = jax.jit(jax_dec._decoder_step_lazy, static_argnums=(4, 5, 6, 7))
+    jh, jnew = step(jtree["decoder"], jtree["shared"], jnp.asarray(tokens), jcache, cfg,
+                    jnp.float32, None, beams)
+
+    def to_torch(p):
+        return {n: torch.from_numpy(a.copy()) for n, a in p.items()} if kv_quant else \
+            torch.from_numpy(p.copy())
+
+    tck, tcv = mbart_decoder.init_cross_cache(ttree["decoder"], torch.from_numpy(enc), cfg,
+                                              torch.float32)
+    np.testing.assert_allclose(tck.numpy(), np.asarray(ck), **TOL)
+    np.testing.assert_allclose(tcv.numpy(), np.asarray(cv), **TOL)
+    tcache = LazyDecoderCache(
+        self_k=[to_torch(p) for p in prefix[: cfg.num_layers]],
+        self_v=[to_torch(p) for p in prefix[cfg.num_layers:]],
+        cross_k=tck, cross_v=tcv, ancestry=torch.from_numpy(anc), index=index,
+    )
+    th, tnew = mbart_decoder.decoder_step(ttree["decoder"], ttree["shared"],
+                                          torch.from_numpy(tokens), tcache, cfg, torch.float32,
+                                          beams)
+    others = np.arange(t) != index
+    pairs = list(zip(tnew.self_k + tnew.self_v, jnew.self_k + jnew.self_v))
+    if not kv_quant:
+        np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+        for got, ref in pairs:
+            got, ref = got.numpy(), np.asarray(ref)
+            np.testing.assert_array_equal(got[:, others], ref[:, others])
+            np.testing.assert_allclose(got[:, index], ref[:, index], rtol=1e-6, atol=1e-6)
+        return
+    ref_h = np.asarray(jh)
+    assert np.abs(th.numpy() - ref_h).max() < 1e-2 * np.abs(ref_h).max()
+    for layer, (got, ref) in enumerate(pairs):
+        got = {n: a.numpy() for n, a in got.items()}
+        ref = {n: np.asarray(a) for n, a in ref.items()}
+        for name in ("q", "s"):
+            np.testing.assert_array_equal(got[name][:, others], ref[name][:, others])
+        if layer % cfg.num_layers == 0:
+            step = got["q"][:, index].astype(np.int32) - ref["q"][:, index]
+            assert np.abs(step).max() <= 1
+            np.testing.assert_allclose(got["s"][:, index], ref["s"][:, index], rtol=1e-6)
+        deq = [c["q"][:, index] * c["s"][:, index, None] for c in (got, ref)]
+        assert np.abs(deq[0] - deq[1]).max() < 3e-2 * np.abs(deq[1]).max()
+
+
 GENERATE_CASES = {
     # the CPU default: exact candidate select on both sides
     "exact": dict(vocab=600, env={}, decode={},
@@ -168,6 +260,15 @@ GENERATE_CASES = {
     "finishing": dict(vocab=40, env={}, decode={}, eos_bias=6.0,
                       kw=dict(max_length=16, forced_bos_token_id=5, length_penalty=0.8,
                               early_stopping=True)),
+    # int8 weights and head (per-call quantize): mic_tpu's dense int8 CPU
+    # path against the port's exact-q8 head; the int8 products are exact
+    "int8": dict(vocab=600, env={}, decode={},
+                 kw=dict(max_length=12, forced_bos_token_id=7, quantize="int8")),
+    # int8 weights with the bucket-q8 head in both packages' plain versions
+    "int8_bucket": dict(vocab=1100,
+                        env={"MIC_TPU_FUSED_HEAD": "1", "MIC_TPU_FUSED_SELECT": "bucket",
+                             "MIC_TPU_DECODE_QUANT": "int8"},
+                        decode={}, kw=dict(max_length=10, forced_bos_token_id=7)),
 }
 
 
@@ -191,6 +292,84 @@ def test_beam_generate_matches_jax(case, monkeypatch):
     np.testing.assert_array_equal(out.sequences.numpy(), np.asarray(ref.sequences))
     np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores), **TOL)
     assert (out.sequences[:, 1] == kw["forced_bos_token_id"]).all()
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_int8_kv_generate_near_jax_merged_kv(quantize, monkeypatch):
+    """kv_quant="int8" against mic_tpu's generate on its merged int8 cache
+    (MIC_TPU_EXPERIMENTAL=merged_kv, the XLA path): the port attends to each
+    step row unquantized, as the TPU kernel does, mic_tpu's XLA path to it
+    quantized.  Bound: every image's best-beam score within 3e-2 (the
+    per-token log-probs move by about one int8 step of the attention output;
+    measured 1.8e-2 with int8 weights, 1.2e-2 without, over two seeds), and
+    sequences equal but for at most one image, where such a shift can flip a
+    near-tie between two captions (one token of one image flipped with int8
+    weights, at a score difference of 1.8e-2)."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "merged_kv")
+    config = _config(600)
+    jax_model, jparams, model, tparams = _models(config, seed=2, scale=0.5)
+    u8 = _images(n=3, seed=3)
+    kw = dict(num_beams=4, max_length=12, forced_bos_token_id=7, kv_quant="int8",
+              quantize=quantize)
+    ref = jax.jit(lambda p, x: jax_model.generate(p, x, **kw))(
+        jparams, jax_preprocess(jnp.asarray(u8), 32)
+    )
+    out = model.generate(tparams, preprocess_images(torch.from_numpy(u8), 32), **kw)
+    differ = (out.sequences.numpy() != np.asarray(ref.sequences)).any(axis=1)
+    assert differ.sum() <= 1, differ
+    assert (out.sequences[:, 1] == 7).all()
+    np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores), rtol=0, atol=3e-2)
+
+
+RESOLVE_CASES = {
+    # (per-call kwargs, env, DecodeConfig fields) -> (quantize, kv_quant, select)
+    "config": ({}, {}, dict(quantize="int8", kv_quant="int8", fused_select="window"),
+               ("int8", "int8", "window")),
+    "env": ({}, {"MIC_TPU_DECODE_QUANT": "int8", "MIC_TPU_KV_QUANT": "int8",
+                 "MIC_TPU_FUSED_SELECT": "bucket"}, dict(fused_select="window"),
+            ("int8", "int8", "bucket")),
+    "per_call": (dict(quantize="int8", kv_quant="int8"), {"MIC_TPU_DECODE_QUANT": ""}, {},
+                 ("int8", "int8", "exact")),
+    "none": ({}, {}, {}, (None, None, "exact")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESOLVE_CASES))
+def test_generate_resolves_int8_options_as_mic_tpu(case, monkeypatch):
+    """Per-call quantize= and kv_quant= are accepted (mic_tpu's bench passes
+    them); each option resolves as mic_tpu's generate does: the per-call
+    value, then MIC_TPU_DECODE_QUANT / MIC_TPU_KV_QUANT /
+    MIC_TPU_FUSED_SELECT through mic_tpu.core.knobs.override, then the
+    DecodeConfig field ("auto" select: exact on the CPU)."""
+    kw, env, fields, want = RESOLVE_CASES[case]
+    for key in ("MIC_TPU_DECODE_QUANT", "MIC_TPU_KV_QUANT", "MIC_TPU_FUSED_SELECT"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    seen = {}
+    quantize = captioner_mod.quantize_params_for_decode
+    init_cache = Captioner.init_decode_cache
+    head = Captioner._candidate_head
+    monkeypatch.setattr(captioner_mod, "quantize_params_for_decode",
+                        lambda p: seen.setdefault("quantize", "int8") and quantize(p))
+
+    def spy_cache(self, *args):
+        seen["kv_quant"] = args[-1]
+        return init_cache(self, *args)
+
+    def spy_head(self, params, sel):
+        seen["select"] = sel
+        return head(self, params, sel)
+
+    monkeypatch.setattr(Captioner, "init_decode_cache", spy_cache)
+    monkeypatch.setattr(Captioner, "_candidate_head", spy_head)
+    config = _config(1300, decode=DecodeConfig(**fields))  # 11 windows for k = 9
+    params = init_params(config, torch.Generator().manual_seed(0))
+    px = preprocess_images(torch.from_numpy(_images(n=1)), 32)
+    out = Captioner(config).generate(params, px, num_beams=4, max_length=4,
+                                     forced_bos_token_id=7, **kw)
+    assert out.sequences.shape == (1, 4)
+    assert (seen.get("quantize"), seen["kv_quant"], seen["select"]) == want
 
 
 def test_from_jax_keeps_every_leaf_and_init_matches_layout():
@@ -224,8 +403,9 @@ def test_from_jax_keeps_every_leaf_and_init_matches_layout():
 
 
 def test_port_never_imports_jax():
-    """A process that imports the port and runs a tiny CPU generate has
-    no JAX module loaded."""
+    """A process that imports the port and runs a tiny CPU generate, in
+    bf16-free float32 and with int8 weights and an int8 cache, has no JAX
+    module loaded."""
     code = (
         "import sys, torch\n"
         "from mic_tpu.core.config import CaptionerConfig, DecoderConfig, VisionConfig\n"
@@ -234,9 +414,10 @@ def test_port_never_imports_jax():
         "cfg = CaptionerConfig(vision=VisionConfig.tiny(), decoder=DecoderConfig.tiny())\n"
         "params = init_params(cfg, torch.Generator().manual_seed(0))\n"
         "px = preprocess_images(torch.zeros((1, 40, 40, 3), dtype=torch.uint8), 32)\n"
-        "out = Captioner(cfg).generate(params, px, num_beams=4, max_length=6,\n"
-        "                              forced_bos_token_id=7)\n"
-        "assert out.sequences.shape == (1, 6), out.sequences.shape\n"
+        "for kw in ({}, {'quantize': 'int8', 'kv_quant': 'int8'}):\n"
+        "    out = Captioner(cfg).generate(params, px, num_beams=4, max_length=6,\n"
+        "                                  forced_bos_token_id=7, **kw)\n"
+        "    assert out.sequences.shape == (1, 6), out.sequences.shape\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"
         "print('ok')\n"
     )

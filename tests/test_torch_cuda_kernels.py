@@ -8,14 +8,18 @@ imports no JAX (the card's machine has none); run it there with
 Tolerances: the kernels compute in bfloat16 with float32 accumulation in
 another order than the plain versions: attention outputs within 2e-2 (one
 bfloat16 rounding of values near 1), head log-probs within 2e-3 and lse
-within 1e-3 relative; cache contents and candidate ids exactly; the
-flash-CE kernels as each test states (bf16 dl within one bf16 rounding).
+within 1e-3 relative; cache contents (int8 values and scales too) and
+candidate ids exactly; the flash-CE kernels as each test states (bf16 dl
+within one bf16 rounding).  The int8 exact/window head computes the plain
+version's logits bit for bit (exact int32 sums, the same f32 epilogue), so
+its ids are equal and its lp and lse within 1e-5; the bf16 exact/window
+head's ids may differ only at near-ties, two logits within 1e-2.
 """
 
 import pytest
 import torch
 
-from mic_tpu.core.config import CaptionerConfig, DecoderConfig, VisionConfig
+from mic_tpu.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.ops.flash_ce import (
@@ -25,9 +29,21 @@ from mic_tpu_torch.ops.flash_ce import (
     flash_ce_forward,
     flash_ce_forward_plain,
 )
-from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain
+from mic_tpu_torch.ops.fused_head import (
+    fused_head_select,
+    fused_head_topk,
+    fused_head_topk_plain,
+    fused_head_topk_q8,
+    fused_head_topk_q8_plain,
+)
 from mic_tpu_torch.ops.image_prep import preprocess_images
-from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_plain
+from mic_tpu_torch.ops.lazy_attention import (
+    lazy_attention,
+    lazy_attention_plain,
+    lazy_attention_q8,
+    lazy_attention_q8_plain,
+)
+from mic_tpu_torch.ops.quant import quantize_array, quantize_rows_dynamic
 
 
 @pytest.fixture
@@ -121,6 +137,148 @@ def test_generate_runs_through_both_kernels(cuda):
     assert lazy_attention.launches == config.decoder.num_layers * out.steps
     assert fused_head_topk.launches >= out.steps
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("index", [0, 1, 9, 15])
+def test_lazy_attention_q8_kernel_matches_plain(cuda, index):
+    b, beams, t, heads, hd = 3, 4, 16, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(100 + index)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+    def int8_cache():
+        q, s = quantize_rows_dynamic(rand(b * beams, t, hd))
+        return {"q": q, "s": s[..., 0].contiguous()}
+
+    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+    ck, cv = int8_cache(), int8_cache()
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
+    anc[:, :, index:] = torch.arange(beams, device=cuda, dtype=torch.int32)[None, :, None]
+    before = [{n: a.clone() for n, a in c.items()} for c in (ck, cv)]
+    pk, pv = ({n: a.clone() for n, a in c.items()} for c in (ck, cv))
+    launches = lazy_attention_q8.launches
+    out = lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
+    ref = lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, index, heads)
+    torch.cuda.synchronize()
+    assert lazy_attention_q8.launches == launches + 1
+    for mine, plain, old in zip((ck, cv), (pk, pv), before):
+        for name in ("q", "s"):
+            assert torch.equal(mine[name], plain[name])
+            assert torch.equal(mine[name][:, index + 1:], old[name][:, index + 1:])
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def _head_inputs(cuda, n, d, v, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hidden = torch.randn((n, d), generator=g, device=cuda).bfloat16()
+    weight = (torch.randn((v, d), generator=g, device=cuda) * 0.2).bfloat16()
+    bias = (torch.randn((v,), generator=g, device=cuda) * 0.1).bfloat16()
+    wq, ws = quantize_array(weight, axis=1)
+    return hidden, weight, bias, wq, ws
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("k", [1, 9])
+def test_fused_head_q8_bucket_kernel_matches_plain(cuda, k):
+    hidden, _, bias, wq, ws = _head_inputs(cuda, 70, 128, 1300, 20 + k)
+    launches = fused_head_topk_q8.launches
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, k, "bucket")
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, k, "bucket")
+    torch.cuda.synchronize()
+    assert fused_head_topk_q8.launches == launches + 1
+    assert torch.equal(ids, rids)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v", [(70, 1997), (4, 4099)])  # a partial row tile; ragged vocab
+@pytest.mark.parametrize("k", [1, 9])
+@pytest.mark.parametrize("select", ["exact", "window"])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_head_select_kernel_matches_plain(cuda, q8, select, k, n, v):
+    hidden, weight, bias, wq, ws = _head_inputs(cuda, n, 128, v, n + k)
+    launches = fused_head_select.launches
+    if q8:
+        out = fused_head_topk_q8(hidden, wq, ws, bias, k, select)
+        ref = fused_head_topk_q8_plain(hidden, wq, ws, bias, k, select)
+    else:
+        out = fused_head_topk(hidden, weight, bias, k, select)
+        ref = fused_head_topk_plain(hidden, weight, bias, k, select)
+    torch.cuda.synchronize()
+    assert fused_head_select.launches == launches + 1
+    (lp, ids, lse), (rlp, rids, rlse) = out, ref
+    if q8:
+        assert torch.equal(ids, rids)
+        torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    else:
+        logits = hidden.float() @ weight.float().T + bias.float()
+        gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+        assert bool((gap[ids != rids] < 1e-2).all())
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+        torch.testing.assert_close(lp[ids == rids], rlp[ids == rids], rtol=0, atol=2e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_head_select_kernel_ties(cuda, q8):
+    """Zero hidden rows: the logits are the bias.  exact: equal values in id
+    order; window: the highest lane inside a window, then window order --
+    across the row tiles and runs the kernel cuts the vocab into."""
+    _, weight, _, wq, ws = _head_inputs(cuda, 4, 128, 5000, 30)
+    hidden = torch.zeros((4, 128), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros((5000,), device=cuda, dtype=torch.bfloat16)
+    bias[[4900, 40, 300, 2600]] = 3.0
+    bias[[131, 250, 4999]] = 2.0
+    for select, k, want in (("exact", 7, [40, 300, 2600, 4900, 131, 250, 4999]),
+                            ("window", 6, [40, 300, 2600, 4900, 250, 4999])):
+        if q8:
+            ids = fused_head_topk_q8(hidden, wq, ws, bias, k, select)[1]
+        else:
+            ids = fused_head_topk(hidden, weight, bias, k, select)[1]
+        torch.cuda.synchronize()
+        assert ids.tolist() == [want] * 4, (select, ids.tolist())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("select", ["bucket", "exact", "window"])
+def test_int8_generate_runs_through_the_int8_kernels(cuda, select):
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1300, d_model=128, num_heads=2,
+                                   ffn_dim=256, max_position_embeddings=64),
+        decode=DecodeConfig(fused_select=select),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=cuda).manual_seed(1),
+                                             cuda))
+    images = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8, device=cuda)
+    px = preprocess_images(images, 32, torch.bfloat16)
+    lazy_attention_q8.launches = fused_head_topk_q8.launches = fused_head_select.launches = 0
+    out = Captioner(config).generate(params, px, num_beams=4, max_length=12,
+                                     forced_bos_token_id=7, quantize="int8", kv_quant="int8")
+    torch.cuda.synchronize()
+    assert lazy_attention_q8.launches == config.decoder.num_layers * out.steps
+    head = fused_head_topk_q8 if select == "bucket" else fused_head_select
+    assert head.launches >= out.steps
+    assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+@pytest.mark.requires_cuda
+def test_quantization_on_the_card_equals_the_cpu(cuda):
+    """Weights and activation rows quantize to the same int8 values and f32
+    scales on the card as on the CPU (where they equal mic_tpu's)."""
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn((3, 96, 200), generator=g) * 0.05).bfloat16()
+    x = torch.randn((37, 96), generator=g)
+    for axis in (1, 2):
+        for got, ref in zip(quantize_array(w.to(cuda), axis), quantize_array(w, axis)):
+            assert torch.equal(got.cpu(), ref)
+    for got, ref in zip(quantize_rows_dynamic(x.to(cuda)), quantize_rows_dynamic(x)):
+        assert torch.equal(got.cpu(), ref)
 
 
 def _ce_inputs(cuda, n, d, v, seed):

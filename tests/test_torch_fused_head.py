@@ -1,10 +1,13 @@
 """The port's fused LM head (mic_tpu_torch/ops/fused_head.py) against
-mic_tpu/ops/fused_head.py::fused_head_topk on the CPU.
+mic_tpu/ops/fused_head.py::fused_head_topk and ::fused_head_topk_q8 on the
+CPU.
 
 On the CPU both run materialized-logits versions at float32: ids must be
-equal and log-probs and lse within 1e-5 (float32 sums in another order).
-V = 1300 spans three 512-wide bucket chunks with a padded tail.  The CUDA
-kernel is held to the plain version in tests/test_torch_cuda_kernels.py.
+equal and log-probs and lse within 1e-5 (float32 sums in another order; the
+int8 exact/window logits are exact int32 sums on both sides).  V = 1300
+spans three 512-wide bucket chunks and eleven 128-wide windows with a
+padded tail.  The CUDA kernels are held to the plain versions in
+tests/test_torch_cuda_kernels.py.
 """
 
 import jax
@@ -14,7 +17,14 @@ import pytest
 import torch
 
 from mic_tpu.ops.fused_head import fused_head_topk as jax_fused_head_topk
-from mic_tpu_torch.ops.fused_head import bucket_finish, fused_head_topk
+from mic_tpu.ops.fused_head import fused_head_topk_q8 as jax_fused_head_topk_q8
+from mic_tpu.ops.quant import quantize_array
+from mic_tpu_torch.ops.fused_head import (
+    bucket_finish,
+    fused_head_select,
+    fused_head_topk,
+    fused_head_topk_q8,
+)
 from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -40,12 +50,54 @@ def _compare(hidden, weight, bias, k, select):
     assert got[1].dtype == torch.int32
     np.testing.assert_allclose(got[0].numpy(), lp, **TOL)
     np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
+    return got
 
 
-@pytest.mark.parametrize("select", ["bucket", "exact"])
+def _compare_q8(hidden, weight, bias, k, select):
+    """Quantize the weight with mic_tpu, run both int8 heads."""
+    wq, ws = (np.array(a) for a in quantize_array(jnp.asarray(weight), axis=1))
+    ref = jax_fused_head_topk_q8(jnp.asarray(hidden), jnp.asarray(wq).T, jnp.asarray(ws),
+                                 jnp.asarray(bias), k, select)
+    counts = fused_head_topk_q8.launches, fused_head_select.launches
+    got = fused_head_topk_q8(torch.from_numpy(hidden), torch.from_numpy(wq),
+                             torch.from_numpy(ws), torch.from_numpy(bias), k, select)
+    assert (fused_head_topk_q8.launches, fused_head_select.launches) == counts
+    lp, ids, lse = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(got[1].numpy(), ids)
+    assert got[1].dtype == torch.int32
+    np.testing.assert_allclose(got[0].numpy(), lp, **TOL)
+    np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
+    return got
+
+
+@pytest.mark.parametrize("select", ["bucket", "exact", "window"])
 @pytest.mark.parametrize("k", [1, 9])
 def test_plain_matches_jax(select, k):
     _compare(*_inputs(seed=k), k, select)
+
+
+@pytest.mark.parametrize("select", ["bucket", "exact", "window"])
+@pytest.mark.parametrize("k", [1, 9])
+def test_plain_q8_matches_jax(select, k):
+    _compare_q8(*_inputs(seed=10 + k), k, select)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_exact_and_window_ties(q8):
+    """Zero hidden rows make the logits the bias (the int8 head's zero rows
+    quantize to zero).  exact: equal values in id order.  window: inside a
+    window the highest lane wins; equal window winners in window order."""
+    hidden, weight, _ = _inputs(n=2)
+    hidden[:] = 0.0
+    bias = np.zeros(1300, np.float32)
+    bias[[900, 40, 300]] = 3.0          # three ties, in three windows
+    bias[[131, 250]] = 2.0              # one window (128-255): lane 122 wins
+    bias[1290] = 2.0                    # the ragged last window
+    run = _compare_q8 if q8 else _compare
+    exact = run(hidden, weight, bias, 6, "exact")[1]
+    window = run(hidden, weight, bias, 5, "window")[1]
+    assert exact[0].tolist() == [40, 300, 900, 131, 250, 1290]
+    assert window[0].tolist() == [40, 300, 900, 250, 1290]
 
 
 def test_bucket_ties_take_the_earliest_chunk():
