@@ -41,16 +41,32 @@ Phases, each of which raises on failure (none catches its own):
      exact-select run), so that every head kernel carries a whole generate;
      B=1 and B=256 smoke figures;
  17. at a small width, the trees quantized on the card and on the CPU
-     bit-equal, and int8 generate (bucket and exact) card against CPU.
+     bit-equal, and int8 generate (bucket and exact) card against CPU;
+ 18. the decode-attention kernel against its plain version at the flagship
+     greedy shape (L=12, B=256, T=64, H=16, Dh=64, bf16, index in {0, 1,
+     17, 63}): outputs, the written cache bit-equal, other cells untouched;
+ 19. the top-k + logsumexp kernel against its plain version (N in {4, 256,
+     1024}, V=250054, and V=997 with ties; k in {1, 2, 9, 13}; bf16, f32);
+ 20. both kernels' times beside their plain versions' and a library
+     yardstick (scaled_dot_product_attention; torch.topk + logsumexp);
+ 21. the flagship greedy path, 8 images: by default (the bucket head, k=2),
+     under MIC_TPU_EXPERIMENTAL=fused_decode,pallas_topk with
+     MIC_TPU_FUSED_HEAD=0 (both new kernels, with launch counts), and
+     sampling with pinned EOS positions (twice from one seed); B=1 and
+     B=256 greedy smoke figures;
+ 22. greedy at a small width on the card against the CPU in both knob sets.
 It then prints the card's name and power limit, one JSON line describing
-the kernels, and as its last line
+the kernels (each with its time, its plain version's, its bound and a
+library call's where one computes the same function), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import time
 
@@ -58,6 +74,60 @@ import numpy as np
 import torch
 
 FLAGSHIP_BOS = 250004  # mBART-50's en_XX language code
+
+# One H100 SXM, NVIDIA's data sheet: HBM3 bytes/s, and dense peaks without
+# sparsity (f32 outside the tensor cores, for the attention kernels' FMAs).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``
+    operations of type ``kind`` -> (ms, "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def attention_bound(rows, index, hd, cache_bytes, scale_bytes=0, ancestry=False):
+    """Decode attention at write position ``index``: the live prefix of the
+    cache read (positions < index), the step column written, q and the step
+    K/V read and the output written in bf16, the ancestry's live prefix;
+    4 f32 operations per cached element (q.k and p.v)."""
+    per_row = hd * cache_bytes + scale_bytes
+    nbytes = (2 * rows * index * per_row + 2 * rows * per_row + 4 * rows * hd * 2
+              + (rows * (index + 1) * 4 if ancestry else 0))
+    return bound(nbytes, 4 * rows * (index + 1) * hd, "f32")
+
+
+def head_bound(n, d, v, k, weight_bytes, kind, scales=False):
+    """A tied-head select: the (V, D) table, its bias (and scales), the
+    hidden rows read once, k candidates and the lse written; 2 N D V
+    products."""
+    nbytes = v * d * weight_bytes + v * 2 + (v * 4 if scales else 0) + n * d * 2 + n * (8 * k + 4)
+    return bound(nbytes, 2 * n * d * v, kind)
+
+
+def topk_bound(n, v, k, elem_bytes):
+    """Top-k + logsumexp of (N, V) logits: the logits read once, k log-probs
+    and ids written; a compare, an exp and an add per logit in f32."""
+    return bound(n * v * elem_bytes + n * k * 8, 3 * n * v, "f32")
+
+
+@contextlib.contextmanager
+def knobs(**env):
+    """Set MIC_TPU_* variables for one phase and restore them after it."""
+    old = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
 
 
 def require(ok, what: str) -> None:
@@ -80,6 +150,25 @@ def median_ms(fn, runs: int = 25) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 10, runs: int = 10) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the median CUDA-event time of ``runs`` replays over ``reps``.  The
+    wrapper's host work (argument checks, allocation, the launch) is not in
+    it, as it is in ``median_ms``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = median_ms(graph.replay, runs) / reps
+    del graph
+    return ms
 
 
 def check_lazy_attention(dev):
@@ -157,7 +246,7 @@ def flagship(dev):
     """Flagship-width random bf16 serving params (CLIP ViT-B/32 -> 12-layer
     mBART-50 -> tied 250054-token head), the model, the generate arguments
     and a maker of preprocessed random images."""
-    from mic_tpu.core.config import CaptionerConfig
+    from mic_tpu_torch.core.config import CaptionerConfig
     from mic_tpu_torch.core.params import make_serving_params
     from mic_tpu_torch.models.captioner import Captioner, init_params
     from mic_tpu_torch.ops.image_prep import preprocess_images
@@ -181,12 +270,15 @@ def flagship(dev):
 
 def _counters():
     """Every kernel wrapper's launch counter on the serving path, by name."""
+    from mic_tpu_torch.ops.decode_attention import decode_attention
     from mic_tpu_torch.ops.fused_head import fused_head_select, fused_head_topk, fused_head_topk_q8
     from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs
 
     return {"lazy_attention": lazy_attention, "fused_head": fused_head_topk,
             "lazy_attention_q8": lazy_attention_q8, "fused_head_bucket_q8": fused_head_topk_q8,
-            "fused_head_select": fused_head_select}
+            "fused_head_select": fused_head_select, "decode_attention": decode_attention,
+            "topk_log_probs": topk_log_probs}
 
 
 def drive(model, params, px, **kw):
@@ -220,8 +312,8 @@ def smoke_figures(model, params, pixels, kw, label):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             require(bool(torch.isfinite(out.scores).all()), f"{label}: non-finite scores at B={b}")
-            print(f"smoke figure (not a benchmark), {label}, run {attempt}: B={b} beam 4 "
-                  f"max_length 64, {out.steps} steps in {seconds:.3f} s = "
+            print(f"smoke figure (not a benchmark), {label}, run {attempt}: B={b} num_beams "
+                  f"{kw['num_beams']} max_length 64, {out.steps} steps in {seconds:.3f} s = "
                   f"{b / seconds:.1f} captions/s", flush=True)
 
 
@@ -247,7 +339,7 @@ def run_whole_path(dev, flag):
 def check_small_against_cpu(dev):
     """The card's path (both kernels) against the CPU path (plain versions)
     on the same bfloat16 weights at a small width with head_dim 64."""
-    from mic_tpu.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
     from mic_tpu_torch.core.params import make_serving_params, tree_map
     from mic_tpu_torch.models.captioner import Captioner, init_params
     from mic_tpu_torch.ops.image_prep import preprocess_images
@@ -256,7 +348,7 @@ def check_small_against_cpu(dev):
         vision=VisionConfig.tiny(),
         decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
                                    max_position_embeddings=64),
-        decode=DecodeConfig(fused_select="bucket"),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
         dtype="bfloat16",
     )
     params = make_serving_params(init_params(config, torch.Generator(device=dev).manual_seed(3),
@@ -449,7 +541,7 @@ def run_training(dev):
     """The port's Trainer at flagship width, TrainConfig defaults (batch 64 x
     64 tokens, dropout 0.1, remat "masks", fused CE on the dl route, bf16
     moments and shadow) with warmup_steps=2: six steps, twice from one seed."""
-    from mic_tpu.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
     from mic_tpu_torch.core.params import tree_leaves
     from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl, flash_ce_forward
     from mic_tpu_torch.train.trainer import Trainer
@@ -512,7 +604,7 @@ def check_training_small_against_cpu(dev):
     weights.  Losses within 5e-3 relative (bf16 activations rounded in
     other orders); params within 2 x steps x lr absolute, the bound that
     Adam's normalized update allows a near-zero gradient."""
-    from mic_tpu.core.config import (
+    from mic_tpu_torch.core.config import (
         CaptionerConfig, DataConfig, DecoderConfig, TrainConfig, VisionConfig,
     )
     from mic_tpu_torch.core.params import tree_leaves, tree_map
@@ -785,7 +877,7 @@ def check_int8_small_against_cpu(dev):
     same sequences on the card (kernels) as on the CPU (plain versions),
     scores within 5e-2 (bf16 activations summed in other orders can move a
     row's int8 rounding by one step)."""
-    from mic_tpu.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
     from mic_tpu_torch.core.params import make_serving_params, tree_leaves, tree_map
     from mic_tpu_torch.models import mbart_decoder
     from mic_tpu_torch.models.captioner import Captioner, init_params
@@ -797,7 +889,7 @@ def check_int8_small_against_cpu(dev):
             vision=VisionConfig.tiny(),
             decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
                                        max_position_embeddings=64),
-            decode=DecodeConfig(fused_select=select), dtype="bfloat16",
+            decode=DecodeConfig(fused_head="1", fused_select=select), dtype="bfloat16",
         )
 
     params = make_serving_params(init_params(config("bucket"),
@@ -829,6 +921,232 @@ def check_int8_small_against_cpu(dev):
               f"max score difference={score_err:.3g}", flush=True)
         require(same, f"int8 {select}: card and CPU sequences differ")
         require(score_err < 5e-2, f"int8 {select}: card and CPU scores differ")
+
+
+def check_decode_attention(dev):
+    """Phase 18: the decode-attention kernel against its plain version at
+    the flagship greedy shape (12 layers, B=256 rows, T=64, H=16, Dh=64,
+    bf16), layer 5, index in {0, 1, 17, 63}: outputs within 2e-2 (the bf16
+    output rounded once after f32 sums in another order), the written
+    caches bit-equal to the plain version's, every other cell untouched."""
+    from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+
+    layers, b, t, heads, dh, layer = 12, 256, 64, 16, 64, 5
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    worst = 0.0
+    for index in (0, 1, 17, 63):
+        q, ks, vs = (rand(b, 1, heads, dh, scale=s) for s in (0.3, 0.5, 0.5))
+        ck, cv = rand(layers, b, t, heads, dh), rand(layers, b, t, heads, dh)
+        before = (ck.clone(), cv.clone())
+        pk, pv = ck.clone(), cv.clone()
+        out = decode_attention(q, ks, vs, ck, cv, layer, index)
+        ref = decode_attention_plain(q, ks, vs, pk, pv, layer, index)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        require(torch.equal(ck, pk) and torch.equal(cv, pv), "decode_attention: cache differs "
+                "from plain")
+        keep = torch.ones((layers, b, t), dtype=torch.bool, device=dev)
+        keep[layer, :, index] = False
+        require(all(torch.equal(c[keep], o[keep]) for c, o in zip((ck, cv), before)),
+                "decode_attention: a cell other than [layer, :, index] was written")
+        print(f"decode_attention index={index}: max_abs_err={err:.6g}, cache bit-equal, "
+              "other layers and columns untouched", flush=True)
+        del before
+    return worst, (q, ks, vs, ck, cv, pk, pv, layer)
+
+
+def check_topk_lse(dev):
+    """Phase 19: the top-k + logsumexp kernel against its plain version at N
+    in {4, 256, 1024}, V=250054, and at V=997 with ties (a constant row, a
+    repeated maximum, integer logits), k in {1, 2, 9, 13}, bf16 and f32: ids
+    equal, log-probs within 1e-5 (the same f32 values; the logsumexp of up
+    to 250054 exps summed in another order, about 1e-6 an ulp at 12)."""
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst = 0.0
+    for n, v in [(n, HEAD_V) for n in (4, 256, 1024)] + [(70, 997)]:
+        logits = torch.randn((n, v), generator=g, device=dev) * 2
+        if v == 997:
+            logits[0] = 0.0
+            logits[1, [900, 5, 300]] = 9.0
+            logits[2] = torch.round(logits[2] * 2)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = logits.to(dtype)
+            errs = []
+            for k in (1, 2, 9, 13):
+                lp, ids = topk_log_probs(x, k)
+                rlp, rids = topk_log_probs_plain(x, k)
+                torch.cuda.synchronize()
+                what = f"topk_log_probs N={n} V={v} k={k} {dtype}"
+                require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                errs.append((lp - rlp).abs().max().item())
+                require(errs[-1] <= 1e-5, f"{what}: log-probs differ from plain")
+            worst = max(worst, *errs)
+            print(f"topk_log_probs N={n} V={v} {dtype}: k in (1, 2, 9, 13) ids equal, lp "
+                  f"max_abs_err {errs}", flush=True)
+        del logits, x
+    return worst
+
+
+def time_greedy_kernels(dev, attn_inputs):
+    """Phase 20: both kernels and their plain versions beside a library
+    yardstick: scaled_dot_product_attention over the same live prefix (it
+    writes no column), and torch.topk + torch.logsumexp as two calls (no
+    single call computes both).  Device times from CUDA-graph replays
+    (``graph_ms``), and each kernel's time per call with its wrapper's host
+    work (``median_ms``, as phases 4, 9 and 15 time)."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
+
+    q, ks, vs, ck, cv, pk, pv, layer = attn_inputs
+    index = 63
+    qh = q.transpose(1, 2)                                 # (B, H, 1, Dh)
+    kh, vh = (c[layer, :, :index + 1].transpose(1, 2) for c in (ck, cv))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0).transpose(1, 2)
+    ref = decode_attention_plain(q, ks, vs, pk, pv, layer, index)
+    torch.testing.assert_close(lib.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    t = {"decode": (graph_ms(lambda: decode_attention(q, ks, vs, ck, cv, layer, index)),
+                    graph_ms(lambda: decode_attention_plain(q, ks, vs, pk, pv, layer, index)),
+                    graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+                    median_ms(lambda: decode_attention(q, ks, vs, ck, cv, layer, index)))}
+    print(f"decode_attention time at L=12 B=256 T=64 H=16 index={index}: kernel "
+          f"{t['decode'][0]:.4f} ms, plain {t['decode'][1]:.4f} ms, "
+          f"scaled_dot_product_attention over the live prefix {t['decode'][2]:.4f} ms "
+          f"(graph replays); kernel per call with its wrapper {t['decode'][3]:.4f} ms",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(23)
+    for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2), (1024, 9)):
+        x = (torch.randn((n, HEAD_V), generator=g, device=dev) * 2).bfloat16()
+        t[("topk", n, k)] = (graph_ms(lambda: topk_log_probs(x, k)),
+                             graph_ms(lambda: topk_log_probs_plain(x, k)),
+                             graph_ms(lambda: (torch.topk(x, k), torch.logsumexp(x, dim=-1))),
+                             median_ms(lambda: topk_log_probs(x, k)))
+        kernel, plain, two, per_call = t[("topk", n, k)]
+        print(f"topk_log_probs time at N={n} V={HEAD_V} k={k} bf16: kernel {kernel:.4f} ms, "
+              f"plain {plain:.4f} ms, torch.topk + torch.logsumexp (two calls, bf16 lse) "
+              f"{two:.4f} ms (graph replays); kernel per call with its wrapper {per_call:.4f} ms",
+              flush=True)
+    return t
+
+
+def check_pinned(seqs, eos_positions, eos, pad, what):
+    for row, pos in zip(seqs.tolist(), eos_positions.tolist()):
+        require(row[pos] == eos and eos not in row[1:pos] and set(row[pos + 1:]) <= {pad},
+                f"{what}: a row does not end in EOS exactly at its pinned position")
+
+
+def run_greedy_path(dev, flag):
+    """Phase 21: greedy and sampling through Captioner.generate at flagship
+    width, 8 images: the default (the bucket head, k=2); the dense logits
+    under fused_decode,pallas_topk (decode_attention 12 times a step,
+    topk_log_probs once a step but on the forced BOS and EOS steps);
+    sampling with pinned EOS positions under fused_decode (twice from one
+    seed) and with the default knobs; then B=1 and B=256 greedy smoke
+    figures."""
+    config, params, model, kw, pixels = flag
+    layers, dec, gen = config.decoder.num_layers, config.decoder, config.generation
+    px = pixels(8, 0)
+    greedy = dict(kw, num_beams=1)
+    out, counts = drive(model, params, px, **greedy)
+    seqs = check_path_output(out, 8, 64, "greedy path")
+    print(f"greedy path, 8 images, default knobs: {out.steps} decode steps, launches {counts}",
+          flush=True)
+    require(counts["fused_head"] == out.steps, "greedy: the bucket head not once a step")
+    require(counts["decode_attention"] == counts["topk_log_probs"] == counts["lazy_attention"] == 0,
+            "greedy, default knobs: another kernel ran")
+
+    with knobs(MIC_TPU_EXPERIMENTAL="fused_decode,pallas_topk", MIC_TPU_FUSED_HEAD="0"):
+        out, counts = drive(model, params, px, **greedy)
+        again = model.generate(params, px, **greedy)
+    dense = check_path_output(out, 8, 64, "greedy, fused_decode,pallas_topk")
+    forced_at = [1] + ([gen.max_length - 1] if gen.forced_eos_token_id is not None else [])
+    forced = sum(1 for pos in forced_at if pos <= out.steps)
+    print(f"greedy path, 8 images, fused_decode,pallas_topk, dense logits: {out.steps} decode "
+          f"steps ({forced} forced), launches {counts}; tokens equal to the default knobs' "
+          f"{float((dense == seqs).float().mean()):.4f}", flush=True)
+    require(counts["decode_attention"] == layers * out.steps,
+            "decode_attention launches != layers x decode steps")
+    require(counts["topk_log_probs"] == out.steps - forced,
+            "topk_log_probs launches != non-forced decode steps")
+    require(counts["fused_head"] == 0, "the fused head ran with MIC_TPU_FUSED_HEAD=0")
+    require(torch.equal(again.sequences.cpu(), dense), "greedy: a second run gave other sequences")
+    launches = {"decode_attention": counts["decode_attention"],
+                "topk_log_probs": counts["topk_log_probs"]}
+
+    eos_positions = torch.tensor([2, 5, 9, 14, 20, 27, 33, 40], device=dev)
+    sample = dict(kw, num_beams=1, do_sample=True, temperature=0.7, top_k=50, top_p=0.9,
+                  eos_positions=eos_positions)
+    with knobs(MIC_TPU_EXPERIMENTAL="fused_decode"):
+        runs = [drive(model, params, px, generator=torch.Generator(device=dev).manual_seed(5),
+                      **sample) for _ in range(2)]
+    for (out, counts), what in zip(runs, ("sampling run 1", "sampling run 2")):
+        check_pinned(check_path_output(out, 8, 64, what), eos_positions.cpu(), dec.eos_token_id,
+                     dec.pad_token_id, what)
+        require(out.steps == 40 and counts["decode_attention"] == layers * out.steps,
+                f"{what}: {out.steps} steps, {counts['decode_attention']} decode_attention "
+                "launches")
+    require(torch.equal(runs[0][0].sequences, runs[1][0].sequences),
+            "sampling: two runs from one seed differ")
+    out = model.generate(params, px, torch.Generator(device=dev).manual_seed(6), **sample)
+    check_pinned(check_path_output(out, 8, 64, "sampling, default knobs"), eos_positions.cpu(),
+                 dec.eos_token_id, dec.pad_token_id, "sampling, default knobs")
+    print(f"sampling (temperature 0.7, top_k 50, top_p 0.9), 8 images, EOS pinned at "
+          f"{eos_positions.tolist()}: {runs[0][0].steps} steps, every row ends there, "
+          f"decode_attention launches {runs[0][1]['decode_attention']}, two runs from one seed "
+          "equal; the default knobs' run ends there too", flush=True)
+    smoke_figures(model, params, pixels, greedy, "bf16 greedy")
+    return launches
+
+
+def check_greedy_small_against_cpu(dev):
+    """Phase 22: greedy at a small width (d_model 128, head_dim 64) on the
+    card against the CPU on the same bf16 weights, with the bucket head and
+    with the dense logits under fused_decode,pallas_topk: equal sequences,
+    scores within 2e-2 (bf16 activations rounded in other orders)."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params, tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=dev).manual_seed(24),
+                                             dev))
+    host = tree_map(lambda x: x.cpu(), params)
+    u8 = torch.from_numpy(np.random.default_rng(25).integers(0, 256, (4, 40, 40, 3),
+                                                             dtype=np.uint8))
+    kw = dict(num_beams=1, max_length=16, forced_bos_token_id=7)
+    model = Captioner(config)
+    for label, env, kernels in (
+            ("bucket head", {}, ("fused_head",)),
+            ("fused_decode,pallas_topk", {"MIC_TPU_EXPERIMENTAL": "fused_decode,pallas_topk",
+                                          "MIC_TPU_FUSED_HEAD": "0"},
+             ("decode_attention", "topk_log_probs"))):
+        with knobs(**env):
+            gpu, counts = drive(model, params, preprocess_images(u8.to(dev), 32, torch.bfloat16),
+                                **kw)
+            cpu = model.generate(host, preprocess_images(u8, 32, torch.bfloat16), **kw)
+        score_err = (gpu.scores.cpu() - cpu.scores).abs().max().item()
+        same = torch.equal(gpu.sequences.cpu(), cpu.sequences)
+        print(f"small width, greedy, {label}, card vs CPU: sequences equal={same}, max score "
+              f"difference={score_err:.3g}, card launches {counts}", flush=True)
+        require(all(counts[name] > 0 for name in kernels), f"greedy {label}: a kernel never ran")
+        require(same, f"greedy {label}: card and CPU sequences differ")
+        require(score_err < 2e-2, f"greedy {label}: card and CPU scores differ")
 
 
 def main() -> None:
@@ -872,56 +1190,90 @@ def main() -> None:
     del table, attn_inputs
     torch.cuda.empty_cache()
     launches.update(run_int8_path(dev, flag))
-    del flag
     torch.cuda.empty_cache()
     check_int8_small_against_cpu(dev)
+
+    decode_err, decode_inputs = check_decode_attention(dev)
+    topk_err = check_topk_lse(dev)
+    greedy_ms = time_greedy_kernels(dev, decode_inputs)
+    del decode_inputs
+    torch.cuda.empty_cache()
+    launches.update(run_greedy_path(dev, flag))
+    del flag
+    torch.cuda.empty_cache()
+    check_greedy_small_against_cpu(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # each bound at the shape its time was taken at (flagship widths)
+    n_beam, n_ce = 256 * 4, 4096
+    bounds = {
+        "lazy_attention": attention_bound(n_beam, 63, HEAD_D, 2, ancestry=True),
+        "fused_head_bucket": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
+        "flash_ce_forward": bound(CE_V * CE_D * 2 + CE_V * 4 + n_ce * CE_D * 2 + n_ce * 4 * 4,
+                                  2 * n_ce * CE_D * CE_V, "bf16"),
+        "flash_ce_backward_dl": bound(CE_V * CE_D * 2 + CE_V * 4 + n_ce * CE_D * 2 + n_ce * 4 * 3
+                                      + n_ce * CE_V * 2 + CE_V * 4,
+                                      2 * n_ce * CE_D * CE_V, "bf16"),
+        "fused_head_bucket_q8": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
+        "fused_head_select": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "int8", scales=True),
+        "lazy_attention_q8": attention_bound(n_beam, 63, HEAD_D, 1, scale_bytes=4, ancestry=True),
+        "decode_attention": attention_bound(256, 63, HEAD_D, 2),
+        "topk_log_probs": topk_bound(1024, HEAD_V, 9, 2),
+    }
+    others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
+              "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
+              "fused_head_select int8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "int8",
+                                                      scales=True),
+              "fused_head_select bf16 N=1024": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
+              **{f"topk_log_probs N={n} k={k}": topk_bound(n, HEAD_V, k, 2)
+                 for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2))}}
+    print("bounds at the other timed shapes: " + ", ".join(
+        f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [
-        {"name": "lazy_attention", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/lazy_attention.cu",
-         "replaces": "mic_tpu/ops/lazy_attention.py:668",
-         "launches": launches["lazy_attention"], "max_abs_err": attn_err,
-         "ms": attn_ms, "plain_ms": attn_plain_ms},
-        {"name": "fused_head_bucket", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/fused_head.cu",
-         "replaces": "mic_tpu/ops/fused_head.py:608",
-         "launches": launches["fused_head"], "max_abs_err": head_err,
-         "ms": head_ms, "plain_ms": head_plain_ms},
-        {"name": "flash_ce_forward", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/flash_ce.cu",
-         "replaces": "mic_tpu/ops/flash_ce.py:259",
-         "launches": launches["flash_ce_forward"], "max_abs_err": fwd_err,
-         "ms": ce_ms["fwd"], "plain_ms": ce_ms["fwd_plain"]},
-        {"name": "flash_ce_backward_dl", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/flash_ce.cu",
-         "replaces": "mic_tpu/ops/flash_ce.py:725",
-         "launches": launches["flash_ce_backward_dl"], "max_abs_err": dl_err,
-         "ms": ce_ms["dl"], "plain_ms": ce_ms["dl_plain"]},
-        {"name": "fused_head_bucket_q8", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/fused_head.cu",
-         "replaces": "mic_tpu/ops/fused_head.py:461",
-         "launches": launches["fused_head_bucket_q8"], "max_abs_err": q8_bucket_err,
-         "ms": q8_ms[("bucket_q8", 1024)][0], "plain_ms": q8_ms[("bucket_q8", 1024)][1]},
-        {"name": "fused_head_select", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/fused_head.cu",
-         "replaces": "mic_tpu/ops/fused_head.py:290",
-         "launches": launches["fused_head_select"], "max_abs_err": select_err,
-         "ms": q8_ms[("exact_q8", 1024)][0], "plain_ms": q8_ms[("exact_q8", 1024)][1]},
-        {"name": "lazy_attention_q8", "route": "cuda",
-         "source": "mic_tpu_torch/csrc/lazy_attention.cu",
-         "replaces": "mic_tpu/ops/lazy_attention.py:560",
-         "launches": launches["lazy_attention_q8"], "max_abs_err": attn_q8_err,
-         "ms": q8_ms["lazy_q8"][0], "plain_ms": q8_ms["lazy_q8"][1]},
+        dict(name="lazy_attention", source="mic_tpu_torch/csrc/lazy_attention.cu",
+             replaces="mic_tpu/ops/lazy_attention.py:668", max_abs_err=attn_err,
+             ms=attn_ms, plain_ms=attn_plain_ms),
+        dict(name="fused_head_bucket", source="mic_tpu_torch/csrc/fused_head.cu",
+             replaces="mic_tpu/ops/fused_head.py:608", max_abs_err=head_err,
+             ms=head_ms, plain_ms=head_plain_ms, launches=launches["fused_head"]),
+        dict(name="flash_ce_forward", source="mic_tpu_torch/csrc/flash_ce.cu",
+             replaces="mic_tpu/ops/flash_ce.py:259", max_abs_err=fwd_err,
+             ms=ce_ms["fwd"], plain_ms=ce_ms["fwd_plain"]),
+        dict(name="flash_ce_backward_dl", source="mic_tpu_torch/csrc/flash_ce.cu",
+             replaces="mic_tpu/ops/flash_ce.py:725", max_abs_err=dl_err,
+             ms=ce_ms["dl"], plain_ms=ce_ms["dl_plain"]),
+        dict(name="fused_head_bucket_q8", source="mic_tpu_torch/csrc/fused_head.cu",
+             replaces="mic_tpu/ops/fused_head.py:461", max_abs_err=q8_bucket_err,
+             ms=q8_ms[("bucket_q8", 1024)][0], plain_ms=q8_ms[("bucket_q8", 1024)][1]),
+        dict(name="fused_head_select", source="mic_tpu_torch/csrc/fused_head.cu",
+             replaces="mic_tpu/ops/fused_head.py:290", max_abs_err=select_err,
+             ms=q8_ms[("exact_q8", 1024)][0], plain_ms=q8_ms[("exact_q8", 1024)][1]),
+        dict(name="lazy_attention_q8", source="mic_tpu_torch/csrc/lazy_attention.cu",
+             replaces="mic_tpu/ops/lazy_attention.py:560", max_abs_err=attn_q8_err,
+             ms=q8_ms["lazy_q8"][0], plain_ms=q8_ms["lazy_q8"][1]),
+        dict(name="decode_attention", source="mic_tpu_torch/csrc/decode_attention.cu",
+             replaces="mic_tpu/ops/decode_attention.py:157", max_abs_err=decode_err,
+             ms=greedy_ms["decode"][0], plain_ms=greedy_ms["decode"][1],
+             library_ms=greedy_ms["decode"][2]),
+        dict(name="topk_log_probs", source="mic_tpu_torch/csrc/topk_lse.cu",
+             replaces="mic_tpu/ops/topk_lse.py:94", max_abs_err=topk_err,
+             ms=greedy_ms[("topk", 1024, 9)][0], plain_ms=greedy_ms[("topk", 1024, 9)][1]),
     ]
+    for k in kernels:
+        k["route"] = "cuda"
+        if "launches" not in k:
+            k["launches"] = launches[k["name"]]
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        # the one PyTorch call computing the same function, where there is one
+        k.setdefault("library_ms", None)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # the run uses one card, whatever else the machine shows
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": 1,  # the cards this run uses
     }}), flush=True)
 
 

@@ -52,6 +52,13 @@ _SIGNATURES = {
     # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
     # dbias_out, low, conf - low, n, d, vocab, runs, stream
     "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
+    # q, k_step, v_step, cache_k, cache_v, out,
+    # layers, rows, t_max, heads, head_dim, layer, index, stream
+    "mic_decode_attention_bf16": [_P] * 6 + [_I] * 7 + [_P],
+    "mic_decode_attention_f32": [_P] * 6 + [_I] * 7 + [_P],
+    # logits, part_m, part_l, part_v, part_i, lp, ids, n, vocab, k, max_runs, stream
+    "mic_topk_lse_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "mic_topk_lse_f32": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -1,6 +1,8 @@
 """Training CLI of the port: the flags of ``python -m mic_tpu.cli.train``
-(shared ``build_configs``), run by mic_tpu_torch's Trainer on one device
-(CUDA when available).
+(``build_configs`` is the port's own copy of mic_tpu/cli/train.py's, plus
+``--device``), run by mic_tpu_torch's Trainer on one device: the CUDA card
+unless ``--device cpu`` asks for the CPU.  With no card and no ``--device``
+it raises; it never falls back to the CPU by itself.
 
 Example (a synthetic TSV of image names, captions, urls and language codes):
     python -m mic_tpu_torch.cli.train \
@@ -11,14 +13,76 @@ Example (a synthetic TSV of image names, captions, urls and language codes):
 
 from __future__ import annotations
 
-from mic_tpu.cli.train import build_configs
+import argparse
+import dataclasses
+
+from mic_tpu_torch.core.config import (
+    CaptionerConfig,
+    DataConfig,
+    TrainConfig,
+    apply_dotted_overrides,
+)
+
+
+def add_dataclass_args(parser: argparse.ArgumentParser, cls, skip=()) -> None:
+    for f in dataclasses.fields(cls):
+        if f.name in skip or not isinstance(
+            f.default, (int, float, str, bool, type(None))
+        ):
+            continue
+        kw = {}
+        if isinstance(f.default, bool):
+            kw = {"type": lambda s: s.lower() in ("1", "true", "yes")}
+        elif f.default is None:
+            kw = {"type": str}
+        else:
+            kw = {"type": type(f.default)}
+        parser.add_argument(f"--{f.name}", default=f.default, **kw)
+
+
+def collect(cls, args) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in vars(args).items() if k in names and v is not None}
+
+
+def build_configs(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_dataclass_args(parser, DataConfig)
+    add_dataclass_args(parser, TrainConfig)
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        help="local HF tokenizer dir or SimpleTokenizer json")
+    parser.add_argument("--model_config", type=str, default=None,
+                        help="path to a CaptionerConfig json (default: flagship)")
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="model.KEY=VALUE",
+                        help="dotted model-config override, repeatable")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device to train on (default: the CUDA card; "
+                             "'cpu' to train on the CPU)")
+    args = parser.parse_args(argv)
+
+    if args.model_config:
+        model_config = CaptionerConfig.from_json(args.model_config)
+    else:
+        model_config = CaptionerConfig.clip_vit_b32_mbart50()
+    overrides = {}
+    for item in args.set:
+        key, _, value = item.partition("=")
+        overrides[key.removeprefix("model.")] = value
+    if overrides:
+        model_config = apply_dotted_overrides(model_config, overrides)
+
+    data_config = DataConfig(**collect(DataConfig, args))
+    train_config = TrainConfig(**collect(TrainConfig, args))
+    return model_config, data_config, train_config, args
 
 
 def main(argv=None):
     model_config, data_config, train_config, args = build_configs(argv)
     from mic_tpu_torch.train.trainer import Trainer
 
-    Trainer(model_config, data_config, train_config, tokenizer_path=args.tokenizer).train()
+    Trainer(model_config, data_config, train_config, tokenizer_path=args.tokenizer,
+            device=args.device).train()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,101 @@
+"""Central resolution point for every runtime tuning knob.
+
+SURVEY §5 prescribes ONE typed config tree as the framework's flag surface
+(the reference scattered its flags over three dataclasses plus HF
+``TrainingArguments``, main.py:61-163).  Tuning knobs therefore live in the
+config — ``DecodeConfig`` for the serving path, ``TrainConfig`` for the
+training path — and environment variables are explicit per-knob OVERRIDES
+for deployment A/Bs, resolved HERE and nowhere else: ``override()`` is the
+package's single ``os.environ`` read for supported knobs, and every
+config field that accepts an override names its variable in its docstring.
+
+Measured-dead-end code paths (kept in-tree as documented reference
+implementations — the numbers live in PERFORMANCE.md "measured dead ends")
+are NOT part of the supported surface: they all hang off the single
+``MIC_TPU_EXPERIMENTAL`` registry below, with typo detection, so the
+combination space of defaults is exactly what the config expresses.
+
+    MIC_TPU_EXPERIMENTAL="fused_mlp,segmented_topk=8192" python bench.py
+
+The port's own copy of mic_tpu/core/knobs.py: the same ``override`` and the same
+``MIC_TPU_EXPERIMENTAL`` registry, so every variable keeps its name and
+meaning in both packages.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def override(env_var: str, default: "str | None" = None) -> "str | None":
+    """The env override for a SUPPORTED knob.  The config field owns the
+    default; a set variable wins (deployment-level A/B without editing
+    configs).  Returns ``default`` when the variable is unset."""
+    return os.environ.get(env_var, default)
+
+
+# Registered experimental paths: measured dead ends and test levers.
+# name -> one-line what/verdict; PERFORMANCE.md has the measurements.
+EXPERIMENTAL: dict[str, str] = {
+    "pallas_topk": "fused Pallas top-k+logsumexp candidate select "
+                   "(ops/topk_lse.py); 12% slower than XLA's TopK",
+    "segmented_topk": "=<seg> two-stage exact top-k over <seg>-wide "
+                      "segments; 59.1 vs 88.5 captions/s/chip",
+    "approx_topk": "force approx_max_k candidate select off-TPU (the CPU "
+                   "lowering is exact top-k; test lever)",
+    "fused_decode": "chunked-DMA decode-attention kernel "
+                    "(ops/decode_attention.py); 14.1 vs 88.5",
+    "attn_buckets": "=auto|<list> static cache-read prefix buckets in the "
+                    "lazy decode attention; 166.8 vs 169.2",
+    "fused_cross_attn": "Pallas cross-attention kernel "
+                        "(ops/cross_attention.py); MXU-pipeline-bound at "
+                        "enc_len 50",
+    "merged_cross": "head-dims-merged cross cache + DMA cross kernel; "
+                    "231.3 vs 277.0",
+    "cross_g": "=<G> DMA grouping for the merged-cross kernel",
+    "fused_mlp": "Pallas fc1->gelu->fc2 decode kernel (ops/fused_mlp.py); "
+                 "260.3 vs 268.9",
+    "merged_kv": "force the merged (B*K, T, H*Dh) self-KV cache layout "
+                 "(CPU equivalence-test lever; auto on the TPU kernel path)",
+    "small_attn": "small-T training attention kernel "
+                  "(ops/small_attention.py); 382 vs 398-400 samples/s/chip",
+    "attn_bhtd": "pre-transposed (B, H, T, D) training attention operands; "
+                 "exact wash (302.9 vs 303.3 ms/step)",
+    "custom_scan_vjp": "hand-written backward-as-reverse-scan for the "
+                       "layer stack (nn/stacked.py); profile-identical wash",
+    "unroll_layers": "python-unrolled layer stack instead of lax.scan; "
+                     "OOMs at the flagship batch (kept for small models)",
+    "scan_split_transpose": "lax.scan _split_transpose backward; wash "
+                            "(390.6 vs 389.2)",
+    "bucket_bv": "=<BV> vocab-chunk width override inside the fused-head "
+                 "bucket kernel (ops/fused_head.py)",
+    "ln_qkv": "fold ln_self into the decode qkv GEMM's prologue "
+              "(ops/ln_gemm.py) — VERDICT r5 measured shot",
+}
+
+
+def experimental(name: str, default: "str | None" = None) -> "str | None":
+    """Value of an experimental-path toggle from ``MIC_TPU_EXPERIMENTAL``
+    (comma list of ``name`` or ``name=value`` entries): the entry's value
+    ("1" for bare names), or ``default`` when not listed.
+
+    Unknown entries in the variable raise (typo detection — a silently
+    ignored experiment name would invalidate an A/B); asking for an
+    unregistered ``name`` is a programming error and also raises."""
+    if name not in EXPERIMENTAL:
+        raise KeyError(f"not a registered experimental path: {name!r}")
+    raw = os.environ.get("MIC_TPU_EXPERIMENTAL", "")
+    out = default
+    for entry in raw.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        key, _, val = entry.partition("=")
+        if key not in EXPERIMENTAL:
+            raise KeyError(
+                f"unknown MIC_TPU_EXPERIMENTAL entry {key!r}; known: "
+                + ", ".join(sorted(EXPERIMENTAL))
+            )
+        if key == name:
+            out = val or "1"
+    return out

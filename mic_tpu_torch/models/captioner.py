@@ -1,29 +1,32 @@
 """The captioner: CLIP-ViT encoder + mBART decoder with a tied LM head
 (mic_tpu/models/captioner.py): the teacher-forced training forward
-(``encode``, ``decode_hidden``, ``__call__``, ``lm_logits``) and beam-search
-serving (``generate``).
+(``encode``, ``decode_hidden``, ``__call__``, ``lm_logits``) and serving
+(``generate``): greedy, sampling and beam search.
 
-``generate`` decodes with the lazy beam cache and always selects candidates
-through the fused LM head (ops/fused_head.py).  DecodeConfig's "auto"
-fields resolve by the device of the tensors: on CUDA the candidate select
-is "bucket" (the kernel, as on the TPU), on the CPU "exact" in the plain
-version, which equals mic_tpu's dense CPU path at float32.  Int8 serving
+``generate`` resolves its options as mic_tpu's does: a per-call argument,
+then the environment override (core/knobs.py), then the DecodeConfig field.
+Beam search decodes with the lazy beam cache (``MIC_TPU_LAZY_CACHE=0``: the
+physical cache, whose rows move on every reorder); greedy and sampling with
+the physical cache.  Candidates come from the fused LM head
+(ops/fused_head.py) when ``fused_head`` resolves on ("auto": on for CUDA
+tensors, off on the CPU, as mic_tpu is on and off the TPU; sampling never
+uses it), else from the dense logits of ``lm_logits``.  The head's select
+"auto" is "bucket" on CUDA and "exact" on the CPU.  Int8 serving
 (``quantize="int8"``: int8 decoder and tied head, ops/quant.py;
-``kv_quant="int8"``: an int8 self-attention cache) resolves as mic_tpu's
-does: the per-call argument, then the environment override
-(core/knobs.py), then the DecodeConfig field.
+``kv_quant="int8"``: an int8 lazy self-attention cache) resolves alike.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mic_tpu.core.config import CaptionerConfig
-from mic_tpu.core.knobs import override
+from mic_tpu_torch.core.config import CaptionerConfig
+from mic_tpu_torch.core.knobs import override
 from mic_tpu_torch.core.params import Params, torch_dtype, tree_map
 from mic_tpu_torch.generate import search
+from mic_tpu_torch.generate.processors import build_warpers
 from mic_tpu_torch.models import clip_vit, mbart_decoder
-from mic_tpu_torch.nn.cache import LazyDecoderCache, init_lazy_cache
+from mic_tpu_torch.nn.cache import DecoderCache, LazyDecoderCache, init_cache, init_lazy_cache
 from mic_tpu_torch.nn.layers import dense, init_dense, init_embed
 from mic_tpu_torch.nn.stacked import remat_policy
 from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
@@ -108,13 +111,26 @@ class Captioner:
         return logits + params["final_logits_bias"].to(self.dtype)
 
     def init_decode_cache(self, params: Params, enc_states: torch.Tensor, max_length: int,
-                          beams: int, kv_quant: str | None = None) -> LazyDecoderCache:
+                          beams: int, lazy: bool = True,
+                          kv_quant: str | None = None) -> LazyDecoderCache | DecoderCache:
         """enc_states is true-batch (B, S, D): cross K/V are kept once per
-        image; only the self cache is per beam (int8 with kv_quant="int8")."""
+        image; only the self cache is per beam: the lazy cache (int8 with
+        kv_quant="int8"), or the physical (L, B*beams, T, H, Dh) one."""
         cross_k, cross_v = mbart_decoder.init_cross_cache(
             params["decoder"], enc_states, self.config.decoder, self.dtype
         )
-        return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant)
+        if lazy:
+            return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant)
+        return init_cache(cross_k, cross_v, enc_states.shape[0] * beams, max_length)
+
+    def decode_step(self, params: Params, token_ids: torch.Tensor, cache, beams: int = 1):
+        """(B*beams, 1) tokens + cache -> ((B*beams, vocab) logits in the
+        compute dtype, cache)."""
+        hidden, cache = mbart_decoder.decoder_step(
+            params["decoder"], params["shared"], token_ids, cache, self.config.decoder,
+            self.dtype, beams,
+        )
+        return self.lm_logits(params, hidden)[:, 0, :], cache
 
     def _candidate_head(self, params: Params, sel: str) -> search.CandidateHead:
         """The fused head over the tied table, int8 or not, with the forced
@@ -158,11 +174,15 @@ class Captioner:
 
     @torch.no_grad()
     def generate(self, params: Params, pixel_values: torch.Tensor,
+                 generator: torch.Generator | None = None,
                  **overrides) -> search.GenerateOutput:
-        """Beam-search captions for a batch of images; defaults come from
-        config.generation, overridable per call (max_length, num_beams,
-        min_length, forced_bos_token_id, length_penalty, ...), as are
-        ``quantize`` and ``kv_quant`` (None or "int8")."""
+        """Caption a batch of images; defaults come from config.generation,
+        overridable per call (max_length, num_beams, do_sample, temperature,
+        top_k, top_p, min_length, no_repeat_ngram_size, forced_bos_token_id,
+        length_penalty, ...), as are ``quantize`` and ``kv_quant`` (None or
+        "int8") and ``eos_positions`` ((B,) pinned per-image EOS positions).
+        ``generator`` (a torch.Generator on the images' device, mic_tpu's
+        ``rng``) draws the sampling noise."""
         dcfg = self.config.decode
         quantize = overrides.pop("quantize", None) or override(
             "MIC_TPU_DECODE_QUANT", dcfg.quantize
@@ -172,41 +192,59 @@ class Captioner:
         ) or None
         if quantize not in (None, "", "int8"):
             raise ValueError(f"unsupported quantize: {quantize!r}")
-        sel = override("MIC_TPU_FUSED_SELECT", dcfg.fused_select)
-        if sel == "auto":
-            sel = "bucket" if pixel_values.device.type == "cuda" else "exact"
+        eos_positions = overrides.pop("eos_positions", None)
         gen = self.config.generation.replace(**overrides)
-        if gen.do_sample or gen.num_beams < 2:
-            raise NotImplementedError("only beam search (num_beams > 1) is ported")
-        if gen.no_repeat_ngram_size:
-            raise NotImplementedError("no_repeat_ngram_size is not ported yet")
         dec = self.config.decoder
         start = (gen.decoder_start_token_id if gen.decoder_start_token_id is not None
                  else dec.decoder_start_token_id)
         batch = pixel_values.shape[0]
+        on_cuda = pixel_values.device.type == "cuda"
+        lazy = gen.num_beams > 1 and override(
+            "MIC_TPU_LAZY_CACHE", "1" if dcfg.lazy_cache else "0") == "1"
+        fh = override("MIC_TPU_FUSED_HEAD", dcfg.fused_head)
+        if fh == "auto":
+            fh = "1" if on_cuda else "0"
+        fused_head = not gen.do_sample and fh == "1"
 
         # weights in the compute dtype once, outside the decode loop (a
-        # no-op on make_serving_params output), then the fused QKV view,
-        # then int8 (so the fused kernel is scaled per channel, and the f32
-        # scales are never rounded to the compute dtype)
+        # no-op on make_serving_params output), then the fused QKV view of
+        # the lazy step, then int8 (so the fused kernel is scaled per
+        # channel, and the f32 scales are never rounded to the compute dtype)
         params = tree_map(
             lambda x: x.to(self.dtype) if x.is_floating_point() else x, params
         )
-        params = {**params, "decoder": mbart_decoder.fuse_qkv_params(params["decoder"])}
+        if lazy:
+            # mic_tpu's unfused alternative gives bit-identical columns; the
+            # port keeps the fused step alone and refuses the switch
+            if override("MIC_TPU_FUSED_QKV", "1" if dcfg.fused_qkv else "0") != "1":
+                raise ValueError("the lazy decode step always fuses q/k/v: "
+                                 "MIC_TPU_FUSED_QKV=0 / DecodeConfig.fused_qkv=False "
+                                 "is not supported")
+            params = {**params, "decoder": mbart_decoder.fuse_qkv_params(params["decoder"])}
         if quantize == "int8":
             params = quantize_params_for_decode(params)
 
         enc_states = self.encode(params, pixel_values)
+        # the quantized KV cache is lazy-path only
         cache = self.init_decode_cache(params, enc_states, gen.max_length, gen.num_beams,
-                                       kv_quant)
-        head = self._candidate_head(params, sel)
+                                       lazy, kv_quant if lazy else None)
+        if fused_head:
+            sel = override("MIC_TPU_FUSED_SELECT", dcfg.fused_select)
+            if sel == "auto":
+                sel = "bucket" if on_cuda else "exact"
+            head = self._candidate_head(params, sel)
 
-        def step_fn(token_ids, cache):
-            hidden, cache = mbart_decoder.decoder_step(
-                params["decoder"], params["shared"], token_ids, cache, dec, self.dtype,
-                gen.num_beams,
-            )
-            return hidden[:, 0, :], cache
+            def step_fn(token_ids, cache):
+                hidden, cache = mbart_decoder.decoder_step(
+                    params["decoder"], params["shared"], token_ids, cache, dec, self.dtype,
+                    gen.num_beams,
+                )
+                return hidden[:, 0, :], cache
+        else:
+            head = None
+
+            def step_fn(token_ids, cache):
+                return self.decode_step(params, token_ids, cache, gen.num_beams)
 
         forced = []
         if gen.forced_bos_token_id is not None:
@@ -215,11 +253,14 @@ class Captioner:
             forced.append((gen.max_length - 1, gen.forced_eos_token_id))
         spec = search.ProcessorSpec(
             forced=tuple(forced), min_length=gen.min_length, eos_token_id=dec.eos_token_id,
+            no_repeat_ngram=gen.no_repeat_ngram_size,
         )
+        warpers = build_warpers(temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p)
         return search.generate(
             step_fn, cache, batch,
             max_length=gen.max_length, start_token_id=start,
             eos_token_id=dec.eos_token_id, pad_token_id=dec.pad_token_id,
-            num_beams=gen.num_beams, spec=spec, head=head,
+            num_beams=gen.num_beams, do_sample=gen.do_sample, spec=spec, warpers=warpers,
             length_penalty=gen.length_penalty, early_stopping=gen.early_stopping,
+            generator=generator, head=head, eos_positions=eos_positions,
         )

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from mic_tpu.core.config import VisionConfig
+from mic_tpu_torch.core.config import VisionConfig
 from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.attention import init_mha, mha
 from mic_tpu_torch.nn.layers import ACTIVATIONS, dense, init_dense, init_layer_norm, layer_norm

@@ -1,6 +1,8 @@
 """mBART-style pre-norm decoder (mic_tpu/models/mbart_decoder.py): the
 teacher-forced full-sequence pass for training (``apply_decoder``) and
-cached single-token decoding on the lazy beam cache (``decoder_step``).
+cached single-token decoding (``decoder_step``) on the lazy beam cache or
+on the physical cache, whose self-attention runs the decode-attention
+kernel under MIC_TPU_EXPERIMENTAL=fused_decode.
 
 Token embeddings are the shared table scaled by sqrt(d_model) in the
 compute dtype; learned positions are offset by 2; every layer is
@@ -13,16 +15,18 @@ import dataclasses
 
 import torch
 
-from mic_tpu.core.config import DecoderConfig
+from mic_tpu_torch.core.config import DecoderConfig
+from mic_tpu_torch.core.knobs import experimental
 from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.attention import (
     init_mha,
     mha,
     mha_cross_grouped,
+    mha_decode_step,
     mha_decode_step_lazy,
     project_kv,
 )
-from mic_tpu_torch.nn.cache import LazyDecoderCache
+from mic_tpu_torch.nn.cache import DecoderCache, LazyDecoderCache
 from mic_tpu_torch.nn.layers import (
     ACTIVATIONS,
     dense,
@@ -31,7 +35,10 @@ from mic_tpu_torch.nn.layers import (
     init_dense,
     init_layer_norm,
     layer_norm,
+    merge_heads,
+    split_heads,
 )
+from mic_tpu_torch.ops.decode_attention import decode_attention
 from mic_tpu_torch.nn.stacked import init_stacked, layer_slice, scan_apply
 
 
@@ -159,29 +166,21 @@ def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfi
     return torch.stack(ks), torch.stack(vs)
 
 
-def decoder_step(params: Params, shared: Params, token_ids: torch.Tensor,
-                 cache: LazyDecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
-                 beams: int):
-    """One cached decode step on the lazy cache, the port of
-    ``_decoder_step_lazy`` (the lazy branch of mic_tpu's decoder_step):
-    token_ids (B*K, 1) -> (hidden (B*K, 1, D), cache with index + 1).  Each
-    layer's self K/V gain column ``cache.index`` in place; nothing is
-    reordered.  ``params`` carry the fused "qkv" self-attention projection."""
+def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor, cache,
+                         cfg: DecoderConfig, dtype: torch.dtype, self_attention):
+    """The decode step's layer stack around ``self_attention(p, x, layer)``,
+    which returns the (N, 1, D) self-attention output and writes the step's
+    K/V into column ``cache.index`` of the layer's self cache in place."""
     check_pre_norm(cfg)
     eps = cfg.layer_norm_eps
     act = ACTIVATIONS[cfg.activation]
-    index = cache.index
-    pos = torch.full_like(token_ids, index + cfg.pos_offset)
+    pos = torch.full_like(token_ids, cache.index + cfg.pos_offset)
     x = embed_tokens(shared, token_ids, cfg, dtype) + embed(params["pos_embed"], pos, dtype)
     x = layer_norm(params["ln_embed"], x, eps)
     for layer in range(cfg.num_layers):
         p = layer_slice(params["layers"], layer)
         r = x
-        x = layer_norm(p["ln_self"], x, eps)
-        x = r + mha_decode_step_lazy(
-            p["self_attn"], x, cache.self_k[layer], cache.self_v[layer],
-            cache.ancestry, index, cfg.num_heads, beams,
-        )
+        x = r + self_attention(p["self_attn"], layer_norm(p["ln_self"], x, eps), layer)
         r = x
         x = layer_norm(p["ln_cross"], x, eps)
         x = r + mha_cross_grouped(
@@ -192,4 +191,58 @@ def decoder_step(params: Params, shared: Params, token_ids: torch.Tensor,
         x = r + dense(p["fc2"], act(dense(p["fc1"], x)))
     if cfg.use_final_ln:
         x = layer_norm(params["final_ln"], x, eps)
-    return x, dataclasses.replace(cache, index=index + token_ids.shape[1])
+    return x, dataclasses.replace(cache, index=cache.index + token_ids.shape[1])
+
+
+def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
+                       cache: LazyDecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
+                       beams: int):
+    """mic_tpu's ``_decoder_step_lazy``: each layer's merged self K/V gain
+    column ``cache.index`` in place and nothing is reordered."""
+    def attend(p, x, layer):
+        return mha_decode_step_lazy(p, x, cache.self_k[layer], cache.self_v[layer],
+                                    cache.ancestry, cache.index, cfg.num_heads, beams)
+
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+
+
+def _decoder_step_physical(params: Params, shared: Params, token_ids: torch.Tensor,
+                           cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype):
+    """The physical branch of mic_tpu's ``decoder_step``: mha_decode_step
+    on each layer's (N, T, H, Dh) view of the stacked self cache."""
+    def attend(p, x, layer):
+        return mha_decode_step(p, x, cache.self_k[layer], cache.self_v[layer], cache.index,
+                               cfg.num_heads)
+
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+
+
+def _decoder_step_fused(params: Params, shared: Params, token_ids: torch.Tensor,
+                        cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype):
+    """mic_tpu's ``_decoder_step_fused`` (MIC_TPU_EXPERIMENTAL=fused_decode):
+    the self-attention of each layer is ops/decode_attention.py, which
+    writes the step column of the stacked cache and attends over 0..index
+    in one launch."""
+    head_dim = cfg.head_dim
+
+    def attend(p, x, layer):
+        q = split_heads(dense(p["q"], x) * (head_dim**-0.5), cfg.num_heads)
+        k_step, v_step = project_kv(p, x, cfg.num_heads)
+        out = decode_attention(q, k_step, v_step, cache.self_k, cache.self_v, layer,
+                               cache.index)
+        return dense(p["o"], merge_heads(out.to(x.dtype)))
+
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+
+
+def decoder_step(params: Params, shared: Params, token_ids: torch.Tensor, cache,
+                 cfg: DecoderConfig, dtype: torch.dtype, beams: int = 1):
+    """One cached decode step: token_ids (N, 1) -> (hidden (N, 1, D), cache
+    with index + 1), N = images x beams.  Dispatches on the cache as mic_tpu
+    does: the lazy cache, then MIC_TPU_EXPERIMENTAL=fused_decode, then the
+    physical step.  The cross K/V are per image and shared by its beams."""
+    if isinstance(cache, LazyDecoderCache):
+        return _decoder_step_lazy(params, shared, token_ids, cache, cfg, dtype, beams)
+    if experimental("fused_decode", "0") == "1":
+        return _decoder_step_fused(params, shared, token_ids, cache, cfg, dtype)
+    return _decoder_step_physical(params, shared, token_ids, cache, cfg, dtype)

@@ -56,6 +56,23 @@ def mha_cross_grouped(params: Params, x: torch.Tensor, k: torch.Tensor,
     return dense(params["o"], out.reshape(bk, one, d))
 
 
+def mha_decode_step(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, index: int, num_heads: int) -> torch.Tensor:
+    """Single-token cached self-attention on one layer of the physical cache
+    (mic_tpu/nn/attention.py::mha_decode_step): x (N, 1, D); cache_k/v
+    (N, T, H, Dh) gain column ``index`` in place (mic_tpu returns updated
+    copies), then the step attends over positions <= index with f32 scores
+    -> (N, 1, D)."""
+    head_dim = x.shape[-1] // num_heads
+    q = split_heads(dense(params["q"], x) * (head_dim**-0.5), num_heads)
+    k_step, v_step = project_kv(params, x, num_heads)
+    cache_k[:, index] = k_step[:, 0]
+    cache_v[:, index] = v_step[:, 0]
+    valid = torch.arange(cache_k.shape[1], device=x.device) <= index
+    out = xla_attention(q, cache_k, cache_v, valid[None, None, None, :])
+    return dense(params["o"], merge_heads(out))
+
+
 def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
                          cache_v: torch.Tensor, ancestry: torch.Tensor, index: int,
                          num_heads: int, beams: int) -> torch.Tensor:
@@ -63,13 +80,13 @@ def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
 
     x (B*K, 1, D); params hold the fused "qkv" projection
     (models/mbart_decoder.py::fuse_qkv_params), int8 or not; merged caches
-    (B*K, T, D), or int8 ones ({"q", "s"} dicts, ops/lazy_attention.py),
-    gain column ``index`` in place.  Returns the (B*K, 1, D) output."""
+    (B*K, T, D), or int8 ones
+    ({"q", "s"} dicts, ops/lazy_attention.py), gain column ``index`` in
+    place.  Returns the (B*K, 1, D) output."""
     bk, one, d = x.shape
     b = bk // beams
     head_dim = d // num_heads
-    qkv = dense(params["qkv"], x)                            # (BK, 1, 3D)
-    q, k_step, v_step = torch.split(qkv, d, dim=-1)
+    q, k_step, v_step = torch.split(dense(params["qkv"], x), d, dim=-1)
     q = q * (head_dim**-0.5)
     attend = lazy_attention_q8 if isinstance(cache_k, dict) else lazy_attention
     out = attend(

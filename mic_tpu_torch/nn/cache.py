@@ -1,6 +1,13 @@
-"""The lazy beam-search KV cache (mic_tpu/nn/cache.py::LazyDecoderCache).
+"""The decode KV caches (mic_tpu/nn/cache.py): the physical
+``DecoderCache`` of greedy, sampling and ``lazy_cache=False`` beam search,
+and the lazy beam-search cache ``LazyDecoderCache``.
 
-Row b*K + k of each layer's self K/V always holds what running slot k of
+``DecoderCache`` stacks every layer's self K/V as one (L, N, T, H, Dh)
+tensor per plane (N = images x beams) and the cross K/V once per image as
+(L, B, S, H, Dh); the decode step writes each layer's column ``index`` in
+place.  A beam reorder moves the self K/V rows (``beam_reorder``).
+
+In ``LazyDecoderCache`` row b*K + k of each layer's self K/V always holds what running slot k of
 image b wrote at each step; which row holds a beam's token at position t is
 tracked in ``ancestry``.  A beam reorder therefore moves no cache bytes: it
 composes the ancestry.  The port has one layout, the merged
@@ -10,7 +17,7 @@ layer's K and V are {"q": (B*K, T, H*Dh) int8, "s": (B*K, T) f32}: one
 scale per cached ROW, mic_tpu's merged int8 layout (its per-head-scale
 canonical layout is not ported).
 
-Shapes:
+Shapes of ``LazyDecoderCache``:
   self_k / self_v : L-list of (B*K, max_len, H*Dh), or of int8 dicts
   cross_k/ cross_v: (L, B, enc_len, H, Dh) -- per image, beam-invariant
   ancestry        : (B, K, max_len) int32
@@ -71,5 +78,56 @@ def init_lazy_cache(cross_k: torch.Tensor, cross_v: torch.Tensor, num_beams: int
         cross_k=cross_k,
         cross_v=cross_v,
         ancestry=ancestry[None, :, None].expand(batch, num_beams, max_len).contiguous(),
+        index=0,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderCache:
+    """The physical cache: self_k / self_v (L, N, T, H, Dh), cross_k /
+    cross_v (L, B, S, H, Dh) per image, index a host int (positions
+    already written)."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    index: int
+
+    @property
+    def batch(self) -> int:
+        return self.self_k.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.self_k.shape[2]
+
+    def beam_reorder(self, beam_indices: torch.Tensor, num_beams: int) -> "DecoderCache":
+        """Physical beam reorder: row b*K + k of the self K/V takes row
+        b*K + beam_indices[b, k] (within-group sources, (B, K)), the row move
+        of mic_tpu/ops/beam_permute.py::beam_permute_matmul as a gather.
+        The cross K/V are per image and never move."""
+        b = beam_indices.shape[0]
+        base = torch.arange(b, device=beam_indices.device)[:, None] * num_beams
+        rows = (base + beam_indices.long()).reshape(-1)
+        return dataclasses.replace(
+            self,
+            self_k=self.self_k.index_select(1, rows),
+            self_v=self.self_v.index_select(1, rows),
+        )
+
+
+def init_cache(cross_k: torch.Tensor, cross_v: torch.Tensor, batch: int,
+               max_len: int) -> DecoderCache:
+    """Zeroed (L, batch, max_len, H, Dh) self K/V around the projected cross
+    K/V (L, B, S, H, Dh), whose layer count, heads, dtype and device the
+    self cache takes; ``batch`` is images x beams."""
+    num_layers, _, _, num_heads, head_dim = cross_k.shape
+    shape = (num_layers, batch, max_len, num_heads, head_dim)
+    return DecoderCache(
+        self_k=torch.zeros(shape, dtype=cross_k.dtype, device=cross_k.device),
+        self_v=torch.zeros(shape, dtype=cross_k.dtype, device=cross_k.device),
+        cross_k=cross_k,
+        cross_v=cross_v,
         index=0,
     )

@@ -4,7 +4,7 @@ train/loss.py without a (B, T, V) logits tensor, as a
 ``torch.autograd.Function`` whose backward recomputes what it needs.
 
 Routes (``mode``, TrainConfig.flash_ce; the environment variable
-MIC_TPU_FLASH_CE wins when set, through mic_tpu.core.knobs.override):
+MIC_TPU_FLASH_CE wins when set, through core/knobs.py::override):
 
 - "" ("0", "off"; what "auto" resolves to on the CPU): the chunked path.
   Each chunk of rows gets its f32 logits from the f32 table, reduced and
@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mic_tpu.core.knobs import override
+from mic_tpu_torch.core.knobs import override
 from mic_tpu_torch.ops.flash_ce import dlogits, flash_ce_backward_dl, flash_ce_forward
 
 

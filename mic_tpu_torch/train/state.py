@@ -7,7 +7,7 @@ from typing import Any
 
 import torch
 
-from mic_tpu.core.knobs import override
+from mic_tpu_torch.core.knobs import override
 from mic_tpu_torch.core.params import torch_dtype
 from mic_tpu_torch.train.fused_adamw import FusedAdamW, make_fused_adamw
 

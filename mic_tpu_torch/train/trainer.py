@@ -18,8 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mic_tpu.core.config import CaptionerConfig, DataConfig, TrainConfig
-from mic_tpu.data.tokenizer import TokenizerBase, load_tokenizer
+from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+from mic_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
 from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.ops.fused_ce import fused_lm_loss
@@ -31,6 +31,18 @@ from mic_tpu_torch.train.schedule import linear_warmup_linear_decay
 from mic_tpu_torch.train.shadow import ce_embedding, shadow_spec, shadowed_params
 from mic_tpu_torch.train.state import TrainState, make_optimizer
 from mic_tpu_torch.train.steps import count_params
+
+
+def resolve_device(device=None) -> torch.device:
+    """The trainer's device: the card unless the caller names another
+    (``device="cpu"``, as the CPU tests do).  No card and no device named
+    raises: the trainer never falls back to the CPU by itself."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device is available; pass device='cpu' "
+                               "to train on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 class Trainer:
@@ -47,9 +59,7 @@ class Trainer:
         # tc.prng_impl picks the TPU's hardware RNG in mic_tpu; dropout here
         # always draws from torch's Philox generator, so it is ignored.
         self.mc, self.dc, self.tc = model_config, data_config, train_config
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = torch_dtype(model_config.dtype)
         self.model = Captioner(model_config, remat=tc.remat if tc.remat != "none" else False)
         self.tokenizer = tokenizer or load_tokenizer(tokenizer_path)
@@ -62,8 +72,8 @@ class Trainer:
 
     def make_loaders(self):
         # the loader decodes images with PIL: imported only where data is read
-        from mic_tpu.data.dataset import CaptionDataset
-        from mic_tpu.data.loader import CaptionLoader
+        from mic_tpu_torch.data.dataset import CaptionDataset
+        from mic_tpu_torch.data.loader import CaptionLoader
 
         dc = self.dc
         train_loader = CaptionLoader(
@@ -187,8 +197,8 @@ class Trainer:
         return out, n
 
     def evaluate(self, params, eval_loaders) -> dict:
-        # BLEU is shared host code; it is needed only here
-        from mic_tpu.evals.bleu import bleu_1_to_4
+        # BLEU is needed only here
+        from mic_tpu_torch.evals.bleu import bleu_1_to_4
 
         metrics = {}
         for lang, loader in eval_loaders.items():

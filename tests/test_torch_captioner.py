@@ -25,6 +25,7 @@ from mic_tpu.nn.cache import init_lazy_cache as jax_init_lazy_cache
 from mic_tpu.ops.image_prep import preprocess_images as jax_preprocess
 from mic_tpu.ops.quant import quantize_params_for_decode as jax_quantize_params
 from mic_tpu.ops.quant import quantize_rows_dynamic as jax_quantize_rows
+from mic_tpu_torch.core import config as port_config
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.io.from_jax import from_jax
 from mic_tpu_torch.models import captioner as captioner_mod
@@ -37,6 +38,11 @@ from mic_tpu_torch.ops.quant import quantize_params_for_decode
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port(cfg):
+    """The port's config class of the same name, from the same values."""
+    return getattr(port_config, type(cfg).__name__).from_dict(cfg.to_dict())
 
 
 def _config(vocab=600, **kw):
@@ -65,7 +71,7 @@ def _models(config, seed=0, scale=0.05, eos_bias=0.0):
     nparams = _numpy_params(jax_model, seed, scale)
     nparams["final_logits_bias"][config.decoder.eos_token_id] += eos_bias
     jparams = jax.tree.map(jnp.asarray, nparams)
-    return jax_model, jparams, Captioner(config), from_jax(nparams)
+    return jax_model, jparams, Captioner(_port(config)), from_jax(nparams)
 
 
 def _images(n=2, size=48, seed=0):
@@ -138,7 +144,7 @@ def test_decoder_step_matches_jax(index):
     )
 
     tck, tcv = mbart_decoder.init_cross_cache(
-        tparams["decoder"], torch.from_numpy(enc), cfg, torch.float32
+        tparams["decoder"], torch.from_numpy(enc), _port(cfg), torch.float32
     )
     np.testing.assert_allclose(tck.numpy(), np.asarray(ck), **TOL)
     tcache = LazyDecoderCache(
@@ -147,7 +153,8 @@ def test_decoder_step_matches_jax(index):
         cross_k=tck, cross_v=tcv, ancestry=torch.from_numpy(anc), index=index,
     )
     th, tnew = mbart_decoder.decoder_step(
-        tfused, tparams["shared"], torch.from_numpy(tokens), tcache, cfg, torch.float32, beams
+        tfused, tparams["shared"], torch.from_numpy(tokens), tcache, _port(cfg), torch.float32,
+        beams
     )
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     assert tnew.index == int(jnew.index) == index + 1
@@ -210,7 +217,7 @@ def test_decoder_step_on_a_quantized_tree_matches_jax(kv_quant):
         return {n: torch.from_numpy(a.copy()) for n, a in p.items()} if kv_quant else \
             torch.from_numpy(p.copy())
 
-    tck, tcv = mbart_decoder.init_cross_cache(ttree["decoder"], torch.from_numpy(enc), cfg,
+    tck, tcv = mbart_decoder.init_cross_cache(ttree["decoder"], torch.from_numpy(enc), _port(cfg),
                                               torch.float32)
     np.testing.assert_allclose(tck.numpy(), np.asarray(ck), **TOL)
     np.testing.assert_allclose(tcv.numpy(), np.asarray(cv), **TOL)
@@ -220,7 +227,7 @@ def test_decoder_step_on_a_quantized_tree_matches_jax(kv_quant):
         cross_k=tck, cross_v=tcv, ancestry=torch.from_numpy(anc), index=index,
     )
     th, tnew = mbart_decoder.decoder_step(ttree["decoder"], ttree["shared"],
-                                          torch.from_numpy(tokens), tcache, cfg, torch.float32,
+                                          torch.from_numpy(tokens), tcache, _port(cfg), torch.float32,
                                           beams)
     others = np.arange(t) != index
     pairs = list(zip(tnew.self_k + tnew.self_v, jnew.self_k + jnew.self_v))
@@ -247,8 +254,11 @@ def test_decoder_step_on_a_quantized_tree_matches_jax(kv_quant):
 
 
 GENERATE_CASES = {
-    # the CPU default: exact candidate select on both sides
-    "exact": dict(vocab=600, env={}, decode={},
+    # the CPU default: the dense logits on both sides
+    "dense": dict(vocab=600, env={}, decode={},
+                  kw=dict(max_length=12, forced_bos_token_id=7, min_length=3)),
+    # the fused head's exact select (its CPU "auto") on both sides
+    "exact": dict(vocab=600, env={"MIC_TPU_FUSED_HEAD": "1"}, decode={},
                   kw=dict(max_length=12, forced_bos_token_id=7, min_length=3)),
     # the TPU/CUDA default select in its plain version; V spans 3 chunks of 512
     "bucket": dict(vocab=1100,
@@ -260,10 +270,13 @@ GENERATE_CASES = {
     "finishing": dict(vocab=40, env={}, decode={}, eos_bias=6.0,
                       kw=dict(max_length=16, forced_bos_token_id=5, length_penalty=0.8,
                               early_stopping=True)),
-    # int8 weights and head (per-call quantize): mic_tpu's dense int8 CPU
-    # path against the port's exact-q8 head; the int8 products are exact
-    "int8": dict(vocab=600, env={}, decode={},
+    # int8 weights and head (per-call quantize) with the exact-q8 head on
+    # both sides; the int8 products are exact
+    "int8": dict(vocab=600, env={"MIC_TPU_FUSED_HEAD": "1"}, decode={},
                  kw=dict(max_length=12, forced_bos_token_id=7, quantize="int8")),
+    # the same with the dense int8 logits of lm_logits (the CPU default)
+    "int8_dense": dict(vocab=600, env={}, decode={},
+                       kw=dict(max_length=12, forced_bos_token_id=7, quantize="int8")),
     # int8 weights with the bucket-q8 head in both packages' plain versions
     "int8_bucket": dict(vocab=1100,
                         env={"MIC_TPU_FUSED_HEAD": "1", "MIC_TPU_FUSED_SELECT": "bucket",
@@ -339,11 +352,14 @@ def test_generate_resolves_int8_options_as_mic_tpu(case, monkeypatch):
     """Per-call quantize= and kv_quant= are accepted (mic_tpu's bench passes
     them); each option resolves as mic_tpu's generate does: the per-call
     value, then MIC_TPU_DECODE_QUANT / MIC_TPU_KV_QUANT /
-    MIC_TPU_FUSED_SELECT through mic_tpu.core.knobs.override, then the
-    DecodeConfig field ("auto" select: exact on the CPU)."""
+    MIC_TPU_FUSED_SELECT through core/knobs.py::override, then the
+    DecodeConfig field ("auto" select: exact on the CPU).  The head is
+    forced on (MIC_TPU_FUSED_HEAD=1): on the CPU "auto" takes the dense
+    logits and no select runs."""
     kw, env, fields, want = RESOLVE_CASES[case]
     for key in ("MIC_TPU_DECODE_QUANT", "MIC_TPU_KV_QUANT", "MIC_TPU_FUSED_SELECT"):
         monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("MIC_TPU_FUSED_HEAD", "1")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     seen = {}
@@ -363,7 +379,7 @@ def test_generate_resolves_int8_options_as_mic_tpu(case, monkeypatch):
 
     monkeypatch.setattr(Captioner, "init_decode_cache", spy_cache)
     monkeypatch.setattr(Captioner, "_candidate_head", spy_head)
-    config = _config(1300, decode=DecodeConfig(**fields))  # 11 windows for k = 9
+    config = _port(_config(1300, decode=DecodeConfig(**fields)))  # 11 windows for k = 9
     params = init_params(config, torch.Generator().manual_seed(0))
     px = preprocess_images(torch.from_numpy(_images(n=1)), 32)
     out = Captioner(config).generate(params, px, num_beams=4, max_length=4,
@@ -390,7 +406,7 @@ def test_from_jax_keeps_every_leaf_and_init_matches_layout():
         assert back.shape == ref.shape, path
         np.testing.assert_array_equal(back, ref)
 
-    own = dict(_leaves(init_params(config, torch.Generator().manual_seed(0))))
+    own = dict(_leaves(init_params(_port(config), torch.Generator().manual_seed(0))))
     assert own.keys() == jleaves.keys()
     for path, ref in jleaves.items():
         assert tuple(own[path].shape) == ref.shape, path
@@ -408,7 +424,7 @@ def test_port_never_imports_jax():
     module loaded."""
     code = (
         "import sys, torch\n"
-        "from mic_tpu.core.config import CaptionerConfig, DecoderConfig, VisionConfig\n"
+        "from mic_tpu_torch.core.config import CaptionerConfig, DecoderConfig, VisionConfig\n"
         "from mic_tpu_torch.models.captioner import Captioner, init_params\n"
         "from mic_tpu_torch.ops.image_prep import preprocess_images\n"
         "cfg = CaptionerConfig(vision=VisionConfig.tiny(), decoder=DecoderConfig.tiny())\n"

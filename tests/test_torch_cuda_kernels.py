@@ -13,13 +13,17 @@ candidate ids exactly; the flash-CE kernels as each test states (bf16 dl
 within one bf16 rounding).  The int8 exact/window head computes the plain
 version's logits bit for bit (exact int32 sums, the same f32 epilogue), so
 its ids are equal and its lp and lse within 1e-5; the bf16 exact/window
-head's ids may differ only at near-ties, two logits within 1e-2.
+head's ids may differ only at near-ties, two logits within 1e-2.  The
+decode-attention kernel's output is within 2e-2 in bf16 and 1e-5 in f32,
+its written cache bit-equal; the top-k + logsumexp kernel's ids are equal
+and its log-probs within 1e-5 (the same f32 values, the logsumexp summed in
+another order).
 """
 
 import pytest
 import torch
 
-from mic_tpu.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.ops.flash_ce import (
@@ -36,6 +40,7 @@ from mic_tpu_torch.ops.fused_head import (
     fused_head_topk_q8,
     fused_head_topk_q8_plain,
 )
+from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import (
     lazy_attention,
@@ -44,6 +49,7 @@ from mic_tpu_torch.ops.lazy_attention import (
     lazy_attention_q8_plain,
 )
 from mic_tpu_torch.ops.quant import quantize_array, quantize_rows_dynamic
+from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
 
 
 @pytest.fixture
@@ -352,3 +358,115 @@ def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing):
     torch.testing.assert_close(demb, ref[1], rtol=0, atol=1e-3 * ref[1].abs().max().item())
     torch.testing.assert_close(dh.float(), ref[0].float(), rtol=0,
                                atol=2**-7 * ref[0].float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("index", [0, 1, 9, 15])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, index):
+    """Three heads (a block of four warps, one idle): the output, the written
+    column bit-equal to the plain version's, every other layer and column
+    untouched."""
+    layers, n, t, heads, dh, layer = 3, 5, 16, 3, 64, 1
+    g = torch.Generator(device=cuda).manual_seed(200 + index)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+
+    q, ks, vs = rand(n, 1, heads, dh, scale=0.3), rand(n, 1, heads, dh), rand(n, 1, heads, dh)
+    ck, cv = rand(layers, n, t, heads, dh), rand(layers, n, t, heads, dh)
+    before = (ck.clone(), cv.clone())
+    pk, pv = ck.clone(), cv.clone()
+    launches = decode_attention.launches
+    out = decode_attention(q, ks, vs, ck, cv, layer, index)
+    ref = decode_attention_plain(q, ks, vs, pk, pv, layer, index)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.equal(ck, pk) and torch.equal(cv, pv)
+    keep = torch.ones((layers, n, t), dtype=torch.bool, device=cuda)
+    keep[layer, :, index] = False
+    for mine, old in zip((ck, cv), before):
+        assert torch.equal(mine[keep], old[keep])
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 1, 2, 32), device=cuda, dtype=torch.bfloat16)
+    cache = torch.zeros((1, 2, 4, 2, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(x, x, x, cache, cache.clone(), 0, 0)
+    x = torch.zeros((2, 1, 2, 64), device=cuda, dtype=torch.bfloat16)
+    cache = torch.zeros((1, 2, 4, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        decode_attention(x.float(), x, x, cache, cache.clone(), 0, 0)
+    with pytest.raises(ValueError, match="index"):
+        decode_attention(x, x, x, cache, cache.clone(), 0, 4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v", [(70, 997), (5, 20011)])  # a partial row tile; several runs
+@pytest.mark.parametrize("k", [1, 2, 9, 13])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_topk_lse_kernel_matches_plain(cuda, dtype, k, n, v):
+    g = torch.Generator(device=cuda).manual_seed(300 + k)
+    logits = (torch.randn((n, v), generator=g, device=cuda) * 2).to(dtype)
+    launches = topk_log_probs.launches
+    lp, ids = topk_log_probs(logits, k)
+    rlp, rids = topk_log_probs_plain(logits, k)
+    torch.cuda.synchronize()
+    assert topk_log_probs.launches == launches + 1
+    assert lp.dtype == torch.float32 and ids.dtype == torch.int32 and lp.shape == (n, k)
+    assert torch.equal(ids, rids)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_topk_lse_kernel_ties_go_to_the_lower_id(cuda):
+    """A constant row, a maximum repeated across the runs the kernel cuts the
+    vocab into, and integer logits with ties all through the top k."""
+    v = 20011
+    g = torch.Generator(device=cuda).manual_seed(7)
+    logits = torch.randn((4, v), generator=g, device=cuda)
+    logits[0] = 0.0
+    logits[1, [19000, 5, 9000]] = 9.0
+    logits[2] = torch.round(logits[2] * 2)
+    logits[3, ::3] = -torch.inf
+    for dtype in (torch.float32, torch.bfloat16):
+        x = logits.to(dtype)
+        lp, ids = topk_log_probs(x, 13)
+        rlp, rids = topk_log_probs_plain(x, 13)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, rids)
+        assert ids[0].tolist() == list(range(13)) and ids[1, :3].tolist() == [5, 9000, 19000]
+        torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="k=17"):
+        topk_log_probs(logits, 17)
+
+
+@pytest.mark.requires_cuda
+def test_greedy_generate_runs_through_the_new_kernels(cuda, monkeypatch):
+    """Greedy on the dense logits under fused_decode,pallas_topk: the
+    decode-attention kernel once a layer a step, the top-k + logsumexp kernel
+    once a step but on the forced-BOS step."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "fused_decode,pallas_topk")
+    monkeypatch.setenv("MIC_TPU_FUSED_HEAD", "0")
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2,
+                                   ffn_dim=256, max_position_embeddings=64),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=cuda).manual_seed(2),
+                                             cuda))
+    images = torch.randint(0, 256, (3, 40, 40, 3), dtype=torch.uint8, device=cuda)
+    px = preprocess_images(images, 32, torch.bfloat16)
+    decode_attention.launches = topk_log_probs.launches = 0
+    out = Captioner(config).generate(params, px, num_beams=1, max_length=12,
+                                     forced_bos_token_id=7, forced_eos_token_id=None)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == config.decoder.num_layers * out.steps
+    assert topk_log_probs.launches == out.steps - 1
+    assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()

@@ -39,6 +39,7 @@ from mic_tpu.train.shadow import shadow_spec as jax_shadow_spec
 from mic_tpu.train.shadow import shadowed_params as jax_shadowed_params
 from mic_tpu.train.state import TrainState as JaxTrainState
 from mic_tpu.train.state import make_optimizer as jax_make_optimizer
+from mic_tpu_torch.core import config as port_config
 from mic_tpu_torch.core.params import tree_leaves
 from mic_tpu_torch.io.from_jax import from_jax, opt_state_from_jax
 from mic_tpu_torch.models import mbart_decoder
@@ -51,6 +52,11 @@ from mic_tpu_torch.train.state import make_optimizer
 from mic_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port(cfg):
+    """The port's config class of the same name, from the same values."""
+    return getattr(port_config, type(cfg).__name__).from_dict(cfg.to_dict())
 
 
 def _config(dtype="float32", vocab=97, **dec):
@@ -88,8 +94,8 @@ def _trainer(config, device="cpu", **tc):
     base = dict(per_device_batch_size=4, learning_rate=1e-3, warmup_steps=1, num_epochs=1,
                 seed=0, label_smoothing=0.1, output_dir="unused")
     base.update(tc)
-    trainer = Trainer(config, DataConfig(max_seq_length=8, decode_size=40),
-                      TrainConfig(**base), device=device)
+    trainer = Trainer(_port(config), _port(DataConfig(max_seq_length=8, decode_size=40)),
+                      _port(TrainConfig(**base)), device=device)
     trainer.build(10)
     return trainer
 
@@ -134,12 +140,12 @@ def test_apply_decoder_and_call_match_jax():
                                 jnp.asarray(mask), jnp.asarray(enc), jnp.asarray(enc_mask), cfg)
     got = mbart_decoder.apply_decoder(tparams["decoder"], tparams["shared"],
                                       torch.from_numpy(ids), torch.from_numpy(mask),
-                                      torch.from_numpy(enc), torch.from_numpy(enc_mask), cfg)
+                                      torch.from_numpy(enc), torch.from_numpy(enc_mask), _port(cfg))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
     pixels = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
     ref = JaxCaptioner(config)(jparams, jnp.asarray(pixels), jnp.asarray(ids), jnp.asarray(mask))
-    got = Captioner(config)(tparams, torch.from_numpy(pixels), torch.from_numpy(ids),
+    got = Captioner(_port(config))(tparams, torch.from_numpy(pixels), torch.from_numpy(ids),
                             torch.from_numpy(mask))
     assert got.shape == (4, 8, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
@@ -391,7 +397,7 @@ def test_cli_train_end_to_end(tmp_path, capsys):
           "--output_dir", str(out), "--model_config", str(cfg_path), "--num_epochs", "5",
           "--per_device_batch_size", "4", "--learning_rate", "3e-3", "--warmup_steps", "2",
           "--logging_steps", "1", "--eval_steps", "1000", "--max_seq_length", "12",
-          "--decode_size", "40", "--num_workers", "0", "--seed", "0"])
+          "--decode_size", "40", "--num_workers", "0", "--seed", "0", "--device", "cpu"])
     lines = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     losses = [line["train/loss"] for line in lines if "train/loss" in line]
     assert len(losses) == 30 and all(math.isfinite(x) for x in losses)
@@ -403,12 +409,32 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     assert "no checkpoint" in capsys.readouterr().out
 
 
+def test_trainer_and_cli_default_to_the_card(monkeypatch):
+    """With no device named, the Trainer and the CLI take the CUDA card;
+    without one they raise (never a silent CPU run), and device="cpu" /
+    ``--device cpu`` is the one way to the CPU."""
+    from mic_tpu_torch.cli.train import main
+    from mic_tpu_torch.train.trainer import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    config = _port(_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(config, _port(DataConfig()), _port(TrainConfig(output_dir="unused")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--train_file", "unused.tsv", "--output_dir", "unused"])
+
+
 def test_training_never_imports_jax():
     """A process that imports the training modules and the CLI and runs a
     tiny bf16 train step on the dl route has no JAX module loaded."""
     code = (
         "import sys, numpy as np, torch\n"
-        "from mic_tpu.core.config import *\n"
+        "from mic_tpu_torch.core.config import *\n"
         "import mic_tpu_torch.cli.train\n"
         "from mic_tpu_torch.train.trainer import Trainer\n"
         "cfg = CaptionerConfig(vision=VisionConfig.tiny(),\n"
