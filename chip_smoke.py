@@ -54,7 +54,29 @@ Phases, each of which raises on failure (none catches its own):
      MIC_TPU_FUSED_HEAD=0 (both new kernels, with launch counts), and
      sampling with pinned EOS positions (twice from one seed); B=1 and
      B=256 greedy smoke figures;
- 22. greedy at a small width on the card against the CPU in both knob sets.
+ 22. greedy at a small width on the card against the CPU in both knob sets;
+ 23. the blocked lazy-attention kernel (MIC_TPU_FUSED_LAZY_ATTN=1) against
+     its plain version at the flagship decode shape, bf16 and the int8
+     cache with per-head scales, index in {0, 1, 17, 63}: the caches it
+     reads byte-identical before and after;
+ 24. the cross-attention kernel against its plain version at B=256, K=4,
+     S=50 (and a ragged S=37);
+ 25. the LN -> GEMM kernel against its plain version at N in {1024, 32},
+     D=1024, O=3072, reruns bit-equal;
+ 26. the fused MLP kernel against its plain version at N in {1024, 32},
+     D=1024, F=4096, reruns bit-equal (and at N=32 with every activation);
+ 27. the four kernels' times (CUDA-graph replays, and per call with the
+     wrapper) beside their plain versions', their bounds and a library
+     yardstick (SDPA with the beams on the query axis; F.layer_norm +
+     F.linear; F.linear -> F.gelu -> F.linear);
+ 28. the flagship beam-4 path under MIC_TPU_FUSED_LAZY_ATTN=1 and
+     MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv, 8 images, with
+     the bf16 and the int8 KV cache: each of the four kernels 12 times a
+     step, reruns identical, the share of tokens equal to the default
+     knobs'; B=1 and B=256 smoke figures in turns with the default knobs
+     (at B=1, N=4 rows, mic_tpu's N % 8 gates turn LN -> GEMM and the MLP
+     kernel off);
+ 29. that path at a small width on the card against the CPU, both caches.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -113,6 +135,38 @@ def topk_bound(n, v, k, elem_bytes):
     """Top-k + logsumexp of (N, V) logits: the logits read once, k log-probs
     and ids written; a compare, an exp and an add per logit in f32."""
     return bound(n * v * elem_bytes + n * k * 8, 3 * n * v, "f32")
+
+
+def blocked_attention_bound(live_rows, b, beams, index, hd, heads, cache_bytes, scale_bytes=0):
+    """Mode-"1" attention at write index ``index``: of both caches, the
+    ``live_rows`` (image, source row, position) rows that some beam of this
+    run's mask admits (the kernel reads no other), with per-head scales on
+    the int8 cache, read and never written; q, the step K/V and the mask's
+    live rows read, the output written; 4 f32 operations per element of the
+    row each beam admits at each position and of its step row."""
+    rows = b * beams
+    nbytes = (2 * live_rows * (hd * cache_bytes + heads * scale_bytes) + 4 * rows * hd * 2
+              + b * beams * index * beams)
+    return bound(nbytes, 4 * rows * (index + 1) * hd, "f32")
+
+
+def cross_bound(b, beams, s, hd):
+    """Cross-attention: each image's (S, H*Dh) K and V read once, q read and
+    the output written in bf16; 4 f32 operations per (beam, position,
+    element)."""
+    return bound(2 * b * s * hd * 2 + 2 * b * beams * hd * 2, 4 * b * beams * s * hd, "f32")
+
+
+def ln_gemm_bound(n, d, o):
+    """LN -> GEMM: x, the LN scale and shift, W and the bias read, the output
+    written, bf16; 2 N D O products."""
+    return bound(2 * (n * d + 2 * d + d * o + o + n * o), 2 * n * d * o, "bf16")
+
+
+def mlp_bound(n, d, f):
+    """The MLP: x, W1, b1, W2, b2 read and the output written once, bf16 (the
+    (N, F) intermediate kept on chip); 4 N D F products."""
+    return bound(2 * (n * d + d * f + f + f * d + d + n * d), 4 * n * d * f, "bf16")
 
 
 @contextlib.contextmanager
@@ -270,15 +324,22 @@ def flagship(dev):
 
 def _counters():
     """Every kernel wrapper's launch counter on the serving path, by name."""
+    from mic_tpu_torch.ops.cross_attention import fused_cross_attention
     from mic_tpu_torch.ops.decode_attention import decode_attention
     from mic_tpu_torch.ops.fused_head import fused_head_select, fused_head_topk, fused_head_topk_q8
-    from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp
+    from mic_tpu_torch.ops.lazy_attention import (
+        fused_lazy_attention, lazy_attention, lazy_attention_q8,
+    )
+    from mic_tpu_torch.ops.ln_gemm import ln_gemm
     from mic_tpu_torch.ops.topk_lse import topk_log_probs
 
     return {"lazy_attention": lazy_attention, "fused_head": fused_head_topk,
             "lazy_attention_q8": lazy_attention_q8, "fused_head_bucket_q8": fused_head_topk_q8,
             "fused_head_select": fused_head_select, "decode_attention": decode_attention,
-            "topk_log_probs": topk_log_probs}
+            "topk_log_probs": topk_log_probs, "fused_lazy_attention": fused_lazy_attention,
+            "fused_cross_attention": fused_cross_attention, "ln_gemm": ln_gemm,
+            "fused_mlp": fused_mlp}
 
 
 def drive(model, params, px, **kw):
@@ -1149,6 +1210,337 @@ def check_greedy_small_against_cpu(dev):
         require(score_err < 2e-2, f"greedy {label}: card and CPU scores differ")
 
 
+FLAG_B, FLAG_K, FLAG_T, FLAG_H, FLAG_DH, FLAG_S = 256, 4, 64, 16, 64, 50  # the flagship step
+FUSED_STEP = dict(MIC_TPU_FUSED_LAZY_ATTN="1",
+                  MIC_TPU_EXPERIMENTAL="fused_cross_attn,fused_mlp,ln_qkv")
+
+
+def check_blocked_attention(dev):
+    """Phase 23: the blocked lazy-attention kernel against its plain version
+    at the flagship decode shape, on the bf16 cache and on the int8 cache
+    with a scale per (row, position, head), index in {0, 1, 17, 63}: outputs
+    within 2e-2 (bf16 weights and outputs after f32 sums in another order),
+    the caches byte-identical before and after the launch."""
+    from mic_tpu_torch.ops.lazy_attention import (
+        build_ancestry_mask, fused_lazy_attention, fused_lazy_attention_plain,
+    )
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    b, beams, t, heads, dh = FLAG_B, FLAG_K, FLAG_T, FLAG_H, FLAG_DH
+    hd = heads * dh
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    def cache(q8):
+        if not q8:
+            return rand(b * beams, t, hd)
+        values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, dh))
+        return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
+
+    worst = 0.0
+    inputs = {}
+    for q8 in (False, True):
+        for index in (0, 1, 17, 63):
+            q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+            ck, cv = cache(q8), cache(q8)
+            anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev,
+                                dtype=torch.int32)
+            amask = build_ancestry_mask(anc, index)
+            planes = [a for c in (ck, cv) for a in (c.values() if q8 else (c,))]
+            before = [a.clone() for a in planes]
+            out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+            ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            worst = max(worst, err)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            require(all(torch.equal(a, o) for a, o in zip(planes, before)),
+                    "fused_lazy_attention wrote a cache it only reads")
+            print(f"fused_lazy_attention {'int8 per-head' if q8 else 'bf16'} index={index}: "
+                  f"max_abs_err={err:.6g}, caches byte-identical before and after", flush=True)
+            del before
+        inputs[q8] = (q, ck, cv, ks, vs, amask)
+    return worst, inputs
+
+
+def check_cross_attention(dev):
+    """Phase 24: the cross-attention kernel against its plain version at
+    B=256, K=4, S=50 and at a ragged S=37: outputs within 2e-2."""
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention, fused_cross_attention_plain,
+    )
+
+    b, beams, heads, dh = FLAG_B, FLAG_K, FLAG_H, FLAG_DH
+    g = torch.Generator(device=dev).manual_seed(32)
+    worst = 0.0
+    for s in (FLAG_S, 37):
+        q = (torch.randn((b, beams, heads * dh), generator=g, device=dev) * 0.3).bfloat16()
+        ek, ev = ((torch.randn((b, s, heads, dh), generator=g, device=dev) * 0.5).bfloat16()
+                  for _ in range(2))
+        out = fused_cross_attention(q, ek, ev, beams, heads)
+        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        print(f"fused_cross_attention B={b} K={beams} S={s}: max_abs_err={err:.6g}", flush=True)
+        if s == FLAG_S:
+            inputs = (q, ek, ev)
+    return worst, inputs
+
+
+def check_ln_gemm(dev):
+    """Phase 25: the LN -> GEMM kernel against its plain version at N in
+    {1024, 32}, D=1024, O=3072: every output within two bf16 ulps of the size
+    of its terms (|product| + |bias|: the product and the bias add each
+    rounded once to bf16) plus 2**-8 of sum |xn| |w| (the LayerNorm's f32
+    statistics, summed in another order, can round any bf16 xn the other
+    way); a rerun bit-equal."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm_plain
+
+    d, o = HEAD_D, 3 * HEAD_D
+    g = torch.Generator(device=dev).manual_seed(33)
+
+    def rand(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    scale = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).bfloat16()
+    shift, w, bias = rand(d, scale=0.1), rand(d, o, scale=0.03), rand(o, scale=0.1)
+    worst = 0.0
+    for n in (1024, 32):
+        x = rand(n, d, scale=1.0) + 0.5
+        out = ln_gemm(x, scale, shift, w, bias)
+        again = ln_gemm(x, scale, shift, w, bias)
+        ref = ln_gemm_plain(x, scale, shift, w, bias)
+        torch.cuda.synchronize()
+        terms = (ref.float() - bias.float()).abs() + bias.float().abs()
+        l1 = F.layer_norm(x.float(), (d,), scale.float(), shift.float()).abs() @ w.float().abs()
+        diff = (out.float() - ref.float()).abs()
+        beyond = diff > 2 * _bf16_ulp(terms.bfloat16())
+        require(bool((diff <= 2 * _bf16_ulp(terms.bfloat16()) + 2.0**-8 * l1).all()),
+                f"ln_gemm N={n}: an output beyond its bound")
+        require(torch.equal(out, again), f"ln_gemm N={n}: a rerun differs")
+        worst = max(worst, diff.max().item())
+        print(f"ln_gemm N={n} D={d} O={o}: max_abs_err={diff.max().item():.6g} (largest |out| "
+              f"{ref.float().abs().max().item():.4g}), {int(beyond.sum())} of {diff.numel()} "
+              "outputs beyond two ulps of their terms (all within the xn rounding bound), "
+              "rerun bit-equal", flush=True)
+    return worst, (scale, shift, w, bias)
+
+
+def check_fused_mlp(dev):
+    """Phase 26: the fused MLP kernel against its plain version at N in
+    {1024, 32}, D=1024, F=4096: outputs within 1e-2 of the largest (fc1's
+    bf16 intermediate can round the other way before the 4096-term fc2
+    sum); a rerun bit-equal; at N=32 the other activations too."""
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    d, f = HEAD_D, 4 * HEAD_D
+    g = torch.Generator(device=dev).manual_seed(34)
+
+    def rand(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    w1, b1, w2, b2 = rand(d, f, scale=0.03), rand(f, scale=0.1), rand(f, d, scale=0.02), \
+        rand(d, scale=0.1)
+    worst = 0.0
+    for n in (1024, 32):
+        x = rand(n, d, scale=1.0)
+        out = fused_mlp(x, w1, b1, w2, b2)
+        again = fused_mlp(x, w1, b1, w2, b2)
+        ref = fused_mlp_plain(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        require(err <= 1e-2 * top, f"fused_mlp N={n}: {err} beyond 1e-2 of {top}")
+        require(torch.equal(out, again), f"fused_mlp N={n}: a rerun differs")
+        worst = max(worst, err)
+        print(f"fused_mlp N={n} D={d} F={f}: max_abs_err={err:.6g} (largest |out| {top:.4g}), "
+              "rerun bit-equal", flush=True)
+    for act in ("gelu_tanh", "quick_gelu", "relu", "silu"):  # the epilogue's other activations
+        out = fused_mlp(x, w1, b1, w2, b2, act)
+        ref = fused_mlp_plain(x, w1, b1, w2, b2, act)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        require(err <= 1e-2 * top, f"fused_mlp {act} N={n}: {err} beyond 1e-2 of {top}")
+        print(f"fused_mlp {act} N={n}: max_abs_err={err:.6g} (largest |out| {top:.4g})",
+              flush=True)
+    return worst, (w1, b1, w2, b2)
+
+
+def time_fused_step_kernels(dev, attn_inputs, cross_inputs, ln_inputs, mlp_inputs):
+    """Phase 27: each kernel of the fused beam step in CUDA-graph replays
+    (``graph_ms``) and per call with its wrapper (``median_ms``), beside its
+    plain version's replays and a library yardstick where one PyTorch call
+    computes the same function."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention, fused_cross_attention_plain,
+    )
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+    from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, fused_lazy_attention_plain
+    from mic_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm_plain
+
+    beams, heads = FLAG_K, FLAG_H
+    t = {}
+    for q8, (q, ck, cv, ks, vs, amask) in attn_inputs.items():
+        t[("attn", q8)] = (
+            graph_ms(lambda: fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads,
+                                                  positions=63)),
+            graph_ms(lambda: fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)),
+            None,
+            median_ms(lambda: fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads,
+                                                   positions=63)))
+    q, ek, ev = cross_inputs
+    qh = q.reshape(FLAG_B, beams, heads, FLAG_DH).transpose(1, 2)
+    kh, vh = (c.transpose(1, 2) for c in (ek, ev))
+    lib = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0).transpose(1, 2)
+    torch.testing.assert_close(lib.reshape(q.shape).float(),
+                               fused_cross_attention_plain(q, ek, ev, beams, heads).float(),
+                               rtol=2e-2, atol=2e-2)
+    t["cross"] = (graph_ms(lambda: fused_cross_attention(q, ek, ev, beams, heads)),
+                  graph_ms(lambda: fused_cross_attention_plain(q, ek, ev, beams, heads)),
+                  graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+                  median_ms(lambda: fused_cross_attention(q, ek, ev, beams, heads)))
+    scale, shift, w, bias = ln_inputs
+    w1, b1, w2, b2 = mlp_inputs
+    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    g = torch.Generator(device=dev).manual_seed(35)
+    for n in (1024, 32):
+        x = torch.randn((n, HEAD_D), generator=g, device=dev).bfloat16()
+        t[("ln", n)] = (
+            graph_ms(lambda: ln_gemm(x, scale, shift, w, bias)),
+            graph_ms(lambda: ln_gemm_plain(x, scale, shift, w, bias)),
+            graph_ms(lambda: F.linear(F.layer_norm(x, (HEAD_D,), scale, shift, 1e-5), wt, bias)),
+            median_ms(lambda: ln_gemm(x, scale, shift, w, bias)))
+        t[("mlp", n)] = (
+            graph_ms(lambda: fused_mlp(x, w1, b1, w2, b2)),
+            graph_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2)),
+            graph_ms(lambda: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)),
+            median_ms(lambda: fused_mlp(x, w1, b1, w2, b2)))
+    labels = {("attn", False): "fused_lazy_attention bf16 B=256 K=4 T=64 H=16 index=63",
+              ("attn", True): "fused_lazy_attention int8 per-head B=256 K=4 T=64 H=16 index=63",
+              "cross": "fused_cross_attention B=256 K=4 S=50 H=16",
+              ("ln", 1024): "ln_gemm N=1024 D=1024 O=3072", ("ln", 32): "ln_gemm N=32",
+              ("mlp", 1024): "fused_mlp N=1024 D=1024 F=4096", ("mlp", 32): "fused_mlp N=32"}
+    library = {"cross": "scaled_dot_product_attention", "ln": "F.layer_norm + F.linear",
+               "mlp": "F.linear -> F.gelu -> F.linear"}
+    for key, label in labels.items():
+        kernel, plain, lib_ms, per_call = t[key]
+        name = key[0] if isinstance(key, tuple) else key
+        lib_text = f", {library[name]} {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"{label} time: kernel {kernel:.4f} ms, plain {plain:.4f} ms{lib_text} (graph "
+              f"replays); kernel per call with its wrapper {per_call:.4f} ms", flush=True)
+    return t
+
+
+def run_fused_step_path(dev, flag):
+    """Phase 28: the flagship beam-4 path under the four switches, 8 images,
+    with the bf16 KV cache and the int8 one (per-head scales): each of the
+    four kernels 12 times a step, the kernels of mode "2" never, a rerun
+    identical, and the share of tokens equal to the default knobs' run on
+    the same cache dtype; then B=1 and B=256 smoke figures, in turns with
+    the default knobs."""
+    config, params, model, kw, pixels = flag
+    layers = config.decoder.num_layers
+    px = pixels(8, 0)
+    new = ("fused_lazy_attention", "fused_cross_attention", "ln_gemm", "fused_mlp")
+    launches = None
+    for kv in (None, "int8"):
+        extra = dict(kw, kv_quant=kv)
+        default = model.generate(params, px, **extra).sequences.cpu()
+        with knobs(**FUSED_STEP):
+            out, counts = drive(model, params, px, **extra)
+            again = model.generate(params, px, **extra)
+        label = f"fused beam step, {'int8' if kv else 'bf16'} KV"
+        seqs = check_path_output(out, 8, 64, label)
+        share = float((seqs == default).float().mean())
+        print(f"{label}, 8 images: {out.steps} decode steps, launches "
+              f"{ {n: counts[n] for n in new} }, tokens equal to the default knobs' {share:.4f}",
+              flush=True)
+        require(all(counts[n] == layers * out.steps for n in new),
+                f"{label}: a kernel not launched once a layer a step")
+        require(counts["lazy_attention"] == counts["lazy_attention_q8"] == 0,
+                f"{label}: a mode-2 attention kernel ran")
+        require(torch.equal(again.sequences.cpu(), seqs), f"{label}: a second run differs")
+        print(f"{label}: second run gave identical sequences", flush=True)
+        launches = launches or {n: counts[n] for n in new}
+    for kv in (None, "int8"):
+        alternate_figures(model, params, pixels, dict(kw, kv_quant=kv),
+                          f"{'int8' if kv else 'bf16'} KV")
+    return launches
+
+
+def alternate_figures(model, params, pixels, kw, label):
+    """B=1 and B=256 generates under the default knobs and under the four
+    switches in turns (default, fused, fused, default), timed on the host
+    clock around a synchronised generate: smoke figures, not a benchmark.
+    At B=1 (N=4 rows) mic_tpu's N % 8 gates leave LN -> GEMM and the MLP
+    kernel off."""
+    for b in (1, 256):
+        px = pixels(b, 1)
+        for turn, (name, env) in enumerate((("default", {}), ("fused", FUSED_STEP),
+                                            ("fused", FUSED_STEP), ("default", {})), 1):
+            with knobs(**env):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model.generate(params, px, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            require(bool(torch.isfinite(out.scores).all()), f"{label}: non-finite scores")
+            gated = " (N=4: LN -> GEMM and the MLP kernel off)" if b == 1 and env else ""
+            print(f"smoke figure (not a benchmark), {label}, {name} knobs{gated}, turn {turn}: "
+                  f"B={b} num_beams {kw['num_beams']} max_length 64, {out.steps} steps in "
+                  f"{seconds:.3f} s = {b / seconds:.1f} captions/s", flush=True)
+
+
+def check_fused_step_small_against_cpu(dev):
+    """Phase 29: the fused beam step at a small width (d_model 128, head_dim
+    64, ffn_dim 512, 4 images: N = 16 rows) on the card (the four kernels)
+    against the CPU (plain versions) on the same bf16 weights, with the bf16
+    and the int8 cache: equal sequences, scores within 2e-2 (5e-2 with the
+    int8 cache, where a row's int8 rounding can move by one step)."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params, tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=512,
+                                   max_position_embeddings=64),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=dev).manual_seed(36),
+                                             dev))
+    host = tree_map(lambda x: x.cpu(), params)
+    u8 = torch.from_numpy(np.random.default_rng(37).integers(0, 256, (4, 40, 40, 3),
+                                                             dtype=np.uint8))
+    model = Captioner(config)
+    for kv, bound_ in ((None, 2e-2), ("int8", 5e-2)):
+        kw = dict(num_beams=4, max_length=16, forced_bos_token_id=7, kv_quant=kv)
+        with knobs(**FUSED_STEP):
+            gpu, counts = drive(model, params, preprocess_images(u8.to(dev), 32, torch.bfloat16),
+                                **kw)
+            cpu = model.generate(host, preprocess_images(u8, 32, torch.bfloat16), **kw)
+        score_err = (gpu.scores.cpu() - cpu.scores).abs().max().item()
+        same = torch.equal(gpu.sequences.cpu(), cpu.sequences)
+        new = ("fused_lazy_attention", "fused_cross_attention", "ln_gemm", "fused_mlp")
+        print(f"small width, fused beam step, {'int8' if kv else 'bf16'} KV, card vs CPU: "
+              f"sequences equal={same}, max score difference={score_err:.3g}, card launches "
+              f"{ {n: counts[n] for n in new} }", flush=True)
+        require(all(counts[n] > 0 for n in new), "fused beam step: a kernel never ran")
+        require(same, f"fused beam step {kv}: card and CPU sequences differ")
+        require(score_err < bound_, f"fused beam step {kv}: card and CPU scores differ")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -1199,9 +1591,25 @@ def main() -> None:
     del decode_inputs
     torch.cuda.empty_cache()
     launches.update(run_greedy_path(dev, flag))
-    del flag
     torch.cuda.empty_cache()
     check_greedy_small_against_cpu(dev)
+
+    blocked_err, blocked_inputs = check_blocked_attention(dev)
+    cross_err, cross_inputs = check_cross_attention(dev)
+    ln_err, ln_inputs = check_ln_gemm(dev)
+    mlp_err, mlp_inputs = check_fused_mlp(dev)
+    step_ms = time_fused_step_kernels(dev, blocked_inputs, cross_inputs, ln_inputs, mlp_inputs)
+    # the (image, source row, position) rows some beam admits in the timed masks
+    live_rows = {q8: int((inputs[-1] != 0).any(-1).sum())
+                 for q8, inputs in blocked_inputs.items()}
+    print(f"fused_lazy_attention timed inputs: {live_rows[False]} (bf16) and {live_rows[True]} "
+          f"(int8) of {FLAG_B * FLAG_K * 63} cached rows admitted by some beam", flush=True)
+    del blocked_inputs, cross_inputs, ln_inputs, mlp_inputs
+    torch.cuda.empty_cache()
+    launches.update(run_fused_step_path(dev, flag))
+    del flag
+    torch.cuda.empty_cache()
+    check_fused_step_small_against_cpu(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1223,6 +1631,11 @@ def main() -> None:
         "lazy_attention_q8": attention_bound(n_beam, 63, HEAD_D, 1, scale_bytes=4, ancestry=True),
         "decode_attention": attention_bound(256, 63, HEAD_D, 2),
         "topk_log_probs": topk_bound(1024, HEAD_V, 9, 2),
+        "fused_lazy_attention": blocked_attention_bound(live_rows[False], FLAG_B, FLAG_K, 63,
+                                                        HEAD_D, FLAG_H, 2),
+        "fused_cross_attention": cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D),
+        "ln_gemm": ln_gemm_bound(1024, HEAD_D, 3 * HEAD_D),
+        "fused_mlp": mlp_bound(1024, HEAD_D, 4 * HEAD_D),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
@@ -1230,7 +1643,11 @@ def main() -> None:
                                                       scales=True),
               "fused_head_select bf16 N=1024": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
               **{f"topk_log_probs N={n} k={k}": topk_bound(n, HEAD_V, k, 2)
-                 for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2))}}
+                 for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2))},
+              "fused_lazy_attention int8 per-head": blocked_attention_bound(
+                  live_rows[True], FLAG_B, FLAG_K, 63, HEAD_D, FLAG_H, 1, scale_bytes=4),
+              "ln_gemm N=32": ln_gemm_bound(32, HEAD_D, 3 * HEAD_D),
+              "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D)}
     print("bounds at the other timed shapes: " + ", ".join(
         f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [
@@ -1262,6 +1679,21 @@ def main() -> None:
         dict(name="topk_log_probs", source="mic_tpu_torch/csrc/topk_lse.cu",
              replaces="mic_tpu/ops/topk_lse.py:94", max_abs_err=topk_err,
              ms=greedy_ms[("topk", 1024, 9)][0], plain_ms=greedy_ms[("topk", 1024, 9)][1]),
+        dict(name="fused_lazy_attention", source="mic_tpu_torch/csrc/lazy_attention.cu",
+             replaces="mic_tpu/ops/lazy_attention.py:257", max_abs_err=blocked_err,
+             ms=step_ms[("attn", False)][0], plain_ms=step_ms[("attn", False)][1]),
+        dict(name="fused_cross_attention", source="mic_tpu_torch/csrc/cross_attention.cu",
+             replaces="mic_tpu/ops/cross_attention.py:237", max_abs_err=cross_err,
+             ms=step_ms["cross"][0], plain_ms=step_ms["cross"][1],
+             library_ms=step_ms["cross"][2]),
+        dict(name="ln_gemm", source="mic_tpu_torch/csrc/ln_gemm.cu",
+             replaces="mic_tpu/ops/ln_gemm.py:49", max_abs_err=ln_err,
+             ms=step_ms[("ln", 1024)][0], plain_ms=step_ms[("ln", 1024)][1],
+             library_ms=step_ms[("ln", 1024)][2]),
+        dict(name="fused_mlp", source="mic_tpu_torch/csrc/fused_mlp.cu",
+             replaces="mic_tpu/ops/fused_mlp.py:89", max_abs_err=mlp_err,
+             ms=step_ms[("mlp", 1024)][0], plain_ms=step_ms[("mlp", 1024)][1],
+             library_ms=step_ms[("mlp", 1024)][2]),
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, with the shared
+headers ``csrc/*.cuh`` they include).
 
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
 shared library under ``build/mic_tpu_torch/`` at the repository root, at
@@ -59,6 +60,18 @@ _SIGNATURES = {
     # logits, part_m, part_l, part_v, part_i, lp, ids, n, vocab, k, max_runs, stream
     "mic_topk_lse_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "mic_topk_lse_f32": [_P] * 7 + [_I] * 4 + [_P],
+    # q, cache_k, cache_v, k_step, v_step, amask, out,
+    # batch, beams, t_max, positions, heads, head_dim, stream
+    "mic_lazy_attention_blocked_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, amask, out,
+    # batch, beams, t_max, positions, heads, head_dim, stream
+    "mic_lazy_attention_blocked_q8": [_P] * 9 + [_I] * 6 + [_P],
+    # q, enc_k, enc_v, out, batch, beams, enc_len, heads, head_dim, stream
+    "mic_cross_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # x, scale, shift, w, bias, out, n, d, o, eps, stream
+    "mic_ln_gemm_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, h, out, n, d, f, act, stream
+    "mic_fused_mlp_bf16": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -79,8 +92,9 @@ def build() -> Path:
     """Compile csrc/*.cu into the build directory unless an up-to-date
     library is there already; returns the library path."""
     sources = sorted((_PKG / "csrc").glob("*.cu"))
+    headers = sorted((_PKG / "csrc").glob("*.cuh"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + headers:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(_FLAGS).encode())
@@ -128,3 +142,13 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")
+
+
+def check_operands(name: str, tensors) -> None:
+    """Raise unless every tensor is contiguous, 16-byte aligned and on the
+    first one's device: what the C entry points take."""
+    device = tensors[0].device
+    for x in tensors:
+        if x.device != device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned and on one "
+                             "device")

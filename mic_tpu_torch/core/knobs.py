@@ -20,6 +20,20 @@ combination space of defaults is exactly what the config expresses.
 The port's own copy of mic_tpu/core/knobs.py: the same ``override`` and the same
 ``MIC_TPU_EXPERIMENTAL`` registry, so every variable keeps its name and
 meaning in both packages.
+
+Where the port reads a switch: the lazy beam step (models/mbart_decoder.py)
+reads MIC_TPU_FUSED_LAZY_ATTN ("1", "2"), fused_cross_attn, fused_mlp and
+ln_qkv; the greedy step fused_decode; the dense candidate select
+pallas_topk (generate/search.py::_topk_mode says why approx_topk and
+segmented_topk take the exact select); ``Captioner.generate`` merged_kv
+and merged_cross.  Switches whose mic_tpu
+path is not ported raise where mic_tpu reads them: MIC_TPU_FUSED_LAZY_ATTN=0
+(mic_tpu's XLA lazy-attention chain), merged_cross and small_attn.  Switches
+that only tune TPU tiling or bucketing leave every result the same and are
+accepted and ignored: cross_g (images per cross-attention grid cell),
+attn_buckets (static read-prefix buckets, bit-identical by construction),
+MIC_TPU_CACHE_SEGMENTS (phased cache growth, bit-identical) and
+MIC_TPU_DMA_G (images per DMA grid cell).
 """
 
 from __future__ import annotations

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attend_rows.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
@@ -338,4 +340,40 @@ extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void
       static_cast<const int32_t*>(ancestry), static_cast<__nv_bfloat16*>(out), beams, t_max,
       heads, index);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocked kernel of mode "1": replaces
+// mic_tpu/ops/lazy_attention.py::fused_lazy_attention (_kernel_bf16 and
+// _kernel_q8).  It reads the PRE-update cache and never writes it: the
+// caller stores the step column after it.  Liveness comes from the per-step
+// (B, J*T, K) int8 ancestry mask shared by every layer (strict t < index),
+// and each beam's own step row is scored unquantized (scale 1).  The int8
+// variant reads per-(row, position, head) f32 scales, (B*K, T, H).  The
+// kernel walks positions < `positions` only: the wrapper passes the write
+// index, past which the strict mask admits nothing.  Math and design:
+// attend_rows.cuh.
+extern "C" int mic_lazy_attention_blocked_bf16(void* q, void* cache_k, void* cache_v, void* k_step,
+                                               void* v_step, void* amask, void* out, int batch,
+                                               int beams, int t_max, int positions, int heads,
+                                               int head_dim, void* stream) {
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v, nullptr, nullptr,
+                 static_cast<const __nv_bfloat16*>(k_step),
+                 static_cast<const __nv_bfloat16*>(v_step), static_cast<const int8_t*>(amask),
+                 static_cast<__nv_bfloat16*>(out), beams, beams, t_max, positions, heads};
+  return attend::launch<__nv_bfloat16, true, true>(a, batch, head_dim,
+                                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mic_lazy_attention_blocked_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
+                                             void* v_scale, void* k_step, void* v_step,
+                                             void* amask, void* out, int batch, int beams,
+                                             int t_max, int positions, int heads, int head_dim,
+                                             void* stream) {
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                 static_cast<const __nv_bfloat16*>(k_step),
+                 static_cast<const __nv_bfloat16*>(v_step), static_cast<const int8_t*>(amask),
+                 static_cast<__nv_bfloat16*>(out), beams, beams, t_max, positions, heads};
+  return attend::launch<int8_t, true, true>(a, batch, head_dim,
+                                            static_cast<cudaStream_t>(stream));
 }

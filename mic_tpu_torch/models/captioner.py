@@ -14,6 +14,14 @@ uses it), else from the dense logits of ``lm_logits``.  The head's select
 "auto" is "bucket" on CUDA and "exact" on the CPU.  Int8 serving
 (``quantize="int8"``: int8 decoder and tied head, ops/quant.py;
 ``kv_quant="int8"``: an int8 lazy self-attention cache) resolves alike.
+
+The beam step's kernels follow mic_tpu's switches
+(models/mbart_decoder.py::_decoder_step_lazy): MIC_TPU_FUSED_LAZY_ATTN
+("auto" and "2": the attention kernel that writes the cache column; "1":
+the blocked kernel, whose int8 cache has a scale per (row, position,
+head)), and MIC_TPU_EXPERIMENTAL's fused_cross_attn, fused_mlp and ln_qkv.
+Switches whose mic_tpu path is not ported raise: MIC_TPU_FUSED_LAZY_ATTN=0
+(mic_tpu's XLA chain), MIC_TPU_EXPERIMENTAL=merged_cross and small_attn.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch.core.config import CaptionerConfig
-from mic_tpu_torch.core.knobs import override
+from mic_tpu_torch.core.knobs import experimental, override
 from mic_tpu_torch.core.params import Params, torch_dtype, tree_map
 from mic_tpu_torch.generate import search
 from mic_tpu_torch.generate.processors import build_warpers
@@ -29,6 +37,8 @@ from mic_tpu_torch.models import clip_vit, mbart_decoder
 from mic_tpu_torch.nn.cache import DecoderCache, LazyDecoderCache, init_cache, init_lazy_cache
 from mic_tpu_torch.nn.layers import dense, init_dense, init_embed
 from mic_tpu_torch.nn.stacked import remat_policy
+from mic_tpu_torch.ops import lazy_attention
+from mic_tpu_torch.ops.attention import refuse_small_attn
 from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
 from mic_tpu_torch.ops.quant import int8_matmul, quantize_params_for_decode, quantize_rows_dynamic
 
@@ -91,6 +101,7 @@ class Captioner:
         """Teacher-forced forward -> logits (B, T, vocab) in the compute dtype.
         The encoder and then the decoder draw their dropout masks from the
         one ``generator``."""
+        refuse_small_attn()
         enc_states = self.encode(params, pixel_values, generator)
         return self.decode_train(params, enc_states, decoder_input_ids,
                                  decoder_attention_mask, generator)
@@ -111,16 +122,17 @@ class Captioner:
         return logits + params["final_logits_bias"].to(self.dtype)
 
     def init_decode_cache(self, params: Params, enc_states: torch.Tensor, max_length: int,
-                          beams: int, lazy: bool = True,
-                          kv_quant: str | None = None) -> LazyDecoderCache | DecoderCache:
+                          beams: int, lazy: bool = True, kv_quant: str | None = None,
+                          merged: bool = True) -> LazyDecoderCache | DecoderCache:
         """enc_states is true-batch (B, S, D): cross K/V are kept once per
         image; only the self cache is per beam: the lazy cache (int8 with
-        kv_quant="int8"), or the physical (L, B*beams, T, H, Dh) one."""
+        kv_quant="int8", with per-row scales when ``merged``, else per-head
+        ones), or the physical (L, B*beams, T, H, Dh) one."""
         cross_k, cross_v = mbart_decoder.init_cross_cache(
             params["decoder"], enc_states, self.config.decoder, self.dtype
         )
         if lazy:
-            return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant)
+            return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant, merged)
         return init_cache(cross_k, cross_v, enc_states.shape[0] * beams, max_length)
 
     def decode_step(self, params: Params, token_ids: torch.Tensor, cache, beams: int = 1):
@@ -192,6 +204,7 @@ class Captioner:
         ) or None
         if quantize not in (None, "", "int8"):
             raise ValueError(f"unsupported quantize: {quantize!r}")
+        refuse_small_attn()  # the encoder's attention
         eos_positions = overrides.pop("eos_positions", None)
         gen = self.config.generation.replace(**overrides)
         dec = self.config.decoder
@@ -224,10 +237,21 @@ class Captioner:
         if quantize == "int8":
             params = quantize_params_for_decode(params)
 
+        # the lazy-attention mode, resolved once as mic_tpu resolves it (from
+        # the environment; DecodeConfig.lazy_attn is never read), picks the
+        # int8 cache's layout: per-row scales for mode "2", per-head ones for
+        # mode "1" (MIC_TPU_EXPERIMENTAL=merged_kv forces per-row)
+        mode = lazy_attention.resolve_mode(gen.max_length)
+        merged = not (kv_quant == "int8" and mode == "1" and experimental("merged_kv") != "1")
+        if lazy and experimental("merged_cross") == "1":
+            raise NotImplementedError("MIC_TPU_EXPERIMENTAL=merged_cross: the merged cross "
+                                      "cache and its DMA cross kernel are not ported "
+                                      "(ROADMAP B13)")
+
         enc_states = self.encode(params, pixel_values)
         # the quantized KV cache is lazy-path only
         cache = self.init_decode_cache(params, enc_states, gen.max_length, gen.num_beams,
-                                       lazy, kv_quant if lazy else None)
+                                       lazy, kv_quant if lazy else None, merged=merged)
         if fused_head:
             sel = override("MIC_TPU_FUSED_SELECT", dcfg.fused_select)
             if sel == "auto":

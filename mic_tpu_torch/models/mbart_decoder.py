@@ -1,8 +1,10 @@
 """mBART-style pre-norm decoder (mic_tpu/models/mbart_decoder.py): the
 teacher-forced full-sequence pass for training (``apply_decoder``) and
-cached single-token decoding (``decoder_step``) on the lazy beam cache or
-on the physical cache, whose self-attention runs the decode-attention
-kernel under MIC_TPU_EXPERIMENTAL=fused_decode.
+cached single-token decoding (``decoder_step``) on the lazy beam cache
+(with mic_tpu's opt-in kernels of the beam step: the blocked lazy
+attention, the cross-attention, LN -> QKV and the fused MLP) or on the
+physical cache, whose self-attention runs the decode-attention kernel
+under MIC_TPU_EXPERIMENTAL=fused_decode.
 
 Token embeddings are the shared table scaled by sqrt(d_model) in the
 compute dtype; learned positions are offset by 2; every layer is
@@ -38,8 +40,10 @@ from mic_tpu_torch.nn.layers import (
     merge_heads,
     split_heads,
 )
-from mic_tpu_torch.ops.decode_attention import decode_attention
 from mic_tpu_torch.nn.stacked import init_stacked, layer_slice, scan_apply
+from mic_tpu_torch.ops import cross_attention, lazy_attention
+from mic_tpu_torch.ops.decode_attention import decode_attention
+from mic_tpu_torch.ops.fused_mlp import fused_mlp
 
 
 def check_pre_norm(cfg: DecoderConfig) -> None:
@@ -167,10 +171,14 @@ def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfi
 
 
 def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor, cache,
-                         cfg: DecoderConfig, dtype: torch.dtype, self_attention):
+                         cfg: DecoderConfig, dtype: torch.dtype, self_attention,
+                         cross_kernel: bool = False, mlp=None):
     """The decode step's layer stack around ``self_attention(p, x, layer)``,
-    which returns the (N, 1, D) self-attention output and writes the step's
-    K/V into column ``cache.index`` of the layer's self cache in place."""
+    which takes the layer's params and its PRE-norm input (it applies
+    ln_self itself), returns the (N, 1, D) self-attention output and writes
+    the step's K/V into column ``cache.index`` of the layer's self cache in
+    place.  ``cross_kernel`` runs the cross-attention kernel; ``mlp(p, x)``,
+    where given, replaces fc1 -> act -> fc2."""
     check_pre_norm(cfg)
     eps = cfg.layer_norm_eps
     act = ACTIVATIONS[cfg.activation]
@@ -179,16 +187,16 @@ def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor
     x = layer_norm(params["ln_embed"], x, eps)
     for layer in range(cfg.num_layers):
         p = layer_slice(params["layers"], layer)
-        r = x
-        x = r + self_attention(p["self_attn"], layer_norm(p["ln_self"], x, eps), layer)
+        x = x + self_attention(p, x, layer)
         r = x
         x = layer_norm(p["ln_cross"], x, eps)
         x = r + mha_cross_grouped(
             p["cross_attn"], x, cache.cross_k[layer], cache.cross_v[layer], cfg.num_heads,
+            kernel=cross_kernel,
         )
         r = x
         x = layer_norm(p["ln_mlp"], x, eps)
-        x = r + dense(p["fc2"], act(dense(p["fc1"], x)))
+        x = r + (mlp(p, x) if mlp else dense(p["fc2"], act(dense(p["fc1"], x))))
     if cfg.use_final_ln:
         x = layer_norm(params["final_ln"], x, eps)
     return x, dataclasses.replace(cache, index=cache.index + token_ids.shape[1])
@@ -197,13 +205,54 @@ def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor
 def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
                        cache: LazyDecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
                        beams: int):
-    """mic_tpu's ``_decoder_step_lazy``: each layer's merged self K/V gain
-    column ``cache.index`` in place and nothing is reordered."""
-    def attend(p, x, layer):
-        return mha_decode_step_lazy(p, x, cache.self_k[layer], cache.self_v[layer],
-                                    cache.ancestry, cache.index, cfg.num_heads, beams)
+    """mic_tpu's ``_decoder_step_lazy``: each layer's self K/V gain column
+    ``cache.index`` in place and nothing is reordered.
 
-    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+    mic_tpu's gates, each read where mic_tpu reads it on its accelerator and
+    here wherever the switch is set; inside each wrapper the tensors' device
+    then picks the kernel or its plain version:
+      - MIC_TPU_FUSED_LAZY_ATTN (ops/lazy_attention.py::resolve_mode): "2"
+        (the default) attends and writes the column in one kernel; "1" runs
+        the blocked kernel on the per-step ancestry mask, built once and
+        shared by every layer.  Where mic_tpu would run its XLA chain (mode
+        "0", a shape mode "1" does not take) the port raises.
+      - MIC_TPU_EXPERIMENTAL=fused_cross_attn with H*Dh a multiple of 128:
+        the cross-attention kernel.
+      - fused_mlp, on a float fc1 ("kernel") with a bias, N = images x beams
+        a multiple of 8, d_model of 128 and ffn_dim of 512: the fused MLP
+        kernel.
+      - ln_qkv: ln_self moves into the self-attention's qkv GEMM (where
+        ops/ln_gemm.py's guard passes).
+    An int8 weight tree ("kernel_q") turns the last two off, as in mic_tpu."""
+    index = cache.index
+    mode = lazy_attention.resolve_mode(cache.ancestry.shape[-1])
+    lazy_attention.check_mode(mode, cache.self_k[0], beams, cfg.num_heads, cfg.head_dim)
+    amask = lazy_attention.build_ancestry_mask(cache.ancestry, index) if mode == "1" else None
+    ln_fused = experimental("ln_qkv", "0") == "1"
+    cross_kernel = (experimental("fused_cross_attn", "0") == "1"
+                    and cross_attention.supports(cfg.num_heads, cfg.head_dim))
+    fc1 = params["layers"]["fc1"]
+    mlp = None
+    if (experimental("fused_mlp", "0") == "1" and "kernel" in fc1 and "bias" in fc1
+            and token_ids.shape[0] % 8 == 0 and cfg.d_model % 128 == 0
+            and cfg.ffn_dim % 512 == 0):
+        def mlp(p, x):
+            n, one, d = x.shape
+            return fused_mlp(x.reshape(n, d), p["fc1"]["kernel"], p["fc1"]["bias"],
+                             p["fc2"]["kernel"], p["fc2"]["bias"],
+                             cfg.activation).reshape(n, one, d)
+
+    def attend(p, x, layer):
+        if not ln_fused:
+            x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
+        return mha_decode_step_lazy(
+            p["self_attn"], x, cache.self_k[layer], cache.self_v[layer], cache.ancestry, index,
+            cfg.num_heads, beams, amask=amask,
+            ln=(p["ln_self"], cfg.layer_norm_eps) if ln_fused else None,
+        )
+
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,
+                                cross_kernel=cross_kernel, mlp=mlp)
 
 
 def _decoder_step_physical(params: Params, shared: Params, token_ids: torch.Tensor,
@@ -211,8 +260,9 @@ def _decoder_step_physical(params: Params, shared: Params, token_ids: torch.Tens
     """The physical branch of mic_tpu's ``decoder_step``: mha_decode_step
     on each layer's (N, T, H, Dh) view of the stacked self cache."""
     def attend(p, x, layer):
-        return mha_decode_step(p, x, cache.self_k[layer], cache.self_v[layer], cache.index,
-                               cfg.num_heads)
+        x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
+        return mha_decode_step(p["self_attn"], x, cache.self_k[layer], cache.self_v[layer],
+                               cache.index, cfg.num_heads)
 
     return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
 
@@ -226,11 +276,13 @@ def _decoder_step_fused(params: Params, shared: Params, token_ids: torch.Tensor,
     head_dim = cfg.head_dim
 
     def attend(p, x, layer):
-        q = split_heads(dense(p["q"], x) * (head_dim**-0.5), cfg.num_heads)
-        k_step, v_step = project_kv(p, x, cfg.num_heads)
+        sa = p["self_attn"]
+        x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
+        q = split_heads(dense(sa["q"], x) * (head_dim**-0.5), cfg.num_heads)
+        k_step, v_step = project_kv(sa, x, cfg.num_heads)
         out = decode_attention(q, k_step, v_step, cache.self_k, cache.self_v, layer,
                                cache.index)
-        return dense(p["o"], merge_heads(out.to(x.dtype)))
+        return dense(sa["o"], merge_heads(out.to(x.dtype)))
 
     return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
 

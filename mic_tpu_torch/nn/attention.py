@@ -9,9 +9,12 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch.core.params import Params
-from mic_tpu_torch.nn.layers import dense, init_dense, merge_heads, split_heads
+from mic_tpu_torch.nn.layers import dense, init_dense, layer_norm, merge_heads, split_heads
+from mic_tpu_torch.ops import ln_gemm as ln_gemm_ops
 from mic_tpu_torch.ops.attention import xla_attention
-from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+from mic_tpu_torch.ops.cross_attention import fused_cross_attention
+from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, lazy_attention, lazy_attention_q8
+from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
 
 def init_mha(generator: torch.Generator, d_model: int, std: float = 0.02,
@@ -42,13 +45,19 @@ def mha(params: Params, x: torch.Tensor, kv_states: torch.Tensor, mask,
 
 
 def mha_cross_grouped(params: Params, x: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, num_heads: int) -> torch.Tensor:
+                      v: torch.Tensor, num_heads: int, kernel: bool = False) -> torch.Tensor:
     """Cached cross-attention with K/V held once per image: x (B*K, 1, D),
-    k/v (B, S, H, Dh); an image's K beams ride the query axis."""
+    k/v (B, S, H, Dh); an image's K beams ride the query axis.  With
+    ``kernel`` (MIC_TPU_EXPERIMENTAL=fused_cross_attn) the attention is
+    ops/cross_attention.py::fused_cross_attention."""
     bk, one, d = x.shape
     head_dim = d // num_heads
     b = k.shape[0]
     q = dense(params["q"], x) * (head_dim**-0.5)
+    if kernel:
+        out = fused_cross_attention(q.reshape(b, (bk // b) * one, d), k, v, (bk // b) * one,
+                                    num_heads)
+        return dense(params["o"], out.reshape(bk, one, d))
     q = q.reshape(b, (bk // b) * one, num_heads, head_dim)
     scores = torch.einsum("bkhd,bshd->bhks", q.float(), k.float())
     weights = torch.softmax(scores, dim=-1).to(x.dtype)
@@ -73,26 +82,48 @@ def mha_decode_step(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     return dense(params["o"], merge_heads(out))
 
 
-def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
-                         cache_v: torch.Tensor, ancestry: torch.Tensor, index: int,
-                         num_heads: int, beams: int) -> torch.Tensor:
+def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k, cache_v,
+                         ancestry: torch.Tensor, index: int, num_heads: int, beams: int,
+                         amask: torch.Tensor | None = None, ln=None) -> torch.Tensor:
     """Cached beam self-attention on the lazy cache (never reordered).
 
     x (B*K, 1, D); params hold the fused "qkv" projection
-    (models/mbart_decoder.py::fuse_qkv_params), int8 or not; merged caches
-    (B*K, T, D), or int8 ones
-    ({"q", "s"} dicts, ops/lazy_attention.py), gain column ``index`` in
-    place.  Returns the (B*K, 1, D) output."""
+    (models/mbart_decoder.py::fuse_qkv_params), int8 or not; caches
+    (B*K, T, D), or int8 {"q", "s"} dicts (ops/lazy_attention.py), gain
+    column ``index`` in place.  Returns the (B*K, 1, D) output.
+
+    Without ``amask`` (mode "2") one kernel attends and writes the column.
+    With the step's (B, K*T, K) ancestry mask (mode "1") the blocked kernel
+    reads the pre-update cache, then the step K/V are stored as a plain
+    tensor store, quantized per head on the int8 cache (mode "1" takes the
+    canonical layout only).  ``ln`` = (ln params, eps) means x is the
+    PRE-norm input: where ops/ln_gemm.py's guard passes, the LayerNorm
+    runs inside the qkv GEMM (MIC_TPU_EXPERIMENTAL=ln_qkv), else before it."""
     bk, one, d = x.shape
     b = bk // beams
     head_dim = d // num_heads
-    q, k_step, v_step = torch.split(dense(params["qkv"], x), d, dim=-1)
+    if ln is None:
+        qkv = dense(params["qkv"], x)
+    elif ("kernel" in params["qkv"] and params["qkv"]["kernel"].ndim == 2
+          and ln_gemm_ops.supports(x.reshape(bk, d), params["qkv"]["kernel"])):
+        qkv = ln_gemm_ops.ln_gemm(x.reshape(bk, d), ln[0]["scale"], ln[0]["bias"],
+                                  params["qkv"]["kernel"], params["qkv"]["bias"], ln[1])
+    else:
+        qkv = dense(params["qkv"], layer_norm(ln[0], x, ln[1]))
+    q, k_step, v_step = torch.split(qkv.reshape(bk, one, 3 * d), d, dim=-1)
     q = q * (head_dim**-0.5)
-    attend = lazy_attention_q8 if isinstance(cache_k, dict) else lazy_attention
-    out = attend(
-        q.reshape(b, beams, d).contiguous(), cache_k, cache_v,
-        k_step.reshape(b, beams, d).contiguous(),
-        v_step.reshape(b, beams, d).contiguous(),
-        ancestry, index, num_heads,
-    )
+    q, k_step, v_step = (t.reshape(b, beams, d).contiguous() for t in (q, k_step, v_step))
+    if amask is None:
+        attend = lazy_attention_q8 if isinstance(cache_k, dict) else lazy_attention
+        out = attend(q, cache_k, cache_v, k_step, v_step, ancestry, index, num_heads)
+        return dense(params["o"], out.reshape(bk, one, d))
+    out = fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams, num_heads,
+                               positions=index)
+    for cache, step in ((cache_k, k_step), (cache_v, v_step)):
+        if isinstance(cache, dict):  # the canonical int8 layout: a scale per head
+            values, scales = quantize_rows_dynamic(step.reshape(bk, num_heads, head_dim))
+            cache["q"][:, index] = values.reshape(bk, d)
+            cache["s"][:, index] = scales[..., 0]
+        else:
+            cache[:, index] = step.reshape(bk, d)
     return dense(params["o"], out.reshape(bk, one, d))

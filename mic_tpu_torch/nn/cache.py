@@ -10,12 +10,15 @@ place.  A beam reorder moves the self K/V rows (``beam_reorder``).
 In ``LazyDecoderCache`` row b*K + k of each layer's self K/V always holds what running slot k of
 image b wrote at each step; which row holds a beam's token at position t is
 tracked in ``ancestry``.  A beam reorder therefore moves no cache bytes: it
-composes the ancestry.  The port has one layout, the merged
-(B*K, T, H*Dh) one the attention kernels read, and the decode step writes
-each layer's new column into it in place.  With ``kv_quant="int8"`` each
-layer's K and V are {"q": (B*K, T, H*Dh) int8, "s": (B*K, T) f32}: one
-scale per cached ROW, mic_tpu's merged int8 layout (its per-head-scale
-canonical layout is not ported).
+composes the ancestry.  The self K/V values are always stored
+(B*K, T, H*Dh), the same memory as mic_tpu's canonical (B*K, T, H, Dh),
+and the decode step writes each layer's new column into them in place.
+With ``kv_quant="int8"`` each layer's K and V are int8 values and f32
+scales in one of mic_tpu's two layouts:
+  - merged (the default; lazy-attention mode "2"): {"q": (B*K, T, H*Dh)
+    int8, "s": (B*K, T)}, one scale per cached ROW;
+  - canonical (``merged=False``; mode "1"): {"q": (B*K, T, H*Dh) int8,
+    "s": (B*K, T, H)}, one scale per (row, position, head).
 
 Shapes of ``LazyDecoderCache``:
   self_k / self_v : L-list of (B*K, max_len, H*Dh), or of int8 dicts
@@ -55,17 +58,20 @@ class LazyDecoderCache:
 
 
 def init_lazy_cache(cross_k: torch.Tensor, cross_v: torch.Tensor, num_beams: int,
-                    max_len: int, kv_quant: str | None = None) -> LazyDecoderCache:
-    """Zeroed merged self K/V (one tensor, or int8 dict, per layer) and
-    identity ancestry around the projected cross K/V (L, B, S, H, Dh), whose
-    layer count, batch, heads, dtype and device the self cache takes."""
+                    max_len: int, kv_quant: str | None = None,
+                    merged: bool = True) -> LazyDecoderCache:
+    """Zeroed self K/V (one tensor, or int8 dict, per layer) and identity
+    ancestry around the projected cross K/V (L, B, S, H, Dh), whose layer
+    count, batch, heads, dtype and device the self cache takes.  An int8
+    cache has per-row scales when ``merged``, else per-head ones."""
     num_layers, batch, _, num_heads, head_dim = cross_k.shape
     device = cross_k.device
     shape = (batch * num_beams, max_len, num_heads * head_dim)
+    scales = shape[:2] if merged else (*shape[:2], num_heads)
     if kv_quant == "int8":
         def kv():
             return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "s": torch.zeros(shape[:2], dtype=torch.float32, device=device)}
+                    "s": torch.zeros(scales, dtype=torch.float32, device=device)}
     elif kv_quant:
         raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
     else:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from mic_tpu_torch.core.knobs import experimental
 from mic_tpu_torch.nn.layers import keep_mask
 
 # masked scores take finfo(float32).min, never -inf: a fully masked row stays finite
@@ -26,3 +27,13 @@ def xla_attention(q, k, v, mask=None, dropout_rate: float = 0.0, dropout_rng=Non
         weights = torch.where(keep, weights / (1.0 - dropout_rate),
                               torch.zeros((), dtype=dtype, device=weights.device))
     return torch.einsum("bhqk,bkhd->bqhd", weights, v.to(dtype))
+
+
+def refuse_small_attn() -> None:
+    """MIC_TPU_EXPERIMENTAL=small_attn sends mic_tpu's full-sequence
+    attention to its small-T kernel (mic_tpu/ops/small_attention.py).  The
+    port has not ported that kernel, so its entry points refuse the switch
+    rather than run another path."""
+    if experimental("small_attn", "0") == "1":
+        raise NotImplementedError("MIC_TPU_EXPERIMENTAL=small_attn: the small-T attention "
+                                  "kernel is not ported (ROADMAP B12)")

@@ -14,6 +14,18 @@ step rows are quantized per merged row (ops/quant.py::quantize_rows_dynamic;
 the kernel computes the same bits itself) only to be written into column
 ``index``.
 
+``fused_lazy_attention`` is mode "1" (MIC_TPU_FUSED_LAZY_ATTN=1), the
+counterpart of mic_tpu's blocked ``fused_lazy_attention``: it reads the
+PRE-update cache and never writes it (the caller stores the step column
+after it), takes liveness from the per-step (B, J*T, K) ancestry mask of
+``build_ancestry_mask`` (strict t < index, shared by every layer), and
+scores each beam's own step row unquantized.  Its int8 cache is mic_tpu's
+canonical layout: {"q": (B*K, T, H*Dh) int8, "s": (B*K, T, H) f32}, one
+scale per (row, position, head).  Its plain version is
+``attend_rows_plain``, mic_tpu's _attend_tiles, which ops/cross_attention.py
+shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
+mode "0" (mic_tpu's XLA chain) is not ported.
+
 Each wrapper takes the plain version for tensors on the CPU and its kernel
 (csrc/lazy_attention.cu) for tensors on a CUDA device; it never falls back
 from one to the other.
@@ -24,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch import _build
+from mic_tpu_torch.core.knobs import override
 from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
 # mic_tpu/nn/attention.py masks scores with finfo(float32).min, never -inf
@@ -201,3 +214,178 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
 
 
 lazy_attention_q8.launches = 0
+
+
+def resolve_mode(max_length: int, mode: str = "auto") -> str:
+    """mic_tpu's lazy decode-attention mode: "0" (its XLA chain, not
+    ported), "1" (the blocked kernel, ``fused_lazy_attention``), "2" (the
+    kernel that writes the column itself, ``lazy_attention``).  The
+    MIC_TPU_FUSED_LAZY_ATTN override wins, then ``mode``, then "auto",
+    which is "2": mic_tpu's choice on its accelerator.  (Off the TPU
+    mic_tpu's "auto" is "0"; the port runs mode "2" on the CPU too, whose
+    plain version is the same math as that chain.)  ``max_length`` is
+    unused, as in mic_tpu."""
+    del max_length
+    raw = override("MIC_TPU_FUSED_LAZY_ATTN")
+    if raw is not None:
+        return raw
+    return "2" if mode == "auto" else mode
+
+
+def supports(cache_k, beams: int, num_heads: int, head_dim: int) -> bool:
+    """mic_tpu's shape guard for mode "1": at least two beams, H*Dh a
+    multiple of 128, beams*T a multiple of 16, and an int8 cache with
+    per-head (B*K, T, H) scales."""
+    if beams < 2:
+        return False
+    if isinstance(cache_k, dict) and cache_k["s"].ndim != 3:
+        return False
+    kv = cache_k["q"] if isinstance(cache_k, dict) else cache_k
+    t = kv.shape[1]
+    return (num_heads * head_dim) % 128 == 0 and (beams * t) % 16 == 0
+
+
+def check_mode(mode: str, cache_k, beams: int, num_heads: int, head_dim: int) -> None:
+    """Raise where mic_tpu would run its XLA lazy-attention chain, which the
+    port has not ported: mode "0", and mode "1" on a shape ``supports``
+    rejects."""
+    if mode not in ("0", "1", "2"):
+        raise ValueError(f"unknown MIC_TPU_FUSED_LAZY_ATTN mode {mode!r}")
+    if mode == "2" or (mode == "1" and supports(cache_k, beams, num_heads, head_dim)):
+        return
+    raise NotImplementedError(
+        f"MIC_TPU_FUSED_LAZY_ATTN={mode} (beams={beams}, heads={num_heads}, "
+        f"head_dim={head_dim}): mic_tpu runs its XLA lazy-attention chain here, which is "
+        "not ported (ROADMAP A9)"
+    )
+
+
+def build_ancestry_mask(ancestry: torch.Tensor, index: int) -> torch.Tensor:
+    """(B, K, T) int32 ancestry and the write index -> the (B, J*T, K) int8
+    mask every layer of the step shares: mask[b, j*T + t, k] == 1 iff query
+    beam k's token at position t lives in row j and t < index (STRICT: the
+    step's own K/V come in as separate rows)."""
+    b, k, t = ancestry.shape
+    live = torch.arange(t, device=ancestry.device) < index
+    j = torch.arange(k, dtype=ancestry.dtype, device=ancestry.device)
+    sel = (ancestry[:, None, :, :] == j[None, :, None, None]) & live
+    return sel.permute(0, 1, 3, 2).reshape(b, k * t, k).to(torch.int8)
+
+
+def attend_rows_plain(q, k_rows, v_rows, num_heads: int, live=None, k_scale=None,
+                      v_scale=None, k_step=None, v_step=None) -> torch.Tensor:
+    """mic_tpu's _attend_tiles, the plain version of csrc/attend_rows.cuh that
+    both the blocked lazy attention and the cross-attention run: q and the
+    step rows rounded to bfloat16; f32 scores of every cached row (times
+    its K scale where given), dead ones finfo(float32).min, and each beam's
+    step row where given; softmax as exp(s - max) / sum; cached weights
+    times their V scales; every weight rounded to bfloat16; f32 sums, one
+    bfloat16 rounding of the output, then q's dtype.
+
+    q (B, K, H*Dh); k_rows / v_rows (B, R, H, Dh); live (B, R, K) int8 or
+    None (every row live); k_scale / v_scale (B, R, H) or None; k_step /
+    v_step (B, K, H*Dh) or None -> (B, K, H*Dh)."""
+    b, k, hd = q.shape
+    dh = hd // num_heads
+    r = k_rows.shape[1]
+    bf = torch.bfloat16
+    qf = q.to(bf).float().reshape(b, k, num_heads, dh)
+    s = torch.einsum("bkhd,brhd->bhkr", qf, k_rows.float())
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, :]
+    if live is not None:
+        s = torch.where((live != 0).permute(0, 2, 1)[:, None], s, _MASK_VALUE)
+    if k_step is not None:
+        ksf = k_step.to(bf).float().reshape(b, k, num_heads, dh)
+        s = torch.cat([s, torch.einsum("bkhd,bkhd->bhk", qf, ksf)[..., None]], dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    w_cache = w[..., :r]
+    if v_scale is not None:
+        w_cache = w_cache * v_scale.permute(0, 2, 1)[:, :, None, :]
+    out = torch.einsum("bhkr,brhd->bkhd", w_cache.to(bf).float(), v_rows.float())
+    if v_step is not None:
+        vsf = v_step.to(bf).float().reshape(b, k, num_heads, dh)
+        out = out + w[..., r].to(bf).float().permute(0, 2, 1)[..., None] * vsf
+    return out.reshape(b, k, hd).to(bf).to(q.dtype)
+
+
+def fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
+                               num_heads: int) -> torch.Tensor:
+    """mic_tpu's blocked kernel: ``attend_rows_plain`` over every cached row
+    of an image (the whole window, as the TPU kernel reads it), live where
+    the mask says, with the per-head scales of the int8 cache, and each
+    beam's step row.
+
+    q, k_step, v_step (B, K, H*Dh); caches (B*K, T, H*Dh), or int8 dicts
+    with (B*K, T, H) scales; amask (B, K*T, K) int8 -> (B, K, H*Dh)."""
+    b, _, hd = q.shape
+    dh = hd // num_heads
+    quant = isinstance(cache_k, dict)
+
+    def rows(cache):  # -> (B, J*T, H, Dh)
+        return (cache["q"] if quant else cache).reshape(b, -1, num_heads, dh)
+
+    def scales(cache):  # -> (B, J*T, H)
+        return cache["s"].reshape(b, -1, num_heads) if quant else None
+
+    return attend_rows_plain(q, rows(cache_k), rows(cache_v), num_heads, live=amask,
+                             k_scale=scales(cache_k), v_scale=scales(cache_v),
+                             k_step=k_step, v_step=v_step)
+
+
+def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
+                         num_heads: int, positions: int | None = None) -> torch.Tensor:
+    """Mode "1" of one layer: -> (B, K, H*Dh); the caches are read, never
+    written.  ``positions`` (the write index) bounds the positions the
+    kernel walks: the strict mask admits none at or past it.  The plain
+    version reads the whole window."""
+    if q.device.type == "cpu":
+        return fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams,
+                                          num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_lazy_attention: unsupported device {q.device}")
+    name = "fused_lazy_attention"
+    b, k, hd = q.shape
+    dh = hd // num_heads
+    quant = isinstance(cache_k, dict)
+    kq, vq = (cache_k["q"], cache_v["q"]) if quant else (cache_k, cache_v)
+    t = kq.shape[1]
+    positions = t if positions is None else positions
+    if any(x.dtype != torch.bfloat16 for x in (q, k_step, v_step)):
+        raise TypeError(f"{name} kernel: q and step rows must be bfloat16")
+    if any(x.dtype != (torch.int8 if quant else torch.bfloat16) for x in (kq, vq)):
+        raise TypeError(f"{name} kernel: caches must be bfloat16, or int8 dicts")
+    if quant and any(c["s"].dtype != torch.float32 for c in (cache_k, cache_v)):
+        raise TypeError(f"{name} kernel: int8 cache scales must be float32")
+    if amask.dtype != torch.int8:
+        raise TypeError(f"{name} kernel: the ancestry mask must be int8")
+    if dh != 64 or hd != num_heads * dh or beams != k or not 1 <= k <= 8:
+        raise ValueError(f"{name} kernel: head_dim 64 and 1-8 beams, got {hd}/{num_heads}, "
+                         f"beams={beams}")
+    if not 0 <= positions <= t:
+        raise ValueError(f"{name} kernel: positions={positions}, T={t}")
+    if (kq.shape != (b * k, t, hd) or vq.shape != kq.shape or k_step.shape != q.shape
+            or v_step.shape != q.shape or amask.shape != (b, k * t, k)
+            or (quant and any(c["s"].shape != (b * k, t, num_heads) for c in (cache_k, cache_v)))):
+        raise ValueError(f"{name} kernel: inconsistent shapes")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant:
+        tensors = (q, kq, cache_k["s"], vq, cache_v["s"], k_step, v_step, amask)
+        _build.check_operands(name, tensors)
+        entry = "mic_lazy_attention_blocked_q8"
+    else:
+        tensors = (q, kq, vq, k_step, v_step, amask)
+        _build.check_operands(name, tensors)
+        entry = "mic_lazy_attention_blocked_bf16"
+    err = getattr(_build.lib(), entry)(
+        *(x.data_ptr() for x in tensors), out.data_ptr(), b, k, t, positions, num_heads, dh,
+        stream,
+    )
+    _build.check(err, entry)
+    fused_lazy_attention.launches += 1
+    return out
+
+
+fused_lazy_attention.launches = 0

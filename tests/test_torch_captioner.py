@@ -369,9 +369,9 @@ def test_generate_resolves_int8_options_as_mic_tpu(case, monkeypatch):
     monkeypatch.setattr(captioner_mod, "quantize_params_for_decode",
                         lambda p: seen.setdefault("quantize", "int8") and quantize(p))
 
-    def spy_cache(self, *args):
+    def spy_cache(self, *args, **kwargs):
         seen["kv_quant"] = args[-1]
-        return init_cache(self, *args)
+        return init_cache(self, *args, **kwargs)
 
     def spy_head(self, params, sel):
         seen["select"] = sel
@@ -391,7 +391,9 @@ def test_generate_resolves_int8_options_as_mic_tpu(case, monkeypatch):
 def test_from_jax_keeps_every_leaf_and_init_matches_layout():
     """from_jax moves every leaf across untransposed, and back again
     unchanged; the port's own init_params has mic_tpu's key paths, shapes
-    and dtypes; make_serving_params casts only floating leaves."""
+    and dtypes; make_serving_params casts only floating leaves.  The beam
+    step's opt-in kernels (blocked lazy attention, cross-attention, LN ->
+    QKV, fused MLP) read these same leaves and add none."""
     config = _config()
     jtree = _numpy_params(JaxCaptioner(config), 0, 0.05)
     jtree["decoder"]["ln_embed"]["bias"] = jtree["decoder"]["ln_embed"]["bias"].astype(

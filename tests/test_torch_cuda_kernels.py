@@ -17,7 +17,15 @@ head's ids may differ only at near-ties, two logits within 1e-2.  The
 decode-attention kernel's output is within 2e-2 in bf16 and 1e-5 in f32,
 its written cache bit-equal; the top-k + logsumexp kernel's ids are equal
 and its log-probs within 1e-5 (the same f32 values, the logsumexp summed in
-another order).
+another order).  The beam step's opt-in kernels: the blocked lazy attention
+and the cross-attention within 2e-2 (bf16 weights and outputs after f32
+sums in another order), the caches they read untouched; LN -> GEMM within
+two bf16 ulps of the size of its terms, |product| + |bias| (the product and
+the bias add each rounded once to bf16), plus 2**-8 of sum |xn| |w| (the
+LN statistics, summed in another order, can round a bf16 xn the other way);
+the fused MLP within 1e-2
+of its largest output (fc1's bf16 intermediate can round the other way
+before the fc2 sum); both GEMM kernels bit-equal across reruns.
 """
 
 import pytest
@@ -40,14 +48,20 @@ from mic_tpu_torch.ops.fused_head import (
     fused_head_topk_q8,
     fused_head_topk_q8_plain,
 )
+from mic_tpu_torch.ops.cross_attention import fused_cross_attention, fused_cross_attention_plain
 from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import (
+    build_ancestry_mask,
+    fused_lazy_attention,
+    fused_lazy_attention_plain,
     lazy_attention,
     lazy_attention_plain,
     lazy_attention_q8,
     lazy_attention_q8_plain,
 )
+from mic_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm_plain
 from mic_tpu_torch.ops.quant import quantize_array, quantize_rows_dynamic
 from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
 
@@ -469,4 +483,144 @@ def test_greedy_generate_runs_through_the_new_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert decode_attention.launches == config.decoder.num_layers * out.steps
     assert topk_log_probs.launches == out.steps - 1
+    assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("index", [0, 1, 9, 15])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_kernel_matches_plain(cuda, q8, index):
+    """Mode "1" on an ancestry mask, and on a mask of random bits (several
+    source rows live for one beam at one position): the cache untouched."""
+    b, beams, t, heads, hd = 3, 4, 16, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(100 + index)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+
+    def cache():
+        if not q8:
+            return rand(b * beams, t, hd)
+        values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, hd // heads))
+        return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
+
+    ck, cv = cache(), cache()
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
+    random_bits = torch.randint(0, 2, (b, beams * t, beams), generator=g, device=cuda)
+    live = (torch.arange(t, device=cuda) < index).repeat(beams)[None, :, None]
+    for amask in (build_ancestry_mask(anc, index), (random_bits * live).to(torch.int8)):
+        before = [{n: a.clone() for n, a in c.items()} if q8 else c.clone() for c in (ck, cv)]
+        launches = fused_lazy_attention.launches
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        assert fused_lazy_attention.launches == launches + 1
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        for c, old in zip((ck, cv), before):
+            assert all(torch.equal(c[n], old[n]) for n in old) if q8 else torch.equal(c, old)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("s", [50, 37, 1])
+def test_fused_cross_attention_kernel_matches_plain(cuda, s):
+    b, beams, heads, dh = 3, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
+    ek, ev = ((torch.randn((b, s, heads, dh), generator=g, device=cuda) * 0.5).bfloat16()
+              for _ in range(2))
+    launches = fused_cross_attention.launches
+    out = fused_cross_attention(q, ek, ev, beams, heads)
+    ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+    torch.cuda.synchronize()
+    assert fused_cross_attention.launches == launches + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp(min=-133))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [8, 70, 256])  # one row tile, a partial second one, four
+def test_ln_gemm_kernel_matches_plain(cuda, n):
+    d, o = 256, 384
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = (torch.randn((n, d), generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    scale = (1 + 0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
+    shift = (0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
+    w = (0.05 * torch.randn((d, o), generator=g, device=cuda)).bfloat16()
+    bias = (0.1 * torch.randn((o,), generator=g, device=cuda)).bfloat16()
+    launches = ln_gemm.launches
+    out = ln_gemm(x, scale, shift, w, bias)
+    again = ln_gemm(x, scale, shift, w, bias)
+    ref = ln_gemm_plain(x, scale, shift, w, bias)
+    torch.cuda.synchronize()
+    assert ln_gemm.launches == launches + 2
+    assert torch.equal(out, again)
+    # where the bias cancels the product, one ulp of the product's rounding
+    # is finer than one of the output: two of the terms' size; and the LN's
+    # f32 statistics, summed in another order, can round any bf16 xn the
+    # other way: 2**-8 of sum |xn| |w|
+    terms = (ref.float() - bias.float()).abs() + bias.float().abs()
+    l1 = torch.nn.functional.layer_norm(x.float(), (d,), scale.float(),
+                                        shift.float()).abs() @ w.float().abs()
+    assert bool(((out.float() - ref.float()).abs()
+                 <= 2 * _bf16_ulp(terms) + 2.0**-8 * l1).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [8, 70])
+def test_fused_mlp_kernel_matches_plain(cuda, n):
+    d, f = 256, 1024
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((n, d), generator=g, device=cuda).bfloat16()
+    w1 = (0.1 * torch.randn((d, f), generator=g, device=cuda)).bfloat16()
+    b1 = (0.1 * torch.randn((f,), generator=g, device=cuda)).bfloat16()
+    w2 = (0.05 * torch.randn((f, d), generator=g, device=cuda)).bfloat16()
+    b2 = (0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
+    launches = fused_mlp.launches
+    out = fused_mlp(x, w1, b1, w2, b2)
+    again = fused_mlp(x, w1, b1, w2, b2)
+    ref = fused_mlp_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == launches + 2
+    assert torch.equal(out, again)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    for act in ("gelu_tanh", "quick_gelu", "relu", "silu"):  # the epilogue's other activations
+        out = fused_mlp(x, w1, b1, w2, b2, act)
+        ref = fused_mlp_plain(x, w1, b1, w2, b2, act)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item(), act
+    with pytest.raises(ValueError, match="activation"):
+        fused_mlp(x, w1, b1, w2, b2, "tanh")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_fused_beam_generate_runs_through_the_new_kernels(cuda, monkeypatch, kv_quant):
+    """MIC_TPU_FUSED_LAZY_ATTN=1 with fused_cross_attn,fused_mlp,ln_qkv: each
+    of the four kernels once a layer a step (two images: N = 8 rows)."""
+    monkeypatch.setenv("MIC_TPU_FUSED_LAZY_ATTN", "1")
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "fused_cross_attn,fused_mlp,ln_qkv")
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2,
+                                   ffn_dim=512, max_position_embeddings=64),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=cuda).manual_seed(3),
+                                             cuda))
+    images = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8, device=cuda)
+    px = preprocess_images(images, 32, torch.bfloat16)
+    kernels = (fused_lazy_attention, fused_cross_attention, ln_gemm, fused_mlp)
+    for fn in kernels:
+        fn.launches = 0
+    out = Captioner(config).generate(params, px, num_beams=4, max_length=12,
+                                     forced_bos_token_id=7, kv_quant=kv_quant)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels] == [config.decoder.num_layers * out.steps] * 4
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
