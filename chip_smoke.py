@@ -28,7 +28,8 @@ Phases, each of which raises on failure (none catches its own):
      "masks", bf16 moments and shadow params), twice from one seed, with
      launch counts that prove both CE kernels ran once a step, bit-equal
      reruns, and a step-time smoke figure (not a benchmark);
- 11. three train steps at a small width on the card against the CPU;
+ 11. three train steps at a small width on the card against the CPU (the
+     first step's gradients, the losses, the params);
  12. the int8 bucket head kernel against its plain version (N in {4, 1024},
      D=1024, V=250054, k in {1, 9});
  13. the exact/window select kernel, bf16 and int8, against the plain
@@ -76,7 +77,22 @@ Phases, each of which raises on failure (none catches its own):
      knobs'; B=1 and B=256 smoke figures in turns with the default knobs
      (at B=1, N=4 rows, mic_tpu's N % 8 gates turn LN -> GEMM and the MLP
      kernel off);
- 29. that path at a small width on the card against the CPU, both caches.
+ 29. that path at a small width on the card against the CPU, both caches;
+ 30. the flash-CE save forward (row 9) at N in {64, 4096}: statistics
+     bit-equal to the non-saving kernel's, reruns bit-equal, the bf16
+     logits within one ulp of the plain rounding, the f32 tail;
+ 31. the split (row 10) and save (row 9) backwards against their plain
+     versions at the same shapes, smoothing 0 and 0.1, demb entry by entry,
+     reruns bit-equal;
+ 32. their times beside their plain versions' at N=4096, and each
+     contraction kernel alone;
+ 33. the flagship Trainer under flash_ce "fwd", "split" and "save", and
+     "save" with MIC_TPU_DL_MAX_ROWS=2048, six steps each, with launch
+     counts that prove each route's kernels ran once a step, and its peak
+     memory;
+ 34. three train steps at a small width on the card against the CPU under
+     each of those routes: the first step's gradient leaves, the losses and
+     the params (phase 11 does the same on the dl route).
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -167,6 +183,52 @@ def mlp_bound(n, d, f):
     """The MLP: x, W1, b1, W2, b2 read and the output written once, bf16 (the
     (N, F) intermediate kept on chip); 4 N D F products."""
     return bound(2 * (n * d + d * f + f + f * d + d + n * d), 4 * n * d * f, "bf16")
+
+
+def flash_ce_route_bounds(n, d=1024, v=250054):
+    """Rows 9 and 10 at N rows: h (bf16), the table (bf16), the bias, labels,
+    lse and rowscale read once, outputs written once.  The save forward
+    writes the bf16 main logits and the f32 tail beside (lse, label logit,
+    sum of logits); the save backward reads them back and writes dh (bf16),
+    demb and dbias (f32); the split backward reads what the dl kernel reads
+    and writes what the save backward writes.  Operations: 2 N D V products
+    a logits GEMM or a contraction: the function needs one logits product
+    and two contractions, 6 N D V, for the split route (its second
+    recompute is the design's cost, not the function's), and the two
+    contractions, 4 N D V, for the save route."""
+    from mic_tpu_torch.ops.flash_ce import main_columns
+
+    v_main = main_columns(v)
+    inputs = v * d * 2 + v * 4 + n * d * 2 + n * 4
+    grads = n * d * 2 + v * d * 4 + v * 4
+    saved = n * v_main * 2 + n * (v - v_main) * 4
+    return {
+        "flash_ce_forward_save": bound(inputs + n * 4 * 3 + saved, 2 * n * d * v, "bf16"),
+        "flash_ce_backward_save": bound(saved + v * d * 2 + n * d * 2 + n * 4 * 3 + grads,
+                                        4 * n * d * v, "bf16"),
+        "flash_ce_backward": bound(inputs + n * 4 * 2 + grads, 6 * n * d * v, "bf16"),
+    }
+
+
+def flash_ce_contraction_bounds(n, d=1024, v=250054):
+    """Each backward contraction alone: grad-W reads h and (split) the table
+    and bias or (save) the saved main logits, writes demb and dbias; grad-h
+    reads the table and (split) h or (save) the logits, writes dh (f32).  A
+    split contraction alone needs its own logits product: 4 N D V."""
+    from mic_tpu_torch.ops.flash_ce import main_columns
+
+    v_main = main_columns(v)
+    rows = n * 4 * 3
+    return {
+        "split grad-W": bound(v * d * 2 + v * 4 + n * d * 2 + rows + v * d * 4 + v * 4,
+                              4 * n * d * v, "bf16"),
+        "split grad-h": bound(v * d * 2 + v * 4 + n * d * 2 + rows + n * d * 4,
+                              4 * n * d * v, "bf16"),
+        "save grad-W": bound(n * v_main * 2 + n * d * 2 + rows + v_main * d * 4 + v_main * 4,
+                             2 * n * d * v_main, "bf16"),
+        "save grad-h": bound(n * v_main * 2 + v_main * d * 2 + rows + n * d * 4,
+                             2 * n * d * v_main, "bf16"),
+    }
 
 
 @contextlib.contextmanager
@@ -598,44 +660,67 @@ def _train_batches(config, n_batches, batch, seq, seed):
     return out
 
 
+CE_COUNTERS = ("flash_ce_forward", "flash_ce_forward_save", "flash_ce_backward_dl",
+               "flash_ce_backward", "flash_ce_backward_save")
+
+
+def _ce_counts(reset=False):
+    """The flash-CE launch counters by kernel name; set to 0 with ``reset``."""
+    from mic_tpu_torch.ops import flash_ce
+
+    fields = {"flash_ce_forward": (flash_ce.flash_ce_forward, "launches"),
+              "flash_ce_forward_save": (flash_ce.flash_ce_forward, "save_launches"),
+              "flash_ce_backward_dl": (flash_ce.flash_ce_backward_dl, "launches"),
+              "flash_ce_backward": (flash_ce.flash_ce_backward, "launches"),
+              "flash_ce_backward_save": (flash_ce.flash_ce_backward_save, "launches")}
+    if reset:
+        for fn, attr in fields.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in fields.items()}
+
+
+def _flagship_train_run(dev, tc, host):
+    """One Trainer at flagship width from TrainConfig ``tc``: init, a probe
+    loss, six timed steps with the flash-CE counters set to 0 just before
+    them and read just after, the probe loss again."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig
+    from mic_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16"), DataConfig(), tc,
+                      device=dev)
+    trainer.build(steps_per_epoch=len(host))
+    state = trainer.init_state()
+    batches = [trainer.put_batch(b) for b in host]
+    probe = trainer.put_batch(dict(host[0], loss_weight=np.ones(64, np.float32)))
+    before = trainer.eval_step(state.params, probe)["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _ce_counts(reset=True)
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in _ce_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = trainer.eval_step(state.params, probe)["loss"].item()
+    return losses, ms, launches, peak, (before, after), state
+
+
 def run_training(dev):
     """The port's Trainer at flagship width, TrainConfig defaults (batch 64 x
     64 tokens, dropout 0.1, remat "masks", fused CE on the dl route, bf16
     moments and shadow) with warmup_steps=2: six steps, twice from one seed."""
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
     from mic_tpu_torch.core.params import tree_leaves
-    from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl, flash_ce_forward
-    from mic_tpu_torch.train.trainer import Trainer
 
     config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
     tc = TrainConfig(warmup_steps=2)
-    dc = DataConfig()
-    host = _train_batches(config, 6, tc.per_device_batch_size, dc.max_seq_length, 12)
-
-    def one_run():
-        trainer = Trainer(config, dc, tc, device=dev)
-        trainer.build(steps_per_epoch=6)
-        state = trainer.init_state()
-        batches = [trainer.put_batch(b) for b in host]
-        probe = trainer.put_batch(dict(host[0], loss_weight=np.ones(64, np.float32)))
-        before = trainer.eval_step(state.params, probe)["loss"].item()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_ce_forward.launches = flash_ce_backward_dl.launches = 0
-        losses, ms = [], []
-        for batch in batches:
-            t0 = time.perf_counter()
-            state, metrics = trainer.train_step(state, batch)
-            losses.append(metrics["loss"].item())  # waits for the step
-            ms.append((time.perf_counter() - t0) * 1e3)
-        launches = {"flash_ce_forward": flash_ce_forward.launches,
-                    "flash_ce_backward_dl": flash_ce_backward_dl.launches}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        after = trainer.eval_step(state.params, probe)["loss"].item()
-        return losses, ms, launches, peak, (before, after), state
+    host = _train_batches(config, 6, tc.per_device_batch_size, DataConfig().max_seq_length, 12)
 
     t0 = time.perf_counter()
-    losses, ms, launches, peak, probe, state = one_run()
+    losses, ms, launches, peak, probe, state = _flagship_train_run(dev, tc, host)
     print(f"training, flagship width, 6 steps of 64 x 64: losses {losses}, launches "
           f"{launches}, peak allocated {peak:.2f} GiB, probe-batch loss {probe[0]:.6f} -> "
           f"{probe[1]:.6f} ({time.perf_counter() - t0:.1f} s with init)", flush=True)
@@ -646,7 +731,7 @@ def run_training(dev):
     params = [leaf.detach().clone() for _, leaf in tree_leaves(state.params)]
     del state
     torch.cuda.empty_cache()
-    losses2, ms2, launches2, _, _, state2 = one_run()
+    losses2, ms2, launches2, _, _, state2 = _flagship_train_run(dev, tc, host)
     require(losses2 == losses, "a second run from the same seed gave other losses")
     require(all(torch.equal(a, b) for a, b in zip(params, (leaf for _, leaf in
                                                           tree_leaves(state2.params)))),
@@ -659,12 +744,34 @@ def run_training(dev):
     return launches
 
 
-def check_training_small_against_cpu(dev):
-    """Three train steps at a small bf16 width, dropout 0, the dl route: the
-    card (both CE kernels) against the CPU (plain versions) from the same
-    weights.  Losses within 5e-3 relative (bf16 activations rounded in
-    other orders); params within 2 x steps x lr absolute, the bound that
-    Adam's normalized update allows a near-zero gradient."""
+def _first_grads(trainer, state, batch):
+    """The gradient leaves of the trainer's loss on one device batch, from
+    the state's params and shadow, as f32 on the host."""
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.ops.image_prep import maybe_preprocess
+
+    pixels = maybe_preprocess(batch["pixel_values"], trainer.mc.vision.image_size, trainer.dtype)
+    leaves = [leaf for _, leaf in tree_leaves(state.params)]
+    with torch.enable_grad():
+        loss = trainer.compute_loss(state.params, pixels, batch, shadow=state.shadow)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return [g.detach().float().cpu() for g in grads]
+
+
+def check_training_small_against_cpu(dev, routes=("dl",)):
+    """Three train steps at a small bf16 width, dropout 0, on each flash-CE
+    route of ``routes``: the card (the route's CE kernels) against the CPU
+    (plain versions) from the same weights.  The first batch's gradients,
+    each leaf within 5e-2 of its largest entry: bf16 activations rounded in
+    other orders move the worst leaf by about 1.6% (bf16 against f32 on the
+    CPU at this width), and a leaf whose gradient is zero in exact
+    arithmetic (a key bias under softmax) holds only rounding noise, so each
+    leaf's largest entry is floored at 1e-4 of the largest of all leaves.
+    This catches a wrong or missing CE backward; the kernel phases hold the
+    kernels entry by entry.  Losses within 5e-3 relative; params within
+    2 x steps x lr absolute, the bound that Adam's normalized update allows
+    a near-zero gradient.  V = 1100: the save route keeps 1024 columns as
+    bf16 and a 76-column f32 tail."""
     from mic_tpu_torch.core.config import (
         CaptionerConfig, DataConfig, DecoderConfig, TrainConfig, VisionConfig,
     )
@@ -678,33 +785,236 @@ def check_training_small_against_cpu(dev):
                                    max_position_embeddings=64, dropout=0.0),
         dtype="bfloat16",
     )
-    tc = TrainConfig(per_device_batch_size=4, learning_rate=1e-3, warmup_steps=1,
-                     label_smoothing=0.1, flash_ce="dl")
     dc = DataConfig(max_seq_length=16, decode_size=40)
     params = init_params(config, torch.Generator().manual_seed(13))
+    paths = [path for path, _ in tree_leaves(params)]
     rng = np.random.default_rng(14)
     host = [{"pixel_values": rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8),
              "labels": rng.integers(4, 1100, (4, 16)).astype(np.int32),
              "decoder_input_ids": rng.integers(4, 1100, (4, 16)).astype(np.int32),
              "decoder_attention_mask": np.ones((4, 16), np.int32)} for _ in range(3)]
-    runs = {}
-    for device in (dev, torch.device("cpu")):
-        trainer = Trainer(config, dc, tc, device=device)
-        trainer.build(10)
-        state = trainer.init_state(tree_map(lambda x, d=device: x.clone().to(d), params))
-        losses = []
-        for batch in host:
-            state, m = trainer.train_step(state, trainer.put_batch(batch))
-            losses.append(m["loss"].item())
-        runs[device.type] = (losses, [leaf.detach().cpu() for _, leaf in
-                                      tree_leaves(state.params)])
-    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    param_err = max((a - b).abs().max().item() for a, b in zip(pc, ph))
-    print(f"training at a small width, card vs CPU: losses {lc} vs {lh}, max relative "
-          f"difference {loss_rel:.3g}; params max abs difference {param_err:.3g}", flush=True)
-    require(loss_rel < 5e-3, "card and CPU training losses differ")
-    require(param_err < 2 * 3 * 1e-3, "card and CPU params differ")
+    for route in routes:
+        tc = TrainConfig(per_device_batch_size=4, learning_rate=1e-3, warmup_steps=1,
+                         label_smoothing=0.1, flash_ce=route)
+        runs = {}
+        for device in (dev, torch.device("cpu")):
+            trainer = Trainer(config, dc, tc, device=device)
+            trainer.build(10)
+            state = trainer.init_state(tree_map(lambda x, d=device: x.clone().to(d), params))
+            grads = _first_grads(trainer, state, trainer.put_batch(host[0]))
+            _ce_counts(reset=True)
+            losses = []
+            for batch in host:
+                state, m = trainer.train_step(state, trainer.put_batch(batch))
+                losses.append(m["loss"].item())
+            runs[device.type] = (losses, [leaf.detach().cpu() for _, leaf in
+                                          tree_leaves(state.params)], _ce_counts(), grads)
+        (lc, pc, launches, gc), (lh, ph, cpu_launches, gh) = runs["cuda"], runs["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        param_err = max((a - b).abs().max().item() for a, b in zip(pc, ph))
+        floor = 1e-4 * max(g.abs().max().item() for g in gh)
+        grad_rel = sorted(((a - b).abs().max().item() / max(b.abs().max().item(), floor), path)
+                          for path, a, b in zip(paths, gc, gh))
+        print(f"training at a small width, route {route!r}, card vs CPU: losses {lc} vs {lh}, "
+              f"max relative difference {loss_rel:.3g}; first-step gradients, worst leaf "
+              f"{'/'.join(grad_rel[-1][1])} at {grad_rel[-1][0]:.3g} of its largest entry "
+              f"(limit 5e-2); params max abs difference {param_err:.3g}; card launches "
+              f"{({k: v for k, v in launches.items() if v})}", flush=True)
+        require(loss_rel < 5e-3, f"route {route!r}: card and CPU training losses differ")
+        require(grad_rel[-1][0] <= 5e-2,
+                f"route {route!r}: card and CPU gradients differ ({'/'.join(grad_rel[-1][1])})")
+        require(param_err < 2 * 3 * 1e-3, f"route {route!r}: card and CPU params differ")
+        require(not any(cpu_launches.values()), "a kernel counted a launch on the CPU")
+        require(launches["flash_ce_forward"] + launches["flash_ce_forward_save"] == 3,
+                f"route {route!r}: the forward kernel did not run once a step")
+
+
+def check_flash_ce_save_forward(dev, weight, bias):
+    """Row 9's forward against the non-saving kernel and the plain version
+    (N in {64, 4096}): lse and sum of logits bit-equal to the non-saving
+    kernel's, a rerun bit-equal, the f32 tail within 1e-5 of the plain
+    version's, and the bf16 logits within one bf16 ulp of the plain f32
+    logits plus 1e-5 (the two f32 sums of 1024 products, in another order,
+    differ by less than that, as the tail shows; where a logit cancels to
+    near zero that is more than its own ulp)."""
+    from mic_tpu_torch.ops.flash_ce import flash_ce_forward, flash_ce_forward_plain, main_columns
+
+    worst = 0.0
+    v_main = main_columns(CE_V)
+    wf = weight[:v_main].float()
+    for n in (64, 4096):
+        hidden, labels = _ce_rows(dev, n, n + 2)
+        out = flash_ce_forward(hidden, weight, bias, labels, save=True)
+        again = flash_ce_forward(hidden, weight, bias, labels, save=True)
+        stats = flash_ce_forward(hidden, weight, bias, labels)
+        ref = flash_ce_forward_plain(hidden, weight, bias, labels, save=True)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f"flash_ce_forward save N={n}: a rerun differs")
+        require(all(torch.equal(a, b) for a, b in zip(out[:3], stats)),
+                f"flash_ce_forward save N={n}: statistics differ from the non-saving kernel's")
+        require(out[3].shape == (n, v_main) and out[4].shape == (n, CE_V - v_main),
+                f"flash_ce_forward save N={n}: saved shapes")
+        tail_err = (out[4] - ref[4]).abs().max().item()
+        require(tail_err < 1e-5, f"flash_ce_forward save N={n}: tail logits")
+        differ, err = 0, 0.0
+        for i in range(0, n, 512):
+            exact = hidden[i:i + 512].float() @ wf.T + bias[:v_main]
+            d = (out[3][i:i + 512].float() - exact).abs()
+            require(bool((d <= _bf16_ulp(exact) + 1e-5).all()),
+                    f"flash_ce_forward save N={n}: bf16 logits beyond one ulp of the f32 logits")
+            differ += int((out[3][i:i + 512] != ref[3][i:i + 512]).sum())
+            err = max(err, (out[3][i:i + 512].float() - ref[3][i:i + 512].float()).abs().max().item())
+            del exact, d
+        worst = max(worst, err)
+        print(f"flash_ce_forward save N={n} D={CE_D} V={CE_V} v_main={v_main}: statistics "
+              f"bit-equal to the non-saving kernel, rerun bit-equal; bf16 logits differing "
+              f"from the plain rounding {differ} of {n * v_main} (max abs {err:.3g}), all within "
+              f"one ulp of the f32 logits plus 1e-5; tail max_abs_err {tail_err:.3g}", flush=True)
+        del out, again, ref
+    del wf
+    return worst
+
+
+def _demb_scale(hidden, weight, bias, labels, lse, rs, ls):
+    """|dl|^T |h| (V, D) in f32, dl the plain version's bf16 dl from the f32
+    logits: what one bf16 rounding of each dl entry can move each demb entry
+    by, at most 2^-7 of it."""
+    from mic_tpu_torch.ops.flash_ce import flash_ce_dl_plain
+
+    dl = flash_ce_dl_plain(hidden, weight, bias, labels, lse, rs, ls)[0]
+    return torch.mm(dl.abs().T, hidden.abs(), out_dtype=torch.float32)
+
+
+def check_flash_ce_backward_routes(dev, weight, bias):
+    """Rows 9 (the save backward, from the kernel's saved logits) and 10 (the
+    split backward, whose plain version is the dl route's) against their
+    plain versions on the same inputs, N in {64, 4096}, smoothing 0 and
+    0.1, rows with rowscale 0.  demb entry by entry within 2^-7 of
+    |dl|^T |h| (``_demb_scale``): the two sides round dl to bf16 from f32
+    sums in another order, each entry at most one bf16 ulp apart, and the
+    f32 accumulation differs far less.  So a label-free vocab row, whose
+    demb is small, is held to its own size, not to the label rows'.  dbias
+    within 1e-4 of its largest entry, dh within one bf16 ulp of its
+    largest; a rerun bit-equal."""
+    from mic_tpu_torch.ops.flash_ce import (
+        flash_ce_backward, flash_ce_backward_dl_plain, flash_ce_backward_save,
+        flash_ce_backward_save_plain, flash_ce_forward,
+    )
+
+    worst = {"flash_ce_backward": 0.0, "flash_ce_backward_save": 0.0}
+    for n in (64, 4096):
+        hidden, labels = _ce_rows(dev, n, n + 3)
+        lse, _, _, lg, tail = flash_ce_forward(hidden, weight, bias, labels, save=True)
+        rs = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(n + 4), device=dev)
+        rs = rs / n
+        rs[::7] = 0.0
+        for ls in (0.0, 0.1):
+            scale = _demb_scale(hidden, weight, bias, labels, lse, rs, ls)
+            for name, fn, plain, extra in (
+                    ("flash_ce_backward", flash_ce_backward, flash_ce_backward_dl_plain, ()),
+                    ("flash_ce_backward_save", flash_ce_backward_save,
+                     flash_ce_backward_save_plain, (lg, tail))):
+                out = fn(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+                again = fn(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+                ref = plain(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                        f"{name} N={n}: a rerun differs")
+                del again
+                demb_err = (out[1] - ref[1]).abs()
+                demb_ratio = (demb_err / scale).max().item()
+                require(bool((demb_err <= 2**-7 * scale).all()),
+                        f"{name} N={n} smoothing {ls}: demb beyond 2^-7 |dl|^T |h|")
+                errs = []
+                for what, got, want, frac in (("dh", out[0], ref[0], 2**-7),
+                                              ("dbias", out[2], ref[2], 1e-4)):
+                    top = want.float().abs().max().item()
+                    err = (got.float() - want.float()).abs().max().item()
+                    require(err <= frac * top, f"{name} N={n} smoothing {ls}: {what}")
+                    errs.append(err / top)
+                worst[name] = max(worst[name], demb_err.max().item())
+                print(f"{name} N={n} smoothing={ls}: demb max err / (|dl|^T |h|) "
+                      f"{demb_ratio:.3g} (limit 2^-7); max err / max |ref| dh {errs[0]:.3g}, "
+                      f"dbias {errs[1]:.3g}; rerun bit-equal", flush=True)
+                del out, ref, demb_err
+            del scale
+        del lg, tail
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash_ce_routes(dev, weight, bias):
+    """Rows 9 and 10 and their plain versions at N=4096 (medians of 25
+    CUDA-event runs), and each contraction kernel alone."""
+    from mic_tpu_torch.ops import flash_ce as fce
+
+    n = 4096
+    hidden, labels = _ce_rows(dev, n, 11)
+    lse, _, _, lg, tail = fce.flash_ce_forward(hidden, weight, bias, labels, save=True)
+    rs = torch.full((n,), 1.0 / n, device=dev)
+    args = (hidden, weight, bias, labels, lse, rs, 0.1, None)
+    t = {
+        "fwd_save": median_ms(lambda: fce.flash_ce_forward(hidden, weight, bias, labels,
+                                                           save=True)),
+        "fwd_save_plain": median_ms(lambda: fce.flash_ce_forward_plain(hidden, weight, bias,
+                                                                       labels, save=True)),
+        "split": median_ms(lambda: fce.flash_ce_backward(*args)),
+        "split_plain": median_ms(lambda: fce.flash_ce_backward_dl_plain(*args)),
+        "save": median_ms(lambda: fce.flash_ce_backward_save(*args, lg, tail)),
+        "save_plain": median_ms(lambda: fce.flash_ce_backward_save_plain(*args, lg, tail)),
+    }
+    for route, logits in (("split", None), ("save", lg)):
+        for part in ("grad_w", "grad_h"):
+            t[f"{part}_{route}"] = median_ms(lambda p=part, lo=logits: fce.flash_ce_contraction(
+                p, *args, logits_main=lo))
+    for name, key in (("flash_ce_forward save", "fwd_save"), ("flash_ce_backward (split)", "split"),
+                      ("flash_ce_backward_save", "save")):
+        print(f"{name} time at N={n} D={CE_D} V={CE_V}: kernel {t[key]:.4f} ms, plain "
+              f"{t[key + '_plain']:.4f} ms", flush=True)
+    print(f"contractions alone at N={n}: split grad-W {t['grad_w_split']:.4f} ms, grad-h "
+          f"{t['grad_h_split']:.4f} ms; save grad-W {t['grad_w_save']:.4f} ms, grad-h "
+          f"{t['grad_h_save']:.4f} ms", flush=True)
+    return t
+
+
+def run_training_routes(dev):
+    """The flagship Trainer, TrainConfig defaults with warmup_steps=2, under
+    flash_ce "fwd", "split" and "save", and "save" with MIC_TPU_DL_MAX_ROWS=2048
+    (below the 4096 rows: the forward saves nothing, the backward is the
+    chunked one): six steps each, finite losses, each route's kernels
+    launched once a step and no other flash-CE kernel."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    host = _train_batches(config, 6, 64, DataConfig().max_seq_length, 12)
+    expect = {
+        "fwd": {"flash_ce_forward": 6},
+        "split": {"flash_ce_forward": 6, "flash_ce_backward": 6},
+        "save": {"flash_ce_forward_save": 6, "flash_ce_backward_save": 6},
+        "save above the row cap": {"flash_ce_forward": 6},
+    }
+    launches = {}
+    for label, want in expect.items():
+        env = {"MIC_TPU_DL_MAX_ROWS": "2048"} if "cap" in label else {}
+        with knobs(**env):
+            t0 = time.perf_counter()
+            losses, ms, got, peak, probe, state = _flagship_train_run(
+                dev, TrainConfig(warmup_steps=2, flash_ce=label.split()[0]), host)
+        print(f"training, flagship width, route {label!r}, 6 steps of 64 x 64: losses {losses}, "
+              f"launches {got}, peak allocated {peak:.2f} GiB, probe-batch loss {probe[0]:.6f} "
+              f"-> {probe[1]:.6f}; smoke figure (not a benchmark): median of steps 2-6 "
+              f"{float(np.median(ms[1:])):.1f} ms (step times {[round(x, 1) for x in ms]} ms; "
+              f"{time.perf_counter() - t0:.1f} s with init)", flush=True)
+        require(all(np.isfinite(losses)), f"route {label!r}: a non-finite training loss")
+        require(got == want, f"route {label!r}: flash-CE launches {got}, expected {want}")
+        require(probe[1] < probe[0], f"route {label!r}: the loss on the repeated batch did not "
+                                     "fall")
+        if label in ("split", "save"):
+            launches.update(got)
+        del state
+        torch.cuda.empty_cache()
+    return launches
 
 
 HEAD_D, HEAD_V = 1024, 250054  # the flagship tied head
@@ -1611,6 +1921,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_fused_step_small_against_cpu(dev)
 
+    weight, bias = _ce_table(dev)
+    save_fwd_err = check_flash_ce_save_forward(dev, weight, bias)
+    bwd_err = check_flash_ce_backward_routes(dev, weight, bias)
+    route_ms = time_flash_ce_routes(dev, weight, bias)
+    del weight, bias
+    torch.cuda.empty_cache()
+    launches.update(run_training_routes(dev))
+    check_training_small_against_cpu(dev, ("fwd", "split", "save"))
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1636,6 +1955,7 @@ def main() -> None:
         "fused_cross_attention": cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D),
         "ln_gemm": ln_gemm_bound(1024, HEAD_D, 3 * HEAD_D),
         "fused_mlp": mlp_bound(1024, HEAD_D, 4 * HEAD_D),
+        **flash_ce_route_bounds(n_ce),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
@@ -1648,6 +1968,7 @@ def main() -> None:
                   live_rows[True], FLAG_B, FLAG_K, 63, HEAD_D, FLAG_H, 1, scale_bytes=4),
               "ln_gemm N=32": ln_gemm_bound(32, HEAD_D, 3 * HEAD_D),
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D)}
+    others.update(flash_ce_contraction_bounds(n_ce))
     print("bounds at the other timed shapes: " + ", ".join(
         f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [
@@ -1694,6 +2015,15 @@ def main() -> None:
              replaces="mic_tpu/ops/fused_mlp.py:89", max_abs_err=mlp_err,
              ms=step_ms[("mlp", 1024)][0], plain_ms=step_ms[("mlp", 1024)][1],
              library_ms=step_ms[("mlp", 1024)][2]),
+        dict(name="flash_ce_forward_save", source="mic_tpu_torch/csrc/flash_ce.cu",
+             replaces="mic_tpu/ops/flash_ce.py:157", max_abs_err=save_fwd_err,
+             ms=route_ms["fwd_save"], plain_ms=route_ms["fwd_save_plain"]),
+        dict(name="flash_ce_backward_save", source="mic_tpu_torch/csrc/flash_ce.cu",
+             replaces="mic_tpu/ops/flash_ce.py:579", max_abs_err=bwd_err["flash_ce_backward_save"],
+             ms=route_ms["save"], plain_ms=route_ms["save_plain"]),
+        dict(name="flash_ce_backward", source="mic_tpu_torch/csrc/flash_ce.cu",
+             replaces="mic_tpu/ops/flash_ce.py:407", max_abs_err=bwd_err["flash_ce_backward"],
+             ms=route_ms["split"], plain_ms=route_ms["split_plain"]),
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -36,11 +36,11 @@ _SIGNATURES = {
     # batch, beams, t_max, heads, head_dim, index, stream
     "mic_lazy_attention_q8": [_P] * 9 + [_I] * 6 + [_P],
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
-    # rid_part, n, d, vocab, splits, stream
-    "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 4 + [_P],
+    # rid_part, n, d, vocab, buckets, splits, stream
+    "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 5 + [_P],
     # hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
-    # rmax_part, rid_part, n, d, vocab, splits, stream
-    "mic_fused_head_bucket_q8": [_P] * 10 + [_I] * 4 + [_P],
+    # rmax_part, rid_part, n, d, vocab, buckets, splits, stream
+    "mic_fused_head_bucket_q8": [_P] * 10 + [_I] * 5 + [_P],
     # hidden, weight, bias, part_m, part_l, part_v, part_i, lp, ids, lse,
     # n, d, vocab, k, runs, window, stream
     "mic_fused_head_select_bf16": [_P] * 10 + [_I] * 6 + [_P],
@@ -50,9 +50,17 @@ _SIGNATURES = {
     # hidden, weight, bias, part_m, part_s, part_z, lse_out, zsum_out,
     # n, d, vocab, runs, stream
     "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    # the same, then logits_main, tail, n, d, vocab, v_main, runs, stream
+    "mic_flash_ce_fwd_save_bf16": [_P] * 10 + [_I] * 5 + [_P],
     # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
     # dbias_out, low, conf - low, n, d, vocab, runs, stream
     "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
+    # hidden, weight, bias, logits, labels, lse, rowscale, demb_out,
+    # dbias_out, low, conf - low, n, d, vext, saved, stream
+    "mic_flash_ce_gw_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
+    # hidden, weight, bias, logits, labels, lse, rowscale, dh_out,
+    # low, conf - low, n, d, vext, saved, stream
+    "mic_flash_ce_gh_bf16": [_P] * 8 + [_F] * 2 + [_I] * 4 + [_P],
     # q, k_step, v_step, cache_k, cache_v, out,
     # layers, rows, t_max, heads, head_dim, layer, index, stream
     "mic_decode_attention_bf16": [_P] * 6 + [_I] * 7 + [_P],

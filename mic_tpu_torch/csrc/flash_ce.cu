@@ -1,24 +1,35 @@
-// Flash cross-entropy over the tied LM head (training): forward statistics
-// and the dl backward, each a GEMM whose logits never reach device memory
-// as f32.
+// Flash cross-entropy over the tied LM head (training): the forward
+// statistics (optionally saving the logits), the dl backward, and the two
+// backward contractions of the split and save routes.  No kernel stores f32
+// logits of the main vocab span.
 //
 // Replaces mic_tpu/ops/flash_ce.py::flash_ce_forward (_ce_fwd_kernel via
-// _lse_main) and ::flash_ce_backward_dl (_ce_dl_kernel).  Per row of
-// s = hidden @ weight^T + bias over the whole vocab:
+// _lse_main, and _ce_fwd_save_kernel via _lse_main_save), ::flash_ce_backward_dl
+// (_ce_dl_kernel), ::flash_ce_backward (_ce_gw_kernel, _ce_gh_kernel) and
+// ::flash_ce_backward_save (_ce_gw_save_kernel, _ce_gh_save_kernel).  Per row
+// of s = hidden @ weight^T + bias over the whole vocab:
 //
 //   forward:  lse = log sum exp(s), zsum = sum(s)  (online max + rescaled sum)
+//   save:     the same, and s stored: bf16 (N, v_main), f32 (N, V - v_main)
 //   dl:       dl = (exp(s - lse) - target) * rowscale as bf16 (N, V), with
 //             target = low + (conf - low) * onehot(label), plus exact f32
 //             per-band dbias partials folded in band order.
+//   grad-W:   demb = dl^T @ hidden (V, D) f32 and dbias = column sums of dl
+//   grad-h:   dh = dl @ weight (N, D) f32
 //
-// Columns >= V never enter a sum and are never written.  The label logit and
-// the dh / demb GEMMs over dl stay outside, as mic_tpu computes them outside
-// its kernels.
+// For grad-W and grad-h dl is rounded to bf16 before the contraction, as
+// mic_tpu's kernels do, and s is either recomputed (split) or the saved bf16
+// logits (save, over the first v_main columns; the f32 tail is contracted
+// outside, as mic_tpu does).  Columns >= V never enter a sum and are never
+// written.  The label logit and the dh / demb GEMMs over dl stay outside, as
+// mic_tpu computes them outside its kernels.
 //
 // Bound: at the flagship training step (N = 4096 rows, D = 1024,
-// V = 250054) each kernel is a 2.1 TFLOP GEMM, far above the card's bf16
-// ridge point, so the tensor cores should bound it; the dl kernel also
-// writes 2 GB of bf16 dl.  Design (the simple first version): a block owns
+// V = 250054) each kernel is a 2.1 TFLOP GEMM (4.2 for a recomputing
+// contraction), far above the card's bf16 ridge point, so the tensor cores
+// should bound it; the dl kernel also writes 2 GB of bf16 dl, the save
+// forward 2 GB of bf16 logits.  Design of the forward and dl kernels (the
+// simple first version): a block owns
 // 64 rows and walks a run of consecutive 64-wide vocab tiles; per tile it
 // streams 64 x 64 slices of hidden and weight (the weight read as stored,
 // (V, D), each vocab row contiguous) through a three-stage cp.async ring
@@ -32,7 +43,11 @@
 //
 // dl rows start at row * V * 2 bytes, which for an odd V is only 2-byte
 // aligned, so dl is written with scalar bf16 stores (a warp writes 64
-// consecutive bytes); no padded row pitch is needed.
+// consecutive bytes); no padded row pitch is needed.  The saved main logits
+// start at row * v_main * 2 bytes, and v_main is a multiple of 128, so they
+// are written 16 bytes at a time; the tail's pitch is not aligned, and it
+// is written value by value.  The contraction kernels are described where
+// they are defined, below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -205,6 +220,45 @@ struct RowStats {
   }
 };
 
+// Save epilogue: the same fold of the exact f32 tile, then the tile stored,
+// rounded to bf16 where it lies in the first v_main columns and as it is in
+// the tail.  v_main is a multiple of 128, so no 64-wide tile straddles it.
+struct SaveTile {
+  RowStats st;
+  bf16* lg;     // (N, v_main)
+  float* tail;  // (N, V - v_main)
+  const float* bias;
+  int n, vocab, v_main, row0;
+
+  __device__ __forceinline__ void operator()(const float* ss, int col0) {
+    st(ss, col0);
+    if (col0 < v_main) {
+      for (int i = threadIdx.x; i < kBM * (kBN / 8); i += kThreads) {
+        const int r = i / (kBN / 8);
+        const int c = (i % (kBN / 8)) * 8;
+        if (row0 + r >= n) continue;
+        const float* src = ss + r * kLds + c;
+        const float* b = bias + col0 + c;
+        uint4 raw;
+        __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pair[j] = __floats2bfloat162_rn(src[2 * j] + b[2 * j], src[2 * j + 1] + b[2 * j + 1]);
+        *reinterpret_cast<uint4*>(lg + static_cast<size_t>(row0 + r) * v_main + col0 + c) = raw;
+      }
+    } else {
+      const int vt = vocab - v_main;
+      for (int e = threadIdx.x; e < kBM * kBN; e += kThreads) {
+        const int r = e / kBN;
+        const int col = col0 + e % kBN;
+        if (row0 + r < n && col < vocab)
+          tail[static_cast<size_t>(row0 + r) * vt + (col - v_main)] = ss[r * kLds + e % kBN] + bias[col];
+      }
+    }
+  }
+};
+
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads)
 flash_ce_fwd_kernel(const bf16* __restrict__ hidden,  // (N, D)
                     const bf16* __restrict__ weight,  // (V, D)
@@ -212,7 +266,9 @@ flash_ce_fwd_kernel(const bf16* __restrict__ hidden,  // (N, D)
                     float* __restrict__ part_m,       // (runs, N)
                     float* __restrict__ part_s,       // (runs, N)
                     float* __restrict__ part_z,       // (runs, N)
-                    int n, int d, int vocab) {
+                    bf16* __restrict__ lg,            // (N, v_main), kSave only
+                    float* __restrict__ tail,         // (N, V - v_main), kSave only
+                    int n, int d, int vocab, int v_main) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int row0 = blockIdx.x * kBM;
   int t_begin, t_end;
@@ -222,7 +278,13 @@ flash_ce_fwd_kernel(const bf16* __restrict__ hidden,  // (N, D)
   st.vocab = vocab;
   st.r = threadIdx.x >> 1;
   st.half = threadIdx.x & 1;
-  walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, st);
+  if constexpr (kSave) {
+    SaveTile epi{st, lg, tail, bias, n, vocab, v_main, row0};
+    walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, epi);
+    st = epi.st;
+  } else {
+    walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, st);
+  }
 
   // fold the two halves of each row (neighbouring lanes); both lanes get
   // the same sums, the even one writes
@@ -353,23 +415,25 @@ int check_args(int n, int d, int vocab, int runs) {
   return 0;
 }
 
-}  // namespace
-
-// runs consecutive vocab-tile runs per row tile; part_* are (runs, N) scratch.
-extern "C" int mic_flash_ce_fwd_bf16(void* hidden, void* weight, void* bias, void* part_m,
-                                     void* part_s, void* part_z, void* lse, void* zsum, int n,
-                                     int d, int vocab, int runs, void* stream) {
+template <bool kSave>
+int launch_fwd(void* hidden, void* weight, void* bias, void* part_m, void* part_s, void* part_z,
+               void* lse, void* zsum, void* lg, void* tail, int n, int d, int vocab, int v_main,
+               int runs, void* stream) {
   if (int bad = check_args(n, d, vocab, runs)) return bad;
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_fwd_kernel,
+  if (kSave && (v_main < 0 || v_main > vocab || v_main % 128 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_ce_fwd_kernel<kSave>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + kBM - 1) / kBM, runs);
-  flash_ce_fwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+  flash_ce_fwd_kernel<kSave><<<grid, kThreads, kSmemBytes, s>>>(
       static_cast<const bf16*>(hidden), static_cast<const bf16*>(weight),
       static_cast<const float*>(bias), static_cast<float*>(part_m), static_cast<float*>(part_s),
-      static_cast<float*>(part_z), n, d, vocab);
+      static_cast<float*>(part_z), static_cast<bf16*>(lg), static_cast<float*>(tail), n, d, vocab,
+      v_main);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_ce_fwd_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(
@@ -377,6 +441,328 @@ extern "C" int mic_flash_ce_fwd_bf16(void* hidden, void* weight, void* bias, voi
       static_cast<const float*>(part_z), static_cast<float*>(lse), static_cast<float*>(zsum), n,
       runs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward contractions: grad-W and grad-h.
+//
+// mic_tpu keeps the whole (VC, D) demb block, or the (RB, D) dh block,
+// resident in VMEM across its sweep, so each is written once.  A block here
+// owns 32 output rows over the full D instead: 32 vocab rows of demb
+// (grad-W), or 32 hidden rows of dh (grad-h), with the 32 x D f32 sums in
+// the registers of its 8 warps (warp w holds the 16-wide column fragments
+// w, w + 8, ...; at D = 1024 that is 128 floats a thread).  The block sweeps
+// the other operand in tiles of 32 rows (hidden rows for grad-W, vocab rows
+// for grad-h), each tile X (32 x D bf16) loaded once through a two-stage
+// cp.async ring, and per tile:
+//
+//   1. the 32 x 32 logits tile: recomputed as own (32 x D, resident) @ X^T,
+//      the depth split in two halves over the warps and the halves added in
+//      a fixed order, plus the bias (split); or the saved bf16 logits of
+//      the tile, staged beside X (save);
+//   2. dl = (exp(s - lse) - target) * rowscale in f32, zero outside the
+//      vocab and past row N, and its bf16 copy; grad-W sums each vocab row's
+//      f32 dl into its dbias;
+//   3. acc += dl (own x swept) @ X (32 x D), bf16 WMMA with f32 sums.
+//
+// Splitting D over blocks instead would recompute the logits once per
+// slice; keeping full D costs one block an SM (205 KB of shared memory at
+// D = 1024 for the split route: own, two X stages, the halves, the dl
+// tile and the output staging; 141 KB for save).  Every sum has one order
+// and there are no atomics: reruns are bit-equal.  The bound is the tensor
+// cores: 2 x 2 N D V operations a split contraction, 2 N D v_main a save
+// one; the design is set by the mma.sync fragment loads from shared memory
+// (two for each product in step 1), far from it in this first version.
+
+constexpr int kOB = 32;           // output rows per block
+constexpr int kSB = 32;           // swept rows per tile
+constexpr int kBThreads = 256;    // 8 warps
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kColFrags = 8;      // 16-wide output column fragments per warp at most
+constexpr int kMaxD = kBWarps * kColFrags * 16;  // 1024
+constexpr int kLdT = kSB + 8;     // bf16 pitch of the dl and saved-logits tiles
+constexpr int kLdP = kSB + 4;     // f32 pitch of the recomputed halves
+constexpr int kLdO = 16 + 4;      // f32 pitch of a warp's output staging fragment
+constexpr int kGradW = 0;
+constexpr int kGradH = 1;
+
+struct BwdArgs {
+  const bf16* hidden;     // (N, D)
+  const bf16* weight;     // (V, D)
+  const float* bias;      // (V,), split only
+  const bf16* logits;     // (N, v_main) saved logits, save only
+  const int32_t* labels;  // (N,)
+  const float* lse;       // (N,)
+  const float* rowscale;  // (N,)
+  float* out;             // grad-W: (vext, D) rows of demb; grad-h: (N, D)
+  float* dbias;           // grad-W: (vext,)
+  float low, conf_low;
+  int n, d;
+  int vext;               // vocab columns covered: V (split) or v_main (save)
+};
+
+size_t bwd_smem_bytes(int d, bool saved) {
+  const size_t ldx = static_cast<size_t>(d) + 8;
+  size_t bytes = 2 * kSB * ldx * sizeof(bf16)                  // X, two stages
+                 + kOB * kLdT * sizeof(bf16)                   // the dl tile
+                 + kBWarps * 16 * kLdO * sizeof(float);        // output staging
+  if (saved) {
+    bytes += 2 * kSB * kLdT * sizeof(bf16);                    // saved logits, two stages
+  } else {
+    bytes += kOB * ldx * sizeof(bf16) + 2 * kOB * kLdP * sizeof(float);  // own, halves
+  }
+  return bytes;
+}
+
+template <int kGrad, bool kSaved>
+__global__ void __launch_bounds__(kBThreads, 1) flash_ce_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int d = a.d;
+  const int ldx = d + 8;
+  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);        // [2][kSB][ldx]
+  bf16* dl_s = x_s + 2 * kSB * ldx;                      // [kOB][kLdT]
+  float* out_s = reinterpret_cast<float*>(dl_s + kOB * kLdT);  // [warps][16][kLdO]
+  bf16* rest = reinterpret_cast<bf16*>(out_s + kBWarps * 16 * kLdO);
+  bf16* lg_s = rest;                                     // save: [2][kSB][kLdT]
+  bf16* own_s = rest;                                    // split: [kOB][ldx]
+  float* half_s = reinterpret_cast<float*>(own_s + kOB * ldx);  // split: [2][kOB][kLdP]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int own0 = blockIdx.x * kOB;
+  // grad-W owns vocab rows and sweeps hidden rows; grad-h the reverse
+  const int own_end = kGrad == kGradW ? a.vext : a.n;
+  const int sweep_end = kGrad == kGradW ? a.n : a.vext;
+  const bf16* own_src = kGrad == kGradW ? a.weight : a.hidden;
+  const bf16* x_src = kGrad == kGradW ? a.hidden : a.weight;
+  const int ntiles = (sweep_end + kSB - 1) / kSB;
+  const int vec = d / 8;  // 16-byte pieces of a row
+
+  // rows past the operand's end re-read its last row; their dl is zero
+  auto load_tile = [&](int t, int stage) {
+    const int s0 = t * kSB;
+    bf16* dst = x_s + stage * kSB * ldx;
+    for (int i = tid; i < kSB * vec; i += kBThreads) {
+      const int r = i / vec;
+      const int c = (i % vec) * 8;
+      const int row = min(s0 + r, sweep_end - 1);
+      cp_async16(dst + r * ldx + c, x_src + static_cast<size_t>(row) * d + c);
+    }
+    if constexpr (kSaved) {
+      // the (hidden rows x vocab columns) block of the saved logits
+      if (tid < kSB * (kSB / 8)) {
+        const int r = tid / (kSB / 8);
+        const int c = (tid % (kSB / 8)) * 8;
+        const int row = min((kGrad == kGradW ? s0 : own0) + r, a.n - 1);
+        const int col = (kGrad == kGradW ? own0 : s0) + c;
+        cp_async16(lg_s + stage * kSB * kLdT + r * kLdT + c,
+                   a.logits + static_cast<size_t>(row) * a.vext + col);
+      }
+    }
+  };
+
+  if constexpr (!kSaved) {
+    for (int i = tid; i < kOB * vec; i += kBThreads) {
+      const int r = i / vec;
+      const int c = (i % vec) * 8;
+      const int row = min(own0 + r, own_end - 1);
+      cp_async16(own_s + r * ldx + c, own_src + static_cast<size_t>(row) * d + c);
+    }
+  }
+  load_tile(0, 0);
+  cp_async_commit();
+
+  const int nf = d / 16;
+  fragment<accumulator, 16, 16, 16, float> acc[2][kColFrags];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kColFrags; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
+
+  // step 2's elements: thread -> own row eo, swept rows es .. es + 3
+  const int eo = tid >> 3;
+  const int es = (tid & 7) * 4;
+  float dbias_acc = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    // the other stage was last read in the previous tile's step 3
+    if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const bf16* xt = x_s + (t & 1) * kSB * ldx;
+    const int s0 = t * kSB;
+
+    if constexpr (!kSaved) {
+      // step 1: warp w computes fragment (w & 1, (w >> 1) & 1) over depth half w >> 2
+      const int fi = warp & 1;
+      const int fj = (warp >> 1) & 1;
+      const int half = warp >> 2;
+      fragment<accumulator, 16, 16, 16, float> c;
+      nvcuda::wmma::fill_fragment(c, 0.f);
+      const int k_end = (half + 1) * (d / 2);
+      for (int k = half * (d / 2); k < k_end; k += 16) {
+        fragment<matrix_a, 16, 16, 16, bf16, row_major> fa;
+        fragment<matrix_b, 16, 16, 16, bf16, col_major> fb;
+        nvcuda::wmma::load_matrix_sync(fa, own_s + 16 * fi * ldx + k, ldx);
+        nvcuda::wmma::load_matrix_sync(fb, xt + 16 * fj * ldx + k, ldx);
+        nvcuda::wmma::mma_sync(c, fa, fb, c);
+      }
+      nvcuda::wmma::store_matrix_sync(half_s + (half * kOB + 16 * fi) * kLdP + 16 * fj, c, kLdP,
+                                      mem_row_major);
+      __syncthreads();
+    }
+
+    // step 2
+    {
+      const bf16* lt = lg_s + (t & 1) * kSB * kLdT;
+      float part = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int sw = es + q;
+        const int row = kGrad == kGradW ? s0 + sw : own0 + eo;
+        const int col = kGrad == kGradW ? own0 + eo : s0 + sw;
+        float g = 0.f;
+        if (row < a.n && col < a.vext) {
+          float logit;
+          if constexpr (kSaved) {
+            logit = __bfloat162float(kGrad == kGradW ? lt[sw * kLdT + eo] : lt[eo * kLdT + sw]);
+          } else {
+            logit = half_s[eo * kLdP + sw] + half_s[(kOB + eo) * kLdP + sw] + a.bias[col];
+          }
+          const float p = expf(logit - a.lse[row]);
+          const float target = a.low + a.conf_low * (col == a.labels[row] ? 1.f : 0.f);
+          g = (p - target) * a.rowscale[row];
+        }
+        part += g;
+        dl_s[eo * kLdT + sw] = __float2bfloat16(g);
+      }
+      if constexpr (kGrad == kGradW) {
+        // the eight threads of one vocab row are neighbouring lanes
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        part += __shfl_xor_sync(0xffffffffu, part, 4);
+        dbias_acc += part;
+      }
+    }
+    __syncthreads();
+
+    // step 3
+#pragma unroll
+    for (int k16 = 0; k16 < kSB; k16 += 16) {
+      fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        nvcuda::wmma::load_matrix_sync(fa[i], dl_s + 16 * i * kLdT + k16, kLdT);
+#pragma unroll
+      for (int j = 0; j < kColFrags; ++j) {
+        const int f = warp + kBWarps * j;
+        if (f < nf) {
+          fragment<matrix_b, 16, 16, 16, bf16, row_major> fb;
+          nvcuda::wmma::load_matrix_sync(fb, xt + k16 * ldx + 16 * f, ldx);
+          nvcuda::wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
+          nvcuda::wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+
+  // each warp writes its fragments through its own 16 x 16 staging tile
+  float* st = out_s + warp * 16 * kLdO;
+  const int sr = lane >> 1;
+  const int sc = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < kColFrags; ++j) {
+      const int f = warp + kBWarps * j;
+      if (f < nf) {
+        nvcuda::wmma::store_matrix_sync(st, acc[i][j], kLdO, mem_row_major);
+        __syncwarp();
+        const int row = own0 + 16 * i + sr;
+        if (row < own_end) {
+          float4* dst = reinterpret_cast<float4*>(a.out + static_cast<size_t>(row) * d + 16 * f + sc);
+          dst[0] = *reinterpret_cast<const float4*>(st + sr * kLdO + sc);
+          dst[1] = *reinterpret_cast<const float4*>(st + sr * kLdO + sc + 4);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  if constexpr (kGrad == kGradW) {
+    if ((tid & 7) == 0 && own0 + eo < own_end) a.dbias[own0 + eo] = dbias_acc;
+  }
+}
+
+template <int kGrad, bool kSaved>
+int launch_bwd(const BwdArgs& a, void* stream) {
+  const size_t smem = bwd_smem_bytes(a.d, kSaved);
+  if (a.n < 1 || a.vext < 1 || a.d < 64 || a.d % 64 != 0 || a.d > kMaxD || smem > 232448 ||
+      (kSaved && a.vext % kSB != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(flash_ce_bwd_kernel<kGrad, kSaved>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int own_end = kGrad == kGradW ? a.vext : a.n;
+  flash_ce_bwd_kernel<kGrad, kSaved><<<(own_end + kOB - 1) / kOB, kBThreads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+BwdArgs bwd_args(void* hidden, void* weight, void* bias, void* logits, void* labels, void* lse,
+                 void* rowscale, void* out, void* dbias, float low, float conf_low, int n, int d,
+                 int vext) {
+  return BwdArgs{static_cast<const bf16*>(hidden), static_cast<const bf16*>(weight),
+                 static_cast<const float*>(bias), static_cast<const bf16*>(logits),
+                 static_cast<const int32_t*>(labels), static_cast<const float*>(lse),
+                 static_cast<const float*>(rowscale), static_cast<float*>(out),
+                 static_cast<float*>(dbias), low, conf_low, n, d, vext};
+}
+
+}  // namespace
+
+// runs consecutive vocab-tile runs per row tile; part_* are (runs, N) scratch.
+extern "C" int mic_flash_ce_fwd_bf16(void* hidden, void* weight, void* bias, void* part_m,
+                                     void* part_s, void* part_z, void* lse, void* zsum, int n,
+                                     int d, int vocab, int runs, void* stream) {
+  return launch_fwd<false>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum, nullptr,
+                           nullptr, n, d, vocab, 0, runs, stream);
+}
+
+// The same, also storing the logits: columns < v_main (a multiple of 128)
+// as bf16 into logits_main (N, v_main), the rest as f32 into tail.
+extern "C" int mic_flash_ce_fwd_save_bf16(void* hidden, void* weight, void* bias, void* part_m,
+                                          void* part_s, void* part_z, void* lse, void* zsum,
+                                          void* logits_main, void* tail, int n, int d,
+                                          int vocab, int v_main, int runs, void* stream) {
+  return launch_fwd<true>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum, logits_main,
+                          tail, n, d, vocab, v_main, runs, stream);
+}
+
+// grad-W: demb rows [0, vext) and dbias [0, vext).  saved == 0: the logits
+// recomputed over V = vext columns (bias read, logits unused); saved != 0:
+// read from logits (N, vext) (bias unused), vext a multiple of 32.
+extern "C" int mic_flash_ce_gw_bf16(void* hidden, void* weight, void* bias, void* logits,
+                                    void* labels, void* lse, void* rowscale, void* demb,
+                                    void* dbias, float low, float conf_low, int n, int d,
+                                    int vext, int saved, void* stream) {
+  const BwdArgs a = bwd_args(hidden, weight, bias, logits, labels, lse, rowscale, demb, dbias, low,
+                             conf_low, n, d, vext);
+  return saved ? launch_bwd<kGradW, true>(a, stream) : launch_bwd<kGradW, false>(a, stream);
+}
+
+// grad-h: dh (N, D) f32 over the vocab columns [0, vext), as grad-W.
+extern "C" int mic_flash_ce_gh_bf16(void* hidden, void* weight, void* bias, void* logits,
+                                    void* labels, void* lse, void* rowscale, void* dh, float low,
+                                    float conf_low, int n, int d, int vext, int saved,
+                                    void* stream) {
+  const BwdArgs a = bwd_args(hidden, weight, bias, logits, labels, lse, rowscale, dh, nullptr, low,
+                             conf_low, n, d, vext);
+  return saved ? launch_bwd<kGradH, true>(a, stream) : launch_bwd<kGradH, false>(a, stream);
 }
 
 // band_part is (ceil(N / 64), V) f32 scratch; every live entry is written.

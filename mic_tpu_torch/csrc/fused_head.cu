@@ -3,14 +3,15 @@
 // Replaces mic_tpu/ops/fused_head.py::fused_head_topk(select="bucket"), the
 // _kernel_bucket_acc Pallas kernel of its n > 512 path.  Logits
 // s = hidden @ weight^T + bias are never stored.  The vocab is cut into
-// chunks of kBuckets = 512 (the TPU's bv, on which the candidate ids
-// depend); bucket column j of a row keeps, over the chunks in order,
+// chunks of `buckets` columns (the TPU's bv, on which the candidate ids
+// depend: 512, or MIC_TPU_EXPERIMENTAL=bucket_bv; any multiple of kBC);
+// bucket column j of a row keeps, over the chunks in order,
 //
 //   l[j]    += exp(min(s, 60))                    (fixed-offset sum of exps)
 //   rmax[j], rid[j] <- s, id   where s > rmax[j]  (strict: earliest chunk wins)
 //
-// with columns >= V masked to -1e30.  The three (N, 512) planes go back to
-// the caller, which finishes lse and the top-k of the 512 bucket winners as
+// with columns >= V masked to -1e30.  The three (N, buckets) planes go back
+// to the caller, which finishes lse and the top-k of the bucket winners as
 // the TPU's _bucket_finish_host does in XLA.
 //
 // Bound: at the flagship decode shape (N = 1024 rows, D = 1024, V = 250054)
@@ -28,7 +29,7 @@
 // reads it ceil(N / 64) times; blocks of one bucket-column group run in the
 // same wave and mostly meet in L2.
 //
-// When the row tiles x 8 column groups leave most SMs idle (small N), the
+// When the row tiles x column groups (8 at 512) leave most SMs idle (small N), the
 // caller splits the chunk walk into `splits` consecutive runs (grid z).  Each
 // run writes its own three planes, and a merge kernel folds them in chunk
 // order -- sums added, and the strict > so that the earliest chunk still wins
@@ -60,7 +61,6 @@ using nvcuda::wmma::matrix_b;
 using nvcuda::wmma::mem_row_major;
 using nvcuda::wmma::row_major;
 
-constexpr int kBuckets = 512;  // bv of mic_tpu/ops/fused_head.py::_bucket_tiles
 constexpr int kBM = 64;        // hidden rows per block
 constexpr int kBC = 64;        // bucket columns per block
 constexpr int kBK = 64;        // depth of one weight slice
@@ -99,10 +99,10 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
                          const void* __restrict__ weight_raw,       // (V, D) bf16 or int8
                          const float* __restrict__ wscale,          // (V,), int8 only
                          const float* __restrict__ bias,            // (V,)
-                         float* __restrict__ l_out,                 // (splits, N, 512)
-                         float* __restrict__ rmax_out,              // (splits, N, 512)
-                         int32_t* __restrict__ rid_out,             // (splits, N, 512)
-                         int n, int d, int vocab) {
+                         float* __restrict__ l_out,                 // (splits, N, buckets)
+                         float* __restrict__ rmax_out,              // (splits, N, buckets)
+                         int32_t* __restrict__ rid_out,             // (splits, N, buckets)
+                         int n, int d, int vocab, int buckets) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lda = d + kPad;
   constexpr int ldb = kBK + kPad;
@@ -134,7 +134,7 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
 
   // this block's run of chunks [c_begin, c_end), split z of gridDim.z
   const int nk = d / kBK;
-  const int nchunks = (vocab + kBuckets - 1) / kBuckets;
+  const int nchunks = (vocab + buckets - 1) / buckets;
   const int c_begin = static_cast<int>(static_cast<int64_t>(blockIdx.z) * nchunks / gridDim.z);
   const int c_end = static_cast<int>(static_cast<int64_t>(blockIdx.z + 1) * nchunks / gridDim.z);
   // the run streams as one sequence of slices: slice s is depth block
@@ -149,7 +149,7 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
       const int r = i / (kBK / kPer);
       const int c = (i % (kBK / kPer)) * kPer;
       // the ragged last chunk re-reads row V-1; its scores are masked below
-      const size_t src = static_cast<size_t>(min(chunk * kBuckets + col0 + r, vocab - 1)) * d + kk + c;
+      const size_t src = static_cast<size_t>(min(chunk * buckets + col0 + r, vocab - 1)) * d + kk + c;
       if constexpr (kInt8) {
         cp_async16(qs + (s % kStages) * kBC * ldq + r * ldq + c,
                    static_cast<const int8_t*>(weight_raw) + src);
@@ -241,7 +241,7 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
           nvcuda::wmma::store_matrix_sync(ss + (wm + 16 * i) * lds + wn + 16 * j, acc[i][j], lds,
                                           mem_row_major);
       __syncthreads();
-      const int base = (c_begin + s / nk) * kBuckets + col0;
+      const int base = (c_begin + s / nk) * buckets + col0;
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
         const int e = tid + i * kThreads;
@@ -268,7 +268,7 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
     const int e = tid + i * kThreads;
     const int r = row0 + e / kBC;
     if (r < n) {
-      const size_t o = (static_cast<size_t>(blockIdx.z) * n + r) * kBuckets + col0 + e % kBC;
+      const size_t o = (static_cast<size_t>(blockIdx.z) * n + r) * buckets + col0 + e % kBC;
       l_out[o] = l_acc[i];
       rmax_out[o] = m_acc[i];
       rid_out[o] = id_acc[i];
@@ -276,7 +276,7 @@ fused_head_bucket_kernel(const __nv_bfloat16* __restrict__ hidden,  // (N, D)
   }
 }
 
-// Folds the per-split planes (splits, N*512) into (N*512) in split order,
+// Folds the per-split planes (splits, N*buckets) into (N*buckets) in split order,
 // which is chunk order: sums added, strict > so the earliest split's winner
 // stands on ties.
 __global__ void fused_head_bucket_merge_kernel(const float* __restrict__ l_part,
@@ -304,15 +304,16 @@ __global__ void fused_head_bucket_merge_kernel(const float* __restrict__ l_part,
   rid_out[i] = id;
 }
 
-// With splits == 1 the walk writes the (N, 512) outputs directly and the
-// *_part pointers are unused; with splits > 1 it writes (splits, N, 512)
+// With splits == 1 the walk writes the (N, buckets) outputs directly and the
+// *_part pointers are unused; with splits > 1 it writes (splits, N, buckets)
 // partial planes there, which the merge kernel folds into the outputs.
 template <bool kInt8>
 int launch_bucket(void* hidden, void* weight, void* wscale, void* bias, void* l_out,
                   void* rmax_out, void* rid_out, void* l_part, void* rmax_part, void* rid_part,
-                  int n, int d, int vocab, int splits, void* stream) {
+                  int n, int d, int vocab, int buckets, int splits, void* stream) {
   const size_t smem = smem_bytes(d, kInt8);
-  const int nchunks = (vocab + kBuckets - 1) / kBuckets;
+  if (buckets < kBC || buckets % kBC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunks = (vocab + buckets - 1) / buckets;
   if (n < 1 || vocab < 1 || d % kBK != 0 || smem > 232448 || splits < 1 || splits > nchunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -322,16 +323,16 @@ int launch_bucket(void* hidden, void* weight, void* wscale, void* bias, void* l_
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool split = splits > 1;
-  const dim3 grid((n + kBM - 1) / kBM, kBuckets / kBC, splits);
+  const dim3 grid((n + kBM - 1) / kBM, buckets / kBC, splits);
   fused_head_bucket_kernel<kInt8><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(hidden), weight, static_cast<const float*>(wscale),
       static_cast<const float*>(bias), static_cast<float*>(split ? l_part : l_out),
       static_cast<float*>(split ? rmax_part : rmax_out),
-      static_cast<int32_t*>(split ? rid_part : rid_out), n, d, vocab);
+      static_cast<int32_t*>(split ? rid_part : rid_out), n, d, vocab, buckets);
   if (split) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int total = n * kBuckets;
+    const int total = n * buckets;
     fused_head_bucket_merge_kernel<<<(total + 255) / 256, 256, 0, s>>>(
         static_cast<const float*>(l_part), static_cast<const float*>(rmax_part),
         static_cast<const int32_t*>(rid_part), static_cast<float*>(l_out),
@@ -704,20 +705,22 @@ int launch_select(const void* x, const void* xscale, const void* weight, const v
 
 }  // namespace
 
+// buckets: the chunk width, a multiple of kBC (512 unless bucket_bv is set).
 extern "C" int mic_fused_head_bucket_bf16(void* hidden, void* weight, void* bias, void* l_out,
                                           void* rmax_out, void* rid_out, void* l_part,
                                           void* rmax_part, void* rid_part, int n, int d,
-                                          int vocab, int splits, void* stream) {
+                                          int vocab, int buckets, int splits, void* stream) {
   return launch_bucket<false>(hidden, weight, nullptr, bias, l_out, rmax_out, rid_out, l_part,
-                              rmax_part, rid_part, n, d, vocab, splits, stream);
+                              rmax_part, rid_part, n, d, vocab, buckets, splits, stream);
 }
 
 extern "C" int mic_fused_head_bucket_q8(void* hidden, void* weight_q, void* wscale, void* bias,
                                         void* l_out, void* rmax_out, void* rid_out,
                                         void* l_part, void* rmax_part, void* rid_part, int n,
-                                        int d, int vocab, int splits, void* stream) {
+                                        int d, int vocab, int buckets, int splits,
+                                        void* stream) {
   return launch_bucket<true>(hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
-                             rmax_part, rid_part, n, d, vocab, splits, stream);
+                             rmax_part, rid_part, n, d, vocab, buckets, splits, stream);
 }
 
 // The exact/window select on bf16 operands (window != 0 selects "window").

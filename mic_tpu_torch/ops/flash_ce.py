@@ -1,20 +1,34 @@
 """Flash cross-entropy over the tied LM head (training).
 
-Counterpart of mic_tpu/ops/flash_ce.py's default pair:
+Counterpart of mic_tpu/ops/flash_ce.py:
 
 - ``flash_ce_forward``: per row of h @ emb^T + bias, (lse, label_logit,
   sum_logits), each (N,) f32.  The label logit is a gather of the label's
   table row and an f32 row dot, outside the kernel, as mic_tpu computes it.
-- ``flash_ce_backward_dl``: dl = (softmax - smoothed target) * rowscale as
-  bf16 (N, V) plus exact f32 dbias, then dh = dl @ W and demb = dl^T @ h as
-  GEMMs with f32 output over the bf16 dl, as mic_tpu runs them in XLA.
+  With ``save=True`` it also returns the logits: the first ``v_main``
+  columns rounded to bf16 (N, v_main) and the ragged tail in f32, where
+  ``v_main`` is mic_tpu's (``main_columns``); the statistics stay those of
+  the non-saving call, bit for bit.
+- ``flash_ce_backward_dl`` (routes "dl"): dl = (softmax - smoothed target)
+  * rowscale as bf16 (N, V) plus exact f32 dbias, then dh = dl @ W and
+  demb = dl^T @ h as GEMMs with f32 output over the bf16 dl, as mic_tpu
+  runs them in XLA.
+- ``flash_ce_backward`` (route "1"/"split"): two contractions, each
+  recomputing the logits: grad-W writes each block of demb (V, D) f32 and
+  dbias once, grad-h each block of dh once.  dl is rounded to the compute
+  dtype before both, as in the dl route.
+- ``flash_ce_backward_save`` (route "save"): the same two contractions from
+  the saved bf16 logits, with no recompute; the ragged tail from the saved
+  f32 tail logits in exact f32, as two GEMMs (plain products in mic_tpu too).
+- ``flash_ce_contraction``: one of those contractions alone, on the card,
+  for timing and tests.
 
-Both read the table in the compute dtype: ``emb_cast`` (the training
+Each reads the table in the compute dtype: ``emb_cast`` (the training
 shadow, train/shadow.py) when given, else ``emb`` cast once.  Each takes its
 plain version for tensors on the CPU.  On a CUDA device it launches the
-kernel of csrc/flash_ce.cu, which never stores f32 logits, or raises: the
-kernels take bfloat16 only, so a float32 ``h`` (``CaptionerConfig.dtype``
-"float32") raises NotImplementedError.
+kernels of csrc/flash_ce.cu, which never store f32 logits of the main
+vocab span, or raises: the kernels take bfloat16 only, so a float32 ``h``
+(``CaptionerConfig.dtype`` "float32") raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from mic_tpu_torch import _build
 
 _ROW_TILE = 64   # hidden rows per block of csrc/flash_ce.cu (kBM)
 _VOCAB_TILE = 64  # vocab columns per tile (kBN)
+_BWD_MAX_D = 1024  # the widest D the backward contractions take (kMaxD)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
 
 
@@ -40,21 +55,37 @@ def _targets(label_smoothing: float, vocab: int):
     return low, conf - low
 
 
+def main_columns(vocab: int) -> int:
+    """v_main of mic_tpu/ops/flash_ce.py::flash_ce_forward: the columns its
+    save forward keeps as bf16, (V // vc) * vc with vc of ``_fwd_tiles``
+    (2048, halved while it exceeds V, down to 128).  The rest is the f32 tail."""
+    vc = 2048
+    while vc > 128 and vocab < vc:
+        vc //= 2
+    return (vocab // vc) * vc
+
+
 def _label_logit(h, w, bias_f, labels):
     rows = w[labels.long()]
     return (h.float() * rows.float()).sum(-1) + bias_f[labels.long()]
 
 
-def flash_ce_forward_plain(h, emb, bias, labels, emb_cast=None):
-    """f32 logits in row chunks, then the reductions."""
+def flash_ce_forward_plain(h, emb, bias, labels, emb_cast=None, save=False):
+    """f32 logits in row chunks, then the reductions; with ``save`` also
+    (logits_main (N, v_main) bf16, tail (N, V - v_main) f32)."""
     w = _table(h, emb, emb_cast).float()
     bias_f = bias.float()
-    lse, zsum = [], []
+    v_main = main_columns(w.shape[0])
+    lse, zsum, main, tail = [], [], [], []
     for i in range(0, h.shape[0], _PLAIN_ROWS):
         logits = h[i:i + _PLAIN_ROWS].float() @ w.T + bias_f
         lse.append(torch.logsumexp(logits, dim=-1))
         zsum.append(logits.sum(dim=-1))
-    return torch.cat(lse), _label_logit(h, w, bias_f, labels), torch.cat(zsum)
+        if save:
+            main.append(logits[:, :v_main].bfloat16())
+            tail.append(logits[:, v_main:])
+    out = (torch.cat(lse), _label_logit(h, w, bias_f, labels), torch.cat(zsum))
+    return out + (torch.cat(main), torch.cat(tail)) if save else out
 
 
 def _runs(n: int, v: int, device: torch.device) -> int:
@@ -86,11 +117,13 @@ def _check_pointers(name, device, *tensors):
                              "16-byte aligned and on one device")
 
 
-def flash_ce_forward(h, emb, bias, labels, emb_cast=None):
+def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     """h (N, D), emb (V, D), bias (V,), labels (N,) ->
-    (lse, label_logit, sum_logits), each (N,) f32."""
+    (lse, label_logit, sum_logits), each (N,) f32; with ``save`` also
+    (logits_main (N, v_main) bf16, tail (N, V - v_main) f32).  Launches
+    count in ``launches`` (statistics only) and ``save_launches``."""
     if h.device.type == "cpu":
-        return flash_ce_forward_plain(h, emb, bias, labels, emb_cast)
+        return flash_ce_forward_plain(h, emb, bias, labels, emb_cast, save)
     if h.device.type != "cuda":
         raise ValueError(f"flash_ce_forward: unsupported device {h.device}")
     w = _table(h, emb, emb_cast)
@@ -102,28 +135,40 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None):
     runs = _runs(n, v, h.device)
     part = torch.empty((3, runs, n), dtype=torch.float32, device=h.device)
     lse, zsum = torch.empty((2, n), dtype=torch.float32, device=h.device)
-    err = _build.lib().mic_flash_ce_fwd_bf16(
-        h.data_ptr(), w.data_ptr(), bias_f.data_ptr(),
-        part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
-        lse.data_ptr(), zsum.data_ptr(), n, d, v, runs,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    _build.check(err, "mic_flash_ce_fwd_bf16")
-    flash_ce_forward.launches += 1
-    return lse, _label_logit(h, w, bias_f, labels), zsum
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    args = (h.data_ptr(), w.data_ptr(), bias_f.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+            lse.data_ptr(), zsum.data_ptr())
+    if not save:
+        err = _build.lib().mic_flash_ce_fwd_bf16(*args, n, d, v, runs, stream)
+        _build.check(err, "mic_flash_ce_fwd_bf16")
+        flash_ce_forward.launches += 1
+        return lse, _label_logit(h, w, bias_f, labels), zsum
+    v_main = main_columns(v)
+    logits_main = torch.empty((n, v_main), dtype=torch.bfloat16, device=h.device)
+    tail = torch.empty((n, v - v_main), dtype=torch.float32, device=h.device)
+    err = _build.lib().mic_flash_ce_fwd_save_bf16(
+        *args, logits_main.data_ptr(), tail.data_ptr(), n, d, v, v_main, runs, stream)
+    _build.check(err, "mic_flash_ce_fwd_save_bf16")
+    flash_ce_forward.save_launches += 1
+    return lse, _label_logit(h, w, bias_f, labels), zsum, logits_main, tail
 
 
 flash_ce_forward.launches = 0
+flash_ce_forward.save_launches = 0
 
 
-def dlogits(p, labels, rowscale, label_smoothing):
-    """(p - smoothed target) * rowscale from the f32 softmax p (C, V) of a
-    chunk of rows, in mic_tpu's order of rounding, with no (C, V) one-hot."""
-    low, conf_low = _targets(label_smoothing, p.shape[1])
+def dlogits(p, labels, rowscale, label_smoothing, vocab=None, col0=0):
+    """(p - smoothed target) * rowscale from the f32 softmax p (C, W) of a
+    chunk of rows over columns col0..col0+W of a V-wide vocab (``vocab``,
+    by default W), in mic_tpu's order of rounding, with no (C, W) one-hot."""
+    low, conf_low = _targets(label_smoothing, p.shape[1] if vocab is None else vocab)
     t_label = torch.tensor(low, dtype=torch.float32) + torch.tensor(conf_low, dtype=torch.float32)
-    y = labels[:, None].long()
+    y = labels.long()[:, None] - col0
+    hit = (y >= 0) & (y < p.shape[1])
+    y = y.clamp(0, p.shape[1] - 1)
     d = p - low
-    d.scatter_(1, y, p.gather(1, y) - t_label)
+    d.scatter_(1, y, torch.where(hit, p.gather(1, y) - t_label, d.gather(1, y)))
     return d * rowscale[:, None]
 
 
@@ -209,3 +254,167 @@ def flash_ce_backward_dl(h, emb, bias, labels, lse, rowscale, label_smoothing,
 
 
 flash_ce_backward_dl.launches = 0
+
+
+def _check_backward_args(name, h, w, bias):
+    _check_kernel_args(name, h, w, bias)
+    if h.shape[1] > _BWD_MAX_D:
+        raise ValueError(f"{name} kernel: D={h.shape[1]} exceeds {_BWD_MAX_D}")
+
+
+_CONTRACTIONS = {"grad_w": "mic_flash_ce_gw_bf16", "grad_h": "mic_flash_ce_gh_bf16"}
+
+
+def _contract(part, h, w, bias_f, labels32, lse32, rs32, label_smoothing, logits, out,
+              dbias=None):
+    """One backward contraction of csrc/flash_ce.cu over the logits of
+    columns 0..vext: recomputed over V = vext columns (``logits`` None) or
+    read from the saved (N, vext) bf16.  "grad_w" writes demb into out
+    (vext, D) f32 and dbias (vext,) f32; "grad_h" writes dh into out (N, D)
+    f32."""
+    n, d = h.shape
+    saved = logits is not None
+    entry = _CONTRACTIONS[part]
+    _check_pointers(entry, h.device, h, w, bias_f, labels32, lse32, rs32, out,
+                    *(x for x in (logits, dbias) if x is not None))
+    low, conf_low = _targets(label_smoothing, w.shape[0])
+    err = getattr(_build.lib(), entry)(
+        h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), logits.data_ptr() if saved else 0,
+        labels32.data_ptr(), lse32.data_ptr(), rs32.data_ptr(), out.data_ptr(),
+        *((dbias.data_ptr(),) if part == "grad_w" else ()), low, conf_low, n, d,
+        logits.shape[1] if saved else w.shape[0], int(saved),
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    _build.check(err, entry)
+
+
+def _backward_operands(name, h, emb, bias, labels, lse, rowscale, emb_cast, logits_main=None):
+    """-> (table, bias f32, labels int32, lse f32, rowscale f32), checked."""
+    if h.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {h.device}")
+    w = _table(h, emb, emb_cast)
+    _check_backward_args(name, h, w, bias)
+    if logits_main is not None and (logits_main.dtype != torch.bfloat16
+                                    or logits_main.shape[0] != h.shape[0]
+                                    or not 0 <= logits_main.shape[1] <= w.shape[0]
+                                    or logits_main.shape[1] % 128):
+        raise ValueError(f"{name}: logits_main {tuple(logits_main.shape)} {logits_main.dtype} "
+                         f"for N={h.shape[0]}, V={w.shape[0]}")
+    return (w, bias.float().contiguous(), labels.to(torch.int32).contiguous(),
+            lse.float().contiguous(), rowscale.float().contiguous())
+
+
+def flash_ce_contraction(part, h, emb, bias, labels, lse, rowscale, label_smoothing,
+                         emb_cast=None, logits_main=None):
+    """One contraction kernel of the split route (``logits_main`` None) or
+    of the save route's main span, alone, on the card: "grad_w" -> (demb,
+    dbias) over those columns, "grad_h" -> dh (N, D) f32.  For timing and
+    tests; it counts no launch (the route functions below count theirs)."""
+    ops = _backward_operands(f"flash_ce_contraction {part}", h, emb, bias, labels, lse,
+                             rowscale, emb_cast, logits_main)
+    if logits_main is not None:
+        logits_main = logits_main.contiguous()
+    vext = ops[0].shape[0] if logits_main is None else logits_main.shape[1]
+    f32 = dict(dtype=torch.float32, device=h.device)
+    if part == "grad_h":
+        dh = torch.empty(h.shape, **f32)
+        _contract(part, h, *ops, label_smoothing, logits_main, dh)
+        return dh
+    demb, dbias = torch.empty((vext, h.shape[1]), **f32), torch.empty(vext, **f32)
+    _contract(part, h, *ops, label_smoothing, logits_main, demb, dbias)
+    return demb, dbias
+
+
+def flash_ce_backward(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=None):
+    """The split route's backward (mic_tpu ::flash_ce_backward): -> (dh (N, D)
+    in h.dtype, demb (V, D) f32, dbias (V,) f32), grad-W and grad-h each
+    recomputing the logits.  One call, two kernels, counted once in
+    ``launches``.  Its plain version is the dl route's,
+    ``flash_ce_backward_dl_plain``: the same function (dl from the f32
+    logits, rounded to h.dtype before both contractions; mic_tpu :349-353,
+    :386)."""
+    if h.device.type == "cpu":
+        return flash_ce_backward_dl_plain(h, emb, bias, labels, lse, rowscale, label_smoothing,
+                                          emb_cast)
+    ops = _backward_operands("flash_ce_backward", h, emb, bias, labels, lse, rowscale, emb_cast)
+    n, d = h.shape
+    v = ops[0].shape[0]
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh, demb, dbias = torch.empty((n, d), **f32), torch.empty((v, d), **f32), torch.empty(v, **f32)
+    _contract("grad_w", h, *ops, label_smoothing, None, demb, dbias)
+    _contract("grad_h", h, *ops, label_smoothing, None, dh)
+    flash_ce_backward.launches += 1
+    return dh.to(h.dtype), demb, dbias
+
+
+flash_ce_backward.launches = 0
+
+
+def _add_saved_block(dh, demb, dbias, block, col0, h, w, labels, lse, rowscale,
+                     label_smoothing):
+    """The plain contractions of the saved logits of columns col0.. (bf16
+    main or f32 tail): dl in f32 as mic_tpu's save backward forms it
+    (:511-516, :681-684), row chunk by row chunk, rounded to h.dtype before
+    both GEMMs; adds to dh (N, D) f32 and writes those columns' demb rows
+    and dbias entries."""
+    cols = slice(col0, col0 + block.shape[1])
+    dl32 = torch.cat([
+        dlogits(torch.exp(block[i:i + _PLAIN_ROWS].float() - lse[i:i + _PLAIN_ROWS, None]),
+                labels[i:i + _PLAIN_ROWS], rowscale[i:i + _PLAIN_ROWS], label_smoothing,
+                w.shape[0], col0)
+        for i in range(0, h.shape[0], _PLAIN_ROWS)])
+    dh_b, demb[cols] = _dl_gemms(dl32.to(h.dtype), w[cols], h)
+    dh += dh_b
+    dbias[cols] = dl32.sum(dim=0)
+
+
+def flash_ce_backward_save_plain(h, emb, bias, labels, lse, rowscale, label_smoothing,
+                                 emb_cast=None, logits_main=None, tail=None):
+    """dl from the saved logits, rounded to h.dtype; the contractions of the
+    main span and of the tail added in f32."""
+    w = _table(h, emb, emb_cast)
+    n, d = h.shape
+    v = w.shape[0]
+    dh = torch.zeros((n, d), dtype=torch.float32, device=h.device)
+    demb = torch.empty((v, d), dtype=torch.float32, device=h.device)
+    dbias = torch.empty((v,), dtype=torch.float32, device=h.device)
+    for block, col0 in ((logits_main, 0), (tail, logits_main.shape[1])):
+        if block.shape[1]:
+            _add_saved_block(dh, demb, dbias, block, col0, h, w, labels, lse, rowscale,
+                             label_smoothing)
+    return dh.to(h.dtype), demb, dbias
+
+
+def flash_ce_backward_save(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=None,
+                           logits_main=None, tail=None):
+    """The save route's backward (mic_tpu ::flash_ce_backward_save), from the
+    forward's saved (logits_main (N, v_main) bf16, tail (N, V - v_main) f32):
+    -> (dh (N, D) in h.dtype, demb (V, D) f32, dbias (V,) f32).  The main
+    span's two kernels count once in ``launches`` (none when v_main is 0);
+    the tail is the plain version's step, two f32-output GEMMs over its
+    bf16 dl."""
+    if h.device.type == "cpu":
+        return flash_ce_backward_save_plain(h, emb, bias, labels, lse, rowscale,
+                                            label_smoothing, emb_cast, logits_main, tail)
+    w, bias_f, labels32, lse32, rs32 = _backward_operands(
+        "flash_ce_backward_save", h, emb, bias, labels, lse, rowscale, emb_cast, logits_main)
+    n, d = h.shape
+    v, v_main = w.shape[0], logits_main.shape[1]
+    if tail.shape != (n, v - v_main):
+        raise ValueError(f"flash_ce_backward_save: tail {tuple(tail.shape)} for N={n}, V={v}, "
+                         f"v_main={v_main}")
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh = torch.zeros((n, d), **f32)
+    demb, dbias = torch.empty((v, d), **f32), torch.empty(v, **f32)
+    if v_main:
+        ops = (h, w, bias_f, labels32, lse32, rs32, label_smoothing, logits_main.contiguous())
+        _contract("grad_w", *ops, demb[:v_main], dbias[:v_main])
+        _contract("grad_h", *ops, dh)
+        flash_ce_backward_save.launches += 1
+    if v_main < v:
+        _add_saved_block(dh, demb, dbias, tail, v_main, h, w, labels32, lse32, rs32,
+                         label_smoothing)
+    return dh.to(h.dtype), demb, dbias
+
+
+flash_ce_backward_save.launches = 0

@@ -4,20 +4,28 @@ train/loss.py without a (B, T, V) logits tensor, as a
 ``torch.autograd.Function`` whose backward recomputes what it needs.
 
 Routes (``mode``, TrainConfig.flash_ce; the environment variable
-MIC_TPU_FLASH_CE wins when set, through core/knobs.py::override):
+MIC_TPU_FLASH_CE wins when set, through core/knobs.py::override), each as
+mic_tpu's ``_fwd_impl`` and ``_fused_bwd`` route it:
 
 - "" ("0", "off"; what "auto" resolves to on the CPU): the chunked path.
   Each chunk of rows gets its f32 logits from the f32 table, reduced and
   dropped; the backward recomputes them chunk by chunk.
-- "dl" (what "auto" resolves to on CUDA): ops/flash_ce.py's forward kernel,
-  which saves lse; the backward's dl kernel with rowscale = mask * g / denom.
-  Above ``dl_max_rows`` rows the backward takes the chunked path instead,
-  as mic_tpu routes it (its bf16 (N, V) dl would not fit); the dl kernel's
+- "fwd": ops/flash_ce.py's forward kernel, then the chunked backward (the
+  forward's lse is not kept).
+- "1" ("split"): the forward kernel, then ``flash_ce_backward``'s two
+  contractions, each recomputing the logits, at any row count.
+- "dl" (what "auto" resolves to on CUDA): the forward kernel, which saves
+  lse; the backward's dl kernel with rowscale = mask * g / denom.  Above
+  ``dl_max_rows`` rows the backward takes the chunked path instead, as
+  mic_tpu routes it (its bf16 (N, V) dl would not fit); the dl kernel's
   launch counter then stays where it was.
+- "save": the forward kernel also stores the logits (bf16 main span, f32
+  tail), and ``flash_ce_backward_save`` contracts them with no recompute.
+  Above ``dl_max_rows`` rows the forward saves nothing and the backward
+  takes the chunked path, as mic_tpu's does.
 
 The flash routes read ``emb_cast`` (the bf16 training shadow) when given;
-the f32 ``embedding`` always receives the f32 demb.  "fwd", "1"/"split" and
-"save" are not ported yet and raise.
+the f32 ``embedding`` always receives the f32 demb.
 """
 
 from __future__ import annotations
@@ -26,7 +34,13 @@ import numpy as np
 import torch
 
 from mic_tpu_torch.core.knobs import override
-from mic_tpu_torch.ops.flash_ce import dlogits, flash_ce_backward_dl, flash_ce_forward
+from mic_tpu_torch.ops.flash_ce import (
+    dlogits,
+    flash_ce_backward,
+    flash_ce_backward_dl,
+    flash_ce_backward_save,
+    flash_ce_forward,
+)
 
 
 def _resolve_mode(mode: str, device: torch.device) -> str:
@@ -37,10 +51,10 @@ def _resolve_mode(mode: str, device: torch.device) -> str:
         return ""
     if mode == "auto":
         return "dl" if device.type == "cuda" else ""
-    if mode == "dl":
+    if mode == "split":
+        return "1"
+    if mode in ("fwd", "1", "dl", "save"):
         return mode
-    if mode in ("fwd", "1", "split", "save"):
-        raise NotImplementedError(f"flash-CE mode {mode!r} is not ported yet (ROADMAP B8, B9)")
     raise ValueError(f"unknown flash-CE mode {mode!r}")
 
 
@@ -98,38 +112,57 @@ def _chunked_backward(h2, embedding, bias, labels, rowscale, label_smoothing, ch
     return torch.cat(dh), demb, dbias
 
 
+def _forward(h2, embedding, bias, y, m2, label_smoothing, chunk, emb_cast, flash, max_rows):
+    """mic_tpu's _fwd_impl on (N, D) rows -> (loss_sum, lse, saved): lse kept
+    for the routes whose backward reads it, saved = (logits_main, tail) only
+    from the save forward, which runs at N <= max_rows alone."""
+    n = h2.shape[0]
+    vocab = embedding.shape[0]
+    if not flash:
+        loss_sum = _chunked_forward(h2, embedding, bias, y, m2, label_smoothing, min(chunk, n))
+        return loss_sum, None, None
+    saved = None
+    if flash == "save" and n <= max_rows:
+        lse, label_logit, sum_logits, *saved = flash_ce_forward(h2, embedding, bias, y, emb_cast,
+                                                               save=True)
+    else:
+        lse, label_logit, sum_logits = flash_ce_forward(h2, embedding, bias, y, emb_cast)
+    expected = expected_logit(label_logit, sum_logits, label_smoothing, vocab)
+    loss_sum = ((lse - expected) * m2).sum()
+    return loss_sum, (None if flash == "fwd" else lse), saved
+
+
 class _FusedLMLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, embedding, bias, labels, mask, label_smoothing, chunk, emb_cast,
                 flash, max_rows):
         b, t, d = hidden.shape
         n = b * t
-        vocab = embedding.shape[0]
         h2 = hidden.reshape(n, d)
         y = labels.reshape(n)
         m2 = mask.reshape(n).float()
-        lse = None
-        if flash:
-            lse, label_logit, sum_logits = flash_ce_forward(h2, embedding, bias, y, emb_cast)
-            expected = expected_logit(label_logit, sum_logits, label_smoothing, vocab)
-            loss_sum = ((lse - expected) * m2).sum()
-        else:
-            loss_sum = _chunked_forward(h2, embedding, bias, y, m2, label_smoothing,
-                                        min(chunk, n))
+        loss_sum, lse, saved = _forward(h2, embedding, bias, y, m2, label_smoothing, chunk,
+                                        emb_cast, flash, max_rows)
         denom = m2.sum()
-        ctx.save_for_backward(h2, embedding, bias, y, m2, denom, lse, emb_cast)
+        ctx.save_for_backward(h2, embedding, bias, y, m2, denom, lse, emb_cast,
+                              *(saved or (None, None)))
         ctx.shape = hidden.shape
-        ctx.label_smoothing, ctx.chunk, ctx.max_rows = label_smoothing, chunk, max_rows
-        return loss_sum / denom - normalizing(label_smoothing, vocab)
+        ctx.label_smoothing, ctx.chunk, ctx.flash, ctx.max_rows = (label_smoothing, chunk, flash,
+                                                                    max_rows)
+        return loss_sum / denom - normalizing(label_smoothing, embedding.shape[0])
 
     @staticmethod
     def backward(ctx, g):
-        h2, embedding, bias, y, m2, denom, lse, emb_cast = ctx.saved_tensors
+        h2, embedding, bias, y, m2, denom, lse, emb_cast, logits_main, tail = ctx.saved_tensors
         n = h2.shape[0]
         rowscale = m2 * (g / denom)
-        if lse is not None and n <= ctx.max_rows:
-            dh, demb, dbias = flash_ce_backward_dl(h2, embedding, bias, y, lse, rowscale,
-                                                   ctx.label_smoothing, emb_cast)
+        args = (h2, embedding, bias, y, lse, rowscale, ctx.label_smoothing, emb_cast)
+        if logits_main is not None:
+            dh, demb, dbias = flash_ce_backward_save(*args, logits_main, tail)
+        elif ctx.flash == "1":
+            dh, demb, dbias = flash_ce_backward(*args)
+        elif ctx.flash == "dl" and n <= ctx.max_rows:
+            dh, demb, dbias = flash_ce_backward_dl(*args)
         else:
             dh, demb, dbias = _chunked_backward(h2, embedding, bias, y, rowscale,
                                                 ctx.label_smoothing, min(ctx.chunk, n))

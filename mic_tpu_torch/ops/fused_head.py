@@ -4,9 +4,11 @@ Counterpart of mic_tpu/ops/fused_head.py::fused_head_topk and
 ::fused_head_topk_q8.  Per hidden row they return the top-k candidate
 log-probs and ids of log_softmax(hidden @ weight^T + bias) and the row lse.
 
-- ``select="bucket"``: candidates are the top-k of 512 bucket winners, each
-  the running max of one column position over the vocab's 512-wide chunks
-  (earliest chunk wins ties).  The TPU serving default.
+- ``select="bucket"``: candidates are the top-k of BV bucket winners, each
+  the running max of one column position over the vocab's BV-wide chunks
+  (earliest chunk wins ties).  The TPU serving default.  BV is 512, or the
+  width ``MIC_TPU_EXPERIMENTAL=bucket_bv=<w>`` names, at every N, as
+  mic_tpu's ``_bucket_tiles`` reads it (``bucket_width``).
 - ``select="exact"``: the exact top-k, lower id first on equal values (the
   CPU default).
 - ``select="window"``: the top-1 of every 128-wide window (the highest
@@ -22,8 +24,10 @@ logits = acc * xs * ws + b.
 Each function takes the plain versions for tensors on the CPU.  On a CUDA
 device the bucket selects run the bucket kernels of csrc/fused_head.cu,
 which never store logits and leave lse and the top-k of the 512 winners to
-torch, as the TPU's n > 512 path leaves them to XLA; the exact and window
-selects run its select kernel.  The weight is the tied embedding as stored,
+torch, as the TPU's n > 512 path leaves them to XLA; they take any BV that
+is a multiple of their 64-wide column group and raise NotImplementedError
+for another (ROADMAP C).  The exact and window selects run its select
+kernel.  The weight is the tied embedding as stored,
 (V, D): no transposed copy.
 """
 
@@ -32,10 +36,11 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch import _build
+from mic_tpu_torch.core.knobs import experimental
 from mic_tpu_torch.ops.quant import int8_matmul, quantize_rows_dynamic
 from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
-BUCKETS = 512  # bv of mic_tpu/ops/fused_head.py::_bucket_tiles at every N
+BUCKETS = 512  # bv of mic_tpu/ops/fused_head.py::_bucket_tiles unless bucket_bv is set
 WINDOW = 128   # _WINDOW of mic_tpu/ops/fused_head.py
 _ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBM)
 _COL_TILE = 64  # bucket columns per block of the bucket kernel (kBC)
@@ -59,19 +64,28 @@ def _logits_q8(xq, xs, weight_q, weight_scale, bias) -> torch.Tensor:
     return acc.float() * xs * weight_scale.float() + bias.float()
 
 
+def bucket_width() -> int:
+    """The bucket select's chunk width BV: ``bucket_bv`` of
+    MIC_TPU_EXPERIMENTAL when set, else 512, at every N
+    (mic_tpu/ops/fused_head.py::_bucket_tiles)."""
+    return int(experimental("bucket_bv") or BUCKETS)
+
+
 def bucket_topk_dense(logits: torch.Tensor, k: int):
-    """mic_tpu/ops/fused_head.py::_bucket_topk_dense at bv = BUCKETS: the
-    per-column-position max over ceil(V/512) chunks (earliest chunk on ties),
-    then the top-k of the 512 winners -> (values (N, k), int32 ids (N, k))."""
+    """mic_tpu/ops/fused_head.py::_bucket_topk_dense at bv = ``bucket_width()``:
+    the per-column-position max over ceil(V/bv) chunks (earliest chunk on
+    ties), then the top-k of the bv winners -> (values (N, k), int32 ids
+    (N, k))."""
+    bv = bucket_width()
     n, v = logits.shape
-    pad = (-v) % BUCKETS
+    pad = (-v) % bv
     if pad:
         fill = torch.full((n, pad), NEG_INF, dtype=logits.dtype, device=logits.device)
         logits = torch.cat([logits, fill], dim=1)
-    s3 = logits.reshape(n, -1, BUCKETS)
+    s3 = logits.reshape(n, -1, bv)
     vals = s3.amax(dim=1)
     chunk = torch.argmax(s3, dim=1)                          # first max
-    ids = chunk * BUCKETS + torch.arange(BUCKETS, device=logits.device)
+    ids = chunk * bv + torch.arange(bv, device=logits.device)
     tv, pick = top_k(vals, k)
     return tv, ids.gather(1, pick).to(torch.int32)
 
@@ -142,12 +156,12 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _chunk_splits(n: int, v: int, device: torch.device) -> int:
+def _chunk_splits(n: int, v: int, bv: int, device: torch.device) -> int:
     """How many consecutive runs the bucket kernel cuts the chunk walk into:
     as many as fill the SMs left idle by the (row tile x column group)
     blocks, one block per SM, and never more than there are chunks."""
-    blocks = -(-n // _ROW_TILE) * (BUCKETS // _COL_TILE)
-    return max(1, min(-(-v // BUCKETS), _sms(device) // blocks))
+    blocks = -(-n // _ROW_TILE) * (bv // _COL_TILE)
+    return max(1, min(-(-v // bv), _sms(device) // blocks))
 
 
 def _select_runs(n: int, v: int, device: torch.device) -> int:
@@ -169,26 +183,31 @@ def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
     None, else int8) and finish in torch -> (lp, ids, lse)."""
     n, d = hidden.shape
     v = weight.shape[0]
-    if weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not 1 <= k <= BUCKETS:
+    bv = bucket_width()
+    if bv % _COL_TILE or bv <= 0:
+        raise NotImplementedError(
+            f"{entry}: bucket_bv={bv} is not a multiple of the kernel's {_COL_TILE}-wide "
+            "column group (ROADMAP C)")
+    if weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not 1 <= k <= bv:
         raise ValueError(f"{entry}: hidden {tuple(hidden.shape)}, weight "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}")
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}, bv={bv}")
     bias32 = bias.float().contiguous()
     scale = () if wscale is None else (wscale.float().contiguous(),)
     _check_operands(entry, hidden, weight, bias32, *scale)
-    splits = _chunk_splits(n, v, hidden.device)
+    splits = _chunk_splits(n, v, bv, hidden.device)
     f32 = dict(dtype=torch.float32, device=hidden.device)
     i32 = dict(dtype=torch.int32, device=hidden.device)
-    l, rmax = torch.empty((2, n, BUCKETS), **f32)
-    rid = torch.empty((n, BUCKETS), **i32)
+    l, rmax = torch.empty((2, n, bv), **f32)
+    rid = torch.empty((n, bv), **i32)
     parts = (0, 0, 0)
     if splits > 1:  # one set of planes per run of chunks, merged by the kernel
-        l_part, rmax_part = torch.empty((2, splits, n, BUCKETS), **f32)
-        rid_part = torch.empty((splits, n, BUCKETS), **i32)
+        l_part, rmax_part = torch.empty((2, splits, n, bv), **f32)
+        rid_part = torch.empty((splits, n, bv), **i32)
         parts = (l_part.data_ptr(), rmax_part.data_ptr(), rid_part.data_ptr())
     err = getattr(_build.lib(), entry)(
         hidden.data_ptr(), weight.data_ptr(), *(x.data_ptr() for x in scale), bias32.data_ptr(),
         l.data_ptr(), rmax.data_ptr(), rid.data_ptr(), *parts,
-        n, d, v, splits, torch.cuda.current_stream(hidden.device).cuda_stream,
+        n, d, v, bv, splits, torch.cuda.current_stream(hidden.device).cuda_stream,
     )
     _build.check(err, entry)
     return bucket_finish(k, l, rmax, rid)

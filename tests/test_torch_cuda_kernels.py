@@ -10,7 +10,11 @@ another order than the plain versions: attention outputs within 2e-2 (one
 bfloat16 rounding of values near 1), head log-probs within 2e-3 and lse
 within 1e-3 relative; cache contents (int8 values and scales too) and
 candidate ids exactly; the flash-CE kernels as each test states (bf16 dl
-within one bf16 rounding).  The int8 exact/window head computes the plain
+within one bf16 rounding; the save forward's statistics bit-equal to the
+non-saving kernel's, its bf16 logits within one bf16 ulp of the f32
+logits plus 1e-5; the backward contractions' demb entry by entry within
+2**-7 of |dl|^T |h|, dbias within 1e-4 of its largest entry, dh within one
+bf16 ulp of its largest).  The int8 exact/window head computes the plain
 version's logits bit for bit (exact int32 sums, the same f32 epilogue), so
 its ids are equal and its lp and lse within 1e-5; the bf16 exact/window
 head's ids may differ only at near-ties, two logits within 1e-2.  The
@@ -35,11 +39,17 @@ from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConf
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.ops.flash_ce import (
+    flash_ce_backward,
     flash_ce_backward_dl,
     flash_ce_backward_dl_plain,
+    flash_ce_backward_save,
+    flash_ce_backward_save_plain,
+    flash_ce_contraction,
     flash_ce_dl,
+    flash_ce_dl_plain,
     flash_ce_forward,
     flash_ce_forward_plain,
+    main_columns,
 )
 from mic_tpu_torch.ops.fused_head import (
     fused_head_select,
@@ -117,6 +127,40 @@ def test_fused_head_kernel_matches_plain(cuda, k):
     assert torch.equal(ids, rids)
     torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
     torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bv", [64, 256, 1024])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_head_bucket_kernels_take_the_bucket_bv_width(cuda, monkeypatch, q8, bv):
+    """MIC_TPU_EXPERIMENTAL=bucket_bv=<w>: the bucket kernels at width w give
+    the plain version's candidates at w."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", f"bucket_bv={bv}")
+    hidden, weight, bias, wq, ws = _head_inputs(cuda, 70, 128, 1300, bv)
+    if q8:
+        got = fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
+        ref = fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, "bucket")
+    else:
+        got = fused_head_topk(hidden, weight, bias, 9, "bucket")
+        ref = fused_head_topk_plain(hidden, weight, bias, 9, "bucket")
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-3)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_head_bucket_kernels_refuse_other_widths(cuda, monkeypatch, q8):
+    """A bucket_bv that is not a multiple of the kernels' 64-wide column
+    group raises, naming ROADMAP C, rather than running another width."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "bucket_bv=96")
+    hidden, weight, bias, wq, ws = _head_inputs(cuda, 8, 128, 1300, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        if q8:
+            fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
+        else:
+            fused_head_topk(hidden, weight, bias, 9, "bucket")
 
 
 @pytest.mark.requires_cuda
@@ -372,6 +416,95 @@ def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing):
     torch.testing.assert_close(demb, ref[1], rtol=0, atol=1e-3 * ref[1].abs().max().item())
     torch.testing.assert_close(dh.float(), ref[0].float(), rtol=0,
                                atol=2**-7 * ref[0].float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099), (70, 97)])  # v_main 512, 4096, 0
+def test_flash_ce_save_forward_kernel_matches_plain(cuda, n, v):
+    """The save forward: lse and sum of logits bit-equal to the non-saving
+    kernel's; the f32 tail within 1e-5 of the plain version's; the bf16
+    logits within one bf16 ulp of the f32 logits plus 1e-5 (the f32 sums in
+    another order; near zero that is more than a logit's own ulp); a second
+    launch bit-equal."""
+    h, w, b, y = _ce_inputs(cuda, n, 128, v, n + 3)
+    launches = flash_ce_forward.launches, flash_ce_forward.save_launches
+    out = flash_ce_forward(h, w, b, y, save=True)
+    again = flash_ce_forward(h, w, b, y, save=True)
+    stats = flash_ce_forward(h, w, b, y)
+    ref = flash_ce_forward_plain(h, w, b, y, save=True)
+    torch.cuda.synchronize()
+    assert (flash_ce_forward.launches, flash_ce_forward.save_launches) == (launches[0] + 1,
+                                                                           launches[1] + 2)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    assert all(torch.equal(a, c) for a, c in zip(out[:3], stats))
+    v_main = main_columns(v)
+    assert out[3].shape == (n, v_main) and out[4].shape == (n, v - v_main)
+    exact = (h.float() @ w.float().T + b)[:, :v_main]
+    assert bool(((out[3].float() - exact).abs() <= _bf16_ulp(exact) + 1e-5).all())
+    torch.testing.assert_close(out[4], ref[4], rtol=0, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099), (70, 97)])
+@pytest.mark.parametrize("route", ["split", "save"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_flash_ce_backward_kernels_match_plain(cuda, smoothing, route, n, v):
+    """The split and save contractions against their plain versions on the
+    same inputs (the split route's is the dl route's; the save route reads
+    the plain version's saved logits).  demb entry by entry within 2**-7 of
+    |dl|^T |h|, dl the plain bf16 dl: each side rounds dl to bf16 from f32
+    sums in another order, at most one bf16 ulp apart, so a vocab row that
+    holds no label is held to its own (small) size.  dbias within 1e-4 of
+    its largest entry, dh within one bf16 ulp of its largest; a second
+    launch bit-equal."""
+    h, w, b, y = _ce_inputs(cuda, n, 128, v, 2 * n + v)
+    lse, _, _, lg, tail = flash_ce_forward_plain(h, w, b, y, save=True)
+    rs = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(v), device=cuda)
+    rs[::5] = 0.0
+    if route == "split":
+        fn, plain, extra = flash_ce_backward, flash_ce_backward_dl_plain, ()
+    else:
+        fn, plain, extra = flash_ce_backward_save, flash_ce_backward_save_plain, (lg, tail)
+    launches = fn.launches
+    out = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
+    again = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
+    ref = plain(h, w, b, y, lse, rs, smoothing, None, *extra)
+    torch.cuda.synchronize()
+    # two calls, each one launch of the pair; none where the save route's
+    # logits are all tail
+    assert fn.launches == launches + (0 if route == "save" and main_columns(v) == 0 else 2)
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    assert out[0].dtype == torch.bfloat16 and out[1].shape == (v, 128) and out[2].shape == (v,)
+    dl = flash_ce_dl_plain(h, w, b, y, lse, rs, smoothing)[0].float()
+    assert bool(((out[1] - ref[1]).abs() <= 2**-7 * (dl.abs().T @ h.float().abs())).all())
+    for got, want, frac in ((out[0], ref[0], 2**-7), (out[2], ref[2], 1e-4)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=frac * want.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", ["split", "save"])
+def test_flash_ce_contraction_alone_equals_the_route(cuda, route):
+    """Each contraction launched alone gives the route's outputs bit for bit
+    (the main span's, for the save route) and counts no launch."""
+    n, v = 70, 997
+    h, w, b, y = _ce_inputs(cuda, n, 128, v, 5)
+    lse, _, _, lg, tail = flash_ce_forward_plain(h, w, b, y, save=True)
+    rs = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    args = (h, w, b, y, lse, rs, 0.1)
+    if route == "split":
+        fn, extra, logits, cols = flash_ce_backward, (), None, v
+    else:
+        fn, extra, logits, cols = flash_ce_backward_save, (lg, tail), lg, main_columns(v)
+    launches = fn.launches
+    demb, dbias = flash_ce_contraction("grad_w", *args, logits_main=logits)
+    dh = flash_ce_contraction("grad_h", *args, logits_main=logits)
+    assert fn.launches == launches
+    out = fn(*args, None, *extra)
+    torch.cuda.synchronize()
+    assert torch.equal(demb, out[1][:cols]) and torch.equal(dbias, out[2][:cols])
+    if route == "split":
+        assert torch.equal(dh.to(h.dtype), out[0])
 
 
 @pytest.mark.requires_cuda

@@ -9,8 +9,13 @@ every vocab tile.  Tolerances: lse and label logits within 1e-5, sums of
 logits within 1e-4 relative of the row's sum of |logits|; f32 gradients
 within 1e-4 of their largest entry (dl is rounded to bf16 on both sides, and
 a rounding tie can fall either way); bf16 dh within 1/128 of its largest
-entry (one bf16 ulp); losses within 1e-5.  The CUDA kernels are held to the
-plain versions in tests/test_torch_cuda_kernels.py.
+entry (one bf16 ulp); losses within 1e-5.  The save forward's bf16 logits
+are the bf16 rounding of the port's own f32 logits exactly, and within one
+bf16 ulp of mic_tpu's (the f32 sums, in another order, can round a tie the
+other way); its f32 tail within 1e-5.  The save backward is fed mic_tpu's
+own saved logits, so the two sides differ only in summation order.  The
+CUDA kernels are held to the plain versions in
+tests/test_torch_cuda_kernels.py.
 """
 
 import jax
@@ -19,10 +24,20 @@ import numpy as np
 import pytest
 import torch
 
+from mic_tpu.ops import fused_ce as jax_fused_ce
+from mic_tpu.ops.flash_ce import flash_ce_backward as jax_backward
 from mic_tpu.ops.flash_ce import flash_ce_backward_dl as jax_backward_dl
+from mic_tpu.ops.flash_ce import flash_ce_backward_save as jax_backward_save
 from mic_tpu.ops.flash_ce import flash_ce_forward as jax_forward
 from mic_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
-from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl, flash_ce_forward
+from mic_tpu_torch.ops import fused_ce
+from mic_tpu_torch.ops.flash_ce import (
+    flash_ce_backward,
+    flash_ce_backward_dl,
+    flash_ce_backward_save,
+    flash_ce_forward,
+    main_columns,
+)
 from mic_tpu_torch.ops.fused_ce import fused_lm_loss
 
 
@@ -84,16 +99,12 @@ def test_backward_dl_plain_matches_jax_kernel(smoothing):
     _close_scaled(dbias.numpy(), np.asarray(ref[2]), 1e-4, "dbias")
 
 
-@pytest.mark.parametrize("mode", ["0", "dl"])
-@pytest.mark.parametrize("smoothing", [0.0, 0.1])
-def test_fused_lm_loss_matches_jax(monkeypatch, mode, smoothing):
-    """Value and (dh, demb, dbias) of fused_lm_loss, MIC_TPU_FLASH_CE set to
-    the same route on both sides (bf16 hidden, f32 table and bias)."""
+def _loss_matches_jax(monkeypatch, mode, smoothing, h, emb, bias, labels, mask, **env):
+    """Value and (dh, demb, dbias) of fused_lm_loss, MIC_TPU_FLASH_CE (and
+    ``env``) set alike on both sides (bf16 hidden, f32 table and bias)."""
     monkeypatch.setenv("MIC_TPU_FLASH_CE", mode)
-    b, t, d, v = 2, 16, 128, 997
-    h, emb, bias, labels = _inputs(n=b * t, d=d, v=v, seed=3)
-    h, labels = h.reshape(b, t, d), labels.reshape(b, t)
-    mask = (np.random.default_rng(4).random((b, t)) > 0.2).astype(np.int32)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
 
     def jloss(hh, ee, bb):
         return jax_fused_lm_loss(hh, ee, bb, jnp.asarray(labels), jnp.asarray(mask),
@@ -111,6 +122,20 @@ def test_fused_lm_loss_matches_jax(monkeypatch, mode, smoothing):
     _close_scaled(th.grad.float().numpy(), np.asarray(jg[0], np.float32), 1 / 128, "dh")
     _close_scaled(te.grad.numpy(), np.asarray(jg[1]), 1e-4, "demb")
     _close_scaled(tb.grad.numpy(), np.asarray(jg[2]), 1e-4, "dbias")
+
+
+def _loss_inputs(b=2, t=16, d=128, v=997, seed=3):
+    h, emb, bias, labels = _inputs(n=b * t, d=d, v=v, seed=seed)
+    mask = (np.random.default_rng(seed + 1).random((b, t)) > 0.2).astype(np.int32)
+    return h.reshape(b, t, d), emb, bias, labels.reshape(b, t), mask
+
+
+@pytest.mark.parametrize("mode", ["0", "dl", "fwd", "1", "split", "save"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_fused_lm_loss_matches_jax(monkeypatch, mode, smoothing):
+    """Every flash-CE route, V = 997 (save: a 512-column bf16 span and a
+    485-column f32 tail)."""
+    _loss_matches_jax(monkeypatch, mode, smoothing, *_loss_inputs())
 
 
 def test_dl_route_with_shadow_table_and_row_cap(monkeypatch):
@@ -138,9 +163,130 @@ def test_dl_route_with_shadow_table_and_row_cap(monkeypatch):
         _close_scaled(a.numpy(), c.numpy(), 1 / 128 if name == "dh" else 1e-4, name)
 
 
-@pytest.mark.parametrize("mode", ["fwd", "1", "split", "save"])
-def test_unported_modes_raise(mode):
-    h = torch.zeros((1, 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        fused_lm_loss(h, torch.zeros((10, 64)), torch.zeros(10), torch.zeros((1, 2)),
-                      torch.ones((1, 2)), mode=mode)
+@pytest.mark.parametrize("v", [997, 300, 4099])
+def test_save_forward_matches_jax(v):
+    """The save forward keeps mic_tpu's v_main, its statistics bit-equal to
+    the non-saving call's, its main logits the bf16 rounding of its f32
+    logits and within one bf16 ulp of mic_tpu's, its tail within 1e-5."""
+    h, emb, bias, labels = _inputs(v=v, seed=6)
+    ref = jax_forward(_jbf16(h), jnp.asarray(emb), jnp.asarray(bias), jnp.asarray(labels), True,
+                      None, True)
+    args = (_bf16(h), torch.from_numpy(emb), torch.from_numpy(bias), torch.from_numpy(labels))
+    launches = flash_ce_forward.launches, flash_ce_forward.save_launches
+    got = flash_ce_forward(*args, None, True)
+    plain = flash_ce_forward(*args)
+    assert (flash_ce_forward.launches, flash_ce_forward.save_launches) == launches
+    assert main_columns(v) == ref[3].shape[1] == got[3].shape[1] > 0
+    assert got[3].dtype == torch.bfloat16 and got[4].dtype == torch.float32
+    for a, c in zip(got[:3], plain):
+        assert torch.equal(a, c)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=1e-5, atol=1e-5)
+    v_main = main_columns(v)
+    logits = _bf16(h).float() @ torch.from_numpy(emb).bfloat16().float().T + torch.from_numpy(bias)
+    assert torch.equal(got[3], logits[:, :v_main].bfloat16())
+    jlg = torch.from_numpy(np.asarray(ref[3], np.float32))
+    ulp = torch.ldexp(torch.ones_like(jlg), torch.frexp(jlg)[1] - 8)
+    assert bool(((got[3].float() - jlg).abs() <= ulp).all())
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]), rtol=1e-5, atol=1e-5)
+    z_l1 = logits.abs().sum(1).numpy()
+    np.testing.assert_array_less(np.abs(got[2].numpy() - np.asarray(ref[2])), 1e-4 * z_l1)
+
+
+def _backward_inputs(v, seed, f32_hidden=False):
+    """mic_tpu's save forward on seeded inputs, and a rowscale with zeros:
+    (jax h, emb, bias, labels, lse, lg, tail, rowscale) as jax arrays."""
+    h, emb, bias, labels = _inputs(v=v, seed=seed)
+    rowscale = np.random.default_rng(seed + 1).random(h.shape[0]).astype(np.float32) / h.shape[0]
+    rowscale[::5] = 0.0
+    jh = jnp.asarray(h) if f32_hidden else _jbf16(h)
+    lse, _, _, lg, tail = jax_forward(jh, jnp.asarray(emb), jnp.asarray(bias),
+                                      jnp.asarray(labels), True, None, True)
+    return jh, jnp.asarray(emb), jnp.asarray(bias), jnp.asarray(labels), lse, lg, tail, \
+        jnp.asarray(rowscale)
+
+
+def _torch(x):
+    x = np.asarray(x.astype(jnp.float32)) if x.dtype == jnp.bfloat16 else np.asarray(x)
+    return torch.from_numpy(np.array(x))
+
+
+def _check_grads(got, ref):
+    dh, demb, dbias = got
+    assert dh.dtype == torch.bfloat16 and demb.dtype == dbias.dtype == torch.float32
+    _close_scaled(dh.float().numpy(), np.asarray(ref[0], np.float32), 1 / 128, "dh")
+    _close_scaled(demb.numpy(), np.asarray(ref[1]), 1e-4, "demb")
+    _close_scaled(dbias.numpy(), np.asarray(ref[2]), 1e-4, "dbias")
+
+
+@pytest.mark.parametrize("v", [997, 4099])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_backward_save_plain_matches_jax_kernel(v, smoothing):
+    """flash_ce_backward_save from mic_tpu's saved logits (bf16 main span of
+    512 or 4096 columns, f32 tail) against mic_tpu's kernels."""
+    jh, jemb, jbias, jy, lse, lg, tail, rs = _backward_inputs(v, 7)
+    ref = jax_backward_save(jh, jemb, jbias, jy, lse, rs, smoothing, "bfloat16", True, None, lg,
+                            tail)
+    launches = flash_ce_backward_save.launches
+    got = flash_ce_backward_save(
+        _torch(jh).bfloat16(), _torch(jemb), _torch(jbias), _torch(jy), _torch(lse), _torch(rs),
+        smoothing, None, _torch(lg).bfloat16(), _torch(tail))
+    assert flash_ce_backward_save.launches == launches
+    _check_grads(got, ref)
+
+
+@pytest.mark.parametrize("v", [997, 4099])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_backward_split_plain_matches_jax_kernel(v, smoothing):
+    """flash_ce_backward (the split route) against mic_tpu's grad-W and
+    grad-h kernels, which recompute the logits over a ragged vocab."""
+    jh, jemb, jbias, jy, lse, _, _, rs = _backward_inputs(v, 9)
+    ref = jax_backward(jh, jemb, jbias, jy, lse, rs, smoothing, "bfloat16", True)
+    launches = flash_ce_backward.launches
+    got = flash_ce_backward(_torch(jh).bfloat16(), _torch(jemb), _torch(jbias), _torch(jy),
+                            _torch(lse), _torch(rs), smoothing)
+    assert flash_ce_backward.launches == launches
+    _check_grads(got, ref)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_save_all_tail_vocab(monkeypatch, smoothing):
+    """V below the smallest vocab chunk (128): v_main is 0, the forward saves
+    only the f32 tail and the backward is exact f32 over it, as mic_tpu's
+    test_save_all_tail_vocab has it; loss and gradients against mic_tpu's."""
+    jh, jemb, jbias, jy, lse, lg, tail, rs = _backward_inputs(97, 11)
+    assert main_columns(97) == lg.shape[1] == 0 and tail.shape == (32, 97)
+    got = flash_ce_forward(_torch(jh).bfloat16(), _torch(jemb), _torch(jbias), _torch(jy),
+                           None, True)
+    assert got[3].shape == (32, 0) and got[4].shape == (32, 97)
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(tail), rtol=1e-5, atol=1e-5)
+    ref = jax_backward_save(jh, jemb, jbias, jy, lse, rs, smoothing, "bfloat16", True, None, lg,
+                            tail)
+    grads = flash_ce_backward_save(
+        _torch(jh).bfloat16(), _torch(jemb), _torch(jbias), _torch(jy), _torch(lse), _torch(rs),
+        smoothing, None, got[3], _torch(tail))
+    _check_grads(grads, ref)
+    _loss_matches_jax(monkeypatch, "save", smoothing, *_loss_inputs(v=97, seed=12))
+
+
+def test_save_degrades_to_chunked_above_row_cap(monkeypatch):
+    """Above dl_max_rows the save route saves nothing: the forward keeps lse
+    and no logits (mic_tpu's test_save_degrades_to_dl_above_row_cap), and the
+    backward takes the chunked path; loss and gradients as mic_tpu's under
+    the same cap, and as the chunked route's."""
+    h, emb, bias, labels, mask = _loss_inputs()
+    n = labels.size
+    args = (_bf16(h).reshape(n, -1), torch.from_numpy(emb), torch.from_numpy(bias),
+            torch.from_numpy(labels).reshape(n), torch.from_numpy(mask).reshape(n).float(), 0.1, 64,
+            None)
+    _, lse, saved = fused_ce._forward(*args, "save", 16)
+    assert lse is not None and saved is None
+    _, _, saved = fused_ce._forward(*args, "save", 32)
+    assert saved is not None and saved[0].shape == (n, 512)
+    *_, jlse, jsaved = jax_fused_ce._fwd_impl(
+        _jbf16(h), jnp.asarray(emb), jnp.asarray(bias), jnp.asarray(labels), jnp.asarray(mask),
+        0.1, 64, None, "save", dl_max_rows=16)
+    assert jsaved is None and jlse is not None
+    _loss_matches_jax(monkeypatch, "save", 0.1, h, emb, bias, labels, mask,
+                      MIC_TPU_DL_MAX_ROWS="16")
+    _loss_matches_jax(monkeypatch, "0", 0.1, h, emb, bias, labels, mask)

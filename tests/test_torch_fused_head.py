@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from mic_tpu.ops.fused_head import _bucket_tiles, _bucket_topk_dense
 from mic_tpu.ops.fused_head import fused_head_topk as jax_fused_head_topk
 from mic_tpu.ops.fused_head import fused_head_topk_q8 as jax_fused_head_topk_q8
 from mic_tpu.ops.quant import quantize_array
 from mic_tpu_torch.ops.fused_head import (
     bucket_finish,
+    bucket_width,
     fused_head_select,
     fused_head_topk,
     fused_head_topk_q8,
@@ -143,3 +145,36 @@ def test_bucket_finish_matches_the_dense_bucket_select():
     np.testing.assert_array_equal(ids.numpy(), ref[1].numpy())
     np.testing.assert_allclose(lp.numpy(), ref[0].numpy(), **TOL)
     np.testing.assert_allclose(lse.numpy(), ref[2].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("bv", [None, 64, 256])
+def test_bucket_bv_switch_matches_jax(monkeypatch, bv):
+    """MIC_TPU_EXPERIMENTAL=bucket_bv=<w> sets the bucket width at every N, as
+    mic_tpu's _bucket_tiles reads it (512 when unset): the bf16 and int8
+    bucket selects' candidates equal mic_tpu's _bucket_topk_dense at that
+    width (N=8, D=64, V=4000, k=9; mic_tpu reads the switch at trace time,
+    so its oracle is called with the width given).  At 64 the candidates
+    differ from those at 512 on this input."""
+    if bv is None:
+        monkeypatch.delenv("MIC_TPU_EXPERIMENTAL", raising=False)
+    else:
+        monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", f"bucket_bv={bv}")
+    width = bv or 512
+    assert bucket_width() == _bucket_tiles(8)[1] == _bucket_tiles(1024)[1] == width
+    hidden, weight, bias = _inputs(n=8, d=64, v=4000, seed=21)
+    logits = jnp.dot(jnp.asarray(hidden), jnp.asarray(weight).T) + jnp.asarray(bias)
+    vals, ids = (np.asarray(a) for a in _bucket_topk_dense(logits, 9, width))
+    lse = np.asarray(jax.scipy.special.logsumexp(logits, axis=-1, keepdims=True))
+    got = fused_head_topk(torch.from_numpy(hidden), torch.from_numpy(weight),
+                          torch.from_numpy(bias), 9, "bucket")
+    np.testing.assert_array_equal(got[1].numpy(), ids)
+    np.testing.assert_allclose(got[0].numpy(), vals - lse, **TOL)
+    wide = np.asarray(_bucket_topk_dense(logits, 9, 512)[1])
+    assert (width == 64) == (not np.array_equal(ids, wide))
+    wq, ws = (np.array(a) for a in quantize_array(jnp.asarray(weight), axis=1))
+    qlogits = (jnp.dot(jnp.asarray(hidden, jnp.bfloat16), jnp.asarray(wq, jnp.bfloat16).T,
+                       preferred_element_type=jnp.float32) * jnp.asarray(ws) + jnp.asarray(bias))
+    got = fused_head_topk_q8(torch.from_numpy(hidden), torch.from_numpy(wq), torch.from_numpy(ws),
+                             torch.from_numpy(bias), 9, "bucket")
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(_bucket_topk_dense(qlogits, 9, width)[1]))
