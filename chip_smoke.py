@@ -25,9 +25,13 @@ Phases, each of which raises on failure (none catches its own):
      dh / demb GEMMs over dl;
  10. training at flagship width: the port's Trainer takes 6 steps of batch
      64 x 64 with the TrainConfig defaults (fused CE on the dl route, remat
-     "masks", bf16 moments and shadow params), twice from one seed, with
-     launch counts that prove both CE kernels ran once a step, bit-equal
-     reruns, and a step-time smoke figure (not a benchmark);
+     "masks", bf16 moments and shadow) from one seed in four turns: the
+     default knobs, MIC_TPU_EXPERIMENTAL=small_attn twice, the default knobs
+     again, with launch counts that prove both CE kernels ran once a step
+     and the small-T kernels 48 (forward) and 24 (backward) times a
+     small_attn step, the default turns bit-equal, the small_attn first
+     loss beside the default's, and step-time smoke figures (not a
+     benchmark);
  11. three train steps at a small width on the card against the CPU (the
      first step's gradients, the losses, the params);
  12. the int8 bucket head kernel against its plain version (N in {4, 1024},
@@ -92,7 +96,20 @@ Phases, each of which raises on failure (none catches its own):
      memory;
  34. three train steps at a small width on the card against the CPU under
      each of those routes: the first step's gradient leaves, the losses and
-     the params (phase 11 does the same on the dl route).
+     the params (phase 11 does the same on the dl route);
+ 35. the small-T attention kernels (row 12, forward and backward) and the
+     flash forward (row 11) against their plain versions at the decoder's
+     B=64 T=64 H=16 (causal with right padding, and left padding: rows with
+     no valid key) and vision's B=64 T=50 H=12, flash also at Tq=Tk=600,
+     and flash's recomputing backward on the card against the CPU;
+ 36. their times (CUDA-graph replays, and per call) beside their plain
+     versions', their bounds and scaled_dot_product_attention's;
+ 37. flagship Captioner(attn_impl="pallas"): a teacher-forced forward and
+     backward of the fused loss at B=64 (flash once per self-attention
+     layer), then beam 4 under attn_impl="pallas" and under small_attn
+     (12 encoder launches each);
+ 38. at a small width with head dim 64, the card against the CPU: small_attn
+     training's first-step gradients, attn_impl="pallas" logits and grads.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -660,19 +677,19 @@ def _train_batches(config, n_batches, batch, seq, seed):
     return out
 
 
-CE_COUNTERS = ("flash_ce_forward", "flash_ce_forward_save", "flash_ce_backward_dl",
-               "flash_ce_backward", "flash_ce_backward_save")
-
-
-def _ce_counts(reset=False):
-    """The flash-CE launch counters by kernel name; set to 0 with ``reset``."""
-    from mic_tpu_torch.ops import flash_ce
+def _train_counts(reset=False):
+    """The training path's launch counters by kernel name (flash-CE and the
+    full-sequence attention kernels); set to 0 with ``reset``."""
+    from mic_tpu_torch.ops import flash_attention, flash_ce, small_attention
 
     fields = {"flash_ce_forward": (flash_ce.flash_ce_forward, "launches"),
               "flash_ce_forward_save": (flash_ce.flash_ce_forward, "save_launches"),
               "flash_ce_backward_dl": (flash_ce.flash_ce_backward_dl, "launches"),
               "flash_ce_backward": (flash_ce.flash_ce_backward, "launches"),
-              "flash_ce_backward_save": (flash_ce.flash_ce_backward_save, "launches")}
+              "flash_ce_backward_save": (flash_ce.flash_ce_backward_save, "launches"),
+              "small_attention_forward": (small_attention.small_attention_forward, "launches"),
+              "small_attention_backward": (small_attention.small_attention_backward, "launches"),
+              "flash_attention": (flash_attention.flash_attention_forward, "launches")}
     if reset:
         for fn, attr in fields.values():
             setattr(fn, attr, 0)
@@ -681,7 +698,7 @@ def _ce_counts(reset=False):
 
 def _flagship_train_run(dev, tc, host):
     """One Trainer at flagship width from TrainConfig ``tc``: init, a probe
-    loss, six timed steps with the flash-CE counters set to 0 just before
+    loss, six timed steps with the training counters set to 0 just before
     them and read just after, the probe loss again."""
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig
     from mic_tpu_torch.train.trainer import Trainer
@@ -695,14 +712,14 @@ def _flagship_train_run(dev, tc, host):
     before = trainer.eval_step(state.params, probe)["loss"].item()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _ce_counts(reset=True)
+    _train_counts(reset=True)
     losses, ms = [], []
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = trainer.train_step(state, batch)
         losses.append(metrics["loss"].item())  # waits for the step
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {k: v for k, v in _ce_counts().items() if v}
+    launches = {k: v for k, v in _train_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     after = trainer.eval_step(state.params, probe)["loss"].item()
     return losses, ms, launches, peak, (before, after), state
@@ -711,36 +728,54 @@ def _flagship_train_run(dev, tc, host):
 def run_training(dev):
     """The port's Trainer at flagship width, TrainConfig defaults (batch 64 x
     64 tokens, dropout 0.1, remat "masks", fused CE on the dl route, bf16
-    moments and shadow) with warmup_steps=2: six steps, twice from one seed."""
+    moments and shadow) with warmup_steps=2: six steps from one seed in four
+    turns, the default knobs, MIC_TPU_EXPERIMENTAL=small_attn twice, the
+    default knobs again.  Every turn launches both CE kernels once a step;
+    the small_attn turns the small-T forward 48 times a step (12 vision + 12
+    decoder self-attention layers, each run again by remat "masks" in the
+    backward) and its backward 24 times.  The two default turns are
+    bit-equal (losses and every param); the small_attn turns' first loss is
+    the default's within 1e-2 relative (the attention rounds p to bf16 at
+    the XLA math's place; sums in another order).  ms/step, the median of
+    steps 2-6, are smoke figures."""
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
     from mic_tpu_torch.core.params import tree_leaves
 
     config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
     tc = TrainConfig(warmup_steps=2)
     host = _train_batches(config, 6, tc.per_device_batch_size, DataConfig().max_seq_length, 12)
-
-    t0 = time.perf_counter()
-    losses, ms, launches, peak, probe, state = _flagship_train_run(dev, tc, host)
-    print(f"training, flagship width, 6 steps of 64 x 64: losses {losses}, launches "
-          f"{launches}, peak allocated {peak:.2f} GiB, probe-batch loss {probe[0]:.6f} -> "
-          f"{probe[1]:.6f} ({time.perf_counter() - t0:.1f} s with init)", flush=True)
-    require(all(np.isfinite(losses)), "a non-finite training loss")
-    require(launches == {"flash_ce_forward": 6, "flash_ce_backward_dl": 6},
-            "flash-CE kernels not launched exactly once per step")
-    require(probe[1] < probe[0], "the loss on the repeated batch did not fall")
-    params = [leaf.detach().clone() for _, leaf in tree_leaves(state.params)]
-    del state
-    torch.cuda.empty_cache()
-    losses2, ms2, launches2, _, _, state2 = _flagship_train_run(dev, tc, host)
-    require(losses2 == losses, "a second run from the same seed gave other losses")
-    require(all(torch.equal(a, b) for a, b in zip(params, (leaf for _, leaf in
-                                                          tree_leaves(state2.params)))),
-            "a second run from the same seed gave other params")
-    step_ms = float(np.median(ms2[1:]))
-    print("training: second run bit-equal (losses and every param)", flush=True)
-    print(f"smoke figure (not a benchmark): flagship train step, batch 64 x 64, "
-          f"median of steps 2-6 {step_ms:.1f} ms = {64 / step_ms * 1e3:.1f} samples/s "
-          f"(step times {[round(x, 1) for x in ms2]} ms)", flush=True)
+    ce = {"flash_ce_forward": 6, "flash_ce_backward_dl": 6}
+    small = dict(ce, small_attention_forward=6 * 48, small_attention_backward=6 * 24)
+    runs, launches = [], {}
+    for turn, label in enumerate(("default", "small_attn", "small_attn", "default"), 1):
+        t0 = time.perf_counter()
+        with knobs(**({"MIC_TPU_EXPERIMENTAL": "small_attn"} if label == "small_attn" else {})):
+            losses, ms, got, peak, probe, state = _flagship_train_run(dev, tc, host)
+        print(f"training, flagship width, {label} knobs, turn {turn}, 6 steps of 64 x 64: losses "
+              f"{losses}, launches {got}, peak allocated {peak:.2f} GiB, probe-batch loss "
+              f"{probe[0]:.6f} -> {probe[1]:.6f} ({time.perf_counter() - t0:.1f} s with init); "
+              f"smoke figure (not a benchmark): median of steps 2-6 {float(np.median(ms[1:])):.1f} "
+              f"ms = {64 / float(np.median(ms[1:])) * 1e3:.1f} samples/s (step times "
+              f"{[round(x, 1) for x in ms]} ms)", flush=True)
+        require(all(np.isfinite(losses)), f"{label}: a non-finite training loss")
+        want = small if label == "small_attn" else ce
+        require(got == want, f"{label}: launches {got}, expected {want}")
+        require(probe[1] < probe[0], f"{label}: the loss on the repeated batch did not fall")
+        params = ([leaf.detach().clone() for _, leaf in tree_leaves(state.params)]
+                  if label == "default" else None)
+        runs.append((label, losses, params))
+        launches.update(got)
+        del state
+        torch.cuda.empty_cache()
+    (_, first, params1), (_, small1, _), _, (_, last, params4) = runs
+    require(last == first, "a second default run from the same seed gave other losses")
+    require(all(torch.equal(a, b) for a, b in zip(params1, params4)),
+            "a second default run from the same seed gave other params")
+    print("training: the two default turns bit-equal (losses and every param)", flush=True)
+    rel = abs(small1[0] - first[0]) / abs(first[0])
+    print(f"first-step loss, small_attn {small1[0]:.6f} vs default {first[0]:.6f} (same seed and "
+          f"batch): relative difference {rel:.3g} (limit 1e-2)", flush=True)
+    require(rel <= 1e-2, "small_attn's first loss is not the default's")
     return launches
 
 
@@ -802,13 +837,13 @@ def check_training_small_against_cpu(dev, routes=("dl",)):
             trainer.build(10)
             state = trainer.init_state(tree_map(lambda x, d=device: x.clone().to(d), params))
             grads = _first_grads(trainer, state, trainer.put_batch(host[0]))
-            _ce_counts(reset=True)
+            _train_counts(reset=True)
             losses = []
             for batch in host:
                 state, m = trainer.train_step(state, trainer.put_batch(batch))
                 losses.append(m["loss"].item())
             runs[device.type] = (losses, [leaf.detach().cpu() for _, leaf in
-                                          tree_leaves(state.params)], _ce_counts(), grads)
+                                          tree_leaves(state.params)], _train_counts(), grads)
         (lc, pc, launches, gc), (lh, ph, cpu_launches, gh) = runs["cuda"], runs["cpu"]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
         param_err = max((a - b).abs().max().item() for a, b in zip(pc, ph))
@@ -1851,6 +1886,349 @@ def check_fused_step_small_against_cpu(dev):
         require(score_err < bound_, f"fused beam step {kv}: card and CPU scores differ")
 
 
+# the teacher-forced attention of the flagship train step: (B, T, H) of the
+# decoder's causal self-attention and of the vision tower's
+ATTN_SHAPES = {"decoder": (64, 64, 16), "vision": (64, 50, 12)}
+
+
+def attention_bounds(b, tq, tk, heads, dh=64):
+    """Rows 11 and 12 at (B, Tq, Tk, H): bf16 q, k, v (and dout) read and the
+    output (dq, dk, dv) written once, the f32 (B, Tq, Tk) bias read once.
+    Operations at their operands' peak: products of bf16 operands (q k^T,
+    the rounded p times v, dv, dp) at the bf16 rate, of f32 ones (flash's
+    f32 p times v, the backward's dq and dk from the f32 ds) at the f32
+    rate; each product 2 B H Tq Tk Dh.  The bound is the larger of the bytes'
+    time and the operations' time."""
+    x = b * tq * heads * dh * 2
+    bias = b * tq * tk * 4
+    mm = 2 * b * heads * tq * tk * dh
+
+    def bound_of(nbytes, bf16_mm, f32_mm):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = (bf16_mm * mm / PEAK_OPS_PER_S["bf16"] + f32_mm * mm / PEAK_OPS_PER_S["f32"]) * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+    return {"flash_attention": bound_of(4 * x + bias, 1, 1),
+            "small_attention_forward": bound_of(4 * x + bias, 2, 0),
+            "small_attention_backward": bound_of(7 * x + bias, 3, 2)}
+
+
+def _attention_case(dev, b, t, heads, kind, seed, tk=None):
+    """bf16 q, k, v (B, T, H, 64) and a bool (B, 1, T, Tk) mask: "causal"
+    with right padding (the decoder: lengths 8-64 as the train batches),
+    "left" padding (a row's first queries see no key), "random" with two
+    fully masked rows, or None (vision)."""
+    tk = tk or t
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = ((torch.randn((b, n, heads, 64), generator=g, device=dev) * s).bfloat16()
+               for n, s in ((t, 0.3), (tk, 0.3), (tk, 1.0)))
+    if kind is None:
+        return q, k, v, None
+    if kind == "random":
+        mask = torch.rand((b, 1, t, tk), generator=g, device=dev) < 0.6
+        mask[0, 0, :2] = False
+        return q, k, v, mask
+    lengths = torch.randint(8, tk + 1, (b,), generator=g, device=dev)
+    pos = torch.arange(tk, device=dev)
+    pad = pos[None] >= tk - lengths[:, None] if kind == "left" else pos[None] < lengths[:, None]
+    causal = torch.tril(torch.ones((t, tk), dtype=torch.bool, device=dev))
+    return q, k, v, causal[None, None] & pad[:, None, None, :]
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max |want|, in f32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def check_attention_kernels(dev):
+    """Phase 35: rows 12 (forward and backward) and 11 (forward) against
+    their plain versions at the flagship shapes in bf16: the decoder's
+    causal mask with right padding, a left-padded mask (rows with no valid
+    key: small-T attends key 0, flash outputs 0), vision's T = 50 with no
+    mask, and for flash Tq = Tk = 600 with a random mask (ten key tiles,
+    a ragged last one).  Outputs within 2e-2 absolute (inputs of size
+    0.3-1: a softmax weight rounded to bf16 the other way, and the output's
+    own bf16 rounding, move an output by about 4e-3); the small-T gradients
+    within 2e-2 of their largest entry (each rounds once to bf16 from f32
+    sums in another order); flash's recomputing backward on the card within
+    2e-2 of the CPU's (the same plain code; f32 sums in another order, one
+    bf16 rounding); reruns bit-equal."""
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+
+    worst = {"small_attention_forward": 0.0, "small_attention_backward": 0.0,
+             "flash_attention": 0.0}
+    cases = [("decoder", "causal"), ("decoder", "left"), ("vision", None)]
+    for i, (shape, kind) in enumerate(cases):
+        b, t, heads = ATTN_SHAPES[shape]
+        q, k, v, mask = _attention_case(dev, b, t, heads, kind, 400 + i)
+        bias = sa.mask_bias(mask, b, t)
+        do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(410 + i),
+                         device=dev).bfloat16()
+        out, again = sa.small_attention_forward(q, k, v, bias), sa.small_attention_forward(q, k, v, bias)
+        grads = sa.small_attention_backward(q, k, v, bias, do)
+        grads2 = sa.small_attention_backward(q, k, v, bias, do)
+        ref = sa.small_t_attention_plain(q, k, v, bias)
+        ref_grads = sa.small_t_attention_bwd_plain(q, k, v, bias, do)
+        fbias = fa.mask_bias(mask, b, t, t)
+        fout, fagain = fa.flash_attention_forward(q, k, v, fbias), fa.flash_attention_forward(q, k, v, fbias)
+        fref = fa.flash_attention_plain(q, k, v, fbias)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again) and all(torch.equal(a, b_) for a, b_ in zip(grads, grads2))
+                and torch.equal(fout, fagain), f"attention {shape} {kind}: a rerun differs")
+        err = (out.float() - ref.float()).abs().max().item()
+        gerr = max(_scaled_err(a, b_) for a, b_ in zip(grads, ref_grads))
+        ferr = (fout.float() - fref.float()).abs().max().item()
+        require(err <= 2e-2, f"small_attention_forward {shape} {kind}: {err}")
+        require(gerr <= 2e-2, f"small_attention_backward {shape} {kind}: {gerr}")
+        require(ferr <= 2e-2, f"flash_attention {shape} {kind}: {ferr}")
+        dead = None if mask is None else ~mask[:, 0].any(-1)
+        if dead is not None:
+            require(not fout[dead].any(), f"flash_attention {shape} {kind}: a dead row is not 0")
+            require(torch.equal(out[dead], v[:, :1].expand_as(v)[dead]),
+                    f"small_attention_forward {shape} {kind}: a dead row is not key 0's value")
+        worst["small_attention_forward"] = max(worst["small_attention_forward"], err)
+        worst["small_attention_backward"] = max(worst["small_attention_backward"],
+                                                max((a.float() - b_.float()).abs().max().item()
+                                                    for a, b_ in zip(grads, ref_grads)))
+        worst["flash_attention"] = max(worst["flash_attention"], ferr)
+        print(f"attention {shape} B={b} T={t} H={heads} mask {kind} "
+              f"({0 if dead is None else int(dead.sum())} rows with no valid key): small-T "
+              f"forward max_abs_err={err:.4g}, backward max err / max |ref| {gerr:.4g}; flash "
+              f"max_abs_err={ferr:.4g}; reruns bit-equal", flush=True)
+    q, k, v, mask = _attention_case(dev, 2, 600, 16, "random", 420)
+    fbias = fa.mask_bias(mask, *q.shape[:2], k.shape[1])
+    fout = fa.flash_attention_forward(q, k, v, fbias)
+    ferr = (fout.float() - fa.flash_attention_plain(q, k, v, fbias).float()).abs().max().item()
+    require(ferr <= 2e-2 and not fout[0, :2].any(), f"flash_attention T=600: {ferr}")
+    worst["flash_attention"] = max(worst["flash_attention"], ferr)
+    print(f"flash_attention B=2 Tq=Tk=600 H=16 random mask: max_abs_err={ferr:.4g}, the two "
+          "masked rows 0", flush=True)
+    b, t, heads = ATTN_SHAPES["decoder"]
+    q, k, v, mask = _attention_case(dev, b, t, heads, "left", 430)
+    w = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(431), device=dev)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        leaves = [x.to(where).requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, mask.to(where))
+        grads.append(torch.autograd.grad((out.float() * w.to(where)).sum(), leaves))
+    gerr = max(_scaled_err(a.cpu(), b_) for a, b_ in zip(*grads))
+    require(gerr <= 2e-2, f"flash backward card vs CPU: {gerr}")
+    print(f"flash backward (plain, recomputing) on the card vs the CPU, decoder left-padded: "
+          f"max err / max |CPU| {gerr:.4g}", flush=True)
+    return worst
+
+
+def time_attention_kernels(dev):
+    """Phase 36: rows 11 and 12 at the decoder's and vision's shapes in
+    CUDA-graph replays (``graph_ms``) and per call with the wrapper
+    (``median_ms``), beside their plain versions' replays and
+    scaled_dot_product_attention with the same boolean mask (its forward in
+    replays; its autograd backward per call, as one call of
+    torch.autograd.grad, and the kernel's backward per call beside it)."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+
+    t = {}
+    for shape, kind in (("decoder", "causal"), ("vision", None)):
+        b, n, heads = ATTN_SHAPES[shape]
+        q, k, v, mask = _attention_case(dev, b, n, heads, kind, 440)
+        bias, fbias = sa.mask_bias(mask, b, n), fa.mask_bias(mask, b, n, n)
+        do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(441),
+                         device=dev).bfloat16()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qh, kh, vh = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
+        torch.testing.assert_close(lib_out.transpose(1, 2).float(),
+                                   sa.small_t_attention_plain(q, k, v, bias).float(),
+                                   rtol=2e-2, atol=2e-2)
+        dht = do.transpose(1, 2)
+        t[("small_fwd", shape)] = (
+            graph_ms(lambda: sa.small_attention_forward(q, k, v, bias)),
+            graph_ms(lambda: sa.small_t_attention_plain(q, k, v, bias)),
+            graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=1.0)),
+            median_ms(lambda: sa.small_attention_forward(q, k, v, bias)))
+        t[("small_bwd", shape)] = (
+            graph_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)),
+            graph_ms(lambda: sa.small_t_attention_bwd_plain(q, k, v, bias, do)),
+            median_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dht, retain_graph=True)),
+            median_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)))
+        t[("flash", shape)] = (
+            graph_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)),
+            graph_ms(lambda: fa.flash_attention_plain(q, k, v, fbias)),
+            t[("small_fwd", shape)][2],
+            median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
+        del lib_out
+    for key, (kernel, plain, lib_ms, per_call) in t.items():
+        name, shape = key
+        b, n, heads = ATTN_SHAPES[shape]
+        lib_label = ("autograd backward per call" if name == "small_bwd"
+                     else "forward, graph replays")
+        print(f"{name} {shape} B={b} T={n} H={heads}: kernel {kernel:.4f} ms (graph replays), "
+              f"{per_call:.4f} ms per call with its wrapper; plain {plain:.4f} ms; "
+              f"scaled_dot_product_attention ({lib_label}) {lib_ms:.4f} ms", flush=True)
+    return t
+
+
+ATTN_COUNTERS = ("small_attention_forward", "small_attention_backward", "flash_attention")
+
+
+def run_pallas_path(dev, flag):
+    """Phase 37: flagship Captioner(attn_impl="pallas"): a teacher-forced
+    forward and backward of the fused loss at B=64 x 64 (flash in the 12
+    vision and 12 decoder self-attention layers, none on cross-attention:
+    24 launches; the backward is plain), finite loss and gradients; then
+    beam-4 generates of 8 images under attn_impl="pallas" and under
+    small_attn, 12 launches each in the encoder, and the share of tokens
+    equal to the default knobs'."""
+    from mic_tpu_torch.core.config import DataConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+    from mic_tpu_torch.ops.fused_ce import fused_lm_loss
+    from mic_tpu_torch.ops.image_prep import maybe_preprocess
+
+    config, params, model, kw, pixels = flag
+    host = _train_batches(config, 1, 64, DataConfig().max_seq_length, 13)[0]
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in host.items()}
+    master = init_params(config, torch.Generator(device=dev).manual_seed(14), dev)
+    leaves = [leaf.requires_grad_(True) for _, leaf in tree_leaves(master)]
+    pallas = Captioner(config, attn_impl="pallas", remat="masks")
+    px = maybe_preprocess(batch["pixel_values"], config.vision.image_size, torch.bfloat16)
+    fa.flash_attention_forward.launches = 0
+    with torch.enable_grad():
+        enc = pallas.encode(master, px)
+        hidden = pallas.decode_hidden(master, enc, batch["decoder_input_ids"],
+                                      batch["decoder_attention_mask"])
+        forward_launches = fa.flash_attention_forward.launches
+        emb = master["shared"]["embedding"]
+        loss = fused_lm_loss(hidden, emb, master["final_logits_bias"], batch["labels"],
+                             batch["decoder_attention_mask"], 0.1, 4096,
+                             emb.detach().bfloat16(), mode="dl")
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    total = fa.flash_attention_forward.launches
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"attn_impl='pallas', flagship teacher-forced forward+backward at B=64 x 64: loss "
+          f"{loss.item():.6f}, flash launches {forward_launches} in the forward, {total} with the "
+          f"backward (remat 'masks' reruns each layer's forward), gradients finite={finite}",
+          flush=True)
+    layers = config.vision.num_layers + config.decoder.num_layers
+    require(forward_launches == layers and total == 2 * layers,
+            "attn_impl='pallas': flash not launched once per self-attention layer")
+    require(np.isfinite(loss.item()) and finite, "attn_impl='pallas': a non-finite loss or grad")
+    del master, leaves, grads, enc, hidden, loss
+    torch.cuda.empty_cache()
+
+    px = pixels(8, 0)
+    default = model.generate(params, px, **kw).sequences.cpu()
+    counters = (fa.flash_attention_forward, sa.small_attention_forward)
+    for label, chosen, env in (("attn_impl='pallas'", Captioner(config, attn_impl="pallas"), {}),
+                               ("small_attn", model, {"MIC_TPU_EXPERIMENTAL": "small_attn"})):
+        with knobs(**env):
+            for fn in counters:
+                fn.launches = 0
+            out = chosen.generate(params, px, **kw)
+            torch.cuda.synchronize()
+        counts = [fn.launches for fn in counters]
+        seqs = check_path_output(out, 8, 64, label)
+        share = float((seqs == default).float().mean())
+        print(f"beam 4 under {label}, 8 images: {out.steps} decode steps, flash / small-T "
+              f"launches {counts}, tokens equal to the default knobs' {share:.4f}", flush=True)
+        want = [12, 0] if "pallas" in label else [0, 12]
+        require(counts == want, f"{label}: encoder launches {counts}, expected {want}")
+    return {"flash_attention": total}
+
+
+def check_attention_small_against_cpu(dev):
+    """Phase 38: at a small bf16 width with head dim 64 in both towers
+    (vision 128 wide, decoder d_model 128, 2 heads each), the card against
+    the CPU on the same weights.  small_attn training: the first step's
+    gradient leaves (the card's small-T kernels, the CPU's XLA math) each
+    within 5e-2 of its largest entry (floored at 1e-4 of the largest of all
+    leaves: bf16 activations rounded in other orders, as phase 11), the
+    kernels launched.  attn_impl="pallas": the logits within 5e-2 of their
+    largest entry and the gradients of sum(logits * w) likewise."""
+    from mic_tpu_torch.core.config import (
+        CaptionerConfig, DataConfig, DecoderConfig, TrainConfig, VisionConfig,
+    )
+    from mic_tpu_torch.core.params import tree_leaves, tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(hidden_size=128, num_heads=2),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64, dropout=0.0),
+        dtype="bfloat16",
+    )
+    params = init_params(config, torch.Generator().manual_seed(15))
+    paths = [path for path, _ in tree_leaves(params)]
+    rng = np.random.default_rng(16)
+    mask = np.ones((4, 16), np.int32)
+    mask[1, 10:] = 0
+    host = {"pixel_values": rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8),
+            "labels": rng.integers(4, 1100, (4, 16)).astype(np.int32),
+            "decoder_input_ids": rng.integers(4, 1100, (4, 16)).astype(np.int32),
+            "decoder_attention_mask": mask}
+
+    def worst_leaf(got, want):
+        floor = 1e-4 * max(g.abs().max().item() for g in want)
+        return max(((a - b).abs().max().item() / max(b.abs().max().item(), floor), path)
+                   for path, a, b in zip(paths, got, want))
+
+    tc = TrainConfig(per_device_batch_size=4, learning_rate=1e-3, warmup_steps=1,
+                     label_smoothing=0.1)
+    grads = {}
+    with knobs(MIC_TPU_EXPERIMENTAL="small_attn"):
+        for device in (dev, torch.device("cpu")):
+            trainer = Trainer(config, DataConfig(max_seq_length=16, decode_size=40), tc,
+                              device=device)
+            trainer.build(10)
+            state = trainer.init_state(tree_map(lambda x, d=device: x.clone().to(d), params))
+            _train_counts(reset=True)
+            grads[device.type] = _first_grads(trainer, state, trainer.put_batch(host))
+            counts = _train_counts()
+            if device.type == "cuda":
+                card_counts = {k: counts[k] for k in ATTN_COUNTERS}
+    err, path = worst_leaf(grads["cuda"], grads["cpu"])
+    print(f"small_attn training at a small width, card vs CPU: first-step gradients, worst leaf "
+          f"{'/'.join(path)} at {err:.3g} of its largest entry (limit 5e-2); card launches "
+          f"{card_counts}", flush=True)
+    require(err <= 5e-2, f"small_attn: card and CPU gradients differ ({'/'.join(path)})")
+    layers = config.vision.num_layers + config.decoder.num_layers
+    require(card_counts == {"small_attention_forward": 2 * layers,
+                            "small_attention_backward": layers, "flash_attention": 0},
+            "small_attn at a small width: launches")
+
+    ids, dmask = (torch.from_numpy(host[k]) for k in ("decoder_input_ids", "decoder_attention_mask"))
+    px = torch.from_numpy(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(4, 16, 1100)).astype(np.float32))
+    model = Captioner(config, attn_impl="pallas")
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        tree = tree_map(lambda x, d=device: x.clone().to(d).requires_grad_(True), params)
+        leaves = [leaf for _, leaf in tree_leaves(tree)]
+        fa.flash_attention_forward.launches = 0
+        logits = model(tree, px.to(device), ids.to(device), dmask.to(device))
+        g = torch.autograd.grad((logits.float() * w.to(device)).sum(), leaves, allow_unused=True,
+                                materialize_grads=True)
+        outs[device.type] = (logits.detach().float().cpu(), [x.float().cpu() for x in g],
+                             fa.flash_attention_forward.launches)
+    lerr = _scaled_err(outs["cuda"][0], outs["cpu"][0])
+    gerr, path = worst_leaf(outs["cuda"][1], outs["cpu"][1])
+    print(f"attn_impl='pallas' at a small width, card vs CPU: logits max err / max |CPU| "
+          f"{lerr:.3g}, gradients worst leaf {'/'.join(path)} at {gerr:.3g} (limits 5e-2); "
+          f"card flash launches {outs['cuda'][2]}", flush=True)
+    require(lerr <= 5e-2 and gerr <= 5e-2, "attn_impl='pallas': card and CPU differ")
+    require(outs["cuda"][2] == layers and outs["cpu"][2] == 0, "attn_impl='pallas': launches")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -1917,7 +2295,6 @@ def main() -> None:
     del blocked_inputs, cross_inputs, ln_inputs, mlp_inputs
     torch.cuda.empty_cache()
     launches.update(run_fused_step_path(dev, flag))
-    del flag
     torch.cuda.empty_cache()
     check_fused_step_small_against_cpu(dev)
 
@@ -1930,6 +2307,14 @@ def main() -> None:
     launches.update(run_training_routes(dev))
     check_training_small_against_cpu(dev, ("fwd", "split", "save"))
 
+    tf_err = check_attention_kernels(dev)
+    tf_ms = time_attention_kernels(dev)
+    torch.cuda.empty_cache()
+    launches.update(run_pallas_path(dev, flag))
+    del flag
+    torch.cuda.empty_cache()
+    check_attention_small_against_cpu(dev)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1937,6 +2322,7 @@ def main() -> None:
     print(smi, flush=True)
     # each bound at the shape its time was taken at (flagship widths)
     n_beam, n_ce = 256 * 4, 4096
+    dec_b, dec_t, dec_h = ATTN_SHAPES["decoder"]
     bounds = {
         "lazy_attention": attention_bound(n_beam, 63, HEAD_D, 2, ancestry=True),
         "fused_head_bucket": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
@@ -1956,6 +2342,7 @@ def main() -> None:
         "ln_gemm": ln_gemm_bound(1024, HEAD_D, 3 * HEAD_D),
         "fused_mlp": mlp_bound(1024, HEAD_D, 4 * HEAD_D),
         **flash_ce_route_bounds(n_ce),
+        **attention_bounds(dec_b, dec_t, dec_t, dec_h),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
@@ -1969,6 +2356,9 @@ def main() -> None:
               "ln_gemm N=32": ln_gemm_bound(32, HEAD_D, 3 * HEAD_D),
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D)}
     others.update(flash_ce_contraction_bounds(n_ce))
+    vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
+    others.update({f"{name} vision": value for name, value in
+                   attention_bounds(vis_b, vis_t, vis_t, vis_h).items()})
     print("bounds at the other timed shapes: " + ", ".join(
         f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [
@@ -2024,6 +2414,20 @@ def main() -> None:
         dict(name="flash_ce_backward", source="mic_tpu_torch/csrc/flash_ce.cu",
              replaces="mic_tpu/ops/flash_ce.py:407", max_abs_err=bwd_err["flash_ce_backward"],
              ms=route_ms["split"], plain_ms=route_ms["split_plain"]),
+        dict(name="flash_attention", source="mic_tpu_torch/csrc/flash_attention.cu",
+             replaces="mic_tpu/ops/flash_attention.py:167", max_abs_err=tf_err["flash_attention"],
+             ms=tf_ms[("flash", "decoder")][0], plain_ms=tf_ms[("flash", "decoder")][1],
+             library_ms=tf_ms[("flash", "decoder")][2]),
+        dict(name="small_attention_forward", source="mic_tpu_torch/csrc/small_attention.cu",
+             replaces="mic_tpu/ops/small_attention.py:96",
+             max_abs_err=tf_err["small_attention_forward"],
+             ms=tf_ms[("small_fwd", "decoder")][0], plain_ms=tf_ms[("small_fwd", "decoder")][1],
+             library_ms=tf_ms[("small_fwd", "decoder")][2]),
+        dict(name="small_attention_backward", source="mic_tpu_torch/csrc/small_attention.cu",
+             replaces="mic_tpu/ops/small_attention.py:111",
+             max_abs_err=tf_err["small_attention_backward"],
+             ms=tf_ms[("small_bwd", "decoder")][0], plain_ms=tf_ms[("small_bwd", "decoder")][1],
+             library_ms=tf_ms[("small_bwd", "decoder")][2]),
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -80,6 +80,15 @@ _SIGNATURES = {
     "mic_ln_gemm_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
     # x, w1, b1, w2, b2, h, out, n, d, f, act, stream
     "mic_fused_mlp_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, bias (or NULL), out, batch, t, heads, head_dim, stream
+    "mic_small_attention_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "mic_small_attention_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, bias (or NULL), dout, dq, dk, dv, batch, t, heads, head_dim, stream
+    "mic_small_attention_bwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "mic_small_attention_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
+    # q, k, v, bias (or NULL), out, batch, tq, tk, heads, head_dim, stream
+    "mic_flash_attention_fwd_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "mic_flash_attention_fwd_f32": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib = None

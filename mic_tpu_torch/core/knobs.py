@@ -28,14 +28,17 @@ pallas_topk (generate/search.py::_topk_mode says why approx_topk and
 segmented_topk take the exact select); ``Captioner.generate`` merged_kv
 and merged_cross; the bucket select of ops/fused_head.py bucket_bv (the
 bucket width, which changes the candidates; its kernel takes multiples of
-64 and raises NotImplementedError for other widths).  Switches whose mic_tpu
-path is not ported raise where mic_tpu reads them: MIC_TPU_FUSED_LAZY_ATTN=0
-(mic_tpu's XLA lazy-attention chain), merged_cross and small_attn.  Switches
-that only tune TPU tiling, bucketing or the shape of the layer loop leave
-every result the same and are accepted and ignored: cross_g (images per
-cross-attention grid cell), attn_buckets (static read-prefix buckets,
-bit-identical by construction), MIC_TPU_CACHE_SEGMENTS (phased cache
-growth, bit-identical), MIC_TPU_DMA_G (images per DMA grid cell), and
+64 and raises NotImplementedError for other widths); the full-sequence
+attention of both towers (ops/attention.py::dot_product_attention)
+small_attn, on CUDA tensors, as mic_tpu reads it on the TPU.  Switches whose
+mic_tpu path is not ported raise where mic_tpu reads them:
+MIC_TPU_FUSED_LAZY_ATTN=0 (mic_tpu's XLA lazy-attention chain) and
+merged_cross.  Switches that only tune TPU tiling, bucketing or the shape
+of the layer loop leave every result the same and are accepted and
+ignored: cross_g (images per cross-attention grid cell), attn_buckets
+(static read-prefix buckets, bit-identical by construction),
+MIC_TPU_CACHE_SEGMENTS (phased cache growth, bit-identical), MIC_TPU_DMA_G
+(images per DMA grid cell), and
 attn_bhtd, custom_scan_vjp, unroll_layers and scan_split_transpose (the
 training attention's operand layout and the layer scan's backward, which
 mic_tpu's tests/test_stacked.py holds to the same results).

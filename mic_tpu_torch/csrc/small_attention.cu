@@ -1,0 +1,260 @@
+// Full-softmax attention for short sequences, forward and backward.
+//
+// Replaces mic_tpu/ops/small_attention.py::small_t_attention (its
+// _fwd_kernel and _bwd_kernel Pallas kernels, MIC_TPU_EXPERIMENTAL=
+// small_attn): softmax(q k^T + bias) v for q, k, v (B, T, H, 64) with
+// T <= 64, q pre-scaled, and an optional float32 (B, T, T) additive bias
+// shared by an image's heads (0 or finfo(float32).min, built by the wrapper
+// with mic_tpu's key-0 redirect for fully masked rows).
+//
+//   forward:  s = q k^T + bias (f32), p = softmax(s) (f32), out = round(p) v,
+//             round(p) being p rounded to the input type, the product
+//             summed in f32 and cast to the input type;
+//   backward: recomputes s and p, then dv = round(p)^T do, dp = do v^T,
+//             ds = p * (dp - rowsum(dp * p)) with the f32 p, dq = ds k,
+//             dk = ds^T q, all in f32, cast to the input type.
+//
+// Keys at or past T are masked here (the TPU wrapper padded T to a
+// multiple of 8 and masked the padding; nothing is padded on the card).
+//
+// Bound: bytes.  The forward reads q, k, v and the bias and writes the
+// output once (34.6 MB in bf16 at the decoder's B=64, T=64, H=16: 0.0103 ms
+// at 3.35 TB/s), the backward reads q, k, v, do and the bias and writes
+// dq, dk, dv (59.8 MB: 0.0178 ms), against about 1 GFLOP a launch.  The TPU
+// kernel packed two images a 128-lane MXU tile for Mosaic; here one block
+// owns one (image, head), 1,024 blocks at the flagship decoder.  It reads
+// the (T, 64) slices of the natural layout with row stride H * 64, so no
+// operand is transposed in device memory (the reason the TPU kernel exists),
+// keeps every operand, the 64 x 64 scores and P in shared memory as f32
+// tiles (attention_tile.cuh), and forms each product with f32 FMAs, 4 x 4
+// entries a thread; the row softmaxes are warp reductions.  One block owns
+// its (image, head), so the backward needs no atomics and reruns are
+// bit-equal.  The forward takes 4 tiles (65 KB: three blocks an SM), the
+// backward 6 (98 KB: two).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "attention_tile.cuh"
+
+namespace {
+
+using namespace attn_tile;
+
+// s = Q K^T (+ bias) into tile `sp`; keys at or past t are -inf.
+__device__ void scores(float* sp, const float* sq, const float* sk, const float* bias, int t) {
+  float acc[4][4];
+  zero(acc);
+  mma_tile(acc, sq, kLd, 1, sk, 1, kLd, kDim);
+  const int ty = tile_y(), tx = tile_x();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = tx + 16 * c;
+      float s = acc[r][c];
+      if (j >= t) {
+        s = -INFINITY;
+      } else if (bias != nullptr && i < t) {
+        s += bias[i * t + j];
+      }
+      acc[r][c] = s;
+    }
+  }
+  put_tile(sp, acc);
+}
+
+// each row of tile `sp` to its softmax in place, one warp a row: the max,
+// exp(s - max), their sum, then e / sum (f32; -inf entries give 0)
+__device__ void softmax_rows(float* sp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < kDim; i += kThreads / 32) {
+    float* row = sp + i * kLd;
+    const float a = row[lane], b = row[lane + 32];
+    float m = fmaxf(a, b);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float ea = expf(a - m), eb = expf(b - m);
+    float sum = ea + eb;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    row[lane] = ea / sum;
+    row[lane + 32] = eb / sum;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+small_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ bias,
+                           T* __restrict__ out, int t, int heads) {
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = sq + kTileFloats;
+  float* sv = sk + kTileFloats;
+  float* sp = sv + kTileFloats;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = static_cast<size_t>(heads) * kDim;
+  const size_t base = static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * kDim;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * t * t;
+
+  load_rows(sq, q + base, t, stride);
+  load_rows(sk, k + base, t, stride);
+  load_rows(sv, v + base, t, stride);
+  __syncthreads();
+  scores(sp, sq, sk, brow, t);
+  __syncthreads();
+  softmax_rows(sp);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kDim * kDim; idx += kThreads) {
+    float* x = sp + (idx >> 6) * kLd + (idx & (kDim - 1));
+    *x = round_to<T>(*x);
+  }
+  __syncthreads();
+  float acc[4][4];
+  zero(acc);
+  mma_tile(acc, sp, kLd, 1, sv, kLd, 1, t);  // round(P) V over the t keys
+  put_tile(sq, acc);                         // sq was last read before a barrier
+  __syncthreads();
+  store_rows(out + base, sq, t, stride);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+small_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const float* __restrict__ bias,
+                           const T* __restrict__ dout, T* __restrict__ dq, T* __restrict__ dk,
+                           T* __restrict__ dv, int t, int heads) {
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = sq + kTileFloats;
+  float* sv = sk + kTileFloats;
+  float* sdo = sv + kTileFloats;
+  float* sp = sdo + kTileFloats;
+  float* sx = sp + kTileFloats;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = static_cast<size_t>(heads) * kDim;
+  const size_t base = static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * kDim;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * t * t;
+  const int ty = tile_y(), tx = tile_x();
+
+  load_rows(sq, q + base, t, stride);
+  load_rows(sk, k + base, t, stride);
+  load_rows(sv, v + base, t, stride);
+  load_rows(sdo, dout + base, t, stride);
+  __syncthreads();
+  scores(sp, sq, sk, brow, t);
+  __syncthreads();
+  softmax_rows(sp);  // the f32 P
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kDim * kDim; idx += kThreads) {
+    const int off = (idx >> 6) * kLd + (idx & (kDim - 1));
+    sx[off] = round_to<T>(sp[off]);
+  }
+  __syncthreads();
+
+  // dV = round(P)^T dO over the t query rows (dO rows past t are zero)
+  float gv[4][4];
+  zero(gv);
+  mma_tile(gv, sx, 1, kLd, sdo, kLd, 1, t);
+  // dP = dO V^T, then dS = P (dP - rowsum(dP P)); rows past t have dO = 0,
+  // keys past t P = 0, so dS is zero outside the t x t block
+  float ds[4][4];
+  zero(ds);
+  mma_tile(ds, sdo, kLd, 1, sv, 1, kLd, kDim);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float* prow = sp + (ty + 16 * r) * kLd;
+    float part = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part += ds[r][c] * prow[tx + 16 * c];
+    const float rowsum = half_warp_sum(part);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = prow[tx + 16 * c];
+      ds[r][c] = p * (ds[r][c] - rowsum);
+    }
+  }
+  __syncthreads();  // every read of round(P) in sx is done
+  put_tile(sx, ds);
+  __syncthreads();
+
+  // dQ = dS K over the t keys; dK = dS^T Q over the t query rows
+  float gq[4][4], gk[4][4];
+  zero(gq);
+  zero(gk);
+  mma_tile(gq, sx, kLd, 1, sk, kLd, 1, t);
+  mma_tile(gk, sx, 1, kLd, sq, kLd, 1, t);
+  __syncthreads();  // sp, sv and sdo are read no more
+  put_tile(sp, gq);
+  put_tile(sdo, gk);
+  put_tile(sv, gv);
+  __syncthreads();
+  store_rows(dq + base, sp, t, stride);
+  store_rows(dk + base, sdo, t, stride);
+  store_rows(dv + base, sv, t, stride);
+}
+
+bool bad_shape(int batch, int t, int heads, int head_dim) {
+  return batch < 1 || heads < 1 || t < 1 || t > kDim || head_dim != kDim;
+}
+
+template <typename T>
+int launch_fwd(void* q, void* k, void* v, void* bias, void* out, int batch, int t, int heads,
+               int head_dim, void* stream) {
+  if (bad_shape(batch, t, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = 4 * kTileBytes;
+  static bool done[64] = {};
+  cudaError_t err = allow_shared(small_attention_fwd_kernel<T>, smem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  small_attention_fwd_kernel<T><<<batch * heads, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(out), t, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(void* q, void* k, void* v, void* bias, void* dout, void* dq, void* dk, void* dv,
+               int batch, int t, int heads, int head_dim, void* stream) {
+  if (bad_shape(batch, t, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = 6 * kTileBytes;
+  static bool done[64] = {};
+  cudaError_t err = allow_shared(small_attention_bwd_kernel<T>, smem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  small_attention_bwd_kernel<T><<<batch * heads, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const T*>(dout), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), t, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mic_small_attention_fwd_bf16(void* q, void* k, void* v, void* bias, void* out,
+                                            int batch, int t, int heads, int head_dim,
+                                            void* stream) {
+  return launch_fwd<__nv_bfloat16>(q, k, v, bias, out, batch, t, heads, head_dim, stream);
+}
+
+extern "C" int mic_small_attention_fwd_f32(void* q, void* k, void* v, void* bias, void* out,
+                                           int batch, int t, int heads, int head_dim,
+                                           void* stream) {
+  return launch_fwd<float>(q, k, v, bias, out, batch, t, heads, head_dim, stream);
+}
+
+extern "C" int mic_small_attention_bwd_bf16(void* q, void* k, void* v, void* bias, void* dout,
+                                            void* dq, void* dk, void* dv, int batch, int t,
+                                            int heads, int head_dim, void* stream) {
+  return launch_bwd<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, batch, t, heads, head_dim,
+                                   stream);
+}
+
+extern "C" int mic_small_attention_bwd_f32(void* q, void* k, void* v, void* bias, void* dout,
+                                           void* dq, void* dk, void* dv, int batch, int t,
+                                           int heads, int head_dim, void* stream) {
+  return launch_bwd<float>(q, k, v, bias, dout, dq, dk, dv, batch, t, heads, head_dim, stream);
+}

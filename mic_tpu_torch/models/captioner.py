@@ -21,10 +21,20 @@ The beam step's kernels follow mic_tpu's switches
 the blocked kernel, whose int8 cache has a scale per (row, position,
 head)), and MIC_TPU_EXPERIMENTAL's fused_cross_attn, fused_mlp and ln_qkv.
 Switches whose mic_tpu path is not ported raise: MIC_TPU_FUSED_LAZY_ATTN=0
-(mic_tpu's XLA chain), MIC_TPU_EXPERIMENTAL=merged_cross and small_attn.
+(mic_tpu's XLA chain) and MIC_TPU_EXPERIMENTAL=merged_cross.
+
+The full-sequence attention of both towers (the encoder, and the
+teacher-forced decoder's self-attention) follows mic_tpu's
+ops/attention.py gate: ``Captioner(config, attn_impl="pallas")`` takes flash
+attention, MIC_TPU_EXPERIMENTAL=small_attn the small-T kernel on CUDA
+tensors, else the XLA math.  ``encode`` and ``__call__`` return mic_tpu's
+introspection outputs (``output_hidden_states``, ``output_attentions``) as
+EncodeOutput and CaptionerOutput, layer axes stacked.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,7 +48,6 @@ from mic_tpu_torch.nn.cache import DecoderCache, LazyDecoderCache, init_cache, i
 from mic_tpu_torch.nn.layers import dense, init_dense, init_embed
 from mic_tpu_torch.nn.stacked import remat_policy
 from mic_tpu_torch.ops import lazy_attention
-from mic_tpu_torch.ops.attention import refuse_small_attn
 from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
 from mic_tpu_torch.ops.quant import int8_matmul, quantize_params_for_decode, quantize_rows_dynamic
 
@@ -59,24 +68,59 @@ def init_params(config: CaptionerConfig, generator: torch.Generator, device=None
     }
 
 
+class EncodeOutput(NamedTuple):
+    """``encode`` with introspection: last_hidden_state is the PROJECTED
+    (B, 1+N, d_model) states the decoder cross-attends to; hidden_states and
+    attentions are the vision tower's stacked per-layer tensors."""
+
+    last_hidden_state: torch.Tensor
+    hidden_states: Optional[torch.Tensor] = None
+    attentions: Optional[torch.Tensor] = None
+
+
+class CaptionerOutput(NamedTuple):
+    """``__call__`` with introspection (mic_tpu's CaptionerOutput); every
+    layer axis is stacked."""
+
+    logits: torch.Tensor
+    encoder_last_hidden_state: Optional[torch.Tensor] = None
+    encoder_hidden_states: Optional[torch.Tensor] = None
+    encoder_attentions: Optional[torch.Tensor] = None
+    decoder_hidden_states: Optional[torch.Tensor] = None
+    decoder_attentions: Optional[torch.Tensor] = None
+    cross_attentions: Optional[torch.Tensor] = None
+
+
 class Captioner:
-    def __init__(self, config: CaptionerConfig, remat=False):
+    def __init__(self, config: CaptionerConfig, attn_impl: str = "xla", remat=False):
         if not config.tie_word_embeddings:
             raise NotImplementedError("only the tied LM head is ported")
         clip_vit.check_clip_style(config.vision)
         mbart_decoder.check_pre_norm(config.decoder)
         self.config = config
         self.dtype = torch_dtype(config.dtype)
+        # as in mic_tpu, any value but "pallas" is the XLA math
+        self.attn_impl = attn_impl
         remat_policy(remat)
         self.remat = remat
 
     def encode(self, params: Params, pixel_values: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None, output_hidden_states: bool = False,
+               output_attentions: bool = False):
         """pixel_values (B, H, W, 3) float -> projected encoder states
-        (B, 1 + num_patches, d_model); ``generator`` drives dropout."""
-        out = clip_vit.apply_vision(params["vision"], pixel_values, self.config.vision,
-                                    self.dtype, generator, self.remat)
-        return dense(params["proj"], out, self.dtype)
+        (B, 1 + num_patches, d_model), or an EncodeOutput with the vision
+        tower's introspection tensors; ``generator`` drives dropout."""
+        out = clip_vit.apply_vision(
+            params["vision"], pixel_values, self.config.vision, self.dtype, generator,
+            attn_impl=self.attn_impl, remat=self.remat,
+            output_hidden_states=output_hidden_states, output_attentions=output_attentions,
+        )
+        if not (output_hidden_states or output_attentions):
+            return dense(params["proj"], out, self.dtype)
+        return EncodeOutput(
+            last_hidden_state=dense(params["proj"], out.last_hidden_state, self.dtype),
+            hidden_states=out.hidden_states, attentions=out.attentions,
+        )
 
     def decode_hidden(self, params: Params, enc_states: torch.Tensor,
                       decoder_input_ids: torch.Tensor, decoder_attention_mask: torch.Tensor,
@@ -85,7 +129,8 @@ class Captioner:
         head: what ops/fused_ce.py takes, so training never stores logits."""
         return mbart_decoder.apply_decoder(
             params["decoder"], params["shared"], decoder_input_ids, decoder_attention_mask,
-            enc_states, None, self.config.decoder, self.dtype, generator, self.remat,
+            enc_states, None, self.config.decoder, self.dtype, generator,
+            attn_impl=self.attn_impl, remat=self.remat,
         )
 
     def decode_train(self, params: Params, enc_states: torch.Tensor,
@@ -97,14 +142,33 @@ class Captioner:
 
     def __call__(self, params: Params, pixel_values: torch.Tensor,
                  decoder_input_ids: torch.Tensor, decoder_attention_mask: torch.Tensor,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Teacher-forced forward -> logits (B, T, vocab) in the compute dtype.
-        The encoder and then the decoder draw their dropout masks from the
-        one ``generator``."""
-        refuse_small_attn()
-        enc_states = self.encode(params, pixel_values, generator)
-        return self.decode_train(params, enc_states, decoder_input_ids,
-                                 decoder_attention_mask, generator)
+                 generator: torch.Generator | None = None, output_hidden_states: bool = False,
+                 output_attentions: bool = False):
+        """Teacher-forced forward -> logits (B, T, vocab) in the compute dtype,
+        or a CaptionerOutput when introspection outputs are requested.  The
+        encoder and then the decoder draw their dropout masks from the one
+        ``generator``."""
+        if not (output_hidden_states or output_attentions):
+            enc_states = self.encode(params, pixel_values, generator)
+            return self.decode_train(params, enc_states, decoder_input_ids,
+                                     decoder_attention_mask, generator)
+        enc = self.encode(params, pixel_values, generator, output_hidden_states,
+                          output_attentions)
+        dec = mbart_decoder.apply_decoder(
+            params["decoder"], params["shared"], decoder_input_ids, decoder_attention_mask,
+            enc.last_hidden_state, None, self.config.decoder, self.dtype, generator,
+            attn_impl=self.attn_impl, remat=self.remat,
+            output_hidden_states=output_hidden_states, output_attentions=output_attentions,
+        )
+        return CaptionerOutput(
+            logits=self.lm_logits(params, dec.last_hidden_state),
+            encoder_last_hidden_state=enc.last_hidden_state,
+            encoder_hidden_states=enc.hidden_states,
+            encoder_attentions=enc.attentions,
+            decoder_hidden_states=dec.hidden_states,
+            decoder_attentions=dec.attentions,
+            cross_attentions=dec.cross_attentions,
+        )
 
     def lm_logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head: hidden @ embedding^T + final_logits_bias, all in the
@@ -204,7 +268,6 @@ class Captioner:
         ) or None
         if quantize not in (None, "", "int8"):
             raise ValueError(f"unsupported quantize: {quantize!r}")
-        refuse_small_attn()  # the encoder's attention
         eos_positions = overrides.pop("eos_positions", None)
         gen = self.config.generation.replace(**overrides)
         dec = self.config.decoder

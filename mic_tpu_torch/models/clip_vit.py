@@ -7,6 +7,8 @@ projects into the decoder width.  Only the CLIP tower style is ported.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from mic_tpu_torch.core.config import VisionConfig
@@ -14,6 +16,16 @@ from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.attention import init_mha, mha
 from mic_tpu_torch.nn.layers import ACTIVATIONS, dense, init_dense, init_layer_norm, layer_norm
 from mic_tpu_torch.nn.stacked import init_stacked, scan_apply
+
+
+class VisionOutput(NamedTuple):
+    """``apply_vision`` with introspection (mic_tpu's VisionOutput): layer
+    axes stacked, hidden_states (L+1, B, T, H) with the embeddings output
+    first, attentions (L, B, heads, T, T)."""
+
+    last_hidden_state: torch.Tensor
+    hidden_states: Optional[torch.Tensor] = None
+    attentions: Optional[torch.Tensor] = None
 
 
 def check_clip_style(cfg: VisionConfig) -> None:
@@ -57,12 +69,15 @@ def init_vision(generator: torch.Generator, cfg: VisionConfig, device=None) -> P
 
 
 def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
-                 dtype: torch.dtype = torch.float32, rng=None,
-                 remat=False) -> torch.Tensor:
-    """pixels (B, image_size, image_size, 3) -> last hidden state (B, 1+N, H).
+                 dtype: torch.dtype = torch.float32, rng=None, attn_impl: str = "xla",
+                 remat=False, output_hidden_states: bool = False,
+                 output_attentions: bool = False):
+    """pixels (B, image_size, image_size, 3) -> last hidden state (B, 1+N, H),
+    or a VisionOutput when introspection outputs are requested.
 
     ``rng`` (a torch.Generator) drives attention-weight dropout, the tower's
-    only dropout (CLIP has no hidden dropout); ``remat`` as in
+    only dropout (CLIP has no hidden dropout); ``attn_impl`` as in
+    ops/attention.py::dot_product_attention; ``remat`` as in
     nn/stacked.py::scan_apply."""
     check_clip_style(cfg)
     if cfg.attention_dropout == 0.0:
@@ -74,13 +89,30 @@ def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"]["embedding"].to(dtype)[None]
     x = layer_norm(params["pre_ln"], x, eps)
+    embeddings = x
 
     def layer(h, p, lrng):
+        ys = {}
         r = h
         h = layer_norm(p["ln1"], h, eps)
-        h = r + mha(p["attn"], h, h, None, cfg.num_heads, cfg.attention_dropout, lrng)
+        h = mha(p["attn"], h, h, None, cfg.num_heads, impl=attn_impl,
+                dropout_rate=cfg.attention_dropout, dropout_rng=lrng,
+                return_weights=output_attentions)
+        if output_attentions:
+            h, ys["attn"] = h
+        h = r + h
         r = h
         h = layer_norm(p["ln2"], h, eps)
-        return r + dense(p["fc2"], act(dense(p["fc1"], h)))
+        h = r + dense(p["fc2"], act(dense(p["fc1"], h)))
+        if output_hidden_states:
+            ys["hidden"] = h
+        return h, ys
 
-    return scan_apply(layer, x, params["layers"], rng, remat)
+    x, ys = scan_apply(layer, x, params["layers"], rng, remat)
+    if not (output_hidden_states or output_attentions):
+        return x
+    return VisionOutput(
+        last_hidden_state=x,
+        hidden_states=torch.cat([embeddings[None], ys["hidden"]]) if output_hidden_states else None,
+        attentions=ys["attn"] if output_attentions else None,
+    )

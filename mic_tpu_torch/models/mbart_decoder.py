@@ -14,6 +14,7 @@ self-attention -> cross-attention -> MLP with pre-norm and a final LN.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,6 +45,18 @@ from mic_tpu_torch.nn.stacked import init_stacked, layer_slice, scan_apply
 from mic_tpu_torch.ops import cross_attention, lazy_attention
 from mic_tpu_torch.ops.decode_attention import decode_attention
 from mic_tpu_torch.ops.fused_mlp import fused_mlp
+
+
+class DecoderTowerOutput(NamedTuple):
+    """``apply_decoder`` with introspection (mic_tpu's DecoderTowerOutput):
+    layer axes stacked, hidden_states (L+1, B, T, D) with the embeddings
+    output first and the last entry after the final LN (as HF mBART),
+    attentions and cross_attentions (L, B, heads, T, ·)."""
+
+    last_hidden_state: torch.Tensor
+    hidden_states: Optional[torch.Tensor] = None
+    attentions: Optional[torch.Tensor] = None
+    cross_attentions: Optional[torch.Tensor] = None
 
 
 def check_pre_norm(cfg: DecoderConfig) -> None:
@@ -108,16 +121,20 @@ def _causal_mask(attention_mask: torch.Tensor) -> torch.Tensor:
 def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
                   attention_mask: torch.Tensor, enc_states: torch.Tensor, enc_mask,
                   cfg: DecoderConfig, dtype: torch.dtype = torch.float32, rng=None,
-                  remat=False, position_ids=None) -> torch.Tensor:
+                  attn_impl: str = "xla", remat=False, position_ids=None,
+                  output_hidden_states: bool = False, output_attentions: bool = False):
     """Teacher-forced full-sequence decode: input_ids and attention_mask
     (B, T), enc_states (B, S, D) already projected, enc_mask (B, S) or None
-    -> hidden states (B, T, D) after the final LN.
+    -> hidden states (B, T, D) after the final LN, or a DecoderTowerOutput
+    when introspection outputs are requested.
 
     Dropout at mic_tpu's sites, drawn from ``rng`` (a torch.Generator, or
     None for none) in this order: the embeddings, then per layer the
     self-attention weights, the self-attention output, the cross-attention
     weights, the cross-attention output, the activation and the MLP output.
-    ``remat`` as in nn/stacked.py::scan_apply."""
+    ``attn_impl`` (ops/attention.py::dot_product_attention) reaches the
+    self-attention only: mic_tpu gives the cross-attention none.  ``remat``
+    as in nn/stacked.py::scan_apply."""
     check_pre_norm(cfg)
     b, t = input_ids.shape
     eps = cfg.layer_norm_eps
@@ -132,28 +149,49 @@ def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
     self_mask = _causal_mask(attention_mask)
     cross_mask = None if enc_mask is None else enc_mask.bool()[:, None, None, :]
     enc_states = enc_states.to(dtype)
+    embeddings = x
 
     def layer(h, p, lrng):
+        ys = {}
         r = h
         h = layer_norm(p["ln_self"], h, eps)
-        h = mha(p["self_attn"], h, h, self_mask, cfg.num_heads, cfg.attention_dropout, lrng)
+        h = mha(p["self_attn"], h, h, self_mask, cfg.num_heads, impl=attn_impl,
+                dropout_rate=cfg.attention_dropout, dropout_rng=lrng,
+                return_weights=output_attentions)
+        if output_attentions:
+            h, ys["attn"] = h
         h = r + dropout(h, cfg.dropout, lrng)
         r = h
         h = layer_norm(p["ln_cross"], h, eps)
         h = mha(p["cross_attn"], h, enc_states, cross_mask, cfg.num_heads,
-                cfg.attention_dropout, lrng)
+                dropout_rate=cfg.attention_dropout, dropout_rng=lrng,
+                return_weights=output_attentions)
+        if output_attentions:
+            h, ys["cross_attn"] = h
         h = r + dropout(h, cfg.dropout, lrng)
         r = h
         h = layer_norm(p["ln_mlp"], h, eps)
         h = act(dense(p["fc1"], h))
         h = dropout(h, cfg.activation_dropout, lrng)
         h = dense(p["fc2"], h)
-        return r + dropout(h, cfg.dropout, lrng)
+        h = r + dropout(h, cfg.dropout, lrng)
+        if output_hidden_states:
+            ys["hidden"] = h
+        return h, ys
 
-    x = scan_apply(layer, x, params["layers"], rng, remat)
+    x, ys = scan_apply(layer, x, params["layers"], rng, remat)
     if cfg.use_final_ln:
         x = layer_norm(params["final_ln"], x, eps)
-    return x
+    if not (output_hidden_states or output_attentions):
+        return x
+    return DecoderTowerOutput(
+        last_hidden_state=x,
+        # the last entry is x: after the final LN, as HF mBART reports it
+        hidden_states=(torch.cat([embeddings[None], ys["hidden"][:-1], x[None]])
+                       if output_hidden_states else None),
+        attentions=ys["attn"] if output_attentions else None,
+        cross_attentions=ys["cross_attn"] if output_attentions else None,
+    )
 
 
 def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfig,

@@ -11,7 +11,7 @@ import torch
 from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.layers import dense, init_dense, layer_norm, merge_heads, split_heads
 from mic_tpu_torch.ops import ln_gemm as ln_gemm_ops
-from mic_tpu_torch.ops.attention import xla_attention
+from mic_tpu_torch.ops.attention import dot_product_attention, xla_attention
 from mic_tpu_torch.ops.cross_attention import fused_cross_attention
 from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, lazy_attention, lazy_attention_q8
 from mic_tpu_torch.ops.quant import quantize_rows_dynamic
@@ -34,13 +34,19 @@ def project_kv(params: Params, kv_states: torch.Tensor, num_heads: int,
 
 
 def mha(params: Params, x: torch.Tensor, kv_states: torch.Tensor, mask,
-        num_heads: int, dropout_rate: float = 0.0, dropout_rng=None) -> torch.Tensor:
+        num_heads: int, impl: str = "xla", dropout_rate: float = 0.0, dropout_rng=None,
+        return_weights: bool = False):
     """Full-sequence attention: self-attention when kv_states is x; optional
-    dropout on the attention weights."""
+    dropout on the attention weights; ``impl`` as in
+    ops/attention.py::dot_product_attention.  With ``return_weights``,
+    returns (out, post-softmax weights (B, H, Tq, Tk))."""
     head_dim = x.shape[-1] // num_heads
     q = split_heads(dense(params["q"], x) * (head_dim**-0.5), num_heads)
     k, v = project_kv(params, kv_states, num_heads, x.dtype)
-    out = xla_attention(q, k, v, mask, dropout_rate, dropout_rng)
+    out = dot_product_attention(q, k, v, mask, impl, dropout_rate, dropout_rng, return_weights)
+    if return_weights:
+        out, weights = out
+        return dense(params["o"], merge_heads(out)), weights
     return dense(params["o"], merge_heads(out))
 
 

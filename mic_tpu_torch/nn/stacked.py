@@ -92,25 +92,30 @@ def remat_policy(remat) -> str | None:
 
 
 def scan_apply(body: Callable, h: torch.Tensor, stacked: Params, rng=None,
-               remat=False) -> torch.Tensor:
-    """Run ``body(h, layer_params, rng) -> h`` over the layers in order.
+               remat=False):
+    """Run ``body(h, layer_params, rng) -> (h, ys)`` over the layers in order
+    -> (h, stacked ys): ``ys`` is a dict of per-layer tensors (empty where
+    the body keeps nothing), each stacked along a new leading layer axis,
+    as mic_tpu's ``lax.scan`` stacks its ys.
 
     ``rng`` is the dropout generator (or None); the layers draw from it in
     order.  ``remat``: False/"none" keeps every activation; "full"
     checkpoints each layer and recomputes its dropout masks from the saved
     generator state; "masks" checkpoints each layer but keeps its boolean
     dropout masks.  All three draw the same masks from the same generator,
-    so their gradients are equal."""
+    so their gradients are equal; a checkpointed layer returns its ys too."""
     policy = remat_policy(remat)
+    per_layer = []
     for layer in range(num_layers_of(stacked)):
         p = layer_slice(stacked, layer)
         if policy is None:
-            h = body(h, p, rng)
-            continue
-        layer_rng = None if rng is None else _LayerRng(rng, keep_masks=policy == "masks")
+            h, ys = body(h, p, rng)
+        else:
+            layer_rng = None if rng is None else _LayerRng(rng, keep_masks=policy == "masks")
 
-        def run(x, p=p, layer_rng=layer_rng):
-            return body(x, p, None if layer_rng is None else layer_rng.stream())
+            def run(x, p=p, layer_rng=layer_rng):
+                return body(x, p, None if layer_rng is None else layer_rng.stream())
 
-        h = checkpoint(run, h, use_reentrant=False)
-    return h
+            h, ys = checkpoint(run, h, use_reentrant=False)
+        per_layer.append(ys)
+    return h, {key: torch.stack([ys[key] for ys in per_layer]) for key in per_layer[0]}

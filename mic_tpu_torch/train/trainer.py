@@ -22,7 +22,6 @@ from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
 from mic_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
 from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
 from mic_tpu_torch.models.captioner import Captioner, init_params
-from mic_tpu_torch.ops.attention import refuse_small_attn
 from mic_tpu_torch.ops.fused_ce import fused_lm_loss
 from mic_tpu_torch.ops.image_prep import maybe_preprocess
 from mic_tpu_torch.train.fused_adamw import apply_gradients
@@ -57,7 +56,6 @@ class Trainer:
             raise NotImplementedError("dp > 1, tp > 1 and fsdp are not ported yet (ROADMAP A7)")
         if tc.profile_steps:
             raise NotImplementedError("profile_steps is not ported yet")
-        refuse_small_attn()
         # tc.prng_impl picks the TPU's hardware RNG in mic_tpu; dropout here
         # always draws from torch's Philox generator, so it is ignored.
         self.mc, self.dc, self.tc = model_config, data_config, train_config

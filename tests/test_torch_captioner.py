@@ -444,3 +444,107 @@ def test_port_never_imports_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _call_inputs(config, seed=0):
+    """Pixels and a teacher-forced batch of three captions: one full, one
+    right-padded, one left-padded (its first query rows see no key)."""
+    rng = np.random.default_rng(seed)
+    b, t = 3, 8
+    pixels = rng.normal(size=(b, 32, 32, 3)).astype(np.float32)
+    ids = rng.integers(4, config.decoder.vocab_size, (b, t)).astype(np.int32)
+    mask = np.ones((b, t), np.int32)
+    mask[1, 5:] = 0
+    mask[2, :3] = 0
+    return pixels, ids, mask
+
+
+def _grad_tree(nparams):
+    params = from_jax(nparams)
+    for _, leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    return params
+
+
+def test_call_with_pallas_attention_matches_jax():
+    """Captioner(attn_impl="pallas").__call__ (flash attention in both
+    towers' self-attention, mic_tpu's in interpret mode) at float32: logits
+    within 1e-5, every parameter gradient of sum(logits * w) within 1e-4 of
+    its leaf's largest entry (floored).  A left-padded caption's first query rows see
+    no key: flash gives them 0 where the XLA math attends uniformly, so the
+    logits differ from attn_impl="xla"'s there."""
+    config = _config(vocab=97)
+    jax_model = JaxCaptioner(config, attn_impl="pallas")
+    nparams = _numpy_params(jax_model, 3, 0.05)
+    pixels, ids, mask = _call_inputs(config)
+    w = np.random.default_rng(4).normal(size=(3, 8, 97)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (pixels, ids, mask)]
+
+    def loss(p):
+        logits = jax_model(p, *jargs)
+        return jnp.sum(logits * w), logits
+
+    (_, ref), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jax.tree.map(jnp.asarray, nparams))
+    params = _grad_tree(nparams)
+    model = Captioner(_port(config), attn_impl="pallas")
+    targs = [torch.from_numpy(a) for a in (pixels, ids, mask)]
+    logits = model(params, *targs)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), **TOL)
+    paths, leaves = zip(*_leaves(params))
+    grads = torch.autograd.grad((logits * torch.from_numpy(w)).sum(), leaves, allow_unused=True,
+                                materialize_grads=True)  # the vision post_ln is unused
+    wants = [np.asarray(x) for x in jax.tree.leaves(jgrads)]
+    # a leaf whose exact gradient is 0 (a key bias under softmax) holds only
+    # rounding noise: each leaf's scale is floored at 1e-4 of the largest
+    floor = 1e-4 * max(np.abs(x).max() for x in wants)
+    for path, got, want in zip(paths, grads, wants):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-4 * max(np.abs(want).max(), floor), err_msg=str(path))
+    xla = Captioner(_port(config))(params, *targs).detach()
+    assert not torch.allclose(xla[2, :3], logits[2, :3].detach(), atol=1e-3)
+    np.testing.assert_allclose(xla[:2].numpy(), logits[:2].detach().numpy(), **TOL)
+
+
+INTROSPECTION = {"hidden": (True, False), "attentions": (False, True), "both": (True, True)}
+
+
+@pytest.mark.parametrize("what", sorted(INTROSPECTION))
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_introspection_outputs_match_jax(impl, what):
+    """encode and __call__ with output_hidden_states / output_attentions
+    against mic_tpu's EncodeOutput and CaptionerOutput, field by field,
+    float32 within 1e-5.  Under "pallas" a weights request sends every
+    attention to the XLA math; hidden states alone keep flash."""
+    hidden, attentions = INTROSPECTION[what]
+    config = _config(vocab=97)
+    jax_model = JaxCaptioner(config, attn_impl=impl)
+    nparams = _numpy_params(jax_model, 5, 0.05)
+    jparams = jax.tree.map(jnp.asarray, nparams)
+    pixels, ids, mask = _call_inputs(config, seed=6)
+    kw = dict(output_hidden_states=hidden, output_attentions=attentions)
+    ref_call = jax.jit(lambda p, *a: jax_model(p, *a, **kw))(
+        jparams, *[jnp.asarray(a) for a in (pixels, ids, mask)])
+    ref_enc = jax.jit(lambda p, x: jax_model.encode(p, x, **kw))(jparams, jnp.asarray(pixels))
+    model = Captioner(_port(config), attn_impl=impl)
+    tparams = from_jax(nparams)
+    got_call = model(tparams, *[torch.from_numpy(a) for a in (pixels, ids, mask)], **kw)
+    got_enc = model.encode(tparams, torch.from_numpy(pixels), **kw)
+    assert type(got_call).__name__ == "CaptionerOutput"
+    assert type(got_enc).__name__ == "EncodeOutput"
+    for got, ref in ((got_call, ref_call), (got_enc, ref_enc)):
+        assert got._fields == ref._fields
+        for field, a, b in zip(got._fields, got, ref):
+            assert (a is None) == (b is None), field
+            if a is not None:
+                assert tuple(a.shape) == b.shape, field
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL, err_msg=field)
+    v, d = config.vision, config.decoder
+    if hidden:
+        assert got_call.encoder_hidden_states.shape == (v.num_layers + 1, 3, v.seq_len,
+                                                        v.hidden_size)
+        # the last entry is after the final LN: the state the head reads
+        assert torch.equal(model.lm_logits(tparams, got_call.decoder_hidden_states[-1]),
+                           got_call.logits)
+    if attentions:
+        assert got_call.cross_attentions.shape == (d.num_layers, 3, d.num_heads, 8, v.seq_len)

@@ -29,7 +29,12 @@ the bias add each rounded once to bf16), plus 2**-8 of sum |xn| |w| (the
 LN statistics, summed in another order, can round a bf16 xn the other way);
 the fused MLP within 1e-2
 of its largest output (fc1's bf16 intermediate can round the other way
-before the fc2 sum); both GEMM kernels bit-equal across reruns.
+before the fc2 sum); both GEMM kernels bit-equal across reruns.  The
+full-sequence attention kernels (small-T forward and backward, flash
+forward): outputs within 2e-2 in bf16 (a softmax weight rounded to bf16 the
+other way, and the output's own rounding) and 1e-5 in f32, small-T
+gradients within 2e-2 (bf16) or 1e-5 (f32) of their largest entry, a flash
+row with no valid key exactly 0, reruns bit-equal.
 """
 
 import pytest
@@ -60,6 +65,8 @@ from mic_tpu_torch.ops.fused_head import (
 )
 from mic_tpu_torch.ops.cross_attention import fused_cross_attention, fused_cross_attention_plain
 from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from mic_tpu_torch.ops import flash_attention as flash
+from mic_tpu_torch.ops import small_attention as small
 from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import (
@@ -757,3 +764,150 @@ def test_fused_beam_generate_runs_through_the_new_kernels(cuda, monkeypatch, kv_
     torch.cuda.synchronize()
     assert [fn.launches for fn in kernels] == [config.decoder.num_layers * out.steps] * 4
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+def _attention_inputs(cuda, b, tq, tk, heads, dtype, mask_kind, seed):
+    """q, k, v (B, T, H, 64) and a bool (B, 1, Tq, Tk) mask or None: causal
+    with right padding, causal with left padding (rows with no valid key),
+    or random with two rows fully masked."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = ((torch.randn((b, t, heads, 64), generator=g, device=cuda) * s).to(dtype)
+               for t, s in ((tq, 0.3), (tk, 0.3), (tk, 1.0)))
+    if mask_kind is None:
+        return q, k, v, None
+    if mask_kind == "random":
+        mask = torch.rand((b, 1, tq, tk), generator=g, device=cuda) < 0.6
+        mask[0, 0, :2] = False
+        return q, k, v, mask
+    lengths = torch.randint(1, tk + 1, (b,), generator=g, device=cuda)
+    lengths[0] = tk
+    pos = torch.arange(tk, device=cuda)
+    pad = pos[None] >= tk - lengths[:, None] if mask_kind == "left" else pos[None] < lengths[:, None]
+    causal = torch.tril(torch.ones((tq, tk), dtype=torch.bool, device=cuda))
+    return q, k, v, causal[None, None] & pad[:, None, None, :]
+
+
+SMALL_CASES = {"decoder": (3, 64, 2, "causal"), "left_padded": (3, 64, 2, "left"),
+               "vision": (2, 50, 3, None), "ragged": (3, 13, 2, "causal")}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(SMALL_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_small_attention_kernels_match_plain(cuda, dtype, case):
+    b, t, heads, kind = SMALL_CASES[case]
+    q, k, v, mask = _attention_inputs(cuda, b, t, t, heads, dtype, kind, 300)
+    bias = small.mask_bias(mask, b, t)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(301),
+                     device=cuda).to(dtype)
+    launches = (small.small_attention_forward.launches, small.small_attention_backward.launches)
+    out = small.small_attention_forward(q, k, v, bias)
+    grads = small.small_attention_backward(q, k, v, bias, do)
+    again = small.small_attention_forward(q, k, v, bias)
+    ref = small.small_t_attention_plain(q, k, v, bias)
+    ref_grads = small.small_t_attention_bwd_plain(q, k, v, bias, do)
+    torch.cuda.synchronize()
+    assert (small.small_attention_forward.launches, small.small_attention_backward.launches) == (
+        launches[0] + 2, launches[1] + 1)
+    assert torch.equal(out, again) and out.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        top = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert got.dtype == dtype and err <= tol * top, (name, err, top)
+
+
+FLASH_CASES = {"decoder": (3, 64, 64, 2, "causal"), "left_padded": (3, 64, 64, 2, "left"),
+               "vision": (2, 50, 50, 3, None), "long_ragged": (2, 600, 600, 2, "random"),
+               "cross_shape": (3, 70, 130, 2, "random"), "one": (1, 1, 1, 1, None)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
+    b, tq, tk, heads, kind = FLASH_CASES[case]
+    q, k, v, mask = _attention_inputs(cuda, b, tq, tk, heads, dtype, kind, 310)
+    bias = flash.mask_bias(mask, b, tq, tk)
+    launches = flash.flash_attention_forward.launches
+    out = flash.flash_attention_forward(q, k, v, bias)
+    again = flash.flash_attention_forward(q, k, v, bias)
+    ref = flash.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_forward.launches == launches + 2
+    assert torch.equal(out, again) and out.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if mask is not None:
+        dead = ~mask[:, 0].any(-1)
+        assert not out[dead].any()
+
+
+@pytest.mark.requires_cuda
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 64, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError):
+        small.small_attention_forward(x, x, x)
+    with pytest.raises(NotImplementedError):
+        flash.flash_attention_forward(x, x, x)
+    x = torch.zeros((2, 64, 4, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash.flash_attention_forward(x, x, x)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        small.small_attention_backward(x, x, x, None, x)
+    x = torch.zeros((2, 65, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        small.small_attention_forward(x, x, x)
+    x = torch.zeros((2, 2, 64, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention_forward(x, x, x)
+
+
+def _head_dim_64_config():
+    return CaptionerConfig(
+        vision=VisionConfig.tiny(hidden_size=128, num_heads=2),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64),
+        dtype="bfloat16",
+    )
+
+
+@pytest.mark.requires_cuda
+def test_attention_switches_route_through_the_kernels(cuda, monkeypatch):
+    """attn_impl="pallas": flash once per self-attention layer of each
+    tower a forward, never on cross-attention; small_attn: the small-T
+    forward per self-attention layer (the cross-attention's 8 x 5 is not
+    Tq == Tk) and, under remat "masks", again in the backward's recompute,
+    with one backward launch a layer."""
+    from mic_tpu_torch.core.config import DataConfig, TrainConfig
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = _head_dim_64_config()
+    layers = config.vision.num_layers + config.decoder.num_layers
+    params = init_params(config, torch.Generator(device=cuda).manual_seed(4), cuda)
+    px = torch.randn((2, 32, 32, 3), device=cuda).bfloat16()
+    ids = torch.randint(4, 1100, (2, 8), device=cuda)
+    mask = torch.ones_like(ids)
+    mask[1, 5:] = 0
+    flash.flash_attention_forward.launches = 0
+    logits = Captioner(config, attn_impl="pallas")(params, px, ids, mask)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_forward.launches == layers
+    assert torch.isfinite(logits.float()).all()
+
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "small_attn")
+    trainer = Trainer(config, DataConfig(max_seq_length=8, decode_size=40),
+                      TrainConfig(per_device_batch_size=2, warmup_steps=1), device=cuda)
+    trainer.build(10)
+    state = trainer.init_state()
+    batch = trainer.put_batch({
+        "pixel_values": torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8).numpy(),
+        "labels": ids.int().cpu().numpy(), "decoder_input_ids": ids.int().cpu().numpy(),
+        "decoder_attention_mask": mask.int().cpu().numpy()})
+    small.small_attention_forward.launches = small.small_attention_backward.launches = 0
+    state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert small.small_attention_forward.launches == 2 * layers
+    assert small.small_attention_backward.launches == layers
+    assert torch.isfinite(metrics["loss"]).all()

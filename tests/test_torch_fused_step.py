@@ -38,7 +38,6 @@ from mic_tpu_torch.nn.cache import init_lazy_cache
 from mic_tpu_torch.ops import cross_attention, lazy_attention, ln_gemm
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.quant import quantize_params_for_decode
-from mic_tpu_torch.train.trainer import Trainer
 from test_torch_captioner import _images, _models, _port
 
 FUSED = {"MIC_TPU_FUSED_LAZY_ATTN": "1",
@@ -336,11 +335,6 @@ REFUSED = {
                                   "MIC_TPU_EXPERIMENTAL": "merged_kv"}, "generate",
                                  dict(kv_quant="int8"), "ROADMAP A9"),
     "merged_cross": ({"MIC_TPU_EXPERIMENTAL": "merged_cross"}, "generate", {}, "ROADMAP B13"),
-    "small_attn_generate": ({"MIC_TPU_EXPERIMENTAL": "small_attn"}, "generate", {},
-                            "ROADMAP B12"),
-    "small_attn_call": ({"MIC_TPU_EXPERIMENTAL": "small_attn"}, "call", {}, "ROADMAP B12"),
-    "small_attn_trainer": ({"MIC_TPU_EXPERIMENTAL": "small_attn"}, "trainer", {},
-                           "ROADMAP B12"),
 }
 
 
@@ -358,10 +352,4 @@ def test_unported_switches_raise(case, monkeypatch):
     params = init_params(config, torch.Generator().manual_seed(0))
     px = preprocess_images(torch.from_numpy(_images(n=1)), 32)
     with pytest.raises(NotImplementedError, match=item):
-        if entry == "generate":
-            Captioner(config).generate(params, px, num_beams=4, **{"max_length": 8, **kw})
-        elif entry == "call":
-            ids = torch.zeros((1, 4), dtype=torch.int64)
-            Captioner(config)(params, px, ids, torch.ones_like(ids))
-        else:
-            Trainer(config, port_config.DataConfig(), port_config.TrainConfig(), device="cpu")
+        Captioner(config).generate(params, px, num_beams=4, **{"max_length": 8, **kw})

@@ -201,6 +201,99 @@ def test_compute_loss_and_grads_match_jax(route):
         _close_scaled(got.numpy(), ref, 1e-4, path)
 
 
+def _head_dim_64_config():
+    """Head dim 64 in both towers, so small_attn's shape gate takes every
+    self-attention (vision T = 5, decoder T = 8)."""
+    return CaptionerConfig(vision=VisionConfig.tiny(hidden_size=128, num_heads=2),
+                           decoder=DecoderConfig.tiny(vocab_size=97, d_model=128, num_heads=2,
+                                                      ffn_dim=256))
+
+
+@pytest.mark.parametrize("route", ["dl", "logits"])
+def test_compute_loss_and_grads_match_jax_under_small_attn(route, monkeypatch):
+    """MIC_TPU_EXPERIMENTAL=small_attn reaches training through the
+    environment, as in mic_tpu: the Trainer builds, and on the CPU both
+    packages take the XLA math (mic_tpu's kernel only on the TPU, the port's
+    only on CUDA tensors).  Loss within 1e-5, gradients within 1e-4 of each
+    leaf's largest entry (floored)."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "small_attn")
+    config = _head_dim_64_config()
+    trainer = _trainer(config, fused_ce=route != "logits", flash_ce="dl" if route == "dl" else "0")
+    nparams = _numpy_params(config, seed=21)
+    batch = _batch(config, seed=22)
+    jl, jg = _jax_value_and_grad(config, trainer.tc)(jax.tree.map(jnp.asarray, nparams), None,
+                                                     jax.tree.map(jnp.asarray, batch))
+    params = _grad_params(nparams)
+    dev = trainer.put_batch(batch)
+    loss = trainer.compute_loss(params, maybe_preprocess(dev["pixel_values"], 32, torch.float32),
+                                dev)
+    leaves = [leaf for _, leaf in tree_leaves(params)]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5, atol=1e-5)
+    refs = _jax_leaves(jg)
+    # a leaf whose exact gradient is 0 (a key bias) holds rounding noise of
+    # ~1e-9 of the largest gradient at this width: each leaf's scale is
+    # floored at 1e-4 of the largest
+    floor = 1e-4 * max(np.abs(r).max() for r in refs)
+    for (path, _), got, ref in zip(tree_leaves(params), grads, refs):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-4 * max(np.abs(ref).max(), floor), err_msg=str(path))
+
+
+def test_apply_decoder_position_ids_match_jax():
+    """Non-default position_ids (per caption, not 0..T-1) with the
+    introspection outputs: every field within 1e-5 of mic_tpu's, and the
+    hidden state differs from the default positions'."""
+    config = _config()
+    cfg = config.decoder
+    nparams = _numpy_params(config, seed=23)
+    jparams, tparams = jax.tree.map(jnp.asarray, nparams), from_jax(nparams)
+    batch = _batch(config, seed=24)
+    rng = np.random.default_rng(25)
+    enc = rng.normal(size=(4, 5, cfg.d_model)).astype(np.float32)
+    positions = (np.arange(8)[None] + rng.integers(0, 40, (4, 1))).astype(np.int32)
+    ids, mask = batch["decoder_input_ids"], batch["decoder_attention_mask"]
+    ref = jax_dec.apply_decoder(jparams["decoder"], jparams["shared"], jnp.asarray(ids),
+                                jnp.asarray(mask), jnp.asarray(enc), None, cfg,
+                                position_ids=jnp.asarray(positions), output_hidden_states=True,
+                                output_attentions=True)
+    args = (tparams["decoder"], tparams["shared"], torch.from_numpy(ids), torch.from_numpy(mask),
+            torch.from_numpy(enc), None, _port(cfg))
+    got = mbart_decoder.apply_decoder(*args, position_ids=torch.from_numpy(positions),
+                                      output_hidden_states=True, output_attentions=True)
+    for field, a, b in zip(got._fields, got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5, err_msg=field)
+    default = mbart_decoder.apply_decoder(*args)
+    assert not torch.allclose(default, got.last_hidden_state, atol=1e-3)
+
+
+@pytest.mark.parametrize("remat", ["full", "masks"])
+def test_introspection_outputs_under_remat(remat):
+    """A checkpointed layer returns its per-layer outputs too: with every
+    dropout site on and one generator, __call__'s introspection outputs and
+    the gradients of a loss over all of them are bit-equal to no remat's."""
+    config = _dropout_config()
+    nparams = _numpy_params(config, seed=26)
+    batch = _batch(config, seed=27)
+    pixels = torch.from_numpy(np.random.default_rng(28).normal(size=(4, 32, 32, 3))
+                              .astype(np.float32))
+    out = {}
+    for policy in ("none", remat):
+        params = _grad_params(nparams)
+        model = Captioner(_port(config), remat=policy)
+        res = model(params, pixels, torch.from_numpy(batch["decoder_input_ids"]),
+                    torch.from_numpy(batch["decoder_attention_mask"]),
+                    torch.Generator().manual_seed(29), output_hidden_states=True,
+                    output_attentions=True)
+        total = sum((x.float() * (i + 1)).sum() for i, x in enumerate(res))
+        leaves = [leaf for _, leaf in tree_leaves(params)]
+        grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
+        out[policy] = ([x.detach() for x in res], grads)
+    for a, b in zip(out[remat][0], out["none"][0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out["none"][1]))
+
+
 def test_fused_adamw_three_steps_match_jax():
     """Clipping, weight decay with its mask, bf16 moments, warmup: one JAX
     step, the state carried across (io/from_jax.py), then three steps on
