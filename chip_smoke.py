@@ -109,7 +109,29 @@ Phases, each of which raises on failure (none catches its own):
      layer), then beam 4 under attn_impl="pallas" and under small_attn
      (12 encoder launches each);
  38. at a small width with head dim 64, the card against the CPU: small_attn
-     training's first-step gradients, attn_impl="pallas" logits and grads.
+     training's first-step gradients, attn_impl="pallas" logits and grads;
+ 39. the merged-cache cross-attention kernel (row 13) against its plain
+     version at B=256, K=4, H=16 over S=50 live rows padded to 64, a ragged
+     37 of 48 and 64 unpadded, and bit-equal with NaN in every pad row;
+ 40. the int8 cross-attention kernel (row 14's int8 form) against its plain
+     version at B=256, K=4, S=50;
+ 41. the beam permute (row 19) bit-equal to its plain version on one
+     flagship self plane (L=12, B*K=1024, T=64, H=16, Dh=64 bf16) and on
+     planes whose T*H*Dh is not a multiple of 8;
+ 42. the int8 dequant GEMM (row 20) against its plain version at M in {4,
+     1024} and (K, N) in {(1024, 3072), (1024, 4096), (4096, 1024),
+     (1024, 250054)}, reruns bit-equal;
+ 43. the four kernels' times beside their plain versions', their bounds
+     and a library call where one computes the same function (SDPA on row
+     13's live rows; index_select for row 19);
+ 44. path A, beam 4 under MIC_TPU_EXPERIMENTAL=merged_cross at flagship
+     width, 8 images, bf16 and int8 KV: row 13 twelve times a step, reruns
+     identical, the share of tokens equal to the default knobs'; B=1 and
+     B=256 smoke figures in turns with the default knobs;
+ 45. path B, beam 4 on the physical cache (MIC_TPU_LAZY_CACHE=0), 8 images:
+     row 19 twice a step, reruns identical, merged_cross beside it ignored;
+     B=1 and B=256 smoke figures in turns with the default knobs;
+ 46. both paths at a small width on the card against the CPU.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -403,13 +425,17 @@ def flagship(dev):
 
 def _counters():
     """Every kernel wrapper's launch counter on the serving path, by name."""
-    from mic_tpu_torch.ops.cross_attention import fused_cross_attention
+    from mic_tpu_torch.ops.beam_permute import beam_permute
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention, fused_cross_attention_dma, fused_cross_attention_q8,
+    )
     from mic_tpu_torch.ops.decode_attention import decode_attention
     from mic_tpu_torch.ops.fused_head import fused_head_select, fused_head_topk, fused_head_topk_q8
     from mic_tpu_torch.ops.fused_mlp import fused_mlp
     from mic_tpu_torch.ops.lazy_attention import (
         fused_lazy_attention, lazy_attention, lazy_attention_q8,
     )
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul
     from mic_tpu_torch.ops.ln_gemm import ln_gemm
     from mic_tpu_torch.ops.topk_lse import topk_log_probs
 
@@ -418,7 +444,9 @@ def _counters():
             "fused_head_select": fused_head_select, "decode_attention": decode_attention,
             "topk_log_probs": topk_log_probs, "fused_lazy_attention": fused_lazy_attention,
             "fused_cross_attention": fused_cross_attention, "ln_gemm": ln_gemm,
-            "fused_mlp": fused_mlp}
+            "fused_mlp": fused_mlp, "fused_cross_attention_dma": fused_cross_attention_dma,
+            "fused_cross_attention_q8": fused_cross_attention_q8, "beam_permute": beam_permute,
+            "int8_matmul": int8_matmul}
 
 
 def drive(model, params, px, **kw):
@@ -1822,16 +1850,18 @@ def run_fused_step_path(dev, flag):
     return launches
 
 
-def alternate_figures(model, params, pixels, kw, label):
-    """B=1 and B=256 generates under the default knobs and under the four
-    switches in turns (default, fused, fused, default), timed on the host
-    clock around a synchronised generate: smoke figures, not a benchmark.
-    At B=1 (N=4 rows) mic_tpu's N % 8 gates leave LN -> GEMM and the MLP
-    kernel off."""
+def alternate_figures(model, params, pixels, kw, label, switches=FUSED_STEP,
+                      switch_name="fused"):
+    """B=1 and B=256 generates under the default knobs and under
+    ``switches`` (by default the fused step's four) in turns (default,
+    switched, switched, default), timed on the host clock around a
+    synchronised generate: smoke figures, not a benchmark.  At B=1 (N=4
+    rows) mic_tpu's N % 8 gates leave LN -> GEMM and the MLP kernel off."""
+    turns = (("default", {}), (switch_name, switches), (switch_name, switches),
+             ("default", {}))
     for b in (1, 256):
         px = pixels(b, 1)
-        for turn, (name, env) in enumerate((("default", {}), ("fused", FUSED_STEP),
-                                            ("fused", FUSED_STEP), ("default", {})), 1):
+        for turn, (name, env) in enumerate(turns, 1):
             with knobs(**env):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1839,7 +1869,8 @@ def alternate_figures(model, params, pixels, kw, label):
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
             require(bool(torch.isfinite(out.scores).all()), f"{label}: non-finite scores")
-            gated = " (N=4: LN -> GEMM and the MLP kernel off)" if b == 1 and env else ""
+            gated = (" (N=4: LN -> GEMM and the MLP kernel off)"
+                     if b == 1 and env is FUSED_STEP else "")
             print(f"smoke figure (not a benchmark), {label}, {name} knobs{gated}, turn {turn}: "
                   f"B={b} num_beams {kw['num_beams']} max_length 64, {out.steps} steps in "
                   f"{seconds:.3f} s = {b / seconds:.1f} captions/s", flush=True)
@@ -2229,6 +2260,362 @@ def check_attention_small_against_cpu(dev):
     require(outs["cuda"][2] == layers and outs["cpu"][2] == 0, "attn_impl='pallas': launches")
 
 
+# the merged cross cache's (live, padded) encoder rows: the flagship's 50 of
+# 64, a ragged 37 of 48, and 64 with no pad
+MERGED_S = ((FLAG_S, 64), (37, 48), (64, 64))
+MERGED_CROSS = dict(MIC_TPU_EXPERIMENTAL="merged_cross")
+PHYSICAL = dict(MIC_TPU_LAZY_CACHE="0")
+PERMUTE_SHAPE = (12, FLAG_B * FLAG_K, FLAG_T, FLAG_H, FLAG_DH)  # one flagship self plane
+MM_SHAPES = ((1024, 3072), (1024, 4096), (4096, 1024), (1024, HEAD_V))  # (K, N)
+
+
+def q8_cross_bound(b, beams, s, hd, heads):
+    """Row 14's int8 form: each image's int8 K and V rows and their f32
+    scales (one per row and head) read once, q read and the output written
+    in bf16; 4 f32 operations per (beam, position, element)."""
+    return bound(2 * b * s * (hd + heads * 4) + 2 * b * beams * hd * 2,
+                 4 * b * beams * s * hd, "f32")
+
+
+def int8_matmul_bound(m, k, n):
+    """Row 20: x (bf16), w_q (int8) and the f32 scales read once, the bf16
+    output written; 2 M K N products of bf16 operands."""
+    return bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n, "bf16")
+
+
+def _merged_cross_inputs(dev, g, s, s_pad):
+    """q (B, K, H*Dh) and merged (B, S_pad, H*Dh) K/V, zero past S."""
+    hd = FLAG_H * FLAG_DH
+    q = (torch.randn((FLAG_B, FLAG_K, hd), generator=g, device=dev) * 0.3).bfloat16()
+    kv = []
+    for _ in range(2):
+        c = torch.zeros((FLAG_B, s_pad, hd), dtype=torch.bfloat16, device=dev)
+        c[:, :s] = torch.randn((FLAG_B, s, hd), generator=g, device=dev) * 0.5
+        kv.append(c)
+    return q, kv[0], kv[1]
+
+
+def check_cross_attention_dma(dev):
+    """Phase 39: row 13's kernel against its plain version at B=256, K=4,
+    H=16 over S=50 live rows padded to 64, a ragged 37 padded to 48 and 64
+    unpadded: outputs within 2e-2 (phase 24's bound); with every pad row
+    NaN the output bit-equal to the zero-pad one, so no pad row is read."""
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention_dma, fused_cross_attention_dma_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(39)
+    worst = 0.0
+    for s, s_pad in MERGED_S:
+        q, ek, ev = _merged_cross_inputs(dev, g, s, s_pad)
+        out = fused_cross_attention_dma(q, ek, ev, s, FLAG_K, FLAG_H)
+        ref = fused_cross_attention_dma_plain(q, ek, ev, s, FLAG_K, FLAG_H)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        note = ""
+        if s < s_pad:
+            nk, nv = ek.clone(), ev.clone()
+            nk[:, s:] = float("nan")
+            nv[:, s:] = float("nan")
+            again = fused_cross_attention_dma(q, nk, nv, s, FLAG_K, FLAG_H)
+            torch.cuda.synchronize()
+            require(torch.equal(out, again), f"fused_cross_attention_dma S={s}: NaN pad rows "
+                    "changed the output")
+            note = ", NaN pad rows: output bit-equal"
+            del nk, nv
+        print(f"fused_cross_attention_dma B={FLAG_B} K={FLAG_K} S={s} of {s_pad}: "
+              f"max_abs_err={err:.6g}{note}", flush=True)
+        if s == FLAG_S:
+            inputs = (q, ek, ev)
+    return worst, inputs
+
+
+def check_cross_attention_q8(dev):
+    """Phase 40: row 14's int8 kernel against its plain version at B=256,
+    K=4, S=50, H=16: the cross K/V quantized per (image, position, head) by
+    ops/quant.py::quantize_rows_dynamic; outputs within 2e-2."""
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention_plain, fused_cross_attention_q8,
+    )
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    q = (torch.randn((FLAG_B, FLAG_K, FLAG_H * FLAG_DH), generator=g, device=dev) * 0.3
+         ).bfloat16()
+    caches, dequant = [], []
+    for _ in range(2):
+        values, scales = quantize_rows_dynamic(
+            (torch.randn((FLAG_B, FLAG_S, FLAG_H, FLAG_DH), generator=g, device=dev) * 0.5
+             ).bfloat16())
+        caches.append({"q": values, "s": scales[..., 0].contiguous()})
+        dequant.append((values.float() * scales).bfloat16())
+    out = fused_cross_attention_q8(q, *caches, FLAG_K, FLAG_H)
+    ref = fused_cross_attention_plain(q, *caches, FLAG_K, FLAG_H)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    print(f"fused_cross_attention_q8 B={FLAG_B} K={FLAG_K} S={FLAG_S}: max_abs_err={err:.6g}",
+          flush=True)
+    return err, (q, *caches, *dequant)
+
+
+def check_beam_permute(dev):
+    """Phase 41: row 19's kernel against its plain version, bit-equal, on one
+    flagship self plane (L=12, B*K=1024, T=64, H=16, Dh=64 bf16: 1.61 GB,
+    random within-group sources, the input left as it was) and on small
+    planes whose T*H*Dh = 105 is not a multiple of 8 (bf16 and f32)."""
+    from mic_tpu_torch.ops.beam_permute import beam_permute, beam_permute_plain
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    kv = torch.randn(PERMUTE_SHAPE, generator=g, device=dev, dtype=torch.bfloat16)
+    idx = torch.randint(0, FLAG_K, (FLAG_B, FLAG_K), generator=g, device=dev)
+    before = kv.clone()
+    out = beam_permute(kv, idx, FLAG_K)
+    ref = beam_permute_plain(kv, idx, FLAG_K)
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), "beam_permute: the flagship plane differs from plain")
+    require(torch.equal(kv, before), "beam_permute: the input changed")
+    del out, ref, before
+    for dtype in (torch.bfloat16, torch.float32):
+        small = torch.randn((3, 6, 5, 3, 7), generator=g, device=dev).to(dtype)
+        sidx = torch.randint(0, 3, (2, 3), generator=g, device=dev)
+        require(torch.equal(beam_permute(small, sidx, 3), beam_permute_plain(small, sidx, 3)),
+                f"beam_permute: the (3, 6, 5, 3, 7) {dtype} plane differs from plain")
+    torch.cuda.synchronize()
+    print(f"beam_permute {PERMUTE_SHAPE} bf16 ({kv.numel() * 2 / 1e9:.3f} GB): bit-equal to "
+          "plain, input unchanged; (3, 6, 5, 3, 7) bf16 and f32 (rows of 105 elements): "
+          "bit-equal", flush=True)
+    return 0.0, (kv, idx)
+
+
+def check_int8_matmul(dev):
+    """Phase 42: row 20's kernel against its plain version at M in {4, 1024}
+    and (K, N) in {(1024, 3072), (1024, 4096), (4096, 1024), (1024, 250054)}:
+    each output within one bf16 ulp of the plain output plus the worst-case
+    error of f32 sums in another order, K * 2**-24 * sum |x| |w|; a rerun
+    bit-equal."""
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    worst = 0.0
+    inputs = {}
+    for k, n in MM_SHAPES:
+        w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand((n,), generator=g, device=dev) * 0.09 + 0.01
+        w_abs = (w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)).float().abs()
+        for m in (4, 1024):
+            x = (torch.randn((m, k), generator=g, device=dev) * 0.3).bfloat16()
+            out = int8_matmul(x, w_q, scale)
+            again = int8_matmul(x, w_q, scale)
+            ref = int8_matmul_plain(x, w_q, scale)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            limit = _bf16_ulp(ref.float().abs()) + k * 2.0**-24 * (x.float().abs() @ w_abs)
+            require(bool((diff <= limit).all()), f"int8_matmul M={m} K={k} N={n}: an output "
+                    "beyond its bound")
+            require(torch.equal(out, again), f"int8_matmul M={m} K={k} N={n}: a rerun differs")
+            worst = max(worst, diff.max().item())
+            print(f"int8_matmul M={m} K={k} N={n}: max_abs_err={diff.max().item():.6g} (largest "
+                  f"|out| {ref.float().abs().max().item():.4g}), {int((diff > 0).sum())} of "
+                  f"{diff.numel()} outputs differ from plain, rerun bit-equal", flush=True)
+            del out, again, ref, diff, limit
+            if (k, n) in ((1024, 3072), (1024, HEAD_V)):
+                inputs[(m, k, n)] = (x, w_q, scale)
+        del w_abs
+    return worst, inputs
+
+
+def time_last_kernels(dev, cross_inputs, q8_inputs, permute_inputs, mm_inputs):
+    """Phase 43: rows 13, 14-int8 and 20 in CUDA-graph replays (``graph_ms``)
+    and per call with the wrapper (``median_ms``), row 19 per call (a 1.6 GB
+    output a call: a graph of ten would hold ten), each beside its plain
+    version and, where one PyTorch call computes the same function, that
+    call: SDPA on row 13's live rows with the beams on the query axis,
+    ``index_select`` for row 19.  Rows 14-int8 and 20 have none; SDPA on the
+    dequantised K/V and ``torch.mm`` on the dequantised weight are timed
+    for scale only."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.beam_permute import beam_permute, beam_permute_plain
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention_dma, fused_cross_attention_dma_plain, fused_cross_attention_plain,
+        fused_cross_attention_q8,
+    )
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    b, beams, heads, dh, s = FLAG_B, FLAG_K, FLAG_H, FLAG_DH, FLAG_S
+    t = {}
+
+    def sdpa_operands(q, k, v):
+        return (q.reshape(b, beams, heads, dh).transpose(1, 2),
+                k.reshape(b, s, heads, dh).transpose(1, 2),
+                v.reshape(b, s, heads, dh).transpose(1, 2))
+
+    q, ek, ev = cross_inputs
+    qh, kh, vh = sdpa_operands(q, ek[:, :s], ev[:, :s])
+    lib = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0).transpose(1, 2)
+    torch.testing.assert_close(lib.reshape(q.shape).float(),
+                               fused_cross_attention_dma_plain(q, ek, ev, s, beams, heads).float(),
+                               rtol=2e-2, atol=2e-2)
+    t["dma"] = (graph_ms(lambda: fused_cross_attention_dma(q, ek, ev, s, beams, heads)),
+                graph_ms(lambda: fused_cross_attention_dma_plain(q, ek, ev, s, beams, heads)),
+                graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+                median_ms(lambda: fused_cross_attention_dma(q, ek, ev, s, beams, heads)))
+    q, ck, cv, dk, dv = q8_inputs
+    qh, kh, vh = sdpa_operands(q, dk, dv)
+    t["q8"] = (graph_ms(lambda: fused_cross_attention_q8(q, ck, cv, beams, heads)),
+               graph_ms(lambda: fused_cross_attention_plain(q, ck, cv, beams, heads)),
+               graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)),
+               median_ms(lambda: fused_cross_attention_q8(q, ck, cv, beams, heads)))
+    kv, idx = permute_inputs
+    rows = (torch.arange(b, device=dev)[:, None] * beams + idx).reshape(-1)
+    t["permute"] = (median_ms(lambda: beam_permute(kv, idx, beams), runs=10),
+                    median_ms(lambda: beam_permute_plain(kv, idx, beams), runs=10),
+                    median_ms(lambda: kv.index_select(1, rows), runs=10), None)
+    for (m, k, n), (x, w_q, scale) in mm_inputs.items():
+        w = w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+        t[("mm", m, n)] = (graph_ms(lambda: int8_matmul(x, w_q, scale)),
+                           graph_ms(lambda: int8_matmul_plain(x, w_q, scale)),
+                           graph_ms(lambda: torch.mm(x, w)),
+                           median_ms(lambda: int8_matmul(x, w_q, scale)))
+        del w
+    labels = {"dma": (f"fused_cross_attention_dma B={b} K={beams} S={s} of 64 H={heads}",
+                      "scaled_dot_product_attention on the live rows"),
+              "q8": (f"fused_cross_attention_q8 B={b} K={beams} S={s} H={heads}",
+                     "for scale only, scaled_dot_product_attention on the dequantised K/V"),
+              "permute": (f"beam_permute {PERMUTE_SHAPE} bf16", "index_select")}
+    labels.update({key: (f"int8_matmul M={key[1]} K=1024 N={key[2]}",
+                         "for scale only, torch.mm on the dequantised bf16 weight")
+                   for key in t if isinstance(key, tuple)})
+    for key, (label, lib_name) in labels.items():
+        kernel, plain, lib_ms, per_call = t[key]
+        how = "per call" if per_call is None else "graph replays"
+        extra = "" if per_call is None else f"; kernel per call with its wrapper {per_call:.4f} ms"
+        print(f"{label} time: kernel {kernel:.4f} ms, plain {plain:.4f} ms, {lib_name} "
+              f"{lib_ms:.4f} ms ({how}){extra}", flush=True)
+    return t
+
+
+def _path_turn(model, params, px, kw, env, label, kernel, want):
+    """One 8-image generate under ``env`` with launch counts and a rerun:
+    ``kernel`` launched exactly ``want(steps)`` times, the rerun identical."""
+    with knobs(**env):
+        out, counts = drive(model, params, px, **kw)
+        again = model.generate(params, px, **kw)
+    seqs = check_path_output(out, 8, 64, label)
+    require(counts[kernel] == want(out.steps), f"{label}: {counts[kernel]} {kernel} launches "
+            f"in {out.steps} steps")
+    require(torch.equal(again.sequences.cpu(), seqs), f"{label}: a second run differs")
+    return seqs, counts, out.steps
+
+
+def run_merged_cross_path(dev, flag):
+    """Phase 44: path A, beam 4 with MIC_TPU_EXPERIMENTAL=merged_cross at
+    flagship width, 8 images, with the bf16 and the int8 KV cache: row 13
+    exactly 12 times a step, row 14's canonical kernel never, a rerun
+    identical, the share of tokens equal to the default knobs'; then B=1
+    and B=256 smoke figures in turns with the default knobs."""
+    config, params, model, kw, pixels = flag
+    layers = config.decoder.num_layers
+    px = pixels(8, 0)
+    launches = {"fused_cross_attention_dma": 0, "fused_cross_attention_q8": 0, "int8_matmul": 0}
+    for kv in (None, "int8"):
+        extra = dict(kw, kv_quant=kv)
+        default = model.generate(params, px, **extra).sequences.cpu()
+        label = f"merged_cross path, {'int8' if kv else 'bf16'} KV"
+        seqs, counts, steps = _path_turn(model, params, px, extra, MERGED_CROSS, label,
+                                         "fused_cross_attention_dma", lambda n: layers * n)
+        attention = "lazy_attention_q8" if kv else "lazy_attention"
+        require(counts[attention] == layers * steps and counts["fused_cross_attention"] == 0,
+                f"{label}: the self-attention or row 14's kernel launched otherwise")
+        share = float((seqs == default).float().mean())
+        print(f"{label}, 8 images: {steps} decode steps, launches fused_cross_attention_dma "
+              f"{counts['fused_cross_attention_dma']}, {attention} {counts[attention]}, "
+              f"fused_cross_attention {counts['fused_cross_attention']}; rerun identical; tokens "
+              f"equal to the default knobs' {share:.4f}", flush=True)
+        if kv is None:
+            launches["fused_cross_attention_dma"] = counts["fused_cross_attention_dma"]
+        for name in ("fused_cross_attention_q8", "int8_matmul"):
+            launches[name] += counts[name]
+    alternate_figures(model, params, pixels, kw, "merged_cross path", MERGED_CROSS,
+                      "merged_cross")
+    return launches
+
+
+def run_physical_path(dev, flag):
+    """Phase 45: path B, beam 4 with MIC_TPU_LAZY_CACHE=0 at flagship width,
+    8 images: row 19 exactly twice a step (self K and self V), the lazy
+    kernels never, a rerun identical, the share of tokens equal to the lazy
+    default's; merged_cross beside it ignored (row 13 never); then B=1 and
+    B=256 smoke figures in turns with the default knobs."""
+    config, params, model, kw, pixels = flag
+    px = pixels(8, 0)
+    default = model.generate(params, px, **kw).sequences.cpu()
+    label = "physical path"
+    seqs, counts, steps = _path_turn(model, params, px, kw, PHYSICAL, label, "beam_permute",
+                                     lambda n: 2 * n)
+    require(counts["lazy_attention"] == 0 and counts["fused_head"] >= steps,
+            f"{label}: a lazy kernel ran, or the head did not")
+    share = float((seqs == default).float().mean())
+    print(f"{label}, 8 images: {steps} decode steps, launches beam_permute "
+          f"{counts['beam_permute']}, fused_head {counts['fused_head']}, lazy_attention 0; rerun "
+          f"identical; tokens equal to the lazy default's {share:.4f}", flush=True)
+    both = dict(PHYSICAL, **MERGED_CROSS)
+    same, counts_mc, _ = _path_turn(model, params, px, kw, both, "physical path + merged_cross",
+                                    "beam_permute", lambda n: 2 * n)
+    require(counts_mc["fused_cross_attention_dma"] == 0 and torch.equal(same, seqs),
+            "merged_cross changed the physical path")
+    print("physical path with merged_cross: ignored (no merged-cross launch, the same "
+          "sequences)", flush=True)
+    launches = {"beam_permute": counts["beam_permute"]}
+    alternate_figures(model, params, pixels, kw, "physical path", PHYSICAL, "physical")
+    return launches
+
+
+def check_last_paths_small_against_cpu(dev):
+    """Phase 46: at a small width (d_model 128, head_dim 64, 4 images) paths
+    A (bf16 and int8 KV) and B on the card (rows 13 and 19) against the CPU
+    (plain versions) on the same bf16 weights: equal sequences, scores
+    within 2e-2 (5e-2 with the int8 cache, where a row's int8 rounding can
+    move by one step)."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params, tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=512,
+                                   max_position_embeddings=64),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=dev).manual_seed(46),
+                                             dev))
+    host = tree_map(lambda x: x.cpu(), params)
+    u8 = torch.from_numpy(np.random.default_rng(47).integers(0, 256, (4, 40, 40, 3),
+                                                             dtype=np.uint8))
+    model = Captioner(config)
+    cases = (("merged_cross, bf16 KV", MERGED_CROSS, None, 2e-2, "fused_cross_attention_dma"),
+             ("merged_cross, int8 KV", MERGED_CROSS, "int8", 5e-2, "fused_cross_attention_dma"),
+             ("physical cache", PHYSICAL, None, 2e-2, "beam_permute"))
+    for label, env, kv, limit, kernel in cases:
+        kw = dict(num_beams=4, max_length=16, forced_bos_token_id=7, kv_quant=kv)
+        with knobs(**env):
+            gpu, counts = drive(model, params, preprocess_images(u8.to(dev), 32, torch.bfloat16),
+                                **kw)
+            cpu = model.generate(host, preprocess_images(u8, 32, torch.bfloat16), **kw)
+        score_err = (gpu.scores.cpu() - cpu.scores).abs().max().item()
+        same = torch.equal(gpu.sequences.cpu(), cpu.sequences)
+        print(f"small width, {label}, card vs CPU: sequences equal={same}, max score "
+              f"difference={score_err:.3g}, card {kernel} launches {counts[kernel]}", flush=True)
+        require(counts[kernel] > 0, f"{label}: {kernel} never ran")
+        require(same, f"{label}: card and CPU sequences differ")
+        require(score_err < limit, f"{label}: card and CPU scores differ")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -2311,9 +2698,23 @@ def main() -> None:
     tf_ms = time_attention_kernels(dev)
     torch.cuda.empty_cache()
     launches.update(run_pallas_path(dev, flag))
-    del flag
     torch.cuda.empty_cache()
     check_attention_small_against_cpu(dev)
+
+    dma_err, dma_inputs = check_cross_attention_dma(dev)
+    cross_q8_err, cross_q8_inputs = check_cross_attention_q8(dev)
+    permute_err, permute_inputs = check_beam_permute(dev)
+    mm_err, mm_inputs = check_int8_matmul(dev)
+    torch.cuda.empty_cache()
+    last_ms = time_last_kernels(dev, dma_inputs, cross_q8_inputs, permute_inputs, mm_inputs)
+    del dma_inputs, cross_q8_inputs, permute_inputs, mm_inputs
+    torch.cuda.empty_cache()
+    launches.update(run_merged_cross_path(dev, flag))
+    torch.cuda.empty_cache()
+    launches.update(run_physical_path(dev, flag))
+    del flag
+    torch.cuda.empty_cache()
+    check_last_paths_small_against_cpu(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2343,6 +2744,11 @@ def main() -> None:
         "fused_mlp": mlp_bound(1024, HEAD_D, 4 * HEAD_D),
         **flash_ce_route_bounds(n_ce),
         **attention_bounds(dec_b, dec_t, dec_t, dec_h),
+        # row 13 on the live rows: the kernel reads no pad row
+        "fused_cross_attention_dma": cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D),
+        "fused_cross_attention_q8": q8_cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D, FLAG_H),
+        "beam_permute": bound(2 * 2 * int(np.prod(PERMUTE_SHAPE)), 0, "bf16"),
+        "int8_matmul": int8_matmul_bound(1024, 1024, 3072),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
@@ -2354,6 +2760,8 @@ def main() -> None:
               "fused_lazy_attention int8 per-head": blocked_attention_bound(
                   live_rows[True], FLAG_B, FLAG_K, 63, HEAD_D, FLAG_H, 1, scale_bytes=4),
               "ln_gemm N=32": ln_gemm_bound(32, HEAD_D, 3 * HEAD_D),
+              **{f"int8_matmul M={m} N={n}": int8_matmul_bound(m, 1024, n)
+                 for m, n in ((4, 3072), (4, HEAD_V), (1024, HEAD_V))},
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D)}
     others.update(flash_ce_contraction_bounds(n_ce))
     vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
@@ -2428,6 +2836,23 @@ def main() -> None:
              max_abs_err=tf_err["small_attention_backward"],
              ms=tf_ms[("small_bwd", "decoder")][0], plain_ms=tf_ms[("small_bwd", "decoder")][1],
              library_ms=tf_ms[("small_bwd", "decoder")][2]),
+        dict(name="fused_cross_attention_dma", source="mic_tpu_torch/csrc/cross_attention.cu",
+             replaces="mic_tpu/ops/cross_attention.py:183", max_abs_err=dma_err,
+             ms=last_ms["dma"][0], plain_ms=last_ms["dma"][1], library_ms=last_ms["dma"][2]),
+        # no path of mic_tpu or of the port builds an int8 cross cache: its
+        # launch count on the main paths is 0, and no one PyTorch call
+        # computes the function
+        dict(name="fused_cross_attention_q8", source="mic_tpu_torch/csrc/cross_attention.cu",
+             replaces="mic_tpu/ops/cross_attention.py:79", max_abs_err=cross_q8_err,
+             ms=last_ms["q8"][0], plain_ms=last_ms["q8"][1]),
+        dict(name="beam_permute", source="mic_tpu_torch/csrc/beam_permute.cu",
+             replaces="mic_tpu/ops/beam_permute.py:97", max_abs_err=permute_err,
+             ms=last_ms["permute"][0], plain_ms=last_ms["permute"][1],
+             library_ms=last_ms["permute"][2]),
+        # mic_tpu keeps it as a reference with no caller; nor has the port
+        dict(name="int8_matmul", source="mic_tpu_torch/csrc/int8_matmul.cu",
+             replaces="mic_tpu/ops/int8_matmul.py:31", max_abs_err=mm_err,
+             ms=last_ms[("mm", 1024, 3072)][0], plain_ms=last_ms[("mm", 1024, 3072)][1]),
     ]
     for k in kernels:
         k["route"] = "cuda"

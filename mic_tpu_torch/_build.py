@@ -76,6 +76,14 @@ _SIGNATURES = {
     "mic_lazy_attention_blocked_q8": [_P] * 9 + [_I] * 6 + [_P],
     # q, enc_k, enc_v, out, batch, beams, enc_len, heads, head_dim, stream
     "mic_cross_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    # q, enc_k, k_scale, enc_v, v_scale, out, batch, beams, enc_len, heads, head_dim, stream
+    "mic_cross_attention_q8": [_P] * 6 + [_I] * 5 + [_P],
+    # q, enc_k, enc_v, out, batch, beams, s_pad, real_s, heads, head_dim, stream
+    "mic_cross_attention_dma_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # kv, idx, out, layers, rows, beams, row_elems, elem_bytes, stream
+    "mic_beam_permute": [_P] * 3 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
+    # x, w_q, scale, out, m, k, n, stream
+    "mic_int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # x, scale, shift, w, bias, out, n, d, o, eps, stream
     "mic_ln_gemm_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
     # x, w1, b1, w2, b2, h, out, n, d, f, act, stream

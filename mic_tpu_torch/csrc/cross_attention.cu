@@ -1,19 +1,27 @@
 // Beam-grouped cross-attention of one decoder layer at one decode step.
 //
-// Replaces mic_tpu/ops/cross_attention.py::fused_cross_attention (the bf16
-// _kernel_bf16; the int8 _kernel_q8 takes a quantized cross cache that
-// nothing in mic_tpu builds).  An image's K beams share its encoder K/V,
-// (B, S, H, Dh) bf16, read-only, every position live:
+// Replaces mic_tpu/ops/cross_attention.py:
+//   - fused_cross_attention, the bf16 _kernel_bf16 and the int8 _kernel_q8
+//     (a quantized cross cache, int8 rows with an f32 scale per (image,
+//     position, head));
+//   - fused_cross_attention_dma (_kernel_cross_dma): the merged
+//     (B, S_pad, H*Dh) bf16 cache, the encoder axis padded with zero rows
+//     to a multiple of 16, rows at or past real_s dead.
+// An image's K beams share its encoder K/V, read-only:
 //
-//   out[b, k, h] = bf16( softmax(q[b,k,h] . K[b,:,h]) rounded to bf16 @ V[b,:,h] )
+//   out[b, k, h] = bf16( softmax(q[b,k,h] . K[b,:,h] * ks) * vs rounded to bf16 @ V[b,:,h] )
 //
-// the arithmetic of _attend_tiles with no mask and no step rows.  S is any
-// length (50 at the flagship, CLIP ViT-B/32's 49 patches and its class
-// token): nothing is padded.
+// the arithmetic of _attend_tiles with no step rows (ks = vs = 1 in bf16).
+// The TPU kernel masks the padded rows to finfo(float32).min, so each
+// weighs exp(...) == 0 exactly; here they are never read (positions =
+// real_s, the row stride t_max = S_pad), which gives the same result.
 //
-// Bound: bytes, each image's K and V read once (52 MB a layer at B=256,
-// S=50, H*Dh=1024).  Design: attend_rows.cuh with one source of S rows, one
-// block of four warps per (head, image).
+// Bound: bytes, each image's live K and V rows read once (52 MB a layer at
+// B=256, S=50, H*Dh=1024 in bf16; half that, plus the scales, in int8).
+// Design: attend_rows.cuh with one source of S rows, one block of four
+// warps per (head, image).  The TPU kernel's double-buffered DMA groups
+// existed to keep its sequential grid fed; 4096 blocks in flight on 132 SMs
+// need no such scheme.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,6 +34,28 @@ extern "C" int mic_cross_attention_bf16(void* q, void* enc_k, void* enc_v, void*
                                         void* stream) {
   attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr, nullptr,
                  nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len,
+                 heads};
+  return attend::launch<__nv_bfloat16, false, false>(a, batch, head_dim,
+                                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mic_cross_attention_q8(void* q, void* enc_k, void* k_scale, void* enc_v,
+                                      void* v_scale, void* out, int batch, int beams, int enc_len,
+                                      int heads, int head_dim, void* stream) {
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v,
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), nullptr,
+                 nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len,
+                 heads};
+  return attend::launch<int8_t, false, false>(a, batch, head_dim,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mic_cross_attention_dma_bf16(void* q, void* enc_k, void* enc_v, void* out,
+                                            int batch, int beams, int s_pad, int real_s, int heads,
+                                            int head_dim, void* stream) {
+  if (real_s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, s_pad, real_s,
                  heads};
   return attend::launch<__nv_bfloat16, false, false>(a, batch, head_dim,
                                                      static_cast<cudaStream_t>(stream));

@@ -1,10 +1,13 @@
 // A 64 x 64 output tile of C = A @ B on the tensor cores, shared by the
-// LN -> GEMM kernel (ln_gemm.cu) and the fused MLP (fused_mlp.cu).
+// LN -> GEMM kernel (ln_gemm.cu), the fused MLP (fused_mlp.cu) and the int8
+// dequant GEMM (int8_matmul.cu).
 //
 // A is (M, depth) row-major bf16, produced slice by slice by the caller's
 // loader (copied as it is, or layer-normalised on the way); B is
 // (depth, ldb) row-major bf16, the (in, out) layout of mic_tpu's dense
-// kernels.  Slices of depth 32 stream through a three-stage ring in shared
+// kernels, copied as it is (``tile``) or produced by a loader of the
+// caller's too (``tile_with``: int8 weights dequantised on the way).
+// Slices of depth 32 stream through a three-stage ring in shared
 // memory (cp.async for B, and for A where it is copied as it is); four
 // warps each own a 32 x 32 quarter of the tile as 2 x 2 WMMA (mma.sync)
 // bf16 fragments with f32 accumulation.  After the last slice the f32 tile
@@ -12,8 +15,9 @@
 // consecutive columns a thread.  The sum over depth is one fixed order: no
 // split and no atomics, so reruns are bit-equal.
 //
-// Shapes the caller guarantees: depth % 32 == 0, ldb % 64 == 0, every row
-// 16-byte aligned.  Rows of A past M re-read row M - 1 and are not written.
+// Shapes the caller of ``tile`` guarantees: depth % 32 == 0, ldb % 64 == 0,
+// every row 16-byte aligned.  Rows of A past M re-read row M - 1 and are not
+// written.  A loader of ``tile_with`` handles its own edges.
 
 #pragma once
 
@@ -71,12 +75,28 @@ struct LoadRows {
   }
 };
 
-// Computes the block's tile, then epi(c_row, row, col) for each run of
-// eight columns of each row < m, c_row pointing at the eight f32 sums.
-template <class LoadA, class Epilogue>
-__device__ __forceinline__ void tile(const LoadA& load_a, const bf16* __restrict__ b, int ldb,
-                                     int depth, int row0, int col0, int m, unsigned char* smem,
-                                     const Epilogue& epi) {
+// B copied as it is: rows kk.. and columns col0.. of a (depth, ldb) matrix.
+struct LoadCols {
+  const bf16* b;
+  int ldb, col0;
+
+  __device__ __forceinline__ void operator()(bf16* dst, int kk) const {
+    for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8);
+      const int c = (i % (kBN / 8)) * 8;
+      cp_async16(dst + r * kLdb + c, b + static_cast<size_t>(kk + r) * ldb + col0 + c);
+    }
+  }
+};
+
+// Computes the block's tile from the slices load_a(dst, kk) and
+// load_b(dst, kk) write (A's 64 x 32 at pitch kLda, B's 32 x 64 at pitch
+// kLdb), then epi(c_row, row, col) for each run of eight columns of each
+// row < m, c_row pointing at the eight f32 sums.
+template <class LoadA, class LoadB, class Epilogue>
+__device__ __forceinline__ void tile_with(const LoadA& load_a, const LoadB& load_b, int depth,
+                                          int row0, int col0, int m, unsigned char* smem,
+                                          const Epilogue& epi) {
   bf16* as = reinterpret_cast<bf16*>(smem);
   bf16* bs = as + kStages * kATile;
   float* cs = reinterpret_cast<float*>(smem);  // after the ring is drained
@@ -89,12 +109,7 @@ __device__ __forceinline__ void tile(const LoadA& load_a, const bf16* __restrict
   auto load_slice = [&](int s) {
     const int kk = s * kBK;
     load_a(as + (s % kStages) * kATile, kk);
-    bf16* dst = bs + (s % kStages) * kBTile;
-    for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-      const int r = i / (kBN / 8);
-      const int c = (i % (kBN / 8)) * 8;
-      cp_async16(dst + r * kLdb + c, b + static_cast<size_t>(kk + r) * ldb + col0 + c);
-    }
+    load_b(bs + (s % kStages) * kBTile, kk);
   };
 
 #pragma unroll
@@ -148,6 +163,14 @@ __device__ __forceinline__ void tile(const LoadA& load_a, const bf16* __restrict
     const int c = (i % (kBN / 8)) * 8;
     if (row0 + r < m) epi(cs + r * kLdc + c, row0 + r, col0 + c);
   }
+}
+
+// The tile with B (depth, ldb) copied as it is.
+template <class LoadA, class Epilogue>
+__device__ __forceinline__ void tile(const LoadA& load_a, const bf16* __restrict__ b, int ldb,
+                                     int depth, int row0, int col0, int m, unsigned char* smem,
+                                     const Epilogue& epi) {
+  tile_with(load_a, LoadCols{b, ldb, col0}, depth, row0, col0, m, smem, epi);
 }
 
 // eight bf16 values to and from floats

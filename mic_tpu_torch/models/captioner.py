@@ -20,8 +20,11 @@ The beam step's kernels follow mic_tpu's switches
 ("auto" and "2": the attention kernel that writes the cache column; "1":
 the blocked kernel, whose int8 cache has a scale per (row, position,
 head)), and MIC_TPU_EXPERIMENTAL's fused_cross_attn, fused_mlp and ln_qkv.
-Switches whose mic_tpu path is not ported raise: MIC_TPU_FUSED_LAZY_ATTN=0
-(mic_tpu's XLA chain) and MIC_TPU_EXPERIMENTAL=merged_cross.
+MIC_TPU_EXPERIMENTAL=merged_cross stores the lazy path's cross K/V merged
+and padded, (L, B, S_pad, H*Dh), and runs the merged cross-attention kernel
+(ops/cross_attention.py::fused_cross_attention_dma) in every layer; the
+physical cache ignores it, as mic_tpu does.  MIC_TPU_FUSED_LAZY_ATTN=0
+(mic_tpu's XLA chain) raises: that path is not ported.
 
 The full-sequence attention of both towers (the encoder, and the
 teacher-forced decoder's self-attention) follows mic_tpu's
@@ -187,24 +190,29 @@ class Captioner:
 
     def init_decode_cache(self, params: Params, enc_states: torch.Tensor, max_length: int,
                           beams: int, lazy: bool = True, kv_quant: str | None = None,
-                          merged: bool = True) -> LazyDecoderCache | DecoderCache:
+                          merged: bool = True,
+                          merged_cross: bool = False) -> LazyDecoderCache | DecoderCache:
         """enc_states is true-batch (B, S, D): cross K/V are kept once per
-        image; only the self cache is per beam: the lazy cache (int8 with
-        kv_quant="int8", with per-row scales when ``merged``, else per-head
-        ones), or the physical (L, B*beams, T, H, Dh) one."""
+        image, merged and padded to (L, B, S_pad, H*Dh) with
+        ``merged_cross``; only the self cache is per beam: the lazy cache
+        (int8 with kv_quant="int8", with per-row scales when ``merged``, else
+        per-head ones), or the physical (L, B*beams, T, H, Dh) one."""
         cross_k, cross_v = mbart_decoder.init_cross_cache(
-            params["decoder"], enc_states, self.config.decoder, self.dtype
+            params["decoder"], enc_states, self.config.decoder, self.dtype, merged=merged_cross
         )
         if lazy:
-            return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant, merged)
+            return init_lazy_cache(cross_k, cross_v, beams, max_length, kv_quant, merged,
+                                   num_heads=self.config.decoder.num_heads)
         return init_cache(cross_k, cross_v, enc_states.shape[0] * beams, max_length)
 
-    def decode_step(self, params: Params, token_ids: torch.Tensor, cache, beams: int = 1):
+    def decode_step(self, params: Params, token_ids: torch.Tensor, cache, beams: int = 1,
+                    enc_len: int | None = None):
         """(B*beams, 1) tokens + cache -> ((B*beams, vocab) logits in the
-        compute dtype, cache)."""
+        compute dtype, cache); ``enc_len`` is the live length of a merged
+        cross cache."""
         hidden, cache = mbart_decoder.decoder_step(
             params["decoder"], params["shared"], token_ids, cache, self.config.decoder,
-            self.dtype, beams,
+            self.dtype, beams, enc_len,
         )
         return self.lm_logits(params, hidden)[:, 0, :], cache
 
@@ -306,15 +314,15 @@ class Captioner:
         # mode "1" (MIC_TPU_EXPERIMENTAL=merged_kv forces per-row)
         mode = lazy_attention.resolve_mode(gen.max_length)
         merged = not (kv_quant == "int8" and mode == "1" and experimental("merged_kv") != "1")
-        if lazy and experimental("merged_cross") == "1":
-            raise NotImplementedError("MIC_TPU_EXPERIMENTAL=merged_cross: the merged cross "
-                                      "cache and its DMA cross kernel are not ported "
-                                      "(ROADMAP B13)")
+        # the merged, padded cross cache and its kernel: lazy path only
+        merged_cross = lazy and experimental("merged_cross") == "1"
 
         enc_states = self.encode(params, pixel_values)
+        enc_len = enc_states.shape[1]  # before the merged cross cache's pad
         # the quantized KV cache is lazy-path only
         cache = self.init_decode_cache(params, enc_states, gen.max_length, gen.num_beams,
-                                       lazy, kv_quant if lazy else None, merged=merged)
+                                       lazy, kv_quant if lazy else None, merged=merged,
+                                       merged_cross=merged_cross)
         if fused_head:
             sel = override("MIC_TPU_FUSED_SELECT", dcfg.fused_select)
             if sel == "auto":
@@ -324,14 +332,14 @@ class Captioner:
             def step_fn(token_ids, cache):
                 hidden, cache = mbart_decoder.decoder_step(
                     params["decoder"], params["shared"], token_ids, cache, dec, self.dtype,
-                    gen.num_beams,
+                    gen.num_beams, enc_len,
                 )
                 return hidden[:, 0, :], cache
         else:
             head = None
 
             def step_fn(token_ids, cache):
-                return self.decode_step(params, token_ids, cache, gen.num_beams)
+                return self.decode_step(params, token_ids, cache, gen.num_beams, enc_len)
 
         forced = []
         if gen.forced_bos_token_id is not None:

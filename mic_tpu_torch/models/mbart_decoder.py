@@ -2,9 +2,10 @@
 teacher-forced full-sequence pass for training (``apply_decoder``) and
 cached single-token decoding (``decoder_step``) on the lazy beam cache
 (with mic_tpu's opt-in kernels of the beam step: the blocked lazy
-attention, the cross-attention, LN -> QKV and the fused MLP) or on the
-physical cache, whose self-attention runs the decode-attention kernel
-under MIC_TPU_EXPERIMENTAL=fused_decode.
+attention, the cross-attention over the canonical or the merged cross
+cache, LN -> QKV and the fused MLP) or on the physical cache, whose
+self-attention runs the decode-attention kernel under
+MIC_TPU_EXPERIMENTAL=fused_decode.
 
 Token embeddings are the shared table scaled by sqrt(d_model) in the
 compute dtype; learned positions are offset by 2; every layer is
@@ -195,9 +196,11 @@ def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
 
 
 def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfig,
-                     dtype: torch.dtype):
+                     dtype: torch.dtype, merged: bool = False):
     """Project the encoder states into every layer's cross K/V once:
-    -> (cross_k, cross_v), each (L, B, S, H, Dh)."""
+    -> (cross_k, cross_v), each (L, B, S, H, Dh), or with ``merged`` (the
+    merged_cross layout of ops/cross_attention.py::fused_cross_attention_dma)
+    (L, B, S_pad, H*Dh) with S padded by zero rows to a multiple of 16."""
     enc_states = enc_states.to(dtype)
     ks, vs = [], []
     for layer in range(cfg.num_layers):
@@ -205,17 +208,24 @@ def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfi
         k, v = project_kv(p, enc_states, cfg.num_heads)
         ks.append(k)
         vs.append(v)
-    return torch.stack(ks), torch.stack(vs)
+    k, v = torch.stack(ks), torch.stack(vs)
+    if merged:
+        num_layers, b, s = k.shape[:3]
+        pad = (0, 0, 0, (-s) % 16)
+        k = torch.nn.functional.pad(k.reshape(num_layers, b, s, -1), pad)
+        v = torch.nn.functional.pad(v.reshape(num_layers, b, s, -1), pad)
+    return k, v
 
 
 def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor, cache,
                          cfg: DecoderConfig, dtype: torch.dtype, self_attention,
-                         cross_kernel: bool = False, mlp=None):
+                         cross_kernel: bool = False, mlp=None, enc_len: int | None = None):
     """The decode step's layer stack around ``self_attention(p, x, layer)``,
     which takes the layer's params and its PRE-norm input (it applies
     ln_self itself), returns the (N, 1, D) self-attention output and writes
     the step's K/V into column ``cache.index`` of the layer's self cache in
-    place.  ``cross_kernel`` runs the cross-attention kernel; ``mlp(p, x)``,
+    place.  ``cross_kernel`` runs the cross-attention kernel; a merged cross
+    cache always runs its own, over its first ``enc_len`` rows; ``mlp(p, x)``,
     where given, replaces fc1 -> act -> fc2."""
     check_pre_norm(cfg)
     eps = cfg.layer_norm_eps
@@ -230,7 +240,7 @@ def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor
         x = layer_norm(p["ln_cross"], x, eps)
         x = r + mha_cross_grouped(
             p["cross_attn"], x, cache.cross_k[layer], cache.cross_v[layer], cfg.num_heads,
-            kernel=cross_kernel,
+            kernel=cross_kernel, enc_len=enc_len,
         )
         r = x
         x = layer_norm(p["ln_mlp"], x, eps)
@@ -242,7 +252,7 @@ def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor
 
 def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
                        cache: LazyDecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
-                       beams: int):
+                       beams: int, enc_len: int | None = None):
     """mic_tpu's ``_decoder_step_lazy``: each layer's self K/V gain column
     ``cache.index`` in place and nothing is reordered.
 
@@ -254,6 +264,9 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
         the blocked kernel on the per-step ancestry mask, built once and
         shared by every layer.  Where mic_tpu would run its XLA chain (mode
         "0", a shape mode "1" does not take) the port raises.
+      - a merged cross cache (MIC_TPU_EXPERIMENTAL=merged_cross, resolved
+        by the captioner): the merged cross-attention kernel over its first
+        ``enc_len`` rows, whatever the next switch says;
       - MIC_TPU_EXPERIMENTAL=fused_cross_attn with H*Dh a multiple of 128:
         the cross-attention kernel.
       - fused_mlp, on a float fc1 ("kernel") with a bias, N = images x beams
@@ -290,7 +303,7 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
         )
 
     return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,
-                                cross_kernel=cross_kernel, mlp=mlp)
+                                cross_kernel=cross_kernel, mlp=mlp, enc_len=enc_len)
 
 
 def _decoder_step_physical(params: Params, shared: Params, token_ids: torch.Tensor,
@@ -326,13 +339,17 @@ def _decoder_step_fused(params: Params, shared: Params, token_ids: torch.Tensor,
 
 
 def decoder_step(params: Params, shared: Params, token_ids: torch.Tensor, cache,
-                 cfg: DecoderConfig, dtype: torch.dtype, beams: int = 1):
+                 cfg: DecoderConfig, dtype: torch.dtype, beams: int = 1,
+                 enc_len: int | None = None):
     """One cached decode step: token_ids (N, 1) -> (hidden (N, 1, D), cache
     with index + 1), N = images x beams.  Dispatches on the cache as mic_tpu
     does: the lazy cache, then MIC_TPU_EXPERIMENTAL=fused_decode, then the
-    physical step.  The cross K/V are per image and shared by its beams."""
+    physical step.  The cross K/V are per image and shared by its beams;
+    ``enc_len`` is the live length of a merged padded cross cache (the lazy
+    cache alone carries one)."""
     if isinstance(cache, LazyDecoderCache):
-        return _decoder_step_lazy(params, shared, token_ids, cache, cfg, dtype, beams)
+        return _decoder_step_lazy(params, shared, token_ids, cache, cfg, dtype, beams,
+                                  enc_len)
     if experimental("fused_decode", "0") == "1":
         return _decoder_step_fused(params, shared, token_ids, cache, cfg, dtype)
     return _decoder_step_physical(params, shared, token_ids, cache, cfg, dtype)

@@ -12,7 +12,7 @@ from mic_tpu_torch.core.params import Params
 from mic_tpu_torch.nn.layers import dense, init_dense, layer_norm, merge_heads, split_heads
 from mic_tpu_torch.ops import ln_gemm as ln_gemm_ops
 from mic_tpu_torch.ops.attention import dot_product_attention, xla_attention
-from mic_tpu_torch.ops.cross_attention import fused_cross_attention
+from mic_tpu_torch.ops.cross_attention import fused_cross_attention, fused_cross_attention_dma
 from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, lazy_attention, lazy_attention_q8
 from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
@@ -51,15 +51,24 @@ def mha(params: Params, x: torch.Tensor, kv_states: torch.Tensor, mask,
 
 
 def mha_cross_grouped(params: Params, x: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor, num_heads: int, kernel: bool = False) -> torch.Tensor:
+                      v: torch.Tensor, num_heads: int, kernel: bool = False,
+                      enc_len: int | None = None) -> torch.Tensor:
     """Cached cross-attention with K/V held once per image: x (B*K, 1, D),
-    k/v (B, S, H, Dh); an image's K beams ride the query axis.  With
-    ``kernel`` (MIC_TPU_EXPERIMENTAL=fused_cross_attn) the attention is
+    k/v (B, S, H, Dh); an image's K beams ride the query axis.  In
+    mic_tpu's order: the merged (B, S_pad, H*Dh) cache
+    (MIC_TPU_EXPERIMENTAL=merged_cross, zero rows past ``enc_len``) goes to
+    ops/cross_attention.py::fused_cross_attention_dma whatever ``kernel``
+    says; else ``kernel`` (MIC_TPU_EXPERIMENTAL=fused_cross_attn) takes
     ops/cross_attention.py::fused_cross_attention."""
     bk, one, d = x.shape
     head_dim = d // num_heads
     b = k.shape[0]
     q = dense(params["q"], x) * (head_dim**-0.5)
+    if k.ndim == 3:
+        out = fused_cross_attention_dma(q.reshape(b, (bk // b) * one, d), k, v,
+                                        enc_len if enc_len is not None else k.shape[1],
+                                        (bk // b) * one, num_heads)
+        return dense(params["o"], out.reshape(bk, one, d))
     if kernel:
         out = fused_cross_attention(q.reshape(b, (bk // b) * one, d), k, v, (bk // b) * one,
                                     num_heads)

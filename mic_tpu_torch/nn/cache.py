@@ -5,7 +5,8 @@ and the lazy beam-search cache ``LazyDecoderCache``.
 ``DecoderCache`` stacks every layer's self K/V as one (L, N, T, H, Dh)
 tensor per plane (N = images x beams) and the cross K/V once per image as
 (L, B, S, H, Dh); the decode step writes each layer's column ``index`` in
-place.  A beam reorder moves the self K/V rows (``beam_reorder``).
+place.  A beam reorder moves the self K/V rows (``beam_reorder``, through
+ops/beam_permute.py).
 
 In ``LazyDecoderCache`` row b*K + k of each layer's self K/V always holds what running slot k of
 image b wrote at each step; which row holds a beam's token at position t is
@@ -22,7 +23,9 @@ scales in one of mic_tpu's two layouts:
 
 Shapes of ``LazyDecoderCache``:
   self_k / self_v : L-list of (B*K, max_len, H*Dh), or of int8 dicts
-  cross_k/ cross_v: (L, B, enc_len, H, Dh) -- per image, beam-invariant
+  cross_k/ cross_v: (L, B, enc_len, H, Dh) -- per image, beam-invariant;
+                    or merged (L, B, S_pad, H*Dh), S padded with zero rows
+                    to a multiple of 16 (MIC_TPU_EXPERIMENTAL=merged_cross)
   ancestry        : (B, K, max_len) int32
   index           : host int -- number of positions already written
 """
@@ -32,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from mic_tpu_torch.ops.beam_permute import beam_permute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,14 +64,20 @@ class LazyDecoderCache:
 
 def init_lazy_cache(cross_k: torch.Tensor, cross_v: torch.Tensor, num_beams: int,
                     max_len: int, kv_quant: str | None = None,
-                    merged: bool = True) -> LazyDecoderCache:
+                    merged: bool = True, num_heads: int | None = None) -> LazyDecoderCache:
     """Zeroed self K/V (one tensor, or int8 dict, per layer) and identity
-    ancestry around the projected cross K/V (L, B, S, H, Dh), whose layer
-    count, batch, heads, dtype and device the self cache takes.  An int8
-    cache has per-row scales when ``merged``, else per-head ones."""
-    num_layers, batch, _, num_heads, head_dim = cross_k.shape
+    ancestry around the projected cross K/V (L, B, S, H, Dh), or merged
+    (L, B, S_pad, H*Dh), whose layer count, batch, width, dtype and device
+    the self cache takes.  An int8 cache has per-row scales when ``merged``,
+    else per-head ones; those need ``num_heads`` beside a merged cross cache."""
+    num_layers, batch = cross_k.shape[:2]
+    if cross_k.ndim == 5:
+        num_heads = cross_k.shape[3]
+    elif num_heads is None and kv_quant and not merged:
+        raise ValueError("init_lazy_cache: per-head int8 scales beside a merged cross cache "
+                         "need num_heads")
     device = cross_k.device
-    shape = (batch * num_beams, max_len, num_heads * head_dim)
+    shape = (batch * num_beams, max_len, cross_k.shape[3:].numel())
     scales = shape[:2] if merged else (*shape[:2], num_heads)
     if kv_quant == "int8":
         def kv():
@@ -111,15 +122,12 @@ class DecoderCache:
     def beam_reorder(self, beam_indices: torch.Tensor, num_beams: int) -> "DecoderCache":
         """Physical beam reorder: row b*K + k of the self K/V takes row
         b*K + beam_indices[b, k] (within-group sources, (B, K)), the row move
-        of mic_tpu/ops/beam_permute.py::beam_permute_matmul as a gather.
+        of mic_tpu/ops/beam_permute.py, one ops/beam_permute.py call a plane.
         The cross K/V are per image and never move."""
-        b = beam_indices.shape[0]
-        base = torch.arange(b, device=beam_indices.device)[:, None] * num_beams
-        rows = (base + beam_indices.long()).reshape(-1)
         return dataclasses.replace(
             self,
-            self_k=self.self_k.index_select(1, rows),
-            self_v=self.self_v.index_select(1, rows),
+            self_k=beam_permute(self.self_k, beam_indices, num_beams),
+            self_v=beam_permute(self.self_v, beam_indices, num_beams),
         )
 
 

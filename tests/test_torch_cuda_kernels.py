@@ -34,7 +34,12 @@ full-sequence attention kernels (small-T forward and backward, flash
 forward): outputs within 2e-2 in bf16 (a softmax weight rounded to bf16 the
 other way, and the output's own rounding) and 1e-5 in f32, small-T
 gradients within 2e-2 (bf16) or 1e-5 (f32) of their largest entry, a flash
-row with no valid key exactly 0, reruns bit-equal.
+row with no valid key exactly 0, reruns bit-equal.  The last four kernels:
+the merged-cache cross-attention and the int8 cross-attention within 2e-2,
+the merged one bit-equal whether its pad rows hold zeros or NaN (it never
+reads them); the beam permute bit-equal (it copies); the int8 dequant GEMM
+within one bf16 ulp of the plain output plus the worst-case error of f32
+sums in another order, K * 2**-24 * sum |x| |w|.
 """
 
 import pytest
@@ -63,7 +68,15 @@ from mic_tpu_torch.ops.fused_head import (
     fused_head_topk_q8,
     fused_head_topk_q8_plain,
 )
-from mic_tpu_torch.ops.cross_attention import fused_cross_attention, fused_cross_attention_plain
+from mic_tpu_torch.ops.beam_permute import beam_permute, beam_permute_plain
+from mic_tpu_torch.ops.cross_attention import (
+    fused_cross_attention,
+    fused_cross_attention_dma,
+    fused_cross_attention_dma_plain,
+    fused_cross_attention_plain,
+    fused_cross_attention_q8,
+)
+from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 from mic_tpu_torch.ops import flash_attention as flash
 from mic_tpu_torch.ops import small_attention as small
@@ -911,3 +924,115 @@ def test_attention_switches_route_through_the_kernels(cuda, monkeypatch):
     assert small.small_attention_forward.launches == 2 * layers
     assert small.small_attention_backward.launches == layers
     assert torch.isfinite(metrics["loss"]).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("s,s_pad", [(50, 64), (37, 48), (64, 64), (1, 16)])
+def test_fused_cross_attention_dma_kernel_matches_plain(cuda, s, s_pad):
+    b, beams, heads, dh = 3, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
+    ek, ev = (torch.zeros((b, s_pad, heads * dh), device=cuda, dtype=torch.bfloat16)
+              for _ in range(2))
+    for c in (ek, ev):
+        c[:, :s] = torch.randn((b, s, heads * dh), generator=g, device=cuda) * 0.5
+    launches = fused_cross_attention_dma.launches
+    out = fused_cross_attention_dma(q, ek, ev, s, beams, heads)
+    ref = fused_cross_attention_dma_plain(q, ek, ev, s, beams, heads)
+    for c in (ek, ev):
+        c[:, s:] = float("nan")
+    again = fused_cross_attention_dma(q, ek, ev, s, beams, heads)
+    torch.cuda.synchronize()
+    assert fused_cross_attention_dma.launches == launches + 2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["canonical", "merged"])
+def test_fused_cross_attention_q8_kernel_matches_plain(cuda, layout):
+    b, beams, s, heads, dh = 3, 4, 50, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
+    caches = []
+    for _ in range(2):
+        values, scales = quantize_rows_dynamic(
+            (torch.randn((b, s, heads, dh), generator=g, device=cuda) * 0.5).bfloat16())
+        shape = (b, s, heads, dh) if layout == "canonical" else (b, s, heads * dh)
+        caches.append({"q": values.reshape(shape), "s": scales[..., 0].contiguous()})
+    launches = fused_cross_attention_q8.launches, fused_cross_attention.launches
+    out = fused_cross_attention(q, *caches, beams, heads)
+    ref = fused_cross_attention_plain(q, *caches, beams, heads)
+    torch.cuda.synchronize()
+    assert (fused_cross_attention_q8.launches, fused_cross_attention.launches) == (
+        launches[0] + 1, launches[1])
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 8, 16, 64), (3, 2, 3, 5, 3, 7), (1, 4, 1, 2, 2, 8)])
+def test_beam_permute_kernel_matches_plain(cuda, shape, dtype):
+    """(L, B, K, T, H, Dh): 16-byte rows, rows of 105 elements (no 16-byte
+    alignment past the first), one beam."""
+    l, b, k, t, h, dh = shape
+    g = torch.Generator(device=cuda).manual_seed(t)
+    kv = (torch.randn((l, b * k, t, h, dh), generator=g, device=cuda) * 50).to(dtype)
+    idx = torch.randint(0, k, (b, k), generator=g, device=cuda)
+    before = kv.clone()
+    launches = beam_permute.launches
+    out = beam_permute(kv, idx, k)
+    torch.cuda.synchronize()
+    assert beam_permute.launches == launches + 1
+    assert torch.equal(out, beam_permute_plain(kv, idx, k)) and torch.equal(kv, before)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 3072), (70, 256, 384), (3, 100, 70), (65, 33, 250)])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
+    """Aligned decode shapes and ragged M, K and N (zero-filled edges, no
+    16-byte rows)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 0.3).bfloat16()
+    w_q = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=cuda) * 0.09 + 0.01
+    launches = int8_matmul.launches
+    out = int8_matmul(x, w_q, scale)
+    again = int8_matmul(x, w_q, scale)
+    ref = int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == launches + 2 and torch.equal(out, again)
+    w = w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)
+    l1 = x.float().abs() @ w.float().abs()
+    bound = _bf16_ulp(ref.float().abs()) + k * 2.0**-24 * l1
+    assert bool(((out.float() - ref.float()).abs() <= bound).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["merged_cross", "merged_cross_int8", "physical"])
+def test_beam_generate_runs_through_the_last_kernels(cuda, monkeypatch, case):
+    """merged_cross: the merged cross-attention kernel once a layer a step,
+    with the bf16 and the int8 KV cache; MIC_TPU_LAZY_CACHE=0: two beam
+    permutes a step (self K and self V), merged_cross ignored."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "merged_cross")
+    if case == "physical":
+        monkeypatch.setenv("MIC_TPU_LAZY_CACHE", "0")
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2,
+                                   ffn_dim=512, max_position_embeddings=64),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=cuda).manual_seed(5),
+                                             cuda))
+    images = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8, device=cuda)
+    px = preprocess_images(images, 32, torch.bfloat16)
+    fused_cross_attention_dma.launches = beam_permute.launches = 0
+    out = Captioner(config).generate(params, px, num_beams=4, max_length=12,
+                                     forced_bos_token_id=7,
+                                     kv_quant="int8" if case.endswith("int8") else None)
+    torch.cuda.synchronize()
+    layers = config.decoder.num_layers
+    want = (0, 2 * out.steps) if case == "physical" else (layers * out.steps, 0)
+    assert (fused_cross_attention_dma.launches, beam_permute.launches) == want
+    assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()

@@ -334,7 +334,6 @@ REFUSED = {
     "lazy_attn_1_per_row_int8": ({"MIC_TPU_FUSED_LAZY_ATTN": "1",
                                   "MIC_TPU_EXPERIMENTAL": "merged_kv"}, "generate",
                                  dict(kv_quant="int8"), "ROADMAP A9"),
-    "merged_cross": ({"MIC_TPU_EXPERIMENTAL": "merged_cross"}, "generate", {}, "ROADMAP B13"),
 }
 
 

@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from mic_tpu.core.config import CaptionerConfig, DecoderConfig, VisionConfig
 from mic_tpu.generate import processors as jax_processors
 from mic_tpu.generate import search as jax_search
 from mic_tpu.ops.image_prep import preprocess_images as jax_preprocess
 from mic_tpu_torch.core.config import DecodeConfig
 from mic_tpu_torch.generate import processors, search
 from mic_tpu_torch.models import mbart_decoder
+from mic_tpu_torch.nn import attention
+from mic_tpu_torch.nn import cache as cache_mod
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from test_torch_captioner import TOL, _config, _images, _models
 
@@ -167,6 +170,70 @@ def test_lazy_beam_refuses_unfused_qkv(env, cfg, monkeypatch):
         model.generate(tparams, px, num_beams=4, max_length=6)
     model.config = config.replace(decode=DecodeConfig(lazy_cache=False, **cfg))
     assert model.generate(tparams, px, num_beams=4, max_length=6).sequences.shape == (N_IMAGES, 6)
+
+
+MERGED_CROSS_CASES = {
+    # case: (env, kv_quant, fused-step width, atol of the scores or None)
+    # the bf16 lazy cache: both sides run the same kernel arithmetic
+    "bf16": ({"MIC_TPU_EXPERIMENTAL": "merged_cross"}, None, False, None),
+    # the int8 lazy cache (mic_tpu on its merged int8 cache): mic_tpu's XLA
+    # self-attention attends to each step row quantized, the port to it
+    # unquantized; the bound of test_torch_captioner.py's
+    # test_int8_kv_generate_near_jax_merged_kv (2.5e-4 measured)
+    "int8_kv": ({"MIC_TPU_EXPERIMENTAL": "merged_cross,merged_kv"}, "int8", False, 3e-2),
+    # the fused step: the blocked self-attention's plain version rounds to
+    # bf16 where mic_tpu's XLA chain does not; the bound of
+    # test_torch_fused_step.py's test_fused_beam_generate_near_jax (2.8e-4
+    # measured)
+    "fused_step": ({"MIC_TPU_FUSED_LAZY_ATTN": "1", "MIC_TPU_EXPERIMENTAL":
+                    "merged_cross,fused_cross_attn,fused_mlp,ln_qkv"}, None, True, 1e-2),
+    # the physical cache ignores the switch, as in mic_tpu
+    "physical": ({"MIC_TPU_EXPERIMENTAL": "merged_cross", "MIC_TPU_LAZY_CACHE": "0"}, None,
+                 False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGED_CROSS_CASES))
+def test_merged_cross_beam_generate_matches_jax(case, monkeypatch):
+    """Beam 4 under MIC_TPU_EXPERIMENTAL=merged_cross against mic_tpu's
+    generate under the same switches (its merged cross kernel in interpret
+    mode on the CPU): sequences equal, and scores within rtol 1e-4, as
+    mic_tpu holds its merged path to its canonical one, where both sides
+    attend alike (2.1e-5 measured), else within the stated bound.  The
+    merged kernel runs once a layer a step on the lazy cache; on the
+    physical cache never, and every reorder moves both self planes through
+    ops/beam_permute.py."""
+    env, kv_quant, fused_width, atol = MERGED_CROSS_CASES[case]
+    for key in ("MIC_TPU_FUSED_HEAD", "MIC_TPU_FUSED_SELECT", "MIC_TPU_EXPERIMENTAL",
+                "MIC_TPU_LAZY_CACHE", "MIC_TPU_FUSED_QKV", "MIC_TPU_FUSED_LAZY_ATTN"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    if fused_width:
+        config = CaptionerConfig(
+            vision=VisionConfig.tiny(),
+            decoder=DecoderConfig.tiny(vocab_size=600, d_model=128, num_heads=2, ffn_dim=512,
+                                       max_position_embeddings=64))
+    else:
+        config = _config(600)
+    models = _models(config, seed=2, scale=0.5 if fused_width else 0.2)
+    calls = {"fused_cross_attention_dma": 0, "beam_permute": 0}
+    for mod, name in ((attention, "fused_cross_attention_dma"), (cache_mod, "beam_permute")):
+        def counted(*args, _fn=getattr(mod, name), _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(mod, name, counted)
+    kw = dict(num_beams=4, max_length=8, forced_bos_token_id=7, kv_quant=kv_quant)
+    ref, out = _generate(models, _images(n=2 if fused_width else N_IMAGES, seed=3), kw)
+    np.testing.assert_array_equal(out.sequences.numpy(), np.asarray(ref.sequences))
+    np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores),
+                               rtol=1e-4 if atol is None else 0, atol=atol or 0)
+    assert (out.sequences[:, 1] == 7).all()
+    layers = config.decoder.num_layers
+    if case == "physical":
+        assert calls == {"fused_cross_attention_dma": 0, "beam_permute": 2 * out.steps}
+    else:
+        assert calls == {"fused_cross_attention_dma": layers * out.steps, "beam_permute": 0}
 
 
 def test_gumbel_max_reproduces_jax_categorical():
