@@ -100,10 +100,15 @@ Phases, each of which raises on failure (none catches its own):
  35. the small-T attention kernels (row 12, forward and backward) and the
      flash forward (row 11) against their plain versions at the decoder's
      B=64 T=64 H=16 (causal with right padding, and left padding: rows with
-     no valid key) and vision's B=64 T=50 H=12, flash also at Tq=Tk=600,
-     and flash's recomputing backward on the card against the CPU;
+     no valid key) and vision's B=64 T=50 H=12, small-T also at T=1 and
+     T=63, flash also at Tq=64 Tk=65 and Tq=Tk=600; every bf16 forward
+     also within one bf16 ulp of the size of its terms of the plain
+     output, with the share of outputs not bit-equal to it printed and
+     held under a limit; and flash's recomputing backward on the card
+     against the CPU;
  36. their times (CUDA-graph replays, and per call) beside their plain
-     versions', their bounds and scaled_dot_product_attention's;
+     versions', their bounds and scaled_dot_product_attention's, flash
+     also at B=8 Tq=Tk=600;
  37. flagship Captioner(attn_impl="pallas"): a teacher-forced forward and
      backward of the fused loss at B=64 (flash once per self-attention
      layer), then beam 4 under attn_impl="pallas" and under small_attn
@@ -1920,6 +1925,7 @@ def check_fused_step_small_against_cpu(dev):
 # the teacher-forced attention of the flagship train step: (B, T, H) of the
 # decoder's causal self-attention and of the vision tower's
 ATTN_SHAPES = {"decoder": (64, 64, 16), "vision": (64, 50, 12)}
+FLASH_LONG = (8, 600, 16)  # (B, T, H) of a long teacher-forced sequence for flash
 
 
 def attention_bounds(b, tq, tk, heads, dh=64):
@@ -1971,24 +1977,82 @@ def _scaled_err(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+# The most a bf16 forward's outputs may differ from the plain version's bits,
+# as a share of all outputs (check_forward_bits): the kernels' f32 values
+# differ from plain's only by the order of their sums (and flash's p by the
+# 2^-17 of it that hi + lo leave, and its online rescaling), a few 2^-24 to
+# 2^-17 of the terms' size, so an output's bits differ only where it lies
+# that close to a bf16 rounding boundary.  Measured on the card (phase 35
+# of chip_smoke.py): 4e-5 to 1.5e-4 of small-T's outputs, 1.0e-3 to 2.5e-3
+# of flash's (its p carries more rounding); flash's p rounded once to bf16
+# moves 0.35 of them, small-T's p left unrounded 0.40.  The limits are
+# about 13x and 4x the largest measured share.
+FORWARD_SHARE_LIMIT = {"small_attention_forward": 2e-3, "flash_attention": 1e-2}
+
+
+def attention_terms(name, q, k, v, bias):
+    """The size of each forward output's terms, sum_k |p_k| |v_k| / l in f32
+    from the plain version's values: small-T's softmax rounded to bf16 (l =
+    1); flash's exp(s - m), zeroed where masked, over its l (1 where l = 0)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        s = s + bias[:, None]
+    if name == "small_attention_forward":
+        p = torch.softmax(s, dim=-1).bfloat16().float()
+    else:
+        p = torch.where(s <= -5e29, 0.0, torch.exp(s - torch.clamp(s.amax(-1, keepdim=True),
+                                                                   min=-1e30)))
+        l = p.sum(-1, keepdim=True)
+        p = p / torch.where(l == 0.0, 1.0, l)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+
+
+def check_forward_bits(name, what, got, ref, terms):
+    """The sharper check of a bf16 forward beside the 2e-2 one: every output
+    within one bf16 ulp of the size of its terms of the plain output (the
+    two round f32 values that differ only by the order of their sums, so
+    they are equal or neighbouring bf16 values), and the share of outputs
+    not bit-equal to the plain version's at most FORWARD_SHARE_LIMIT.
+    Returns the share."""
+    err = (got.float() - ref.float()).abs()
+    over = int((err > _bf16_ulp(terms)).sum())
+    share = (got != ref).float().mean().item()
+    print(f"  {name} {what}: {over} outputs beyond one bf16 ulp of their terms' size, "
+          f"{share:.3e} of {got.numel()} not bit-equal to plain (limit "
+          f"{FORWARD_SHARE_LIMIT[name]:.0e})", flush=True)
+    require(over == 0, f"{name} {what}: {over} outputs beyond one bf16 ulp of their terms")
+    require(share <= FORWARD_SHARE_LIMIT[name],
+            f"{name} {what}: {share:.3e} of the outputs not bit-equal to plain")
+    return share
+
+
 def check_attention_kernels(dev):
     """Phase 35: rows 12 (forward and backward) and 11 (forward) against
     their plain versions at the flagship shapes in bf16: the decoder's
     causal mask with right padding, a left-padded mask (rows with no valid
     key: small-T attends key 0, flash outputs 0), vision's T = 50 with no
-    mask, and for flash Tq = Tk = 600 with a random mask (ten key tiles,
-    a ragged last one).  Outputs within 2e-2 absolute (inputs of size
-    0.3-1: a softmax weight rounded to bf16 the other way, and the output's
-    own bf16 rounding, move an output by about 4e-3); the small-T gradients
-    within 2e-2 of their largest entry (each rounds once to bf16 from f32
-    sums in another order); flash's recomputing backward on the card within
-    2e-2 of the CPU's (the same plain code; f32 sums in another order, one
-    bf16 rounding); reruns bit-equal."""
+    mask; the small-T forward also at T = 1 and T = 63 (the tile's edges),
+    and flash at Tq = 64 Tk = 65 (one key in a second tile) and Tq = Tk =
+    600 (ten key tiles, a ragged last one), both with a random mask.
+    Outputs within 2e-2 absolute (inputs of size 0.3-1: a softmax weight
+    rounded to bf16 the other way, and the output's own bf16 rounding, move
+    an output by about 4e-3), and every bf16 forward also through
+    ``check_forward_bits``; the small-T gradients within 2e-2 of their
+    largest entry (each rounds once to bf16 from f32 sums in another
+    order); flash's recomputing backward on the card within 2e-2 of the
+    CPU's (the same plain code; f32 sums in another order, one bf16
+    rounding); reruns bit-equal."""
     from mic_tpu_torch.ops import flash_attention as fa
     from mic_tpu_torch.ops import small_attention as sa
 
     worst = {"small_attention_forward": 0.0, "small_attention_backward": 0.0,
              "flash_attention": 0.0}
+    shares = {"small_attention_forward": 0.0, "flash_attention": 0.0}
+
+    def bits(name, what, got, ref, q, k, v, bias):
+        share = check_forward_bits(name, what, got, ref, attention_terms(name, q, k, v, bias))
+        shares[name] = max(shares[name], share)
+
     cases = [("decoder", "causal"), ("decoder", "left"), ("vision", None)]
     for i, (shape, kind) in enumerate(cases):
         b, t, heads = ATTN_SHAPES[shape]
@@ -2027,14 +2091,39 @@ def check_attention_kernels(dev):
               f"({0 if dead is None else int(dead.sum())} rows with no valid key): small-T "
               f"forward max_abs_err={err:.4g}, backward max err / max |ref| {gerr:.4g}; flash "
               f"max_abs_err={ferr:.4g}; reruns bit-equal", flush=True)
-    q, k, v, mask = _attention_case(dev, 2, 600, 16, "random", 420)
-    fbias = fa.mask_bias(mask, *q.shape[:2], k.shape[1])
-    fout = fa.flash_attention_forward(q, k, v, fbias)
-    ferr = (fout.float() - fa.flash_attention_plain(q, k, v, fbias).float()).abs().max().item()
-    require(ferr <= 2e-2 and not fout[0, :2].any(), f"flash_attention T=600: {ferr}")
-    worst["flash_attention"] = max(worst["flash_attention"], ferr)
-    print(f"flash_attention B=2 Tq=Tk=600 H=16 random mask: max_abs_err={ferr:.4g}, the two "
-          "masked rows 0", flush=True)
+        bits("small_attention_forward", f"{shape} {kind}", out, ref, q, k, v, bias)
+        bits("flash_attention", f"{shape} {kind}", fout, fref, q, k, v, fbias)
+    # the tile edges: small-T with one row and key, and one short of a tile
+    b, _, heads = ATTN_SHAPES["decoder"]
+    for t, kind in ((1, None), (63, "causal")):
+        q, k, v, mask = _attention_case(dev, b, t, heads, kind, 425 + t)
+        bias = sa.mask_bias(mask, b, t)
+        out = sa.small_attention_forward(q, k, v, bias)
+        again = sa.small_attention_forward(q, k, v, bias)
+        ref = sa.small_t_attention_plain(q, k, v, bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        require(torch.equal(out, again) and err <= 2e-2, f"small_attention_forward T={t}: {err}")
+        worst["small_attention_forward"] = max(worst["small_attention_forward"], err)
+        print(f"small_attention_forward B={b} T={t} H={heads} mask {kind}: max_abs_err={err:.4g}, "
+              "reruns bit-equal", flush=True)
+        bits("small_attention_forward", f"T={t}", out, ref, q, k, v, bias)
+    # flash with one key in a second tile, and ten key tiles with a ragged last one
+    for b, tq, tk, heads, seed in ((b, 64, 65, heads, 422), (2, 600, 600, 16, 420)):
+        q, k, v, mask = _attention_case(dev, b, tq, heads, "random", seed, tk=tk)
+        fbias = fa.mask_bias(mask, b, tq, tk)
+        fout = fa.flash_attention_forward(q, k, v, fbias)
+        fagain = fa.flash_attention_forward(q, k, v, fbias)
+        fref = fa.flash_attention_plain(q, k, v, fbias)
+        ferr = (fout.float() - fref.float()).abs().max().item()
+        require(ferr <= 2e-2 and not fout[0, :2].any() and torch.equal(fout, fagain),
+                f"flash_attention Tq={tq} Tk={tk}: {ferr}")
+        worst["flash_attention"] = max(worst["flash_attention"], ferr)
+        print(f"flash_attention B={b} Tq={tq} Tk={tk} H={heads} random mask: max_abs_err="
+              f"{ferr:.4g}, the two masked rows 0, reruns bit-equal", flush=True)
+        bits("flash_attention", f"Tq={tq} Tk={tk}", fout, fref, q, k, v, fbias)
+    print(f"bf16 forwards, the largest share of outputs not bit-equal to plain: small-T "
+          f"{shares['small_attention_forward']:.3e}, flash {shares['flash_attention']:.3e}",
+          flush=True)
     b, t, heads = ATTN_SHAPES["decoder"]
     q, k, v, mask = _attention_case(dev, b, t, heads, "left", 430)
     w = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(431), device=dev)
@@ -2051,12 +2140,13 @@ def check_attention_kernels(dev):
 
 
 def time_attention_kernels(dev):
-    """Phase 36: rows 11 and 12 at the decoder's and vision's shapes in
-    CUDA-graph replays (``graph_ms``) and per call with the wrapper
-    (``median_ms``), beside their plain versions' replays and
-    scaled_dot_product_attention with the same boolean mask (its forward in
-    replays; its autograd backward per call, as one call of
-    torch.autograd.grad, and the kernel's backward per call beside it)."""
+    """Phase 36: rows 11 and 12 at the decoder's and vision's shapes, and
+    flash at FLASH_LONG (causal with right padding), in CUDA-graph replays
+    (``graph_ms``) and per call with the wrapper (``median_ms``), beside
+    their plain versions' replays and scaled_dot_product_attention with the
+    same boolean mask (its forward in replays; its autograd backward per
+    call, as one call of torch.autograd.grad, and the kernel's backward per
+    call beside it)."""
     import torch.nn.functional as F
 
     from mic_tpu_torch.ops import flash_attention as fa
@@ -2092,9 +2182,18 @@ def time_attention_kernels(dev):
             t[("small_fwd", shape)][2],
             median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
         del lib_out
+    b, n, heads = FLASH_LONG
+    q, k, v, mask = _attention_case(dev, b, n, heads, "causal", 442)
+    fbias = fa.mask_bias(mask, b, n, n)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t[("flash", "long")] = (
+        graph_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)),
+        graph_ms(lambda: fa.flash_attention_plain(q, k, v, fbias)),
+        graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=1.0)),
+        median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
     for key, (kernel, plain, lib_ms, per_call) in t.items():
         name, shape = key
-        b, n, heads = ATTN_SHAPES[shape]
+        b, n, heads = {**ATTN_SHAPES, "long": FLASH_LONG}[shape]
         lib_label = ("autograd backward per call" if name == "small_bwd"
                      else "forward, graph replays")
         print(f"{name} {shape} B={b} T={n} H={heads}: kernel {kernel:.4f} ms (graph replays), "
@@ -2767,6 +2866,9 @@ def main() -> None:
     vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
     others.update({f"{name} vision": value for name, value in
                    attention_bounds(vis_b, vis_t, vis_t, vis_h).items()})
+    long_b, long_t, long_h = FLASH_LONG
+    others["flash_attention T=600"] = attention_bounds(long_b, long_t, long_t,
+                                                       long_h)["flash_attention"]
     print("bounds at the other timed shapes: " + ", ".join(
         f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [

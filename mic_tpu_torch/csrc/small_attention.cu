@@ -24,18 +24,29 @@
 // kernel packed two images a 128-lane MXU tile for Mosaic; here one block
 // owns one (image, head), 1,024 blocks at the flagship decoder.  It reads
 // the (T, 64) slices of the natural layout with row stride H * 64, so no
-// operand is transposed in device memory (the reason the TPU kernel exists),
-// keeps every operand, the 64 x 64 scores and P in shared memory as f32
-// tiles (attention_tile.cuh), and forms each product with f32 FMAs, 4 x 4
-// entries a thread; the row softmaxes are warp reductions.  One block owns
-// its (image, head), so the backward needs no atomics and reruns are
-// bit-equal.  The forward takes 4 tiles (65 KB: three blocks an SM), the
-// backward 6 (98 KB: two).
+// operand is transposed in device memory (the reason the TPU kernel exists).
+//
+// The bf16 forward (attention_mma.cuh): 128 threads copy q, k and v into
+// bf16 tiles with cp.async (27 KB of shared memory a block), each warp
+// forms its 16 rows' scores with mma.sync on the tensor cores (every
+// product of two bf16 values is exact in f32, so the numbers are the TPU
+// kernel's up to the order of the f32 sums), the bias already in the
+// accumulators, takes the softmax in registers, rounds p to bf16 in the A
+// fragment of P V (mma.sync again, V by ldmatrix.trans) and writes its rows
+// through its own rows of the q tile.  Rows past T are zero and are not
+// written.  The f32 forward and the backward (both types) keep every
+// operand, the scores and P in shared memory as f32 tiles
+// (attention_tile.cuh) and form each product with f32 FMAs, 4 x 4 entries
+// a thread; the row softmaxes are warp reductions.  One block owns its
+// (image, head), so the backward needs no atomics and reruns are
+// bit-equal.  The f32 forward takes 4 tiles (65 KB: three blocks an SM),
+// the backward 6 (98 KB: two).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -197,22 +208,90 @@ small_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(dv + base, sv, t, stride);
 }
 
+// The bf16 forward: one block of four warps per (image, head).
+__global__ void __launch_bounds__(attn_mma::kThreads, 4)
+small_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                                int t, int heads) {
+  namespace mm = attn_mma;
+  __shared__ __align__(128) unsigned char smem[3 * mm::kTileBytes];
+  const uint32_t sq = mm::smem_addr(smem), sk = sq + mm::kTileBytes, sv = sk + mm::kTileBytes;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t stride = static_cast<size_t>(heads) * kDim;
+  const size_t base = static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * kDim;
+  mm::load_tile(sq, q + base, t, stride);
+  mm::load_tile(sk, k + base, t, stride);
+  mm::load_tile(sv, v + base, t, stride);
+  mm::cp_async_commit();
+
+  // the bias of the thread's rows g and g + 8 into the accumulators while
+  // the copies fly (none for rows past t)
+  const int warp = mm::warp_id(), r0 = warp * 16 + (mm::lane_id() >> 2), r1 = r0 + 8;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * t * t;
+  float s[8][4];
+  mm::init_scores(s, brow != nullptr && r0 < t ? brow + r0 * t : nullptr,
+                  brow != nullptr && r1 < t ? brow + r1 * t : nullptr, t);
+  mm::cp_async_wait<0>();
+  __syncthreads();
+  if (warp * 16 >= t) return;  // no valid row; nothing else waits on this warp
+
+  mm::qk(s, sq, sk);
+  mm::mask_keys(s, t, -INFINITY);
+  // p = e / sum(e), e = exp(s - max), per row in f32
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float m = mm::row_max(s, hh);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][2 * hh + e] = expf(s[n][2 * hh + e] - m);
+        sum += s[n][2 * hh + e];
+      }
+    }
+    sum = mm::quad_sum(sum);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) s[n][2 * hh + e] = s[n][2 * hh + e] / sum;
+    }
+  }
+  uint32_t pa[1][4][4];
+  mm::p_fragments(s, pa);  // round(P)
+  float o[8][4] = {};
+  mm::pv(o, pa, sv);  // round(P) V: keys past t have p = 0 and zero rows of v
+  mm::store_rows(out + base, stride, t, o, 1.f, 1.f, smem);
+}
+
 bool bad_shape(int batch, int t, int heads, int head_dim) {
   return batch < 1 || heads < 1 || t < 1 || t > kDim || head_dim != kDim;
 }
 
-template <typename T>
-int launch_fwd(void* q, void* k, void* v, void* bias, void* out, int batch, int t, int heads,
-               int head_dim, void* stream) {
+int launch_fwd_f32(void* q, void* k, void* v, void* bias, void* out, int batch, int t,
+                   int heads, int head_dim, void* stream) {
   if (bad_shape(batch, t, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = 4 * kTileBytes;
   static bool done[64] = {};
-  cudaError_t err = allow_shared(small_attention_fwd_kernel<T>, smem, done);
+  cudaError_t err = allow_shared(small_attention_fwd_kernel<float>, smem, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  small_attention_fwd_kernel<T><<<batch * heads, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(out), t, heads);
+  small_attention_fwd_kernel<float><<<batch * heads, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), t, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fwd_bf16(void* q, void* k, void* v, void* bias, void* out, int batch, int t,
+                    int heads, int head_dim, void* stream) {
+  if (bad_shape(batch, t, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  small_attention_fwd_bf16_kernel<<<batch * heads, attn_mma::kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), t, heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,13 +316,13 @@ int launch_bwd(void* q, void* k, void* v, void* bias, void* dout, void* dq, void
 extern "C" int mic_small_attention_fwd_bf16(void* q, void* k, void* v, void* bias, void* out,
                                             int batch, int t, int heads, int head_dim,
                                             void* stream) {
-  return launch_fwd<__nv_bfloat16>(q, k, v, bias, out, batch, t, heads, head_dim, stream);
+  return launch_fwd_bf16(q, k, v, bias, out, batch, t, heads, head_dim, stream);
 }
 
 extern "C" int mic_small_attention_fwd_f32(void* q, void* k, void* v, void* bias, void* out,
                                            int batch, int t, int heads, int head_dim,
                                            void* stream) {
-  return launch_fwd<float>(q, k, v, bias, out, batch, t, heads, head_dim, stream);
+  return launch_fwd_f32(q, k, v, bias, out, batch, t, heads, head_dim, stream);
 }
 
 extern "C" int mic_small_attention_bwd_bf16(void* q, void* k, void* v, void* bias, void* dout,

@@ -34,7 +34,11 @@ full-sequence attention kernels (small-T forward and backward, flash
 forward): outputs within 2e-2 in bf16 (a softmax weight rounded to bf16 the
 other way, and the output's own rounding) and 1e-5 in f32, small-T
 gradients within 2e-2 (bf16) or 1e-5 (f32) of their largest entry, a flash
-row with no valid key exactly 0, reruns bit-equal.  The last four kernels:
+row with no valid key exactly 0, reruns bit-equal; the bf16 forwards also
+within one bf16 ulp of the size of their terms (sum |p| |v| / l) with at
+most 0.2% (small-T) and 1% (flash) of their outputs not bit-equal to the
+plain version's, and NaN in the next image's K and V rows never reaching
+an output.  The last four kernels:
 the merged-cache cross-attention and the int8 cross-attention within 2e-2,
 the merged one bit-equal whether its pad rows hold zeros or NaN (it never
 reads them); the beam permute bit-equal (it copies); the int8 dequant GEMM
@@ -801,7 +805,46 @@ def _attention_inputs(cuda, b, tq, tk, heads, dtype, mask_kind, seed):
 
 
 SMALL_CASES = {"decoder": (3, 64, 2, "causal"), "left_padded": (3, 64, 2, "left"),
-               "vision": (2, 50, 3, None), "ragged": (3, 13, 2, "causal")}
+               "vision": (2, 50, 3, None), "ragged": (3, 13, 2, "causal"),
+               "single": (3, 1, 2, None), "tile_short_by_one": (3, 63, 2, "causal")}
+
+# The most a bf16 forward's outputs may differ from the plain version's bits,
+# as a share of all outputs (_check_forward_bits): the kernels' f32 values
+# differ from plain's only by the order of their sums (and flash's p by the
+# 2^-17 of it that hi + lo leave, and its online rescaling), a few 2^-24 to
+# 2^-17 of the terms' size, so an output's bits differ only where it lies
+# that close to a bf16 rounding boundary.  Measured on the card (phase 35
+# of chip_smoke.py): 4e-5 to 1.5e-4 of small-T's outputs, 1.0e-3 to 2.5e-3
+# of flash's (its p carries more rounding); flash's p rounded once to bf16
+# moves 0.35 of them, small-T's p left unrounded 0.40.  The limits are
+# about 13x and 4x the largest measured share.
+FORWARD_SHARE_LIMIT = {"small": 2e-3, "flash": 1e-2}
+
+
+def _forward_terms(name, q, k, v, bias):
+    """sum_k |p_k| |v_k| / l in f32 from the plain version's values: small-T's
+    softmax rounded to bf16 (l = 1), flash's masked exp(s - m) over l."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if bias is not None:
+        s = s + bias[:, None]
+    if name == "small":
+        p = torch.softmax(s, dim=-1).bfloat16().float()
+    else:
+        p = torch.where(s <= -5e29, 0.0, torch.exp(s - torch.clamp(s.amax(-1, keepdim=True),
+                                                                   min=-1e30)))
+        l = p.sum(-1, keepdim=True)
+        p = p / torch.where(l == 0.0, 1.0, l)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float().abs())
+
+
+def _check_forward_bits(name, got, ref, q, k, v, bias):
+    """A bf16 forward within one bf16 ulp of the size of its terms of the
+    plain output, and at most FORWARD_SHARE_LIMIT of its outputs not
+    bit-equal to it."""
+    err = (got.float() - ref.float()).abs()
+    assert not (err > _bf16_ulp(_forward_terms(name, q, k, v, bias))).any(), name
+    share = (got != ref).float().mean().item()
+    assert share <= FORWARD_SHARE_LIMIT[name], (name, share)
 
 
 @pytest.mark.requires_cuda
@@ -825,6 +868,8 @@ def test_small_attention_kernels_match_plain(cuda, dtype, case):
     assert torch.equal(out, again) and out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _check_forward_bits("small", out, ref, q, k, v, bias)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
         top = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
@@ -833,7 +878,8 @@ def test_small_attention_kernels_match_plain(cuda, dtype, case):
 
 FLASH_CASES = {"decoder": (3, 64, 64, 2, "causal"), "left_padded": (3, 64, 64, 2, "left"),
                "vision": (2, 50, 50, 3, None), "long_ragged": (2, 600, 600, 2, "random"),
-               "cross_shape": (3, 70, 130, 2, "random"), "one": (1, 1, 1, 1, None)}
+               "cross_shape": (3, 70, 130, 2, "random"), "one": (1, 1, 1, 1, None),
+               "one_key_past_a_tile": (3, 64, 65, 2, "random")}
 
 
 @pytest.mark.requires_cuda
@@ -852,9 +898,35 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, case):
     assert torch.equal(out, again) and out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _check_forward_bits("flash", out, ref, q, k, v, bias)
     if mask is not None:
         dead = ~mask[:, 0].any(-1)
         assert not out[dead].any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_forwards_read_no_row_past_the_sequence(cuda, dtype):
+    """NaN in the next image's rows of K and V (the rows just past Tk of the
+    last image the kernel sees) reaches no output: the kernels never read a
+    row past the sequence, and their tiles' rows past it are zero."""
+    for tq, tk, kind in ((64, 65, "random"), (70, 130, None)):
+        q, k, v, mask = _attention_inputs(cuda, 4, tq, tk, 2, dtype, kind, 320)
+        k[3:], v[3:] = float("nan"), float("nan")
+        q, k, v = q[:3], k[:3], v[:3]
+        bias = flash.mask_bias(None if mask is None else mask[:3], 3, tq, tk)
+        out = flash.flash_attention_forward(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), (tq, tk)
+        torch.testing.assert_close(out.float(), flash.flash_attention_plain(q, k, v, bias).float(),
+                                   rtol=2e-2, atol=2e-2)
+    for t in (50, 13):
+        q, k, v, _ = _attention_inputs(cuda, 4, t, t, 2, dtype, None, 321)
+        k[3:], v[3:] = float("nan"), float("nan")
+        out = small.small_attention_forward(q[:3], k[:3], v[:3])
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), t
 
 
 @pytest.mark.requires_cuda

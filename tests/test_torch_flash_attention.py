@@ -29,6 +29,8 @@ CASES = {  # name -> (B, Tq, Tk, H, Dh, mask)
     "fully_masked_rows": (3, 16, 16, 2, 8, "left_pad"),
     "random_mask_tail": (3, 21, 37, 2, 64, "random"),  # a ragged query and key block
     "odd_batch_decoder": (3, 64, 64, 2, 64, "causal_pad"),
+    "one_key_past_a_tile": (2, 64, 65, 2, 64, "none"),  # the 65th key alone in a 64-key tile
+    "one_query_long_keys": (2, 1, 130, 2, 64, "random"),  # three 64-key tiles, a dead row
 }
 
 

@@ -62,6 +62,8 @@ CASES = {  # name -> (B, T, H, mask)
     "fully_masked_rows": (4, 64, 2, "left_pad"),
     "odd_batch": (3, 64, 2, "causal_pad"),
     "ragged_t": (3, 13, 2, "causal_pad"),
+    "single_t": (3, 1, 2, "causal_pad"),       # one query, one key
+    "t63_tile_edge": (3, 63, 2, "causal_pad"),  # one row and key short of a 64 tile
 }
 
 
