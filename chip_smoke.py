@@ -34,13 +34,17 @@ Phases, each of which raises on failure (none catches its own):
      benchmark);
  11. three train steps at a small width on the card against the CPU (the
      first step's gradients, the losses, the params);
- 12. the int8 bucket head kernel against its plain version (N in {4, 1024},
-     D=1024, V=250054, k in {1, 9});
- 13. the exact/window select kernel, bf16 and int8, against the plain
-     versions at the same shapes and at a ragged V=997 (int8 ids equal);
+ 12. the int8 bucket head kernel (wgmma fed by TMA) against its plain
+     version (N in {4, 65, 1024}, D=1024, V=250054, k in {1, 9}), and on
+     integer hidden values (exact sums) ids equal and winners bit-equal;
+ 13. the exact/window select kernels, bf16 and int8 (wgmma), against the
+     plain versions at the same shapes and at a ragged V=997 (int8: ids
+     equal, and every lp exactly the plain logit minus the kernel's lse),
+     and on tied logits (the order of ties);
  14. the int8-cache lazy-attention kernel against its plain version at the
      flagship decode shape (int8 values and scales bit-equal);
- 15. each new kernel's time beside its plain version's;
+ 15. each new kernel's time beside its plain version's (the heads per call
+     and, for the int8 head, in CUDA-graph replays, N in {4, 1024});
  16. the flagship int8 path (int8 weights and KV): 8 images with launch
      counts and a second run, then the exact and window selects (and a bf16
      exact-select run), so that every head kernel carries a whole generate;
@@ -49,11 +53,13 @@ Phases, each of which raises on failure (none catches its own):
      bit-equal, and int8 generate (bucket and exact) card against CPU;
  18. the decode-attention kernel against its plain version at the flagship
      greedy shape (L=12, B=256, T=64, H=16, Dh=64, bf16, index in {0, 1,
-     17, 63}): outputs, the written cache bit-equal, other cells untouched;
+     17, 63}) and at B=4 (the walk split 4 ways; index in {0, 1, 15, 63}):
+     outputs, the written cache bit-equal, other cells untouched;
  19. the top-k + logsumexp kernel against its plain version (N in {4, 256,
      1024}, V=250054, and V=997 with ties; k in {1, 2, 9, 13}; bf16, f32);
  20. both kernels' times beside their plain versions' and a library
-     yardstick (scaled_dot_product_attention; torch.topk + logsumexp);
+     yardstick (scaled_dot_product_attention at N in {4, 256}; torch.topk +
+     logsumexp);
  21. the flagship greedy path, 8 images: by default (the bucket head, k=2),
      under MIC_TPU_EXPERIMENTAL=fused_decode,pallas_topk with
      MIC_TPU_FUSED_HEAD=0 (both new kernels, with launch counts), and
@@ -1123,7 +1129,7 @@ def check_fused_head_q8_bucket(dev, table):
 
     _, bias, wq, ws = table
     worst = 0.0
-    for n in (4, 1024):
+    for n in (4, 65, 1024):
         hidden = _hidden(dev, n, HEAD_D, 40 + n)
         logits = _logits_q8_bucket(hidden, wq, ws, bias)
         for k in (1, 9):
@@ -1139,6 +1145,23 @@ def check_fused_head_q8_bucket(dev, table):
                   f"max_rel_err={((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
                   f"near-tie id differences={ties}", flush=True)
         del logits
+    # small integer hidden values: every product and sum is exact on both
+    # sides, so the kernel's winners are the plain logits bit for bit
+    # (s = acc * ws + b, unfused) and its ids the plain version's; the bias
+    # in full f32 (a bf16 bias would make an FMA's rounding the same)
+    g = torch.Generator(device=dev).manual_seed(45)
+    hidden = torch.randint(-4, 5, (65, HEAD_D), generator=g, device=dev).bfloat16()
+    b32 = torch.randn((HEAD_V,), generator=g, device=dev) * 0.1
+    logits = _logits_q8_bucket(hidden, wq, ws, b32)
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, b32, 9, "bucket")
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, b32, 9, "bucket")
+    torch.cuda.synchronize()
+    require(torch.equal(ids, rids), "fused_head_bucket_q8 exact sums: ids differ from plain")
+    require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
+            "fused_head_bucket_q8 exact sums: a winner's logit differs from plain")
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+    print("fused_head_bucket_q8 N=65 integer hidden: ids equal, winners' logits bit-equal",
+          flush=True)
     return worst
 
 
@@ -1146,8 +1169,9 @@ def check_fused_head_select(dev, table):
     """Phase 13: the exact/window select kernel, bf16 (row 5) and int8 (row
     6), against the plain versions at N in {4, 1024} and a ragged V=997.
     int8: the kernel's logits are the plain version's bit for bit, so ids
-    are equal, lp within 1e-4 and lse within 1e-5 relative (sums of 250054
-    exps in another order).  bf16: ids equal but at near-ties, lse within
+    are equal, every lp is exactly the plain logit at its id minus the
+    kernel's lse (the merge's subtraction), lp within 1e-4 and lse within
+    1e-5 relative (sums of 250054 exps in another order).  bf16: ids equal but at near-ties, lse within
     1e-3 relative, lp within 2e-3 where the ids agree."""
     from mic_tpu_torch.ops.fused_head import _logits, _logits_q8, fused_head_topk, \
         fused_head_topk_plain, fused_head_topk_q8, fused_head_topk_q8_plain
@@ -1174,6 +1198,8 @@ def check_fused_head_select(dev, table):
                 same = ids == rids
                 if q8:
                     require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                    require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
+                            f"{what}: a candidate's logit differs from plain")
                     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
                     torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
                     ties = 0
@@ -1187,6 +1213,21 @@ def check_fused_head_select(dev, table):
                       f"{((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
                       f"near-tie id differences={ties}", flush=True)
             del logits
+    # ties: zero hidden rows make the logits the bias (int8 rows of zeros too)
+    hidden = torch.zeros((4, HEAD_D), device=dev, dtype=torch.bfloat16)
+    b = torch.zeros((5000,), device=dev, dtype=torch.bfloat16)
+    b[[4900, 40, 300, 2600]] = 3.0
+    b[[131, 250, 4999]] = 2.0
+    for select, k, want in (("exact", 7, [40, 300, 2600, 4900, 131, 250, 4999]),
+                            ("window", 6, [40, 300, 2600, 4900, 250, 4999])):
+        for q8 in (False, True):
+            ids = (fused_head_topk_q8(hidden, wq[:5000], ws[:5000], b, k, select) if q8
+                   else fused_head_topk(hidden, weight[:5000], b, k, select))[1]
+            torch.cuda.synchronize()
+            require(ids.tolist() == [want] * 4, f"fused_head_select {'int8' if q8 else 'bf16'} "
+                    f"{select} ties: ids {ids[0].tolist()}, want {want}")
+    print("fused_head_select ties: lower id first (exact), highest lane in a window (window), "
+          "bf16 and int8", flush=True)
     return worst
 
 
@@ -1235,8 +1276,9 @@ def check_lazy_attention_q8(dev):
 
 def time_int8_kernels(dev, table, attn_inputs):
     """Phase 15: each new kernel and its plain version, medians of 25
-    CUDA-event runs: the heads at N in {4, 1024}, k=9; the int8 attention
-    at index 63."""
+    CUDA-event runs: the heads at N in {4, 1024}, k=9, the int8 head also
+    in CUDA-graph replays (``t["graph", key]``); the int8 attention at
+    index 63."""
     from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain, \
         fused_head_topk_q8, fused_head_topk_q8_plain
     from mic_tpu_torch.ops.lazy_attention import lazy_attention_q8, lazy_attention_q8_plain
@@ -1258,8 +1300,12 @@ def time_int8_kernels(dev, table, attn_inputs):
                 lambda s=select: fused_head_topk_plain(hidden, weight, bias, 9, s))
         for key, (kernel, plain) in runs.items():
             t[key] = (median_ms(kernel), median_ms(plain))
+            graph = ""
+            if key[0].endswith("_q8"):
+                t["graph", key] = graph_ms(kernel)
+                graph = f", kernel in graph replays {t['graph', key]:.4f} ms"
             print(f"fused_head {key[0]} time at N={n} D={HEAD_D} V={HEAD_V} k=9: kernel "
-                  f"{t[key][0]:.4f} ms, plain {t[key][1]:.4f} ms", flush=True)
+                  f"{t[key][0]:.4f} ms, plain {t[key][1]:.4f} ms (per call){graph}", flush=True)
     q, ck, cv, ks, vs, anc, pk, pv = attn_inputs
     t["lazy_q8"] = (median_ms(lambda: lazy_attention_q8(q, ck, cv, ks, vs, anc, 63, 16)),
                     median_ms(lambda: lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, 63, 16)))
@@ -1365,19 +1411,21 @@ def check_int8_small_against_cpu(dev):
 def check_decode_attention(dev):
     """Phase 18: the decode-attention kernel against its plain version at
     the flagship greedy shape (12 layers, B=256 rows, T=64, H=16, Dh=64,
-    bf16), layer 5, index in {0, 1, 17, 63}: outputs within 2e-2 (the bf16
-    output rounded once after f32 sums in another order), the written
-    caches bit-equal to the plain version's, every other cell untouched."""
+    bf16), layer 5, index in {0, 1, 17, 63}, and at B=4 rows (one image of
+    beam 4: the walk split in four, index 15 the first split's last
+    position at 63): outputs within 2e-2 (the bf16 output rounded once
+    after f32 sums in another order), the written caches bit-equal to the
+    plain version's, every other cell untouched."""
     from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
 
-    layers, b, t, heads, dh, layer = 12, 256, 64, 16, 64, 5
+    layers, t, heads, dh, layer = 12, 64, 16, 64, 5
     g = torch.Generator(device=dev).manual_seed(21)
 
     def rand(*shape, scale=0.5):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
     worst = 0.0
-    for index in (0, 1, 17, 63):
+    for b, index in [(4, i) for i in (0, 1, 15, 63)] + [(256, i) for i in (0, 1, 17, 63)]:
         q, ks, vs = (rand(b, 1, heads, dh, scale=s) for s in (0.3, 0.5, 0.5))
         ck, cv = rand(layers, b, t, heads, dh), rand(layers, b, t, heads, dh)
         before = (ck.clone(), cv.clone())
@@ -1394,7 +1442,7 @@ def check_decode_attention(dev):
         keep[layer, :, index] = False
         require(all(torch.equal(c[keep], o[keep]) for c, o in zip((ck, cv), before)),
                 "decode_attention: a cell other than [layer, :, index] was written")
-        print(f"decode_attention index={index}: max_abs_err={err:.6g}, cache bit-equal, "
+        print(f"decode_attention B={b} index={index}: max_abs_err={err:.6g}, cache bit-equal, "
               "other layers and columns untouched", flush=True)
         del before
     return worst, (q, ks, vs, ck, cv, pk, pv, layer)
@@ -1461,6 +1509,21 @@ def time_greedy_kernels(dev, attn_inputs):
           f"{t['decode'][0]:.4f} ms, plain {t['decode'][1]:.4f} ms, "
           f"scaled_dot_product_attention over the live prefix {t['decode'][2]:.4f} ms "
           f"(graph replays); kernel per call with its wrapper {t['decode'][3]:.4f} ms",
+          flush=True)
+    # one image of beam 4: N=4 rows, the walk split in four
+    few = [x[:4].clone() for x in (q, ks, vs)] + [c[:, :4].clone() for c in (ck, cv)]
+    q4, ks4, vs4, ck4, cv4 = few
+    pk4, pv4 = ck4.clone(), cv4.clone()
+    qh4 = q4.transpose(1, 2)
+    kh4, vh4 = (c[layer, :, :index + 1].transpose(1, 2) for c in (ck4, cv4))
+    t["decode4"] = (graph_ms(lambda: decode_attention(q4, ks4, vs4, ck4, cv4, layer, index)),
+                    graph_ms(lambda: decode_attention_plain(q4, ks4, vs4, pk4, pv4, layer, index)),
+                    graph_ms(lambda: F.scaled_dot_product_attention(qh4, kh4, vh4, scale=1.0)),
+                    median_ms(lambda: decode_attention(q4, ks4, vs4, ck4, cv4, layer, index)))
+    print(f"decode_attention time at L=12 B=4 T=64 H=16 index={index}: kernel "
+          f"{t['decode4'][0]:.4f} ms, plain {t['decode4'][1]:.4f} ms, "
+          f"scaled_dot_product_attention over the live prefix {t['decode4'][2]:.4f} ms "
+          f"(graph replays); kernel per call with its wrapper {t['decode4'][3]:.4f} ms",
           flush=True)
     g = torch.Generator(device=dev).manual_seed(23)
     for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2), (1024, 9)):
@@ -2850,6 +2913,7 @@ def main() -> None:
         "int8_matmul": int8_matmul_bound(1024, 1024, 3072),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
+              "decode_attention N=4": attention_bound(4, 63, HEAD_D, 2),
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
               "fused_head_select int8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "int8",
                                                       scales=True),

@@ -44,9 +44,9 @@ _SIGNATURES = {
     # hidden, weight, bias, part_m, part_l, part_v, part_i, lp, ids, lse,
     # n, d, vocab, k, runs, window, stream
     "mic_fused_head_select_bf16": [_P] * 10 + [_I] * 6 + [_P],
-    # xq, xs, weight_q, wscale, bias, part_m, part_l, part_v, part_i, lp,
-    # ids, lse, n, d, vocab, k, runs, window, stream
-    "mic_fused_head_select_q8": [_P] * 12 + [_I] * 6 + [_P],
+    # xq, xs, weight_q, wscale, bias, row_floor, part_m, part_l, part_v,
+    # part_i, lp, ids, lse, n, d, vocab, k, runs, window, stream
+    "mic_fused_head_select_q8": [_P] * 13 + [_I] * 6 + [_P],
     # hidden, weight, bias, part_m, part_s, part_z, lse_out, zsum_out,
     # n, d, vocab, runs, stream
     "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
@@ -62,9 +62,9 @@ _SIGNATURES = {
     # low, conf - low, n, d, vext, saved, stream
     "mic_flash_ce_gh_bf16": [_P] * 8 + [_F] * 2 + [_I] * 4 + [_P],
     # q, k_step, v_step, cache_k, cache_v, out,
-    # layers, rows, t_max, heads, head_dim, layer, index, stream
-    "mic_decode_attention_bf16": [_P] * 6 + [_I] * 7 + [_P],
-    "mic_decode_attention_f32": [_P] * 6 + [_I] * 7 + [_P],
+    # layers, rows, t_max, heads, head_dim, layer, index, splits, stream
+    "mic_decode_attention_bf16": [_P] * 6 + [_I] * 8 + [_P],
+    "mic_decode_attention_f32": [_P] * 6 + [_I] * 8 + [_P],
     # logits, part_m, part_l, part_v, part_i, lp, ids, n, vocab, k, max_runs, stream
     "mic_topk_lse_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "mic_topk_lse_f32": [_P] * 7 + [_I] * 4 + [_P],

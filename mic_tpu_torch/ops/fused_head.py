@@ -27,8 +27,10 @@ which never store logits and leave lse and the top-k of the 512 winners to
 torch, as the TPU's n > 512 path leaves them to XLA; they take any BV that
 is a multiple of their 64-wide column group and raise NotImplementedError
 for another (ROADMAP C).  The exact and window selects run its select
-kernel.  The weight is the tied embedding as stored,
-(V, D): no transposed copy.
+kernels.  The int8 head's kernels (bucket, exact/window) run on wgmma fed
+by TMA (csrc/head_wgmma.cuh); the host-side arithmetic of their launches
+(runs, shared memory) is the pure functions below.  The weight is the tied
+embedding as stored, (V, D): no transposed copy.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
 BUCKETS = 512  # bv of mic_tpu/ops/fused_head.py::_bucket_tiles unless bucket_bv is set
 WINDOW = 128   # _WINDOW of mic_tpu/ops/fused_head.py
-_ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBM)
-_COL_TILE = 64  # bucket columns per block of the bucket kernel (kBC)
-_TOPK_MAX = 16  # the largest k of the select kernel (kTopK)
+_ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBM, q8::kBRows)
+_COL_TILE = 64  # bucket columns per block of the bucket kernels (kBC, q8::kBCols)
+_Q8_SELECT_ROWS = 128  # hidden rows per block of the int8 select kernel (q8::kSRows)
+_TOPK_MAX = 16  # the largest k of the select kernels (kTopK)
+SMEM_LIMIT = 232448  # shared memory a block can have on the H100
 SELECTS = ("bucket", "exact", "window")
 
 
@@ -156,18 +160,41 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _chunk_splits(n: int, v: int, bv: int, device: torch.device) -> int:
-    """How many consecutive runs the bucket kernel cuts the chunk walk into:
+def chunk_splits(n: int, v: int, bv: int, sms: int) -> int:
+    """How many consecutive runs the bucket kernels cut the chunk walk into:
     as many as fill the SMs left idle by the (row tile x column group)
     blocks, one block per SM, and never more than there are chunks."""
     blocks = -(-n // _ROW_TILE) * (bv // _COL_TILE)
-    return max(1, min(-(-v // bv), _sms(device) // blocks))
+    return max(1, min(-(-v // bv), sms // blocks))
 
 
-def _select_runs(n: int, v: int, device: torch.device) -> int:
-    """How many runs of 128-wide vocab tiles the select kernel cuts the
-    vocab into: one block per SM over the row tiles, at most one run a tile."""
-    return max(1, min(-(-v // WINDOW), _sms(device) // -(-n // _ROW_TILE)))
+def chunk_runs(nchunks: int, splits: int):
+    """The bucket kernels' runs: split z walks chunks [z * C // splits,
+    (z + 1) * C // splits) of the C chunks -> [(begin, end)] in z order."""
+    return [(z * nchunks // splits, (z + 1) * nchunks // splits) for z in range(splits)]
+
+
+def select_runs(n: int, v: int, sms: int, rows: int = _ROW_TILE) -> int:
+    """How many runs of 128-wide vocab tiles a select kernel cuts the vocab
+    into: one block per SM over the tiles of ``rows`` hidden rows, at most
+    one run a tile."""
+    return max(1, min(-(-v // WINDOW), sms // -(-n // rows)))
+
+
+def bucket_q8_smem_bytes(d: int) -> int:
+    """Shared memory of the int8 bucket kernel (q8::bucket_smem_bytes):
+    1024 bytes of alignment slack, the 64 resident bf16 hidden rows, eight
+    ring stages of two 64 x 64-byte slices, sixteen mbarriers."""
+    return 1024 + 64 * d * 2 + 8 * 2 * 64 * 64 + 2 * 8 * 8
+
+
+def select_q8_smem_bytes(d: int) -> int:
+    """Shared memory of the int8 exact/window kernel (q8::select_smem_bytes):
+    alignment slack, the 128 resident int8 rows in 128-deep blocks, four
+    ring stages of 128 x 128 bytes with a tile's 128 scales and biases beside
+    each, 24 candidates (value, id) for each of the 128 rows, nine
+    mbarriers."""
+    return 1024 + -(-d // 128) * 128 * 128 + 4 * (128 * 128 + 128 * 8) + 128 * 24 * 8 + 9 * 8
 
 
 def _check_operands(name: str, *tensors) -> None:
@@ -191,10 +218,12 @@ def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
     if weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not 1 <= k <= bv:
         raise ValueError(f"{entry}: hidden {tuple(hidden.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}, bv={bv}")
+    if wscale is not None and bucket_q8_smem_bytes(d) > SMEM_LIMIT:
+        raise ValueError(f"{entry}: D={d} does not fit the kernel's shared memory")
     bias32 = bias.float().contiguous()
     scale = () if wscale is None else (wscale.float().contiguous(),)
     _check_operands(entry, hidden, weight, bias32, *scale)
-    splits = _chunk_splits(n, v, bv, hidden.device)
+    splits = chunk_splits(n, v, bv, _sms(hidden.device))
     f32 = dict(dtype=torch.float32, device=hidden.device)
     i32 = dict(dtype=torch.int32, device=hidden.device)
     l, rmax = torch.empty((2, n, bv), **f32)
@@ -223,7 +252,8 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     q8 = xscale is not None
     entry = "mic_fused_head_select_q8" if q8 else "mic_fused_head_select_bf16"
     candidates = -(-v // WINDOW) if window else v
-    if (weight.shape != (v, d) or bias.shape != (v,) or d % 32
+    if (weight.shape != (v, d) or bias.shape != (v,) or d % (64 if q8 else 32)
+            or (q8 and select_q8_smem_bytes(d) > SMEM_LIMIT)
             or not 1 <= k <= min(_TOPK_MAX, candidates)):
         raise ValueError(f"{entry}: x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}, k={k}")
@@ -233,7 +263,7 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     bias32 = bias.float().contiguous()
     scales = (xscale.float().contiguous(), wscale.float().contiguous()) if q8 else ()
     _check_operands(entry, x, weight, bias32, *scales)
-    runs = _select_runs(n, v, x.device)
+    runs = select_runs(n, v, _sms(x.device), _Q8_SELECT_ROWS if q8 else _ROW_TILE)
     f32 = dict(dtype=torch.float32, device=x.device)
     part_m, part_l = torch.empty((2, runs, n), **f32)
     part_v = torch.empty((runs, n, k), **f32)
@@ -241,7 +271,10 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     lp = torch.empty((n, k), **f32)
     ids = torch.empty((n, k), dtype=torch.int32, device=x.device)
     lse = torch.empty((n, 1), **f32)
-    operands = (x, scales[0], weight, scales[1], bias32) if q8 else (x, weight, bias32)
+    # int8: a floor a row for the kernel's runs to share (csrc/fused_head.cu)
+    operands = ((x, scales[0], weight, scales[1], bias32,
+                 torch.empty((n,), dtype=torch.int32, device=x.device)) if q8
+                else (x, weight, bias32))
     err = getattr(_build.lib(), entry)(
         *(t.data_ptr() for t in operands),
         *(t.data_ptr() for t in (part_m, part_l, part_v, part_i, lp, ids, lse)),

@@ -66,6 +66,8 @@ from mic_tpu_torch.ops.flash_ce import (
     main_columns,
 )
 from mic_tpu_torch.ops.fused_head import (
+    _logits_q8,
+    _logits_q8_bucket,
     fused_head_select,
     fused_head_topk,
     fused_head_topk_plain,
@@ -81,7 +83,13 @@ from mic_tpu_torch.ops.cross_attention import (
     fused_cross_attention_q8,
 )
 from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
-from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from mic_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    decode_splits,
+    lane_groups,
+    walk_partition,
+)
 from mic_tpu_torch.ops import flash_attention as flash
 from mic_tpu_torch.ops import small_attention as small
 from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
@@ -154,7 +162,7 @@ def test_fused_head_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("bv", [64, 256, 1024])
+@pytest.mark.parametrize("bv", [64, 256, 512, 1024])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_head_bucket_kernels_take_the_bucket_bv_width(cuda, monkeypatch, q8, bv):
     """MIC_TPU_EXPERIMENTAL=bucket_bv=<w>: the bucket kernels at width w give
@@ -200,6 +208,27 @@ def test_fused_head_kernel_earliest_chunk_wins_ties(cuda, n):
     bias = torch.zeros((v,), device=cuda, dtype=torch.bfloat16)
     lp, ids, lse = fused_head_topk(hidden, weight, bias, 9)
     rlp, rids, rlse = fused_head_topk_plain(hidden, weight, bias, 9, "bucket")
+    torch.cuda.synchronize()
+    assert torch.equal(ids, rids % 512)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [4, 70, 1088])  # the walk split into runs of chunks, or not
+def test_fused_head_q8_bucket_kernel_earliest_chunk_wins_ties(cuda, n):
+    """The int8 bucket kernel on a weight whose every chunk is a copy of the
+    first: each bucket column ties across all chunks, which its two
+    warpgroups walk alternately, and chunk 0's id stands however the walk
+    is split."""
+    d, v = 128, 512 * 7 + 100
+    g = torch.Generator(device=cuda).manual_seed(300 + n)
+    hidden = torch.randn((n, d), generator=g, device=cuda).bfloat16()
+    first = (torch.randn((512, d), generator=g, device=cuda) * 0.2).bfloat16()
+    wq, ws = quantize_array(first.repeat(8, 1)[:v].contiguous(), axis=1)
+    bias = torch.zeros((v,), device=cuda, dtype=torch.bfloat16)
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, "bucket")
     torch.cuda.synchronize()
     assert torch.equal(ids, rids % 512)
     torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
@@ -329,6 +358,96 @@ def test_fused_head_select_kernel_ties(cuda, q8):
             ids = fused_head_topk(hidden, weight, bias, k, select)[1]
         torch.cuda.synchronize()
         assert ids.tolist() == [want] * 4, (select, ids.tolist())
+
+
+_HEAD_TABLES = {}
+
+
+def _q8_table(cuda, d, v):
+    """An int8 tied table (V, D) with its row scales and a bf16 bias, made
+    once a shape (the largest is the flagship's 256 MB int8 weight)."""
+    if (d, v) not in _HEAD_TABLES:
+        g = torch.Generator(device=cuda).manual_seed(d + v)
+        weight = (torch.randn((v, d), generator=g, device=cuda) * 0.2).bfloat16()
+        bias = (torch.randn((v,), generator=g, device=cuda) * 0.1).bfloat16()
+        wq, ws = quantize_array(weight, axis=1)
+        _HEAD_TABLES[(d, v)] = (wq, ws, bias)
+    return _HEAD_TABLES[(d, v)]
+
+
+HEAD_ROWS = [1, 4, 63, 64, 65, 1024]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v", [1300, 250054])
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("n", HEAD_ROWS)
+def test_fused_head_q8_bucket_kernel_sweep(cuda, n, d, v):
+    """The int8 bucket kernel (wgmma, TMA) against its plain version across
+    row counts around its 64-row tile, both widths and a ragged vocab: lp
+    within 2e-3, lse within 1e-3 relative, ids equal but at near-ties (two
+    logits within 1e-2: bf16 products summed in another order)."""
+    wq, ws, bias = _q8_table(cuda, d, v)
+    hidden = torch.randn((n, d), generator=torch.Generator(device=cuda).manual_seed(n),
+                         device=cuda).bfloat16()
+    launches = fused_head_topk_q8.launches
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, "bucket")
+    torch.cuda.synchronize()
+    assert fused_head_topk_q8.launches == launches + 1
+    logits = hidden.float() @ wq.float().T * ws.float() + bias.float()
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    assert bool((gap[ids != rids] < 1e-2).all())
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v", [1300, 250054])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_fused_head_q8_bucket_kernel_exact_sums(cuda, d, v):
+    """Small integer hidden values make every product and sum exact on both
+    sides: the ids are the plain version's and each winner's lp is exactly
+    the plain logit (acc * ws + b, unfused) minus the kernel's lse.  The
+    bias is full f32 (with a bf16 bias an FMA would round the same), the
+    logits below the bucket sum's clamp at 60."""
+    wq, ws, _ = _q8_table(cuda, d, v)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    hidden = torch.randint(-1, 2, (65, d), generator=g, device=cuda).bfloat16()
+    bias = torch.randn((v,), generator=g, device=cuda) * 0.1
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, "bucket")
+    torch.cuda.synchronize()
+    assert torch.equal(ids, rids)
+    logits = _logits_q8_bucket(hidden, wq, ws, bias)
+    assert torch.equal(lp, logits.gather(1, ids.long()) - lse)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v", [1997, 250054])
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("n", HEAD_ROWS)
+@pytest.mark.parametrize("select", ["exact", "window"])
+def test_fused_head_q8_select_kernel_sweep(cuda, select, n, d, v):
+    """The int8 exact/window kernel (wgmma, TMA) against its plain version:
+    ids equal, lse within 1e-5 relative and lp within 1e-4 (sums of exps in
+    another order), and the logits bit-equal: each lp is exactly the plain
+    logit at its id minus the kernel's lse, the subtraction the merge
+    kernel does."""
+    wq, ws, bias = _q8_table(cuda, d, v)
+    hidden = torch.randn((n, d), generator=torch.Generator(device=cuda).manual_seed(n),
+                         device=cuda).bfloat16()
+    launches = fused_head_select.launches
+    lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, 9, select)
+    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, 9, select)
+    torch.cuda.synchronize()
+    assert fused_head_select.launches == launches + 1
+    assert torch.equal(ids, rids)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
+    logits = _logits_q8(*quantize_rows_dynamic(hidden), wq, ws, bias)
+    assert torch.equal(lp, logits.gather(1, ids.long()) - lse)
 
 
 @pytest.mark.requires_cuda
@@ -561,6 +680,73 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, index):
         assert torch.equal(mine[keep], old[keep])
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _split_end(n, heads, t, dtype):
+    """The last position of the first split of the walk at index t - 1, as
+    the wrapper sizes it on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = lane_groups(torch.empty((), dtype=dtype).element_size())
+    splits = decode_splits(n, heads, t - 1, sms, groups)
+    return max(max(ts, default=0) for ts in walk_partition(t - 1, splits, groups)[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("where", ["first", "second", "split_end", "last"])
+@pytest.mark.parametrize("t", [16, 64, 128])
+@pytest.mark.parametrize("n", [1, 4, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_split_walk(cuda, dtype, n, t, where):
+    """The flagship's 16 heads at N rows (the walk split as the wrapper
+    sizes it: 4 ways at a few rows, none at 256), at index 0, 1, the last
+    position of the first split and T - 1: the output within 2e-2 (bf16)
+    or 1e-5 (f32), the written column bit-equal to the plain version's,
+    every other layer and column untouched."""
+    layers, heads, dh, layer = 2, 16, 64, 1
+    index = {"first": 0, "second": 1, "split_end": _split_end(n, heads, t, dtype),
+             "last": t - 1}[where]
+    g = torch.Generator(device=cuda).manual_seed(400 + n + t + index)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+
+    q, ks, vs = rand(n, 1, heads, dh, scale=0.3), rand(n, 1, heads, dh), rand(n, 1, heads, dh)
+    ck, cv = rand(layers, n, t, heads, dh), rand(layers, n, t, heads, dh)
+    before = (ck.clone(), cv.clone())
+    pk, pv = ck.clone(), cv.clone()
+    launches = decode_attention.launches
+    out = decode_attention(q, ks, vs, ck, cv, layer, index)
+    ref = decode_attention_plain(q, ks, vs, pk, pv, layer, index)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launches + 1
+    assert torch.equal(ck, pk) and torch.equal(cv, pv)
+    keep = torch.ones((layers, n, t), dtype=torch.bool, device=cuda)
+    keep[layer, :, index] = False
+    for mine, old in zip((ck, cv), before):
+        assert torch.equal(mine[keep], old[keep])
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
+def test_decode_attention_kernel_reads_no_position_past_index(cuda):
+    """NaN in every cached position past the index (and in the column the
+    step overwrites) never reaches an output."""
+    layers, n, t, heads, dh, layer, index = 2, 4, 64, 16, 64, 0, 40
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, ks, vs = ((torch.randn((n, 1, heads, dh), generator=g, device=cuda) * s).bfloat16()
+                 for s in (0.3, 0.5, 0.5))
+    ck, cv = ((torch.randn((layers, n, t, heads, dh), generator=g, device=cuda) * 0.5)
+              .bfloat16() for _ in range(2))
+    pk, pv = ck.clone(), cv.clone()
+    for c in (ck, cv):
+        c[layer, :, index:] = float("nan")
+    out = decode_attention(q, ks, vs, ck, cv, layer, index)
+    ref = decode_attention_plain(q, ks, vs, pk, pv, layer, index)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.isnan(ck[layer, :, index + 1:].float()).all()
 
 
 @pytest.mark.requires_cuda

@@ -22,7 +22,15 @@ from mic_tpu.nn.cache import DecoderCache as JaxDecoderCache
 from mic_tpu.ops.decode_attention import decode_attention as jax_decode_attention
 from mic_tpu_torch.models import mbart_decoder
 from mic_tpu_torch.nn.cache import DecoderCache, init_cache
-from mic_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+from mic_tpu_torch.ops.decode_attention import (
+    UNROLL,
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_split_plain,
+    decode_splits,
+    lane_groups,
+    walk_partition,
+)
 from test_decode_attention import run_interpret
 from test_torch_captioner import TOL, _config, _models, _port
 
@@ -165,3 +173,64 @@ def test_physical_beam_reorder_matches_jax():
     np.testing.assert_array_equal(tcache.self_v.numpy(), np.asarray(jcache.self_v))
     np.testing.assert_array_equal(tcache.cross_k.numpy(), xk)
     assert tcache.index == 3 and tcache.batch == 6 and tcache.max_len == 4
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("index", [0, 1, 15, 16, 31, 63, 127, 1023])
+@pytest.mark.parametrize("rows", [1, 4, 32, 256])
+def test_walk_split_covers_every_position_once(rows, index):
+    """The CUDA kernel's walk (csrc/decode_attention.cu), as the wrapper
+    sizes it for the H100's 132 SMs and 16 heads: every position 0..index
+    falls to exactly one (split, lane group), in both lane widths (bf16,
+    f32), and each split keeps at least one round of positions."""
+    for elem in (2, 4):
+        groups = lane_groups(elem)
+        splits = decode_splits(rows, 16, index, H100_SMS, groups)
+        assert splits in (1, 2, 4)
+        parts = walk_partition(index, splits, groups)
+        assert len(parts) == splits and all(len(p) == groups for p in parts)
+        seen = sorted(t for split in parts for ts in split for t in ts)
+        assert seen == list(range(index + 1))
+        if splits > 1:
+            assert min(sum(map(len, p)) for p in parts) >= groups * UNROLL
+
+
+def test_decode_splits_fill_the_card():
+    """One image of beam 4 (N = 4) at index 63 takes the largest split; a
+    B = 256 batch, 4096 (row, head) pairs, needs none; nor does an early
+    index, whose walk is short."""
+    assert lane_groups(2) == 4 and lane_groups(4) == 2
+    assert decode_splits(4, 16, 63, H100_SMS) == 4
+    assert decode_splits(1, 16, 63, H100_SMS) == 4
+    assert decode_splits(256, 16, 63, H100_SMS) == 1
+    assert decode_splits(64, 16, 63, H100_SMS) == 2
+    assert decode_splits(4, 16, 7, H100_SMS) == 1
+
+
+T_SPLIT = 40
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("index", [0, 17, T_SPLIT - 1])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_plain_matches_jax_interpret_kernel(dtype, index, splits):
+    """The kernel's split-and-merge arithmetic in plain torch (each lane
+    group's online (max, sum, acc) over its positions, the groups merged by
+    the xor butterfly, the splits in order) against mic_tpu's Pallas kernel
+    in interpret mode, at the lane width of the dtype; the tolerances of
+    test_plain_matches_jax_interpret_kernel."""
+    _, jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(30 + index + splits)
+    arrays = [rng.normal(size=(L, B, T_SPLIT, H, DH)).astype(np.float32) for _ in range(2)]
+    arrays = [(rng.normal(size=(B, 1, H, DH)) * s).astype(np.float32)
+              for s in (0.3, 1.0, 1.0)] + arrays
+    jq, jks, jvs, jck, jcv = (jnp.asarray(a).astype(jdt) for a in arrays)
+    q, ks, vs, ck, cv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    before = (ck.clone(), cv.clone())
+    layer = 1
+    ref, rck, rcv = run_interpret(jq, jks, jvs, jck, jcv, layer, index, chunk=8, block_b=2)
+    groups = lane_groups(q.element_size())
+    out = decode_attention_split_plain(q, ks, vs, ck, cv, layer, index, splits, groups)
+    _check(out, ck, cv, ref, rck, rcv, before, layer, index, dtype, dict(rtol=0, atol=3e-2))

@@ -21,11 +21,17 @@ from mic_tpu.ops.fused_head import fused_head_topk as jax_fused_head_topk
 from mic_tpu.ops.fused_head import fused_head_topk_q8 as jax_fused_head_topk_q8
 from mic_tpu.ops.quant import quantize_array
 from mic_tpu_torch.ops.fused_head import (
+    SMEM_LIMIT,
     bucket_finish,
+    bucket_q8_smem_bytes,
     bucket_width,
+    chunk_runs,
+    chunk_splits,
     fused_head_select,
     fused_head_topk,
     fused_head_topk_q8,
+    select_q8_smem_bytes,
+    select_runs,
 )
 from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
@@ -178,3 +184,48 @@ def test_bucket_bv_switch_matches_jax(monkeypatch, bv):
                              torch.from_numpy(bias), 9, "bucket")
     np.testing.assert_array_equal(got[1].numpy(),
                                   np.asarray(_bucket_topk_dense(qlogits, 9, width)[1]))
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("bv", [64, 192, 512])
+@pytest.mark.parametrize("n", [1, 4, 63, 64, 65, 1024])
+def test_bucket_runs_cover_every_chunk_once_in_order(n, bv):
+    """The bucket kernels' split of the chunk walk, as the wrapper sizes it
+    for the H100's 132 SMs at V = 250054 and V = 1300: consecutive runs,
+    in order, covering every chunk once; and the int8 kernel's walk of a
+    run (csrc/fused_head.cu, q8::bucket_kernel: warpgroup w takes chunk
+    begin + 2 p + w of stage pair p while it is below the run's end) visits
+    each of the run's chunks once, in order."""
+    for v in (250054, 1300):
+        nchunks = -(-v // bv)
+        splits = chunk_splits(n, v, bv, H100_SMS)
+        assert 1 <= splits <= nchunks
+        runs = chunk_runs(nchunks, splits)
+        assert runs[0][0] == 0 and runs[-1][1] == nchunks
+        assert all(b < e for b, e in runs)
+        assert all(runs[z][1] == runs[z + 1][0] for z in range(splits - 1))
+        walked = []
+        for b, e in runs:
+            pairs = (e - b + 1) // 2
+            walked += [c for p in range(pairs) for c in (b + 2 * p, b + 2 * p + 1) if c < e]
+        assert walked == list(range(nchunks))
+
+
+def test_launch_sizes_fill_the_card():
+    """N = 1024 rows fill the card with row tiles alone (one run); one image
+    of beam 4 (N = 4) splits the walk as far as the SMs allow."""
+    assert chunk_splits(1024, 250054, 512, H100_SMS) == 1
+    assert chunk_splits(4, 250054, 512, H100_SMS) == 16
+    assert select_runs(1024, 250054, H100_SMS, 128) == 16
+    assert select_runs(4, 250054, H100_SMS, 128) == 132
+    assert select_runs(4, 997, H100_SMS, 128) == 8
+
+
+@pytest.mark.parametrize("d", list(range(64, 1025, 64)))
+def test_int8_head_kernels_fit_shared_memory(d):
+    """Both int8 kernels' shared memory, as the kernels compute it, fits a
+    block's 232,448 bytes at every D the head takes."""
+    assert bucket_q8_smem_bytes(d) <= SMEM_LIMIT
+    assert select_q8_smem_bytes(d) <= SMEM_LIMIT

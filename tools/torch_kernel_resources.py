@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Print what ptxas and the SASS say about the port's CUDA kernels.
+
+Run from the root of a checkout of the port on a machine with the CUDA
+toolkit (no card needed):
+
+    python3 tools/torch_kernel_resources.py [SOURCE ...] [--sass-grep HGMMA]
+
+Each named source of mic_tpu_torch/csrc (default: all) is compiled alone
+with the build's flags and -Xptxas -v into build/resources/, and for every
+kernel the registers, shared memory, stack frame and spill bytes that
+ptxas reports are printed, one line each.  With --sass-grep, the object's
+SASS (cuobjdump --dump-sass) is searched for the instruction name, and its
+count is printed for each kernel function beside its number of
+instructions and the first such instruction.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path.cwd()
+sys.path.insert(0, str(ROOT))
+
+from mic_tpu_torch import _build  # noqa: E402
+
+
+def demangled(name: str) -> str:
+    found = shutil.which("cu++filt") or str(Path(_build._nvcc()).parent / "cu++filt")
+    try:
+        return subprocess.run([found, name], capture_output=True, text=True,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return name
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("sources", nargs="*")
+    parser.add_argument("--sass-grep", default=None, help="a regular expression")
+    args = parser.parse_args()
+    csrc = ROOT / "mic_tpu_torch" / "csrc"
+    sources = [csrc / s for s in args.sources] or sorted(csrc.glob("*.cu"))
+    out = ROOT / "build" / "resources"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    for src in sources:
+        obj = out / f"{src.stem}.o"
+        done = subprocess.run([nvcc, *_build._FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                               str(src)], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise SystemExit(f"nvcc failed on {src.name}:\n{done.stderr}")
+        kernel = None
+        for line in done.stderr.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel = demangled(m.group(1))
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = demangled(m.group(1))
+            if "stack frame" in line or "Used" in line:
+                print(f"{src.name}: {kernel}: {line.strip()}", flush=True)
+            elif "warning" in line.lower():
+                print(f"{src.name}: {line.strip()}", flush=True)
+        if args.sass_grep:
+            cuobjdump = Path(nvcc).parent / "cuobjdump"
+            sass = subprocess.run([str(cuobjdump), "--dump-sass", str(obj)], capture_output=True,
+                                  text=True, check=True).stdout
+            counts, sizes, first, func = {}, {}, {}, None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    func = demangled(m.group(1))
+                    counts.setdefault(func, 0)
+                    sizes.setdefault(func, 0)
+                elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+                    sizes[func] += 1
+                    if re.search(rf"\b(?:{args.sass_grep})\b", line):
+                        counts[func] += 1
+                        first.setdefault(func, re.sub(r"\s*/\*.*?\*/\s*", " ", line).strip())
+            for func, count in counts.items():
+                print(f"{src.name}: SASS {args.sass_grep} x{count} of {sizes[func]} instructions "
+                      f"in {func}" + (f", first: {first[func]}" if func in first else ""),
+                      flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time the port's decode attention (row 18) and tied-head kernels (rows 4,
+5 and 6) on one CUDA card, beside scaled_dot_product_attention for row 18.
+
+Run from the root of a checkout of the port (it imports that checkout's
+mic_tpu_torch and chip_smoke.py, and builds its kernels there):
+
+    python3 tools/torch_time_rows.py [--turns 2] [--label NAME] [--out FILE]
+
+Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
+heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select.  Each time
+is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
+the per-call time with the wrapper's host work (``median_ms``).  Every
+measurement is repeated ``--turns`` times in one process, so two checkouts
+can be compared in turns (parent, change, change, parent) on one card.
+One JSON line per measurement goes to stdout and, with --out, to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+from chip_smoke import graph_ms, median_ms  # noqa: E402
+
+HEAD_D, HEAD_V = 1024, 250054
+
+
+def decode_cases(dev):
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.decode_attention import decode_attention
+
+    layers, t, heads, dh, layer, index = 12, 64, 16, 64, 5, 63
+    g = torch.Generator(device=dev).manual_seed(31)
+    for n in (4, 256):
+        q, ks, vs = ((torch.randn((n, 1, heads, dh), generator=g, device=dev) * s).bfloat16()
+                     for s in (0.3, 0.5, 0.5))
+        ck, cv = ((torch.randn((layers, n, t, heads, dh), generator=g, device=dev) * 0.5)
+                  .bfloat16() for _ in range(2))
+        qh = q.transpose(1, 2)
+        kh, vh = (c[layer, :, :index + 1].transpose(1, 2) for c in (ck, cv))
+        yield (f"decode_attention N={n}",
+               lambda a=(q, ks, vs, ck, cv): decode_attention(*a, layer, index),
+               lambda a=(qh, kh, vh): F.scaled_dot_product_attention(*a, scale=1.0))
+
+
+def head_cases(dev):
+    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
+    from mic_tpu_torch.ops.quant import quantize_array
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    weight = (torch.randn((HEAD_V, HEAD_D), generator=g, device=dev) * 0.02).bfloat16()
+    bias = (torch.randn((HEAD_V,), generator=g, device=dev) * 0.1).bfloat16()
+    wq, ws = quantize_array(weight, axis=1)
+    for n in (4, 1024):
+        hidden = torch.randn((n, HEAD_D), generator=g, device=dev).bfloat16()
+        for select in ("bucket", "exact", "window"):
+            yield (f"int8 {select} N={n}",
+                   lambda s=select, h=hidden: fused_head_topk_q8(h, wq, ws, bias, 9, s), None)
+            yield (f"bf16 {select} N={n}",
+                   lambda s=select, h=hidden: fused_head_topk(h, weight, bias, 9, s), None)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--turns", type=int, default=2)
+    parser.add_argument("--label", default=os.path.basename(os.getcwd()))
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_time_rows.py needs a CUDA device")
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    lines = []
+    cases = list(decode_cases(dev)) + list(head_cases(dev))
+    for turn in range(args.turns):
+        for name, fn, library in cases:
+            row = {"label": args.label, "turn": turn, "case": name, "card": card,
+                   "graph_ms": graph_ms(fn), "median_ms": median_ms(fn)}
+            if library is not None:
+                row["library_graph_ms"] = graph_ms(library)
+            lines.append(row)
+            print(json.dumps(row), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as f:
+            for row in lines:
+                f.write(json.dumps(row) + "\n")
+
+
+if __name__ == "__main__":
+    main()
