@@ -7,8 +7,11 @@ Phases, each of which raises on failure (none catches its own):
   1. build the CUDA kernels from mic_tpu_torch/csrc/;
   2. the lazy-attention kernel against its plain version at the flagship
      decode shape (B=256, K=4, T=64, H=16, Dh=64, bf16);
-  3. the fused-head kernel against its plain version (N in {4, 1024},
-     D=1024, V=250054, k in {1, 9}, bf16);
+  3. the bf16 bucket head kernel (row 4, wgmma fed by TMA) against its
+     plain version (N in {1, 4, 65, 1024}, D in {64, 1024, 1408}, V in
+     {997, 250054}, k in {1, 9, 16}), ties across chunks, exact sums on
+     integer hidden values (ids equal, winners bit-equal), bucket_bv widths
+     32, 96 and 200, and its time at N in {4, 1024};
   4. each kernel's time beside its plain version's (CUDA events, median);
   5. the whole path: flagship-width random weights (CLIP ViT-B/32 ->
      12-layer mBART-50 -> tied 250054-token head), 8 images through
@@ -37,10 +40,12 @@ Phases, each of which raises on failure (none catches its own):
  12. the int8 bucket head kernel (wgmma fed by TMA) against its plain
      version (N in {4, 65, 1024}, D=1024, V=250054, k in {1, 9}), and on
      integer hidden values (exact sums) ids equal and winners bit-equal;
- 13. the exact/window select kernels, bf16 and int8 (wgmma), against the
-     plain versions at the same shapes and at a ragged V=997 (int8: ids
-     equal, and every lp exactly the plain logit minus the kernel's lse),
-     and on tied logits (the order of ties);
+ 13. the exact/window select kernels (wgmma fed by TMA) against the plain
+     versions: bf16 (row 5) at N in {1, 4, 65, 1024}, D in {64, 96, 1024,
+     1344}, V in {997, 250054}, k in {1, 9, 16}; int8 (row 6) at D=1024,
+     N in {1, 4, 65, 1024}, k in {1, 9, 16} and a ragged V=997 (ids equal,
+     and every lp exactly the plain logit minus the kernel's lse); both on
+     tied logits (the order of ties);
  14. the int8-cache lazy-attention kernel against its plain version at the
      flagship decode shape (int8 values and scales bit-equal);
  15. each new kernel's time beside its plain version's (the heads per call
@@ -374,36 +379,112 @@ def check_lazy_attention(dev):
     return worst, kernel_ms, plain_ms
 
 
-def check_fused_head(dev):
-    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain
+def _bf16_head_cases(dev, cases, seed):
+    """(d, v) -> a bf16 tied table and bias of that shape, made once each,
+    for the cases' shapes."""
+    tables = {}
+    for d, v in sorted({(d, v) for _, d, v, _ in cases}):
+        g = torch.Generator(device=dev).manual_seed(seed + d + v)
+        tables[d, v] = ((torch.randn((v, d), generator=g, device=dev) * 0.02).bfloat16(),
+                        (torch.randn((v,), generator=g, device=dev) * 0.1).bfloat16())
+    return tables
 
-    d, v = 1024, 250054
-    g = torch.Generator(device=dev).manual_seed(2)
-    weight = (torch.randn((v, d), generator=g, device=dev) * 0.02).bfloat16()
-    bias = (torch.randn((v,), generator=g, device=dev) * 0.1).bfloat16()
+
+def _bf16_head_case(got, ref, logits, what, every_lp):
+    """The bf16 heads' tolerances against their plain version: lse
+    within 1e-3 relative, ids equal but at near-ties (two logits within
+    1e-2), lp within 2e-3: every entry (``every_lp``, the bucket's check)
+    or where the ids agree (the exact/window select's) -> (lp error, near
+    ties)."""
+    (lp, ids, lse), (rlp, rids, rlse) = got, ref
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+    ties = _near_tie_ids(ids, rids, logits, what)
+    if not every_lp:
+        same = ids == rids
+        lp, rlp = lp[same], rlp[same]
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+    return (lp - rlp).abs().max().item(), ties
+
+
+def check_fused_head(dev):
+    """Phase 3: the bf16 bucket kernel (row 4: wgmma on both operands in
+    shared memory, fed by TMA) against its plain version at N in {1, 4, 65,
+    1024}, D in {64, 1024, 1408 (the largest it takes)}, V in {997, 250054},
+    k = 9, and k in {1, 16} at the flagship shape (``_bf16_head_case``'s
+    tolerances, lp over every entry); ties across chunks (every chunk a copy of the
+    first: the earliest chunk's id however the walk is split); integer
+    hidden values on a weight of multiples of 2^-6, whose sums are exact on
+    both sides (ids equal, the winners' logits bit-equal); bucket_bv widths
+    that are not multiples of 64 (32, 96, 200); then its time beside its
+    plain version's at N in {4, 1024}."""
+    from mic_tpu_torch.ops.fused_head import _logits, fused_head_topk, fused_head_topk_plain
+
+    cases = [(n, d, v, 9) for n in (1, 4, 65, 1024) for d in (64, HEAD_D, 1408)
+             for v in (997, HEAD_V)]
+    cases += [(n, HEAD_D, HEAD_V, k) for n in (1, 4, 65, 1024) for k in (1, 16)]
+    tables = _bf16_head_cases(dev, cases, 2)
     worst = 0.0
+    for n, d, v, k in cases:
+        weight, bias = tables[d, v]
+        hidden = _hidden(dev, n, d, 70 + n + k)
+        got = fused_head_topk(hidden, weight, bias, k)
+        ref = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
+        torch.cuda.synchronize()
+        what = f"fused_head N={n} D={d} V={v} k={k}"
+        err, ties = _bf16_head_case(got, ref, _logits(hidden, weight, bias), what, True)
+        worst = max(worst, err)
+        print(f"{what}: lp max_abs_err={err:.6g}, near-tie id differences={ties}", flush=True)
+    del tables
+    # ties: every chunk a copy of the first, so each bucket column ties
+    # across all chunks, at N that split the walk into runs (4) or not
+    d, v = 128, 512 * 7 + 100
+    g = torch.Generator(device=dev).manual_seed(3)
+    first = (torch.randn((512, d), generator=g, device=dev) * 0.2).bfloat16()
+    weight = first.repeat(8, 1)[:v].contiguous()
+    bias = torch.zeros((v,), device=dev, dtype=torch.bfloat16)
+    for n in (4, 70, 1088):
+        hidden = _hidden(dev, n, d, 80 + n)
+        ids = fused_head_topk(hidden, weight, bias, 9)[1]
+        rids = fused_head_topk_plain(hidden, weight, bias, 9, "bucket")[1]
+        torch.cuda.synchronize()
+        require(torch.equal(ids, rids % 512), f"fused_head ties N={n}: a later chunk's id won")
+    print("fused_head ties: the earliest chunk's id at N in {4, 70, 1088}", flush=True)
+    # exact sums: integer hidden values times multiples of 2^-6, partial sums
+    # far below 2^24 ulps: the kernel's f32 sums equal the plain version's,
+    # so its winners are the plain logits (acc + b, the bias in full f32)
+    for v in (997, HEAD_V):
+        g = torch.Generator(device=dev).manual_seed(4 + v)
+        weight = (torch.randint(-8, 9, (v, HEAD_D), generator=g, device=dev) * 2.0 ** -6).bfloat16()
+        hidden = torch.randint(-4, 5, (65, HEAD_D), generator=g, device=dev).bfloat16()
+        b32 = torch.randn((v,), generator=g, device=dev) * 0.1
+        lp, ids, lse = fused_head_topk(hidden, weight, b32, 9)
+        rlp, rids, rlse = fused_head_topk_plain(hidden, weight, b32, 9, "bucket")
+        torch.cuda.synchronize()
+        logits = _logits(hidden, weight, b32)
+        require(torch.equal(ids, rids), f"fused_head exact sums V={v}: ids differ from plain")
+        require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
+                f"fused_head exact sums V={v}: a winner's logit differs from plain")
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+    print("fused_head N=65 integer hidden: ids equal, winners' logits bit-equal", flush=True)
+    # bucket widths that are not multiples of the 64-wide column group
+    weight, bias = _bf16_head_cases(dev, [(0, 128, 1300, 9)], 9)[128, 1300]
+    hidden = _hidden(dev, 70, 128, 90)
+    for bv in (32, 96, 200):
+        with knobs(MIC_TPU_EXPERIMENTAL=f"bucket_bv={bv}"):
+            got = fused_head_topk(hidden, weight, bias, 9)
+            ref = fused_head_topk_plain(hidden, weight, bias, 9, "bucket")
+        torch.cuda.synchronize()
+        require(torch.equal(got[1], ref[1]), f"fused_head bucket_bv={bv}: ids differ from plain")
+        _bf16_head_case(got, ref, _logits(hidden, weight, bias), f"fused_head bucket_bv={bv}",
+                        True)
+    print("fused_head bucket_bv in {32, 96, 200}: ids equal to plain", flush=True)
+    weight, bias = _bf16_head_cases(dev, [(0, HEAD_D, HEAD_V, 9)], 2)[HEAD_D, HEAD_V]
     times = {}
     for n in (4, 1024):
-        hidden = torch.randn((n, d), generator=g, device=dev).bfloat16()
-        logits = hidden.float() @ weight.float().T + bias.float()
-        for k in (1, 9):
-            lp, ids, lse = fused_head_topk(hidden, weight, bias, k)
-            rlp, rids, rlse = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
-            torch.cuda.synchronize()
-            torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
-            torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
-            differ = ids != rids
-            gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
-            require(bool((gap[differ] < 1e-2).all()), "an id differs beyond a near-tie")
-            err = (lp - rlp).abs().max().item()
-            worst = max(worst, err)
-            print(f"fused_head N={n} k={k}: lp max_abs_err={err:.6g}, lse max_rel_err="
-                  f"{((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
-                  f"near-tie id differences={int(differ.sum())}", flush=True)
-        del logits
+        hidden = _hidden(dev, n, HEAD_D, 70 + n + 9)
         times[n] = (median_ms(lambda: fused_head_topk(hidden, weight, bias, 9)),
                     median_ms(lambda: fused_head_topk_plain(hidden, weight, bias, 9, "bucket")))
-        print(f"fused_head time at N={n} D={d} V={v} k=9: kernel {times[n][0]:.4f} ms, "
+        print(f"fused_head time at N={n} D={HEAD_D} V={HEAD_V} k=9: kernel {times[n][0]:.4f} ms, "
               f"plain {times[n][1]:.4f} ms", flush=True)
     return worst, *times[1024]
 
@@ -1166,53 +1247,68 @@ def check_fused_head_q8_bucket(dev, table):
 
 
 def check_fused_head_select(dev, table):
-    """Phase 13: the exact/window select kernel, bf16 (row 5) and int8 (row
-    6), against the plain versions at N in {4, 1024} and a ragged V=997.
-    int8: the kernel's logits are the plain version's bit for bit, so ids
+    """Phase 13: the exact/window select kernels against the plain versions.
+    bf16 (row 5: wgmma on both operands in shared memory, fed by TMA) at N
+    in {1, 4, 65, 1024}, D in {64, 96 (D % 64 == 32: its last slice half
+    TMA zero fill), 1024, 1344 (the largest it takes)}, V in {997, 250054},
+    k = 9, and k in {1, 16} at the flagship shape (window: at most the
+    vocab's windows), with ``_bf16_head_case``'s tolerances (lp where the
+    ids agree).  int8
+    (row 6) at D = 1024, N in {1, 4, 65, 1024}, k in {1, 9, 16} and a ragged
+    V = 997: the kernel's logits are the plain version's bit for bit, so ids
     are equal, every lp is exactly the plain logit at its id minus the
     kernel's lse (the merge's subtraction), lp within 1e-4 and lse within
-    1e-5 relative (sums of 250054 exps in another order).  bf16: ids equal but at near-ties, lse within
-    1e-3 relative, lp within 2e-3 where the ids agree."""
+    1e-5 relative (sums of 250054 exps in another order).  Then tied logits
+    (zero hidden rows: the bias) in both: the lower id first (exact), the
+    highest lane in a window (window).  -> the worst lp error, bf16 and int8."""
     from mic_tpu_torch.ops.fused_head import _logits, _logits_q8, fused_head_topk, \
         fused_head_topk_plain, fused_head_topk_q8, fused_head_topk_q8_plain
     from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
     weight, bias, wq, ws = table
-    cases = [(n, HEAD_V, k) for n in (4, 1024) for k in (1, 9)] + [(70, 997, 1), (70, 997, 7)]
-    worst = 0.0
-    for n, v, k in cases:
+    cases = [(n, d, v, 9) for n in (1, 4, 65, 1024) for d in (64, 96, HEAD_D, 1344)
+             for v in (997, HEAD_V)]
+    cases += [(n, HEAD_D, HEAD_V, k) for n in (1, 4, 65, 1024) for k in (1, 16)]
+    tables = _bf16_head_cases(dev, [c for c in cases if c[1:3] != (HEAD_D, HEAD_V)], 5)
+    tables[HEAD_D, HEAD_V] = weight, bias
+    worst_bf16 = worst_q8 = 0.0
+    for n, d, v, k in cases:
+        w, b = tables[d, v]
+        hidden = _hidden(dev, n, d, 50 + n + k)
+        logits = _logits(hidden, w, b)
+        for select in ("exact", "window"):
+            kk = min(k, -(-v // 128)) if select == "window" else k
+            got = fused_head_topk(hidden, w, b, kk, select)
+            ref = fused_head_topk_plain(hidden, w, b, kk, select)
+            torch.cuda.synchronize()
+            what = f"fused_head_select bf16 {select} N={n} D={d} V={v} k={kk}"
+            err, ties = _bf16_head_case(got, ref, logits, what, False)
+            worst_bf16 = max(worst_bf16, err)
+            print(f"{what}: lp max_abs_err={err:.6g}, near-tie id differences={ties}",
+                  flush=True)
+        del logits
+    del tables
+    q8_cases = [(n, HEAD_V, k) for n in (1, 4, 65, 1024) for k in (1, 9, 16)]
+    q8_cases += [(70, 997, 1), (70, 997, 7)]
+    for n, v, k in q8_cases:
         hidden = _hidden(dev, n, HEAD_D, 50 + n + k)
-        w, b, q, s = weight[:v], bias[:v], wq[:v], ws[:v]
-        for q8 in (False, True):
-            logits = (_logits_q8(*quantize_rows_dynamic(hidden), q, s, b) if q8
-                      else _logits(hidden, w, b))
-            for select in ("exact", "window"):
-                if q8:
-                    lp, ids, lse = fused_head_topk_q8(hidden, q, s, b, k, select)
-                    rlp, rids, rlse = fused_head_topk_q8_plain(hidden, q, s, b, k, select)
-                else:
-                    lp, ids, lse = fused_head_topk(hidden, w, b, k, select)
-                    rlp, rids, rlse = fused_head_topk_plain(hidden, w, b, k, select)
-                torch.cuda.synchronize()
-                what = f"fused_head_select {'int8' if q8 else 'bf16'} {select} N={n} V={v} k={k}"
-                same = ids == rids
-                if q8:
-                    require(torch.equal(ids, rids), f"{what}: ids differ from plain")
-                    require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
-                            f"{what}: a candidate's logit differs from plain")
-                    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
-                    torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
-                    ties = 0
-                else:
-                    ties = _near_tie_ids(ids, rids, logits, what)
-                    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
-                    torch.testing.assert_close(lp[same], rlp[same], rtol=0, atol=2e-3)
-                err = (lp[same] - rlp[same]).abs().max().item()
-                worst = max(worst, err)
-                print(f"{what}: lp max_abs_err={err:.6g}, lse max_rel_err="
-                      f"{((lse - rlse).abs() / rlse.abs()).max().item():.3g}, "
-                      f"near-tie id differences={ties}", flush=True)
-            del logits
+        b, q, s = bias[:v], wq[:v], ws[:v]
+        logits = _logits_q8(*quantize_rows_dynamic(hidden), q, s, b)
+        for select in ("exact", "window"):
+            lp, ids, lse = fused_head_topk_q8(hidden, q, s, b, k, select)
+            rlp, rids, rlse = fused_head_topk_q8_plain(hidden, q, s, b, k, select)
+            torch.cuda.synchronize()
+            what = f"fused_head_select int8 {select} N={n} V={v} k={k}"
+            require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+            require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
+                    f"{what}: a candidate's logit differs from plain")
+            torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+            torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
+            err = (lp - rlp).abs().max().item()
+            worst_q8 = max(worst_q8, err)
+            print(f"{what}: lp max_abs_err={err:.6g}, lse max_rel_err="
+                  f"{((lse - rlse).abs() / rlse.abs()).max().item():.3g}", flush=True)
+        del logits
     # ties: zero hidden rows make the logits the bias (int8 rows of zeros too)
     hidden = torch.zeros((4, HEAD_D), device=dev, dtype=torch.bfloat16)
     b = torch.zeros((5000,), device=dev, dtype=torch.bfloat16)
@@ -1228,7 +1324,7 @@ def check_fused_head_select(dev, table):
                     f"{select} ties: ids {ids[0].tolist()}, want {want}")
     print("fused_head_select ties: lower id first (exact), highest lane in a window (window), "
           "bf16 and int8", flush=True)
-    return worst
+    return worst_bf16, worst_q8
 
 
 def check_lazy_attention_q8(dev):
@@ -1339,18 +1435,21 @@ def run_int8_path(dev, flag):
     require(torch.equal(again.sequences.cpu(), seqs), "int8 path: a second run gave other sequences")
     print("int8 path: second run gave identical sequences", flush=True)
     launches = {"lazy_attention_q8": counts["lazy_attention_q8"],
-                "fused_head_bucket_q8": counts["fused_head_bucket_q8"], "fused_head_select": 0}
+                "fused_head_bucket_q8": counts["fused_head_bucket_q8"], "fused_head_select": 0,
+                "fused_head_select_bf16": 0}
     for select, extra in (("exact", q8), ("window", q8), ("exact", kw)):
         chosen = Captioner(config.replace(decode=config.decode.replace(fused_select=select)))
         out, counts = drive(chosen, params, px, **extra)
-        label = f"{'int8' if 'quantize' in extra else 'bf16'} path, select {select}"
+        int8 = "quantize" in extra
+        label = f"{'int8' if int8 else 'bf16'} path, select {select}"
         check_path_output(out, 8, 64, label)
         print(f"{label}: {out.steps} decode steps, launches {counts}", flush=True)
         require(counts["fused_head_select"] >= out.steps,
                 f"{label}: the select kernel launched less than once a step")
         require(counts["fused_head"] == counts["fused_head_bucket_q8"] == 0,
                 f"{label}: a bucket kernel ran")
-        launches["fused_head_select"] += counts["fused_head_select"]
+        launches["fused_head_select" if int8 else "fused_head_select_bf16"] += \
+            counts["fused_head_select"]
     smoke_figures(model, params, pixels, q8, "int8 weights + int8 KV")
     return launches
 
@@ -2812,7 +2911,7 @@ def main() -> None:
 
     table = _head_table(dev)
     q8_bucket_err = check_fused_head_q8_bucket(dev, table)
-    select_err = check_fused_head_select(dev, table)
+    select_bf16_err, select_q8_err = check_fused_head_select(dev, table)
     torch.cuda.empty_cache()
     attn_q8_err, attn_inputs = check_lazy_attention_q8(dev)
     q8_ms = time_int8_kernels(dev, table, attn_inputs)
@@ -2896,6 +2995,7 @@ def main() -> None:
                                       2 * n_ce * CE_D * CE_V, "bf16"),
         "fused_head_bucket_q8": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
         "fused_head_select": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "int8", scales=True),
+        "fused_head_select_bf16": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
         "lazy_attention_q8": attention_bound(n_beam, 63, HEAD_D, 1, scale_bytes=4, ancestry=True),
         "decode_attention": attention_bound(256, 63, HEAD_D, 2),
         "topk_log_probs": topk_bound(1024, HEAD_V, 9, 2),
@@ -2917,7 +3017,7 @@ def main() -> None:
               "fused_head_bucket_q8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
               "fused_head_select int8 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 1, "int8",
                                                       scales=True),
-              "fused_head_select bf16 N=1024": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
+              "fused_head_select bf16 N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               **{f"topk_log_probs N={n} k={k}": topk_bound(n, HEAD_V, k, 2)
                  for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2))},
               "fused_lazy_attention int8 per-head": blocked_attention_bound(
@@ -2952,8 +3052,11 @@ def main() -> None:
              replaces="mic_tpu/ops/fused_head.py:461", max_abs_err=q8_bucket_err,
              ms=q8_ms[("bucket_q8", 1024)][0], plain_ms=q8_ms[("bucket_q8", 1024)][1]),
         dict(name="fused_head_select", source="mic_tpu_torch/csrc/fused_head.cu",
-             replaces="mic_tpu/ops/fused_head.py:290", max_abs_err=select_err,
+             replaces="mic_tpu/ops/fused_head.py:346", max_abs_err=select_q8_err,
              ms=q8_ms[("exact_q8", 1024)][0], plain_ms=q8_ms[("exact_q8", 1024)][1]),
+        dict(name="fused_head_select_bf16", source="mic_tpu_torch/csrc/fused_head.cu",
+             replaces="mic_tpu/ops/fused_head.py:290", max_abs_err=select_bf16_err,
+             ms=q8_ms[("exact_bf16", 1024)][0], plain_ms=q8_ms[("exact_bf16", 1024)][1]),
         dict(name="lazy_attention_q8", source="mic_tpu_torch/csrc/lazy_attention.cu",
              replaces="mic_tpu/ops/lazy_attention.py:560", max_abs_err=attn_q8_err,
              ms=q8_ms["lazy_q8"][0], plain_ms=q8_ms["lazy_q8"][1]),

@@ -41,9 +41,9 @@ _SIGNATURES = {
     # hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
     # rmax_part, rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_q8": [_P] * 10 + [_I] * 5 + [_P],
-    # hidden, weight, bias, part_m, part_l, part_v, part_i, lp, ids, lse,
-    # n, d, vocab, k, runs, window, stream
-    "mic_fused_head_select_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    # hidden, weight, bias, row_floor, part_m, part_l, part_v, part_i, lp,
+    # ids, lse, n, d, vocab, k, runs, window, stream
+    "mic_fused_head_select_bf16": [_P] * 11 + [_I] * 6 + [_P],
     # xq, xs, weight_q, wscale, bias, row_floor, part_m, part_l, part_v,
     # part_i, lp, ids, lse, n, d, vocab, k, runs, window, stream
     "mic_fused_head_select_q8": [_P] * 13 + [_I] * 6 + [_P],

@@ -23,13 +23,12 @@ logits = acc * xs * ws + b.
 
 Each function takes the plain versions for tensors on the CPU.  On a CUDA
 device the bucket selects run the bucket kernels of csrc/fused_head.cu,
-which never store logits and leave lse and the top-k of the 512 winners to
-torch, as the TPU's n > 512 path leaves them to XLA; they take any BV that
-is a multiple of their 64-wide column group and raise NotImplementedError
-for another (ROADMAP C).  The exact and window selects run its select
-kernels.  The int8 head's kernels (bucket, exact/window) run on wgmma fed
-by TMA (csrc/head_wgmma.cuh); the host-side arithmetic of their launches
-(runs, shared memory) is the pure functions below.  The weight is the tied
+which never store logits and leave lse and the top-k of the BV winners to
+torch, as the TPU's n > 512 path leaves them to XLA; they take any BV.  The
+exact and window selects run its select kernels.  Every kernel runs on
+wgmma fed by TMA (csrc/head_wgmma.cuh); the host-side arithmetic of their
+launches (runs, splits, ring stages, shared memory) is the pure functions
+below, and a shape a kernel does not take raises.  The weight is the tied
 embedding as stored, (V, D): no transposed copy.
 """
 
@@ -44,10 +43,12 @@ from mic_tpu_torch.ops.topk_lse import NEG_INF, top_k
 
 BUCKETS = 512  # bv of mic_tpu/ops/fused_head.py::_bucket_tiles unless bucket_bv is set
 WINDOW = 128   # _WINDOW of mic_tpu/ops/fused_head.py
-_ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBM, q8::kBRows)
-_COL_TILE = 64  # bucket columns per block of the bucket kernels (kBC, q8::kBCols)
+_ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBRows, kSRows)
+_COL_TILE = 64  # bucket columns per block of the bucket kernels (kBCols)
 _Q8_SELECT_ROWS = 128  # hidden rows per block of the int8 select kernel (q8::kSRows)
 _TOPK_MAX = 16  # the largest k of the select kernels (kTopK)
+_MAX_STAGES = 8  # ring stages of the kernels (kMaxStages)
+_CANDIDATES = 24  # candidate entries a row of the select kernels (kCap)
 SMEM_LIMIT = 232448  # shared memory a block can have on the H100
 SELECTS = ("bucket", "exact", "window")
 
@@ -163,8 +164,9 @@ def _sms(device: torch.device) -> int:
 def chunk_splits(n: int, v: int, bv: int, sms: int) -> int:
     """How many consecutive runs the bucket kernels cut the chunk walk into:
     as many as fill the SMs left idle by the (row tile x column group)
-    blocks, one block per SM, and never more than there are chunks."""
-    blocks = -(-n // _ROW_TILE) * (bv // _COL_TILE)
+    blocks, ceil(bv / 64) column groups, one block per SM, and never more
+    than there are chunks."""
+    blocks = -(-n // _ROW_TILE) * -(-bv // _COL_TILE)
     return max(1, min(-(-v // bv), sms // blocks))
 
 
@@ -182,10 +184,27 @@ def select_runs(n: int, v: int, sms: int, rows: int = _ROW_TILE) -> int:
 
 
 def bucket_q8_smem_bytes(d: int) -> int:
-    """Shared memory of the int8 bucket kernel (q8::bucket_smem_bytes):
+    """Shared memory of the int8 bucket kernel (bucket_smem_bytes<true>):
     1024 bytes of alignment slack, the 64 resident bf16 hidden rows, eight
-    ring stages of two 64 x 64-byte slices, sixteen mbarriers."""
-    return 1024 + 64 * d * 2 + 8 * 2 * 64 * 64 + 2 * 8 * 8
+    ring stages of two 64 x 64-byte slices, seventeen mbarriers."""
+    return 1024 + 64 * d * 2 + _MAX_STAGES * 2 * 64 * 64 + (2 * _MAX_STAGES + 1) * 8
+
+
+def bucket_bf16_smem_bytes(d: int, stages: int) -> int:
+    """Shared memory of the bf16 bucket kernel (bucket_smem_bytes<false>):
+    alignment slack, the 64 resident hidden rows, ``stages`` ring stages of
+    two 64-row x 64-deep bf16 slices (8 KB each), the barriers."""
+    return 1024 + 64 * d * 2 + stages * 2 * 64 * 64 * 2 + (2 * stages + 1) * 8
+
+
+def bucket_bf16_stages(d: int) -> int:
+    """The bf16 bucket kernel's ring stages at depth D (bucket_stages): as
+    many as fit, up to eight; it takes D when there are three or more (the
+    warpgroups' final merge of 48 KB goes through the ring), D <= 1408."""
+    stages = _MAX_STAGES
+    while stages > 0 and bucket_bf16_smem_bytes(d, stages) > SMEM_LIMIT:
+        stages -= 1
+    return stages
 
 
 def select_q8_smem_bytes(d: int) -> int:
@@ -195,6 +214,27 @@ def select_q8_smem_bytes(d: int) -> int:
     each, 24 candidates (value, id) for each of the 128 rows, nine
     mbarriers."""
     return 1024 + -(-d // 128) * 128 * 128 + 4 * (128 * 128 + 128 * 8) + 128 * 24 * 8 + 9 * 8
+
+
+def select_bf16_smem_bytes(d: int, stages: int) -> int:
+    """Shared memory of the bf16 exact/window kernel (select_smem_bytes):
+    alignment slack, the 64 resident hidden rows in 64-deep blocks of 128
+    bytes a row, ``stages`` slots of a 128-column x 64-deep bf16 slice with
+    a tile's 128 biases beside each, 24 candidates (value, id) for each of
+    the two warpgroups' 64 rows, the barriers."""
+    return (1024 + -(-d // 64) * 64 * 128 + stages * (128 * 64 * 2 + 128 * 4)
+            + 2 * 64 * _CANDIDATES * 8 + (2 * stages + 1) * 8)
+
+
+def select_bf16_stages(d: int) -> int:
+    """The bf16 select kernel's slots at depth D (select_stages): as many as
+    fit, up to eight, an even number (half of them each warpgroup's); it
+    takes D when there are two or more, D <= 1344 (four or more, two a
+    warpgroup, load a warpgroup's next slice while it multiplies one)."""
+    stages = _MAX_STAGES
+    while stages > 0 and select_bf16_smem_bytes(d, stages) > SMEM_LIMIT:
+        stages -= 2
+    return stages
 
 
 def _check_operands(name: str, *tensors) -> None:
@@ -211,15 +251,12 @@ def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
     n, d = hidden.shape
     v = weight.shape[0]
     bv = bucket_width()
-    if bv % _COL_TILE or bv <= 0:
-        raise NotImplementedError(
-            f"{entry}: bucket_bv={bv} is not a multiple of the kernel's {_COL_TILE}-wide "
-            "column group (ROADMAP C)")
-    if weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not 1 <= k <= bv:
+    fits = (bucket_q8_smem_bytes(d) <= SMEM_LIMIT if wscale is not None
+            else bucket_bf16_stages(d) >= 3)
+    if (weight.shape != (v, d) or bias.shape != (v,) or d % 64 or not fits
+            or not 1 <= k <= bv):
         raise ValueError(f"{entry}: hidden {tuple(hidden.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}, bv={bv}")
-    if wscale is not None and bucket_q8_smem_bytes(d) > SMEM_LIMIT:
-        raise ValueError(f"{entry}: D={d} does not fit the kernel's shared memory")
     bias32 = bias.float().contiguous()
     scale = () if wscale is None else (wscale.float().contiguous(),)
     _check_operands(entry, hidden, weight, bias32, *scale)
@@ -252,8 +289,9 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     q8 = xscale is not None
     entry = "mic_fused_head_select_q8" if q8 else "mic_fused_head_select_bf16"
     candidates = -(-v // WINDOW) if window else v
-    if (weight.shape != (v, d) or bias.shape != (v,) or d % (64 if q8 else 32)
-            or (q8 and select_q8_smem_bytes(d) > SMEM_LIMIT)
+    fits = (d % 64 == 0 and select_q8_smem_bytes(d) <= SMEM_LIMIT if q8
+            else d % 32 == 0 and select_bf16_stages(d) >= 2)
+    if (weight.shape != (v, d) or bias.shape != (v,) or not fits
             or not 1 <= k <= min(_TOPK_MAX, candidates)):
         raise ValueError(f"{entry}: x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}, k={k}")
@@ -264,20 +302,21 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     scales = (xscale.float().contiguous(), wscale.float().contiguous()) if q8 else ()
     _check_operands(entry, x, weight, bias32, *scales)
     runs = select_runs(n, v, _sms(x.device), _Q8_SELECT_ROWS if q8 else _ROW_TILE)
+    # the bf16 kernel's two warpgroups each write their state as a run
+    entries = runs if q8 else 2 * runs
     f32 = dict(dtype=torch.float32, device=x.device)
-    part_m, part_l = torch.empty((2, runs, n), **f32)
-    part_v = torch.empty((runs, n, k), **f32)
-    part_i = torch.empty((runs, n, k), dtype=torch.int32, device=x.device)
+    part_m, part_l = torch.empty((2, entries, n), **f32)
+    part_v = torch.empty((entries, n, k), **f32)
+    part_i = torch.empty((entries, n, k), dtype=torch.int32, device=x.device)
     lp = torch.empty((n, k), **f32)
     ids = torch.empty((n, k), dtype=torch.int32, device=x.device)
     lse = torch.empty((n, 1), **f32)
-    # int8: a floor a row for the kernel's runs to share (csrc/fused_head.cu)
-    operands = ((x, scales[0], weight, scales[1], bias32,
-                 torch.empty((n,), dtype=torch.int32, device=x.device)) if q8
-                else (x, weight, bias32))
+    # a floor a row for the exact select's runs to share (csrc/fused_head.cu)
+    row_floor = torch.empty((n,), dtype=torch.int32, device=x.device)
+    operands = ((x, scales[0], weight, scales[1], bias32) if q8 else (x, weight, bias32))
     err = getattr(_build.lib(), entry)(
         *(t.data_ptr() for t in operands),
-        *(t.data_ptr() for t in (part_m, part_l, part_v, part_i, lp, ids, lse)),
+        *(t.data_ptr() for t in (row_floor, part_m, part_l, part_v, part_i, lp, ids, lse)),
         n, d, v, k, runs, int(window), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, entry)

@@ -162,11 +162,13 @@ def test_fused_head_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("bv", [64, 256, 512, 1024])
+@pytest.mark.parametrize("bv", [32, 64, 96, 200, 256, 512, 1024])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_head_bucket_kernels_take_the_bucket_bv_width(cuda, monkeypatch, q8, bv):
     """MIC_TPU_EXPERIMENTAL=bucket_bv=<w>: the bucket kernels at width w give
-    the plain version's candidates at w."""
+    the plain version's candidates at w, also where w is not a multiple of
+    their 64-wide column group (the group's columns past w, which read the
+    next chunk's rows, are left out)."""
     monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", f"bucket_bv={bv}")
     hidden, weight, bias, wq, ws = _head_inputs(cuda, 70, 128, 1300, bv)
     if q8:
@@ -179,20 +181,6 @@ def test_fused_head_bucket_kernels_take_the_bucket_bv_width(cuda, monkeypatch, q
     assert torch.equal(got[1], ref[1])
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=2e-3)
     torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=0)
-
-
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("q8", [False, True])
-def test_fused_head_bucket_kernels_refuse_other_widths(cuda, monkeypatch, q8):
-    """A bucket_bv that is not a multiple of the kernels' 64-wide column
-    group raises, naming ROADMAP C, rather than running another width."""
-    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "bucket_bv=96")
-    hidden, weight, bias, wq, ws = _head_inputs(cuda, 8, 128, 1300, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP C"):
-        if q8:
-            fused_head_topk_q8(hidden, wq, ws, bias, 9, "bucket")
-        else:
-            fused_head_topk(hidden, weight, bias, 9, "bucket")
 
 
 @pytest.mark.requires_cuda
@@ -448,6 +436,105 @@ def test_fused_head_q8_select_kernel_sweep(cuda, select, n, d, v):
     torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-4)
     logits = _logits_q8(*quantize_rows_dynamic(hidden), wq, ws, bias)
     assert torch.equal(lp, logits.gather(1, ids.long()) - lse)
+
+
+_BF16_TABLES = {}
+
+
+def _bf16_table(cuda, d, v):
+    """A bf16 tied table (V, D) and bias, made once a shape."""
+    if (d, v) not in _BF16_TABLES:
+        g = torch.Generator(device=cuda).manual_seed(3 * d + v)
+        weight = (torch.randn((v, d), generator=g, device=cuda) * 0.02).bfloat16()
+        bias = (torch.randn((v,), generator=g, device=cuda) * 0.1).bfloat16()
+        _BF16_TABLES[(d, v)] = (weight, bias)
+    return _BF16_TABLES[(d, v)]
+
+
+def _bf16_head_check(hidden, weight, bias, got, ref, every_lp):
+    """The bf16 heads against their plain version: ids equal but at
+    near-ties (two logits within 1e-2: bf16 products summed in another
+    order), lse within 1e-3 relative, lp within 2e-3: every entry
+    (``every_lp``, the bucket) or where the ids agree (exact/window)."""
+    (lp, ids, lse), (rlp, rids, rlse) = got, ref
+    logits = hidden.float() @ weight.float().T + bias.float()
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    assert bool((gap[ids != rids] < 1e-2).all())
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+    if not every_lp:
+        same = ids == rids
+        lp, rlp = lp[same], rlp[same]
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-3)
+
+
+BF16_HEAD_ROWS = [1, 4, 65, 1024]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("k", [1, 9, 16])
+@pytest.mark.parametrize("v", [997, 250054])
+@pytest.mark.parametrize("d", [64, 1024, 1408])
+@pytest.mark.parametrize("n", BF16_HEAD_ROWS)
+def test_fused_head_bucket_kernel_sweep(cuda, n, d, v, k):
+    """The bf16 bucket kernel (wgmma with both operands in shared memory,
+    fed by TMA) against its plain version across row counts, the smallest,
+    the flagship's and the largest D it takes, a ragged and the flagship
+    vocab, and k."""
+    weight, bias = _bf16_table(cuda, d, v)
+    hidden = torch.randn((n, d), generator=torch.Generator(device=cuda).manual_seed(n + k),
+                         device=cuda).bfloat16()
+    launches = fused_head_topk.launches
+    got = fused_head_topk(hidden, weight, bias, k, "bucket")
+    ref = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
+    torch.cuda.synchronize()
+    assert fused_head_topk.launches == launches + 1
+    _bf16_head_check(hidden, weight, bias, got, ref, True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v", [997, 250054])
+@pytest.mark.parametrize("d", [64, 1024])
+def test_fused_head_bucket_kernel_exact_sums(cuda, d, v):
+    """Integer hidden values and a weight of multiples of 2**-6 make every
+    product and every partial sum exact in f32 on both sides: the ids are
+    the plain version's and each winner's lp is exactly the plain logit
+    (acc + b, the bias in full f32) minus the kernel's lse."""
+    g = torch.Generator(device=cuda).manual_seed(d + v)
+    weight = (torch.randint(-8, 9, (v, d), generator=g, device=cuda) * 2.0 ** -6).bfloat16()
+    hidden = torch.randint(-4, 5, (65, d), generator=g, device=cuda).bfloat16()
+    bias = torch.randn((v,), generator=g, device=cuda) * 0.1
+    lp, ids, lse = fused_head_topk(hidden, weight, bias, 9, "bucket")
+    rlp, rids, rlse = fused_head_topk_plain(hidden, weight, bias, 9, "bucket")
+    torch.cuda.synchronize()
+    assert torch.equal(ids, rids)
+    logits = hidden.float() @ weight.float().T + bias
+    assert torch.equal(lp, logits.gather(1, ids.long()) - lse)
+    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("k", [1, 9, 16])
+@pytest.mark.parametrize("v", [997, 250054])
+@pytest.mark.parametrize("d", [64, 96, 1024, 1344])
+@pytest.mark.parametrize("n", BF16_HEAD_ROWS)
+@pytest.mark.parametrize("select", ["exact", "window"])
+def test_fused_head_select_kernel_sweep(cuda, select, n, d, v, k):
+    """The bf16 exact/window kernel (m64n128k16 with both operands in shared
+    memory, fed by TMA) against its plain version across row counts, D
+    (64, a D % 64 == 32 whose last slice is half TMA zero fill, the
+    flagship's and the largest it takes), a ragged and the flagship vocab,
+    and k (for window at most the vocab's windows: 8 at V = 997)."""
+    weight, bias = _bf16_table(cuda, d, v)
+    hidden = torch.randn((n, d), generator=torch.Generator(device=cuda).manual_seed(7 * n + k),
+                         device=cuda).bfloat16()
+    if select == "window":
+        k = min(k, -(-v // 128))
+    launches = fused_head_select.launches
+    got = fused_head_topk(hidden, weight, bias, k, select)
+    ref = fused_head_topk_plain(hidden, weight, bias, k, select)
+    torch.cuda.synchronize()
+    assert fused_head_select.launches == launches + 1
+    _bf16_head_check(hidden, weight, bias, got, ref, False)
 
 
 @pytest.mark.requires_cuda

@@ -22,6 +22,9 @@ from mic_tpu.ops.fused_head import fused_head_topk_q8 as jax_fused_head_topk_q8
 from mic_tpu.ops.quant import quantize_array
 from mic_tpu_torch.ops.fused_head import (
     SMEM_LIMIT,
+    _bucket_kernel,
+    bucket_bf16_smem_bytes,
+    bucket_bf16_stages,
     bucket_finish,
     bucket_q8_smem_bytes,
     bucket_width,
@@ -30,6 +33,8 @@ from mic_tpu_torch.ops.fused_head import (
     fused_head_select,
     fused_head_topk,
     fused_head_topk_q8,
+    select_bf16_smem_bytes,
+    select_bf16_stages,
     select_q8_smem_bytes,
     select_runs,
 )
@@ -153,14 +158,15 @@ def test_bucket_finish_matches_the_dense_bucket_select():
     np.testing.assert_allclose(lse.numpy(), ref[2].numpy(), **TOL)
 
 
-@pytest.mark.parametrize("bv", [None, 64, 256])
+@pytest.mark.parametrize("bv", [None, 64, 96, 200, 256])
 def test_bucket_bv_switch_matches_jax(monkeypatch, bv):
     """MIC_TPU_EXPERIMENTAL=bucket_bv=<w> sets the bucket width at every N, as
-    mic_tpu's _bucket_tiles reads it (512 when unset): the bf16 and int8
-    bucket selects' candidates equal mic_tpu's _bucket_topk_dense at that
-    width (N=8, D=64, V=4000, k=9; mic_tpu reads the switch at trace time,
-    so its oracle is called with the width given).  At 64 the candidates
-    differ from those at 512 on this input."""
+    mic_tpu's _bucket_tiles reads it (512 when unset), at any width: the
+    bf16 and int8 bucket selects' candidates equal mic_tpu's
+    _bucket_topk_dense at that width (N=8, D=64, V=4000, k=9; mic_tpu reads
+    the switch at trace time, so its oracle is called with the width
+    given).  At 64, 96 and 200 the candidates differ from those at 512 on
+    this input."""
     if bv is None:
         monkeypatch.delenv("MIC_TPU_EXPERIMENTAL", raising=False)
     else:
@@ -176,7 +182,7 @@ def test_bucket_bv_switch_matches_jax(monkeypatch, bv):
     np.testing.assert_array_equal(got[1].numpy(), ids)
     np.testing.assert_allclose(got[0].numpy(), vals - lse, **TOL)
     wide = np.asarray(_bucket_topk_dense(logits, 9, 512)[1])
-    assert (width == 64) == (not np.array_equal(ids, wide))
+    assert (width in (64, 96, 200)) == (not np.array_equal(ids, wide))
     wq, ws = (np.array(a) for a in quantize_array(jnp.asarray(weight), axis=1))
     qlogits = (jnp.dot(jnp.asarray(hidden, jnp.bfloat16), jnp.asarray(wq, jnp.bfloat16).T,
                        preferred_element_type=jnp.float32) * jnp.asarray(ws) + jnp.asarray(bias))
@@ -189,19 +195,21 @@ def test_bucket_bv_switch_matches_jax(monkeypatch, bv):
 H100_SMS = 132
 
 
-@pytest.mark.parametrize("bv", [64, 192, 512])
+@pytest.mark.parametrize("bv", [64, 96, 192, 200, 512])
 @pytest.mark.parametrize("n", [1, 4, 63, 64, 65, 1024])
 def test_bucket_runs_cover_every_chunk_once_in_order(n, bv):
     """The bucket kernels' split of the chunk walk, as the wrapper sizes it
-    for the H100's 132 SMs at V = 250054 and V = 1300: consecutive runs,
-    in order, covering every chunk once; and the int8 kernel's walk of a
-    run (csrc/fused_head.cu, q8::bucket_kernel: warpgroup w takes chunk
-    begin + 2 p + w of stage pair p while it is below the run's end) visits
-    each of the run's chunks once, in order."""
+    for the H100's 132 SMs at V = 250054 and V = 1300 (ceil(bv / 64) column
+    groups, the last one partial when bv is not a multiple of 64):
+    consecutive runs, in order, covering every chunk once; and the
+    kernels' walk of a run (csrc/fused_head.cu, bucket_kernel: warpgroup w
+    takes chunk begin + 2 p + w of stage pair p while it is below the run's
+    end) visits each of the run's chunks once, in order."""
     for v in (250054, 1300):
         nchunks = -(-v // bv)
         splits = chunk_splits(n, v, bv, H100_SMS)
         assert 1 <= splits <= nchunks
+        assert -(-n // 64) * -(-bv // 64) * splits <= max(H100_SMS, -(-n // 64) * -(-bv // 64))
         runs = chunk_runs(nchunks, splits)
         assert runs[0][0] == 0 and runs[-1][1] == nchunks
         assert all(b < e for b, e in runs)
@@ -213,6 +221,36 @@ def test_bucket_runs_cover_every_chunk_once_in_order(n, bv):
         assert walked == list(range(nchunks))
 
 
+@pytest.mark.parametrize("v", [997, 1997, 250054])
+@pytest.mark.parametrize("n", [1, 4, 63, 64, 65, 1024])
+def test_bf16_select_runs_cover_every_tile_once(n, v):
+    """The bf16 select kernel's walk, as the wrapper sizes it (64-row tiles,
+    select_runs over the 128-wide vocab tiles): consecutive runs covering
+    every tile once, in order; in each run warpgroup w takes tiles begin +
+    2 p + w, so the two warpgroups' walks (each written as a run of its own
+    for the merge) together cover the run's tiles once, and its ring slices
+    (slice s: depth block (s / 2) % nkb of pair (s / 2) / nkb for
+    warpgroup s % 2) visit each (tile, depth block) once at D = 1024."""
+    ntiles = -(-v // 128)
+    runs = select_runs(n, v, H100_SMS, 64)
+    assert 1 <= runs <= ntiles and -(-n // 64) * runs <= H100_SMS
+    bounds = [(y * ntiles // runs, (y + 1) * ntiles // runs) for y in range(runs)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == ntiles
+    assert all(bounds[y][1] == bounds[y + 1][0] for y in range(runs - 1))
+    nkb = 1024 // 64
+    covered = []
+    for b, e in bounds:
+        pairs = (e - b + 1) // 2
+        slices = [(b + 2 * ((s >> 1) // nkb) + (s & 1), (s >> 1) % nkb)
+                  for s in range(2 * pairs * nkb)]
+        present = [(tile, kb) for tile, kb in slices if tile < e]
+        assert sorted(present) == [(tile, kb) for tile in range(b, e) for kb in range(nkb)]
+        walks = [list(range(b + w, e, 2)) for w in (0, 1)]
+        assert sorted(walks[0] + walks[1]) == list(range(b, e))
+        covered += sorted(walks[0] + walks[1])
+    assert covered == list(range(ntiles))
+
+
 def test_launch_sizes_fill_the_card():
     """N = 1024 rows fill the card with row tiles alone (one run); one image
     of beam 4 (N = 4) splits the walk as far as the SMs allow."""
@@ -221,6 +259,8 @@ def test_launch_sizes_fill_the_card():
     assert select_runs(1024, 250054, H100_SMS, 128) == 16
     assert select_runs(4, 250054, H100_SMS, 128) == 132
     assert select_runs(4, 997, H100_SMS, 128) == 8
+    assert select_runs(1024, 250054, H100_SMS, 64) == 8
+    assert select_runs(4, 250054, H100_SMS, 64) == 132
 
 
 @pytest.mark.parametrize("d", list(range(64, 1025, 64)))
@@ -229,3 +269,53 @@ def test_int8_head_kernels_fit_shared_memory(d):
     block's 232,448 bytes at every D the head takes."""
     assert bucket_q8_smem_bytes(d) <= SMEM_LIMIT
     assert select_q8_smem_bytes(d) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", list(range(64, 1409, 64)))
+def test_bf16_bucket_kernel_fits_shared_memory(d):
+    """The bf16 bucket kernel takes every D the first port's kernel took
+    (D % 64 == 0 up to 1408): its ring stages fit a block's 232,448 bytes
+    beside the 64 resident hidden rows, three or more of them (the
+    warpgroups' 48 KB merge goes through the ring), eight where they
+    fit."""
+    stages = bucket_bf16_stages(d)
+    assert 3 <= stages <= 8
+    assert bucket_bf16_smem_bytes(d, stages) <= SMEM_LIMIT
+    assert stages == 8 or bucket_bf16_smem_bytes(d, stages + 1) > SMEM_LIMIT
+    assert stages * 2 * 64 * 128 >= 3 * 32 * 128 * 4
+
+
+@pytest.mark.parametrize("d", list(range(32, 1345, 32)))
+def test_bf16_select_kernel_fits_shared_memory(d):
+    """The bf16 exact/window kernel takes every D the first port's kernel
+    took (D % 32 == 0 up to 1344): an even number of slots, two or more,
+    fits beside the 64 resident rows (64-deep blocks: a D % 64 == 32 block
+    is half zero fill) and the candidate lists; four or more (two a
+    warpgroup: its next slice loads while it multiplies one) up to D =
+    1024."""
+    stages = select_bf16_stages(d)
+    assert stages >= 2 and stages % 2 == 0
+    assert select_bf16_smem_bytes(d, stages) <= SMEM_LIMIT
+    assert stages == 8 or select_bf16_smem_bytes(d, stages + 2) > SMEM_LIMIT
+    assert d > 1024 or stages >= 4
+
+
+@pytest.mark.parametrize("case", ["bucket D=1472", "bucket D=96", "bucket k>bv",
+                                  "select D=1376", "select D=48", "select k=17"])
+def test_head_kernels_refuse_shapes_they_do_not_take(monkeypatch, case):
+    """The kernels' launchers raise on a shape their kernel does not take,
+    before any launch (on the CPU tensors here, no library is built): the
+    bucket kernel past D = 1408 or off D % 64, k above the bucket width;
+    the bf16 select past D = 1344 or off D % 32, k above 16."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "bucket_bv=8")
+    kind, what = case.split(" ")
+    d = int(what[2:]) if what.startswith("D=") else 64
+    k = {"k>bv": 9, "k=17": 17}.get(what, 1)
+    hidden = torch.zeros((4, d), dtype=torch.bfloat16)
+    weight = torch.zeros((300, d), dtype=torch.bfloat16)
+    bias = torch.zeros((300,))
+    with pytest.raises(ValueError):
+        if kind == "bucket":
+            _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k)
+        else:
+            fused_head_select(hidden, None, weight, None, bias, k, False)

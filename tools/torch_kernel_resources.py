@@ -9,10 +9,17 @@ toolkit (no card needed):
 Each named source of mic_tpu_torch/csrc (default: all) is compiled alone
 with the build's flags and -Xptxas -v into build/resources/, and for every
 kernel the registers, shared memory, stack frame and spill bytes that
-ptxas reports are printed, one line each.  With --sass-grep, the object's
-SASS (cuobjdump --dump-sass) is searched for the instruction name, and its
-count is printed for each kernel function beside its number of
-instructions and the first such instruction.
+ptxas reports are printed, one line each, with its warnings and its
+wgmma advisories (C7517: a warpgroup.wait injected before a use of
+registers a wgmma defines, so a product group meant to stay in flight
+does not; C7518/C7520: wgmma instructions serialized).  With
+--sass-grep, the object's SASS (cuobjdump --dump-sass) is searched for
+the instruction names, and for each kernel function their count is
+printed beside its number of instructions, with each distinct form of the
+matching instructions (the opcode and its operands with register numbers
+dropped) and how often it occurs: a wgmma reading both operands from shared memory shows as
+``HGMMA... R, gdesc[UR], R``, one whose A is in registers as ``HGMMA... R,
+R, gdesc[UR], R``, and a warp-level mma.sync (WMMA) as ``HMMA``.
 """
 
 from __future__ import annotations
@@ -66,29 +73,31 @@ def main() -> None:
                 kernel = demangled(m.group(1))
             if "stack frame" in line or "Used" in line:
                 print(f"{src.name}: {kernel}: {line.strip()}", flush=True)
-            elif "warning" in line.lower():
+            elif "warning" in line.lower() or re.search(r"\(C75\d\d\)", line):
                 print(f"{src.name}: {line.strip()}", flush=True)
         if args.sass_grep:
             cuobjdump = Path(nvcc).parent / "cuobjdump"
             sass = subprocess.run([str(cuobjdump), "--dump-sass", str(obj)], capture_output=True,
                                   text=True, check=True).stdout
-            counts, sizes, first, func = {}, {}, {}, None
+            counts, sizes, forms, func = {}, {}, {}, None
             for line in sass.splitlines():
                 m = re.search(r"Function : (\S+)", line)
                 if m:
                     func = demangled(m.group(1))
                     counts.setdefault(func, 0)
                     sizes.setdefault(func, 0)
+                    forms.setdefault(func, {})
                 elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
                     sizes[func] += 1
                     if re.search(rf"\b(?:{args.sass_grep})\b", line):
                         counts[func] += 1
-                        first.setdefault(func, re.sub(r"\s*/\*.*?\*/\s*", " ", line).strip())
+                        text = re.sub(r"\s*/\*.*?\*/\s*", " ", line).strip().rstrip(" ;")
+                        form = re.sub(r"\b(U?R|U?P)\d+\b", r"\1", text)
+                        forms[func][form] = forms[func].get(form, 0) + 1
             for func, count in counts.items():
+                seen = "; ".join(f"{n} x {form}" for form, n in forms[func].items())
                 print(f"{src.name}: SASS {args.sass_grep} x{count} of {sizes[func]} instructions "
-                      f"in {func}" + (f", first: {first[func]}" if func in first else ""),
-                      flush=True)
-
+                      f"in {func}" + (f": {seen}" if seen else ""), flush=True)
 
 if __name__ == "__main__":
     main()

@@ -10,10 +10,15 @@ mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
 heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
-the per-call time with the wrapper's host work (``median_ms``).  Every
-measurement is repeated ``--turns`` times in one process, so two checkouts
-can be compared in turns (parent, change, change, parent) on one card.
-One JSON line per measurement goes to stdout and, with --out, to FILE.
+the per-call time with the wrapper's host work (``median_ms``).  With
+--generate, each turn also times the flagship's B=256 beam-4 length-64
+bf16 generate (random weights, chip_smoke.flagship; every caption's EOS
+pinned at position 63, so 63 decode steps) on the host clock around the
+synchronised call, as captions/s (a smoke figure, not a benchmark).
+Every measurement is repeated ``--turns`` times in one process, so two
+checkouts can be compared in turns (parent, change, change, parent) on one
+card: run this script with each checkout as the working directory.  One
+JSON line per measurement goes to stdout and, with --out, to FILE.
 """
 
 from __future__ import annotations
@@ -23,11 +28,13 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
 sys.path.insert(0, os.getcwd())
 
+import chip_smoke  # noqa: E402
 from chip_smoke import graph_ms, median_ms  # noqa: E402
 
 HEAD_D, HEAD_V = 1024, 250054
@@ -69,11 +76,32 @@ def head_cases(dev):
                    lambda s=select, h=hidden: fused_head_topk(h, weight, bias, 9, s), None)
 
 
+def generate_case(dev, batch: int = 256):
+    """-> a function running the flagship's beam-4 bf16 generate of
+    ``batch`` images, returning its captions/s."""
+    _, params, model, kw, pixels = chip_smoke.flagship(dev)
+    px = pixels(batch, 1)
+    kw = dict(kw, eos_positions=torch.full((batch,), 63, device=dev, dtype=torch.int32))
+    model.generate(params, px, **kw)  # warm-up
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(params, px, **kw)
+        torch.cuda.synchronize()
+        if out.steps != 63:
+            raise SystemExit(f"generate took {out.steps} steps, not 63")
+        return batch / (time.perf_counter() - t0)
+
+    return run
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--turns", type=int, default=2)
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
     parser.add_argument("--out", default=None)
+    parser.add_argument("--generate", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_time_rows.py needs a CUDA device")
@@ -82,7 +110,14 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
     cases = list(decode_cases(dev)) + list(head_cases(dev))
+    generate = generate_case(dev) if args.generate else None
     for turn in range(args.turns):
+        if generate is not None:
+            rates = [generate(), generate()]
+            row = {"label": args.label, "turn": turn, "case": "generate B=256 beam 4 bf16",
+                   "card": card, "captions_per_s": rates}
+            lines.append(row)
+            print(json.dumps(row), flush=True)
         for name, fn, library in cases:
             row = {"label": args.label, "turn": turn, "case": name, "card": card,
                    "graph_ms": graph_ms(fn), "median_ms": median_ms(fn)}
