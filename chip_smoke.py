@@ -20,12 +20,18 @@ Phases, each of which raises on failure (none catches its own):
      and a batch of 256 timed for captions/s smoke figures (not a benchmark);
   6. the same path at a small width on the card against the CPU (plain
      versions) on the same weights;
-  7. the flash-CE forward kernel against its plain version (N in {64, 4096},
-     D=1024, V=250054, bf16, labels in the last vocab tile);
-  8. the flash-CE dl kernel against its plain version (the same shapes,
-     label smoothing 0 and 0.1, rows with rowscale 0, a guard past dl);
-  9. both CE kernels' times beside their plain versions' at N=4096, and the
-     dh / demb GEMMs over dl;
+  7. the flash-CE forward kernel (row 7, wgmma fed by TMA, 128-row x
+     256-column tiles) against its plain version (N in {1, 129, 4096}: one
+     row, a row past a tile, the flagship step, at D=1024 V=250054, whose
+     last vocab tile holds 198 columns; and N=129 over the table's first
+     257 rows, one column past a tile; bf16, labels in the last vocab
+     tile);
+  8. the flash-CE dl kernel (row 8, the same walk) against its plain version
+     (the same shapes, label smoothing 0 and 0.1, rows with rowscale 0, a
+     guard past dl);
+  9. both CE kernels' times beside their plain versions' at N=4096, each
+     kernel's share of its bound, cuBLAS's bare f32-output h @ W^T product
+     for scale (not the same function), and the dh / demb GEMMs over dl;
  10. training at flagship width: the port's Trainer takes 6 steps of batch
      64 x 64 with the TrainConfig defaults (fused CE on the dl route, remat
      "masks", bf16 moments and shadow) from one seed in four turns: the
@@ -93,7 +99,7 @@ Phases, each of which raises on failure (none catches its own):
      (at B=1, N=4 rows, mic_tpu's N % 8 gates turn LN -> GEMM and the MLP
      kernel off);
  29. that path at a small width on the card against the CPU, both caches;
- 30. the flash-CE save forward (row 9) at N in {64, 4096}: statistics
+ 30. the flash-CE save forward (row 9) at phase 7's shapes: statistics
      bit-equal to the non-saving kernel's, reruns bit-equal, the bf16
      logits within one ulp of the plain rounding, the f32 tail;
  31. the split (row 10) and save (row 9) backwards against their plain
@@ -238,6 +244,19 @@ def mlp_bound(n, d, f):
     """The MLP: x, W1, b1, W2, b2 read and the output written once, bf16 (the
     (N, F) intermediate kept on chip); 4 N D F products."""
     return bound(2 * (n * d + d * f + f + f * d + d + n * d), 4 * n * d * f, "bf16")
+
+
+def flash_ce_bounds(n, d=1024, v=250054):
+    """Rows 7 and 8 at N rows: h (bf16), the table (bf16) and the bias read
+    once; the forward also reads the labels and writes (lse, label logit,
+    sum of logits); dl reads labels, lse and rowscale and writes the bf16
+    (N, V) dl and dbias.  Each is one 2 N D V logits product."""
+    inputs = v * d * 2 + v * 4 + n * d * 2
+    return {
+        "flash_ce_forward": bound(inputs + n * 4 * 4, 2 * n * d * v, "bf16"),
+        "flash_ce_backward_dl": bound(inputs + n * 4 * 3 + n * v * 2 + v * 4, 2 * n * d * v,
+                                      "bf16"),
+    }
 
 
 def flash_ce_route_bounds(n, d=1024, v=250054):
@@ -630,6 +649,11 @@ def check_small_against_cpu(dev):
 
 
 CE_D, CE_V = 1024, 250054  # the flagship decoder width and vocab
+# (N, V) of the CE checks: one row, a row past a 128-row tile of the walk
+# and the flagship step's rows over the flagship vocab (its last 256-wide
+# tile holds 198 columns), and a vocab one column past a tile (the first
+# 257 rows of the table: 255 masked columns in the last tile)
+CE_CASES = ((1, CE_V), (129, CE_V), (4096, CE_V), (129, 257))
 
 
 def _ce_table(dev):
@@ -639,11 +663,12 @@ def _ce_table(dev):
     return weight, bias
 
 
-def _ce_rows(dev, n, seed):
+def _ce_rows(dev, n, seed, v=CE_V):
     g = torch.Generator(device=dev).manual_seed(seed)
     hidden = torch.randn((n, CE_D), generator=g, device=dev).bfloat16()
-    labels = torch.randint(0, CE_V, (n,), generator=g, device=dev, dtype=torch.int32)
-    labels[:8] = CE_V - 1 - torch.arange(8, device=dev, dtype=torch.int32)  # in the last tile
+    labels = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    k = min(n, 8)
+    labels[:k] = v - 1 - torch.arange(k, device=dev, dtype=torch.int32)  # in the last tile
     return hidden, labels
 
 
@@ -656,25 +681,26 @@ def check_flash_ce_forward(dev, weight, bias):
 
     worst = 0.0
     wf = weight.float()
-    for n in (64, 4096):
-        hidden, labels = _ce_rows(dev, n, n)
-        out = flash_ce_forward(hidden, weight, bias, labels)
-        ref = flash_ce_forward_plain(hidden, weight, bias, labels)
+    for n, v in CE_CASES:
+        tw, tb = weight[:v], bias[:v]
+        hidden, labels = _ce_rows(dev, n, n, v)
+        out = flash_ce_forward(hidden, tw, tb, labels)
+        ref = flash_ce_forward_plain(hidden, tw, tb, labels)
         torch.cuda.synchronize()
-        l1 = torch.cat([(hidden[i:i + 512].float() @ wf.T + bias).abs().sum(-1)
+        l1 = torch.cat([(hidden[i:i + 512].float() @ wf[:v].T + tb).abs().sum(-1)
                         for i in range(0, n, 512)])
         lse_rel = ((out[0] - ref[0]).abs() / ref[0].abs()).max().item()
         lbl_rel = ((out[1] - ref[1]).abs() / ref[1].abs().clamp(min=1.0)).max().item()
         z_rel = ((out[2] - ref[2]).abs() / l1).max().item()
-        require(lse_rel < 1e-3 and lbl_rel < 1e-3, f"flash_ce_forward N={n}: lse/label logit")
-        require(z_rel < 1e-3, f"flash_ce_forward N={n}: sum of logits")
+        require(lse_rel < 1e-3 and lbl_rel < 1e-3, f"flash_ce_forward N={n} V={v}: lse/label logit")
+        require(z_rel < 1e-3, f"flash_ce_forward N={n} V={v}: sum of logits")
         for ls in (0.0, 0.1):
-            loss, loss_ref = ((s[0] - expected_logit(s[1], s[2], ls, CE_V)).mean()
-                              - normalizing(ls, CE_V) for s in (out, ref))
+            loss, loss_ref = ((s[0] - expected_logit(s[1], s[2], ls, v)).mean()
+                              - normalizing(ls, v) for s in (out, ref))
             require(abs(loss.item() - loss_ref.item()) < 1e-3 * abs(loss_ref.item()),
-                    f"flash_ce_forward N={n} smoothing {ls}: loss")
+                    f"flash_ce_forward N={n} V={v} smoothing {ls}: loss")
         worst = max(worst, (out[0] - ref[0]).abs().max().item())
-        print(f"flash_ce_forward N={n} D={CE_D} V={CE_V}: lse max_rel_err={lse_rel:.3g}, "
+        print(f"flash_ce_forward N={n} D={CE_D} V={v}: lse max_rel_err={lse_rel:.3g}, "
               f"label logit max_rel_err={lbl_rel:.3g}, sum_logits max err / row L1="
               f"{z_rel:.3g}, lse max_abs_err={worst:.3g}", flush=True)
     del wf
@@ -698,25 +724,27 @@ def check_flash_ce_dl(dev, weight, bias):
     )
 
     worst = 0.0
-    for n in (64, 4096):
-        hidden, labels = _ce_rows(dev, n, n + 1)
-        lse = flash_ce_forward_plain(hidden, weight, bias, labels)[0]
+    for n, v in CE_CASES:
+        tw, tb = weight[:v], bias[:v]
+        hidden, labels = _ce_rows(dev, n, n + 1, v)
+        lse = flash_ce_forward_plain(hidden, tw, tb, labels)[0]
         rs = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
         rs = rs / n
-        rs[::7] = 0.0
+        if n > 1:  # a lone row keeps its rowscale
+            rs[::7] = 0.0
         for ls in (0.0, 0.1):
-            buf = torch.full((n * CE_V + 256,), 3.0, dtype=torch.bfloat16, device=dev)
-            dl, dbias = flash_ce_dl(hidden, weight, bias, labels, lse, rs, ls,
-                                    out=buf[: n * CE_V].view(n, CE_V))
-            ref, dbias_ref = flash_ce_dl_plain(hidden, weight, bias, labels, lse, rs, ls)
+            buf = torch.full((n * v + 256,), 3.0, dtype=torch.bfloat16, device=dev)
+            dl, dbias = flash_ce_dl(hidden, tw, tb, labels, lse, rs, ls,
+                                    out=buf[: n * v].view(n, v))
+            ref, dbias_ref = flash_ce_dl_plain(hidden, tw, tb, labels, lse, rs, ls)
             torch.cuda.synchronize()
-            require(bool(buf[n * CE_V:].eq(3.0).all()), "flash_ce_dl wrote past dl's end")
+            require(bool(buf[n * v:].eq(3.0).all()), "flash_ce_dl wrote past dl's end")
             require(not dl[rs == 0].any(), "flash_ce_dl: a rowscale-0 row is not zero")
             # where p nears the smoothed target, p - target cancels and one
             # ulp of the result is finer than the f32 logits' summation
             # order can promise: dl must be within one bf16 ulp of itself
             # plus one of the terms it is the difference of, |p| + |target|
-            low, conf_low = _targets(ls, CE_V)
+            low, conf_low = _targets(ls, v)
             differ, beyond, err = 0, 0, 0.0
             for i in range(0, n, 256):
                 r = ref[i:i + 256].float()
@@ -725,15 +753,15 @@ def check_flash_ce_dl(dev, weight, bias):
                 terms = (r.abs() + 2 * target * rs[i:i + 256, None]).bfloat16()
                 d = (dl[i:i + 256].float() - r).abs()
                 require(bool((d <= _bf16_ulp(ref[i:i + 256]) + _bf16_ulp(terms)).all()),
-                        f"flash_ce_dl N={n}: dl beyond one bf16 ulp of dl and of its terms")
+                        f"flash_ce_dl N={n} V={v}: dl beyond one bf16 ulp of dl and of its terms")
                 differ += int((d > 0).sum())
                 beyond += int((d > _bf16_ulp(ref[i:i + 256])).sum())
                 err = max(err, d.max().item())
             db = (dbias - dbias_ref).abs().max().item() / dbias_ref.abs().max().item()
-            require(db < 1e-4, f"flash_ce_dl N={n}: dbias")
+            require(db < 1e-4, f"flash_ce_dl N={n} V={v}: dbias")
             worst = max(worst, err)
-            print(f"flash_ce_dl N={n} smoothing={ls}: dl entries differing from plain "
-                  f"{differ} of {n * CE_V}, {beyond} of them by more than one ulp of dl "
+            print(f"flash_ce_dl N={n} V={v} smoothing={ls}: dl entries differing from plain "
+                  f"{differ} of {n * v}, {beyond} of them by more than one ulp of dl "
                   f"(all within one of dl plus one of its terms), dl max_abs_err="
                   f"{err:.3g}, dbias max err / max |dbias|={db:.3g}, guard intact", flush=True)
             del buf, dl, ref
@@ -741,8 +769,11 @@ def check_flash_ce_dl(dev, weight, bias):
 
 
 def time_flash_ce(dev, weight, bias):
-    """Both kernels and their plain versions at N=4096, and the dh / demb
-    GEMMs over a bf16 dl: medians of 25 CUDA-event runs."""
+    """Both kernels and their plain versions at N=4096, each kernel's share
+    of its bound, cuBLAS's bare h @ W^T with f32 output for scale (the
+    2.1 TFLOP product alone, without the statistics or dl: not the same
+    function), and the dh / demb GEMMs over a bf16 dl: medians of 25
+    CUDA-event runs."""
     from mic_tpu_torch.ops.flash_ce import (
         _dl_gemms, flash_ce_dl, flash_ce_dl_plain, flash_ce_forward, flash_ce_forward_plain,
     )
@@ -758,14 +789,22 @@ def time_flash_ce(dev, weight, bias):
         "dl_plain": median_ms(lambda: flash_ce_dl_plain(hidden, weight, bias, labels, lse, rs,
                                                         0.1)),
     }
+    product_ms = median_ms(lambda: torch.mm(hidden, weight.T, out_dtype=torch.float32))
+    torch.cuda.empty_cache()
     dl, _ = flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1)
     dh_ms = median_ms(lambda: torch.mm(dl, weight, out_dtype=torch.float32))
     demb_ms = median_ms(lambda: torch.mm(dl.T, hidden, out_dtype=torch.float32))
     both_ms = median_ms(lambda: _dl_gemms(dl, weight, hidden))
-    print(f"flash_ce_forward time at N={n} D={CE_D} V={CE_V}: kernel {t['fwd']:.4f} ms, "
-          f"plain {t['fwd_plain']:.4f} ms", flush=True)
-    print(f"flash_ce_dl time at N={n} D={CE_D} V={CE_V}: kernel {t['dl']:.4f} ms, "
-          f"plain {t['dl_plain']:.4f} ms", flush=True)
+    bounds = flash_ce_bounds(n, CE_D, CE_V)
+    for name, key, what in (("flash_ce_forward", "fwd", "flash_ce_forward"),
+                            ("flash_ce_dl", "dl", "flash_ce_backward_dl")):
+        b_ms, by = bounds[what]
+        print(f"{name} time at N={n} D={CE_D} V={CE_V}: kernel {t[key]:.4f} ms, plain "
+              f"{t[key + '_plain']:.4f} ms; bound {b_ms:.4f} ms ({by}), the kernel at "
+              f"{b_ms / t[key]:.1%} of it", flush=True)
+    print(f"for scale only (not the same function): cuBLAS torch.mm(h, W.T, out_dtype=f32) at "
+          f"N={n}: {product_ms:.4f} ms, {bounds['flash_ce_forward'][0] / product_ms:.1%} of the "
+          f"2 N D V bound", flush=True)
     print(f"dl GEMMs (torch.mm bf16 -> f32 output, cuBLAS) at N={n}: dh {dh_ms:.4f} ms, "
           f"demb {demb_ms:.4f} ms, both {both_ms:.4f} ms", flush=True)
     return t
@@ -986,7 +1025,7 @@ def check_training_small_against_cpu(dev, routes=("dl",)):
 
 def check_flash_ce_save_forward(dev, weight, bias):
     """Row 9's forward against the non-saving kernel and the plain version
-    (N in {64, 4096}): lse and sum of logits bit-equal to the non-saving
+    (the (N, V) of CE_CASES): lse and sum of logits bit-equal to the non-saving
     kernel's, a rerun bit-equal, the f32 tail within 1e-5 of the plain
     version's, and the bf16 logits within one bf16 ulp of the plain f32
     logits plus 1e-5 (the two f32 sums of 1024 products, in another order,
@@ -995,34 +1034,37 @@ def check_flash_ce_save_forward(dev, weight, bias):
     from mic_tpu_torch.ops.flash_ce import flash_ce_forward, flash_ce_forward_plain, main_columns
 
     worst = 0.0
-    v_main = main_columns(CE_V)
-    wf = weight[:v_main].float()
-    for n in (64, 4096):
-        hidden, labels = _ce_rows(dev, n, n + 2)
-        out = flash_ce_forward(hidden, weight, bias, labels, save=True)
-        again = flash_ce_forward(hidden, weight, bias, labels, save=True)
-        stats = flash_ce_forward(hidden, weight, bias, labels)
-        ref = flash_ce_forward_plain(hidden, weight, bias, labels, save=True)
+    wf = weight[:main_columns(CE_V)].float()
+    for n, v in CE_CASES:
+        v_main = main_columns(v)
+        tw, tb = weight[:v], bias[:v]
+        hidden, labels = _ce_rows(dev, n, n + 2, v)
+        out = flash_ce_forward(hidden, tw, tb, labels, save=True)
+        again = flash_ce_forward(hidden, tw, tb, labels, save=True)
+        stats = flash_ce_forward(hidden, tw, tb, labels)
+        ref = flash_ce_forward_plain(hidden, tw, tb, labels, save=True)
         torch.cuda.synchronize()
         require(all(torch.equal(a, b) for a, b in zip(out, again)),
-                f"flash_ce_forward save N={n}: a rerun differs")
+                f"flash_ce_forward save N={n} V={v}: a rerun differs")
         require(all(torch.equal(a, b) for a, b in zip(out[:3], stats)),
-                f"flash_ce_forward save N={n}: statistics differ from the non-saving kernel's")
-        require(out[3].shape == (n, v_main) and out[4].shape == (n, CE_V - v_main),
-                f"flash_ce_forward save N={n}: saved shapes")
+                f"flash_ce_forward save N={n} V={v}: statistics differ from the non-saving "
+                "kernel's")
+        require(out[3].shape == (n, v_main) and out[4].shape == (n, v - v_main),
+                f"flash_ce_forward save N={n} V={v}: saved shapes")
         tail_err = (out[4] - ref[4]).abs().max().item()
-        require(tail_err < 1e-5, f"flash_ce_forward save N={n}: tail logits")
+        require(tail_err < 1e-5, f"flash_ce_forward save N={n} V={v}: tail logits")
         differ, err = 0, 0.0
         for i in range(0, n, 512):
-            exact = hidden[i:i + 512].float() @ wf.T + bias[:v_main]
+            exact = hidden[i:i + 512].float() @ wf[:v_main].T + bias[:v_main]
             d = (out[3][i:i + 512].float() - exact).abs()
             require(bool((d <= _bf16_ulp(exact) + 1e-5).all()),
-                    f"flash_ce_forward save N={n}: bf16 logits beyond one ulp of the f32 logits")
+                    f"flash_ce_forward save N={n} V={v}: bf16 logits beyond one ulp of the f32 "
+                    "logits")
             differ += int((out[3][i:i + 512] != ref[3][i:i + 512]).sum())
             err = max(err, (out[3][i:i + 512].float() - ref[3][i:i + 512].float()).abs().max().item())
             del exact, d
         worst = max(worst, err)
-        print(f"flash_ce_forward save N={n} D={CE_D} V={CE_V} v_main={v_main}: statistics "
+        print(f"flash_ce_forward save N={n} D={CE_D} V={v} v_main={v_main}: statistics "
               f"bit-equal to the non-saving kernel, rerun bit-equal; bf16 logits differing "
               f"from the plain rounding {differ} of {n * v_main} (max abs {err:.3g}), all within "
               f"one ulp of the f32 logits plus 1e-5; tail max_abs_err {tail_err:.3g}", flush=True)
@@ -2988,11 +3030,7 @@ def main() -> None:
     bounds = {
         "lazy_attention": attention_bound(n_beam, 63, HEAD_D, 2, ancestry=True),
         "fused_head_bucket": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),
-        "flash_ce_forward": bound(CE_V * CE_D * 2 + CE_V * 4 + n_ce * CE_D * 2 + n_ce * 4 * 4,
-                                  2 * n_ce * CE_D * CE_V, "bf16"),
-        "flash_ce_backward_dl": bound(CE_V * CE_D * 2 + CE_V * 4 + n_ce * CE_D * 2 + n_ce * 4 * 3
-                                      + n_ce * CE_V * 2 + CE_V * 4,
-                                      2 * n_ce * CE_D * CE_V, "bf16"),
+        **flash_ce_bounds(n_ce),
         "fused_head_bucket_q8": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "bf16", scales=True),
         "fused_head_select": head_bound(1024, HEAD_D, HEAD_V, 9, 1, "int8", scales=True),
         "fused_head_select_bf16": head_bound(1024, HEAD_D, HEAD_V, 9, 2, "bf16"),

@@ -27,33 +27,64 @@
 // Bound: at the flagship training step (N = 4096 rows, D = 1024,
 // V = 250054) each kernel is a 2.1 TFLOP GEMM (4.2 for a recomputing
 // contraction), far above the card's bf16 ridge point, so the tensor cores
-// should bound it; the dl kernel also writes 2 GB of bf16 dl, the save
-// forward 2 GB of bf16 logits.  Design of the forward and dl kernels (the
-// simple first version): a block owns
-// 64 rows and walks a run of consecutive 64-wide vocab tiles; per tile it
-// streams 64 x 64 slices of hidden and weight (the weight read as stored,
-// (V, D), each vocab row contiguous) through a three-stage cp.async ring
-// into bf16 WMMA (mma.sync) with f32 accumulation, then runs the epilogue
-// on the tile in shared memory.  Hidden is not kept resident, so a block
-// needs 73 KB of shared memory and three fit an SM; the hidden rows are
-// re-read from L2 per tile.  The vocab walk is cut into runs so that the
-// row tiles x runs fill the card; the forward merges the runs' (m, s, z)
-// in run order and dbias sums the row bands in band order.  There is no
-// float atomic anywhere: two identical calls give bit-equal results.
+// bound it; the dl kernel also writes 2 GB of bf16 dl, the save forward
+// 2 GB of bf16 logits.
 //
-// dl rows start at row * V * 2 bytes, which for an odd V is only 2-byte
-// aligned, so dl is written with scalar bf16 stores (a warp writes 64
-// consecutive bytes); no padded row pitch is needed.  The saved main logits
-// start at row * v_main * 2 bytes, and v_main is a multiple of 128, so they
-// are written 16 bytes at a time; the tail's pitch is not aligned, and it
-// is written value by value.  The contraction kernels are described where
-// they are defined, below.
+// The walk of the forward, save and dl kernels (ce_walk_kernel<mode>) runs
+// on Hopper's wgmma fed by TMA (csrc/head_wgmma.cuh).  A block owns 128
+// hidden rows and walks a run of consecutive 256-wide vocab tiles.  Per
+// tile both operands stream in 64-deep slices -- hidden (N, D) 128 x 64
+// and the table as stored, (V, D), 256 x 64, both in the 128-byte swizzle,
+// with the tile's 256 biases beside its last slice -- through a ring of
+// mbarrier-guarded slots (four for the forward, three where the bf16 tile
+// is staged) that one producer warp keeps filled; two consumer warpgroups
+// (64 rows each) issue m64n256k16 on each slot, both operands from shared
+// memory, wait for the products and free the slot.  A 128-row hidden tile
+// is 256 KB at D = 1024 and does not fit, so its slices are re-read from
+// L2 for every vocab tile.  The epilogue works on the accumulator
+// registers, where a thread holds rows 16 w + g + 8 h (h = 0, 1) of its
+// warpgroup's 64 and columns 8 i + 2 t + e (i < 32, e < 2):
+//   forward: per row a running (max, rescaled sum of exps, sum of logits)
+//     over the thread's columns, folded over the quad by shuffles at the
+//     end of the run;
+//   save: the same walk and fold (so the statistics are the forward's bit
+//     for bit), then the logits stored;
+//   dl: dl per element, stored as bf16, and the tile's f32 column sums over
+//     the block's 128 rows (the row band's dbias partial): over the
+//     thread's two rows, over the warp's eight row groups by a
+//     reduce-scatter of shuffles, over the eight warps through shared
+//     memory in warp order.
+// The grid is (row tiles, runs), row tiles fastest, one block an SM
+// (ops/flash_ce.py::_runs: as many runs as the row tiles leave SMs), so
+// the blocks of one run walk the same vocab slices together and the table
+// is read from device memory about once.  The forward merges the runs'
+// (m, s, z) in run order and dbias sums the row bands in band order.
+// There is no float atomic anywhere: two identical calls give bit-equal
+// results.  Rows past N and vocab rows past V arrive as TMA's zero fill;
+// rows past N are never written and columns >= V never enter a sum.
+//
+// Stores.  dl (2 GB at the flagship step) and the save form's bf16 logits
+// leave the SM while the next tile's products run: the consumers stage the
+// tile's bf16 values in shared memory and go on; the producer warpgroup's
+// three other warps ("storers") write it out and free it (two more
+// mbarriers).  dl rows start at row * V * 2 bytes, for an odd V only 2-byte
+// aligned, which TMA cannot store (global strides must be multiples of 16
+// bytes); so each staged row is shifted by its start's offset within 16
+// bytes (the even part by the consumers, the odd one by the storers) and
+// goes out in aligned 16-byte pieces, the partial pieces at its ends value
+// by value.  Stored from the consumers' registers instead, while the tensor
+// cores idled, dl took 1.3-1.5 ms more than the walk without its stores
+// (an H100 at the flagship step).  The save form's f32 tail goes value by
+// value from the registers.
+// The contraction kernels are described where they are defined, below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "head_wgmma.cuh"
 
 namespace {
 
@@ -66,244 +97,471 @@ using nvcuda::wmma::mem_row_major;
 using nvcuda::wmma::row_major;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 64;        // hidden rows per block
-constexpr int kBN = 64;        // vocab columns per tile
-constexpr int kBK = 64;        // depth of one slice
-constexpr int kStages = 3;
-constexpr int kThreads = 128;  // 4 warps, each a 32 x 32 quarter of the tile
-constexpr int kLda = kBK + 8;  // bf16 row pitch of a staged slice (bank padding)
-constexpr int kLds = kBN + 4;  // f32 row pitch of the score tile
 constexpr float kNeg = -FLT_MAX;  // finfo(float32).min, NEG of mic_tpu/ops/flash_ce.py
-constexpr size_t kSmemBytes =
-    2 * static_cast<size_t>(kStages) * kBM * kLda * sizeof(bf16) +
-    static_cast<size_t>(kBM) * kLds * sizeof(float);
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+
+// ---------------------------------------------------------------------------
+// The walk: forward, save and dl on wgmma fed by TMA.
+
+namespace walk {
+
+using namespace head_wgmma;
+
+constexpr int kRows = 128;                         // hidden rows a block
+constexpr int kCols = 256;                         // vocab columns a tile
+constexpr int kDepth = 64;                         // bf16 depth of a slice: a 128-byte row
+constexpr int kFwdStages = 4;                      // ring slots: the forward
+constexpr int kStoreStages = 3;                    // save and dl (room for the tile)
+constexpr int kASlice = kRows * kDepth * 2;        // 16384 bytes
+constexpr int kBSlice = kCols * kDepth * 2;        // 32768
+constexpr int kSide = kCols * 4;                   // the tile's biases, beside its last slice
+constexpr int kSlot = kASlice + kBSlice + kSide;   // 50176 = 49 x 1024
+constexpr int kConsumerWarps = 8;                  // two warpgroups
+constexpr int kConsumerThreads = kConsumerWarps * 32;
+constexpr int kThreads = kConsumerThreads + 128;   // and the producer's warpgroup
+constexpr int kProducerRegs = 40;                  // registers a thread after setmaxnreg
+constexpr int kConsumerRegs = 232;
+constexpr int kSumPitch = kCols + 32;              // f32 pitch of a warp's column sums
+constexpr int kSumBytes = kConsumerWarps * kSumPitch * 4;           // 9216
+constexpr int kTilePitch = kCols + 8;              // bf16 pitch of the staged tile
+constexpr int kTileBytes = kRows * kTilePitch * 2;                  // 67584
+constexpr int kStorerWarps = 3;                    // the producer warpgroup's other warps
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kFloor = -1e30f;  // a row's running max before its first column
+
+enum Mode { kFwd = 0, kSave = 1, kDl = 2 };
+
+__host__ __device__ constexpr int ring_stages(int mode) { return mode == kFwd ? kFwdStages : kStoreStages; }
+
+// Alignment slack, the ring, the staged bf16 tile (save, dl), the column
+// sums (dl), the barriers (the ring's, and the staged tile's two).
+constexpr size_t smem_bytes(int mode) {
+  return 1024 + static_cast<size_t>(ring_stages(mode)) * kSlot +
+         (mode == kFwd ? 0 : kTileBytes) + (mode == kDl ? kSumBytes : 0) +
+         (2 * ring_stages(mode) + 2) * sizeof(uint64_t);
+}
+static_assert(smem_bytes(kDl) <= 232448, "the dl walk must fit a block's shared memory");
+
+struct Args {
+  const float* lse;        // dl: (N,)
+  const float* rowscale;   // dl: (N,)
+  const int32_t* labels;   // dl: (N,)
+  float* part_m;           // forward, save: (runs, N) partials
+  float* part_s;
+  float* part_z;
+  bf16* out;               // save: logits (N, v_main); dl: dl (N, V)
+  float* tail;             // save: (N, V - v_main)
+  float* band;             // dl: (row tiles, V) dbias partials
+  float low, conf_low;
+  int n, d, vocab, v_main;
+};
+
+// 2^x, one MUFU instruction; 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// This block's run [t_begin, t_end) of 64-wide vocab tiles, run z of gridDim.y.
-__device__ __forceinline__ void tile_run(int vocab, int& t_begin, int& t_end) {
-  const int ntiles = (vocab + kBN - 1) / kBN;
-  t_begin = static_cast<int>(static_cast<int64_t>(blockIdx.y) * ntiles / gridDim.y);
-  t_end = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * ntiles / gridDim.y);
+// The tile's logits x (column 8 i + 2 t + e valid where kFull or < V) into
+// the thread's two rows' running (max m, sum of exps s relative to m, sum
+// of logits z).  m starts at kFloor, so exp2 of (v - m) * log2 e needs no
+// guard: a thread with no valid column in the tile keeps its state.
+template <bool kFull>
+__device__ __forceinline__ void fold_tile(const float (&x)[128], int col0, int vocab, int t,
+                                          float (&m)[2], float (&s)[2], float (&z)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = kFull || col0 + 8 * i + 2 * t + e < vocab;
+        tmax = fmaxf(tmax, ok ? x[4 * i + 2 * h + e] : -INFINITY);
+      }
+    }
+    const float mnew = fmaxf(m[h], tmax);
+    const float c = -mnew * kLog2e;
+    float es[2] = {0.f, 0.f}, zs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = kFull || col0 + 8 * i + 2 * t + e < vocab;
+        const float v = x[4 * i + 2 * h + e];
+        es[e] += ok ? ex2(fmaf(v, kLog2e, c)) : 0.f;
+        zs[e] += ok ? v : 0.f;
+      }
+    }
+    s[h] = fmaf(s[h], ex2((m[h] - mnew) * kLog2e), es[0] + es[1]);
+    m[h] = mnew;
+    z[h] += zs[0] + zs[1];
+  }
 }
 
-// Walks the block's tiles: for each, the (64 x 64) f32 tile of
-// hidden[row0:row0+64] @ weight[tile*64 : tile*64+64]^T lands in `ss` (row
-// major, pitch kLds) and epi(ss, first column) runs on it.  Rows past n and
-// vocab rows past V re-read the last valid row; the epilogue masks them.
-template <class Epilogue>
-__device__ __forceinline__ void walk_tiles(const bf16* __restrict__ hidden,
-                                           const bf16* __restrict__ weight, int n, int d,
-                                           int vocab, int row0, int t_begin, int t_end,
-                                           unsigned char* smem, Epilogue& epi) {
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + kStages * kBM * kLda;
-  float* ss = reinterpret_cast<float*>(bs + kStages * kBN * kLda);
+// The thread's values of x, rounded to bf16, into the staged tile for the
+// storers: block row rr + 8 h, column c (c = 8 i + 2 t + e) at position
+// c + (sh & 6) of the row, sh = the row's first element modulo 8 in the
+// output (row pitch ld), pairs as 4-byte shared stores; the storers take
+// out the rest of the shift, sh & 1.  The u-th use of the tile (u = 0, 1,
+// ...) waits for their (u - 1)-th read.
+__device__ __forceinline__ void stage_bf16(const float (&x)[128], uint16_t* tile,
+                                           uint64_t* tile_full, uint64_t* tile_empty, int u,
+                                           size_t ld, int row0, int col0, int rr, int t) {
+  if (u > 0) mbar_wait(tile_empty, (u - 1) & 1);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int se = static_cast<int>((static_cast<size_t>(row0 + rr + 8 * h) * ld + col0) & 6);
+    uint32_t* row = reinterpret_cast<uint32_t*>(tile + (rr + 8 * h) * kTilePitch + se) + t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(x[4 * i + 2 * h], x[4 * i + 2 * h + 1]);
+      row[4 * i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+  }
+  release(tile_full, 0);
+}
+
+// A storer warp writes its rows r = sw, sw + 3, ... of the staged tile
+// (block rows from row0, columns from col0) into out (row pitch ld
+// elements): columns < limit of rows < n.  Output position p (from the
+// 16-byte aligned element row * ld + col0 - sh on) holds the row's value
+// p - sh, staged at position p - (sh & 1).  In a whole tile lane j stores
+// the 16-byte piece at 8 j when it lies inside the row (for an odd sh each
+// 4-byte pair rebuilt from two staged ones), and lanes 0-7 the row's 8
+// values in the partial pieces at either end; a partial tile (the vocab's
+// last) goes value by value.
+__device__ __forceinline__ void write_tile(const uint16_t* tile, bf16* out, size_t ld, int row0,
+                                           int n, int col0, int limit, int sw, int lane) {
+  uint16_t* out16 = reinterpret_cast<uint16_t*>(out);
+  const int rows = min(kRows, n - row0);
+  const int cols = min(kCols, limit - col0);
+  for (int r = sw; r < rows; r += kStorerWarps) {
+    const size_t e0 = static_cast<size_t>(row0 + r) * ld + col0;
+    const int sh = static_cast<int>(e0 & 7);
+    const int odd = sh & 1;
+    const uint16_t* src = tile + r * kTilePitch - odd;  // src[p]: output position p
+    uint16_t* dst = out16 + (e0 - sh);
+    if (cols < kCols) {
+      for (int p = sh + lane; p < sh + cols; p += 32) dst[p] = src[p];
+      continue;
+    }
+    const int p0 = 8 * lane;
+    if (p0 >= sh) {  // the piece [p0, p0 + 8) lies inside [sh, sh + 256)
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(src + odd + p0);
+      uint4 v = *reinterpret_cast<const uint4*>(w);
+      if (odd) {  // row-uniform
+        v = make_uint4(__byte_perm(w[-1], v.x, 0x5432), __byte_perm(v.x, v.y, 0x5432),
+                       __byte_perm(v.y, v.z, 0x5432), __byte_perm(v.z, v.w, 0x5432));
+      }
+      *reinterpret_cast<uint4*>(dst + p0) = v;
+    }
+    if (sh > 0 && lane < 8) {  // positions sh .. 7 and 256 .. 255 + sh
+      const int p = lane < 8 - sh ? sh + lane : kCols + lane - (8 - sh);
+      dst[p] = src[p];
+    }
+  }
+}
+
+// dl of the tile, in place of its logits x: (exp(x - lse) - target) *
+// rowscale, 0 for rows past N and columns >= V.
+template <bool kFull>
+__device__ __forceinline__ void dl_values(float (&x)[128], int col0, int vocab, int t,
+                                          const bool (&live)[2], const float (&nl)[2],
+                                          const float (&rs)[2], const int (&y)[2], float low,
+                                          float label_target) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * i + 2 * t + e;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& v = x[4 * i + 2 * h + e];
+        const float p = ex2(fmaf(v, kLog2e, nl[h]));
+        const float g = (p - (col == y[h] ? label_target : low)) * rs[h];
+        v = live[h] && (kFull || col < vocab) ? g : 0.f;
+      }
+    }
+  }
+}
+
+// One step of the column sums' reduce-scatter: of the kHalf * 2 sums j the
+// thread holds (sum j in x[4 (j / 2) + j % 2]), it keeps the lower or upper
+// kHalf, as its lane bit kHalf / 2 says, and adds its partner's copy of them.
+template <int kHalf>
+__device__ __forceinline__ void scatter_step(float (&x)[128], int lane) {
+  const bool upper = (lane & (kHalf / 2)) != 0;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    float& lo = x[4 * (j >> 1) + (j & 1)];
+    const float hi = x[4 * ((j + kHalf) >> 1) + ((j + kHalf) & 1)];
+    const float send = upper ? lo : hi;
+    const float keep = upper ? hi : lo;
+    lo = keep + __shfl_xor_sync(0xffffffffu, send, kHalf / 2);
+  }
+}
+
+// The tile's column sums of dl over the block's 128 rows, in a fixed order:
+// the thread's two rows, then the warp's eight row groups (lanes 4 g + t,
+// g = 0..7) by a reduce-scatter over lane bits 4, 3, 2, after which lane
+// (g, t) holds columns 32 g + 8 q + 2 t + e (q < 4, e < 2); written to the
+// warp's row of sums (column c at c + 4 (c / 32)), then, past a consumer
+// barrier, added over the eight warps in warp order into the band's row.
+// The sums are one buffer: a barrier before the writes keeps them behind
+// the previous tile's reads.
+__device__ __forceinline__ void band_sums(float (&x)[128], float* sums, float* band, int col0,
+                                          int vocab, int warp, int lane, int g, int t) {
+  // j = 2 i + e indexes the 64 column sums; they live in x[4 i + e]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    x[4 * i] += x[4 * i + 2];
+    x[4 * i + 1] += x[4 * i + 3];
+  }
+  scatter_step<32>(x, lane);
+  scatter_step<16>(x, lane);
+  scatter_step<8>(x, lane);
+  consumer_sync(kConsumerThreads);  // every warp has read the previous tile's sums
+  float* row = sums + warp * kSumPitch;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = 32 * g + 8 * q + 2 * t;
+    *reinterpret_cast<float2*>(row + c + 4 * g) = make_float2(x[4 * q], x[4 * q + 1]);
+  }
+  consumer_sync(kConsumerThreads);
+  const int tid = threadIdx.x;
+  if (col0 + tid < vocab) {
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kConsumerWarps; ++w) acc += sums[w * kSumPitch + tid + 4 * (tid >> 5)];
+    band[col0 + tid] = acc;
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_walk_kernel(const __grid_constant__ CUtensorMap hmap,  // hidden (N, D), 64 x 128 boxes
+               const __grid_constant__ CUtensorMap wmap,  // table (V, D), 64 x 256 boxes
+               const __grid_constant__ CUtensorMap bmap,  // bias (V,) f32, 256-value boxes
+               const Args a) {
+  constexpr int kStages = ring_stages(kMode);
+  constexpr bool kStaged = kMode != kFwd;  // bf16 stores through the staged tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);  // [slot][A 128 x 128 B | B 256 x 128 B | bias]
+  unsigned char* rest = ring + kStages * kSlot;
+  uint16_t* tile_s = reinterpret_cast<uint16_t*>(rest);  // save, dl: [128][kTilePitch] bf16
+  if (kStaged) rest += kTileBytes;
+  float* sums = reinterpret_cast<float*>(rest);          // dl: [warp][kSumPitch]
+  if (kMode == kDl) rest += kSumBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(rest);
+  uint64_t* empty = full + kStages;
+  uint64_t* tile_full = empty + kStages;  // the staged tile written (consumer warps)
+  uint64_t* tile_empty = tile_full + 1;   // ... and read out (storer warps)
+  // the bf16 store of a tile: (N, ld) out, columns < limit; a run's staged
+  // tiles are its tiles with col0 < limit, a prefix of the run
+  const size_t ld = kMode == kDl ? a.vocab : a.v_main;
+  const int limit = kMode == kDl ? a.vocab : a.v_main;
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  const int nk = d / kBK;
-  // the run streams as one sequence of slices: slice s is depth block
-  // s % nk of vocab tile t_begin + s / nk
-  const int nslices = (t_end - t_begin) * nk;
-  auto load_slice = [&](int s) {
-    const int tile = t_begin + s / nk;
-    const int kk = (s % nk) * kBK;
-    bf16* a_dst = as + (s % kStages) * kBM * kLda;
-    bf16* b_dst = bs + (s % kStages) * kBN * kLda;
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8);
-      const int c = (i % (kBK / 8)) * 8;
-      const int row = min(row0 + r, n - 1);
-      cp_async16(a_dst + r * kLda + c, hidden + static_cast<size_t>(row) * d + kk + c);
-      const int v = min(tile * kBN + r, vocab - 1);
-      cp_async16(b_dst + r * kLda + c, weight + static_cast<size_t>(v) * d + kk + c);
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kRows;
+  const int ntiles = (a.vocab + kCols - 1) / kCols;
+  const int t_begin = static_cast<int>(static_cast<int64_t>(blockIdx.y) * ntiles / gridDim.y);
+  const int t_end = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * ntiles / gridDim.y);
+  const int nkb = a.d / kDepth;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    mbar_init(tile_full, kConsumerWarps);
+    mbar_init(tile_empty, kStorerWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // producer: slice s is depth block s % nkb of tile t_begin + s / nkb;
+    // a tile's last slice brings its biases
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      const int nslices = (t_end - t_begin) * nkb;
+      int slot = 0, phase = 0;
+      for (int s = 0; s < nslices; ++s) {
+        if (s >= kStages) mbar_wait(&empty[slot], phase ^ 1);
+        const int tile = t_begin + s / nkb;
+        const int kb = s % nkb;
+        const bool last = kb == nkb - 1;
+        unsigned char* dst = ring + slot * kSlot;
+        mbar_expect_tx(&full[slot], kASlice + kBSlice + (last ? kSide : 0));
+        tma_load_2d(dst, &hmap, &full[slot], kb * kDepth, row0);
+        tma_load_2d(dst + kASlice, &wmap, &full[slot], kb * kDepth, tile * kCols);
+        if (last) tma_load_1d(dst + kASlice + kBSlice, &bmap, &full[slot], tile * kCols);
+        if (++slot == kStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (kStaged && warp > kConsumerWarps) {
+      // storers: the u-th staged tile of the run, once the consumers have
+      // written it, out to device memory while they walk the next tile
+      const int sw = warp - kConsumerWarps - 1;
+      for (int u = 0; t_begin + u < t_end && (t_begin + u) * kCols < limit; ++u) {
+        mbar_wait(tile_full, u & 1);
+        write_tile(tile_s, a.out, ld, row0, a.n, (t_begin + u) * kCols, limit, sw, lane);
+        release(tile_empty, 0);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = consumer_warpgroup();
+  const int w = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row_base = row0 + 64 * wg + 16 * w;  // the warp's 16 rows; the thread's: + g + 8 h
+  bool live[2];
+  float nl[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  int y[2] = {-1, -1};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_base + g + 8 * h;
+    live[h] = row < a.n;
+    if (kMode == kDl && live[h]) {
+      nl[h] = -a.lse[row] * kLog2e;
+      rs[h] = a.rowscale[row];
+      y[h] = a.labels[row];
+    }
+  }
+  const float label_target = a.low + a.conf_low;
+  float m[2] = {kFloor, kFloor}, s[2] = {0.f, 0.f}, z[2] = {0.f, 0.f};
+  const int rr = 64 * wg + 16 * w + g;  // the thread's block row (h = 0)
+
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  int slot = 0, phase = 0;
+  auto advance = [&]() {
+    if (++slot == kStages) {
+      slot = 0;
+      phase ^= 1;
     }
   };
-
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    for (int kb = 0; kb < nkb; ++kb) {
+      mbar_wait(&full[slot], phase);
+      const unsigned char* base = ring + slot * kSlot;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nslices) load_slice(s);
-    cp_async_commit();
-  }
-
-  fragment<accumulator, 16, 16, 16, float> acc[2][2];
-  for (int s = 0; s < nslices; ++s) {
-    const int ks = s % nk;
-    if (ks == 0) {
+      for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 4; ++j) {
+        wgmma_m64n256k16_bf16_ss(acc, desc_sw128(base + wg * (kASlice / 2) + 32 * j),
+                                 desc_sw128(base + kASlice + 32 * j), (kb | j) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-        for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-    }
-    cp_async_wait_one();
-    __syncthreads();
-    // refill the stage every thread finished with in the previous iteration
-    if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
-    cp_async_commit();
-
-    const bf16* a_tile = as + (s % kStages) * kBM * kLda;
-    const bf16* b_tile = bs + (s % kStages) * kBN * kLda;
-#pragma unroll
-    for (int k16 = 0; k16 < kBK; k16 += 16) {
-      fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[2];
-      fragment<matrix_b, 16, 16, 16, bf16, col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nvcuda::wmma::load_matrix_sync(fa[i], a_tile + (wm + 16 * i) * kLda + k16, kLda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::load_matrix_sync(fb[j], b_tile + (wn + 16 * j) * kLda + k16, kLda);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-
-    if (ks == nk - 1) {
-      // tile complete.  The score tile is next written after at least one
-      // more barrier, so the epilogue may read (and rewrite) it freely.
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          nvcuda::wmma::store_matrix_sync(ss + (wm + 16 * i) * kLds + wn + 16 * j, acc[i][j],
-                                          kLds, mem_row_major);
-      __syncthreads();
-      epi(ss, (t_begin + s / nk) * kBN);
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Forward epilogue: two threads per row, each folding 32 of the tile's
-// columns into its running (max, rescaled sum of exps, sum of logits).
-struct RowStats {
-  const float* bias;
-  int vocab;
-  int r;     // row within the block
-  int half;  // which 32 columns
-  float m = kNeg, s = 0.f, z = 0.f;
-
-  __device__ __forceinline__ void operator()(const float* ss, int col0) {
-    const int c0 = col0 + half * 32;
-    const int nv = min(32, vocab - c0);
-    if (nv <= 0) return;
-    const float* row = ss + r * kLds + half * 32;
-    float v[32];
-    float lmax = kNeg;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      v[j] = j < nv ? row[j] + bias[c0 + j] : kNeg;
-      lmax = fmaxf(lmax, v[j]);
-    }
-    const float mnew = fmaxf(m, lmax);
-    float e = 0.f, t = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      if (j < nv) {
-        e += expf(v[j] - mnew);
-        t += v[j];
+      for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+      if (kb != nkb - 1) {
+        release(empty, slot);
+        advance();
       }
     }
-    s = s * expf(m - mnew) + e;
-    m = mnew;
-    z += t;
-  }
-};
-
-// Save epilogue: the same fold of the exact f32 tile, then the tile stored,
-// rounded to bf16 where it lies in the first v_main columns and as it is in
-// the tail.  v_main is a multiple of 128, so no 64-wide tile straddles it.
-struct SaveTile {
-  RowStats st;
-  bf16* lg;     // (N, v_main)
-  float* tail;  // (N, V - v_main)
-  const float* bias;
-  int n, vocab, v_main, row0;
-
-  __device__ __forceinline__ void operator()(const float* ss, int col0) {
-    st(ss, col0);
-    if (col0 < v_main) {
-      for (int i = threadIdx.x; i < kBM * (kBN / 8); i += kThreads) {
-        const int r = i / (kBN / 8);
-        const int c = (i % (kBN / 8)) * 8;
-        if (row0 + r >= n) continue;
-        const float* src = ss + r * kLds + c;
-        const float* b = bias + col0 + c;
-        uint4 raw;
-        __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&raw);
+    // tile complete: the logits x = acc + bias in place, from the slot's
+    // biases; then the slot is free
+    const int col0 = tile * kCols;
+    const float* bt = reinterpret_cast<const float*>(ring + slot * kSlot + kASlice + kBSlice);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          pair[j] = __floats2bfloat162_rn(src[2 * j] + b[2 * j], src[2 * j + 1] + b[2 * j + 1]);
-        *reinterpret_cast<uint4*>(lg + static_cast<size_t>(row0 + r) * v_main + col0 + c) = raw;
+    for (int i = 0; i < 32; ++i) {
+      const float2 b = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * t);
+      acc[4 * i] += b.x;
+      acc[4 * i + 1] += b.y;
+      acc[4 * i + 2] += b.x;
+      acc[4 * i + 3] += b.y;
+    }
+    release(empty, slot);
+    advance();
+    const bool full_tile = col0 + kCols <= a.vocab;  // every tile but the last
+    if constexpr (kMode == kDl) {
+      if (full_tile) {
+        dl_values<true>(acc, col0, a.vocab, t, live, nl, rs, y, a.low, label_target);
+      } else {
+        dl_values<false>(acc, col0, a.vocab, t, live, nl, rs, y, a.low, label_target);
       }
+      stage_bf16(acc, tile_s, tile_full, tile_empty, tile - t_begin, ld, row0, col0, rr, t);
+      band_sums(acc, sums, a.band + static_cast<size_t>(blockIdx.x) * a.vocab, col0, a.vocab,
+                warp, lane, g, t);
     } else {
-      const int vt = vocab - v_main;
-      for (int e = threadIdx.x; e < kBM * kBN; e += kThreads) {
-        const int r = e / kBN;
-        const int col = col0 + e % kBN;
-        if (row0 + r < n && col < vocab)
-          tail[static_cast<size_t>(row0 + r) * vt + (col - v_main)] = ss[r * kLds + e % kBN] + bias[col];
+      if (full_tile) {
+        fold_tile<true>(acc, col0, a.vocab, t, m, s, z);
+      } else {
+        fold_tile<false>(acc, col0, a.vocab, t, m, s, z);
+      }
+      if constexpr (kMode == kSave) {
+        if (col0 < a.v_main) {
+          stage_bf16(acc, tile_s, tile_full, tile_empty, tile - t_begin, ld, row0, col0, rr,
+                     t);
+        }
+        if (col0 + kCols > a.v_main) {
+          // the f32 tail: column 8 i + 2 t + e of the tile is tail column
+          // tc0 + 8 i + e, stored where 0 <= it < V - v_main
+          const int vt = a.vocab - a.v_main;
+          const int tc0 = col0 - a.v_main + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (!live[h]) continue;
+            float* tail_row = a.tail + static_cast<size_t>(row_base + g + 8 * h) * vt;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int tc = tc0 + 8 * i + e;
+                if (static_cast<unsigned>(tc) < static_cast<unsigned>(vt)) {
+                  tail_row[tc] = acc[4 * i + 2 * h + e];
+                }
+              }
+            }
+          }
+        }
       }
     }
   }
-};
 
-template <bool kSave>
-__global__ void __launch_bounds__(kThreads)
-flash_ce_fwd_kernel(const bf16* __restrict__ hidden,  // (N, D)
-                    const bf16* __restrict__ weight,  // (V, D)
-                    const float* __restrict__ bias,   // (V,)
-                    float* __restrict__ part_m,       // (runs, N)
-                    float* __restrict__ part_s,       // (runs, N)
-                    float* __restrict__ part_z,       // (runs, N)
-                    bf16* __restrict__ lg,            // (N, v_main), kSave only
-                    float* __restrict__ tail,         // (N, V - v_main), kSave only
-                    int n, int d, int vocab, int v_main) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int row0 = blockIdx.x * kBM;
-  int t_begin, t_end;
-  tile_run(vocab, t_begin, t_end);
-  RowStats st;
-  st.bias = bias;
-  st.vocab = vocab;
-  st.r = threadIdx.x >> 1;
-  st.half = threadIdx.x & 1;
-  if constexpr (kSave) {
-    SaveTile epi{st, lg, tail, bias, n, vocab, v_main, row0};
-    walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, epi);
-    st = epi.st;
-  } else {
-    walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, st);
-  }
-
-  // fold the two halves of each row (neighbouring lanes); both lanes get
-  // the same sums, the even one writes
-  const float m2 = __shfl_xor_sync(0xffffffffu, st.m, 1);
-  const float s2 = __shfl_xor_sync(0xffffffffu, st.s, 1);
-  const float z2 = __shfl_xor_sync(0xffffffffu, st.z, 1);
-  const float m = fmaxf(st.m, m2);
-  const float lo = st.half == 0 ? st.s * expf(st.m - m) : s2 * expf(m2 - m);
-  const float hi = st.half == 0 ? s2 * expf(m2 - m) : st.s * expf(st.m - m);
-  const float zl = st.half == 0 ? st.z : z2;
-  const float zh = st.half == 0 ? z2 : st.z;
-  const int row = row0 + st.r;
-  if (st.half == 0 && row < n) {
-    const size_t o = static_cast<size_t>(blockIdx.y) * n + row;
-    part_m[o] = m;
-    part_s[o] = lo + hi;
-    part_z[o] = zl + zh;
+  if constexpr (kMode != kDl) {
+    // the quad's four column sets of each row, then the run's partial
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, m[h], o);
+        const float os = __shfl_xor_sync(0xffffffffu, s[h], o);
+        const float oz = __shfl_xor_sync(0xffffffffu, z[h], o);
+        const float mm = fmaxf(m[h], om);
+        s[h] = fmaf(s[h], ex2((m[h] - mm) * kLog2e), os * ex2((om - mm) * kLog2e));
+        m[h] = mm;
+        z[h] += oz;
+      }
+      if (t == 0 && live[h]) {
+        const size_t o = static_cast<size_t>(blockIdx.y) * a.n + row_base + g + 8 * h;
+        a.part_m[o] = m[h];
+        a.part_s[o] = s[h];
+        a.part_z[o] = z[h];
+      }
+    }
   }
 }
+
+}  // namespace walk
 
 // Folds the runs' partials in run order: lse = m + log(sum_z s_z e^(m_z - m)).
 __global__ void flash_ce_fwd_merge_kernel(const float* __restrict__ part_m,
@@ -325,77 +583,6 @@ __global__ void flash_ce_fwd_merge_kernel(const float* __restrict__ part_m,
   zsum[i] = t;
 }
 
-// dl epilogue: the 128 threads cover the 64 x 64 tile 32 times over,
-// neighbouring threads on neighbouring columns.  Each f32 dl value goes to
-// global memory as bf16 and back into the score tile, whose 64 column sums
-// (rows in order) are this band's dbias partial.
-struct DlTile {
-  bf16* dl;
-  float* band;  // this block's row band of the (bands, V) partials
-  const float* bias;
-  const float* lse_s;  // the block's rows, in shared memory
-  const float* rs_s;
-  const int* y_s;
-  float low, conf_low;
-  int n, vocab, row0;
-
-  __device__ __forceinline__ void operator()(float* ss, int col0) {
-    const int tid = threadIdx.x;
-#pragma unroll 4
-    for (int i = 0; i < kBM * kBN / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBN;
-      const int c = e % kBN;
-      const int row = row0 + r;
-      const int col = col0 + c;
-      float g = 0.f;
-      if (row < n && col < vocab) {
-        const float p = expf(ss[r * kLds + c] + bias[col] - lse_s[r]);
-        const float target = low + conf_low * (col == y_s[r] ? 1.f : 0.f);
-        g = (p - target) * rs_s[r];
-        dl[static_cast<size_t>(row) * vocab + col] = __float2bfloat16(g);
-      }
-      ss[r * kLds + c] = g;
-    }
-    __syncthreads();
-    if (tid < kBN && col0 + tid < vocab) {
-      float acc = 0.f;
-      for (int r = 0; r < kBM; ++r) acc += ss[r * kLds + tid];
-      band[col0 + tid] = acc;
-    }
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_ce_dl_kernel(const bf16* __restrict__ hidden,    // (N, D)
-                   const bf16* __restrict__ weight,    // (V, D)
-                   const float* __restrict__ bias,     // (V,)
-                   const int32_t* __restrict__ labels, // (N,)
-                   const float* __restrict__ lse,      // (N,)
-                   const float* __restrict__ rowscale, // (N,)
-                   bf16* __restrict__ dl,              // (N, V)
-                   float* __restrict__ band_part,      // (ceil(N / 64), V)
-                   float low, float conf_low, int n, int d, int vocab) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float lse_s[kBM];
-  __shared__ float rs_s[kBM];
-  __shared__ int y_s[kBM];
-  const int row0 = blockIdx.x * kBM;
-  if (threadIdx.x < kBM) {
-    const int row = row0 + threadIdx.x;
-    const bool live = row < n;
-    lse_s[threadIdx.x] = live ? lse[row] : 0.f;
-    rs_s[threadIdx.x] = live ? rowscale[row] : 0.f;
-    y_s[threadIdx.x] = live ? labels[row] : -1;
-  }
-  __syncthreads();
-  int t_begin, t_end;
-  tile_run(vocab, t_begin, t_end);
-  DlTile epi{dl, band_part + static_cast<size_t>(blockIdx.x) * vocab, bias, lse_s, rs_s, y_s,
-             low, conf_low, n, vocab, row0};
-  walk_tiles(hidden, weight, n, d, vocab, row0, t_begin, t_end, smem_raw, epi);
-}
-
 // dbias[v] = sum of the row bands' partials, in band order.
 __global__ void flash_ce_band_sum_kernel(const float* __restrict__ band_part,
                                          float* __restrict__ dbias, int bands, int vocab) {
@@ -406,36 +593,53 @@ __global__ void flash_ce_band_sum_kernel(const float* __restrict__ band_part,
   dbias[v] = acc;
 }
 
-int check_args(int n, int d, int vocab, int runs) {
-  const int ntiles = (vocab + kBN - 1) / kBN;
-  if (n < 1 || vocab < 1 || d < kBK || d % kBK != 0 || runs < 1 || runs > ntiles ||
-      (n + kBM - 1) / kBM > 65535 || runs > 65535) {
+// One walk over (ceil(N / 128) row tiles) x (runs) blocks.
+template <int kMode>
+int launch_walk(const void* hidden, const void* weight, const void* bias, const walk::Args& a,
+                int runs, cudaStream_t s) {
+  using namespace walk;
+  const int ntiles = (a.vocab + kCols - 1) / kCols;
+  if (a.n < 1 || a.vocab < 1 || a.d < kDepth || a.d % kDepth != 0 || runs < 1 ||
+      runs > ntiles || runs > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  CUtensorMap hmap, wmap, bmap;
+  cudaError_t err = encode_2d(&hmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, hidden, a.d, a.n,
+                              kDepth, kRows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess) {
+    err = encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, weight, a.d, a.vocab, kDepth,
+                    kCols, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err == cudaSuccess) err = encode_1d_f32(&bmap, bias, a.vocab, kCols);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t smem = smem_bytes(kMode);
+  err = cudaFuncSetAttribute(ce_walk_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.n + kRows - 1) / kRows, runs);
+  ce_walk_kernel<kMode><<<grid, kThreads, smem, s>>>(hmap, wmap, bmap, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSave>
+template <int kMode>
 int launch_fwd(void* hidden, void* weight, void* bias, void* part_m, void* part_s, void* part_z,
                void* lse, void* zsum, void* lg, void* tail, int n, int d, int vocab, int v_main,
                int runs, void* stream) {
-  if (int bad = check_args(n, d, vocab, runs)) return bad;
-  if (kSave && (v_main < 0 || v_main > vocab || v_main % 128 != 0)) {
+  if (kMode == walk::kSave && (v_main < 0 || v_main > vocab || v_main % 128 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_fwd_kernel<kSave>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  walk::Args a{};
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_z = static_cast<float*>(part_z);
+  a.out = static_cast<bf16*>(lg);
+  a.tail = static_cast<float*>(tail);
+  a.n = n;
+  a.d = d;
+  a.vocab = vocab;
+  a.v_main = v_main;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kBM - 1) / kBM, runs);
-  flash_ce_fwd_kernel<kSave><<<grid, kThreads, kSmemBytes, s>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(weight),
-      static_cast<const float*>(bias), static_cast<float*>(part_m), static_cast<float*>(part_s),
-      static_cast<float*>(part_z), static_cast<bf16*>(lg), static_cast<float*>(tail), n, d, vocab,
-      v_main);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int bad = launch_walk<kMode>(hidden, weight, bias, a, runs, s)) return bad;
   flash_ce_fwd_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_s),
       static_cast<const float*>(part_z), static_cast<float*>(lse), static_cast<float*>(zsum), n,
@@ -729,8 +933,8 @@ BwdArgs bwd_args(void* hidden, void* weight, void* bias, void* logits, void* lab
 extern "C" int mic_flash_ce_fwd_bf16(void* hidden, void* weight, void* bias, void* part_m,
                                      void* part_s, void* part_z, void* lse, void* zsum, int n,
                                      int d, int vocab, int runs, void* stream) {
-  return launch_fwd<false>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum, nullptr,
-                           nullptr, n, d, vocab, 0, runs, stream);
+  return launch_fwd<walk::kFwd>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum, nullptr,
+                                nullptr, n, d, vocab, 0, runs, stream);
 }
 
 // The same, also storing the logits: columns < v_main (a multiple of 128)
@@ -739,8 +943,8 @@ extern "C" int mic_flash_ce_fwd_save_bf16(void* hidden, void* weight, void* bias
                                           void* part_s, void* part_z, void* lse, void* zsum,
                                           void* logits_main, void* tail, int n, int d,
                                           int vocab, int v_main, int runs, void* stream) {
-  return launch_fwd<true>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum, logits_main,
-                          tail, n, d, vocab, v_main, runs, stream);
+  return launch_fwd<walk::kSave>(hidden, weight, bias, part_m, part_s, part_z, lse, zsum,
+                                 logits_main, tail, n, d, vocab, v_main, runs, stream);
 }
 
 // grad-W: demb rows [0, vext) and dbias [0, vext).  saved == 0: the logits
@@ -765,26 +969,25 @@ extern "C" int mic_flash_ce_gh_bf16(void* hidden, void* weight, void* bias, void
   return saved ? launch_bwd<kGradH, true>(a, stream) : launch_bwd<kGradH, false>(a, stream);
 }
 
-// band_part is (ceil(N / 64), V) f32 scratch; every live entry is written.
+// band_part is (ceil(N / 128), V) f32 scratch; every live entry is written.
 extern "C" int mic_flash_ce_dl_bf16(void* hidden, void* weight, void* bias, void* labels,
                                     void* lse, void* rowscale, void* dl, void* band_part,
                                     void* dbias, float low, float conf_low, int n, int d,
                                     int vocab, int runs, void* stream) {
-  if (int bad = check_args(n, d, vocab, runs)) return bad;
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_dl_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  walk::Args a{};
+  a.lse = static_cast<const float*>(lse);
+  a.rowscale = static_cast<const float*>(rowscale);
+  a.labels = static_cast<const int32_t*>(labels);
+  a.out = static_cast<bf16*>(dl);
+  a.band = static_cast<float*>(band_part);
+  a.low = low;
+  a.conf_low = conf_low;
+  a.n = n;
+  a.d = d;
+  a.vocab = vocab;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bands = (n + kBM - 1) / kBM;
-  const dim3 grid(bands, runs);
-  flash_ce_dl_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      static_cast<const bf16*>(hidden), static_cast<const bf16*>(weight),
-      static_cast<const float*>(bias), static_cast<const int32_t*>(labels),
-      static_cast<const float*>(lse), static_cast<const float*>(rowscale),
-      static_cast<bf16*>(dl), static_cast<float*>(band_part), low, conf_low, n, d, vocab);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int bad = launch_walk<walk::kDl>(hidden, weight, bias, a, runs, s)) return bad;
+  const int bands = (n + walk::kRows - 1) / walk::kRows;
   flash_ce_band_sum_kernel<<<(vocab + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(band_part), static_cast<float*>(dbias), bands, vocab);
   return static_cast<int>(cudaGetLastError());

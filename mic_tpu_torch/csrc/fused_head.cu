@@ -161,23 +161,6 @@ __device__ __forceinline__ float key_value(int key) {
   return __int_as_float(key >= 0 ? key : key ^ 0x7FFFFFFF);
 }
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// A consumer warp releases `slot`: its lane 0 arrives on the slot's empty
-// barrier, with no branch around the arrival.
-__device__ __forceinline__ void release(uint64_t* empty, int slot) {
-  __syncwarp();
-  mbar_arrive_if(&empty[slot], (threadIdx.x & 31) == 0);
-}
-
-// The consumer warpgroup of this thread, 0 or 1, as a value the compiler
-// knows to be the same across the warp (a branch on it is not divergent).
-__device__ __forceinline__ int consumer_warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 7, 0);
-}
-
 // ---------------------------------------------------------------------------
 // Merges of the split runs.
 

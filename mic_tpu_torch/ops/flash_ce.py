@@ -37,8 +37,8 @@ import torch
 
 from mic_tpu_torch import _build
 
-_ROW_TILE = 64   # hidden rows per block of csrc/flash_ce.cu (kBM)
-_VOCAB_TILE = 64  # vocab columns per tile (kBN)
+_ROW_TILE = 128   # hidden rows a block of csrc/flash_ce.cu's walk (walk::kRows)
+_VOCAB_TILE = 256  # vocab columns a tile of the walk (walk::kCols)
 _BWD_MAX_D = 1024  # the widest D the backward contractions take (kMaxD)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
 
@@ -88,12 +88,18 @@ def flash_ce_forward_plain(h, emb, bias, labels, emb_cast=None, save=False):
     return out + (torch.cat(main), torch.cat(tail)) if save else out
 
 
-def _runs(n: int, v: int, device: torch.device) -> int:
-    """How many consecutive runs the vocab walk is cut into: enough blocks
-    for two waves at three blocks an SM, never more runs than tiles."""
-    row_tiles = -(-n // _ROW_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-v // _VOCAB_TILE), -(-6 * sms // row_tiles)))
+def _runs(n: int, v: int, sms: int) -> int:
+    """How many runs of consecutive vocab tiles the walk is cut into: the
+    (row tiles, runs) blocks, one an SM, in a single wave where the row
+    tiles leave SMs over (at least one run, never more runs than tiles).
+    The blocks of a run are scheduled together (row tiles vary fastest) and
+    walk the same vocab slices in step, so the table is read from device
+    memory about once."""
+    return max(1, min(-(-v // _VOCAB_TILE), sms // -(-n // _ROW_TILE)))
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_kernel_args(name, h, w, bias):
@@ -132,7 +138,7 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     v = w.shape[0]
     bias_f = bias.float().contiguous()
     _check_pointers("flash_ce_forward", h.device, h, w, bias_f)
-    runs = _runs(n, v, h.device)
+    runs = _runs(n, v, _sms(h.device))
     part = torch.empty((3, runs, n), dtype=torch.float32, device=h.device)
     lse, zsum = torch.empty((2, n), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -216,7 +222,7 @@ def flash_ce_dl(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=N
     if dl.shape != (n, v) or dl.dtype != h.dtype:
         raise ValueError(f"flash_ce_dl: out must be ({n}, {v}) {h.dtype}")
     _check_pointers("flash_ce_dl", h.device, h, w, bias_f, labels32, lse32, rs32, dl)
-    runs = _runs(n, v, h.device)
+    runs = _runs(n, v, _sms(h.device))
     bands = torch.empty((-(-n // _ROW_TILE), v), dtype=torch.float32, device=h.device)
     dbias = torch.empty((v,), dtype=torch.float32, device=h.device)
     low, conf_low = _targets(label_smoothing, v)

@@ -581,16 +581,25 @@ def _ce_inputs(cuda, n, d, v, seed):
     w = (torch.randn((v, d), generator=g, device=cuda) * 0.05).bfloat16()
     b = torch.randn((v,), generator=g, device=cuda) * 0.1
     y = torch.randint(0, v, (n,), generator=g, device=cuda, dtype=torch.int32)
-    y[:3] = v - 1 - torch.arange(3, device=cuda, dtype=torch.int32)  # labels in the ragged tail
+    k = min(n, 3)
+    y[:k] = v - 1 - torch.arange(k, device=cuda, dtype=torch.int32)  # labels in the ragged tail
     return h, w, b, y
 
 
+# (N, V, D) around the walk's 128-row and 256-column tiles: one row, a row
+# tile short by one, one row past a tile; a vocab a column short of a tile,
+# a column past one, ragged; every D the walk takes, 64 to the flagship's
+# 1024; labels in the last, partial vocab tile (_ce_inputs)
+_CE_WALK_SHAPES = [(70, 997, 128), (64, 4099, 128), (1, 997, 64), (127, 257, 128),
+                   (129, 255, 1024), (129, 4099, 64), (127, 250054, 1024)]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099)])  # a partial row tile; ragged vocab
-def test_flash_ce_forward_kernel_matches_plain(cuda, n, v):
+@pytest.mark.parametrize("n,v,d", _CE_WALK_SHAPES)
+def test_flash_ce_forward_kernel_matches_plain(cuda, n, v, d):
     """lse and label logit within 1e-5 relative, sum of logits within 1e-4 of
     the row's sum of |logits|; a second launch bit-equal."""
-    h, w, b, y = _ce_inputs(cuda, n, 128, v, n)
+    h, w, b, y = _ce_inputs(cuda, n, d, v, n)
     launches = flash_ce_forward.launches
     out = flash_ce_forward(h, w, b, y)
     again = flash_ce_forward(h, w, b, y)
@@ -605,19 +614,22 @@ def test_flash_ce_forward_kernel_matches_plain(cuda, n, v):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v,d", [(70, 997, 128), (1, 257, 64), (127, 255, 128),
+                                   (129, 4099, 1024)])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
-def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing):
+def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing, n, v, d):
     """dl within one bf16 rounding of the plain dl (and of its terms where
     they cancel), rows with rowscale 0 all
     zero, columns >= V never written, dbias within 1e-4 of its largest
-    entry; dh/demb from the kernel's dl; a second launch bit-equal."""
+    entry; dh/demb from the kernel's dl; a second launch bit-equal.  Shapes
+    around the walk's 128 x 256 tiles, labels in the last vocab tile."""
     import mic_tpu_torch.ops.flash_ce as flash
 
-    n, d, v = 70, 128, 997
     h, w, b, y = _ce_inputs(cuda, n, d, v, 7)
     lse = flash_ce_forward_plain(h, w, b, y)[0]
     rs = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
-    rs[::5] = 0.0
+    if n > 1:  # a lone row keeps its rowscale
+        rs[::5] = 0.0
     # dl written into a buffer with guard entries past its end, which must stay untouched
     buf = torch.full((n * v + 64,), 7.0, dtype=torch.bfloat16, device=cuda)
     launches = flash_ce_backward_dl.launches
@@ -649,14 +661,16 @@ def test_flash_ce_dl_kernel_matches_plain(cuda, smoothing):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099), (70, 97)])  # v_main 512, 4096, 0
-def test_flash_ce_save_forward_kernel_matches_plain(cuda, n, v):
+@pytest.mark.parametrize("n,v,d", [(70, 997, 128), (64, 4099, 128), (70, 97, 128),
+                                   (1, 997, 64), (129, 200, 128), (127, 300, 64),
+                                   (129, 4099, 1024)])  # v_main 512, 4096, 0, 512, 128, 256, 4096
+def test_flash_ce_save_forward_kernel_matches_plain(cuda, n, v, d):
     """The save forward: lse and sum of logits bit-equal to the non-saving
     kernel's; the f32 tail within 1e-5 of the plain version's; the bf16
     logits within one bf16 ulp of the f32 logits plus 1e-5 (the f32 sums in
     another order; near zero that is more than a logit's own ulp); a second
-    launch bit-equal."""
-    h, w, b, y = _ce_inputs(cuda, n, 128, v, n + 3)
+    launch bit-equal.  V = 200 puts v_main (128) inside a 256-wide tile."""
+    h, w, b, y = _ce_inputs(cuda, n, d, v, n + 3)
     launches = flash_ce_forward.launches, flash_ce_forward.save_launches
     out = flash_ce_forward(h, w, b, y, save=True)
     again = flash_ce_forward(h, w, b, y, save=True)

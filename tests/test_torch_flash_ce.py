@@ -32,6 +32,10 @@ from mic_tpu.ops.flash_ce import flash_ce_forward as jax_forward
 from mic_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from mic_tpu_torch.ops import fused_ce
 from mic_tpu_torch.ops.flash_ce import (
+    _ROW_TILE,
+    _VOCAB_TILE,
+    _check_kernel_args,
+    _runs,
     flash_ce_backward,
     flash_ce_backward_dl,
     flash_ce_backward_save,
@@ -290,3 +294,64 @@ def test_save_degrades_to_chunked_above_row_cap(monkeypatch):
     _loss_matches_jax(monkeypatch, "save", 0.1, h, emb, bias, labels, mask,
                       MIC_TPU_DL_MAX_ROWS="16")
     _loss_matches_jax(monkeypatch, "0", 0.1, h, emb, bias, labels, mask)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("v", [997, 4099, 250054])
+@pytest.mark.parametrize("n", [1, 64, 129, 4096])
+def test_walk_runs_cover_every_tile_once(n, v):
+    """The walk of csrc/flash_ce.cu as the wrappers size it (128-row tiles,
+    256-wide vocab tiles, _runs on an H100's 132 SMs): the grid's row tiles
+    cover the N rows, and the dl kernel's bands are those row tiles; run y
+    walks tiles [y T / runs, (y + 1) T / runs) of the T vocab tiles, so the
+    runs (at most one a tile) take every tile once, in order; the blocks fit
+    one wave wherever the row tiles leave SMs over."""
+    assert (_ROW_TILE, _VOCAB_TILE) == (128, 256)
+    ntiles = -(-v // _VOCAB_TILE)
+    row_tiles = -(-n // _ROW_TILE)
+    assert (row_tiles - 1) * _ROW_TILE < n <= row_tiles * _ROW_TILE
+    runs = _runs(n, v, H100_SMS)
+    assert 1 <= runs <= ntiles
+    assert row_tiles * runs <= max(H100_SMS, row_tiles)
+    bounds = [(y * ntiles // runs, (y + 1) * ntiles // runs) for y in range(runs)]
+    assert all(b < e for b, e in bounds)
+    walked = [tile for b, e in bounds for tile in range(b, e)]
+    assert walked == list(range(ntiles))
+    assert bounds[-1][1] * _VOCAB_TILE >= v > (bounds[-1][1] - 1) * _VOCAB_TILE
+
+
+def test_walk_runs_at_the_flagship_shapes():
+    """32 row tiles of the flagship step (N = 4096) leave room for four runs
+    (128 of 132 SMs); one row tile takes a run an SM; past 132 row tiles one
+    run."""
+    assert _runs(4096, 250054, H100_SMS) == 4
+    assert _runs(1, 250054, H100_SMS) == 132
+    assert _runs(129, 250054, H100_SMS) == 66
+    assert _runs(64, 997, H100_SMS) == 4
+    assert _runs(132 * 128 + 1, 250054, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("case", ["float32", "float16", "d96", "d32", "table_width"])
+def test_kernel_arguments_raise_as_before(case):
+    """What the CUDA kernels do not take raises before any launch: float32
+    hidden states (NotImplementedError: no float32 kernel), another dtype
+    (TypeError), D not a multiple of 64 or a table of another width
+    (ValueError)."""
+    n, d, v = 8, 128, 997
+    h = torch.zeros((n, d), dtype=torch.bfloat16)
+    w = torch.zeros((v, d), dtype=torch.bfloat16)
+    bias = torch.zeros((v,), dtype=torch.float32)
+    want = ValueError
+    if case == "float32":
+        h, w, want = h.float(), w.float(), NotImplementedError
+    elif case == "float16":
+        h, w, want = h.half(), w.half(), TypeError
+    elif case in ("d96", "d32"):
+        d = int(case[1:])
+        h, w = h[:, :d], w[:, :d]
+    else:
+        w = w[:, :64]
+    with pytest.raises(want):
+        _check_kernel_args("flash_ce_forward", h, w, bias)

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Time the port's decode attention (row 18) and tied-head kernels (rows 4,
-5 and 6) on one CUDA card, beside scaled_dot_product_attention for row 18.
+"""Time the port's decode attention (row 18), tied-head kernels (rows 4, 5
+and 6) and flash-CE walk (rows 7 and 8, and row 9's forward) on one CUDA
+card, beside scaled_dot_product_attention for row 18.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_time_rows.py [--turns 2] [--label NAME] [--out FILE]
+    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce] [--label NAME]
+                                     [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
-heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select.  Each time
+heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select; the
+flash-CE forward, its saving form and the dl kernel at the flagship train
+step's N=4096 rows, D=1024, V=250054 (chip_smoke's CE table and rows),
+with cuBLAS's bare f32-output h @ W^T beside them for scale (the product
+alone, not the same function).  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -76,6 +82,24 @@ def head_cases(dev):
                    lambda s=select, h=hidden: fused_head_topk(h, weight, bias, 9, s), None)
 
 
+def ce_cases(dev):
+    from mic_tpu_torch.ops.flash_ce import flash_ce_dl, flash_ce_forward, flash_ce_forward_plain
+
+    n = 4096
+    weight, bias = chip_smoke._ce_table(dev)
+    hidden, labels = chip_smoke._ce_rows(dev, n, 11)
+    lse = flash_ce_forward_plain(hidden, weight, bias, labels)[0]
+    rs = torch.full((n,), 1.0 / n, device=dev)
+    yield (f"flash_ce_forward N={n}", lambda: flash_ce_forward(hidden, weight, bias, labels),
+           None)
+    yield (f"flash_ce_forward save N={n}",
+           lambda: flash_ce_forward(hidden, weight, bias, labels, save=True), None)
+    yield (f"flash_ce_dl N={n}",
+           lambda: flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1), None)
+    yield (f"cuBLAS h @ W^T f32 out N={n} (for scale)",
+           lambda: torch.mm(hidden, weight.T, out_dtype=torch.float32), None)
+
+
 def generate_case(dev, batch: int = 256):
     """-> a function running the flagship's beam-4 bf16 generate of
     ``batch`` images, returning its captions/s."""
@@ -99,6 +123,7 @@ def generate_case(dev, batch: int = 256):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--turns", type=int, default=2)
+    parser.add_argument("--cases", default="decode,heads,ce")
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
     parser.add_argument("--out", default=None)
     parser.add_argument("--generate", action="store_true")
@@ -109,7 +134,8 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
-    cases = list(decode_cases(dev)) + list(head_cases(dev))
+    groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases}
+    cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     for turn in range(args.turns):
         if generate is not None:

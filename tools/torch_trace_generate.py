@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Trace one flagship beam-4 generate on one CUDA card and say where the
-device time goes.
+"""Trace one flagship beam-4 generate, or one flagship train step, on one
+CUDA card and say where the device time goes.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
     python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8] [--out FILE]
+    python3 tools/torch_trace_generate.py --train [--out FILE]
 
 For each path (bf16: the default knobs, the bucket head; int8: int8
 weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``), on the
@@ -19,6 +20,13 @@ the synchronised generate, the idle share 1 - busy / window; launches per
 step; and the kernels that take most device time, each as a share of the
 sum of device time, grouped by name.  One JSON line per path goes to stdout
 and, with --out, to FILE.
+
+With --train: the port's Trainer at flagship width with the TrainConfig
+defaults (batch 64 x 64 tokens, the fused loss on the "dl" route, remat
+"masks"; warmup_steps=2) on chip_smoke's seeded batches takes two untraced
+steps, then one step under torch.profiler, the window being the host clock
+from the step's call to its loss read; the same summary, launches counted
+for the one step.
 """
 
 from __future__ import annotations
@@ -78,16 +86,9 @@ def busy_us(events) -> float:
     return total
 
 
-def trace_path(model, params, px, kw, label: str, batch: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    model.generate(params, px, **kw)  # warm-up: builds, allocator, first launches
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = model.generate(params, px, **kw)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
+def summarize(prof, window_ms: float, label: str, steps: int) -> dict:
+    """Busy ms, the idle share, launches per step and the top kernels of a
+    trace whose window took ``window_ms`` on the host clock."""
     events = device_events(prof)
     kernels = [e for e in events if e[0] == "kernel"]
     if not kernels:
@@ -100,12 +101,51 @@ def trace_path(model, params, px, kw, label: str, batch: int) -> dict:
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "path": label, "batch": batch, "steps": out.steps,
-        "launches_per_step": len(kernels) / out.steps,
+        "path": label, "steps": steps, "launches_per_step": len(kernels) / steps,
         "busy_ms": busy, "window_ms": window_ms, "idle_share": 1.0 - busy / window_ms,
         "device_ms_sum": total / 1e3,
         "top": [{"name": name, "ms": us / 1e3, "share": us / total} for name, us in top],
     }
+
+
+def trace_path(model, params, px, kw, label: str, batch: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    model.generate(params, px, **kw)  # warm-up: builds, allocator, first launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = model.generate(params, px, **kw)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return dict(summarize(prof, window_ms, label, out.steps), batch=batch)
+
+
+def trace_train(dev) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    tc = TrainConfig(warmup_steps=2)
+    host = chip_smoke._train_batches(config, 3, tc.per_device_batch_size,
+                                     DataConfig().max_seq_length, 12)
+    trainer = Trainer(config, DataConfig(), tc, device=dev)
+    trainer.build(steps_per_epoch=len(host))
+    state = trainer.init_state()
+    batches = [trainer.put_batch(b) for b in host]
+    for batch in batches[:2]:  # warm-up: builds, allocator, first launches
+        state, metrics = trainer.train_step(state, batch)
+        metrics["loss"].item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batches[2])
+        loss = metrics["loss"].item()  # waits for the step
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return dict(summarize(prof, window_ms, f"train step, flash_ce {tc.flash_ce!r}", 1),
+                batch=tc.per_device_batch_size, loss=loss)
 
 
 def main() -> None:
@@ -113,24 +153,30 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--paths", default="bf16,int8")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--train", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_trace_generate.py needs a CUDA device")
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    if args.train:
+        write_rows([dict(trace_train(dev), card=card)], args.out)
+        return
     _, params, model, kw, pixels = chip_smoke.flagship(dev)
     px = pixels(args.batch, 1)
     kw = dict(kw, eos_positions=torch.full((args.batch,), 63, device=dev, dtype=torch.int32))
     paths = {"bf16": kw, "int8": dict(kw, quantize="int8", kv_quant="int8")}
-    rows = []
-    for label in args.paths.split(","):
-        row = dict(trace_path(model, params, px, paths[label], label, args.batch), card=card)
-        rows.append(row)
+    write_rows([dict(trace_path(model, params, px, paths[label], label, args.batch), card=card)
+                for label in args.paths.split(",")], args.out)
+
+
+def write_rows(rows, out) -> None:
+    for row in rows:
         print(json.dumps(row), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "a") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "a") as f:
             for row in rows:
                 f.write(json.dumps(row) + "\n")
 
