@@ -305,6 +305,22 @@ def flash_ce_contraction_bounds(n, d=1024, v=250054):
     }
 
 
+def contraction_tma_bytes(part, saved, n, vext, d, grid):
+    """The bytes one backward contraction kernel loads by TMA (each block's
+    64 x 64 bf16 boxes, zero fill included) on the grid
+    ``ops/flash_ce.py::_contraction_grid`` gives: the save kernel six boxes
+    a 64-deep step of its sweep, the split kernel its own 64 rows over
+    4 ceil(D / 256) boxes once (a part) and that many boxes a swept 64-row
+    tile."""
+    dblocks, tiles, parts = grid
+    box = 64 * 64 * 2
+    steps = -(-(vext if part == "grad_h" else n) // 64)
+    if saved:
+        return dblocks * tiles * steps * 6 * box
+    depth_boxes = 4 * -(-d // 256)
+    return dblocks * tiles * (steps + parts) * depth_boxes * box
+
+
 @contextlib.contextmanager
 def knobs(**env):
     """Set MIC_TPU_* variables for one phase and restore them after it."""
@@ -1169,9 +1185,21 @@ def time_flash_ce_routes(dev, weight, bias):
                       ("flash_ce_backward_save", "save")):
         print(f"{name} time at N={n} D={CE_D} V={CE_V}: kernel {t[key]:.4f} ms, plain "
               f"{t[key + '_plain']:.4f} ms", flush=True)
-    print(f"contractions alone at N={n}: split grad-W {t['grad_w_split']:.4f} ms, grad-h "
-          f"{t['grad_h_split']:.4f} ms; save grad-W {t['grad_w_save']:.4f} ms, grad-h "
-          f"{t['grad_h_save']:.4f} ms", flush=True)
+    bounds = flash_ce_contraction_bounds(n, CE_D, CE_V)
+    v_main = fce.main_columns(CE_V)
+    for route, vext in (("split", CE_V), ("save", v_main)):
+        for part, label in (("grad_w", "grad-W"), ("grad_h", "grad-h")):
+            ms = t[f"{part}_{route}"]
+            bound_ms = bounds[f"{route} {label}"][0]
+            grid = fce._contraction_grid(part, route == "save", n, vext, CE_D, fce._sms(dev))
+            loaded = contraction_tma_bytes(part, route == "save", n, vext, CE_D, grid)
+            # a split block's two warpgroups each recompute the logits over the full D
+            recompute = 2 * grid[0] if route == "split" else 0
+            print(f"contraction alone at N={n}: {route} {label} {ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_ms / ms:.1%} of it); grid {grid} (D blocks, row tiles, parts); "
+                  f"logits recomputed {recompute}x ({recompute + 1} x 2 N D vext operations); "
+                  f"TMA loads {loaded / 1e9:.2f} GB at {loaded / ms / 1e9:.2f} TB/s, mostly "
+                  "from L2", flush=True)
     return t
 
 

@@ -58,9 +58,11 @@ _SIGNATURES = {
     # hidden, weight, bias, logits, labels, lse, rowscale, demb_out,
     # dbias_out, low, conf - low, n, d, vext, saved, stream
     "mic_flash_ce_gw_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
-    # hidden, weight, bias, logits, labels, lse, rowscale, dh_out,
-    # low, conf - low, n, d, vext, saved, stream
-    "mic_flash_ce_gh_bf16": [_P] * 8 + [_F] * 2 + [_I] * 4 + [_P],
+    # hidden, weight, bias, logits, labels, lse, rowscale, dh_out, part,
+    # low, conf - low, n, d, vext, saved, parts, stream
+    "mic_flash_ce_gh_bf16": [_P] * 9 + [_F] * 2 + [_I] * 5 + [_P],
+    # a, b, out, trans, stream
+    "mic_flash_ce_operand_probe": [_P] * 3 + [_I, _P],
     # q, k_step, v_step, cache_k, cache_v, out,
     # layers, rows, t_max, heads, head_dim, layer, index, splits, stream
     "mic_decode_attention_bf16": [_P] * 6 + [_I] * 8 + [_P],

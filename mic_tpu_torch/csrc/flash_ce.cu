@@ -81,29 +81,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "head_wgmma.cuh"
 
 namespace {
 
-using nvcuda::wmma::accumulator;
-using nvcuda::wmma::col_major;
-using nvcuda::wmma::fragment;
-using nvcuda::wmma::matrix_a;
-using nvcuda::wmma::matrix_b;
-using nvcuda::wmma::mem_row_major;
-using nvcuda::wmma::row_major;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -FLT_MAX;  // finfo(float32).min, NEG of mic_tpu/ops/flash_ce.py
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // ---------------------------------------------------------------------------
 // The walk: forward, save and dl on wgmma fed by TMA.
@@ -583,7 +569,8 @@ __global__ void flash_ce_fwd_merge_kernel(const float* __restrict__ part_m,
   zsum[i] = t;
 }
 
-// dbias[v] = sum of the row bands' partials, in band order.
+// dbias[v] = sum of the row bands' partials, in band order (also grad-h's dh
+// from its vocab parts' partials, in part order).
 __global__ void flash_ce_band_sum_kernel(const float* __restrict__ band_part,
                                          float* __restrict__ dbias, int bands, int vocab) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
@@ -648,284 +635,672 @@ int launch_fwd(void* hidden, void* weight, void* bias, void* part_m, void* part_
 }
 
 // ---------------------------------------------------------------------------
-// The backward contractions: grad-W and grad-h.
+// The backward contractions: grad-W and grad-h, on wgmma fed by TMA.
 //
-// mic_tpu keeps the whole (VC, D) demb block, or the (RB, D) dh block,
-// resident in VMEM across its sweep, so each is written once.  A block here
-// owns 32 output rows over the full D instead: 32 vocab rows of demb
-// (grad-W), or 32 hidden rows of dh (grad-h), with the 32 x D f32 sums in
-// the registers of its 8 warps (warp w holds the 16-wide column fragments
-// w, w + 8, ...; at D = 1024 that is 128 floats a thread).  The block sweeps
-// the other operand in tiles of 32 rows (hidden rows for grad-W, vocab rows
-// for grad-h), each tile X (32 x D bf16) loaded once through a two-stage
-// cp.async ring, and per tile:
+// Two GEMMs whose A operand, dl, is formed on the way in f32 and rounded to
+// bf16 (mic_tpu keeps each output block resident in VMEM across its sweep;
+// here a warpgroup keeps its output tile in registers across its sweep):
+//   grad-h: dh (N, D) = dl (N, vext) . W (vext, D)       M = hidden rows, K = vocab
+//   grad-W: demb (vext, D) = dl^T (vext, N) . h (N, D)   M = vocab, K = hidden rows
+// Every operand arrives by TMA in boxes of 64 rows x 64 bf16 (8 KB, the
+// 128-byte swizzle).  A consumer warpgroup owns 64 output rows x a 256-wide
+// D chunk: an m64n256 f32 accumulator (128 registers a thread), fed by
+// m64n256k16 products whose A (dl) is in registers and whose B -- the table
+// (V, D) or hidden (N, D) as stored, rows k -- is MN-major: four boxes of
+// 64 k x 64 D columns, 8 KB apart (desc_sw128_mn).  Two consumer warpgroups
+// and a producer warpgroup (one TMA warp, which gives its registers away)
+// make a block, as in the walk; every product group is waited for before
+// its slot is freed.
 //
-//   1. the 32 x 32 logits tile: recomputed as own (32 x D, resident) @ X^T,
-//      the depth split in two halves over the warps and the halves added in
-//      a fixed order, plus the bias (split); or the saved bf16 logits of
-//      the tile, staged beside X (save);
-//   2. dl = (exp(s - lse) - target) * rowscale in f32, zero outside the
-//      vocab and past row N, and its bf16 copy; grad-W sums each vocab row's
-//      f32 dl into its dbias;
-//   3. acc += dl (own x swept) @ X (32 x D), bf16 WMMA with f32 sums.
+// Save (save_kernel): the saved bf16 logits are the A boxes, rows x vocab
+// as stored: K-major for grad-h, MN-major for grad-W (ldmatrix loads them
+// transposed).  A block owns 128 M rows (64 a warpgroup) x one D chunk and
+// sweeps K in 64-deep slices through a ring of four 48 KB slots (two A
+// boxes, four B boxes, and for grad-W the lse, rowscale and labels of the
+// slice's 64 hidden rows).  Per slice each thread loads its A fragments,
+// forms dl = (exp(s - lse) - target) * rowscale in f32 from them (grad-W
+// also adds them into its vocab rows' dbias), packs dl to bf16 and issues
+// four m64n256k16.  (Read from global memory instead, grad-W's row terms
+// left it at 9.5 ms against grad-h's 3.8, an H100 at the flagship step.)
+// The logits are read once per D chunk, four times at D = 1024, mostly
+// from L2: the chunks of an M tile are neighbouring blocks.
 //
-// Splitting D over blocks instead would recompute the logits once per
-// slice; keeping full D costs one block an SM (205 KB of shared memory at
-// D = 1024 for the split route: own, two X stages, the halves, the dl
-// tile and the output staging; 141 KB for save).  Every sum has one order
-// and there are no atomics: reruns are bit-equal.  The bound is the tensor
-// cores: 2 x 2 N D V operations a split contraction, 2 N D v_main a save
-// one; the design is set by the mma.sync fragment loads from shared memory
-// (two for each product in step 1), far from it in this first version.
+// Split (split_kernel): the logits are recomputed, as a flash-attention
+// forward does.  A block owns 64 rows of the "own" operand (hidden rows for
+// grad-h, table rows for grad-W), resident in shared memory over the whole D
+// (64 x D bf16: D <= 1024, 128 KB), and two D chunks, one a warpgroup.  It
+// sweeps the other operand in 64-row tiles, each in 256-deep groups (a
+// 32 KB slot of four boxes) through a ring of three; the tile's terms
+// (grad-h: its 64 biases; grad-W: its hidden rows' lse, rowscale, labels)
+// arrive by TMA into a buffer of the tile's parity.  Per tile each
+// warpgroup computes the 64 x 64 logits tile over the full D (s = h W^T for
+// grad-h, s^T = W h^T for grad-W; both operands K-major, m64n64k16 from
+// shared memory), adds the bias, forms dl in the accumulator registers,
+// packs them as the A operand (the m64n64 accumulator's layout is the A
+// fragment of four k16 steps, FlashAttention-3's P.V), and contracts them
+// with its chunk's group of the tile, still in the ring: a tile's groups
+// run in an order that ends with the block's two chunks, and a chunk's slot
+// is freed after its contraction.  Each warpgroup recomputes the logits for
+// itself: a logit is computed 2 ceil(D / 512) times (4 at D = 1024), so a
+// split contraction does (4 + 1) x 2 N D V operations where the function
+// needs 2 N D V.  The order of the depth groups differs between a row's D
+// blocks; each is fixed.
+//
+// Grid (x = D block, y = M tile, z = K part), x fastest: the blocks of an
+// M tile are neighbours and all blocks sweep K in step.  grad-h has few M
+// tiles at small N, so its K sweep is cut into parts over z (ops/
+// flash_ce.py::_contraction_grid), written as (parts, N, D) partials and
+// summed in part order by a second kernel.  dbias: each vocab row's f32 dl
+// summed over K in a fixed order (the thread's values, then its quad),
+// written by D block 0.  There
+// is no atomic: reruns are bit-equal.  Rows past N and vocab rows past V
+// arrive as TMA's zero fill and their dl is 0; nothing past N, vext or D is
+// written.  Bound: the tensor cores, 2 N D vext operations a contraction
+// (the split route's recompute adds 4 x 2 N D V at D = 1024).
 
-constexpr int kOB = 32;           // output rows per block
-constexpr int kSB = 32;           // swept rows per tile
-constexpr int kBThreads = 256;    // 8 warps
-constexpr int kBWarps = kBThreads / 32;
-constexpr int kColFrags = 8;      // 16-wide output column fragments per warp at most
-constexpr int kMaxD = kBWarps * kColFrags * 16;  // 1024
-constexpr int kLdT = kSB + 8;     // bf16 pitch of the dl and saved-logits tiles
-constexpr int kLdP = kSB + 4;     // f32 pitch of the recomputed halves
-constexpr int kLdO = 16 + 4;      // f32 pitch of a warp's output staging fragment
-constexpr int kGradW = 0;
-constexpr int kGradH = 1;
+namespace contract {
 
-struct BwdArgs {
-  const bf16* hidden;     // (N, D)
-  const bf16* weight;     // (V, D)
-  const float* bias;      // (V,), split only
-  const bf16* logits;     // (N, v_main) saved logits, save only
+using namespace head_wgmma;
+using walk::ex2;
+using walk::kLog2e;
+
+constexpr int kBox = 64;                     // rows and bf16 depth of every TMA box
+constexpr int kBoxBytes = kBox * kBox * 2;   // 8192
+constexpr int kChunk = 256;                  // D columns a consumer warpgroup owns
+constexpr int kGroupBytes = 4 * kBoxBytes;   // 64 rows x 256 columns: 32768
+constexpr int kConsumerWarps = 8;            // two warpgroups
+constexpr int kThreads = kConsumerWarps * 32 + 128;  // and the producer's warpgroup
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSaveRows = 128;               // M rows of a save block
+constexpr int kSaveStages = 4;
+constexpr int kTerms = 3 * kBox * 4;         // a step's 64 rows' lse, rowscale, labels: 768 B
+constexpr int kSaveAB = 2 * kBoxBytes + kGroupBytes;  // A: two boxes | B: four; 49152
+constexpr int kSaveSlot = kSaveAB + 1024;    // | grad-W's terms, 1024-aligned slots
+constexpr int kSplitStages = 3;
+constexpr int kMaxGroups = 4;                // split: the resident operand's depth, 1024
+
+enum Grad { kGradW = 0, kGradH = 1 };
+
+constexpr size_t save_smem_bytes() {
+  return 1024 + kSaveStages * kSaveSlot + 2 * kSaveStages * sizeof(uint64_t);
+}
+// own rows | ring | two tiles' terms | barriers (the ring's, own_full, and
+// the terms' full and empty pairs)
+constexpr size_t split_smem_bytes(int groups) {
+  return 1024 + static_cast<size_t>(groups + kSplitStages) * kGroupBytes + 2 * kTerms +
+         (2 * kSplitStages + 5) * sizeof(uint64_t);
+}
+static_assert(split_smem_bytes(kMaxGroups) <= 232448, "the split contraction must fit");
+
+struct Args {
+  const float* bias;      // (V,): split only
   const int32_t* labels;  // (N,)
   const float* lse;       // (N,)
   const float* rowscale;  // (N,)
-  float* out;             // grad-W: (vext, D) rows of demb; grad-h: (N, D)
+  float* out;             // demb (vext, D); dh (N, D) or its (parts, N, D) partials
   float* dbias;           // grad-W: (vext,)
   float low, conf_low;
-  int n, d;
-  int vext;               // vocab columns covered: V (split) or v_main (save)
+  int n, d, vext;
 };
 
-size_t bwd_smem_bytes(int d, bool saved) {
-  const size_t ldx = static_cast<size_t>(d) + 8;
-  size_t bytes = 2 * kSB * ldx * sizeof(bf16)                  // X, two stages
-                 + kOB * kLdT * sizeof(bf16)                   // the dl tile
-                 + kBWarps * 16 * kLdO * sizeof(float);        // output staging
-  if (saved) {
-    bytes += 2 * kSB * kLdT * sizeof(bf16);                    // saved logits, two stages
-  } else {
-    bytes += kOB * ldx * sizeof(bf16) + 2 * kOB * kLdP * sizeof(float);  // own, halves
+// A hidden row's terms of dl: -lse log2 e, rowscale, label; live: row < N.
+struct Row {
+  float nl, rs;
+  int y;
+  bool live;
+};
+
+__device__ __forceinline__ Row row_terms(const Args& a, int row) {
+  Row r{0.f, 0.f, -1, row < a.n};
+  if (r.live) {
+    r.nl = -__ldg(a.lse + row) * kLog2e;
+    r.rs = __ldg(a.rowscale + row);
+    r.y = __ldg(a.labels + row);
   }
-  return bytes;
+  return r;
 }
 
-template <int kGrad, bool kSaved>
-__global__ void __launch_bounds__(kBThreads, 1) flash_ce_bwd_kernel(const BwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int d = a.d;
-  const int ldx = d + 8;
-  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);        // [2][kSB][ldx]
-  bf16* dl_s = x_s + 2 * kSB * ldx;                      // [kOB][kLdT]
-  float* out_s = reinterpret_cast<float*>(dl_s + kOB * kLdT);  // [warps][16][kLdO]
-  bf16* rest = reinterpret_cast<bf16*>(out_s + kBWarps * 16 * kLdO);
-  bf16* lg_s = rest;                                     // save: [2][kSB][kLdT]
-  bf16* own_s = rest;                                    // split: [kOB][ldx]
-  float* half_s = reinterpret_cast<float*>(own_s + kOB * ldx);  // split: [2][kOB][kLdP]
+// The terms of row r of a step's staged 64 (lse, rowscale, labels as
+// stored), the hidden row `row`.
+__device__ __forceinline__ Row staged_terms(const unsigned char* terms, int r, int row, int n) {
+  const float* f = reinterpret_cast<const float*>(terms);
+  return Row{-f[r] * kLog2e, f[kBox + r], reinterpret_cast<const int*>(f)[2 * kBox + r], row < n};
+}
+
+// dl of logit s: (exp(s - lse) - target) * rowscale, 0 where !live.
+__device__ __forceinline__ float dl_of(float s, const Row& r, bool hit, bool live, float low,
+                                       float label_target) {
+  const float g = (ex2(fmaf(s, kLog2e, r.nl)) - (hit ? label_target : low)) * r.rs;
+  return live ? g : 0.f;
+}
+
+// A warpgroup's m64n256 sums into out (row pitch d): rows m_row + 8 h below
+// m_end, columns c0 + 8 i + 2 t (+ 1) below d.
+__device__ __forceinline__ void store_acc(const float (&acc)[128], float* out, int d, int m_row,
+                                          int m_end, int c0, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (m_row + 8 * h >= m_end) continue;
+    float* dst = out + static_cast<size_t>(m_row + 8 * h) * d + c0 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (c0 + 8 * i + 2 * t < d) {
+        *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(acc[4 * i + 2 * h],
+                                                              acc[4 * i + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// grad-W's dbias of the thread's two vocab rows (v_row + 8 h): its partial
+// sums folded over its quad in a fixed order, written by lane t = 0.
+__device__ __forceinline__ void store_dbias(float (&dsum)[2], float* dbias, int v_row, int vext,
+                                            int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 1);
+    dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 2);
+    if (t == 0 && v_row + 8 * h < vext) dbias[v_row + 8 * h] = dsum[h];
+  }
+}
+
+template <int kGrad>
+__global__ void __launch_bounds__(kThreads, 1)
+save_kernel(const __grid_constant__ CUtensorMap lmap,  // saved logits (N, vext)
+            const __grid_constant__ CUtensorMap bmap,  // B: table (V, D) or hidden (N, D)
+            const __grid_constant__ CUtensorMap lse_map,  // grad-W: lse, rowscale, labels
+            const __grid_constant__ CUtensorMap rs_map,   // (N,), 64-value boxes
+            const __grid_constant__ CUtensorMap y_map,
+            const Args a) {
+  constexpr bool kW = kGrad == kGradW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);  // [slot][A: two boxes | B: four | terms]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSaveStages * kSaveSlot);
+  uint64_t* empty = full + kSaveStages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int own0 = blockIdx.x * kOB;
-  // grad-W owns vocab rows and sweeps hidden rows; grad-h the reverse
-  const int own_end = kGrad == kGradW ? a.vext : a.n;
-  const int sweep_end = kGrad == kGradW ? a.n : a.vext;
-  const bf16* own_src = kGrad == kGradW ? a.weight : a.hidden;
-  const bf16* x_src = kGrad == kGradW ? a.hidden : a.weight;
-  const int ntiles = (sweep_end + kSB - 1) / kSB;
-  const int vec = d / 8;  // 16-byte pieces of a row
+  const int c0 = blockIdx.x * kChunk;
+  const int m0 = blockIdx.y * kSaveRows;
+  const int m_end = kW ? a.vext : a.n;
+  const int nslices = ((kW ? a.n : a.vext) + kBox - 1) / kBox;
+  const int s_begin = static_cast<int>(static_cast<int64_t>(blockIdx.z) * nslices / gridDim.z);
+  const int s_end = static_cast<int>(static_cast<int64_t>(blockIdx.z + 1) * nslices / gridDim.z);
 
-  // rows past the operand's end re-read its last row; their dl is zero
-  auto load_tile = [&](int t, int stage) {
-    const int s0 = t * kSB;
-    bf16* dst = x_s + stage * kSB * ldx;
-    for (int i = tid; i < kSB * vec; i += kBThreads) {
-      const int r = i / vec;
-      const int c = (i % vec) * 8;
-      const int row = min(s0 + r, sweep_end - 1);
-      cp_async16(dst + r * ldx + c, x_src + static_cast<size_t>(row) * d + c);
+  if (tid == 0) {
+    for (int i = 0; i < kSaveStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
     }
-    if constexpr (kSaved) {
-      // the (hidden rows x vocab columns) block of the saved logits
-      if (tid < kSB * (kSB / 8)) {
-        const int r = tid / (kSB / 8);
-        const int c = (tid % (kSB / 8)) * 8;
-        const int row = min((kGrad == kGradW ? s0 : own0) + r, a.n - 1);
-        const int col = (kGrad == kGradW ? own0 : s0) + c;
-        cp_async16(lg_s + stage * kSB * kLdT + r * kLdT + c,
-                   a.logits + static_cast<size_t>(row) * a.vext + col);
-      }
-    }
-  };
-
-  if constexpr (!kSaved) {
-    for (int i = tid; i < kOB * vec; i += kBThreads) {
-      const int r = i / vec;
-      const int c = (i % vec) * 8;
-      const int row = min(own0 + r, own_end - 1);
-      cp_async16(own_s + r * ldx + c, own_src + static_cast<size_t>(row) * d + c);
-    }
+    mbar_fence_init();
   }
-  load_tile(0, 0);
-  cp_async_commit();
+  __syncthreads();
 
-  const int nf = d / 16;
-  fragment<accumulator, 16, 16, 16, float> acc[2][kColFrags];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kColFrags; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-
-  // step 2's elements: thread -> own row eo, swept rows es .. es + 3
-  const int eo = tid >> 3;
-  const int es = (tid & 7) * 4;
-  float dbias_acc = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    // the other stage was last read in the previous tile's step 3
-    if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    const bf16* xt = x_s + (t & 1) * kSB * ldx;
-    const int s0 = t * kSB;
-
-    if constexpr (!kSaved) {
-      // step 1: warp w computes fragment (w & 1, (w >> 1) & 1) over depth half w >> 2
-      const int fi = warp & 1;
-      const int fj = (warp >> 1) & 1;
-      const int half = warp >> 2;
-      fragment<accumulator, 16, 16, 16, float> c;
-      nvcuda::wmma::fill_fragment(c, 0.f);
-      const int k_end = (half + 1) * (d / 2);
-      for (int k = half * (d / 2); k < k_end; k += 16) {
-        fragment<matrix_a, 16, 16, 16, bf16, row_major> fa;
-        fragment<matrix_b, 16, 16, 16, bf16, col_major> fb;
-        nvcuda::wmma::load_matrix_sync(fa, own_s + 16 * fi * ldx + k, ldx);
-        nvcuda::wmma::load_matrix_sync(fb, xt + 16 * fj * ldx + k, ldx);
-        nvcuda::wmma::mma_sync(c, fa, fb, c);
+  if (warp >= kConsumerWarps) {
+    // producer: slice s brings the A boxes (grad-h: rows m0 + 64 x, vocab
+    // 64 s..; grad-W: vocab m0 + 64 x, hidden rows 64 s..), the four B
+    // boxes (rows 64 s.., the block's D chunk) and, for grad-W, the terms
+    // of hidden rows 64 s..
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      int slot = 0, phase = 0;
+      for (int s = s_begin; s < s_end; ++s) {
+        if (s - s_begin >= kSaveStages) mbar_wait(&empty[slot], phase ^ 1);
+        unsigned char* dst = ring + slot * kSaveSlot;
+        mbar_expect_tx(&full[slot], kSaveAB + (kW ? kTerms : 0));
+        for (int x = 0; x < 2; ++x) {
+          tma_load_2d(dst + x * kBoxBytes, &lmap, &full[slot], kW ? m0 + kBox * x : kBox * s,
+                      kW ? kBox * s : m0 + kBox * x);
+        }
+        for (int b = 0; b < 4; ++b) {
+          tma_load_2d(dst + (2 + b) * kBoxBytes, &bmap, &full[slot], c0 + kBox * b, kBox * s);
+        }
+        if (kW) {
+          tma_load_1d(dst + kSaveAB, &lse_map, &full[slot], kBox * s);
+          tma_load_1d(dst + kSaveAB + kTerms / 3, &rs_map, &full[slot], kBox * s);
+          tma_load_1d(dst + kSaveAB + 2 * kTerms / 3, &y_map, &full[slot], kBox * s);
+        }
+        if (++slot == kSaveStages) {
+          slot = 0;
+          phase ^= 1;
+        }
       }
-      nvcuda::wmma::store_matrix_sync(half_s + (half * kOB + 16 * fi) * kLdP + 16 * fj, c, kLdP,
-                                      mem_row_major);
-      __syncthreads();
     }
+    return;
+  }
 
-    // step 2
-    {
-      const bf16* lt = lg_s + (t & 1) * kSB * kLdT;
-      float part = 0.f;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = consumer_warpgroup();
+  const int w = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m_row = m0 + 64 * wg + 16 * w + g;  // the thread's M rows: + 8 h
+  const float label_target = a.low + a.conf_low;
+  Row own[2] = {};  // grad-h: the thread's hidden rows
+  if constexpr (!kW) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int sw = es + q;
-        const int row = kGrad == kGradW ? s0 + sw : own0 + eo;
-        const int col = kGrad == kGradW ? own0 + eo : s0 + sw;
-        float g = 0.f;
-        if (row < a.n && col < a.vext) {
-          float logit;
-          if constexpr (kSaved) {
-            logit = __bfloat162float(kGrad == kGradW ? lt[sw * kLdT + eo] : lt[eo * kLdT + sw]);
-          } else {
-            logit = half_s[eo * kLdP + sw] + half_s[(kOB + eo) * kLdP + sw] + a.bias[col];
+    for (int h = 0; h < 2; ++h) own[h] = row_terms(a, m_row + 8 * h);
+  }
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  float dsum[2] = {0.f, 0.f};
+  int slot = 0, phase = 0;
+  for (int s = s_begin; s < s_end; ++s) {
+    mbar_wait(&full[slot], phase);
+    const unsigned char* base = ring + slot * kSaveSlot;
+    uint32_t af[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t raw[4];
+      ldsm_a<kW>(raw, base + wg * kBoxBytes, w, j, lane);
+      // a[r] holds M row m_row + 8 (r & 1) at K 64 s + 16 j + 8 (r >> 1) + 2 t (+ 1)
+      const int k0 = kBox * s + 16 * j + 2 * t;
+      Row kr[2][2];  // grad-W: the hidden rows k0 + 8 q + e, from the slot's terms
+      if constexpr (kW) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            kr[q][e] = staged_terms(base + kSaveAB, 16 * j + 8 * q + 2 * t + e, k0 + 8 * q + e,
+                                    a.n);
           }
-          const float p = expf(logit - a.lse[row]);
-          const float target = a.low + a.conf_low * (col == a.labels[row] ? 1.f : 0.f);
-          g = (p - target) * a.rowscale[row];
-        }
-        part += g;
-        dl_s[eo * kLdT + sw] = __float2bfloat16(g);
       }
-      if constexpr (kGrad == kGradW) {
-        // the eight threads of one vocab row are neighbouring lanes
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
-        part += __shfl_xor_sync(0xffffffffu, part, 4);
-        dbias_acc += part;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1;
+        const int q = r >> 1;
+        const float x[2] = {__uint_as_float(raw[r] << 16), __uint_as_float(raw[r] & 0xffff0000u)};
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (kW) {
+            const Row& kq = kr[q][e];
+            v[e] = dl_of(x[e], kq, m_row + 8 * h == kq.y, kq.live, a.low, label_target);
+            dsum[h] += v[e];
+          } else {
+            v[e] = dl_of(x[e], own[h], k0 + 8 * q + e == own[h].y, own[h].live, a.low,
+                         label_target);
+          }
+        }
+        af[j][r] = pack_bf16(v[0], v[1]);
       }
     }
-    __syncthreads();
-
-    // step 3
 #pragma unroll
-    for (int k16 = 0; k16 < kSB; k16 += 16) {
-      fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[2];
+    for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nvcuda::wmma::load_matrix_sync(fa[i], dl_s + 16 * i * kLdT + k16, kLdT);
-#pragma unroll
-      for (int j = 0; j < kColFrags; ++j) {
-        const int f = warp + kBWarps * j;
-        if (f < nf) {
-          fragment<matrix_b, 16, 16, 16, bf16, row_major> fb;
-          nvcuda::wmma::load_matrix_sync(fb, xt + k16 * ldx + 16 * f, ldx);
-          nvcuda::wmma::mma_sync(acc[0][j], fa[0], fb, acc[0][j]);
-          nvcuda::wmma::mma_sync(acc[1][j], fa[1], fb, acc[1][j]);
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      wgmma_m64n256k16_bf16_rs_mn(acc, af[j],
+                                  desc_sw128_mn(base + 2 * kBoxBytes + 2048 * j, kBoxBytes), 1);
     }
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-
-  // each warp writes its fragments through its own 16 x 16 staging tile
-  float* st = out_s + warp * 16 * kLdO;
-  const int sr = lane >> 1;
-  const int sc = (lane & 1) * 8;
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
 #pragma unroll
-    for (int j = 0; j < kColFrags; ++j) {
-      const int f = warp + kBWarps * j;
-      if (f < nf) {
-        nvcuda::wmma::store_matrix_sync(st, acc[i][j], kLdO, mem_row_major);
-        __syncwarp();
-        const int row = own0 + 16 * i + sr;
-        if (row < own_end) {
-          float4* dst = reinterpret_cast<float4*>(a.out + static_cast<size_t>(row) * d + 16 * f + sc);
-          dst[0] = *reinterpret_cast<const float4*>(st + sr * kLdO + sc);
-          dst[1] = *reinterpret_cast<const float4*>(st + sr * kLdO + sc + 4);
-        }
-        __syncwarp();
-      }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_operand(af[j][r]);
+    release(empty, slot);
+    if (++slot == kSaveStages) {
+      slot = 0;
+      phase ^= 1;
     }
   }
-  if constexpr (kGrad == kGradW) {
-    if ((tid & 7) == 0 && own0 + eo < own_end) a.dbias[own0 + eo] = dbias_acc;
+  store_acc(acc, a.out + static_cast<size_t>(blockIdx.z) * m_end * a.d, a.d, m_row, m_end, c0,
+            t);
+  if constexpr (kW) {
+    if (blockIdx.x == 0) store_dbias(dsum, a.dbias, m_row, a.vext, t);
   }
 }
 
-template <int kGrad, bool kSaved>
-int launch_bwd(const BwdArgs& a, void* stream) {
-  const size_t smem = bwd_smem_bytes(a.d, kSaved);
-  if (a.n < 1 || a.vext < 1 || a.d < 64 || a.d % 64 != 0 || a.d > kMaxD || smem > 232448 ||
-      (kSaved && a.vext % kSB != 0)) {
+template <int kGrad>
+__global__ void __launch_bounds__(kThreads, 1)
+split_kernel(const __grid_constant__ CUtensorMap omap,  // own: hidden (N, D) or table (V, D)
+             const __grid_constant__ CUtensorMap xmap,  // swept: the other
+             const __grid_constant__ CUtensorMap t0map,  // a swept tile's terms, 64-value
+             const __grid_constant__ CUtensorMap t1map,  // boxes: grad-h the bias (V,);
+             const __grid_constant__ CUtensorMap t2map,  // grad-W lse, rowscale, labels (N,)
+             const Args a) {
+  constexpr bool kW = kGrad == kGradW;
+  extern __shared__ unsigned char smem_raw[];
+  const int groups = (a.d + kChunk - 1) / kChunk;  // 256-deep groups of D
+  unsigned char* own_s = align_1024(smem_raw);     // box b: own rows x depth 64 b..
+  unsigned char* ring = own_s + groups * kGroupBytes;  // [slot][swept rows x one group]
+  unsigned char* terms = ring + kSplitStages * kGroupBytes;  // [tile parity][kTerms]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + 2 * kTerms);
+  uint64_t* empty = full + kSplitStages;
+  uint64_t* own_full = empty + kSplitStages;
+  uint64_t* terms_full = own_full + 1;   // [2]: a tile's terms arrived
+  uint64_t* terms_empty = terms_full + 2;  // [2]: ... and read (the consumer warps)
+  constexpr int kTermBytes = kW ? kTerms : kTerms / 3;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int own0 = blockIdx.y * kBox;
+  const int n_own = kW ? a.vext : a.n;
+  const int chunk0 = 2 * blockIdx.x;                // warpgroup 0's D chunk
+  const int chunk1 = min(chunk0 + 1, groups - 1);   // warpgroup 1's (0's again past D)
+  const int ntiles = ((kW ? a.n : a.vext) + kBox - 1) / kBox;
+  const int t_begin = static_cast<int>(static_cast<int64_t>(blockIdx.z) * ntiles / gridDim.z);
+  const int t_end = static_cast<int>(static_cast<int64_t>(blockIdx.z + 1) * ntiles / gridDim.z);
+
+  if (tid == 0) {
+    for (int i = 0; i < kSplitStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    mbar_init(own_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&terms_full[i], 1);
+      mbar_init(&terms_empty[i], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // producer: the own rows over the whole D once, then per swept tile its
+    // terms (into the buffer of the tile's parity, once the tile before the
+    // last has read it) and its groups in the order (q + chunk1 + 1) mod
+    // groups, ending with chunk0 and chunk1
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(own_full, groups * kGroupBytes);
+      for (int b = 0; b < 4 * groups; ++b) {
+        tma_load_2d(own_s + b * kBoxBytes, &omap, own_full, kBox * b, own0);
+      }
+      int slot = 0, phase = 0, u = 0;
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int tb = tile - t_begin;
+        unsigned char* tdst = terms + (tb & 1) * kTerms;
+        if (tb >= 2) mbar_wait(&terms_empty[tb & 1], ((tb >> 1) - 1) & 1);
+        mbar_expect_tx(&terms_full[tb & 1], kTermBytes);
+        tma_load_1d(tdst, &t0map, &terms_full[tb & 1], kBox * tile);
+        if (kW) {
+          tma_load_1d(tdst + kTerms / 3, &t1map, &terms_full[tb & 1], kBox * tile);
+          tma_load_1d(tdst + 2 * kTerms / 3, &t2map, &terms_full[tb & 1], kBox * tile);
+        }
+        for (int q = 0; q < groups; ++q, ++u) {
+          const int grp = (q + chunk1 + 1) % groups;
+          if (u >= kSplitStages) mbar_wait(&empty[slot], phase ^ 1);
+          unsigned char* dst = ring + slot * kGroupBytes;
+          mbar_expect_tx(&full[slot], kGroupBytes);
+          for (int b = 0; b < 4; ++b) {
+            tma_load_2d(dst + b * kBoxBytes, &xmap, &full[slot], kChunk * grp + kBox * b,
+                        kBox * tile);
+          }
+          if (++slot == kSplitStages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = consumer_warpgroup();
+  const int w = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int mine = wg == 0 ? chunk0 : chunk1;
+  const int o_row = own0 + 16 * w + g;  // the thread's own rows (M of s): + 8 h
+  const float label_target = a.low + a.conf_low;
+  Row own[2] = {};                      // grad-h: the thread's hidden rows
+  float obias[2] = {0.f, 0.f};          // grad-W: its vocab rows' biases
+  bool olive[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    olive[h] = o_row + 8 * h < n_own;
+    if constexpr (kW) {
+      if (olive[h]) obias[h] = __ldg(a.bias + o_row + 8 * h);
+    } else {
+      own[h] = row_terms(a, o_row + 8 * h);
+    }
+  }
+  mbar_wait(own_full, 0);
+
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  float s[32];  // the logits tile, overwritten by each tile's first product
+#pragma unroll
+  for (int x = 0; x < 32; ++x) s[x] = 0.f;
+  float dsum[2] = {0.f, 0.f};
+  int slot = 0, phase = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    int held = 0;  // the slot of this warpgroup's chunk
+    for (int q = 0; q < groups; ++q) {
+      const int grp = (q + chunk1 + 1) % groups;
+      mbar_wait(&full[slot], phase);
+      const unsigned char* xs = ring + slot * kGroupBytes;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(s[x]);
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_m64n64k16_bf16_ss(s, desc_sw128(own_s + (4 * grp + b) * kBoxBytes + 32 * kk),
+                                  desc_sw128(xs + b * kBoxBytes + 32 * kk), (q | b | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < 32; ++x) fence_operand(s[x]);
+      held = grp == mine ? slot : held;
+      release_if(empty, slot, grp != mine);
+      if (++slot == kSplitStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    // s[4 i + 2 h + e]: own row o_row + 8 h, swept index x0 + 8 i + 2 t + e;
+    // the logits plus bias, then dl in place, with the tile's staged terms
+    const int x0 = kBox * tile;
+    const int tb = tile - t_begin;
+    const unsigned char* tt = terms + (tb & 1) * kTerms;
+    mbar_wait(&terms_full[tb & 1], (tb >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int xc = x0 + 8 * i + 2 * t + e;
+        if constexpr (kW) {
+          const Row xr = staged_terms(tt, 8 * i + 2 * t + e, xc, a.n);  // hidden row xc
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& v = s[4 * i + 2 * h + e];
+            v = dl_of(v + obias[h], xr, o_row + 8 * h == xr.y, xr.live && olive[h], a.low,
+                      label_target);
+            dsum[h] += v;
+          }
+        } else {
+          const bool ok = xc < a.vext;  // vocab column xc
+          const float bc = reinterpret_cast<const float*>(tt)[8 * i + 2 * t + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& v = s[4 * i + 2 * h + e];
+            v = dl_of(v + bc, own[h], xc == own[h].y, ok && own[h].live, a.low, label_target);
+          }
+        }
+      }
+    }
+    release(terms_empty, tb & 1);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) af[j][r] = pack_bf16(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
+    }
+    const unsigned char* bs = ring + held * kGroupBytes;
+#pragma unroll
+    for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_m64n256k16_bf16_rs_mn(acc, af[j], desc_sw128_mn(bs + 2048 * j, kBoxBytes), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_operand(af[j][r]);
+    release(empty, held);
+  }
+  if (wg == 0 || chunk1 != chunk0) {
+    store_acc(acc, a.out + static_cast<size_t>(blockIdx.z) * n_own * a.d, a.d, o_row, n_own,
+              kChunk * mine, t);
+  }
+  if constexpr (kW) {
+    if (blockIdx.x == 0 && wg == 0) store_dbias(dsum, a.dbias, o_row, a.vext, t);
+  }
+}
+
+// The operand forms of the contractions alone, for a test against a plain
+// product: out (64 x 256 f32) = A (64 x 64) . B (64 x 256), B row-major (k,
+// n) read MN-major through desc_sw128_mn; A row-major (m, k)
+// (trans 0) or stored transposed, (k, m) (trans 1), into registers by
+// ldsm_a.  One warpgroup.
+__global__ void __launch_bounds__(128, 1)
+probe_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+             float* out, int trans) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* buf = align_1024(smem_raw);  // A box | four B boxes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(buf + 5 * kBoxBytes);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 5 * kBoxBytes);
+    tma_load_2d(buf, &amap, bar, 0, 0);
+    for (int b = 0; b < 4; ++b) tma_load_2d(buf + (1 + b) * kBoxBytes, &bmap, bar, kBox * b, 0);
+  }
+  mbar_wait(bar, 0);
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (trans) {
+      ldsm_a<true>(af[j], buf, w, j, lane);
+    } else {
+      ldsm_a<false>(af[j], buf, w, j, lane);
+    }
+  }
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_m64n256k16_bf16_rs_mn(acc, af[j], desc_sw128_mn(buf + kBoxBytes + 2048 * j, kBoxBytes),
+                                1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int x = 0; x < 128; ++x) fence_operand(acc[x]);
+  store_acc(acc, out, 4 * kBox, 16 * w + (lane >> 2), kBox, 0, lane & 3);
+}
+
+// The 64 x 64 bf16 boxes, 128-byte swizzle, of a row-major (rows, cols) tensor.
+cudaError_t box_map(CUtensorMap* map, const void* base, int cols, int rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, kBox, kBox,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// lse, rowscale and the labels (their bits: TMA copies them unchanged), in
+// 64-value boxes.
+cudaError_t row_maps(const Args& a, CUtensorMap* lse_map, CUtensorMap* rs_map,
+                     CUtensorMap* y_map) {
+  cudaError_t err = encode_1d_f32(lse_map, a.lse, a.n, kBox);
+  if (err == cudaSuccess) err = encode_1d_f32(rs_map, a.rowscale, a.n, kBox);
+  if (err == cudaSuccess) err = encode_1d_f32(y_map, a.labels, a.n, kBox);
+  return err;
+}
+
+bool bad_shape(const Args& a) {
+  return a.n < 1 || a.vext < 1 || a.d < kBox || a.d % kBox != 0;
+}
+
+template <int kGrad>
+int launch_save(const void* hidden, const void* weight, const void* logits, const Args& a,
+                int parts, cudaStream_t s) {
+  constexpr bool kW = kGrad == kGradW;
+  const int m_tiles = ((kW ? a.vext : a.n) + kSaveRows - 1) / kSaveRows;
+  const int nslices = ((kW ? a.n : a.vext) + kBox - 1) / kBox;
+  if (bad_shape(a) || a.vext % 128 != 0 || parts < 1 || parts > nslices || m_tiles > 65535 ||
+      parts > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(flash_ce_bwd_kernel<kGrad, kSaved>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  CUtensorMap lmap, bmap, lse_map, rs_map, y_map;
+  cudaError_t err = box_map(&lmap, logits, a.vext, a.n);
+  if (err == cudaSuccess) {
+    err = kW ? box_map(&bmap, hidden, a.d, a.n) : box_map(&bmap, weight, a.d, a.vext);
+  }
+  if (err == cudaSuccess) err = row_maps(a, &lse_map, &rs_map, &y_map);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int own_end = kGrad == kGradW ? a.vext : a.n;
-  flash_ce_bwd_kernel<kGrad, kSaved><<<(own_end + kOB - 1) / kOB, kBThreads, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(a);
+  constexpr size_t smem = save_smem_bytes();
+  err = cudaFuncSetAttribute(save_kernel<kGrad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.d + kChunk - 1) / kChunk, m_tiles, parts);
+  save_kernel<kGrad><<<grid, kThreads, smem, s>>>(lmap, bmap, lse_map, rs_map, y_map, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-BwdArgs bwd_args(void* hidden, void* weight, void* bias, void* logits, void* labels, void* lse,
-                 void* rowscale, void* out, void* dbias, float low, float conf_low, int n, int d,
-                 int vext) {
-  return BwdArgs{static_cast<const bf16*>(hidden), static_cast<const bf16*>(weight),
-                 static_cast<const float*>(bias), static_cast<const bf16*>(logits),
-                 static_cast<const int32_t*>(labels), static_cast<const float*>(lse),
-                 static_cast<const float*>(rowscale), static_cast<float*>(out),
-                 static_cast<float*>(dbias), low, conf_low, n, d, vext};
+template <int kGrad>
+int launch_split(const void* hidden, const void* weight, const Args& a, int parts,
+                 cudaStream_t s) {
+  constexpr bool kW = kGrad == kGradW;
+  const int groups = (a.d + kChunk - 1) / kChunk;
+  const int own_tiles = ((kW ? a.vext : a.n) + kBox - 1) / kBox;
+  const int ntiles = ((kW ? a.n : a.vext) + kBox - 1) / kBox;
+  if (bad_shape(a) || groups > kMaxGroups || parts < 1 || parts > ntiles ||
+      own_tiles > 65535 || parts > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap hmap, wmap, t0map, t1map, t2map;
+  cudaError_t err = box_map(&hmap, hidden, a.d, a.n);
+  if (err == cudaSuccess) err = box_map(&wmap, weight, a.d, a.vext);
+  if (err == cudaSuccess) {
+    err = kW ? row_maps(a, &t0map, &t1map, &t2map) : encode_1d_f32(&t0map, a.bias, a.vext, kBox);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = split_smem_bytes(groups);
+  err = cudaFuncSetAttribute(split_kernel<kGrad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((groups + 1) / 2, own_tiles, parts);
+  split_kernel<kGrad><<<grid, kThreads, smem, s>>>(kW ? wmap : hmap, kW ? hmap : wmap, t0map,
+                                                   kW ? t1map : t0map, kW ? t2map : t0map, a);
+  return static_cast<int>(cudaGetLastError());
 }
+
+Args args(void* bias, void* labels, void* lse, void* rowscale, void* out, void* dbias, float low,
+          float conf_low, int n, int d, int vext) {
+  return Args{static_cast<const float*>(bias), static_cast<const int32_t*>(labels),
+              static_cast<const float*>(lse), static_cast<const float*>(rowscale),
+              static_cast<float*>(out), static_cast<float*>(dbias), low, conf_low, n, d, vext};
+}
+
+}  // namespace contract
 
 }  // namespace
 
@@ -948,25 +1323,53 @@ extern "C" int mic_flash_ce_fwd_save_bf16(void* hidden, void* weight, void* bias
 }
 
 // grad-W: demb rows [0, vext) and dbias [0, vext).  saved == 0: the logits
-// recomputed over V = vext columns (bias read, logits unused); saved != 0:
-// read from logits (N, vext) (bias unused), vext a multiple of 32.
+// recomputed over V = vext columns (bias read, logits unused; D <= 1024);
+// saved != 0: read from logits (N, vext) (bias unused), vext a multiple of
+// 128.
 extern "C" int mic_flash_ce_gw_bf16(void* hidden, void* weight, void* bias, void* logits,
                                     void* labels, void* lse, void* rowscale, void* demb,
                                     void* dbias, float low, float conf_low, int n, int d,
                                     int vext, int saved, void* stream) {
-  const BwdArgs a = bwd_args(hidden, weight, bias, logits, labels, lse, rowscale, demb, dbias, low,
-                             conf_low, n, d, vext);
-  return saved ? launch_bwd<kGradW, true>(a, stream) : launch_bwd<kGradW, false>(a, stream);
+  const contract::Args a = contract::args(bias, labels, lse, rowscale, demb, dbias, low,
+                                          conf_low, n, d, vext);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return saved ? contract::launch_save<contract::kGradW>(hidden, weight, logits, a, 1, s)
+               : contract::launch_split<contract::kGradW>(hidden, weight, a, 1, s);
 }
 
-// grad-h: dh (N, D) f32 over the vocab columns [0, vext), as grad-W.
+// grad-h: dh (N, D) f32 over the vocab columns [0, vext), as grad-W, the
+// vocab sweep cut into `parts` consecutive parts: with parts > 1 each part
+// writes its (N, D) partial into part, (parts, N, D) f32 scratch, and the
+// partials are summed into dh in part order.
 extern "C" int mic_flash_ce_gh_bf16(void* hidden, void* weight, void* bias, void* logits,
-                                    void* labels, void* lse, void* rowscale, void* dh, float low,
-                                    float conf_low, int n, int d, int vext, int saved,
-                                    void* stream) {
-  const BwdArgs a = bwd_args(hidden, weight, bias, logits, labels, lse, rowscale, dh, nullptr, low,
-                             conf_low, n, d, vext);
-  return saved ? launch_bwd<kGradH, true>(a, stream) : launch_bwd<kGradH, false>(a, stream);
+                                    void* labels, void* lse, void* rowscale, void* dh, void* part,
+                                    float low, float conf_low, int n, int d, int vext, int saved,
+                                    int parts, void* stream) {
+  const contract::Args a = contract::args(bias, labels, lse, rowscale, parts > 1 ? part : dh,
+                                          nullptr, low, conf_low, n, d, vext);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bad = saved ? contract::launch_save<contract::kGradH>(hidden, weight, logits, a,
+                                                                  parts, s)
+                        : contract::launch_split<contract::kGradH>(hidden, weight, a, parts, s);
+  if (bad || parts == 1) return bad;
+  flash_ce_band_sum_kernel<<<(n * d + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dh), parts, n * d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The contractions' operand forms alone (contract::probe_kernel): a (64, 64)
+// bf16, b (64, 256) bf16, out (64, 256) f32.
+extern "C" int mic_flash_ce_operand_probe(void* a, void* b, void* out, int trans, void* stream) {
+  using namespace contract;
+  CUtensorMap amap, bmap;
+  cudaError_t err = box_map(&amap, a, kBox, kBox);
+  if (err == cudaSuccess) err = box_map(&bmap, b, 4 * kBox, kBox);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = 1024 + 5 * kBoxBytes + 8;
+  probe_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(amap, bmap,
+                                                                     static_cast<float*>(out),
+                                                                     trans);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // band_part is (ceil(N / 128), V) f32 scratch; every live entry is written.

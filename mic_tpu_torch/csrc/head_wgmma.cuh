@@ -1,8 +1,10 @@
 // Hopper building blocks of the kernels on wgmma fed by TMA (the tied head,
-// csrc/fused_head.cu, and the flash-CE walk, csrc/flash_ce.cu): tensor maps
-// encoded through the runtime's driver entry point (so the library links no
-// -lcuda), mbarrier rings, TMA tile loads, wgmma descriptors and products,
-// and the exact int8 -> bf16 conversion of a register A operand.
+// csrc/fused_head.cu, and the flash-CE walk and backward contractions,
+// csrc/flash_ce.cu): tensor maps encoded through the runtime's driver entry
+// point (so the library links no -lcuda), mbarrier rings, TMA tile loads,
+// wgmma descriptors (K-major and MN-major) and products, register A
+// operands (ldmatrix from a swizzled box, bf16 packing), and the exact
+// int8 -> bf16 conversion of a register A operand.
 //
 // The pipeline every kernel here runs: one producer warp of the block (in a
 // warpgroup of its own, which gives its registers to the consumers) issues
@@ -17,11 +19,13 @@
 // parity u & 1 and the producer, from the second use of a slot on, waits on
 // empty with parity (u - 1) & 1.
 //
-// Operands that wgmma reads from shared memory are K-major with the
-// 128-byte swizzle that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes: 8-row
-// atoms of 128-byte rows (1024 bytes, 1024-aligned), the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8).  A k step inside a row advances the
-// descriptor's start address by its bytes (32 for k16 bf16 or k32 int8).
+// Operands that wgmma reads from shared memory are in the 128-byte swizzle
+// that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes: 8-row atoms of 128-byte
+// rows (1024 bytes, 1024-aligned), the 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8).  K-major (rows M or N, holding k): a k step inside a
+// row advances the descriptor's start address by its bytes (32 for k16
+// bf16 or k32 int8).  MN-major (rows k, holding M or N: a row-major (K, N)
+// operand as stored, read with wgmma's transpose bit): desc_sw128_mn.
 
 #pragma once
 
@@ -171,6 +175,12 @@ __device__ __forceinline__ void release(uint64_t* empty, int slot) {
   mbar_arrive_if(&empty[slot], (threadIdx.x & 31) == 0);
 }
 
+// The same where `pred` (the same across the warp) holds.
+__device__ __forceinline__ void release_if(uint64_t* empty, int slot, bool pred) {
+  __syncwarp();
+  mbar_arrive_if(&empty[slot], pred && (threadIdx.x & 31) == 0);
+}
+
 // The first 1024-aligned address at or after p (a swizzle atom's alignment).
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
@@ -232,6 +242,54 @@ __device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// Descriptor of an MN-major operand in the 128-byte swizzle at p: each
+// 128-byte row holds 64 consecutive M (or N) values of one k, an 8-row atom
+// holds 8 consecutive k, atoms of the next 8 k lie 1024 bytes on (the
+// stride offset) and the next 64 M (N) values `lbo` bytes on (the leading
+// offset: the two swap roles against the K-major form).  A box of 64 k rows
+// x 64 values, as TMA writes it, is one atom column, and lbo the distance
+// between the boxes of consecutive 64-value spans.  A k16 step advances the
+// start by 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// The bf16 A fragment of one k16 step (j) for warp w of a warpgroup, from a
+// 64 x 64 box in the 128-byte swizzle, by ldmatrix: a[0..3] as the wgmma
+// register A operand takes them (rows 16 w + g (+ 8), k 16 j + 2 t (+ 1,
+// + 8, + 9)).  kMN false: the box's rows are M and hold k (K-major); true:
+// its rows are k and hold M (MN-major), loaded transposed.  Each 16-byte
+// piece of a swizzled row is whole, so each lane names one piece; the 8
+// lanes of a matrix hit 8 distinct pieces (conflict-free).
+template <bool kMN>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const unsigned char* box, int w, int j,
+                                       int lane) {
+  const int q = lane >> 3;
+  const int rr = lane & 7;
+  const int row = kMN ? 16 * j + 8 * (q >> 1) + rr : 16 * w + 8 * (q & 1) + rr;
+  const int piece = kMN ? 2 * w + (q & 1) : 2 * j + (q >> 1);
+  const uint32_t addr = smem_u32(box) + row * 128 + ((piece ^ (row & 7)) << 4);
+  if constexpr (kMN) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(addr)
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(addr)
+                 : "memory");
+  }
+}
+
+// Two f32 values as one bf16 pair, lo in the low half (the A register form).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 // d (64 x 64, f32) (+)= a (64 x 16 bf16, registers) . b (64 x 16 bf16,
@@ -390,6 +448,70 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16_ss(float (&d)[128], uint64
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 256, f32) (+)= a (64 x 16 bf16, registers, as in
+// wgmma_m64n64k16_bf16_rs) . b (16 x 256 bf16, shared, MN-major: desc_sw128_mn);
+// d[4 i + 2 h + e] is row 16 w + g + 8 h, column 8 i + 2 t + e (i < 32).
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_rs_mn(float (&d)[128],
+                                                            const uint32_t (&a)[4],
+                                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // d (64 x 128, s32) (+)= a (64 x 32 int8, shared, K-major) . b (128 x 32

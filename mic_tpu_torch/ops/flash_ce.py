@@ -28,7 +28,8 @@ shadow, train/shadow.py) when given, else ``emb`` cast once.  Each takes its
 plain version for tensors on the CPU.  On a CUDA device it launches the
 kernels of csrc/flash_ce.cu, which never store f32 logits of the main
 vocab span, or raises: the kernels take bfloat16 only, so a float32 ``h``
-(``CaptionerConfig.dtype`` "float32") raises NotImplementedError.
+(``CaptionerConfig.dtype`` "float32") raises NotImplementedError, and D a
+multiple of 64, at most ``_BWD_MAX_D`` for the split route's contractions.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ from mic_tpu_torch import _build
 
 _ROW_TILE = 128   # hidden rows a block of csrc/flash_ce.cu's walk (walk::kRows)
 _VOCAB_TILE = 256  # vocab columns a tile of the walk (walk::kCols)
-_BWD_MAX_D = 1024  # the widest D the backward contractions take (kMaxD)
+_BWD_MAX_D = 1024  # the widest D the split contractions take (contract::kMaxGroups x 256)
+_BOX = 64          # rows a sweep step, and own rows a split block (contract::kBox)
+_CHUNK = 256       # D columns a consumer warpgroup owns (contract::kChunk)
+_SAVE_ROWS = 128   # output rows a save block owns (contract::kSaveRows)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
 
 
@@ -262,10 +266,31 @@ def flash_ce_backward_dl(h, emb, bias, labels, lse, rowscale, label_smoothing,
 flash_ce_backward_dl.launches = 0
 
 
-def _check_backward_args(name, h, w, bias):
+def _check_backward_args(name, h, w, bias, split=True):
+    """The kernels' arguments; the split contractions keep 64 rows over the
+    whole D in shared memory, so they also need D <= _BWD_MAX_D."""
     _check_kernel_args(name, h, w, bias)
-    if h.shape[1] > _BWD_MAX_D:
+    if split and h.shape[1] > _BWD_MAX_D:
         raise ValueError(f"{name} kernel: D={h.shape[1]} exceeds {_BWD_MAX_D}")
+
+
+def _contraction_grid(part, saved, n, vext, d, sms):
+    """The blocks of one contraction kernel of csrc/flash_ce.cu, as
+    (D blocks, output-row tiles, sweep parts), D blocks fastest.  A consumer
+    warpgroup owns a 256-wide D chunk: a save block one chunk and 128 output
+    rows, a split block two chunks (the second repeats the first past D) and
+    64 output rows.  The output rows are hidden rows for "grad_h", the vocab
+    columns [0, vext) for "grad_w"; each block sweeps the other axis in
+    64-row steps, part z of `parts` taking steps [z S / parts, (z + 1) S /
+    parts).  grad-h at small N fills the SMs its row tiles leave idle with
+    parts of the vocab sweep (at most one a step), summed in part order
+    afterwards; grad-W has vext / 64 or more blocks and one part."""
+    chunks = -(-d // _CHUNK)
+    dblocks, rows = (chunks, _SAVE_ROWS) if saved else (-(-chunks // 2), _BOX)
+    m, k = (n, vext) if part == "grad_h" else (vext, n)
+    tiles, steps = -(-m // rows), -(-k // _BOX)
+    parts = max(1, min(steps, sms // (dblocks * tiles))) if part == "grad_h" else 1
+    return dblocks, tiles, parts
 
 
 _CONTRACTIONS = {"grad_w": "mic_flash_ce_gw_bf16", "grad_h": "mic_flash_ce_gh_bf16"}
@@ -277,20 +302,28 @@ def _contract(part, h, w, bias_f, labels32, lse32, rs32, label_smoothing, logits
     columns 0..vext: recomputed over V = vext columns (``logits`` None) or
     read from the saved (N, vext) bf16.  "grad_w" writes demb into out
     (vext, D) f32 and dbias (vext,) f32; "grad_h" writes dh into out (N, D)
-    f32."""
+    f32, through (parts, N, D) f32 partials where _contraction_grid cuts
+    its vocab sweep."""
     n, d = h.shape
     saved = logits is not None
+    vext = logits.shape[1] if saved else w.shape[0]
     entry = _CONTRACTIONS[part]
     _check_pointers(entry, h.device, h, w, bias_f, labels32, lse32, rs32, out,
                     *(x for x in (logits, dbias) if x is not None))
     low, conf_low = _targets(label_smoothing, w.shape[0])
-    err = getattr(_build.lib(), entry)(
-        h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), logits.data_ptr() if saved else 0,
-        labels32.data_ptr(), lse32.data_ptr(), rs32.data_ptr(), out.data_ptr(),
-        *((dbias.data_ptr(),) if part == "grad_w" else ()), low, conf_low, n, d,
-        logits.shape[1] if saved else w.shape[0], int(saved),
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
+    operands = (h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), logits.data_ptr() if saved else 0,
+                labels32.data_ptr(), lse32.data_ptr(), rs32.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if part == "grad_w":
+        err = _build.lib().mic_flash_ce_gw_bf16(*operands, dbias.data_ptr(), low, conf_low, n, d,
+                                                vext, int(saved), stream)
+    else:
+        parts = _contraction_grid(part, saved, n, vext, d, _sms(h.device))[2]
+        scratch = (torch.empty((parts, n, d), dtype=torch.float32, device=h.device)
+                   if parts > 1 else None)
+        err = _build.lib().mic_flash_ce_gh_bf16(
+            *operands, scratch.data_ptr() if parts > 1 else 0, low, conf_low, n, d, vext,
+            int(saved), parts, stream)
     _build.check(err, entry)
 
 
@@ -299,7 +332,7 @@ def _backward_operands(name, h, emb, bias, labels, lse, rowscale, emb_cast, logi
     if h.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {h.device}")
     w = _table(h, emb, emb_cast)
-    _check_backward_args(name, h, w, bias)
+    _check_backward_args(name, h, w, bias, split=logits_main is None)
     if logits_main is not None and (logits_main.dtype != torch.bfloat16
                                     or logits_main.shape[0] != h.shape[0]
                                     or not 0 <= logits_main.shape[1] <= w.shape[0]

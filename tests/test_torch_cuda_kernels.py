@@ -49,6 +49,7 @@ sums in another order, K * 2**-24 * sum |x| |w|.
 import pytest
 import torch
 
+from mic_tpu_torch import _build
 from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
 from mic_tpu_torch.core.params import make_serving_params
 from mic_tpu_torch.models.captioner import Captioner, init_params
@@ -91,6 +92,7 @@ from mic_tpu_torch.ops.decode_attention import (
     walk_partition,
 )
 from mic_tpu_torch.ops import flash_attention as flash
+from mic_tpu_torch.ops import flash_ce as fce
 from mic_tpu_torch.ops import small_attention as small
 from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
@@ -688,11 +690,25 @@ def test_flash_ce_save_forward_kernel_matches_plain(cuda, n, v, d):
     torch.testing.assert_close(out[4], ref[4], rtol=0, atol=1e-5)
 
 
+# (N, V, D) of the backward contractions: N around their 64-row steps and
+# the save blocks' 128 rows (1, 63, 65, 129, with the earlier 64 and 70),
+# D under, at and past a warpgroup's 256-wide chunk and at the split
+# route's widest, 1024 (64, 192, 128, 1024; 1280 for the save route, whose
+# D has no bound); V ragged for the 64-row sweep steps, with v_main (the
+# save route's span) 512 (V = 997), 4096 (4099), 128 (200), 256 (300) and
+# 0 (97: all tail).
+_CE_BWD_SHAPES = [(70, 997, 128), (64, 4099, 128), (70, 97, 128),
+                  (1, 997, 64), (1, 200, 192), (1, 4099, 1024),
+                  (63, 300, 64), (63, 997, 192), (63, 200, 1024),
+                  (65, 4099, 64), (65, 97, 192), (65, 997, 1024),
+                  (129, 200, 64), (129, 4099, 192), (129, 300, 1024)]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,v", [(70, 997), (64, 4099), (70, 97)])
+@pytest.mark.parametrize("n,v,d", _CE_BWD_SHAPES + [(65, 997, 1280)])
 @pytest.mark.parametrize("route", ["split", "save"])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
-def test_flash_ce_backward_kernels_match_plain(cuda, smoothing, route, n, v):
+def test_flash_ce_backward_kernels_match_plain(cuda, smoothing, route, n, v, d):
     """The split and save contractions against their plain versions on the
     same inputs (the split route's is the dl route's; the save route reads
     the plain version's saved logits).  demb entry by entry within 2**-7 of
@@ -700,15 +716,28 @@ def test_flash_ce_backward_kernels_match_plain(cuda, smoothing, route, n, v):
     sums in another order, at most one bf16 ulp apart, so a vocab row that
     holds no label is held to its own (small) size.  dbias within 1e-4 of
     its largest entry, dh within one bf16 ulp of its largest; a second
-    launch bit-equal."""
-    h, w, b, y = _ce_inputs(cuda, n, 128, v, 2 * n + v)
+    launch bit-equal.  Labels sit in the last, partial vocab tile and on
+    the save span's last column; every fifth row has rowscale 0.  Each
+    contraction, launched alone into the front of a buffer of sentinels,
+    writes its output and nothing past it.  The split route's D stops at
+    _BWD_MAX_D (1024) and raises past it."""
+    h, w, b, y = _ce_inputs(cuda, n, d, v, 2 * n + v + d)
+    v_main = main_columns(v)
+    if n > 3 and v_main:
+        y[3] = v_main - 1
     lse, _, _, lg, tail = flash_ce_forward_plain(h, w, b, y, save=True)
     rs = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(v), device=cuda)
     rs[::5] = 0.0
     if route == "split":
         fn, plain, extra = flash_ce_backward, flash_ce_backward_dl_plain, ()
+        logits, cols = None, v
     else:
-        fn, plain, extra = flash_ce_backward_save, flash_ce_backward_save_plain, (lg, tail)
+        fn, plain, extra, logits, cols = (flash_ce_backward_save, flash_ce_backward_save_plain,
+                                          (lg, tail), lg, v_main)
+    if route == "split" and d > fce._BWD_MAX_D:
+        with pytest.raises(ValueError):
+            fn(h, w, b, y, lse, rs, smoothing, None, *extra)
+        return
     launches = fn.launches
     out = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
     again = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
@@ -716,14 +745,51 @@ def test_flash_ce_backward_kernels_match_plain(cuda, smoothing, route, n, v):
     torch.cuda.synchronize()
     # two calls, each one launch of the pair; none where the save route's
     # logits are all tail
-    assert fn.launches == launches + (0 if route == "save" and main_columns(v) == 0 else 2)
+    assert fn.launches == launches + (0 if cols == 0 else 2)
     assert all(torch.equal(a, c) for a, c in zip(out, again))
-    assert out[0].dtype == torch.bfloat16 and out[1].shape == (v, 128) and out[2].shape == (v,)
+    assert out[0].dtype == torch.bfloat16 and out[1].shape == (v, d) and out[2].shape == (v,)
     dl = flash_ce_dl_plain(h, w, b, y, lse, rs, smoothing)[0].float()
     assert bool(((out[1] - ref[1]).abs() <= 2**-7 * (dl.abs().T @ h.float().abs())).all())
     for got, want, frac in ((out[0], ref[0], 2**-7), (out[2], ref[2], 1e-4)):
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=frac * want.float().abs().max().item())
+    if cols == 0:
+        return
+    ops = fce._backward_operands("test", h, w, b, y, lse, rs, None, logits)
+    sentinel = 7.0
+    bufs = [torch.full((rows * width + 64,), sentinel, device=cuda)
+            for rows, width in ((cols, d), (cols, 1), (n, d))]
+    demb, dbias, dh = (buf[:rows * width].view(rows, width) if width > 1 else buf[:rows]
+                       for buf, (rows, width) in zip(bufs, ((cols, d), (cols, 1), (n, d))))
+    fce._contract("grad_w", h, *ops, smoothing, logits, demb, dbias)
+    fce._contract("grad_h", h, *ops, smoothing, logits, dh)
+    torch.cuda.synchronize()
+    assert all(bool(buf[-64:].eq(sentinel).all()) for buf in bufs)
+    assert torch.equal(demb, out[1][:cols]) and torch.equal(dbias, out[2][:cols])
+    if route == "split":
+        assert torch.equal(dh.to(h.dtype), out[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("trans", [0, 1])
+def test_contraction_operand_forms_match_mm(cuda, trans):
+    """The contractions' operand forms alone (csrc/head_wgmma.cuh): a
+    register A fragment loaded by ldmatrix from a 64 x 64 box in the
+    128-byte swizzle, K-major or (trans) stored transposed, times a
+    row-major (64, 256) B read MN-major through desc_sw128_mn (boxes 8 KB
+    apart, k atoms 1 KB apart), on one m64n256k16 chain: the f32 products
+    of bf16 values summed in another order, within 1e-5 of torch.mm."""
+    g = torch.Generator(device=cuda).manual_seed(40 + trans)
+    a = torch.randn((64, 64), generator=g, device=cuda).bfloat16()
+    b = torch.randn((64, 256), generator=g, device=cuda).bfloat16()
+    stored = a.T.contiguous() if trans else a
+    out = torch.full((64, 256), float("nan"), device=cuda)
+    err = _build.lib().mic_flash_ce_operand_probe(
+        stored.data_ptr(), b.data_ptr(), out.data_ptr(), trans,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "mic_flash_ce_operand_probe")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, torch.mm(a.float(), b.float()), rtol=0, atol=1e-5)
 
 
 @pytest.mark.requires_cuda

@@ -32,9 +32,15 @@ from mic_tpu.ops.flash_ce import flash_ce_forward as jax_forward
 from mic_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
 from mic_tpu_torch.ops import fused_ce
 from mic_tpu_torch.ops.flash_ce import (
+    _BOX,
+    _BWD_MAX_D,
+    _CHUNK,
     _ROW_TILE,
+    _SAVE_ROWS,
     _VOCAB_TILE,
+    _check_backward_args,
     _check_kernel_args,
+    _contraction_grid,
     _runs,
     flash_ce_backward,
     flash_ce_backward_dl,
@@ -355,3 +361,93 @@ def test_kernel_arguments_raise_as_before(case):
         w = w[:, :64]
     with pytest.raises(want):
         _check_kernel_args("flash_ce_forward", h, w, bias)
+
+
+def _contraction_blocks(part, saved, n, vext, d, sms):
+    """What each block of a contraction kernel owns, as csrc/flash_ce.cu's
+    save_kernel and split_kernel compute it from (blockIdx, gridDim): per
+    consumer warpgroup that writes, its output rows, D chunk and sweep
+    steps (warpgroups whose rows lie wholly past the end left out)."""
+    dblocks, tiles, parts = _contraction_grid(part, saved, n, vext, d, sms)
+    chunks = -(-d // _CHUNK)
+    m, k = (n, vext) if part == "grad_h" else (vext, n)
+    steps = -(-k // _BOX)
+    for z in range(parts):
+        sweep = range(z * steps // parts, (z + 1) * steps // parts)
+        for y in range(tiles):
+            for x in range(dblocks):
+                if saved:  # the second warpgroup's rows may lie past the end
+                    for wg in (0, 1):
+                        r0 = y * _SAVE_ROWS + 64 * wg
+                        rows = range(r0, min(r0 + 64, m))
+                        if len(rows):
+                            yield rows, x, sweep
+                else:
+                    c1 = min(2 * x + 1, chunks - 1)
+                    rows = range(y * _BOX, min(y * _BOX + _BOX, m))
+                    yield rows, 2 * x, sweep
+                    if c1 != 2 * x:
+                        yield rows, c1, sweep
+
+
+@pytest.mark.parametrize("d", [64, 192, 1024])
+@pytest.mark.parametrize("n", [1, 64, 129, 4096])
+@pytest.mark.parametrize("saved", [False, True], ids=["split", "save"])
+@pytest.mark.parametrize("part", ["grad_h", "grad_w"])
+def test_contraction_grid_covers_every_output_tile_once(part, saved, n, d):
+    """The backward contractions' grid as _contraction_grid sizes it on an
+    H100's 132 SMs, at the flagship vocab (vext = V for split, v_main for
+    save): every (output row, D chunk, sweep step) is taken exactly once
+    over the blocks' writing warpgroups, so each output entry is one sum
+    (over parts, summed in part order); grad-h fills the SMs its row tiles
+    leave (one wave wherever they leave SMs over) and grad-W has one part."""
+    v = 250054
+    vext = main_columns(v) if saved else v
+    m, k = (n, vext) if part == "grad_h" else (vext, n)
+    chunks, steps = -(-d // _CHUNK), -(-k // _BOX)
+    seen = np.zeros((m, chunks, steps), np.int32)
+    for rows, chunk, sweep in _contraction_blocks(part, saved, n, vext, d, H100_SMS):
+        assert len(rows) and len(sweep)
+        seen[rows.start:rows.stop, chunk, sweep.start:sweep.stop] += 1
+    assert bool((seen == 1).all())
+    dblocks, tiles, parts = _contraction_grid(part, saved, n, vext, d, H100_SMS)
+    if part == "grad_w":
+        assert parts == 1
+    else:
+        assert 1 <= parts <= steps and dblocks * tiles * parts <= max(H100_SMS, dblocks * tiles)
+
+
+def test_contraction_grid_at_the_flagship_step():
+    """At N = 4096, D = 1024: grad-h is 128 blocks either way (split: 64
+    row tiles x 2 D blocks; save: 32 x 4), one part; grad-W is a block per
+    64 vocab rows and D block (split) or 128 and D chunk (save)."""
+    v = 250054
+    v_main = main_columns(v)
+    assert _contraction_grid("grad_h", False, 4096, v, 1024, H100_SMS) == (2, 64, 1)
+    assert _contraction_grid("grad_h", True, 4096, v_main, 1024, H100_SMS) == (4, 32, 1)
+    assert _contraction_grid("grad_w", False, 4096, v, 1024, H100_SMS) == (2, 3908, 1)
+    assert _contraction_grid("grad_w", True, 4096, v_main, 1024, H100_SMS) == (4, 1952, 1)
+    assert _contraction_grid("grad_h", False, 64, v, 1024, H100_SMS) == (2, 1, 66)
+
+
+@pytest.mark.parametrize("case", ["float32", "d96", "split_d1088", "save_d1088"])
+def test_backward_arguments_raise(case):
+    """The backward kernels take bfloat16 only (float32 hidden states raise
+    NotImplementedError) and D a multiple of 64 (ValueError); the split
+    contractions hold 64 rows over the whole D and stop at _BWD_MAX_D
+    (ValueError past it), the save contractions take any such D."""
+    n, v = 8, 997
+    d = 1088 if case.endswith("1088") else 96 if case == "d96" else 128
+    h = torch.zeros((n, d), dtype=torch.bfloat16)
+    w = torch.zeros((v, d), dtype=torch.bfloat16)
+    bias = torch.zeros((v,), dtype=torch.float32)
+    assert _BWD_MAX_D == 1024
+    if case == "save_d1088":
+        _check_backward_args("flash_ce_backward_save", h, w, bias, split=False)
+        return
+    want = ValueError
+    if case == "float32":
+        h, w, want = h.float(), w.float(), NotImplementedError
+    for split in ((True,) if case == "split_d1088" else (True, False)):
+        with pytest.raises(want):
+            _check_backward_args("flash_ce_backward", h, w, bias, split=split)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's decode attention (row 18), tied-head kernels (rows 4, 5
-and 6) and flash-CE walk (rows 7 and 8, and row 9's forward) on one CUDA
-card, beside scaled_dot_product_attention for row 18.
+and 6) and flash-CE kernels (rows 7 and 8, row 9's forward, and the save
+and split backwards of rows 9 and 10) on one CUDA card, beside
+scaled_dot_product_attention for row 18.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
@@ -14,7 +15,9 @@ heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select; the
 flash-CE forward, its saving form and the dl kernel at the flagship train
 step's N=4096 rows, D=1024, V=250054 (chip_smoke's CE table and rows),
 with cuBLAS's bare f32-output h @ W^T beside them for scale (the product
-alone, not the same function).  Each time
+alone, not the same function), then the split route's backward, the save
+route's (from the save forward's logits) and each of their four
+contractions alone (``flash_ce_contraction``).  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -83,21 +86,32 @@ def head_cases(dev):
 
 
 def ce_cases(dev):
-    from mic_tpu_torch.ops.flash_ce import flash_ce_dl, flash_ce_forward, flash_ce_forward_plain
+    from mic_tpu_torch.ops import flash_ce as fce
 
     n = 4096
     weight, bias = chip_smoke._ce_table(dev)
     hidden, labels = chip_smoke._ce_rows(dev, n, 11)
-    lse = flash_ce_forward_plain(hidden, weight, bias, labels)[0]
+    lse = fce.flash_ce_forward_plain(hidden, weight, bias, labels)[0]
     rs = torch.full((n,), 1.0 / n, device=dev)
-    yield (f"flash_ce_forward N={n}", lambda: flash_ce_forward(hidden, weight, bias, labels),
+    yield (f"flash_ce_forward N={n}", lambda: fce.flash_ce_forward(hidden, weight, bias, labels),
            None)
     yield (f"flash_ce_forward save N={n}",
-           lambda: flash_ce_forward(hidden, weight, bias, labels, save=True), None)
+           lambda: fce.flash_ce_forward(hidden, weight, bias, labels, save=True), None)
     yield (f"flash_ce_dl N={n}",
-           lambda: flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1), None)
+           lambda: fce.flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1), None)
     yield (f"cuBLAS h @ W^T f32 out N={n} (for scale)",
            lambda: torch.mm(hidden, weight.T, out_dtype=torch.float32), None)
+    # rows 9 and 10: the save and split backwards and each contraction alone
+    lg, tail = fce.flash_ce_forward(hidden, weight, bias, labels, save=True)[3:]
+    args = (hidden, weight, bias, labels, lse, rs, 0.1, None)
+    yield (f"flash_ce_backward split N={n}", lambda: fce.flash_ce_backward(*args), None)
+    yield (f"flash_ce_backward_save N={n}",
+           lambda: fce.flash_ce_backward_save(*args, lg, tail), None)
+    for route, logits in (("split", None), ("save", lg)):
+        for part in ("grad_w", "grad_h"):
+            yield (f"flash_ce_contraction {route} {part} N={n}",
+                   lambda p=part, lo=logits: fce.flash_ce_contraction(p, *args, logits_main=lo),
+                   None)
 
 
 def generate_case(dev, batch: int = 256):

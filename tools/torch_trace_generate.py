@@ -6,7 +6,7 @@ Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
     python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8] [--out FILE]
-    python3 tools/torch_trace_generate.py --train [--out FILE]
+    python3 tools/torch_trace_generate.py --train [--routes dl,split,save] [--out FILE]
 
 For each path (bf16: the default knobs, the bucket head; int8: int8
 weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``), on the
@@ -22,11 +22,12 @@ sum of device time, grouped by name.  One JSON line per path goes to stdout
 and, with --out, to FILE.
 
 With --train: the port's Trainer at flagship width with the TrainConfig
-defaults (batch 64 x 64 tokens, the fused loss on the "dl" route, remat
-"masks"; warmup_steps=2) on chip_smoke's seeded batches takes two untraced
-steps, then one step under torch.profiler, the window being the host clock
-from the step's call to its loss read; the same summary, launches counted
-for the one step.
+defaults (batch 64 x 64 tokens, remat "masks"; warmup_steps=2) with the
+fused loss on each route of --routes (TrainConfig.flash_ce; default "dl",
+the CUDA default) on chip_smoke's seeded batches takes two untraced steps,
+then one step under torch.profiler, the window being the host clock from
+the step's call to its loss read; the same summary, launches counted for
+the one step, one line a route.
 """
 
 from __future__ import annotations
@@ -121,14 +122,14 @@ def trace_path(model, params, px, kw, label: str, batch: int) -> dict:
     return dict(summarize(prof, window_ms, label, out.steps), batch=batch)
 
 
-def trace_train(dev) -> dict:
+def trace_train(dev, route: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
     from mic_tpu_torch.train.trainer import Trainer
 
     config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
-    tc = TrainConfig(warmup_steps=2)
+    tc = TrainConfig(warmup_steps=2, flash_ce=route)
     host = chip_smoke._train_batches(config, 3, tc.per_device_batch_size,
                                      DataConfig().max_seq_length, 12)
     trainer = Trainer(config, DataConfig(), tc, device=dev)
@@ -154,6 +155,8 @@ def main() -> None:
     parser.add_argument("--paths", default="bf16,int8")
     parser.add_argument("--out", default=None)
     parser.add_argument("--train", action="store_true")
+    parser.add_argument("--routes", default="dl",
+                        help="with --train: flash_ce routes, one trace each (dl,split,save,fwd)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_trace_generate.py needs a CUDA device")
@@ -161,7 +164,9 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.train:
-        write_rows([dict(trace_train(dev), card=card)], args.out)
+        for route in args.routes.split(","):
+            write_rows([dict(trace_train(dev, route), card=card)], args.out)
+            torch.cuda.empty_cache()
         return
     _, params, model, kw, pixels = chip_smoke.flagship(dev)
     px = pixels(args.batch, 1)
