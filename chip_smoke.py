@@ -77,20 +77,24 @@ Phases, each of which raises on failure (none catches its own):
      sampling with pinned EOS positions (twice from one seed); B=1 and
      B=256 greedy smoke figures;
  22. greedy at a small width on the card against the CPU in both knob sets;
- 23. the blocked lazy-attention kernel (MIC_TPU_FUSED_LAZY_ATTN=1) against
-     its plain version at the flagship decode shape, bf16 and the int8
-     cache with per-head scales, index in {0, 1, 17, 63}: the caches it
-     reads byte-identical before and after;
+ 23. the blocked lazy-attention kernel (MIC_TPU_FUSED_LAZY_ATTN=1, a split
+     row walk) against its plain version at the flagship decode shape, bf16
+     and the int8 cache with per-head scales, index in {0, 1, 17, 63}, and
+     with 8 beams at index 17 and 63: reruns bit-equal, the caches it reads
+     byte-identical before and after; and bit-equal to plain where every
+     sum is exact (q = 0, integer V);
  24. the cross-attention kernel against its plain version at B=256, K=4,
      S=50 (and a ragged S=37);
  25. the LN -> GEMM kernel against its plain version at N in {1024, 32},
      D=1024, O=3072, reruns bit-equal;
- 26. the fused MLP kernel against its plain version at N in {1024, 32},
-     D=1024, F=4096, reruns bit-equal (and at N=32 with every activation);
+ 26. the fused MLP kernel (wgmma fed by TMA) against its plain version at
+     N in {1024, 70, 8, 32}, D=1024, F=4096, reruns bit-equal, no row past
+     N written (N=70, 8, 32), and at N=32 with every activation;
  27. the four kernels' times (CUDA-graph replays, and per call with the
-     wrapper) beside their plain versions', their bounds and a library
-     yardstick (SDPA with the beams on the query axis; F.layer_norm +
-     F.linear; F.linear -> F.gelu -> F.linear);
+     wrapper) beside their plain versions', a library yardstick (SDPA with
+     the beams on the query axis; F.layer_norm + F.linear; F.linear ->
+     F.gelu -> F.linear), and the blocked attention's and the MLP's shares
+     of their bounds;
  28. the flagship beam-4 path under MIC_TPU_FUSED_LAZY_ATTN=1 and
      MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv, 8 images, with
      the bf16 and the int8 KV cache: each of the four kernels 12 times a
@@ -1828,22 +1832,26 @@ FUSED_STEP = dict(MIC_TPU_FUSED_LAZY_ATTN="1",
 def check_blocked_attention(dev):
     """Phase 23: the blocked lazy-attention kernel against its plain version
     at the flagship decode shape, on the bf16 cache and on the int8 cache
-    with a scale per (row, position, head), index in {0, 1, 17, 63}: outputs
+    with a scale per (row, position, head), index in {0, 1, 17, 63}, and
+    with eight beams (B=128, N=1024 rows) at index 17 and 63: outputs
     within 2e-2 (bf16 weights and outputs after f32 sums in another order),
-    the caches byte-identical before and after the launch."""
+    a rerun bit-equal, the caches byte-identical before and after the
+    launch; then on a mask of random bits with q = 0 and integer V values
+    (every admitted weight 1 / (live rows + 1), the same f32 quotient in
+    both versions, and every sum exact) bit-equal to the plain version."""
     from mic_tpu_torch.ops.lazy_attention import (
         build_ancestry_mask, fused_lazy_attention, fused_lazy_attention_plain,
     )
     from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
-    b, beams, t, heads, dh = FLAG_B, FLAG_K, FLAG_T, FLAG_H, FLAG_DH
+    t, heads, dh = FLAG_T, FLAG_H, FLAG_DH
     hd = heads * dh
     g = torch.Generator(device=dev).manual_seed(31)
 
     def rand(*shape, scale=0.5):
         return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
 
-    def cache(q8):
+    def cache(b, beams, q8):
         if not q8:
             return rand(b * beams, t, hd)
         values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, dh))
@@ -1851,27 +1859,56 @@ def check_blocked_attention(dev):
 
     worst = 0.0
     inputs = {}
+    cases = [(FLAG_B, FLAG_K, index) for index in (0, 1, 17, 63)]
+    cases += [(FLAG_B // 2, 8, index) for index in (17, 63)]
     for q8 in (False, True):
-        for index in (0, 1, 17, 63):
+        for b, beams, index in cases:
             q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
-            ck, cv = cache(q8), cache(q8)
+            ck, cv = cache(b, beams, q8), cache(b, beams, q8)
             anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev,
                                 dtype=torch.int32)
             amask = build_ancestry_mask(anc, index)
             planes = [a for c in (ck, cv) for a in (c.values() if q8 else (c,))]
             before = [a.clone() for a in planes]
             out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+            again = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
             ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             worst = max(worst, err)
             torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            require(torch.equal(out, again), f"fused_lazy_attention K={beams} index={index}: a "
+                    "rerun differs")
             require(all(torch.equal(a, o) for a, o in zip(planes, before)),
                     "fused_lazy_attention wrote a cache it only reads")
-            print(f"fused_lazy_attention {'int8 per-head' if q8 else 'bf16'} index={index}: "
-                  f"max_abs_err={err:.6g}, caches byte-identical before and after", flush=True)
+            print(f"fused_lazy_attention {'int8 per-head' if q8 else 'bf16'} B={b} K={beams} "
+                  f"index={index}: max_abs_err={err:.6g}, rerun bit-equal, caches byte-identical "
+                  "before and after", flush=True)
             del before
-        inputs[q8] = (q, ck, cv, ks, vs, amask)
+            if beams == FLAG_K and index == 63:
+                inputs[q8] = (q, ck, cv, ks, vs, amask)
+        # q = 0 and integer V: every sum exact, so bit-equal to plain
+        b, beams, index = FLAG_B, FLAG_K, 63
+        q = torch.zeros((b, beams, hd), dtype=torch.bfloat16, device=dev)
+        ks = rand(b, beams, hd)
+        vs = torch.randint(-3, 4, (b, beams, hd), generator=g, device=dev).bfloat16()
+        values = torch.randint(-3, 4, (b * beams, t, hd), generator=g, device=dev)
+        ck = cache(b, beams, q8)
+        cv = ({"q": values.to(torch.int8),
+               "s": torch.randint(1, 3, (b * beams, t, heads), generator=g, device=dev).float()}
+              if q8 else values.bfloat16())
+        # random bits (several source rows live for one beam at one
+        # position): every beam a different count of live rows
+        live = (torch.arange(t, device=dev) < index).repeat(beams)[None, :, None]
+        amask = (torch.randint(0, 2, (b, beams * t, beams), generator=g, device=dev)
+                 * live).to(torch.int8)
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        require(torch.equal(out, ref), f"fused_lazy_attention {'int8' if q8 else 'bf16'}: exact "
+                "sums not bit-equal to plain")
+        print(f"fused_lazy_attention {'int8 per-head' if q8 else 'bf16'} index=63, random-bit "
+              "mask, q = 0 and integer V (exact sums): bit-equal to plain", flush=True)
     return worst, inputs
 
 
@@ -1944,9 +1981,12 @@ def check_ln_gemm(dev):
 
 def check_fused_mlp(dev):
     """Phase 26: the fused MLP kernel against its plain version at N in
-    {1024, 32}, D=1024, F=4096: outputs within 1e-2 of the largest (fc1's
-    bf16 intermediate can round the other way before the 4096-term fc2
-    sum); a rerun bit-equal; at N=32 the other activations too."""
+    {1024, 70, 8, 32}, D=1024, F=4096: outputs within 1e-2 of the largest
+    (fc1's bf16 intermediate can round the other way before the 4096-term
+    fc2 sum); a rerun bit-equal; where N is not a multiple of the 128-row
+    tile the output also written into the first rows of a larger buffer
+    whose rows past N keep their sentinel; at N=32 the other activations
+    too."""
     from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 
     d, f = HEAD_D, 4 * HEAD_D
@@ -1958,7 +1998,7 @@ def check_fused_mlp(dev):
     w1, b1, w2, b2 = rand(d, f, scale=0.03), rand(f, scale=0.1), rand(f, d, scale=0.02), \
         rand(d, scale=0.1)
     worst = 0.0
-    for n in (1024, 32):
+    for n in (1024, 70, 8, 32):
         x = rand(n, d, scale=1.0)
         out = fused_mlp(x, w1, b1, w2, b2)
         again = fused_mlp(x, w1, b1, w2, b2)
@@ -1971,6 +2011,14 @@ def check_fused_mlp(dev):
         worst = max(worst, err)
         print(f"fused_mlp N={n} D={d} F={f}: max_abs_err={err:.6g} (largest |out| {top:.4g}), "
               "rerun bit-equal", flush=True)
+        if n % 128:
+            buf = torch.full((n + 128, d), 7.0, dtype=torch.bfloat16, device=dev)
+            fused_mlp(x, w1, b1, w2, b2, out=buf[:n])
+            torch.cuda.synchronize()
+            require(torch.equal(buf[:n], out) and bool((buf[n:] == 7.0).all()),
+                    f"fused_mlp N={n}: a row past N written, or the rows not the kernel's")
+            print(f"fused_mlp N={n}: into the first rows of a ({n + 128}, {d}) buffer, the rows "
+                  "past N untouched", flush=True)
     for act in ("gelu_tanh", "quick_gelu", "relu", "silu"):  # the epilogue's other activations
         out = fused_mlp(x, w1, b1, w2, b2, act)
         ref = fused_mlp_plain(x, w1, b1, w2, b2, act)
@@ -1987,7 +2035,9 @@ def time_fused_step_kernels(dev, attn_inputs, cross_inputs, ln_inputs, mlp_input
     """Phase 27: each kernel of the fused beam step in CUDA-graph replays
     (``graph_ms``) and per call with its wrapper (``median_ms``), beside its
     plain version's replays and a library yardstick where one PyTorch call
-    computes the same function."""
+    computes the same function (or, for LN -> GEMM and the MLP, the chain
+    of calls), and the blocked attention's and the MLP's replays as a share
+    of their bounds."""
     import torch.nn.functional as F
 
     from mic_tpu_torch.ops.cross_attention import (
@@ -2041,13 +2091,25 @@ def time_fused_step_kernels(dev, attn_inputs, cross_inputs, ln_inputs, mlp_input
               ("mlp", 1024): "fused_mlp N=1024 D=1024 F=4096", ("mlp", 32): "fused_mlp N=32"}
     library = {"cross": "scaled_dot_product_attention", "ln": "F.layer_norm + F.linear",
                "mlp": "F.linear -> F.gelu -> F.linear"}
+    # the (image, source row, position) rows some beam admits in the timed masks
+    live_rows = {q8: int((inputs[-1] != 0).any(-1).sum()) for q8, inputs in attn_inputs.items()}
+    bounds = {("attn", False): blocked_attention_bound(live_rows[False], FLAG_B, beams, 63,
+                                                       HEAD_D, heads, 2),
+              ("attn", True): blocked_attention_bound(live_rows[True], FLAG_B, beams, 63, HEAD_D,
+                                                      heads, 1, scale_bytes=4),
+              ("mlp", 1024): mlp_bound(1024, HEAD_D, 4 * HEAD_D),
+              ("mlp", 32): mlp_bound(32, HEAD_D, 4 * HEAD_D)}
     for key, label in labels.items():
         kernel, plain, lib_ms, per_call = t[key]
         name = key[0] if isinstance(key, tuple) else key
         lib_text = f", {library[name]} {lib_ms:.4f} ms" if lib_ms is not None else ""
+        share = ""
+        if key in bounds:
+            ms, by = bounds[key]
+            share = f"; {100 * ms / kernel:.1f}% of its bound {ms:.4f} ms ({by})"
         print(f"{label} time: kernel {kernel:.4f} ms, plain {plain:.4f} ms{lib_text} (graph "
-              f"replays); kernel per call with its wrapper {per_call:.4f} ms", flush=True)
-    return t
+              f"replays); kernel per call with its wrapper {per_call:.4f} ms{share}", flush=True)
+    return t, live_rows
 
 
 def run_fused_step_path(dev, flag):
@@ -3004,10 +3066,8 @@ def main() -> None:
     cross_err, cross_inputs = check_cross_attention(dev)
     ln_err, ln_inputs = check_ln_gemm(dev)
     mlp_err, mlp_inputs = check_fused_mlp(dev)
-    step_ms = time_fused_step_kernels(dev, blocked_inputs, cross_inputs, ln_inputs, mlp_inputs)
-    # the (image, source row, position) rows some beam admits in the timed masks
-    live_rows = {q8: int((inputs[-1] != 0).any(-1).sum())
-                 for q8, inputs in blocked_inputs.items()}
+    step_ms, live_rows = time_fused_step_kernels(dev, blocked_inputs, cross_inputs, ln_inputs,
+                                                 mlp_inputs)
     print(f"fused_lazy_attention timed inputs: {live_rows[False]} (bf16) and {live_rows[True]} "
           f"(int8) of {FLAG_B * FLAG_K * 63} cached rows admitted by some beam", flush=True)
     del blocked_inputs, cross_inputs, ln_inputs, mlp_inputs

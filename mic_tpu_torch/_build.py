@@ -71,11 +71,11 @@ _SIGNATURES = {
     "mic_topk_lse_bf16": [_P] * 7 + [_I] * 4 + [_P],
     "mic_topk_lse_f32": [_P] * 7 + [_I] * 4 + [_P],
     # q, cache_k, cache_v, k_step, v_step, amask, out,
-    # batch, beams, t_max, positions, heads, head_dim, stream
-    "mic_lazy_attention_blocked_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    # batch, beams, t_max, positions, heads, head_dim, compact, stage, shared, stream
+    "mic_lazy_attention_blocked_bf16": [_P] * 7 + [_I] * 9 + [_P],
     # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, amask, out,
-    # batch, beams, t_max, positions, heads, head_dim, stream
-    "mic_lazy_attention_blocked_q8": [_P] * 9 + [_I] * 6 + [_P],
+    # batch, beams, t_max, positions, heads, head_dim, compact, stage, shared, stream
+    "mic_lazy_attention_blocked_q8": [_P] * 9 + [_I] * 9 + [_P],
     # q, enc_k, enc_v, out, batch, beams, enc_len, heads, head_dim, stream
     "mic_cross_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],
     # q, enc_k, k_scale, enc_v, v_scale, out, batch, beams, enc_len, heads, head_dim, stream
@@ -88,8 +88,8 @@ _SIGNATURES = {
     "mic_int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # x, scale, shift, w, bias, out, n, d, o, eps, stream
     "mic_ln_gemm_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
-    # x, w1, b1, w2, b2, h, out, n, d, f, act, stream
-    "mic_fused_mlp_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    # x, w1, b1, w2, b2, h, part, out, n, d, f, act, splits1, splits2, stream
+    "mic_fused_mlp_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # q, k, v, bias (or NULL), out, batch, t, heads, head_dim, stream
     "mic_small_attention_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "mic_small_attention_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],

@@ -1,28 +1,27 @@
-// Shared math of the blocked lazy self-attention (lazy_attention.cu) and
-// the cross-attention (cross_attention.cu): the counterpart of
-// mic_tpu/ops/lazy_attention.py::_attend_tiles, which both TPU kernels call.
+// The cross-attention's row walk (cross_attention.cu): the counterpart of
+// mic_tpu/ops/lazy_attention.py::_attend_tiles as the cross-attention TPU
+// kernels call it, with every row live and no step rows.
 //
 // For image b, head h and query beam k, over the rows of one image's
 // (sources, t_max, H*Dh) cache (rows (j, t) with t < positions):
 //
 //   s[k, (j,t)] = (q[b,k,h] . K[j,t,h]) * k_scale[j,t,h]     (f32; scale 1 in bf16)
-//   dead rows (mask 0) score finfo(float32).min
-//   + optionally beam k's own step row: s_step = q . k_step[b,k,h], live for k only
-//   w = softmax(s) in f32, times v_scale[j,t,h] for cached rows (int8), rounded to bf16
+//   w = softmax(s) in f32, times v_scale[j,t,h] (int8), rounded to bf16
 //   out[b,k,h] = bf16( sum w * V )                             (f32 sums)
 //
 // which is _attend_tiles' arithmetic: f32 scores, scales on the scores and
 // the weights, weights rounded to bf16 before the V product, one bf16
 // rounding of the output.  The TPU kernel's block-diagonal query matrix and
-// row fold existed for the MXU and have no counterpart here.
+// row fold existed for the MXU and have no counterpart here.  (The blocked
+// lazy self-attention, with its mask and step rows, has its own split walk
+// in lazy_attention.cu.)
 //
 // Bound: bytes of the cache rows read.  Design: one block of four warps per
 // (head, image).  Pass 1 gives each thread whole rows (a 128-byte bf16 or
-// 64-byte int8 head row, read once and scored against every beam the mask
-// admits; rows no beam admits are not read).  Then warp k runs beam k's
-// softmax over the scores in shared memory and walks its live rows for the
-// V product, one coalesced head row a step, lane l owning dims 2l, 2l+1.
-// Nothing is written but the output; nothing is atomic.
+// 64-byte int8 head row, read once and scored against every beam).  Then
+// warp k runs beam k's softmax over the scores in shared memory and walks
+// the rows for the V product, one coalesced head row a step, lane l owning
+// dims 2l, 2l+1.  Nothing is written but the output; nothing is atomic.
 
 #pragma once
 
@@ -44,15 +43,12 @@ constexpr float kMaskValue = -3.4028234663852886e38f;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 struct Args {
-  const __nv_bfloat16* q;       // (B, K, H*Dh), pre-scaled by Dh**-0.5
-  const void* cache_k;          // (B*sources, t_max, H*Dh) bf16 or int8
+  const __nv_bfloat16* q;  // (B, K, H*Dh), pre-scaled by Dh**-0.5
+  const void* cache_k;     // (B*sources, t_max, H*Dh) bf16 or int8
   const void* cache_v;
-  const float* k_scale;         // (B*sources, t_max, H) f32, int8 caches only
+  const float* k_scale;    // (B*sources, t_max, H) f32, int8 caches only
   const float* v_scale;
-  const __nv_bfloat16* k_step;  // (B, K, H*Dh), or null: no step rows
-  const __nv_bfloat16* v_step;
-  const int8_t* amask;          // (B, sources*t_max, K), or null: every row live
-  __nv_bfloat16* out;           // (B, K, H*Dh)
+  __nv_bfloat16* out;      // (B, K, H*Dh)
   int beams, sources, t_max, positions, heads;
 };
 
@@ -101,7 +97,7 @@ __device__ __forceinline__ float2 load_pair(const int8_t* p) {
   return make_float2(static_cast<float>(v.x), static_cast<float>(v.y));
 }
 
-template <typename T, bool kMask, bool kStep>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) attend_rows_kernel(const Args a) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
   extern __shared__ float smem[];
@@ -125,43 +121,36 @@ __global__ void __launch_bounds__(kThreads) attend_rows_kernel(const Args a) {
   }
   __syncthreads();
 
-  // pass 1: a thread per row, scored against every beam the mask admits
+  // pass 1: a thread per row, scored against every beam
   for (int r = tid; r < rows; r += kThreads) {
     const int j = r / a.positions;
     const int t = r - j * a.positions;
     const size_t g = (static_cast<size_t>(b) * a.sources + j) * a.t_max + t;
-    unsigned live = (1u << beams) - 1u;
-    if (kMask) {
-      live = 0u;
-      for (int k = 0; k < beams; ++k) live |= (a.amask[g * beams + k] != 0 ? 1u : 0u) << k;
-    }
     float acc[kMaxBeams];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-    if (live) {
-      const T* row = cache_k + g * hd + h * kHeadDim;
+    const T* row = cache_k + g * hd + h * kHeadDim;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; d += 8) {
-        float f[8];
-        load8(row + d, f);
+    for (int d = 0; d < kHeadDim; d += 8) {
+      float f[8];
+      load8(row + d, f);
 #pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (k < beams) {
-            const float* qk = qf + k * kHeadDim + d;
+      for (int k = 0; k < kMaxBeams; ++k) {
+        if (k < beams) {
+          const float* qk = qf + k * kHeadDim + d;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) acc[k] = fmaf(qk[i], f[i], acc[k]);
-          }
+          for (int i = 0; i < 8; ++i) acc[k] = fmaf(qk[i], f[i], acc[k]);
         }
       }
-      if (kQ8) {
-        const float sc = a.k_scale[g * a.heads + h];
+    }
+    if (kQ8) {
+      const float sc = a.k_scale[g * a.heads + h];
 #pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) acc[k] = __fmul_rn(acc[k], sc);
-      }
+      for (int k = 0; k < kMaxBeams; ++k) acc[k] = __fmul_rn(acc[k], sc);
     }
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) {
-      if (k < beams) p[k * rows + r] = (live >> k) & 1u ? acc[k] : kMaskValue;
+      if (k < beams) p[k * rows + r] = acc[k];
     }
   }
   __syncthreads();
@@ -173,20 +162,13 @@ __global__ void __launch_bounds__(kThreads) attend_rows_kernel(const Args a) {
     float m = kMaskValue;
     for (int r = lane; r < rows; r += 32) m = fmaxf(m, pk[r]);
     m = warp_max(m);
-    float s_step = 0.f;
-    if (kStep) {
-      const float2 ks = load_pair(a.k_step + qrow);
-      s_step = warp_sum(qf[k * kHeadDim + 2 * lane] * ks.x + qf[k * kHeadDim + 2 * lane + 1] * ks.y);
-      m = fmaxf(m, s_step);
-    }
     float l = 0.f;
     for (int r = lane; r < rows; r += 32) {
       const float e = expf(pk[r] - m);
       pk[r] = e;
       l += e;
     }
-    const float e_step = kStep ? expf(s_step - m) : 0.f;
-    l = warp_sum(l) + e_step;
+    l = warp_sum(l);
     for (int r = lane; r < rows; r += 32) {
       float w = __fdiv_rn(pk[r], l);
       if (kQ8 && w != 0.f) {
@@ -196,7 +178,6 @@ __global__ void __launch_bounds__(kThreads) attend_rows_kernel(const Args a) {
       }
       pk[r] = bf16_round(w);
     }
-    const float w_step = kStep ? bf16_round(__fdiv_rn(e_step, l)) : 0.f;
     __syncwarp();
 
     float ax = 0.f, ay = 0.f;
@@ -213,17 +194,12 @@ __global__ void __launch_bounds__(kThreads) attend_rows_kernel(const Args a) {
         }
       }
     }
-    if (kStep) {
-      const float2 v = load_pair(a.v_step + qrow);
-      ax = fmaf(w_step, v.x, ax);
-      ay = fmaf(w_step, v.y, ay);
-    }
     *reinterpret_cast<__nv_bfloat162*>(a.out + qrow) = __floats2bfloat162_rn(ax, ay);
   }
 }
 
 // Launch on `stream` for `batch` images; returns a cudaError_t.
-template <typename T, bool kMask, bool kStep>
+template <typename T>
 int launch(const Args& a, int batch, int head_dim, cudaStream_t stream) {
   if (head_dim != kHeadDim || a.beams < 1 || a.beams > kMaxBeams || a.sources < 1 ||
       a.positions < 0 || a.positions > a.t_max || a.heads < 1 || batch < 1) {
@@ -233,7 +209,7 @@ int launch(const Args& a, int batch, int head_dim, cudaStream_t stream) {
       (static_cast<size_t>(a.beams) * kHeadDim +
        static_cast<size_t>(a.beams) * a.sources * a.positions) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = attend_rows_kernel<T, kMask, kStep>;
+  auto kernel = attend_rows_kernel<T>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -32,31 +32,25 @@
 extern "C" int mic_cross_attention_bf16(void* q, void* enc_k, void* enc_v, void* out, int batch,
                                         int beams, int enc_len, int heads, int head_dim,
                                         void* stream) {
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len,
-                 heads};
-  return attend::launch<__nv_bfloat16, false, false>(a, batch, head_dim,
-                                                     static_cast<cudaStream_t>(stream));
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
+                 static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len, heads};
+  return attend::launch<__nv_bfloat16>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_q8(void* q, void* enc_k, void* k_scale, void* enc_v,
                                       void* v_scale, void* out, int batch, int beams, int enc_len,
                                       int heads, int head_dim, void* stream) {
   attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v,
-                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), nullptr,
-                 nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len,
-                 heads};
-  return attend::launch<int8_t, false, false>(a, batch, head_dim,
-                                              static_cast<cudaStream_t>(stream));
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                 static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len, heads};
+  return attend::launch<int8_t>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_dma_bf16(void* q, void* enc_k, void* enc_v, void* out,
                                             int batch, int beams, int s_pad, int real_s, int heads,
                                             int head_dim, void* stream) {
   if (real_s < 1) return static_cast<int>(cudaErrorInvalidValue);
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, static_cast<__nv_bfloat16*>(out), beams, 1, s_pad, real_s,
-                 heads};
-  return attend::launch<__nv_bfloat16, false, false>(a, batch, head_dim,
-                                                     static_cast<cudaStream_t>(stream));
+  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
+                 static_cast<__nv_bfloat16*>(out), beams, 1, s_pad, real_s, heads};
+  return attend::launch<__nv_bfloat16>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
 }

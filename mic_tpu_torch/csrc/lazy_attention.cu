@@ -29,7 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attend_rows.cuh"
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -344,36 +346,509 @@ extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void
 
 // The blocked kernel of mode "1": replaces
 // mic_tpu/ops/lazy_attention.py::fused_lazy_attention (_kernel_bf16 and
-// _kernel_q8).  It reads the PRE-update cache and never writes it: the
-// caller stores the step column after it.  Liveness comes from the per-step
-// (B, J*T, K) int8 ancestry mask shared by every layer (strict t < index),
-// and each beam's own step row is scored unquantized (scale 1).  The int8
-// variant reads per-(row, position, head) f32 scales, (B*K, T, H).  The
-// kernel walks positions < `positions` only: the wrapper passes the write
-// index, past which the strict mask admits nothing.  Math and design:
-// attend_rows.cuh.
+// _kernel_q8, whose arithmetic is _attend_tiles').  It reads the PRE-update
+// cache and never writes it: the caller stores the step column after it.
+// Liveness comes from the per-step (B, J*T, K) int8 mask shared by every
+// layer (any bits: several source rows may be live for one beam at one
+// position), and each beam's own step row is scored unquantized (scale 1)
+// and live for that beam only.  The int8 variant reads per-(row, position,
+// head) f32 scales, (B*K, T, H).  The kernel walks positions < `positions`
+// only: the wrapper passes the write index, past which the strict mask
+// admits nothing.  For image b, head h and query beam k:
+//
+//   s[k, (j,t)] = (q[b,k,h] . K[j,t,h]) * k_scale[j,t,h]   (f32; scale 1 in bf16)
+//   dead (row, beam) pairs score finfo(float32).min
+//   s_step = q . k_step[b,k,h]
+//   w = softmax(s) in f32, cached weights times v_scale[j,t,h], rounded to bf16
+//   out[b,k,h] = bf16( sum w * V + w_step * v_step )           (f32 sums)
+//
+// Bound: bytes of the K and V head rows the mask admits (128 bytes each in
+// bf16, 64 in int8), each read once.  Design, one block of eight warps per
+// (head, image), up to four blocks an SM (64 registers: at small indices
+// the blocks' latencies overlap), as a split row walk:
+//   0. the block reads each row's mask as one word and gathers the rows some
+//      beam admits, with their beams' bits, into a list (a ballot and the
+//      warps' counts: the list is in row order, whatever the timing);
+//   1. it copies the listed K and V head rows into shared memory, bf16 by
+//      cp.async, every 16-byte piece of a chunk of `stage` rows in flight at
+//      once, V's first chunk behind K's; int8 through registers, widened to
+//      bf16 on the way (exact: int8 values are bf16 values), with their
+//      scales;
+//   2. the scores of every beam against eight staged rows are one
+//      mma.sync.m16n8k16 product chain, q (the beams, padded to 16 rows) as
+//      A and the rows by ldmatrix as B, the warps taking alternate groups
+//      of eight rows; rows no beam admits are never read;
+//   3. warp k runs beam k's softmax over the stored scores;
+//   4. the weights (bf16, exact) of sixteen rows times their V rows
+//      (ldmatrix.trans) is another chain, the warps taking alternate groups
+//      of sixteen rows, each warp's f32 sums added in warp order in shared
+//      memory.
+// The tensor cores take the dot products off the issue slots: with f32
+// FMAs, eight lanes a row, the walk was bound by the instructions it
+// issued, not by its bytes (the int8 walk, with its widening and scales,
+// still is, at a quarter of its bound).  Every sum has
+// one fixed order, so reruns are bit-equal.  Where the list does not fit
+// beside the scores of every (row, beam) and a chunk (eight beams past
+// about 800 positions), the walk takes every row in order with no list,
+// reading rows no beam admits at weight 0, and where even two chunks of a
+// row do not fit, K's and V's chunks take turns in one buffer; rows past a
+// chunk's end are read as its last row, at weight 0 (blocked_layout in
+// ops/lazy_attention.py chooses the list and the buffers and sizes the
+// chunk).
+namespace {
+namespace blocked {
+
+using attn_mma::ldmatrix_x4;
+using attn_mma::ldmatrix_x4_trans;
+using attn_mma::mma_bf16;
+using attn_mma::smem_addr;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPitch = 144;  // bytes of a staged row: 64 bf16 and 16 bytes that spread ldmatrix
+constexpr size_t kMaxSmem = 232448;
+
+struct Args {
+  const __nv_bfloat16* q;       // (B, K, H*Dh), pre-scaled by Dh**-0.5
+  const void* cache_k;          // (B*K, t_max, H*Dh) bf16 or int8
+  const void* cache_v;
+  const float* k_scale;         // (B*K, t_max, H) f32, int8 caches only
+  const float* v_scale;
+  const __nv_bfloat16* k_step;  // (B, K, H*Dh)
+  const __nv_bfloat16* v_step;
+  const int8_t* amask;          // (B, K*t_max, K)
+  __nv_bfloat16* out;           // (B, K, H*Dh)
+  int t_max, positions, heads, compact, stage, shared;
+};
+
+__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// The block's shared bytes, in order: the scores, then weights, of every
+// (beam, row), which the warps' partial sums reuse after the walk; where
+// compact, the list of rows and the warps' counts; a chunk of `stage` K
+// rows and one of V rows (each with its f32 scales in int8), or where
+// `shared` one chunk that the V rows take after the scores.
+__host__ __device__ constexpr size_t weight_bytes(int beams, int positions) {
+  const size_t rows = static_cast<size_t>(beams) * positions;
+  const size_t scores = static_cast<size_t>(beams) * rows;
+  const size_t partial = static_cast<size_t>(kWarps) * beams * kHeadDim;
+  return align16(4 * (scores > partial ? scores : partial));
+}
+__host__ __device__ constexpr size_t list_bytes(int beams, int positions, int compact) {
+  return compact ? align16(4 * (static_cast<size_t>(beams) * positions + kWarps)) : 0;
+}
+__host__ __device__ constexpr size_t stage_bytes(int stage, bool q8) {
+  return static_cast<size_t>(stage) * kPitch + (q8 ? align16(4 * static_cast<size_t>(stage)) : 0);
+}
+__host__ __device__ constexpr size_t smem_bytes(int beams, int positions, int compact, int stage,
+                                                int shared, bool q8) {
+  return weight_bytes(beams, positions) + list_bytes(beams, positions, compact) +
+         (shared ? 1 : 2) * stage_bytes(stage, q8);
+}
+
+// Which of the K beams admit a row: its K mask bytes, read as one word.
+template <int K>
+__device__ __forceinline__ unsigned live_bits(const int8_t* m) {
+  uint32_t lo = 0, hi = 0;
+  if constexpr (K == 8) {
+    const uint2 w = *reinterpret_cast<const uint2*>(m);
+    lo = w.x;
+    hi = w.y;
+  } else if constexpr (K == 4) {
+    lo = *reinterpret_cast<const uint32_t*>(m);
+  } else if constexpr (K == 2) {
+    lo = *reinterpret_cast<const uint16_t*>(m);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      (k < 4 ? lo : hi) |= static_cast<uint32_t>(static_cast<uint8_t>(m[k])) << (8 * (k & 3));
+    }
+  }
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    bits |= (((k < 4 ? lo : hi) >> (8 * (k & 3))) & 0xffu ? 1u : 0u) << k;
+  }
+  return bits;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Sixteen int8 values (a 16-byte piece of a head row) as sixteen bf16,
+// exactly, into 32 bytes of shared memory: each byte b, offset to b ^ 0x80,
+// becomes the low mantissa byte of 2^23 in f32, less 2^23 + 128 that is b,
+// and the upper half of an f32 integer of at most 8 significant bits is its
+// bf16.
+__device__ __forceinline__ void store_widened(unsigned char* dst, const uint4& raw) {
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[k] = __float_as_uint(__uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 + k)) -
+                             8388736.f);
+    }
+    out[2 * i] = __byte_perm(f[0], f[1], 0x7632);
+    out[2 * i + 1] = __byte_perm(f[2], f[3], 0x7632);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
+  constexpr bool kQ8 = std::is_same<T, int8_t>::value;
+  constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the beam (A and C row) of this lane's fragments
+  const int c = lane & 3;
+  const int hd = a.heads * kHeadDim;
+  const int positions = a.positions;
+  const int rows = K * positions;  // (source j, position t) as j * positions + t
+  const int stage = a.stage;
+  float* w = reinterpret_cast<float*>(smem_raw);  // [K][rows]: scores, then weights
+  float* part = w;                                // [kWarps][K][Dh], after the walk
+  unsigned char* next = smem_raw + weight_bytes(K, positions);
+  int* list = reinterpret_cast<int*>(next);  // [rows]: j t_max + t | bits << 24
+  int* counts = list + rows;                 // [kWarps]
+  next += list_bytes(K, positions, a.compact);
+  unsigned char* k_tile = next;  // [stage][kPitch], then the scales [stage]
+  unsigned char* v_tile = a.shared ? k_tile : next + stage_bytes(stage, kQ8);
+  float* k_sc = reinterpret_cast<float*>(k_tile + stage * kPitch);
+  float* v_sc = reinterpret_cast<float*>(v_tile + stage * kPitch);
+  const size_t row0 = static_cast<size_t>(b) * K * a.t_max;  // the image's first cache row
+
+  // q as the A operand of the scores (beam g's dims 16 s + 2 c (+ 1, + 8,
+  // + 9); rows 8-15 and beams past K are zero), and warp k's pairs of beam
+  // k's q and step rows for the softmax and the output, loaded first:
+  // their latency hides behind the mask's
+  uint32_t qa[4][2] = {};
+  if (g < K) {
+    const __nv_bfloat16* qg = a.q + (static_cast<size_t>(b) * K + g) * hd + h * kHeadDim + 2 * c;
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      qa[st][0] = *reinterpret_cast<const uint32_t*>(qg + 16 * st);
+      qa[st][1] = *reinterpret_cast<const uint32_t*>(qg + 16 * st + 8);
+    }
+  }
+  const size_t qrow =
+      (static_cast<size_t>(b) * K + warp) * hd + static_cast<size_t>(h) * kHeadDim + 2 * lane;
+  float2 q2 = {}, ks = {}, vs = {};
+  if (warp < K) {
+    q2 = load_pair(a.q + qrow);
+    ks = load_pair(a.k_step + qrow);
+    vs = load_pair(a.v_step + qrow);
+  }
+
+  // 0. the rows some beam admits, in row order, with their beams' bits
+  int n = rows;
+  if (a.compact) {
+    n = 0;
+    for (int base = 0; base < rows; base += kThreads) {
+      const int r = base + tid;
+      int at = 0;  // the row's offset in the image's cache rows
+      unsigned bits = 0u;
+      if (r < rows) {
+        const int j = r / positions;
+        at = j * a.t_max + (r - j * positions);
+        bits = live_bits<K>(a.amask + (row0 + at) * K);
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, bits != 0u);
+      if (lane == 0) counts[warp] = __popc(ballot);
+      __syncthreads();
+      int before = n;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        before += v < warp ? counts[v] : 0;
+        n += counts[v];
+      }
+      if (bits) list[before + __popc(ballot & ((1u << lane) - 1u))] = at | (bits << 24);
+      __syncthreads();
+    }
+  }
+  // entry i's cache row, and its beams' bits
+  auto entry_row = [&](int i) {
+    if (a.compact) return row0 + (list[i] & 0xffffff);
+    const int j = i / positions;
+    return row0 + static_cast<size_t>(j) * a.t_max + (i - j * positions);
+  };
+  auto entry_bits = [&](int i) {
+    return a.compact ? static_cast<unsigned>(list[i]) >> 24
+                     : live_bits<K>(a.amask + entry_row(i) * K);
+  };
+
+  // 1. bf16: entries [c0, c1) of the cache (K or V) into `tile` by cp.async
+  auto stage_rows = [&](const void* cache, unsigned char* tile, int c0, int c1) {
+    const unsigned char* src = static_cast<const unsigned char*>(cache);
+    for (int p = tid; p < (c1 - c0) * kPieces; p += kThreads) {
+      const int e = p / kPieces;
+      const int piece = p - e * kPieces;
+      attn_mma::cp_async16(smem_addr(tile + e * kPitch + 16 * piece),
+                           src + ((entry_row(c0 + e) * hd + h * kHeadDim) * sizeof(T) +
+                                  16 * piece),
+                           16);
+    }
+    attn_mma::cp_async_commit();
+  };
+  // int8: entries [c0, c1) of K (where k) and V (where v) loaded into
+  // registers a 16-byte piece at a time (entry tid's scales with the first:
+  // a chunk has at most kThreads rows) and stored widened to bf16 rows, the
+  // scales beside
+  auto widen_rows = [&](bool k, bool v, int c0, int c1) {
+    const int8_t* cache_k = static_cast<const int8_t*>(a.cache_k);
+    const int8_t* cache_v = static_cast<const int8_t*>(a.cache_v);
+    float sk = 0.f, sv = 0.f;
+    if (tid < c1 - c0) {
+      const size_t at = entry_row(c0 + tid) * a.heads + h;
+      if (k) sk = a.k_scale[at];
+      if (v) sv = a.v_scale[at];
+    }
+    for (int p = tid; p < (c1 - c0) * kPieces; p += kThreads) {
+      const size_t src = entry_row(c0 + p / kPieces) * hd + h * kHeadDim + 16 * (p % kPieces);
+      const int dst = (p / kPieces) * kPitch + 32 * (p % kPieces);
+      uint4 rk, rv;
+      if (k) rk = *reinterpret_cast<const uint4*>(cache_k + src);
+      if (v) rv = *reinterpret_cast<const uint4*>(cache_v + src);
+      if (k) store_widened(k_tile + dst, rk);
+      if (v) store_widened(v_tile + dst, rv);
+    }
+    if (tid < c1 - c0) {
+      if (k) k_sc[tid] = sk;
+      if (v) v_sc[tid] = sv;
+    }
+  };
+  const int chunks = (n + stage - 1) / stage;
+  if (n > 0) {
+    if constexpr (kQ8) {
+      widen_rows(true, !a.shared, 0, min(n, stage));
+    } else {
+      stage_rows(a.cache_k, k_tile, 0, min(n, stage));
+      if (!a.shared) stage_rows(a.cache_v, v_tile, 0, min(n, stage));
+    }
+  }
+
+  // 2. scores: warp w takes groups of eight staged rows w, w + 8, ...
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * stage;
+    const int nc = min(n, c0 + stage) - c0;
+    if (ch > 0) {
+      __syncthreads();  // every warp is done with the last chunk
+      if constexpr (kQ8) {
+        widen_rows(true, false, c0, c0 + nc);
+      } else {
+        stage_rows(a.cache_k, k_tile, c0, c0 + nc);
+        attn_mma::cp_async_wait<0>();
+      }
+    } else if (!kQ8 && a.shared) {
+      attn_mma::cp_async_wait<0>();
+    } else if (!kQ8) {
+      attn_mma::cp_async_wait<1>();  // K's first chunk; V's may be in flight
+    }
+    __syncthreads();
+    for (int r0 = 8 * warp; r0 < nc; r0 += 8 * kWarps) {
+      // rows past the chunk read as its last row; their scores are dropped
+      const int row = min(r0 + (lane & 7), nc - 1);
+      const uint32_t at = smem_addr(k_tile + row * kPitch + 16 * (lane >> 3));
+      uint32_t lo[4], hi[4];  // the B operands of dims 0-31 and 32-63
+      ldmatrix_x4(lo, at);
+      ldmatrix_x4(hi, at + 64);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const uint32_t af[4] = {qa[st][0], 0u, qa[st][1], 0u};
+        const uint32_t b0 = st < 2 ? lo[2 * st] : hi[2 * st - 4];
+        const uint32_t b1 = st < 2 ? lo[2 * st + 1] : hi[2 * st - 3];
+        mma_bf16(d, af, b0, b1);
+      }
+      if (g < K) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int il = r0 + 2 * c + e;
+          if (il < nc) {
+            const int i = c0 + il;
+            const float sc = kQ8 ? __fmul_rn(d[e], k_sc[il]) : d[e];
+            w[g * rows + i] = (entry_bits(i) >> g) & 1u ? sc : kMaskValue;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. warp k: beam k's softmax; its step row's weight stays in registers.
+  // bf16 weights are rounded here; int8 ones after their V scale, in 4.
+  float w_step = 0.f;
+  if (warp < K) {
+    float* wk = w + warp * rows;
+    float m = kMaskValue;
+    for (int i = lane; i < n; i += 32) m = fmaxf(m, wk[i]);
+    const float s_step = warp_sum(q2.x * ks.x + q2.y * ks.y);
+    m = fmaxf(warp_max(m), s_step);
+    float l = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float e = expf(wk[i] - m);
+      wk[i] = e;
+      l += e;
+    }
+    const float e_step = expf(s_step - m);
+    l = warp_sum(l) + e_step;
+    for (int i = lane; i < n; i += 32) {
+      const float x = __fdiv_rn(wk[i], l);
+      wk[i] = kQ8 ? x : bf16_round(x);
+    }
+    w_step = bf16_round(__fdiv_rn(e_step, l));
+  }
+
+  // 4. the V walk: warp w takes groups of sixteen staged rows w, w + 8, ...
+  float acc[8][4];  // beam g's output dims 8 nb + 2 c (+ 1) in [nb][0..1]
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[nb][x] = 0.f;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * stage;
+    const int nc = min(n, c0 + stage) - c0;
+    if (ch > 0 || a.shared) {
+      __syncthreads();  // every warp is done with the last chunk
+      if constexpr (kQ8) {
+        widen_rows(false, true, c0, c0 + nc);
+      } else {
+        stage_rows(a.cache_v, v_tile, c0, c0 + nc);
+      }
+    }
+    if constexpr (!kQ8) attn_mma::cp_async_wait<0>();
+    __syncthreads();  // and, the first time, every weight is written
+    for (int e0 = 16 * warp; e0 < nc; e0 += 16 * kWarps) {
+      // beam g's weights of rows e0 + 2 c (+ 1, + 8, + 9); 0 past the chunk
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (g < K) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = e0 + 2 * c + (e & 1) + 8 * (e >> 1);
+          if (il < nc) {
+            x[e] = w[g * rows + c0 + il];
+            if (kQ8) x[e] = bf16_round(x[e] != 0.f ? __fmul_rn(x[e], v_sc[il]) : x[e]);
+          }
+        }
+      }
+      const uint32_t af[4] = {pack_bf16(x[0], x[1]), 0u, pack_bf16(x[2], x[3]), 0u};
+      // rows past the chunk read as its last row, at weight 0
+      const int row = min(e0 + 8 * ((lane >> 3) & 1) + (lane & 7), nc - 1);
+      const uint32_t at = smem_addr(v_tile + row * kPitch + 16 * (lane >> 4));
+#pragma unroll
+      for (int qd = 0; qd < 4; ++qd) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, at + 32 * qd);
+        mma_bf16(acc[2 * qd], af, bv[0], bv[1]);
+        mma_bf16(acc[2 * qd + 1], af, bv[2], bv[3]);
+      }
+    }
+  }
+  __syncthreads();  // every weight read: the partial sums take their place
+  if (g < K) {
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      *reinterpret_cast<float2*>(part + (warp * K + g) * kHeadDim + 8 * nb + 2 * c) =
+          make_float2(acc[nb][0], acc[nb][1]);
+    }
+  }
+  __syncthreads();
+  if (warp < K) {
+    float ax = 0.f, ay = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      const float2 p = *reinterpret_cast<const float2*>(part + (v * K + warp) * kHeadDim +
+                                                        2 * lane);
+      ax += p.x;
+      ay += p.y;
+    }
+    ax = fmaf(w_step, vs.x, ax);
+    ay = fmaf(w_step, vs.y, ay);
+    *reinterpret_cast<__nv_bfloat162*>(a.out + qrow) = __floats2bfloat162_rn(ax, ay);
+  }
+}
+
+template <typename T, int K>
+int launch_beams(const Args& a, int batch, cudaStream_t stream) {
+  const size_t smem = smem_bytes(K, a.positions, a.compact, a.stage, a.shared,
+                                 std::is_same<T, int8_t>::value);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = blocked_kernel<T, K>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(a.heads, batch), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Args& a, int batch, int beams, int head_dim, cudaStream_t stream) {
+  if (head_dim != kHeadDim || beams < 1 || beams > 8 || a.positions < 0 ||
+      a.positions > a.t_max || a.heads < 1 || batch < 1 || batch > 65535 || a.stage < 1 ||
+      a.stage > kThreads ||
+      static_cast<int64_t>(beams) * a.t_max >= (1 << 24)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (beams) {
+    case 1: return launch_beams<T, 1>(a, batch, stream);
+    case 2: return launch_beams<T, 2>(a, batch, stream);
+    case 3: return launch_beams<T, 3>(a, batch, stream);
+    case 4: return launch_beams<T, 4>(a, batch, stream);
+    case 5: return launch_beams<T, 5>(a, batch, stream);
+    case 6: return launch_beams<T, 6>(a, batch, stream);
+    case 7: return launch_beams<T, 7>(a, batch, stream);
+    default: return launch_beams<T, 8>(a, batch, stream);
+  }
+}
+
+}  // namespace blocked
+}  // namespace
+
+// compact: 1 to walk the list of admitted rows, 0 every row; stage: the
+// rows a chunk copies into shared memory; shared: 1 where K's and V's
+// chunks take turns in one buffer (ops/lazy_attention.py::blocked_layout
+// gives all three).
 extern "C" int mic_lazy_attention_blocked_bf16(void* q, void* cache_k, void* cache_v, void* k_step,
                                                void* v_step, void* amask, void* out, int batch,
                                                int beams, int t_max, int positions, int heads,
-                                               int head_dim, void* stream) {
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v, nullptr, nullptr,
-                 static_cast<const __nv_bfloat16*>(k_step),
-                 static_cast<const __nv_bfloat16*>(v_step), static_cast<const int8_t*>(amask),
-                 static_cast<__nv_bfloat16*>(out), beams, beams, t_max, positions, heads};
-  return attend::launch<__nv_bfloat16, true, true>(a, batch, head_dim,
-                                                   static_cast<cudaStream_t>(stream));
+                                               int head_dim, int compact, int stage, int shared,
+                                               void* stream) {
+  const blocked::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v, nullptr, nullptr,
+                        static_cast<const __nv_bfloat16*>(k_step),
+                        static_cast<const __nv_bfloat16*>(v_step),
+                        static_cast<const int8_t*>(amask), static_cast<__nv_bfloat16*>(out),
+                        t_max, positions, heads, compact, stage, shared};
+  return blocked::launch<__nv_bfloat16>(a, batch, beams, head_dim,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_lazy_attention_blocked_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
                                              void* v_scale, void* k_step, void* v_step,
                                              void* amask, void* out, int batch, int beams,
                                              int t_max, int positions, int heads, int head_dim,
-                                             void* stream) {
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
-                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                 static_cast<const __nv_bfloat16*>(k_step),
-                 static_cast<const __nv_bfloat16*>(v_step), static_cast<const int8_t*>(amask),
-                 static_cast<__nv_bfloat16*>(out), beams, beams, t_max, positions, heads};
-  return attend::launch<int8_t, true, true>(a, batch, head_dim,
-                                            static_cast<cudaStream_t>(stream));
+                                             int compact, int stage, int shared, void* stream) {
+  const blocked::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
+                        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                        static_cast<const __nv_bfloat16*>(k_step),
+                        static_cast<const __nv_bfloat16*>(v_step),
+                        static_cast<const int8_t*>(amask), static_cast<__nv_bfloat16*>(out),
+                        t_max, positions, heads, compact, stage, shared};
+  return blocked::launch<int8_t>(a, batch, beams, head_dim, static_cast<cudaStream_t>(stream));
 }

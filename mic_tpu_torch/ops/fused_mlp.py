@@ -12,7 +12,9 @@ mic_tpu's kernel runs them.
 
 ``fused_mlp`` takes the plain version for tensors on the CPU and its kernel
 (csrc/fused_mlp.cu, every activation) for tensors on a CUDA device; it
-never falls back from one to the other.
+never falls back from one to the other.  The kernel runs both products on
+a 128-row x 256-column wgmma tile; ``mlp_splits`` cuts a product's depth
+into splits where its output tiles alone leave SMs idle.
 """
 
 from __future__ import annotations
@@ -24,6 +26,18 @@ from mic_tpu_torch.nn.layers import ACTIVATIONS
 
 # the kernel's activation ids (csrc/fused_mlp.cu, enum Act)
 _ACTIVATION_IDS = {"gelu": 0, "gelu_tanh": 1, "quick_gelu": 2, "relu": 3, "silu": 4}
+# csrc/gemm_wgmma.cuh: a block's output rows and columns, and the depth of a slice
+_TILE_ROWS, _TILE_COLS, _SLICE = 128, 256, 64
+
+
+def mlp_splits(rows: int, cols: int, depth: int, sms: int) -> int:
+    """The depth splits of one product, (rows, depth) @ (depth, cols), on
+    the kernel's tiles: as many as the SMs the output tiles leave idle
+    allow (sms // tiles), at least 1 and at most one a 64-deep slice.  Split
+    z of Z sums slices [z S / Z, (z + 1) S / Z) of the S = depth / 64."""
+    tiles = -(-rows // _TILE_ROWS) * -(-cols // _TILE_COLS)
+    return max(1, min(depth // _SLICE, sms // tiles))
+
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -48,8 +62,9 @@ def fused_mlp_plain(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor
     return (h.float() @ w2.to(dt).float() + b2.to(dt).float()).to(dt)
 
 
-def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
-    """The MLP of x (N, D) with w1 (D, F), b1 (F,), w2 (F, D), b2 (D,)."""
+def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu", out=None) -> torch.Tensor:
+    """The MLP of x (N, D) with w1 (D, F), b1 (F,), w2 (F, D), b2 (D,);
+    written into ``out`` (N, D) where given (the kernel only)."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, activation)
     if x.device.type != "cuda":
@@ -63,14 +78,22 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu") -> torch.Tensor:
         raise TypeError("fused_mlp kernel: every operand must be bfloat16")
     if w1.shape != (d, f) or b1.shape != (f,) or w2.shape != (f, d) or b2.shape != (d,):
         raise ValueError("fused_mlp kernel: inconsistent shapes")
-    if d % 64 or f % 64 or n < 1:
+    if d < 64 or f < 64 or d % 64 or f % 64 or n < 1:
         raise ValueError(f"fused_mlp kernel: D and F multiples of 64, got {d}, {f}")
-    _build.check_operands("fused_mlp", tensors)
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.shape != x.shape or out.dtype != x.dtype:
+        raise ValueError(f"fused_mlp kernel: out must be {tuple(x.shape)} bfloat16")
+    _build.check_operands("fused_mlp", (*tensors, out))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits1, splits2 = mlp_splits(n, f, d, sms), mlp_splits(n, d, f, sms)
     h = torch.empty((n, f), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
+    scratch = max(splits1 * f if splits1 > 1 else 0, splits2 * d if splits2 > 1 else 0) * n
+    part = torch.empty((scratch,), dtype=torch.float32, device=x.device) if scratch else None
     err = _build.lib().mic_fused_mlp_bf16(
-        *(t.data_ptr() for t in tensors), h.data_ptr(), out.data_ptr(), n, d, f,
-        _ACTIVATION_IDS[activation], torch.cuda.current_stream(x.device).cuda_stream,
+        *(t.data_ptr() for t in tensors), h.data_ptr(), part.data_ptr() if scratch else 0,
+        out.data_ptr(), n, d, f, _ACTIVATION_IDS[activation], splits1, splits2,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "mic_fused_mlp_bf16")
     fused_mlp.launches += 1

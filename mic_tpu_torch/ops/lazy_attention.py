@@ -21,7 +21,10 @@ after it), takes liveness from the per-step (B, J*T, K) ancestry mask of
 ``build_ancestry_mask`` (strict t < index, shared by every layer), and
 scores each beam's own step row unquantized.  Its int8 cache is mic_tpu's
 canonical layout: {"q": (B*K, T, H*Dh) int8, "s": (B*K, T, H) f32}, one
-scale per (row, position, head).  Its plain version is
+scale per (row, position, head).  Its kernel is a split row walk: the rows
+some beam admits gathered into a list, their K and V head rows copied into
+shared memory once, each scored or applied to every beam by eight lanes
+(``blocked_layout`` lays out the block's shared memory).  Its plain version is
 ``attend_rows_plain``, mic_tpu's _attend_tiles, which ops/cross_attention.py
 shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
 mode "0" (mic_tpu's XLA chain) is not ported.
@@ -334,6 +337,51 @@ def fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams
                              k_step=k_step, v_step=v_step)
 
 
+# csrc/lazy_attention.cu, namespace blocked: the warps of a block, the most
+# rows a chunk stages (224: at K=4, index 63, every image's admitted rows in
+# one chunk and three blocks an SM, four at small indices; at most the
+# block's 256 threads), and the shared memory a block may take
+_BLOCKED_WARPS = 8
+_STAGE_ROWS = 224
+_MAX_SMEM = 232448
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _stage_bytes(stage: int, q8: bool) -> int:
+    """A chunk of ``stage`` staged head rows, 144 bytes each (and their f32
+    scales in int8)."""
+    return stage * 144 + (_align16(4 * stage) if q8 else 0)
+
+
+def blocked_layout(beams: int, positions: int, q8: bool = False) -> tuple[bool, int, bool, int]:
+    """-> (compact, stage, shared, shared bytes) of the blocked kernel's
+    block, as csrc/lazy_attention.cu lays it out: the f32 scores, then
+    weights, of every (beam, row) of the K * positions rows of an image (at
+    least the eight warps' partial sums, which reuse them); where compact
+    the list of the rows some beam admits, with the warps' counts (rows no
+    beam admits are never read); and a chunk of ``stage`` K rows and one of
+    V rows, copied in by cp.async at a 144-byte pitch (up to _STAGE_ROWS
+    rows, fewer where shared memory is short), or where ``shared`` one
+    chunk that K's and V's rows take in turn.  Compact where the list fits
+    beside two chunks of min(rows, 32) rows; else the walk takes every row,
+    the dead ones at weight 0."""
+    rows = beams * positions
+    weights = _align16(4 * max(beams * rows, _BLOCKED_WARPS * beams * 64))
+    want = max(1, min(_STAGE_ROWS, rows))
+    for compact, buffers in ((True, 2), (False, 2), (False, 1)):
+        fixed = weights + (_align16(4 * (rows + _BLOCKED_WARPS)) if compact else 0)
+        stage = min(want, max(0, _MAX_SMEM - fixed) // (buffers * _stage_bytes(1, q8)))
+        while stage and fixed + buffers * _stage_bytes(stage, q8) > _MAX_SMEM:
+            stage -= 1
+        if stage >= (min(want, 32) if compact else 1):
+            return compact, stage, buffers == 1, fixed + buffers * _stage_bytes(stage, q8)
+    raise ValueError(f"fused_lazy_attention kernel: {beams} beams x {positions} positions do "
+                     f"not fit a block's shared memory ({weights} > {_MAX_SMEM} bytes)")
+
+
 def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
                          num_heads: int, positions: int | None = None) -> torch.Tensor:
     """Mode "1" of one layer: -> (B, K, H*Dh); the caches are read, never
@@ -369,6 +417,7 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
             or v_step.shape != q.shape or amask.shape != (b, k * t, k)
             or (quant and any(c["s"].shape != (b * k, t, num_heads) for c in (cache_k, cache_v)))):
         raise ValueError(f"{name} kernel: inconsistent shapes")
+    compact, stage, shared, _ = blocked_layout(k, positions, quant)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if quant:
@@ -381,7 +430,7 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
         entry = "mic_lazy_attention_blocked_bf16"
     err = getattr(_build.lib(), entry)(
         *(x.data_ptr() for x in tensors), out.data_ptr(), b, k, t, positions, num_heads, dh,
-        stream,
+        int(compact), stage, int(shared), stream,
     )
     _build.check(err, entry)
     fused_lazy_attention.launches += 1

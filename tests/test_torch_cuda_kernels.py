@@ -23,13 +23,16 @@ its written cache bit-equal; the top-k + logsumexp kernel's ids are equal
 and its log-probs within 1e-5 (the same f32 values, the logsumexp summed in
 another order).  The beam step's opt-in kernels: the blocked lazy attention
 and the cross-attention within 2e-2 (bf16 weights and outputs after f32
-sums in another order), the caches they read untouched; LN -> GEMM within
+sums in another order), the caches they read untouched, the blocked
+kernel bit-equal to plain where every sum is exact (q = 0, integer V) and
+across reruns; LN -> GEMM within
 two bf16 ulps of the size of its terms, |product| + |bias| (the product and
 the bias add each rounded once to bf16), plus 2**-8 of sum |xn| |w| (the
 LN statistics, summed in another order, can round a bf16 xn the other way);
 the fused MLP within 1e-2
 of its largest output (fc1's bf16 intermediate can round the other way
-before the fc2 sum); both GEMM kernels bit-equal across reruns.  The
+before the fc2 sum), writing no row past N; both GEMM kernels bit-equal
+across reruns.  The
 full-sequence attention kernels (small-T forward and backward, flash
 forward): outputs within 2e-2 in bf16 (a softmax weight rounded to bf16 the
 other way, and the output's own rounding) and 1e-5 in f32, small-T
@@ -97,6 +100,7 @@ from mic_tpu_torch.ops import small_attention as small
 from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import (
+    blocked_layout,
     build_ancestry_mask,
     fused_lazy_attention,
     fused_lazy_attention_plain,
@@ -996,40 +1000,108 @@ def test_greedy_generate_runs_through_the_new_kernels(cuda, monkeypatch):
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("index", [0, 1, 9, 15])
-@pytest.mark.parametrize("q8", [False, True])
-def test_fused_lazy_attention_kernel_matches_plain(cuda, q8, index):
-    """Mode "1" on an ancestry mask, and on a mask of random bits (several
-    source rows live for one beam at one position): the cache untouched."""
-    b, beams, t, heads, hd = 3, 4, 16, 2, 128
-    g = torch.Generator(device=cuda).manual_seed(100 + index)
+def _blocked_inputs(cuda, g, b, beams, t, heads, q8, scale=0.5):
+    hd = heads * 64
 
-    def rand(*shape, scale=0.5):
+    def rand(*shape, scale=scale):
         return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
-
-    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
 
     def cache():
         if not q8:
             return rand(b * beams, t, hd)
-        values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, hd // heads))
+        values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, 64))
         return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
 
-    ck, cv = cache(), cache()
+    return rand(b, beams, hd, scale=0.3), cache(), cache(), rand(b, beams, hd), rand(b, beams, hd)
+
+
+def _blocked_masks(cuda, g, b, beams, t, index):
+    """An ancestry mask, random bits (several source rows live for one beam
+    at one position) and no cached row live (every beam on its step row
+    alone), each strict t < index."""
     anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
     random_bits = torch.randint(0, 2, (b, beams * t, beams), generator=g, device=cuda)
     live = (torch.arange(t, device=cuda) < index).repeat(beams)[None, :, None]
-    for amask in (build_ancestry_mask(anc, index), (random_bits * live).to(torch.int8)):
+    return {"ancestry": build_ancestry_mask(anc, index),
+            "random bits": (random_bits * live).to(torch.int8),
+            "step only": torch.zeros((b, beams * t, beams), dtype=torch.int8, device=cuda)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("index", [0, 1, 17, 63])
+@pytest.mark.parametrize("beams", [1, 4, 8])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_kernel_matches_plain(cuda, q8, beams, index):
+    """Mode "1" on an ancestry mask, on a mask of random bits (several
+    source rows live for one beam at one position) and with only the step
+    rows live: the cache untouched, a rerun bit-equal."""
+    b, t, heads = 3, 64, 2
+    g = torch.Generator(device=cuda).manual_seed(100 + 10 * beams + index)
+    q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, q8)
+    for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
         before = [{n: a.clone() for n, a in c.items()} if q8 else c.clone() for c in (ck, cv)]
         launches = fused_lazy_attention.launches
         out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        again = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
         ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
         torch.cuda.synchronize()
-        assert fused_lazy_attention.launches == launches + 1
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        assert fused_lazy_attention.launches == launches + 2
+        assert torch.equal(out, again), name
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=name)
         for c, old in zip((ck, cv), before):
             assert all(torch.equal(c[n], old[n]) for n in old) if q8 else torch.equal(c, old)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams", [1, 3, 4, 8])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_kernel_exact_sums(cuda, q8, beams):
+    """With q = 0 every admitted score is 0: each weight is 1 / (live rows
+    + 1), the same f32 quotient in both versions, rounded to bf16 (times the
+    V scale in int8), and with integer V values every sum is exact, so the
+    kernel's outputs equal the plain version's bit for bit whatever order
+    it sums in: a listed row dropped, or the step weight left unrounded,
+    shows."""
+    b, t, heads, index = 3, 64, 2, 63
+    hd = heads * 64
+    g = torch.Generator(device=cuda).manual_seed(200 + beams)
+    q = torch.zeros((b, beams, hd), dtype=torch.bfloat16, device=cuda)
+    ks = torch.randn((b, beams, hd), generator=g, device=cuda).bfloat16()
+    vs = torch.randint(-3, 4, (b, beams, hd), generator=g, device=cuda).bfloat16()
+    ck = torch.randn((b * beams, t, hd), generator=g, device=cuda).bfloat16()
+    values = torch.randint(-3, 4, (b * beams, t, hd), generator=g, device=cuda)
+    if q8:
+        ck = {"q": values.to(torch.int8), "s": torch.ones((b * beams, t, heads), device=cuda)}
+        cv = {"q": values.flip(1).to(torch.int8).contiguous(),
+              "s": torch.randint(1, 3, (b * beams, t, heads), generator=g, device=cuda).float()}
+    else:
+        cv = values.bfloat16()
+    for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams,index", [(8, 850), (1, 58048)])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_kernel_walks_every_row_past_the_list(cuda, q8, beams, index):
+    """Eight beams at 850 positions: the list of admitted rows no longer
+    fits beside the scores (blocked_layout), so the walk takes every row,
+    the dead ones at weight 0, in chunks of a few dozen staged rows; one
+    beam at 58048 positions (the most the earlier kernel took): one staged
+    row at a time, K's and V's taking turns in one buffer."""
+    b, t, heads = 1, index + 6, 2
+    compact, stage, shared, _ = blocked_layout(beams, index, q8)
+    assert not compact and stage < 128 and shared == (beams == 1)
+    g = torch.Generator(device=cuda).manual_seed(300)
+    q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, q8)
+    for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=name)
 
 
 @pytest.mark.requires_cuda
@@ -1081,16 +1153,21 @@ def test_ln_gemm_kernel_matches_plain(cuda, n):
                  <= 2 * _bf16_ulp(terms) + 2.0**-8 * l1).all())
 
 
+def _mlp_weights(cuda, g, d, f):
+    w1 = (torch.randn((d, f), generator=g, device=cuda) * (1.6 / d**0.5)).bfloat16()
+    b1 = (0.1 * torch.randn((f,), generator=g, device=cuda)).bfloat16()
+    w2 = (torch.randn((f, d), generator=g, device=cuda) * (1.6 / f**0.5)).bfloat16()
+    b2 = (0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
+    return w1, b1, w2, b2
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n", [8, 70])
-def test_fused_mlp_kernel_matches_plain(cuda, n):
-    d, f = 256, 1024
+@pytest.mark.parametrize("d,f", [(256, 1024), (1024, 4096)])
+@pytest.mark.parametrize("n", [1, 8, 32, 70, 1024])
+def test_fused_mlp_kernel_matches_plain(cuda, n, d, f):
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((n, d), generator=g, device=cuda).bfloat16()
-    w1 = (0.1 * torch.randn((d, f), generator=g, device=cuda)).bfloat16()
-    b1 = (0.1 * torch.randn((f,), generator=g, device=cuda)).bfloat16()
-    w2 = (0.05 * torch.randn((f, d), generator=g, device=cuda)).bfloat16()
-    b2 = (0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
+    w1, b1, w2, b2 = _mlp_weights(cuda, g, d, f)
     launches = fused_mlp.launches
     out = fused_mlp(x, w1, b1, w2, b2)
     again = fused_mlp(x, w1, b1, w2, b2)
@@ -1101,12 +1178,36 @@ def test_fused_mlp_kernel_matches_plain(cuda, n):
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
     for act in ("gelu_tanh", "quick_gelu", "relu", "silu"):  # the epilogue's other activations
         out = fused_mlp(x, w1, b1, w2, b2, act)
+        again = fused_mlp(x, w1, b1, w2, b2, act)
         ref = fused_mlp_plain(x, w1, b1, w2, b2, act)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), act
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= 1e-2 * ref.float().abs().max().item(), act
     with pytest.raises(ValueError, match="activation"):
         fused_mlp(x, w1, b1, w2, b2, "tanh")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,f", [(256, 1024), (1024, 4096)])
+@pytest.mark.parametrize("n", [1, 70, 200, 1100, 2100])
+def test_fused_mlp_kernel_writes_no_row_past_n(cuda, n, d, f):
+    """N not a multiple of the kernel's 128-row tile, the output a view of
+    the first N rows of a larger buffer: the rows past N keep their
+    sentinel, the first N match the kernel's own output.  fc2 runs split
+    (through its partials) at every N but 2100 at D=1024, where its 17 x 4
+    tiles run unsplit (the tile's own epilogue)."""
+    g = torch.Generator(device=cuda).manual_seed(1000 + n)
+    x = torch.randn((n, d), generator=g, device=cuda).bfloat16()
+    w1, b1, w2, b2 = _mlp_weights(cuda, g, d, f)
+    pad = -n % 128 + 128
+    buf = torch.full((n + pad, d), 7.0, dtype=torch.bfloat16, device=cuda)
+    got = fused_mlp(x, w1, b1, w2, b2, out=buf[:n])
+    ref = fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:n], ref)
+    assert bool((buf[n:] == 7.0).all())
 
 
 @pytest.mark.requires_cuda

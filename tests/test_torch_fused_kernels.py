@@ -21,6 +21,11 @@ bfloat16 (an f32 difference in fc1 can move a bfloat16 rounding of the
 intermediate by one ulp before the 1024-term fc2 sum; 3.2e-3 measured) and
 1e-5 in float32.  The CUDA kernels are held to these plain versions in
 tests/test_torch_cuda_kernels.py and chip_smoke.py.
+
+The kernels' host-side planners are held here too: ``mlp_splits`` (the
+fused MLP's depth splits) and ``blocked_layout`` (the blocked attention's
+shared memory: its list of admitted rows, or none, and its chunk of
+staged rows).
 """
 
 import jax.numpy as jnp
@@ -191,3 +196,59 @@ def test_fused_mlp_plain_other_activations_match_pallas_kernel(activation, dtype
         assert np.abs(got - ref).max() <= 1e-2 * np.abs(ref).max()
     else:
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("cols,depth", [(4096, 1024), (1024, 4096), (1024, 256), (256, 1024)])
+@pytest.mark.parametrize("rows", [1, 8, 32, 70, 128, 1024, 4096])
+def test_mlp_splits_cover_every_slice_once(rows, cols, depth, sms):
+    """Each split of a product (the kernel's blockIdx.z of gridDim.z) sums
+    slices [z S / Z, (z + 1) S / Z): together every 64-deep slice once,
+    each split at least one, and the blocks no more than the SMs unless the
+    output tiles alone exceed them."""
+    splits = fused_mlp.mlp_splits(rows, cols, depth, sms)
+    slices = depth // 64
+    tiles = -(-rows // 128) * -(-cols // 256)
+    assert 1 <= splits <= slices
+    assert tiles * splits <= max(sms, tiles)
+    spans = [range(z * slices // splits, (z + 1) * slices // splits) for z in range(splits)]
+    assert all(len(span) for span in spans)
+    assert [s for span in spans for s in span] == list(range(slices))
+
+
+def test_mlp_splits_at_the_flagship():
+    """D=1024, F=4096 on 132 SMs: fc1 at N=1024 is 8 x 16 tiles, one wave,
+    unsplit; fc2's 8 x 4 tiles take four splits; at N=32 (one row tile)
+    fc1 takes 8 and fc2 33."""
+    assert fused_mlp.mlp_splits(1024, 4096, 1024, 132) == 1
+    assert fused_mlp.mlp_splits(1024, 1024, 4096, 132) == 4
+    assert fused_mlp.mlp_splits(32, 4096, 1024, 132) == 8
+    assert fused_mlp.mlp_splits(32, 1024, 4096, 132) == 33
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("beams", range(1, 9))
+def test_blocked_layout_takes_every_shape_the_earlier_walk_took(beams, q8):
+    """The earlier kernel (one thread a row, csrc/attend_rows.cuh) held q
+    and every (beam, row) score in shared memory, 4 K (64 + K P) bytes of a
+    block's 232448: every such P still fits, with at least one staged row
+    (two chunks, or one that K and V take in turn); listed where the list
+    fits beside two chunks of min(rows, 32) rows (the flagship's index 63
+    always, its rows in one chunk); and a P whose scores alone exceed the
+    block is refused."""
+    limit = 232448
+    longest = (limit // (4 * beams) - 64) // beams
+    row_bytes = 148 if q8 else 144
+    for positions in (0, 1, 63, 64, longest // 2, longest):
+        compact, stage, shared, nbytes = lazy_attention.blocked_layout(beams, positions, q8)
+        rows = beams * positions
+        assert 1 <= stage <= max(1, min(lazy_attention._STAGE_ROWS, rows))
+        assert nbytes <= limit
+        assert nbytes >= (4 * max(beams * rows, 8 * beams * 64) + (4 * rows if compact else 0)
+                          + (1 if shared else 2) * stage * row_bytes)
+        if compact:
+            assert stage >= min(32, rows) and not shared
+    compact, stage, shared, _ = lazy_attention.blocked_layout(beams, 63, q8)
+    assert compact and not shared and stage == min(lazy_attention._STAGE_ROWS, beams * 63)
+    with pytest.raises(ValueError, match="shared memory"):
+        lazy_attention.blocked_layout(beams, limit // (4 * beams * beams) + 1, q8)

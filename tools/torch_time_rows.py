@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the port's decode attention (row 18), tied-head kernels (rows 4, 5
-and 6) and flash-CE kernels (rows 7 and 8, row 9's forward, and the save
-and split backwards of rows 9 and 10) on one CUDA card, beside
+and 6), flash-CE kernels (rows 7 and 8, row 9's forward, and the save
+and split backwards of rows 9 and 10) and the fused beam step's kernels
+(rows 3, 13, 14, 15, 16, with row 20) on one CUDA card, beside
 scaled_dot_product_attention for row 18.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce] [--label NAME]
-                                     [--out FILE]
+    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce,fused]
+                                     [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
 heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select; the
@@ -17,7 +18,12 @@ step's N=4096 rows, D=1024, V=250054 (chip_smoke's CE table and rows),
 with cuBLAS's bare f32-output h @ W^T beside them for scale (the product
 alone, not the same function), then the split route's backward, the save
 route's (from the save forward's logits) and each of their four
-contractions alone (``flash_ce_contraction``).  Each time
+contractions alone (``flash_ce_contraction``); --cases fused: the blocked
+lazy attention (row 3, bf16 and int8 per-head, index 63 and 17), the
+cross-attentions (rows 13, 14, 14's int8 form), LN -> GEMM and the MLP
+(rows 15, 16, N in {1024, 32}) beside the chains of calls that compute
+the same (F.layer_norm + F.linear; F.linear -> F.gelu -> F.linear), and
+the int8 dequant GEMM (row 20), as ``fused_cases`` says.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -114,6 +120,77 @@ def ce_cases(dev):
                    None)
 
 
+def fused_cases(dev):
+    """The fused beam step's kernels at chip_smoke's shapes (rows 3, 13, 14
+    and its int8 form, 15, 16) and row 20, with the chains of calls for
+    scale: row 3 on the bf16 and the per-head int8 cache at B=256 K=4 T=64
+    H=16, index 63 and 17 (ancestry masks); rows 13 and 14 at S=50 (13
+    padded to 64); rows 15 and 16 at N in {1024, 32}, D=1024 (O=3072,
+    F=4096); row 20 at M=1024 K=1024 N=3072."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.cross_attention import (
+        fused_cross_attention, fused_cross_attention_dma, fused_cross_attention_q8,
+    )
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul
+    from mic_tpu_torch.ops.lazy_attention import build_ancestry_mask, fused_lazy_attention
+    from mic_tpu_torch.ops.ln_gemm import ln_gemm
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    b, beams, t, heads, dh, s = 256, 4, 64, 16, 64, 50
+    hd = heads * dh
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    for q8 in (False, True):
+        q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+        if q8:
+            ck, cv = ({"q": v.reshape(b * beams, t, hd), "s": sc[..., 0].contiguous()}
+                      for v, sc in (quantize_rows_dynamic(rand(b * beams, t, heads, dh))
+                                    for _ in range(2)))
+        else:
+            ck, cv = rand(b * beams, t, hd), rand(b * beams, t, hd)
+        anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+        for index in (63, 17):
+            amask = build_ancestry_mask(anc, index)
+            yield (f"fused_lazy_attention {'int8 per-head' if q8 else 'bf16'} index={index}",
+                   lambda a=(q, ck, cv, ks, vs, amask), i=index: fused_lazy_attention(
+                       *a, beams, heads, positions=i), None)
+    q = rand(b, beams, hd, scale=0.3)
+    ek, ev = rand(b, s, heads, dh), rand(b, s, heads, dh)
+    yield ("fused_cross_attention S=50", lambda: fused_cross_attention(q, ek, ev, beams, heads),
+           None)
+    cq8 = [{"q": v, "s": sc[..., 0].contiguous()}
+           for v, sc in (quantize_rows_dynamic(c) for c in (ek, ev))]
+    yield ("fused_cross_attention_q8 S=50",
+           lambda: fused_cross_attention_q8(q, *cq8, beams, heads), None)
+    pad = torch.zeros((b, 64 - s, hd), dtype=torch.bfloat16, device=dev)
+    mk, mv = (torch.cat([c.reshape(b, s, hd), pad], 1).contiguous() for c in (ek, ev))
+    yield ("fused_cross_attention_dma S=50 of 64",
+           lambda: fused_cross_attention_dma(q, mk, mv, s, beams, heads), None)
+    d = 1024
+    scale = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).bfloat16()
+    shift, w, bias = rand(d, scale=0.1), rand(d, 3 * d, scale=0.03), rand(3 * d, scale=0.1)
+    w1, b1, w2, b2 = rand(d, 4 * d, scale=0.03), rand(4 * d, scale=0.1), \
+        rand(4 * d, d, scale=0.02), rand(d, scale=0.1)
+    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    for n in (1024, 32):
+        x = rand(n, d, scale=1.0)
+        yield (f"ln_gemm N={n}", lambda x=x: ln_gemm(x, scale, shift, w, bias), None)
+        yield (f"chain F.layer_norm + F.linear N={n} (for scale)",
+               lambda x=x: F.linear(F.layer_norm(x, (d,), scale, shift, 1e-5), wt, bias), None)
+        yield (f"fused_mlp N={n}", lambda x=x: fused_mlp(x, w1, b1, w2, b2), None)
+        yield (f"chain F.linear -> F.gelu -> F.linear N={n} (for scale)",
+               lambda x=x: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2), None)
+    wq = torch.randint(-127, 128, (d, 3 * d), generator=g, device=dev, dtype=torch.int8)
+    wscale = torch.rand((3 * d,), generator=g, device=dev) * 0.09 + 0.01
+    xm = rand(1024, d, scale=0.3)
+    yield ("int8_matmul M=1024 K=1024 N=3072", lambda: int8_matmul(xm, wq, wscale), None)
+
+
 def generate_case(dev, batch: int = 256):
     """-> a function running the flagship's beam-4 bf16 generate of
     ``batch`` images, returning its captions/s."""
@@ -148,7 +225,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
-    groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases}
+    groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     for turn in range(args.turns):

@@ -5,11 +5,14 @@ CUDA card and say where the device time goes.
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8] [--out FILE]
+    python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8,fused] [--out FILE]
     python3 tools/torch_trace_generate.py --train [--routes dl,split,save] [--out FILE]
 
 For each path (bf16: the default knobs, the bucket head; int8: int8
-weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``), on the
+weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``; fused: the
+fully fused beam step, bf16, under chip_smoke.FUSED_STEP's switches,
+MIC_TPU_FUSED_LAZY_ATTN=1 and
+MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv), on the
 flagship at full width with random weights (chip_smoke.flagship): one
 untraced generate to warm up, then one generate of B images, beam 4,
 max_length 64, every caption's EOS pinned at position 63 (``eos_positions``,
@@ -18,8 +21,10 @@ torch.profiler.  From the trace: the device's kernels, copies and sets;
 busy ms is the union of their intervals, window ms the host clock around
 the synchronised generate, the idle share 1 - busy / window; launches per
 step; and the kernels that take most device time, each as a share of the
-sum of device time, grouped by name.  One JSON line per path goes to stdout
-and, with --out, to FILE.
+sum of device time, grouped by name; and the device ms of the kernels of
+rows 3 and 16 (``ROWS``: the blocked lazy attention, the fused MLP's
+launches), each as a share of busy.  One JSON line per path goes to
+stdout and, with --out, to FILE.
 
 With --train: the port's Trainer at flagship width with the TrainConfig
 defaults (batch 64 x 64 tokens, remat "masks"; warmup_steps=2) with the
@@ -48,6 +53,13 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# kernel-table rows by the full names of their kernels, in this tree and in
+# the trees before the fused step's redesign (the blocked attention shared
+# attend_rows_kernel with the cross-attention, <T, true, true> its own)
+ROWS = {
+    "row 3": r"blocked::blocked_kernel<|attend_rows_kernel<[^<>]*, true, true>",
+    "row 16": r"mlp_kernel<|mlp_finish_kernel<|fc1_act_kernel<|fc2_kernel",
+}
 
 
 def short_name(name: str) -> str:
@@ -101,24 +113,32 @@ def summarize(prof, window_ms: float, label: str, steps: int) -> dict:
         by_name[key] = by_name.get(key, 0.0) + dur
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    rows = {}
+    for row, pattern in ROWS.items():
+        hits = [dur for _, name, _, dur in kernels if re.search(pattern, name)]
+        if hits:
+            rows[row] = {"ms": sum(hits) / 1e3, "launches_per_step": len(hits) / steps,
+                         "share_of_busy": sum(hits) / 1e3 / busy}
     return {
         "path": label, "steps": steps, "launches_per_step": len(kernels) / steps,
         "busy_ms": busy, "window_ms": window_ms, "idle_share": 1.0 - busy / window_ms,
         "device_ms_sum": total / 1e3,
         "top": [{"name": name, "ms": us / 1e3, "share": us / total} for name, us in top],
+        "rows": rows,
     }
 
 
-def trace_path(model, params, px, kw, label: str, batch: int) -> dict:
+def trace_path(model, params, px, kw, label: str, batch: int, env=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    model.generate(params, px, **kw)  # warm-up: builds, allocator, first launches
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = model.generate(params, px, **kw)
+    with chip_smoke.knobs(**(env or {})):
+        model.generate(params, px, **kw)  # warm-up: builds, allocator, first launches
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = model.generate(params, px, **kw)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
     return dict(summarize(prof, window_ms, label, out.steps), batch=batch)
 
 
@@ -171,9 +191,14 @@ def main() -> None:
     _, params, model, kw, pixels = chip_smoke.flagship(dev)
     px = pixels(args.batch, 1)
     kw = dict(kw, eos_positions=torch.full((args.batch,), 63, device=dev, dtype=torch.int32))
-    paths = {"bf16": kw, "int8": dict(kw, quantize="int8", kv_quant="int8")}
-    write_rows([dict(trace_path(model, params, px, paths[label], label, args.batch), card=card)
-                for label in args.paths.split(",")], args.out)
+    paths = {"bf16": (kw, None), "int8": (dict(kw, quantize="int8", kv_quant="int8"), None),
+             "fused": (kw, chip_smoke.FUSED_STEP)}
+    rows = []
+    for label in args.paths.split(","):
+        path_kw, env = paths[label]
+        rows.append(dict(trace_path(model, params, px, path_kw, label, args.batch, env=env),
+                         card=card))
+    write_rows(rows, args.out)
 
 
 def write_rows(rows, out) -> None:
