@@ -33,8 +33,8 @@ _SIGNATURES = {
     # batch, beams, t_max, heads, head_dim, index, stream
     "mic_lazy_attention_bf16": [_P] * 7 + [_I] * 6 + [_P],
     # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, ancestry, out,
-    # batch, beams, t_max, heads, head_dim, index, stream
-    "mic_lazy_attention_q8": [_P] * 9 + [_I] * 6 + [_P],
+    # batch, beams, t_max, heads, head_dim, index, group, groups, stream
+    "mic_lazy_attention_q8": [_P] * 9 + [_I] * 8 + [_P],
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 5 + [_P],
@@ -86,8 +86,8 @@ _SIGNATURES = {
     "mic_beam_permute": [_P] * 3 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
     # x, w_q, scale, out, m, k, n, stream
     "mic_int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
-    # x, scale, shift, w, bias, out, n, d, o, eps, stream
-    "mic_ln_gemm_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # x, scale, shift, w, bias, part, out, n, d, o, eps, splits, stream
+    "mic_ln_gemm_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # x, w1, b1, w2, b2, h, part, out, n, d, f, act, splits1, splits2, stream
     "mic_fused_mlp_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # q, k, v, bias (or NULL), out, batch, t, heads, head_dim, stream

@@ -27,14 +27,14 @@
 // (ops/fused_mlp.py::mlp_splits) cuts a product's depth into splits where
 // its output tiles leave SMs idle: fc1 at N = 1024 is 8 x 16 tiles, one
 // wave, unsplit; fc2 is 8 x 4 tiles of 4 splits; at N = 32 (one row tile)
-// fc1 runs 16 x 8 and fc2 4 x 33.  An
-// unsplit tile is staged in shared memory and finished (bias, fc1's
-// activation, the bf16 rounding) in 16-byte runs of the output; a split
-// one writes f32 partials, (splits, N, cols), that finish_kernel sums in
-// split order.  The (N, F) bf16 intermediate goes through device memory (8
-// MB at the flagship, written once and read once, mostly from L2): keeping
-// it on chip would need fc2's 1024-wide output, 512 KB of f32 per 128 rows,
-// outside registers.
+// fc1 runs 16 x 8 and fc2 4 x 33.  An unsplit tile is staged in shared
+// memory and finished (bias, fc1's activation, the bf16 rounding) in
+// 16-byte runs of the output; a split one writes f32 partials, (splits, N,
+// cols), that gemm_wgmma.cuh's split_sum_kernel sums in split order.  The
+// (N, F) bf16 intermediate goes through device memory (8 MB at the
+// flagship, written once and read once, mostly from L2): keeping it on chip
+// would need fc2's 1024-wide output, 512 KB of f32 per 128 rows, outside
+// registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,30 +159,8 @@ mlp_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUt
   gemm_wgmma::staged_runs(ring, n, fin.cols, fin);
 }
 
-// The splits' partials (splits, n, cols) summed in split order, then fin,
-// eight columns a thread.
-template <int kAct>
-__global__ void mlp_finish_kernel(const float* __restrict__ part, const Finish<kAct> fin,
-                                  int splits, int n) {
-  const size_t plane = static_cast<size_t>(n) * fin.cols;
-  for (size_t run = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; run < plane / 8;
-       run += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v[8];
-    for (int z = 0; z < splits; ++z) {
-      const float4* p = reinterpret_cast<const float4*>(part + z * plane + 8 * run);
-      const float4 lo = p[0];
-      const float4 hi = p[1];
-      const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = z == 0 ? x[j] : v[j] + x[j];
-    }
-    const int row = static_cast<int>(8 * run / fin.cols);
-    fin(row, static_cast<int>(8 * run - static_cast<size_t>(row) * fin.cols), v);
-  }
-}
-
 // One product, (n, depth) a @ (depth, cols) b, then finish<kAct> into out,
-// on `splits` depth splits (split: through part and finish_kernel).
+// on `splits` depth splits (split: through part and split_sum).
 template <int kAct>
 cudaError_t product(const void* a, const void* b, const bf16* bias, bf16* out, float* part,
                     int n, int depth, int cols, int splits, cudaStream_t s) {
@@ -201,10 +179,7 @@ cudaError_t product(const void* a, const void* b, const bf16* bias, bf16* out, f
                                                                               part, n, depth);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t runs = static_cast<size_t>(n) * cols / 8;
-  const int blocks = static_cast<int>(runs < 1024 * 256 ? (runs + 255) / 256 : 1024);
-  mlp_finish_kernel<kAct><<<blocks, 256, 0, s>>>(part, fin, splits, n);
-  return cudaGetLastError();
+  return gemm_wgmma::split_sum(part, fin, splits, n, cols, s);
 }
 
 // fc1 with activation kAct, then fc2.

@@ -14,10 +14,12 @@
 // the whole cluster, made the loop some 1.5x slower).  Block (x, y, z) owns
 // columns 256 x.., rows 128 y.. and, of the K / 64 slices, [z S / Z,
 // (z + 1) S / Z): the caller cuts the depth into Z splits where the output
-// tiles alone leave SMs idle, and sums them in split order.  Within a block
-// the sum over its slices is one fixed order, and no sum is atomic, so
-// reruns are bit-equal.  Rows and columns past the tensors arrive as zeros
-// (TMA's out-of-bounds fill); only rows < M and columns < N are written.
+// tiles alone leave SMs idle, and sums them in split order (split_sum_kernel
+// below, which LN -> GEMM's 128 x 192 tile, ln_gemm.cu, shares).  Within a
+// block the sum over its slices is one fixed order, and no sum is atomic,
+// so reruns are bit-equal.  Rows and columns past the tensors arrive as
+// zeros (TMA's out-of-bounds fill); only rows < M and columns < N are
+// written.
 //
 // Shapes the caller guarantees: K % 64 == 0, N % 8 == 0 (TMA's 16-byte
 // strides), M >= 1, and at least one slice a split.
@@ -182,6 +184,38 @@ __device__ __forceinline__ void staged_runs(unsigned char* ring, int m, int ncol
     const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     finish(m0 + r, c0 + cl, v);
   }
+}
+
+// The splits' partials (splits, n, cols) summed in split order, then
+// finish(row, col, v) for each run of eight columns, one run a thread.
+template <class Finish>
+__global__ void split_sum_kernel(const float* __restrict__ part, const Finish finish, int splits,
+                                 int n, int cols) {
+  const size_t plane = static_cast<size_t>(n) * cols;
+  for (size_t run = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; run < plane / 8;
+       run += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float v[8];
+    for (int z = 0; z < splits; ++z) {
+      const float4* p = reinterpret_cast<const float4*>(part + z * plane + 8 * run);
+      const float4 lo = p[0];
+      const float4 hi = p[1];
+      const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = z == 0 ? x[j] : v[j] + x[j];
+    }
+    const int row = static_cast<int>(8 * run / cols);
+    finish(row, static_cast<int>(8 * run - static_cast<size_t>(row) * cols), v);
+  }
+}
+
+// split_sum_kernel's launch over the (n, cols) plane on stream s.
+template <class Finish>
+cudaError_t split_sum(const float* part, const Finish& finish, int splits, int n, int cols,
+                      cudaStream_t s) {
+  const size_t runs = static_cast<size_t>(n) * cols / 8;
+  const int blocks = static_cast<int>(runs < 1024 * 256 ? (runs + 255) / 256 : 1024);
+  split_sum_kernel<Finish><<<blocks, 256, 0, s>>>(part, finish, splits, n, cols);
+  return cudaGetLastError();
 }
 
 }  // namespace gemm_wgmma

@@ -169,20 +169,123 @@ __global__ void lazy_attention_bf16_kernel(
 // (q . k8) * ks[row, t]; the step's own K row enters unquantized (scale 1);
 // after the f32 softmax each cached weight is multiplied by vs[row, t], and
 // every weight is rounded to bf16 before the V product (the TPU kernel's
-// w.astype(bf16)).  Each warp also quantizes its beam's step rows as
+// w.astype(bf16)).  The kernel also quantizes the beam's step rows as
 // ops/quant.py::quantize_rows_dynamic does, bit for bit: one scale over the
 // whole merged row (amax over all heads, floor 1e-8, times 1/127), IEEE
-// division, round half to even, clamp to +-127.  The block writes its head's
-// slice of the int8 rows into column `index` in place; the head-0 block
-// writes the scales beside them.
+// division, round half to even, clamp to +-127, and writes them and their
+// scales into column `index` in place.
 //
 // Bound: bytes of the live prefix, half those of the bf16 cache (64 B of K
-// and 64 B of V per head row) plus 8 B of scales per position.  Design: the
-// bf16 kernel's, with 16-byte loads of 16 int8 values in pass 1 and one
-// 2-byte load per lane per row in pass 2.  Quantizing the step rows here
-// saves the step some twenty small torch launches per layer; each block
-// re-reads its beams' 2 KB step rows for the row amax.
-__global__ void lazy_attention_q8_kernel(
+// and 64 B of V per head row) plus 8 B of scales per position.  The first
+// kernel here (one block per (head, image), a warp a beam) took the bf16
+// kernel's 0.12 ms at the flagship for half its bytes: it was bound by
+// latency and issue, not bytes (a serial V walk of one 2-byte load a lane
+// a position, 64 floats of q a lane, an I2F a value, and every block
+// re-reading its beams' 2 KB step rows for the amax).  Design, a split
+// two-pass walk, one block per beam row (image b, beam k) over every head,
+// so that each position's source row is read as one contiguous 1 KB merged
+// row and the step rows once a block:
+//   - 4 * G * P threads (at most 256, a multiple of 32; 128 at the
+//     flagship, G = 16 and P = 2, whose 1024 blocks are all resident at
+//     once at 64 registers a thread): thread (p, c) takes the 16-value
+//     piece c of the G heads of a pass (G divides H; a quarter of a head's
+//     q in registers) at positions t = p (mod P), P position groups
+//     (ops/lazy_attention.py::q8_layout chooses G and P and sizes the
+//     shared memory as q8::Layout lays it out);
+//   - pass 1: each thread loads four positions' 16-byte K pieces before it
+//     folds them, widens the int8 values exactly without I2F (the byte as the
+//     low mantissa of 2^23, minus 2^23 + 128), and a head's four lanes add
+//     their dot products by two xor shuffles; the scores (times the K row
+//     scale) go to shared memory;
+//   - a warp a head: the f32 softmax over the stored scores and the step
+//     score, each weight divided by the final sum, times the V row scale,
+//     rounded to bf16 (the weights need the final max and sum first, so no
+//     online softmax);
+//   - pass 2: the same walk over the V pieces, sixteen f32 sums a thread,
+//     then the position groups' sums added in group order in shared memory
+//     with the step row's term, one bf16 rounding;
+//   - the step rows' amax, their quantized values and scales: once a block.
+// Tensor cores do not help: each beam reads its own row at each position,
+// so a beam-by-row product would be mostly waste.  Every sum has one fixed
+// order, so reruns are bit-equal.
+namespace q8 {
+
+constexpr int kBatch = 4;  // positions a thread loads before it folds them
+
+// Byte offsets of the block's shared memory, as ops/lazy_attention.py::
+// q8_layout sizes them: the sources' (row, position), the K and V row
+// scales and the scores (then weights) of positions < index; the position
+// groups' partial sums; the step scores and weights; the warps' amaxes.
+struct Layout {
+  int ksc, vsc, p, part, st, red, bytes;
+  __device__ __host__ Layout(int index, int group, int groups) {
+    const int per = (4 * index + 15) & ~15;
+    ksc = per;
+    vsc = 2 * per;
+    p = 3 * per;
+    part = p + ((4 * group * index + 15) & ~15);
+    st = part + 256 * group * groups;
+    red = st + ((8 * group + 15) & ~15);
+    bytes = red + 256;
+  }
+};
+
+// Sixteen int8 values (raw, low byte first) as f32, exactly: each byte,
+// offset to 0..255, becomes the low mantissa byte of 2^23 in f32, and
+// 2^23 + 128 is subtracted (no I2F).
+__device__ __forceinline__ void widen16(const uint4& raw, float (&f)[16]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t u = w[j] ^ 0x80808080u;
+    f[4 * j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+    f[4 * j + 1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+    f[4 * j + 2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+    f[4 * j + 3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  }
+}
+
+// Sixteen bf16 values at p (32 bytes, 16-byte aligned) as f32.
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[16]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p + 8 * h);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      f[8 * h + 2 * j] = v.x;
+      f[8 * h + 2 * j + 1] = v.y;
+    }
+  }
+}
+
+__device__ __forceinline__ float amax8(const uint4& raw) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+  }
+  return m;
+}
+
+// Eight bf16 values quantized with `scale`, as eight int8 bytes.
+__device__ __forceinline__ uint2 quantize8(const uint4& raw, float scale) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t out[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    const uint32_t lo = static_cast<uint8_t>(quantize(v.x, scale));
+    const uint32_t hi = static_cast<uint8_t>(quantize(v.y, scale));
+    out[j >> 1] |= (lo | (hi << 8)) << (16 * (j & 1));
+  }
+  return make_uint2(out[0], out[1]);
+}
+
+__global__ void __launch_bounds__(256) split_kernel(
     const __nv_bfloat16* __restrict__ q,       // (B, K, H*Dh), pre-scaled
     int8_t* cache_k,                           // (B*K, T, H*Dh)
     float* k_scale,                            // (B*K, T)
@@ -192,118 +295,195 @@ __global__ void lazy_attention_q8_kernel(
     const __nv_bfloat16* __restrict__ v_step,  // (B, K, H*Dh)
     const int32_t* __restrict__ ancestry,      // (B, K, T)
     __nv_bfloat16* __restrict__ out,           // (B, K, H*Dh)
-    int beams, int t_max, int heads, int index) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int k = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+    int beams, int t_max, int heads, int index, int group, int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(index, group, groups);
+  int* srcs = reinterpret_cast<int*>(smem);  // (row, position) of each live position's source
+  float* ksc = reinterpret_cast<float*>(smem + lay.ksc);
+  float* vsc = reinterpret_cast<float*>(smem + lay.vsc);
+  float* p = reinterpret_cast<float*>(smem + lay.p);        // (group, index)
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // (groups, 4 group, 16)
+  float* st = reinterpret_cast<float*>(smem + lay.st);      // step scores | step weights
+  float* red = reinterpret_cast<float*>(smem + lay.red);    // warp amaxes of K | of V
+
+  const int row = blockIdx.x;  // b * beams + k
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int hd = heads * kHeadDim;
+  const int pieces = 4 * group;
+  const int piece = tid % pieces;
+  const int pg = tid / pieces;
+  const int hl = piece >> 2;
 
-  float* p = smem + k * t_max;  // scores, then bf16-rounded weights
-  int* anc = reinterpret_cast<int*>(smem + beams * t_max) + k * t_max;
+  const int beam0 = row - row % beams;
+  for (int t = tid; t < index; t += nthreads) {
+    const int at = (beam0 + ancestry[static_cast<size_t>(row) * t_max + t]) * t_max + t;
+    srcs[t] = at;
+    ksc[t] = k_scale[at];
+    vsc[t] = v_scale[at];
+  }
 
-  const size_t beam_row = static_cast<size_t>(b) * beams + k;
-  const int32_t* anc_g = ancestry + beam_row * t_max;
-  for (int t = lane; t < index; t += 32) anc[t] = anc_g[t];
+  // the step rows' scales: the amax over the whole merged rows, once
+  const uint4* ks8 = reinterpret_cast<const uint4*>(k_step + static_cast<size_t>(row) * hd);
+  const uint4* vs8 = reinterpret_cast<const uint4*>(v_step + static_cast<size_t>(row) * hd);
+  float kmax = 0.f, vmax = 0.f;
+  for (int i = tid; i < hd / 8; i += nthreads) {
+    kmax = fmaxf(kmax, amax8(ks8[i]));
+    vmax = fmaxf(vmax, amax8(vs8[i]));
+  }
+  kmax = warp_max(kmax);
+  vmax = warp_max(vmax);
+  if (lane == 0) {
+    red[warp] = kmax;
+    red[32 + warp] = vmax;
+  }
+  __syncthreads();
+  kmax = 0.f;
+  vmax = 0.f;
+  for (int w = 0; w < nthreads / 32; ++w) {
+    kmax = fmaxf(kmax, red[w]);
+    vmax = fmaxf(vmax, red[32 + w]);
+  }
+  const float kq = __fmul_rn(fmaxf(kmax, 1e-8f), kInv127);
+  const float vq = __fmul_rn(fmaxf(vmax, 1e-8f), kInv127);
+  // The quantized step rows and their scales into column `index`, in
+  // place: every block reads only positions < index.
+  const size_t col = static_cast<size_t>(row) * t_max + index;
+  for (int i = tid; i < hd / 8; i += nthreads) {
+    *reinterpret_cast<uint2*>(cache_k + col * hd + 8 * i) = quantize8(ks8[i], kq);
+    *reinterpret_cast<uint2*>(cache_v + col * hd + 8 * i) = quantize8(vs8[i], vq);
+  }
+  if (tid == 0) {
+    k_scale[col] = kq;
+    v_scale[col] = vq;
+  }
 
-  const size_t head_off = beam_row * hd + static_cast<size_t>(h) * kHeadDim;
-  float qr[kHeadDim];
+  const int rounds = (index + kBatch * groups - 1) / (kBatch * groups);
+  for (int h0 = 0; h0 < heads; h0 += group) {
+    // this thread's piece: 16 dims of head h0 + hl of the merged row
+    const int hoff = (h0 + hl) * kHeadDim + 16 * (piece & 3);
+    const size_t own = static_cast<size_t>(row) * hd + hoff;
+    float qr[16], f[16];
+    load16(q + own, qr);
+    load16(k_step + own, f);
+    float s_step = 0.f;
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(q + head_off + d);
-    const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int i = 0; i < 16; ++i) s_step = fmaf(qr[i], f[i], s_step);
+    s_step += __shfl_xor_sync(0xffffffffu, s_step, 1);
+    s_step += __shfl_xor_sync(0xffffffffu, s_step, 2);
+    if (pg == 0 && (piece & 3) == 0) st[hl] = s_step;
+
+    // pass 1: the scores of this piece's head at positions t = pg (mod groups)
+    for (int r = 0; r < rounds; ++r) {
+      uint4 raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = (r * kBatch + u) * groups + pg;
+        raw[u] = t < index ? *reinterpret_cast<const uint4*>(
+                                 cache_k + static_cast<size_t>(srcs[t]) * hd + hoff)
+                           : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = (r * kBatch + u) * groups + pg;
+        widen16(raw[u], f);
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc = fmaf(qr[i], f[i], acc);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        if (t < index && (piece & 3) == 0) p[hl * index + t] = __fmul_rn(acc, ksc[t]);
+      }
+    }
+    __syncthreads();
+
+    // a warp a head: softmax, weights times the V row scales, rounded to bf16
+    for (int h = warp; h < group; h += nthreads / 32) {
+      float* ph = p + h * index;
+      float m = kMaskValue;
+      for (int t = lane; t < index; t += 32) m = fmaxf(m, ph[t]);
+      const float sh = st[h];
+      m = fmaxf(warp_max(m), sh);
+      float l = 0.f;
+      for (int t = lane; t < index; t += 32) {
+        const float e = expf(ph[t] - m);
+        ph[t] = e;
+        l += e;
+      }
+      const float e_step = expf(sh - m);
+      l = warp_sum(l) + e_step;
+      for (int t = lane; t < index; t += 32) {
+        ph[t] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__fdiv_rn(ph[t], l), vsc[t])));
+      }
+      if (lane == 0) st[group + h] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(e_step, l)));
+    }
+    __syncthreads();
+
+    // pass 2: sixteen output dims of this piece over the same positions
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    for (int r = 0; r < rounds; ++r) {
+      uint4 raw[kBatch];
+      float w[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int t = (r * kBatch + u) * groups + pg;
+        const bool live = t < index;
+        raw[u] = live ? *reinterpret_cast<const uint4*>(
+                            cache_v + static_cast<size_t>(srcs[t]) * hd + hoff)
+                      : make_uint4(0, 0, 0, 0);
+        w[u] = live ? p[hl * index + t] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        widen16(raw[u], f);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = fmaf(w[u], f[i], acc[i]);
+      }
+    }
+    float4* mine =
+        reinterpret_cast<float4*>(part + (static_cast<size_t>(pg) * pieces + piece) * 16);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pair[i]);
-      qr[d + 2 * i] = f.x;
-      qr[d + 2 * i + 1] = f.y;
+      mine[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
     }
-  }
+    __syncthreads();
 
-  // pass 1: one lane per live position t < index
-  float m = kMaskValue;
-  for (int t = lane; t < index; t += 32) {
-    const size_t src = (static_cast<size_t>(b) * beams + anc[t]) * t_max + t;
-    const int8_t* kr = cache_k + src * hd + static_cast<size_t>(h) * kHeadDim;
-    float acc = 0.f;
+    // eight output dims a thread: the position groups' sums in group order,
+    // then the step row's term, one bf16 rounding
+    for (int item = tid; item < 8 * group; item += nthreads) {
+      const int pc = item >> 1;
+      const int half = item & 1;
+      float v[8];
 #pragma unroll
-    for (int d = 0; d < kHeadDim; d += 16) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
-      const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+      for (int j = 0; j < 8; ++j) v[j] = part[pc * 16 + 8 * half + j];
+      for (int g = 1; g < groups; ++g) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc = fmaf(qr[d + i], static_cast<float>(v[i]), acc);
+        for (int j = 0; j < 8; ++j) v[j] += part[(g * pieces + pc) * 16 + 8 * half + j];
+      }
+      const size_t o = static_cast<size_t>(row) * hd + (h0 + (pc >> 2)) * kHeadDim +
+                       16 * (pc & 3) + 8 * half;
+      const float ws = st[group + (pc >> 2)];
+      const uint4 vraw = *reinterpret_cast<const uint4*>(v_step + o);
+      const uint32_t vw[4] = {vraw.x, vraw.y, vraw.z, vraw.w};
+      uint32_t packed[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 vs2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[j]));
+        const __nv_bfloat162 pair =
+            __floats2bfloat162_rn(fmaf(ws, vs2.x, v[2 * j]), fmaf(ws, vs2.y, v[2 * j + 1]));
+        packed[j] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(out + o) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
     }
-    acc = __fmul_rn(acc, k_scale[src]);
-    p[t] = acc;
-    m = fmaxf(m, acc);
-  }
-  // beam k's own step row, unquantized
-  const float2 q2 = load_pair(q + head_off + 2 * lane);
-  const float2 ks2 = load_pair(k_step + head_off + 2 * lane);
-  const float s_step = warp_sum(q2.x * ks2.x + q2.y * ks2.y);
-  m = fmaxf(warp_max(m), s_step);
-
-  float l = 0.f;
-  for (int t = lane; t < index; t += 32) {
-    const float e = expf(p[t] - m);
-    p[t] = e;
-    l += e;
-  }
-  const float e_step = expf(s_step - m);
-  l = warp_sum(l) + e_step;
-  // weights: softmax, times the V row scale, rounded to bf16
-  for (int t = lane; t < index; t += 32) {
-    const size_t src = (static_cast<size_t>(b) * beams + anc[t]) * t_max + t;
-    p[t] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__fdiv_rn(p[t], l), v_scale[src])));
-  }
-  const float w_step = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(e_step, l)));
-  __syncwarp();
-
-  // pass 2: lane owns output dims 2*lane and 2*lane + 1
-  float ax = 0.f, ay = 0.f;
-#pragma unroll 4
-  for (int t = 0; t < index; ++t) {
-    const char2 v2 = *reinterpret_cast<const char2*>(
-        cache_v + ((static_cast<size_t>(b) * beams + anc[t]) * t_max + t) * hd +
-        static_cast<size_t>(h) * kHeadDim + 2 * lane);
-    ax = fmaf(p[t], static_cast<float>(v2.x), ax);
-    ay = fmaf(p[t], static_cast<float>(v2.y), ay);
-  }
-  const float2 vs2 = load_pair(v_step + head_off + 2 * lane);
-  ax = fmaf(w_step, vs2.x, ax);
-  ay = fmaf(w_step, vs2.y, ay);
-  *reinterpret_cast<__nv_bfloat162*>(out + head_off + 2 * lane) = __floats2bfloat162_rn(ax, ay);
-
-  // The step rows' scales: the amax over the whole merged rows
-  float kmax = 0.f, vmax = 0.f;
-  for (int i = 8 * lane; i < hd; i += 8 * 32) {
-    const uint4 kraw = *reinterpret_cast<const uint4*>(k_step + beam_row * hd + i);
-    const uint4 vraw = *reinterpret_cast<const uint4*>(v_step + beam_row * hd + i);
-    const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&kraw);
-    const __nv_bfloat162* vp = reinterpret_cast<const __nv_bfloat162*>(&vraw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 kf = __bfloat1622float2(kp[j]);
-      const float2 vf = __bfloat1622float2(vp[j]);
-      kmax = fmaxf(kmax, fmaxf(fabsf(kf.x), fabsf(kf.y)));
-      vmax = fmaxf(vmax, fmaxf(fabsf(vf.x), fabsf(vf.y)));
-    }
-  }
-  const float ksc = __fmul_rn(fmaxf(warp_max(kmax), 1e-8f), kInv127);
-  const float vsc = __fmul_rn(fmaxf(warp_max(vmax), 1e-8f), kInv127);
-
-  // In-place write of this head's slice of the quantized step rows, and of
-  // their scales, at `index`.  Every block reads only positions < index.
-  const size_t col = beam_row * t_max + index;
-  const size_t off = col * hd + static_cast<size_t>(h) * kHeadDim + 2 * lane;
-  *reinterpret_cast<char2*>(cache_k + off) = make_char2(quantize(ks2.x, ksc), quantize(ks2.y, ksc));
-  *reinterpret_cast<char2*>(cache_v + off) = make_char2(quantize(vs2.x, vsc), quantize(vs2.y, vsc));
-  if (h == 0 && lane == 0) {
-    k_scale[col] = ksc;
-    v_scale[col] = vsc;
+    __syncthreads();  // the next group of heads reuses p, part and st
   }
 }
+
+}  // namespace q8
 
 }  // namespace
 
@@ -325,22 +505,30 @@ extern "C" int mic_lazy_attention_bf16(void* q, void* cache_k, void* cache_v, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// group: heads a pass takes (a divisor of heads), groups: position
+// groups; 4 * group * groups threads a block, as ops/lazy_attention.py::
+// q8_layout chooses them.
 extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
                                      void* v_scale, void* k_step, void* v_step, void* ancestry,
                                      void* out, int batch, int beams, int t_max, int heads,
-                                     int head_dim, int index, void* stream) {
-  if (head_dim != kHeadDim || beams < 1 || beams > 32 || index < 0 || index >= t_max) {
+                                     int head_dim, int index, int group, int groups,
+                                     void* stream) {
+  const int threads = 4 * group * groups;
+  if (head_dim != kHeadDim || beams < 1 || index < 0 || index >= t_max || group < 1 ||
+      heads % group || groups < 1 || threads > 256 || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(heads, batch);
-  const dim3 block(32 * beams);
-  const size_t smem = 2 * static_cast<size_t>(beams) * t_max * sizeof(float);
-  lazy_attention_q8_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  const q8::Layout lay(index, group, groups);
+  if (lay.bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(q8::split_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  q8::split_kernel<<<batch * beams, threads, lay.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<int8_t*>(cache_k),
       static_cast<float*>(k_scale), static_cast<int8_t*>(cache_v), static_cast<float*>(v_scale),
       static_cast<const __nv_bfloat16*>(k_step), static_cast<const __nv_bfloat16*>(v_step),
       static_cast<const int32_t*>(ancestry), static_cast<__nv_bfloat16*>(out), beams, t_max,
-      heads, index);
+      heads, index, group, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,9 @@ the cached rows are read as int8 with their row scales on the scores and
 the weights, and the step's own K/V row enters UNQUANTIZED (scale 1); the
 step rows are quantized per merged row (ops/quant.py::quantize_rows_dynamic;
 the kernel computes the same bits itself) only to be written into column
-``index``.
+``index``.  Its kernel is a split two-pass walk, one block per beam row over
+every head (``q8_layout`` shapes the block, ``q8_walk`` gives each thread's
+positions).
 
 ``fused_lazy_attention`` is mode "1" (MIC_TPU_FUSED_LAZY_ATTN=1), the
 counterpart of mic_tpu's blocked ``fused_lazy_attention``: it reads the
@@ -35,6 +37,8 @@ from one to the other.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -192,13 +196,17 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
         raise TypeError("lazy_attention_q8 kernel: ancestry must be int32")
     if dh != 64 or hd != num_heads * dh:
         raise ValueError(f"lazy_attention_q8 kernel: head_dim must be 64, got {hd}/{num_heads}")
-    if not 1 <= beams <= 32 or not 0 <= index < t:
+    if beams < 1 or not 0 <= index < t:
         raise ValueError(f"lazy_attention_q8 kernel: beams={beams}, index={index}, T={t}")
     if (any(c["q"].shape != (b * beams, t, hd) or c["s"].shape != (b * beams, t)
             for c in (cache_k, cache_v))
             or k_step.shape != q.shape or v_step.shape != q.shape
             or ancestry.shape != (b, beams, t)):
         raise ValueError("lazy_attention_q8 kernel: inconsistent shapes")
+    if b * beams * t >= 2**31:
+        raise ValueError(f"lazy_attention_q8 kernel: B*K*T = {b * beams * t} positions "
+                         "(fewer than 2**31)")
+    group, groups, _ = q8_layout(num_heads, index)
     tensors = (q, cache_k["q"], cache_k["s"], cache_v["q"], cache_v["s"], k_step, v_step,
                ancestry)
     for x in tensors:
@@ -208,7 +216,7 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
     out = torch.empty_like(q)
     err = _build.lib().mic_lazy_attention_q8(
         *(x.data_ptr() for x in tensors), out.data_ptr(),
-        b, beams, t, num_heads, dh, index,
+        b, beams, t, num_heads, dh, index, group, groups,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "mic_lazy_attention_q8")
@@ -217,6 +225,55 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
 
 
 lazy_attention_q8.launches = 0
+
+# the shared memory a block of csrc/lazy_attention.cu's kernels may take
+_MAX_SMEM = 232448
+# namespace q8: the threads a block takes at most (128: at the flagship's
+# 64 registers, all 1024 blocks of B=256 K=4 resident at once; 256-thread
+# blocks measured 5-20% slower), and the positions a thread loads before it
+# folds them
+_Q8_THREADS = 128
+_Q8_BATCH = 4
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _q8_bytes(index: int, group: int, groups: int) -> int:
+    """q8::Layout's bytes: the sources, K and V row scales and scores of the
+    ``index`` live positions (scores for each of the ``group`` heads), the
+    position groups' sixteen partial sums a piece, the step scores and
+    weights, and the warps' amaxes."""
+    return (3 * _align16(4 * index) + _align16(4 * group * index) + 256 * group * groups
+            + _align16(8 * group) + 256)
+
+
+def q8_layout(heads: int, index: int) -> tuple[int, int, int]:
+    """-> (group, groups, shared bytes) of the int8 kernel's block: the heads
+    a pass takes, ``group``, the largest divisor of ``heads`` up to 32 whose
+    scores fit a block's shared memory, and the position groups, ``groups``:
+    as many as 128 threads allow, 4 * group * groups a multiple of 32 (a
+    warp never straddles the block's end).  Thread (g, c) of the block takes
+    piece c (16 dims) of the group's heads at positions t = g (mod groups)."""
+    widest = min(heads, _Q8_THREADS // 4)
+    for group in sorted((g for g in range(1, widest + 1) if heads % g == 0), reverse=True):
+        step = 32 // math.gcd(4 * group, 32)  # groups in steps that keep whole warps
+        groups = _Q8_THREADS // (4 * group) // step * step
+        if groups and _q8_bytes(index, group, groups) <= _MAX_SMEM:
+            return group, groups, _q8_bytes(index, group, groups)
+    raise ValueError(f"lazy_attention_q8 kernel: index {index} does not fit a block's shared "
+                     f"memory ({_q8_bytes(index, 1, _Q8_THREADS // 4)} > {_MAX_SMEM} bytes)")
+
+
+def q8_walk(index: int, groups: int) -> list[list[int]]:
+    """The positions each position group walks, in its order: group g takes
+    t = (r * 4 + u) * groups + g for rounds r and batch slots u, four
+    positions loaded before any is folded, every round of every group
+    (the kernel's loops are uniform across the block) and t < index only."""
+    rounds = -(-index // (_Q8_BATCH * groups))
+    return [[t for r in range(rounds) for u in range(_Q8_BATCH)
+             if (t := (r * _Q8_BATCH + u) * groups + g) < index] for g in range(groups)]
 
 
 def resolve_mode(max_length: int, mode: str = "auto") -> str:
@@ -337,17 +394,12 @@ def fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams
                              k_step=k_step, v_step=v_step)
 
 
-# csrc/lazy_attention.cu, namespace blocked: the warps of a block, the most
-# rows a chunk stages (224: at K=4, index 63, every image's admitted rows in
-# one chunk and three blocks an SM, four at small indices; at most the
-# block's 256 threads), and the shared memory a block may take
+# csrc/lazy_attention.cu, namespace blocked: the warps of a block and the
+# most rows a chunk stages (224: at K=4, index 63, every image's admitted
+# rows in one chunk and three blocks an SM, four at small indices; at most
+# the block's 256 threads)
 _BLOCKED_WARPS = 8
 _STAGE_ROWS = 224
-_MAX_SMEM = 232448
-
-
-def _align16(x: int) -> int:
-    return -(-x // 16) * 16
 
 
 def _stage_bytes(stage: int, q8: bool) -> int:

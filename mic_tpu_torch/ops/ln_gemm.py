@@ -9,7 +9,9 @@ x's dtype.
 
 ``ln_gemm`` takes the plain version for tensors on the CPU and its kernel
 (csrc/ln_gemm.cu) for tensors on a CUDA device; it never falls back from one
-to the other.
+to the other.  The kernel runs a 128-row x 192-column wgmma tile with the
+LayerNorm applied to the A operand in shared memory; ``ln_splits`` cuts
+the depth into splits where the output tiles alone leave SMs idle.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch import _build
+
+# csrc/ln_gemm.cu: a block's output rows and columns, and the depth of a slice
+_TILE_ROWS, _TILE_COLS, _SLICE = 128, 192, 64
 
 
 def supports(x: torch.Tensor, kernel: torch.Tensor) -> bool:
@@ -38,8 +43,19 @@ def ln_gemm_plain(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5) -> torc
     return acc.to(x.dtype) + bias.to(x.dtype)
 
 
-def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5) -> torch.Tensor:
-    """layer_norm(x) @ kernel + bias for x (N, D), kernel (D, O): -> (N, O)."""
+def ln_splits(n: int, d: int, o: int, sms: int) -> int:
+    """The kernel's depth splits at (N, D) x (D, O): as many as the SMs its
+    128 x 192 output tiles leave idle allow (sms // tiles), at least 1 and
+    at most one a 64-deep slice of the ceil(D / 64) (the last one partial
+    where D % 64 != 0, its columns past D zero).  Split z of Z sums slices
+    [z S / Z, (z + 1) S / Z)."""
+    tiles = -(-n // _TILE_ROWS) * -(-o // _TILE_COLS)
+    return max(1, min(-(-d // _SLICE), sms // tiles))
+
+
+def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5, out=None) -> torch.Tensor:
+    """layer_norm(x) @ kernel + bias for x (N, D), kernel (D, O): -> (N, O);
+    written into ``out`` (N, O) where given (the kernel only)."""
     if x.device.type == "cpu":
         return ln_gemm_plain(x, ln_scale, ln_bias, kernel, bias, eps)
     if x.device.type != "cuda":
@@ -54,11 +70,18 @@ def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5) -> torch.Tens
         raise ValueError("ln_gemm kernel: inconsistent shapes")
     if d % 32 or o % 64 or n < 1:
         raise ValueError(f"ln_gemm kernel: D a multiple of 32 and O of 64, got {d}, {o}")
-    _build.check_operands("ln_gemm", tensors)
-    out = torch.empty((n, o), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((n, o), dtype=x.dtype, device=x.device)
+    elif out.shape != (n, o) or out.dtype != x.dtype:
+        raise ValueError(f"ln_gemm kernel: out must be {(n, o)} bfloat16")
+    _build.check_operands("ln_gemm", (*tensors, out))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = ln_splits(n, d, o, sms)
+    part = (torch.empty((splits * n * o,), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     err = _build.lib().mic_ln_gemm_bf16(
-        *(t.data_ptr() for t in tensors), out.data_ptr(), n, d, o, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        *(t.data_ptr() for t in tensors), part.data_ptr() if part is not None else 0,
+        out.data_ptr(), n, d, o, eps, splits, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "mic_ln_gemm_bf16")
     ln_gemm.launches += 1

@@ -18,6 +18,8 @@ bf16 ulp of its largest).  The int8 exact/window head computes the plain
 version's logits bit for bit (exact int32 sums, the same f32 epilogue), so
 its ids are equal and its lp and lse within 1e-5; the bf16 exact/window
 head's ids may differ only at near-ties, two logits within 1e-2.  The
+int8 lazy attention is also bit-equal to plain where every sum is exact (q
+= 0, V row scales powers of two) and across reruns.  The
 decode-attention kernel's output is within 2e-2 in bf16 and 1e-5 in f32,
 its written cache bit-equal; the top-k + logsumexp kernel's ids are equal
 and its log-probs within 1e-5 (the same f32 values, the logsumexp summed in
@@ -28,7 +30,8 @@ kernel bit-equal to plain where every sum is exact (q = 0, integer V) and
 across reruns; LN -> GEMM within
 two bf16 ulps of the size of its terms, |product| + |bias| (the product and
 the bias add each rounded once to bf16), plus 2**-8 of sum |xn| |w| (the
-LN statistics, summed in another order, can round a bf16 xn the other way);
+LN statistics, summed in another order, can round a bf16 xn the other way),
+writing no row past N;
 the fused MLP within 1e-2
 of its largest output (fc1's bf16 intermediate can round the other way
 before the fc2 sum), writing no row past N; both GEMM kernels bit-equal
@@ -250,11 +253,22 @@ def test_generate_runs_through_both_kernels(cuda):
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("index", [0, 1, 9, 15])
-def test_lazy_attention_q8_kernel_matches_plain(cuda, index):
-    b, beams, t, heads, hd = 3, 4, 16, 2, 128
-    g = torch.Generator(device=cuda).manual_seed(100 + index)
+# (images, beams, T, heads, index) of the int8 kernel's cases: the earlier
+# T=16 cases; beams 1, 4 and 8 at indices 0, 1, 17 and T - 1; the
+# flagship's decode shape; and the largest (K, T) the earlier kernel
+# launched (a block of 32 K threads, 8 K T bytes of shared memory within
+# the default 48 KB)
+_Q8_ATTENTION_CASES = (
+    [(3, 4, 16, 2, index) for index in (0, 1, 9, 15)]
+    + [(3, beams, 32, 2, index) for beams in (1, 4, 8) for index in (0, 1, 17, 31)]
+    + [(256, 4, 64, 16, index) for index in (0, 1, 17, 63)]
+    + [(2, 32, 192, 2, 191), (1, 1, 6144, 2, 6143)]
+)
+
+
+def _q8_attention_inputs(cuda, b, beams, t, heads, index, seed):
+    hd = heads * 64
+    g = torch.Generator(device=cuda).manual_seed(seed)
 
     def rand(*shape, scale=0.5):
         return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
@@ -267,18 +281,53 @@ def test_lazy_attention_q8_kernel_matches_plain(cuda, index):
     ck, cv = int8_cache(), int8_cache()
     anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
     anc[:, :, index:] = torch.arange(beams, device=cuda, dtype=torch.int32)[None, :, None]
+    return q, ck, cv, ks, vs, anc
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,beams,t,heads,index", _Q8_ATTENTION_CASES)
+def test_lazy_attention_q8_kernel_matches_plain(cuda, b, beams, t, heads, index):
+    """Outputs within 2e-2 of the plain version's, the step column's int8
+    values and scales bit-equal, every other column untouched, and a rerun
+    (on the cache the first call wrote) bit-equal."""
+    q, ck, cv, ks, vs, anc = _q8_attention_inputs(cuda, b, beams, t, heads, index, 100 + index)
     before = [{n: a.clone() for n, a in c.items()} for c in (ck, cv)]
     pk, pv = ({n: a.clone() for n, a in c.items()} for c in (ck, cv))
     launches = lazy_attention_q8.launches
     out = lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
+    written = [{n: a.clone() for n, a in c.items()} for c in (ck, cv)]
+    again = lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
     ref = lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, index, heads)
     torch.cuda.synchronize()
-    assert lazy_attention_q8.launches == launches + 1
-    for mine, plain, old in zip((ck, cv), (pk, pv), before):
+    assert lazy_attention_q8.launches == launches + 2
+    assert torch.equal(out, again)
+    others = torch.arange(t, device=cuda) != index
+    for mine, plain, old, first in zip((ck, cv), (pk, pv), before, written):
         for name in ("q", "s"):
             assert torch.equal(mine[name], plain[name])
-            assert torch.equal(mine[name][:, index + 1:], old[name][:, index + 1:])
+            assert torch.equal(mine[name], first[name])
+            assert torch.equal(mine[name][:, others], old[name][:, others])
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams", [1, 4])
+def test_lazy_attention_q8_kernel_exact_sums(cuda, beams):
+    """q = 0 at index 63: every score is 0, the 64 live terms (63 cached and
+    the step row) weigh 1/64 each, and with V row scales that are powers of
+    two bf16 holds every weight exactly and every f32 sum is exact, in any
+    order: the output is bit-equal to the plain version's."""
+    b, t, heads, index = 8, 64, 16, 63
+    q, ck, cv, ks, vs, anc = _q8_attention_inputs(cuda, b, beams, t, heads, index, 7 + beams)
+    q = torch.zeros_like(q)
+    g = torch.Generator(device=cuda).manual_seed(beams)
+    cv["s"] = torch.exp2(torch.randint(-8, 1, cv["s"].shape, generator=g, device=cuda)
+                         .float()).contiguous()
+    pk, pv = ({n: a.clone() for n, a in c.items()} for c in (ck, cv))
+    out = lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
+    ref = lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, index, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 def _head_inputs(cuda, n, d, v, seed):
@@ -1126,21 +1175,28 @@ def _bf16_ulp(x):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n", [8, 70, 256])  # one row tile, a partial second one, four
-def test_ln_gemm_kernel_matches_plain(cuda, n):
-    d, o = 256, 384
-    g = torch.Generator(device=cuda).manual_seed(n)
+@pytest.mark.parametrize("d,o", [(256, 384), (160, 192), (1024, 3072)])  # 160: a partial slice
+@pytest.mark.parametrize("n", [1, 8, 32, 70, 129, 256, 1024])
+def test_ln_gemm_kernel_matches_plain(cuda, n, d, o):
+    """Every output within two bf16 ulps of its terms plus 2**-8 of sum
+    |xn| |w|, a rerun bit-equal, and the output a view of the first N rows
+    of a larger buffer whose rows past N keep their sentinel (split and
+    unsplit tiles: N = 1024 at O = 3072 runs unsplit, the others split)."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
     x = (torch.randn((n, d), generator=g, device=cuda) * 2 + 0.5).bfloat16()
     scale = (1 + 0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
     shift = (0.1 * torch.randn((d,), generator=g, device=cuda)).bfloat16()
     w = (0.05 * torch.randn((d, o), generator=g, device=cuda)).bfloat16()
     bias = (0.1 * torch.randn((o,), generator=g, device=cuda)).bfloat16()
+    buf = torch.full((n + 128, o), 7.0, dtype=torch.bfloat16, device=cuda)
     launches = ln_gemm.launches
-    out = ln_gemm(x, scale, shift, w, bias)
+    out = ln_gemm(x, scale, shift, w, bias, out=buf[:n])
     again = ln_gemm(x, scale, shift, w, bias)
     ref = ln_gemm_plain(x, scale, shift, w, bias)
     torch.cuda.synchronize()
     assert ln_gemm.launches == launches + 2
+    assert out.data_ptr() == buf.data_ptr()
+    assert bool((buf[n:] == 7.0).all())
     assert torch.equal(out, again)
     # where the bias cancels the product, one ulp of the product's rounding
     # is finer than one of the output: two of the terms' size; and the LN's

@@ -23,9 +23,9 @@ intermediate by one ulp before the 1024-term fc2 sum; 3.2e-3 measured) and
 tests/test_torch_cuda_kernels.py and chip_smoke.py.
 
 The kernels' host-side planners are held here too: ``mlp_splits`` (the
-fused MLP's depth splits) and ``blocked_layout`` (the blocked attention's
-shared memory: its list of admitted rows, or none, and its chunk of
-staged rows).
+fused MLP's depth splits), ``ln_splits`` (LN -> GEMM's) and
+``blocked_layout`` (the blocked attention's shared memory: its list of
+admitted rows, or none, and its chunk of staged rows).
 """
 
 import jax.numpy as jnp
@@ -214,6 +214,31 @@ def test_mlp_splits_cover_every_slice_once(rows, cols, depth, sms):
     spans = [range(z * slices // splits, (z + 1) * slices // splits) for z in range(splits)]
     assert all(len(span) for span in spans)
     assert [s for span in spans for s in span] == list(range(slices))
+
+
+@pytest.mark.parametrize("d,o", [(256, 384), (160, 192), (1024, 3072)])
+@pytest.mark.parametrize("n", [1, 8, 32, 70, 129, 1024])
+def test_ln_splits_cover_every_slice_once(n, d, o):
+    """LN -> GEMM's depth splits over the ceil(D / 64) slices (D = 160: the
+    last slice half past D) on its 128 x 192 tiles: every slice once, each
+    split at least one, and the blocks no more than the SMs unless the
+    output tiles alone exceed them."""
+    sms = 132
+    splits = ln_gemm.ln_splits(n, d, o, sms)
+    slices = -(-d // 64)
+    tiles = -(-n // 128) * -(-o // 192)
+    assert 1 <= splits <= slices
+    assert tiles * splits <= max(sms, tiles)
+    spans = [range(z * slices // splits, (z + 1) * slices // splits) for z in range(splits)]
+    assert all(len(span) for span in spans)
+    assert [s for span in spans for s in span] == list(range(slices))
+
+
+def test_ln_splits_at_the_flagship():
+    """D=1024, O=3072 on 132 SMs: N=1024 is 8 x 16 tiles of 128 x 192, one
+    wave, unsplit; N=32 (one row tile of 16 column tiles) takes 8 splits."""
+    assert ln_gemm.ln_splits(1024, 1024, 3072, 132) == 1
+    assert ln_gemm.ln_splits(32, 1024, 3072, 132) == 8
 
 
 def test_mlp_splits_at_the_flagship():

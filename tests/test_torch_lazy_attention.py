@@ -21,7 +21,10 @@ mic_tpu's XLA int8 path it can only be close: that path attends to the
 step row after quantizing it, the TPU kernel (and the port) to the
 unquantized row.  The bound there is stated where it is tested.
 The CUDA kernels themselves are held to the plain versions in
-tests/test_torch_cuda_kernels.py.
+tests/test_torch_cuda_kernels.py.  The int8 kernel's host-side planners are
+held here: ``q8_layout`` (the heads a pass takes, the position groups and
+the block's shared memory) takes every shape the earlier kernel took, and
+``q8_walk`` gives each position to one position group, in order.
 """
 
 import jax
@@ -34,7 +37,7 @@ from mic_tpu.nn.attention import mha_decode_step_lazy as jax_mha_decode_step_laz
 from mic_tpu.ops.lazy_attention import build_ancestry_mask, fused_lazy_attention_dma
 from mic_tpu.ops.quant import quantize_array, quantize_rows_dynamic
 from mic_tpu_torch.nn.attention import mha_decode_step_lazy
-from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8, q8_layout, q8_walk
 
 
 def _ancestry(rng, b, beams, t, index):
@@ -204,3 +207,53 @@ def test_q8_mha_decode_step_lazy_near_jax_xla_path(index, seed):
     ref = np.asarray(ref)
     err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
     assert err < 2e-2, err
+
+
+def _align16(x):
+    return (x + 15) // 16 * 16
+
+
+# (beams, T) of the int8 kernel's cases: 1, 4 and 8 beams, the flagship's
+# T = 64, and the earlier kernel's largest (a block of 32 K threads and 8 K T
+# bytes of shared memory within the default 48 KB: K T <= 6144)
+_Q8_SHAPES = [(1, 32), (4, 32), (8, 32), (4, 64), (32, 192), (1, 6144)]
+
+
+@pytest.mark.parametrize("heads", [1, 2, 12, 16, 17, 32])
+@pytest.mark.parametrize("beams,t", _Q8_SHAPES)
+def test_q8_layout_takes_every_shape_the_earlier_kernel_took(beams, t, heads):
+    """At indices 0, 1, 17 and T - 1: a pass takes a divisor of the heads,
+    at most 32; 4 * group * groups threads, at most 128 and whole warps; and
+    the block's shared memory (the sources, K and V row scales and scores of
+    the live positions, sixteen f32 partial sums a thread, the step scores
+    and weights, the warps' amaxes) fits 232,448 bytes, as counted here."""
+    for index in sorted({0, 1, min(17, t - 1), t - 1}):
+        group, groups, nbytes = q8_layout(heads, index)
+        threads = 4 * group * groups
+        assert heads % group == 0 and 1 <= group <= 32
+        assert 32 <= threads <= 128 and threads % 32 == 0
+        regions = [_align16(4 * index)] * 3 + [_align16(4 * group * index),
+                                                threads * 16 * 4, _align16(2 * 4 * group), 256]
+        assert nbytes == sum(regions) <= 232448
+
+
+def test_q8_layout_at_the_flagship():
+    """16 heads of 64: the whole merged row in one pass, 2 position groups of
+    64 threads (128 a block), 13,376 bytes at index 63."""
+    assert q8_layout(16, 63) == (16, 2, 13376)
+    assert q8_layout(16, 17)[:2] == (16, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        q8_layout(16, 20000)
+
+
+@pytest.mark.parametrize("groups", [1, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("index", [0, 1, 17, 31, 63, 191, 6143])
+def test_q8_walk_covers_every_position_once_in_order(index, groups):
+    """Each position group walks its positions t = g (mod groups) in
+    increasing order (the order its f32 sums are taken in), and together the
+    groups take every live position once and nothing at or past index."""
+    walk = q8_walk(index, groups)
+    assert len(walk) == groups
+    assert sorted(t for ts in walk for t in ts) == list(range(index))
+    for g, ts in enumerate(walk):
+        assert ts == sorted(ts) and all(t % groups == g for t in ts)

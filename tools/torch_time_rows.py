@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's decode attention (row 18), tied-head kernels (rows 4, 5
-and 6), flash-CE kernels (rows 7 and 8, row 9's forward, and the save
-and split backwards of rows 9 and 10) and the fused beam step's kernels
+"""Time the port's decode attention (row 18), mode "2"'s lazy attention
+(rows 1 and 2), tied-head kernels (rows 4, 5 and 6), flash-CE kernels
+(rows 7 and 8, row 9's forward, and the save and split backwards of rows
+9 and 10) and the fused beam step's kernels
 (rows 3, 13, 14, 15, 16, with row 20) on one CUDA card, beside
 scaled_dot_product_attention for row 18.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce,fused]
+    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce,fused,lazy]
                                      [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
@@ -23,7 +24,9 @@ lazy attention (row 3, bf16 and int8 per-head, index 63 and 17), the
 cross-attentions (rows 13, 14, 14's int8 form), LN -> GEMM and the MLP
 (rows 15, 16, N in {1024, 32}) beside the chains of calls that compute
 the same (F.layer_norm + F.linear; F.linear -> F.gelu -> F.linear), and
-the int8 dequant GEMM (row 20), as ``fused_cases`` says.  Each time
+the int8 dequant GEMM (row 20), as ``fused_cases`` says; --cases lazy:
+rows 1 and 2 (bf16 and int8 cache) at B=256 K=4 T=64 H=16, index 63 and
+17, as ``lazy_cases`` says.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -191,6 +194,37 @@ def fused_cases(dev):
     yield ("int8_matmul M=1024 K=1024 N=3072", lambda: int8_matmul(xm, wq, wscale), None)
 
 
+def lazy_cases(dev):
+    """Mode "2"'s column-writing lazy attention (rows 1 and 2) at B=256 K=4
+    T=64 H=16, index 63 and 17, on the bf16 cache and the merged int8 cache
+    (one scale a merged row), as chip_smoke's phases 1 and 14 draw them.
+    Each call writes column ``index`` in place: the same values on every
+    replay."""
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_q8
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    b, beams, t, heads, dh = 256, 4, 64, 16, 64
+    hd = heads * dh
+    g = torch.Generator(device=dev).manual_seed(37)
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).bfloat16()
+
+    for q8 in (False, True):
+        q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+        if q8:
+            ck, cv = ({"q": v, "s": sc[..., 0].contiguous()}
+                      for v, sc in (quantize_rows_dynamic(rand(b * beams, t, hd))
+                                    for _ in range(2)))
+        else:
+            ck, cv = rand(b * beams, t, hd), rand(b * beams, t, hd)
+        anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+        fn = lazy_attention_q8 if q8 else lazy_attention
+        for index in (63, 17):
+            yield (f"lazy_attention {'int8' if q8 else 'bf16'} index={index}",
+                   lambda a=(q, ck, cv, ks, vs, anc), i=index, f=fn: f(*a, i, heads), None)
+
+
 def generate_case(dev, batch: int = 256):
     """-> a function running the flagship's beam-4 bf16 generate of
     ``batch`` images, returning its captions/s."""
@@ -225,7 +259,8 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
-    groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases}
+    groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases,
+              "lazy": lazy_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     for turn in range(args.turns):

@@ -22,8 +22,9 @@ busy ms is the union of their intervals, window ms the host clock around
 the synchronised generate, the idle share 1 - busy / window; launches per
 step; and the kernels that take most device time, each as a share of the
 sum of device time, grouped by name; and the device ms of the kernels of
-rows 3 and 16 (``ROWS``: the blocked lazy attention, the fused MLP's
-launches), each as a share of busy.  One JSON line per path goes to
+rows 2, 3, 15 and 16 (``ROWS``: the int8 lazy attention of the int8 path,
+the blocked lazy attention, LN -> GEMM's and the fused MLP's launches of
+the fused path), each as a share of busy.  One JSON line per path goes to
 stdout and, with --out, to FILE.
 
 With --train: the port's Trainer at flagship width with the TrainConfig
@@ -54,11 +55,16 @@ import chip_smoke  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel-table rows by the full names of their kernels, in this tree and in
-# the trees before the fused step's redesign (the blocked attention shared
-# attend_rows_kernel with the cross-attention, <T, true, true> its own)
+# the trees before their redesigns (the blocked attention shared
+# attend_rows_kernel with the cross-attention, <T, true, true> its own; the
+# split products' sums: the MLP's split_sum_kernel<Finish<..>>, LN ->
+# GEMM's split_sum_kernel<AddBias>)
 ROWS = {
+    "row 2": r"q8::split_kernel|lazy_attention_q8_kernel",
     "row 3": r"blocked::blocked_kernel<|attend_rows_kernel<[^<>]*, true, true>",
-    "row 16": r"mlp_kernel<|mlp_finish_kernel<|fc1_act_kernel<|fc2_kernel",
+    "row 15": r"ln_gemm_kernel|split_sum_kernel<[^<>]*AddBias",
+    "row 16": r"mlp_kernel<|mlp_finish_kernel<|fc1_act_kernel<|fc2_kernel|"
+              r"split_sum_kernel<[^<>]*Finish<",
 }
 
 
