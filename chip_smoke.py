@@ -90,8 +90,9 @@ Phases, each of which raises on failure (none catches its own):
      with 8 beams at index 17 and 63: reruns bit-equal, the caches it reads
      byte-identical before and after; and bit-equal to plain where every
      sum is exact (q = 0, integer V);
- 24. the cross-attention kernel against its plain version at B=256, K=4,
-     S=50 (and a ragged S=37);
+ 24. the cross-attention kernel against its plain version at B=256, H=16,
+     beams {4, 1, 9, 16, 33} and S {50, 37, 1, 64}, reruns bit-equal, and
+     bit-equal to plain where every sum is exact (q = 0, integer V);
  25. the LN -> GEMM kernel (row 15, wgmma fed by TMA, the LayerNorm
      applied to the A operand in shared memory) against its plain version
      at N in {1, 8, 32, 70, 129, 1024}, (D, O) in {(256, 384), (160, 192),
@@ -146,10 +147,14 @@ Phases, each of which raises on failure (none catches its own):
  38. at a small width with head dim 64, the card against the CPU: small_attn
      training's first-step gradients, attn_impl="pallas" logits and grads;
  39. the merged-cache cross-attention kernel (row 13) against its plain
-     version at B=256, K=4, H=16 over S=50 live rows padded to 64, a ragged
-     37 of 48 and 64 unpadded, and bit-equal with NaN in every pad row;
+     version at B=256, H=16, beams {4, 1, 9, 16, 33} over S=50 live rows padded
+     to 64, a ragged 37 of 48, 64 unpadded and 1 of 16, reruns bit-equal,
+     bit-equal with NaN in every pad row, and bit-equal to plain on exact
+     sums;
  40. the int8 cross-attention kernel (row 14's int8 form) against its plain
-     version at B=256, K=4, S=50;
+     version at B=256, H=16, beams {4, 1, 9, 16, 33} and S {50, 37, 1, 64},
+     reruns bit-equal, and bit-equal to plain on exact sums (power-of-two V
+     scales);
  41. the beam permute (row 19) bit-equal to its plain version on one
      flagship self plane (L=12, B*K=1024, T=64, H=16, Dh=64 bf16) and on
      planes whose T*H*Dh is not a multiple of 8;
@@ -166,7 +171,11 @@ Phases, each of which raises on failure (none catches its own):
  45. path B, beam 4 on the physical cache (MIC_TPU_LAZY_CACHE=0), 8 images:
      row 19 twice a step, reruns identical, merged_cross beside it ignored;
      B=1 and B=256 smoke figures in turns with the default knobs;
- 46. both paths at a small width on the card against the CPU.
+ 46. both paths at a small width on the card against the CPU;
+ 47. beam 12 at a small width under merged_cross and under fused_cross_attn
+     alone, card against CPU;
+ 48. the bf16 bucket head's ring: in its kernel's SASS no slot released
+     before the products reading it retire, and twenty reruns bit-equal.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -1962,29 +1971,64 @@ def check_blocked_attention(dev):
     return worst, inputs
 
 
+CROSS_BEAMS = (FLAG_K, 1, 9, 16, 33)  # the flagship's first; 33: three tiles of 16
+CROSS_S = (FLAG_S, 37, 1, 64)
+
+
+def _cross_case(dev, g, beams, s, exact=False):
+    """q (B, K, H*Dh) and (B, S, H, Dh) K/V at B=256 H=16; with ``exact`` q
+    = 0 (every weight 1/S) and integer V, so every sum of the V product is
+    exact."""
+    q = (torch.randn((FLAG_B, beams, FLAG_H * FLAG_DH), generator=g, device=dev) * 0.3
+         ).bfloat16()
+    ek, ev = ((torch.randn((FLAG_B, s, FLAG_H, FLAG_DH), generator=g, device=dev) * 0.5
+               ).bfloat16() for _ in range(2))
+    if exact:
+        q.zero_()
+        ev = torch.randint(-8, 9, ev.shape, generator=g, device=dev).bfloat16()
+    return q, ek, ev
+
+
+def _held(name, out, again, ref):
+    """Within 2e-2 of plain and a rerun bit-equal -> the largest error."""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=name)
+    require(torch.equal(out, again), f"{name}: a rerun differs")
+    return (out.float() - ref.float()).abs().max().item()
+
+
 def check_cross_attention(dev):
     """Phase 24: the cross-attention kernel against its plain version at
-    B=256, K=4, S=50 and at a ragged S=37: outputs within 2e-2."""
+    B=256, H=16, beams {4, 1, 9, 16, 33} and S {50, 37, 1, 64}: outputs within
+    2e-2, reruns bit-equal; bit-equal to plain where every sum is exact (q =
+    0, integer V) at 4 and 16 beams."""
     from mic_tpu_torch.ops.cross_attention import (
         fused_cross_attention, fused_cross_attention_plain,
     )
 
-    b, beams, heads, dh = FLAG_B, FLAG_K, FLAG_H, FLAG_DH
+    heads = FLAG_H
     g = torch.Generator(device=dev).manual_seed(32)
     worst = 0.0
-    for s in (FLAG_S, 37):
-        q = (torch.randn((b, beams, heads * dh), generator=g, device=dev) * 0.3).bfloat16()
-        ek, ev = ((torch.randn((b, s, heads, dh), generator=g, device=dev) * 0.5).bfloat16()
-                  for _ in range(2))
+    for beams in CROSS_BEAMS:
+        for s in CROSS_S:
+            q, ek, ev = _cross_case(dev, g, beams, s)
+            err = _held(f"fused_cross_attention K={beams} S={s}",
+                        fused_cross_attention(q, ek, ev, beams, heads),
+                        fused_cross_attention(q, ek, ev, beams, heads),
+                        fused_cross_attention_plain(q, ek, ev, beams, heads))
+            worst = max(worst, err)
+            if (beams, s) == (FLAG_K, FLAG_S):
+                inputs = (q, ek, ev)
+        print(f"fused_cross_attention B={FLAG_B} K={beams} S in {CROSS_S}: max_abs_err="
+              f"{worst:.6g} (so far), reruns bit-equal", flush=True)
+    for beams in (FLAG_K, 16):
+        q, ek, ev = _cross_case(dev, g, beams, FLAG_S, exact=True)
         out = fused_cross_attention(q, ek, ev, beams, heads)
-        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        worst = max(worst, err)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-        print(f"fused_cross_attention B={b} K={beams} S={s}: max_abs_err={err:.6g}", flush=True)
-        if s == FLAG_S:
-            inputs = (q, ek, ev)
+        require(torch.equal(out, fused_cross_attention_plain(q, ek, ev, beams, heads)),
+                f"fused_cross_attention K={beams}: not bit-equal to plain on exact sums")
+    print("fused_cross_attention exact sums (q = 0, integer V), K in (4, 16): bit-equal to "
+          "plain", flush=True)
     return worst, inputs
 
 
@@ -2713,7 +2757,7 @@ def check_attention_small_against_cpu(dev):
 
 # the merged cross cache's (live, padded) encoder rows: the flagship's 50 of
 # 64, a ragged 37 of 48, and 64 with no pad
-MERGED_S = ((FLAG_S, 64), (37, 48), (64, 64))
+MERGED_S = ((FLAG_S, 64), (37, 48), (64, 64), (1, 16))
 MERGED_CROSS = dict(MIC_TPU_EXPERIMENTAL="merged_cross")
 PHYSICAL = dict(MIC_TPU_LAZY_CACHE="0")
 PERMUTE_SHAPE = (12, FLAG_B * FLAG_K, FLAG_T, FLAG_H, FLAG_DH)  # one flagship self plane
@@ -2734,82 +2778,110 @@ def int8_matmul_bound(m, k, n):
     return bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n, "bf16")
 
 
-def _merged_cross_inputs(dev, g, s, s_pad):
+def _merged_cross_inputs(dev, g, s, s_pad, beams=FLAG_K, exact=False):
     """q (B, K, H*Dh) and merged (B, S_pad, H*Dh) K/V, zero past S."""
-    hd = FLAG_H * FLAG_DH
-    q = (torch.randn((FLAG_B, FLAG_K, hd), generator=g, device=dev) * 0.3).bfloat16()
+    q, ek, ev = _cross_case(dev, g, beams, s, exact)
     kv = []
-    for _ in range(2):
-        c = torch.zeros((FLAG_B, s_pad, hd), dtype=torch.bfloat16, device=dev)
-        c[:, :s] = torch.randn((FLAG_B, s, hd), generator=g, device=dev) * 0.5
-        kv.append(c)
+    for c in (ek, ev):
+        m = torch.zeros((FLAG_B, s_pad, FLAG_H * FLAG_DH), dtype=torch.bfloat16, device=dev)
+        m[:, :s] = c.reshape(FLAG_B, s, -1)
+        kv.append(m)
     return q, kv[0], kv[1]
 
 
 def check_cross_attention_dma(dev):
-    """Phase 39: row 13's kernel against its plain version at B=256, K=4,
-    H=16 over S=50 live rows padded to 64, a ragged 37 padded to 48 and 64
-    unpadded: outputs within 2e-2 (phase 24's bound); with every pad row
-    NaN the output bit-equal to the zero-pad one, so no pad row is read."""
+    """Phase 39: row 13's kernel against its plain version at B=256, H=16,
+    beams {4, 1, 9, 16, 33}, over S=50 live rows padded to 64, a ragged 37 padded
+    to 48, 64 unpadded and 1 padded to 16: outputs within 2e-2 (phase 24's
+    bound), reruns bit-equal; with every pad row NaN the output bit-equal to
+    the zero-pad one, so no pad row is read; bit-equal to plain where every
+    sum is exact (q = 0, integer V) at 4 and 16 beams."""
     from mic_tpu_torch.ops.cross_attention import (
         fused_cross_attention_dma, fused_cross_attention_dma_plain,
     )
 
+    heads = FLAG_H
     g = torch.Generator(device=dev).manual_seed(39)
     worst = 0.0
-    for s, s_pad in MERGED_S:
-        q, ek, ev = _merged_cross_inputs(dev, g, s, s_pad)
-        out = fused_cross_attention_dma(q, ek, ev, s, FLAG_K, FLAG_H)
-        ref = fused_cross_attention_dma_plain(q, ek, ev, s, FLAG_K, FLAG_H)
+    for beams in CROSS_BEAMS:
+        for s, s_pad in MERGED_S:
+            q, ek, ev = _merged_cross_inputs(dev, g, s, s_pad, beams)
+            name = f"fused_cross_attention_dma K={beams} S={s} of {s_pad}"
+            out = fused_cross_attention_dma(q, ek, ev, s, beams, heads)
+            worst = max(worst, _held(name, out, fused_cross_attention_dma(q, ek, ev, s, beams,
+                                                                         heads),
+                                     fused_cross_attention_dma_plain(q, ek, ev, s, beams,
+                                                                     heads)))
+            if s < s_pad:
+                nk, nv = ek.clone(), ev.clone()
+                nk[:, s:] = float("nan")
+                nv[:, s:] = float("nan")
+                again = fused_cross_attention_dma(q, nk, nv, s, beams, heads)
+                torch.cuda.synchronize()
+                require(torch.equal(out, again), f"{name}: NaN pad rows changed the output")
+                del nk, nv
+            if (beams, s) == (FLAG_K, FLAG_S):
+                inputs = (q, ek, ev)
+        print(f"fused_cross_attention_dma B={FLAG_B} K={beams} (S, S_pad) in {MERGED_S}: "
+              f"max_abs_err={worst:.6g} (so far), reruns bit-equal, NaN pad rows: output "
+              "bit-equal", flush=True)
+    for beams in (FLAG_K, 16):
+        q, ek, ev = _merged_cross_inputs(dev, g, FLAG_S, 64, beams, exact=True)
+        out = fused_cross_attention_dma(q, ek, ev, FLAG_S, beams, heads)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        worst = max(worst, err)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-        note = ""
-        if s < s_pad:
-            nk, nv = ek.clone(), ev.clone()
-            nk[:, s:] = float("nan")
-            nv[:, s:] = float("nan")
-            again = fused_cross_attention_dma(q, nk, nv, s, FLAG_K, FLAG_H)
-            torch.cuda.synchronize()
-            require(torch.equal(out, again), f"fused_cross_attention_dma S={s}: NaN pad rows "
-                    "changed the output")
-            note = ", NaN pad rows: output bit-equal"
-            del nk, nv
-        print(f"fused_cross_attention_dma B={FLAG_B} K={FLAG_K} S={s} of {s_pad}: "
-              f"max_abs_err={err:.6g}{note}", flush=True)
-        if s == FLAG_S:
-            inputs = (q, ek, ev)
+        require(torch.equal(out, fused_cross_attention_dma_plain(q, ek, ev, FLAG_S, beams,
+                                                                 heads)),
+                f"fused_cross_attention_dma K={beams}: not bit-equal to plain on exact sums")
+    print("fused_cross_attention_dma exact sums (q = 0, integer V), K in (4, 16): bit-equal to "
+          "plain", flush=True)
     return worst, inputs
 
 
 def check_cross_attention_q8(dev):
     """Phase 40: row 14's int8 kernel against its plain version at B=256,
-    K=4, S=50, H=16: the cross K/V quantized per (image, position, head) by
-    ops/quant.py::quantize_rows_dynamic; outputs within 2e-2."""
+    H=16, beams {4, 1, 9, 16, 33} and S {50, 37, 1, 64}: the cross K/V quantized
+    per (image, position, head) by ops/quant.py::quantize_rows_dynamic;
+    outputs within 2e-2, reruns bit-equal; bit-equal to plain where every
+    sum is exact (q = 0, integer V values, V scales powers of two) at 4 and
+    16 beams."""
     from mic_tpu_torch.ops.cross_attention import (
         fused_cross_attention_plain, fused_cross_attention_q8,
     )
     from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
+    heads = FLAG_H
     g = torch.Generator(device=dev).manual_seed(40)
-    q = (torch.randn((FLAG_B, FLAG_K, FLAG_H * FLAG_DH), generator=g, device=dev) * 0.3
-         ).bfloat16()
-    caches, dequant = [], []
-    for _ in range(2):
-        values, scales = quantize_rows_dynamic(
-            (torch.randn((FLAG_B, FLAG_S, FLAG_H, FLAG_DH), generator=g, device=dev) * 0.5
-             ).bfloat16())
-        caches.append({"q": values, "s": scales[..., 0].contiguous()})
-        dequant.append((values.float() * scales).bfloat16())
-    out = fused_cross_attention_q8(q, *caches, FLAG_K, FLAG_H)
-    ref = fused_cross_attention_plain(q, *caches, FLAG_K, FLAG_H)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-    print(f"fused_cross_attention_q8 B={FLAG_B} K={FLAG_K} S={FLAG_S}: max_abs_err={err:.6g}",
-          flush=True)
-    return err, (q, *caches, *dequant)
+    worst = 0.0
+    for beams in CROSS_BEAMS:
+        for s in CROSS_S:
+            q, ek, ev = _cross_case(dev, g, beams, s)
+            caches, dequant = [], []
+            for c in (ek, ev):
+                values, scales = quantize_rows_dynamic(c)
+                caches.append({"q": values, "s": scales[..., 0].contiguous()})
+                dequant.append((values.float() * scales).bfloat16())
+            worst = max(worst, _held(f"fused_cross_attention_q8 K={beams} S={s}",
+                                     fused_cross_attention_q8(q, *caches, beams, heads),
+                                     fused_cross_attention_q8(q, *caches, beams, heads),
+                                     fused_cross_attention_plain(q, *caches, beams, heads)))
+            if (beams, s) == (FLAG_K, FLAG_S):
+                inputs = (q, *caches, *dequant)
+        print(f"fused_cross_attention_q8 B={FLAG_B} K={beams} S in {CROSS_S}: max_abs_err="
+              f"{worst:.6g} (so far), reruns bit-equal", flush=True)
+    for beams in (FLAG_K, 16):
+        q, ek, _ = _cross_case(dev, g, beams, FLAG_S, exact=True)
+        values, scales = quantize_rows_dynamic(ek)
+        ck = {"q": values, "s": scales[..., 0].contiguous()}
+        cv = {"q": torch.randint(-127, 128, ek.shape, generator=g, device=dev, dtype=torch.int8),
+              "s": torch.exp2(torch.randint(-9, -3, (FLAG_B, FLAG_S, heads), generator=g,
+                                            device=dev).float())}
+        out = fused_cross_attention_q8(q, ck, cv, beams, heads)
+        torch.cuda.synchronize()
+        require(torch.equal(out, fused_cross_attention_plain(q, ck, cv, beams, heads)),
+                f"fused_cross_attention_q8 K={beams}: not bit-equal to plain on exact sums")
+    print("fused_cross_attention_q8 exact sums (q = 0, integer V, power-of-two V scales), K in "
+          "(4, 16): bit-equal to plain", flush=True)
+    return worst, inputs
 
 
 def check_beam_permute(dev):
@@ -3067,6 +3139,133 @@ def check_last_paths_small_against_cpu(dev):
         require(score_err < limit, f"{label}: card and CPU scores differ")
 
 
+def check_twelve_beams_small_against_cpu(dev):
+    """Phase 47: beam 12 (past the earlier cross kernel's eight beams) at a
+    small width (d_model 128, head_dim 64, 4 images), under
+    MIC_TPU_EXPERIMENTAL=merged_cross (row 13) and under fused_cross_attn
+    alone (row 14; mode "2"'s self-attention, whose kernel takes up to 32
+    beams), on the card against the CPU (plain versions) on the same bf16
+    weights: equal sequences, scores within 2e-2."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params, tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=512,
+                                   max_position_embeddings=64),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+        dtype="bfloat16",
+    )
+    params = make_serving_params(init_params(config, torch.Generator(device=dev).manual_seed(48),
+                                             dev))
+    host = tree_map(lambda x: x.cpu(), params)
+    u8 = torch.from_numpy(np.random.default_rng(49).integers(0, 256, (4, 40, 40, 3),
+                                                             dtype=np.uint8))
+    model = Captioner(config)
+    kw = dict(num_beams=12, max_length=16, forced_bos_token_id=7)
+    cases = (("merged_cross", MERGED_CROSS, "fused_cross_attention_dma"),
+             ("fused_cross_attn", dict(MIC_TPU_EXPERIMENTAL="fused_cross_attn"),
+              "fused_cross_attention"))
+    for label, env, kernel in cases:
+        with knobs(**env):
+            gpu, counts = drive(model, params, preprocess_images(u8.to(dev), 32, torch.bfloat16),
+                                **kw)
+            cpu = model.generate(host, preprocess_images(u8, 32, torch.bfloat16), **kw)
+        score_err = (gpu.scores.cpu() - cpu.scores).abs().max().item()
+        same = torch.equal(gpu.sequences.cpu(), cpu.sequences)
+        print(f"small width, beam 12, {label}, card vs CPU: sequences equal={same}, max score "
+              f"difference={score_err:.3g}, card {kernel} launches {counts[kernel]}", flush=True)
+        require(counts[kernel] == config.decoder.num_layers * gpu.steps,
+                f"beam 12 {label}: {kernel} not launched once a layer a step")
+        require(same, f"beam 12 {label}: card and CPU sequences differ")
+        require(score_err < 2e-2, f"beam 12 {label}: card and CPU scores differ")
+
+
+def sass_release_faults(lib_path, function: str):
+    """The consumers' ring-slot releases in ``function``'s SASS (the first
+    kernel of the library whose mangled name holds it) that can free a slot
+    while a product reads it: an arrival (``SYNCS.ARRIVE...A1T0``) between a
+    slot's full wait (``SYNCS.PHASECHK``) and a ``wgmma`` of that wait
+    (``HGMMA``), or between that ``wgmma`` and the wait that retires it
+    (``WARPGROUP.DEPBAR``).  In instruction order, which the loops of these
+    kernels keep.  It assumes their order: each slot is released only after
+    a ``wgmma_wait<0>()`` retires every product in flight.  A pipelined ring
+    that keeps a group in flight (``wgmma_wait<1>()``, then the previous
+    slot's release) would be flagged though right, and so would an arrival
+    that ptxas moves across the retiring wait; such a design needs each
+    arrival matched to its own slot's barrier instead.
+    -> (faults, products seen)."""
+    import re
+    from pathlib import Path
+
+    from mic_tpu_torch import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if inside:
+                break
+            inside = function in line
+        elif inside:
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                body.append((m.group(1), m.group(2)))
+    require(bool(body), f"no SASS for a function named like {function}")
+    faults, products = [], 0
+    window = None  # since the last full wait: [an arrival seen, a product seen]
+    for at, ins in body:
+        op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        if op.startswith("SYNCS.PHASECHK"):
+            window = [False, False]
+        elif op.startswith("HGMMA"):
+            products += 1
+            if window is not None:
+                if window[0]:
+                    faults.append(at)
+                window[1] = True
+        elif op.startswith("WARPGROUP.DEPBAR"):
+            window = None
+        elif op.startswith("SYNCS.ARRIVE") and "A1T0" in op and window is not None:
+            if window[1]:
+                faults.append(at)
+            window[0] = True
+    return faults, products
+
+
+def check_bucket_slot_release(dev, lib_path):
+    """Phase 48: the bf16 bucket head (row 4) frees each ring slot only
+    after the products reading it retire.  In the built library's SASS of
+    its kernel (bucket_kernel<false>) no slot is released between its full
+    wait and the wait that retires its products (``sass_release_faults``);
+    and at N in {1024, 65}, D=1024, V=250054, where the producer has the
+    whole ring loaded ahead of the consumers at each chunk pair's start,
+    twenty reruns give every lp, id and lse bit-equal to the first run."""
+    from mic_tpu_torch.ops.fused_head import fused_head_topk
+
+    faults, products = sass_release_faults(lib_path, "bucket_kernelILb0E")
+    print(f"fused_head bucket_kernel<false> SASS: {products} HGMMA, slot releases before their "
+          f"products retire: {faults or 'none'}", flush=True)
+    require(products > 0, "the bf16 bucket kernel's SASS holds no HGMMA")
+    require(not faults, f"the bf16 bucket kernel frees a ring slot before its products retire "
+            f"(SASS at {faults})")
+    weight, bias, _, _ = _head_table(dev)
+    for n in (1024, 65):
+        hidden = _hidden(dev, n, HEAD_D, 480 + n)
+        first = fused_head_topk(hidden, weight, bias, 9, "bucket")
+        for _ in range(20):
+            again = fused_head_topk(hidden, weight, bias, 9, "bucket")
+            torch.cuda.synchronize()
+            require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                    f"fused_head bucket N={n}: a rerun differs")
+        print(f"fused_head bucket N={n}: twenty reruns bit-equal (every lp, id and lse)",
+              flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -3164,6 +3363,9 @@ def main() -> None:
     del flag
     torch.cuda.empty_cache()
     check_last_paths_small_against_cpu(dev)
+    check_twelve_beams_small_against_cpu(dev)
+    check_bucket_slot_release(dev, lib_path)
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

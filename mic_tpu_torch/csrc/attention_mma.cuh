@@ -105,6 +105,35 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// Two floats rounded to bf16 (to nearest even) as one packed pair.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+// Sixteen int8 values (a 16-byte piece of a head row) as sixteen bf16,
+// exactly, into 32 bytes of shared memory: each byte b, offset to b ^ 0x80,
+// becomes the low mantissa byte of 2^23 in f32, less 2^23 + 128 that is b,
+// and the upper half of an f32 integer of at most 8 significant bits is its
+// bf16.
+__device__ __forceinline__ void store_widened(unsigned char* dst, const uint4& raw) {
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[k] = __float_as_uint(__uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 + k)) -
+                             8388736.f);
+    }
+    out[2 * i] = __byte_perm(f[0], f[1], 0x7632);
+    out[2 * i + 1] = __byte_perm(f[2], f[3], 0x7632);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 

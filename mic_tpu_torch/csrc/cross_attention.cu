@@ -18,10 +18,12 @@
 //
 // Bound: bytes, each image's live K and V rows read once (52 MB a layer at
 // B=256, S=50, H*Dh=1024 in bf16; half that, plus the scales, in int8).
-// Design: attend_rows.cuh with one source of S rows, one block of four
-// warps per (head, image).  The TPU kernel's double-buffered DMA groups
-// existed to keep its sequential grid fed; 4096 blocks in flight on 132 SMs
-// need no such scheme.
+// Design: attend_rows.cuh, one block per (head, image) that
+// requests its q, K and V tiles at once and runs both products on the
+// tensor cores.  The TPU kernel's double-buffered DMA groups existed to
+// keep its sequential grid fed; thousands of blocks in flight, each with
+// its whole tiles requested, need no such scheme (a persistent grid whose
+// blocks prefetch their next item measured slower, PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,8 +35,9 @@ extern "C" int mic_cross_attention_bf16(void* q, void* enc_k, void* enc_v, void*
                                         int beams, int enc_len, int heads, int head_dim,
                                         void* stream) {
   attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
-                 static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len, heads};
-  return attend::launch<__nv_bfloat16>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
+                 static_cast<__nv_bfloat16*>(out), batch, beams, enc_len, enc_len, heads,
+                 16, {}};
+  return attend::launch<__nv_bfloat16>(a, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_q8(void* q, void* enc_k, void* k_scale, void* enc_v,
@@ -42,8 +45,9 @@ extern "C" int mic_cross_attention_q8(void* q, void* enc_k, void* k_scale, void*
                                       int heads, int head_dim, void* stream) {
   attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v,
                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                 static_cast<__nv_bfloat16*>(out), beams, 1, enc_len, enc_len, heads};
-  return attend::launch<int8_t>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
+                 static_cast<__nv_bfloat16*>(out), batch, beams, enc_len, enc_len, heads,
+                 16, {}};
+  return attend::launch<int8_t>(a, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_dma_bf16(void* q, void* enc_k, void* enc_v, void* out,
@@ -51,6 +55,6 @@ extern "C" int mic_cross_attention_dma_bf16(void* q, void* enc_k, void* enc_v, v
                                             int head_dim, void* stream) {
   if (real_s < 1) return static_cast<int>(cudaErrorInvalidValue);
   attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
-                 static_cast<__nv_bfloat16*>(out), beams, 1, s_pad, real_s, heads};
-  return attend::launch<__nv_bfloat16>(a, batch, head_dim, static_cast<cudaStream_t>(stream));
+                 static_cast<__nv_bfloat16*>(out), batch, beams, s_pad, real_s, heads, 16, {}};
+  return attend::launch<__nv_bfloat16>(a, head_dim, static_cast<cudaStream_t>(stream));
 }

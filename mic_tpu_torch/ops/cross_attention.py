@@ -64,9 +64,8 @@ def _check(name: str, q, beams: int, num_heads: int) -> tuple[int, int, int, int
     dh = hd // num_heads
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel: q must be bfloat16")
-    if dh != 64 or hd != num_heads * dh or beams != k or not 1 <= k <= 8:
-        raise ValueError(f"{name} kernel: head_dim 64 and 1-8 beams, got {hd}/{num_heads}, "
-                         f"beams={beams}")
+    if dh != 64 or hd != num_heads * dh or beams != k:
+        raise ValueError(f"{name} kernel: head_dim 64, got {hd}/{num_heads}, beams={beams}")
     return b, k, hd, dh
 
 

@@ -25,10 +25,9 @@ scores each beam's own step row unquantized.  Its int8 cache is mic_tpu's
 canonical layout: {"q": (B*K, T, H*Dh) int8, "s": (B*K, T, H) f32}, one
 scale per (row, position, head).  Its kernel is a split row walk: the rows
 some beam admits gathered into a list, their K and V head rows copied into
-shared memory once, each scored or applied to every beam by eight lanes
-(``blocked_layout`` lays out the block's shared memory).  Its plain version is
-``attend_rows_plain``, mic_tpu's _attend_tiles, which ops/cross_attention.py
-shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
+shared memory once, both products on mma.sync (``blocked_layout`` lays out
+the block's shared memory).  Its plain version is ``attend_rows_plain``,
+mic_tpu's _attend_tiles, which ops/cross_attention.py shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
 mode "0" (mic_tpu's XLA chain) is not ported.
 
 Each wrapper takes the plain version for tensors on the CPU and its kernel
@@ -334,13 +333,14 @@ def build_ancestry_mask(ancestry: torch.Tensor, index: int) -> torch.Tensor:
 
 def attend_rows_plain(q, k_rows, v_rows, num_heads: int, live=None, k_scale=None,
                       v_scale=None, k_step=None, v_step=None) -> torch.Tensor:
-    """mic_tpu's _attend_tiles, the plain version of csrc/attend_rows.cuh that
-    both the blocked lazy attention and the cross-attention run: q and the
-    step rows rounded to bfloat16; f32 scores of every cached row (times
-    its K scale where given), dead ones finfo(float32).min, and each beam's
-    step row where given; softmax as exp(s - max) / sum; cached weights
-    times their V scales; every weight rounded to bfloat16; f32 sums, one
-    bfloat16 rounding of the output, then q's dtype.
+    """mic_tpu's _attend_tiles, the plain version of the blocked lazy
+    attention's kernel (csrc/lazy_attention.cu, namespace blocked) and of
+    the cross-attention's (csrc/attend_rows.cuh): q and the step rows
+    rounded to bfloat16; f32 scores of every cached row (times its K scale
+    where given), dead ones finfo(float32).min, and each beam's step row
+    where given; softmax as exp(s - max) / sum; cached weights times their
+    V scales; every weight rounded to bfloat16; f32 sums, one bfloat16
+    rounding of the output, then q's dtype.
 
     q (B, K, H*Dh); k_rows / v_rows (B, R, H, Dh); live (B, R, K) int8 or
     None (every row live); k_scale / v_scale (B, R, H) or None; k_step /

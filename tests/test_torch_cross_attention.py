@@ -56,10 +56,11 @@ def _assert_within_one_bf16_ulp(got, ref):
     assert (np.abs(got - ref) <= np.ldexp(1.0, e - 8)).all()
 
 
-@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("k", [1, 4, 9, 16])
 @pytest.mark.parametrize("s,s_pad", [(13, 16), (50, 64), (64, 64)])
 def test_dma_plain_matches_mic_tpu_interpret(s, s_pad, k):
-    """Row 13: the merged padded cache, rows >= real_s dead, bf16 q."""
+    """Row 13: the merged padded cache, rows >= real_s dead, bf16 q, at
+    beam counts past the earlier kernel's eight."""
     rng = np.random.default_rng(s + k)
     q, ek, ev = _qkv(rng, k, s, s_pad)
     ref = jax_cross.fused_cross_attention_dma(
@@ -97,7 +98,8 @@ def test_dma_refuses_an_unaligned_pad_as_mic_tpu(s_pad):
 
 
 @pytest.mark.parametrize("layout", ["canonical", "merged"])
-@pytest.mark.parametrize("s,k", [(50, 4), (13, 1)])
+@pytest.mark.parametrize("k", [1, 4, 9, 16])
+@pytest.mark.parametrize("s", [50, 13])
 def test_int8_plain_matches_mic_tpu_interpret(s, k, layout):
     """Row 14's int8 variant: {"q", "s"} caches that each package quantizes
     from the same bf16 K/V (bit-equal first), in the (B, S, H, Dh) and the
@@ -120,18 +122,19 @@ def test_int8_plain_matches_mic_tpu_interpret(s, k, layout):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **TOL)
 
 
+@pytest.mark.parametrize("k", [1, 4, 9, 16])
 @pytest.mark.parametrize("s", [50, 13])
-def test_bf16_merged_layout_matches_mic_tpu_interpret(s):
+def test_bf16_merged_layout_matches_mic_tpu_interpret(s, k):
     """Row 14's bf16 kernel also takes the merged (B, S, H*Dh) layout:
     within one bfloat16 ulp of mic_tpu's (its MXU fold sums the V product in
     another order, which can round the bf16 output the other way; 3 of 1024
-    outputs at S=50)."""
-    rng = np.random.default_rng(s)
-    q, ek, ev = _qkv(rng, 4, s)
+    outputs at S=50, four beams)."""
+    rng = np.random.default_rng(s if k == 4 else 100 * s + k)
+    q, ek, ev = _qkv(rng, k, s)
     ref = jax_cross.fused_cross_attention(jnp.asarray(q, jnp.bfloat16),
                                           jnp.asarray(ek, jnp.bfloat16),
-                                          jnp.asarray(ev, jnp.bfloat16), 4, H, interpret=True)
-    got = cross_attention.fused_cross_attention(_bf16(q), _bf16(ek), _bf16(ev), 4, H)
+                                          jnp.asarray(ev, jnp.bfloat16), k, H, interpret=True)
+    got = cross_attention.fused_cross_attention(_bf16(q), _bf16(ek), _bf16(ev), k, H)
     _assert_within_one_bf16_ulp(got.float().numpy(), np.asarray(ref, np.float32))
 
 

@@ -45,9 +45,11 @@ within one bf16 ulp of the size of their terms (sum |p| |v| / l) with at
 most 0.2% (small-T) and 1% (flash) of their outputs not bit-equal to the
 plain version's, and NaN in the next image's K and V rows never reaching
 an output.  The last four kernels:
-the merged-cache cross-attention and the int8 cross-attention within 2e-2,
-the merged one bit-equal whether its pad rows hold zeros or NaN (it never
-reads them); the beam permute bit-equal (it copies); the int8 dequant GEMM
+the merged-cache cross-attention and the int8 cross-attention within 2e-2
+at beams {1, 4, 9, 16} and S {1, 37, 50, 64} (and in chunks of rows at
+long S), reruns bit-equal, the merged one bit-equal whether its pad rows
+hold zeros or NaN (it never reads them), every cross kernel bit-equal to
+plain where every sum is exact (q = 0, integer V, power-of-two V scales); the beam permute bit-equal (it copies); the int8 dequant GEMM
 within one bf16 ulp of the plain output plus the worst-case error of f32
 sums in another order, K * 2**-24 * sum |x| |w|.
 """
@@ -1153,20 +1155,109 @@ def test_fused_lazy_attention_kernel_walks_every_row_past_the_list(cuda, q8, bea
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=name)
 
 
+def _cross_inputs(cuda, b, beams, s, heads, seed, exact=False):
+    """q (B, K, H*Dh) and (B, S, H, Dh) K/V in bf16; with ``exact`` q = 0
+    (every score 0) and integer V, so every sum of the V product is exact."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (torch.randn((b, beams, heads * 64), generator=g, device=cuda) * 0.3).bfloat16()
+    ek = (torch.randn((b, s, heads, 64), generator=g, device=cuda) * 0.5).bfloat16()
+    ev = (torch.randn((b, s, heads, 64), generator=g, device=cuda) * 0.5).bfloat16()
+    if exact:
+        q.zero_()
+        ev = torch.randint(-8, 9, (b, s, heads, 64), generator=g, device=cuda).bfloat16()
+    return q, ek, ev
+
+
+def _merged(c, s_pad, fill=0.0):
+    """(B, S, H, Dh) -> the merged (B, S_pad, H*Dh) cache, ``fill`` past S."""
+    b, s = c.shape[:2]
+    out = torch.full((b, s_pad, c.shape[2] * c.shape[3]), fill, dtype=c.dtype, device=c.device)
+    out[:, :s] = c.reshape(b, s, -1)
+    return out
+
+
+def _q8_cache(c, layout="canonical"):
+    values, scales = quantize_rows_dynamic(c)
+    shape = c.shape if layout == "canonical" else (*c.shape[:2], c.shape[2] * c.shape[3])
+    return {"q": values.reshape(shape), "s": scales[..., 0].contiguous()}
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("s", [50, 37, 1])
-def test_fused_cross_attention_kernel_matches_plain(cuda, s):
-    b, beams, heads, dh = 3, 4, 2, 64
-    g = torch.Generator(device=cuda).manual_seed(s)
-    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
-    ek, ev = ((torch.randn((b, s, heads, dh), generator=g, device=cuda) * 0.5).bfloat16()
-              for _ in range(2))
+@pytest.mark.parametrize("beams", [1, 4, 9, 16])
+@pytest.mark.parametrize("s", [50, 37, 1, 64])
+def test_fused_cross_attention_kernel_matches_plain(cuda, s, beams):
+    """Any beam count (tiles of 16 beams) and encoder length; a rerun
+    bit-equal."""
+    b, heads = 3, 2
+    q, ek, ev = _cross_inputs(cuda, b, beams, s, heads, s if beams == 4 else 100 * s + beams)
     launches = fused_cross_attention.launches
     out = fused_cross_attention(q, ek, ev, beams, heads)
+    again = fused_cross_attention(q, ek, ev, beams, heads)
     ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
     torch.cuda.synchronize()
-    assert fused_cross_attention.launches == launches + 1
+    assert fused_cross_attention.launches == launches + 2
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel", ["bf16", "merged", "int8"])
+@pytest.mark.parametrize("beams", [1, 4, 9, 16])
+def test_cross_attention_kernels_exact_sums(cuda, kernel, beams):
+    """q = 0 (every weight 1/S, rounded alike), integer V and, in int8, V
+    scales that are powers of two: every product and sum of the V product
+    is exact, so each kernel is bit-equal to its plain version."""
+    b, s, heads = 3, 50, 2
+    q, ek, ev = _cross_inputs(cuda, b, beams, s, heads, 200 + beams, exact=True)
+    if kernel == "bf16":
+        out = fused_cross_attention(q, ek, ev, beams, heads)
+        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+    elif kernel == "merged":
+        mk, mv = _merged(ek, 64), _merged(ev, 64)
+        out = fused_cross_attention_dma(q, mk, mv, s, beams, heads)
+        ref = fused_cross_attention_dma_plain(q, mk, mv, s, beams, heads)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(300 + beams)
+        ck = _q8_cache(ek)
+        cv = {"q": torch.randint(-127, 128, ev.shape, generator=g, device=cuda,
+                                 dtype=torch.int8),
+              "s": torch.exp2(torch.randint(-9, -3, (b, s, heads), generator=g,
+                                            device=cuda).float())}
+        out = fused_cross_attention_q8(q, ck, cv, beams, heads)
+        ref = fused_cross_attention_plain(q, ck, cv, beams, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams,s", [(4, 3000), (16, 2000), (33, 700), (1, 12000)])
+def test_cross_attention_kernels_take_rows_in_chunks(cuda, beams, s):
+    """Encoder lengths whose whole K and V tiles do not fit beside the
+    scores: the rows go through in chunks, each V item's sums kept between
+    them; every kernel within 2e-2 of plain, reruns bit-equal, the merged
+    one also with NaN pad rows."""
+    b, heads = 2, 2
+    q, ek, ev = _cross_inputs(cuda, b, beams, s, heads, beams + s)
+    s_pad = -(-s // 16) * 16 + 16
+    mk, mv = _merged(ek, s_pad), _merged(ev, s_pad)
+    nk, nv = _merged(ek, s_pad, float("nan")), _merged(ev, s_pad, float("nan"))
+    caches = [_q8_cache(c) for c in (ek, ev)]
+    runs = {
+        "bf16": (lambda: fused_cross_attention(q, ek, ev, beams, heads),
+                 fused_cross_attention_plain(q, ek, ev, beams, heads)),
+        "merged": (lambda: fused_cross_attention_dma(q, mk, mv, s, beams, heads),
+                   fused_cross_attention_dma_plain(q, mk, mv, s, beams, heads)),
+        "int8": (lambda: fused_cross_attention_q8(q, *caches, beams, heads),
+                 fused_cross_attention_plain(q, *caches, beams, heads)),
+    }
+    for name, (run, ref) in runs.items():
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=name)
+        assert torch.equal(out, again), name
+    nan_pad = fused_cross_attention_dma(q, nk, nv, s, beams, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(nan_pad, runs["merged"][0]())
 
 
 def _bf16_ulp(x):
@@ -1509,46 +1600,47 @@ def test_attention_switches_route_through_the_kernels(cuda, monkeypatch):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams", [1, 4, 9, 16])
 @pytest.mark.parametrize("s,s_pad", [(50, 64), (37, 48), (64, 64), (1, 16)])
-def test_fused_cross_attention_dma_kernel_matches_plain(cuda, s, s_pad):
-    b, beams, heads, dh = 3, 4, 2, 64
-    g = torch.Generator(device=cuda).manual_seed(s)
-    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
-    ek, ev = (torch.zeros((b, s_pad, heads * dh), device=cuda, dtype=torch.bfloat16)
-              for _ in range(2))
-    for c in (ek, ev):
-        c[:, :s] = torch.randn((b, s, heads * dh), generator=g, device=cuda) * 0.5
+def test_fused_cross_attention_dma_kernel_matches_plain(cuda, s, s_pad, beams):
+    """Rows at or past real_s never read: NaN there leaves the output
+    bit-equal; a rerun bit-equal; any beam count."""
+    b, heads = 3, 2
+    q, ek, ev = _cross_inputs(cuda, b, beams, s, heads, s if beams == 4 else 100 * s + beams)
+    mk, mv = _merged(ek, s_pad), _merged(ev, s_pad)
     launches = fused_cross_attention_dma.launches
-    out = fused_cross_attention_dma(q, ek, ev, s, beams, heads)
-    ref = fused_cross_attention_dma_plain(q, ek, ev, s, beams, heads)
-    for c in (ek, ev):
+    out = fused_cross_attention_dma(q, mk, mv, s, beams, heads)
+    again = fused_cross_attention_dma(q, mk, mv, s, beams, heads)
+    ref = fused_cross_attention_dma_plain(q, mk, mv, s, beams, heads)
+    for c in (mk, mv):
         c[:, s:] = float("nan")
-    again = fused_cross_attention_dma(q, ek, ev, s, beams, heads)
+    nan_pad = fused_cross_attention_dma(q, mk, mv, s, beams, heads)
     torch.cuda.synchronize()
-    assert fused_cross_attention_dma.launches == launches + 2
+    assert fused_cross_attention_dma.launches == launches + 3
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-    assert torch.equal(out, again)
+    assert torch.equal(out, again) and torch.equal(out, nan_pad)
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams", [1, 4, 9, 16])
+@pytest.mark.parametrize("s", [50, 37, 1, 64])
 @pytest.mark.parametrize("layout", ["canonical", "merged"])
-def test_fused_cross_attention_q8_kernel_matches_plain(cuda, layout):
-    b, beams, s, heads, dh = 3, 4, 50, 2, 64
-    g = torch.Generator(device=cuda).manual_seed(8)
-    q = (torch.randn((b, beams, heads * dh), generator=g, device=cuda) * 0.3).bfloat16()
-    caches = []
-    for _ in range(2):
-        values, scales = quantize_rows_dynamic(
-            (torch.randn((b, s, heads, dh), generator=g, device=cuda) * 0.5).bfloat16())
-        shape = (b, s, heads, dh) if layout == "canonical" else (b, s, heads * dh)
-        caches.append({"q": values.reshape(shape), "s": scales[..., 0].contiguous()})
+def test_fused_cross_attention_q8_kernel_matches_plain(cuda, layout, s, beams):
+    """The int8 cross cache (a scale per image, position and head), both
+    layouts, any beam count; a rerun bit-equal."""
+    b, heads = 3, 2
+    q, ek, ev = _cross_inputs(cuda, b, beams, s, heads, 8 if (beams, s) == (4, 50)
+                              else 100 * s + beams)
+    caches = [_q8_cache(c, layout) for c in (ek, ev)]
     launches = fused_cross_attention_q8.launches, fused_cross_attention.launches
     out = fused_cross_attention(q, *caches, beams, heads)
+    again = fused_cross_attention(q, *caches, beams, heads)
     ref = fused_cross_attention_plain(q, *caches, beams, heads)
     torch.cuda.synchronize()
     assert (fused_cross_attention_q8.launches, fused_cross_attention.launches) == (
-        launches[0] + 1, launches[1])
+        launches[0] + 2, launches[1])
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.requires_cuda

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Planted faults: show that the checks of the cross-attention kernel
+(rows 13 and 14) and of the bf16 bucket head's ring (row 4) can fail.  Each
+fault is a copy of the checkout under build/planted/ with one source edit,
+built on the card; the checks meant to catch it run in that copy, and each
+prints CAUGHT (it failed) or "not caught" (it passed).
+
+Run from the root of a checkout of the port, on a machine with a CUDA card:
+
+    python3 tools/torch_planted_faults.py [NAME ...]
+
+with NAME a key of ``FAULTS`` (all of them by default).  The checks:
+chip_smoke.py's phases 24, 39 and 40 and the CUDA tests ``-k cross`` for
+the cross-attention faults; phase 48 (its SASS check, and its reruns alone),
+phase 3 and the CUDA tests ``-k fused_head_bucket`` for the ring's.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+CROSS = "mic_tpu_torch/csrc/attend_rows.cuh"
+HEAD = "mic_tpu_torch/csrc/fused_head.cu"
+RELEASED_AFTER = ("        wgmma_commit();\n        wgmma_wait<0>();\n#pragma unroll\n"
+                  "        for (int x = 0; x < 32; ++x) fence_operand(acc[x]);\n"
+                  "        release(empty, slot);\n      }\n      advance();")
+RELEASED_BEFORE = ("        wgmma_commit();\n        release(empty, slot);\n"
+                   "        wgmma_wait<0>();\n#pragma unroll\n"
+                   "        for (int x = 0; x < 32; ++x) fence_operand(acc[x]);\n"
+                   "      }\n      advance();")
+W_ROW = ("      const float* w = scores + min(m0 + g8, beams - 1) * ss + c0 + 2 * c;\n"
+         "      const int w8 = (min(m0 + g8 + 8, beams - 1) - min(m0 + g8, beams - 1)) * ss;")
+FAULTS = {
+    "last live row dropped from the V product": (CROSS, [(
+        "      if (t < positions) {\n        w = __fdiv_rn(s[t], l);",
+        "      if (t < positions - 1) {\n        w = __fdiv_rn(s[t], l);")]),
+    "the row at real_s read": (CROSS, [(
+        "      const bool live = c0 + r < positions;",
+        "      const bool live = c0 + r <= positions;")]),
+    "a 16-beam tile's weights taken from the first tile's": (CROSS, [(
+        W_ROW, W_ROW.replace("m0 + g8", "g8"))]),
+    "a tile's beams 8-15 given beams 0-7's weights": (CROSS, [(
+        "      const int w8 = (", "      const int w8 = 0 * (")]),
+    "bf16 bucket slot freed before its products retire": (HEAD, [
+        (RELEASED_AFTER, RELEASED_BEFORE)]),
+}
+
+
+def phase(call: str) -> str:
+    return f"import chip_smoke as c, torch; {call}"
+
+
+CROSS_CHECKS = [
+    ("phase 24", phase("c.check_cross_attention(torch.device('cuda'))")),
+    ("phase 39", phase("c.check_cross_attention_dma(torch.device('cuda'))")),
+    ("phase 40", phase("c.check_cross_attention_q8(torch.device('cuda'))")),
+    ("CUDA tests -k cross", None),
+]
+SLOT = ("from mic_tpu_torch import _build; "
+        "c.check_bucket_slot_release(torch.device('cuda'), _build.build())")
+HEAD_CHECKS = [
+    ("phase 48", phase(SLOT)),
+    ("phase 48's reruns alone", phase("c.sass_release_faults = lambda *a: ([], 1); " + SLOT)),
+    ("phase 3", phase("c.check_fused_head(torch.device('cuda'))")),
+    ("CUDA tests -k fused_head_bucket", None),
+]
+
+
+def main() -> None:
+    root = os.getcwd()
+    names = sys.argv[1:] or list(FAULTS)
+    for name in names:
+        path, patches = FAULTS[name]
+        copy = os.path.join(root, "build", "planted", str(list(FAULTS).index(name)))
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(root, copy, ignore=shutil.ignore_patterns("build", ".git"))
+        with open(os.path.join(copy, path)) as f:
+            text = f.read()
+        for old, new in patches:
+            if old not in text:
+                raise SystemExit(f"{name}: the edit does not apply to {path}")
+            text = text.replace(old, new)
+        with open(os.path.join(copy, path), "w") as f:
+            f.write(text)
+        env = dict(os.environ, PYTHONPATH=copy)
+        subprocess.run([sys.executable, "-c", "from mic_tpu_torch import _build; _build.lib()"],
+                       cwd=copy, env=env, check=True)
+        for label, code in HEAD_CHECKS if path == HEAD else CROSS_CHECKS:
+            if code is None:
+                cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                       "-q", "tests/test_torch_cuda_kernels.py", "-k", label.split("-k ")[1]]
+            else:
+                cmd = [sys.executable, "-c", code]
+            done = subprocess.run(cmd, cwd=copy, env=env, capture_output=True, text=True,
+                                  timeout=900)
+            last = ((done.stdout + done.stderr).strip().splitlines() or [""])[-1]
+            verdict = "CAUGHT" if done.returncode != 0 else "not caught"
+            print(f"[{name}] {label}: {verdict}; {last[:200]}", flush=True)
+        shutil.rmtree(copy, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -5,14 +5,16 @@ CUDA card and say where the device time goes.
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8,fused] [--out FILE]
+    python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8,fused,merged]
+                                          [--out FILE]
     python3 tools/torch_trace_generate.py --train [--routes dl,split,save] [--out FILE]
 
 For each path (bf16: the default knobs, the bucket head; int8: int8
 weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``; fused: the
 fully fused beam step, bf16, under chip_smoke.FUSED_STEP's switches,
 MIC_TPU_FUSED_LAZY_ATTN=1 and
-MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv), on the
+MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv; merged: the merged
+cross cache, MIC_TPU_EXPERIMENTAL=merged_cross), on the
 flagship at full width with random weights (chip_smoke.flagship): one
 untraced generate to warm up, then one generate of B images, beam 4,
 max_length 64, every caption's EOS pinned at position 63 (``eos_positions``,
@@ -22,9 +24,10 @@ busy ms is the union of their intervals, window ms the host clock around
 the synchronised generate, the idle share 1 - busy / window; launches per
 step; and the kernels that take most device time, each as a share of the
 sum of device time, grouped by name; and the device ms of the kernels of
-rows 2, 3, 15 and 16 (``ROWS``: the int8 lazy attention of the int8 path,
-the blocked lazy attention, LN -> GEMM's and the fused MLP's launches of
-the fused path), each as a share of busy.  One JSON line per path goes to
+rows 2, 3, 13, 14, 15 and 16 (``ROWS``: the int8 lazy attention of the
+int8 path, the blocked lazy attention, the cross-attention, LN -> GEMM's
+and the fused MLP's launches of the fused path, the merged
+cross-attention of the merged path), each as a share of busy.  One JSON line per path goes to
 stdout and, with --out, to FILE.
 
 With --train: the port's Trainer at flagship width with the TrainConfig
@@ -56,16 +59,25 @@ import chip_smoke  # noqa: E402
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel-table rows by the full names of their kernels, in this tree and in
 # the trees before their redesigns (the blocked attention shared
-# attend_rows_kernel with the cross-attention, <T, true, true> its own; the
+# attend_rows_kernel with the cross-attention, <T, true, true> its own and
+# <T, false, false> the cross-attention's, which later had <T> alone; the
 # split products' sums: the MLP's split_sum_kernel<Finish<..>>, LN ->
-# GEMM's split_sum_kernel<AddBias>)
+# GEMM's split_sum_kernel<AddBias>).  Rows 13 and 14 run one kernel; a
+# path runs one of them (``PATH_ROWS``).
+CROSS = (r"attend::tiles_kernel<|attend_rows_kernel<[^<>,]*>|"
+         r"attend_rows_kernel<[^<>]*, false, false>")
 ROWS = {
     "row 2": r"q8::split_kernel|lazy_attention_q8_kernel",
     "row 3": r"blocked::blocked_kernel<|attend_rows_kernel<[^<>]*, true, true>",
+    "row 13": CROSS,
+    "row 14": CROSS,
     "row 15": r"ln_gemm_kernel|split_sum_kernel<[^<>]*AddBias",
     "row 16": r"mlp_kernel<|mlp_finish_kernel<|fc1_act_kernel<|fc2_kernel|"
               r"split_sum_kernel<[^<>]*Finish<",
 }
+# the rows a path can run, where not every row of ROWS
+PATH_ROWS = {"fused": ("row 3", "row 14", "row 15", "row 16"),
+             "merged": ("row 13",)}
 
 
 def short_name(name: str) -> str:
@@ -105,7 +117,7 @@ def busy_us(events) -> float:
     return total
 
 
-def summarize(prof, window_ms: float, label: str, steps: int) -> dict:
+def summarize(prof, window_ms: float, label: str, steps: int, rows=ROWS) -> dict:
     """Busy ms, the idle share, launches per step and the top kernels of a
     trace whose window took ``window_ms`` on the host clock."""
     events = device_events(prof)
@@ -119,18 +131,18 @@ def summarize(prof, window_ms: float, label: str, steps: int) -> dict:
         by_name[key] = by_name.get(key, 0.0) + dur
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    rows = {}
-    for row, pattern in ROWS.items():
+    shares = {}
+    for row, pattern in rows.items():
         hits = [dur for _, name, _, dur in kernels if re.search(pattern, name)]
         if hits:
-            rows[row] = {"ms": sum(hits) / 1e3, "launches_per_step": len(hits) / steps,
+            shares[row] = {"ms": sum(hits) / 1e3, "launches_per_step": len(hits) / steps,
                          "share_of_busy": sum(hits) / 1e3 / busy}
     return {
         "path": label, "steps": steps, "launches_per_step": len(kernels) / steps,
         "busy_ms": busy, "window_ms": window_ms, "idle_share": 1.0 - busy / window_ms,
         "device_ms_sum": total / 1e3,
         "top": [{"name": name, "ms": us / 1e3, "share": us / total} for name, us in top],
-        "rows": rows,
+        "rows": shares,
     }
 
 
@@ -145,7 +157,8 @@ def trace_path(model, params, px, kw, label: str, batch: int, env=None) -> dict:
             out = model.generate(params, px, **kw)
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
-    return dict(summarize(prof, window_ms, label, out.steps), batch=batch)
+    rows = {row: ROWS[row] for row in PATH_ROWS.get(label, ROWS)}
+    return dict(summarize(prof, window_ms, label, out.steps, rows), batch=batch)
 
 
 def trace_train(dev, route: str) -> dict:
@@ -198,7 +211,7 @@ def main() -> None:
     px = pixels(args.batch, 1)
     kw = dict(kw, eos_positions=torch.full((args.batch,), 63, device=dev, dtype=torch.int32))
     paths = {"bf16": (kw, None), "int8": (dict(kw, quantize="int8", kv_quant="int8"), None),
-             "fused": (kw, chip_smoke.FUSED_STEP)}
+             "fused": (kw, chip_smoke.FUSED_STEP), "merged": (kw, chip_smoke.MERGED_CROSS)}
     rows = []
     for label in args.paths.split(","):
         path_kw, env = paths[label]
