@@ -74,7 +74,12 @@ Phases, each of which raises on failure (none catches its own):
      17, 63}) and at B=4 (the walk split 4 ways; index in {0, 1, 15, 63}):
      outputs, the written cache bit-equal, other cells untouched;
  19. the top-k + logsumexp kernel against its plain version (N in {4, 256,
-     1024}, V=250054, and V=997 with ties; k in {1, 2, 9, 13}; bf16, f32);
+     1024}, V=250054, and V=997 with ties; k in {1, 2, 9, 13}; bf16, f32),
+     and on rows of every 16-byte alignment (V in {997, 20011, 250054},
+     the logits starting 0-7 elements past an aligned address) with values
+     planted in each row's first and last 8 columns, on both sides of its
+     run boundaries, and tied between a peeled last column and a column
+     before it, some rows a third -inf, k in {1, 9, 16}, reruns bit-equal;
  20. both kernels' times beside their plain versions' and a library
      yardstick (scaled_dot_product_attention at N in {4, 256}; torch.topk +
      logsumexp);
@@ -135,11 +140,14 @@ Phases, each of which raises on failure (none catches its own):
      T=63, flash also at Tq=64 Tk=65 and Tq=Tk=600; every bf16 forward
      also within one bf16 ulp of the size of its terms of the plain
      output, with the share of outputs not bit-equal to it printed and
-     held under a limit; and flash's recomputing backward on the card
-     against the CPU;
+     held under a limit, and each bf16 gradient within one bf16 ulp of
+     the size of its terms, its share not bit-equal held likewise; and
+     flash's recomputing backward on the card against the CPU;
  36. their times (CUDA-graph replays, and per call) beside their plain
-     versions', their bounds and scaled_dot_product_attention's, flash
-     also at B=8 Tq=Tk=600;
+     versions', their bounds and scaled_dot_product_attention's (its
+     backward's device time from the profiler, taken after phase 48, so
+     that no graph-replay time follows a profiler trace), flash also at
+     B=8 Tq=Tk=600;
  37. flagship Captioner(attn_impl="pallas"): a teacher-forced forward and
      backward of the fused loss at B=64 (flash once per self-attention
      layer), then beam 4 under attn_impl="pallas" and under small_attn
@@ -189,6 +197,7 @@ import contextlib
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -397,6 +406,32 @@ def graph_ms(fn, reps: int = 10, runs: int = 10) -> float:
     ms = median_ms(graph.replay, runs) / reps
     del graph
     return ms
+
+
+def profiled_ms(fn, runs: int = 20) -> float:
+    """Device time of one call of ``fn`` where a CUDA graph cannot hold it
+    (autograd's backward runs on its forward's stream): the sum of the
+    device kernels' durations in a torch.profiler trace of ``runs`` calls,
+    after a warm-up, over ``runs``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    total_us = sum(float(e.get("dur", 0.0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel")
+    if total_us <= 0:
+        raise RuntimeError("profiled_ms: the trace holds no device kernel")
+    return total_us / 1e3 / runs
 
 
 def _lazy_inputs(dev, g, b, beams, t, heads, index, q8):
@@ -1680,12 +1715,59 @@ def check_decode_attention(dev):
     return worst, (q, ks, vs, ck, cv, pk, pv, layer)
 
 
+def planted_logits(g, n, v, offset, dtype):
+    """(n, v) logits starting ``offset`` elements past an aligned address
+    (rows of every 16-byte alignment as the rows go), each row with 16
+    values from 60, 59, ..., 45 planted above the N(0, 4) rest (exact in
+    bf16): rows r % 4 == 0 in their first 8 and last 8 columns (the largest
+    in a column that moves with r), rows r % 4 == 1 on both sides of up to 8
+    of their run boundaries (columns j c - 1 and j c, c the columns of a
+    run where one wave holds every row's most runs, as it does at N=24) and
+    the rest inside, rows r % 4 == 2 inside, rows r % 4 == 3 with their
+    largest value twice, in the last column and 40 columns before it (the
+    last run peels the one and walks the other: the lower id must win at
+    k=1); rows r % 8 in {1, 2} a third -inf.  -> (logits, the planted
+    columns (n, 16) in rank order)."""
+    from mic_tpu_torch.ops.topk_lse import _RUN_COLS
+
+    x = torch.randn((n * v + offset,), generator=g, device=g.device)[offset:].view(n, v) * 2
+    c = -(-v // -(-v // _RUN_COLS))
+    bounds = [j * c for j in range(1, -(-v // c))] or [v // 2]
+    cols = torch.empty((n, 16), dtype=torch.int64)
+    values = torch.arange(60.0, 44.0, -1.0)
+    for r in range(n):
+        kind, vals = r % 4, values
+        if kind == 0:
+            edge = list(range(8)) + list(range(v - 8, v))
+            turn = r // 4 * 3 % 16
+            picked = edge[turn:] + edge[:turn]
+        elif kind == 1:
+            at = [bounds[(r + i) % len(bounds)] for i in range(min(8, len(bounds)))]
+            picked = [col for b in at for col in (b - 1, b)]
+            picked += [v // 3 + 7 * i for i in range(16 - len(picked))]
+        elif kind == 2:
+            picked = [v // 5 + r + 13 * i for i in range(16)]
+        else:
+            picked = [v - 41, v - 1] + [v // 4 + 5 * i for i in range(14)]
+            vals = torch.cat([values[:1], values[:15]])
+        if r % 8 in (1, 2):
+            x[r, ::3] = -torch.inf
+        cols[r] = torch.tensor(picked)
+        x[r, cols[r].to(x.device)] = vals.to(x.device)
+    out = torch.empty((n * v + offset,), dtype=dtype, device=x.device)[offset:].view(n, v)
+    out.copy_(x)
+    return out, cols
+
+
 def check_topk_lse(dev):
     """Phase 19: the top-k + logsumexp kernel against its plain version at N
     in {4, 256, 1024}, V=250054, and at V=997 with ties (a constant row, a
-    repeated maximum, integer logits), k in {1, 2, 9, 13}, bf16 and f32: ids
-    equal, log-probs within 1e-5 (the same f32 values; the logsumexp of up
-    to 250054 exps summed in another order, about 1e-6 an ulp at 12)."""
+    repeated maximum, integer logits), k in {1, 2, 9, 13}, bf16 and f32; and
+    on ``planted_logits`` rows (V in {997, 20011, 250054}, N=24, offsets
+    0-7 elements, k in {1, 9, 16}): ids equal, log-probs within 1e-5 (the
+    same f32 values; the logsumexp of up to 250054 exps summed in another
+    order, about 1e-6 an ulp at 12), the planted columns found, reruns
+    bit-equal."""
     from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
 
     g = torch.Generator(device=dev).manual_seed(22)
@@ -1711,6 +1793,28 @@ def check_topk_lse(dev):
             print(f"topk_log_probs N={n} V={v} {dtype}: k in (1, 2, 9, 13) ids equal, lp "
                   f"max_abs_err {errs}", flush=True)
         del logits, x
+    for v in (997, 20011, HEAD_V):
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = []
+            for offset in range(8):
+                x, cols = planted_logits(g, 24, v, offset, dtype)
+                for k in (1, 9, 16):
+                    lp, ids = topk_log_probs(x, k)
+                    lp2, ids2 = topk_log_probs(x, k)
+                    rlp, rids = topk_log_probs_plain(x, k)
+                    torch.cuda.synchronize()
+                    what = f"topk_log_probs planted V={v} offset={offset} k={k} {dtype}"
+                    require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                    require(torch.equal(ids.cpu().long(), cols[:, :k]),
+                            f"{what}: a planted column was missed")
+                    require(torch.equal(lp, lp2) and torch.equal(ids, ids2),
+                            f"{what}: a rerun differs")
+                    errs.append((lp - rlp).abs().max().item())
+                    require(errs[-1] <= 1e-5, f"{what}: log-probs differ from plain")
+            worst = max(worst, *errs)
+            print(f"topk_log_probs planted rows N=24 V={v} {dtype}, offsets 0-7, k in "
+                  f"(1, 9, 16): ids equal and the planted columns, reruns bit-equal, lp "
+                  f"max_abs_err {max(errs):.3g}", flush=True)
     return worst
 
 
@@ -2386,13 +2490,16 @@ def _scaled_err(got, want):
 FORWARD_SHARE_LIMIT = {"small_attention_forward": 2e-3, "flash_attention": 1e-2}
 
 
+def _attention_scores(q, k, bias):
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return s if bias is None else s + bias[:, None]
+
+
 def attention_terms(name, q, k, v, bias):
     """The size of each forward output's terms, sum_k |p_k| |v_k| / l in f32
     from the plain version's values: small-T's softmax rounded to bf16 (l =
     1); flash's exp(s - m), zeroed where masked, over its l (1 where l = 0)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    if bias is not None:
-        s = s + bias[:, None]
+    s = _attention_scores(q, k, bias)
     if name == "small_attention_forward":
         p = torch.softmax(s, dim=-1).bfloat16().float()
     else:
@@ -2422,6 +2529,54 @@ def check_forward_bits(name, what, got, ref, terms):
     return share
 
 
+# The most a bf16 backward's gradients may differ from the plain version's
+# bits, as a share of all entries (check_backward_bits): dq and dk carry dS
+# as bf16 hi + lo (about 2^-17 of it left) and every product's f32 sum
+# runs in another order, so an entry's bits differ only where it lies that
+# close to a bf16 rounding boundary.  Measured on the card (this phase):
+# 1.1e-3 to 2.3e-3 of dq's and dk's entries, 4e-5 to 1.6e-4 of dv's; dS
+# rounded once to bf16 instead moves 0.24 to 0.41 of dq's (a torch
+# emulation against mic_tpu's kernel), which the one-ulp check alone does
+# not catch (2^-9 of each term stays under an ulp of their sum).  The
+# limit is about 4x the largest measured share.
+BACKWARD_SHARE_LIMIT = 1e-2
+
+
+def backward_terms(q, k, v, bias, do):
+    """The size of each small-T gradient's terms, in f32 from the plain
+    version's values: dq's sum_k |dS| |k|, dk's sum_q |dS| |q| and dv's
+    sum_q |round(p)| |do|."""
+    p = torch.softmax(_attention_scores(q, k, bias), dim=-1)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).abs()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof.abs()))
+
+
+def check_backward_bits(what, grads, ref_grads, terms):
+    """The sharper check of the bf16 backward beside the 2e-2 one: each of
+    dq, dk and dv within one bf16 ulp of the size of its terms of the plain
+    version's (the two round f32 values that differ by the order of their
+    sums and dS's 2^-17), and the share of its entries not bit-equal to the
+    plain version's at most BACKWARD_SHARE_LIMIT.  Returns the largest
+    share."""
+    shares = []
+    for name, got, ref, size in zip(("dq", "dk", "dv"), grads, ref_grads, terms):
+        over = int(((got.float() - ref.float()).abs() > _bf16_ulp(size)).sum())
+        shares.append((got != ref).float().mean().item())
+        print(f"  small_attention_backward {what} {name}: {over} entries beyond one bf16 ulp "
+              f"of their terms' size, {shares[-1]:.3e} of {got.numel()} not bit-equal to plain "
+              f"(limit {BACKWARD_SHARE_LIMIT:.0e})", flush=True)
+        require(over == 0, f"small_attention_backward {what} {name}: {over} entries beyond "
+                "one bf16 ulp of their terms")
+        require(shares[-1] <= BACKWARD_SHARE_LIMIT,
+                f"small_attention_backward {what} {name}: {shares[-1]:.3e} of the entries not "
+                "bit-equal to plain")
+    return max(shares)
+
+
 def check_attention_kernels(dev):
     """Phase 35: rows 12 (forward and backward) and 11 (forward) against
     their plain versions at the flagship shapes in bf16: the decoder's
@@ -2435,15 +2590,16 @@ def check_attention_kernels(dev):
     an output by about 4e-3), and every bf16 forward also through
     ``check_forward_bits``; the small-T gradients within 2e-2 of their
     largest entry (each rounds once to bf16 from f32 sums in another
-    order); flash's recomputing backward on the card within 2e-2 of the
-    CPU's (the same plain code; f32 sums in another order, one bf16
-    rounding); reruns bit-equal."""
+    order) and through ``check_backward_bits``; flash's recomputing
+    backward on the card within 2e-2 of the CPU's (the same plain code; f32
+    sums in another order, one bf16 rounding); reruns bit-equal."""
     from mic_tpu_torch.ops import flash_attention as fa
     from mic_tpu_torch.ops import small_attention as sa
 
     worst = {"small_attention_forward": 0.0, "small_attention_backward": 0.0,
              "flash_attention": 0.0}
-    shares = {"small_attention_forward": 0.0, "flash_attention": 0.0}
+    shares = {"small_attention_forward": 0.0, "flash_attention": 0.0,
+              "small_attention_backward": 0.0}
 
     def bits(name, what, got, ref, q, k, v, bias):
         share = check_forward_bits(name, what, got, ref, attention_terms(name, q, k, v, bias))
@@ -2489,6 +2645,10 @@ def check_attention_kernels(dev):
               f"max_abs_err={ferr:.4g}; reruns bit-equal", flush=True)
         bits("small_attention_forward", f"{shape} {kind}", out, ref, q, k, v, bias)
         bits("flash_attention", f"{shape} {kind}", fout, fref, q, k, v, fbias)
+        shares["small_attention_backward"] = max(
+            shares["small_attention_backward"],
+            check_backward_bits(f"{shape} {kind}", grads, ref_grads,
+                                backward_terms(q, k, v, bias, do)))
     # the tile edges: small-T with one row and key, and one short of a tile
     b, _, heads = ATTN_SHAPES["decoder"]
     for t, kind in ((1, None), (63, "causal")):
@@ -2518,8 +2678,9 @@ def check_attention_kernels(dev):
               f"{ferr:.4g}, the two masked rows 0, reruns bit-equal", flush=True)
         bits("flash_attention", f"Tq={tq} Tk={tk}", fout, fref, q, k, v, fbias)
     print(f"bf16 forwards, the largest share of outputs not bit-equal to plain: small-T "
-          f"{shares['small_attention_forward']:.3e}, flash {shares['flash_attention']:.3e}",
-          flush=True)
+          f"{shares['small_attention_forward']:.3e}, flash {shares['flash_attention']:.3e}; "
+          f"the small-T backward's largest share of gradient entries "
+          f"{shares['small_attention_backward']:.3e}", flush=True)
     b, t, heads = ATTN_SHAPES["decoder"]
     q, k, v, mask = _attention_case(dev, b, t, heads, "left", 430)
     w = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(431), device=dev)
@@ -2540,9 +2701,9 @@ def time_attention_kernels(dev):
     flash at FLASH_LONG (causal with right padding), in CUDA-graph replays
     (``graph_ms``) and per call with the wrapper (``median_ms``), beside
     their plain versions' replays and scaled_dot_product_attention with the
-    same boolean mask (its forward in replays; its autograd backward per
-    call, as one call of torch.autograd.grad, and the kernel's backward per
-    call beside it)."""
+    same boolean mask (its forward in replays; its backward, one call of
+    torch.autograd.grad, is returned as a function for
+    ``time_sdpa_backward``, which runs after every other phase)."""
     import torch.nn.functional as F
 
     from mic_tpu_torch.ops import flash_attention as fa
@@ -2570,14 +2731,13 @@ def time_attention_kernels(dev):
         t[("small_bwd", shape)] = (
             graph_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)),
             graph_ms(lambda: sa.small_t_attention_bwd_plain(q, k, v, bias, do)),
-            median_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dht, retain_graph=True)),
+            lambda a=(lib_out, (qh, kh, vh), dht): torch.autograd.grad(*a, retain_graph=True),
             median_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)))
         t[("flash", shape)] = (
             graph_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)),
             graph_ms(lambda: fa.flash_attention_plain(q, k, v, fbias)),
             t[("small_fwd", shape)][2],
             median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
-        del lib_out
     b, n, heads = FLASH_LONG
     q, k, v, mask = _attention_case(dev, b, n, heads, "causal", 442)
     fbias = fa.mask_bias(mask, b, n, n)
@@ -2587,15 +2747,31 @@ def time_attention_kernels(dev):
         graph_ms(lambda: fa.flash_attention_plain(q, k, v, fbias)),
         graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=1.0)),
         median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
-    for key, (kernel, plain, lib_ms, per_call) in t.items():
+    for key, (kernel, plain, lib, per_call) in t.items():
         name, shape = key
         b, n, heads = {**ATTN_SHAPES, "long": FLASH_LONG}[shape]
-        lib_label = ("autograd backward per call" if name == "small_bwd"
-                     else "forward, graph replays")
+        lib_text = ("its backward timed last" if callable(lib)
+                    else f"its forward {lib:.4f} ms in graph replays")
         print(f"{name} {shape} B={b} T={n} H={heads}: kernel {kernel:.4f} ms (graph replays), "
               f"{per_call:.4f} ms per call with its wrapper; plain {plain:.4f} ms; "
-              f"scaled_dot_product_attention ({lib_label}) {lib_ms:.4f} ms", flush=True)
+              f"scaled_dot_product_attention: {lib_text}", flush=True)
     return t
+
+
+def time_sdpa_backward(tf_ms):
+    """The end of phase 36, after every other phase: scaled_dot_product_
+    attention's backward (one torch.autograd.grad with phase 36's boolean
+    mask) at the decoder's and vision's shapes, by the device time of its
+    kernels in a profiler trace (``profiled_ms``: autograd runs it on its
+    forward's stream, which a graph capture cannot hold).  Last, so that no
+    graph-replay time follows a profiler trace.  Puts each time in place of
+    its function in ``tf_ms``."""
+    for shape in ATTN_SHAPES:
+        kernel, plain, backward, per_call = tf_ms[("small_bwd", shape)]
+        ms = profiled_ms(backward)
+        tf_ms[("small_bwd", shape)] = (kernel, plain, ms, per_call)
+        print(f"scaled_dot_product_attention backward {shape}: {ms:.4f} ms (its kernels' device "
+              f"time); the small-T backward kernel {kernel:.4f} ms", flush=True)
 
 
 ATTN_COUNTERS = ("small_attention_forward", "small_attention_backward", "flash_attention")
@@ -3365,6 +3541,7 @@ def main() -> None:
     check_last_paths_small_against_cpu(dev)
     check_twelve_beams_small_against_cpu(dev)
     check_bucket_slot_release(dev, lib_path)
+    time_sdpa_backward(tf_ms)
     torch.cuda.empty_cache()
 
     smi = subprocess.run(

@@ -67,9 +67,10 @@ _SIGNATURES = {
     # layers, rows, t_max, heads, head_dim, layer, index, splits, stream
     "mic_decode_attention_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "mic_decode_attention_f32": [_P] * 6 + [_I] * 8 + [_P],
-    # logits, part_m, part_l, part_v, part_i, lp, ids, n, vocab, k, max_runs, stream
-    "mic_topk_lse_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    "mic_topk_lse_f32": [_P] * 7 + [_I] * 4 + [_P],
+    # logits, part_m, part_l, part_v, part_i, arrivals, lp, ids, n, vocab, k, max_runs,
+    # stream
+    "mic_topk_lse_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "mic_topk_lse_f32": [_P] * 8 + [_I] * 4 + [_P],
     # q, cache_k, cache_v, k_step, v_step, amask, out,
     # batch, beams, t_max, positions, heads, head_dim, compact, stage, shared, stream
     "mic_lazy_attention_blocked_bf16": [_P] * 7 + [_I] * 9 + [_P],

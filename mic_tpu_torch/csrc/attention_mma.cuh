@@ -1,6 +1,6 @@
-// bf16 tensor-core pieces of the full-sequence attention forwards: the bf16
-// instances of small_attention.cu and flash_attention.cu.  (Their f32
-// instances and the small-T backward stay on attention_tile.cuh.)
+// bf16 tensor-core pieces of the full-sequence attention kernels: the bf16
+// forwards of small_attention.cu and flash_attention.cu and the small-T
+// backward's.  (Their f32 instances stay on attention_tile.cuh.)
 //
 // A block of 128 threads, four warps, owns 64 query rows of one (image,
 // head); warp w owns rows [16 w, 16 w + 16).  q, k and v tiles of 64 rows
@@ -24,7 +24,10 @@
 // blocks form one 16-key A fragment) and V's B operand comes from
 // ldmatrix.trans.  The epilogue
 // stages the warp's 16 output rows through its own rows of the q tile
-// (only this warp read them) and writes 16-byte row pieces.
+// (only this warp read them) and writes 16-byte row pieces.  The backward
+// also needs products over a tile's rows (round(P)^T dO, dS^T Q): it puts
+// P's and dS's A fragments into tiles (`put_fragments`) and reads their
+// transposes back with ldmatrix.trans (`load_transposed`).
 
 #pragma once
 
@@ -279,6 +282,33 @@ __device__ __forceinline__ void pv(float (&o)[8][4], const uint32_t (&pa)[Parts]
       }
     }
   }
+}
+
+// A warp's A fragments of a 16 x 64 matrix (p_fragments' layout, one part)
+// into its own 16 rows of a tile (`tile`, its generic pointer), as bf16.
+// The eight rows a store touches start in eight different 4-bank groups,
+// so each 4-byte store is free of bank conflicts.
+__device__ __forceinline__ void put_fragments(unsigned char* tile, const uint32_t (&a)[4][4]) {
+  const int lane = lane_id();
+  unsigned char* row = tile + (warp_id() * 16 + (lane >> 2)) * kPitchBytes + 4 * (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<uint32_t*>(row + (i & 1) * 8 * kPitchBytes + (16 * kk + 8 * (i >> 1)) * 2) =
+          a[kk][i];
+    }
+  }
+}
+
+// The A fragment of rows m0 .. m0 + 15 of a tile's transpose over depth
+// k0 .. k0 + 15: the tile's columns m0 .. m0 + 15 of its rows k0 .. k0 +
+// 15, by ldmatrix.trans (the four 8 x 8 blocks in the A fragment's order:
+// (m, k), (m + 8, k), (m, k + 8), (m + 8, k + 8)).
+__device__ __forceinline__ void load_transposed(uint32_t (&a)[4], uint32_t tile, int m0, int k0) {
+  const int lane = lane_id();
+  const int row = k0 + (lane & 7) + ((lane >> 4) << 3), col = m0 + (lane & 8);
+  ldmatrix_x4_trans(a, tile + row * kPitchBytes + col * 2);
 }
 
 // The warp's 16 output rows, o divided by d0 (row g) and d1 (row g + 8) and

@@ -24,6 +24,21 @@ NEG_INF = -1e30
 TOPK_MAX = 16     # the largest k the kernel keeps; the search asks for at most 13
 _RUN_COLS = 4096  # the fewest vocab columns a run of the kernel walks
 _ENTRIES = {torch.bfloat16: "mic_topk_lse_bf16", torch.float32: "mic_topk_lse_f32"}
+_ARRIVALS: dict = {}  # (device index, stream) -> int32 row counters, zero between launches
+
+
+def _arrivals(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's per-row arrival counters for launches on ``stream``:
+    zeros the kernel leaves zero again, kept from launch to launch (one set
+    a stream, so that launches on two streams never share one).  The first
+    launch at a size allocates them, so that launch must not be captured
+    in a CUDA graph (a warm-up call before the capture makes them)."""
+    key = (device.index, stream)
+    counters = _ARRIVALS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = counters
+    return counters
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -59,7 +74,8 @@ def topk_log_probs(logits: torch.Tensor, k: int):
         raise ValueError("topk_log_probs kernel: logits must be contiguous")
     # partials for up to one run a _RUN_COLS columns, in one buffer: (max,
     # sum) (runs, n) each, then values and int32 ids (runs, n, k) each; the
-    # launch uses as many runs as fill one wave of the card's resident blocks
+    # launch uses as many runs as fill one wave of the card's resident warps,
+    # and the last run of a row to finish folds them
     runs = -(-v // _RUN_COLS)
     f32 = dict(dtype=torch.float32, device=logits.device)
     part = torch.empty(runs * n * (2 + 2 * k), **f32)
@@ -68,9 +84,11 @@ def topk_log_probs(logits: torch.Tensor, k: int):
     part_l, part_v, part_i = part_m + plane, part_m + 2 * plane, part_m + (2 + k) * plane
     lp = torch.empty((n, k), **f32)
     ids = torch.empty((n, k), dtype=torch.int32, device=logits.device)
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    arrivals = _arrivals(logits.device, stream, n)
     err = getattr(_build.lib(), entry)(
-        logits.data_ptr(), part_m, part_l, part_v, part_i, lp.data_ptr(), ids.data_ptr(),
-        n, v, k, runs, torch.cuda.current_stream(logits.device).cuda_stream,
+        logits.data_ptr(), part_m, part_l, part_v, part_i, arrivals.data_ptr(), lp.data_ptr(),
+        ids.data_ptr(), n, v, k, runs, stream,
     )
     _build.check(err, entry)
     topk_log_probs.launches += 1

@@ -139,6 +139,60 @@ def test_backward_plain_is_the_kernel_algebra():
     assert torch.equal(dv, dv16)
 
 
+def _bf16_ulp(x):
+    """One bf16 unit in the last place of each entry's size (f32 tensor)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), (e - 8).clamp(min=-133))
+
+
+def _hi_lo_backward(q, k, v, bias, do):
+    """The card's bf16 backward in torch arithmetic: p and dS in f32, dS
+    carried into dq = dS k and dk = dS^T q as bf16 hi + lo (hi = bf16(dS),
+    lo = bf16(dS - hi)), each product of bf16 values exact in f32, dv from
+    round(p); -> (dq, dk, dv) in bf16 and the sizes of dq's and dk's terms,
+    sum_k |dS| |k| and sum_q |dS| |q|."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    p = torch.softmax(s if bias is None else s + bias[:, None], dim=-1)
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    hi = ds.bfloat16().float()
+    lo = (ds - hi).bfloat16().float()
+    dq = (torch.einsum("bhqk,bkhd->bqhd", hi, k.float())
+          + torch.einsum("bhqk,bkhd->bqhd", lo, k.float()))
+    dk = (torch.einsum("bhqk,bqhd->bkhd", hi, q.float())
+          + torch.einsum("bhqk,bqhd->bkhd", lo, q.float()))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
+    terms = (torch.einsum("bhqk,bkhd->bqhd", ds.abs(), k.float().abs()),
+             torch.einsum("bhqk,bqhd->bkhd", ds.abs(), q.float().abs()))
+    return (dq.bfloat16(), dk.bfloat16(), dv.bfloat16()), terms
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_hi_lo_split_of_ds_matches_mic_tpu_kernel(case):
+    """The bf16 backward kernel's arithmetic (dS as bf16 hi + lo into dq and
+    dk) against mic_tpu's interpret-mode _bwd_kernel, which multiplies the
+    f32 dS: dq and dk within one bf16 ulp of the size of their terms (the
+    two differ by dS's 2^-17 and the order of f32 sums, then round once),
+    dv equal but for that order; and at most 1e-2 of dq's and dk's entries
+    not bit-equal to mic_tpu's (measured: up to 2.6e-3).  dS rounded once
+    to bf16 instead stays within the ulp (2^-9 of each term is under an ulp
+    of their sum) but moves 0.24-0.41 of dq's entries."""
+    (jq, jk, jv), jmask, (q, k, v), mask = _both(case, "bfloat16", seed=13)
+    do_np = np.random.default_rng(14).normal(size=q.shape).astype(np.float32)
+    jdo, do = jnp.asarray(do_np).astype(jnp.bfloat16), torch.from_numpy(do_np).bfloat16()
+    _, vjp = jax.vjp(lambda a, b, c: jax_small.small_t_attention(a, b, c, jmask, interpret=True),
+                     jq, jk, jv)
+    ref = [torch.from_numpy(_f32(x)) for x in vjp(jdo)]
+    bias = small_attention.mask_bias(mask, q.shape[0], q.shape[1])
+    got, terms = _hi_lo_backward(q, k, v, bias, do)
+    for name, a, b, size in zip(("dq", "dk"), got, ref, terms):
+        err = (a.float() - b).abs()
+        assert not (err > _bf16_ulp(size)).any(), (name, float(err.max()))
+        assert (a.float() != b).float().mean().item() <= 1e-2, name
+    torch.testing.assert_close(got[2].float(), ref[2], rtol=0, atol=2e-2 * float(ref[2].abs().max()))
+
+
 SHAPES = [  # (B, Tq, Tk, H, Dh, dtypes, mask shape)
     (2, 64, 64, 2, 64, ("float32",) * 3, (2, 1, 64, 64)),
     (2, 50, 50, 12, 64, ("bfloat16",) * 3, None),

@@ -60,3 +60,34 @@ def test_plain_matches_jax_interpret_kernel(dtype, k):
     jx, tx = _logits(dtype, 20 + k)
     lp, ids = topk_log_probs_plain(tx, k)
     _compare(lp, ids, *run_kernel_interpret(jx, k, bn=4, bv=256))
+
+
+def _edge_logits(dtype, seed):
+    """Random logits with each row's largest values at its edges: row r's
+    maximum in column r (rows 0-5: the first columns) or V - 12 + r (rows
+    6-11: the last), a runner-up at the other edge, and the columns on both
+    sides of the interpret kernel's 256-column blocks (255, 256; 767, 768)
+    just below."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N, V)).astype(np.float32)
+    for r in range(N):
+        top = r if r < 6 else V - 12 + r
+        x[r, top] = 6.0
+        x[r, V - 1 - r if r < 6 else r - 6] = 5.5
+        x[r, [255, 256, 767, 768]] = [5.0, 5.25, 4.5, 4.75]
+    if dtype == "bfloat16":
+        return jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).bfloat16()
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_maxima_match_jax_interpret_kernel(dtype, k):
+    """Maxima in a row's first and last columns and at block boundaries (where
+    the card's kernel peels a row's unaligned head and tail and cuts its
+    runs) come out as the TPU kernel's."""
+    jx, tx = _edge_logits(dtype, 40 + k)
+    lp, ids = topk_log_probs(tx, k)
+    _compare(lp, ids, *run_kernel_interpret(jx, k, bn=4, bv=256))
+    top = [r if r < 6 else V - 12 + r for r in range(N)]
+    assert ids[:, 0].tolist() == top

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults: show that the checks of the cross-attention kernel
-(rows 13 and 14) and of the bf16 bucket head's ring (row 4) can fail.  Each
+(rows 13 and 14), of the bf16 bucket head's ring (row 4), of the small-T
+bf16 backward (row 12) and of the top-k + logsumexp (row 17) can fail.  Each
 fault is a copy of the checkout under build/planted/ with one source edit,
 built on the card; the checks meant to catch it run in that copy, and each
 prints CAUGHT (it failed) or "not caught" (it passed).
@@ -12,7 +13,9 @@ Run from the root of a checkout of the port, on a machine with a CUDA card:
 with NAME a key of ``FAULTS`` (all of them by default).  The checks:
 chip_smoke.py's phases 24, 39 and 40 and the CUDA tests ``-k cross`` for
 the cross-attention faults; phase 48 (its SASS check, and its reruns alone),
-phase 3 and the CUDA tests ``-k fused_head_bucket`` for the ring's.
+phase 3 and the CUDA tests ``-k fused_head_bucket`` for the ring's; phase
+35 and the CUDA tests ``-k small_attention`` for the backward's; phase 19
+and the CUDA tests ``-k topk`` for the top-k's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ import sys
 
 CROSS = "mic_tpu_torch/csrc/attend_rows.cuh"
 HEAD = "mic_tpu_torch/csrc/fused_head.cu"
+SMALL = "mic_tpu_torch/csrc/small_attention.cu"
+TOPK = "mic_tpu_torch/csrc/topk_lse.cu"
+DS_HI_LO = "    mm::p_fragments(dp, dsa);  // dS as bf16 hi + lo\n"
+P_LOADS = ("      uint32_t ap[4], hi[4], lo[4];\n"
+           "      mm::load_transposed(ap, sv, warp * 16, 16 * kk);\n")
+DV_MMA = "        mm::mma_bf16(gv[2 * pair + 1], ap, bd[2], bd[3]);\n"
 RELEASED_AFTER = ("        wgmma_commit();\n        wgmma_wait<0>();\n#pragma unroll\n"
                   "        for (int x = 0; x < 32; ++x) fence_operand(acc[x]);\n"
                   "        release(empty, slot);\n      }\n      advance();")
@@ -46,6 +55,37 @@ FAULTS = {
         "      const int w8 = (", "      const int w8 = 0 * (")]),
     "bf16 bucket slot freed before its products retire": (HEAD, [
         (RELEASED_AFTER, RELEASED_BEFORE)]),
+    "dS rounded once to bf16": (SMALL, [(
+        DS_HI_LO, DS_HI_LO + "    for (int kk = 0; kk < 4; ++kk) {\n"
+        "      for (int i = 0; i < 4; ++i) dsa[1][kk][i] = 0u;\n    }\n")]),
+    # p's hi + lo into dv: a sixth tile (dynamic shared memory) holds p's lo
+    "dv from the f32 p instead of round(p)": (SMALL, [
+        ("uint32_t pa[1][4][4] = {}, dsa", "uint32_t pa[2][4][4] = {}, dsa"),
+        ("__shared__ __align__(128) unsigned char smem[5 * kTile];",
+         "extern __shared__ __align__(128) unsigned char smem_dyn[];\n"
+         "  unsigned char* smem = smem_dyn;"),
+        ("  small_attention_bwd_bf16_kernel<<<batch * heads, attn_mma::kThreads, 0,",
+         "  cudaFuncSetAttribute(small_attention_bwd_bf16_kernel,\n"
+         "                       cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+         "                       6 * attn_mma::kTileBytes);\n"
+         "  small_attention_bwd_bf16_kernel<<<batch * heads, attn_mma::kThreads,\n"
+         "                                    6 * attn_mma::kTileBytes,"),
+        ("  mm::put_fragments(smem + 4 * kTile, dsa[1]);\n",
+         "  mm::put_fragments(smem + 4 * kTile, dsa[1]);\n"
+         "  mm::put_fragments(smem + 5 * kTile, pa[1]);\n"),
+        (P_LOADS, P_LOADS + "      uint32_t ap2[4];\n"
+         "      mm::load_transposed(ap2, sx + kTile, warp * 16, 16 * kk);\n"),
+        (DV_MMA, DV_MMA + "        mm::mma_bf16(gv[2 * pair], ap2, bd[0], bd[1]);\n"
+         "        mm::mma_bf16(gv[2 * pair + 1], ap2, bd[2], bd[3]);\n")]),
+    "a misaligned row's peeled head skipped": (TOPK, [(
+        "    const bool valid = lane < head + tail;",
+        "    const bool valid = lane >= head && lane < head + tail;")]),
+    "a candidate equal to the threshold with a lower id dropped": (TOPK, [
+        ("    any |= top[u] >= list.thr_v;", "    any |= top[u] > list.thr_v;"),
+        ("    if (__any_sync(kFull, top[u] >= cut)) {", "    if (__any_sync(kFull, top[u] > cut)) {")]),
+    "one run's partial left out of the fold": (TOPK, [
+        ("  for (int z = lane; z < runs; z += 32) {", "  for (int z = lane; z < runs - 1; z += 32) {"),
+        ("  const int entries = runs * k;", "  const int entries = (runs - 1) * k;")]),
 }
 
 
@@ -67,6 +107,14 @@ HEAD_CHECKS = [
     ("phase 3", phase("c.check_fused_head(torch.device('cuda'))")),
     ("CUDA tests -k fused_head_bucket", None),
 ]
+CHECKS = {
+    CROSS: CROSS_CHECKS,
+    HEAD: HEAD_CHECKS,
+    SMALL: [("phase 35", phase("c.check_attention_kernels(torch.device('cuda'))")),
+            ("CUDA tests -k small_attention", None)],
+    TOPK: [("phase 19", phase("c.check_topk_lse(torch.device('cuda'))")),
+           ("CUDA tests -k topk", None)],
+}
 
 
 def main() -> None:
@@ -86,9 +134,14 @@ def main() -> None:
         with open(os.path.join(copy, path), "w") as f:
             f.write(text)
         env = dict(os.environ, PYTHONPATH=copy)
-        subprocess.run([sys.executable, "-c", "from mic_tpu_torch import _build; _build.lib()"],
-                       cwd=copy, env=env, check=True)
-        for label, code in HEAD_CHECKS if path == HEAD else CROSS_CHECKS:
+        built = subprocess.run([sys.executable, "-c",
+                                "from mic_tpu_torch import _build; _build.lib()"],
+                               cwd=copy, env=env, capture_output=True, text=True)
+        if built.returncode != 0:
+            print(f"[{name}] the build failed; no check ran\n{built.stderr[-1500:]}", flush=True)
+            shutil.rmtree(copy, ignore_errors=True)
+            continue
+        for label, code in CHECKS[path]:
             if code is None:
                 cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
                        "-q", "tests/test_torch_cuda_kernels.py", "-k", label.split("-k ")[1]]

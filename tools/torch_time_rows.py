@@ -2,14 +2,16 @@
 """Time the port's decode attention (row 18), mode "2"'s lazy attention
 (rows 1 and 2), tied-head kernels (rows 4, 5 and 6), flash-CE kernels
 (rows 7 and 8, row 9's forward, and the save and split backwards of rows
-9 and 10) and the fused beam step's kernels
-(rows 3, 13, 14, 15, 16, with row 20) on one CUDA card, beside
-scaled_dot_product_attention for row 18.
+9 and 10), the fused beam step's kernels
+(rows 3, 13, 14, 15, 16, with row 20), the teacher-forced attention (rows
+11 and 12) and the top-k + logsumexp (row 17) on one CUDA card, beside
+scaled_dot_product_attention for rows 18, 11 and 12.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_time_rows.py [--turns 2] [--cases decode,heads,ce,fused,lazy]
+    python3 tools/torch_time_rows.py [--turns 2]
+                                     [--cases decode,heads,ce,fused,lazy,attn,topk]
                                      [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
@@ -26,7 +28,11 @@ cross-attentions (rows 13, 14, 14's int8 form), LN -> GEMM and the MLP
 the same (F.layer_norm + F.linear; F.linear -> F.gelu -> F.linear), and
 the int8 dequant GEMM (row 20), as ``fused_cases`` says; --cases lazy:
 rows 1 and 2 (bf16 and int8 cache) at B=256 K=4 T=64 H=16, index 63 and
-17, as ``lazy_cases`` says.  Each time
+17, as ``lazy_cases`` says; --cases attn: row 12's forward and backward
+and row 11 at chip_smoke.ATTN_SHAPES (bf16, the decoder's causal mask,
+vision's none), as ``attn_cases`` says; --cases topk: row 17 at (N, k) in
+{(4, 2), (256, 2), (256, 9), (1024, 2), (1024, 9)}, V=250054, bf16, beside
+torch.topk + torch.logsumexp.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -225,6 +231,56 @@ def lazy_cases(dev):
                    lambda a=(q, ck, cv, ks, vs, anc), i=index, f=fn: f(*a, i, heads), None)
 
 
+def attn_cases(dev):
+    """Rows 12 (forward, backward) and 11 at the decoder's and vision's
+    shapes (chip_smoke.ATTN_SHAPES, _attention_case), beside
+    scaled_dot_product_attention with the same boolean mask: its forward in
+    graph replays, its backward (torch.autograd.grad) by the device time of
+    its kernels in a profiler trace (``library_profiled_ms``; where the
+    checkout's chip_smoke has ``profiled_ms``, since autograd runs on the
+    forward's stream and a graph capture cannot hold it), taken after every
+    other time of the run, so that no graph-replay time follows a trace."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+
+    profiled = getattr(chip_smoke, "profiled_ms", None)
+    for shape, kind in (("decoder", "causal"), ("vision", None)):
+        b, n, heads = chip_smoke.ATTN_SHAPES[shape]
+        q, k, v, mask = chip_smoke._attention_case(dev, b, n, heads, kind, 440)
+        bias, fbias = sa.mask_bias(mask, b, n), fa.mask_bias(mask, b, n, n)
+        do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(441),
+                         device=dev).bfloat16()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+        dot = do.transpose(1, 2)
+        sdpa = lambda a=(qt, kt, vt), m=mask: F.scaled_dot_product_attention(  # noqa: E731
+            *a, attn_mask=m, scale=1.0)
+        sdpa_bwd = lambda o=out, lv=leaves, g=dot: torch.autograd.grad(  # noqa: E731
+            o, lv, g, retain_graph=True)
+        yield (f"small_attention_forward {shape}",
+               lambda a=(q, k, v, bias): sa.small_attention_forward(*a), sdpa)
+        yield (f"small_attention_backward {shape}",
+               lambda a=(q, k, v, bias, do): sa.small_attention_backward(*a),
+               None if profiled is None else (profiled, sdpa_bwd))
+        yield (f"flash_attention {shape}",
+               lambda a=(q, k, v, fbias): fa.flash_attention_forward(*a), sdpa)
+
+
+def topk_cases(dev):
+    """Row 17 at the greedy and beam shapes, V=250054, bf16, beside
+    torch.topk + torch.logsumexp (two calls, the lse in bf16)."""
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    for n, k in ((4, 2), (256, 2), (256, 9), (1024, 2), (1024, 9)):
+        x = (torch.randn((n, HEAD_V), generator=g, device=dev) * 2).bfloat16()
+        yield (f"topk_log_probs N={n} k={k}", lambda x=x, k=k: topk_log_probs(x, k),
+               lambda x=x, k=k: (torch.topk(x, k), torch.logsumexp(x, dim=-1)))
+
+
 def generate_case(dev, batch: int = 256):
     """-> a function running the flagship's beam-4 bf16 generate of
     ``batch`` images, returning its captions/s."""
@@ -260,9 +316,10 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
     groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases,
-              "lazy": lazy_cases}
+              "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
+    profiled = []  # (row, timer, fn): timed after everything else
     for turn in range(args.turns):
         if generate is not None:
             rates = [generate(), generate()]
@@ -273,10 +330,16 @@ def main() -> None:
         for name, fn, library in cases:
             row = {"label": args.label, "turn": turn, "case": name, "card": card,
                    "graph_ms": graph_ms(fn), "median_ms": median_ms(fn)}
-            if library is not None:
+            if isinstance(library, tuple):  # (timer, fn): a call a graph cannot hold
+                profiled.append((row, *library))
+            elif library is not None:
                 row["library_graph_ms"] = graph_ms(library)
             lines.append(row)
-            print(json.dumps(row), flush=True)
+            if not isinstance(library, tuple):
+                print(json.dumps(row), flush=True)
+    for row, timer, fn in profiled:
+        row["library_profiled_ms"] = timer(fn)
+        print(json.dumps(row), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "a") as f:

@@ -1,33 +1,37 @@
 #!/usr/bin/env python3
-"""Trace one flagship beam-4 generate, or one flagship train step, on one
-CUDA card and say where the device time goes.
+"""Trace one flagship generate, or one flagship train step, on one CUDA
+card and say where the device time goes.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
-    python3 tools/torch_trace_generate.py [--batch 256] [--paths bf16,int8,fused,merged]
+    python3 tools/torch_trace_generate.py [--batch 256]
+                                          [--paths bf16,int8,fused,merged,greedy] [--out FILE]
+    python3 tools/torch_trace_generate.py --train [--routes dl,split,save] [--small-attn]
                                           [--out FILE]
-    python3 tools/torch_trace_generate.py --train [--routes dl,split,save] [--out FILE]
 
 For each path (bf16: the default knobs, the bucket head; int8: int8
 weights and int8 KV cache, ``quantize="int8", kv_quant="int8"``; fused: the
 fully fused beam step, bf16, under chip_smoke.FUSED_STEP's switches,
 MIC_TPU_FUSED_LAZY_ATTN=1 and
 MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv; merged: the merged
-cross cache, MIC_TPU_EXPERIMENTAL=merged_cross), on the
+cross cache, MIC_TPU_EXPERIMENTAL=merged_cross; greedy: num_beams=1 on the
+dense logits, MIC_TPU_EXPERIMENTAL=fused_decode,pallas_topk with
+MIC_TPU_FUSED_HEAD=0, rows 18 and 17), on the
 flagship at full width with random weights (chip_smoke.flagship): one
-untraced generate to warm up, then one generate of B images, beam 4,
-max_length 64, every caption's EOS pinned at position 63 (``eos_positions``,
+untraced generate to warm up, then one generate of B images (beam 4 but
+on the greedy path), max_length 64, every caption's EOS pinned at position 63 (``eos_positions``,
 so that the run takes 63 decode steps whatever the weights emit) under
 torch.profiler.  From the trace: the device's kernels, copies and sets;
 busy ms is the union of their intervals, window ms the host clock around
 the synchronised generate, the idle share 1 - busy / window; launches per
 step; and the kernels that take most device time, each as a share of the
 sum of device time, grouped by name; and the device ms of the kernels of
-rows 2, 3, 13, 14, 15 and 16 (``ROWS``: the int8 lazy attention of the
-int8 path, the blocked lazy attention, the cross-attention, LN -> GEMM's
-and the fused MLP's launches of the fused path, the merged
-cross-attention of the merged path), each as a share of busy.  One JSON line per path goes to
+rows 2, 3, 13, 14, 15, 16, 17 and 18 (``ROWS``: the int8 lazy attention of
+the int8 path, the blocked lazy attention, the cross-attention, LN ->
+GEMM's and the fused MLP's launches of the fused path, the merged
+cross-attention of the merged path, the top-k + logsumexp and the decode
+attention of the greedy path), each as a share of busy.  One JSON line per path goes to
 stdout and, with --out, to FILE.
 
 With --train: the port's Trainer at flagship width with the TrainConfig
@@ -36,7 +40,9 @@ fused loss on each route of --routes (TrainConfig.flash_ce; default "dl",
 the CUDA default) on chip_smoke's seeded batches takes two untraced steps,
 then one step under torch.profiler, the window being the host clock from
 the step's call to its loss read; the same summary, launches counted for
-the one step, one line a route.
+the one step, one line a route.  With --small-attn, under
+MIC_TPU_EXPERIMENTAL=small_attn (row 12's forward and backward in both
+towers; their device ms as shares of busy).
 """
 
 from __future__ import annotations
@@ -74,10 +80,16 @@ ROWS = {
     "row 15": r"ln_gemm_kernel|split_sum_kernel<[^<>]*AddBias",
     "row 16": r"mlp_kernel<|mlp_finish_kernel<|fc1_act_kernel<|fc2_kernel|"
               r"split_sum_kernel<[^<>]*Finish<",
+    # before their redesigns: the top-k's second launch, topk_lse_merge_kernel,
+    # and the backward's small_attention_bwd_kernel<__nv_bfloat16>
+    "row 17": r"topk_lse_kernel<|topk_lse_merge_kernel",
+    "row 18": r"decode_attention",
+    "row 12 forward": r"small_attention_fwd",
+    "row 12 backward": r"small_attention_bwd",
 }
 # the rows a path can run, where not every row of ROWS
 PATH_ROWS = {"fused": ("row 3", "row 14", "row 15", "row 16"),
-             "merged": ("row 13",)}
+             "merged": ("row 13",), "greedy": ("row 17", "row 18")}
 
 
 def short_name(name: str) -> str:
@@ -161,7 +173,7 @@ def trace_path(model, params, px, kw, label: str, batch: int, env=None) -> dict:
     return dict(summarize(prof, window_ms, label, out.steps, rows), batch=batch)
 
 
-def trace_train(dev, route: str) -> dict:
+def trace_train(dev, route: str, small_attn: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
@@ -175,17 +187,19 @@ def trace_train(dev, route: str) -> dict:
     trainer.build(steps_per_epoch=len(host))
     state = trainer.init_state()
     batches = [trainer.put_batch(b) for b in host]
-    for batch in batches[:2]:  # warm-up: builds, allocator, first launches
-        state, metrics = trainer.train_step(state, batch)
-        metrics["loss"].item()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, batches[2])
-        loss = metrics["loss"].item()  # waits for the step
-        window_ms = (time.perf_counter() - t0) * 1e3
-    return dict(summarize(prof, window_ms, f"train step, flash_ce {tc.flash_ce!r}", 1),
-                batch=tc.per_device_batch_size, loss=loss)
+    with chip_smoke.knobs(**({"MIC_TPU_EXPERIMENTAL": "small_attn"} if small_attn else {})):
+        for batch in batches[:2]:  # warm-up: builds, allocator, first launches
+            state, metrics = trainer.train_step(state, batch)
+            metrics["loss"].item()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batches[2])
+            loss = metrics["loss"].item()  # waits for the step
+            window_ms = (time.perf_counter() - t0) * 1e3
+    label = f"train step, flash_ce {tc.flash_ce!r}" + (", small_attn" if small_attn else "")
+    return dict(summarize(prof, window_ms, label, 1), batch=tc.per_device_batch_size,
+                loss=loss)
 
 
 def main() -> None:
@@ -196,6 +210,8 @@ def main() -> None:
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--routes", default="dl",
                         help="with --train: flash_ce routes, one trace each (dl,split,save,fwd)")
+    parser.add_argument("--small-attn", action="store_true",
+                        help="with --train: under MIC_TPU_EXPERIMENTAL=small_attn")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_trace_generate.py needs a CUDA device")
@@ -204,14 +220,17 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.train:
         for route in args.routes.split(","):
-            write_rows([dict(trace_train(dev, route), card=card)], args.out)
+            write_rows([dict(trace_train(dev, route, args.small_attn), card=card)], args.out)
             torch.cuda.empty_cache()
         return
     _, params, model, kw, pixels = chip_smoke.flagship(dev)
     px = pixels(args.batch, 1)
     kw = dict(kw, eos_positions=torch.full((args.batch,), 63, device=dev, dtype=torch.int32))
     paths = {"bf16": (kw, None), "int8": (dict(kw, quantize="int8", kv_quant="int8"), None),
-             "fused": (kw, chip_smoke.FUSED_STEP), "merged": (kw, chip_smoke.MERGED_CROSS)}
+             "fused": (kw, chip_smoke.FUSED_STEP), "merged": (kw, chip_smoke.MERGED_CROSS),
+             "greedy": (dict(kw, num_beams=1),
+                        dict(MIC_TPU_EXPERIMENTAL="fused_decode,pallas_topk",
+                             MIC_TPU_FUSED_HEAD="0"))}
     rows = []
     for label in args.paths.split(","):
         path_kw, env = paths[label]
