@@ -2938,6 +2938,12 @@ MERGED_CROSS = dict(MIC_TPU_EXPERIMENTAL="merged_cross")
 PHYSICAL = dict(MIC_TPU_LAZY_CACHE="0")
 PERMUTE_SHAPE = (12, FLAG_B * FLAG_K, FLAG_T, FLAG_H, FLAG_DH)  # one flagship self plane
 MM_SHAPES = ((1024, 3072), (1024, 4096), (4096, 1024), (1024, HEAD_V))  # (K, N)
+# phase 42's cases, (K, N) -> M: MM_SHAPES at M in {4, 1024} (every instance
+# at the first and last), then ragged shapes
+MM_CASES = {(1024, 3072): (1, 4, 8, 64, 65, 1024), (1024, 4096): (4, 1024),
+            (4096, 1024): (4, 1024), (1024, HEAD_V): (1, 4, 8, 64, 65, 1024),
+            (1024, 249): (4,), (1024, 250055): (65,), (1024, 3078): (4, 1024),
+            (1001, 3074): (65,), (1000, 3074): (1,)}
 
 
 def q8_cross_bound(b, beams, s, hd, heads):
@@ -3090,39 +3096,79 @@ def check_beam_permute(dev):
 
 
 def check_int8_matmul(dev):
-    """Phase 42: row 20's kernel against its plain version at M in {4, 1024}
-    and (K, N) in {(1024, 3072), (1024, 4096), (4096, 1024), (1024, 250054)}:
-    each output within one bf16 ulp of the plain output plus the worst-case
-    error of f32 sums in another order, K * 2**-24 * sum |x| |w|; a rerun
-    bit-equal."""
-    from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    """Phase 42: row 20's kernel against its plain version: M in {4, 1024} at
+    (K, N) in {(1024, 3072), (1024, 4096), (4096, 1024), (1024, 250054)}, M
+    in {1, 8, 64, 65} too at the first and last (every instance, depth
+    splits at decode M), and the ragged shapes: odd N (249, 250055), N % 16
+    in {2, 6} (3074, 3078: the weights by cp.async and a realign), K % 8 !=
+    0, a last slice cut short and a ragged last split (K = 1000, M = 1), w_q
+    one byte into its storage.  Each output within one bf16 ulp of the
+    plain output plus the worst-case error of f32 sums in another order, K
+    * 2**-24 * sum |x| |w|; a rerun bit-equal.  Then exact sums (small-
+    integer x, K <= 128, scales of 8 significant bits whose products with
+    w_q round: every sum exact in any order) bit-equal to plain, and scales
+    of any size (negative, zero, 2^15 and more) within the bound."""
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain, int8_matmul_plan
 
     g = torch.Generator(device=dev).manual_seed(42)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     inputs = {}
-    for k, n in MM_SHAPES:
-        w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
-        scale = torch.rand((n,), generator=g, device=dev) * 0.09 + 0.01
+
+    def held(x, w_q, scale, what):
+        m, k = x.shape
+        n = w_q.shape[1]
+        out = int8_matmul(x, w_q, scale)
+        again = int8_matmul(x, w_q, scale)
+        ref = int8_matmul_plain(x, w_q, scale)
+        torch.cuda.synchronize()
         w_abs = (w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)).float().abs()
-        for m in (4, 1024):
+        diff = (out.float() - ref.float()).abs()
+        limit = _bf16_ulp(ref.float().abs()) + k * 2.0**-24 * (x.float().abs() @ w_abs)
+        name = f"int8_matmul {what}M={m} K={k} N={n}"
+        require(bool((diff <= limit).all()), f"{name}: an output beyond its bound")
+        require(torch.equal(out, again), f"{name}: a rerun differs")
+        print(f"{name} (instance, splits, blocks {int8_matmul_plan(m, k, n, sms)}): "
+              f"max_abs_err={diff.max().item():.6g} (largest |out| "
+              f"{ref.float().abs().max().item():.4g}), {int((diff > 0).sum())} of "
+              f"{diff.numel()} outputs differ from plain, rerun bit-equal", flush=True)
+        return diff.max().item()
+
+    def weight(k, n, offset=0):
+        flat = torch.randint(-128, 128, (k * n + offset,), generator=g, device=dev,
+                             dtype=torch.int8)
+        return flat[offset:].view(k, n), torch.rand((n,), generator=g, device=dev) * 0.09 + 0.01
+
+    for (k, n), ms in MM_CASES.items():
+        w_q, scale = weight(k, n)
+        for m in ms:
             x = (torch.randn((m, k), generator=g, device=dev) * 0.3).bfloat16()
-            out = int8_matmul(x, w_q, scale)
-            again = int8_matmul(x, w_q, scale)
-            ref = int8_matmul_plain(x, w_q, scale)
-            torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            limit = _bf16_ulp(ref.float().abs()) + k * 2.0**-24 * (x.float().abs() @ w_abs)
-            require(bool((diff <= limit).all()), f"int8_matmul M={m} K={k} N={n}: an output "
-                    "beyond its bound")
-            require(torch.equal(out, again), f"int8_matmul M={m} K={k} N={n}: a rerun differs")
-            worst = max(worst, diff.max().item())
-            print(f"int8_matmul M={m} K={k} N={n}: max_abs_err={diff.max().item():.6g} (largest "
-                  f"|out| {ref.float().abs().max().item():.4g}), {int((diff > 0).sum())} of "
-                  f"{diff.numel()} outputs differ from plain, rerun bit-equal", flush=True)
-            del out, again, ref, diff, limit
-            if (k, n) in ((1024, 3072), (1024, HEAD_V)):
+            err = held(x, w_q, scale, "")
+            if m in (4, 1024) and (k, n) in MM_SHAPES:
+                worst = max(worst, err)
+            if m in (4, 1024) and (k, n) in ((1024, 3072), (1024, HEAD_V)):
                 inputs[(m, k, n)] = (x, w_q, scale)
-        del w_abs
+        del w_q, scale
+    w_q, scale = weight(1024, 3072, offset=1)
+    held((torch.randn((8, 1024), generator=g, device=dev) * 0.3).bfloat16(), w_q, scale,
+         "w_q one byte in, ")
+    for m, k, n in ((4, 128, 3072), (65, 120, 249), (1024, 128, HEAD_V)):
+        x = torch.randint(-3, 4, (m, k), generator=g, device=dev).bfloat16()
+        w_q = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.randint(128, 256, (n,), generator=g, device=dev).float() * 2.0**-10
+        out = int8_matmul(x, w_q, scale)
+        torch.cuda.synchronize()
+        require(torch.equal(out, int8_matmul_plain(x, w_q, scale)),
+                f"int8_matmul exact sums M={m} K={k} N={n}: not bit-equal to plain")
+        print(f"int8_matmul exact sums M={m} K={k} N={n}: bit-equal to plain", flush=True)
+    for m, k, n in ((4, 1024, 3074), (1024, 256, 3072)):
+        w_q, scale = weight(k, n)
+        scale = scale - 0.055
+        scale[::7] = 0.0
+        scale[3::97] = 40000.0
+        scale[5::211] = -3.0e5
+        held((torch.randn((m, k), generator=g, device=dev) * 0.3).bfloat16(), w_q, scale,
+             "scales of any size, ")
     return worst, inputs
 
 

@@ -85,8 +85,10 @@ _SIGNATURES = {
     "mic_cross_attention_dma_bf16": [_P] * 4 + [_I] * 6 + [_P],
     # kv, idx, out, layers, rows, beams, row_elems, elem_bytes, stream
     "mic_beam_permute": [_P] * 3 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
-    # x, w_q, scale, out, m, k, n, stream
-    "mic_int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # x, w_q, scale, out, part, arrivals, m, kx, k, n, rows, splits, blocks, stream
+    "mic_int8_matmul_bf16": [_P] * 6 + [_I] * 7 + [_P],
+    # rows, tma -> the instance's dynamic shared memory in bytes
+    "mic_int8_matmul_shared_bytes": [_I, _I],
     # x, scale, shift, w, bias, part, out, n, d, o, eps, splits, stream
     "mic_ln_gemm_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # x, w1, b1, w2, b2, h, part, out, n, d, f, act, splits1, splits2, stream
@@ -103,6 +105,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_ARRIVALS: dict = {}  # (device index, stream) -> int32 counters, zero between launches
 
 
 def _nvcc() -> str:
@@ -180,3 +183,21 @@ def check_operands(name: str, tensors) -> None:
         if x.device != device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be contiguous, 16-byte aligned and on one "
                              "device")
+
+
+def arrivals(device, stream: int, n: int):
+    """At least ``n`` arrival counters for a kernel launched on ``stream``
+    that counts its blocks in and leaves every counter 0 again (the top-k
+    + logsumexp's rows, the dequant GEMM's tiles): one set a stream, kept
+    from launch to launch, so that launches on two streams never share one.
+    The first launch at a size allocates them, so that launch must not be
+    captured in a CUDA graph (a warm-up call before the capture makes
+    them)."""
+    import torch
+
+    key = (device.index, stream)
+    counters = _ARRIVALS.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = counters
+    return counters

@@ -24,21 +24,6 @@ NEG_INF = -1e30
 TOPK_MAX = 16     # the largest k the kernel keeps; the search asks for at most 13
 _RUN_COLS = 4096  # the fewest vocab columns a run of the kernel walks
 _ENTRIES = {torch.bfloat16: "mic_topk_lse_bf16", torch.float32: "mic_topk_lse_f32"}
-_ARRIVALS: dict = {}  # (device index, stream) -> int32 row counters, zero between launches
-
-
-def _arrivals(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The kernel's per-row arrival counters for launches on ``stream``:
-    zeros the kernel leaves zero again, kept from launch to launch (one set
-    a stream, so that launches on two streams never share one).  The first
-    launch at a size allocates them, so that launch must not be captured
-    in a CUDA graph (a warm-up call before the capture makes them)."""
-    key = (device.index, stream)
-    counters = _ARRIVALS.get(key)
-    if counters is None or counters.numel() < n:
-        counters = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ARRIVALS[key] = counters
-    return counters
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -85,7 +70,7 @@ def topk_log_probs(logits: torch.Tensor, k: int):
     lp = torch.empty((n, k), **f32)
     ids = torch.empty((n, k), dtype=torch.int32, device=logits.device)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
-    arrivals = _arrivals(logits.device, stream, n)
+    arrivals = _build.arrivals(logits.device, stream, n)
     err = getattr(_build.lib(), entry)(
         logits.data_ptr(), part_m, part_l, part_v, part_i, arrivals.data_ptr(), lp.data_ptr(),
         ids.data_ptr(), n, v, k, runs, stream,

@@ -1767,15 +1767,20 @@ def test_beam_permute_kernel_matches_plain(cuda, shape, dtype):
     assert torch.equal(out, beam_permute_plain(kv, idx, k)) and torch.equal(kv, before)
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("m,k,n", [(4, 1024, 3072), (70, 256, 384), (3, 100, 70), (65, 33, 250)])
-def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
-    """Aligned decode shapes and ragged M, K and N (zero-filled edges, no
-    16-byte rows)."""
-    g = torch.Generator(device=cuda).manual_seed(m + k)
+def _int8_matmul_operands(cuda, m, k, n, offset=0):
+    """x (M, K) bf16, w_q (K, N) int8 ``offset`` bytes into its storage,
+    scales in [0.01, 0.1)."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = (torch.randn((m, k), generator=g, device=cuda) * 0.3).bfloat16()
-    w_q = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    flat = torch.randint(-128, 128, (k * n + offset,), generator=g, device=cuda,
+                         dtype=torch.int8)
     scale = torch.rand((n,), generator=g, device=cuda) * 0.09 + 0.01
+    return x, flat[offset:].view(k, n), scale
+
+
+def _int8_matmul_holds(x, w_q, scale):
+    """The kernel within one bf16 ulp of plain plus K 2**-24 sum |x| |w| (f32
+    sums in another order), a rerun bit-equal, two launches counted."""
     launches = int8_matmul.launches
     out = int8_matmul(x, w_q, scale)
     again = int8_matmul(x, w_q, scale)
@@ -1784,8 +1789,53 @@ def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
     assert int8_matmul.launches == launches + 2 and torch.equal(out, again)
     w = w_q.to(torch.bfloat16) * scale.to(torch.bfloat16)
     l1 = x.float().abs() @ w.float().abs()
-    bound = _bf16_ulp(ref.float().abs()) + k * 2.0**-24 * l1
+    bound = _bf16_ulp(ref.float().abs()) + x.shape[1] * 2.0**-24 * l1
     assert bool(((out.float() - ref.float()).abs() <= bound).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (4, 1024, 3072, 0), (70, 256, 384, 0), (3, 100, 70, 0), (65, 33, 250, 0),
+    (1, 1024, 3072, 0), (8, 256, 384, 0), (64, 1024, 3072, 0), (65, 1024, 3072, 0),
+    (1024, 1024, 3072, 0), (4, 1024, 249, 0), (65, 1001, 3074, 0), (4, 1000, 3078, 0),
+    (1, 1000, 3074, 0), (8, 1024, 3072, 1), (64, 512, 4100, 0), (1024, 64, 250055, 0)])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, offset):
+    """Every instance (M up to 8, 64, more) on both weight paths (TMA at
+    N % 16 == 0 with w_q 16-byte aligned; else cp.async and a realign: odd
+    N, N % 16 in {2, 4, 6}, w_q one byte into its storage), ragged M, K
+    (K % 8 != 0 and a last slice cut short) and N, and depth splits with a
+    ragged last split (M <= 64 at N = 3072)."""
+    _int8_matmul_holds(*_int8_matmul_operands(cuda, m, k, n, offset))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", [(4, 128, 3072), (65, 120, 249), (1024, 128, 3074),
+                                   (8, 96, 250054)])
+def test_int8_matmul_kernel_exact_sums(cuda, m, k, n):
+    """Small-integer x, K <= 128 and scales of 8 significant bits whose
+    products with w_q round: every f32 sum is exact in any order, so the
+    kernel is bit-equal to plain (a scale applied after the sum, or a
+    weight rounded another way, shows)."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randint(-3, 4, (m, k), generator=g, device=cuda).bfloat16()
+    w_q = torch.randint(-128, 128, (k, n), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.randint(128, 256, (n,), generator=g, device=cuda).float() * 2.0**-10
+    out = int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, int8_matmul_plain(x, w_q, scale))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", [(4, 1024, 3074), (64, 256, 3072), (1024, 128, 250)])
+def test_int8_matmul_kernel_takes_scales_of_any_size(cuda, m, k, n):
+    """Negative, zero and large scales (2^15 and more take the longer
+    widening): within the bound of plain."""
+    x, w_q, scale = _int8_matmul_operands(cuda, m, k, n)
+    scale = scale - 0.055
+    scale[::7] = 0.0
+    scale[3::97] = 40000.0
+    scale[5::211] = -3.0e5
+    _int8_matmul_holds(x, w_q, scale)
 
 
 @pytest.mark.requires_cuda

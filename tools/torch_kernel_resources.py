@@ -19,12 +19,16 @@ printed beside its number of instructions, with each distinct form of the
 matching instructions (the opcode and its operands with register numbers
 dropped) and how often it occurs: a wgmma reading both operands from shared memory shows as
 ``HGMMA... R, gdesc[UR], R``, one whose A is in registers as ``HGMMA... R,
-R, gdesc[UR], R``, and a warp-level mma.sync (WMMA) as ``HMMA``.
+R, gdesc[UR], R``, and a warp-level mma.sync (WMMA) as ``HMMA``.  For
+int8_matmul.cu (row 20), whose blocks take dynamic shared memory only, the
+bytes a block of each instance takes are printed too (the source's
+``mic_int8_matmul_shared_bytes``, from the object linked alone).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import re
 import shutil
 import subprocess
@@ -75,6 +79,15 @@ def main() -> None:
                 print(f"{src.name}: {kernel}: {line.strip()}", flush=True)
             elif "warning" in line.lower() or re.search(r"\(C75\d\d\)", line):
                 print(f"{src.name}: {line.strip()}", flush=True)
+        if src.stem == "int8_matmul":
+            lib = out / "int8_matmul.so"
+            subprocess.run([nvcc, *_build._FLAGS, "-shared", "-o", str(lib), str(obj)], check=True)
+            shared = ctypes.CDLL(str(lib)).mic_int8_matmul_shared_bytes
+            shared.argtypes = _build._SIGNATURES["mic_int8_matmul_shared_bytes"]
+            for rows in (8, 64, 256):
+                for tma in (1, 0):
+                    print(f"{src.name}: dq_kernel<{rows}, {bool(tma)}>: {shared(rows, tma)} bytes "
+                          "of dynamic shared memory a block", flush=True)
         if args.sass_grep:
             cuobjdump = Path(nvcc).parent / "cuobjdump"
             sass = subprocess.run([str(cuobjdump), "--dump-sass", str(obj)], capture_output=True,

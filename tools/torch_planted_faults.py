@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults: show that the checks of the cross-attention kernel
 (rows 13 and 14), of the bf16 bucket head's ring (row 4), of the small-T
-bf16 backward (row 12) and of the top-k + logsumexp (row 17) can fail.  Each
+bf16 backward (row 12), of the top-k + logsumexp (row 17) and of the
+dequantising GEMM (row 20) can fail.  Each
 fault is a copy of the checkout under build/planted/ with one source edit,
 built on the card; the checks meant to catch it run in that copy, and each
 prints CAUGHT (it failed) or "not caught" (it passed).
@@ -15,7 +16,8 @@ chip_smoke.py's phases 24, 39 and 40 and the CUDA tests ``-k cross`` for
 the cross-attention faults; phase 48 (its SASS check, and its reruns alone),
 phase 3 and the CUDA tests ``-k fused_head_bucket`` for the ring's; phase
 35 and the CUDA tests ``-k small_attention`` for the backward's; phase 19
-and the CUDA tests ``-k topk`` for the top-k's.
+and the CUDA tests ``-k topk`` for the top-k's; phase 42 and the CUDA tests
+``-k int8_matmul`` for the GEMM's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ CROSS = "mic_tpu_torch/csrc/attend_rows.cuh"
 HEAD = "mic_tpu_torch/csrc/fused_head.cu"
 SMALL = "mic_tpu_torch/csrc/small_attention.cu"
 TOPK = "mic_tpu_torch/csrc/topk_lse.cu"
+MATMUL = "mic_tpu_torch/csrc/int8_matmul.cu"
+MUL_RN = '  asm("mul.rn.bf16x2 %0, %1, %2;\\n" : "=r"(d) : "r"(a), "r"(b));'
+EXACT_FORM = "    scale_forms.fast = kRows < 256 &&"
+STORE = "        if (row < m) store_pair(out, n, row, col, acc[4 * i + e], acc[4 * i + 2 + e]);"
 DS_HI_LO = "    mm::p_fragments(dp, dsa);  // dS as bf16 hi + lo\n"
 P_LOADS = ("      uint32_t ap[4], hi[4], lo[4];\n"
            "      mm::load_transposed(ap, sv, warp * 16, 16 * kk);\n")
@@ -83,6 +89,29 @@ FAULTS = {
     "a candidate equal to the threshold with a lower id dropped": (TOPK, [
         ("    any |= top[u] >= list.thr_v;", "    any |= top[u] > list.thr_v;"),
         ("    if (__any_sync(kFull, top[u] >= cut)) {", "    if (__any_sync(kFull, top[u] > cut)) {")]),
+    # the weights widened unscaled, each output scaled after its sum (the
+    # cheaper function the reference is not)
+    "the scale applied after the sum": (MATMUL, [
+        ("          widen_scaled(raw[2 * kk + h], sc, p0, p1);",
+         "          widen(raw[2 * kk + h], p0, p1);"),
+        ("          p0 = mul_bf16x2(p0, sc.s[0]);\n          p1 = mul_bf16x2(p1, sc.s[1]);\n", ""),
+        (STORE, STORE.replace("acc[4 * i + e], acc[4 * i + 2 + e]",
+                              "acc[4 * i + e] * __uint_as_float(scale_forms.s[0] << 16),\n"
+                              "                               acc[4 * i + 2 + e] * "
+                              "__uint_as_float(scale_forms.s[1] << 16)"))]),
+    # every weight by the longer form, its product with the scale truncated
+    "the weight truncated instead of rounded": (MATMUL, [
+        (EXACT_FORM, "    scale_forms.fast = false &&"),
+        (MUL_RN, "  d = __byte_perm(__float_as_uint(__uint_as_float(a << 16) * "
+                 "__uint_as_float(b << 16)),\n"
+                 "                  __float_as_uint(__uint_as_float(a & 0xffff0000u) * "
+                 "__uint_as_float(b & 0xffff0000u)), 0x7632);")]),
+    "one depth split left out of the sum": (MATMUL, [(
+        "            if (z0 + q < splits) {\n              v = z0 + q == 0",
+        "            if (z0 + q < splits - 1) {\n              v = z0 + q == 0")]),
+    "a realign off by one byte on an unaligned row": (MATMUL, [(
+        "      const uint32_t sh = 8u * (o & 3);",
+        "      const uint32_t sh = 8u * ((o + (o != 0)) & 3);")]),
     "one run's partial left out of the fold": (TOPK, [
         ("  for (int z = lane; z < runs; z += 32) {", "  for (int z = lane; z < runs - 1; z += 32) {"),
         ("  const int entries = runs * k;", "  const int entries = (runs - 1) * k;")]),
@@ -114,6 +143,8 @@ CHECKS = {
             ("CUDA tests -k small_attention", None)],
     TOPK: [("phase 19", phase("c.check_topk_lse(torch.device('cuda'))")),
            ("CUDA tests -k topk", None)],
+    MATMUL: [("phase 42", phase("c.check_int8_matmul(torch.device('cuda'))")),
+             ("CUDA tests -k int8_matmul", None)],
 }
 
 

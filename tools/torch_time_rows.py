@@ -3,15 +3,15 @@
 (rows 1 and 2), tied-head kernels (rows 4, 5 and 6), flash-CE kernels
 (rows 7 and 8, row 9's forward, and the save and split backwards of rows
 9 and 10), the fused beam step's kernels
-(rows 3, 13, 14, 15, 16, with row 20), the teacher-forced attention (rows
-11 and 12) and the top-k + logsumexp (row 17) on one CUDA card, beside
-scaled_dot_product_attention for rows 18, 11 and 12.
+(rows 3, 13, 14, 15, 16), the teacher-forced attention (rows 11 and 12),
+the top-k + logsumexp (row 17) and the dequantising GEMM (row 20) on one
+CUDA card, beside scaled_dot_product_attention for rows 18, 11 and 12.
 
 Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
     python3 tools/torch_time_rows.py [--turns 2]
-                                     [--cases decode,heads,ce,fused,lazy,attn,topk]
+                                     [--cases decode,heads,ce,fused,lazy,attn,topk,mm]
                                      [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
@@ -25,14 +25,17 @@ contractions alone (``flash_ce_contraction``); --cases fused: the blocked
 lazy attention (row 3, bf16 and int8 per-head, index 63 and 17), the
 cross-attentions (rows 13, 14, 14's int8 form), LN -> GEMM and the MLP
 (rows 15, 16, N in {1024, 32}) beside the chains of calls that compute
-the same (F.layer_norm + F.linear; F.linear -> F.gelu -> F.linear), and
-the int8 dequant GEMM (row 20), as ``fused_cases`` says; --cases lazy:
+the same (F.layer_norm + F.linear; F.linear -> F.gelu -> F.linear), as
+``fused_cases`` says; --cases lazy:
 rows 1 and 2 (bf16 and int8 cache) at B=256 K=4 T=64 H=16, index 63 and
 17, as ``lazy_cases`` says; --cases attn: row 12's forward and backward
 and row 11 at chip_smoke.ATTN_SHAPES (bf16, the decoder's causal mask,
 vision's none), as ``attn_cases`` says; --cases topk: row 17 at (N, k) in
 {(4, 2), (256, 2), (256, 9), (1024, 2), (1024, 9)}, V=250054, bf16, beside
-torch.topk + torch.logsumexp.  Each time
+torch.topk + torch.logsumexp; --cases mm: row 20 at K=1024 and (M, N) in
+{(1024, 3072), (4, 3072), (4, 250054), (1024, 250054)} beside torch.mm on
+the dequantised bf16 weight (for scale: it reads twice the weight bytes),
+as ``mm_cases`` says.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -131,18 +134,16 @@ def ce_cases(dev):
 
 def fused_cases(dev):
     """The fused beam step's kernels at chip_smoke's shapes (rows 3, 13, 14
-    and its int8 form, 15, 16) and row 20, with the chains of calls for
-    scale: row 3 on the bf16 and the per-head int8 cache at B=256 K=4 T=64
-    H=16, index 63 and 17 (ancestry masks); rows 13 and 14 at S=50 (13
-    padded to 64); rows 15 and 16 at N in {1024, 32}, D=1024 (O=3072,
-    F=4096); row 20 at M=1024 K=1024 N=3072."""
+    and its int8 form, 15, 16), with the chains of calls for scale: row 3
+    on the bf16 and the per-head int8 cache at B=256 K=4 T=64 H=16, index
+    63 and 17 (ancestry masks); rows 13 and 14 at S=50 (13 padded to 64);
+    rows 15 and 16 at N in {1024, 32}, D=1024 (O=3072, F=4096)."""
     import torch.nn.functional as F
 
     from mic_tpu_torch.ops.cross_attention import (
         fused_cross_attention, fused_cross_attention_dma, fused_cross_attention_q8,
     )
     from mic_tpu_torch.ops.fused_mlp import fused_mlp
-    from mic_tpu_torch.ops.int8_matmul import int8_matmul
     from mic_tpu_torch.ops.lazy_attention import build_ancestry_mask, fused_lazy_attention
     from mic_tpu_torch.ops.ln_gemm import ln_gemm
     from mic_tpu_torch.ops.quant import quantize_rows_dynamic
@@ -194,10 +195,25 @@ def fused_cases(dev):
         yield (f"fused_mlp N={n}", lambda x=x: fused_mlp(x, w1, b1, w2, b2), None)
         yield (f"chain F.linear -> F.gelu -> F.linear N={n} (for scale)",
                lambda x=x: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2), None)
-    wq = torch.randint(-127, 128, (d, 3 * d), generator=g, device=dev, dtype=torch.int8)
-    wscale = torch.rand((3 * d,), generator=g, device=dev) * 0.09 + 0.01
-    xm = rand(1024, d, scale=0.3)
-    yield ("int8_matmul M=1024 K=1024 N=3072", lambda: int8_matmul(xm, wq, wscale), None)
+
+
+def mm_cases(dev):
+    """Row 20 at K=1024: M=1024 and M=4 at N=3072 (the QKV width) and at
+    N=250054 (the head's), x random bf16, w_q uniform int8, scales in
+    [0.01, 0.1), beside torch.mm on the dequantised bf16 weight."""
+    from mic_tpu_torch.ops.int8_matmul import int8_matmul
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    k = HEAD_D
+    for n in (3 * HEAD_D, HEAD_V):
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        wscale = torch.rand((n,), generator=g, device=dev) * 0.09 + 0.01
+        w = wq.to(torch.bfloat16) * wscale.to(torch.bfloat16)
+        for m in (1024, 4):
+            x = (torch.randn((m, k), generator=g, device=dev) * 0.3).bfloat16()
+            yield (f"int8_matmul M={m} K={k} N={n}",
+                   lambda x=x, wq=wq, s=wscale: int8_matmul(x, wq, s),
+                   lambda x=x, w=w: torch.mm(x, w))
 
 
 def lazy_cases(dev):
@@ -316,7 +332,7 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
     groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases,
-              "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases}
+              "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases, "mm": mm_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     profiled = []  # (row, timer, fn): timed after everything else
