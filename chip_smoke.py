@@ -183,7 +183,15 @@ Phases, each of which raises on failure (none catches its own):
  47. beam 12 at a small width under merged_cross and under fused_cross_attn
      alone, card against CPU;
  48. the bf16 bucket head's ring: in its kernel's SASS no slot released
-     before the products reading it retire, and twenty reruns bit-equal.
+     before the products reading it retire, and twenty reruns bit-equal;
+ 49. checkpoints and model directories at flagship width: Trainer.train()
+     over a synthetic TSV of 256 PNGs for 4 steps saving every 2 (2 kept),
+     the model directory reloaded by from_pretrained bit-equal and its
+     beam-4 generate equal to the in-memory params' (rows 1 and 4), the
+     caption and evaluate CLIs on the card, one save, restore and
+     model-directory save timed, a run resumed from step 2 bit-equal to
+     the uninterrupted one (params, moments, step, losses); and at a small
+     width a checkpoint carried card -> CPU and CPU -> card bit-equal.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -194,8 +202,10 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -3488,6 +3498,313 @@ def check_bucket_slot_release(dev, lib_path):
               flush=True)
 
 
+CKPT_LANGS = ("en_XX", "fr_XX", "es_XX", "de_DE")
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _caption_tsv(root, n=256, size=256, seed=49):
+    """``n`` PNGs of random pixels (size x size) under ``root``/images and a
+    TSV of them (image, caption, url, language), languages in turn ->
+    (tsv path, images dir, captions)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(300)]
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    rows, captions = [], []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            os.path.join(images, f"img_{i}.png"))
+        captions.append(" ".join(rng.choice(words, int(rng.integers(6, 20)))))
+        rows.append(f"img_{i}.png\t{captions[-1]}\thttp://x\t{CKPT_LANGS[i % 4]}")
+    tsv = os.path.join(root, "train.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return tsv, images, captions
+
+
+def _logged(output_dir) -> dict:
+    """{step: (train loss, learning rate)} from a run's metrics.jsonl."""
+    with open(os.path.join(output_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return {line["step"]: (line["train/loss"], line["train/learning_rate"])
+            for line in lines if "train/loss" in line}
+
+
+def _checkpoint_leaves(tree) -> list:
+    """Params, then mu, then nu: every tensor of a train checkpoint's tree
+    (train/state.py::checkpoint_tree)."""
+    from mic_tpu_torch.core.params import tree_leaves
+
+    return [leaf.detach() for part in (tree["params"], tree["opt_state"]["mu"],
+                                       tree["opt_state"]["nu"])
+            for _, leaf in tree_leaves(part)]
+
+
+def _state_leaves(state) -> list:
+    from mic_tpu_torch.train.state import checkpoint_tree
+
+    return _checkpoint_leaves(checkpoint_tree(state))
+
+
+def _bytes_under(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def run_checkpoint_path(dev, root):
+    """Phase 49: the port keeps what it trains and serves it from a saved
+    directory, at flagship width (CaptionerConfig.clip_vit_b32_mbart50 in
+    bf16, TrainConfig defaults: batch 64 x 64, dropout 0.1, bf16 moments and
+    shadow, the dl route; warmup_steps=2).  Run A: Trainer.train() over a
+    synthetic TSV of 256 PNGs (256 x 256, 4 languages, a SimpleTokenizer fit
+    on its captions) for one epoch of 4 steps, save_steps=2,
+    save_total_limit=2: checkpoints 2 and 4 and nothing else, the model
+    directory, both CE kernels once a step.  Reload: from_pretrained's
+    params bit-equal to A's, and a beam-4 generate of 8 images from them
+    equal to one from A's params in memory (min_length 64: all 63 steps),
+    through rows 1 and 4.  The
+    caption CLI on 4 PNGs (4 lines) and the evaluate CLI on the TSV's first
+    64 rows (finite BLEU-1..4 for the four languages), with no --device:
+    both on the card, through rows 1 and 4.  One train-checkpoint save, its
+    restore and one model-directory save timed on the host clock.  Run B:
+    resume_from A's checkpoint 2 into a new directory; steps 3 and 4 give
+    the params, moments, step and logged losses of A bit-equal."""
+    from mic_tpu_torch.cli import caption, evaluate
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.data.tokenizer import SimpleTokenizer
+    from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
+    from mic_tpu_torch.models.captioner import Captioner
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+    from mic_tpu_torch.train.state import checkpoint_tree
+    from mic_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    tsv, images, captions = _caption_tsv(root)
+    tok = SimpleTokenizer()
+    tok.fit(captions)
+    tok_path = os.path.join(root, "tokenizer.json")
+    tok.save(tok_path)
+    print(f"checkpoints: 256 PNGs and a TSV written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    dc = DataConfig(train_file=tsv, images_dir=images)
+    run_a, run_b = os.path.join(root, "run_a"), os.path.join(root, "run_b")
+    tc = TrainConfig(output_dir=run_a, num_epochs=1, warmup_steps=2, save_steps=2,
+                     save_total_limit=2, logging_steps=1, eval_steps=10**9)
+
+    def train(tc):
+        trainer = Trainer(config, dc, tc, tokenizer_path=tok_path, device=dev)
+        _train_counts(reset=True)
+        t0 = time.perf_counter()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return state, {k: v for k, v in _train_counts().items() if v}, seconds
+
+    state_a, launches, seconds = train(tc)
+    logged_a = _logged(run_a)
+    kept = sorted(os.listdir(os.path.join(run_a, "checkpoints")))
+    model_dir = os.path.join(run_a, "model")
+    print(f"checkpoints, run A: {state_a.step} steps in {seconds:.1f} s (saves and the model "
+          f"directory included), losses {logged_a}, launches {launches}, checkpoints {kept}, "
+          f"model directory {sorted(os.listdir(model_dir))}", flush=True)
+    require(state_a.step == 4, f"run A took {state_a.step} steps, not 4")
+    require(launches == {"flash_ce_forward": 4, "flash_ce_backward_dl": 4},
+            f"run A: launches {launches}, expected both CE kernels once a step")
+    require(kept == ["2", "4"], f"run A kept checkpoints {kept}, not 2 and 4")
+    require(sorted(os.listdir(model_dir)) == ["config.json", "params.pt", "tokenizer.json"],
+            "run A's model directory is not config.json, params.pt and tokenizer.json")
+    require(sorted(logged_a) == [1, 2, 3, 4] and all(np.isfinite(v[0]) for v in logged_a.values()),
+            "run A did not log four finite losses")
+    with open(os.path.join(run_a, "checkpoints", "2", "meta.json")) as f:
+        meta = json.load(f)
+    require(meta == {"epoch": 0, "next_batch": 2}, f"checkpoint 2 holds the position {meta}")
+
+    model, params = Captioner.from_pretrained(model_dir)
+    reloaded = [leaf for _, leaf in tree_leaves(params)]
+    require(all(a.device.type == "cuda" for a in reloaded), "from_pretrained left the card")
+    require(all(torch.equal(a, b.detach()) for a, (_, b) in
+                zip(reloaded, tree_leaves(state_a.params))),
+            "from_pretrained's params are not run A's bit for bit")
+    u8 = np.random.default_rng(50).integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, torch.bfloat16)
+    # four steps teach the model to end at once: min_length keeps all 63
+    # steps of the decode in the comparison
+    kw = dict(num_beams=4, max_length=64, min_length=64, forced_bos_token_id=FLAGSHIP_BOS)
+    from_memory, _ = drive(model, state_a.params, px, **kw)
+    from_disk, counts = drive(model, params, px, **kw)
+    seqs = check_path_output(from_disk, 8, 64, "reloaded model")
+    require(from_disk.steps == 63, f"reloaded generate took {from_disk.steps} steps, not 63")
+    print(f"checkpoints, reload: params bit-equal; beam 4 of 8 images from the reloaded params: "
+          f"{from_disk.steps} steps, launches lazy_attention {counts['lazy_attention']}, "
+          f"fused_head {counts['fused_head']}", flush=True)
+    require(torch.equal(seqs, from_memory.sequences.cpu()),
+            "the reloaded params give other sequences than the params in memory")
+    require(counts["lazy_attention"] == config.decoder.num_layers * from_disk.steps,
+            "reloaded generate: lazy_attention not launched once a layer a step")
+    require(counts["fused_head"] >= from_disk.steps, "reloaded generate: fused_head missing")
+    del model, params, reloaded
+    torch.cuda.empty_cache()
+
+    counters = _counters()
+    for name in ("lazy_attention", "fused_head"):
+        counters[name].launches = 0
+    out = io.StringIO()
+    paths = [os.path.join(images, f"img_{i}.png") for i in range(4)]
+    with contextlib.redirect_stdout(out):
+        caption.main(paths + ["--model_dir", model_dir])
+    lines = out.getvalue().splitlines()
+    cli_counts = {name: counters[name].launches for name in ("lazy_attention", "fused_head")}
+    print(f"checkpoints, caption CLI on 4 PNGs (launches {cli_counts}): "
+          f"{[line[:100] for line in lines]}", flush=True)
+    require(len(lines) == 4 and all(line.startswith(p + "\t") for p, line in zip(paths, lines)),
+            "the caption CLI did not print one path<TAB>caption line an image")
+    require(all(cli_counts.values()), "the caption CLI did not run rows 1 and 4 on the card")
+    head = os.path.join(root, "head64.tsv")
+    with open(tsv) as f, open(head, "w") as g:
+        g.writelines(f.readlines()[:64])
+    out_json = os.path.join(root, "bleu.json")
+    for name in ("lazy_attention", "fused_head"):
+        counters[name].launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        evaluate.main(["--model_dir", model_dir, "--tsv_path", head, "--images_dir", images,
+                       "--output_json", out_json])
+    with open(out_json) as f:
+        bleu = json.load(f)
+    cli_counts = {name: counters[name].launches for name in ("lazy_attention", "fused_head")}
+    print(f"checkpoints, evaluate CLI on 64 rows (launches {cli_counts}): {bleu}", flush=True)
+    require(sorted(bleu) == sorted(CKPT_LANGS), f"evaluate scored {sorted(bleu)}")
+    require(all(sorted(r) == ["bleu-1", "bleu-2", "bleu-3", "bleu-4"]
+                and all(np.isfinite(v) for v in r.values()) for r in bleu.values()),
+            "evaluate wrote a missing or non-finite BLEU")
+    require(all(cli_counts.values()), "the evaluate CLI did not run rows 1 and 4 on the card")
+
+    timed = os.path.join(root, "timed")
+    manager = TrainCheckpointManager(timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save(4, checkpoint_tree(state_a), meta)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = _bytes_under(os.path.join(timed, "checkpoints", "4"))
+    t0 = time.perf_counter()
+    tree, _ = manager.restore(4, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(all(torch.equal(a, b) for a, b in zip(_checkpoint_leaves(tree),
+                                                  _state_leaves(state_a))),
+            "the timed restore is not the saved state bit for bit")
+    del tree
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    Captioner(config).save_pretrained(os.path.join(timed, "model"), state_a.params)
+    model_s = time.perf_counter() - t0
+    model_bytes = _bytes_under(os.path.join(timed, "model"))
+    print(f"checkpoint figures ({card_name_and_limit()}; host clock, fsync'd writes, warm page "
+          f"cache for the restore): train-checkpoint save {ckpt_bytes} B in {save_s:.3f} s "
+          f"({ckpt_bytes / save_s / 1e9:.2f} GB/s), its restore onto the card in "
+          f"{restore_s:.3f} s ({ckpt_bytes / restore_s / 1e9:.2f} GB/s), model-directory save "
+          f"{model_bytes} B in {model_s:.3f} s ({model_bytes / model_s / 1e9:.2f} GB/s)",
+          flush=True)
+    shutil.rmtree(timed)
+    shutil.rmtree(model_dir)
+
+    final_a = [leaf.cpu() for leaf in _state_leaves(state_a)]
+    count_a = state_a.opt_state.count
+    del state_a
+    torch.cuda.empty_cache()
+    state_b, launches, seconds = train(tc.replace(
+        output_dir=run_b, resume_from=os.path.join(run_a, "checkpoints", "2")))
+    logged_b = _logged(run_b)
+    kept = sorted(os.listdir(os.path.join(run_b, "checkpoints")))
+    print(f"checkpoints, run B (resumed from A's step 2): steps 3-4 in {seconds:.1f} s, losses "
+          f"{logged_b}, launches {launches}, checkpoints {kept}", flush=True)
+    require(launches == {"flash_ce_forward": 2, "flash_ce_backward_dl": 2},
+            f"run B: launches {launches}, expected both CE kernels once a step")
+    require(logged_b == {s: logged_a[s] for s in (3, 4)},
+            "run B's logged losses are not run A's steps 3 and 4 bit for bit")
+    require(state_b.step == 4 and state_b.opt_state.count == count_a,
+            "run B did not end at run A's step")
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(_state_leaves(state_b), final_a)),
+            "run B's params or moments are not run A's bit for bit")
+    require(kept == ["4"], f"run B kept checkpoints {kept}, not 4")
+    print("checkpoints: the resumed run is bit-equal to the uninterrupted one (params, mu, nu, "
+          "step, losses)", flush=True)
+    del state_b, final_a
+    shutil.rmtree(run_a)
+    shutil.rmtree(run_b)
+    torch.cuda.empty_cache()
+
+
+def check_checkpoint_across_devices(dev, root):
+    """Phase 49, at a small width (dropout 0.1): a train checkpoint saved
+    from the card restores on the CPU bit-equal (params, moments, step,
+    count, the generator's bytes), and one saved from the CPU on the card;
+    a trainer on the other device refuses the generator state, which fits
+    only its own device's generator."""
+    from mic_tpu_torch.core.config import (
+        CaptionerConfig, DataConfig, DecoderConfig, TrainConfig, VisionConfig,
+    )
+    from mic_tpu_torch.train.state import checkpoint_tree
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64, dropout=0.1),
+        dtype="bfloat16",
+    )
+    dc = DataConfig(max_seq_length=16, decode_size=40)
+    rng = np.random.default_rng(51)
+    batch = {"pixel_values": rng.integers(0, 256, (4, 40, 40, 3), dtype=np.uint8),
+             "labels": rng.integers(4, 1100, (4, 16)).astype(np.int32),
+             "decoder_input_ids": rng.integers(4, 1100, (4, 16)).astype(np.int32),
+             "decoder_attention_mask": np.ones((4, 16), np.int32)}
+    cpu = torch.device("cpu")
+    for src, dst in ((dev, cpu), (cpu, dev)):
+        out = os.path.join(root, f"from_{src.type}")
+        tc = TrainConfig(output_dir=out, per_device_batch_size=4, warmup_steps=1)
+        trainer = Trainer(config, dc, tc, device=src)
+        trainer.build(10)
+        state, _ = trainer.train_step(trainer.init_state(), trainer.put_batch(batch))
+        trainer.ckpt.save(1, checkpoint_tree(state), {"epoch": 0, "next_batch": 1})
+        tree, _ = trainer.ckpt.restore(device=dst)
+        saved = checkpoint_tree(state)
+        leaves = list(zip(_checkpoint_leaves(tree), _checkpoint_leaves(saved)))
+        require(all(a.device.type == dst.type for a, _ in leaves),
+                f"a {src.type} checkpoint restored off the {dst.type}")
+        same = all(torch.equal(a.cpu(), b.cpu()) for a, b in leaves)
+        same = same and tree["step"] == 1 and tree["opt_state"]["count"] == 1
+        same = same and torch.equal(tree["generator"].cpu(), saved["generator"])
+        other = Trainer(config, dc, tc.replace(output_dir=out + "_other"), device=dst)
+        other.build(10)
+        refused = _raises(ValueError, other.restore, trainer.ckpt)
+        print(f"checkpoint saved on the {src.type}, restored on the {dst.type}: {len(leaves)} "
+              f"leaves bit-equal={same}; a {dst.type} trainer refuses its {src.type} generator "
+              f"state={refused}", flush=True)
+        require(same, f"a {src.type} checkpoint restored on the {dst.type} is not bit-equal")
+        require(refused, f"a {dst.type} trainer took a {src.type} generator state")
+        shutil.rmtree(out)
+
+
+def _raises(exc, fn, *args) -> bool:
+    """Whether ``fn(*args)`` raises ``exc`` (a refusal this run checks for)."""
+    try:
+        fn(*args)
+    except exc:
+        return True
+    return False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -3589,12 +3906,12 @@ def main() -> None:
     check_bucket_slot_release(dev, lib_path)
     time_sdpa_backward(tf_ms)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_") as root:
+        run_checkpoint_path(dev, root)
+        check_checkpoint_across_devices(dev, root)
+    torch.cuda.empty_cache()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
     n_beam, n_ce = 256 * 4, 4096
     dec_b, dec_t, dec_h = ATTN_SHAPES["decoder"]

@@ -7,8 +7,12 @@ it raises; it never falls back to the CPU by itself.
 Example (a synthetic TSV of image names, captions, urls and language codes):
     python -m mic_tpu_torch.cli.train \
         --train_file data/train.tsv --images_dir images/ --output_dir runs/smoke \
-        --num_epochs 1 --per_device_batch_size 8 --warmup_steps 10 \
+        --num_epochs 1 --per_device_batch_size 8 --warmup_steps 10 --save_steps 50 \
         --set model.dtype=bfloat16
+It ends with train-state checkpoints under runs/smoke/checkpoints/<step>
+(``--resume_from runs/smoke`` continues from the newest) and a model
+directory, runs/smoke/model, for ``mic_tpu_torch.cli.caption`` and
+``mic_tpu_torch.cli.evaluate``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Param-tree utilities: nested dicts of tensors, as the JAX package keeps
-its pytrees (mic_tpu/core/params.py)."""
+its pytrees (mic_tpu/core/params.py); and the device the port's entry
+points run on."""
 
 from __future__ import annotations
 
@@ -23,6 +24,19 @@ def torch_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of the trainer, the CLIs and from_pretrained: the card
+    unless the caller names another (``device="cpu"``, as the CPU tests
+    do).  No card and no device named raises: nothing falls back to the CPU
+    by itself."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "(--device cpu) to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -37,13 +37,14 @@ EncodeOutput and CaptionerOutput, layer axes stacked.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
 from mic_tpu_torch.core.config import CaptionerConfig
 from mic_tpu_torch.core.knobs import experimental, override
-from mic_tpu_torch.core.params import Params, torch_dtype, tree_map
+from mic_tpu_torch.core.params import Params, resolve_device, torch_dtype, tree_map
 from mic_tpu_torch.generate import search
 from mic_tpu_torch.generate.processors import build_warpers
 from mic_tpu_torch.models import clip_vit, mbart_decoder
@@ -359,3 +360,30 @@ class Captioner:
             length_penalty=gen.length_penalty, early_stopping=gen.early_stopping,
             generator=generator, head=head, eos_positions=eos_positions,
         )
+
+    # -- persistence (the formats live in io/checkpoint.py) -------------------
+
+    def save_pretrained(self, directory: str, params: Params) -> None:
+        """A model directory: config.json and params.pt."""
+        from mic_tpu_torch.io import checkpoint
+
+        os.makedirs(directory, exist_ok=True)
+        self.config.to_json(os.path.join(directory, "config.json"))
+        checkpoint.save_params(directory, params)
+
+    @classmethod
+    def from_pretrained(cls, directory: str, device=None, **kw) -> tuple["Captioner", Params]:
+        """(model, params) from a local save_pretrained directory, the params
+        on ``device`` (default: the card); ``kw`` goes to the constructor.
+        mic_tpu's Orbax directories raise a ValueError (io/checkpoint.py);
+        hub ids and the reference's fused HF checkpoints are not ported."""
+        from mic_tpu_torch.io import checkpoint
+
+        if not os.path.isdir(directory) or os.path.exists(
+                os.path.join(directory, "flax_model.msgpack")):
+            raise NotImplementedError(f"{directory!r}: only a local save_pretrained directory "
+                                      "is read; hub ids and fused HF checkpoints are not "
+                                      "ported yet (ROADMAP A5c)")
+        config = CaptionerConfig.from_json(os.path.join(directory, "config.json"))
+        model = cls(config, **kw)
+        return model, checkpoint.load_params(directory, resolve_device(device))

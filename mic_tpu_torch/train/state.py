@@ -1,14 +1,16 @@
-"""Train state and optimizer factory (mic_tpu/train/state.py)."""
+"""Train state, its checkpointed part, and the optimizer factory
+(mic_tpu/train/state.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
 
 from mic_tpu_torch.core.knobs import override
-from mic_tpu_torch.core.params import torch_dtype
+from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
 from mic_tpu_torch.train.fused_adamw import FusedAdamW, make_fused_adamw
 
 
@@ -36,6 +38,85 @@ class TrainState:
                    generator=generator, shadow=shadow)
 
 
+def checkpoint_tree(state: TrainState) -> dict:
+    """The part of the state a checkpoint keeps: params, opt_state (count,
+    mu, nu), step and the dropout generator's state (mic_tpu's dropout_rng).
+    The shadow is left out: it is a cast of the params, rebuilt on restore."""
+    opt = state.opt_state
+    return {"params": state.params, "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+            "step": state.step, "generator": state.generator.get_state()}
+
+
+def _fit(stored, template, what: str):
+    """``stored`` checked against ``template``'s keys and shapes, each leaf
+    cast to the template's dtype -> (tree, {(stored dtype, dtype): [leaf
+    paths cast]})."""
+    casts = {}
+
+    def walk(x, t, path):
+        where = f"checkpoint {what} {'/'.join(path)}".rstrip()
+        if isinstance(t, dict):
+            if not isinstance(x, dict) or set(x) != set(t):
+                have = sorted(x) if isinstance(x, dict) else type(x).__name__
+                raise ValueError(f"{where}: keys {have}, the model's are {sorted(t)}")
+            return {key: walk(x[key], t[key], path + (key,)) for key in t}
+        if not isinstance(x, torch.Tensor) or x.shape != t.shape:
+            have = tuple(x.shape) if isinstance(x, torch.Tensor) else type(x).__name__
+            raise ValueError(f"{where}: shape {have}, the model's is {tuple(t.shape)}")
+        if x.dtype != t.dtype:
+            casts.setdefault((x.dtype, t.dtype), []).append("/".join(path))
+            return x.to(t.dtype)
+        return x
+
+    return walk(stored, template, ()), casts
+
+
+def restore_state(tree: dict, template: Any, generator: torch.Generator, *,
+                  mu_dtype: torch.dtype | None = None, nu_dtype: torch.dtype | None = None,
+                  shadow_dtype: torch.dtype | None = None) -> TrainState:
+    """A TrainState from a checkpoint_tree: ``template`` gives the params'
+    key paths, shapes and dtypes (e.g. init_params on the "meta" device),
+    ``mu_dtype``/``nu_dtype`` the moments' (None: the param's own, as
+    make_optimizer resolves them).  A leaf stored in another dtype is cast,
+    as mic_tpu's restore casts to its template, and a warning names it.
+    The generator takes the stored state (a state that does not fit it, e.g.
+    one saved from another device's generator, raises); the shadow is cast
+    fresh from the params."""
+    from mic_tpu_torch.train.fused_adamw import FusedAdamWState
+
+    saved, current = tree["generator"].cpu(), generator.get_state()
+    if saved.dtype != current.dtype or saved.shape != current.shape:
+        raise ValueError(f"the checkpoint's dropout generator state ({saved.numel()} bytes) does "
+                         f"not fit this trainer's {generator.device} generator "
+                         f"({current.numel()} bytes): it was saved from another device's "
+                         "generator")
+
+    def moment(dtype):
+        return tree_map(lambda p: torch.empty(p.shape, dtype=dtype or p.dtype, device="meta"),
+                        template)
+
+    parts = {"params": (tree["params"], template, "the float32 master params"),
+             "mu": (tree["opt_state"]["mu"], moment(mu_dtype), "train.adam_mu_dtype"),
+             "nu": (tree["opt_state"]["nu"], moment(nu_dtype), "train.adam_nu_dtype")}
+    fitted = {}
+    for name, (stored, tmpl, setting) in parts.items():
+        fitted[name], casts = _fit(stored, tmpl, name)
+        for (have, want), leaves in casts.items():
+            warnings.warn(f"checkpoint {name} stored as {have}, cast to {want} ({setting}): "
+                          f"{', '.join(leaves)}", stacklevel=2)
+    generator.set_state(saved)
+    params = fitted["params"]
+    for _, leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt_state = FusedAdamWState(int(tree["opt_state"]["count"]), fitted["mu"], fitted["nu"])
+    shadow = None
+    if shadow_dtype is not None:
+        from mic_tpu_torch.train.shadow import cast_shadow, shadow_spec
+
+        shadow = cast_shadow(params, shadow_spec(params, shadow_dtype), shadow_dtype)
+    return TrainState(params, opt_state, int(tree["step"]), generator, shadow)
+
+
 def _moment_dtype(name) -> torch.dtype | None:
     """None (the param's own dtype) for float32 names, else the dtype;
     accepts a name or a torch dtype."""
@@ -57,20 +138,27 @@ def decay_mask(params) -> Any:
     return walk(params, frozenset())
 
 
-def make_optimizer(learning_rate_fn, *, weight_decay: float = 0.0, b1: float = 0.9,
-                   b2: float = 0.999, eps: float = 1e-8, max_grad_norm: float | None = None,
-                   mu_dtype=None, nu_dtype=None, fused: bool = True) -> FusedAdamW:
-    """AdamW with no decay on LayerNorm and bias params.  The environment
-    variable MIC_TPU_MOMENT_DTYPE sets both moment dtypes when set.
-    ``fused=False`` (mic_tpu's optax chain) is not ported and raises."""
-    if not fused:
-        raise NotImplementedError("fused=False (the optax chain) is not ported (ROADMAP A6)")
+def moment_dtypes(mu_dtype=None, nu_dtype=None) -> tuple:
+    """(mu, nu) storage dtypes as the optimizer keeps them (None: the
+    param's own).  The environment variable MIC_TPU_MOMENT_DTYPE sets both
+    when set."""
     md = override("MIC_TPU_MOMENT_DTYPE")
     if md is not None:
         mu_dtype = nu_dtype = md
+    return _moment_dtype(mu_dtype), _moment_dtype(nu_dtype)
+
+
+def make_optimizer(learning_rate_fn, *, weight_decay: float = 0.0, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-8, max_grad_norm: float | None = None,
+                   mu_dtype=None, nu_dtype=None, fused: bool = True) -> FusedAdamW:
+    """AdamW with no decay on LayerNorm and bias params, its moments stored
+    as moment_dtypes says.  ``fused=False`` (mic_tpu's optax chain) is not
+    ported and raises."""
+    if not fused:
+        raise NotImplementedError("fused=False (the optax chain) is not ported (ROADMAP A6)")
+    mu_dtype, nu_dtype = moment_dtypes(mu_dtype, nu_dtype)
     return make_fused_adamw(
         learning_rate_fn, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
         decay_mask_fn=decay_mask if weight_decay > 0 else None,
-        max_grad_norm=max_grad_norm, mu_dtype=_moment_dtype(mu_dtype),
-        nu_dtype=_moment_dtype(nu_dtype),
+        max_grad_norm=max_grad_norm, mu_dtype=mu_dtype, nu_dtype=nu_dtype,
     )

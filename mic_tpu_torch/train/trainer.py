@@ -1,13 +1,17 @@
 """The training loop on one device (mic_tpu/train/trainer.py): state
-init, the train and eval steps, the epoch loop with logging to
-``<output_dir>/metrics.jsonl``, and eval (loss, and with ``gen_eval`` BLEU
-from beam-search captions).
+init or resume, the train and eval steps, the epoch loop with logging to
+``<output_dir>/metrics.jsonl``, eval (loss, and with ``gen_eval`` BLEU
+from beam-search captions), train-state checkpoints every ``save_steps``
+and at the end (``<output_dir>/checkpoints/<step>``, the newest
+``save_total_limit`` kept), and a servable model directory
+(``<output_dir>/model``, with tokenizer.json where the tokenizer saves).
 
 The step runs the model from the bf16 shadow (train/shadow.py), the loss
 through ops/fused_ce.py (on CUDA the two flash-CE kernels), autograd for
-the gradients and the fused AdamW in place.  Not ported yet, and raising:
-checkpoints and resume, the mesh options (dp > 1, tp > 1, fsdp) and the
-profiler range; ``train()`` says in its output that it wrote no checkpoint.
+the gradients and the fused AdamW in place.  Resume restores params,
+moments, step, the dropout generator and the data position, so a resumed
+run is bit-equal to an uninterrupted one.  Not ported yet, and raising: the
+mesh options (dp > 1, tp > 1, fsdp) and the profiler range.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
 from mic_tpu_torch.data.tokenizer import TokenizerBase, load_tokenizer
-from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
+from mic_tpu_torch.core.params import resolve_device, torch_dtype, tree_leaves, tree_map
+from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
 from mic_tpu_torch.models.captioner import Captioner, init_params
 from mic_tpu_torch.ops.fused_ce import fused_lm_loss
 from mic_tpu_torch.ops.image_prep import maybe_preprocess
@@ -29,20 +34,10 @@ from mic_tpu_torch.train.loss import label_smoothed_cross_entropy
 from mic_tpu_torch.train.metrics import MetricLogger, StepTimer
 from mic_tpu_torch.train.schedule import linear_warmup_linear_decay
 from mic_tpu_torch.train.shadow import ce_embedding, shadow_spec, shadowed_params
-from mic_tpu_torch.train.state import TrainState, make_optimizer
+from mic_tpu_torch.train.state import (
+    TrainState, checkpoint_tree, make_optimizer, moment_dtypes, restore_state,
+)
 from mic_tpu_torch.train.steps import count_params
-
-
-def resolve_device(device=None) -> torch.device:
-    """The trainer's device: the card unless the caller names another
-    (``device="cpu"``, as the CPU tests do).  No card and no device named
-    raises: the trainer never falls back to the CPU by itself."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device is available; pass device='cpu' "
-                               "to train on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class Trainer:
@@ -50,8 +45,6 @@ class Trainer:
                  train_config: TrainConfig, tokenizer: Optional[TokenizerBase] = None,
                  tokenizer_path: Optional[str] = None, device=None):
         tc = train_config
-        if tc.resume_from is not None:
-            raise NotImplementedError("resume_from: checkpoints are not ported yet (ROADMAP A5)")
         if tc.dp not in (-1, 1) or tc.tp != 1 or tc.fsdp:
             raise NotImplementedError("dp > 1, tp > 1 and fsdp are not ported yet (ROADMAP A7)")
         if tc.profile_steps:
@@ -67,6 +60,7 @@ class Trainer:
         self.global_batch = tc.per_device_batch_size
         self.eval_batch = tc.eval_batch_size or tc.per_device_batch_size
         self._shadow_spec = None
+        self.ckpt = TrainCheckpointManager(tc.output_dir, max_to_keep=tc.save_total_limit)
 
     # -- data -----------------------------------------------------------------
 
@@ -122,6 +116,42 @@ class Trainer:
         if self._shadow_dtype is not None:
             self._shadow_spec = shadow_spec(params, self._shadow_dtype)
         return TrainState.create(params, self.optimizer, self.generator, self._shadow_dtype)
+
+    # -- state / resume --------------------------------------------------------
+
+    def restore(self, manager: TrainCheckpointManager, step: Optional[int] = None):
+        """(state, data meta) of ``manager``'s ``step`` (default: its latest)
+        on this trainer's device, or (None, None) when it has none.  Call
+        ``build`` first."""
+        tree, meta = manager.restore(step, device=self.device)
+        if tree is None:
+            return None, None
+        tc = self.tc
+        mu_dtype, nu_dtype = moment_dtypes(tc.adam_mu_dtype, tc.adam_nu_dtype)
+        state = restore_state(tree, init_params(self.mc, None, "meta"), self.generator,
+                              mu_dtype=mu_dtype, nu_dtype=nu_dtype,
+                              shadow_dtype=self._shadow_dtype)
+        if self._shadow_dtype is not None:
+            self._shadow_spec = shadow_spec(state.params, self._shadow_dtype)
+        return state, meta
+
+    def init_or_resume(self, train_loader) -> TrainState:
+        """Resume preference order: an explicit ``resume_from`` path (another
+        run's output_dir, its checkpoints dir or a step dir), then this run's
+        own latest checkpoint, then a fresh init.  The loader takes the data
+        position saved with the checkpoint."""
+        if self.tc.resume_from is not None:
+            manager, step = TrainCheckpointManager.open(self.tc.resume_from)
+            state, meta = self.restore(manager, step)
+            if state is None:
+                raise FileNotFoundError(f"--resume_from {self.tc.resume_from}: no checkpoint found")
+        else:
+            state, meta = self.restore(self.ckpt)
+            if state is None:
+                return self.init_state()
+        if meta:
+            train_loader.set_state(meta)
+        return state
 
     def compute_loss(self, params, pixels, batch, generator=None, loss_mask=None, shadow=None):
         """The model from the shadow (or the params), then the loss; loss_mask
@@ -227,7 +257,7 @@ class Trainer:
     def train(self) -> TrainState:
         train_loader, eval_loaders = self.make_loaders()
         self.build(len(train_loader))
-        state = self.init_state()
+        state = self.init_or_resume(train_loader)
         logger = MetricLogger(self.tc.output_dir)
         logger.log(0, {"param_count_m": count_params(state.params) / 1e6})
         timer = StepTimer()
@@ -245,6 +275,11 @@ class Trainer:
                         timer.reset()
                     if eval_loaders and step % self.tc.eval_steps == 0:
                         logger.log(step, self.evaluate(state.params, eval_loaders), prefix="eval")
+                    if step % self.tc.save_steps == 0:
+                        # the loader has not pulled the next batch yet: its
+                        # position is that of the batch just trained on
+                        self.ckpt.save(step, checkpoint_tree(state), train_loader.state())
+            self.ckpt.save(step, checkpoint_tree(state), train_loader.state())
             if eval_loaders:
                 logger.log(step, self.evaluate(state.params, eval_loaders), prefix="eval")
         finally:
@@ -252,7 +287,9 @@ class Trainer:
             for loader in eval_loaders.values():
                 loader.close()
             logger.close()
-        print(f"[mic_tpu_torch] trained {step} steps; no checkpoint or model directory was "
-              f"written under {os.path.abspath(self.tc.output_dir)}: checkpoints are not "
-              "ported yet (ROADMAP A5)", flush=True)
+        # a servable model directory beside the train checkpoints
+        model_dir = os.path.join(self.tc.output_dir, "model")
+        self.model.save_pretrained(model_dir, state.params)
+        if hasattr(self.tokenizer, "save"):  # SimpleTokenizer's vocab travels too
+            self.tokenizer.save(os.path.join(model_dir, "tokenizer.json"))
         return state

@@ -2,8 +2,8 @@
 
 Every file under mic_tpu_torch/ and chip_smoke.py is parsed, and every
 import statement in it, at module level or inside a function, is checked:
-none may name jax, jaxlib, flax, optax or mic_tpu (the package itself, not
-mic_tpu_torch).
+none may name jax, jaxlib, flax, optax, orbax or mic_tpu (the package
+itself, not mic_tpu_torch).
 """
 
 import ast
@@ -12,7 +12,7 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mic_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mic_tpu")
 
 
 def _port_files():
@@ -42,10 +42,11 @@ def test_the_guard_sees_every_form_of_import():
         "import os, optax\nfrom mic_tpu.core import config\nimport mic_tpu\n"
         "def f():\n    from jaxlib import xla_client\n    import mic_tpu.data.loader\n"
         "import mic_tpu_torch\nfrom mic_tpu_torch.core import config\nfrom . import x\n"
+        "import orbax.checkpoint as ocp\n"
     )
     assert forbidden_imports(source) == [
-        "jax", "jax.numpy", "flax", "optax", "mic_tpu.core", "mic_tpu", "jaxlib",
-        "mic_tpu.data.loader",
+        "jax", "jax.numpy", "flax", "optax", "mic_tpu.core", "mic_tpu", "orbax.checkpoint",
+        "jaxlib", "mic_tpu.data.loader",
     ]
 
 

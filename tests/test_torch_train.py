@@ -427,16 +427,20 @@ def test_remat_grads_equal_no_remat_with_dropout():
         assert torch.equal(out[remat][2], out["none"][2]), remat
 
 
-def test_dots_remat_and_unported_options_raise():
+def test_dots_remat_and_unported_options_raise(tmp_path):
     config = _config()
     with pytest.raises(NotImplementedError):
         _trainer(config, remat="dots")
-    for bad in (dict(resume_from="x"), dict(dp=2), dict(tp=2), dict(fsdp=True),
-                dict(profile_steps="1:2")):
+    for bad in (dict(dp=2), dict(tp=2), dict(fsdp=True), dict(profile_steps="1:2")):
         with pytest.raises(NotImplementedError):
             _trainer(config, **bad)
     with pytest.raises(NotImplementedError):
         _trainer(config, fused_adamw=False)
+    # resume_from is ported: a path with no checkpoints is file-not-found
+    trainer = _trainer(config, resume_from=str(tmp_path / "x"),
+                       output_dir=str(tmp_path / "run"))
+    with pytest.raises(FileNotFoundError):
+        trainer.init_or_resume(None)
 
 
 def test_train_steps_are_bit_equal_run_to_run():
@@ -476,11 +480,11 @@ def _synthetic_tsv(tmp_path, n=32, size=40):
     return str(tmp_path / "train.tsv"), str(tmp_path / "val.tsv"), str(img_dir)
 
 
-def test_cli_train_end_to_end(tmp_path, capsys):
+def test_cli_train_end_to_end(tmp_path):
     """``python -m mic_tpu_torch.cli.train``'s main on a synthetic TSV through
     the shared CaptionLoader: finite, falling train losses in metrics.jsonl,
-    eval loss and BLEU per language, and a line saying no checkpoint was
-    written."""
+    eval loss and BLEU per language, the final train checkpoint, and a model
+    directory (config.json, tokenizer.json) that from_pretrained reloads."""
     from mic_tpu_torch.cli.train import main
 
     train_tsv, val_tsv, img_dir = _synthetic_tsv(tmp_path)
@@ -501,7 +505,13 @@ def test_cli_train_end_to_end(tmp_path, capsys):
     for lang in ("en_XX", "fr_XX", "es_XX", "de_DE"):
         assert math.isfinite(evals[f"eval/{lang}/loss"])
         assert f"eval/{lang}/bleu-1" in evals
-    assert "no checkpoint" in capsys.readouterr().out
+    # 6 steps an epoch, save_steps 9000: the final save alone
+    assert os.listdir(out / "checkpoints") == ["30"]
+    assert (out / "model" / "config.json").exists() and (out / "model" / "tokenizer.json").exists()
+    model, params = Captioner.from_pretrained(str(out / "model"), device="cpu")
+    assert model.config.decoder.vocab_size == 64
+    assert all(leaf.dtype == torch.float32 and bool(torch.isfinite(leaf).all())
+               for _, leaf in tree_leaves(params))
 
 
 def test_trainer_and_cli_default_to_the_card(monkeypatch):
