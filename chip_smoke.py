@@ -192,6 +192,14 @@ Phases, each of which raises on failure (none catches its own):
      model-directory save timed, a run resumed from step 2 bit-equal to
      the uninterrupted one (params, moments, step, losses); and at a small
      width a checkpoint carried card -> CPU and CPU -> card bit-equal.
+ 50. the trained-model tools at flagship decoder width (tiny vision
+     tower): tools/torch_ab_hard_synthetic.py on 256 hard synthetic images
+     (112 steps, eval, the saved model, the decode A/B: rows 7, 8, 1, 4, 5
+     launched, losses finite and falling, BLEU for the four languages),
+     then tools/torch_bench_trained.py's caption on the saved model at
+     B=256 in bf16 (rows 1, 4) and int8 weights and KV (rows 2, 6), each
+     search ending where the model ends its captions, and bf16 with
+     min_length 64 (all 63 steps).
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -201,12 +209,14 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -655,15 +665,26 @@ def _counters():
             "int8_matmul": int8_matmul}
 
 
-def drive(model, params, px, **kw):
-    """One generate with every launch counter set to 0 just before it and
-    read just after -> (output, launches by name)."""
+def generate_counted(caption, images):
+    """One generate through ``caption`` with every serving launch counter
+    set to 0 just before it and read just after -> (output, launches by
+    name, host seconds around the synchronised call)."""
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    out = model.generate(params, px, **kw)
     torch.cuda.synchronize()
-    return out, {name: fn.launches for name, fn in counters.items()}
+    t0 = time.perf_counter()
+    out = caption(images)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {name: fn.launches for name, fn in counters.items()}, seconds
+
+
+def drive(model, params, px, **kw):
+    """One generate with every launch counter set to 0 just before it and
+    read just after -> (output, launches by name)."""
+    out, launches, _ = generate_counted(lambda x: model.generate(params, x, **kw), px)
+    return out, launches
 
 
 def check_path_output(out, n, max_length, what):
@@ -3796,6 +3817,124 @@ def check_checkpoint_across_devices(dev, root):
         shutil.rmtree(out)
 
 
+def run_trained_model_path(dev, root):
+    """Phase 50: the trained-model tools at flagship decoder width (the
+    mBART-50 decoder, V = 250054, with the tiny vision tower, bf16).
+    tools/data/make_synthetic.py --hard makes 256 images (224 train, 32
+    val); tools/torch_ab_hard_synthetic.py's ``main`` trains its primary
+    arm 16 epochs (112 steps of batch 32, its defaults otherwise, the images
+    decoded in the training process; at two epochs, 14 steps into the
+    recipe's 100-step warmup, the model does not yet caption: eval loss
+    5.4-6.4, BLEU-4 0), evaluates, saves the model directory and runs the
+    decode A/B (the exact, bucket, window and approx_max_k modes).  Checks:
+    the losses finite and falling (the last below the first), loss and
+    BLEU-1..4 keys for the four languages, the CE kernels (rows 7, 8) once a
+    training step (row 7 also for each eval batch's loss), rows 1, 4 and 5
+    launched by the evals and the A/B.  Then tools/torch_bench_trained.py's
+    caption on the saved directory, B=256 val images, beam 4, length 64:
+    bf16 (rows 1 and 4) and int8 weights with the int8 KV cache (rows 2 and
+    6), each search ending where the model ends its captions (every
+    caption's EOS at or before the last step, fewer than 63 steps), and
+    bf16 with min_length 64 on the same weights (all 63 steps); host-clock
+    times of the three are smoke figures."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tools = os.path.join(here, "tools")
+    sys.path.insert(0, tools)
+    import torch_ab_hard_synthetic as ab
+    import torch_bench_trained as bench
+
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.data.tokenizer import load_tokenizer
+    from mic_tpu_torch.models.captioner import Captioner
+
+    data, out = os.path.join(root, "hard"), os.path.join(root, "abrun")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(tools, "data", "make_synthetic.py"),
+                    "--out", data, "--n", "256", "--hard"], check=True, capture_output=True,
+                   timeout=600)
+    print(f"trained model: 256 hard-synthetic images made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    _train_counts(reset=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        report = ab.main(["--data", data, "--out", out, "--epochs", "16", "--log_every", "1",
+                          "--num_workers", "0", "--skip_shadow_off", "--save_model"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_launches = {k: v for k, v in _train_counts().items() if v}
+    serve_launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    for line in log.getvalue().splitlines():
+        if line.startswith("[decode-ab]") or "steps in" in line or " eval " in line:
+            print(f"trained model, {line}", flush=True)
+    losses = [loss for _, loss in report["shadow_on"]["losses"]]
+    print(f"trained model: the tool's main in {seconds:.1f} s (training, eval, save, decode "
+          f"A/B), {len(losses)} losses {losses[:3]} ... {losses[-3:]}, training launches "
+          f"{train_launches}, serving launches {serve_launches}", flush=True)
+    steps = 112  # 16 epochs of 224 train images in batches of 32
+    require(len(losses) == steps and all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"the trained-model losses are not {steps} finite falling values: {losses}")
+    langs = ("de_DE", "en_XX", "es_XX", "fr_XX")
+    want = sorted([f"{lang}/loss" for lang in langs]
+                  + [f"{lang}/bleu-{n}" for lang in langs for n in range(1, 5)])
+    require(sorted(report["shadow_on"]["eval"]) == want,
+            f"the eval reported {sorted(report['shadow_on']['eval'])}")
+    bleu = {k for k in want if "bleu" in k}
+    require(all(bleu <= set(report["decode_ab"][mode]) for mode in ab.DECODE_MODES),
+            "a decode mode lacks a language's BLEU")
+    # the forward kernel also gives each eval batch its loss
+    require(train_launches.get("flash_ce_backward_dl") == steps
+            and train_launches.get("flash_ce_forward", 0) > steps
+            and set(train_launches) == {"flash_ce_forward", "flash_ce_backward_dl"},
+            f"launches {train_launches}, expected both CE kernels once a training step")
+    for name in ("lazy_attention", "fused_head", "fused_head_select"):
+        require(serve_launches.get(name, 0) > 0,
+                f"the evals and the decode A/B did not launch {name}")
+
+    model_dir = os.path.join(out, "model")
+    model, params = Captioner.from_pretrained(model_dir, device=dev)
+    params = make_serving_params(params, model.dtype)
+    tok = load_tokenizer(os.path.join(model_dir, "tokenizer.json"))
+    images = torch.from_numpy(bench.load_pool(data)).to(dev)
+    images = images[torch.arange(256, device=dev) % images.shape[0]]
+    eos = model.config.decoder.eos_token_id
+    for label, quant, kv, min_length in (("bf16", None, "", 0), ("int8", "int8", "int8", 0),
+                                         ("bf16 all steps", None, "", 64)):
+        args = argparse.Namespace(max_length=64, num_beams=4, min_length=min_length,
+                                  no_early_stopping=False, quant=quant)
+        caption = bench.make_caption(model, params, tok.lang_code_to_id["en_XX"], args)
+        with knobs(MIC_TPU_KV_QUANT=kv):
+            caption(images[:8])  # the first call apart
+            gen, launches, seconds = generate_counted(caption, images)
+            launches = {name: n for name, n in launches.items() if n}
+        seqs = gen.sequences.cpu().numpy()
+        ends = [int(np.flatnonzero(row == eos)[0]) if (row == eos).any() else 64 for row in seqs]
+        print(f"trained model, bench caption {label}: B=256 beam 4 length 64, {gen.steps} steps "
+              f"in {seconds:.3f} s = {256 / seconds:.1f} captions/s (smoke figure, not a "
+              f"benchmark), EOS positions {min(ends)}-{max(ends)}, launches {launches}, "
+              f"{tok.batch_decode(seqs[:2])}", flush=True)
+        if min_length:
+            require(gen.steps == 63, f"{label}: {gen.steps} steps, not 63")
+            continue
+        require(max(ends) <= gen.steps < 63,
+                f"{label}: the search ran {gen.steps} steps with captions ending at "
+                f"{min(ends)}-{max(ends)}")
+        row_attn, row_head = (("lazy_attention_q8", "fused_head_bucket_q8") if quant
+                              else ("lazy_attention", "fused_head"))
+        require(launches.get(row_attn) == model.config.decoder.num_layers * gen.steps,
+                f"{label}: {row_attn} not launched once a layer a step: {launches}")
+        require(launches.get(row_head, 0) >= gen.steps,
+                f"{label}: {row_head} launched less than once a step: {launches}")
+    del model, params, images
+    shutil.rmtree(out)
+    shutil.rmtree(data)
+    torch.cuda.empty_cache()
+
+
 def _raises(exc, fn, *args) -> bool:
     """Whether ``fn(*args)`` raises ``exc`` (a refusal this run checks for)."""
     try:
@@ -3910,6 +4049,8 @@ def main() -> None:
         run_checkpoint_path(dev, root)
         check_checkpoint_across_devices(dev, root)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trained_") as root:
+        run_trained_model_path(dev, root)
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)

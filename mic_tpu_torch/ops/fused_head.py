@@ -76,12 +76,12 @@ def bucket_width() -> int:
     return int(experimental("bucket_bv") or BUCKETS)
 
 
-def bucket_topk_dense(logits: torch.Tensor, k: int):
-    """mic_tpu/ops/fused_head.py::_bucket_topk_dense at bv = ``bucket_width()``:
-    the per-column-position max over ceil(V/bv) chunks (earliest chunk on
-    ties), then the top-k of the bv winners -> (values (N, k), int32 ids
-    (N, k))."""
-    bv = bucket_width()
+def bucket_topk_dense(logits: torch.Tensor, k: int, bv: int | None = None):
+    """mic_tpu/ops/fused_head.py::_bucket_topk_dense at ``bv`` (default
+    ``bucket_width()``): the per-column-position max over ceil(V/bv) chunks
+    (earliest chunk on ties), then the top-k of the bv winners -> (values
+    (N, k), int32 ids (N, k))."""
+    bv = bv or bucket_width()
     n, v = logits.shape
     pad = (-v) % bv
     if pad:

@@ -1,9 +1,9 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
-Every file under mic_tpu_torch/ and chip_smoke.py is parsed, and every
-import statement in it, at module level or inside a function, is checked:
-none may name jax, jaxlib, flax, optax, orbax or mic_tpu (the package
-itself, not mic_tpu_torch).
+Every file under mic_tpu_torch/, chip_smoke.py and the port's tools
+(tools/torch_*.py) is parsed, and every import statement in it, at module
+level or inside a function, is checked: none may name jax, jaxlib, flax,
+optax, orbax or mic_tpu (the package itself, not mic_tpu_torch).
 """
 
 import ast
@@ -17,6 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mic_tpu")
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "tools", n) for n in os.listdir(os.path.join(REPO, "tools"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "mic_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(os.path.relpath(f, REPO) for f in files)
@@ -55,6 +57,9 @@ def test_the_port_has_files_to_scan():
     assert "chip_smoke.py" in files
     assert os.path.join("mic_tpu_torch", "models", "captioner.py") in files
     assert os.path.join("mic_tpu_torch", "core", "config.py") in files
+    for tool in ("torch_ab_hard_synthetic.py", "torch_bench_trained.py",
+                 "torch_validate_approx_decode.py"):
+        assert os.path.join("tools", tool) in files
 
 
 @pytest.mark.parametrize("path", _port_files())
