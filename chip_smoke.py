@@ -199,7 +199,24 @@ Phases, each of which raises on failure (none catches its own):
      then tools/torch_bench_trained.py's caption on the saved model at
      B=256 in bf16 (rows 1, 4) and int8 weights and KV (rows 2, 6), each
      search ending where the model ends its captions, and bf16 with
-     min_length 64 (all 63 steps).
+     min_length 64 (all 63 steps);
+ 51. the float32 instances of rows 1, 4, 7 and 8 (a float32 model's
+     kernels: csrc/lazy_attention.cu's float instance, csrc/fused_head_f32.cu,
+     csrc/flash_ce_f32.cu) against their plain versions, TF32 off, at the
+     flagship shapes and at ragged ones, and their times (CUDA-graph
+     replays) beside their plain versions' and cuBLAS's bare f32 h @ W^T;
+ 52. the default float32 flagship (CaptionerConfig.clip_vit_b32_mbart50()
+     at its own dtype) serving: beam 4 of B=256, length 64, EOS pinned at
+     63, through rows 1 and 4 in f32 (launch counts), and at B=2 equal to
+     the same generate on the plain versions on the card;
+ 53. that model training: the Trainer at the TrainConfig defaults, three
+     steps through rows 7 and 8 in f32 (launch counts), the losses beside
+     the plain "dl" route's on the card;
+ 54. the rest of single-card training at flagship width in bf16: one step
+     under fused_adamw=False (the optax chain), one under each remat
+     policy ("none", "masks", "dots": equal losses, peak memory each), and
+     Trainer.train() with profile_steps (a trace with device kernels under
+     <output_dir>/profile).
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -240,13 +257,14 @@ def bound(nbytes: float, ops: float, kind: str):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def attention_bound(rows, index, hd, cache_bytes, scale_bytes=0, ancestry=False):
+def attention_bound(rows, index, hd, cache_bytes, scale_bytes=0, ancestry=False, io_bytes=2):
     """Decode attention at write position ``index``: the live prefix of the
     cache read (positions < index), the step column written, q and the step
-    K/V read and the output written in bf16, the ancestry's live prefix;
-    4 f32 operations per cached element (q.k and p.v)."""
+    K/V read and the output written (bf16, or ``io_bytes`` each), the
+    ancestry's live prefix; 4 f32 operations per cached element (q.k and
+    p.v)."""
     per_row = hd * cache_bytes + scale_bytes
-    nbytes = (2 * rows * index * per_row + 2 * rows * per_row + 4 * rows * hd * 2
+    nbytes = (2 * rows * index * per_row + 2 * rows * per_row + 4 * rows * hd * io_bytes
               + (rows * (index + 1) * 4 if ancestry else 0))
     return bound(nbytes, 4 * rows * (index + 1) * hd, "f32")
 
@@ -307,6 +325,26 @@ def flash_ce_bounds(n, d=1024, v=250054):
         "flash_ce_forward": bound(inputs + n * 4 * 4, 2 * n * d * v, "bf16"),
         "flash_ce_backward_dl": bound(inputs + n * 4 * 3 + n * v * 2 + v * 4, 2 * n * d * v,
                                       "bf16"),
+    }
+
+
+def f32_bounds(n_beam, n_head, n_ce, d=1024, v=250054):
+    """The float32 instances of rows 1, 4, 7 and 8 at the main path's shapes:
+    row 1 as ``attention_bound`` with f32 caches, q, step rows and output
+    (twice the bf16 bytes); the head and the CE walks one 2 N D V f32
+    product each at the f32 FMA rate, reading the (V, D) f32 table, the
+    bias and the hidden rows once (the head also writing k candidates and
+    lse; the forward 4 values a row; dl also reading labels, lse and
+    rowscale and writing the f32 (N, V) dl and dbias)."""
+    table = v * d * 4 + v * 4
+    return {
+        "lazy_attention_f32": attention_bound(n_beam, 63, d, 4, ancestry=True, io_bytes=4),
+        "fused_head_bucket_f32": bound(table + n_head * d * 4 + n_head * (8 * 9 + 4),
+                                       2 * n_head * d * v, "f32"),
+        "flash_ce_forward_f32": bound(table + n_ce * d * 4 + n_ce * 4 * 4, 2 * n_ce * d * v,
+                                      "f32"),
+        "flash_ce_backward_dl_f32": bound(table + n_ce * d * 4 + n_ce * 4 * 3 + n_ce * v * 4
+                                          + v * 4, 2 * n_ce * d * v, "f32"),
     }
 
 
@@ -3935,6 +3973,416 @@ def run_trained_model_path(dev, root):
     torch.cuda.empty_cache()
 
 
+def _f32_table(dev, v, d, seed):
+    """A float32 tied table and bias: the flagship init's scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((v, d), generator=g, device=dev) * 0.02,
+            torch.randn((v,), generator=g, device=dev) * 0.1)
+
+
+def _f32_head_case(got, ref, logits, what):
+    """The float32 bucket head against its plain version: lse within 1e-5
+    relative; ids equal but at near-ties (two plain logits within 2e-4);
+    every lp within 2e-4.  Both sum D f32 products in other orders (the
+    kernel in k order, cuBLAS in its own): about 2^-24 sqrt(D) sum |h| |w|,
+    3e-5 at the flagship's unit hidden rows and 0.02 table, with room for
+    the tail."""
+    (lp, ids, lse), (rlp, rids, rlse) = got, ref
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    differ = ids != rids
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    require(bool((gap[differ] < 2e-4).all()), f"{what}: an id differs beyond a near-tie")
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-4)
+    return (lp - rlp).abs().max().item(), int(differ.sum())
+
+
+def check_f32_kernels(dev):
+    """Phase 51: the float32 instances of rows 1, 4, 7 and 8 against their
+    plain versions on the card, TF32 off (main() turns it off for matmuls
+    and cuDNN): row 1 at the flagship decode shape (B=256 K=4 T=64 H=16,
+    index 0, 1, 17, 63) and a ragged one (B=3 K=3 T=37 H=2, index 36),
+    outputs within 1e-5 (f32 sums in another order), the written cache
+    bit-equal, columns past index zero; row 4 (the bucket select) at N in
+    {1024, 4} D=1024 V=250054 k in {9, 1}, at N=65 D=100 V=997 (a depth
+    off the 8-deep slice, a ragged vocab) and under bucket_bv 96 and 200
+    (``_f32_head_case``); rows 7 and 8 at N=4096 D=1024 V=250054 and at
+    N=129 D=100 V=997: lse and the label logit within 1e-5 relative, the
+    sum of logits within 1e-5 of the row's sum of |logits|, dl within 1e-4
+    of |dl| + 2 target rowscale (one relative error of p from the logits'
+    summation order), rows with rowscale 0 zero, nothing written past dl,
+    dbias within 1e-5 of its largest entry.  Then each kernel's time in
+    CUDA-graph replays beside its plain version's, and cuBLAS's bare f32
+    h @ W^T (TF32 off) for scale -> (errors, times)."""
+    from mic_tpu_torch.ops.flash_ce import (
+        _dl_gemms, _targets, flash_ce_dl, flash_ce_dl_plain, flash_ce_forward,
+        flash_ce_forward_plain,
+    )
+    from mic_tpu_torch.ops.fused_head import _logits, fused_head_topk, fused_head_topk_plain
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention, lazy_attention_plain
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    errs, times = {}, {}
+    g = torch.Generator(device=dev).manual_seed(51)
+    worst = 0.0
+    for b, beams, t, heads, index in ([(FLAG_B, FLAG_K, FLAG_T, FLAG_H, i) for i in (0, 1, 17, 63)]
+                                      + [(3, 3, 37, 2, 36)]):
+        q, ck, cv, ks, vs, anc = (x.float() if x.dtype == torch.bfloat16 else x
+                                  for x in _lazy_inputs(dev, g, b, beams, t, heads, index, False))
+        ck[:, index:] = 0
+        cv[:, index:] = 0
+        pk, pv = ck.clone(), cv.clone()
+        out = lazy_attention(q, ck, cv, ks, vs, anc, index, heads)
+        ref = lazy_attention_plain(q, pk, pv, ks, vs, anc, index, heads)
+        torch.cuda.synchronize()
+        require(out.dtype == torch.float32, "lazy_attention f32: output dtype")
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        require(torch.equal(ck, pk) and torch.equal(cv, pv), "lazy_attention f32: cache differs")
+        require(not ck[:, index + 1:].any() and not cv[:, index + 1:].any(),
+                "lazy_attention f32: a dead column written")
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"lazy_attention f32 B={b} K={beams} T={t} H={heads} index={index}: "
+              f"max_abs_err={err:.3g}, cache bit-equal, columns > index zero", flush=True)
+    errs["lazy_attention_f32"] = worst
+    q, ck, cv, ks, vs, anc = (x.float() if x.dtype == torch.bfloat16 else x for x in
+                              _lazy_inputs(dev, g, FLAG_B, FLAG_K, FLAG_T, FLAG_H, FLAG_T, False))
+    args = (q, ck, cv, ks, vs, anc, 63, FLAG_H)
+    times["lazy_attention_f32"] = (graph_ms(lambda: lazy_attention(*args)),
+                                   graph_ms(lambda: lazy_attention_plain(*args)), None)
+    del q, ck, cv, ks, vs, anc, args
+
+    worst = 0.0
+    weight, bias = _f32_table(dev, HEAD_V, HEAD_D, 52)
+    small = _f32_table(dev, 997, 100, 53)
+    for n, d, v, k, bv in ((1024, HEAD_D, HEAD_V, 9, None), (1024, HEAD_D, HEAD_V, 1, None),
+                           (4, HEAD_D, HEAD_V, 9, None), (65, 100, 997, 9, None),
+                           (65, 100, 997, 9, 96), (70, 100, 997, 16, 200)):
+        tw, tb = (weight, bias) if v == HEAD_V else small
+        hidden = _hidden(dev, n, d, 520 + n + k).float()
+        with knobs(**({"MIC_TPU_EXPERIMENTAL": f"bucket_bv={bv}"} if bv else {})):
+            got = fused_head_topk(hidden, tw, tb, k)
+            ref = fused_head_topk_plain(hidden, tw, tb, k, "bucket")
+        torch.cuda.synchronize()
+        what = f"fused_head f32 N={n} D={d} V={v} k={k} bucket_bv={bv or 512}"
+        err, ties = _f32_head_case(got, ref, _logits(hidden, tw, tb), what)
+        worst = max(worst, err)
+        print(f"{what}: lp max_abs_err={err:.3g}, near-tie id differences={ties}", flush=True)
+    errs["fused_head_bucket_f32"] = worst
+    for n in (1024, 4):
+        hidden = _hidden(dev, n, HEAD_D, 530 + n).float()
+        times["fused_head_bucket_f32", n] = (
+            graph_ms(lambda: fused_head_topk(hidden, weight, bias, 9), reps=3, runs=5),
+            graph_ms(lambda: fused_head_topk_plain(hidden, weight, bias, 9, "bucket"), reps=3,
+                     runs=5), None)
+    times["fused_head_bucket_f32"] = times["fused_head_bucket_f32", 1024]
+    del weight, bias
+    torch.cuda.empty_cache()
+
+    weight, bias = _f32_table(dev, CE_V, CE_D, 54)
+    worst_fwd, worst_dl = 0.0, 0.0
+    for n, d, v in ((4096, CE_D, CE_V), (129, 100, 997)):
+        tw, tb = (weight, bias) if v == CE_V else small
+        hidden, labels = _ce_rows(dev, n, 540 + n, v)
+        hidden = hidden.float()[:, :d].contiguous()
+        out = flash_ce_forward(hidden, tw, tb, labels)
+        ref = flash_ce_forward_plain(hidden, tw, tb, labels)
+        torch.cuda.synchronize()
+        l1 = torch.cat([(hidden[i:i + 512] @ tw.T + tb).abs().sum(-1) for i in range(0, n, 512)])
+        torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-5)
+        z_rel = ((out[2] - ref[2]).abs() / l1).max().item()
+        require(z_rel < 1e-5, f"flash_ce_forward f32 N={n} V={v}: sum of logits")
+        worst_fwd = max(worst_fwd, (out[0] - ref[0]).abs().max().item())
+        print(f"flash_ce_forward f32 N={n} D={d} V={v}: lse max_abs_err="
+              f"{(out[0] - ref[0]).abs().max().item():.3g}, sum_logits max err / row L1="
+              f"{z_rel:.3g}", flush=True)
+        lse = ref[0]
+        rs = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(n), device=dev) / n
+        rs[::7] = 0.0
+        for ls in (0.0, 0.1):
+            buf = torch.full((n * v + 64,), 3.0, device=dev)
+            dl, dbias = flash_ce_dl(hidden, tw, tb, labels, lse, rs, ls,
+                                    out=buf[: n * v].view(n, v))
+            rdl, rdbias = flash_ce_dl_plain(hidden, tw, tb, labels, lse, rs, ls)
+            torch.cuda.synchronize()
+            require(bool(buf[n * v:].eq(3.0).all()), "flash_ce_dl f32 wrote past dl's end")
+            require(not dl[rs == 0].any(), "flash_ce_dl f32: a rowscale-0 row is not zero")
+            low, conf_low = _targets(ls, v)
+            err = 0.0
+            for i in range(0, n, 256):
+                r = rdl[i:i + 256]
+                target = torch.full_like(r, low)
+                target.scatter_(1, labels[i:i + 256, None].long(), low + conf_low)
+                d_ = (dl[i:i + 256] - r).abs()
+                limit = 1e-4 * (r.abs() + 2 * target * rs[i:i + 256, None])
+                require(bool((d_ <= limit).all()), f"flash_ce_dl f32 N={n} V={v}: dl beyond 1e-4")
+                err = max(err, d_.max().item())
+            db = (dbias - rdbias).abs().max().item() / rdbias.abs().max().item()
+            require(db < 1e-5, f"flash_ce_dl f32 N={n} V={v}: dbias")
+            worst_dl = max(worst_dl, err)
+            print(f"flash_ce_dl f32 N={n} V={v} smoothing={ls}: dl max_abs_err={err:.3g}, "
+                  f"dbias max err / max |dbias|={db:.3g}, guard intact", flush=True)
+            del buf, dl, rdl
+    errs["flash_ce_forward_f32"], errs["flash_ce_backward_dl_f32"] = worst_fwd, worst_dl
+    n = 4096
+    hidden, labels = _ce_rows(dev, n, 550)
+    hidden = hidden.float()
+    lse = flash_ce_forward_plain(hidden, weight, bias, labels)[0]
+    rs = torch.full((n,), 1.0 / n, device=dev)
+    product = graph_ms(lambda: torch.mm(hidden, weight.T), reps=2, runs=3)
+    times["flash_ce_forward_f32"] = (
+        graph_ms(lambda: flash_ce_forward(hidden, weight, bias, labels), reps=2, runs=3),
+        graph_ms(lambda: flash_ce_forward_plain(hidden, weight, bias, labels), reps=1, runs=3),
+        None)
+    times["flash_ce_backward_dl_f32"] = (
+        graph_ms(lambda: flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1), reps=2, runs=3),
+        graph_ms(lambda: flash_ce_dl_plain(hidden, weight, bias, labels, lse, rs, 0.1), reps=1,
+                 runs=3), None)
+    torch.cuda.empty_cache()
+    dl, _ = flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1)
+    gemms = median_ms(lambda: _dl_gemms(dl, weight, hidden), runs=3)
+    del dl
+    torch.cuda.empty_cache()
+    bounds = f32_bounds(FLAG_B * FLAG_K, 1024, n)
+    for name in ("lazy_attention_f32", "fused_head_bucket_f32", "flash_ce_forward_f32",
+                 "flash_ce_backward_dl_f32"):
+        k_ms, p_ms, _ = times[name]
+        b_ms, by = bounds[name]
+        print(f"{name} time (graph replays): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({by}), the kernel at {b_ms / k_ms:.1%} of it", flush=True)
+    k_ms, p_ms, _ = times["fused_head_bucket_f32", 4]
+    print(f"fused_head_bucket_f32 at N=4: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (graph "
+          f"replays)", flush=True)
+    print(f"for scale only (not the same function): cuBLAS f32 torch.mm(h, W.T), TF32 off, at "
+          f"N={n}: {product:.4f} ms, {bounds['flash_ce_forward_f32'][0] / product:.1%} of the "
+          f"2 N D V f32 bound; the f32 dl route's dh and demb products (torch.mm, TF32 off) "
+          f"{gemms:.4f} ms", flush=True)
+    times["cublas_f32_product"] = product
+    return errs, times
+
+
+@contextlib.contextmanager
+def plain_versions(*swaps):
+    """Swap kernel wrappers for their plain versions where the path looks
+    them up ((module, name, plain) each), so a run on the card takes the
+    plain PyTorch versions; restored after."""
+    old = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        for module, name, fn in old:
+            setattr(module, name, fn)
+
+
+def run_f32_generate(dev):
+    """Phase 52: the default float32 flagship serves on the card.
+    CaptionerConfig.clip_vit_b32_mbart50() at its own dtype (float32),
+    random weights from phase 5's seed, serving params in float32: a beam-4
+    generate of B=256 images, length 64, every caption's EOS pinned at
+    position 63 (all 63 steps), the counters set to 0 just before it and
+    read just after: row 1 (f32) 12 times a step, row 4 (f32 bucket) at
+    least once a step, no other serving kernel.  Then at B=2 the same
+    generate with rows 1 and 4 swapped for their plain versions on the card
+    (TF32 off): sequences equal, scores within 1e-4 (f32 sums in another
+    order) -> launches."""
+    import mic_tpu_torch.models.captioner as captioner_mod
+    import mic_tpu_torch.nn.attention as attention_mod
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.fused_head import fused_head_topk_plain
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention_plain
+
+    config = CaptionerConfig.clip_vit_b32_mbart50()
+    require(config.dtype == "float32", f"the flagship's default dtype is {config.dtype}")
+    params = make_serving_params(
+        init_params(config, torch.Generator(device=dev).manual_seed(0), dev), torch.float32)
+    model = Captioner(config)
+    kw = dict(num_beams=4, max_length=64, forced_bos_token_id=FLAGSHIP_BOS)
+    u8 = np.random.default_rng(52).integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+    px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, torch.float32)
+    eos = torch.full((256,), 63, device=dev)
+    model.generate(params, px[:4], eos_positions=eos[:4], **kw)  # warm-up
+    out, counts, seconds = generate_counted(
+        lambda x: model.generate(params, x, eos_positions=eos, **kw), px)
+    seqs = check_path_output(out, 256, 64, "float32 flagship")
+    check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id, config.decoder.pad_token_id,
+                 "float32 flagship")
+    launches = {"lazy_attention_f32": counts.pop("lazy_attention"),
+                "fused_head_bucket_f32": counts.pop("fused_head")}
+    print(f"float32 flagship (CaptionerConfig.clip_vit_b32_mbart50(), dtype float32): B=256 "
+          f"beam 4 length 64, {out.steps} steps in {seconds:.3f} s = {256 / seconds:.1f} "
+          f"captions/s (smoke figure, not a benchmark), launches {launches}", flush=True)
+    require(launches["lazy_attention_f32"] == config.decoder.num_layers * out.steps,
+            "float32: row 1 launches != layers x decode steps")
+    require(launches["fused_head_bucket_f32"] >= out.steps, "float32: row 4 under once a step")
+    require(not any(counts.values()), f"float32: other serving kernels launched: {counts}")
+    small = (px[:2], eos[:2])
+    got = model.generate(params, small[0], eos_positions=small[1], **kw)
+    with plain_versions((attention_mod, "lazy_attention", lazy_attention_plain),
+                        (captioner_mod, "fused_head_topk", fused_head_topk_plain)):
+        ref = model.generate(params, small[0], eos_positions=small[1], **kw)
+    torch.cuda.synchronize()
+    score_err = (got.scores - ref.scores).abs().max().item()
+    same = torch.equal(got.sequences, ref.sequences)
+    print(f"float32 flagship at B=2, kernels vs plain versions on the card: sequences equal="
+          f"{same}, max score difference={score_err:.3g}", flush=True)
+    require(same, "float32: the kernels' sequences differ from the plain versions'")
+    require(score_err < 1e-4, "float32: the kernels' scores differ from the plain versions'")
+    return launches
+
+
+def run_f32_training(dev):
+    """Phase 53: the default float32 flagship trains on the card: the port's
+    Trainer at the TrainConfig defaults (batch 64 x 64, dropout 0.1, remat
+    "masks", fused CE on "auto", which is the dl route on CUDA, bf16
+    moments, no shadow at float32) with warmup_steps=2, three steps from
+    one seed, the training counters set to 0 just before them and read
+    just after: rows 7 and 8 (f32) once a step.  Then the same three steps
+    with rows 7 and 8 swapped for their plain versions on the card (the
+    plain "dl" route; TF32 off): the first loss (the forward alone) within
+    1e-5 relative of the plain route's, the next two within 1e-4 (the
+    gradients' sums in another order move the params by f32 rounding)
+    -> launches."""
+    import mic_tpu_torch.ops.fused_ce as fused_ce_mod
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl_plain, flash_ce_forward_plain
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig.clip_vit_b32_mbart50()
+    tc = TrainConfig(warmup_steps=2)
+    host = _train_batches(config, 3, tc.per_device_batch_size, DataConfig().max_seq_length, 53)
+    runs = {}
+    for label in ("kernels", "plain"):
+        swaps = (() if label == "kernels" else (
+            (fused_ce_mod, "flash_ce_forward", flash_ce_forward_plain),
+            (fused_ce_mod, "flash_ce_backward_dl", flash_ce_backward_dl_plain)))
+        t0 = time.perf_counter()
+        trainer = Trainer(config, DataConfig(), tc, device=dev)
+        trainer.build(steps_per_epoch=len(host))
+        state = trainer.init_state()
+        require(state.shadow is None, "float32: a shadow was made")
+        batches = [trainer.put_batch(b) for b in host]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts(reset=True)
+        losses, ms = [], []
+        with plain_versions(*swaps):
+            for batch in batches:
+                t1 = time.perf_counter()
+                state, metrics = trainer.train_step(state, batch)
+                losses.append(metrics["loss"].item())
+                ms.append((time.perf_counter() - t1) * 1e3)
+        got = {k: v for k, v in _train_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"float32 flagship training, {label}: losses {losses}, launches {got}, peak "
+              f"allocated {peak:.2f} GiB, step times {[round(x, 1) for x in ms]} ms (smoke "
+              f"figures), {time.perf_counter() - t0:.1f} s with init", flush=True)
+        require(all(np.isfinite(losses)), f"float32 training ({label}): a non-finite loss")
+        runs[label] = (losses, got)
+        del trainer, state, batches
+        torch.cuda.empty_cache()
+    (losses, got), (plain, plain_got) = runs["kernels"], runs["plain"]
+    require(got == {"flash_ce_forward": 3, "flash_ce_backward_dl": 3},
+            f"float32 training: launches {got}")
+    require(not plain_got, f"float32 training: the plain route launched {plain_got}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    print(f"float32 training: kernels' losses against the plain dl route's, relative "
+          f"differences {[f'{r:.3g}' for r in rel]} (limits 1e-5, 1e-4, 1e-4)", flush=True)
+    require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
+            "float32 training: the losses differ from the plain dl route's")
+    return {"flash_ce_forward_f32": got["flash_ce_forward"],
+            "flash_ce_backward_dl_f32": got["flash_ce_backward_dl"]}
+
+
+def run_training_options(dev, root):
+    """Phase 54: the rest of single-card training at flagship width in bf16
+    (TrainConfig defaults, warmup_steps=2, one batch of 64 x 64): one step
+    under fused_adamw=False (the optax chain, with adam_nu_dtype float32:
+    the moments' dtypes checked), and one step under each of remat "none",
+    "masks" and "dots" from the same seed, bit-equal losses, with the peak
+    memory each step allocates and what its forward holds for the backward;
+    then Trainer.train() over a TSV of 16 PNGs
+    in batches of 8 with profile_steps "0:2": a Chrome trace with CUDA
+    kernel events under <output_dir>/profile."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.data.tokenizer import SimpleTokenizer
+    from mic_tpu_torch.train.adamw_chain import AdamWChainState
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    host = _train_batches(config, 1, 64, DataConfig().max_seq_length, 54)[0]
+
+    def one_step(**kw):
+        t0 = time.perf_counter()
+        trainer = Trainer(config, DataConfig(), TrainConfig(warmup_steps=2, **kw), device=dev)
+        trainer.build(steps_per_epoch=1)
+        state = trainer.init_state()
+        batch = trainer.put_batch(host)
+        forward = trainer.compute_loss
+        held = []
+
+        def compute_loss(*args, **kwargs):  # what the forward leaves for the backward
+            loss = forward(*args, **kwargs)
+            torch.cuda.synchronize()
+            held.append(torch.cuda.memory_allocated())
+            return loss
+
+        trainer.compute_loss = compute_loss
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = trainer.train_step(state, batch)
+        loss = metrics["loss"].item()
+        peak = torch.cuda.max_memory_allocated()
+        require(np.isfinite(loss), f"training options {kw}: a non-finite loss")
+        print(f"training option {kw}: loss {loss:.6f}, peak allocated {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB above the state before the step; "
+              f"{(held[0] - base) / 2**30:.2f} GiB held from the forward for the backward), "
+              f"{time.perf_counter() - t0:.1f} s with init", flush=True)
+        return trainer, state, loss
+
+    trainer, state, _ = one_step(fused_adamw=False, adam_nu_dtype="float32")
+    require(isinstance(state.opt_state, AdamWChainState), "fused_adamw=False: not the chain")
+    require(all(leaf.dtype == torch.bfloat16 for _, leaf in tree_leaves(state.opt_state.mu))
+            and all(leaf.dtype == torch.float32 for _, leaf in tree_leaves(state.opt_state.nu)),
+            "fused_adamw=False: moment dtypes")
+    del trainer, state
+    torch.cuda.empty_cache()
+    losses = {}
+    for remat in ("none", "masks", "dots"):
+        trainer, state, losses[remat] = one_step(remat=remat)
+        del trainer, state
+        torch.cuda.empty_cache()
+    require(losses["dots"] == losses["masks"] == losses["none"],
+            f"remat policies gave other losses: {losses}")
+    tsv, images, captions = _caption_tsv(root, n=16, seed=54)
+    tok = SimpleTokenizer()
+    tok.fit(captions)
+    out = os.path.join(root, "profiled")
+    trainer = Trainer(config, DataConfig(train_file=tsv, images_dir=images, num_workers=0),
+                      TrainConfig(output_dir=out, per_device_batch_size=8, num_epochs=1,
+                                  warmup_steps=1, profile_steps="0:2", save_steps=1000),
+                      tokenizer=tok, device=dev)
+    t0 = time.perf_counter()
+    trainer.train()
+    traces = sorted(os.listdir(os.path.join(out, "profile")))
+    require(len(traces) == 1 and traces[0].endswith(".json"), f"profile/ holds {traces}")
+    with open(os.path.join(out, "profile", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"profile_steps 0:2 through Trainer.train (2 steps of 8, {time.perf_counter() - t0:.1f}"
+          f" s with its saves): profile/{traces[0]}, {len(events)} events, {kernels} device "
+          "kernel events", flush=True)
+    require(kernels > 0, "the profiler trace holds no device kernel")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def _raises(exc, fn, *args) -> bool:
     """Whether ``fn(*args)`` raises ``exc`` (a refusal this run checks for)."""
     try:
@@ -4051,6 +4499,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trained_") as root:
         run_trained_model_path(dev, root)
+    torch.cuda.empty_cache()
+    f32_err, f32_ms = check_f32_kernels(dev)
+    torch.cuda.empty_cache()
+    launches.update(run_f32_generate(dev))
+    torch.cuda.empty_cache()
+    launches.update(run_f32_training(dev))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as root:
+        run_training_options(dev, root)
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -4078,6 +4535,7 @@ def main() -> None:
         "fused_cross_attention_q8": q8_cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D, FLAG_H),
         "beam_permute": bound(2 * 2 * int(np.prod(PERMUTE_SHAPE)), 0, "bf16"),
         "int8_matmul": int8_matmul_bound(1024, 1024, 3072),
+        **f32_bounds(n_beam, 1024, n_ce),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "decode_attention N=4": attention_bound(4, 63, HEAD_D, 2),
@@ -4092,7 +4550,8 @@ def main() -> None:
               "ln_gemm N=32": ln_gemm_bound(32, HEAD_D, 3 * HEAD_D),
               **{f"int8_matmul M={m} N={n}": int8_matmul_bound(m, 1024, n)
                  for m, n in ((4, 3072), (4, HEAD_V), (1024, HEAD_V))},
-              "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D)}
+              "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D),
+              "fused_head_bucket_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_bucket_f32"]}
     others.update(flash_ce_contraction_bounds(n_ce))
     vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
     others.update({f"{name} vision": value for name, value in
@@ -4189,6 +4648,18 @@ def main() -> None:
         dict(name="int8_matmul", source="mic_tpu_torch/csrc/int8_matmul.cu",
              replaces="mic_tpu/ops/int8_matmul.py:31", max_abs_err=mm_err,
              ms=last_ms[("mm", 1024, 3072)][0], plain_ms=last_ms[("mm", 1024, 3072)][1]),
+    ]
+    # the float32 instances of rows 1, 4, 7 and 8 (phases 51-53); no one
+    # PyTorch call computes these functions (cuBLAS's bare f32 product is
+    # printed in phase 51 for scale, not as library_ms)
+    kernels += [
+        dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
+             max_abs_err=f32_err[name], ms=f32_ms[name][0], plain_ms=f32_ms[name][1])
+        for name, source, replaces in (
+            ("lazy_attention_f32", "lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:668"),
+            ("fused_head_bucket_f32", "fused_head_f32.cu", "mic_tpu/ops/fused_head.py:608"),
+            ("flash_ce_forward_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:259"),
+            ("flash_ce_backward_dl_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:725"))
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -32,12 +32,16 @@ _SIGNATURES = {
     # q, cache_k, cache_v, k_step, v_step, ancestry, out,
     # batch, beams, t_max, heads, head_dim, index, stream
     "mic_lazy_attention_bf16": [_P] * 7 + [_I] * 6 + [_P],
+    "mic_lazy_attention_f32": [_P] * 7 + [_I] * 6 + [_P],
     # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, ancestry, out,
     # batch, beams, t_max, heads, head_dim, index, group, groups, stream
     "mic_lazy_attention_q8": [_P] * 9 + [_I] * 8 + [_P],
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 5 + [_P],
+    # hidden, weight, bias, rmax_out, rid_out (each (splits, n, buckets)),
+    # part_m, part_l (each (splits, groups, n)), n, d, vocab, buckets, splits, rows, stream
+    "mic_fused_head_bucket_f32": [_P] * 7 + [_I] * 6 + [_P],
     # hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
     # rmax_part, rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_q8": [_P] * 10 + [_I] * 5 + [_P],
@@ -52,9 +56,11 @@ _SIGNATURES = {
     "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
     # the same, then logits_main, tail, n, d, vocab, v_main, runs, stream
     "mic_flash_ce_fwd_save_bf16": [_P] * 10 + [_I] * 5 + [_P],
+    "mic_flash_ce_fwd_f32": [_P] * 8 + [_I] * 4 + [_P],
     # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
     # dbias_out, low, conf - low, n, d, vocab, runs, stream
     "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
+    "mic_flash_ce_dl_f32": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
     # hidden, weight, bias, logits, labels, lse, rowscale, demb_out,
     # dbias_out, low, conf - low, n, d, vext, saved, stream
     "mic_flash_ce_gw_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],

@@ -63,14 +63,57 @@ __device__ __forceinline__ signed char quantize(float x, float scale) {
   return static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f));
 }
 
-__global__ void lazy_attention_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q,       // (B, K, H*Dh), pre-scaled
-    __nv_bfloat16* cache_k,                    // (B*K, T, H*Dh)
-    __nv_bfloat16* cache_v,                    // (B*K, T, H*Dh)
-    const __nv_bfloat16* __restrict__ k_step,  // (B, K, H*Dh)
-    const __nv_bfloat16* __restrict__ v_step,  // (B, K, H*Dh)
-    const int32_t* __restrict__ ancestry,      // (B, K, T)
-    __nv_bfloat16* __restrict__ out,           // (B, K, H*Dh)
+// The element type's loads and stores for the kernel below: bf16 (the
+// serving dtype) or float (a float32 model's caches, q and step rows).
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Eight values at p (16-byte aligned) as f32: one 16-byte load of bf16, two of f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(pair[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// Two elements copied as they are (the column write keeps the cache's dtype).
+template <typename T>
+__device__ __forceinline__ void copy_pair(T* dst, const T* src) {
+  using Word = typename std::conditional<sizeof(T) == 2, uint32_t, uint2>::type;
+  *reinterpret_cast<Word*>(dst) = *reinterpret_cast<const Word*>(src);
+}
+
+// T = __nv_bfloat16 (row 1 as the serving path runs it) or float (a float32
+// model: the same walk, twice the bytes; every sum is f32 either way).
+template <typename T>
+__global__ void lazy_attention_kernel(
+    const T* __restrict__ q,       // (B, K, H*Dh), pre-scaled
+    T* cache_k,                    // (B*K, T, H*Dh)
+    T* cache_v,                    // (B*K, T, H*Dh)
+    const T* __restrict__ k_step,  // (B, K, H*Dh)
+    const T* __restrict__ v_step,  // (B, K, H*Dh)
+    const int32_t* __restrict__ ancestry,  // (B, K, T)
+    T* __restrict__ out,           // (B, K, H*Dh)
     int beams, int t_max, int heads, int index) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
@@ -90,33 +133,24 @@ __global__ void lazy_attention_bf16_kernel(
   float qr[kHeadDim];
 #pragma unroll
   for (int d = 0; d < kHeadDim; d += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(q + head_off + d);
-    const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    float f[8];
+    load8(q + head_off + d, f);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pair[i]);
-      qr[d + 2 * i] = f.x;
-      qr[d + 2 * i + 1] = f.y;
-    }
+    for (int i = 0; i < 8; ++i) qr[d + i] = f[i];
   }
 
   // pass 1: one lane per live position t < index
   float m = kMaskValue;
   for (int t = lane; t < index; t += 32) {
-    const __nv_bfloat16* kr =
-        cache_k + ((static_cast<size_t>(b) * beams + anc[t]) * t_max + t) * hd +
-        static_cast<size_t>(h) * kHeadDim;
+    const T* kr = cache_k + ((static_cast<size_t>(b) * beams + anc[t]) * t_max + t) * hd +
+                  static_cast<size_t>(h) * kHeadDim;
     float acc = 0.f;
 #pragma unroll
     for (int d = 0; d < kHeadDim; d += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
-      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float f[8];
+      load8(kr + d, f);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(pair[i]);
-        acc = fmaf(qr[d + 2 * i], f.x, acc);
-        acc = fmaf(qr[d + 2 * i + 1], f.y, acc);
-      }
+      for (int i = 0; i < 8; ++i) acc = fmaf(qr[d + i], f[i], acc);
     }
     p[t] = acc;
     m = fmaxf(m, acc);
@@ -151,16 +185,13 @@ __global__ void lazy_attention_bf16_kernel(
   ax = fmaf(e_step, vs2.x, ax);
   ay = fmaf(e_step, vs2.y, ay);
   const float inv = 1.f / l;
-  *reinterpret_cast<__nv_bfloat162*>(out + head_off + 2 * lane) =
-      __floats2bfloat162_rn(ax * inv, ay * inv);
+  store_pair(out + head_off + 2 * lane, ax * inv, ay * inv);
 
   // In-place column write of row b*K + k at position `index`.  Every block
   // reads only positions < index, so no block reads what any block writes.
   const size_t col = (beam_row * t_max + index) * hd + static_cast<size_t>(h) * kHeadDim + 2 * lane;
-  *reinterpret_cast<__nv_bfloat162*>(cache_k + col) =
-      *reinterpret_cast<const __nv_bfloat162*>(k_step + head_off + 2 * lane);
-  *reinterpret_cast<__nv_bfloat162*>(cache_v + col) =
-      *reinterpret_cast<const __nv_bfloat162*>(v_step + head_off + 2 * lane);
+  copy_pair(cache_k + col, k_step + head_off + 2 * lane);
+  copy_pair(cache_v + col, v_step + head_off + 2 * lane);
 }
 
 // The int8-cache variant: replaces _kernel_dma_q8 of the same file.  The
@@ -485,24 +516,41 @@ __global__ void __launch_bounds__(256) split_kernel(
 
 }  // namespace q8
 
-}  // namespace
-
-extern "C" int mic_lazy_attention_bf16(void* q, void* cache_k, void* cache_v, void* k_step,
-                                       void* v_step, void* ancestry, void* out, int batch,
-                                       int beams, int t_max, int heads, int head_dim, int index,
-                                       void* stream) {
+template <typename T>
+int launch_lazy_attention(void* q, void* cache_k, void* cache_v, void* k_step, void* v_step,
+                          void* ancestry, void* out, int batch, int beams, int t_max, int heads,
+                          int head_dim, int index, void* stream) {
   if (head_dim != kHeadDim || beams < 1 || beams > 32 || index < 0 || index >= t_max) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(heads, batch);
   const dim3 block(32 * beams);
   const size_t smem = 2 * static_cast<size_t>(beams) * t_max * sizeof(float);
-  lazy_attention_bf16_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(cache_k),
-      static_cast<__nv_bfloat16*>(cache_v), static_cast<const __nv_bfloat16*>(k_step),
-      static_cast<const __nv_bfloat16*>(v_step), static_cast<const int32_t*>(ancestry),
-      static_cast<__nv_bfloat16*>(out), beams, t_max, heads, index);
+  lazy_attention_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<T*>(cache_k), static_cast<T*>(cache_v),
+      static_cast<const T*>(k_step), static_cast<const T*>(v_step),
+      static_cast<const int32_t*>(ancestry), static_cast<T*>(out), beams, t_max, heads, index);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mic_lazy_attention_bf16(void* q, void* cache_k, void* cache_v, void* k_step,
+                                       void* v_step, void* ancestry, void* out, int batch,
+                                       int beams, int t_max, int heads, int head_dim, int index,
+                                       void* stream) {
+  return launch_lazy_attention<__nv_bfloat16>(q, cache_k, cache_v, k_step, v_step, ancestry,
+                                              out, batch, beams, t_max, heads, head_dim, index,
+                                              stream);
+}
+
+// The same over float32 caches, q, step rows and output.
+extern "C" int mic_lazy_attention_f32(void* q, void* cache_k, void* cache_v, void* k_step,
+                                      void* v_step, void* ancestry, void* out, int batch,
+                                      int beams, int t_max, int heads, int head_dim, int index,
+                                      void* stream) {
+  return launch_lazy_attention<float>(q, cache_k, cache_v, k_step, v_step, ancestry, out, batch,
+                                      beams, t_max, heads, head_dim, index, stream);
 }
 
 // group: heads a pass takes (a divisor of heads), groups: position

@@ -26,10 +26,32 @@ def from_jax(tree: Params, device=None) -> Params:
     return tree_map(lambda a: _leaf(a, device), tree)
 
 
+def _adam_state(node):
+    """The first node of a (nested) optax state tuple holding mu and nu: the
+    chain's ScaleByAdamState."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
 def opt_state_from_jax(state, device=None):
-    """mic_tpu's FusedAdamWState (count, mu, nu; ``jax.device_get`` of it)
-    -> the port's, moments in their stored dtypes (bf16 stays bf16)."""
+    """mic_tpu's optimizer state (``jax.device_get`` of it) -> the port's,
+    moments in their stored dtypes (bf16 stays bf16): its FusedAdamWState
+    (count, mu, nu) as FusedAdamWState, or its optax chain's state (a tuple:
+    clip_by_global_norm's empty state where clipping is on, then
+    optax.adamw's ScaleByAdamState, the masked weight decay's state and
+    ScaleByScheduleState, whose count equals the Adam count) as the port's
+    AdamWChainState, from the ScaleByAdamState."""
+    from mic_tpu_torch.train.adamw_chain import AdamWChainState
     from mic_tpu_torch.train.fused_adamw import FusedAdamWState
 
-    return FusedAdamWState(int(np.asarray(state.count)), from_jax(state.mu, device),
-                           from_jax(state.nu, device))
+    adam = _adam_state(state)
+    if adam is None:
+        raise ValueError(f"no Adam moments in the optimizer state {type(state).__name__}")
+    cls = FusedAdamWState if adam is state else AdamWChainState
+    return cls(int(np.asarray(adam.count)), from_jax(adam.mu, device), from_jax(adam.nu, device))

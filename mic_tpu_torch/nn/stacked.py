@@ -5,10 +5,13 @@ once.  Rematerialization is ``torch.utils.checkpoint`` per layer."""
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from mic_tpu_torch.core.params import Params, tree_map
 
@@ -79,16 +82,29 @@ class _LayerRng:
 
 
 def remat_policy(remat) -> str | None:
-    """None, "full" or "masks"; raises for a policy not ported."""
+    """None, "full", "masks" or "dots"; raises for an unknown policy."""
     if remat in (False, None, "none"):
         return None
     if remat in (True, "full"):
         return "full"
-    if remat == "masks":
-        return "masks"
-    if remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported yet (ROADMAP A6)")
+    if remat in ("masks", "dots"):
+        return remat
     raise ValueError(f"unknown remat policy: {remat!r}")
+
+
+def _dot_ops() -> frozenset:
+    """The matrix products as autograd's dispatcher sees them (F.linear and
+    einsum arrive as these): what mic_tpu's dots_saveable keeps."""
+    aten = torch.ops.aten
+    return frozenset({aten.mm.default, aten.addmm.default, aten.bmm.default,
+                      aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for "dots": keep every matrix
+    product's output, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _dot_ops()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def scan_apply(body: Callable, h: torch.Tensor, stacked: Params, rng=None,
@@ -102,9 +118,18 @@ def scan_apply(body: Callable, h: torch.Tensor, stacked: Params, rng=None,
     order.  ``remat``: False/"none" keeps every activation; "full"
     checkpoints each layer and recomputes its dropout masks from the saved
     generator state; "masks" checkpoints each layer but keeps its boolean
-    dropout masks.  All three draw the same masks from the same generator,
-    so their gradients are equal; a checkpointed layer returns its ys too."""
+    dropout masks; "dots" checkpoints each layer selectively, keeping the
+    outputs of its matrix products (``_save_dots``) and recomputing the rest,
+    the dropout masks drawn again as "full" draws them (mic_tpu's
+    dots_saveable: its masks come again from the same key).  The kernels'
+    autograd Functions are recomputed under "dots", as dots_saveable
+    recomputes mic_tpu's Pallas calls.  All four draw the same masks from
+    the same generator, so their gradients are equal; a checkpointed layer
+    returns its ys too."""
     policy = remat_policy(remat)
+    context = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _save_dots)}
+               if policy == "dots" else {})
     per_layer = []
     for layer in range(num_layers_of(stacked)):
         p = layer_slice(stacked, layer)
@@ -116,6 +141,6 @@ def scan_apply(body: Callable, h: torch.Tensor, stacked: Params, rng=None,
             def run(x, p=p, layer_rng=layer_rng):
                 return body(x, p, None if layer_rng is None else layer_rng.stream())
 
-            h, ys = checkpoint(run, h, use_reentrant=False)
+            h, ys = checkpoint(run, h, use_reentrant=False, **context)
         per_layer.append(ys)
     return h, {key: torch.stack([ys[key] for ys in per_layer]) for key in per_layer[0]}

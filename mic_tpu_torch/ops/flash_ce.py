@@ -27,9 +27,13 @@ Each reads the table in the compute dtype: ``emb_cast`` (the training
 shadow, train/shadow.py) when given, else ``emb`` cast once.  Each takes its
 plain version for tensors on the CPU.  On a CUDA device it launches the
 kernels of csrc/flash_ce.cu, which never store f32 logits of the main
-vocab span, or raises: the kernels take bfloat16 only, so a float32 ``h``
-(``CaptionerConfig.dtype`` "float32") raises NotImplementedError, and D a
-multiple of 64, at most ``_BWD_MAX_D`` for the split route's contractions.
+vocab span, or raises: they take bfloat16 with D a multiple of 64, at most
+``_BWD_MAX_D`` for the split route's contractions.  A float32 ``h``
+(``CaptionerConfig.dtype`` "float32") runs the forward and dl kernels of
+csrc/flash_ce_f32.cu (D a multiple of 4; dl in float32, its dh and demb
+products in full float32), so the "dl" and "fwd" routes train a float32
+model; the save forward and the split and save contractions raise
+NotImplementedError on it (ROADMAP B36).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ _BOX = 64          # rows a sweep step, and own rows a split block (contract::kB
 _CHUNK = 256       # D columns a consumer warpgroup owns (contract::kChunk)
 _SAVE_ROWS = 128   # output rows a save block owns (contract::kSaveRows)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
+_F32_TILE = 128   # vocab columns a tile of the float32 walk (128 rows a block, too)
 
 
 def _table(h, emb, emb_cast):
@@ -106,18 +111,30 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_kernel_args(name, h, w, bias):
+def _check_kernel_args(name, h, w, bias, f32=True):
+    """The kernels' arguments: bfloat16 with D a multiple of 64, or (where
+    ``f32``, rows 7 and 8) float32 with D a multiple of 4.  The save and
+    split routes' float32 kernels are not written: float32 raises there."""
     n, d = h.shape
     v = w.shape[0]
-    if h.dtype == torch.float32:
+    if h.dtype == torch.float32 and not f32:
         raise NotImplementedError(
-            f"{name}: no float32 kernel yet; train with CaptionerConfig.dtype='bfloat16'"
+            f"{name}: no float32 kernel yet (ROADMAP B36); train a float32 model on the "
+            "'dl' or 'fwd' flash-CE route"
         )
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel: hidden and table must be bfloat16")
-    if w.shape != (v, d) or bias.shape != (v,) or d % 64:
+    if h.dtype not in (torch.bfloat16, torch.float32) or w.dtype != h.dtype:
+        raise TypeError(f"{name} kernel: hidden and table must be both bfloat16 or both float32")
+    step = 4 if h.dtype == torch.float32 else 64
+    if w.shape != (v, d) or bias.shape != (v,) or d % step:
         raise ValueError(f"{name} kernel: hidden {tuple(h.shape)}, table {tuple(w.shape)}, "
-                         f"bias {tuple(bias.shape)}; D must be a multiple of 64")
+                         f"bias {tuple(bias.shape)}; D must be a multiple of {step}")
+
+
+def _f32_runs(n: int, v: int, sms: int) -> int:
+    """The float32 walk's runs (csrc/flash_ce_f32.cu): as ``_runs``, but two
+    blocks an SM (its 128-row blocks hold 256 threads and no shared ring) and
+    128-wide vocab tiles."""
+    return max(1, min(-(-v // _F32_TILE), 2 * sms // -(-n // _ROW_TILE)))
 
 
 def _check_pointers(name, device, *tensors):
@@ -137,12 +154,13 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     if h.device.type != "cuda":
         raise ValueError(f"flash_ce_forward: unsupported device {h.device}")
     w = _table(h, emb, emb_cast)
-    _check_kernel_args("flash_ce_forward", h, w, bias)
+    _check_kernel_args("flash_ce_forward", h, w, bias, f32=not save)
     n, d = h.shape
     v = w.shape[0]
     bias_f = bias.float().contiguous()
     _check_pointers("flash_ce_forward", h.device, h, w, bias_f)
-    runs = _runs(n, v, _sms(h.device))
+    f32 = h.dtype == torch.float32
+    runs = (_f32_runs if f32 else _runs)(n, v, _sms(h.device))
     part = torch.empty((3, runs, n), dtype=torch.float32, device=h.device)
     lse, zsum = torch.empty((2, n), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -150,8 +168,9 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
             part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
             lse.data_ptr(), zsum.data_ptr())
     if not save:
-        err = _build.lib().mic_flash_ce_fwd_bf16(*args, n, d, v, runs, stream)
-        _build.check(err, "mic_flash_ce_fwd_bf16")
+        entry = "mic_flash_ce_fwd_f32" if f32 else "mic_flash_ce_fwd_bf16"
+        err = getattr(_build.lib(), entry)(*args, n, d, v, runs, stream)
+        _build.check(err, entry)
         flash_ce_forward.launches += 1
         return lse, _label_logit(h, w, bias_f, labels), zsum
     v_main = main_columns(v)
@@ -164,7 +183,7 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     return lse, _label_logit(h, w, bias_f, labels), zsum, logits_main, tail
 
 
-flash_ce_forward.launches = 0
+flash_ce_forward.launches = 0  # both dtypes' statistics kernels
 flash_ce_forward.save_launches = 0
 
 
@@ -194,11 +213,20 @@ def _dl_plain(h, w, bias, labels, lse, rowscale, label_smoothing):
 
 
 def _dl_gemms(dl, w, h):
-    """dh = dl @ W and demb = dl^T @ h with f32 output from the bf16 dl."""
-    if dl.device.type == "cuda":
+    """dh = dl @ W and demb = dl^T @ h with f32 output from dl: bf16
+    operands with f32 output, or float32 ones in full float32 (TF32 off for
+    the two products, whatever the process has set)."""
+    if dl.device.type != "cuda":
+        return dl.float() @ w.float(), dl.float().T @ h.float()
+    if dl.dtype != torch.float32:
         return (torch.mm(dl, w, out_dtype=torch.float32),
                 torch.mm(dl.T, h, out_dtype=torch.float32))
-    return dl.float() @ w.float(), dl.float().T @ h.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.mm(dl, w), torch.mm(dl.T, h)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def flash_ce_dl_plain(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=None):
@@ -226,17 +254,20 @@ def flash_ce_dl(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=N
     if dl.shape != (n, v) or dl.dtype != h.dtype:
         raise ValueError(f"flash_ce_dl: out must be ({n}, {v}) {h.dtype}")
     _check_pointers("flash_ce_dl", h.device, h, w, bias_f, labels32, lse32, rs32, dl)
-    runs = _runs(n, v, _sms(h.device))
+    f32 = h.dtype == torch.float32
+    runs = (_f32_runs if f32 else _runs)(n, v, _sms(h.device))
+    # both walks take 128 rows a block: one band of dbias partials each
     bands = torch.empty((-(-n // _ROW_TILE), v), dtype=torch.float32, device=h.device)
     dbias = torch.empty((v,), dtype=torch.float32, device=h.device)
     low, conf_low = _targets(label_smoothing, v)
-    err = _build.lib().mic_flash_ce_dl_bf16(
+    entry = "mic_flash_ce_dl_f32" if f32 else "mic_flash_ce_dl_bf16"
+    err = getattr(_build.lib(), entry)(
         h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), labels32.data_ptr(),
         lse32.data_ptr(), rs32.data_ptr(), dl.data_ptr(), bands.data_ptr(),
         dbias.data_ptr(), low, conf_low, n, d, v, runs,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
-    _build.check(err, "mic_flash_ce_dl_bf16")
+    _build.check(err, entry)
     flash_ce_backward_dl.launches += 1
     return dl, dbias
 
@@ -267,9 +298,10 @@ flash_ce_backward_dl.launches = 0
 
 
 def _check_backward_args(name, h, w, bias, split=True):
-    """The kernels' arguments; the split contractions keep 64 rows over the
-    whole D in shared memory, so they also need D <= _BWD_MAX_D."""
-    _check_kernel_args(name, h, w, bias)
+    """The contractions' arguments: bfloat16 only; the split contractions
+    keep 64 rows over the whole D in shared memory, so they also need
+    D <= _BWD_MAX_D."""
+    _check_kernel_args(name, h, w, bias, f32=False)
     if split and h.shape[1] > _BWD_MAX_D:
         raise ValueError(f"{name} kernel: D={h.shape[1]} exceeds {_BWD_MAX_D}")
 

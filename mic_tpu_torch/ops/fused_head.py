@@ -157,6 +157,35 @@ def bucket_finish(k: int, l, rmax, rid):
     return tv - lse, rid.gather(1, pick), lse
 
 
+def bucket_finish_f32(k: int, rmax, rid, part_m, part_l):
+    """The float32 bucket kernel's finish: its runs' (splits, N, bv) planes
+    merged in run order (the higher value kept, on a tie the earlier run's:
+    torch.argmax takes the first maximum), the row lse from its blocks'
+    (..., N) online-logsumexp partials, m + log(sum exp(part_m - m) part_l),
+    and the top-k over the bucket winners -> (lp, ids, lse)."""
+    win = torch.argmax(rmax, dim=0, keepdim=True)
+    rmax, rid = rmax.gather(0, win)[0], rid.gather(0, win)[0]
+    part_m, part_l = part_m.reshape(-1, part_m.shape[-1]), part_l.reshape(-1, part_l.shape[-1])
+    m = part_m.amax(dim=0)
+    lse = (m + torch.log((part_l * torch.exp(part_m - m)).sum(dim=0)))[:, None]
+    tv, pick = top_k(rmax, k)
+    return tv - lse, rid.gather(1, pick), lse
+
+
+def bucket_f32_rows(n: int) -> int:
+    """Hidden rows a block of the float32 bucket kernel: 128, or 64 where
+    there are no more than 64 rows (csrc/fused_head_f32.cu's two tiles)."""
+    return 64 if n <= 64 else 128
+
+
+def bucket_f32_splits(n: int, v: int, bv: int, sms: int) -> int:
+    """How many runs of chunks the float32 bucket kernel cuts its walk into:
+    as many as give two blocks an SM (it holds two at once) over the (row
+    tile x 64-column group) blocks, never more than there are chunks."""
+    blocks = -(-n // bucket_f32_rows(n)) * -(-bv // _COL_TILE)
+    return max(1, min(-(-v // bv), 2 * sms // blocks))
+
+
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -279,6 +308,32 @@ def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
     return bucket_finish(k, l, rmax, rid)
 
 
+def _bucket_f32(hidden, weight, bias, k: int):
+    """The float32 bucket kernel (csrc/fused_head_f32.cu): per-run planes
+    and per-block row partials, merged and finished in torch -> (lp, ids,
+    lse)."""
+    n, d = hidden.shape
+    v = weight.shape[0]
+    bv = bucket_width()
+    if weight.shape != (v, d) or bias.shape != (v,) or d % 4 or not 1 <= k <= bv:
+        raise ValueError(f"mic_fused_head_bucket_f32: hidden {tuple(hidden.shape)}, weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}, bv={bv}")
+    bias32 = bias.float().contiguous()
+    _check_operands("mic_fused_head_bucket_f32", hidden, weight, bias32)
+    splits = bucket_f32_splits(n, v, bv, _sms(hidden.device))
+    f32 = dict(dtype=torch.float32, device=hidden.device)
+    rmax = torch.empty((splits, n, bv), **f32)
+    rid = torch.empty((splits, n, bv), dtype=torch.int32, device=hidden.device)
+    part_m, part_l = torch.empty((2, splits, -(-bv // _COL_TILE), n), **f32)
+    err = _build.lib().mic_fused_head_bucket_f32(
+        hidden.data_ptr(), weight.data_ptr(), bias32.data_ptr(), rmax.data_ptr(), rid.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), n, d, v, bv, splits, bucket_f32_rows(n),
+        torch.cuda.current_stream(hidden.device).cuda_stream,
+    )
+    _build.check(err, "mic_fused_head_bucket_f32")
+    return bucket_finish_f32(k, rmax, rid, part_m, part_l)
+
+
 def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     """The exact/window select kernel on CUDA tensors: x (N, D) bf16 hidden
     with weight (V, D) bf16 (``xscale``, ``wscale`` None), or x int8 rows with
@@ -335,15 +390,25 @@ def _check_select(select: str) -> None:
 def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
     """hidden (N, D), weight (V, D) tied embedding, bias (V,) ->
     (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32).  ``launches`` counts
-    the bf16 bucket kernel; the exact/window kernel counts in
+    the bucket kernels (bf16, or float32 where hidden and weight are both
+    float32); the exact/window kernel counts in
     ``fused_head_select.launches``."""
     _check_select(select)
     if hidden.device.type == "cpu":
         return fused_head_topk_plain(hidden, weight, bias, k, select)
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_head_topk: unsupported device {hidden.device}")
+    if hidden.dtype == torch.float32 and weight.dtype == torch.float32:
+        if select != "bucket":
+            raise NotImplementedError(
+                f"fused_head_topk: the float32 {select} select has no kernel yet (ROADMAP B43); "
+                "float32 serves through the bucket select")
+        out = _bucket_f32(hidden, weight, bias, k)
+        fused_head_topk.launches += 1
+        return out
     if hidden.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError("fused_head_topk kernel: hidden and weight must be bfloat16")
+        raise TypeError("fused_head_topk kernel: hidden and weight must be both bfloat16 or "
+                        "both float32")
     if select != "bucket":
         return fused_head_select(hidden, None, weight, None, bias, k, select == "window")
     out = _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k)
@@ -351,7 +416,7 @@ def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
     return out
 
 
-fused_head_topk.launches = 0
+fused_head_topk.launches = 0  # both bucket kernels' launches
 
 
 def fused_head_topk_q8(hidden, weight_q, weight_scale, bias, k: int, select: str = "bucket"):

@@ -47,6 +47,9 @@ from mic_tpu_torch.ops.quant import quantize_rows_dynamic
 
 # mic_tpu/nn/attention.py masks scores with finfo(float32).min, never -inf
 _MASK_VALUE = torch.finfo(torch.float32).min
+# the column-writing kernel's entry points by the dtype of q, caches and step rows
+_LAZY_ENTRIES = {torch.bfloat16: "mic_lazy_attention_bf16",
+                 torch.float32: "mic_lazy_attention_f32"}
 
 
 def lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, ancestry,
@@ -89,8 +92,9 @@ def lazy_attention(q, cache_k, cache_v, k_step, v_step, ancestry,
     t = cache_k.shape[1]
     dh = hd // num_heads
     tensors = (q, cache_k, cache_v, k_step, v_step)
-    if any(x.dtype != torch.bfloat16 for x in tensors):
-        raise TypeError("lazy_attention kernel: q, caches and step rows must be bfloat16")
+    if q.dtype not in _LAZY_ENTRIES or any(x.dtype != q.dtype for x in tensors):
+        raise TypeError("lazy_attention kernel: q, caches and step rows must be all bfloat16 "
+                        "or all float32")
     if ancestry.dtype != torch.int32:
         raise TypeError("lazy_attention kernel: ancestry must be int32")
     if dh != 64 or hd != num_heads * dh:
@@ -106,19 +110,19 @@ def lazy_attention(q, cache_k, cache_v, k_step, v_step, ancestry,
             raise ValueError("lazy_attention kernel: tensors must be contiguous, "
                              "16-byte aligned and on one device")
     out = torch.empty_like(q)
-    lib = _build.lib()
-    err = lib.mic_lazy_attention_bf16(
+    entry = _LAZY_ENTRIES[q.dtype]
+    err = getattr(_build.lib(), entry)(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         k_step.data_ptr(), v_step.data_ptr(), ancestry.data_ptr(),
         out.data_ptr(), b, beams, t, num_heads, dh, index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "mic_lazy_attention_bf16")
+    _build.check(err, entry)
     lazy_attention.launches += 1
     return out
 
 
-lazy_attention.launches = 0
+lazy_attention.launches = 0  # both dtypes' launches
 
 
 def lazy_attention_q8_plain(q, cache_k, cache_v, k_step, v_step, ancestry,

@@ -97,8 +97,20 @@ def make_fused_adamw(learning_rate: Union[float, Callable], *, b1: float = 0.9,
     return FusedAdamW(init=init, step=step)
 
 
-def apply_gradients(optimizer: FusedAdamW, params, grads, opt_state, shadow_spec=None,
+def apply_gradients(optimizer, params, grads, opt_state, shadow_spec=None,
                     shadow_dtype: torch.dtype = torch.bfloat16):
-    """One optimizer application: (params', state'), or (params', state',
-    shadow') when ``shadow_spec`` (train/shadow.py::shadow_spec) is given."""
-    return optimizer.step(params, grads, opt_state, shadow_spec, shadow_dtype)
+    """One optimizer application, fused or the optax chain
+    (train/adamw_chain.py): (params', state'), or (params', state',
+    shadow') when ``shadow_spec`` (train/shadow.py::shadow_spec) is given.
+    The chain applies its updates tree in a second pass and casts the shadow
+    in a third, as mic_tpu's optax path does (the same values)."""
+    if isinstance(optimizer, FusedAdamW):
+        return optimizer.step(params, grads, opt_state, shadow_spec, shadow_dtype)
+    from mic_tpu_torch.train.adamw_chain import apply_updates
+    from mic_tpu_torch.train.shadow import cast_shadow
+
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    params = apply_updates(params, updates)
+    if shadow_spec is None:
+        return params, opt_state
+    return params, opt_state, cast_shadow(params, shadow_spec, shadow_dtype)

@@ -7,11 +7,13 @@ import dataclasses
 import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
 from mic_tpu_torch.core.knobs import override
 from mic_tpu_torch.core.params import torch_dtype, tree_leaves, tree_map
-from mic_tpu_torch.train.fused_adamw import FusedAdamW, make_fused_adamw
+from mic_tpu_torch.train.adamw_chain import AdamWChain, AdamWChainState, make_adamw_chain
+from mic_tpu_torch.train.fused_adamw import FusedAdamW, FusedAdamWState, make_fused_adamw
 
 
 @dataclasses.dataclass
@@ -27,7 +29,7 @@ class TrainState:
     shadow: Any = None
 
     @classmethod
-    def create(cls, params: Any, optimizer: FusedAdamW, generator: torch.Generator,
+    def create(cls, params: Any, optimizer: FusedAdamW | AdamWChain, generator: torch.Generator,
                shadow_dtype: torch.dtype | None = None) -> "TrainState":
         shadow = None
         if shadow_dtype is not None:
@@ -40,8 +42,8 @@ class TrainState:
 
 def checkpoint_tree(state: TrainState) -> dict:
     """The part of the state a checkpoint keeps: params, opt_state (count,
-    mu, nu), step and the dropout generator's state (mic_tpu's dropout_rng).
-    The shadow is left out: it is a cast of the params, rebuilt on restore."""
+    mu, nu, of either optimizer), step and the dropout generator's state
+    (mic_tpu's dropout_rng).  The shadow is left out: it is a cast of the params, rebuilt on restore."""
     opt = state.opt_state
     return {"params": state.params, "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
             "step": state.step, "generator": state.generator.get_state()}
@@ -73,17 +75,16 @@ def _fit(stored, template, what: str):
 
 def restore_state(tree: dict, template: Any, generator: torch.Generator, *,
                   mu_dtype: torch.dtype | None = None, nu_dtype: torch.dtype | None = None,
-                  shadow_dtype: torch.dtype | None = None) -> TrainState:
+                  shadow_dtype: torch.dtype | None = None, fused: bool = True) -> TrainState:
     """A TrainState from a checkpoint_tree: ``template`` gives the params'
     key paths, shapes and dtypes (e.g. init_params on the "meta" device),
     ``mu_dtype``/``nu_dtype`` the moments' (None: the param's own, as
-    make_optimizer resolves them).  A leaf stored in another dtype is cast,
-    as mic_tpu's restore casts to its template, and a warning names it.
-    The generator takes the stored state (a state that does not fit it, e.g.
-    one saved from another device's generator, raises); the shadow is cast
-    fresh from the params."""
-    from mic_tpu_torch.train.fused_adamw import FusedAdamWState
-
+    make_optimizer resolves them), ``fused`` the optimizer the state is for
+    (FusedAdamW's state, or the optax chain's; both keep count, mu and nu).
+    A leaf stored in another dtype is cast, as mic_tpu's restore casts to
+    its template, and a warning names it.  The generator takes the stored
+    state (a state that does not fit it, e.g. one saved from another
+    device's generator, raises); the shadow is cast fresh from the params."""
     saved, current = tree["generator"].cpu(), generator.get_state()
     if saved.dtype != current.dtype or saved.shape != current.shape:
         raise ValueError(f"the checkpoint's dropout generator state ({saved.numel()} bytes) does "
@@ -108,7 +109,8 @@ def restore_state(tree: dict, template: Any, generator: torch.Generator, *,
     params = fitted["params"]
     for _, leaf in tree_leaves(params):
         leaf.requires_grad_(True)
-    opt_state = FusedAdamWState(int(tree["opt_state"]["count"]), fitted["mu"], fitted["nu"])
+    state_cls = FusedAdamWState if fused else AdamWChainState
+    opt_state = state_cls(int(tree["opt_state"]["count"]), fitted["mu"], fitted["nu"])
     shadow = None
     if shadow_dtype is not None:
         from mic_tpu_torch.train.shadow import cast_shadow, shadow_spec
@@ -118,10 +120,12 @@ def restore_state(tree: dict, template: Any, generator: torch.Generator, *,
 
 
 def _moment_dtype(name) -> torch.dtype | None:
-    """None (the param's own dtype) for float32 names, else the dtype;
-    accepts a name or a torch dtype."""
+    """None (the param's own dtype) for float32, else the dtype; accepts a
+    name, a torch dtype or a numpy dtype (or scalar type) alike."""
     if isinstance(name, torch.dtype):
         return None if name == torch.float32 else name
+    if name is not None and not isinstance(name, str):
+        name = np.dtype(name).name
     if name in (None, "", "float32", "f32"):
         return None
     return torch_dtype(name)
@@ -150,13 +154,23 @@ def moment_dtypes(mu_dtype=None, nu_dtype=None) -> tuple:
 
 def make_optimizer(learning_rate_fn, *, weight_decay: float = 0.0, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8, max_grad_norm: float | None = None,
-                   mu_dtype=None, nu_dtype=None, fused: bool = True) -> FusedAdamW:
+                   mu_dtype=None, nu_dtype=None, fused: bool = True) -> FusedAdamW | AdamWChain:
     """AdamW with no decay on LayerNorm and bias params, its moments stored
-    as moment_dtypes says.  ``fused=False`` (mic_tpu's optax chain) is not
-    ported and raises."""
-    if not fused:
-        raise NotImplementedError("fused=False (the optax chain) is not ported (ROADMAP A6)")
+    as moment_dtypes says: the single-pass FusedAdamW, or with
+    ``fused=False`` mic_tpu's optax chain (train/adamw_chain.py), which
+    keeps nu in float32 and so raises on another ``nu_dtype``."""
     mu_dtype, nu_dtype = moment_dtypes(mu_dtype, nu_dtype)
+    if not fused:
+        if nu_dtype is not None:
+            raise ValueError(
+                f"TrainConfig.adam_nu_dtype={nu_dtype} needs TrainConfig.fused_adamw=True: the "
+                "optax chain (fused_adamw=False) keeps nu in float32; set adam_nu_dtype="
+                "'float32' (or unset MIC_TPU_MOMENT_DTYPE) to use it")
+        return make_adamw_chain(
+            learning_rate_fn, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+            decay_mask_fn=decay_mask if weight_decay > 0 else None,
+            max_grad_norm=max_grad_norm, mu_dtype=mu_dtype,
+        )
     return make_fused_adamw(
         learning_rate_fn, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
         decay_mask_fn=decay_mask if weight_decay > 0 else None,

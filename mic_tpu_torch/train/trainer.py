@@ -8,15 +8,19 @@ and at the end (``<output_dir>/checkpoints/<step>``, the newest
 
 The step runs the model from the bf16 shadow (train/shadow.py), the loss
 through ops/fused_ce.py (on CUDA the two flash-CE kernels), autograd for
-the gradients and the fused AdamW in place.  Resume restores params,
+the gradients and the AdamW step in place.  Resume restores params,
 moments, step, the dropout generator and the data position, so a resumed
-run is bit-equal to an uninterrupted one.  Not ported yet, and raising: the
-mesh options (dp > 1, tp > 1, fsdp) and the profiler range.
+run is bit-equal to an uninterrupted one.  ``fused_adamw=False`` runs
+mic_tpu's optax chain (train/adamw_chain.py), ``remat="dots"`` saves the
+layers' matrix products (nn/stacked.py), and ``profile_steps`` traces a
+range of steps with torch.profiler into ``<output_dir>/profile``.  Not
+ported yet, and raising: the mesh options (dp > 1, tp > 1, fsdp).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -40,6 +44,56 @@ from mic_tpu_torch.train.state import (
 from mic_tpu_torch.train.steps import count_params
 
 
+def profile_range(spec: Optional[str]) -> Optional[tuple]:
+    """``TrainConfig.profile_steps`` "a:b" -> (a, b): trace from before the
+    step taken when ``a`` steps are done to after step ``b``; a missing b
+    is a + 3 (mic_tpu/train/trainer.py).  None or "" -> None."""
+    if not spec:
+        return None
+    a, _, b = spec.partition(":")
+    return int(a), int(b or int(a) + 3)
+
+
+class StepProfiler:
+    """torch.profiler over a range of train steps (mic_tpu's jax.profiler
+    trace): for ``steps`` = (a, b), started before the step taken when a
+    steps are done, stopped after step b once the device is synchronized, a
+    Chrome trace written under ``out_dir`` (CUDA activity on the card).
+    Tracing changes no value the step computes."""
+
+    def __init__(self, steps: Optional[tuple], out_dir: str, device: torch.device):
+        self.steps, self.out_dir, self.device = steps, out_dir, device
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if self.steps is None or step != self.steps[0]:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def after(self, step: int) -> None:
+        if self.prof is not None and step == self.steps[1]:
+            self.close()
+
+    def close(self) -> None:
+        """Stop a running trace and write it (also where the loop ends, or
+        fails, inside the range)."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self.prof, self.steps = self.prof, None, None
+        prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.out_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
 class Trainer:
     def __init__(self, model_config: CaptionerConfig, data_config: DataConfig,
                  train_config: TrainConfig, tokenizer: Optional[TokenizerBase] = None,
@@ -47,8 +101,7 @@ class Trainer:
         tc = train_config
         if tc.dp not in (-1, 1) or tc.tp != 1 or tc.fsdp:
             raise NotImplementedError("dp > 1, tp > 1 and fsdp are not ported yet (ROADMAP A7)")
-        if tc.profile_steps:
-            raise NotImplementedError("profile_steps is not ported yet")
+        self.profile_range = profile_range(tc.profile_steps)
         # tc.prng_impl picks the TPU's hardware RNG in mic_tpu; dropout here
         # always draws from torch's Philox generator, so it is ignored.
         self.mc, self.dc, self.tc = model_config, data_config, train_config
@@ -130,7 +183,7 @@ class Trainer:
         mu_dtype, nu_dtype = moment_dtypes(tc.adam_mu_dtype, tc.adam_nu_dtype)
         state = restore_state(tree, init_params(self.mc, None, "meta"), self.generator,
                               mu_dtype=mu_dtype, nu_dtype=nu_dtype,
-                              shadow_dtype=self._shadow_dtype)
+                              shadow_dtype=self._shadow_dtype, fused=tc.fused_adamw)
         if self._shadow_dtype is not None:
             self._shadow_spec = shadow_spec(state.params, self._shadow_dtype)
         return state, meta
@@ -262,11 +315,15 @@ class Trainer:
         logger.log(0, {"param_count_m": count_params(state.params) / 1e6})
         timer = StepTimer()
         step = state.step
+        profiler = StepProfiler(self.profile_range, os.path.join(self.tc.output_dir, "profile"),
+                                self.device)
         try:
             while train_loader.epoch < self.tc.num_epochs:
                 for batch in train_loader.epoch_iterator():
+                    profiler.before(step)
                     state, metrics = self.train_step(state, self.put_batch(batch))
                     step += 1
+                    profiler.after(step)
                     timer.tick()
                     if step % self.tc.logging_steps == 0:
                         scalars = {k: float(v) for k, v in metrics.items()}
@@ -283,6 +340,7 @@ class Trainer:
             if eval_loaders:
                 logger.log(step, self.evaluate(state.params, eval_loaders), prefix="eval")
         finally:
+            profiler.close()
             train_loader.close()
             for loader in eval_loaders.values():
                 loader.close()

@@ -1866,3 +1866,170 @@ def test_beam_generate_runs_through_the_last_kernels(cuda, monkeypatch, case):
     want = (0, 2 * out.steps) if case == "physical" else (layers * out.steps, 0)
     assert (fused_cross_attention_dma.launches, beam_permute.launches) == want
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
+
+
+# -- the float32 instances of rows 1, 4, 7 and 8 (a float32 model) -------------
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,beams,t,heads,index", [(3, 4, 16, 2, i) for i in (0, 1, 9, 15)]
+                         + [(256, 4, 64, 16, 63), (3, 3, 37, 2, 36)])
+def test_lazy_attention_f32_kernel_matches_plain(cuda, b, beams, t, heads, index):
+    """Row 1 on float32 caches, q and step rows: outputs within 1e-5 (f32
+    sums in another order), the written cache bit-equal, columns past the
+    index untouched, one launch counted."""
+    hd = heads * 64
+    g = torch.Generator(device=cuda).manual_seed(100 + index)
+
+    def rand(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+    ck, cv = rand(b * beams, t, hd), rand(b * beams, t, hd)
+    ck[:, index:] = 0
+    cv[:, index:] = 0
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
+    anc[:, :, index:] = torch.arange(beams, device=cuda, dtype=torch.int32)[None, :, None]
+    pk, pv = ck.clone(), cv.clone()
+    launches = lazy_attention.launches
+    out = lazy_attention(q, ck, cv, ks, vs, anc, index, heads)
+    ref = lazy_attention_plain(q, pk, pv, ks, vs, anc, index, heads)
+    torch.cuda.synchronize()
+    assert lazy_attention.launches == launches + 1 and out.dtype == torch.float32
+    assert torch.equal(ck, pk) and torch.equal(cv, pv)
+    assert not ck[:, index + 1:].any() and not cv[:, index + 1:].any()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        lazy_attention(q.bfloat16(), ck, cv, ks, vs, anc, index, heads)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,d,v,k,bv", [(1024, 1024, 250054, 9, 512), (4, 1024, 250054, 9, 512),
+                                        (1, 100, 997, 1, 512), (65, 100, 997, 9, 96),
+                                        (130, 64, 1300, 16, 200), (64, 128, 4099, 9, 512)])
+def test_fused_head_f32_kernel_matches_plain(cuda, monkeypatch, n, d, v, k, bv):
+    """Row 4's float32 bucket kernel (128- and 64-row tiles, runs of chunks
+    or not, a depth off the slices, a ragged vocab, other bucket widths):
+    lse within 1e-5 relative, lp within 2e-4, ids equal but at near ties
+    (two plain logits within 2e-4: both sum D f32 products in other
+    orders); a second launch bit-equal.  Its exact and window selects raise
+    NotImplementedError naming ROADMAP B43."""
+    monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", f"bucket_bv={bv}")
+    g = torch.Generator(device=cuda).manual_seed(n + d + v)
+    hidden = torch.randn((n, d), generator=g, device=cuda)
+    weight = torch.randn((v, d), generator=g, device=cuda) * 0.02
+    bias = torch.randn((v,), generator=g, device=cuda) * 0.1
+    launches = fused_head_topk.launches
+    lp, ids, lse = fused_head_topk(hidden, weight, bias, k)
+    again = fused_head_topk(hidden, weight, bias, k)
+    rlp, rids, rlse = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
+    torch.cuda.synchronize()
+    assert fused_head_topk.launches == launches + 2
+    assert all(torch.equal(a, c) for a, c in zip((lp, ids, lse), again))
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-4)
+    logits = hidden @ weight.T + bias
+    differ = ids != rids
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    assert bool((gap[differ] < 2e-4).all())
+    for select in ("exact", "window"):
+        with pytest.raises(NotImplementedError, match="B43"):
+            fused_head_topk(hidden, weight, bias, k, select)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v,d", [(70, 997, 128), (1, 257, 64), (129, 4099, 100),
+                                   (127, 250054, 1024), (4096, 250054, 1024)])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_flash_ce_f32_kernels_match_plain(cuda, n, v, d, smoothing):
+    """Rows 7 and 8 on float32 hidden rows and table: lse and label logit
+    within 1e-5 relative, the sum of logits within 1e-5 of the row's sum of
+    |logits|; dl within 1e-4 of |dl| + 2 target rowscale (one relative
+    error of p from the logits' f32 summation order), rowscale-0 rows zero,
+    dbias within 1e-5 of its largest entry; reruns bit-equal.  The save
+    forward refuses float32 (ROADMAP B36)."""
+    g = torch.Generator(device=cuda).manual_seed(n + v + d)
+    h = torch.randn((n, d), generator=g, device=cuda)
+    w = torch.randn((v, d), generator=g, device=cuda) * 0.05
+    b = torch.randn((v,), generator=g, device=cuda) * 0.1
+    y = torch.randint(0, v, (n,), generator=g, device=cuda, dtype=torch.int32)
+    y[:min(n, 3)] = v - 1 - torch.arange(min(n, 3), device=cuda, dtype=torch.int32)
+    launches = (flash_ce_forward.launches, flash_ce_backward_dl.launches)
+    out = flash_ce_forward(h, w, b, y)
+    ref = flash_ce_forward_plain(h, w, b, y)
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-5)
+    l1 = torch.cat([(h[i:i + 512] @ w.T + b).abs().sum(-1) for i in range(0, n, 512)])
+    assert bool(((out[2] - ref[2]).abs() <= 1e-5 * l1).all())
+    rs = torch.rand((n,), generator=g, device=cuda) / n
+    rs[::7] = 0.0
+    dl, dbias = flash_ce_dl(h, w, b, y, ref[0], rs, smoothing)
+    dl2, dbias2 = flash_ce_dl(h, w, b, y, ref[0], rs, smoothing)
+    rdl, rdbias = flash_ce_dl_plain(h, w, b, y, ref[0], rs, smoothing)
+    torch.cuda.synchronize()
+    assert (flash_ce_forward.launches, flash_ce_backward_dl.launches) == (launches[0] + 1,
+                                                                          launches[1] + 2)
+    assert torch.equal(dl, dl2) and torch.equal(dbias, dbias2) and dl.dtype == torch.float32
+    assert not dl[rs == 0].any()
+    low, conf_low = fce._targets(smoothing, v)
+    for i in range(0, n, 256):
+        target = torch.full_like(rdl[i:i + 256], low)
+        target.scatter_(1, y[i:i + 256, None].long(), low + conf_low)
+        limit = 1e-4 * (rdl[i:i + 256].abs() + 2 * target * rs[i:i + 256, None])
+        assert bool(((dl[i:i + 256] - rdl[i:i + 256]).abs() <= limit).all())
+    torch.testing.assert_close(dbias, rdbias, rtol=0, atol=1e-5 * rdbias.abs().max().item())
+    with pytest.raises(NotImplementedError, match="B36"):
+        flash_ce_forward(h, w, b, y, save=True)
+
+
+@pytest.mark.requires_cuda
+def test_f32_generate_and_train_step_run_the_f32_kernels(cuda):
+    """A small float32 model (head dim 64) on the card: beam 4 through rows 1
+    and 4 (f32) with sequences equal to the CPU's (plain versions) and
+    scores within 1e-4; a train step on the default "auto" route launches
+    rows 7 and 8 (f32) once each, its loss within 1e-5 relative of the
+    CPU's on the same weights and batch (dropout off)."""
+    from mic_tpu_torch.core.config import DataConfig, TrainConfig
+    from mic_tpu_torch.core.params import tree_map
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64),
+        decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+    )
+    assert config.dtype == "float32"
+    params = init_params(config, torch.Generator(device=cuda).manual_seed(7), cuda)
+    images = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(8))
+    kw = dict(num_beams=4, max_length=12, forced_bos_token_id=7)
+    lazy_attention.launches = fused_head_topk.launches = 0
+    model = Captioner(config)
+    gpu = model.generate(params, preprocess_images(images.to(cuda), 32, torch.float32), **kw)
+    torch.cuda.synchronize()
+    assert lazy_attention.launches == config.decoder.num_layers * gpu.steps
+    assert fused_head_topk.launches >= gpu.steps
+    cpu = model.generate(tree_map(lambda x: x.cpu(), params),
+                         preprocess_images(images, 32, torch.float32), **kw)
+    assert torch.equal(gpu.sequences.cpu(), cpu.sequences)
+    torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=0, atol=1e-4)
+
+    rng = torch.Generator().manual_seed(9)
+    batch = {"pixel_values": torch.randint(0, 256, (4, 40, 40, 3), dtype=torch.uint8,
+                                           generator=rng).numpy(),
+             "labels": torch.randint(4, 1100, (4, 8), generator=rng).int().numpy(),
+             "decoder_input_ids": torch.randint(4, 1100, (4, 8), generator=rng).int().numpy(),
+             "decoder_attention_mask": torch.ones((4, 8), dtype=torch.int32).numpy()}
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        trainer = Trainer(config, DataConfig(decode_size=40), TrainConfig(
+            per_device_batch_size=4, warmup_steps=1, output_dir="unused"), device=device)
+        trainer.build(4)
+        state = trainer.init_state(tree_map(lambda x: x.detach().to(device).clone(), params))
+        counts = (flash_ce_forward.launches, flash_ce_backward_dl.launches)
+        state, metrics = trainer.train_step(state, trainer.put_batch(batch))
+        losses[device.type] = metrics["loss"].item()
+        if device.type == "cuda":
+            assert (flash_ce_forward.launches, flash_ce_backward_dl.launches) == (
+                counts[0] + 1, counts[1] + 1)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])

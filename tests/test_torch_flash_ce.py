@@ -88,6 +88,48 @@ def test_forward_plain_matches_jax_kernel():
     np.testing.assert_array_less(np.abs(got[2].numpy() - zsum), 1e-4 * np.abs(logits).sum(1))
 
 
+def test_forward_plain_f32_matches_jax_kernel():
+    """A float32 model's forward (row 7 in f32): mic_tpu's kernel in
+    interpret mode on f32 hidden states and table against the plain
+    version, lse and label logits within 1e-5, sums of logits within 1e-5
+    of the row's sum of |logits| (f32 sums in another order)."""
+    h, emb, bias, labels = _inputs(seed=4)
+    ref = jax_forward(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias), jnp.asarray(labels),
+                      True)
+    got = flash_ce_forward(torch.from_numpy(h), torch.from_numpy(emb), torch.from_numpy(bias),
+                           torch.from_numpy(labels))
+    lse, lbl, zsum = (np.asarray(a) for a in ref)
+    np.testing.assert_allclose(got[0].numpy(), lse, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), lbl, rtol=1e-5, atol=1e-5)
+    logits = h.astype(np.float64) @ emb.astype(np.float64).T + bias
+    np.testing.assert_array_less(np.abs(got[2].numpy() - zsum), 1e-5 * np.abs(logits).sum(1))
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_backward_dl_plain_f32_matches_jax_kernel(smoothing):
+    """A float32 model's dl route (row 8 in f32, then the dh and demb
+    products over the f32 dl): mic_tpu's dl kernel in interpret mode at
+    float32 against the plain version, every gradient within 1e-5 of its
+    largest entry (f32 throughout; sums in another order)."""
+    h, emb, bias, labels = _inputs(seed=5)
+    rng = np.random.default_rng(6)
+    rowscale = rng.random(h.shape[0]).astype(np.float32) / h.shape[0]
+    rowscale[::5] = 0.0
+    lse = np.asarray(jax_forward(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias),
+                                 jnp.asarray(labels), True)[0])
+    ref = jax_backward_dl(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias),
+                          jnp.asarray(labels), jnp.asarray(lse), jnp.asarray(rowscale),
+                          smoothing, "float32", True)
+    dh, demb, dbias = flash_ce_backward_dl(
+        torch.from_numpy(h), torch.from_numpy(emb), torch.from_numpy(bias),
+        torch.from_numpy(labels), torch.from_numpy(np.array(lse)), torch.from_numpy(rowscale),
+        smoothing)
+    assert dh.dtype == demb.dtype == dbias.dtype == torch.float32
+    _close_scaled(dh.numpy(), np.asarray(ref[0]), 1e-5, "dh")
+    _close_scaled(demb.numpy(), np.asarray(ref[1]), 1e-5, "demb")
+    _close_scaled(dbias.numpy(), np.asarray(ref[2]), 1e-5, "dbias")
+
+
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_backward_dl_plain_matches_jax_kernel(smoothing):
     h, emb, bias, labels = _inputs(seed=1)
@@ -339,24 +381,36 @@ def test_walk_runs_at_the_flagship_shapes():
     assert _runs(132 * 128 + 1, 250054, H100_SMS) == 1
 
 
-@pytest.mark.parametrize("case", ["float32", "float16", "d96", "d32", "table_width"])
+@pytest.mark.parametrize("case", ["float32", "float32_save_split", "float16", "d96", "d32",
+                                  "table_width", "f32_d98"])
 def test_kernel_arguments_raise_as_before(case):
-    """What the CUDA kernels do not take raises before any launch: float32
-    hidden states (NotImplementedError: no float32 kernel), another dtype
-    (TypeError), D not a multiple of 64 or a table of another width
-    (ValueError)."""
+    """What the CUDA kernels do not take raises before any launch; float32
+    hidden states pass for the forward and dl kernels (rows 7 and 8, any D
+    a multiple of 4) and raise NotImplementedError naming ROADMAP B36 for
+    the save and split routes' kernels; another dtype raises TypeError; D
+    off the tiles (64 in bf16, 4 in f32) or a table of another width
+    ValueError."""
     n, d, v = 8, 128, 997
     h = torch.zeros((n, d), dtype=torch.bfloat16)
     w = torch.zeros((v, d), dtype=torch.bfloat16)
     bias = torch.zeros((v,), dtype=torch.float32)
-    want = ValueError
     if case == "float32":
-        h, w, want = h.float(), w.float(), NotImplementedError
-    elif case == "float16":
+        _check_kernel_args("flash_ce_forward", h.float(), w.float(), bias)
+        _check_kernel_args("flash_ce_dl", h.float()[:, :100], w.float()[:, :100], bias)
+        return
+    if case == "float32_save_split":
+        for name in ("flash_ce_forward", "flash_ce_backward", "flash_ce_backward_save"):
+            with pytest.raises(NotImplementedError, match="B36"):
+                _check_kernel_args(name, h.float(), w.float(), bias, f32=False)
+        return
+    want = ValueError
+    if case == "float16":
         h, w, want = h.half(), w.half(), TypeError
     elif case in ("d96", "d32"):
         d = int(case[1:])
         h, w = h[:, :d], w[:, :d]
+    elif case == "f32_d98":
+        h, w = h.float()[:, :98], w.float()[:, :98]
     else:
         w = w[:, :64]
     with pytest.raises(want):
@@ -446,7 +500,7 @@ def test_backward_arguments_raise(case):
         _check_backward_args("flash_ce_backward_save", h, w, bias, split=False)
         return
     want = ValueError
-    if case == "float32":
+    if case == "float32":  # no float32 contraction kernel: ROADMAP B36
         h, w, want = h.float(), w.float(), NotImplementedError
     for split in ((True,) if case == "split_d1088" else (True, False)):
         with pytest.raises(want):

@@ -25,8 +25,12 @@ from mic_tpu_torch.ops.fused_head import (
     _bucket_kernel,
     bucket_bf16_smem_bytes,
     bucket_bf16_stages,
+    bucket_f32_rows,
+    bucket_f32_splits,
     bucket_finish,
+    bucket_finish_f32,
     bucket_q8_smem_bytes,
+    bucket_topk_dense,
     bucket_width,
     chunk_runs,
     chunk_splits,
@@ -93,6 +97,77 @@ def test_plain_matches_jax(select, k):
 @pytest.mark.parametrize("k", [1, 9])
 def test_plain_q8_matches_jax(select, k):
     _compare_q8(*_inputs(seed=10 + k), k, select)
+
+
+@pytest.mark.parametrize("n,k", [(6, 1), (6, 9), (70, 9)])
+def test_plain_f32_matches_pallas_bucket_kernel(n, k):
+    """A float32 model's row 4: mic_tpu's bucket kernel in interpret mode
+    on float32 hidden rows and table (it casts the table to hidden.dtype)
+    against the plain version: ids equal, log-probs and lse within 1e-5."""
+    hidden, weight, bias = _inputs(n=n, seed=30 + k)
+    ref = jax_fused_head_topk(jnp.asarray(hidden), jnp.asarray(weight).T, jnp.asarray(bias), k,
+                              "bucket", interpret=True)
+    got = fused_head_topk(torch.from_numpy(hidden), torch.from_numpy(weight),
+                          torch.from_numpy(bias), k, "bucket")
+    lp, ids, lse = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(got[1].numpy(), ids)
+    np.testing.assert_allclose(got[0].numpy(), lp, **TOL)
+    np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_f32_bucket_finish_matches_the_dense_bucket_select(splits):
+    """The float32 bucket kernel's outputs, made here from dense f32 logits
+    as its blocks fold them (per bucket column, over the chunks of a run in
+    order: the strict running max and its id; per (run, 64-column group),
+    each row's online logsumexp over the columns it sees), finished by
+    ``bucket_finish_f32``: ids equal to the dense bucket select's, lp and
+    lse within 1e-5 of it, at bucket widths 512 and 200 over a ragged V,
+    with the walk cut into ``splits`` runs."""
+    hidden, weight, bias = _inputs(n=5, d=16, v=1300, seed=44)
+    logits = torch.from_numpy(hidden) @ torch.from_numpy(weight).T + torch.from_numpy(bias)
+    for bv in (512, 200):
+        nchunks, groups = -(-1300 // bv), -(-bv // 64)
+        rmax = torch.full((splits, 5, bv), NEG_INF)
+        rid = torch.arange(bv, dtype=torch.int32).repeat(splits, 5, 1)
+        part_m = torch.full((splits, groups, 5), NEG_INF)
+        part_l = torch.zeros((splits, groups, 5))
+        for z, (begin, end) in enumerate(chunk_runs(nchunks, splits)):
+            for c in range(begin, end):
+                cols = torch.arange(c * bv, min((c + 1) * bv, 1300))
+                s = logits[:, cols]
+                j = cols - c * bv
+                up = s > rmax[z][:, j]
+                rmax[z][:, j] = torch.where(up, s, rmax[z][:, j])
+                rid[z][:, j] = torch.where(up, cols.int(), rid[z][:, j])
+                for g in range(groups):
+                    sel = (j >= 64 * g) & (j < 64 * (g + 1))
+                    if not sel.any():
+                        continue
+                    tmax = s[:, sel].amax(dim=1)
+                    mnew = torch.maximum(part_m[z, g], tmax)
+                    part_l[z, g] = (part_l[z, g] * torch.exp(part_m[z, g] - mnew)
+                                    + torch.exp(s[:, sel] - tmax[:, None]).sum(1)
+                                    * torch.exp(tmax - mnew))
+                    part_m[z, g] = mnew
+        lp, ids, lse = bucket_finish_f32(9, rmax, rid, part_m, part_l)
+        tv, tids = bucket_topk_dense(logits, 9, bv)
+        rlse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        assert torch.equal(ids, tids), bv
+        torch.testing.assert_close(lse, rlse, **TOL)
+        torch.testing.assert_close(lp, tv - rlse, **TOL)
+
+
+def test_f32_bucket_splits_fill_the_card():
+    """Two blocks an SM of the float32 bucket kernel: 128-row blocks past 64
+    rows, so 4 runs at the flagship N=1024 (64 blocks x 4 = 256 of the 264
+    two an SM give), 33 at N=4 (64-row blocks), never more runs than
+    chunks."""
+    assert (bucket_f32_rows(1024), bucket_f32_rows(64), bucket_f32_rows(65)) == (128, 64, 128)
+    assert bucket_f32_splits(1024, 250054, 512, 132) == 4
+    assert bucket_f32_splits(4, 250054, 512, 132) == 33
+    assert bucket_f32_splits(4, 997, 512, 132) == 2
+    assert bucket_f32_splits(4096, 250054, 512, 132) == 1
 
 
 @pytest.mark.parametrize("q8", [False, True])

@@ -120,6 +120,44 @@ def test_plain_matches_pallas_dma_kernel(index, seed):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("index,seed", [(0, 40), (7, 41), (15, 42)])
+def test_plain_f32_matches_pallas_dma_kernel(index, seed):
+    """A float32 model's row 1 against fused_lazy_attention_dma in
+    interpret mode on float32 caches, q and step rows.  mic_tpu's kernel
+    has no dtype gate but casts q, the step rows and the cache tiles to
+    bfloat16 (mic_tpu/ops/lazy_attention.py:735-738, :524), while its
+    XLA chain and the port keep float32 (ROADMAP C, known faults of the
+    reference; test_mha_decode_step_lazy_matches_jax_xla_path holds the f32
+    math within 1e-5).  So the inputs here are bfloat16 values held in
+    float32, which both sides take exactly: caches exactly equal, float32
+    outputs within 2e-2 (mic_tpu rounds its weights to bfloat16)."""
+    b, beams, heads, dh, t = 2, 4, 2, 64, 16
+    hd = heads * dh
+    rng = np.random.default_rng(seed)
+
+    def bf16_valued(a):
+        return torch.from_numpy(a.astype(np.float32)).bfloat16().float().numpy()
+
+    q = bf16_valued(rng.normal(size=(b, beams, hd)) * 0.3)
+    ks = bf16_valued(rng.normal(size=(b, beams, hd)) * 0.5)
+    vs = bf16_valued(rng.normal(size=(b, beams, hd)) * 0.5)
+    ck = bf16_valued(_cache(rng, b * beams, t, hd, index))
+    cv = bf16_valued(_cache(rng, b * beams, t, hd, index))
+    anc = _ancestry(rng, b, beams, t, index)
+    idx = jnp.asarray(index, jnp.int32)
+    ref, rk, rv = fused_lazy_attention_dma(
+        *(jnp.asarray(x) for x in (q, ck, cv, ks, vs)),
+        build_ancestry_mask(jnp.asarray(anc), idx), idx, beams, heads, interpret=True,
+    )
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    got = lazy_attention(torch.from_numpy(q), tk, tv, torch.from_numpy(ks), torch.from_numpy(vs),
+                         torch.from_numpy(anc), index, heads)
+    assert got.dtype == torch.float32 and np.asarray(rk).dtype == np.float32
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-2, atol=2e-2)
+
+
 def _int8_cache(rng, rows, t, hd, index):
     """A merged int8 cache quantized per row from a random prefix (zero rows
     from `index` on), with mic_tpu's quantizer: {"q", "s"} numpy arrays."""

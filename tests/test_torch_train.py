@@ -267,7 +267,7 @@ def test_apply_decoder_position_ids_match_jax():
     assert not torch.allclose(default, got.last_hidden_state, atol=1e-3)
 
 
-@pytest.mark.parametrize("remat", ["full", "masks"])
+@pytest.mark.parametrize("remat", ["full", "masks", "dots"])
 def test_introspection_outputs_under_remat(remat):
     """A checkpointed layer returns its per-layer outputs too: with every
     dropout site on and one generator, __call__'s introspection outputs and
@@ -404,14 +404,14 @@ def _dropout_config():
 
 
 def test_remat_grads_equal_no_remat_with_dropout():
-    """"masks" and "full" give bit-equal loss and gradients to no remat with
-    every dropout site on and the same generator, and leave the generator
-    where no remat leaves it."""
+    """"masks", "full" and "dots" give bit-equal loss and gradients to no
+    remat with every dropout site on and the same generator, and leave the
+    generator where no remat leaves it."""
     config = _dropout_config()
     nparams = _numpy_params(config, seed=7)
     batch = _batch(config, seed=8)
     out = {}
-    for remat in ("none", "full", "masks"):
+    for remat in ("none", "full", "masks", "dots"):
         trainer = _trainer(config, remat=remat, flash_ce="dl")
         params = _grad_params(nparams)
         dev = trainer.put_batch(batch)
@@ -421,21 +421,26 @@ def test_remat_grads_equal_no_remat_with_dropout():
         leaves = [leaf for _, leaf in tree_leaves(params)]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         out[remat] = (loss.detach(), grads, torch.rand(4, generator=gen))
-    for remat in ("full", "masks"):
+    for remat in ("full", "masks", "dots"):
         assert torch.equal(out[remat][0], out["none"][0]), remat
         assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out["none"][1])), remat
         assert torch.equal(out[remat][2], out["none"][2]), remat
 
 
 def test_dots_remat_and_unported_options_raise(tmp_path):
+    """remat "dots", profile_steps and fused_adamw=False (with a float32
+    nu) are ported and take a finite step (tests/test_torch_train_options.py
+    holds them to mic_tpu); the mesh options still raise, naming A7."""
     config = _config()
-    with pytest.raises(NotImplementedError):
-        _trainer(config, remat="dots")
-    for bad in (dict(dp=2), dict(tp=2), dict(fsdp=True), dict(profile_steps="1:2")):
-        with pytest.raises(NotImplementedError):
+    for ported in (dict(remat="dots"), dict(profile_steps="1:2"),
+                   dict(fused_adamw=False, adam_nu_dtype="float32")):
+        trainer = _trainer(config, **ported)
+        state, metrics = trainer.train_step(trainer.init_state(),
+                                            trainer.put_batch(_batch(config)))
+        assert math.isfinite(metrics["loss"].item()), ported
+    for bad in (dict(dp=2), dict(tp=2), dict(fsdp=True)):
+        with pytest.raises(NotImplementedError, match="A7"):
             _trainer(config, **bad)
-    with pytest.raises(NotImplementedError):
-        _trainer(config, fused_adamw=False)
     # resume_from is ported: a path with no checkpoints is file-not-found
     trainer = _trainer(config, resume_from=str(tmp_path / "x"),
                        output_dir=str(tmp_path / "run"))
