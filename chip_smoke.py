@@ -216,7 +216,28 @@ Phases, each of which raises on failure (none catches its own):
      under fused_adamw=False (the optax chain), one under each remat
      policy ("none", "masks", "dots": equal losses, peak memory each), and
      Trainer.train() with profile_steps (a trace with device kernels under
-     <output_dir>/profile).
+     <output_dir>/profile);
+ 55. the ViT-B/16 + BART-large captioner (CaptionerConfig.vit_b16_bart_large,
+     full width and depth, bf16): B=64 images, beam 4, length 64, EOS
+     pinned at 63, rows 1 and 4 (756 and 63 launches); every launch of a
+     second run held against its plain version on the same inputs and the
+     rerun identical to the first, a whole
+     run on the plain versions beside it; in float32 at B=8 the sequences
+     equal to the plain versions'; row 4 timed at N=256 V=50265; a narrow
+     2-layer config of the style and an untied-head one card against CPU;
+ 56. the mBART-50 translator (MBartSeq2Seq(DecoderConfig()), bf16): B=64
+     padded sources of 8-48 tokens, beam 4, max_length 64, on the physical
+     cache (row 19 twice a step, equal to its plain version's run); under
+     fused_decode,pallas_topk rows 18 and 17 too, every launch held against
+     its plain version and the rerun identical; in float32 16 more pad tokens change no beam; row
+     19 timed on its (12, 256, 64, 16, 64) plane; a small config card
+     against CPU;
+ 57. the reference's checkpoint formats at flagship width: the port's
+     export_hf_fused read back by from_pretrained (every leaf bit-equal, a
+     B=8 beam 4 equal), the towers as model.safetensors and
+     pytorch_model.bin (written by tools/torch_hf_towers.py's state dicts)
+     read by load_pretrained_towers (every leaf but proj
+     bit-equal), each write and read timed.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -4383,6 +4404,508 @@ def run_training_options(dev, root):
     torch.cuda.empty_cache()
 
 
+# -- phases 55-57: the second captioner family, the translator, the HF format
+
+VB_B = 64  # images of phase 55's ViT-B/16 + BART-large batch
+TR_B, TR_S = 64, 48  # source rows of phase 56's translator batch, padded to 48 tokens
+TR_BOS = 250004  # the target language code forced at position 1 (en_XX)
+BART_BOS = 0  # BART's <s>, forced at position 1 as bart-large generates
+
+
+@contextlib.contextmanager
+def shadowed(*swaps):
+    """Each kernel wrapper runs as the path calls it, then its plain version
+    on the same inputs, and ``check(args, out, ref) -> (error, near-tie
+    id differences)`` holds the two ((module, name, plain, written, check)
+    each).  ``written(args)``, where not None, copies the cache cells the
+    wrapper writes in place: they must be bit-equal after the plain version
+    writes them again.  -> {name: [calls, largest error, near-tie id
+    differences]}.  These launches count in the wrappers' counters: no
+    counted run is made under it."""
+    stats = {name: [0, 0.0, 0] for _, name, _, _, _ in swaps}
+    old = [(module, name, getattr(module, name)) for module, name, _, _, _ in swaps]
+
+    def make(name, kernel, plain, written, check):
+        def run(*args):
+            out = kernel(*args)
+            cells = None if written is None else written(args)
+            ref = plain(*args)
+            require(cells is None or torch.equal(cells, written(args)),
+                    f"{name}: the cells it wrote differ from its plain version's")
+            err, ties = check(args, out, ref)
+            entry = stats[name]
+            entry[0] += 1
+            entry[1] = max(entry[1], err)
+            entry[2] += ties
+            return out
+        return run
+
+    for (module, name, plain, written, check), (_, _, kernel) in zip(swaps, old):
+        setattr(module, name, make(name, kernel, plain, written, check))
+    try:
+        yield stats
+    finally:
+        for module, name, fn in old:
+            setattr(module, name, fn)
+
+
+def _check_attention(args, out, ref):
+    """Rows 1 and 18 on the path: within phases 2's and 18's 2e-2."""
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    return (out.float() - ref.float()).abs().max().item(), 0
+
+
+def _lazy_column(args):
+    """Row 1's written cells: column ``index`` of both lazy caches."""
+    cache_k, cache_v, index = args[1], args[2], args[6]
+    return torch.stack([cache_k[:, index], cache_v[:, index]])
+
+
+def _decode_column(args):
+    """Row 18's written cells: column ``index`` of layer ``layer``."""
+    self_k, self_v, layer, index = args[3], args[4], args[5], args[6]
+    return torch.stack([self_k[layer, :, index], self_v[layer, :, index]])
+
+
+def _check_head(args, out, ref):
+    """Row 4 on the path: phase 3's tolerances (ids equal but at near
+    ties)."""
+    from mic_tpu_torch.ops.fused_head import _logits
+
+    hidden, weight, bias, k = args[:4]
+    return _bf16_head_case(out, ref, _logits(hidden, weight, bias), f"fused_head k={k} on the "
+                           "path", True)
+
+
+def _check_topk(args, out, ref):
+    """Row 17 on the path: ids equal, log-probs within phase 19's 1e-5."""
+    require(torch.equal(out[1], ref[1]), "topk_log_probs: ids differ from plain on the path")
+    err = (out[0] - ref[0]).abs().max().item()
+    require(err <= 1e-5, "topk_log_probs: log-probs differ from plain on the path")
+    return err, 0
+
+
+def _check_permute(args, out, ref):
+    require(torch.equal(out, ref), "beam_permute: a plane differs from plain on the path")
+    return 0.0, 0
+
+
+def _print_shadow(label, stats):
+    print(f"{label}, every launch beside its plain version on the same inputs: " + ", ".join(
+        f"{name} {calls} calls, max_abs_err {err:.3g}, near-tie id differences {ties}"
+        for name, (calls, err, ties) in stats.items()), flush=True)
+    require(all(calls > 0 for calls, _, _ in stats.values()), f"{label}: a kernel never ran")
+
+
+def _require_rerun_identical(label, first, second):
+    """The shadowed rerun returns the kernels' own outputs: its sequences and
+    scores must equal the counted run's bit for bit."""
+    same = torch.equal(first.sequences, second.sequences) and torch.equal(first.scores,
+                                                                           second.scores)
+    print(f"{label}: second run gave identical sequences and scores={same}", flush=True)
+    require(same, f"{label}: a second run of the kernels gave other sequences or scores")
+
+
+def _token_share(got, ref):
+    """(images with equal sequences, share of tokens equal)."""
+    got, ref = got.cpu(), ref.cpu()
+    return int((got == ref).all(1).sum()), float((got == ref).float().mean())
+
+
+def _vit_bart_pixels(dev, config, n, seed, dtype):
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    u8 = np.random.default_rng(seed).integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+    return preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, dtype)
+
+
+def _small_against_cpu(label, run, params, inputs_card, inputs_cpu, limit, kernels):
+    """``run(params, *inputs)`` on the card and on the CPU (plain versions)
+    from the same weights: equal sequences, scores within ``limit``, each
+    of ``kernels`` launched on the card."""
+    from mic_tpu_torch.core.params import tree_map
+
+    gpu, counts, _ = generate_counted(lambda _: run(params, *inputs_card), None)
+    cpu = run(tree_map(lambda x: x.cpu(), params), *inputs_cpu)
+    score_err = (gpu.scores.cpu() - cpu.scores).abs().max().item()
+    same = torch.equal(gpu.sequences.cpu(), cpu.sequences)
+    print(f"small width, {label}, card vs CPU: sequences equal={same}, max score difference="
+          f"{score_err:.3g}, card launches " + ", ".join(f"{k} {counts[k]}" for k in kernels),
+          flush=True)
+    require(all(counts[k] > 0 for k in kernels), f"{label}: a kernel never ran on the card")
+    require(same, f"{label}: card and CPU sequences differ")
+    require(score_err < limit, f"{label}: card and CPU scores differ")
+
+
+def run_vit_bart_path(dev):
+    """Phase 55: the ViT-B/16 + BART-large captioner
+    (CaptionerConfig.vit_b16_bart_large: a ViT tower of 12 x 768, patch 16,
+    197 rows; a post-norm 12-layer BART-large decoder, d_model 1024, 16
+    heads of 64, tied head of V = 50265) at full width and depth in bf16,
+    random weights from seed 55: B=64 uint8 images of 256 x 256 through
+    preprocess_images and a beam-4 generate of length 64, EOS pinned at 63
+    (all 63 steps), the counters set to 0 just before it and read just
+    after: row 1 twelve times a step, row 4 once a step, no other kernel;
+    then the same generate with every row-1 and row-4 launch held against
+    its plain version on the same inputs, its sequences and scores
+    identical to the first run's, and beside a whole run on the
+    plain versions (bf16 paths part at near-ties: the share of tokens equal
+    is printed); in float32 (rows 1 and 4 in f32) at B=8 the sequences equal
+    to the plain versions' on the card; row 4 timed at N=256, V=50265; a
+    2-layer narrow ViT+BART config (row 4 at V=1100, post-norm) and an
+    untied-head one (dense logits) on the card against the CPU."""
+    import mic_tpu_torch.models.captioner as captioner_mod
+    import mic_tpu_torch.nn.attention as attention_mod
+    from mic_tpu_torch.core.config import CaptionerConfig, DecodeConfig, DecoderConfig, VisionConfig
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_plain
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+    from mic_tpu_torch.ops.lazy_attention import lazy_attention_plain
+
+    t_phase = time.perf_counter()
+    config = CaptionerConfig.vit_b16_bart_large(dtype="bfloat16")
+    dec = config.decoder
+    require(config.vision.seq_len == 197 and dec.vocab_size == 50265 and dec.post_norm
+            and not dec.use_final_ln and not config.vision.use_pre_ln,
+            "vit_b16_bart_large is not the ViT-B/16 + BART-large preset")
+    full = init_params(config, torch.Generator(device=dev).manual_seed(55), dev)
+    params = make_serving_params(full)
+    model = Captioner(config)
+    kw = dict(num_beams=4, max_length=64, forced_bos_token_id=BART_BOS)
+    px = _vit_bart_pixels(dev, config, VB_B, 55, torch.bfloat16)
+    eos = torch.full((VB_B,), 63, device=dev)
+    model.generate(params, px[:4], eos_positions=eos[:4], **kw)  # warm-up
+    out, counts, seconds = generate_counted(
+        lambda x: model.generate(params, x, eos_positions=eos, **kw), px)
+    seqs = out.sequences.cpu()
+    require(seqs.shape == (VB_B, 64) and bool((seqs[:, 1] == BART_BOS).all())
+            and bool(torch.isfinite(out.scores).all()), "ViT+BART: malformed output")
+    check_pinned(seqs, eos.cpu(), dec.eos_token_id, dec.pad_token_id, "ViT+BART")
+    launches = {"lazy_attention": counts.pop("lazy_attention"),
+                "fused_head": counts.pop("fused_head")}
+    print(f"ViT-B/16 + BART-large (bf16): B={VB_B} beam 4 length 64, {out.steps} steps in "
+          f"{seconds:.3f} s = {VB_B / seconds:.1f} captions/s (smoke figure, not a benchmark), "
+          f"launches {launches}", flush=True)
+    require(out.steps == 63, "ViT+BART: the pinned EOS did not run all 63 steps")
+    require(launches["lazy_attention"] == dec.num_layers * out.steps,
+            "ViT+BART: row 1 launches != layers x steps")
+    require(launches["fused_head"] == out.steps, "ViT+BART: row 4 launches != steps")
+    require(not any(counts.values()), f"ViT+BART: other serving kernels launched: {counts}")
+
+    with shadowed((attention_mod, "lazy_attention", lazy_attention_plain, _lazy_column,
+                   _check_attention),
+                  (captioner_mod, "fused_head_topk", fused_head_topk_plain, None,
+                   _check_head)) as stats:
+        again = model.generate(params, px, eos_positions=eos, **kw)
+    torch.cuda.synchronize()
+    _print_shadow(f"ViT+BART B={VB_B}", stats)
+    _require_rerun_identical("ViT+BART", out, again)
+    with plain_versions((attention_mod, "lazy_attention", lazy_attention_plain),
+                        (captioner_mod, "fused_head_topk", fused_head_topk_plain)):
+        ref = model.generate(params, px, eos_positions=eos, **kw)
+    images, share = _token_share(out.sequences, ref.sequences)
+    print(f"ViT+BART bf16, a whole run on the plain versions on the card: {images} of {VB_B} "
+          f"captions equal, tokens equal {share:.4f} (bf16 paths part at near-ties)", flush=True)
+
+    f32_model = Captioner(config.replace(dtype="float32"))
+    px32 = _vit_bart_pixels(dev, config, 8, 56, torch.float32)
+    kw32 = dict(kw, eos_positions=eos[:8])
+    got = f32_model.generate(full, px32, **kw32)
+    with plain_versions((attention_mod, "lazy_attention", lazy_attention_plain),
+                        (captioner_mod, "fused_head_topk", fused_head_topk_plain)):
+        ref = f32_model.generate(full, px32, **kw32)
+    torch.cuda.synchronize()
+    score_err = (got.scores - ref.scores).abs().max().item()
+    same = torch.equal(got.sequences, ref.sequences)
+    print(f"ViT+BART float32 at B=8, rows 1 and 4 (f32) vs the plain versions on the card: "
+          f"sequences equal={same}, max score difference={score_err:.3g}", flush=True)
+    require(same, "ViT+BART float32: the kernels' sequences differ from the plain versions'")
+    require(score_err < 1e-4, "ViT+BART float32: the scores differ from the plain versions'")
+    del full, px32, got, ref
+
+    hidden = _hidden(dev, 256, dec.d_model, 55)
+    weight, bias = params["shared"]["embedding"], params["final_logits_bias"]
+    ms = (graph_ms(lambda: fused_head_topk(hidden, weight, bias, 9)),
+          graph_ms(lambda: fused_head_topk_plain(hidden, weight, bias, 9, "bucket")),
+          median_ms(lambda: fused_head_topk(hidden, weight, bias, 9)))
+    head_b = head_bound(256, dec.d_model, dec.vocab_size, 9, 2, "bf16")
+    print(f"fused_head_bucket N=256 D=1024 V=50265 k=9 time: kernel {ms[0]:.4f} ms (graph "
+          f"replays; {ms[2]:.4f} per call with its wrapper), plain {ms[1]:.4f} ms, bound "
+          f"{head_b[0]:.4f} ms ({head_b[1]}), {100 * head_b[0] / ms[0]:.0f}% of the bound",
+          flush=True)
+    del params, model, px, out
+
+    vit = dict(hidden_act="gelu", use_pre_ln=False, final_ln_output=True, patch_bias=True,
+               layer_norm_eps=1e-12)
+    bart = dict(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                max_position_embeddings=64, scale_embedding=False, post_norm=True,
+                use_final_ln=False)
+    u8 = torch.from_numpy(np.random.default_rng(57).integers(0, 256, (4, 40, 40, 3),
+                                                             dtype=np.uint8))
+    small_kw = dict(num_beams=4, max_length=16, forced_bos_token_id=7)
+    for label, tie, kernels in (("ViT+BART style, tied (bucket head)", True,
+                                 ("lazy_attention", "fused_head")),
+                                ("ViT+BART style, untied head (dense logits)", False,
+                                 ("lazy_attention",))):
+        small = CaptionerConfig(vision=VisionConfig.tiny(**vit), decoder=DecoderConfig.tiny(**bart),
+                                decode=DecodeConfig(fused_head="1", fused_select="bucket"),
+                                tie_word_embeddings=tie, dtype="bfloat16")
+        sp = make_serving_params(init_params(small, torch.Generator(device=dev).manual_seed(58),
+                                             dev))
+        smodel = Captioner(small)
+        _small_against_cpu(label, lambda p, x: smodel.generate(p, x, **small_kw), sp,
+                           (preprocess_images(u8.to(dev), 32, torch.bfloat16),),
+                           (preprocess_images(u8, 32, torch.bfloat16),), 2e-2, kernels)
+    print(f"phase 55 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _translator_sources(dev, n, s, seed, vocab, extra_pad=0):
+    """Source rows of 8-48 random tokens right-padded to ``s`` (pad id 1),
+    then ``extra_pad`` more pad columns, and their masks (1 = token)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(8, 49, n)
+    mask = np.arange(s)[None, :] < lengths[:, None]
+    ids = np.where(mask, rng.integers(4, vocab, (n, s)), 1)
+    ids = np.pad(ids, ((0, 0), (0, extra_pad)), constant_values=1)
+    mask = np.pad(mask, ((0, 0), (0, extra_pad)))
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(mask.astype(np.int64)).to(dev))
+
+
+def run_translator_path(dev):
+    """Phase 56: the mBART-50 translator, MBartSeq2Seq(DecoderConfig()) (12
+    encoder + 12 decoder layers, d_model 1024, V = 250054) at full width in
+    bf16, random weights from seed 56: B=64 source rows of 8-48 tokens,
+    right-padded with their masks, target BOS forced, beam 4, max_length 64,
+    on the physical cache: row 19 twice a step, no other kernel, and the
+    sequences equal to a run on row 19's plain version (a copy: bit-equal);
+    under MIC_TPU_EXPERIMENTAL=fused_decode,pallas_topk rows 18 twelve
+    times a step and 17 once a non-forced step besides, every launch of
+    rows 17, 18 and 19 held against its plain version on the same inputs
+    in a rerun identical to the counted run, and a whole run on the plain versions beside it (the share of tokens
+    equal printed); in float32 the same sources padded by 16 more tokens
+    give the same beams; row 19 timed on the translator's plane (12, 256,
+    64, 16, 64); a small config on the card against the CPU under both
+    knob sets."""
+    import mic_tpu_torch.generate.search as search_mod
+    import mic_tpu_torch.models.mbart_decoder as decoder_mod
+    import mic_tpu_torch.nn.cache as cache_mod
+    from mic_tpu_torch.core.config import DecoderConfig
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.models.mbart_seq2seq import MBartSeq2Seq
+    from mic_tpu_torch.ops.beam_permute import beam_permute, beam_permute_plain
+    from mic_tpu_torch.ops.decode_attention import decode_attention_plain
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs_plain
+
+    t_phase = time.perf_counter()
+    cfg = DecoderConfig()
+    layers = cfg.num_layers
+    full = MBartSeq2Seq(cfg).init_params(torch.Generator(device=dev).manual_seed(56), dev)
+    params = make_serving_params(full)
+    model = MBartSeq2Seq(cfg, dtype=torch.bfloat16)
+    kw = dict(num_beams=4, max_length=64, forced_bos_token_id=TR_BOS)
+    ids, mask = _translator_sources(dev, TR_B, TR_S, 56, cfg.vocab_size)
+    model.generate(params, ids[:4], mask[:4], **kw)  # warm-up
+
+    def translate(m, p, i, k):
+        return m.generate(p, i, k, **kw)
+
+    out, counts, seconds = generate_counted(lambda x: translate(model, params, x, mask), ids)
+    steps = out.steps
+    require(out.sequences.shape == (TR_B, 64) and bool((out.sequences[:, 1] == TR_BOS).all())
+            and bool(torch.isfinite(out.scores).all()), "translator: malformed output")
+    permutes = counts.pop("beam_permute")
+    print(f"mBART-50 translator (bf16): B={TR_B} sources of 8-48 tokens, beam 4 max_length 64, "
+          f"{steps} steps in {seconds:.3f} s = {TR_B / seconds:.1f} translations/s (smoke "
+          f"figure, not a benchmark), launches beam_permute {permutes}", flush=True)
+    require(permutes == 2 * steps, "translator: row 19 launches != 2 x steps")
+    require(not any(counts.values()), f"translator: other serving kernels launched: {counts}")
+    with plain_versions((cache_mod, "beam_permute", beam_permute_plain)):
+        ref = translate(model, params, ids, mask)
+    require(torch.equal(out.sequences, ref.sequences) and torch.equal(out.scores, ref.scores),
+            "translator: row 19's path differs from its plain version's")
+    print("translator: a whole run on row 19's plain version gave the same sequences and "
+          "scores", flush=True)
+
+    switches = dict(MIC_TPU_EXPERIMENTAL="fused_decode,pallas_topk")
+    with knobs(**switches):
+        fused, counts, seconds = generate_counted(
+            lambda x: translate(model, params, x, mask), ids)
+        forced = 1 + (fused.steps == kw["max_length"] - 1)  # BOS, and EOS at max_length - 1
+        want = {"decode_attention": layers * fused.steps, "topk_log_probs": fused.steps - forced,
+                "beam_permute": 2 * fused.steps}
+        got = {name: counts.pop(name) for name in want}
+        print(f"translator under fused_decode,pallas_topk: {fused.steps} steps ({forced} forced) "
+              f"in {seconds:.3f} s = {TR_B / seconds:.1f} translations/s (smoke figure), "
+              f"launches {got}", flush=True)
+        require(got == want, f"translator under fused_decode,pallas_topk: launches {got}, "
+                f"want {want}")
+        require(not any(counts.values()), f"translator: other kernels launched: {counts}")
+        with shadowed((decoder_mod, "decode_attention", decode_attention_plain, _decode_column,
+                       _check_attention),
+                      (search_mod, "topk_log_probs", topk_log_probs_plain, None, _check_topk),
+                      (cache_mod, "beam_permute", beam_permute_plain, None,
+                       _check_permute)) as stats:
+            again = translate(model, params, ids, mask)
+        torch.cuda.synchronize()
+        _print_shadow(f"translator B={TR_B} under fused_decode,pallas_topk", stats)
+        _require_rerun_identical("translator under fused_decode,pallas_topk", fused, again)
+        with plain_versions((decoder_mod, "decode_attention", decode_attention_plain),
+                            (search_mod, "topk_log_probs", topk_log_probs_plain),
+                            (cache_mod, "beam_permute", beam_permute_plain)):
+            ref = translate(model, params, ids, mask)
+    images, share = _token_share(fused.sequences, ref.sequences)
+    print(f"translator under fused_decode,pallas_topk, a whole run on the plain versions: "
+          f"{images} of {TR_B} translations equal, tokens equal {share:.4f}", flush=True)
+
+    pids, pmask = _translator_sources(dev, TR_B, TR_S, 56, cfg.vocab_size, extra_pad=16)
+    require(torch.equal(pids[:, :TR_S], ids), "the padded sources are not the same sources")
+    padded = translate(model, params, pids, pmask)
+    images, share = _token_share(padded.sequences, out.sequences)
+    print(f"translator bf16, sources padded by 16 more tokens: {images} of {TR_B} equal, "
+          f"tokens equal {share:.4f}", flush=True)
+    f32 = MBartSeq2Seq(cfg)
+    a = translate(f32, full, ids, mask)
+    b = translate(f32, full, pids, pmask)
+    score_err = (a.scores - b.scores).abs().max().item()
+    print(f"translator float32, sources padded by 16 more tokens: sequences equal="
+          f"{torch.equal(a.sequences, b.sequences)}, max score difference {score_err:.3g}",
+          flush=True)
+    require(torch.equal(a.sequences, b.sequences), "translator: padding changed the beams")
+    require(score_err < 1e-4, "translator: padding changed the scores")
+    del full, params, a, b, out, fused, ref, padded
+
+    plane = (layers, TR_B * 4, 64, cfg.num_heads, cfg.head_dim)
+    g = torch.Generator(device=dev).manual_seed(59)
+    kv = torch.randn(plane, generator=g, device=dev, dtype=torch.bfloat16)
+    idx = torch.randint(0, 4, (TR_B, 4), generator=g, device=dev)
+    require(torch.equal(beam_permute(kv, idx, 4), beam_permute_plain(kv, idx, 4)),
+            "beam_permute: the translator's plane differs from plain")
+    rows = (torch.arange(TR_B, device=dev)[:, None] * 4 + idx).reshape(-1)
+    ms = (median_ms(lambda: beam_permute(kv, idx, 4), runs=25),
+          median_ms(lambda: beam_permute_plain(kv, idx, 4), runs=25),
+          median_ms(lambda: kv.index_select(1, rows), runs=25))
+    permute_b = bound(2 * 2 * kv.numel(), 0, "bf16")
+    print(f"beam_permute {plane} bf16 time (per call): kernel {ms[0]:.4f} ms, plain "
+          f"{ms[1]:.4f} ms, index_select {ms[2]:.4f} ms, bound {permute_b[0]:.4f} ms "
+          f"({permute_b[1]}), {100 * permute_b[0] / ms[0]:.0f}% of the bound", flush=True)
+    del kv
+
+    small_cfg = DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=64)
+    small = MBartSeq2Seq(small_cfg, dtype=torch.bfloat16)
+    sp = make_serving_params(small.init_params(torch.Generator(device=dev).manual_seed(60), dev))
+    sids, smask = _translator_sources(dev, 4, TR_S, 61, small_cfg.vocab_size)
+    small_kw = dict(num_beams=4, max_length=16, forced_bos_token_id=7)
+    for label, env, kernels in (("translator", {}, ("beam_permute",)),
+                                ("translator under fused_decode,pallas_topk", switches,
+                                 ("beam_permute", "decode_attention", "topk_log_probs"))):
+        with knobs(**env):
+            _small_against_cpu(label, lambda p, i, m: small.generate(p, i, m, **small_kw), sp,
+                               (sids, smask), (sids.cpu(), smask.cpu()), 2e-2, kernels)
+    print(f"phase 56 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _timed_fsync(write, path):
+    """write(path), flushed to disk -> (bytes, seconds) (for writers that do
+    not fsync themselves)."""
+    t0 = time.perf_counter()
+    write(path)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def run_hf_format_path(dev, root):
+    """Phase 57: the reference's checkpoint formats at flagship width.  The
+    flagship's random float32 params (seed 57) through the port's
+    export_hf_fused (config.json + flax_model.msgpack), then
+    Captioner.from_pretrained on that directory: every leaf bit-equal, and
+    a B=8 beam-4 bf16 generate equal to the one from the original params;
+    the towers as HF PyTorch state dicts (tools/torch_hf_towers.py), CLIP
+    written as model.safetensors and mBART as pytorch_model.bin, read by
+    load_pretrained_towers: every leaf but the fresh proj bit-equal.  Bytes and seconds of each write
+    (fsync'd) and read (warm page cache); the directories deleted."""
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.io import safetensors_np
+    from mic_tpu_torch.io.hf_export import export_hf_fused
+    from mic_tpu_torch.io.hf_import import load_pretrained_towers
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from torch_hf_towers import to_torch_clip_state_dict, to_torch_mbart_state_dict
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    t_phase = time.perf_counter()
+    config = CaptionerConfig.clip_vit_b32_mbart50()
+    params = init_params(config, torch.Generator(device=dev).manual_seed(57), dev)
+    torch.cuda.synchronize()
+
+    def same_leaves(got, skip=()):
+        want, have = dict(tree_leaves(params)), dict(tree_leaves(got))
+        require(want.keys() == have.keys(), "HF format: the key paths differ")
+        return all(torch.equal(have[path], leaf) for path, leaf in want.items()
+                   if path[0] not in skip)
+
+    fused_dir = os.path.join(root, "fused")
+    t0 = time.perf_counter()
+    nbytes = export_hf_fused(params, config, fused_dir)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, loaded = Captioner.from_pretrained(fused_dir, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    equal = same_leaves(loaded)
+    print(f"HF fused checkpoint (flax_model.msgpack): {nbytes} B written in {write_s:.3f} s "
+          f"(fsync'd), read by from_pretrained onto the card in {read_s:.3f} s (warm page "
+          f"cache); every leaf bit-equal={equal}", flush=True)
+    require(equal, "HF format: a leaf read back differs")
+    served = Captioner(model.config.replace(dtype="bfloat16"))
+    kw = dict(num_beams=4, max_length=64, forced_bos_token_id=FLAGSHIP_BOS)
+    u8 = np.random.default_rng(57).integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    px = preprocess_images(torch.from_numpy(u8).to(dev), 224, torch.bfloat16)
+    a = served.generate(params, px, **kw)
+    b = served.generate(loaded, px, **kw)
+    require(torch.equal(a.sequences, b.sequences) and torch.equal(a.scores, b.scores),
+            "HF format: the reloaded params generate otherwise")
+    print(f"HF fused checkpoint: B=8 beam 4 from the reloaded params equal to the original's "
+          f"({a.steps} steps)", flush=True)
+    del loaded, model
+    shutil.rmtree(fused_dir)
+
+    clip_dir, mbart_dir = os.path.join(root, "clip"), os.path.join(root, "mbart")
+    os.makedirs(clip_dir)
+    os.makedirs(mbart_dir)
+    clip_sd = to_torch_clip_state_dict(params["vision"], config.vision.patch_size)
+    mbart_sd = to_torch_mbart_state_dict(params["shared"], params["decoder"],
+                                         params["final_logits_bias"])
+    t0 = time.perf_counter()
+    clip_bytes = safetensors_np.save_file(clip_sd, os.path.join(clip_dir, "model.safetensors"))
+    clip_s = time.perf_counter() - t0
+    mbart_bytes, mbart_s = _timed_fsync(lambda p: torch.save(mbart_sd, p),
+                                        os.path.join(mbart_dir, "pytorch_model.bin"))
+    del clip_sd, mbart_sd
+    t0 = time.perf_counter()
+    towers = load_pretrained_towers(clip_dir, mbart_dir, device=dev)
+    torch.cuda.synchronize()
+    towers_s = time.perf_counter() - t0
+    equal = same_leaves(towers, skip=("proj",))
+    print(f"HF towers: CLIP model.safetensors {clip_bytes} B written in {clip_s:.3f} s, mBART "
+          f"pytorch_model.bin {mbart_bytes} B in {mbart_s:.3f} s (fsync'd); "
+          f"load_pretrained_towers onto the card in {towers_s:.3f} s; every leaf but proj "
+          f"bit-equal={equal}", flush=True)
+    require(equal, "HF towers: a leaf read back differs")
+    require(towers["proj"]["kernel"].shape == params["proj"]["kernel"].shape,
+            "HF towers: proj of another shape")
+    shutil.rmtree(clip_dir)
+    shutil.rmtree(mbart_dir)
+    print(f"phase 57 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def _raises(exc, fn, *args) -> bool:
     """Whether ``fn(*args)`` raises ``exc`` (a refusal this run checks for)."""
     try:
@@ -4508,6 +5031,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as root:
         run_training_options(dev, root)
+    torch.cuda.empty_cache()
+    run_vit_bart_path(dev)
+    torch.cuda.empty_cache()
+    run_translator_path(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as root:
+        run_hf_format_path(dev, root)
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -4551,7 +5081,11 @@ def main() -> None:
               **{f"int8_matmul M={m} N={n}": int8_matmul_bound(m, 1024, n)
                  for m, n in ((4, 3072), (4, HEAD_V), (1024, HEAD_V))},
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D),
-              "fused_head_bucket_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_bucket_f32"]}
+              "fused_head_bucket_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_bucket_f32"],
+              # phases 55 and 56: BART-large's head, the translator's self plane
+              "fused_head_bucket N=256 V=50265": head_bound(256, HEAD_D, 50265, 9, 2, "bf16"),
+              "beam_permute (12, 256, 64, 16, 64)": bound(2 * 2 * 12 * TR_B * 4 * 64 * 16 * 64,
+                                                          0, "bf16")}
     others.update(flash_ce_contraction_bounds(n_ce))
     vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
     others.update({f"{name} vision": value for name, value in

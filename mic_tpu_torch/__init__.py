@@ -4,13 +4,15 @@ Package map (mic_tpu's, module for module):
   core/      config tree (a copy of mic_tpu's), dtype map, knobs, devices
   ops/       the CUDA kernels' wrappers (csrc/) beside their plain versions
   nn/        transformer building blocks + KV caches
-  models/    CLIP-ViT encoder, mBART decoder, the captioner
-  io/        torch.save checkpoints and model directories, from_jax
+  models/    ViT encoder (CLIP and ViT styles), mBART/BART decoder, the
+             captioner, the mBART text encoder and the mBART-50 translator
+  io/        torch.save checkpoints and model directories, from_jax, the HF
+             formats (flax msgpack, safetensors; import, export), the hub
   data/      TSV datasets, loader, tokenizers, image decoding
   generate/  logits processors + greedy/sample/beam search
   train/     loss, schedule, fused AdamW, shadow params, train state, trainer
   evals/     BLEU
-  cli/       train / evaluate / caption entry points
+  cli/       train / evaluate / caption / push entry points
 """
 
 __version__ = "0.1.0"
@@ -23,14 +25,12 @@ _API = {
     "VisionConfig": "mic_tpu_torch.core.config",
     "GenerationConfig": "mic_tpu_torch.core.config",
     "Captioner": "mic_tpu_torch.models.captioner",
-    "MBartSeq2Seq": None,  # not ported yet
+    "MBartSeq2Seq": "mic_tpu_torch.models.mbart_seq2seq",
 }
 
 
 def __getattr__(name):
     if name in _API:
-        if _API[name] is None:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP A8)")
         import importlib
 
         return getattr(importlib.import_module(_API[name]), name)

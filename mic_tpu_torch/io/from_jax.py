@@ -4,7 +4,10 @@ The JAX tree, given as nested dicts of numpy arrays (``jax.device_get`` of
 the params), becomes nested dicts of tensors with the same key paths,
 shapes, layouts and dtypes: dense kernels stay (d_in, d_out), stacked
 layers keep their leading L axis, the tied embedding stays (V, D).  No leaf
-is transposed or reshaped.
+is transposed or reshaped, and no key is assumed: any of mic_tpu's trees
+crosses whole (the captioner's, with an untied ``lm_head`` or a ViT tower's
+``patch_embed.bias``, and the translator's ``shared`` / ``encoder`` /
+``decoder`` / ``final_logits_bias``).
 """
 
 from __future__ import annotations

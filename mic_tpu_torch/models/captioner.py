@@ -1,4 +1,5 @@
-"""The captioner: CLIP-ViT encoder + mBART decoder with a tied LM head
+"""The captioner: a ViT encoder (CLIP's or ViT's tower style) + an mBART
+or BART decoder with a tied LM head, or an untied ``lm_head``
 (mic_tpu/models/captioner.py): the teacher-forced training forward
 (``encode``, ``decode_hidden``, ``__call__``, ``lm_logits``) and serving
 (``generate``): greedy, sampling and beam search.
@@ -9,8 +10,8 @@ Beam search decodes with the lazy beam cache (``MIC_TPU_LAZY_CACHE=0``: the
 physical cache, whose rows move on every reorder); greedy and sampling with
 the physical cache.  Candidates come from the fused LM head
 (ops/fused_head.py) when ``fused_head`` resolves on ("auto": on for CUDA
-tensors, off on the CPU, as mic_tpu is on and off the TPU; sampling never
-uses it), else from the dense logits of ``lm_logits``.  The head's select
+tensors, off on the CPU, as mic_tpu is on and off the TPU; sampling and an
+untied head never use it), else from the dense logits of ``lm_logits``.  The head's select
 "auto" is "bucket" on CUDA and "exact" on the CPU.  Int8 serving
 (``quantize="int8"``: int8 decoder and tied head, ops/quant.py;
 ``kv_quant="int8"``: an int8 lazy self-attention cache) resolves alike.
@@ -58,11 +59,10 @@ from mic_tpu_torch.ops.quant import int8_matmul, quantize_params_for_decode, qua
 
 def init_params(config: CaptionerConfig, generator: torch.Generator, device=None) -> Params:
     """Float32 params with mic_tpu's key paths, shapes and normal(0, std)
-    scheme (random streams differ from JAX's)."""
-    if not config.tie_word_embeddings:
-        raise NotImplementedError("only the tied LM head is ported")
+    scheme (random streams differ from JAX's); an untied head adds
+    ``lm_head`` (a (d_model, vocab) kernel, no bias)."""
     dec = config.decoder
-    return {
+    params = {
         "shared": init_embed(generator, dec.vocab_size, dec.d_model, dec.init_std, device),
         "vision": clip_vit.init_vision(generator, config.vision, device),
         "proj": init_dense(generator, config.vision.hidden_size, dec.d_model, dec.init_std,
@@ -70,6 +70,10 @@ def init_params(config: CaptionerConfig, generator: torch.Generator, device=None
         "decoder": mbart_decoder.init_decoder(generator, dec, device),
         "final_logits_bias": torch.zeros((dec.vocab_size,), device=device),
     }
+    if not config.tie_word_embeddings:
+        params["lm_head"] = init_dense(generator, dec.d_model, dec.vocab_size, dec.init_std,
+                                       use_bias=False, device=device)
+    return params
 
 
 class EncodeOutput(NamedTuple):
@@ -97,10 +101,6 @@ class CaptionerOutput(NamedTuple):
 
 class Captioner:
     def __init__(self, config: CaptionerConfig, attn_impl: str = "xla", remat=False):
-        if not config.tie_word_embeddings:
-            raise NotImplementedError("only the tied LM head is ported")
-        clip_vit.check_clip_style(config.vision)
-        mbart_decoder.check_pre_norm(config.decoder)
         self.config = config
         self.dtype = torch_dtype(config.dtype)
         # as in mic_tpu, any value but "pallas" is the XLA math
@@ -177,7 +177,11 @@ class Captioner:
     def lm_logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head: hidden @ embedding^T + final_logits_bias, all in the
         compute dtype.  An int8 table multiplies the row-quantized hidden
-        state int8 x int8, then acc * hs * scale in f32, cast, + bias."""
+        state int8 x int8, then acc * hs * scale in f32, cast, + bias.  An
+        untied head: hidden @ lm_head.kernel + final_logits_bias."""
+        if not self.config.tie_word_embeddings:
+            logits = hidden.to(self.dtype) @ params["lm_head"]["kernel"].to(self.dtype)
+            return logits + params["final_logits_bias"].to(self.dtype)
         shared = params["shared"]
         if "embedding_q" in shared:
             hq, hs = quantize_rows_dynamic(hidden)
@@ -289,7 +293,8 @@ class Captioner:
         fh = override("MIC_TPU_FUSED_HEAD", dcfg.fused_head)
         if fh == "auto":
             fh = "1" if on_cuda else "0"
-        fused_head = not gen.do_sample and fh == "1"
+        # the fused head runs on the tied table only
+        fused_head = not gen.do_sample and self.config.tie_word_embeddings and fh == "1"
 
         # weights in the compute dtype once, outside the decode loop (a
         # no-op on make_serving_params output), then the fused QKV view of
@@ -371,19 +376,33 @@ class Captioner:
         self.config.to_json(os.path.join(directory, "config.json"))
         checkpoint.save_params(directory, params)
 
-    @classmethod
-    def from_pretrained(cls, directory: str, device=None, **kw) -> tuple["Captioner", Params]:
-        """(model, params) from a local save_pretrained directory, the params
-        on ``device`` (default: the card); ``kw`` goes to the constructor.
-        mic_tpu's Orbax directories raise a ValueError (io/checkpoint.py);
-        hub ids and the reference's fused HF checkpoints are not ported."""
-        from mic_tpu_torch.io import checkpoint
+    def push_to_hub(self, directory: str, repo_id: str, **kw) -> str:
+        """Upload a save_pretrained (or exported) directory to the HF Hub
+        (io/hub.py; needs the network and credentials)."""
+        from mic_tpu_torch.io.hub import push_to_hub
 
-        if not os.path.isdir(directory) or os.path.exists(
-                os.path.join(directory, "flax_model.msgpack")):
-            raise NotImplementedError(f"{directory!r}: only a local save_pretrained directory "
-                                      "is read; hub ids and fused HF checkpoints are not "
-                                      "ported yet (ROADMAP A5c)")
+        return push_to_hub(directory, repo_id, **kw)
+
+    @classmethod
+    def from_pretrained(cls, directory: str, device=None, revision: Optional[str] = None,
+                        **kw) -> tuple["Captioner", Params]:
+        """(model, params), the params on ``device`` (default: the card);
+        ``kw`` goes to the constructor.  ``directory`` is a local directory
+        in the port's own format (config.json + params.pt) or the
+        reference's fused HF checkpoint (config.json with
+        clip_vision_config / mbart_config + flax_model.msgpack), told apart
+        by the msgpack file, or a hub repo id resolved to a cached snapshot
+        (io/hub.py).  mic_tpu's Orbax directories raise a ValueError
+        (io/checkpoint.py)."""
+        from mic_tpu_torch.io import checkpoint
+        from mic_tpu_torch.io.hf_import import FLAX_WEIGHTS, load_fused_checkpoint
+        from mic_tpu_torch.io.hub import resolve_model_dir
+
+        directory = resolve_model_dir(directory, revision=revision)
+        device = resolve_device(device)
+        if os.path.exists(os.path.join(directory, FLAX_WEIGHTS)):
+            config = CaptionerConfig.from_hf_json(os.path.join(directory, "config.json"))
+            return cls(config, **kw), load_fused_checkpoint(directory, device)
         config = CaptionerConfig.from_json(os.path.join(directory, "config.json"))
         model = cls(config, **kw)
-        return model, checkpoint.load_params(directory, resolve_device(device))
+        return model, checkpoint.load_params(directory, device)

@@ -1,8 +1,11 @@
-"""CLIP-style pre-LN vision transformer (mic_tpu/models/clip_vit.py).
+"""The pre-LN vision transformer (mic_tpu/models/clip_vit.py) in its two
+tower styles: CLIP's (a pre-LayerNorm on the embeddings; the output is the
+un-normalized last hidden state, CLS + patches) and ViT's
+(``use_pre_ln=False``, ``final_ln_output=True``, ``patch_bias=True``: a
+biased patch projection, no pre-LayerNorm, the whole output through
+post_ln).  The captioner projects the output into the decoder width.
 
-The stride-P patch convolution is a reshape and one matmul; the output is
-the un-normalized last hidden state (CLS + patches), which the captioner
-projects into the decoder width.  Only the CLIP tower style is ported.
+The stride-P patch convolution is a reshape and one matmul.
 """
 
 from __future__ import annotations
@@ -28,11 +31,6 @@ class VisionOutput(NamedTuple):
     attentions: Optional[torch.Tensor] = None
 
 
-def check_clip_style(cfg: VisionConfig) -> None:
-    if not cfg.use_pre_ln or cfg.final_ln_output or cfg.patch_bias:
-        raise NotImplementedError("only the CLIP tower style is ported")
-
-
 def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, N, patch*patch*C), flattened (row, col, channel)."""
     b, h, w, c = pixels.shape
@@ -42,7 +40,6 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def init_vision(generator: torch.Generator, cfg: VisionConfig, device=None) -> Params:
-    check_clip_style(cfg)
     hid = cfg.hidden_size
     patch_dim = cfg.patch_size * cfg.patch_size * 3
 
@@ -58,14 +55,19 @@ def init_vision(generator: torch.Generator, cfg: VisionConfig, device=None) -> P
             "fc2": init_dense(generator, cfg.intermediate_size, hid, device=device),
         }
 
-    return {
-        "patch_embed": {"kernel": normal(patch_dim, hid)},
+    patch = {"kernel": normal(patch_dim, hid)}
+    if cfg.patch_bias:
+        patch["bias"] = torch.zeros((hid,), device=device)
+    params = {
+        "patch_embed": patch,
         "class_embed": normal(hid),
         "pos_embed": {"embedding": normal(cfg.seq_len, hid)},
         "post_ln": init_layer_norm(hid, device),
-        "pre_ln": init_layer_norm(hid, device),
         "layers": init_stacked(cfg.num_layers, layer),
     }
+    if cfg.use_pre_ln:
+        params["pre_ln"] = init_layer_norm(hid, device)
+    return params
 
 
 def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
@@ -79,16 +81,18 @@ def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
     only dropout (CLIP has no hidden dropout); ``attn_impl`` as in
     ops/attention.py::dot_product_attention; ``remat`` as in
     nn/stacked.py::scan_apply."""
-    check_clip_style(cfg)
     if cfg.attention_dropout == 0.0:
         rng = None
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.layer_norm_eps
     x = patchify(pixels.to(dtype), cfg.patch_size) @ params["patch_embed"]["kernel"].to(dtype)
+    if "bias" in params["patch_embed"]:
+        x = x + params["patch_embed"]["bias"].to(dtype)
     cls = params["class_embed"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"]["embedding"].to(dtype)[None]
-    x = layer_norm(params["pre_ln"], x, eps)
+    if cfg.use_pre_ln:
+        x = layer_norm(params["pre_ln"], x, eps)
     embeddings = x
 
     def layer(h, p, lrng):
@@ -109,6 +113,8 @@ def apply_vision(params: Params, pixels: torch.Tensor, cfg: VisionConfig,
         return h, ys
 
     x, ys = scan_apply(layer, x, params["layers"], rng, remat)
+    if cfg.final_ln_output:  # the ViT style normalizes the whole output
+        x = layer_norm(params["post_ln"], x, eps)
     if not (output_hidden_states or output_attentions):
         return x
     return VisionOutput(

@@ -1,4 +1,4 @@
-"""mBART-style pre-norm decoder (mic_tpu/models/mbart_decoder.py): the
+"""The mBART-style decoder (mic_tpu/models/mbart_decoder.py): the
 teacher-forced full-sequence pass for training (``apply_decoder``) and
 cached single-token decoding (``decoder_step``) on the lazy beam cache
 (with mic_tpu's opt-in kernels of the beam step: the blocked lazy
@@ -7,9 +7,13 @@ cache, LN -> QKV and the fused MLP) or on the physical cache, whose
 self-attention runs the decode-attention kernel under
 MIC_TPU_EXPERIMENTAL=fused_decode.
 
-Token embeddings are the shared table scaled by sqrt(d_model) in the
-compute dtype; learned positions are offset by 2; every layer is
-self-attention -> cross-attention -> MLP with pre-norm and a final LN.
+Token embeddings are the shared table, scaled by sqrt(d_model) in the
+compute dtype where ``scale_embedding``; learned positions are offset by
+2; every layer is self-attention -> cross-attention -> MLP.  mBART's
+blocks are pre-norm with a final LN; BART's (``post_norm=True``,
+``use_final_ln=False``) normalize after each residual and have none.  A
+source mask (the translator's ``enc_mask``) masks the cross-attention's
+keys and keeps its kernels off, as in mic_tpu.
 """
 
 from __future__ import annotations
@@ -60,11 +64,6 @@ class DecoderTowerOutput(NamedTuple):
     cross_attentions: Optional[torch.Tensor] = None
 
 
-def check_pre_norm(cfg: DecoderConfig) -> None:
-    if cfg.post_norm:
-        raise NotImplementedError("only the pre-norm (mBART) decoder is ported")
-
-
 def fuse_qkv_params(decoder_params: Params) -> Params:
     """Decode-only view: each layer's self-attention q/k/v denses become one
     (L, D, 3D) "qkv" dense, so a step runs one projection GEMM per layer."""
@@ -80,7 +79,6 @@ def fuse_qkv_params(decoder_params: Params) -> Params:
 
 def init_decoder(generator: torch.Generator, cfg: DecoderConfig, device=None) -> Params:
     """Decoder params without the token embedding (the shared table)."""
-    check_pre_norm(cfg)
     std, dm = cfg.init_std, cfg.d_model
 
     def layer():
@@ -136,7 +134,6 @@ def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
     ``attn_impl`` (ops/attention.py::dot_product_attention) reaches the
     self-attention only: mic_tpu gives the cross-attention none.  ``remat``
     as in nn/stacked.py::scan_apply."""
-    check_pre_norm(cfg)
     b, t = input_ids.shape
     eps = cfg.layer_norm_eps
     act = ACTIVATIONS[cfg.activation]
@@ -148,34 +145,44 @@ def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
     x = dropout(x, cfg.dropout, rng)
 
     self_mask = _causal_mask(attention_mask)
-    cross_mask = None if enc_mask is None else enc_mask.bool()[:, None, None, :]
+    cross_mask = _cross_mask(enc_mask)
     enc_states = enc_states.to(dtype)
+    post = cfg.post_norm
     embeddings = x
 
     def layer(h, p, lrng):
         ys = {}
         r = h
-        h = layer_norm(p["ln_self"], h, eps)
+        if not post:
+            h = layer_norm(p["ln_self"], h, eps)
         h = mha(p["self_attn"], h, h, self_mask, cfg.num_heads, impl=attn_impl,
                 dropout_rate=cfg.attention_dropout, dropout_rng=lrng,
                 return_weights=output_attentions)
         if output_attentions:
             h, ys["attn"] = h
         h = r + dropout(h, cfg.dropout, lrng)
+        if post:
+            h = layer_norm(p["ln_self"], h, eps)
         r = h
-        h = layer_norm(p["ln_cross"], h, eps)
+        if not post:
+            h = layer_norm(p["ln_cross"], h, eps)
         h = mha(p["cross_attn"], h, enc_states, cross_mask, cfg.num_heads,
                 dropout_rate=cfg.attention_dropout, dropout_rng=lrng,
                 return_weights=output_attentions)
         if output_attentions:
             h, ys["cross_attn"] = h
         h = r + dropout(h, cfg.dropout, lrng)
+        if post:
+            h = layer_norm(p["ln_cross"], h, eps)
         r = h
-        h = layer_norm(p["ln_mlp"], h, eps)
+        if not post:
+            h = layer_norm(p["ln_mlp"], h, eps)
         h = act(dense(p["fc1"], h))
         h = dropout(h, cfg.activation_dropout, lrng)
         h = dense(p["fc2"], h)
         h = r + dropout(h, cfg.dropout, lrng)
+        if post:
+            h = layer_norm(p["ln_mlp"], h, eps)
         if output_hidden_states:
             ys["hidden"] = h
         return h, ys
@@ -193,6 +200,11 @@ def apply_decoder(params: Params, shared: Params, input_ids: torch.Tensor,
         attentions=ys["attn"] if output_attentions else None,
         cross_attentions=ys["cross_attn"] if output_attentions else None,
     )
+
+
+def _cross_mask(enc_mask):
+    """(B, S) source mask, 1 = real token -> (B, 1, 1, S) bool, or None."""
+    return None if enc_mask is None else enc_mask.bool()[:, None, None, :]
 
 
 def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfig,
@@ -219,32 +231,44 @@ def init_cross_cache(params: Params, enc_states: torch.Tensor, cfg: DecoderConfi
 
 def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor, cache,
                          cfg: DecoderConfig, dtype: torch.dtype, self_attention,
-                         cross_kernel: bool = False, mlp=None, enc_len: int | None = None):
+                         cross_kernel: bool = False, mlp=None, enc_len: int | None = None,
+                         enc_mask=None):
     """The decode step's layer stack around ``self_attention(p, x, layer)``,
-    which takes the layer's params and its PRE-norm input (it applies
+    which takes the layer's params and its input (a pre-norm step applies
     ln_self itself), returns the (N, 1, D) self-attention output and writes
     the step's K/V into column ``cache.index`` of the layer's self cache in
     place.  ``cross_kernel`` runs the cross-attention kernel; a merged cross
-    cache always runs its own, over its first ``enc_len`` rows; ``mlp(p, x)``,
-    where given, replaces fc1 -> act -> fc2."""
-    check_pre_norm(cfg)
+    cache runs its own, over its first ``enc_len`` rows; ``enc_mask`` (B, S)
+    masks the sources' padding and keeps both kernels off; ``mlp(p, x)``,
+    where given, replaces fc1 -> act -> fc2.  Post-norm (BART) normalizes
+    after each residual instead of before each block."""
     eps = cfg.layer_norm_eps
     act = ACTIVATIONS[cfg.activation]
+    post = cfg.post_norm
+    cross_mask = _cross_mask(enc_mask)
     pos = torch.full_like(token_ids, cache.index + cfg.pos_offset)
     x = embed_tokens(shared, token_ids, cfg, dtype) + embed(params["pos_embed"], pos, dtype)
     x = layer_norm(params["ln_embed"], x, eps)
     for layer in range(cfg.num_layers):
         p = layer_slice(params["layers"], layer)
         x = x + self_attention(p, x, layer)
+        if post:
+            x = layer_norm(p["ln_self"], x, eps)
         r = x
-        x = layer_norm(p["ln_cross"], x, eps)
+        if not post:
+            x = layer_norm(p["ln_cross"], x, eps)
         x = r + mha_cross_grouped(
             p["cross_attn"], x, cache.cross_k[layer], cache.cross_v[layer], cfg.num_heads,
-            kernel=cross_kernel, enc_len=enc_len,
+            kernel=cross_kernel, enc_len=enc_len, mask=cross_mask,
         )
+        if post:
+            x = layer_norm(p["ln_cross"], x, eps)
         r = x
-        x = layer_norm(p["ln_mlp"], x, eps)
+        if not post:
+            x = layer_norm(p["ln_mlp"], x, eps)
         x = r + (mlp(p, x) if mlp else dense(p["fc2"], act(dense(p["fc1"], x))))
+        if post:
+            x = layer_norm(p["ln_mlp"], x, eps)
     if cfg.use_final_ln:
         x = layer_norm(params["final_ln"], x, eps)
     return x, dataclasses.replace(cache, index=cache.index + token_ids.shape[1])
@@ -252,7 +276,7 @@ def _decoder_step_layers(params: Params, shared: Params, token_ids: torch.Tensor
 
 def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
                        cache: LazyDecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
-                       beams: int, enc_len: int | None = None):
+                       beams: int, enc_len: int | None = None, enc_mask=None):
     """mic_tpu's ``_decoder_step_lazy``: each layer's self K/V gain column
     ``cache.index`` in place and nothing is reordered.
 
@@ -267,20 +291,20 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
       - a merged cross cache (MIC_TPU_EXPERIMENTAL=merged_cross, resolved
         by the captioner): the merged cross-attention kernel over its first
         ``enc_len`` rows, whatever the next switch says;
-      - MIC_TPU_EXPERIMENTAL=fused_cross_attn with H*Dh a multiple of 128:
-        the cross-attention kernel.
+      - MIC_TPU_EXPERIMENTAL=fused_cross_attn with H*Dh a multiple of 128
+        and no source mask: the cross-attention kernel.
       - fused_mlp, on a float fc1 ("kernel") with a bias, N = images x beams
         a multiple of 8, d_model of 128 and ffn_dim of 512: the fused MLP
         kernel.
-      - ln_qkv: ln_self moves into the self-attention's qkv GEMM (where
-        ops/ln_gemm.py's guard passes).
+      - ln_qkv, pre-norm only: ln_self moves into the self-attention's qkv
+        GEMM (where ops/ln_gemm.py's guard passes).
     An int8 weight tree ("kernel_q") turns the last two off, as in mic_tpu."""
     index = cache.index
     mode = lazy_attention.resolve_mode(cache.ancestry.shape[-1])
     lazy_attention.check_mode(mode, cache.self_k[0], beams, cfg.num_heads, cfg.head_dim)
     amask = lazy_attention.build_ancestry_mask(cache.ancestry, index) if mode == "1" else None
-    ln_fused = experimental("ln_qkv", "0") == "1"
-    cross_kernel = (experimental("fused_cross_attn", "0") == "1"
+    ln_fused = experimental("ln_qkv", "0") == "1" and not cfg.post_norm
+    cross_kernel = (experimental("fused_cross_attn", "0") == "1" and enc_mask is None
                     and cross_attention.supports(cfg.num_heads, cfg.head_dim))
     fc1 = params["layers"]["fc1"]
     mlp = None
@@ -294,7 +318,7 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
                              cfg.activation).reshape(n, one, d)
 
     def attend(p, x, layer):
-        if not ln_fused:
+        if not (ln_fused or cfg.post_norm):
             x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
         return mha_decode_step_lazy(
             p["self_attn"], x, cache.self_k[layer], cache.self_v[layer], cache.ancestry, index,
@@ -303,23 +327,28 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
         )
 
     return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,
-                                cross_kernel=cross_kernel, mlp=mlp, enc_len=enc_len)
+                                cross_kernel=cross_kernel, mlp=mlp, enc_len=enc_len,
+                                enc_mask=enc_mask)
 
 
 def _decoder_step_physical(params: Params, shared: Params, token_ids: torch.Tensor,
-                           cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype):
+                           cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
+                           enc_mask=None):
     """The physical branch of mic_tpu's ``decoder_step``: mha_decode_step
     on each layer's (N, T, H, Dh) view of the stacked self cache."""
     def attend(p, x, layer):
-        x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
+        if not cfg.post_norm:
+            x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
         return mha_decode_step(p["self_attn"], x, cache.self_k[layer], cache.self_v[layer],
                                cache.index, cfg.num_heads)
 
-    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,
+                                enc_mask=enc_mask)
 
 
 def _decoder_step_fused(params: Params, shared: Params, token_ids: torch.Tensor,
-                        cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype):
+                        cache: DecoderCache, cfg: DecoderConfig, dtype: torch.dtype,
+                        enc_mask=None):
     """mic_tpu's ``_decoder_step_fused`` (MIC_TPU_EXPERIMENTAL=fused_decode):
     the self-attention of each layer is ops/decode_attention.py, which
     writes the step column of the stacked cache and attends over 0..index
@@ -328,28 +357,31 @@ def _decoder_step_fused(params: Params, shared: Params, token_ids: torch.Tensor,
 
     def attend(p, x, layer):
         sa = p["self_attn"]
-        x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
+        if not cfg.post_norm:
+            x = layer_norm(p["ln_self"], x, cfg.layer_norm_eps)
         q = split_heads(dense(sa["q"], x) * (head_dim**-0.5), cfg.num_heads)
         k_step, v_step = project_kv(sa, x, cfg.num_heads)
         out = decode_attention(q, k_step, v_step, cache.self_k, cache.self_v, layer,
                                cache.index)
         return dense(sa["o"], merge_heads(out.to(x.dtype)))
 
-    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend)
+    return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,
+                                enc_mask=enc_mask)
 
 
 def decoder_step(params: Params, shared: Params, token_ids: torch.Tensor, cache,
                  cfg: DecoderConfig, dtype: torch.dtype, beams: int = 1,
-                 enc_len: int | None = None):
+                 enc_len: int | None = None, enc_mask=None):
     """One cached decode step: token_ids (N, 1) -> (hidden (N, 1, D), cache
     with index + 1), N = images x beams.  Dispatches on the cache as mic_tpu
     does: the lazy cache, then MIC_TPU_EXPERIMENTAL=fused_decode, then the
-    physical step.  The cross K/V are per image and shared by its beams;
-    ``enc_len`` is the live length of a merged padded cross cache (the lazy
-    cache alone carries one)."""
+    physical step.  The cross K/V are per image (or source) and shared by
+    its beams; ``enc_len`` is the live length of a merged padded cross cache
+    (the lazy cache alone carries one); ``enc_mask`` (B, S), 1 = real token,
+    is the sources' padding mask (the translator's)."""
     if isinstance(cache, LazyDecoderCache):
         return _decoder_step_lazy(params, shared, token_ids, cache, cfg, dtype, beams,
-                                  enc_len)
+                                  enc_len, enc_mask)
     if experimental("fused_decode", "0") == "1":
-        return _decoder_step_fused(params, shared, token_ids, cache, cfg, dtype)
-    return _decoder_step_physical(params, shared, token_ids, cache, cfg, dtype)
+        return _decoder_step_fused(params, shared, token_ids, cache, cfg, dtype, enc_mask)
+    return _decoder_step_physical(params, shared, token_ids, cache, cfg, dtype, enc_mask)

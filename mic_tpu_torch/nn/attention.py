@@ -52,29 +52,38 @@ def mha(params: Params, x: torch.Tensor, kv_states: torch.Tensor, mask,
 
 def mha_cross_grouped(params: Params, x: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor, num_heads: int, kernel: bool = False,
-                      enc_len: int | None = None) -> torch.Tensor:
+                      enc_len: int | None = None, mask: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """Cached cross-attention with K/V held once per image: x (B*K, 1, D),
-    k/v (B, S, H, Dh); an image's K beams ride the query axis.  In
-    mic_tpu's order: the merged (B, S_pad, H*Dh) cache
-    (MIC_TPU_EXPERIMENTAL=merged_cross, zero rows past ``enc_len``) goes to
-    ops/cross_attention.py::fused_cross_attention_dma whatever ``kernel``
-    says; else ``kernel`` (MIC_TPU_EXPERIMENTAL=fused_cross_attn) takes
-    ops/cross_attention.py::fused_cross_attention."""
+    k/v (B, S, H, Dh); an image's K beams ride the query axis.  ``mask``
+    (B, 1, 1, S), True = attend, is the source's key-padding mask, shared
+    by its beams.  In mic_tpu's order, with no mask: the merged (B, S_pad,
+    H*Dh) cache (MIC_TPU_EXPERIMENTAL=merged_cross, zero rows past
+    ``enc_len``) goes to ops/cross_attention.py::fused_cross_attention_dma
+    whatever ``kernel`` says; else ``kernel``
+    (MIC_TPU_EXPERIMENTAL=fused_cross_attn) takes
+    ops/cross_attention.py::fused_cross_attention.  A mask keeps both
+    kernels off: the scores are masked to finfo(float32).min."""
     bk, one, d = x.shape
     head_dim = d // num_heads
     b = k.shape[0]
     q = dense(params["q"], x) * (head_dim**-0.5)
-    if k.ndim == 3:
+    if k.ndim == 3 and mask is None:
         out = fused_cross_attention_dma(q.reshape(b, (bk // b) * one, d), k, v,
                                         enc_len if enc_len is not None else k.shape[1],
                                         (bk // b) * one, num_heads)
         return dense(params["o"], out.reshape(bk, one, d))
-    if kernel:
+    if kernel and mask is None:
         out = fused_cross_attention(q.reshape(b, (bk // b) * one, d), k, v, (bk // b) * one,
                                     num_heads)
         return dense(params["o"], out.reshape(bk, one, d))
+    if k.ndim == 3:  # a merged cache under a mask
+        k = k.reshape(b, -1, num_heads, head_dim)
+        v = v.reshape(b, -1, num_heads, head_dim)
     q = q.reshape(b, (bk // b) * one, num_heads, head_dim)
     scores = torch.einsum("bkhd,bshd->bhks", q.float(), k.float())
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
     weights = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhks,bshd->bkhd", weights, v.to(x.dtype))
     return dense(params["o"], out.reshape(bk, one, d))

@@ -14,7 +14,8 @@ run is bit-equal to an uninterrupted one.  ``fused_adamw=False`` runs
 mic_tpu's optax chain (train/adamw_chain.py), ``remat="dots"`` saves the
 layers' matrix products (nn/stacked.py), and ``profile_steps`` traces a
 range of steps with torch.profiler into ``<output_dir>/profile``.  Not
-ported yet, and raising: the mesh options (dp > 1, tp > 1, fsdp).
+ported yet, and raising: the mesh options (dp > 1, tp > 1, fsdp), and
+training the families that only serve so far (``check_trainable``).
 """
 
 from __future__ import annotations
@@ -94,6 +95,24 @@ class StepProfiler:
             os.path.join(self.out_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+def check_trainable(config: CaptionerConfig) -> None:
+    """Refuse what the port serves but does not train yet (ROADMAP A8b):
+    the ViT tower style, the post-norm decoder and the untied LM head.
+    Their training is held against nothing, and with ``fused_ce`` on an
+    untied model's loss would come from the shared table, never from the
+    ``lm_head`` that serves."""
+    vision, decoder = config.vision, config.decoder
+    if not vision.use_pre_ln or vision.final_ln_output or vision.patch_bias:
+        raise NotImplementedError("training the ViT tower style is not ported yet "
+                                  "(ROADMAP A8b); it serves")
+    if decoder.post_norm:
+        raise NotImplementedError("training the post-norm decoder is not ported yet "
+                                  "(ROADMAP A8b); it serves")
+    if not config.tie_word_embeddings:
+        raise NotImplementedError("training an untied LM head is not ported yet "
+                                  "(ROADMAP A8b); it serves")
+
+
 class Trainer:
     def __init__(self, model_config: CaptionerConfig, data_config: DataConfig,
                  train_config: TrainConfig, tokenizer: Optional[TokenizerBase] = None,
@@ -101,6 +120,7 @@ class Trainer:
         tc = train_config
         if tc.dp not in (-1, 1) or tc.tp != 1 or tc.fsdp:
             raise NotImplementedError("dp > 1, tp > 1 and fsdp are not ported yet (ROADMAP A7)")
+        check_trainable(model_config)
         self.profile_range = profile_range(tc.profile_steps)
         # tc.prng_impl picks the TPU's hardware RNG in mic_tpu; dropout here
         # always draws from torch's Philox generator, so it is ignored.

@@ -153,19 +153,54 @@ def test_clis_and_from_pretrained_default_to_the_card(cli_env, monkeypatch):
         evaluate.main(["--model_dir", cli_env["dirs"]["port"], "--tsv_path", cli_env["tsv"]])
 
 
-def test_from_pretrained_refuses_what_is_not_ported(cli_env, tmp_path):
-    """A hub id, and a directory holding the reference's fused HF
-    checkpoint, raise NotImplementedError naming ROADMAP A5c."""
-    with pytest.raises(NotImplementedError, match="A5c"):
-        Captioner.from_pretrained("someone/some-captioner", device="cpu")
-    (tmp_path / "flax_model.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A5c"):
-        Captioner.from_pretrained(str(tmp_path), device="cpu")
+def test_from_pretrained_refuses_what_is_not_ported(cli_env, tmp_path, monkeypatch):
+    """What was refused before the HF formats were ported now loads: a
+    directory holding the reference's fused HF checkpoint (mic_tpu's
+    export_hf_fused of the fixture's tree) gives mic_tpu's params bit-equal,
+    and a hub id resolves through huggingface_hub's snapshot_download
+    (stubbed: no network) to the same.  What stays refused: a hub id that
+    cannot be resolved raises mic_tpu's actionable FileNotFoundError, and a
+    directory with an empty msgpack file a ValueError."""
+    import types
+
+    from mic_tpu.io.hf_export import export_hf_fused
+
+    hf_dir = str(tmp_path / "hf")
+    jmodel, jparams = JaxCaptioner.from_pretrained(cli_env["dirs"]["jax"])
+    export_hf_fused(jparams, jmodel.config, hf_dir)
+    model, params = Captioner.from_pretrained(hf_dir, device="cpu")
+    assert model.config.decoder.vocab_size == jmodel.config.decoder.vocab_size
+    for (path, got), ref in zip(tree_leaves(params), jax.tree.leaves(cli_env["tree"])):
+        assert np.array_equal(got.numpy(), ref), path
+
+    calls = []
+
+    def snapshot_download(repo_id, revision=None, cache_dir=None, allow_patterns=None):
+        calls.append((repo_id, revision))
+        if repo_id != "someone/some-captioner":
+            raise ConnectionError("offline")
+        return hf_dir
+
+    monkeypatch.setitem(sys.modules, "huggingface_hub",
+                        types.SimpleNamespace(snapshot_download=snapshot_download))
+    _, hub_params = Captioner.from_pretrained("someone/some-captioner", device="cpu",
+                                              revision="main")
+    assert calls == [("someone/some-captioner", "main")]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(hub_params),
+                                                           tree_leaves(params)))
+    with pytest.raises(FileNotFoundError, match="offline"):
+        Captioner.from_pretrained("someone/not-there", device="cpu")
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    (empty / "flax_model.msgpack").write_bytes(b"")
+    (empty / "config.json").write_text("{}")
+    with pytest.raises(ValueError):
+        Captioner.from_pretrained(str(empty), device="cpu")
 
 
 def test_lazy_top_level_api():
-    """mic_tpu_torch's _API names resolve to the port's classes, MBartSeq2Seq
-    raises (ROADMAP A8), an unknown name is an AttributeError, and
+    """mic_tpu_torch's _API names resolve to the port's classes (MBartSeq2Seq
+    to the translator), an unknown name is an AttributeError, and
     ``import mic_tpu_torch`` imports no torch."""
     import mic_tpu_torch
     from mic_tpu_torch.core import config
@@ -175,8 +210,9 @@ def test_lazy_top_level_api():
     assert mic_tpu_torch.Captioner is Captioner
     assert set(mic_tpu_torch._API) <= set(dir(mic_tpu_torch))
     assert mic_tpu_torch.__version__
-    with pytest.raises(NotImplementedError, match="A8"):
-        mic_tpu_torch.MBartSeq2Seq
+    from mic_tpu_torch.models.mbart_seq2seq import MBartSeq2Seq
+
+    assert mic_tpu_torch.MBartSeq2Seq is MBartSeq2Seq
     with pytest.raises(AttributeError):
         mic_tpu_torch.NoSuchThing
     code = ("import sys, mic_tpu_torch\n"
