@@ -200,15 +200,20 @@ Phases, each of which raises on failure (none catches its own):
      B=256 in bf16 (rows 1, 4) and int8 weights and KV (rows 2, 6), each
      search ending where the model ends its captions, and bf16 with
      min_length 64 (all 63 steps);
- 51. the float32 instances of rows 1, 4, 7 and 8 (a float32 model's
-     kernels: csrc/lazy_attention.cu's float instance, csrc/fused_head_f32.cu,
+ 51. the float32 instances of rows 1, 4, 5, 7 and 8 (a float32 model's
+     kernels: csrc/lazy_attention.cu's float instance, csrc/fused_head_f32.cu
+     (row 4: the 3xTF32 tile and the stream, on each side of the route
+     crossover), csrc/fused_head.cu's float32 exact and window selects,
      csrc/flash_ce_f32.cu) against their plain versions, TF32 off, at the
-     flagship shapes and at ragged ones, and their times (CUDA-graph
-     replays) beside their plain versions' and cuBLAS's bare f32 h @ W^T;
+     flagship shapes and at ragged ones, each head kernel's second launch
+     bit-equal, and their times (CUDA-graph replays) beside their plain
+     versions' and cuBLAS's bare f32 h @ W^T;
  52. the default float32 flagship (CaptionerConfig.clip_vit_b32_mbart50()
      at its own dtype) serving: beam 4 of B=256, length 64, EOS pinned at
-     63, through rows 1 and 4 in f32 (launch counts), and at B=2 equal to
-     the same generate on the plain versions on the card;
+     63, through rows 1 and 4 in f32 (launch counts), then under the exact
+     and the window selects through rows 1 and 5 in f32, and under each
+     select at B=2 equal to the same generate on the plain versions on the
+     card;
  53. that model training: the Trainer at the TrainConfig defaults, three
      steps through rows 7 and 8 in f32 (launch counts), the losses beside
      the plain "dl" route's on the card;
@@ -265,8 +270,10 @@ FLAGSHIP_BOS = 250004  # mBART-50's en_XX language code
 
 # One H100 SXM, NVIDIA's data sheet: HBM3 bytes/s, and dense peaks without
 # sparsity (f32 outside the tensor cores, for the attention kernels' FMAs).
+# "tf32x3": float32-accurate products on the tensor cores, three TF32
+# products a term (csrc/tf32x3_wgmma.cuh) at 495 TFLOP/s, 495e12 / 3.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -350,22 +357,25 @@ def flash_ce_bounds(n, d=1024, v=250054):
 
 
 def f32_bounds(n_beam, n_head, n_ce, d=1024, v=250054):
-    """The float32 instances of rows 1, 4, 7 and 8 at the main path's shapes:
-    row 1 as ``attention_bound`` with f32 caches, q, step rows and output
-    (twice the bf16 bytes); the head and the CE walks one 2 N D V f32
-    product each at the f32 FMA rate, reading the (V, D) f32 table, the
-    bias and the hidden rows once (the head also writing k candidates and
-    lse; the forward 4 values a row; dl also reading labels, lse and
-    rowscale and writing the f32 (N, V) dl and dbias)."""
+    """The float32 instances of rows 1, 4, 5, 7 and 8 at the main path's
+    shapes: row 1 as ``attention_bound`` with f32 caches, q, step rows and
+    output (twice the bf16 bytes); the heads (the bucket and the exact and
+    window selects: the same bound) and the CE walks one 2 N D V product
+    each at the rate of float32-accurate products on the tensor cores
+    ("tf32x3"), reading the (V, D) f32 table, the bias and the hidden rows
+    once (the heads also writing k candidates and lse; the forward 4 values
+    a row; dl also reading labels, lse and rowscale and writing the f32
+    (N, V) dl and dbias)."""
     table = v * d * 4 + v * 4
+    head = bound(table + n_head * d * 4 + n_head * (8 * 9 + 4), 2 * n_head * d * v, "tf32x3")
     return {
         "lazy_attention_f32": attention_bound(n_beam, 63, d, 4, ancestry=True, io_bytes=4),
-        "fused_head_bucket_f32": bound(table + n_head * d * 4 + n_head * (8 * 9 + 4),
-                                       2 * n_head * d * v, "f32"),
+        "fused_head_bucket_f32": head,
+        "fused_head_select_f32": head,
         "flash_ce_forward_f32": bound(table + n_ce * d * 4 + n_ce * 4 * 4, 2 * n_ce * d * v,
-                                      "f32"),
+                                      "tf32x3"),
         "flash_ce_backward_dl_f32": bound(table + n_ce * d * 4 + n_ce * 4 * 3 + n_ce * v * 4
-                                          + v * 4, 2 * n_ce * d * v, "f32"),
+                                          + v * 4, 2 * n_ce * d * v, "tf32x3"),
     }
 
 
@@ -4002,12 +4012,13 @@ def _f32_table(dev, v, d, seed):
 
 
 def _f32_head_case(got, ref, logits, what):
-    """The float32 bucket head against its plain version: lse within 1e-5
+    """A float32 head kernel against its plain version: lse within 1e-5
     relative; ids equal but at near-ties (two plain logits within 2e-4);
-    every lp within 2e-4.  Both sum D f32 products in other orders (the
-    kernel in k order, cuBLAS in its own): about 2^-24 sqrt(D) sum |h| |w|,
-    3e-5 at the flagship's unit hidden rows and 0.02 table, with room for
-    the tail."""
+    every lp within 2e-4.  Both sum D products to float32 accuracy in other
+    orders (the kernels three TF32 products a term on the tensor cores or
+    f32 FMAs in the stream, cuBLAS f32 in its own): about 2^-24 sqrt(D) sum
+    |h| |w|, 3e-5 at the flagship's unit hidden rows and 0.02 table, with
+    room for the tail."""
     (lp, ids, lse), (rlp, rids, rlse) = got, ref
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
     differ = ids != rids
@@ -4018,21 +4029,26 @@ def _f32_head_case(got, ref, logits, what):
 
 
 def check_f32_kernels(dev):
-    """Phase 51: the float32 instances of rows 1, 4, 7 and 8 against their
-    plain versions on the card, TF32 off (main() turns it off for matmuls
-    and cuDNN): row 1 at the flagship decode shape (B=256 K=4 T=64 H=16,
-    index 0, 1, 17, 63) and a ragged one (B=3 K=3 T=37 H=2, index 36),
-    outputs within 1e-5 (f32 sums in another order), the written cache
-    bit-equal, columns past index zero; row 4 (the bucket select) at N in
-    {1024, 4} D=1024 V=250054 k in {9, 1}, at N=65 D=100 V=997 (a depth
-    off the 8-deep slice, a ragged vocab) and under bucket_bv 96 and 200
-    (``_f32_head_case``); rows 7 and 8 at N=4096 D=1024 V=250054 and at
+    """Phase 51: the float32 instances of rows 1, 4, 5, 7 and 8 against
+    their plain versions on the card, TF32 off (main() turns it off for
+    matmuls and cuDNN): row 1 at the flagship decode shape (B=256 K=4 T=64
+    H=16, index 0, 1, 17, 63) and a ragged one (B=3 K=3 T=37 H=2, index
+    36), outputs within 1e-5 (f32 sums in another order), the written cache
+    bit-equal, columns past index zero; row 4 (the bucket select, on the
+    route its N takes and, where that is the stream, on the tile too) and
+    row 5 (the exact and window selects) at N in {1024, 4} D=1024 V=250054
+    k in {9, 1}, at N=1, at N at and either side of the routes' crossover
+    (``STREAM_ROWS``), at N=65 and 5 D=100 V=997 (a depth off the 32-deep
+    slice, a ragged vocab) and row 4 under bucket_bv 96 and 200
+    (``_f32_head_case``; each call made twice, the second bit-equal, the
+    launches counted); rows 7 and 8 at N=4096 D=1024 V=250054 and at
     N=129 D=100 V=997: lse and the label logit within 1e-5 relative, the
     sum of logits within 1e-5 of the row's sum of |logits|, dl within 1e-4
     of |dl| + 2 target rowscale (one relative error of p from the logits'
     summation order), rows with rowscale 0 zero, nothing written past dl,
     dbias within 1e-5 of its largest entry.  Then each kernel's time in
-    CUDA-graph replays beside its plain version's, and cuBLAS's bare f32
+    CUDA-graph replays beside its plain version's (the heads at N=1024 and
+    4, each bucket route at N=1 and at the crossover's N), and cuBLAS's bare f32
     h @ W^T (TF32 off) for scale -> (errors, times)."""
     from mic_tpu_torch.ops.flash_ce import (
         _dl_gemms, _targets, flash_ce_dl, flash_ce_dl_plain, flash_ce_forward,
@@ -4072,34 +4088,80 @@ def check_f32_kernels(dev):
                                    graph_ms(lambda: lazy_attention_plain(*args)), None)
     del q, ck, cv, ks, vs, anc, args
 
-    worst = 0.0
+    from mic_tpu_torch.ops.fused_head import (
+        STREAM_ROWS, _bucket_f32, bucket_f32_route, fused_head_select,
+    )
+
     weight, bias = _f32_table(dev, HEAD_V, HEAD_D, 52)
     small = _f32_table(dev, 997, 100, 53)
-    for n, d, v, k, bv in ((1024, HEAD_D, HEAD_V, 9, None), (1024, HEAD_D, HEAD_V, 1, None),
-                           (4, HEAD_D, HEAD_V, 9, None), (65, 100, 997, 9, None),
-                           (65, 100, 997, 9, 96), (70, 100, 997, 16, 200)):
+    worst = {"fused_head_bucket_f32": 0.0, "fused_head_select_f32": 0.0}
+    # the flagship shapes, N at and either side of the bucket routes'
+    # crossover, a depth off the 32-deep slice with a ragged vocab, other
+    # bucket widths
+    cross = (STREAM_ROWS - 1, STREAM_ROWS, STREAM_ROWS + 1)
+    for n, d, v, k, bv in dict.fromkeys((
+            (1024, HEAD_D, HEAD_V, 9, None), (1024, HEAD_D, HEAD_V, 1, None),
+            (4, HEAD_D, HEAD_V, 9, None), (1, HEAD_D, HEAD_V, 9, None),
+            *((c, HEAD_D, HEAD_V, 9, None) for c in cross),
+            (65, 100, 997, 9, None), (65, 100, 997, 9, 96), (70, 100, 997, 16, 200),
+            (5, 100, 997, 7, None))):
         tw, tb = (weight, bias) if v == HEAD_V else small
         hidden = _hidden(dev, n, d, 520 + n + k).float()
-        with knobs(**({"MIC_TPU_EXPERIMENTAL": f"bucket_bv={bv}"} if bv else {})):
-            got = fused_head_topk(hidden, tw, tb, k)
-            ref = fused_head_topk_plain(hidden, tw, tb, k, "bucket")
-        torch.cuda.synchronize()
-        what = f"fused_head f32 N={n} D={d} V={v} k={k} bucket_bv={bv or 512}"
-        err, ties = _f32_head_case(got, ref, _logits(hidden, tw, tb), what)
-        worst = max(worst, err)
-        print(f"{what}: lp max_abs_err={err:.3g}, near-tie id differences={ties}", flush=True)
-    errs["fused_head_bucket_f32"] = worst
-    for n in (1024, 4):
+        logits = _logits(hidden, tw, tb)
+        route = bucket_f32_route(n, d)
+        # (select, label, call, counter): the wrappers as the path calls
+        # them, and the tile where N takes the stream
+        runs = [("bucket", "", lambda: fused_head_topk(hidden, tw, tb, k), fused_head_topk)]
+        if route:
+            runs.append(("bucket", " on the tile", lambda: _bucket_f32(hidden, tw, tb, k, 0),
+                         None))
+        for sel in ("exact", "window"):
+            if bv is None and (sel == "exact" or k <= -(-v // 128)):
+                runs.append((sel, "", lambda sel=sel: fused_head_topk(hidden, tw, tb, k, sel),
+                             fused_head_select))
+        for select, label, call, counter in runs:
+            name = "fused_head_bucket_f32" if select == "bucket" else "fused_head_select_f32"
+            what = f"{name} {select} N={n} D={d} V={v} k={k} bucket_bv={bv or 512}{label}"
+            with knobs(**({"MIC_TPU_EXPERIMENTAL": f"bucket_bv={bv}"} if bv else {})):
+                before = counter.launches if counter else 0
+                got, again = call(), call()
+                counted = counter.launches - before if counter else 2
+                ref = fused_head_topk_plain(hidden, tw, tb, k, select)
+            torch.cuda.synchronize()
+            require(counted == 2, f"{what}: {counted} launches counted for two calls")
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{what}: a second launch is not bit-equal")
+            err, ties = _f32_head_case(got, ref, logits, what)
+            worst[name] = max(worst[name], err)
+            print(f"{what}: lp max_abs_err={err:.3g}, near-tie id differences={ties}, second "
+                  f"launch bit-equal", flush=True)
+        del logits
+    errs.update(worst)
+    for n in dict.fromkeys((1024, 4, 1, *cross)):
         hidden = _hidden(dev, n, HEAD_D, 530 + n).float()
-        times["fused_head_bucket_f32", n] = (
-            graph_ms(lambda: fused_head_topk(hidden, weight, bias, 9), reps=3, runs=5),
-            graph_ms(lambda: fused_head_topk_plain(hidden, weight, bias, 9, "bucket"), reps=3,
-                     runs=5), None)
+        kernel = graph_ms(lambda: fused_head_topk(hidden, weight, bias, 9), reps=3, runs=5)
+        times["fused_head_bucket_f32 at", n] = kernel
+        if n in (1024, 4):
+            times["fused_head_bucket_f32", n] = (kernel, graph_ms(
+                lambda: fused_head_topk_plain(hidden, weight, bias, 9, "bucket"), reps=2,
+                runs=3), None)
+            for sel in ("exact", "window"):
+                times["fused_head_select_f32", sel, n] = (
+                    graph_ms(lambda: fused_head_topk(hidden, weight, bias, 9, sel), reps=3,
+                             runs=5),
+                    graph_ms(lambda: fused_head_topk_plain(hidden, weight, bias, 9, sel),
+                             reps=2, runs=3), None)
+        # the tile where N takes the stream, for the crossover
+        if bucket_f32_route(n, HEAD_D):
+            times["fused_head_bucket_f32 tile", n] = graph_ms(
+                lambda: _bucket_f32(hidden, weight, bias, 9, 0), reps=3, runs=5)
     times["fused_head_bucket_f32"] = times["fused_head_bucket_f32", 1024]
+    times["fused_head_select_f32"] = times["fused_head_select_f32", "exact", 1024]
     del weight, bias
     torch.cuda.empty_cache()
 
     weight, bias = _f32_table(dev, CE_V, CE_D, 54)
+    small = _f32_table(dev, 997, 100, 53)
     worst_fwd, worst_dl = 0.0, 0.0
     for n, d, v in ((4096, CE_D, CE_V), (129, 100, 997)):
         tw, tb = (weight, bias) if v == CE_V else small
@@ -4165,15 +4227,28 @@ def check_f32_kernels(dev):
     del dl
     torch.cuda.empty_cache()
     bounds = f32_bounds(FLAG_B * FLAG_K, 1024, n)
-    for name in ("lazy_attention_f32", "fused_head_bucket_f32", "flash_ce_forward_f32",
-                 "flash_ce_backward_dl_f32"):
+    for name in ("lazy_attention_f32", "fused_head_bucket_f32", "fused_head_select_f32",
+                 "flash_ce_forward_f32", "flash_ce_backward_dl_f32"):
         k_ms, p_ms, _ = times[name]
         b_ms, by = bounds[name]
         print(f"{name} time (graph replays): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
               f"{b_ms:.4f} ms ({by}), the kernel at {b_ms / k_ms:.1%} of it", flush=True)
-    k_ms, p_ms, _ = times["fused_head_bucket_f32", 4]
-    print(f"fused_head_bucket_f32 at N=4: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (graph "
-          f"replays)", flush=True)
+    for key in (("fused_head_bucket_f32", 4), ("fused_head_select_f32", "exact", 4),
+                ("fused_head_select_f32", "window", 1024), ("fused_head_select_f32", "window", 4)):
+        k_ms, p_ms, _ = times[key]
+        b_ms, by = f32_bounds(FLAG_B * FLAG_K, key[-1], n)[key[0]]
+        print(f"{' '.join(map(str, key[:-1]))} at N={key[-1]} (graph replays): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), the kernel at "
+              f"{b_ms / k_ms:.1%} of it", flush=True)
+    for m in dict.fromkeys((1, 4, *cross)):
+        taken = times["fused_head_bucket_f32 at", m]
+        if bucket_f32_route(m, HEAD_D):
+            print(f"fused_head_bucket_f32 routes at N={m} (graph replays): the stream, the route "
+                  f"taken, {taken:.4f} ms; the tile {times['fused_head_bucket_f32 tile', m]:.4f} "
+                  f"ms", flush=True)
+        else:
+            print(f"fused_head_bucket_f32 routes at N={m} (graph replays): the tile, the route "
+                  f"taken, {taken:.4f} ms", flush=True)
     print(f"for scale only (not the same function): cuBLAS f32 torch.mm(h, W.T), TF32 off, at "
           f"N={n}: {product:.4f} ms, {bounds['flash_ce_forward_f32'][0] / product:.1%} of the "
           f"2 N D V f32 bound; the f32 dl route's dh and demb products (torch.mm, TF32 off) "
@@ -4202,12 +4277,15 @@ def run_f32_generate(dev):
     CaptionerConfig.clip_vit_b32_mbart50() at its own dtype (float32),
     random weights from phase 5's seed, serving params in float32: a beam-4
     generate of B=256 images, length 64, every caption's EOS pinned at
-    position 63 (all 63 steps), the counters set to 0 just before it and
-    read just after: row 1 (f32) 12 times a step, row 4 (f32 bucket) at
-    least once a step, no other serving kernel.  Then at B=2 the same
-    generate with rows 1 and 4 swapped for their plain versions on the card
-    (TF32 off): sequences equal, scores within 1e-4 (f32 sums in another
-    order) -> launches."""
+    position 63 (all 63 steps), under each select (the bucket, the card's
+    default, then MIC_TPU_FUSED_SELECT=exact and =window), the counters set
+    to 0 just before it and read just after: row 1 (f32) 12 times a step,
+    the select's head kernel (row 4 f32 for the bucket, row 5 f32 for
+    exact and window) at least once a step, no other serving kernel.  Then
+    under each select at B=2 the same generate with rows 1 and 4/5 swapped
+    for their plain versions on the card (TF32 off): sequences equal,
+    scores within 1e-4 (f32 sums in another order) -> launches (the bucket
+    run's rows 1 and 4, the exact run's row 5)."""
     import mic_tpu_torch.models.captioner as captioner_mod
     import mic_tpu_torch.nn.attention as attention_mod
     from mic_tpu_torch.core.config import CaptionerConfig
@@ -4226,33 +4304,42 @@ def run_f32_generate(dev):
     u8 = np.random.default_rng(52).integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
     px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, torch.float32)
     eos = torch.full((256,), 63, device=dev)
-    model.generate(params, px[:4], eos_positions=eos[:4], **kw)  # warm-up
-    out, counts, seconds = generate_counted(
-        lambda x: model.generate(params, x, eos_positions=eos, **kw), px)
-    seqs = check_path_output(out, 256, 64, "float32 flagship")
-    check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id, config.decoder.pad_token_id,
-                 "float32 flagship")
-    launches = {"lazy_attention_f32": counts.pop("lazy_attention"),
-                "fused_head_bucket_f32": counts.pop("fused_head")}
-    print(f"float32 flagship (CaptionerConfig.clip_vit_b32_mbart50(), dtype float32): B=256 "
-          f"beam 4 length 64, {out.steps} steps in {seconds:.3f} s = {256 / seconds:.1f} "
-          f"captions/s (smoke figure, not a benchmark), launches {launches}", flush=True)
-    require(launches["lazy_attention_f32"] == config.decoder.num_layers * out.steps,
-            "float32: row 1 launches != layers x decode steps")
-    require(launches["fused_head_bucket_f32"] >= out.steps, "float32: row 4 under once a step")
-    require(not any(counts.values()), f"float32: other serving kernels launched: {counts}")
-    small = (px[:2], eos[:2])
-    got = model.generate(params, small[0], eos_positions=small[1], **kw)
-    with plain_versions((attention_mod, "lazy_attention", lazy_attention_plain),
-                        (captioner_mod, "fused_head_topk", fused_head_topk_plain)):
-        ref = model.generate(params, small[0], eos_positions=small[1], **kw)
-    torch.cuda.synchronize()
-    score_err = (got.scores - ref.scores).abs().max().item()
-    same = torch.equal(got.sequences, ref.sequences)
-    print(f"float32 flagship at B=2, kernels vs plain versions on the card: sequences equal="
-          f"{same}, max score difference={score_err:.3g}", flush=True)
-    require(same, "float32: the kernels' sequences differ from the plain versions'")
-    require(score_err < 1e-4, "float32: the kernels' scores differ from the plain versions'")
+    launches = {}
+    for select, head, row in (("bucket", "fused_head", "fused_head_bucket_f32"),
+                              ("exact", "fused_head_select", "fused_head_select_f32"),
+                              ("window", "fused_head_select", "fused_head_select_f32")):
+        with knobs(MIC_TPU_FUSED_SELECT=select):
+            model.generate(params, px[:4], eos_positions=eos[:4], **kw)  # warm-up
+            out, counts, seconds = generate_counted(
+                lambda x: model.generate(params, x, eos_positions=eos, **kw), px)
+            seqs = check_path_output(out, 256, 64, f"float32 flagship, {select}")
+            check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id,
+                         config.decoder.pad_token_id, f"float32 flagship, {select}")
+            found = {"lazy_attention_f32": counts.pop("lazy_attention"), row: counts.pop(head)}
+            print(f"float32 flagship (CaptionerConfig.clip_vit_b32_mbart50(), dtype float32), "
+                  f"select {select}: B=256 beam 4 length 64, {out.steps} steps in "
+                  f"{seconds:.3f} s = {256 / seconds:.1f} captions/s (smoke figure, not a "
+                  f"benchmark), launches {found}", flush=True)
+            require(found["lazy_attention_f32"] == config.decoder.num_layers * out.steps,
+                    f"float32 {select}: row 1 launches != layers x decode steps")
+            require(found[row] >= out.steps, f"float32 {select}: {row} under once a step")
+            require(not any(counts.values()),
+                    f"float32 {select}: other serving kernels launched: {counts}")
+            if select != "window":
+                launches.update(found)
+            small = (px[:2], eos[:2])
+            got = model.generate(params, small[0], eos_positions=small[1], **kw)
+            with plain_versions((attention_mod, "lazy_attention", lazy_attention_plain),
+                                (captioner_mod, "fused_head_topk", fused_head_topk_plain)):
+                ref = model.generate(params, small[0], eos_positions=small[1], **kw)
+        torch.cuda.synchronize()
+        score_err = (got.scores - ref.scores).abs().max().item()
+        same = torch.equal(got.sequences, ref.sequences)
+        print(f"float32 flagship at B=2, select {select}, kernels vs plain versions on the "
+              f"card: sequences equal={same}, max score difference={score_err:.3g}", flush=True)
+        require(same, f"float32 {select}: the kernels' sequences differ from the plain versions'")
+        require(score_err < 1e-4,
+                f"float32 {select}: the kernels' scores differ from the plain versions'")
     return launches
 
 
@@ -5082,6 +5169,7 @@ def main() -> None:
                  for m, n in ((4, 3072), (4, HEAD_V), (1024, HEAD_V))},
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D),
               "fused_head_bucket_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_bucket_f32"],
+              "fused_head_select_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_select_f32"],
               # phases 55 and 56: BART-large's head, the translator's self plane
               "fused_head_bucket N=256 V=50265": head_bound(256, HEAD_D, 50265, 9, 2, "bf16"),
               "beam_permute (12, 256, 64, 16, 64)": bound(2 * 2 * 12 * TR_B * 4 * 64 * 16 * 64,
@@ -5183,15 +5271,17 @@ def main() -> None:
              replaces="mic_tpu/ops/int8_matmul.py:31", max_abs_err=mm_err,
              ms=last_ms[("mm", 1024, 3072)][0], plain_ms=last_ms[("mm", 1024, 3072)][1]),
     ]
-    # the float32 instances of rows 1, 4, 7 and 8 (phases 51-53); no one
-    # PyTorch call computes these functions (cuBLAS's bare f32 product is
-    # printed in phase 51 for scale, not as library_ms)
+    # the float32 instances of rows 1, 4, 5, 7 and 8 (phases 51-53; row 5's
+    # exact select's time and launches); no one PyTorch call computes these
+    # functions (cuBLAS's bare f32 product is printed in phase 51 for scale,
+    # not as library_ms)
     kernels += [
         dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
              max_abs_err=f32_err[name], ms=f32_ms[name][0], plain_ms=f32_ms[name][1])
         for name, source, replaces in (
             ("lazy_attention_f32", "lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:668"),
             ("fused_head_bucket_f32", "fused_head_f32.cu", "mic_tpu/ops/fused_head.py:608"),
+            ("fused_head_select_f32", "fused_head.cu", "mic_tpu/ops/fused_head.py:290"),
             ("flash_ce_forward_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:259"),
             ("flash_ce_backward_dl_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:725"))
     ]

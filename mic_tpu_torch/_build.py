@@ -39,8 +39,8 @@ _SIGNATURES = {
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 5 + [_P],
-    # hidden, weight, bias, rmax_out, rid_out (each (splits, n, buckets)),
-    # part_m, part_l (each (splits, groups, n)), n, d, vocab, buckets, splits, rows, stream
+    # hidden, weight, bias, hsplit, l_out, rmax_out, rid_out (each (splits, n,
+    # buckets)), n, d, vocab, buckets, splits, route, stream
     "mic_fused_head_bucket_f32": [_P] * 7 + [_I] * 6 + [_P],
     # hidden, weight_q, wscale, bias, l_out, rmax_out, rid_out, l_part,
     # rmax_part, rid_part, n, d, vocab, buckets, splits, stream
@@ -48,6 +48,9 @@ _SIGNATURES = {
     # hidden, weight, bias, row_floor, part_m, part_l, part_v, part_i, lp,
     # ids, lse, n, d, vocab, k, runs, window, stream
     "mic_fused_head_select_bf16": [_P] * 11 + [_I] * 6 + [_P],
+    # hidden, weight, bias, xsplit, row_floor, part_m, part_l, part_v, part_i,
+    # lp, ids, lse, n, d, vocab, k, runs, window, stream
+    "mic_fused_head_select_f32": [_P] * 12 + [_I] * 6 + [_P],
     # xq, xs, weight_q, wscale, bias, row_floor, part_m, part_l, part_v,
     # part_i, lp, ids, lse, n, d, vocab, k, runs, window, stream
     "mic_fused_head_select_q8": [_P] * 13 + [_I] * 6 + [_P],

@@ -1,6 +1,5 @@
-// A float32 tile product on the CUDA cores, shared by the float32 instances
-// of the tied head's kernels: row 4's bucket select (csrc/fused_head_f32.cu)
-// and rows 7 and 8, the flash-CE forward and dl (csrc/flash_ce_f32.cu).
+// A float32 tile product on the CUDA cores, used by the float32 instances
+// of rows 7 and 8, the flash-CE forward and dl (csrc/flash_ce_f32.cu).
 //
 //   acc[i][j] = sum over k < D of A[row0 + r(i)][k] * B[col0 + c(j)][k]
 //
@@ -8,8 +7,12 @@
 // row-major float32 (the hidden rows and the tied table as stored), 256
 // threads a block.  Every product and sum is an IEEE f32 FMA (no TF32,
 // which keeps about three decimal digits), each output summed in k order,
-// so a rerun is bit-equal.  wgmma has no f32 x f32 form: the bound is the
-// card's f32 FMA rate, 67 TFLOP/s on an H100 SXM.
+// so a rerun is bit-equal.  The bound here is the card's f32 FMA rate, 67
+// TFLOP/s on an H100 SXM.  wgmma has no f32 x f32 form, but its TF32 form
+// with each operand split into hi and lo reaches float32 accuracy at 165
+// TFLOP/s of such products (csrc/tf32x3_wgmma.cuh, which row 4's float32
+// bucket select and row 5's float32 selects moved to); rows 7 and 8 are
+// the next to move.
 //
 // Thread (ty, tx) = (tid / 16, tid % 16) owns rows r(i) = 4 ty + 64 (i / 4)
 // + i % 4 (i < TM) and columns c(j) = 4 tx + 64 (j / 4) + j % 4 (j < TN) of

@@ -7,7 +7,9 @@
 //     _kernel_bucket_acc / _kernel_bucket (bf16 weight) and
 //     _kernel_q8_bucket(_acc) (int8 weight): bucket_kernel<kInt8> below;
 //   - the exact/window candidate select, replacing its _kernel (bf16:
-//     select_kernel below) and _kernel_q8 (int8 x int8: q8::select_kernel);
+//     select_kernel below; float32 hidden rows and table: f32::select_kernel
+//     on the 3xTF32 tile of csrc/tf32x3_wgmma.cuh) and _kernel_q8 (int8 x
+//     int8: q8::select_kernel);
 //   - the merges of their split runs.
 // The weight is the tied embedding as stored, (V, D), each vocab row
 // contiguous (K-major, the order wgmma reads from shared memory); the int8
@@ -103,6 +105,10 @@
 // the product, 0.52 TFLOP, at the tensor-core rate (0.53 ms in bf16, 0.265
 // ms for the int8 x int8 select); at a few rows (N = 4, one image of beam
 // 4) the stream of the weight (512 MB bf16, 256 MB int8: 0.153 / 0.077 ms).
+// The float32 select: 3 x 0.52 TFLOP of TF32 products, 3.18 ms at 495
+// TFLOP/s (165 TFLOP/s of float32-accurate products); at N = 4 the 1 GB
+// float32 table, 0.306 ms.  Its blocks re-read the hidden boxes and their
+// tiles' table rows from L2, as the f32 bucket tile's do (csrc/fused_head_f32.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +116,7 @@
 #include <stdint.h>
 
 #include "head_wgmma.cuh"
+#include "tf32x3_wgmma.cuh"
 
 namespace {
 
@@ -213,23 +220,33 @@ int bucket_merge(void* l_out, void* rmax_out, void* rid_out, void* l_part, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// One thread a row: folds the runs' (max, sum) into lse = log(sum) + max and
-// their candidate lists into the row's top-k; lp = value - lse.
+// One warp a row: folds the runs' (max, sum) into lse = log(sum) + max and
+// their candidate lists into the row's top-k; lp = value - lse.  Lane j
+// takes runs j, j + 32, ...: their (max, sum) folded by butterflies (every
+// lane ends with the same values), their candidates into a list of its own
+// in rank order; then k rounds each take the best head of the 32 lists.
+// The order of candidates is total, so the result does not depend on which
+// lane held which.
 __global__ void fused_head_select_merge_kernel(const float* __restrict__ part_m,
                                                const float* __restrict__ part_l,
                                                const float* __restrict__ part_v,
                                                const int32_t* __restrict__ part_i,
                                                float* __restrict__ lp, int32_t* __restrict__ ids,
                                                float* __restrict__ lse, int n, int k, int runs) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // warp-uniform
   float m = -INFINITY;
-  for (int z = 0; z < runs; ++z) m = fmaxf(m, part_m[static_cast<size_t>(z) * n + row]);
+  for (int z = lane; z < runs; z += 32) m = fmaxf(m, part_m[static_cast<size_t>(z) * n + row]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   float l = 0.f;
-  for (int z = 0; z < runs; ++z) {
+  for (int z = lane; z < runs; z += 32) {
     const float mz = part_m[static_cast<size_t>(z) * n + row];
     if (mz > -INFINITY) l += part_l[static_cast<size_t>(z) * n + row] * expf(mz - m);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
   const float lse_r = logf(l) + m;
   float tv[kTopK];
   int ti[kTopK];
@@ -238,18 +255,37 @@ __global__ void fused_head_select_merge_kernel(const float* __restrict__ part_m,
     tv[i] = -INFINITY;
     ti[i] = INT32_MAX;
   }
-  for (int z = 0; z < runs; ++z) {
+  for (int z = lane; z < runs; z += 32) {
     const size_t o = (static_cast<size_t>(z) * n + row) * k;
     for (int i = 0; i < k; ++i) topk_insert(tv, ti, part_v[o + i], part_i[o + i]);
   }
+  for (int r = 0; r < k; ++r) {
+    float bv = tv[0];
+    int bi = ti[0];
 #pragma unroll
-  for (int i = 0; i < kTopK; ++i) {
-    if (i < k) {
-      lp[static_cast<size_t>(row) * k + i] = tv[i] - lse_r;
-      ids[static_cast<size_t>(row) * k + i] = ti[i];
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ranks_before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (tv[0] == bv && ti[0] == bi) {  // the lane holding it (or every empty list)
+#pragma unroll
+      for (int i = 0; i < kTopK - 1; ++i) {
+        tv[i] = tv[i + 1];
+        ti[i] = ti[i + 1];
+      }
+      tv[kTopK - 1] = -INFINITY;
+      ti[kTopK - 1] = INT32_MAX;
+    }
+    if (lane == 0) {
+      lp[static_cast<size_t>(row) * k + r] = bv - lse_r;
+      ids[static_cast<size_t>(row) * k + r] = bi;
     }
   }
-  lse[row] = lse_r;
+  if (lane == 0) lse[row] = lse_r;
 }
 
 // After the select walk's launch: the merge of its runs into lp, ids, lse.
@@ -257,7 +293,7 @@ int select_merge(void* part_m, void* part_l, void* part_v, void* part_i, void* l
                  void* lse, int n, int k, int runs, cudaStream_t s) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_head_select_merge_kernel<<<(n + 127) / 128, 128, 0, s>>>(
+  fused_head_select_merge_kernel<<<(n + 3) / 4, 128, 0, s>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_v), static_cast<const int32_t*>(part_i),
       static_cast<float*>(lp), static_cast<int32_t*>(ids), static_cast<float*>(lse), n, k, runs);
@@ -1310,6 +1346,264 @@ int launch_select(const void* xq, const void* xscale, const void* weight, const 
 
 }  // namespace q8
 
+// ---------------------------------------------------------------------------
+// The float32 exact/window select (row 5 for a float32 model): 64 hidden
+// rows a block, 128-column tiles, 32-deep f32 slices on the 3xTF32 tile of
+// csrc/tf32x3_wgmma.cuh.  The two warpgroups take alternate tiles of the
+// run, each with the ring's slots of its parity, its own candidate lists,
+// and its state written as a run of its own, as the bf16 select's.  A slot
+// holds a tile's 128 table rows (two 64-row boxes: wgmma's M side, split in
+// registers), the block's hidden hi and lo boxes (its N side, split before
+// the walk) and, beside a tile's last slice, the tile's biases.  The
+// accumulators hold a tile as (table row, hidden row); at the tile's end the
+// warpgroup writes them into its slot (32 KB: the slot's boxes, read by
+// then) as (hidden row, column) and reads them back as select_tile's
+// m64n128 layout, so the epilogue is the bf16 select's.
+
+namespace f32 {
+
+constexpr int kSRows = 64;
+constexpr int kSCols = 128;
+constexpr int kBox = tf32x3::kBox;
+constexpr int kSSlot = 4 * kBox;     // two table boxes, hidden hi, hidden lo: 32 KB
+constexpr int kSSide = kSCols * 4;   // a tile's bias beside its last slice
+
+size_t select_smem_bytes(int stages) {
+  return 1024 + static_cast<size_t>(stages) * (kSSlot + kSSide) + 2 * kSRows * kCap * 8 +
+         2 * stages * sizeof(uint64_t);
+}
+
+// As many slots as fit, up to eight, an even number (each warpgroup the same).
+int select_stages() {
+  int stages = kMaxStages;
+  while (stages > 0 && select_smem_bytes(stages) > kMaxSmem) stages -= 2;
+  return stages;
+}
+
+// The float index in a slot of the transposed tile's (hidden row r, column
+// c): rows of 128 floats, c's bits 3-4 XORed by r's bits so that the
+// column-wise writes and the pairwise reads hit distinct banks.
+__device__ __forceinline__ int tposed(int r, int c) {
+  const int swz = ((r >> 1) & 1) | ((((r >> 2) ^ r) & 1) << 1);
+  return r * kSCols + (c ^ (swz << 3));
+}
+
+// A barrier among the four warps of consumer warpgroup wg (ids 2 and 3).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+template <bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-row boxes
+              const __grid_constant__ CUtensorMap himap,  // hidden hi (N, D), 64-row boxes
+              const __grid_constant__ CUtensorMap lomap,  // hidden lo (N, D)
+              const __grid_constant__ CUtensorMap bmap,   // bias (V,) f32, 128-value boxes
+              int* __restrict__ row_floor,                // (N,), order_key, exact only
+              float* __restrict__ part_m,                 // (2 runs, N)
+              float* __restrict__ part_l,                 // (2 runs, N)
+              float* __restrict__ part_v,                 // (2 runs, N, k)
+              int32_t* __restrict__ part_i,               // (2 runs, N, k)
+              int n, int d, int vocab, int k, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nk = (d + tf32x3::kDepth - 1) / tf32x3::kDepth;
+  unsigned char* ring = align_1024(smem_raw);               // [slot][table 2 boxes, hi, lo]
+  unsigned char* side = ring + stages * kSSlot;             // [slot][bias 128] f32
+  float* cand_v = reinterpret_cast<float*>(side + stages * kSSide);  // [2 x 64 rows][kCap]
+  int* cand_i = reinterpret_cast<int*>(cand_v + 2 * kSRows * kCap);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + 2 * kSRows * kCap);
+  uint64_t* empty = full + stages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kSRows;
+  const int ntiles = (vocab + kSCols - 1) / kSCols;
+  const int t_begin = static_cast<int>(static_cast<int64_t>(blockIdx.y) * ntiles / gridDim.y);
+  const int t_end = static_cast<int>(static_cast<int64_t>(blockIdx.y + 1) * ntiles / gridDim.y);
+  // warpgroup w takes tile t_begin + 2 p + w of pair p; slice s of the ring
+  // is depth slice (s / 2) % nk of pair (s / 2) / nk for warpgroup s % 2
+  const int npairs = (t_end - t_begin + 1) / 2;
+  const int nslices = 2 * npairs * nk;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // producer: the slices in ring order, with a tile's last slice the
+    // tile's biases; a warpgroup's missing tile (an odd run) completes its
+    // slot's phase without bytes
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      int slot = 0, phase = 0;
+      for (int s = 0; s < nslices; ++s) {
+        if (s >= stages) mbar_wait(&empty[slot], phase ^ 1);
+        const int j = s >> 1;
+        const int kb = j % nk;
+        const int tile = t_begin + 2 * (j / nk) + (s & 1);
+        if (tile < t_end) {
+          const bool last = kb == nk - 1;
+          const int kk = kb * tf32x3::kDepth;
+          unsigned char* dst = ring + slot * kSSlot;
+          mbar_expect_tx(&full[slot], last ? kSSlot + kSSide : kSSlot);
+          tma_load_2d(dst, &wmap, &full[slot], kk, tile * kSCols);
+          tma_load_2d(dst + 2 * kBox, &himap, &full[slot], kk, row0);
+          tma_load_2d(dst + 3 * kBox, &lomap, &full[slot], kk, row0);
+          if (last) tma_load_1d(side + slot * kSSide, &bmap, &full[slot], tile * kSCols);
+        } else {
+          mbar_arrive(&full[slot]);
+        }
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = consumer_warpgroup();
+  const int w = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const unsigned quad = 0xFu << (lane & ~3);
+  // this thread's rows in the select layout: block rows 16 w + g + 8 h; its
+  // candidate lists are the warpgroup's own
+  const int rr = 16 * w + g;
+  float* my_cand_v = cand_v + (64 * wg + rr) * kCap;
+  int* my_cand_i = cand_i + (64 * wg + rr) * kCap;
+  int* my_floor = row_floor + row0 + rr;
+  RowPair st;
+  rows_init(st, row0 + rr, n);
+
+  float acc[2][32], part[32];
+  int slot = wg, phase = 0;
+  auto advance = [&]() {
+    slot += 2;
+    if (slot >= stages) {
+      slot -= stages;
+      phase ^= 1;
+    }
+  };
+  for (int p = 0; p < npairs; ++p) {
+    const int tile = t_begin + 2 * p + wg;
+    if (tile >= t_end) {  // warpgroup-uniform
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[slot], phase);
+        release(empty, slot);
+        advance();
+      }
+      continue;
+    }
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[slot], phase);
+      if (!kWindow && kb == 0) read_floors(st, my_floor);
+      unsigned char* box = ring + slot * kSSlot;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        tf32x3::slice_products(part, box + x * kBox, box + 2 * kBox, box + 3 * kBox, w, lane);
+#pragma unroll
+        for (int y = 0; y < 32; ++y) acc[x][y] = kb ? __fadd_rn(acc[x][y], part[y]) : part[y];
+      }
+      if (kb != nk - 1) {
+        release(empty, slot);
+        advance();
+        continue;
+      }
+      // tile complete: acc[x][4 i + 2 h + e] is column 64 x + 16 w + g + 8 h
+      // of the tile, hidden row 8 i + 2 t + e; through the slot into the
+      // select layout sv[4 i + 2 h + e]: row rr + 8 h, column 8 i + 2 t + e
+      float* tp = reinterpret_cast<float*>(box);
+      warpgroup_sync(wg);  // every warp's products of the slot are done
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              tp[tposed(8 * i + 2 * t + e, 64 * x + 16 * w + g + 8 * h)] = acc[x][4 * i + 2 * h + e];
+            }
+          }
+        }
+      }
+      warpgroup_sync(wg);
+      const int col0 = tile * kSCols;
+      const float* b_tile = reinterpret_cast<const float*>(side + slot * kSSide);
+      float sv[64];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float2 bp = *reinterpret_cast<const float2*>(b_tile + 8 * i + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 s2 = *reinterpret_cast<const float2*>(tp + tposed(rr + 8 * h, 8 * i + 2 * t));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool valid = col0 + 8 * i + 2 * t + e < vocab;
+            sv[4 * i + 2 * h + e] =
+                valid ? __fadd_rn(e ? s2.y : s2.x, e ? bp.y : bp.x) : -INFINITY;
+          }
+        }
+      }
+      // the slot's next bytes come by TMA after these generic accesses
+      fence_proxy_async();
+      release(empty, slot);
+      advance();
+      select_tile<kWindow>(sv, col0, vocab, k, st, my_cand_v, my_cand_i, my_floor, t, quad);
+    }
+  }
+  // each warpgroup's state is a run of its own: entry 2 y + wg
+  select_finish(st, my_cand_v, my_cand_i, k, t, quad, part_m, part_l, part_v, part_i,
+                (2 * static_cast<size_t>(blockIdx.y) + wg) * n + row0 + rr);
+}
+
+template <bool kWindow>
+int launch_select(const void* x, const void* weight, const void* bias, void* xsplit,
+                  void* row_floor, void* part_m, void* part_l, void* part_v, void* part_i,
+                  void* lp, void* ids, void* lse, int n, int d, int vocab, int k, int runs,
+                  void* stream) {
+  const int stages = select_stages();
+  const size_t smem = select_smem_bytes(stages);
+  const int ntiles = (vocab + kSCols - 1) / kSCols;
+  if (n < 1 || vocab < 1 || d < 4 || d % 4 != 0 || stages < 2 || smem > kMaxSmem || k < 1 ||
+      k > kTopK || runs < 1 || runs > ntiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = tf32x3::split_rows(x, xsplit, n, d, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* lo = static_cast<const float*>(xsplit) + static_cast<size_t>(n) * d;
+  CUtensorMap wmap, himap, lomap, bmap;
+  err = tf32x3::encode_rows(&wmap, weight, vocab, d, kSCols);
+  if (err == cudaSuccess) err = tf32x3::encode_rows(&himap, xsplit, n, d, kSRows);
+  if (err == cudaSuccess) err = tf32x3::encode_rows(&lomap, lo, n, d, kSRows);
+  if (err == cudaSuccess) err = encode_1d_f32(&bmap, bias, vocab, kSCols);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(select_kernel<kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // every row's floor starts below every value (order_key 0x80808080)
+  err = cudaMemsetAsync(row_floor, 0x80, static_cast<size_t>(n) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // row tiles vary fastest, so the blocks of one run are scheduled together
+  const dim3 grid((n + kSRows - 1) / kSRows, runs);
+  select_kernel<kWindow><<<grid, kThreads, smem, s>>>(
+      wmap, himap, lomap, bmap, static_cast<int*>(row_floor), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_v), static_cast<int32_t*>(part_i), n,
+      d, vocab, k, stages);
+  return select_merge(part_m, part_l, part_v, part_i, lp, ids, lse, n, k, 2 * runs, s);
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // buckets: the chunk width (512 unless bucket_bv is set), any width >= 1.
@@ -1340,6 +1634,19 @@ extern "C" int mic_fused_head_select_bf16(void* hidden, void* weight, void* bias
   auto launch = window ? launch_select<true> : launch_select<false>;
   return launch(hidden, weight, bias, row_floor, part_m, part_l, part_v, part_i, lp, ids, lse, n,
                 d, vocab, k, runs, stream);
+}
+
+// The exact/window select on float32 hidden rows and table (row 5 for a
+// float32 model): xsplit (2, N, D) f32 scratch for the hidden rows' TF32 hi
+// and lo; the rest as mic_fused_head_select_bf16's, D a multiple of 4.
+extern "C" int mic_fused_head_select_f32(void* hidden, void* weight, void* bias, void* xsplit,
+                                         void* row_floor, void* part_m, void* part_l,
+                                         void* part_v, void* part_i, void* lp, void* ids,
+                                         void* lse, int n, int d, int vocab, int k, int runs,
+                                         int window, void* stream) {
+  auto launch = window ? f32::launch_select<true> : f32::launch_select<false>;
+  return launch(hidden, weight, bias, xsplit, row_floor, part_m, part_l, part_v, part_i, lp, ids,
+                lse, n, d, vocab, k, runs, stream);
 }
 
 // The same on int8 operands: xq (N, D) with row scales xs (N,), weight_q

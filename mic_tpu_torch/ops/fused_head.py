@@ -30,6 +30,14 @@ wgmma fed by TMA (csrc/head_wgmma.cuh); the host-side arithmetic of their
 launches (runs, splits, ring stages, shared memory) is the pure functions
 below, and a shape a kernel does not take raises.  The weight is the tied
 embedding as stored, (V, D): no transposed copy.
+
+A float32 model (hidden rows and table both float32) takes the float32
+kernels: its bucket select csrc/fused_head_f32.cu (the 3xTF32 tile of
+csrc/tf32x3_wgmma.cuh at many rows, a stream of the table on FFMAs at a
+few, ``bucket_f32_route``), its exact and window selects
+csrc/fused_head.cu's f32::select_kernel on the same tile.  They compute
+the logits to float32 accuracy (the tile with three TF32 products a term,
+the stream with f32 FMAs); D is any multiple of 4.
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ _MAX_STAGES = 8  # ring stages of the kernels (kMaxStages)
 _CANDIDATES = 24  # candidate entries a row of the select kernels (kCap)
 SMEM_LIMIT = 232448  # shared memory a block can have on the H100
 SELECTS = ("bucket", "exact", "window")
+_F32_BOX = 64 * 128  # a 64-row, 32-deep f32 box of the 3xTF32 tile (tf32x3::kBox)
+STREAM_ROWS = 4  # the float32 bucket select streams the table up to this many rows (kHeld)
+_STREAM_WARPS = 8  # bucket columns a block of the stream (kStreamWarps)
+_STREAM_RUN = 8  # chunks a warp of the stream walks, at most
 
 
 def _logits(hidden, weight, bias) -> torch.Tensor:
@@ -157,33 +169,44 @@ def bucket_finish(k: int, l, rmax, rid):
     return tv - lse, rid.gather(1, pick), lse
 
 
-def bucket_finish_f32(k: int, rmax, rid, part_m, part_l):
-    """The float32 bucket kernel's finish: its runs' (splits, N, bv) planes
-    merged in run order (the higher value kept, on a tie the earlier run's:
-    torch.argmax takes the first maximum), the row lse from its blocks'
-    (..., N) online-logsumexp partials, m + log(sum exp(part_m - m) part_l),
-    and the top-k over the bucket winners -> (lp, ids, lse)."""
+def bucket_finish_runs(k: int, l, rmax, rid):
+    """The float32 bucket kernels' finish: their runs' (splits, N, bv)
+    planes merged in run order (sums of exps added in run order, the higher
+    value kept and on a tie the earlier run's: torch.argmax takes the first
+    maximum), then ``bucket_finish`` -> (lp, ids, lse)."""
     win = torch.argmax(rmax, dim=0, keepdim=True)
-    rmax, rid = rmax.gather(0, win)[0], rid.gather(0, win)[0]
-    part_m, part_l = part_m.reshape(-1, part_m.shape[-1]), part_l.reshape(-1, part_l.shape[-1])
-    m = part_m.amax(dim=0)
-    lse = (m + torch.log((part_l * torch.exp(part_m - m)).sum(dim=0)))[:, None]
-    tv, pick = top_k(rmax, k)
-    return tv - lse, rid.gather(1, pick), lse
+    return bucket_finish(k, l.sum(dim=0), rmax.gather(0, win)[0], rid.gather(0, win)[0])
 
 
-def bucket_f32_rows(n: int) -> int:
-    """Hidden rows a block of the float32 bucket kernel: 128, or 64 where
-    there are no more than 64 rows (csrc/fused_head_f32.cu's two tiles)."""
-    return 64 if n <= 64 else 128
+def bucket_f32_stream_smem_bytes(held: int, d: int) -> int:
+    """Shared memory of the float32 stream holding ``held`` hidden rows."""
+    return held * d * 4
 
 
-def bucket_f32_splits(n: int, v: int, bv: int, sms: int) -> int:
+def bucket_f32_route(n: int, d: int) -> int:
+    """The float32 bucket select's kernel at N rows, depth D: the stream
+    (route ``STREAM_ROWS``, the rows it holds) up to ``STREAM_ROWS`` rows
+    where they fit in shared memory, else 0, the 3xTF32 tile; both take
+    every D that is a multiple of 4.  The crossover is measured: on an H100
+    the stream beat the tile by 19% at N=1 and by 1-2% at N=2 and 4, and
+    lost at 5 and 8 holding 8 rows (PERF.md)."""
+    if n <= STREAM_ROWS and bucket_f32_stream_smem_bytes(STREAM_ROWS, d) <= SMEM_LIMIT:
+        return STREAM_ROWS
+    return 0
+
+
+def bucket_f32_splits(n: int, v: int, bv: int, sms: int, route: int) -> int:
     """How many runs of chunks the float32 bucket kernel cuts its walk into:
-    as many as give two blocks an SM (it holds two at once) over the (row
-    tile x 64-column group) blocks, never more than there are chunks."""
-    blocks = -(-n // bucket_f32_rows(n)) * -(-bv // _COL_TILE)
-    return max(1, min(-(-v // bv), 2 * sms // blocks))
+    the tile's as ``chunk_splits`` (64-row x 64-column blocks, one an SM);
+    the stream's runs of at most ``_STREAM_RUN`` chunks a warp (many small
+    blocks of eight bucket columns, so that the last wave leaves few SMs
+    idle), never fewer than give 8 blocks an SM; never more runs than
+    chunks."""
+    if not route:
+        return chunk_splits(n, v, bv, sms)
+    nchunks = -(-v // bv)
+    return max(1, min(nchunks, max(-(-nchunks // _STREAM_RUN),
+                                   -(-8 * sms // -(-bv // _STREAM_WARPS)))))
 
 
 def _sms(device: torch.device) -> int:
@@ -266,6 +289,24 @@ def select_bf16_stages(d: int) -> int:
     return stages
 
 
+def select_f32_smem_bytes(stages: int) -> int:
+    """Shared memory of the float32 exact/window kernel
+    (f32::select_smem_bytes): alignment slack, ``stages`` slots of a tile's
+    128 table rows and the 64 hidden rows' hi and lo (32-deep f32 boxes, 32
+    KB) with a tile's 128 biases beside each, the candidate lists of both
+    warpgroups' 64 rows, the barriers; the same at every D."""
+    return 1024 + stages * (4 * _F32_BOX + 128 * 4) + 2 * 64 * _CANDIDATES * 8 + 2 * stages * 8
+
+
+def select_f32_stages() -> int:
+    """The float32 select kernel's slots (f32::select_stages): as many as
+    fit, up to eight, an even number."""
+    stages = _MAX_STAGES
+    while stages > 0 and select_f32_smem_bytes(stages) > SMEM_LIMIT:
+        stages -= 2
+    return stages
+
+
 def _check_operands(name: str, *tensors) -> None:
     device = tensors[0].device
     for x in tensors:
@@ -308,67 +349,85 @@ def _bucket_kernel(entry: str, hidden, weight, wscale, bias, k: int):
     return bucket_finish(k, l, rmax, rid)
 
 
-def _bucket_f32(hidden, weight, bias, k: int):
-    """The float32 bucket kernel (csrc/fused_head_f32.cu): per-run planes
-    and per-block row partials, merged and finished in torch -> (lp, ids,
-    lse)."""
+def check_bucket_f32(n: int, d: int, v: int, k: int, bv: int) -> None:
+    """Raise on a shape the float32 bucket kernels do not take: they take
+    any N, V and bucket width, D a multiple of 4 and 1 <= k <= bv."""
+    if n < 1 or v < 1 or d < 4 or d % 4 or not 1 <= k <= bv:
+        raise ValueError(f"mic_fused_head_bucket_f32: N={n}, D={d}, V={v}, k={k}, bv={bv}")
+
+
+def _bucket_f32(hidden, weight, bias, k: int, route: int | None = None):
+    """The float32 bucket select (csrc/fused_head_f32.cu) on the route
+    ``bucket_f32_route`` picks (or ``route``): each run's planes, merged and
+    finished in torch -> (lp, ids, lse)."""
     n, d = hidden.shape
     v = weight.shape[0]
     bv = bucket_width()
-    if weight.shape != (v, d) or bias.shape != (v,) or d % 4 or not 1 <= k <= bv:
+    if weight.shape != (v, d) or bias.shape != (v,):
         raise ValueError(f"mic_fused_head_bucket_f32: hidden {tuple(hidden.shape)}, weight "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, k={k}, bv={bv}")
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    check_bucket_f32(n, d, v, k, bv)
     bias32 = bias.float().contiguous()
     _check_operands("mic_fused_head_bucket_f32", hidden, weight, bias32)
-    splits = bucket_f32_splits(n, v, bv, _sms(hidden.device))
+    route = bucket_f32_route(n, d) if route is None else route
+    splits = bucket_f32_splits(n, v, bv, _sms(hidden.device), route)
     f32 = dict(dtype=torch.float32, device=hidden.device)
-    rmax = torch.empty((splits, n, bv), **f32)
+    l, rmax = torch.empty((2, splits, n, bv), **f32)
     rid = torch.empty((splits, n, bv), dtype=torch.int32, device=hidden.device)
-    part_m, part_l = torch.empty((2, splits, -(-bv // _COL_TILE), n), **f32)
+    # the tile's scratch for the hidden rows' TF32 hi and lo
+    hsplit = torch.empty((2, n, d) if not route else (1,), **f32)
     err = _build.lib().mic_fused_head_bucket_f32(
-        hidden.data_ptr(), weight.data_ptr(), bias32.data_ptr(), rmax.data_ptr(), rid.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), n, d, v, bv, splits, bucket_f32_rows(n),
+        hidden.data_ptr(), weight.data_ptr(), bias32.data_ptr(), hsplit.data_ptr(),
+        l.data_ptr(), rmax.data_ptr(), rid.data_ptr(), n, d, v, bv, splits, route,
         torch.cuda.current_stream(hidden.device).cuda_stream,
     )
     _build.check(err, "mic_fused_head_bucket_f32")
-    return bucket_finish_f32(k, rmax, rid, part_m, part_l)
+    return bucket_finish_runs(k, l, rmax, rid)
 
 
 def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
-    """The exact/window select kernel on CUDA tensors: x (N, D) bf16 hidden
-    with weight (V, D) bf16 (``xscale``, ``wscale`` None), or x int8 rows with
-    xscale (N,) and weight int8 with wscale (V,) -> (lp (N, k) f32, ids
-    (N, k) int32, lse (N, 1) f32)."""
+    """The exact/window select kernel on CUDA tensors: x (N, D) bf16 or
+    float32 hidden with weight (V, D) of the same dtype (``xscale``,
+    ``wscale`` None), or x int8 rows with xscale (N,) and weight int8 with
+    wscale (V,) -> (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32)."""
     n, d = x.shape
     v = weight.shape[0]
     q8 = xscale is not None
-    entry = "mic_fused_head_select_q8" if q8 else "mic_fused_head_select_bf16"
+    f32 = not q8 and x.dtype == torch.float32
+    kind = "q8" if q8 else "f32" if f32 else "bf16"
+    entry = f"mic_fused_head_select_{kind}"
     candidates = -(-v // WINDOW) if window else v
-    fits = (d % 64 == 0 and select_q8_smem_bytes(d) <= SMEM_LIMIT if q8
-            else d % 32 == 0 and select_bf16_stages(d) >= 2)
+    fits = {"q8": d % 64 == 0 and select_q8_smem_bytes(d) <= SMEM_LIMIT,
+            "f32": d % 4 == 0 and d >= 4 and select_f32_stages() >= 2,
+            "bf16": d % 32 == 0 and select_bf16_stages(d) >= 2}[kind]
     if (weight.shape != (v, d) or bias.shape != (v,) or not fits
             or not 1 <= k <= min(_TOPK_MAX, candidates)):
         raise ValueError(f"{entry}: x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}, k={k}")
-    want = torch.int8 if q8 else torch.bfloat16
+    want = {"q8": torch.int8, "f32": torch.float32, "bf16": torch.bfloat16}[kind]
     if x.dtype != want or weight.dtype != want:
         raise TypeError(f"{entry}: x and weight must be {want}")
     bias32 = bias.float().contiguous()
     scales = (xscale.float().contiguous(), wscale.float().contiguous()) if q8 else ()
     _check_operands(entry, x, weight, bias32, *scales)
     runs = select_runs(n, v, _sms(x.device), _Q8_SELECT_ROWS if q8 else _ROW_TILE)
-    # the bf16 kernel's two warpgroups each write their state as a run
+    # the bf16 and f32 kernels' two warpgroups each write their state as a run
     entries = runs if q8 else 2 * runs
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part_m, part_l = torch.empty((2, entries, n), **f32)
-    part_v = torch.empty((entries, n, k), **f32)
+    fl = dict(dtype=torch.float32, device=x.device)
+    part_m, part_l = torch.empty((2, entries, n), **fl)
+    part_v = torch.empty((entries, n, k), **fl)
     part_i = torch.empty((entries, n, k), dtype=torch.int32, device=x.device)
-    lp = torch.empty((n, k), **f32)
+    lp = torch.empty((n, k), **fl)
     ids = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    lse = torch.empty((n, 1), **f32)
+    lse = torch.empty((n, 1), **fl)
     # a floor a row for the exact select's runs to share (csrc/fused_head.cu)
     row_floor = torch.empty((n,), dtype=torch.int32, device=x.device)
-    operands = ((x, scales[0], weight, scales[1], bias32) if q8 else (x, weight, bias32))
+    if q8:
+        operands = (x, scales[0], weight, scales[1], bias32)
+    elif f32:  # with the kernel's scratch for the hidden rows' TF32 hi and lo
+        operands = (x, weight, bias32, torch.empty((2, n, d), **fl))
+    else:
+        operands = (x, weight, bias32)
     err = getattr(_build.lib(), entry)(
         *(t.data_ptr() for t in operands),
         *(t.data_ptr() for t in (row_floor, part_m, part_l, part_v, part_i, lp, ids, lse)),
@@ -391,27 +450,21 @@ def fused_head_topk(hidden, weight, bias, k: int, select: str = "bucket"):
     """hidden (N, D), weight (V, D) tied embedding, bias (V,) ->
     (lp (N, k) f32, ids (N, k) int32, lse (N, 1) f32).  ``launches`` counts
     the bucket kernels (bf16, or float32 where hidden and weight are both
-    float32); the exact/window kernel counts in
+    float32); the exact/window kernels (bf16 or float32) count in
     ``fused_head_select.launches``."""
     _check_select(select)
     if hidden.device.type == "cpu":
         return fused_head_topk_plain(hidden, weight, bias, k, select)
     if hidden.device.type != "cuda":
         raise ValueError(f"fused_head_topk: unsupported device {hidden.device}")
-    if hidden.dtype == torch.float32 and weight.dtype == torch.float32:
-        if select != "bucket":
-            raise NotImplementedError(
-                f"fused_head_topk: the float32 {select} select has no kernel yet (ROADMAP B43); "
-                "float32 serves through the bucket select")
-        out = _bucket_f32(hidden, weight, bias, k)
-        fused_head_topk.launches += 1
-        return out
-    if hidden.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+    f32 = hidden.dtype == torch.float32 and weight.dtype == torch.float32
+    if not f32 and (hidden.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16):
         raise TypeError("fused_head_topk kernel: hidden and weight must be both bfloat16 or "
                         "both float32")
     if select != "bucket":
         return fused_head_select(hidden, None, weight, None, bias, k, select == "window")
-    out = _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k)
+    out = (_bucket_f32(hidden, weight, bias, k) if f32 else
+           _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k))
     fused_head_topk.launches += 1
     return out
 

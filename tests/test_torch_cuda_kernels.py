@@ -76,8 +76,10 @@ from mic_tpu_torch.ops.flash_ce import (
     main_columns,
 )
 from mic_tpu_torch.ops.fused_head import (
+    _bucket_f32,
     _logits_q8,
     _logits_q8_bucket,
+    bucket_f32_route,
     fused_head_select,
     fused_head_topk,
     fused_head_topk_plain,
@@ -1902,38 +1904,62 @@ def test_lazy_attention_f32_kernel_matches_plain(cuda, b, beams, t, heads, index
         lazy_attention(q.bfloat16(), ck, cv, ks, vs, anc, index, heads)
 
 
+def _f32_head_close(got, ref, logits):
+    """lse within 1e-5 relative, lp within 2e-4, ids equal but at near ties
+    (two plain logits within 2e-4)."""
+    (lp, ids, lse), (rlp, rids, rlse) = got, ref
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-4)
+    differ = ids != rids
+    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+    assert bool((gap[differ] < 2e-4).all())
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("n,d,v,k,bv", [(1024, 1024, 250054, 9, 512), (4, 1024, 250054, 9, 512),
                                         (1, 100, 997, 1, 512), (65, 100, 997, 9, 96),
-                                        (130, 64, 1300, 16, 200), (64, 128, 4099, 9, 512)])
+                                        (130, 64, 1300, 16, 200), (64, 128, 4099, 9, 512),
+                                        (15, 1024, 250054, 9, 512), (16, 1024, 250054, 9, 512),
+                                        (17, 1024, 250054, 9, 512), (8, 100, 997, 7, 512),
+                                        (5, 1028, 4099, 16, 96)])
 def test_fused_head_f32_kernel_matches_plain(cuda, monkeypatch, n, d, v, k, bv):
-    """Row 4's float32 bucket kernel (128- and 64-row tiles, runs of chunks
-    or not, a depth off the slices, a ragged vocab, other bucket widths):
-    lse within 1e-5 relative, lp within 2e-4, ids equal but at near ties
-    (two plain logits within 2e-4: both sum D f32 products in other
-    orders); a second launch bit-equal.  Its exact and window selects raise
-    NotImplementedError naming ROADMAP B43."""
+    """Row 4's float32 bucket kernels (the 3xTF32 tile, and the stream where
+    N takes it: at and either side of the crossover, ``STREAM_ROWS``; runs
+    of chunks or not, a depth off the 32-deep slices, a ragged vocab, other
+    bucket widths) and row 5's float32 exact and window selects (k up to
+    the windows there are): lse within 1e-5 relative, lp within 2e-4, ids
+    equal but at near ties (two plain logits within 2e-4: both sum D
+    products to f32 accuracy in other orders); a second launch bit-equal;
+    one launch counted a call."""
     monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", f"bucket_bv={bv}")
     g = torch.Generator(device=cuda).manual_seed(n + d + v)
     hidden = torch.randn((n, d), generator=g, device=cuda)
     weight = torch.randn((v, d), generator=g, device=cuda) * 0.02
     bias = torch.randn((v,), generator=g, device=cuda) * 0.1
+    logits = hidden @ weight.T + bias
     launches = fused_head_topk.launches
-    lp, ids, lse = fused_head_topk(hidden, weight, bias, k)
+    got = fused_head_topk(hidden, weight, bias, k)
     again = fused_head_topk(hidden, weight, bias, k)
-    rlp, rids, rlse = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
+    ref = fused_head_topk_plain(hidden, weight, bias, k, "bucket")
     torch.cuda.synchronize()
     assert fused_head_topk.launches == launches + 2
-    assert all(torch.equal(a, c) for a, c in zip((lp, ids, lse), again))
-    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
-    torch.testing.assert_close(lp, rlp, rtol=0, atol=2e-4)
-    logits = hidden @ weight.T + bias
-    differ = ids != rids
-    gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
-    assert bool((gap[differ] < 2e-4).all())
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _f32_head_close(got, ref, logits)
+    if bucket_f32_route(n, d):  # the tile at the same N
+        tile = _bucket_f32(hidden, weight, bias, k, 0)
+        assert all(torch.equal(a, c) for a, c in zip(tile, _bucket_f32(hidden, weight, bias, k, 0)))
+        _f32_head_close(tile, ref, logits)
     for select in ("exact", "window"):
-        with pytest.raises(NotImplementedError, match="B43"):
-            fused_head_topk(hidden, weight, bias, k, select)
+        if select == "window" and k > -(-v // 128):
+            continue
+        launches = fused_head_select.launches
+        got = fused_head_topk(hidden, weight, bias, k, select)
+        again = fused_head_topk(hidden, weight, bias, k, select)
+        ref = fused_head_topk_plain(hidden, weight, bias, k, select)
+        torch.cuda.synchronize()
+        assert fused_head_select.launches == launches + 2
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        _f32_head_close(got, ref, logits)
 
 
 @pytest.mark.requires_cuda

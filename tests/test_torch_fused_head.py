@@ -23,12 +23,14 @@ from mic_tpu.ops.quant import quantize_array
 from mic_tpu_torch.ops.fused_head import (
     SMEM_LIMIT,
     _bucket_kernel,
+    STREAM_ROWS,
     bucket_bf16_smem_bytes,
     bucket_bf16_stages,
-    bucket_f32_rows,
+    bucket_f32_route,
     bucket_f32_splits,
+    bucket_f32_stream_smem_bytes,
     bucket_finish,
-    bucket_finish_f32,
+    bucket_finish_runs,
     bucket_q8_smem_bytes,
     bucket_topk_dense,
     bucket_width,
@@ -39,6 +41,9 @@ from mic_tpu_torch.ops.fused_head import (
     fused_head_topk_q8,
     select_bf16_smem_bytes,
     select_bf16_stages,
+    check_bucket_f32,
+    select_f32_smem_bytes,
+    select_f32_stages,
     select_q8_smem_bytes,
     select_runs,
 )
@@ -115,42 +120,49 @@ def test_plain_f32_matches_pallas_bucket_kernel(n, k):
     np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
 
 
+@pytest.mark.parametrize("select", ["exact", "window"])
+def test_plain_f32_matches_pallas_select_kernel(select):
+    """A float32 model's row 5: mic_tpu's exact/window kernel (``_kernel``)
+    in interpret mode on float32 hidden rows and table against the plain
+    version the float32 select kernel is held to on the card: ids equal,
+    log-probs and lse within 1e-5."""
+    hidden, weight, bias = _inputs(n=70, seed=50)
+    ref = jax_fused_head_topk(jnp.asarray(hidden), jnp.asarray(weight).T, jnp.asarray(bias), 9,
+                              select, interpret=True)
+    got = fused_head_topk(torch.from_numpy(hidden), torch.from_numpy(weight),
+                          torch.from_numpy(bias), 9, select)
+    lp, ids, lse = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(got[1].numpy(), ids)
+    np.testing.assert_allclose(got[0].numpy(), lp, **TOL)
+    np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
+
+
 @pytest.mark.parametrize("splits", [1, 3])
 def test_f32_bucket_finish_matches_the_dense_bucket_select(splits):
-    """The float32 bucket kernel's outputs, made here from dense f32 logits
-    as its blocks fold them (per bucket column, over the chunks of a run in
-    order: the strict running max and its id; per (run, 64-column group),
-    each row's online logsumexp over the columns it sees), finished by
-    ``bucket_finish_f32``: ids equal to the dense bucket select's, lp and
+    """The float32 bucket kernels' outputs, made here from dense f32 logits
+    as their warps and blocks fold them (per bucket column, over the chunks
+    of a run in order: the fixed-offset sum of exps, the strict running max
+    and its id, starting at chunk 0's id), finished by
+    ``bucket_finish_runs``: ids equal to the dense bucket select's, lp and
     lse within 1e-5 of it, at bucket widths 512 and 200 over a ragged V,
     with the walk cut into ``splits`` runs."""
     hidden, weight, bias = _inputs(n=5, d=16, v=1300, seed=44)
     logits = torch.from_numpy(hidden) @ torch.from_numpy(weight).T + torch.from_numpy(bias)
     for bv in (512, 200):
-        nchunks, groups = -(-1300 // bv), -(-bv // 64)
+        nchunks = -(-1300 // bv)
+        l = torch.zeros((splits, 5, bv))
         rmax = torch.full((splits, 5, bv), NEG_INF)
         rid = torch.arange(bv, dtype=torch.int32).repeat(splits, 5, 1)
-        part_m = torch.full((splits, groups, 5), NEG_INF)
-        part_l = torch.zeros((splits, groups, 5))
         for z, (begin, end) in enumerate(chunk_runs(nchunks, splits)):
             for c in range(begin, end):
                 cols = torch.arange(c * bv, min((c + 1) * bv, 1300))
                 s = logits[:, cols]
                 j = cols - c * bv
+                l[z][:, j] += torch.exp(torch.clamp(s, max=60.0))
                 up = s > rmax[z][:, j]
                 rmax[z][:, j] = torch.where(up, s, rmax[z][:, j])
                 rid[z][:, j] = torch.where(up, cols.int(), rid[z][:, j])
-                for g in range(groups):
-                    sel = (j >= 64 * g) & (j < 64 * (g + 1))
-                    if not sel.any():
-                        continue
-                    tmax = s[:, sel].amax(dim=1)
-                    mnew = torch.maximum(part_m[z, g], tmax)
-                    part_l[z, g] = (part_l[z, g] * torch.exp(part_m[z, g] - mnew)
-                                    + torch.exp(s[:, sel] - tmax[:, None]).sum(1)
-                                    * torch.exp(tmax - mnew))
-                    part_m[z, g] = mnew
-        lp, ids, lse = bucket_finish_f32(9, rmax, rid, part_m, part_l)
+        lp, ids, lse = bucket_finish_runs(9, l, rmax, rid)
         tv, tids = bucket_topk_dense(logits, 9, bv)
         rlse = torch.logsumexp(logits, dim=-1, keepdim=True)
         assert torch.equal(ids, tids), bv
@@ -159,15 +171,83 @@ def test_f32_bucket_finish_matches_the_dense_bucket_select(splits):
 
 
 def test_f32_bucket_splits_fill_the_card():
-    """Two blocks an SM of the float32 bucket kernel: 128-row blocks past 64
-    rows, so 4 runs at the flagship N=1024 (64 blocks x 4 = 256 of the 264
-    two an SM give), 33 at N=4 (64-row blocks), never more runs than
-    chunks."""
-    assert (bucket_f32_rows(1024), bucket_f32_rows(64), bucket_f32_rows(65)) == (128, 64, 128)
-    assert bucket_f32_splits(1024, 250054, 512, 132) == 4
-    assert bucket_f32_splits(4, 250054, 512, 132) == 33
-    assert bucket_f32_splits(4, 997, 512, 132) == 2
-    assert bucket_f32_splits(4096, 250054, 512, 132) == 1
+    """The float32 bucket tile runs one 64-row x 64-column block an SM (as
+    the bf16 kernel: one run at the flagship N=1024, 16 x 8 blocks on 132
+    SMs; 8 runs at N=65); the stream runs of at most 8 chunks a warp (62
+    runs of the 489 chunks at bv 512, 326 of 2605 at bv 96), at least 8
+    blocks of eight bucket columns an SM (8 runs of 62 chunks at bv 4096);
+    never more runs than chunks."""
+    assert bucket_f32_splits(1024, 250054, 512, 132, 0) == 1
+    assert bucket_f32_splits(65, 250054, 512, 132, 0) == 8
+    assert bucket_f32_splits(4, 250054, 512, 132, 4) == 62
+    assert bucket_f32_splits(4, 250054, 96, 132, 4) == 326
+    assert bucket_f32_splits(4, 250054, 4096, 132, 4) == 8
+    assert bucket_f32_splits(4, 997, 512, 132, 4) == 2
+    assert bucket_f32_splits(4096, 250054, 512, 132, 0) == 1
+
+
+def test_f32_routes_and_shared_memory():
+    """The float32 head's launch arithmetic as pure functions.  Every D that
+    is a multiple of 4 up to 1408 fits 232,448 B on the route each N takes:
+    the stream up to ``STREAM_ROWS`` rows (it holds that many in shared
+    memory) and the 3xTF32 tile beyond (the bucket tile's ring and the
+    select's stream both operands: the same bytes at every D; the bucket
+    tile's fit is the kernel's own static_assert).  Every shape the FFMA kernel took is taken (D a multiple of 4, any
+    V, any bucket width, 1 <= k <= bv); D off 4 and k past bv raise."""
+    assert select_f32_stages() >= 2
+    assert select_f32_smem_bytes(select_f32_stages()) <= SMEM_LIMIT
+    for d in range(4, 1409, 4):
+        for n in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 33, 64, 65, 1024, 4096):
+            route = bucket_f32_route(n, d)
+            assert (route == 0) == (n > STREAM_ROWS), (n, d)
+            if route:
+                assert n <= route == STREAM_ROWS
+                assert bucket_f32_stream_smem_bytes(route, d) <= SMEM_LIMIT
+    for n, d, v, k, bv in ((1024, 1024, 250054, 9, 512), (4, 1024, 250054, 1, 512),
+                           (65, 100, 997, 9, 96), (70, 100, 997, 16, 200), (1, 4, 1, 1, 1),
+                           (3, 1500, 7, 7, 7), (129, 2048, 300, 300, 300)):
+        check_bucket_f32(n, d, v, k, bv)
+    for n, d, v, k, bv in ((4, 98, 997, 9, 512), (4, 100, 997, 10, 9), (4, 100, 997, 0, 9)):
+        with pytest.raises(ValueError, match="mic_fused_head_bucket_f32"):
+            check_bucket_f32(n, d, v, k, bv)
+
+
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """float32 x with the low 13 mantissa bits dropped: rounded to nearest
+    with ties away from zero (cvt.rna.tf32.f32) or truncated."""
+    bits = x.view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("rounded", [True, False])
+def test_3xtf32_products_keep_f32_accuracy(rounded):
+    """An emulation of csrc/tf32x3_wgmma.cuh's products: h and w split as x
+    = hi + lo (hi by rounding to TF32's 10 mantissa bits, as cvt.rna does,
+    or by truncating, as the kernels do; lo = x -
+    hi rounded or truncated alike: the tensor core reads its top 10
+    mantissa bits), lo h . hi w + hi h . lo w + hi h . hi w
+    summed in float32, against the float64 products, at D=1024 with unit
+    hidden rows and a 0.02 table (the flagship init's).  The error stays
+    under 1e-5 (the three float32 sums' own rounding, about 2e-6), well
+    inside ``_f32_head_case``'s 2e-4 on log-probs; one TF32 product alone
+    (hi . hi) misses by more than a tenth of it."""
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy(rng.normal(size=(16, 1024)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(2048, 1024)) * 0.02).astype(np.float32))
+
+    def split(x):
+        hi = _tf32(x, rounded)
+        return hi, _tf32(x - hi, rounded)
+
+    (hh, hl), (wh, wl) = split(h), split(w)
+    approx = hl @ wh.T + hh @ wl.T + hh @ wh.T
+    exact = h.double() @ w.double().T
+    err = (approx.double() - exact).abs().max().item()
+    one = (hh.double() @ wh.double().T - exact).abs().max().item()
+    assert err < 1e-5, err
+    assert one > 2e-5, one
 
 
 @pytest.mark.parametrize("q8", [False, True])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The float32 kernels of rows 4, 7 and 8 (csrc/fused_head_f32.cu,
-csrc/flash_ce_f32.cu on csrc/fma_tile.cuh) under variants of their tile,
-each a patched copy of those sources built under build/variants/ into its
-own library, on one CUDA card, timed in CUDA-graph replays at the main
-path's shapes: the bucket head at N=1024 (and N=4), D=1024, V=250054,
+"""The float32 kernels of rows 4, 7 and 8 (csrc/fused_head_f32.cu on the
+3xTF32 tile of csrc/tf32x3_wgmma.cuh, csrc/flash_ce_f32.cu on
+csrc/fma_tile.cuh) under variants of their tiles, each a patched copy of
+those sources built under build/variants/ into its own library, on one
+CUDA card, timed in CUDA-graph replays at the main path's shapes: the
+bucket head at N=1024 (the tile) and N=4 (the stream), D=1024, V=250054,
 k=9; the CE forward and dl at N=4096.
 
 Run from the root of a checkout of the port:
@@ -11,12 +12,11 @@ Run from the root of a checkout of the port:
     python3 tools/torch_f32_variants.py [--turns 2] [--out FILE] [NAME ...]
 
 with NAME a key of ``VARIANTS`` (all by default): ``base``, the sources as
-they are (the CE walk's 128 x 128 tiles in slices 8 deep, the bucket
-kernel's 128 x 64 tiles in slices 16 deep (64 x 64, 32 deep, at N <= 64),
-two blocks an SM each); ``ce_depth16``, the CE walk's slices 16 deep;
-``ce_blocks1``, its launch bound for one block an SM (no register cap);
-``head_rows64``, its 64 x 64 tile at every N (the first design's shape);
-``head_blocks1``.  A patch that no longer applies, or a
+they are (the CE walk's 128 x 128 tiles in slices 8 deep, two blocks an
+SM; the head's TF32 hi and lo truncated); ``ce_depth16``, the CE walk's
+slices 16 deep; ``ce_blocks1``, its launch bound for one block an SM (no
+register cap); ``head_round``, the head's TF32 hi and lo rounded to
+nearest (``cvt.rna``) instead: the time and error of each choice.  A patch that no longer applies, or a
 variant that does not build, is reported and skipped.  Each variant's largest error against the
 plain versions is printed beside its times; one JSON line per variant and
 turn goes to stdout and, with --out, to FILE.  TF32 is off throughout.
@@ -39,21 +39,21 @@ sys.path.insert(0, os.getcwd())
 from chip_smoke import graph_ms  # noqa: E402
 
 SOURCE = "mic_tpu_torch/csrc"
-FILES = ("fused_head_f32.cu", "flash_ce_f32.cu", "fma_tile.cuh", "ce_reduce.cuh")
+FILES = ("fused_head_f32.cu", "flash_ce_f32.cu", "fma_tile.cuh", "ce_reduce.cuh",
+         "tf32x3_wgmma.cuh", "head_wgmma.cuh")
 CE_TILE = "using Tile = fma_tile::Tile<8, 8, 8>;"
 CE_BOUND = "__launch_bounds__(Tile::kThreads, 2) ce_f32_kernel"
-HEAD_TILE = "using BucketTile = fma_tile::Tile<TM, 4, TM == 8 ? 16 : 32>;"
-HEAD_BOUND = "__global__ void __launch_bounds__(256, 2)\nbucket_f32_kernel"
-HEAD_ROWS = "return rows == 128 ? args(launch<8>) : args(launch<4>);"
+HEAD_SPLIT = """  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));"""
+HEAD_ROUND = """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));"""
 
 VARIANTS = {
     "base": [],
     "ce_depth16": [("flash_ce_f32.cu", CE_TILE, "using Tile = fma_tile::Tile<8, 8, 16>;")],
     "ce_blocks1": [("flash_ce_f32.cu", CE_BOUND,
                     "__launch_bounds__(Tile::kThreads, 1) ce_f32_kernel")],
-    "head_rows64": [("fused_head_f32.cu", HEAD_ROWS, "return args(launch<4>);")],
-    "head_blocks1": [("fused_head_f32.cu", HEAD_BOUND,
-                      "__global__ void __launch_bounds__(256, 1)\nbucket_f32_kernel")],
+    "head_round": [("tf32x3_wgmma.cuh", HEAD_SPLIT, HEAD_ROUND)],
 }
 ENTRIES = ("mic_fused_head_bucket_f32", "mic_flash_ce_fwd_f32", "mic_flash_ce_dl_f32")
 

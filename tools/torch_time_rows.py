@@ -11,11 +11,12 @@ Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
     python3 tools/torch_time_rows.py [--turns 2]
-                                     [--cases decode,heads,ce,fused,lazy,attn,topk,mm]
+                                     [--cases decode,heads,ce,fused,lazy,attn,topk,mm,f32few]
                                      [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
-heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select; the
+heads at D=1024 V=250054 k=9 with N in {4, 1024}, each select, in bf16,
+int8 and float32; the
 flash-CE forward, its saving form and the dl kernel at the flagship train
 step's N=4096 rows, D=1024, V=250054 (chip_smoke's CE table and rows),
 with cuBLAS's bare f32-output h @ W^T beside them for scale (the product
@@ -35,7 +36,9 @@ vision's none), as ``attn_cases`` says; --cases topk: row 17 at (N, k) in
 torch.topk + torch.logsumexp; --cases mm: row 20 at K=1024 and (M, N) in
 {(1024, 3072), (4, 3072), (4, 250054), (1024, 250054)} beside torch.mm on
 the dequantised bf16 weight (for scale: it reads twice the weight bytes),
-as ``mm_cases`` says.  Each time
+as ``mm_cases`` says; --cases f32few: row 4 f32 at N in {1, 2, 4} on the
+route it takes, on the 3xTF32 tile and in its plain version, as
+``f32few_cases`` says.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -101,6 +104,31 @@ def head_cases(dev):
                    lambda s=select, h=hidden: fused_head_topk_q8(h, wq, ws, bias, 9, s), None)
             yield (f"bf16 {select} N={n}",
                    lambda s=select, h=hidden: fused_head_topk(h, weight, bias, 9, s), None)
+    # a float32 model's heads (rows 4 and 5 in f32) on the same values
+    w32, b32 = weight.float(), bias.float()
+    for n in (4, 1024):
+        hidden = torch.randn((n, HEAD_D), generator=g, device=dev)
+        for select in ("bucket", "exact", "window"):
+            yield (f"f32 {select} N={n}",
+                   lambda s=select, h=hidden: fused_head_topk(h, w32, b32, 9, s), None)
+
+
+def f32few_cases(dev):
+    """Row 4 f32 (the bucket select) at a few rows, N in {1, 2, 4}: the
+    route ``bucket_f32_route`` takes, the 3xTF32 tile, and the plain
+    version, in turns within each N."""
+    from mic_tpu_torch.ops.fused_head import _bucket_f32, fused_head_topk, fused_head_topk_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    weight = torch.randn((HEAD_V, HEAD_D), generator=g, device=dev) * 0.02
+    bias = torch.randn((HEAD_V,), generator=g, device=dev) * 0.1
+    for n in (1, 2, 4):
+        hidden = torch.randn((n, HEAD_D), generator=g, device=dev)
+        yield (f"f32 bucket N={n} route taken",
+               lambda h=hidden: fused_head_topk(h, weight, bias, 9), None)
+        yield (f"f32 bucket N={n} tile", lambda h=hidden: _bucket_f32(h, weight, bias, 9, 0), None)
+        yield (f"f32 bucket N={n} plain",
+               lambda h=hidden: fused_head_topk_plain(h, weight, bias, 9, "bucket"), None)
 
 
 def ce_cases(dev):
@@ -332,7 +360,8 @@ def main() -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     lines = []
     groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases,
-              "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases, "mm": mm_cases}
+              "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases, "mm": mm_cases,
+              "f32few": f32few_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     profiled = []  # (row, timer, fn): timed after everything else
