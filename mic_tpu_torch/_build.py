@@ -59,11 +59,14 @@ _SIGNATURES = {
     "mic_flash_ce_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
     # the same, then logits_main, tail, n, d, vocab, v_main, runs, stream
     "mic_flash_ce_fwd_save_bf16": [_P] * 10 + [_I] * 5 + [_P],
-    "mic_flash_ce_fwd_f32": [_P] * 8 + [_I] * 4 + [_P],
+    # hidden, weight, bias, hsplit, part_m, part_s, part_z, lse_out,
+    # zsum_out, n, d, vocab, runs, stream
+    "mic_flash_ce_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
     # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
     # dbias_out, low, conf - low, n, d, vocab, runs, stream
     "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
-    "mic_flash_ce_dl_f32": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
+    # the same with hsplit after bias
+    "mic_flash_ce_dl_f32": [_P] * 10 + [_F] * 2 + [_I] * 4 + [_P],
     # hidden, weight, bias, logits, labels, lse, rowscale, demb_out,
     # dbias_out, low, conf - low, n, d, vext, saved, stream
     "mic_flash_ce_gw_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],

@@ -1,6 +1,7 @@
 // Float32-accurate products on Hopper's tensor cores: the 3xTF32 tile of the
 // float32 tied head's kernels (row 4's bucket select, csrc/fused_head_f32.cu,
-// and row 5's exact/window select, csrc/fused_head.cu's f32::select_kernel).
+// and row 5's exact/window select, csrc/fused_head.cu's f32::select_kernel)
+// and of the float32 flash-CE walks (rows 7 and 8, csrc/flash_ce_f32.cu).
 //
 // wgmma has no f32 x f32 form, but it has a TF32 one (m64nNk8.f32.tf32.tf32,
 // 495 TFLOP/s dense on an H100 SXM, against 67 TFLOP/s of f32 FMAs).  Each
@@ -24,9 +25,10 @@
 // memory by TMA in 128-byte-swizzled boxes of 32 f32 (one k8 step is 32
 // bytes, as bf16's k16, so head_wgmma.cuh's K-major descriptors and its
 // ldmatrix fragment loader apply unchanged); each consumer thread loads its
-// fragments by ldmatrix and splits them in registers.  B, 64 hidden rows,
-// is split once before the walk (split_rows below: hi and lo as two (N, D)
-// arrays, 8 bytes a value, 4 MB each at N = 1024) and its hi and lo boxes
+// fragments by ldmatrix and splits them in registers.  B, 64 hidden rows
+// (the heads) or 128 (the CE walks), is split once before the walk
+// (split_rows below: hi and lo as two (N, D) arrays, 8 bytes a value, 4 MB
+// each at N = 1024) and its hi and lo boxes
 // come by TMA beside A's.  TF32 wgmma reads both operands K-major only; both
 // are K-major as stored.  The sums run in a fixed order with no atomics, so
 // a second launch is bit-equal.
@@ -81,9 +83,60 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// One 32-deep slice of a 64 x 64 tile: d = A . B^T (overwritten) with A the
-// 64 table rows of a_box and B the 64 hidden rows of the b_hi and b_lo
-// boxes, in 3xTF32.  The caller adds d into its running sums with FADDs:
+// d (64 x 128, f32) (+)= a (64 x 8 tf32, registers, as above) . b (128 x 8
+// tf32, shared, K-major); d[4 i + 2 h + e] is row 16 w + g + 8 h, column
+// 8 i + 2 t + e (i < 16).
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// One k8 product of 64 x (2 kRegs) outputs: m64n64k8 or m64n128k8.
+template <int kRegs>
+__device__ __forceinline__ void product(float (&d)[kRegs], const uint32_t (&a)[4], uint64_t desc_b,
+                                        int accumulate) {
+  static_assert(kRegs == 32 || kRegs == 64, "a 64- or 128-wide tile");
+  if constexpr (kRegs == 32) {
+    wgmma_m64n64k8_tf32_rs(d, a, desc_b, accumulate);
+  } else {
+    wgmma_m64n128k8_tf32_rs(d, a, desc_b, accumulate);
+  }
+}
+
+// One 32-deep slice of a 64 x (2 kRegs) tile: d = A . B^T (overwritten)
+// with A the 64 table rows of a_box and B the 2 kRegs hidden rows (64 or
+// 128) of the b_hi and b_lo boxes, in 3xTF32.  The caller adds d into its running sums with FADDs:
 // the tensor core truncates every sum it accumulates (an error that grows
 // with the depth and does not average out), so a slice's 12 products are
 // all it accumulates.  Its 12 products go as one group (32 registers of A
@@ -91,7 +144,8 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
 // measured the same); the call returns once they are done, so the slot
 // may be released (or reused) right after it.  Called by the four warps of
 // a consumer warpgroup.
-__device__ __forceinline__ void slice_products(float (&d)[32], const unsigned char* a_box,
+template <int kRegs>
+__device__ __forceinline__ void slice_products(float (&d)[kRegs], const unsigned char* a_box,
                                                const unsigned char* b_hi,
                                                const unsigned char* b_lo, int w, int lane) {
   uint32_t hi[4][4], lo[4][4];
@@ -103,21 +157,21 @@ __device__ __forceinline__ void slice_products(float (&d)[32], const unsigned ch
     for (int q = 0; q < 4; ++q) split(__uint_as_float(raw[q]), hi[j][q], lo[j][q]);
   }
 #pragma unroll
-  for (int y = 0; y < 32; ++y) fence_operand(d[y]);
+  for (int y = 0; y < kRegs; ++y) fence_operand(d[y]);
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint64_t bh = desc_sw128(b_hi + 32 * j);
     const uint64_t bl = desc_sw128(b_lo + 32 * j);
     // the small terms first, then the large one
-    wgmma_m64n64k8_tf32_rs(d, lo[j], bh, j != 0);
-    wgmma_m64n64k8_tf32_rs(d, hi[j], bl, 1);
-    wgmma_m64n64k8_tf32_rs(d, hi[j], bh, 1);
+    product(d, lo[j], bh, j != 0);
+    product(d, hi[j], bl, 1);
+    product(d, hi[j], bh, 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
-  for (int y = 0; y < 32; ++y) fence_operand(d[y]);
+  for (int y = 0; y < kRegs; ++y) fence_operand(d[y]);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll

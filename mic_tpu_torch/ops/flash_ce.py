@@ -30,10 +30,11 @@ kernels of csrc/flash_ce.cu, which never store f32 logits of the main
 vocab span, or raises: they take bfloat16 with D a multiple of 64, at most
 ``_BWD_MAX_D`` for the split route's contractions.  A float32 ``h``
 (``CaptionerConfig.dtype`` "float32") runs the forward and dl kernels of
-csrc/flash_ce_f32.cu (D a multiple of 4; dl in float32, its dh and demb
-products in full float32), so the "dl" and "fwd" routes train a float32
-model; the save forward and the split and save contractions raise
-NotImplementedError on it (ROADMAP B36).
+csrc/flash_ce_f32.cu (the same walk on 3xTF32 ``wgmma``, float32-accurate
+logits; D a multiple of 4; dl in float32, its dh and demb products in full
+float32), so the "dl" and "fwd" routes train a float32 model; the save
+forward and the split and save contractions raise NotImplementedError on it
+(ROADMAP B36).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ _BOX = 64          # rows a sweep step, and own rows a split block (contract::kB
 _CHUNK = 256       # D columns a consumer warpgroup owns (contract::kChunk)
 _SAVE_ROWS = 128   # output rows a save block owns (contract::kSaveRows)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
-_F32_TILE = 128   # vocab columns a tile of the float32 walk (128 rows a block, too)
+_F32_TILE = 128   # vocab columns a tile of the float32 walk (kCols; 128 rows a block, too)
 
 
 def _table(h, emb, emb_cast):
@@ -97,14 +98,15 @@ def flash_ce_forward_plain(h, emb, bias, labels, emb_cast=None, save=False):
     return out + (torch.cat(main), torch.cat(tail)) if save else out
 
 
-def _runs(n: int, v: int, sms: int) -> int:
-    """How many runs of consecutive vocab tiles the walk is cut into: the
-    (row tiles, runs) blocks, one an SM, in a single wave where the row
-    tiles leave SMs over (at least one run, never more runs than tiles).
-    The blocks of a run are scheduled together (row tiles vary fastest) and
-    walk the same vocab slices in step, so the table is read from device
-    memory about once."""
-    return max(1, min(-(-v // _VOCAB_TILE), sms // -(-n // _ROW_TILE)))
+def _runs(n: int, v: int, sms: int, cols: int = _VOCAB_TILE) -> int:
+    """How many runs of consecutive ``cols``-wide vocab tiles a walk is cut
+    into (the bf16 walk's 256, the float32 walk's 128): the (row tiles,
+    runs) blocks, one an SM, in a single wave where the row tiles leave SMs
+    over (at least one run, never more runs than tiles).  The blocks of a
+    run are scheduled together (row tiles vary fastest) and walk the same
+    vocab slices in step, so the table is read from device memory about
+    once."""
+    return max(1, min(-(-v // cols), sms // -(-n // _ROW_TILE)))
 
 
 def _sms(device: torch.device) -> int:
@@ -130,11 +132,10 @@ def _check_kernel_args(name, h, w, bias, f32=True):
                          f"bias {tuple(bias.shape)}; D must be a multiple of {step}")
 
 
-def _f32_runs(n: int, v: int, sms: int) -> int:
-    """The float32 walk's runs (csrc/flash_ce_f32.cu): as ``_runs``, but two
-    blocks an SM (its 128-row blocks hold 256 threads and no shared ring) and
-    128-wide vocab tiles."""
-    return max(1, min(-(-v // _F32_TILE), 2 * sms // -(-n // _ROW_TILE)))
+def _f32_split(h):
+    """Scratch for the float32 walk's hidden rows split into TF32 hi and lo:
+    (2, N, D) f32, written by the kernel's entry before the walk."""
+    return torch.empty((2, *h.shape), dtype=torch.float32, device=h.device)
 
 
 def _check_pointers(name, device, *tensors):
@@ -160,11 +161,13 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     bias_f = bias.float().contiguous()
     _check_pointers("flash_ce_forward", h.device, h, w, bias_f)
     f32 = h.dtype == torch.float32
-    runs = (_f32_runs if f32 else _runs)(n, v, _sms(h.device))
+    runs = _runs(n, v, _sms(h.device), _F32_TILE if f32 else _VOCAB_TILE)
     part = torch.empty((3, runs, n), dtype=torch.float32, device=h.device)
     lse, zsum = torch.empty((2, n), dtype=torch.float32, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    hsplit = _f32_split(h) if f32 else None
     args = (h.data_ptr(), w.data_ptr(), bias_f.data_ptr(),
+            *((hsplit.data_ptr(),) if f32 else ()),
             part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
             lse.data_ptr(), zsum.data_ptr())
     if not save:
@@ -255,14 +258,16 @@ def flash_ce_dl(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_cast=N
         raise ValueError(f"flash_ce_dl: out must be ({n}, {v}) {h.dtype}")
     _check_pointers("flash_ce_dl", h.device, h, w, bias_f, labels32, lse32, rs32, dl)
     f32 = h.dtype == torch.float32
-    runs = (_f32_runs if f32 else _runs)(n, v, _sms(h.device))
+    runs = _runs(n, v, _sms(h.device), _F32_TILE if f32 else _VOCAB_TILE)
     # both walks take 128 rows a block: one band of dbias partials each
     bands = torch.empty((-(-n // _ROW_TILE), v), dtype=torch.float32, device=h.device)
     dbias = torch.empty((v,), dtype=torch.float32, device=h.device)
     low, conf_low = _targets(label_smoothing, v)
     entry = "mic_flash_ce_dl_f32" if f32 else "mic_flash_ce_dl_bf16"
+    hsplit = _f32_split(h) if f32 else None
     err = getattr(_build.lib(), entry)(
-        h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), labels32.data_ptr(),
+        h.data_ptr(), w.data_ptr(), bias_f.data_ptr(),
+        *((hsplit.data_ptr(),) if f32 else ()), labels32.data_ptr(),
         lse32.data_ptr(), rs32.data_ptr(), dl.data_ptr(), bands.data_ptr(),
         dbias.data_ptr(), low, conf_low, n, d, v, runs,
         torch.cuda.current_stream(h.device).cuda_stream,

@@ -30,6 +30,7 @@ from mic_tpu.ops.flash_ce import flash_ce_backward_dl as jax_backward_dl
 from mic_tpu.ops.flash_ce import flash_ce_backward_save as jax_backward_save
 from mic_tpu.ops.flash_ce import flash_ce_forward as jax_forward
 from mic_tpu.ops.fused_ce import fused_lm_loss as jax_fused_lm_loss
+from mic_tpu_torch.ops import flash_ce as fce
 from mic_tpu_torch.ops import fused_ce
 from mic_tpu_torch.ops.flash_ce import (
     _BOX,
@@ -379,6 +380,193 @@ def test_walk_runs_at_the_flagship_shapes():
     assert _runs(129, 250054, H100_SMS) == 66
     assert _runs(64, 997, H100_SMS) == 4
     assert _runs(132 * 128 + 1, 250054, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("v", [257, 997, 4099, 250054])
+@pytest.mark.parametrize("n", [1, 70, 129, 4096, 132 * 128 + 1])
+def test_f32_walk_runs_fill_the_card(n, v):
+    """The float32 walk of csrc/flash_ce_f32.cu as the wrappers size it
+    (128-row blocks, 128-wide vocab tiles, one block an SM, _runs on an
+    H100's 132 SMs): at least one run, never more runs than vocab tiles;
+    the (row tiles, runs) blocks fit one wave wherever the row tiles leave
+    SMs over, and fill it: another run would not fit, unless every tile
+    has its own run; run y's tiles [y T / runs, (y + 1) T / runs) take
+    every tile once, in order."""
+    ntiles = -(-v // 128)
+    row_tiles = -(-n // _ROW_TILE)
+    runs = _runs(n, v, H100_SMS, 128)
+    assert 1 <= runs <= ntiles
+    assert row_tiles * runs <= max(H100_SMS, row_tiles)
+    assert runs == ntiles or row_tiles * (runs + 1) > H100_SMS
+    bounds = [(y * ntiles // runs, (y + 1) * ntiles // runs) for y in range(runs)]
+    assert all(b < e for b, e in bounds)
+    assert [tile for b, e in bounds for tile in range(b, e)] == list(range(ntiles))
+
+
+def test_f32_walk_runs_at_the_flagship_shapes():
+    """The flagship step's 32 row tiles take four runs (128 of 132 SMs);
+    one row tile a run an SM; 129 rows 66 runs; V = 997 has 8 tiles."""
+    assert _runs(4096, 250054, H100_SMS, 128) == 4
+    assert _runs(1, 250054, H100_SMS, 128) == 132
+    assert _runs(129, 250054, H100_SMS, 128) == 66
+    assert _runs(129, 997, H100_SMS, 128) == 8
+    assert _runs(132 * 128 + 1, 250054, H100_SMS, 128) == 1
+
+
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _tf32_trunc(x):
+    """float32 x with its low 13 mantissa bits dropped (TF32 by truncation:
+    the walk's hi, and what the tensor core reads of any f32 operand)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _toward_zero(y):
+    """float64 y as the float32 next to it on the side of zero."""
+    f = y.float()
+    return torch.where(f.double().abs() > y.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _walk_logits(h, w, b, products=3):
+    """s = h @ w^T + b as csrc/flash_ce_f32.cu's walk computes it: each
+    operand split into hi (truncated to TF32) and lo = x - hi; per 32-deep
+    slice the tensor core's products table-lo . hidden-hi, table-hi .
+    hidden-lo, table-hi . hidden-hi, each k8 step exact and added to the
+    slice's sum with float32 truncation (a model of the tensor core's
+    accumulation); each slice's sum added to the logits by a float32 add,
+    in depth order; then the bias.  ``products=1`` keeps hi . hi alone."""
+    hh, wh = _tf32_trunc(h), _tf32_trunc(w)
+    hl, wl = _tf32_trunc(h - hh), _tf32_trunc(w - wh)
+    terms = ((wl, hh), (wh, hl), (wh, hh))[3 - products:]
+    acc = torch.zeros((h.shape[0], w.shape[0]), dtype=torch.float32)
+    for k0 in range(0, h.shape[1], 32):
+        part = torch.zeros_like(acc, dtype=torch.float64)
+        for k in range(k0, min(k0 + 32, h.shape[1]), 8):
+            for a, c in terms:
+                prod = c[:, k:k + 8].double() @ a[:, k:k + 8].double().T
+                part = _toward_zero(part + prod).double()
+        acc = acc + part.float()
+    return acc + b
+
+
+def _merge(a, b):
+    """The walk's merge of two (max, sum of exps against it, sum) states."""
+    (m1, s1, z1), (m2, s2, z2) = a, b
+    hi = torch.maximum(m1, m2)
+    e = torch.exp2((torch.minimum(m1, m2) - hi) * _LOG2E)
+    return hi, torch.where(m1 >= m2, s1 + s2 * e, s2 + s1 * e), z1 + z2
+
+
+def _walk_statistics(x, runs):
+    """(lse, sum of logits) of the float32 logits x (N, V) in the walk's
+    order: per 128-wide vocab tile a thread's pair of table rows (v0, v0 +
+    8), the reduce-scatter over the warp's row groups (g with g ^ 4, then
+    g ^ 2, then g ^ 1), each warp's running state over its run's tiles, the
+    eight warps in order, then the runs in order (csrc/ce_reduce.cuh)."""
+    n, v = x.shape
+    ntiles = -(-v // 128)
+    floor = torch.tensor(-1e30)
+    parts = []
+    for y in range(runs):
+        state = None
+        for tile in range(y * ntiles // runs, (y + 1) * ntiles // runs):
+            xt = torch.zeros((n, 128))
+            ok = torch.arange(tile * 128, tile * 128 + 128) < v
+            xt[:, ok] = x[:, tile * 128:(tile + 1) * 128]
+            # vocab row 64 wg + 16 w + 8 h + g -> (N, wg, w, h, g)
+            xt, ok = xt.view(n, 2, 4, 2, 8), ok.view(2, 4, 2, 8)
+            x0, x1, ok0, ok1 = xt[:, :, :, 0], xt[:, :, :, 1], ok[:, :, 0], ok[:, :, 1]
+            hi = torch.maximum(x0, x1)
+            two = 1 + torch.exp2((torch.minimum(x0, x1) - hi) * _LOG2E)
+            cell = (torch.where(ok1, hi, torch.where(ok0, x0, floor)),
+                    torch.where(ok1, two, ok0.float()),
+                    torch.where(ok1, x0 + x1, torch.where(ok0, x0, 0.0)))
+            for half in (4, 2, 1):  # lane bits 16, 8, 4: g merged with g ^ half
+                cell = _merge(tuple(c[..., :half] for c in cell),
+                              tuple(c[..., half:2 * half] for c in cell))
+            cell = tuple(c[..., 0].reshape(n, 8) for c in cell)  # (N, warp 4 wg + w)
+            state = cell if state is None else _merge(state, cell)
+        warp = tuple(c[:, 0] for c in state)
+        for i in range(1, 8):
+            warp = _merge(warp, tuple(c[:, i] for c in state))
+        parts.append(warp)
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    s, z = torch.zeros(n), torch.zeros(n)
+    for pm, ps, pz in parts:
+        s = s + ps * torch.exp(pm - m)
+        z = z + pz
+    return m + torch.log(s), z
+
+
+def _walk_dl(x, lse, rowscale, labels, low, conf_low):
+    """dl and dbias from the float32 logits x (N, V) as the walk forms them:
+    p = 2^(x log2 e - lse log2 e) (one fma), (p - target) * rowscale; the
+    band's sum of a column over its 128 rows: a thread's 32 rows (8 i + 2 t
+    + e, i then e), then its quad (t with t ^ 1, then t ^ 2); the bands in
+    order."""
+    n, v = x.shape
+    nl = (-lse * _LOG2E)[:, None]
+    p = torch.exp2((x.double() * _LOG2E.double() + nl.double()).float())
+    target = torch.full_like(x, low)
+    target.scatter_(1, labels[:, None].long(), low + conf_low)
+    dl = (p - target) * rowscale[:, None]
+    dbias = torch.zeros(v)
+    for r0 in range(0, n, 128):
+        band = torch.zeros((128, v))
+        band[:min(128, n - r0)] = dl[r0:r0 + 128]
+        rows = band.view(16, 4, 2, v)  # (i, t, e)
+        quad = torch.zeros((4, v))
+        for i in range(16):
+            for e in range(2):
+                quad = quad + rows[i, :, e]
+        dbias = dbias + ((quad[0] + quad[1]) + (quad[2] + quad[3]))
+    return dl, dbias
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_3xtf32_walk_keeps_the_card_tolerances(smoothing):
+    """An emulation of the float32 CE walks' arithmetic (rows 7 and 8 f32,
+    csrc/flash_ce_f32.cu) at D = 1024 with the card test's value scales (h
+    ~ N(0, 1), W ~ 0.05 N(0, 1), bias ~ 0.1 N(0, 1); V = 1000 over eight
+    128-wide tiles, the last ragged, in two runs; N = 200 over two row
+    bands), held against float64: lse within 1e-5 relative, the sum of
+    logits within 1e-5 of the row's sum of |logits|, dl within 1e-4 of
+    |dl| + 2 target rowscale, dbias within 1e-5 of its largest entry
+    (tests/test_torch_cuda_kernels.py::test_flash_ce_f32_kernels_match_plain's
+    limits).  The walk's own error stays a tenth of those limits; one TF32
+    product alone (hi . hi) misses the lse limit."""
+    rng = np.random.default_rng(24)
+    n, d, v = 200, 1024, 1000
+    h = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(v, d)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(v,)) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, size=(n,)).astype(np.int32))
+    rowscale = torch.from_numpy((rng.random(n) / n).astype(np.float32))
+    rowscale[::7] = 0.0
+    exact = h.double() @ w.double().T + b.double()
+    lse64 = torch.logsumexp(exact, -1)
+    l1 = exact.abs().sum(-1)
+
+    x = _walk_logits(h, w, b)
+    lse, zsum = _walk_statistics(x, runs=2)
+    lse_err = ((lse.double() - lse64).abs() / lse64.abs()).max().item()
+    z_err = ((zsum.double() - exact.sum(-1)).abs() / l1).max().item()
+    assert lse_err < 1e-6 and z_err < 1e-6, (lse_err, z_err)
+
+    low, conf_low = fce._targets(smoothing, v)
+    dl, dbias = _walk_dl(x, lse64.float(), rowscale, labels, low, conf_low)
+    target = torch.full_like(exact, low)
+    target.scatter_(1, labels[:, None].long(), low + conf_low)
+    dl64 = (torch.exp(exact - lse64[:, None]) - target) * rowscale.double()[:, None]
+    assert not dl[rowscale == 0].any()
+    limit = 1e-4 * (dl64.abs() + 2 * target * rowscale.double()[:, None])
+    assert bool(((dl.double() - dl64).abs() <= 0.1 * limit).all())
+    db_err = (dbias.double() - dl64.sum(0)).abs().max().item() / dl64.sum(0).abs().max().item()
+    assert db_err < 1e-6, db_err
+
+    one = _walk_statistics(_walk_logits(h, w, b, products=1), runs=2)[0]
+    assert ((one.double() - lse64).abs() / lse64.abs()).max().item() > 1e-5
 
 
 @pytest.mark.parametrize("case", ["float32", "float32_save_split", "float16", "d96", "d32",

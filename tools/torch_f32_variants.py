@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""The float32 kernels of rows 4, 7 and 8 (csrc/fused_head_f32.cu on the
-3xTF32 tile of csrc/tf32x3_wgmma.cuh, csrc/flash_ce_f32.cu on
-csrc/fma_tile.cuh) under variants of their tiles, each a patched copy of
-those sources built under build/variants/ into its own library, on one
-CUDA card, timed in CUDA-graph replays at the main path's shapes: the
-bucket head at N=1024 (the tile) and N=4 (the stream), D=1024, V=250054,
-k=9; the CE forward and dl at N=4096.
+"""The float32 kernels of rows 4, 7 and 8 (csrc/fused_head_f32.cu and
+csrc/flash_ce_f32.cu, both on the 3xTF32 tile of csrc/tf32x3_wgmma.cuh)
+under variants of their tiles, each a patched copy of those sources built
+under build/variants/ into its own library, on one CUDA card, timed in
+CUDA-graph replays at the main path's shapes: the bucket head at N=1024
+(the tile) and N=4 (the stream), D=1024, V=250054, k=9; the CE forward and
+dl at N=4096.
 
 Run from the root of a checkout of the port:
 
     python3 tools/torch_f32_variants.py [--turns 2] [--out FILE] [NAME ...]
 
 with NAME a key of ``VARIANTS`` (all by default): ``base``, the sources as
-they are (the CE walk's 128 x 128 tiles in slices 8 deep, two blocks an
-SM; the head's TF32 hi and lo truncated); ``ce_depth16``, the CE walk's
-slices 16 deep; ``ce_blocks1``, its launch bound for one block an SM (no
-register cap); ``head_round``, the head's TF32 hi and lo rounded to
-nearest (``cvt.rna``) instead: the time and error of each choice.  A patch that no longer applies, or a
-variant that does not build, is reported and skipped.  Each variant's largest error against the
+they are (the head's TF32 hi and lo truncated; the CE forward's ring of
+four 48 KB slots); ``head_round``, the head's TF32 hi and lo rounded to
+nearest (``cvt.rna``) instead: the time and error of each choice;
+``ce_stages3``, the CE forward's ring cut to three slots (as dl's);
+``ce_table_only``, the CE walks loading the hidden rows' hi and lo only
+into the ring's first slots and reusing them after (wrong results: the
+time without two thirds of the bytes each slot brings, a bound and not a
+cost);
+``ce_lo_once``, the same for the hidden rows' lo boxes alone (a third of
+the bytes each slot brings); ``ce_fold_off``, the CE forward with each
+tile's statistics replaced by a sum of its accumulators (wrong results:
+the fold's cost).  A
+patch that no longer applies, or a variant that does not build, is
+reported and skipped.  Each variant's largest error against the
 plain versions is printed beside its times; one JSON line per variant and
 turn goes to stdout and, with --out, to FILE.  TF32 is off throughout.
 """
@@ -39,10 +47,32 @@ sys.path.insert(0, os.getcwd())
 from chip_smoke import graph_ms  # noqa: E402
 
 SOURCE = "mic_tpu_torch/csrc"
-FILES = ("fused_head_f32.cu", "flash_ce_f32.cu", "fma_tile.cuh", "ce_reduce.cuh",
-         "tf32x3_wgmma.cuh", "head_wgmma.cuh")
-CE_TILE = "using Tile = fma_tile::Tile<8, 8, 8>;"
-CE_BOUND = "__launch_bounds__(Tile::kThreads, 2) ce_f32_kernel"
+FILES = ("fused_head_f32.cu", "flash_ce_f32.cu", "ce_reduce.cuh", "tf32x3_wgmma.cuh",
+         "head_wgmma.cuh")
+CE_STAGES = "constexpr int kFwdStages = 4;"
+CE_LOADS = """        mbar_expect_tx(&full[slot], kSlot);
+        tma_load_2d(dst, &wmap, &full[slot], kk, tile * kCols);
+        tma_load_2d(dst + kBox, &himap, &full[slot], kk, row0);
+        tma_load_2d(dst + 2 * kBox, &lomap, &full[slot], kk, row0);"""
+CE_LO_ONCE = """        mbar_expect_tx(&full[slot], s < kStages ? kSlot : 2 * kBox);
+        tma_load_2d(dst, &wmap, &full[slot], kk, tile * kCols);
+        tma_load_2d(dst + kBox, &himap, &full[slot], kk, row0);
+        if (s < kStages) tma_load_2d(dst + 2 * kBox, &lomap, &full[slot], kk, row0);"""
+CE_FOLD = """    } else if (full_tile) {
+      fold_tile<true>(acc, b, ok, lane, rm, rs, rz);
+    } else {
+      fold_tile<false>(acc, b, ok, lane, rm, rs, rz);
+    }"""
+CE_FOLD_OFF = """    } else {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) rz[x & 3] += acc[x];
+    }"""
+CE_TABLE_ONLY = """        mbar_expect_tx(&full[slot], s < kStages ? kSlot : kBox);
+        tma_load_2d(dst, &wmap, &full[slot], kk, tile * kCols);
+        if (s < kStages) {
+          tma_load_2d(dst + kBox, &himap, &full[slot], kk, row0);
+          tma_load_2d(dst + 2 * kBox, &lomap, &full[slot], kk, row0);
+        }"""
 HEAD_SPLIT = """  hi = __float_as_uint(x) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi));"""
 HEAD_ROUND = """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
@@ -50,10 +80,11 @@ HEAD_ROUND = """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
 
 VARIANTS = {
     "base": [],
-    "ce_depth16": [("flash_ce_f32.cu", CE_TILE, "using Tile = fma_tile::Tile<8, 8, 16>;")],
-    "ce_blocks1": [("flash_ce_f32.cu", CE_BOUND,
-                    "__launch_bounds__(Tile::kThreads, 1) ce_f32_kernel")],
     "head_round": [("tf32x3_wgmma.cuh", HEAD_SPLIT, HEAD_ROUND)],
+    "ce_stages3": [("flash_ce_f32.cu", CE_STAGES, "constexpr int kFwdStages = 3;")],
+    "ce_table_only": [("flash_ce_f32.cu", CE_LOADS, CE_TABLE_ONLY)],
+    "ce_fold_off": [("flash_ce_f32.cu", CE_FOLD, CE_FOLD_OFF)],
+    "ce_lo_once": [("flash_ce_f32.cu", CE_LOADS, CE_LO_ONCE)],
 }
 ENTRIES = ("mic_fused_head_bucket_f32", "mic_flash_ce_fwd_f32", "mic_flash_ce_dl_f32")
 

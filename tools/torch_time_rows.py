@@ -20,7 +20,9 @@ int8 and float32; the
 flash-CE forward, its saving form and the dl kernel at the flagship train
 step's N=4096 rows, D=1024, V=250054 (chip_smoke's CE table and rows),
 with cuBLAS's bare f32-output h @ W^T beside them for scale (the product
-alone, not the same function), then the split route's backward, the save
+alone, not the same function), the float32 forward and dl (a float32
+model's rows 7 and 8, on chip_smoke's f32 table) beside cuBLAS's full-f32
+h @ W^T (TF32 off), then the split route's backward, the save
 route's (from the save forward's logits) and each of their four
 contractions alone (``flash_ce_contraction``); --cases fused: the blocked
 lazy attention (row 3, bf16 and int8 per-head, index 63 and 17), the
@@ -147,6 +149,17 @@ def ce_cases(dev):
            lambda: fce.flash_ce_dl(hidden, weight, bias, labels, lse, rs, 0.1), None)
     yield (f"cuBLAS h @ W^T f32 out N={n} (for scale)",
            lambda: torch.mm(hidden, weight.T, out_dtype=torch.float32), None)
+    # a float32 model's rows 7 and 8 (chip_smoke's f32 table), beside
+    # cuBLAS's full-f32 product (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w32, b32 = chip_smoke._f32_table(dev, chip_smoke.CE_V, chip_smoke.CE_D, 54)
+    h32 = hidden.float()
+    lse32 = fce.flash_ce_forward_plain(h32, w32, b32, labels)[0]
+    yield (f"flash_ce_forward f32 N={n}", lambda: fce.flash_ce_forward(h32, w32, b32, labels),
+           None)
+    yield (f"flash_ce_dl f32 N={n}",
+           lambda: fce.flash_ce_dl(h32, w32, b32, labels, lse32, rs, 0.1), None)
+    yield (f"cuBLAS h @ W^T f32 N={n} (for scale)", lambda: torch.mm(h32, w32.T), None)
     # rows 9 and 10: the save and split backwards and each contraction alone
     lg, tail = fce.flash_ce_forward(hidden, weight, bias, labels, save=True)[3:]
     args = (hidden, weight, bias, labels, lse, rs, 0.1, None)
