@@ -2,6 +2,9 @@
 """Drive the PyTorch port (mic_tpu_torch) once on one CUDA card.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
+With ``--cards N`` (N >= 2 cards) it runs only the multi-card paths
+instead (``run_cards``): the caption CLI's split over N cards, and
+data-parallel and FSDP training in N NCCL processes, a card each.
 
 Phases, each of which raises on failure (none catches its own):
   1. build the CUDA kernels from mic_tpu_torch/csrc/;
@@ -242,7 +245,30 @@ Phases, each of which raises on failure (none catches its own):
      B=8 beam 4 equal), the towers as model.safetensors and
      pytorch_model.bin (written by tools/torch_hf_towers.py's state dicts)
      read by load_pretrained_towers (every leaf but proj
-     bit-equal), each write and read timed.
+     bit-equal), each write and read timed;
+ 58. the checkpoint manager's background save (no data_meta) of a flagship
+     train checkpoint (4.38 GB): the time save takes to return (before
+     the write is complete), a train step taken during the write, the
+     time wait blocks, the restore bit-equal to the state at the save, and
+     the synchronous save's time;
+ 59. lazy-attention mode "0" (mic_tpu's XLA chain, plain tensor code) at
+     flagship width, B=8, beam 4, length 64, bf16 with the bf16 and the
+     int8 KV cache: no lazy-attention kernel launched, row 4 once a step,
+     every chain call held against row 1 (bf16) or row 3's int8 form (the
+     same per-head cache) on the same inputs; against mode "2"'s run the
+     best scores within 0.1, and both runs' captions rescored by the
+     float32 model within 0.1 of each other (near-ties: the float32
+     log-prob margin where they first part is printed); the float32
+     flagship's sequences equal to mode "2"'s, and its scores equal to
+     the rescoring's; a beam step's time beside mode "2"'s in turns;
+ 60. data-parallel and FSDP training in two gloo processes on the one card
+     (tools/torch_rank_worker.py's ranks): the default float32 flagship at
+     full width, 2 vision and 2 decoder layers, three steps under dp=2 and
+     under dp=2
+     with fsdp against one process on the same global batch (losses,
+     params), rows 7 f32 and 8 f32 three times in each rank, each rank's
+     state about half the whole's under fsdp, and the fsdp checkpoint
+     resumed bit-equal in two ranks and in one.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -5002,6 +5028,537 @@ def _raises(exc, fn, *args) -> bool:
     return False
 
 
+def run_async_save(dev, root):
+    """Phase 58: the checkpoint manager's save without data_meta (mic_tpu's
+    background write) on a flagship train checkpoint (bf16 flagship at the
+    TrainConfig defaults: float32 params, bf16 moments, about 4.38 GB):
+    the time ``save`` takes to return (the host copy), a train step taken
+    while the write runs (params changed in place), the time ``wait`` then
+    blocks, and the restore bit-equal to the state as it was at the save;
+    then the trainer's synchronous save (with data_meta) of the same tree
+    timed.  Host clock, fsync'd writes."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
+    from mic_tpu_torch.train.state import checkpoint_tree
+    from mic_tpu_torch.train.trainer import Trainer
+
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    tc = TrainConfig(warmup_steps=2, output_dir=os.path.join(root, "unused"))
+    trainer = Trainer(config, DataConfig(), tc, device=dev)
+    trainer.build(steps_per_epoch=2)
+    state = trainer.init_state()
+    batch = trainer.put_batch(_train_batches(config, 1, 64, 64, 58)[0])
+    state, _ = trainer.train_step(state, batch)   # moments no longer zero
+    at_save = [leaf.clone() for leaf in _state_leaves(state)]
+    manager = TrainCheckpointManager(os.path.join(root, "async"), max_to_keep=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save(1, checkpoint_tree(state))
+    returned = time.perf_counter() - t0
+    complete = os.path.isdir(os.path.join(manager.directory, "1"))
+    t1 = time.perf_counter()
+    state, metrics = trainer.train_step(state, batch)
+    loss = metrics["loss"].item()
+    step_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    manager.wait()
+    waited = time.perf_counter() - t2
+    nbytes = _bytes_under(os.path.join(manager.directory, "1"))
+    tree, meta = manager.restore(1, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(_checkpoint_leaves(tree), at_save))
+    del tree, at_save
+    sync = TrainCheckpointManager(os.path.join(root, "sync"), max_to_keep=None)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sync.save(1, checkpoint_tree(state), data_meta={"epoch": 0, "next_batch": 1})
+    sync_s = time.perf_counter() - t3
+    print(f"async save, flagship train checkpoint of {nbytes} B: save returned in "
+          f"{returned:.3f} s (directory complete then: {complete}), a train step during the "
+          f"write {step_s:.3f} s (loss {loss:.4f}), wait blocked {waited:.3f} s more; the "
+          f"synchronous save with data_meta {sync_s:.3f} s; restore bit-equal to the state at "
+          f"the save: {same}", flush=True)
+    require(not complete, "async save: the directory was complete when save returned")
+    require(meta is None and same, "async save: the restore differs from the state at the save")
+    require(returned < sync_s, "async save: save did not return before the write was done")
+    require(bool(np.isfinite(loss)), "async save: a non-finite loss during the write")
+    del trainer, state, batch
+
+
+# the largest difference phase 59 allows between mode "0"'s and mode "2"'s
+# best scores (mean log-probs a token), and between their captions rescored
+# by the float32 model: bf16 paths part at near-ties (0.056 the largest
+# best-score gap seen), where a broken chain drifts toward the untrained
+# model's typical token at -ln(250054) = -12.4
+NEAR_TIE = 0.1
+# and between the 4th and 5th running candidates' total log-probs where the
+# two runs' running beams first part: a swap at a near-tie
+BEAM_TIE = 0.1
+
+
+def _rescored(model32, params32, px32, seqs, eos_id: int, length_penalty: float):
+    """The float32 model's teacher-forced beam scores of ``seqs`` (B, L),
+    as beam search scores them: the log-probs of tokens 1 to the first EOS
+    after them (a forced token counts its model log-prob) over (last + 1)
+    ** length_penalty -> (B,)."""
+    seqs = seqs.to(px32.device).long()
+    length = seqs.shape[1]
+    with torch.no_grad():
+        logits = model32(params32, px32, seqs[:, :-1], torch.ones_like(seqs[:, :-1]))
+        lp = torch.log_softmax(logits.float(), -1).gather(-1, seqs[:, 1:, None])[..., 0]
+    del logits
+    lp = torch.nn.functional.pad(lp, (1, 0))
+    pos = torch.arange(length, device=seqs.device)
+    eos = (seqs == eos_id) & (pos >= 2)
+    last = torch.where(eos.any(1), eos.int().argmax(1), length - 1)
+    total = (lp * (pos[None] <= last[:, None])).sum(1)
+    return total / (last + 1).float() ** length_penalty
+
+
+@contextlib.contextmanager
+def _beam_trace(beams: int):
+    """Record every beam step of the generates run inside: the running beams
+    it keeps (B, K, L) and the best K + 1 scores (total log-probs) of its
+    running candidates, sorted (B, K + 1)."""
+    from mic_tpu_torch.generate import search
+
+    top_k, gather = search.top_k, search._gather_beams
+    trace = {"beams": [], "scores": []}
+
+    def top_k_traced(x, k):
+        if k == beams and x.shape[-1] == 2 * beams:  # the running candidates
+            trace["scores"].append(x.sort(dim=-1, descending=True).values[:, :beams + 1])
+        return top_k(x, k)
+
+    def gather_traced(x, pick):
+        out = gather(x, pick)
+        if pick.shape[-1] == beams and x.shape[1] == 2 * beams:  # the running beams
+            trace["beams"].append(out.clone())
+        return out
+
+    search.top_k, search._gather_beams = top_k_traced, gather_traced
+    try:
+        yield trace
+    finally:
+        search.top_k, search._gather_beams = top_k, gather
+
+
+def _first_partings(ref, got, images: int, beams: int) -> list:
+    """Where two traced beam searches first keep different running beams:
+    for each image whose beams part, (image, step, the reference's K-th
+    less its (K + 1)-th running candidate's score there, the same in
+    ``got``, the largest difference between the two runs' kept scores a
+    step before, when their beams were the same)."""
+    out = []
+    for i in range(images):
+        for n, (a, b) in enumerate(zip(ref["beams"], got["beams"])):
+            if {tuple(r) for r in a[i].tolist()} != {tuple(r) for r in b[i].tolist()}:
+                ra, rb = ref["scores"][n][i], got["scores"][n][i]
+                drift = 0.0 if n == 0 else float(
+                    (ref["scores"][n - 1][i, :beams] - got["scores"][n - 1][i, :beams])
+                    .abs().max())
+                out.append((i, n, float(ra[beams - 1] - ra[beams]),
+                            float(rb[beams - 1] - rb[beams]), drift))
+                break
+    return out
+
+
+def run_lazy_chain_path(dev):
+    """Phase 59: lazy-attention mode "0" (mic_tpu's XLA chain, plain tensor
+    code on the card, nn/attention.py::lazy_attention_chain) at flagship
+    width, B=8 images, beam 4, max_length 64.  In bf16 with the bf16 KV
+    cache and the int8 one (per-head scales under mode "0", per-row under
+    mode "2"): rows 1, 2 and 3 never launched, row 4 once a step, a rerun
+    identical; every chain call held against a kernel on the same inputs
+    at the flagship shapes: the bf16 cache against row 1 (mode "2"'s
+    kernel: outputs within 2e-2 of their largest magnitude, the written
+    column bit-equal), the int8 cache against row 3's int8 form (mode "1",
+    the same per-head layout; it attends to the step row unquantized, the
+    chain to it quantized: 3e-2, tests/test_torch_fused_step.py's bounds);
+    against mode "2"'s run (whole bf16 paths part at near-ties, as phase 55
+    found): the best scores within NEAR_TIE, and both runs' captions
+    rescored by the float32 model on the same weights (``_rescored``)
+    within NEAR_TIE of each other; printed beside them, the shares of
+    tokens and sequences equal, each run's scores against its rescoring,
+    and where two captions first part the float32 log-prob of mode "2"'s
+    token less mode "0"'s.  Then the float32 flagship under mode "0"
+    against mode "2" (row 1 f32): sequences equal, scores within 1e-4
+    (phase 52's bound) and within 1e-3 of their rescoring (which checks
+    ``_rescored``).  Then a beam step's time (host clock around a
+    synchronised generate, over its steps) under each mode in turns (2, 0,
+    0, 2), both caches."""
+    import mic_tpu_torch.nn.attention as attention_mod
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.core.params import tree_map
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops import lazy_attention as la
+
+    config, params, model, kw, pixels = flagship(dev)
+    layers = config.decoder.num_layers
+    px = pixels(8, 0)
+    model32 = Captioner(config.replace(dtype="float32"))
+    params32 = tree_map(lambda x: x.float(), params)
+    eos_id, penalty = config.decoder.eos_token_id, config.generation.length_penalty
+    chain = attention_mod.lazy_attention_chain
+    for kv in (None, "int8"):
+        extra = dict(kw, kv_quant=kv)
+        label = f"mode 0, {'int8' if kv else 'bf16'} KV"
+        with knobs(MIC_TPU_FUSED_LAZY_ATTN="2"), _beam_trace(4) as ref_trace:
+            ref, ref_counts = drive(model, params, px, **extra)
+        with knobs(MIC_TPU_FUSED_LAZY_ATTN="0"), _beam_trace(4) as trace:
+            out, counts = drive(model, params, px, **extra)
+        seqs = check_path_output(out, 8, 64, label)
+        partings = _first_partings(ref_trace, trace, 8, 4)
+        del ref_trace, trace
+        row = "lazy_attention_q8" if kv else "lazy_attention"
+        require(ref_counts[row] == layers * ref.steps, f"{label}: mode 2 missed {row}")
+        require(counts["lazy_attention"] == counts["lazy_attention_q8"] == 0
+                and counts["fused_lazy_attention"] == 0, f"{label}: a lazy-attention kernel ran")
+        require(counts["fused_head"] >= out.steps, f"{label}: row 4 not once a step")
+        stats = {"calls": 0, "err": 0.0}
+
+        def held(q, ck, cv, ks, vs, anc, index, heads, buckets=(), kv=kv):
+            pre = [{k: v.clone() for k, v in c.items()} if kv else c.clone() for c in (ck, cv)]
+            got = chain(q, ck, cv, ks, vs, anc, index, heads, buckets)
+            beams = q.shape[1]
+            if kv:
+                want = la.fused_lazy_attention(q, pre[0], pre[1], ks, vs,
+                                               la.build_ancestry_mask(anc, index), beams, heads,
+                                               positions=index)
+                bound_ = 3e-2
+            else:
+                want = la.lazy_attention(q, pre[0], pre[1], ks, vs, anc, index, heads)
+                require(torch.equal(pre[0][:, index], ck[:, index])
+                        and torch.equal(pre[1][:, index], cv[:, index]),
+                        f"{label}: the chain's written column differs from row 1's")
+                bound_ = 2e-2
+            err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+            require(err <= bound_, f"{label}: a chain call {err:.3g} from the kernel's")
+            stats["calls"] += 1
+            stats["err"] = max(stats["err"], err)
+            return got
+
+        attention_mod.lazy_attention_chain = held
+        try:
+            with knobs(MIC_TPU_FUSED_LAZY_ATTN="0"):
+                again = model.generate(params, px, **extra)
+        finally:
+            attention_mod.lazy_attention_chain = chain
+        require(torch.equal(again.sequences.cpu(), seqs), f"{label}: a second run differs")
+        require(stats["calls"] == layers * out.steps, f"{label}: {stats['calls']} chain calls")
+        images, share = _token_share(seqs, ref.sequences)
+        gap = (out.scores.cpu() - ref.scores.cpu()).abs()
+        f0 = _rescored(model32, params32, px.float(), seqs, eos_id, penalty)
+        f2 = _rescored(model32, params32, px.float(), ref.sequences, eos_id, penalty)
+        f_gap = (f0 - f2).abs().cpu()
+        print(f"{label}, 8 images: {out.steps} steps, launches row 4 {counts['fused_head']}, rows "
+              f"1-3 0; the rerun identical, its {stats['calls']} chain calls each held against "
+              f"{'row 3 int8 (per-head cache)' if kv else 'row 1'} on the same inputs: largest "
+              f"error {stats['err']:.3g} of the output's magnitude; against mode 2's run ({row} "
+              f"{ref_counts[row]}): {images} of 8 sequences equal, tokens equal {share:.4f}, "
+              f"best-score differences {[round(float(g), 5) for g in gap]} (limit {NEAR_TIE}); "
+              f"rescored by the float32 model: differences {[round(float(g), 5) for g in f_gap]} "
+              f"(limit {NEAR_TIE}), mode 0's scores less their rescoring "
+              f"{[round(float(g), 5) for g in out.scores - f0]}, mode 2's "
+              f"{[round(float(g), 5) for g in ref.scores - f2]}; where the runs' running "
+              f"beams first part (image, step, mode 2's 4th less 5th running candidate's "
+              f"total log-prob, mode 0's, the runs' largest kept-score difference a step "
+              f"before): {[(i, n, round(a, 5), round(b, 5), round(d, 5)) for i, n, a, b, d in partings]} "
+              f"(limit {BEAM_TIE} on both margins)", flush=True)
+        require(float(gap.max()) <= NEAR_TIE, f"{label}: a best score beyond a near-tie of mode 2's")
+        require(float(f_gap.max()) <= NEAR_TIE,
+                f"{label}: a caption's float32 rescoring beyond a near-tie of mode 2's")
+        require(all(a <= BEAM_TIE and b <= BEAM_TIE for _, _, a, b, _ in partings),
+                f"{label}: the runs' beams part where no near-tie is: {partings}")
+    del params, params32, model32
+
+    f32 = CaptionerConfig.clip_vit_b32_mbart50()
+    params32 = init_params(f32, torch.Generator(device=dev).manual_seed(59), dev)
+    model32 = Captioner(f32)
+    px32 = pixels(8, 0).float()
+    with knobs(MIC_TPU_FUSED_LAZY_ATTN="2"):
+        ref, ref_counts = drive(model32, params32, px32, **kw)
+    with knobs(MIC_TPU_FUSED_LAZY_ATTN="0"):
+        out, counts = drive(model32, params32, px32, **kw)
+    seqs = check_path_output(out, 8, 64, "mode 0, float32")
+    gap = (out.scores.cpu() - ref.scores.cpu()).abs().max().item()
+    same = torch.equal(seqs, ref.sequences.cpu())
+    rescored = _rescored(model32, params32, px32, seqs, eos_id, penalty)
+    f_err = (out.scores - rescored).abs().max().item()
+    print(f"mode 0, float32 flagship, 8 images: {out.steps} steps, lazy-attention launches "
+          f"{counts['lazy_attention']} (mode 2: {ref_counts['lazy_attention']}); sequences equal "
+          f"to mode 2's: {same}, largest score difference {gap:.3g} (limit 1e-4); scores less "
+          f"their float32 rescoring at most {f_err:.3g} (limit 1e-3)", flush=True)
+    require(counts["lazy_attention"] == 0 and ref_counts["lazy_attention"] == layers * ref.steps,
+            "mode 0, float32: launches")
+    require(same and gap <= 1e-4, "mode 0, float32: the path differs from mode 2's")
+    require(f_err <= 1e-3, "mode 0, float32: the rescoring differs from the search's scores")
+    del params32, model32
+
+    config, params, model, kw, pixels = flagship(dev)
+    for kv in (None, "int8"):
+        extra = dict(kw, kv_quant=kv)
+        for turn, mode in enumerate(("2", "0", "0", "2"), 1):
+            with knobs(MIC_TPU_FUSED_LAZY_ATTN=mode):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model.generate(params, px, **extra)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            print(f"smoke figure (not a benchmark), {'int8' if kv else 'bf16'} KV, mode {mode}, "
+                  f"turn {turn}: B=8 beam 4, {out.steps} steps in {seconds:.3f} s = "
+                  f"{seconds / out.steps * 1e3:.2f} ms a beam step", flush=True)
+    del params, model
+
+
+# the two-rank phase's model: the default float32 flagship at full width,
+# depth cut to 2 vision and 2 decoder layers (its embedding table, 250054 x
+# 1024, is most of the state either way)
+DP_LAYERS = 2
+
+
+def _rank_tools():
+    """tools/torch_rank_worker.py: the ranks, their launcher and the
+    comparison the CPU tests use too."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_rank_worker
+
+    return torch_rank_worker
+
+
+def _flagship_depth(layers: int):
+    from mic_tpu_torch.core.config import CaptionerConfig
+
+    base = CaptionerConfig.clip_vit_b32_mbart50()
+    return CaptionerConfig.from_dict({**base.to_dict(),
+                                      "vision": {**base.vision.to_dict(), "num_layers": layers},
+                                      "decoder": {**base.decoder.to_dict(),
+                                                  "num_layers": layers}})
+
+
+def run_ranks(dev, root, config, world: int, per_device: int, steps: int, spec: dict,
+              checkpoint: bool, backend: str, timeout: float):
+    """The float32 ``config`` trained ``steps`` steps (TrainConfig defaults:
+    dropout 0.1, remat "masks", the dl route, bf16 moments; lr 1e-4 after
+    one warmup step; captions of 8-64 tokens) by ``world`` ranks of
+    tools/torch_rank_worker.py (``spec`` gives how they meet and their
+    device) under dp and under dp with fsdp, each held against one process
+    on the same global batches on ``dev``: losses within 1e-5 relative at
+    the first step, 1e-4 after (phase 53's limits: sums in another order),
+    every param within 2 * steps * lr, all but one in a hundred of each
+    leaf's entries within 1e-5 (the key biases, whose gradient the softmax
+    cancels, aside); rows 7 f32 and 8 f32 once a step in each rank; under
+    fsdp each rank's params and moments about 1 / world of the whole's;
+    with ``checkpoint`` the fsdp checkpoint the ranks wrote restored
+    bit-equal under fsdp and, here in one process, bit-equal to the state
+    rank 0 gathered."""
+    from mic_tpu_torch.core.config import DataConfig, TrainConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
+    from mic_tpu_torch.parallel.sharding import tree_bytes
+    from mic_tpu_torch.train.trainer import Trainer
+
+    ranks_tool = _rank_tools()
+    lr = 1e-4
+    host = _train_batches(config, steps, world * per_device, 64, 60)
+    batches = os.path.join(root, "batches.npz")
+    np.savez(batches, **{f"{k}_{i}": v for i, b in enumerate(host) for k, v in b.items()
+                         if k != "lang"})
+    cases = []
+    for layout in ("dp", "fsdp"):
+        out = os.path.join(root, layout)
+        os.makedirs(out)
+        tc = TrainConfig(per_device_batch_size=per_device, learning_rate=lr, warmup_steps=1,
+                         fsdp=layout == "fsdp", output_dir=os.path.join(out, "run"))
+        cases.append({"model": config.to_dict(), "data": DataConfig().to_dict(),
+                      "train": tc.to_dict(), "out": out, "batches": batches,
+                      "steps_per_epoch": steps, "checkpoint": checkpoint and layout == "fsdp"})
+    t0 = time.perf_counter()
+    ranks_tool.spawn({**spec, "world": world, "cases": cases}, root, timeout, backend=backend)
+    print(f"{world} ranks: both layouts in {time.perf_counter() - t0:.1f} s with process "
+          f"start", flush=True)
+
+    tc = TrainConfig(per_device_batch_size=world * per_device, learning_rate=lr,
+                     warmup_steps=1, output_dir=os.path.join(root, "one"))
+    trainer = Trainer(config, DataConfig(), tc, device=dev)
+    trainer.build(steps_per_epoch=steps)
+    state = trainer.init_state()
+    losses, ms = [], []
+    for b in host:
+        t1 = time.perf_counter()
+        state, metrics = trainer.train_step(state, trainer.put_batch(b))
+        losses.append(metrics["loss"].item())
+        ms.append((time.perf_counter() - t1) * 1e3)
+    one = {path: leaf.detach() for path, leaf in tree_leaves(state.params)}
+    whole_bytes = tree_bytes({"p": state.params, "m": state.opt_state.mu,
+                              "v": state.opt_state.nu})
+    print(f"{world} ranks: one process on the global batch of {world * per_device}: losses "
+          f"{losses}, step times {[round(x, 1) for x in ms]} ms (smoke figures)", flush=True)
+    del trainer, state
+    for case, layout in zip(cases, ("dp", "fsdp")):
+        out = case["out"]
+        ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(world)]
+        final = torch.load(os.path.join(out, "final.pt"), weights_only=True)
+        worst, far = ranks_tool.param_gaps(dict(tree_leaves(final["params"])), one, 1e-5)
+        rel = ranks_tool.loss_gaps(ranks[0]["losses"], losses)
+        shares = [r["state_bytes"] / whole_bytes for r in ranks]
+        print(f"{world} ranks, {layout}: backend {ranks[0]['backend']}, devices "
+              f"{sorted({r['device'] for r in ranks})}; losses {ranks[0]['losses']}, relative "
+              f"to one process {[f'{x:.3g}' for x in rel]}; params: largest difference "
+              f"{worst:.3g} (limit {2 * steps * lr:g}), largest share of a leaf beyond 1e-5 "
+              f"{far:.4f} (limit 0.01); launches rank 0 {ranks[0]['launches']}, rank "
+              f"{world - 1} {ranks[-1]['launches']}; state bytes a rank "
+              f"{[r['state_bytes'] for r in ranks]} of {whole_bytes} "
+              f"({[round(x, 3) for x in shares]}); peak allocated "
+              f"{[r['peak_gib'] and round(r['peak_gib'], 2) for r in ranks]} GiB; step times "
+              f"rank 0 "
+              f"{[round(x, 1) for x in ranks[0]['ms']]} ms (smoke figures)", flush=True)
+        for r in ranks:
+            require(r["ranks"] == world and r["fsdp"] == (layout == "fsdp"), f"{layout}: layout")
+            require(r["losses"] == ranks[0]["losses"], f"{layout}: the ranks' losses differ")
+            require(r["launches"] == {"flash_ce_forward": steps, "flash_ce_backward_dl": steps},
+                    f"{layout}: rows 7 f32 and 8 f32 not once a step in a rank: {r['launches']}")
+        require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4, f"{layout}: losses differ")
+        require(worst <= 2 * steps * lr and far <= 0.01, f"{layout}: params differ")
+        if layout == "fsdp":
+            require(all(abs(x * world - 1) <= 0.1 for x in shares),
+                    f"fsdp: state shares {shares}")
+        if case["checkpoint"]:
+            require(all(r["resumed_bit_equal"] for r in ranks),
+                    "fsdp: a rank's restored parts differ")
+            resumer = Trainer(config, DataConfig(),
+                              TrainConfig.from_dict(case["train"]).replace(fsdp=False), device=dev)
+            resumer.build(steps_per_epoch=steps)
+            restored, meta = resumer.restore(TrainCheckpointManager(os.path.join(out, "run")))
+            same = restored.step == steps and all(
+                torch.equal(a.detach().cpu(), b)
+                for key, tree in (("params", restored.params), ("mu", restored.opt_state.mu),
+                                  ("nu", restored.opt_state.nu))
+                for (_, a), (_, b) in zip(tree_leaves(tree), tree_leaves(final[key])))
+            print(f"{world} ranks, fsdp: checkpoint of step {restored.step} resumed in one "
+                  f"process, bit-equal to the gathered state: {same}; under fsdp each rank's "
+                  f"parts bit-equal: True", flush=True)
+            require(same and meta == {"epoch": 0, "next_batch": steps},
+                    "fsdp checkpoint: the dp=1 resume differs from the gathered state")
+            del resumer, restored
+        del final
+    del one
+    torch.cuda.empty_cache()
+
+
+def run_two_ranks(dev, root):
+    """Phase 60: data-parallel and FSDP training in two processes on the
+    one card (gloo: NCCL refuses two ranks on one device; the gather and
+    scatter collectives go through host memory), on the default float32
+    flagship at full width with depth cut to ``DP_LAYERS`` vision and
+    decoder layers, a per-device batch of 8 x 64 tokens, three steps,
+    held as ``run_ranks`` holds them, the fsdp checkpoint resumed."""
+    print(f"two ranks on one card: backend gloo, world size 2, float32 flagship width, "
+          f"{DP_LAYERS} vision and {DP_LAYERS} decoder layers, per-device batch 8", flush=True)
+    spec = {"init_method": f"file://{os.path.join(root, 'rendezvous')}", "backend": "gloo",
+            "device": "cuda:0"}
+    run_ranks(dev, root, _flagship_depth(DP_LAYERS), 2, 8, 3, spec, True, "gloo", 900)
+
+
+def run_caption_over_cards(devices: list, root, config=None):
+    """The caption CLI's split over the cards ``devices`` (cli/caption.py:
+    load_model's replicas, generate_over_devices' parts): ``config``
+    (default the bf16 flagship at full width and depth) from a saved model
+    directory, 8 x cards - 1 random images (one of padding), beam 4,
+    max_length 64.  The split's sequences equal the same parts generated
+    one after another on the first card (the same shapes, so the same
+    kernels' sums), rows 1 and 4 launched, a whole batch on one card beside
+    it (a share of tokens: other shapes part at near-ties), and ``main``
+    run once over the cards, one caption line an image."""
+    from PIL import Image
+
+    from mic_tpu_torch.cli import caption
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = config or CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    cards = len(devices)
+    model_dir = os.path.join(root, "model")
+    Captioner(config).save_pretrained(
+        model_dir, init_params(config, torch.Generator(device=devices[0]).manual_seed(0),
+                               devices[0]))
+    args = argparse.Namespace(model_dir=model_dir, tokenizer=None, device=None)
+    model, replicas, tokenizer, loaded = caption.load_model(args)
+    require(loaded == devices, f"caption split: devices {loaded}")
+    n = 8 * cards - 1
+    u8 = np.random.default_rng(61).integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+    kw = dict(max_length=64, num_beams=4, decoder_start_token_id=tokenizer.lang_code_to_id["en_XX"])
+
+    def prep(x):
+        return preprocess_images(x, config.vision.image_size, model.dtype)
+
+    def timed(reps, devs):
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        t0 = time.perf_counter()
+        seqs = caption.generate_over_devices(model, reps, devs, u8, prep, **kw)
+        return seqs, time.perf_counter() - t0
+
+    caption.generate_over_devices(model, replicas, devices, u8[:cards], prep, **kw)  # warm-up
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    split, split_s = timed(replicas, devices)
+    launches = {name: fn.launches for name, fn in counters.items() if fn.launches}
+    serial, serial_s = timed([replicas[0]] * cards, [devices[0]] * cards)
+    whole, whole_s = timed(replicas[:1], devices[:1])
+    images, share = _token_share(torch.from_numpy(split), torch.from_numpy(whole))
+    print(f"caption split over {cards} cards: {n} images (+1 of padding) in {split_s:.3f} s, "
+          f"launches {launches}; the same parts one after another on {devices[0]} in "
+          f"{serial_s:.3f} "
+          f"s, sequences equal: {bool(np.array_equal(split, serial))}; the whole batch on one "
+          f"card in {whole_s:.3f} s, {images} of {n} captions equal, tokens equal {share:.4f} "
+          f"(smoke figures)", flush=True)
+    require(np.array_equal(split, serial),
+            "caption split: the cards' parts differ from the first card's")
+    require(launches.get("lazy_attention", 0) > 0 and launches.get("fused_head", 0) > 0,
+            f"caption split: rows 1 and 4 did not carry it: {launches}")
+    paths = [os.path.join(root, f"img_{i}.png") for i in range(3)]
+    for path, image in zip(paths, u8):
+        Image.fromarray(image).save(path)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        caption.main(["--model_dir", model_dir, "--max_length", "16", *paths])
+    lines = printed.getvalue().strip().splitlines()
+    print(f"caption CLI over {cards} cards, 3 images: {len(lines)} lines", flush=True)
+    require(len(lines) == 3 and all(line.startswith(p + "\t") for line, p in zip(lines, paths)),
+            "caption CLI: not one line an image")
+    del model, replicas
+
+
+def run_cards(cards: int) -> None:
+    """``chip_smoke.py --cards N``: the paths that need several cards, on N
+    cards: the caption CLI's split (``run_caption_over_cards``), then
+    data-parallel and FSDP training in N processes, one card a rank, NCCL,
+    started through mic_tpu's environment contract, on the default float32
+    flagship at full width and depth (12 + 12 layers), a per-device batch
+    of 16 x 64 tokens, four steps, held as ``run_ranks`` holds them."""
+    from mic_tpu_torch import _build
+
+    require(torch.cuda.device_count() >= cards, f"--cards {cards}: "
+            f"{torch.cuda.device_count()} cards visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.lib()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(card_name_and_limit(), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cards_") as root:
+        run_caption_over_cards([torch.device("cuda", i) for i in range(cards)], root)
+    torch.cuda.empty_cache()
+    print(f"{cards} ranks: backend nccl, world size {cards}, one card a rank, float32 flagship "
+          f"at full width and depth, per-device batch 16", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as root:
+        run_ranks(torch.device("cuda", 0), root, _flagship_depth(12), cards, 16, 4,
+                  {"contract": True, "device": None}, False, "nccl", 1200)
+    print(json.dumps({"ok": True, "cards": cards}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -5125,6 +5682,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as root:
         run_hf_format_path(dev, root)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_async_") as root:
+        run_async_save(dev, root)
+    torch.cuda.empty_cache()
+    run_lazy_chain_path(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as root:
+        run_two_ranks(dev, root)
+    torch.cuda.empty_cache()
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -5300,4 +5866,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--cards":
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke.py needs CUDA devices; torch.cuda.is_available() is "
+                             "false")
+        run_cards(int(sys.argv[2]))
+    else:
+        main()

@@ -1,7 +1,10 @@
 """BLEU-1..4 per language of a saved model over a caption TSV (the flags of
 ``python -m mic_tpu.cli.evaluate``, plus ``--device``): beam-search
-captions of each language's rows, batch by batch on one device (the CUDA
-card unless ``--device cpu``), scored against the TSV's captions.
+captions of each language's rows, batch by batch, scored against the TSV's
+captions.  With no ``--device`` the batch size is rounded up to a multiple
+of the visible cards, as mic_tpu rounds it to its mesh, and every batch is
+split over them (cli/caption.py::generate_over_devices); ``--device cpu``
+(or any one device) runs it there.
 
     python -m mic_tpu_torch.cli.evaluate --model_dir runs/cc12m/model \
         --tsv_path data/val.tsv --images_dir images/ --batch_size 64 --num_beams 4
@@ -12,9 +15,7 @@ from __future__ import annotations
 import argparse
 import json
 
-import torch
-
-from mic_tpu_torch.cli.caption import add_model_args, load_model
+from mic_tpu_torch.cli.caption import add_model_args, generate_over_devices, load_model
 
 
 def main(argv=None):
@@ -39,13 +40,14 @@ def main(argv=None):
     from mic_tpu_torch.evals.bleu import bleu_1_to_4
     from mic_tpu_torch.ops.image_prep import maybe_preprocess
 
-    model, params, tokenizer, device = load_model(args)
+    model, replicas, tokenizer, devices = load_model(args)
     dataset = CaptionDataset(args.tsv_path, args.images_dir)
     dec = model.config.decoder
+    batch_size = -(-args.batch_size // len(devices)) * len(devices)
 
     results = {}
     for lang, sub in dataset.split_by_language().items():
-        loader = CaptionLoader(sub, tokenizer, args.batch_size, image_size=args.decode_size,
+        loader = CaptionLoader(sub, tokenizer, batch_size, image_size=args.decode_size,
                                max_length=args.max_length, shuffle=False, drop_last=False)
         start = tokenizer.lang_code_to_id[lang]
         kw = {"pad": dict(decoder_start_token_id=dec.pad_token_id, forced_bos_token_id=start),
@@ -54,11 +56,11 @@ def main(argv=None):
         preds, refs = [], []
         try:
             for batch in loader.epoch_iterator(epoch=0):
-                pixels = maybe_preprocess(torch.from_numpy(batch["pixel_values"]).to(device),
-                                          model.config.vision.image_size, model.dtype)
-                seqs = model.generate(params, pixels, max_length=args.max_length,
-                                      num_beams=args.num_beams, **kw).sequences
-                preds.extend(tokenizer.batch_decode(seqs.cpu().numpy()))
+                seqs = generate_over_devices(
+                    model, replicas, devices, batch["pixel_values"],
+                    lambda u8: maybe_preprocess(u8, model.config.vision.image_size, model.dtype),
+                    max_length=args.max_length, num_beams=args.num_beams, **kw)
+                preds.extend(tokenizer.batch_decode(seqs))
                 refs.extend(tokenizer.batch_decode(batch["labels"]))
         finally:
             loader.close()

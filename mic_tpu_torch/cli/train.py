@@ -1,8 +1,17 @@
 """Training CLI of the port: the flags of ``python -m mic_tpu.cli.train``
 (``build_configs`` is the port's own copy of mic_tpu/cli/train.py's, plus
-``--device``), run by mic_tpu_torch's Trainer on one device: the CUDA card
-unless ``--device cpu`` asks for the CPU.  With no card and no ``--device``
-it raises; it never falls back to the CPU by itself.
+``--device``), run by mic_tpu_torch's Trainer: on one device, the CUDA card
+unless ``--device cpu`` asks for the CPU (with no card and no ``--device``
+it raises; it never falls back to the CPU by itself), or data-parallel in
+one process a card where the environment opts in, as mic_tpu's does
+(parallel/distributed.py::initialize_from_env, called first):
+
+    torchrun --nproc_per_node 8 -m mic_tpu_torch.cli.train ...   # with MIC_TPU_DISTRIBUTED=1
+    MIC_TPU_COORDINATOR=host0:1234 MIC_TPU_NUM_PROCESSES=8 MIC_TPU_PROCESS_ID=<rank> \
+        python -m mic_tpu_torch.cli.train ... --dp -1 [--fsdp true]
+
+(NCCL, each rank on cuda:LOCAL_RANK; MIC_TPU_DIST_BACKEND=gloo with
+``--device cpu`` for processes on the CPU).
 
 Example (a synthetic TSV of image names, captions, urls and language codes):
     python -m mic_tpu_torch.cli.train \
@@ -83,6 +92,11 @@ def build_configs(argv=None):
 
 def main(argv=None):
     model_config, data_config, train_config, args = build_configs(argv)
+    # several processes: the group first, before the Trainer builds its mesh
+    # (a no-op unless the environment opts in: parallel/distributed.py)
+    from mic_tpu_torch.parallel.distributed import initialize_from_env
+
+    initialize_from_env()
     from mic_tpu_torch.train.trainer import Trainer
 
     Trainer(model_config, data_config, train_config, tokenizer_path=args.tokenizer,

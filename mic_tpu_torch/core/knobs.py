@@ -22,8 +22,8 @@ The port's own copy of mic_tpu/core/knobs.py: the same ``override`` and the same
 meaning in both packages.
 
 Where the port reads a switch: the lazy beam step (models/mbart_decoder.py)
-reads MIC_TPU_FUSED_LAZY_ATTN ("1", "2"), fused_cross_attn, fused_mlp and
-ln_qkv; the greedy step fused_decode; the dense candidate select pallas_topk
+reads MIC_TPU_FUSED_LAZY_ATTN ("0", mic_tpu's XLA chain; "1"; "2"),
+fused_cross_attn, fused_mlp and ln_qkv, and in the chain attn_buckets; the greedy step fused_decode; the dense candidate select pallas_topk
 (generate/search.py::_topk_mode says why approx_topk and segmented_topk take
 the exact select); ``Captioner.generate`` merged_kv and merged_cross
 (ported: the lazy path's merged, padded cross cache and
@@ -32,14 +32,12 @@ ignores it, as in mic_tpu); the bucket select of ops/fused_head.py bucket_bv
 (the bucket width, which changes the candidates; its kernel takes multiples
 of 64 and raises NotImplementedError for other widths); the full-sequence
 attention of both towers (ops/attention.py::dot_product_attention)
-small_attn, on CUDA tensors, as mic_tpu reads it on the TPU. Switches whose
-mic_tpu path is not ported raise where mic_tpu reads them:
-MIC_TPU_FUSED_LAZY_ATTN=0 (mic_tpu's XLA lazy-attention chain). Switches
+small_attn, on CUDA tensors, as mic_tpu reads it on the TPU. Switches
 that only tune TPU tiling, bucketing or the shape of the layer loop leave
 every result the same and are accepted and ignored: cross_g (images per grid
 cell of mic_tpu's two cross-attention kernels: it changes the TPU grid only
-and gives the same bits), attn_buckets (static read-prefix buckets,
-bit-identical by construction), MIC_TPU_CACHE_SEGMENTS (phased cache growth,
+and gives the same bits), attn_buckets outside the chain (static read-prefix
+buckets, bit-identical by construction), MIC_TPU_CACHE_SEGMENTS (phased cache growth,
 bit-identical), MIC_TPU_DMA_G (images per DMA grid cell), and attn_bhtd,
 custom_scan_vjp, unroll_layers and scan_split_transpose (the training
 attention's operand layout and the layer scan's backward, which mic_tpu's

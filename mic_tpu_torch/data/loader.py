@@ -193,10 +193,14 @@ class CaptionLoader:
         # counts as consumed (checkpoints are written after the step finishes),
         # and code after a yield only runs on the *next* next() call.
         if self.num_workers == 0:
-            _init_worker(self.dataset, self.tokenizer, self.image_size,
-                         self.max_length, self.lang_codes)
             for b in batches:
                 self.next_batch += 1
+                # set before every batch: another loader iterated in this
+                # process between two of this one's batches (the trainer's
+                # eval, mid-epoch) left its own dataset there.  mic_tpu sets
+                # it once an epoch and then reads the eval split's rows.
+                _init_worker(self.dataset, self.tokenizer, self.image_size,
+                             self.max_length, self.lang_codes)
                 yield _make_batch(b)
         else:
             # bounded decode-ahead: keep (num_workers + prefetch) batches in

@@ -7,8 +7,11 @@ shape (bf16 moments stay bf16).
   (beside its config.json, models/captioner.py::save_pretrained);
 - ``TrainCheckpointManager``: ``<output_dir>/checkpoints/<step>/{state.pt,
   meta.json}``, the train state (train/state.py::checkpoint_tree) and the
-  data position, with rotation.  Saves are synchronous: ``wait`` and
-  ``close`` have nothing to finish.
+  data position, with rotation.  A save with ``data_meta`` (the
+  trainer's) is written before ``save`` returns; one without it is copied
+  to host memory and written by a background thread, as mic_tpu's Orbax
+  manager writes it (``enable_async_checkpointing``); ``wait`` and
+  ``close`` block on that write.
 
 Files are written under a temporary name, flushed to disk and renamed, so
 a step directory or a params file appears only when it is complete.
@@ -25,6 +28,7 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 from typing import Any, Optional
 
 import torch
@@ -66,6 +70,18 @@ def _detached(tree: Any) -> Any:
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
+def _host_copy(tree: Any) -> Any:
+    """Every tensor copied to host memory (a CPU tensor cloned too: the
+    optimizer updates params and moments in place while the copy is
+    written)."""
+    if isinstance(tree, dict):
+        return {key: _host_copy(value) for key, value in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach()
+        return tree.clone() if tree.device.type == "cpu" else tree.to("cpu")
+    return tree
+
+
 def save_params(directory: str, params: Any) -> None:
     directory = _abs(directory)
     os.makedirs(directory, exist_ok=True)
@@ -100,14 +116,26 @@ class TrainCheckpointManager:
     step, the dropout generator's state); meta.json the data position
     (epoch, batches consumed) so the loader can skip ahead.  Nothing is
     created on disk before the first save.
+
+    One write at a time: a save without ``data_meta`` hands its host copy to
+    a writer thread and returns; the next ``save``, ``wait``, ``close`` and
+    every read of the directory (``all_steps``, ``latest_step``,
+    ``restore``) first wait for it, and re-raise the error a failed write
+    left.  Rotation runs after a write completes, in the same thread.
     """
 
     def __init__(self, output_dir: str, max_to_keep: Optional[int] = 6):
         self.directory = os.path.join(_abs(output_dir), "checkpoints")
         self.max_to_keep = max_to_keep
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def all_steps(self) -> list[int]:
         """The complete steps on disk, oldest first."""
+        self.wait()
+        return self._steps_on_disk()
+
+    def _steps_on_disk(self) -> list[int]:
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(name) for name in os.listdir(self.directory) if name.isdigit())
@@ -118,14 +146,34 @@ class TrainCheckpointManager:
 
     def save(self, step: int, state: Any, data_meta: Optional[dict] = None) -> bool:
         """Write ``state`` (and ``data_meta``) as ``step``, then rotate.  A
-        step already on disk is not written again (False), as in mic_tpu."""
-        final = os.path.join(self.directory, str(step))
-        if os.path.isdir(final):
+        step already on disk is not written again (False), as in mic_tpu.
+        Without ``data_meta`` the write completes in the background."""
+        self.wait()
+        if os.path.isdir(os.path.join(self.directory, str(step))):
             return False
+        if data_meta is not None:
+            self._write_step(step, _detached(state), data_meta)
+            return True
+        host = _host_copy(state)
+        self._writer = threading.Thread(target=self._write_in_background, args=(step, host),
+                                        name=f"checkpoint-{step}", daemon=True)
+        self._writer.start()
+        return True
+
+    def _write_in_background(self, step: int, state: Any) -> None:
+        try:
+            self._write_step(step, state, None)
+        except BaseException as err:  # re-raised by the caller's next save/wait/close
+            self._error = err
+
+    def _write_step(self, step: int, state: Any, data_meta: Optional[dict]) -> None:
+        """The step directory under a temporary name, flushed, renamed into
+        place, then rotation."""
+        final = os.path.join(self.directory, str(step))
         os.makedirs(self.directory, exist_ok=True)
         tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=self.directory)
         try:
-            _write(_detached(state), os.path.join(tmp, STATE_FILE))
+            _write(state, os.path.join(tmp, STATE_FILE))
             if data_meta is not None:
                 with open(os.path.join(tmp, META_FILE), "w") as f:
                     json.dump(data_meta, f)
@@ -138,9 +186,8 @@ class TrainCheckpointManager:
             raise
         _sync_dir(self.directory)
         if self.max_to_keep is not None:
-            for old in self.all_steps()[:-self.max_to_keep]:
+            for old in self._steps_on_disk()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
-        return True
 
     @classmethod
     def open(cls, path: str) -> tuple["TrainCheckpointManager", Optional[int]]:
@@ -163,7 +210,9 @@ class TrainCheckpointManager:
 
     def restore(self, step: Optional[int] = None, device="cpu"):
         """(state tree on ``device``, data meta or None) of ``step`` (default:
-        the latest), or (None, None) when there is no checkpoint."""
+        the latest), or (None, None) when there is no checkpoint.  A write
+        in flight completes first."""
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
@@ -182,7 +231,16 @@ class TrainCheckpointManager:
         return state, meta
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """Block until no write is in flight; re-raise the error of a write
+        that failed (once)."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def close(self) -> None:
-        """Nothing is held open between calls."""
+        """Wait for the write in flight, as ``wait``; nothing else is held
+        open between calls."""
+        self.wait()

@@ -25,7 +25,8 @@ MIC_TPU_EXPERIMENTAL=merged_cross stores the lazy path's cross K/V merged
 and padded, (L, B, S_pad, H*Dh), and runs the merged cross-attention kernel
 (ops/cross_attention.py::fused_cross_attention_dma) in every layer; the
 physical cache ignores it, as mic_tpu does.  MIC_TPU_FUSED_LAZY_ATTN=0
-(mic_tpu's XLA chain) raises: that path is not ported.
+runs mic_tpu's XLA chain (nn/attention.py::lazy_attention_chain, plain
+tensor code; its int8 cache has a scale per head, as mode "1"'s).
 
 The full-sequence attention of both towers (the encoder, and the
 teacher-forced decoder's self-attention) follows mic_tpu's
@@ -317,9 +318,10 @@ class Captioner:
         # the lazy-attention mode, resolved once as mic_tpu resolves it (from
         # the environment; DecodeConfig.lazy_attn is never read), picks the
         # int8 cache's layout: per-row scales for mode "2", per-head ones for
-        # mode "1" (MIC_TPU_EXPERIMENTAL=merged_kv forces per-row)
+        # modes "1" and "0" (MIC_TPU_EXPERIMENTAL=merged_kv forces per-row)
         mode = lazy_attention.resolve_mode(gen.max_length)
-        merged = not (kv_quant == "int8" and mode == "1" and experimental("merged_kv") != "1")
+        merged = not (kv_quant == "int8" and mode in ("0", "1")
+                      and experimental("merged_kv") != "1")
         # the merged, padded cross cache and its kernel: lazy path only
         merged_cross = lazy and experimental("merged_cross") == "1"
 

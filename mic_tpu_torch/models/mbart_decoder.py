@@ -64,6 +64,19 @@ class DecoderTowerOutput(NamedTuple):
     cross_attentions: Optional[torch.Tensor] = None
 
 
+def attn_buckets(max_len: int) -> tuple:
+    """Static cache-read prefix lengths of the lazy-attention chain
+    (mic_tpu's ``_attn_buckets``): MIC_TPU_EXPERIMENTAL=attn_buckets=auto
+    (or 1) reads half or all of the window, a list like "16.32.64" those
+    prefixes; unset, "" or "0" reads the whole window."""
+    spec = experimental("attn_buckets", "0")
+    if spec in ("", "0"):
+        return ()
+    if spec in ("auto", "1"):
+        return (max_len // 2, max_len) if max_len >= 16 else ()
+    return tuple(int(s) for s in spec.replace(".", ",").split(","))
+
+
 def fuse_qkv_params(decoder_params: Params) -> Params:
     """Decode-only view: each layer's self-attention q/k/v denses become one
     (L, D, 3D) "qkv" dense, so a step runs one projection GEMM per layer."""
@@ -286,8 +299,13 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
       - MIC_TPU_FUSED_LAZY_ATTN (ops/lazy_attention.py::resolve_mode): "2"
         (the default) attends and writes the column in one kernel; "1" runs
         the blocked kernel on the per-step ancestry mask, built once and
-        shared by every layer.  Where mic_tpu would run its XLA chain (mode
-        "0", a shape mode "1" does not take) the port raises.
+        shared by every layer; "0", and "1" on a shape ``supports``
+        rejects, run mic_tpu's XLA chain (nn/attention.py::
+        lazy_attention_chain, plain tensor code) over the read prefixes of
+        MIC_TPU_EXPERIMENTAL=attn_buckets.  The mode and the shape decide
+        this before any launch; a kernel that fails still raises.
+        (Under attn_buckets mic_tpu takes the chain in modes "1" and "2"
+        too; the port keeps their kernels, which compute the same values.)
       - a merged cross cache (MIC_TPU_EXPERIMENTAL=merged_cross, resolved
         by the captioner): the merged cross-attention kernel over its first
         ``enc_len`` rows, whatever the next switch says;
@@ -300,9 +318,14 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
         GEMM (where ops/ln_gemm.py's guard passes).
     An int8 weight tree ("kernel_q") turns the last two off, as in mic_tpu."""
     index = cache.index
-    mode = lazy_attention.resolve_mode(cache.ancestry.shape[-1])
-    lazy_attention.check_mode(mode, cache.self_k[0], beams, cfg.num_heads, cfg.head_dim)
-    amask = lazy_attention.build_ancestry_mask(cache.ancestry, index) if mode == "1" else None
+    max_len = cache.ancestry.shape[-1]
+    mode = lazy_attention.resolve_mode(max_len)
+    lazy_attention.check_mode(mode)
+    chain = mode == "0" or (mode == "1" and not lazy_attention.supports(
+        cache.self_k[0], beams, cfg.num_heads, cfg.head_dim))
+    buckets = attn_buckets(max_len) if chain else ()
+    amask = (lazy_attention.build_ancestry_mask(cache.ancestry, index)
+             if mode == "1" and not chain else None)
     ln_fused = experimental("ln_qkv", "0") == "1" and not cfg.post_norm
     cross_kernel = (experimental("fused_cross_attn", "0") == "1" and enc_mask is None
                     and cross_attention.supports(cfg.num_heads, cfg.head_dim))
@@ -324,6 +347,7 @@ def _decoder_step_lazy(params: Params, shared: Params, token_ids: torch.Tensor,
             p["self_attn"], x, cache.self_k[layer], cache.self_v[layer], cache.ancestry, index,
             cfg.num_heads, beams, amask=amask,
             ln=(p["ln_self"], cfg.layer_norm_eps) if ln_fused else None,
+            chain=chain, buckets=buckets,
         )
 
     return _decoder_step_layers(params, shared, token_ids, cache, cfg, dtype, attend,

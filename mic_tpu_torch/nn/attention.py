@@ -1,7 +1,9 @@
 """Multi-head attention as functions over param dicts (mic_tpu/nn/attention.py).
 
 The query is scaled by head_dim**-0.5 before the score product; projections
-carry biases; scores and softmax run in float32.
+carry biases; scores and softmax run in float32.  ``lazy_attention_chain``
+is mic_tpu's XLA lazy-attention chain (lazy-attention mode "0"), plain
+tensor code on any device: mic_tpu runs it as XLA ops, not as a kernel.
 """
 
 from __future__ import annotations
@@ -106,9 +108,85 @@ def mha_decode_step(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     return dense(params["o"], merge_heads(out))
 
 
+_MASK_VALUE = torch.finfo(torch.float32).min
+
+
+def _write_column(cache, step: torch.Tensor, index: int, num_heads: int) -> None:
+    """Store the step rows (N, D) as column ``index`` of a (N, T, D) cache,
+    or quantized into an int8 one: a scale per row where its scales are
+    (N, T), per head where they are (N, T, H)."""
+    if not isinstance(cache, dict):
+        cache[:, index] = step
+        return
+    n, d = step.shape
+    per_head = cache["s"].ndim == 3
+    values, scales = quantize_rows_dynamic(
+        step.reshape(n, num_heads, d // num_heads) if per_head else step)
+    cache["q"][:, index] = values.reshape(n, d)
+    cache["s"][:, index] = scales[..., 0]
+
+
+def lazy_attention_chain(q, cache_k, cache_v, k_step, v_step, ancestry: torch.Tensor,
+                         index: int, num_heads: int, buckets: tuple = ()) -> torch.Tensor:
+    """mic_tpu's XLA lazy-attention chain, ``mha_decode_step_lazy`` without
+    ``amask``: the step's K/V are written into column ``index`` first
+    (quantized on an int8 cache), then every query beam scores every source
+    row's cached positions, masked to the rows its ancestry names and to
+    t <= index, with one softmax over (source row, position).
+
+    q, k_step, v_step (B, K, H*Dh), q already scaled; caches (B*K, T, H*Dh),
+    or int8 {"q", "s"} with per-row (B*K, T) or per-head (B*K, T, H) scales
+    (scales multiply the scores and the weights, never the cache); ancestry
+    (B, K, T) -> (B, K, H*Dh) in q.dtype.  ``buckets`` are the static read
+    prefixes of MIC_TPU_EXPERIMENTAL=attn_buckets: the shortest one covering
+    index + 1 is read (masked positions add exact zeros, so every prefix
+    gives the same values)."""
+    b, beams, d = q.shape
+    head_dim = d // num_heads
+    dtype = q.dtype
+    _write_column(cache_k, k_step.reshape(b * beams, d), index, num_heads)
+    _write_column(cache_v, v_step.reshape(b * beams, d), index, num_heads)
+    quant = isinstance(cache_k, dict)
+    t = (cache_k["q"] if quant else cache_k).shape[1]
+    q4 = q.reshape(b, beams, num_heads, head_dim)
+
+    def scales(cache, tb):
+        s = cache["s"][:, :tb]
+        if s.ndim == 2:  # per row: (B, 1, 1, J, tb), over every head and query beam
+            return s.reshape(b, beams, tb)[:, None, None]
+        return s.reshape(b, beams, tb, num_heads).permute(0, 3, 1, 2)[:, :, None]
+
+    def attend(tb: int) -> torch.Tensor:
+        kg, vg = ((c["q"] if quant else c)[:, :tb].reshape(b, beams, tb, num_heads, head_dim)
+                  for c in (cache_k, cache_v))
+        scores = torch.einsum("bkhd,bjthd->bhkjt", q4.float(), kg.to(dtype).float())
+        if quant:
+            scores = scores * scales(cache_k, tb)
+        live = torch.arange(tb, device=q.device) <= index
+        sel = ancestry[:, :, :tb, None] == torch.arange(beams, device=q.device,
+                                                         dtype=ancestry.dtype)
+        mask = (sel & live[None, None, :, None]).permute(0, 1, 3, 2)   # (B, K, J, tb)
+        scores = torch.where(mask[:, None], scores, _MASK_VALUE)
+        w = torch.softmax(scores.reshape(b, num_heads, beams, beams * tb), dim=-1)
+        w = w.reshape(b, num_heads, beams, beams, tb)
+        if quant:
+            w = w * scales(cache_v, tb)
+        return torch.einsum("bhkjt,bjthd->bkhd", w.to(dtype), vg.to(dtype))
+
+    if buckets:
+        tiers = sorted(min(tb, t) for tb in buckets)
+        if tiers[-1] != t:
+            tiers.append(t)
+        out = attend(tiers[sum(tb < index + 1 for tb in tiers[:-1])])
+    else:
+        out = attend(t)
+    return out.reshape(b, beams, d)
+
+
 def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k, cache_v,
                          ancestry: torch.Tensor, index: int, num_heads: int, beams: int,
-                         amask: torch.Tensor | None = None, ln=None) -> torch.Tensor:
+                         amask: torch.Tensor | None = None, ln=None, chain: bool = False,
+                         buckets: tuple = ()) -> torch.Tensor:
     """Cached beam self-attention on the lazy cache (never reordered).
 
     x (B*K, 1, D); params hold the fused "qkv" projection
@@ -116,8 +194,10 @@ def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k, cache_v,
     (B*K, T, D), or int8 {"q", "s"} dicts (ops/lazy_attention.py), gain
     column ``index`` in place.  Returns the (B*K, 1, D) output.
 
-    Without ``amask`` (mode "2") one kernel attends and writes the column.
-    With the step's (B, K*T, K) ancestry mask (mode "1") the blocked kernel
+    ``chain`` (mode "0", and mode "1" on a shape its kernel does not take)
+    runs ``lazy_attention_chain`` over the ``buckets`` read prefixes.
+    Otherwise, without ``amask`` (mode "2") one kernel attends and writes the
+    column; with the step's (B, K*T, K) ancestry mask (mode "1") the blocked kernel
     reads the pre-update cache, then the step K/V are stored as a plain
     tensor store, quantized per head on the int8 cache (mode "1" takes the
     canonical layout only).  ``ln`` = (ln params, eps) means x is the
@@ -137,17 +217,17 @@ def mha_decode_step_lazy(params: Params, x: torch.Tensor, cache_k, cache_v,
     q, k_step, v_step = torch.split(qkv.reshape(bk, one, 3 * d), d, dim=-1)
     q = q * (head_dim**-0.5)
     q, k_step, v_step = (t.reshape(b, beams, d).contiguous() for t in (q, k_step, v_step))
+    if chain:
+        out = lazy_attention_chain(q, cache_k, cache_v, k_step, v_step, ancestry, index,
+                                   num_heads, buckets)
+        return dense(params["o"], out.reshape(bk, one, d))
     if amask is None:
         attend = lazy_attention_q8 if isinstance(cache_k, dict) else lazy_attention
         out = attend(q, cache_k, cache_v, k_step, v_step, ancestry, index, num_heads)
         return dense(params["o"], out.reshape(bk, one, d))
     out = fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams, num_heads,
                                positions=index)
-    for cache, step in ((cache_k, k_step), (cache_v, v_step)):
-        if isinstance(cache, dict):  # the canonical int8 layout: a scale per head
-            values, scales = quantize_rows_dynamic(step.reshape(bk, num_heads, head_dim))
-            cache["q"][:, index] = values.reshape(bk, d)
-            cache["s"][:, index] = scales[..., 0]
-        else:
-            cache[:, index] = step.reshape(bk, d)
+    # the canonical int8 layout: a scale per head
+    _write_column(cache_k, k_step.reshape(bk, d), index, num_heads)
+    _write_column(cache_v, v_step.reshape(bk, d), index, num_heads)
     return dense(params["o"], out.reshape(bk, one, d))

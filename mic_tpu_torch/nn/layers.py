@@ -88,8 +88,9 @@ ACTIVATIONS = {
 
 def keep_mask(rng, shape, keep: float, device) -> torch.Tensor:
     """Bernoulli(keep) boolean mask: uniform < keep, as jax.random.bernoulli
-    draws it.  ``rng`` is a torch.Generator on ``device`` or a per-layer
-    mask stream of nn/stacked.py (remat)."""
+    draws it.  ``rng`` is a torch.Generator on ``device``, or any object
+    with its own ``keep_mask`` (a per-layer mask stream of nn/stacked.py
+    under remat, the data-parallel trainer's GlobalBatchMasks)."""
     if isinstance(rng, torch.Generator):
         return torch.rand(shape, generator=rng, device=device) < keep
     return rng.keep_mask(shape, keep, device)

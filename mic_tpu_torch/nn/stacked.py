@@ -14,6 +14,7 @@ from torch.utils.checkpoint import (
 )
 
 from mic_tpu_torch.core.params import Params, tree_map
+from mic_tpu_torch.nn.layers import keep_mask
 
 
 def init_stacked(num_layers: int, init_fn: Callable[[], Params]) -> Params:
@@ -39,18 +40,19 @@ def layer_slice(stacked: Params, layer: int) -> Params:
 
 class MaskStream:
     """Dropout keep-masks for one run of a layer body, in the order the body
-    asks for them: drawn from ``generator`` (each appended to ``record`` when
-    given), or handed back from ``replay``."""
+    asks for them: drawn from ``rng`` (a torch.Generator or an object with
+    its own ``keep_mask``; each appended to ``record`` when given), or
+    handed back from ``replay``."""
 
-    def __init__(self, generator=None, record=None, replay=None):
-        self._generator = generator
+    def __init__(self, rng=None, record=None, replay=None):
+        self._rng = rng
         self._record = record
         self._replay = replay
 
     def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
         if self._replay is not None:
             return next(self._replay)
-        mask = torch.rand(shape, generator=self._generator, device=device) < keep
+        mask = keep_mask(self._rng, shape, keep, device)
         if self._record is not None:
             self._record.append(mask)
         return mask
@@ -62,21 +64,25 @@ class _LayerRng:
     masks.  ``torch.utils.checkpoint`` restores only the default generators,
     never a user's, so "masks" keeps the masks the forward drew and replays
     them (mic_tpu's save_only_these_names("dropout_mask")), and "full" keeps
-    only the generator's state and draws them again from a copy."""
+    only the generator's state and draws them again from a copy.  ``rng``
+    is a torch.Generator, or an object with ``keep_mask``, ``get_state``
+    and ``with_state(state)`` (a copy drawing from that state)."""
 
-    def __init__(self, generator: torch.Generator, keep_masks: bool):
-        self._generator = generator
+    def __init__(self, rng, keep_masks: bool):
+        self._rng = rng
         self._masks = [] if keep_masks else None
-        self._state = None if keep_masks else generator.get_state()
+        self._state = None if keep_masks else rng.get_state()
         self._runs = 0
 
     def stream(self) -> MaskStream:
         self._runs += 1
         if self._runs == 1:
-            return MaskStream(self._generator, record=self._masks)
+            return MaskStream(self._rng, record=self._masks)
         if self._masks is not None:
             return MaskStream(replay=iter(self._masks))
-        copy = torch.Generator(device=self._generator.device)
+        if not isinstance(self._rng, torch.Generator):
+            return MaskStream(self._rng.with_state(self._state))
+        copy = torch.Generator(device=self._rng.device)
         copy.set_state(self._state)
         return MaskStream(copy)
 

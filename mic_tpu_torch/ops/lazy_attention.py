@@ -28,7 +28,8 @@ some beam admits gathered into a list, their K and V head rows copied into
 shared memory once, both products on mma.sync (``blocked_layout`` lays out
 the block's shared memory).  Its plain version is ``attend_rows_plain``,
 mic_tpu's _attend_tiles, which ops/cross_attention.py shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
-mode "0" (mic_tpu's XLA chain) is not ported.
+mode "0", mic_tpu's XLA chain, is plain tensor code in
+nn/attention.py::lazy_attention_chain.
 
 Each wrapper takes the plain version for tensors on the CPU and its kernel
 (csrc/lazy_attention.cu) for tensors on a CUDA device; it never falls back
@@ -280,9 +281,10 @@ def q8_walk(index: int, groups: int) -> list[list[int]]:
 
 
 def resolve_mode(max_length: int, mode: str = "auto") -> str:
-    """mic_tpu's lazy decode-attention mode: "0" (its XLA chain, not
-    ported), "1" (the blocked kernel, ``fused_lazy_attention``), "2" (the
-    kernel that writes the column itself, ``lazy_attention``).  The
+    """mic_tpu's lazy decode-attention mode: "0" (its XLA chain,
+    nn/attention.py::lazy_attention_chain), "1" (the blocked kernel,
+    ``fused_lazy_attention``), "2" (the kernel that writes the column
+    itself, ``lazy_attention``).  The
     MIC_TPU_FUSED_LAZY_ATTN override wins, then ``mode``, then "auto",
     which is "2": mic_tpu's choice on its accelerator.  (Off the TPU
     mic_tpu's "auto" is "0"; the port runs mode "2" on the CPU too, whose
@@ -308,19 +310,15 @@ def supports(cache_k, beams: int, num_heads: int, head_dim: int) -> bool:
     return (num_heads * head_dim) % 128 == 0 and (beams * t) % 16 == 0
 
 
-def check_mode(mode: str, cache_k, beams: int, num_heads: int, head_dim: int) -> None:
-    """Raise where mic_tpu would run its XLA lazy-attention chain, which the
-    port has not ported: mode "0", and mode "1" on a shape ``supports``
-    rejects."""
+def check_mode(mode: str) -> None:
+    """Raise on a MIC_TPU_FUSED_LAZY_ATTN value that is no mode.  Every mode
+    runs: "2" and "1" on their kernels, "0" on mic_tpu's XLA chain
+    (nn/attention.py::lazy_attention_chain), which mic_tpu also takes for
+    mode "1" where ``supports`` rejects the shape
+    (models/mbart_decoder.py::_decoder_step_lazy decides, before any
+    launch)."""
     if mode not in ("0", "1", "2"):
         raise ValueError(f"unknown MIC_TPU_FUSED_LAZY_ATTN mode {mode!r}")
-    if mode == "2" or (mode == "1" and supports(cache_k, beams, num_heads, head_dim)):
-        return
-    raise NotImplementedError(
-        f"MIC_TPU_FUSED_LAZY_ATTN={mode} (beams={beams}, heads={num_heads}, "
-        f"head_dim={head_dim}): mic_tpu runs its XLA lazy-attention chain here, which is "
-        "not ported (ROADMAP A9)"
-    )
 
 
 def build_ancestry_mask(ancestry: torch.Tensor, index: int) -> torch.Tensor:

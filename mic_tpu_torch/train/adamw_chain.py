@@ -77,10 +77,12 @@ def make_adamw_chain(learning_rate: Union[float, Callable], *, b1: float = 0.9,
         return AdamWChainState(0, mu, nu)
 
     @torch.no_grad()
-    def update(grads, state: AdamWChainState, params):
+    def update(grads, state: AdamWChainState, params, grad_norm=None):
+        """``grad_norm``: the gradients' global norm where they are parts of
+        a larger tree (the FSDP step), else computed here."""
         flat_g = [g.float() for g in _leaves(grads)]
         if max_grad_norm is not None:  # optax's select, with no read back to the host
-            g_norm = global_norm(flat_g)
+            g_norm = global_norm(flat_g) if grad_norm is None else grad_norm
             keep = g_norm < max_grad_norm
             flat_g = [torch.where(keep, g, (g / g_norm) * max_grad_norm) for g in flat_g]
         count = state.count + 1

@@ -60,7 +60,7 @@ def make_fused_adamw(learning_rate: Union[float, Callable], *, b1: float = 0.9,
 
     @torch.no_grad()
     def step(params, grads, state: FusedAdamWState, shadow_spec=None,
-             shadow_dtype: torch.dtype = torch.bfloat16):
+             shadow_dtype: torch.dtype = torch.bfloat16, grad_norm=None):
         count = state.count + 1
         cf = torch.tensor(count, dtype=torch.float32)
         inv_bc1 = 1.0 / (1.0 - b1 ** cf)
@@ -69,7 +69,8 @@ def make_fused_adamw(learning_rate: Union[float, Callable], *, b1: float = 0.9,
         flat_g = _leaves(grads)
         gscale = None
         if max_grad_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
+            gnorm = (torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
+                     if grad_norm is None else grad_norm)
             gscale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         mask = decay_mask_fn(params) if decay_mask_fn is not None else None
         flat_p = _leaves(params)
@@ -98,18 +99,21 @@ def make_fused_adamw(learning_rate: Union[float, Callable], *, b1: float = 0.9,
 
 
 def apply_gradients(optimizer, params, grads, opt_state, shadow_spec=None,
-                    shadow_dtype: torch.dtype = torch.bfloat16):
+                    shadow_dtype: torch.dtype = torch.bfloat16, grad_norm=None):
     """One optimizer application, fused or the optax chain
     (train/adamw_chain.py): (params', state'), or (params', state',
     shadow') when ``shadow_spec`` (train/shadow.py::shadow_spec) is given.
     The chain applies its updates tree in a second pass and casts the shadow
-    in a third, as mic_tpu's optax path does (the same values)."""
+    in a third, as mic_tpu's optax path does (the same values).
+    ``grad_norm`` is the global norm that clipping reads, where ``grads``
+    are this rank's parts of the gradients (FSDP)."""
     if isinstance(optimizer, FusedAdamW):
-        return optimizer.step(params, grads, opt_state, shadow_spec, shadow_dtype)
+        return optimizer.step(params, grads, opt_state, shadow_spec, shadow_dtype,
+                              grad_norm=grad_norm)
     from mic_tpu_torch.train.adamw_chain import apply_updates
     from mic_tpu_torch.train.shadow import cast_shadow
 
-    updates, opt_state = optimizer.update(grads, opt_state, params)
+    updates, opt_state = optimizer.update(grads, opt_state, params, grad_norm=grad_norm)
     params = apply_updates(params, updates)
     if shadow_spec is None:
         return params, opt_state

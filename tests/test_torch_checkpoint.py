@@ -12,6 +12,7 @@ flash-CE in interpret mode, the port in its plain versions.
 
 import json
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -170,6 +171,75 @@ def test_rotation_keeps_save_total_limit(tmp_path):
     assert opened.restore(7)[1] is None
     opened.wait()
     opened.close()
+
+
+def test_save_without_data_meta_writes_in_the_background(tmp_path, monkeypatch):
+    """A save without data_meta returns while its write is held (no step
+    directory yet, the caller's tensors free to change in place), ``wait``
+    returns once the directory is complete, and the restore is bit-equal to
+    the state as it was at the save, and to mic_tpu's Orbax manager's
+    background save of the same tree waited on alike.  A save with
+    data_meta is complete when it returns."""
+    from mic_tpu_torch.io import checkpoint
+
+    release = threading.Event()
+    real_write = checkpoint._write
+
+    def held_write(obj, path):
+        assert release.wait(timeout=60)
+        real_write(obj, path)
+
+    monkeypatch.setattr(checkpoint, "_write", held_write)
+    manager = TrainCheckpointManager(str(tmp_path / "port"), max_to_keep=2)
+    tree = _tree(5)
+    want = {"w": tree["params"]["w"].clone(), "mu": tree["opt_state"]["mu"]["w"].clone()}
+    assert manager.save(5, tree) is True
+    assert not (tmp_path / "port" / "checkpoints" / "5").exists()
+    tree["params"]["w"].add_(1.0)           # the optimizer's in-place update
+    tree["opt_state"]["mu"]["w"].mul_(2.0)
+    release.set()
+    manager.wait()
+    assert sorted(os.listdir(tmp_path / "port" / "checkpoints")) == ["5"]
+    assert sorted(os.listdir(tmp_path / "port" / "checkpoints" / "5")) == ["state.pt"]
+    got, meta = manager.restore(5)
+    assert meta is None and got["step"] == 5
+    assert _same_bits(got["params"]["w"], want["w"])
+    assert _same_bits(got["opt_state"]["mu"]["w"], want["mu"])
+
+    jax_manager = jax_checkpoint.TrainCheckpointManager(str(tmp_path / "jax"))
+    jax_manager.save(5, {"w": jnp.asarray(want["w"].numpy())})
+    jax_manager.wait()
+    jax_got, _ = jax_manager.restore({"w": jnp.zeros((4, 4), jnp.float32)}, step=5)
+    jax_manager.close()
+    assert np.array_equal(_bits(got["params"]["w"]), _bits(np.asarray(jax_got["w"])))
+
+    # a second save waits for the first; rotation runs after each write
+    for step in (6, 7):
+        manager.save(step, _tree(step))
+    manager.close()
+    assert manager.all_steps() == [6, 7]
+    assert not [n for n in os.listdir(tmp_path / "port" / "checkpoints") if n.startswith(".")]
+    assert manager.save(8, _tree(8), data_meta={"epoch": 1, "next_batch": 0})
+    assert sorted(os.listdir(tmp_path / "port" / "checkpoints")) == ["7", "8"]
+
+
+def test_a_failed_background_write_raises_at_the_next_call(tmp_path, monkeypatch):
+    """A writer that fails leaves no directory and re-raises its error at
+    the next ``wait``, ``save`` or ``close``, once each time it fails."""
+    from mic_tpu_torch.io import checkpoint
+
+    def failing_write(obj, path):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(checkpoint, "_write", failing_write)
+    manager = TrainCheckpointManager(str(tmp_path))
+    for call in (manager.wait, lambda: manager.save(4, _tree(4)), manager.close):
+        assert manager.save(3, _tree(3)) is True
+        with pytest.raises(OSError, match="No space left"):
+            call()
+        manager.wait()  # raised once
+        assert manager.all_steps() == []
+    assert os.listdir(tmp_path / "checkpoints") == []
 
 
 # -- the trainer -----------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The fully fused lazy beam step (MIC_TPU_FUSED_LAZY_ATTN=1 with
 MIC_TPU_EXPERIMENTAL=fused_cross_attn,fused_mlp,ln_qkv) against mic_tpu,
-its gates, and the switches the port refuses.
+its gates, and the switches the port refused until mode "0" was ported.
 
 On the CPU the port runs each kernel's plain version, and mic_tpu, whose
 gates want its accelerator, runs its XLA path: the lazy-attention chain,
@@ -324,31 +324,34 @@ def test_decode_config_lazy_attn_is_not_read(monkeypatch):
 
 
 REFUSED = {
-    # mic_tpu's XLA lazy-attention chain: not ported
-    "lazy_attn_0": ({"MIC_TPU_FUSED_LAZY_ATTN": "0"}, "generate", {}, "ROADMAP A9"),
-    # shapes mode "1" does not take, where mic_tpu runs that chain too
+    # the switches the port refused until mic_tpu's XLA lazy-attention chain
+    # was ported (ROADMAP A9): mode "0" ...
+    "lazy_attn_0": ({"MIC_TPU_FUSED_LAZY_ATTN": "0"}, "generate", {}),
+    # ... and shapes mode "1" does not take, where mic_tpu runs that chain too
     "lazy_attn_1_beams_t": ({"MIC_TPU_FUSED_LAZY_ATTN": "1"}, "generate",
-                            dict(max_length=10), "ROADMAP A9"),
-    "lazy_attn_1_width": ({"MIC_TPU_FUSED_LAZY_ATTN": "1"}, "generate_narrow", {},
-                          "ROADMAP A9"),
+                            dict(max_length=10)),
+    "lazy_attn_1_width": ({"MIC_TPU_FUSED_LAZY_ATTN": "1"}, "generate_narrow", {}),
     "lazy_attn_1_per_row_int8": ({"MIC_TPU_FUSED_LAZY_ATTN": "1",
                                   "MIC_TPU_EXPERIMENTAL": "merged_kv"}, "generate",
-                                 dict(kv_quant="int8"), "ROADMAP A9"),
+                                 dict(kv_quant="int8")),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_switches_raise(case, monkeypatch):
-    """A switch whose mic_tpu path is not ported raises, naming itself and
-    its ROADMAP item, where mic_tpu reads it; no other path runs."""
-    env, entry, kw, item = REFUSED[case]
+    """The switches that raised while mic_tpu's chain was not ported now run
+    it where mic_tpu reads them, and raise nothing: beam-4 sequences equal
+    to mic_tpu's CPU generate (which runs the same chain) and scores within
+    1e-5, as test_torch_captioner.py's beam cases."""
+    env, entry, kw = REFUSED[case]
     _set(monkeypatch, env)
-    if entry == "generate_narrow":
-        config = port_config.CaptionerConfig.tiny()   # H*Dh = 32
-        entry = "generate"
-    else:
-        config = _port(_config())
-    params = init_params(config, torch.Generator().manual_seed(0))
-    px = preprocess_images(torch.from_numpy(_images(n=1)), 32)
-    with pytest.raises(NotImplementedError, match=item):
-        Captioner(config).generate(params, px, num_beams=4, **{"max_length": 8, **kw})
+    config = CaptionerConfig.tiny() if entry == "generate_narrow" else _config()  # H*Dh 32
+    jax_model, jparams, model, tparams = _models(config, seed=2, scale=0.5)
+    u8 = _images(n=2, seed=3)
+    kw = dict(num_beams=4, forced_bos_token_id=7, **{"max_length": 8, **kw})
+    ref = jax.jit(lambda p, x: jax_model.generate(p, x, **kw))(
+        jparams, jax_preprocess(jnp.asarray(u8), 32))
+    out = model.generate(tparams, preprocess_images(torch.from_numpy(u8), 32), **kw)
+    np.testing.assert_array_equal(out.sequences.numpy(), np.asarray(ref.sequences))
+    np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores), rtol=1e-5,
+                               atol=1e-5)

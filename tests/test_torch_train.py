@@ -428,19 +428,23 @@ def test_remat_grads_equal_no_remat_with_dropout():
 
 
 def test_dots_remat_and_unported_options_raise(tmp_path):
-    """remat "dots", profile_steps and fused_adamw=False (with a float32
-    nu) are ported and take a finite step (tests/test_torch_train_options.py
-    holds them to mic_tpu); the mesh options still raise, naming A7."""
+    """remat "dots", profile_steps, fused_adamw=False (with a float32 nu)
+    and fsdp (at one process, the single-device layout) are ported and take
+    a finite step (tests/test_torch_train_options.py and
+    tests/test_torch_parallel.py hold them to mic_tpu); tp > 1 raises,
+    naming A7b, and dp=2 in a one-process world raises mic_tpu's mesh
+    error."""
     config = _config()
     for ported in (dict(remat="dots"), dict(profile_steps="1:2"),
-                   dict(fused_adamw=False, adam_nu_dtype="float32")):
+                   dict(fused_adamw=False, adam_nu_dtype="float32"), dict(fsdp=True)):
         trainer = _trainer(config, **ported)
         state, metrics = trainer.train_step(trainer.init_state(),
                                             trainer.put_batch(_batch(config)))
         assert math.isfinite(metrics["loss"].item()), ported
-    for bad in (dict(dp=2), dict(tp=2), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            _trainer(config, **bad)
+    with pytest.raises(NotImplementedError, match="A7b"):
+        _trainer(config, tp=2)
+    with pytest.raises(ValueError, match=r"dp\*tp = 2\*1 != 1 devices"):
+        _trainer(config, dp=2)
     # resume_from is ported: a path with no checkpoints is file-not-found
     trainer = _trainer(config, resume_from=str(tmp_path / "x"),
                        output_dir=str(tmp_path / "run"))
