@@ -268,7 +268,23 @@ Phases, each of which raises on failure (none catches its own):
      with fsdp against one process on the same global batch (losses,
      params), rows 7 f32 and 8 f32 three times in each rank, each rank's
      state about half the whole's under fsdp, and the fsdp checkpoint
-     resumed bit-equal in two ranks and in one.
+     resumed bit-equal in two ranks and in one;
+ 61. the ViT-B/16 + BART-large preset trains (CaptionerConfig.
+     vit_b16_bart_large, full width and depth): rows 7 and 8 against plain
+     at its step (N=4096, V=50265, bf16 and float32) and timed beside
+     their bounds; the Trainer's three steps of 64 x 64 in bf16 and in
+     float32 through rows 7 and 8 once a step, beside the plain dl route's
+     losses; in bf16 a save after step 2 restored by a new Trainer and its
+     step 3 bit-equal; Trainer.generate_step (beam 4, B=8) through rows 1
+     and 4 at V=50265;
+ 62. the untied flagship (tie_word_embeddings=False, bf16, full width and
+     depth) trains: rows 7 and 8 on lm_head's table once a step, against
+     the same steps on the dense logits (losses, lm_head's and the shared
+     table's first gradients), the table's (V, D) copy timed;
+ 63. tools/torch_translate.py at mBART-50's width (random weights written
+     as pytorch_model.bin, bf16): 256 report rows, chunk 64, the four
+     languages, row 19 twice a step in each translated chunk; a small
+     config's rows on the card equal to the CPU's.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -883,16 +899,17 @@ def _ce_rows(dev, n, seed, v=CE_V):
     return hidden, labels
 
 
-def check_flash_ce_forward(dev, weight, bias):
-    """Kernel 3 against its plain version: lse and label logit within 1e-3
-    relative, sum of logits within 1e-3 of the row's sum of |logits|; the
-    smoothed loss built from each within 1e-3 relative."""
+def check_flash_ce_forward(dev, weight, bias, cases=CE_CASES):
+    """Kernel 3 against its plain version at each (N, V) of ``cases`` (the
+    table's first V rows): lse and label logit within 1e-3 relative, sum of
+    logits within 1e-3 of the row's sum of |logits|; the smoothed loss
+    built from each within 1e-3 relative."""
     from mic_tpu_torch.ops.fused_ce import expected_logit, normalizing
     from mic_tpu_torch.ops.flash_ce import flash_ce_forward, flash_ce_forward_plain
 
     worst = 0.0
     wf = weight.float()
-    for n, v in CE_CASES:
+    for n, v in cases:
         tw, tb = weight[:v], bias[:v]
         hidden, labels = _ce_rows(dev, n, n, v)
         out = flash_ce_forward(hidden, tw, tb, labels)
@@ -925,17 +942,17 @@ def _bf16_ulp(x):
     return torch.where(x == 0, 2.0**-133, ulp)
 
 
-def check_flash_ce_dl(dev, weight, bias):
-    """Kernel 4 against its plain version: dl within one bf16 ulp of the
-    plain bf16 dl (plus one of its terms where they cancel), rows with
-    rowscale 0 zero, nothing written past dl's last row; dbias within 1e-4
-    of its largest entry."""
+def check_flash_ce_dl(dev, weight, bias, cases=CE_CASES):
+    """Kernel 4 against its plain version at each (N, V) of ``cases``: dl
+    within one bf16 ulp of the plain bf16 dl (plus one of its terms where
+    they cancel), rows with rowscale 0 zero, nothing written past dl's last
+    row; dbias within 1e-4 of its largest entry."""
     from mic_tpu_torch.ops.flash_ce import (
         _targets, flash_ce_dl, flash_ce_dl_plain, flash_ce_forward_plain,
     )
 
     worst = 0.0
-    for n, v in CE_CASES:
+    for n, v in cases:
         tw, tb = weight[:v], bias[:v]
         hidden, labels = _ce_rows(dev, n, n + 1, v)
         lse = flash_ce_forward_plain(hidden, tw, tb, labels)[0]
@@ -5559,6 +5576,504 @@ def run_cards(cards: int) -> None:
     print(json.dumps({"ok": True, "cards": cards}), flush=True)
 
 
+FAMILY_V = 50265  # BART-large's vocab: the family's head, at D=1024
+FAMILY_N = 4096   # rows of the family's train step, 64 x 64
+
+
+def check_family_kernels(dev):
+    """Phase 61's kernel checks: rows 7 and 8 at the family's step, N=4096
+    rows over BART-large's V=50265 (its last 256-wide tile holds 89
+    columns, a 128-wide f32 tile 89), D=1024.  bf16 against the plain
+    versions with phases 7 and 8's tolerances; float32 (the 3xTF32 walks)
+    with phase 51's: lse within 1e-5 relative, the label logit within
+    1e-5, the sum of logits within 1e-5 of the row's L1, dl within 1e-4 of
+    |dl| plus its terms, dbias within 1e-5 of its largest entry.  Row 4 at
+    the family's eval (B=8 x beam 4: N=32, k=9, V=50265), bf16 and float32
+    (the 3xTF32 tile), with phases 3's and 51's tolerances.  Then each
+    timed (graph replays) beside its plain version and its bound ->
+    {name: (max_abs_err, kernel ms, plain ms, (bound ms, by))}."""
+    from mic_tpu_torch.ops.flash_ce import (
+        _targets, flash_ce_dl, flash_ce_dl_plain, flash_ce_forward, flash_ce_forward_plain,
+    )
+
+    weight, bias = _ce_table(dev)
+    weight, bias = weight[:FAMILY_V].contiguous(), bias[:FAMILY_V].contiguous()
+    fwd_err = check_flash_ce_forward(dev, weight, bias, cases=((FAMILY_N, FAMILY_V),))
+    dl_err = check_flash_ce_dl(dev, weight, bias, cases=((FAMILY_N, FAMILY_V),))
+    out = {}
+    n, v = FAMILY_N, FAMILY_V
+    for kind, w, b in (("", weight, bias), ("_f32", *_f32_table(dev, v, CE_D, 61))):
+        hidden, labels = _ce_rows(dev, n, 610, v)
+        if kind:
+            hidden = hidden.float()
+            got = flash_ce_forward(hidden, w, b, labels)
+            ref = flash_ce_forward_plain(hidden, w, b, labels)
+            l1 = torch.cat([(hidden[i:i + 512] @ w.T + b).abs().sum(-1)
+                            for i in range(0, n, 512)])
+            torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+            torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+            require(((got[2] - ref[2]).abs() / l1).max().item() < 1e-5,
+                    f"flash_ce_forward f32 N={n} V={v}: sum of logits")
+            fwd = (got[0] - ref[0]).abs().max().item()
+            rs = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(61),
+                            device=dev) / n
+            dl, dbias = flash_ce_dl(hidden, w, b, labels, ref[0], rs, 0.1)
+            rdl, rdbias = flash_ce_dl_plain(hidden, w, b, labels, ref[0], rs, 0.1)
+            low, conf_low = _targets(0.1, v)
+            target = torch.full_like(rdl, low)
+            target.scatter_(1, labels[:, None].long(), low + conf_low)
+            d_ = (dl - rdl).abs()
+            require(bool((d_ <= 1e-4 * (rdl.abs() + 2 * target * rs[:, None])).all()),
+                    f"flash_ce_dl f32 N={n} V={v}: dl beyond 1e-4")
+            require((dbias - rdbias).abs().max().item() < 1e-5 * rdbias.abs().max().item(),
+                    f"flash_ce_dl f32 N={n} V={v}: dbias")
+            dl_err_f32 = d_.max().item()
+            print(f"flash_ce_forward f32 N={n} D={CE_D} V={v}: lse max_abs_err={fwd:.3g}; "
+                  f"flash_ce_dl f32: dl max_abs_err={dl_err_f32:.3g}", flush=True)
+            del dl, rdl, target, d_
+            errs = {"fwd": fwd, "dl": dl_err_f32}
+        else:
+            errs = {"fwd": fwd_err, "dl": dl_err}
+        lse = flash_ce_forward_plain(hidden, w, b, labels)[0]
+        rs = torch.full((n,), 1.0 / n, device=dev)
+        bounds = (f32_bounds(1, 1, n, CE_D, v) if kind else flash_ce_bounds(n, CE_D, v))
+        for row, name, kernel, plain in (
+                ("fwd", "flash_ce_forward", lambda: flash_ce_forward(hidden, w, b, labels),
+                 lambda: flash_ce_forward_plain(hidden, w, b, labels)),
+                ("dl", "flash_ce_backward_dl",
+                 lambda: flash_ce_dl(hidden, w, b, labels, lse, rs, 0.1),
+                 lambda: flash_ce_dl_plain(hidden, w, b, labels, lse, rs, 0.1))):
+            k_ms = graph_ms(kernel, reps=3, runs=5)
+            p_ms = graph_ms(plain, reps=1, runs=3)
+            key = name + kind
+            b_ms, by = bounds[key]
+            out[key] = (errs[row], k_ms, p_ms, (b_ms, by))
+            print(f"{key} at the family's step N={n} D={CE_D} V={v} (graph replays): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), the kernel "
+                  f"at {b_ms / k_ms:.1%} of it", flush=True)
+        del hidden, labels, lse, w, b
+        torch.cuda.empty_cache()
+    from mic_tpu_torch.ops.fused_head import _logits, fused_head_topk, fused_head_topk_plain
+
+    n, k = 32, 9
+    for kind in ("", "_f32"):
+        if kind:
+            w, b = _f32_table(dev, v, CE_D, 62)
+            hidden = _hidden(dev, n, CE_D, 620).float()
+            b_ms, by = f32_bounds(1, n, 1, CE_D, v)["fused_head_bucket_f32"]
+        else:
+            w, b = _bf16_head_cases(dev, [(n, CE_D, v, k)], 62)[CE_D, v]
+            hidden = _hidden(dev, n, CE_D, 620)
+            b_ms, by = head_bound(n, CE_D, v, k, 2, "bf16")
+        got = fused_head_topk(hidden, w, b, k)
+        ref = fused_head_topk_plain(hidden, w, b, k, "bucket")
+        torch.cuda.synchronize()
+        what = f"fused_head_bucket{kind} N={n} D={CE_D} V={v} k={k}"
+        logits = _logits(hidden, w, b)
+        err, ties = (_f32_head_case(got, ref, logits, what) if kind
+                     else _bf16_head_case(got, ref, logits, what, True))
+        k_ms = graph_ms(lambda: fused_head_topk(hidden, w, b, k))
+        p_ms = graph_ms(lambda: fused_head_topk_plain(hidden, w, b, k, "bucket"), reps=2, runs=5)
+        out[f"fused_head_bucket{kind}"] = (err, k_ms, p_ms, (b_ms, by))
+        print(f"{what}: lp max_abs_err={err:.3g}, near-tie id differences={ties}; (graph "
+              f"replays) kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), "
+              f"the kernel at {b_ms / k_ms:.1%} of it", flush=True)
+        del w, b, hidden, logits
+    return out
+
+
+def run_family_training(dev, root):
+    """Phase 61: the ViT-B/16 + BART-large preset trains
+    (CaptionerConfig.vit_b16_bart_large: the ViT tower of 12 x 768, patch
+    16, 197 rows; the post-norm 12-layer BART-large decoder; the tied head
+    of V = 50265) at full width and depth, in bf16 and in float32 (its
+    default dtype): the port's Trainer at the TrainConfig defaults (batch
+    64 x 64 tokens, dropout 0.1, remat "masks", fused CE on the dl route,
+    bf16 moments; the bf16 shadow in bf16) with warmup_steps=2, three steps
+    from seed 0, the training counters set to 0 just before them and read
+    just after: rows 7 and 8 (their float32 forms in float32) once a step,
+    no other training kernel.  The same three steps on rows 7 and 8's plain
+    versions (the plain "dl" route on the card): the first loss within 1e-5
+    relative, the next two within 1e-4 (phase 53's limits).  In bf16 the
+    state saved after step 2 (synchronously) and restored by a new Trainer
+    takes step 3 bit-equal to the uninterrupted run (its loss and every
+    param, moment and shadow leaf).  Eval: ``Trainer.generate_step`` (beam
+    4, max_length 64) of B=8 images, the serving counters set to 0 just
+    before it: row 1 twelve times a decode step and row 4 (bf16 or f32) at
+    least once a step at V = 50265 -> launches by instance name."""
+    import mic_tpu_torch.ops.fused_ce as fused_ce_mod
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl_plain, flash_ce_forward_plain
+    from mic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        config = CaptionerConfig.vit_b16_bart_large(dtype=dtype)
+        require(config.decoder.vocab_size == FAMILY_V and config.decoder.post_norm
+                and not config.vision.use_pre_ln, "vit_b16_bart_large: unexpected preset")
+        tc = TrainConfig(warmup_steps=2, output_dir=os.path.join(root, dtype))
+        host = _train_batches(config, 3, tc.per_device_batch_size, DataConfig().max_seq_length,
+                              61)
+        runs = {}
+        for label in ("kernels", "plain"):
+            swaps = (() if label == "kernels" else (
+                (fused_ce_mod, "flash_ce_forward", flash_ce_forward_plain),
+                (fused_ce_mod, "flash_ce_backward_dl", flash_ce_backward_dl_plain)))
+            t0 = time.perf_counter()
+            trainer = Trainer(config, DataConfig(), tc, device=dev)
+            trainer.build(steps_per_epoch=len(host))
+            state = trainer.init_state()
+            batches = [trainer.put_batch(b) for b in host]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _train_counts(reset=True)
+            losses, ms = [], []
+            with plain_versions(*swaps):
+                for step, batch in enumerate(batches):
+                    if label == "kernels" and dtype == "bfloat16" and step == 2:
+                        t_save = time.perf_counter()
+                        trainer.save(2, state, {"epoch": 0, "next_batch": 2})
+                        save_s = time.perf_counter() - t_save
+                    t1 = time.perf_counter()
+                    state, metrics = trainer.train_step(state, batch)
+                    losses.append(metrics["loss"].item())
+                    ms.append((time.perf_counter() - t1) * 1e3)
+            got = {k: v for k, v in _train_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"ViT-B/16 + BART-large training ({dtype}), {label}: losses {losses}, launches "
+                  f"{got}, peak allocated {peak:.2f} GiB, step times "
+                  f"{[round(x, 1) for x in ms]} ms (smoke figures, not a benchmark), "
+                  f"{time.perf_counter() - t0:.1f} s with init", flush=True)
+            require(all(np.isfinite(losses)), f"family training {dtype} ({label}): a non-finite "
+                    "loss")
+            runs[label] = (losses, got)
+            if label == "kernels" and dtype == "bfloat16":
+                again = Trainer(config, DataConfig(), tc, device=dev)
+                again.build(steps_per_epoch=len(host))
+                t_restore = time.perf_counter()
+                resumed, meta = again.restore(again.ckpt, 2)
+                restore_s = time.perf_counter() - t_restore
+                require(meta == {"epoch": 0, "next_batch": 2} and resumed.step == 2,
+                        f"family resume: meta {meta}, step {resumed.step}")
+                resumed, m = again.train_step(resumed, batches[2])
+                same = m["loss"].item() == losses[2] and all(
+                    torch.equal(a.detach(), b.detach()) for tree_a, tree_b in (
+                        (resumed.params, state.params), (resumed.opt_state.mu, state.opt_state.mu),
+                        (resumed.opt_state.nu, state.opt_state.nu), (resumed.shadow, state.shadow))
+                    for (_, a), (_, b) in zip(tree_leaves(tree_a), tree_leaves(tree_b)))
+                print(f"family (bf16): the checkpoint of step 2 saved in {save_s:.3f} s, restored "
+                      f"in {restore_s:.3f} s by a new Trainer; its step 3 bit-equal to the "
+                      f"uninterrupted run's (loss, params, moments, shadow)={same}", flush=True)
+                require(same, "family: the resumed step 3 differs from the uninterrupted one")
+                del again, resumed
+            if label == "kernels":
+                px = batches[0]["pixel_values"][:8]
+                with torch.no_grad():
+                    seqs, counts, seconds = generate_counted(
+                        lambda x: trainer.generate_step(state.params, x, 0), px)
+                rows = {"lazy_attention": counts.pop("lazy_attention"),
+                        "fused_head": counts.pop("fused_head")}
+                steps = rows["lazy_attention"] // config.decoder.num_layers
+                print(f"family eval ({dtype}): Trainer.generate_step B=8 beam 4 max_length 64, "
+                      f"{steps} decode steps in {seconds:.3f} s, launches {rows}", flush=True)
+                require(seqs.shape[0] == 8 and bool((seqs[:, 1] == 0).all()),
+                        f"family eval ({dtype}): malformed sequences")
+                require(steps > 0 and rows["lazy_attention"] == config.decoder.num_layers * steps
+                        and rows["fused_head"] >= steps,
+                        f"family eval ({dtype}): launches {rows}")
+                require(not any(counts.values()), f"family eval: other kernels launched {counts}")
+                suffix = "" if dtype == "bfloat16" else "_f32"
+                launches[f"fused_head_bucket{suffix} V={FAMILY_V}"] = rows["fused_head"]
+            del trainer, state, batches
+            torch.cuda.empty_cache()
+        (losses, got), (plain, plain_got) = runs["kernels"], runs["plain"]
+        require(got == {"flash_ce_forward": 3, "flash_ce_backward_dl": 3},
+                f"family training {dtype}: launches {got}")
+        require(not plain_got, f"family training {dtype}: the plain route launched {plain_got}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        print(f"family training ({dtype}): kernels' losses against the plain dl route's, relative "
+              f"differences {[f'{r:.3g}' for r in rel]} (limits 1e-5, 1e-4, 1e-4)", flush=True)
+        require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
+                f"family training {dtype}: the losses differ from the plain dl route's")
+        suffix = "" if dtype == "bfloat16" else "_f32"
+        launches[f"flash_ce_forward{suffix} V={FAMILY_V}"] = got["flash_ce_forward"]
+        launches[f"flash_ce_backward_dl{suffix} V={FAMILY_V}"] = got["flash_ce_backward_dl"]
+    print(f"phase 61 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _head_grads(trainer, state, batch):
+    """The gradients of the trainer's loss (no dropout) on one device batch
+    with respect to ``lm_head``'s kernel and the shared embedding, float32
+    on the card."""
+    from mic_tpu_torch.ops.image_prep import maybe_preprocess
+
+    pixels = maybe_preprocess(batch["pixel_values"], trainer.mc.vision.image_size, trainer.dtype)
+    leaves = [state.params["lm_head"]["kernel"], state.params["shared"]["embedding"]]
+    with torch.enable_grad():
+        loss = trainer.compute_loss(state.params, pixels, batch, shadow=state.shadow)
+        grads = torch.autograd.grad(loss, leaves)
+    return [g.detach().float() for g in grads]
+
+
+def run_untied_training(dev):
+    """Phase 62: the untied flagship trains: CaptionerConfig.clip_vit_b32_
+    mbart50(dtype="bfloat16", tie_word_embeddings=False), full width and
+    depth (no cut: CLIP ViT-B/32, the 12-layer mBART-50 decoder, a (1024,
+    250054) ``lm_head`` beside the shared table), the TrainConfig defaults
+    with warmup_steps=2, three steps from seed 0, once with fused_ce on
+    (the dl route: rows 7 and 8 read the (V, D) bf16 copy of ``lm_head``'s
+    shadow and write its gradient, once a step each, the counters set to 0
+    just before the steps and read just after) and once with fused_ce off
+    (the dense logits of ``lm_head``, no CE kernel): the losses within
+    phase 53's limits (1e-5 relative, then 1e-4); before the steps, the
+    first batch's gradient (no dropout) of ``lm_head``'s kernel within 1%
+    of its norm and every entry within 2% of its largest (the dense route
+    rounds its logits and their gradient to bf16), and the shared
+    embedding's (its lookup's alone) likewise.  The (V, D) copy of the
+    shadow (train/shadow.py::ce_table) timed beside its bound -> launches,
+    the copy's (ms, bound)."""
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.train.shadow import ce_table
+    from mic_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16", tie_word_embeddings=False)
+    host = _train_batches(config, 3, 64, 64, 62)
+    runs = {}
+    for label, fused in (("fused", True), ("dense", False)):
+        t0 = time.perf_counter()
+        trainer = Trainer(config, DataConfig(), TrainConfig(warmup_steps=2, fused_ce=fused),
+                          device=dev)
+        trainer.build(steps_per_epoch=len(host))
+        state = trainer.init_state()
+        require("lm_head" in state.params and state.shadow["lm_head"]["kernel"].dtype
+                == torch.bfloat16, "untied: no bf16 shadow of lm_head")
+        batches = [trainer.put_batch(b) for b in host]
+        grads = _head_grads(trainer, state, batches[0])
+        if fused:
+            _, cast = ce_table(state.params, state.shadow, torch.bfloat16)
+            require(cast.shape == (config.decoder.vocab_size, config.decoder.d_model)
+                    and cast.is_contiguous()
+                    and torch.equal(cast, state.shadow["lm_head"]["kernel"].t()),
+                    "ce_table: the copy is not lm_head's shadow transposed")
+            del cast
+            copy_ms = median_ms(lambda: ce_table(state.params, state.shadow, torch.bfloat16),
+                                runs=25)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts(reset=True)
+        losses, ms = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(metrics["loss"].item())
+            ms.append((time.perf_counter() - t1) * 1e3)
+        got = {k: v for k, v in _train_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"untied flagship training (bf16), fused_ce={fused}: losses {losses}, launches "
+              f"{got}, peak allocated {peak:.2f} GiB, step times {[round(x, 1) for x in ms]} ms "
+              f"(smoke figures), {time.perf_counter() - t0:.1f} s with init", flush=True)
+        require(all(np.isfinite(losses)), f"untied training ({label}): a non-finite loss")
+        runs[label] = (losses, got, grads)
+        del trainer, state, batches
+        torch.cuda.empty_cache()
+    (losses, got, grads), (dense, dense_got, dense_grads) = runs["fused"], runs["dense"]
+    require(got == {"flash_ce_forward": 3, "flash_ce_backward_dl": 3},
+            f"untied training: launches {got}")
+    require(not dense_got, f"untied training: the dense route launched {dense_got}")
+    for name, a, b in (("lm_head", grads[0], dense_grads[0]),
+                       ("shared embedding", grads[1], dense_grads[1])):
+        norm = ((a - b).norm() / b.norm()).item()
+        top = ((a - b).abs().max() / b.abs().max()).item()
+        print(f"untied, first-batch gradient of {name}: fused (rows 7 and 8) against the dense "
+              f"logits, |difference| / |dense| {norm:.3g} (limit 1e-2), largest entry "
+              f"difference / largest entry {top:.3g} (limit 2e-2)", flush=True)
+        require(b.abs().max().item() > 0 and norm <= 1e-2 and top <= 2e-2,
+                f"untied: the fused route's {name} gradient differs from the dense route's")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense)]
+    print(f"untied training: fused losses against the dense route's, relative differences "
+          f"{[f'{r:.3g}' for r in rel]} (limits 1e-5, 1e-4, 1e-4)", flush=True)
+    require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
+            "untied training: the fused losses differ from the dense route's")
+    v, d = config.decoder.vocab_size, config.decoder.d_model
+    copy_bound = bound(2 * v * d * 2, 0, "bf16")
+    print(f"untied: lm_head's (V, D) bf16 copy (ce_table, once a step) {copy_ms:.4f} ms per call, "
+          f"bound {copy_bound[0]:.4f} ms ({copy_bound[1]}), {copy_bound[0] / copy_ms:.1%} of it",
+          flush=True)
+    print(f"phase 62 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ({"flash_ce_forward lm_head": got["flash_ce_forward"],
+             "flash_ce_backward_dl lm_head": got["flash_ce_backward_dl"]},
+            (copy_ms, copy_bound))
+
+
+TRANSLATE_LANGS = ("en_XX", "fr_XX", "es_XX", "de_DE")
+TRANSLATE_WORDS = ("a", "cat", "dog", "red", "blue", "house", "tree", "runs", "sleeps", "on",
+                   "the", "grass", "under", "small", "big", "car", "street", "man", "woman")
+# mBART-50's language codes as its published vocab numbers them
+MBART50_CODES = {"en_XX": 250004, "fr_XX": 250008, "es_XX": 250005, "de_DE": 250003}
+
+
+class _WordEncoder:
+    """HFTokenizer's ``tk``: [source code] words... [</s>], cut and padded
+    (id 1) to ``max_length``, the words numbered from ``first_word``."""
+
+    def __init__(self, codes, first_word):
+        self.codes, self.first_word, self.src_lang = codes, first_word, "en_XX"
+
+    def __call__(self, texts, max_length, truncation, padding, return_tensors):
+        ids = np.full((len(texts), max_length), 1, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for row, text in enumerate(texts):
+            words = [self.first_word + TRANSLATE_WORDS.index(w) for w in text.split()]
+            words = ([self.codes[self.src_lang]] + words)[:max_length - 1] + [2]
+            ids[row, :len(words)] = words
+            mask[row, :len(words)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+class _StandInTokenizer:
+    """HFTokenizer's surface for tools/torch_translate.py (the card's
+    machine has no transformers): ``tk``, ``lang_code_to_id`` and
+    ``batch_decode`` (every id past the specials as "w<id>")."""
+
+    def __init__(self, codes, first_word):
+        self.lang_code_to_id = codes
+        self.tk = _WordEncoder(codes, first_word)
+
+    def batch_decode(self, seqs):
+        return [" ".join(f"w{int(t)}" for t in row if int(t) > 3) for row in np.asarray(seqs)]
+
+
+def _translate_report(path, n, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            words = " ".join(rng.choice(TRANSLATE_WORDS, rng.integers(3, 12)))
+            f.write(f"{i}\timg_{i}.jpg\t{words}\thttp://x/{i}\t200\n")
+
+
+def _write_translator(directory, params):
+    """pytorch_model.bin of ``params`` (tools/torch_hf_towers.py's state
+    dict; the shared table stored once)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_hf_towers
+
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "pytorch_model.bin")
+    t0 = time.perf_counter()
+    torch.save(torch_hf_towers.to_torch_mbart_seq2seq_state_dict(params), path)
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def run_translate_tool(dev, root):
+    """Phase 63: tools/torch_translate.py runs on the card.  The mBART-50
+    translator at its published width (DecoderConfig(): 12 + 12 layers,
+    d_model 1024, V = 250054), random weights from seed 63 written as
+    pytorch_model.bin and read back by the tool's ``load_model`` in bf16; a
+    synthetic report of 256 rows (status 200) split 25 / 231 from seed 42,
+    chunk 64, through ``translate_split`` with a stand-in tokenizer: every
+    row out, the four languages in train (en, fr, es and a ragged de chunk
+    of 39), and in each translated chunk row 19 launched twice a decode
+    step and no other serving kernel (the counters read around each
+    generate).  Then a small config (d_model 128, 2 layers, V = 1100;
+    weights at scale 0.3) in float32: the tool's rows on the card equal
+    its rows on the CPU (a 40-row report, chunk 8)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_translate
+    from mic_tpu_torch.core.config import DecoderConfig
+    from mic_tpu_torch.core.params import tree_leaves
+    from mic_tpu_torch.models.mbart_seq2seq import MBartSeq2Seq
+    from mic_tpu_torch.ops.beam_permute import beam_permute
+
+    t_phase = time.perf_counter()
+    weights = os.path.join(root, "mbart50")
+    params = MBartSeq2Seq(DecoderConfig()).init_params(
+        torch.Generator(device=dev).manual_seed(63), dev)
+    nbytes, write_s = _write_translator(weights, params)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, params = torch_translate.load_model(weights, "bfloat16", dev)
+    load_s = time.perf_counter() - t0
+    print(f"translate tool: {nbytes} B of weights written in {write_s:.3f} s, loaded onto the "
+          f"card by load_model in {load_s:.3f} s", flush=True)
+    report = os.path.join(root, "report.tsv")
+    _translate_report(report, 256, 63)
+    splits = torch_translate.split_rows(torch_translate.read_report(report), 42, 0.1)
+    require([len(splits["val"]), len(splits["train"])] == [25, 231], "translate: the split")
+    counters = _counters()
+    per_chunk = []
+    generate = model.generate
+
+    def counted(*args, **kw):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = generate(*args, **kw)
+        torch.cuda.synchronize()
+        per_chunk.append((out.steps, {k: fn.launches for k, fn in counters.items()
+                                      if fn.launches}, time.perf_counter() - t1))
+        return out
+
+    model.generate = counted
+    tok = _StandInTokenizer(MBART50_CODES, 1000)
+    t0 = time.perf_counter()
+    rows = {split: list(torch_translate.translate_split(model, params, tok, data, 64, dev,
+                                                        log=lambda _: None))
+            for split, data in splits.items()}
+    seconds = time.perf_counter() - t0
+    for path, split in ((os.path.join(root, f"{s}_file.tsv"), s) for s in rows):
+        torch_translate.write_tsv(path, rows[split])
+    langs = [row[3] for row in rows["train"]]
+    print(f"translate tool (bf16, 256 rows, chunk 64): {len(per_chunk)} translated chunks in "
+          f"{seconds:.3f} s (with the English chunks; smoke figure), per chunk (steps, "
+          f"launches, s) {[(s, c, round(t, 3)) for s, c, t in per_chunk]}", flush=True)
+    require([len(rows["val"]), len(rows["train"])] == [25, 231], "translate: rows lost")
+    require(langs == [TRANSLATE_LANGS[(i // 64) % 4] for i in range(231)]
+            and set(langs) == set(TRANSLATE_LANGS), "translate: the language round-robin")
+    require(len(per_chunk) == 3 and all(c == {"beam_permute": 2 * s} for s, c, _ in per_chunk),
+            "translate: row 19 not twice a step in every translated chunk, or another kernel")
+    translated = [row for row in rows["train"] if row[3] != "en_XX"]
+    require(all(row[1].split()[0] == f"w{tok.lang_code_to_id[row[3]]}" for row in translated),
+            "translate: a translation without its forced language code")
+    launches = sum(c["beam_permute"] for _, c, _ in per_chunk)
+    del model, params
+    torch.cuda.empty_cache()
+
+    small_cfg = DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2, ffn_dim=256,
+                                   max_position_embeddings=72)
+    g = torch.Generator().manual_seed(64)
+    small = MBartSeq2Seq(small_cfg).init_params(g)
+    for path, leaf in tree_leaves(small):  # scale 0.3: at 0.02 a random model repeats one token
+        leaf.copy_(torch.randn(leaf.shape, generator=g) * 0.3 + (path[-1] == "scale"))
+    _write_translator(os.path.join(root, "small"), small)
+    report = os.path.join(root, "small.tsv")
+    _translate_report(report, 40, 64)
+    data = torch_translate.split_rows(torch_translate.read_report(report), 42, 0.1)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        m, p = torch_translate.load_model(os.path.join(root, "small"), "float32", where,
+                                          small_cfg)
+        tok = _StandInTokenizer({"en_XX": 4, "fr_XX": 5, "es_XX": 6, "de_DE": 7}, 8)
+        beam_permute.launches = 0
+        out[where.type] = [list(torch_translate.translate_split(m, p, tok, rows, 8, where,
+                                                                log=lambda _: None))
+                           for rows in data.values()]
+        if where.type == "cuda":
+            require(beam_permute.launches > 0, "translate, small: row 19 never ran on the card")
+    same = out["cuda"] == out["cpu"]
+    print(f"translate tool, small config in float32: the card's rows equal the CPU's={same} "
+          f"({sum(map(len, out['cpu']))} rows, "
+          f"{len({row[1] for part in out['cpu'] for row in part})} distinct captions)", flush=True)
+    require(same, "translate: the card's TSV rows differ from the CPU's")
+    print(f"phase 63 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -5573,6 +6088,16 @@ def main() -> None:
     _build.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {lib_path}",
           flush=True)
+    marks = [t0]
+
+    def took(phases: str) -> None:
+        """The host seconds a group of phases took, and the run's so far."""
+        now = time.perf_counter()
+        print(f"phases {phases} took {now - marks[-1]:.1f} s ({now - t0:.1f} s since the "
+              f"start)", flush=True)
+        marks.append(now)
+
+    took("1 (the build)")
 
     attn_err = check_lazy_attention(dev)
     head_err, head_ms, head_plain_ms = check_fused_head(dev)
@@ -5590,6 +6115,7 @@ def main() -> None:
     launches.update(run_training(dev))
     torch.cuda.empty_cache()
     check_training_small_against_cpu(dev)
+    took("2-11")
 
     table = _head_table(dev)
     q8_bucket_err = check_fused_head_q8_bucket(dev, table)
@@ -5602,6 +6128,7 @@ def main() -> None:
     launches.update(run_int8_path(dev, flag))
     torch.cuda.empty_cache()
     check_int8_small_against_cpu(dev)
+    took("12-17")
 
     decode_err, decode_inputs = check_decode_attention(dev)
     topk_err = check_topk_lse(dev)
@@ -5611,6 +6138,7 @@ def main() -> None:
     launches.update(run_greedy_path(dev, flag))
     torch.cuda.empty_cache()
     check_greedy_small_against_cpu(dev)
+    took("18-22")
 
     blocked_err, blocked_inputs = check_blocked_attention(dev)
     cross_err, cross_inputs = check_cross_attention(dev)
@@ -5625,6 +6153,7 @@ def main() -> None:
     launches.update(run_fused_step_path(dev, flag))
     torch.cuda.empty_cache()
     check_fused_step_small_against_cpu(dev)
+    took("23-29")
 
     weight, bias = _ce_table(dev)
     save_fwd_err = check_flash_ce_save_forward(dev, weight, bias)
@@ -5634,6 +6163,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches.update(run_training_routes(dev))
     check_training_small_against_cpu(dev, ("fwd", "split", "save"))
+    took("30-34")
 
     tf_err = check_attention_kernels(dev)
     tf_ms = time_attention_kernels(dev)
@@ -5641,6 +6171,7 @@ def main() -> None:
     launches.update(run_pallas_path(dev, flag))
     torch.cuda.empty_cache()
     check_attention_small_against_cpu(dev)
+    took("35-38")
 
     dma_err, dma_inputs = check_cross_attention_dma(dev)
     cross_q8_err, cross_q8_inputs = check_cross_attention_q8(dev)
@@ -5660,13 +6191,16 @@ def main() -> None:
     check_bucket_slot_release(dev, lib_path)
     time_sdpa_backward(tf_ms)
     torch.cuda.empty_cache()
+    took("39-48")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_") as root:
         run_checkpoint_path(dev, root)
         check_checkpoint_across_devices(dev, root)
     torch.cuda.empty_cache()
+    took("49")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trained_") as root:
         run_trained_model_path(dev, root)
     torch.cuda.empty_cache()
+    took("50")
     f32_err, f32_ms = check_f32_kernels(dev)
     torch.cuda.empty_cache()
     launches.update(run_f32_generate(dev))
@@ -5676,6 +6210,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as root:
         run_training_options(dev, root)
     torch.cuda.empty_cache()
+    took("51-54")
     run_vit_bart_path(dev)
     torch.cuda.empty_cache()
     run_translator_path(dev)
@@ -5683,6 +6218,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as root:
         run_hf_format_path(dev, root)
     torch.cuda.empty_cache()
+    took("55-57")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_async_") as root:
         run_async_save(dev, root)
     torch.cuda.empty_cache()
@@ -5691,6 +6227,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as root:
         run_two_ranks(dev, root)
     torch.cuda.empty_cache()
+    took("58-60")
+    family_ce = check_family_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as root:
+        family_launches = run_family_training(dev, root)
+    torch.cuda.empty_cache()
+    untied_launches, (copy_ms, copy_bound) = run_untied_training(dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_translate_") as root:
+        translate_launches = run_translate_tool(dev, root)
+    torch.cuda.empty_cache()
+    took("61-63")
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -5747,6 +6294,16 @@ def main() -> None:
     long_b, long_t, long_h = FLASH_LONG
     others["flash_attention T=600"] = attention_bounds(long_b, long_t, long_t,
                                                        long_h)["flash_attention"]
+    # phases 61-63: the instances of rows 4, 7 and 8 this slice trains on
+    # and the translator tool's row 19, by instance
+    print("phases 61-63, the instances (errors against plain, kernel ms, plain ms, bound ms): "
+          + ", ".join(f"{name} V={FAMILY_V} max_abs_err {err:.3g}, {k_ms:.4f} ms, plain "
+                      f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({by})"
+                      for name, (err, k_ms, p_ms, (b_ms, by)) in family_ce.items())
+          + f"; lm_head's (V, D) copy {copy_ms:.4f} ms, bound {copy_bound[0]:.4f} ms "
+          f"({copy_bound[1]}); launches on the main paths {family_launches}, "
+          f"{untied_launches}, beam_permute in the translate tool {translate_launches}",
+          flush=True)
     print("bounds at the other timed shapes: " + ", ".join(
         f"{name} {ms:.4f} ms ({by})" for name, (ms, by) in others.items()), flush=True)
     kernels = [

@@ -1,4 +1,5 @@
-"""Flash cross-entropy over the tied LM head (training).
+"""Flash cross-entropy over the LM head's (V, D) table (training): the tied
+shared embedding, or an untied ``lm_head`` kernel transposed.
 
 Counterpart of mic_tpu/ops/flash_ce.py:
 
@@ -24,7 +25,8 @@ Counterpart of mic_tpu/ops/flash_ce.py:
   for timing and tests.
 
 Each reads the table in the compute dtype: ``emb_cast`` (the training
-shadow, train/shadow.py) when given, else ``emb`` cast once.  Each takes its
+shadow, train/shadow.py, or an untied head's contiguous copy) when given,
+else ``emb`` cast once, contiguous (a transposed view is copied).  Each takes its
 plain version for tensors on the CPU.  On a CUDA device it launches the
 kernels of csrc/flash_ce.cu, which never store f32 logits of the main
 vocab span, or raises: they take bfloat16 with D a multiple of 64, at most
@@ -54,7 +56,7 @@ _F32_TILE = 128   # vocab columns a tile of the float32 walk (kCols; 128 rows a 
 
 
 def _table(h, emb, emb_cast):
-    return emb_cast if emb_cast is not None else emb.to(h.dtype)
+    return emb_cast if emb_cast is not None else emb.to(h.dtype).contiguous()
 
 
 def _targets(label_smoothing: float, vocab: int):

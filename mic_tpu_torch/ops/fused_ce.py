@@ -1,7 +1,9 @@
-"""Label-smoothed cross-entropy fused with the tied LM head
+"""Label-smoothed cross-entropy fused with the LM head
 (mic_tpu/ops/fused_ce.py::fused_lm_loss): the loss of lm_logits +
 train/loss.py without a (B, T, V) logits tensor, as a
-``torch.autograd.Function`` whose backward recomputes what it needs.
+``torch.autograd.Function`` whose backward recomputes what it needs.  The
+head is any (V, D) table: the tied shared embedding, or an untied
+``lm_head`` kernel transposed (train/shadow.py::ce_table).
 
 Routes (``mode``, TrainConfig.flash_ce; the environment variable
 MIC_TPU_FLASH_CE wins when set, through core/knobs.py::override), each as
@@ -24,8 +26,9 @@ mic_tpu's ``_fwd_impl`` and ``_fused_bwd`` route it:
   Above ``dl_max_rows`` rows the forward saves nothing and the backward
   takes the chunked path, as mic_tpu's does.
 
-The flash routes read ``emb_cast`` (the bf16 training shadow) when given;
-the f32 ``embedding`` always receives the f32 demb.
+The flash routes read ``emb_cast`` (the table in the compute dtype, e.g.
+the bf16 training shadow) when given; ``embedding`` always receives the
+f32 demb, cast to its dtype.
 """
 
 from __future__ import annotations
@@ -173,10 +176,12 @@ class _FusedLMLoss(torch.autograd.Function):
 def fused_lm_loss(hidden, embedding, bias, labels, mask, label_smoothing: float = 0.0,
                   chunk: int = 512, emb_cast=None, mode: str = "auto",
                   dl_max_rows: int = 8192) -> torch.Tensor:
-    """hidden (B, T, D) in the compute dtype, embedding (V, D) the tied
-    table, bias (V,) final_logits_bias, labels and mask (B, T) -> the masked
-    mean label-smoothed CE, a float32 scalar.  Gradients reach hidden,
-    embedding and bias."""
+    """hidden (B, T, D) in the compute dtype, embedding (V, D) the head's
+    table (any layout; a transposed view passes its gradient to the tensor
+    it views), bias (V,) final_logits_bias, labels and mask (B, T) -> the
+    masked mean label-smoothed CE, a float32 scalar.  ``emb_cast``, where
+    given, is the same table contiguous in the compute dtype, which the
+    flash routes read.  Gradients reach hidden, embedding and bias."""
     flash = _resolve_mode(mode, hidden.device)
     max_rows = int(override("MIC_TPU_DL_MAX_ROWS", str(dl_max_rows)))
     return _FusedLMLoss.apply(hidden, embedding, bias, labels, mask, label_smoothing, chunk,

@@ -6,7 +6,10 @@ computes from it, so no step re-casts the master tree.  Leaves consumed in
 float32 pass through as the master itself: LayerNorm {scale, bias},
 ``final_logits_bias`` and, inside the loss, the shared embedding, whose
 input-side lookup gathers float32 rows (so colliding rows' gradients add
-in float32); the CE kernels read the bf16 table through ``ce_embedding``.
+in float32).  The CE kernels read the loss's table in the compute dtype
+through ``ce_table``: the shared embedding's shadow where the head is tied,
+else a (V, D) copy of the untied ``lm_head`` kernel's shadow (mic_tpu's
+shadow covers that kernel too, as any float32 leaf the model consumes).
 
 Gradients reach the float32 masters: ``_Use`` hands the model the shadow
 and casts its gradient to the master's dtype, the same cast the backward
@@ -78,3 +81,22 @@ def ce_embedding(shadow: Optional[Any]):
     if emb is not None and emb.is_floating_point():
         return emb
     return None
+
+
+def ce_table(params: Any, shadow: Optional[Any], compute_dtype: torch.dtype):
+    """(table, table_cast) for fused_lm_loss: the (V, D) table whose
+    gradient the loss produces, and the compute-dtype copy the CE kernels
+    read (or None: the table cast per use).
+
+    A tied head's table is the shared embedding and its shadow.  An untied
+    head's is ``lm_head``'s (D, V) kernel transposed, a view, so its
+    gradient lands on the kernel itself (the shared embedding then gets only
+    its lookup's gradient); the kernels read a contiguous (V, D) copy made
+    here once a step in the compute dtype, from the shadow where there is
+    one.  (With ``fused_ce`` on, mic_tpu takes an untied model's loss from
+    the shared embedding, which is not the head it serves: ROADMAP §C.)"""
+    if "lm_head" not in params:
+        return params["shared"]["embedding"], ce_embedding(shadow)
+    kernel = params["lm_head"]["kernel"]
+    source = (shadow["lm_head"]["kernel"] if shadow is not None else kernel).detach()
+    return kernel.t(), source.to(compute_dtype).t().contiguous()

@@ -32,8 +32,12 @@ gradients of the whole tree, reduce-scatters them and runs the optimizer on
 this rank's parts.  Checkpoints keep the single-device format (rank 0
 writes, the parts gathered first) and every rank restores and re-splits,
 so a checkpoint moves between dp = 1, dp > 1 and fsdp.  Not ported yet,
-and raising: tensor parallelism (tp > 1, ROADMAP A7b), and training the
-families that only serve so far (``check_trainable``).
+and raising: tensor parallelism (tp > 1, ROADMAP A7b).
+
+Every model family the port serves trains: the CLIP and ViT tower styles,
+the pre-norm mBART and post-norm BART decoders, a tied or an untied LM
+head.  An untied model's fused loss reads ``lm_head`` (train/shadow.py::
+ce_table), the head it serves; mic_tpu's reads the shared embedding there.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from mic_tpu_torch.train.fused_adamw import apply_gradients
 from mic_tpu_torch.train.loss import label_smoothed_cross_entropy
 from mic_tpu_torch.train.metrics import MetricLogger, StepTimer
 from mic_tpu_torch.train.schedule import linear_warmup_linear_decay
-from mic_tpu_torch.train.shadow import cast_shadow, ce_embedding, shadow_spec, shadowed_params
+from mic_tpu_torch.train.shadow import cast_shadow, ce_table, shadow_spec, shadowed_params
 from mic_tpu_torch.train.state import (
     TrainState, checkpoint_tree, make_optimizer, moment_dtypes, restore_state,
 )
@@ -118,24 +122,6 @@ class StepProfiler:
             os.path.join(self.out_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-def check_trainable(config: CaptionerConfig) -> None:
-    """Refuse what the port serves but does not train yet (ROADMAP A8b):
-    the ViT tower style, the post-norm decoder and the untied LM head.
-    Their training is held against nothing, and with ``fused_ce`` on an
-    untied model's loss would come from the shared table, never from the
-    ``lm_head`` that serves."""
-    vision, decoder = config.vision, config.decoder
-    if not vision.use_pre_ln or vision.final_ln_output or vision.patch_bias:
-        raise NotImplementedError("training the ViT tower style is not ported yet "
-                                  "(ROADMAP A8b); it serves")
-    if decoder.post_norm:
-        raise NotImplementedError("training the post-norm decoder is not ported yet "
-                                  "(ROADMAP A8b); it serves")
-    if not config.tie_word_embeddings:
-        raise NotImplementedError("training an untied LM head is not ported yet "
-                                  "(ROADMAP A8b); it serves")
-
-
 class GlobalBatchMasks:
     """The dropout masks of rank ``rank`` of ``ranks`` data-parallel
     processes: each drawn from ``generator`` (in the same state on every
@@ -184,7 +170,6 @@ class Trainer:
                 f"tp={tc.tp}: tensor parallelism is not ported yet (ROADMAP A7b: the tied "
                 "head's kernels would each see a vocab shard); data parallelism (dp) and "
                 "fsdp are")
-        check_trainable(model_config)
         self.mesh = make_mesh(dp=tc.dp, tp=1)
         self.rank, self.ranks = self.mesh.coords[DATA_AXIS], self.mesh.shape[DATA_AXIS]
         self.group = self.mesh.groups[DATA_AXIS]
@@ -352,8 +337,10 @@ class Trainer:
     def _step_trees(self, state: TrainState):
         """(params, shadow) the step differentiates: the state's own, or under
         fsdp whole trees gathered for this step (the shadow where a leaf has
-        one, else the float32 master; the shared table both ways), each leaf
-        requiring grad."""
+        one, else the float32 master; the loss's tables, the shared
+        embedding and an untied ``lm_head`` kernel, both ways: their
+        gradients reach the float32 masters as they do on one process),
+        each leaf requiring grad."""
         if not self.fsdp:
             return state.params, state.shadow
         if state.shadow is None:
@@ -364,10 +351,10 @@ class Trainer:
                                self._shadow_spec)
             params = gather_tree(sources, self._specs, self.group)
             shadow = tree_map(lambda p: p, params)
-            if self._shadow_spec.get("shared", {}).get("embedding"):
-                params["shared"]["embedding"] = gather_tree(
-                    state.params["shared"]["embedding"], self._specs["shared"]["embedding"],
-                    self.group)
+            for outer, inner in (("shared", "embedding"), ("lm_head", "kernel")):
+                if self._shadow_spec.get(outer, {}).get(inner):
+                    params[outer] = {**params[outer], inner: gather_tree(
+                        state.params[outer][inner], self._specs[outer][inner], self.group)}
         for _, leaf in tree_leaves(params):
             leaf.requires_grad_(True)
         return params, shadow
@@ -415,10 +402,11 @@ class Trainer:
             enc = model.encode(cp, pixels, generator)
             hidden = model.decode_hidden(cp, enc, batch["decoder_input_ids"],
                                          batch["decoder_attention_mask"], generator)
+            table, table_cast = ce_table(params, shadow, self.dtype)
             return fused_lm_loss(
-                hidden, params["shared"]["embedding"], params["final_logits_bias"],
-                batch["labels"], loss_mask, tc.label_smoothing, tc.ce_chunk,
-                ce_embedding(shadow), mode=tc.flash_ce, dl_max_rows=tc.dl_max_rows,
+                hidden, table, params["final_logits_bias"], batch["labels"], loss_mask,
+                tc.label_smoothing, tc.ce_chunk, table_cast, mode=tc.flash_ce,
+                dl_max_rows=tc.dl_max_rows,
             )
         logits = model(cp, pixels, batch["decoder_input_ids"], batch["decoder_attention_mask"],
                        generator)

@@ -101,7 +101,7 @@ def test_the_port_has_files_to_scan():
                    "hub.py"):
         assert os.path.join("mic_tpu_torch", "io", module) in files
     for tool in ("torch_ab_hard_synthetic.py", "torch_bench_trained.py",
-                 "torch_validate_approx_decode.py"):
+                 "torch_validate_approx_decode.py", "torch_translate.py"):
         assert os.path.join("tools", tool) in files
 
 

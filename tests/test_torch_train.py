@@ -452,45 +452,6 @@ def test_dots_remat_and_unported_options_raise(tmp_path):
         trainer.init_or_resume(None)
 
 
-_SERVE_ONLY = {
-    "vit_tower": dict(vision=VisionConfig.tiny(use_pre_ln=False, final_ln_output=True,
-                                               patch_bias=True)),
-    "post_norm": dict(decoder=DecoderConfig.tiny(vocab_size=97, post_norm=True,
-                                                 use_final_ln=False)),
-    "untied_head": dict(tie_word_embeddings=False),
-    "vit_b16_bart_large": None,
-}
-
-
-@pytest.mark.parametrize("kind", sorted(_SERVE_ONLY))
-def test_trainer_refuses_the_families_that_only_serve(kind, tmp_path):
-    """The ViT tower style, the post-norm decoder and the untied head serve
-    but do not train yet: the Trainer and the train CLI raise, naming A8b,
-    while the model still builds and runs its forward."""
-    from mic_tpu_torch.cli import train as cli_train
-
-    if _SERVE_ONLY[kind] is None:
-        config = CaptionerConfig.vit_b16_bart_large()
-    else:
-        config = _config().replace(**_SERVE_ONLY[kind])
-    with pytest.raises(NotImplementedError, match="A8b"):
-        _trainer(config)
-    path = tmp_path / "model.json"
-    _port(config).to_json(str(path))
-    with pytest.raises(NotImplementedError, match="A8b"):
-        cli_train.main(["--model_config", str(path), "--device", "cpu",
-                        "--output_dir", str(tmp_path / "run")])
-    if _SERVE_ONLY[kind] is not None:
-        model = Captioner(_port(config))
-        params = from_jax(_numpy_params(config))
-        batch = _batch(config, b=2)
-        pixels = maybe_preprocess(torch.from_numpy(batch["pixel_values"]),
-                                  config.vision.image_size, torch.float32)
-        logits = model(params, pixels, torch.from_numpy(batch["decoder_input_ids"]),
-                       torch.from_numpy(batch["decoder_attention_mask"]))
-        assert logits.shape == (2, 8, 97) and torch.isfinite(logits).all()
-
-
 def test_train_steps_are_bit_equal_run_to_run():
     """Two trainers from one seed, dropout on, remat "masks", bf16 with
     shadow params: bit-equal losses and params after three steps."""

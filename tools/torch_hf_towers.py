@@ -1,12 +1,16 @@
 """HF PyTorch state dicts of the captioner's towers, for writing the tower
 directories that io/hf_import.py::load_pretrained_towers reads
-(``model.safetensors`` for CLIP, ``pytorch_model.bin`` for mBART).
+(``model.safetensors`` for CLIP, ``pytorch_model.bin`` for mBART), and of
+the mBART-50 translator, for the weights directory that
+tools/torch_translate.py::load_model reads.
 
 ``to_torch_clip_state_dict`` gives CLIPVisionModel's names and layouts,
 ``to_torch_mbart_state_dict`` the decoder side of
 MBartForConditionalGeneration's: the inverses of
 io/hf_import.py::from_torch_clip_state_dict and
-::from_torch_mbart_state_dict.  chip_smoke.py writes its flagship-width
+::from_torch_mbart_state_dict.  ``to_torch_mbart_seq2seq_state_dict``
+gives the whole of it (both sides), the inverse of the torch branch of
+tools/torch_translate.py::load_model.  chip_smoke.py writes its flagship-width
 tower directories with them; the reference has no such writer.
 """
 
@@ -82,6 +86,28 @@ def to_torch_mbart_state_dict(shared: Params, decoder: Params,
         _torch_mha(li["self_attn"], f"{prefix}.self_attn", out)
         _torch_ln(li["ln_cross"], f"{prefix}.encoder_attn_layer_norm", out)
         _torch_mha(li["cross_attn"], f"{prefix}.encoder_attn", out)
+        _torch_ln(li["ln_mlp"], f"{prefix}.final_layer_norm", out)
+        _torch_dense(li["fc1"], f"{prefix}.fc1", out)
+        _torch_dense(li["fc2"], f"{prefix}.fc2", out)
+    return out
+
+
+def to_torch_mbart_seq2seq_state_dict(params: Params) -> dict:
+    """An MBartSeq2Seq tree (models/mbart_seq2seq.py) -> the whole of
+    MBartForConditionalGeneration's state dict (CPU float32 tensors): the
+    decoder side as ``to_torch_mbart_state_dict`` writes it, and the text
+    encoder, ``model.encoder.embed_tokens`` the shared table."""
+    out = to_torch_mbart_state_dict(params["shared"], params["decoder"],
+                                    params["final_logits_bias"])
+    enc, encoder = "model.encoder", params["encoder"]
+    out[f"{enc}.embed_tokens.weight"] = out["model.shared.weight"]
+    out[f"{enc}.embed_positions.weight"] = _host(encoder["pos_embed"]["embedding"])
+    _torch_ln(encoder["ln_embed"], f"{enc}.layernorm_embedding", out)
+    _torch_ln(encoder["final_ln"], f"{enc}.layer_norm", out)
+    for i in range(num_layers_of(encoder["layers"])):
+        li, prefix = layer_slice(encoder["layers"], i), f"{enc}.layers.{i}"
+        _torch_ln(li["ln_self"], f"{prefix}.self_attn_layer_norm", out)
+        _torch_mha(li["self_attn"], f"{prefix}.self_attn", out)
         _torch_ln(li["ln_mlp"], f"{prefix}.final_layer_norm", out)
         _torch_dense(li["fc1"], f"{prefix}.fc1", out)
         _torch_dense(li["fc2"], f"{prefix}.fc2", out)
