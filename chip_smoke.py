@@ -284,7 +284,24 @@ Phases, each of which raises on failure (none catches its own):
  63. tools/torch_translate.py at mBART-50's width (random weights written
      as pytorch_model.bin, bf16): 256 report rows, chunk 64, the four
      languages, row 19 twice a step in each translated chunk; a small
-     config's rows on the card equal to the CPU's.
+     config's rows on the card equal to the CPU's;
+ 64. the float32 instances of rows 2, 3 (float32 cache, and the per-head
+     int8 cache under float32 q), 14 (and its int8 form under float32 q),
+     13 and 15 against their plain versions at the flagship shapes (B=256
+     K=4 T=64 H=16 index 17 and 63; S=50, the merged cache padded to 64
+     with NaN pad rows; N=1024 and 32, D=1024, O=3072), reruns bit-equal,
+     row 2's written column and scales bit-equal, and their times (graph
+     replays) beside their plain versions', bounds and SDPA in float32;
+ 65. the default float32 flagship (CaptionerConfig.clip_vit_b32_mbart50(),
+     full width and depth) at B=64, beam 4, length 64, EOS pinned at 63,
+     under kv_quant="int8" (mode "2", row 2 f32), the fused step's
+     switches without fused_mlp with the float32 and the per-head int8
+     cache (rows 3, 14 and 15 f32) and merged_cross (row 13 f32): each
+     kernel 12 times a step, a second run with every launch held against
+     its plain version and identical to the first, the whole generate on
+     the plain versions (sequences equal but where beams part at a
+     near-tie), and a beam step's time in turns with the bf16 flagship
+     under the same switches.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -353,30 +370,35 @@ def topk_bound(n, v, k, elem_bytes):
     return bound(n * v * elem_bytes + n * k * 8, 3 * n * v, "f32")
 
 
-def blocked_attention_bound(live_rows, b, beams, index, hd, heads, cache_bytes, scale_bytes=0):
+def blocked_attention_bound(live_rows, b, beams, index, hd, heads, cache_bytes, scale_bytes=0,
+                            io_bytes=2):
     """Mode-"1" attention at write index ``index``: of both caches, the
     ``live_rows`` (image, source row, position) rows that some beam of this
     run's mask admits (the kernel reads no other), with per-head scales on
     the int8 cache, read and never written; q, the step K/V and the mask's
-    live rows read, the output written; 4 f32 operations per element of the
-    row each beam admits at each position and of its step row."""
+    live rows read, the output written (bf16, or ``io_bytes`` each); 4 f32
+    operations per element of the row each beam admits at each position
+    and of its step row."""
     rows = b * beams
-    nbytes = (2 * live_rows * (hd * cache_bytes + heads * scale_bytes) + 4 * rows * hd * 2
+    nbytes = (2 * live_rows * (hd * cache_bytes + heads * scale_bytes) + 4 * rows * hd * io_bytes
               + b * beams * index * beams)
     return bound(nbytes, 4 * rows * (index + 1) * hd, "f32")
 
 
-def cross_bound(b, beams, s, hd):
+def cross_bound(b, beams, s, hd, elem_bytes=2):
     """Cross-attention: each image's (S, H*Dh) K and V read once, q read and
-    the output written in bf16; 4 f32 operations per (beam, position,
-    element)."""
-    return bound(2 * b * s * hd * 2 + 2 * b * beams * hd * 2, 4 * b * beams * s * hd, "f32")
+    the output written, in bf16 (or ``elem_bytes`` each); 4 f32 operations
+    per (beam, position, element)."""
+    return bound(2 * b * s * hd * elem_bytes + 2 * b * beams * hd * elem_bytes,
+                 4 * b * beams * s * hd, "f32")
 
 
-def ln_gemm_bound(n, d, o):
+def ln_gemm_bound(n, d, o, elem_bytes=2, kind="bf16"):
     """LN -> GEMM: x, the LN scale and shift, W and the bias read, the output
-    written, bf16; 2 N D O products."""
-    return bound(2 * (n * d + 2 * d + d * o + o + n * o), 2 * n * d * o, "bf16")
+    written, bf16 (or ``elem_bytes`` each); 2 N D O products at ``kind``'s
+    rate (a float32 model's at "tf32x3", the float32-accurate rate of the
+    tensor cores, as the float32 heads')."""
+    return bound(elem_bytes * (n * d + 2 * d + d * o + o + n * o), 2 * n * d * o, kind)
 
 
 def mlp_bound(n, d, f):
@@ -3089,11 +3111,12 @@ MM_CASES = {(1024, 3072): (1, 4, 8, 64, 65, 1024), (1024, 4096): (4, 1024),
             (1001, 3074): (65,), (1000, 3074): (1,)}
 
 
-def q8_cross_bound(b, beams, s, hd, heads):
+def q8_cross_bound(b, beams, s, hd, heads, io_bytes=2):
     """Row 14's int8 form: each image's int8 K and V rows and their f32
     scales (one per row and head) read once, q read and the output written
-    in bf16; 4 f32 operations per (beam, position, element)."""
-    return bound(2 * b * s * (hd + heads * 4) + 2 * b * beams * hd * 2,
+    in bf16 (or ``io_bytes`` each); 4 f32 operations per (beam, position,
+    element)."""
+    return bound(2 * b * s * (hd + heads * 4) + 2 * b * beams * hd * io_bytes,
                  4 * b * beams * s * hd, "f32")
 
 
@@ -4545,7 +4568,9 @@ BART_BOS = 0  # BART's <s>, forced at position 1 as bart-large generates
 @contextlib.contextmanager
 def shadowed(*swaps):
     """Each kernel wrapper runs as the path calls it, then its plain version
-    on the same inputs, and ``check(args, out, ref) -> (error, near-tie
+    on the same positional inputs (the wrapper's keyword arguments, such as
+    row 3's ``positions``, bound only the kernel's walk), and
+    ``check(args, out, ref) -> (error, near-tie
     id differences)`` holds the two ((module, name, plain, written, check)
     each).  ``written(args)``, where not None, copies the cache cells the
     wrapper writes in place: they must be bit-equal after the plain version
@@ -4556,8 +4581,8 @@ def shadowed(*swaps):
     old = [(module, name, getattr(module, name)) for module, name, _, _, _ in swaps]
 
     def make(name, kernel, plain, written, check):
-        def run(*args):
-            out = kernel(*args)
+        def run(*args, **kwargs):
+            out = kernel(*args, **kwargs)
             cells = None if written is None else written(args)
             ref = plain(*args)
             require(cells is None or torch.equal(cells, written(args)),
@@ -4568,6 +4593,9 @@ def shadowed(*swaps):
             entry[1] = max(entry[1], err)
             entry[2] += ties
             return out
+        # a wrapper that counts through its own module's name (ops/ln_gemm.py
+        # looks up ``ln_gemm.launches``) finds this stand-in there
+        run.launches = 0
         return run
 
     for (module, name, plain, written, check), (_, _, kernel) in zip(swaps, old):
@@ -6074,6 +6102,434 @@ def run_translate_tool(dev, root):
     return launches
 
 
+# The float32 instances of rows 2, 3 (both caches), 13, 14 (and its int8
+# form) and 15: phase 64 holds each against its plain version at the
+# flagship shapes and times it; phase 65 serves the default float32
+# flagship through them.  Names as in the kernels line.
+F32_STEP_ROWS = {
+    "lazy_attention_q8_f32": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:560"),
+    "fused_lazy_attention_f32": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_lazy_attention_q8_f32": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_cross_attention_f32": ("cross_attention.cu", "mic_tpu/ops/cross_attention.py:237"),
+    "fused_cross_attention_dma_f32": ("cross_attention.cu",
+                                      "mic_tpu/ops/cross_attention.py:183"),
+    "fused_cross_attention_q8_f32": ("cross_attention.cu", "mic_tpu/ops/cross_attention.py:79"),
+    "ln_gemm_f32": ("ln_gemm_f32.cu", "mic_tpu/ops/ln_gemm.py:49"),
+}
+
+
+def _f32_lazy_inputs(dev, g, q8, index):
+    """Row 2's or row 3's float32 inputs at the flagship decode shape: q
+    and the step rows float32; the int8 cache with per-row scales (row 2),
+    the per-head int8 cache or the float32 cache (row 3), each zero from
+    ``index`` on; an ancestry whose unwritten positions name each beam's
+    own row."""
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    b, beams, t, heads = FLAG_B, FLAG_K, FLAG_T, FLAG_H
+    hd = heads * FLAG_DH
+
+    def rand(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def cache():
+        prefix = rand(b * beams, t, hd)
+        prefix[:, index:] = 0
+        if q8 == "row":
+            values, scales = quantize_rows_dynamic(prefix)
+            return {"q": values, "s": scales[..., 0].contiguous()}
+        if q8 == "head":
+            values, scales = quantize_rows_dynamic(prefix.reshape(b * beams, t, heads, FLAG_DH))
+            return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
+        return prefix
+
+    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+    ck, cv = cache(), cache()
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+    anc[:, :, index:] = torch.arange(beams, device=dev, dtype=torch.int32)[None, :, None]
+    return q, ck, cv, ks, vs, anc
+
+
+def _clone_cache(c):
+    return {n: a.clone() for n, a in c.items()} if isinstance(c, dict) else c.clone()
+
+
+def _same_cache(a, b):
+    return (all(torch.equal(a[n], b[n]) for n in a) if isinstance(a, dict)
+            else torch.equal(a, b))
+
+
+def check_f32_step_kernels(dev):
+    """Phase 64: a float32 model's instances of rows 2, 3 (float32 cache and
+    per-head int8 cache), 14 (and its int8 form under float32 q), 13 and 15
+    against their plain versions on the card at the flagship shapes, TF32
+    off: row 2 at B=256 K=4 T=64 H=16, index 17 and 63, outputs within 1e-5
+    (f32 throughout, sums in another order), the written int8 column and
+    its scales bit-equal, a rerun bit-equal; row 3 at index 17 and 63 on the
+    ancestry mask, within 2e-2 (bf16 weights and output after f32 sums in
+    another order), the caches untouched, a rerun bit-equal; rows 14 and
+    13 at B=256 K=4 S=50 (the merged cache padded to 64, NaN in its pad
+    rows) and row 14's int8 form, within 2e-2, reruns bit-equal; row 15 at
+    N=1024 and 32, D=1024, O=3072, within (D 2**-24 + 2**-20) of sum |xn|
+    |w| + |bias|, a rerun bit-equal.  Then each in CUDA-graph replays beside
+    its plain version's replays, its bound and, where one PyTorch call
+    computes the same function, that call (SDPA in float32 on the live rows
+    for rows 13 and 14); F.layer_norm + F.linear in float32 for scale ->
+    (errors, times, the rows row 3's timed masks admit)."""
+    import torch.nn.functional as F
+
+    import mic_tpu_torch.ops.cross_attention as ca
+    import mic_tpu_torch.ops.lazy_attention as la
+    from mic_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm_plain
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    g = torch.Generator(device=dev).manual_seed(64)
+    b, beams, heads, hd, s = FLAG_B, FLAG_K, FLAG_H, HEAD_D, FLAG_S
+    errs, times = {}, {}
+
+    worst = 0.0
+    for index in (17, 63):
+        q, ck, cv, ks, vs, anc = _f32_lazy_inputs(dev, g, "row", index)
+        pk, pv, ak, av = (_clone_cache(c) for c in (ck, cv, ck, cv))
+        out = la.lazy_attention_q8(q, ck, cv, ks, vs, anc, index, heads)
+        again = la.lazy_attention_q8(q, ak, av, ks, vs, anc, index, heads)
+        ref = la.lazy_attention_q8_plain(q, pk, pv, ks, vs, anc, index, heads)
+        torch.cuda.synchronize()
+        require(out.dtype == torch.float32, "lazy_attention_q8 f32: output dtype")
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        require(torch.equal(out, again), "lazy_attention_q8 f32: a rerun differs")
+        require(all(_same_cache(x, y) for x, y in ((ck, pk), (cv, pv), (ck, ak), (cv, av))),
+                "lazy_attention_q8 f32: the written column or scales differ from plain")
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"lazy_attention_q8 f32 B={b} K={beams} T={FLAG_T} H={heads} index={index}: "
+              f"max_abs_err={err:.3g}, column and scales bit-equal, rerun bit-equal", flush=True)
+    errs["lazy_attention_q8_f32"] = worst
+    args = (q, ck, cv, ks, vs, anc, 63, heads)
+    times["lazy_attention_q8_f32"] = (graph_ms(lambda: la.lazy_attention_q8(*args)),
+                                      graph_ms(lambda: la.lazy_attention_q8_plain(*args)), None)
+
+    live_rows = {}
+    for q8, name in ((None, "fused_lazy_attention_f32"), ("head", "fused_lazy_attention_q8_f32")):
+        worst = 0.0
+        for index in (17, 63):
+            q, ck, cv, ks, vs, anc = _f32_lazy_inputs(dev, g, q8, index)
+            amask = la.build_ancestry_mask(anc, index)
+            before = [_clone_cache(c) for c in (ck, cv)]
+            fargs = (q, ck, cv, ks, vs, amask, beams, heads)
+            out = la.fused_lazy_attention(*fargs, positions=index)
+            again = la.fused_lazy_attention(*fargs, positions=index)
+            ref = la.fused_lazy_attention_plain(*fargs)
+            torch.cuda.synchronize()
+            require(out.dtype == torch.float32, f"{name}: output dtype")
+            torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+            require(torch.equal(out, again), f"{name}: a rerun differs")
+            require(all(_same_cache(c, o) for c, o in zip((ck, cv), before)),
+                    f"{name}: a cache it reads changed")
+            err = (out - ref).abs().max().item()
+            worst = max(worst, err)
+            print(f"{name} B={b} K={beams} T={FLAG_T} H={heads} index={index}: "
+                  f"max_abs_err={err:.3g}, rerun bit-equal, caches untouched", flush=True)
+        errs[name] = worst
+        live_rows[name] = int((amask != 0).any(-1).sum())
+        times[name] = (graph_ms(lambda: la.fused_lazy_attention(*fargs, positions=63)),
+                       graph_ms(lambda: la.fused_lazy_attention_plain(*fargs)), None)
+
+    q = torch.randn((b, beams, hd), generator=g, device=dev) * 0.3
+    ek, ev = (torch.randn((b, s, heads, FLAG_DH), generator=g, device=dev) * 0.5
+              for _ in range(2))
+    mk, mv = (torch.full((b, 64, hd), float("nan"), device=dev) for _ in range(2))
+    mk[:, :s], mv[:, :s] = ek.reshape(b, s, hd), ev.reshape(b, s, hd)
+    zk, zv = (torch.where(torch.isnan(m), 0.0, m) for m in (mk, mv))
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+    qk, qv = ({"q": v, "s": sc[..., 0].contiguous()}
+              for v, sc in (quantize_rows_dynamic(c) for c in (ek, ev)))
+    qh = q.reshape(b, beams, heads, FLAG_DH).transpose(1, 2)
+    kh, vh = (c.transpose(1, 2) for c in (ek, ev))
+    runs = {
+        "fused_cross_attention_f32": (lambda: ca.fused_cross_attention(q, ek, ev, beams, heads),
+                                      lambda: ca.fused_cross_attention_plain(q, ek, ev, beams,
+                                                                             heads)),
+        "fused_cross_attention_dma_f32": (
+            lambda: ca.fused_cross_attention_dma(q, mk, mv, s, beams, heads),
+            lambda: ca.fused_cross_attention_dma_plain(q, zk, zv, s, beams, heads)),
+        "fused_cross_attention_q8_f32": (
+            lambda: ca.fused_cross_attention_q8(q, qk, qv, beams, heads),
+            lambda: ca.fused_cross_attention_plain(q, qk, qv, beams, heads)),
+    }
+    lib = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0).transpose(1, 2)
+    torch.testing.assert_close(lib.reshape(q.shape), runs["fused_cross_attention_f32"][1](),
+                               rtol=2e-2, atol=2e-2)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
+    for name, (kernel, plain) in runs.items():
+        out, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        require(out.dtype == torch.float32, f"{name}: output dtype")
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+        require(torch.equal(out, again), f"{name}: a rerun differs")
+        errs[name] = (out - ref).abs().max().item()
+        print(f"{name} B={b} K={beams} S={s} H={heads}: max_abs_err={errs[name]:.3g}, rerun "
+              f"bit-equal", flush=True)
+        # SDPA computes rows 13's and 14's float32 function on the live rows;
+        # none computes the int8 form's
+        times[name] = (graph_ms(kernel), graph_ms(plain),
+                       None if name == "fused_cross_attention_q8_f32" else lib_ms)
+
+    scale = 1 + 0.1 * torch.randn((hd,), generator=g, device=dev)
+    shift = 0.1 * torch.randn((hd,), generator=g, device=dev)
+    w = 0.05 * torch.randn((hd, 3 * hd), generator=g, device=dev)
+    bias = 0.1 * torch.randn((3 * hd,), generator=g, device=dev)
+    worst = 0.0
+    for n in (1024, 32):
+        x = torch.randn((n, hd), generator=g, device=dev) * 2 + 0.5
+        out, again = ln_gemm(x, scale, shift, w, bias), ln_gemm(x, scale, shift, w, bias)
+        ref = ln_gemm_plain(x, scale, shift, w, bias)
+        torch.cuda.synchronize()
+        l1 = F.layer_norm(x, (hd,), scale, shift).abs() @ w.abs() + bias.abs()
+        require(out.dtype == torch.float32, "ln_gemm f32: output dtype")
+        require(bool(((out - ref).abs() <= (hd * 2.0**-24 + 2.0**-20) * l1).all()),
+                f"ln_gemm f32 N={n}: beyond the f32 summation bound")
+        require(torch.equal(out, again), f"ln_gemm f32 N={n}: a rerun differs")
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        wt = w.t()
+        times["ln_gemm_f32", n] = (
+            graph_ms(lambda: ln_gemm(x, scale, shift, w, bias)),
+            graph_ms(lambda: ln_gemm_plain(x, scale, shift, w, bias)), None,
+            graph_ms(lambda: F.linear(F.layer_norm(x, (hd,), scale, shift, 1e-5), wt, bias)))
+        print(f"ln_gemm f32 N={n} D={hd} O={3 * hd}: max_abs_err={err:.3g}, rerun bit-equal",
+              flush=True)
+    errs["ln_gemm_f32"] = worst
+    times["ln_gemm_f32"] = times["ln_gemm_f32", 1024][:3]
+
+    bounds = f32_step_bounds(live_rows)
+    for name in F32_STEP_ROWS:
+        k_ms, p_ms, l_ms = times[name]
+        b_ms, by = bounds[name]
+        lib_text = "" if l_ms is None else f", scaled_dot_product_attention f32 {l_ms:.4f} ms"
+        print(f"{name} time (graph replays): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+              f"{lib_text}; bound {b_ms:.4f} ms ({by}), the kernel at {b_ms / k_ms:.1%} of it",
+              flush=True)
+    k_ms, p_ms, _, chain = times["ln_gemm_f32", 32]
+    b_ms, by = ln_gemm_bound(32, hd, 3 * hd, 4, "tf32x3")
+    print(f"ln_gemm_f32 at N=32 (graph replays): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({by}), the kernel at {b_ms / k_ms:.1%} of it; for scale only "
+          f"F.layer_norm + F.linear f32 {chain:.4f} ms (N=1024: "
+          f"{times['ln_gemm_f32', 1024][3]:.4f} ms); at the f32 FMA rate the N=1024 bound is "
+          f"{ln_gemm_bound(1024, hd, 3 * hd, 4, 'f32')[0]:.4f} ms", flush=True)
+    print(f"phase 64 timed masks admit {live_rows} of {b * beams * 63} cached rows", flush=True)
+    return errs, times, live_rows
+
+
+def f32_step_bounds(live_rows):
+    """Phase 64's rows at the flagship shapes: row 2 f32 as row 2 with f32
+    q, step rows and output; row 3 f32 as row 3 over the rows this run's
+    masks admit, f32 (or int8 with per-head scales) cache rows and f32 q,
+    step rows and output; rows 13 and 14 f32 as row 14 in f32 (row 13 on
+    its live rows); the int8 form under f32 q; row 15 f32 reading and
+    writing f32 at the float32-accurate rate of the tensor cores ("tf32x3",
+    as the float32 heads)."""
+    rows = FLAG_B * FLAG_K
+    return {
+        "lazy_attention_q8_f32": attention_bound(rows, 63, HEAD_D, 1, scale_bytes=4,
+                                                 ancestry=True, io_bytes=4),
+        "fused_lazy_attention_f32": blocked_attention_bound(
+            live_rows["fused_lazy_attention_f32"], FLAG_B, FLAG_K, 63, HEAD_D, FLAG_H, 4,
+            io_bytes=4),
+        "fused_lazy_attention_q8_f32": blocked_attention_bound(
+            live_rows["fused_lazy_attention_q8_f32"], FLAG_B, FLAG_K, 63, HEAD_D, FLAG_H, 1,
+            scale_bytes=4, io_bytes=4),
+        "fused_cross_attention_f32": cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D, 4),
+        "fused_cross_attention_dma_f32": cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D, 4),
+        "fused_cross_attention_q8_f32": q8_cross_bound(FLAG_B, FLAG_K, FLAG_S, HEAD_D, FLAG_H,
+                                                       io_bytes=4),
+        "ln_gemm_f32": ln_gemm_bound(1024, HEAD_D, 3 * HEAD_D, 4, "tf32x3"),
+    }
+
+
+# phase 65's paths of the float32 flagship: (switches, kv_quant, the
+# counters that must read 12 a step, the kernels line's name of each)
+F32_PATHS = {
+    "int8 KV, mode 2": ({}, "int8", {"lazy_attention_q8": "lazy_attention_q8_f32"}),
+    "fused step, float32 cache": (
+        {"MIC_TPU_FUSED_LAZY_ATTN": "1", "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,ln_qkv"},
+        None, {"fused_lazy_attention": "fused_lazy_attention_f32",
+               "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32"}),
+    "fused step, int8 cache": (
+        {"MIC_TPU_FUSED_LAZY_ATTN": "1", "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,ln_qkv"},
+        "int8", {"fused_lazy_attention": "fused_lazy_attention_q8_f32",
+                 "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32"}),
+    "merged_cross": ({"MIC_TPU_EXPERIMENTAL": "merged_cross"}, None,
+                     {"fused_cross_attention_dma": "fused_cross_attention_dma_f32",
+                      "lazy_attention": "lazy_attention_f32"}),
+}
+# best scores of images whose sequences equal the plain versions': every
+# path's kernels sum in f32 in another order than the plain versions (row 2
+# f32 throughout: 9.44e-5 at B=64, above phase 52's 1e-4 at B=2), and the
+# paths through rows 3, 13-15 also round weights and outputs to bf16
+F32_PATH_SCORE = 1e-3
+
+
+def _f32_step_swaps(la, ca, lg, attention_mod):
+    """(module, name, plain, written, check) of each wrapper the paths look
+    up, for ``plain_versions`` and ``shadowed``."""
+    def close(tol):
+        def check(args, out, ref):
+            torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+            return (out - ref).abs().max().item(), 0
+        return check
+
+    def q8_column(args):
+        cache_k, cache_v, index = args[1], args[2], args[6]
+        return torch.cat([c[n][:, index].reshape(-1).float() for c in (cache_k, cache_v)
+                          for n in ("q", "s")])
+
+    def ln_check(args, out, ref):
+        x, scale, shift, w, bias = args[:5]
+        l1 = (torch.nn.functional.layer_norm(x, (x.shape[1],), scale, shift).abs() @ w.abs()
+              + bias.abs())
+        require(bool(((out - ref).abs() <= (x.shape[1] * 2.0**-24 + 2.0**-20) * l1).all()),
+                "ln_gemm f32 on the path: beyond the f32 summation bound")
+        return (out - ref).abs().max().item(), 0
+
+    return {
+        "lazy_attention_q8": (attention_mod, "lazy_attention_q8", la.lazy_attention_q8_plain,
+                              q8_column, close(1e-5)),
+        "lazy_attention": (attention_mod, "lazy_attention", la.lazy_attention_plain,
+                           _lazy_column, close(1e-5)),
+        "fused_lazy_attention": (attention_mod, "fused_lazy_attention",
+                                 la.fused_lazy_attention_plain, None, close(2e-2)),
+        "fused_cross_attention": (attention_mod, "fused_cross_attention",
+                                  ca.fused_cross_attention_plain, None, close(2e-2)),
+        "fused_cross_attention_dma": (attention_mod, "fused_cross_attention_dma",
+                                      ca.fused_cross_attention_dma_plain, None, close(2e-2)),
+        "ln_gemm": (lg, "ln_gemm", lg.ln_gemm_plain, None, ln_check),
+    }
+
+
+def run_f32_fused_paths(dev):
+    """Phase 65: the default float32 flagship (CaptionerConfig.
+    clip_vit_b32_mbart50() at its own dtype, full width and depth, random
+    weights from a seed) serving B=64 images, beam 4, length 64, every
+    caption's EOS pinned at 63 (all 63 steps), under each path of
+    ``F32_PATHS``: kv_quant="int8" in mode "2" (row 2 f32); the fused step's
+    switches without fused_mlp (row 16 has no float32 kernel, ROADMAP B43)
+    with the float32 cache (rows 3, 14 and 15 f32) and the per-head int8
+    cache (row 3's int8 form under f32 q, 14 and 15 f32); merged_cross
+    (row 13 f32, with row 1 f32).  For each: the counters set to 0 just
+    before a generate and read just after, each of the path's kernels 12
+    times a step; a second run with every launch of those kernels held
+    against its plain version on the same inputs (row 2 and row 1 within
+    1e-5 and their written cells bit-equal, rows 3, 13, 14 within 2e-2, row
+    15 within the f32 summation bound) and its sequences and scores
+    identical to the first; and the same generate with the kernels swapped
+    for their plain versions on the card: sequences equal but for images
+    whose running beams first part at a near-tie (both runs' 4th less 5th
+    candidate within BEAM_TIE, ``_first_partings``), the best scores of
+    equal images within ``F32_PATH_SCORE`` and of every image within
+    NEAR_TIE.  Then a beam step's time (host clock around a synchronised
+    generate, over its steps) in turns with the bf16 flagship under the same
+    switches (f32, bf16, bf16, f32) -> launches of each kernels-line name."""
+    import mic_tpu_torch.nn.attention as attention_mod
+    import mic_tpu_torch.ops.cross_attention as ca
+    import mic_tpu_torch.ops.lazy_attention as la
+    import mic_tpu_torch.ops.ln_gemm as lg
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+
+    config = CaptionerConfig.clip_vit_b32_mbart50()
+    require(config.dtype == "float32", f"the flagship's default dtype is {config.dtype}")
+    params = make_serving_params(
+        init_params(config, torch.Generator(device=dev).manual_seed(65), dev), torch.float32)
+    model = Captioner(config)
+    layers = config.decoder.num_layers
+    n = 64
+    kw = dict(num_beams=4, max_length=64, forced_bos_token_id=FLAGSHIP_BOS)
+    u8 = np.random.default_rng(65).integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+    px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, torch.float32)
+    eos = torch.full((n,), 63, device=dev)
+    swaps = _f32_step_swaps(la, ca, lg, attention_mod)
+    launches = {}
+    for label, (env, kv, rows) in F32_PATHS.items():
+        extra = dict(kw, kv_quant=kv, eos_positions=eos)
+        with knobs(**env):
+            model.generate(params, px[:8], **dict(extra, eos_positions=eos[:8]))  # warm-up
+            with _beam_trace(4) as trace:
+                out, counts, seconds = generate_counted(
+                    lambda x: model.generate(params, x, **extra), px)
+            seqs = check_path_output(out, n, 64, f"float32 flagship, {label}")
+            check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id,
+                         config.decoder.pad_token_id, f"float32 flagship, {label}")
+            found = {rows[c]: counts.pop(c) for c in rows}
+            require(all(v == layers * out.steps for v in found.values()),
+                    f"float32 {label}: a kernel not launched 12 times a step: {found}")
+            require(counts["fused_head"] >= out.steps, f"float32 {label}: row 4 under once a step")
+            others = {k: v for k, v in counts.items() if v and k != "fused_head"}
+            require(not others, f"float32 {label}: other serving kernels launched: {others}")
+            for name, count in found.items():
+                launches.setdefault(name, count)
+            with shadowed(*(swaps[c] for c in rows)) as stats:
+                again = model.generate(params, px, **extra)
+            _print_shadow(f"float32 flagship, {label}", stats)
+            _require_rerun_identical(f"float32 flagship, {label}", out, again)
+            # the plain versions take the wrappers' positional arguments
+            # (row 3's ``positions`` bounds only the kernel's walk)
+            plain = [(m, nm, lambda *a, _p=p, **_: _p(*a))
+                     for m, nm, p, _, _ in (swaps[c] for c in rows)]
+            with plain_versions(*plain), _beam_trace(4) as plain_trace:
+                ref = model.generate(params, px, **extra)
+        torch.cuda.synchronize()
+        equal = (seqs == ref.sequences.cpu()).all(1)
+        gap = (out.scores - ref.scores).abs().cpu()
+        partings = _first_partings(plain_trace, trace, n, 4)
+        del trace, plain_trace
+        equal_gap = float(gap[equal].max()) if bool(equal.any()) else 0.0
+        print(f"float32 flagship, {label}: B={n} beam 4, {out.steps} steps in {seconds:.3f} s "
+              f"(smoke figure, not a benchmark), launches {found}; against the same generate on "
+              f"the plain versions: {int(equal.sum())} of {n} sequences equal, best-score "
+              f"differences of equal images at most {equal_gap:.3g} (limit "
+              f"{F32_PATH_SCORE}), of all {float(gap.max()):.3g} (limit {NEAR_TIE}); "
+              f"where running beams first part (image, step, plain's 4th less 5th, the "
+              f"kernels', kept-score difference a step before): "
+              f"{[(i, st, round(a, 5), round(b, 5), round(d, 5)) for i, st, a, b, d in partings]}"
+              f" (limit {BEAM_TIE})", flush=True)
+        require(equal_gap <= F32_PATH_SCORE,
+                f"float32 {label}: scores of equal sequences differ from the plain versions'")
+        require(float(gap.max()) <= NEAR_TIE,
+                f"float32 {label}: a best score beyond a near-tie of the plain versions'")
+        require(all(a <= BEAM_TIE and b <= BEAM_TIE for _, _, a, b, _ in partings),
+                f"float32 {label}: beams part from the plain versions' where no near-tie is")
+
+    del params
+    torch.cuda.empty_cache()
+    bf16_config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    params16 = make_serving_params(
+        init_params(bf16_config, torch.Generator(device=dev).manual_seed(65), dev))
+    params32 = make_serving_params(
+        init_params(config, torch.Generator(device=dev).manual_seed(65), dev), torch.float32)
+    model16 = Captioner(bf16_config)
+    px16 = px.to(torch.bfloat16)
+    for label, (env, kv, _) in F32_PATHS.items():
+        extra = dict(kw, kv_quant=kv, eos_positions=eos)
+        with knobs(**env):
+            for turn, dtype in enumerate(("float32", "bfloat16", "bfloat16", "float32"), 1):
+                m, p, x = ((model, params32, px) if dtype == "float32"
+                           else (model16, params16, px16))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = m.generate(p, x, **extra)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                print(f"smoke figure (not a benchmark), {label}, {dtype} flagship, turn {turn}: "
+                      f"B={n} beam 4, {out.steps} steps in {seconds:.3f} s = "
+                      f"{seconds / out.steps * 1e3:.2f} ms a beam step", flush=True)
+    del params16, params32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -6238,6 +6694,11 @@ def main() -> None:
         translate_launches = run_translate_tool(dev, root)
     torch.cuda.empty_cache()
     took("61-63")
+    f32_step_err, f32_step_ms, f32_live = check_f32_step_kernels(dev)
+    torch.cuda.empty_cache()
+    f32_step_launches = run_f32_fused_paths(dev)
+    torch.cuda.empty_cache()
+    took("64-65")
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -6266,6 +6727,7 @@ def main() -> None:
         "beam_permute": bound(2 * 2 * int(np.prod(PERMUTE_SHAPE)), 0, "bf16"),
         "int8_matmul": int8_matmul_bound(1024, 1024, 3072),
         **f32_bounds(n_beam, 1024, n_ce),
+        **f32_step_bounds(f32_live),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "decode_attention N=4": attention_bound(4, 63, HEAD_D, 2),
@@ -6407,6 +6869,16 @@ def main() -> None:
             ("fused_head_select_f32", "fused_head.cu", "mic_tpu/ops/fused_head.py:290"),
             ("flash_ce_forward_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:259"),
             ("flash_ce_backward_dl_f32", "flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:725"))
+    ]
+    # the float32 instances of rows 2, 3, 13, 14 and 15 (phases 64-65): SDPA
+    # in float32 computes rows 13's and 14's function; row 14's int8 form
+    # has no caller, so no path launches it
+    kernels += [
+        dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
+             max_abs_err=f32_step_err[name], ms=f32_step_ms[name][0],
+             plain_ms=f32_step_ms[name][1], library_ms=f32_step_ms[name][2],
+             launches=f32_step_launches.get(name, 0))
+        for name, (source, replaces) in F32_STEP_ROWS.items()
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -36,6 +36,7 @@ _SIGNATURES = {
     # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, ancestry, out,
     # batch, beams, t_max, heads, head_dim, index, group, groups, stream
     "mic_lazy_attention_q8": [_P] * 9 + [_I] * 8 + [_P],
+    "mic_lazy_attention_q8_f32": [_P] * 9 + [_I] * 8 + [_P],
     # hidden, weight, bias, l_out, rmax_out, rid_out, l_part, rmax_part,
     # rid_part, n, d, vocab, buckets, splits, stream
     "mic_fused_head_bucket_bf16": [_P] * 9 + [_I] * 5 + [_P],
@@ -86,15 +87,20 @@ _SIGNATURES = {
     # q, cache_k, cache_v, k_step, v_step, amask, out,
     # batch, beams, t_max, positions, heads, head_dim, compact, stage, shared, stream
     "mic_lazy_attention_blocked_bf16": [_P] * 7 + [_I] * 9 + [_P],
+    "mic_lazy_attention_blocked_f32": [_P] * 7 + [_I] * 9 + [_P],
     # q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, amask, out,
     # batch, beams, t_max, positions, heads, head_dim, compact, stage, shared, stream
     "mic_lazy_attention_blocked_q8": [_P] * 9 + [_I] * 9 + [_P],
+    "mic_lazy_attention_blocked_q8_f32": [_P] * 9 + [_I] * 9 + [_P],
     # q, enc_k, enc_v, out, batch, beams, enc_len, heads, head_dim, stream
     "mic_cross_attention_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    "mic_cross_attention_f32": [_P] * 4 + [_I] * 5 + [_P],
     # q, enc_k, k_scale, enc_v, v_scale, out, batch, beams, enc_len, heads, head_dim, stream
     "mic_cross_attention_q8": [_P] * 6 + [_I] * 5 + [_P],
+    "mic_cross_attention_q8_f32": [_P] * 6 + [_I] * 5 + [_P],
     # q, enc_k, enc_v, out, batch, beams, s_pad, real_s, heads, head_dim, stream
     "mic_cross_attention_dma_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "mic_cross_attention_dma_f32": [_P] * 4 + [_I] * 6 + [_P],
     # kv, idx, out, layers, rows, beams, row_elems, elem_bytes, stream
     "mic_beam_permute": [_P] * 3 + [_I] * 3 + [ctypes.c_longlong, _I, _P],
     # x, w_q, scale, out, part, arrivals, m, kx, k, n, rows, splits, blocks, stream
@@ -103,6 +109,8 @@ _SIGNATURES = {
     "mic_int8_matmul_shared_bytes": [_I, _I],
     # x, scale, shift, w, bias, part, out, n, d, o, eps, splits, stream
     "mic_ln_gemm_bf16": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+    # x, scale, shift, w, bias, stats, part, out, n, d, o, eps, splits, stream
+    "mic_ln_gemm_f32": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
     # x, w1, b1, w2, b2, h, part, out, n, d, f, act, splits1, splits2, stream
     "mic_fused_mlp_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # q, k, v, bias (or NULL), out, batch, t, heads, head_dim, stream

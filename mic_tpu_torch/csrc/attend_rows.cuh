@@ -41,6 +41,17 @@
 // not fit beside the scores, K's and then V's rows go through in chunks of
 // `stage` rows, each V item's sums kept in shared memory between chunks (the
 // chain of products goes on from the same f32 values).
+// A float32 model's instances: the int8 cache under f32 q and output (q
+// rounded to bf16 as it is staged); and float32 K and V (rows 13 and 14
+// f32), _attend_tiles on f32 tiles: q rounded to bf16, K and V not rounded,
+// every weight rounded to bf16, one bf16 rounding of the output, returned
+// in f32.  There the staged rows are 272 bytes (64 f32 and 16 that spread
+// the float4 reads) and both products are f32 FMAs on the CUDA cores: at 4
+// beams each 4-byte element loaded feeds 8 flops, below the card's ~20
+// flops a byte, so the kernel stays bound by its bytes.  Scores: a thread a
+// (beam, row), q's reads the same for the warp (a broadcast); the V
+// product: a warp a beam, lane l its dims 2 l and 2 l + 1, the rows in
+// order.
 // The block shape is from measurement (PERF.md §6,
 // tools/torch_cross_variants.py): two or four heads a block, or two or
 // eight warps, were slower.
@@ -72,6 +83,7 @@ constexpr int kHeadDim = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPitch = 144;  // bytes of a staged row: 64 bf16 and 16 that spread ldmatrix
+constexpr int kPitchF32 = 272;  // 64 f32 and 16 that spread the float4 reads
 // finfo(float32).min: the mask constant of mic_tpu/ops/lazy_attention.py.
 constexpr float kMaskValue = -3.4028234663852886e38f;
 constexpr size_t kMaxSmem = 232448;
@@ -82,7 +94,8 @@ constexpr int kScorePad = 8;
 constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
 // A block's shared memory, each region 16-aligned: the q tile
-// [beams16][kPitch], the K and V tiles [stage][kPitch], int8: the K and V
+// [beams16][pitch], the K and V tiles [stage][pitch] (pitch kPitch, or
+// kPitchF32 on a float32 cache), int8: the K and V
 // scales [rows16] each, then the f32 scores, then weights,
 // [beams][rows16 + kScorePad] and, in chunks, the V items' f32 sums
 // [beams16][64].
@@ -91,14 +104,14 @@ struct Layout {
   int k_tile, v_tile, scales, scores, partial, total;
 };
 
-inline Layout layout(int beams, int positions, int stage, bool q8) {
+inline Layout layout(int beams, int positions, int stage, bool q8, int pitch) {
   Layout l{};
   l.beams16 = round16(beams);
   l.rows16 = round16(positions);
   l.chunks = (l.rows16 + stage - 1) / stage;
-  const size_t k_tile = static_cast<size_t>(l.beams16) * kPitch;
-  const size_t v_tile = k_tile + static_cast<size_t>(stage) * kPitch;
-  const size_t scales = v_tile + static_cast<size_t>(stage) * kPitch;
+  const size_t k_tile = static_cast<size_t>(l.beams16) * pitch;
+  const size_t v_tile = k_tile + static_cast<size_t>(stage) * pitch;
+  const size_t scales = v_tile + static_cast<size_t>(stage) * pitch;
   const size_t scores = scales + (q8 ? 2 * 4 * static_cast<size_t>(l.rows16) : 0);
   const size_t partial = scores + 4 * static_cast<size_t>(beams) * (l.rows16 + kScorePad);
   const size_t total =
@@ -117,12 +130,12 @@ inline Layout layout(int beams, int positions, int stage, bool q8) {
 }
 
 struct Args {
-  const __nv_bfloat16* q;  // (B, K, H*Dh), pre-scaled by Dh**-0.5
-  const void* cache_k;     // (B, t_max, H*Dh) bf16 or int8
+  const void* q;         // (B, K, H*Dh), pre-scaled by Dh**-0.5, bf16 or f32
+  const void* cache_k;   // (B, t_max, H*Dh) bf16, int8 or f32
   const void* cache_v;
-  const float* k_scale;    // (B, t_max, H) f32, int8 caches only
+  const float* k_scale;  // (B, t_max, H) f32, int8 caches only
   const float* v_scale;
-  __nv_bfloat16* out;      // (B, K, H*Dh)
+  void* out;             // (B, K, H*Dh), q's dtype
   int batch, beams, t_max, positions, heads;
   int stage;  // rows a chunk of K or V stages, a multiple of 16
   Layout L;   // of stage, from the host
@@ -147,11 +160,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 64 registers: 8 blocks an SM
-template <typename T>
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One output pair: rounded to bf16 once, stored in q's dtype.
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_out(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(bf16_round(x), bf16_round(y));
+}
+
+// T: the cache's element (bf16, int8, or f32); Q: q's and the output's
+// (bf16, or f32 on a float32 model).  64 registers: 8 blocks an SM
+template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
-  constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4)
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4, 16)
+  constexpr int kRowPitch = kF32 ? kPitchF32 : kPitch;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout& L = a.L;
   const int stage = a.stage;
@@ -189,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
     const uint32_t dst = smem_addr(tile + (kQ8 ? 64 : 0) + 16 * piece);
     for (int r = tid / kPieces; r < nc; r += kThreads / kPieces) {
       const bool live = c0 + r < positions;
-      cp_async16(dst + r * kPitch, live ? src + r * row_bytes : src, live ? 16 : 0);
+      cp_async16(dst + r * kRowPitch, live ? src + r * row_bytes : src, live ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -207,15 +235,41 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
   };
 
   // q rows [beam][piece] (beams past `beams` zero) and int8 scales with K's
-  // group, then V's group where the tiles are whole
-  {
-    const __nv_bfloat16* qsrc =
-        a.q + static_cast<size_t>(b) * beams * hd + h * kHeadDim + 8 * (tid & 7);
+  // group, then V's group where the tiles are whole.  f32 q goes through
+  // registers, rounded to bf16: as bf16 rows for the tensor cores, or on a
+  // float32 cache as f32 rows of bf16 values
+  if constexpr (std::is_same<Q, __nv_bfloat16>::value) {
+    const __nv_bfloat16* qsrc = static_cast<const __nv_bfloat16*>(a.q) +
+                                static_cast<size_t>(b) * beams * hd + h * kHeadDim +
+                                8 * (tid & 7);
     const uint32_t qdst = smem_addr(q_tile + 16 * (tid & 7));
     for (int k = tid >> 3; k < beams16; k += kThreads / 8) {
       const bool live = k < beams;
       cp_async16(qdst + k * kPitch, live ? qsrc + static_cast<size_t>(k) * hd : qsrc,
                  live ? 16 : 0);
+    }
+  } else {
+    const float* qsrc = static_cast<const float*>(a.q) + static_cast<size_t>(b) * beams * hd +
+                        h * kHeadDim + 8 * (tid & 7);
+    for (int k = tid >> 3; k < beams16; k += kThreads / 8) {
+      float v[8] = {};
+      if (k < beams) {
+        const float4 lo = *reinterpret_cast<const float4*>(qsrc + static_cast<size_t>(k) * hd);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(qsrc + static_cast<size_t>(k) * hd + 4);
+        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+      }
+      unsigned char* dst = q_tile + k * kRowPitch + (kF32 ? 32 : 16) * (tid & 7);
+      if constexpr (kF32) {
+        reinterpret_cast<float4*>(dst)[0] =
+            make_float4(bf16_round(v[0]), bf16_round(v[1]), bf16_round(v[2]), bf16_round(v[3]));
+        reinterpret_cast<float4*>(dst)[1] =
+            make_float4(bf16_round(v[4]), bf16_round(v[5]), bf16_round(v[6]), bf16_round(v[7]));
+      } else {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                                    pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+      }
     }
   }
   if constexpr (kQ8) {
@@ -247,10 +301,32 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
       widen(k_tile, nc);
       __syncthreads();
     }
+    if constexpr (kF32) {
+      // a thread a (beam, row) of the chunk's live rows, beam-major
+      const int live = min(nc, positions - c0);
+      for (int item = tid; item < beams * live; item += kThreads) {
+        const int k = item / live;
+        const int r = item - k * live;
+        const float* kr = reinterpret_cast<const float*>(k_tile + r * kRowPitch);
+        const float* qr = reinterpret_cast<const float*>(q_tile + k * kRowPitch);
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < kHeadDim; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+          acc = fmaf(qv.x, kv.x, acc);
+          acc = fmaf(qv.y, kv.y, acc);
+          acc = fmaf(qv.z, kv.z, acc);
+          acc = fmaf(qv.w, kv.w, acc);
+        }
+        scores[k * ss + c0 + r] = acc;
+      }
+      continue;
+    }
     const int groups8 = (min(nc, positions - c0) + 7) / 8;
     for (int it = warp; it < groups8; it += kWarps) {
       const int r0 = 8 * it;
-      const uint32_t kb = smem_addr(k_tile + (r0 + (lane & 7)) * kPitch + 16 * (lane >> 3));
+      const uint32_t kb = smem_addr(k_tile + (r0 + (lane & 7)) * kRowPitch + 16 * (lane >> 3));
       uint32_t lo[4], hi[4];  // the B operands of dims 0-31 and 32-63
       ldmatrix_x4(lo, kb);
       ldmatrix_x4(hi, kb + 64);
@@ -323,6 +399,30 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
       widen(v_tile, nc);
       __syncthreads();
     }
+    if constexpr (kF32) {
+      // a warp a beam, lane l its dims 2 l and 2 l + 1, the rows in order
+      const int live = min(nc, positions - c0);
+      for (int k = warp; k < beams; k += kWarps) {
+        float2 acc = make_float2(0.f, 0.f);
+        float2* part = reinterpret_cast<float2*>(partial + k * kHeadDim + 2 * lane);
+        if (ch > 0) acc = *part;
+        const float* wk = scores + k * ss + c0;
+        for (int r = 0; r < live; ++r) {
+          const float w = bf16_round(wk[r]);
+          const float2 v2 = *reinterpret_cast<const float2*>(v_tile + r * kRowPitch + 8 * lane);
+          acc.x = fmaf(w, v2.x, acc.x);
+          acc.y = fmaf(w, v2.y, acc.y);
+        }
+        if (ch + 1 < L.chunks) {
+          *part = acc;
+        } else {
+          store_out(static_cast<Q*>(a.out) + (static_cast<size_t>(b) * beams + k) * hd +
+                        h * kHeadDim + 2 * lane,
+                    acc.x, acc.y);
+        }
+      }
+      continue;
+    }
     const int groups16 = (min(nc, positions - c0) + 15) / 16;
     for (int it = warp; it < mtiles * 4; it += kWarps) {
       const int qd = it & 3;  // dims 16 qd .. 16 qd + 15
@@ -344,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
       // output row of the product reads only its own A row)
       const float* w = scores + min(m0 + g8, beams - 1) * ss + c0 + 2 * c;
       const int w8 = (min(m0 + g8 + 8, beams - 1) - min(m0 + g8, beams - 1)) * ss;
-      const uint32_t va = smem_addr(v_tile + (8 * ((lane >> 3) & 1) + (lane & 7)) * kPitch +
+      const uint32_t va = smem_addr(v_tile + (8 * ((lane >> 3) & 1) + (lane & 7)) * kRowPitch +
                                     32 * qd + 16 * (lane >> 4));
       for (int kg = 0; kg < groups16; ++kg) {
         const float* wk = w + 16 * kg;
@@ -372,13 +472,10 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
       for (int hf = 0; hf < 2; ++hf) {
         const int k = m0 + g8 + 8 * hf;
         if (k < beams) {
-          __nv_bfloat16* dst = a.out + (static_cast<size_t>(b) * beams + k) * hd +
-                               h * kHeadDim + 16 * qd + 2 * c;
+          Q* dst = static_cast<Q*>(a.out) + (static_cast<size_t>(b) * beams + k) * hd +
+                   h * kHeadDim + 16 * qd + 2 * c;
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb) {
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nb) =
-                __floats2bfloat162_rn(acc[nb][2 * hf], acc[nb][2 * hf + 1]);
-          }
+          for (int nb = 0; nb < 2; ++nb) store_out(dst + 8 * nb, acc[nb][2 * hf], acc[nb][2 * hf + 1]);
         }
       }
     }
@@ -387,21 +484,22 @@ __global__ void __launch_bounds__(kThreads, 8) tiles_kernel(const Args a) {
 
 // Launch on `stream`; returns a cudaError_t.  Whole tiles where they fit (K's
 // and V's rows in flight together), else the largest chunk that does.
-template <typename T>
+template <typename T, typename Q>
 int launch(Args a, int head_dim, cudaStream_t stream) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
+  constexpr int kRowPitch = std::is_same<T, float>::value ? kPitchF32 : kPitch;
   if (head_dim != kHeadDim || a.beams < 1 || a.positions < 1 || a.positions > a.t_max ||
       a.heads < 1 || a.batch < 1 || a.batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.stage = round16(a.positions);
-  a.L = layout(a.beams, a.positions, a.stage, kQ8);
+  a.L = layout(a.beams, a.positions, a.stage, kQ8, kRowPitch);
   while (a.L.total < 0 && a.stage > 16) {
     a.stage -= 16;
-    a.L = layout(a.beams, a.positions, a.stage, kQ8);
+    a.L = layout(a.beams, a.positions, a.stage, kQ8, kRowPitch);
   }
   if (a.L.total < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tiles_kernel<T>;
+  auto kernel = tiles_kernel<T, Q>;
   if (a.L.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.L.total);

@@ -17,7 +17,8 @@
 // real_s, the row stride t_max = S_pad), which gives the same result.
 //
 // Bound: bytes, each image's live K and V rows read once (52 MB a layer at
-// B=256, S=50, H*Dh=1024 in bf16; half that, plus the scales, in int8).
+// B=256, S=50, H*Dh=1024 in bf16; half that, plus the scales, in int8;
+// twice it in a float32 model's f32, whose instances take f32 q and output).
 // Design: attend_rows.cuh, one block per (head, image) that
 // requests its q, K and V tiles at once and runs both products on the
 // tensor cores.  The TPU kernel's double-buffered DMA groups existed to
@@ -34,27 +35,56 @@
 extern "C" int mic_cross_attention_bf16(void* q, void* enc_k, void* enc_v, void* out, int batch,
                                         int beams, int enc_len, int heads, int head_dim,
                                         void* stream) {
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
-                 static_cast<__nv_bfloat16*>(out), batch, beams, enc_len, enc_len, heads,
+  attend::Args a{q, enc_k, enc_v, nullptr, nullptr, out, batch, beams, enc_len, enc_len, heads,
                  16, {}};
-  return attend::launch<__nv_bfloat16>(a, head_dim, static_cast<cudaStream_t>(stream));
+  return attend::launch<__nv_bfloat16, __nv_bfloat16>(a, head_dim,
+                                                      static_cast<cudaStream_t>(stream));
+}
+
+// A float32 model's: float32 q, encoder K/V and output.
+extern "C" int mic_cross_attention_f32(void* q, void* enc_k, void* enc_v, void* out, int batch,
+                                       int beams, int enc_len, int heads, int head_dim,
+                                       void* stream) {
+  attend::Args a{q, enc_k, enc_v, nullptr, nullptr, out, batch, beams, enc_len, enc_len, heads,
+                 16, {}};
+  return attend::launch<float, float>(a, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_q8(void* q, void* enc_k, void* k_scale, void* enc_v,
                                       void* v_scale, void* out, int batch, int beams, int enc_len,
                                       int heads, int head_dim, void* stream) {
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v,
-                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                 static_cast<__nv_bfloat16*>(out), batch, beams, enc_len, enc_len, heads,
+  attend::Args a{q, enc_k, enc_v, static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale), out, batch, beams, enc_len, enc_len, heads,
                  16, {}};
-  return attend::launch<int8_t>(a, head_dim, static_cast<cudaStream_t>(stream));
+  return attend::launch<int8_t, __nv_bfloat16>(a, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+// The int8 cross cache under float32 q and output.
+extern "C" int mic_cross_attention_q8_f32(void* q, void* enc_k, void* k_scale, void* enc_v,
+                                          void* v_scale, void* out, int batch, int beams,
+                                          int enc_len, int heads, int head_dim, void* stream) {
+  attend::Args a{q, enc_k, enc_v, static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale), out, batch, beams, enc_len, enc_len, heads,
+                 16, {}};
+  return attend::launch<int8_t, float>(a, head_dim, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mic_cross_attention_dma_bf16(void* q, void* enc_k, void* enc_v, void* out,
                                             int batch, int beams, int s_pad, int real_s, int heads,
                                             int head_dim, void* stream) {
   if (real_s < 1) return static_cast<int>(cudaErrorInvalidValue);
-  attend::Args a{static_cast<const __nv_bfloat16*>(q), enc_k, enc_v, nullptr, nullptr,
-                 static_cast<__nv_bfloat16*>(out), batch, beams, s_pad, real_s, heads, 16, {}};
-  return attend::launch<__nv_bfloat16>(a, head_dim, static_cast<cudaStream_t>(stream));
+  attend::Args a{q, enc_k, enc_v, nullptr, nullptr, out, batch, beams, s_pad, real_s, heads, 16,
+                 {}};
+  return attend::launch<__nv_bfloat16, __nv_bfloat16>(a, head_dim,
+                                                      static_cast<cudaStream_t>(stream));
+}
+
+// The merged padded cache of a float32 model.
+extern "C" int mic_cross_attention_dma_f32(void* q, void* enc_k, void* enc_v, void* out,
+                                           int batch, int beams, int s_pad, int real_s, int heads,
+                                           int head_dim, void* stream) {
+  if (real_s < 1) return static_cast<int>(cudaErrorInvalidValue);
+  attend::Args a{q, enc_k, enc_v, nullptr, nullptr, out, batch, beams, s_pad, real_s, heads, 16,
+                 {}};
+  return attend::launch<float, float>(a, head_dim, static_cast<cudaStream_t>(stream));
 }

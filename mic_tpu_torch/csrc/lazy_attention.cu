@@ -200,7 +200,11 @@ __global__ void lazy_attention_kernel(
 // (q . k8) * ks[row, t]; the step's own K row enters unquantized (scale 1);
 // after the f32 softmax each cached weight is multiplied by vs[row, t], and
 // every weight is rounded to bf16 before the V product (the TPU kernel's
-// w.astype(bf16)).  The kernel also quantizes the beam's step rows as
+// w.astype(bf16)).  A float32 model's instance (split_kernel<float>) takes
+// float32 q, step rows and output and leaves the weights in f32 (q's dtype,
+// as the plain version at float32 does; the TPU kernel's bf16 casts are not
+// copied, ROADMAP §C): the same walk, bound by the same int8 bytes.  The
+// kernel also quantizes the beam's step rows as
 // ops/quant.py::quantize_rows_dynamic does, bit for bit: one scale over the
 // whole merged row (amax over all heads, floor 1e-8, times 1/127), IEEE
 // division, round half to even, clamp to +-127, and writes them and their
@@ -291,41 +295,71 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[16]) {
   }
 }
 
-__device__ __forceinline__ float amax8(const uint4& raw) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  float m = 0.f;
+// Sixteen f32 values at p (64 bytes, 16-byte aligned).
+__device__ __forceinline__ void load16(const float* p, float (&f)[16]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+    const float4 v = reinterpret_cast<const float4*>(p)[j];
+    f[4 * j] = v.x, f[4 * j + 1] = v.y, f[4 * j + 2] = v.z, f[4 * j + 3] = v.w;
   }
+}
+
+__device__ __forceinline__ float amax8(const float (&v)[8]) {
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
   return m;
 }
 
-// Eight bf16 values quantized with `scale`, as eight int8 bytes.
-__device__ __forceinline__ uint2 quantize8(const uint4& raw, float scale) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+// Eight values quantized with `scale`, as eight int8 bytes.
+__device__ __forceinline__ uint2 quantize8(const float (&v)[8], float scale) {
   uint32_t out[2] = {0u, 0u};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-    const uint32_t lo = static_cast<uint8_t>(quantize(v.x, scale));
-    const uint32_t hi = static_cast<uint8_t>(quantize(v.y, scale));
-    out[j >> 1] |= (lo | (hi << 8)) << (16 * (j & 1));
+  for (int j = 0; j < 8; ++j) {
+    out[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(quantize(v[j], scale)))
+                   << (8 * (j & 3));
   }
   return make_uint2(out[0], out[1]);
 }
 
+// A softmax weight as the V product takes it: rounded to bf16 where q is
+// bf16 (the TPU kernel's w.astype(bf16)), kept in f32 where q is float32
+// (q's dtype, as the plain version at float32).
+template <typename Q>
+__device__ __forceinline__ float weight_as(float w) {
+  return std::is_same<Q, float>::value ? w : __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// Eight outputs into p (16-byte aligned) in Q: one bf16 rounding, or as they are.
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t packed[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    packed[j] = *reinterpret_cast<const uint32_t*>(&pair);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Q = __nv_bfloat16 (the serving dtype, the TPU kernel's math) or float (a
+// float32 model: q, the step rows and the output in f32, the weights not
+// rounded; the same walk, the step rows' reads twice the bytes).
+template <typename Q>
 __global__ void __launch_bounds__(256) split_kernel(
-    const __nv_bfloat16* __restrict__ q,       // (B, K, H*Dh), pre-scaled
-    int8_t* cache_k,                           // (B*K, T, H*Dh)
-    float* k_scale,                            // (B*K, T)
-    int8_t* cache_v,                           // (B*K, T, H*Dh)
-    float* v_scale,                            // (B*K, T)
-    const __nv_bfloat16* __restrict__ k_step,  // (B, K, H*Dh)
-    const __nv_bfloat16* __restrict__ v_step,  // (B, K, H*Dh)
-    const int32_t* __restrict__ ancestry,      // (B, K, T)
-    __nv_bfloat16* __restrict__ out,           // (B, K, H*Dh)
+    const Q* __restrict__ q,               // (B, K, H*Dh), pre-scaled
+    int8_t* cache_k,                       // (B*K, T, H*Dh)
+    float* k_scale,                        // (B*K, T)
+    int8_t* cache_v,                       // (B*K, T, H*Dh)
+    float* v_scale,                        // (B*K, T)
+    const Q* __restrict__ k_step,          // (B, K, H*Dh)
+    const Q* __restrict__ v_step,          // (B, K, H*Dh)
+    const int32_t* __restrict__ ancestry,  // (B, K, T)
+    Q* __restrict__ out,                   // (B, K, H*Dh)
     int beams, int t_max, int heads, int index, int group, int groups) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(index, group, groups);
@@ -357,12 +391,15 @@ __global__ void __launch_bounds__(256) split_kernel(
   }
 
   // the step rows' scales: the amax over the whole merged rows, once
-  const uint4* ks8 = reinterpret_cast<const uint4*>(k_step + static_cast<size_t>(row) * hd);
-  const uint4* vs8 = reinterpret_cast<const uint4*>(v_step + static_cast<size_t>(row) * hd);
+  const Q* ks8 = k_step + static_cast<size_t>(row) * hd;
+  const Q* vs8 = v_step + static_cast<size_t>(row) * hd;
   float kmax = 0.f, vmax = 0.f;
   for (int i = tid; i < hd / 8; i += nthreads) {
-    kmax = fmaxf(kmax, amax8(ks8[i]));
-    vmax = fmaxf(vmax, amax8(vs8[i]));
+    float kv[8], vv[8];
+    load8(ks8 + 8 * i, kv);
+    load8(vs8 + 8 * i, vv);
+    kmax = fmaxf(kmax, amax8(kv));
+    vmax = fmaxf(vmax, amax8(vv));
   }
   kmax = warp_max(kmax);
   vmax = warp_max(vmax);
@@ -383,8 +420,11 @@ __global__ void __launch_bounds__(256) split_kernel(
   // place: every block reads only positions < index.
   const size_t col = static_cast<size_t>(row) * t_max + index;
   for (int i = tid; i < hd / 8; i += nthreads) {
-    *reinterpret_cast<uint2*>(cache_k + col * hd + 8 * i) = quantize8(ks8[i], kq);
-    *reinterpret_cast<uint2*>(cache_v + col * hd + 8 * i) = quantize8(vs8[i], vq);
+    float kv[8], vv[8];
+    load8(ks8 + 8 * i, kv);
+    load8(vs8 + 8 * i, vv);
+    *reinterpret_cast<uint2*>(cache_k + col * hd + 8 * i) = quantize8(kv, kq);
+    *reinterpret_cast<uint2*>(cache_v + col * hd + 8 * i) = quantize8(vv, vq);
   }
   if (tid == 0) {
     k_scale[col] = kq;
@@ -430,7 +470,8 @@ __global__ void __launch_bounds__(256) split_kernel(
     }
     __syncthreads();
 
-    // a warp a head: softmax, weights times the V row scales, rounded to bf16
+    // a warp a head: softmax, weights times the V row scales (rounded to
+    // bf16 where q is bf16)
     for (int h = warp; h < group; h += nthreads / 32) {
       float* ph = p + h * index;
       float m = kMaskValue;
@@ -446,9 +487,9 @@ __global__ void __launch_bounds__(256) split_kernel(
       const float e_step = expf(sh - m);
       l = warp_sum(l) + e_step;
       for (int t = lane; t < index; t += 32) {
-        ph[t] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__fdiv_rn(ph[t], l), vsc[t])));
+        ph[t] = weight_as<Q>(__fmul_rn(__fdiv_rn(ph[t], l), vsc[t]));
       }
-      if (lane == 0) st[group + h] = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(e_step, l)));
+      if (lane == 0) st[group + h] = weight_as<Q>(__fdiv_rn(e_step, l));
     }
     __syncthreads();
 
@@ -484,7 +525,7 @@ __global__ void __launch_bounds__(256) split_kernel(
     __syncthreads();
 
     // eight output dims a thread: the position groups' sums in group order,
-    // then the step row's term, one bf16 rounding
+    // then the step row's term, one rounding to Q
     for (int item = tid; item < 8 * group; item += nthreads) {
       const int pc = item >> 1;
       const int half = item & 1;
@@ -498,17 +539,11 @@ __global__ void __launch_bounds__(256) split_kernel(
       const size_t o = static_cast<size_t>(row) * hd + (h0 + (pc >> 2)) * kHeadDim +
                        16 * (pc & 3) + 8 * half;
       const float ws = st[group + (pc >> 2)];
-      const uint4 vraw = *reinterpret_cast<const uint4*>(v_step + o);
-      const uint32_t vw[4] = {vraw.x, vraw.y, vraw.z, vraw.w};
-      uint32_t packed[4];
+      float vs[8];
+      load8(v_step + o, vs);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 vs2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[j]));
-        const __nv_bfloat162 pair =
-            __floats2bfloat162_rn(fmaf(ws, vs2.x, v[2 * j]), fmaf(ws, vs2.y, v[2 * j + 1]));
-        packed[j] = *reinterpret_cast<const uint32_t*>(&pair);
-      }
-      *reinterpret_cast<uint4*>(out + o) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      for (int j = 0; j < 8; ++j) v[j] = fmaf(ws, vs[j], v[j]);
+      store8(out + o, v);
     }
     __syncthreads();  // the next group of heads reuses p, part and st
   }
@@ -553,14 +588,16 @@ extern "C" int mic_lazy_attention_f32(void* q, void* cache_k, void* cache_v, voi
                                       beams, t_max, heads, head_dim, index, stream);
 }
 
+namespace {
+
 // group: heads a pass takes (a divisor of heads), groups: position
 // groups; 4 * group * groups threads a block, as ops/lazy_attention.py::
-// q8_layout chooses them.
-extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
-                                     void* v_scale, void* k_step, void* v_step, void* ancestry,
-                                     void* out, int batch, int beams, int t_max, int heads,
-                                     int head_dim, int index, int group, int groups,
-                                     void* stream) {
+// q8_layout chooses them (the shared memory holds no row of q or the step,
+// so one layout serves both element types of Q).
+template <typename Q>
+int launch_q8(void* q, void* cache_k, void* k_scale, void* cache_v, void* v_scale, void* k_step,
+              void* v_step, void* ancestry, void* out, int batch, int beams, int t_max,
+              int heads, int head_dim, int index, int group, int groups, void* stream) {
   const int threads = 4 * group * groups;
   if (head_dim != kHeadDim || beams < 1 || index < 0 || index >= t_max || group < 1 ||
       heads % group || groups < 1 || threads > 256 || threads % 32) {
@@ -568,16 +605,39 @@ extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void
   }
   const q8::Layout lay(index, group, groups);
   if (lay.bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(q8::split_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  auto kernel = q8::split_kernel<Q>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  q8::split_kernel<<<batch * beams, threads, lay.bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<int8_t*>(cache_k),
-      static_cast<float*>(k_scale), static_cast<int8_t*>(cache_v), static_cast<float*>(v_scale),
-      static_cast<const __nv_bfloat16*>(k_step), static_cast<const __nv_bfloat16*>(v_step),
-      static_cast<const int32_t*>(ancestry), static_cast<__nv_bfloat16*>(out), beams, t_max,
-      heads, index, group, groups);
+  kernel<<<batch * beams, threads, lay.bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Q*>(q), static_cast<int8_t*>(cache_k), static_cast<float*>(k_scale),
+      static_cast<int8_t*>(cache_v), static_cast<float*>(v_scale), static_cast<const Q*>(k_step),
+      static_cast<const Q*>(v_step), static_cast<const int32_t*>(ancestry), static_cast<Q*>(out),
+      beams, t_max, heads, index, group, groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
+                                     void* v_scale, void* k_step, void* v_step, void* ancestry,
+                                     void* out, int batch, int beams, int t_max, int heads,
+                                     int head_dim, int index, int group, int groups,
+                                     void* stream) {
+  return launch_q8<__nv_bfloat16>(q, cache_k, k_scale, cache_v, v_scale, k_step, v_step,
+                                  ancestry, out, batch, beams, t_max, heads, head_dim, index,
+                                  group, groups, stream);
+}
+
+// The same over float32 q, step rows and output (a float32 model's int8
+// cache): the weights stay f32, nothing is rounded to bf16.
+extern "C" int mic_lazy_attention_q8_f32(void* q, void* cache_k, void* k_scale, void* cache_v,
+                                         void* v_scale, void* k_step, void* v_step,
+                                         void* ancestry, void* out, int batch, int beams,
+                                         int t_max, int heads, int head_dim, int index,
+                                         int group, int groups, void* stream) {
+  return launch_q8<float>(q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, ancestry, out,
+                          batch, beams, t_max, heads, head_dim, index, group, groups, stream);
 }
 
 // The blocked kernel of mode "1": replaces
@@ -631,6 +691,16 @@ extern "C" int mic_lazy_attention_q8(void* q, void* cache_k, void* k_scale, void
 // chunk's end are read as its last row, at weight 0 (blocked_layout in
 // ops/lazy_attention.py chooses the list and the buffers and sizes the
 // chunk).
+// A float32 model's instances: on the per-head int8 cache, f32 q, step rows
+// and output around the same walk (q rounded to bf16 as it becomes A); on a
+// float32 cache, _attend_tiles on f32 tiles: q and the step rows rounded to
+// bf16, f32 K and V rows not rounded, every weight rounded to bf16, one
+// bf16 rounding of the output, returned in f32.  Its staged rows are 272
+// bytes (64 f32 and 16 that spread the float4 reads), the beams' rounded q
+// rows sit in shared memory, and both products are f32 FMAs: a thread a
+// staged row for the scores (every beam's dot product with it), warp w the
+// rows w, w + 8, ... for the V product (lane l every beam's dims 2 l, 2 l +
+// 1), each warp's sums added in warp order as in the bf16 walk.
 namespace {
 namespace blocked {
 
@@ -643,19 +713,22 @@ using attn_mma::store_widened;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPitch = 144;  // bytes of a staged row: 64 bf16 and 16 bytes that spread ldmatrix
+// bytes of a staged row: 64 bf16 (int8 rows widened to bf16) and 16 bytes
+// that spread ldmatrix, or 64 f32 and 16 bytes that spread the float4 reads
+constexpr int kPitch = 144;
+constexpr int kPitchF32 = 272;
 constexpr size_t kMaxSmem = 232448;
 
 struct Args {
-  const __nv_bfloat16* q;       // (B, K, H*Dh), pre-scaled by Dh**-0.5
-  const void* cache_k;          // (B*K, t_max, H*Dh) bf16 or int8
+  const void* q;        // (B, K, H*Dh), pre-scaled by Dh**-0.5, bf16 or f32
+  const void* cache_k;  // (B*K, t_max, H*Dh) bf16, int8 or f32
   const void* cache_v;
-  const float* k_scale;         // (B*K, t_max, H) f32, int8 caches only
+  const float* k_scale;  // (B*K, t_max, H) f32, int8 caches only
   const float* v_scale;
-  const __nv_bfloat16* k_step;  // (B, K, H*Dh)
-  const __nv_bfloat16* v_step;
-  const int8_t* amask;          // (B, K*t_max, K)
-  __nv_bfloat16* out;           // (B, K, H*Dh)
+  const void* k_step;   // (B, K, H*Dh), q's dtype
+  const void* v_step;
+  const int8_t* amask;  // (B, K*t_max, K)
+  void* out;            // (B, K, H*Dh), q's dtype
   int t_max, positions, heads, compact, stage, shared;
 };
 
@@ -663,9 +736,10 @@ __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 
 
 // The block's shared bytes, in order: the scores, then weights, of every
 // (beam, row), which the warps' partial sums reuse after the walk; where
-// compact, the list of rows and the warps' counts; a chunk of `stage` K
-// rows and one of V rows (each with its f32 scales in int8), or where
-// `shared` one chunk that the V rows take after the scores.
+// compact, the list of rows and the warps' counts; on a float32 cache the
+// beams' q rows (rounded to bf16, held in f32); a chunk of `stage` K rows
+// and one of V rows (each with its f32 scales in int8), or where `shared`
+// one chunk that the V rows take after the scores.
 __host__ __device__ constexpr size_t weight_bytes(int beams, int positions) {
   const size_t rows = static_cast<size_t>(beams) * positions;
   const size_t scores = static_cast<size_t>(beams) * rows;
@@ -675,13 +749,17 @@ __host__ __device__ constexpr size_t weight_bytes(int beams, int positions) {
 __host__ __device__ constexpr size_t list_bytes(int beams, int positions, int compact) {
   return compact ? align16(4 * (static_cast<size_t>(beams) * positions + kWarps)) : 0;
 }
-__host__ __device__ constexpr size_t stage_bytes(int stage, bool q8) {
-  return static_cast<size_t>(stage) * kPitch + (q8 ? align16(4 * static_cast<size_t>(stage)) : 0);
+__host__ __device__ constexpr size_t q_bytes(int beams, bool f32) {
+  return f32 ? align16(4 * static_cast<size_t>(beams) * kHeadDim) : 0;
+}
+__host__ __device__ constexpr size_t stage_bytes(int stage, bool q8, bool f32) {
+  return static_cast<size_t>(stage) * (f32 ? kPitchF32 : kPitch) +
+         (q8 ? align16(4 * static_cast<size_t>(stage)) : 0);
 }
 __host__ __device__ constexpr size_t smem_bytes(int beams, int positions, int compact, int stage,
-                                                int shared, bool q8) {
+                                                int shared, bool q8, bool f32) {
   return weight_bytes(beams, positions) + list_bytes(beams, positions, compact) +
-         (shared ? 1 : 2) * stage_bytes(stage, q8);
+         q_bytes(beams, f32) + (shared ? 1 : 2) * stage_bytes(stage, q8, f32);
 }
 
 // Which of the K beams admit a row: its K mask bytes, read as one word.
@@ -714,10 +792,35 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <typename T, int K>
+// Two values of q or a step row as the products take them: bf16 values (a
+// float32 model's rounded to bf16, as _attend_tiles casts them).
+__device__ __forceinline__ float2 load_bf16_pair(const __nv_bfloat16* p) { return load_pair(p); }
+__device__ __forceinline__ float2 load_bf16_pair(const float* p) {
+  const float2 v = load_pair(p);
+  return make_float2(bf16_round(v.x), bf16_round(v.y));
+}
+
+// One output pair: rounded to bf16 once, stored in q's dtype.
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_out(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(bf16_round(x), bf16_round(y));
+}
+
+// T: the cache's element (bf16, int8, or f32 on a float32 model); Q: q's,
+// the step rows' and the output's (bf16, or f32 on a float32 model).  On a
+// float32 cache the products have one bf16 operand (q, or the weights) and
+// one f32 (K, or V) and run as f32 FMAs: at K=4 each 4-byte element loaded
+// feeds 8 flops, below the card's ~20 flops a byte, so the walk stays bound
+// by its bytes.
+template <typename T, typename Q, int K>
 __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
-  constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4)
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4, 16)
+  constexpr int kRowPitch = kF32 ? kPitchF32 : kPitch;
+  const Q* q_in = static_cast<const Q*>(a.q);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -736,32 +839,51 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   int* list = reinterpret_cast<int*>(next);  // [rows]: j t_max + t | bits << 24
   int* counts = list + rows;                 // [kWarps]
   next += list_bytes(K, positions, a.compact);
-  unsigned char* k_tile = next;  // [stage][kPitch], then the scales [stage]
-  unsigned char* v_tile = a.shared ? k_tile : next + stage_bytes(stage, kQ8);
-  float* k_sc = reinterpret_cast<float*>(k_tile + stage * kPitch);
-  float* v_sc = reinterpret_cast<float*>(v_tile + stage * kPitch);
+  float* q_s = reinterpret_cast<float*>(next);  // [K][Dh], f32 caches only
+  next += q_bytes(K, kF32);
+  unsigned char* k_tile = next;  // [stage][kRowPitch], then the scales [stage]
+  unsigned char* v_tile = a.shared ? k_tile : next + stage_bytes(stage, kQ8, kF32);
+  float* k_sc = reinterpret_cast<float*>(k_tile + stage * kRowPitch);
+  float* v_sc = reinterpret_cast<float*>(v_tile + stage * kRowPitch);
   const size_t row0 = static_cast<size_t>(b) * K * a.t_max;  // the image's first cache row
 
   // q as the A operand of the scores (beam g's dims 16 s + 2 c (+ 1, + 8,
-  // + 9); rows 8-15 and beams past K are zero), and warp k's pairs of beam
-  // k's q and step rows for the softmax and the output, loaded first:
-  // their latency hides behind the mask's
+  // + 9); rows 8-15 and beams past K are zero), or on a float32 cache the
+  // beams' q rows in shared memory; and warp k's pairs of beam k's q and
+  // step rows for the softmax and the output, loaded first: their latency
+  // hides behind the mask's
   uint32_t qa[4][2] = {};
-  if (g < K) {
-    const __nv_bfloat16* qg = a.q + (static_cast<size_t>(b) * K + g) * hd + h * kHeadDim + 2 * c;
+  if constexpr (kF32) {
+    if (tid < K * kHeadDim / 4) {
+      const int k = tid / (kHeadDim / 4);
+      const int d = 4 * (tid % (kHeadDim / 4));
+      const float4 v = *reinterpret_cast<const float4*>(
+          q_in + (static_cast<size_t>(b) * K + k) * hd + h * kHeadDim + d);
+      *reinterpret_cast<float4*>(q_s + k * kHeadDim + d) =
+          make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
+    }
+  } else if (g < K) {
+    const Q* qg = q_in + (static_cast<size_t>(b) * K + g) * hd + h * kHeadDim + 2 * c;
 #pragma unroll
     for (int st = 0; st < 4; ++st) {
-      qa[st][0] = *reinterpret_cast<const uint32_t*>(qg + 16 * st);
-      qa[st][1] = *reinterpret_cast<const uint32_t*>(qg + 16 * st + 8);
+      if constexpr (std::is_same<Q, float>::value) {
+        const float2 lo = load_pair(qg + 16 * st);
+        const float2 hi = load_pair(qg + 16 * st + 8);
+        qa[st][0] = pack_bf16(lo.x, lo.y);
+        qa[st][1] = pack_bf16(hi.x, hi.y);
+      } else {
+        qa[st][0] = *reinterpret_cast<const uint32_t*>(qg + 16 * st);
+        qa[st][1] = *reinterpret_cast<const uint32_t*>(qg + 16 * st + 8);
+      }
     }
   }
   const size_t qrow =
       (static_cast<size_t>(b) * K + warp) * hd + static_cast<size_t>(h) * kHeadDim + 2 * lane;
   float2 q2 = {}, ks = {}, vs = {};
   if (warp < K) {
-    q2 = load_pair(a.q + qrow);
-    ks = load_pair(a.k_step + qrow);
-    vs = load_pair(a.v_step + qrow);
+    q2 = load_bf16_pair(q_in + qrow);
+    ks = load_bf16_pair(static_cast<const Q*>(a.k_step) + qrow);
+    vs = load_bf16_pair(static_cast<const Q*>(a.v_step) + qrow);
   }
 
   // 0. the rows some beam admits, in row order, with their beams' bits
@@ -801,13 +923,14 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
                      : live_bits<K>(a.amask + entry_row(i) * K);
   };
 
-  // 1. bf16: entries [c0, c1) of the cache (K or V) into `tile` by cp.async
+  // 1. bf16 and f32: entries [c0, c1) of the cache (K or V) into `tile` by
+  // cp.async
   auto stage_rows = [&](const void* cache, unsigned char* tile, int c0, int c1) {
     const unsigned char* src = static_cast<const unsigned char*>(cache);
     for (int p = tid; p < (c1 - c0) * kPieces; p += kThreads) {
       const int e = p / kPieces;
       const int piece = p - e * kPieces;
-      attn_mma::cp_async16(smem_addr(tile + e * kPitch + 16 * piece),
+      attn_mma::cp_async16(smem_addr(tile + e * kRowPitch + 16 * piece),
                            src + ((entry_row(c0 + e) * hd + h * kHeadDim) * sizeof(T) +
                                   16 * piece),
                            16);
@@ -829,7 +952,7 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
     }
     for (int p = tid; p < (c1 - c0) * kPieces; p += kThreads) {
       const size_t src = entry_row(c0 + p / kPieces) * hd + h * kHeadDim + 16 * (p % kPieces);
-      const int dst = (p / kPieces) * kPitch + 32 * (p % kPieces);
+      const int dst = (p / kPieces) * kRowPitch + 32 * (p % kPieces);
       uint4 rk, rv;
       if (k) rk = *reinterpret_cast<const uint4*>(cache_k + src);
       if (v) rv = *reinterpret_cast<const uint4*>(cache_v + src);
@@ -869,10 +992,37 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       attn_mma::cp_async_wait<1>();  // K's first chunk; V's may be in flight
     }
     __syncthreads();
+    if constexpr (kF32) {
+      // a thread a staged row: every beam's f32 dot product with it, q's
+      // reads the same for the warp (a broadcast)
+      for (int il = tid; il < nc; il += kThreads) {
+        const float* kr = reinterpret_cast<const float*>(k_tile + il * kRowPitch);
+        float acc[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc[k] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < kHeadDim; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float4 qv = *reinterpret_cast<const float4*>(q_s + k * kHeadDim + d);
+            acc[k] = fmaf(qv.x, kv.x, acc[k]);
+            acc[k] = fmaf(qv.y, kv.y, acc[k]);
+            acc[k] = fmaf(qv.z, kv.z, acc[k]);
+            acc[k] = fmaf(qv.w, kv.w, acc[k]);
+          }
+        }
+        const int i = c0 + il;
+        const unsigned bits = entry_bits(i);
+#pragma unroll
+        for (int k = 0; k < K; ++k) w[k * rows + i] = (bits >> k) & 1u ? acc[k] : kMaskValue;
+      }
+      continue;
+    }
     for (int r0 = 8 * warp; r0 < nc; r0 += 8 * kWarps) {
       // rows past the chunk read as its last row; their scores are dropped
       const int row = min(r0 + (lane & 7), nc - 1);
-      const uint32_t at = smem_addr(k_tile + row * kPitch + 16 * (lane >> 3));
+      const uint32_t at = smem_addr(k_tile + row * kRowPitch + 16 * (lane >> 3));
       uint32_t lo[4], hi[4];  // the B operands of dims 0-31 and 32-63
       ldmatrix_x4(lo, at);
       ldmatrix_x4(hi, at + 64);
@@ -900,7 +1050,8 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   __syncthreads();
 
   // 3. warp k: beam k's softmax; its step row's weight stays in registers.
-  // bf16 weights are rounded here; int8 ones after their V scale, in 4.
+  // bf16 and f32 caches' weights are rounded to bf16 here; int8 ones after
+  // their V scale, in 4.
   float w_step = 0.f;
   if (warp < K) {
     float* wk = w + warp * rows;
@@ -924,11 +1075,16 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   }
 
   // 4. the V walk: warp w takes groups of sixteen staged rows w, w + 8, ...
+  // (on a float32 cache the rows w, w + 8, ..., lane l every beam's dims
+  // 2 l and 2 l + 1, the weights' reads a broadcast)
   float acc[8][4];  // beam g's output dims 8 nb + 2 c (+ 1) in [nb][0..1]
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[nb][x] = 0.f;
+  float accf[K][2];  // f32 caches: beam k's dims 2 lane (+ 1)
+#pragma unroll
+  for (int k = 0; k < K; ++k) accf[k][0] = accf[k][1] = 0.f;
   for (int ch = 0; ch < chunks; ++ch) {
     const int c0 = ch * stage;
     const int nc = min(n, c0 + stage) - c0;
@@ -942,6 +1098,18 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
     }
     if constexpr (!kQ8) attn_mma::cp_async_wait<0>();
     __syncthreads();  // and, the first time, every weight is written
+    if constexpr (kF32) {
+      for (int il = warp; il < nc; il += kWarps) {
+        const float2 v2 = *reinterpret_cast<const float2*>(v_tile + il * kRowPitch + 8 * lane);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float wk = w[k * rows + c0 + il];
+          accf[k][0] = fmaf(wk, v2.x, accf[k][0]);
+          accf[k][1] = fmaf(wk, v2.y, accf[k][1]);
+        }
+      }
+      continue;
+    }
     for (int e0 = 16 * warp; e0 < nc; e0 += 16 * kWarps) {
       // beam g's weights of rows e0 + 2 c (+ 1, + 8, + 9); 0 past the chunk
       float x[4] = {0.f, 0.f, 0.f, 0.f};
@@ -958,7 +1126,7 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       const uint32_t af[4] = {pack_bf16(x[0], x[1]), 0u, pack_bf16(x[2], x[3]), 0u};
       // rows past the chunk read as its last row, at weight 0
       const int row = min(e0 + 8 * ((lane >> 3) & 1) + (lane & 7), nc - 1);
-      const uint32_t at = smem_addr(v_tile + row * kPitch + 16 * (lane >> 4));
+      const uint32_t at = smem_addr(v_tile + row * kRowPitch + 16 * (lane >> 4));
 #pragma unroll
       for (int qd = 0; qd < 4; ++qd) {
         uint32_t bv[4];
@@ -969,7 +1137,13 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
     }
   }
   __syncthreads();  // every weight read: the partial sums take their place
-  if (g < K) {
+  if constexpr (kF32) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      *reinterpret_cast<float2*>(part + (warp * K + k) * kHeadDim + 2 * lane) =
+          make_float2(accf[k][0], accf[k][1]);
+    }
+  } else if (g < K) {
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
       *reinterpret_cast<float2*>(part + (warp * K + g) * kHeadDim + 8 * nb + 2 * c) =
@@ -988,16 +1162,16 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
     }
     ax = fmaf(w_step, vs.x, ax);
     ay = fmaf(w_step, vs.y, ay);
-    *reinterpret_cast<__nv_bfloat162*>(a.out + qrow) = __floats2bfloat162_rn(ax, ay);
+    store_out(static_cast<Q*>(a.out) + qrow, ax, ay);
   }
 }
 
-template <typename T, int K>
+template <typename T, typename Q, int K>
 int launch_beams(const Args& a, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes(K, a.positions, a.compact, a.stage, a.shared,
-                                 std::is_same<T, int8_t>::value);
+                                 std::is_same<T, int8_t>::value, std::is_same<T, float>::value);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = blocked_kernel<T, K>;
+  auto kernel = blocked_kernel<T, Q, K>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1007,7 +1181,7 @@ int launch_beams(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename Q>
 int launch(const Args& a, int batch, int beams, int head_dim, cudaStream_t stream) {
   if (head_dim != kHeadDim || beams < 1 || beams > 8 || a.positions < 0 ||
       a.positions > a.t_max || a.heads < 1 || batch < 1 || batch > 65535 || a.stage < 1 ||
@@ -1016,14 +1190,14 @@ int launch(const Args& a, int batch, int beams, int head_dim, cudaStream_t strea
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (beams) {
-    case 1: return launch_beams<T, 1>(a, batch, stream);
-    case 2: return launch_beams<T, 2>(a, batch, stream);
-    case 3: return launch_beams<T, 3>(a, batch, stream);
-    case 4: return launch_beams<T, 4>(a, batch, stream);
-    case 5: return launch_beams<T, 5>(a, batch, stream);
-    case 6: return launch_beams<T, 6>(a, batch, stream);
-    case 7: return launch_beams<T, 7>(a, batch, stream);
-    default: return launch_beams<T, 8>(a, batch, stream);
+    case 1: return launch_beams<T, Q, 1>(a, batch, stream);
+    case 2: return launch_beams<T, Q, 2>(a, batch, stream);
+    case 3: return launch_beams<T, Q, 3>(a, batch, stream);
+    case 4: return launch_beams<T, Q, 4>(a, batch, stream);
+    case 5: return launch_beams<T, Q, 5>(a, batch, stream);
+    case 6: return launch_beams<T, Q, 6>(a, batch, stream);
+    case 7: return launch_beams<T, Q, 7>(a, batch, stream);
+    default: return launch_beams<T, Q, 8>(a, batch, stream);
   }
 }
 
@@ -1039,25 +1213,60 @@ extern "C" int mic_lazy_attention_blocked_bf16(void* q, void* cache_k, void* cac
                                                int beams, int t_max, int positions, int heads,
                                                int head_dim, int compact, int stage, int shared,
                                                void* stream) {
-  const blocked::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v, nullptr, nullptr,
-                        static_cast<const __nv_bfloat16*>(k_step),
-                        static_cast<const __nv_bfloat16*>(v_step),
-                        static_cast<const int8_t*>(amask), static_cast<__nv_bfloat16*>(out),
+  const blocked::Args a{q, cache_k, cache_v, nullptr, nullptr, k_step, v_step,
+                        static_cast<const int8_t*>(amask), out,
                         t_max, positions, heads, compact, stage, shared};
-  return blocked::launch<__nv_bfloat16>(a, batch, beams, head_dim,
-                                        static_cast<cudaStream_t>(stream));
+  return blocked::launch<__nv_bfloat16, __nv_bfloat16>(a, batch, beams, head_dim,
+                                                       static_cast<cudaStream_t>(stream));
 }
+
+// The float32 cache with float32 q, step rows and output (a float32 model).
+extern "C" int mic_lazy_attention_blocked_f32(void* q, void* cache_k, void* cache_v, void* k_step,
+                                              void* v_step, void* amask, void* out, int batch,
+                                              int beams, int t_max, int positions, int heads,
+                                              int head_dim, int compact, int stage, int shared,
+                                              void* stream) {
+  const blocked::Args a{q, cache_k, cache_v, nullptr, nullptr, k_step, v_step,
+                        static_cast<const int8_t*>(amask), out,
+                        t_max, positions, heads, compact, stage, shared};
+  return blocked::launch<float, float>(a, batch, beams, head_dim,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <typename Q>
+int launch_blocked_q8(void* q, void* cache_k, void* k_scale, void* cache_v, void* v_scale,
+                      void* k_step, void* v_step, void* amask, void* out, int batch, int beams,
+                      int t_max, int positions, int heads, int head_dim, int compact, int stage,
+                      int shared, void* stream) {
+  const blocked::Args a{q, cache_k, cache_v, static_cast<const float*>(k_scale),
+                        static_cast<const float*>(v_scale), k_step, v_step,
+                        static_cast<const int8_t*>(amask), out,
+                        t_max, positions, heads, compact, stage, shared};
+  return blocked::launch<int8_t, Q>(a, batch, beams, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 extern "C" int mic_lazy_attention_blocked_q8(void* q, void* cache_k, void* k_scale, void* cache_v,
                                              void* v_scale, void* k_step, void* v_step,
                                              void* amask, void* out, int batch, int beams,
                                              int t_max, int positions, int heads, int head_dim,
                                              int compact, int stage, int shared, void* stream) {
-  const blocked::Args a{static_cast<const __nv_bfloat16*>(q), cache_k, cache_v,
-                        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                        static_cast<const __nv_bfloat16*>(k_step),
-                        static_cast<const __nv_bfloat16*>(v_step),
-                        static_cast<const int8_t*>(amask), static_cast<__nv_bfloat16*>(out),
-                        t_max, positions, heads, compact, stage, shared};
-  return blocked::launch<int8_t>(a, batch, beams, head_dim, static_cast<cudaStream_t>(stream));
+  return launch_blocked_q8<__nv_bfloat16>(q, cache_k, k_scale, cache_v, v_scale, k_step, v_step,
+                                          amask, out, batch, beams, t_max, positions, heads,
+                                          head_dim, compact, stage, shared, stream);
+}
+
+// The per-head int8 cache under float32 q, step rows and output.
+extern "C" int mic_lazy_attention_blocked_q8_f32(void* q, void* cache_k, void* k_scale,
+                                                 void* cache_v, void* v_scale, void* k_step,
+                                                 void* v_step, void* amask, void* out, int batch,
+                                                 int beams, int t_max, int positions, int heads,
+                                                 int head_dim, int compact, int stage, int shared,
+                                                 void* stream) {
+  return launch_blocked_q8<float>(q, cache_k, k_scale, cache_v, v_scale, k_step, v_step, amask,
+                                  out, batch, beams, t_max, positions, heads, head_dim, compact,
+                                  stage, shared, stream);
 }

@@ -20,8 +20,11 @@ bfloat16, f32 sums and one bfloat16 rounding of the output.  mic_tpu masks
 the padded rows to finfo(float32).min, so they weigh exp(...) == 0 exactly:
 the kernel does not read them at all, which gives the same result.
 
-``fused_cross_attention`` hands an int8 cache to ``fused_cross_attention_q8``,
-whose kernel it is.  Each wrapper takes the plain version for tensors on the
+A float32 model's q, K and V are float32: the same arithmetic on f32 K and
+V rows (q rounded to bfloat16, K and V not), the output returned in
+float32; its instances are the kernel's float32 ones.  The int8 form takes
+float32 q likewise.  ``fused_cross_attention`` hands an int8 cache to
+``fused_cross_attention_q8``, whose kernel it is.  Each wrapper takes the plain version for tensors on the
 CPU and its kernel (csrc/cross_attention.cu) for tensors on a CUDA device;
 it never falls back from one to the other.
 """
@@ -62,8 +65,8 @@ def fused_cross_attention_plain(q, enc_k, enc_v, beams: int, num_heads: int) -> 
 def _check(name: str, q, beams: int, num_heads: int) -> tuple[int, int, int, int]:
     b, k, hd = q.shape
     dh = hd // num_heads
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel: q must be bfloat16")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel: q must be bfloat16 or float32")
     if dh != 64 or hd != num_heads * dh or beams != k:
         raise ValueError(f"{name} kernel: head_dim 64, got {hd}/{num_heads}, beams={beams}")
     return b, k, hd, dh
@@ -81,23 +84,24 @@ def fused_cross_attention(q, enc_k, enc_v, beams: int, num_heads: int) -> torch.
     name = "fused_cross_attention"
     b, k, hd, dh = _check(name, q, beams, num_heads)
     s = enc_k.shape[1]
-    if any(x.dtype != torch.bfloat16 for x in (enc_k, enc_v)):
-        raise TypeError(f"{name} kernel: the encoder K/V must be bfloat16")
+    if any(x.dtype != q.dtype for x in (enc_k, enc_v)):
+        raise TypeError(f"{name} kernel: the encoder K/V must be in q's dtype")
     if enc_k.shape not in ((b, s, num_heads, dh), (b, s, hd)) or enc_v.shape != enc_k.shape \
             or s < 1:
         raise ValueError(f"{name} kernel: inconsistent shapes")
     _build.check_operands(name, (q, enc_k, enc_v))
     out = torch.empty_like(q)
-    err = _build.lib().mic_cross_attention_bf16(
+    entry = "mic_cross_attention_f32" if q.dtype == torch.float32 else "mic_cross_attention_bf16"
+    err = getattr(_build.lib(), entry)(
         q.data_ptr(), enc_k.data_ptr(), enc_v.data_ptr(), out.data_ptr(), b, k, s, num_heads,
         dh, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "mic_cross_attention_bf16")
+    _build.check(err, entry)
     fused_cross_attention.launches += 1
     return out
 
 
-fused_cross_attention.launches = 0
+fused_cross_attention.launches = 0  # both dtypes' launches
 
 
 def fused_cross_attention_q8(q, enc_k, enc_v, beams: int, num_heads: int) -> torch.Tensor:
@@ -123,16 +127,18 @@ def fused_cross_attention_q8(q, enc_k, enc_v, beams: int, num_heads: int) -> tor
     tensors = (q, kq, enc_k["s"], vq, enc_v["s"])
     _build.check_operands(name, tensors)
     out = torch.empty_like(q)
-    err = _build.lib().mic_cross_attention_q8(
+    entry = ("mic_cross_attention_q8_f32" if q.dtype == torch.float32
+             else "mic_cross_attention_q8")
+    err = getattr(_build.lib(), entry)(
         *(x.data_ptr() for x in tensors), out.data_ptr(), b, k, s, num_heads, dh,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "mic_cross_attention_q8")
+    _build.check(err, entry)
     fused_cross_attention_q8.launches += 1
     return out
 
 
-fused_cross_attention_q8.launches = 0
+fused_cross_attention_q8.launches = 0  # both dtypes of q
 
 
 def _check_pad(enc_k, real_s: int) -> int:
@@ -170,19 +176,21 @@ def fused_cross_attention_dma(q, enc_k, enc_v, real_s: int, beams: int,
         raise ValueError(f"fused_cross_attention_dma: unsupported device {q.device}")
     name = "fused_cross_attention_dma"
     b, k, hd, dh = _check(name, q, beams, num_heads)
-    if any(x.dtype != torch.bfloat16 for x in (enc_k, enc_v)):
-        raise TypeError(f"{name} kernel: the merged encoder K/V must be bfloat16")
+    if any(x.dtype != q.dtype for x in (enc_k, enc_v)):
+        raise TypeError(f"{name} kernel: the merged encoder K/V must be in q's dtype")
     if enc_k.shape != (b, s_pad, hd) or enc_v.shape != enc_k.shape:
         raise ValueError(f"{name} kernel: inconsistent shapes")
     _build.check_operands(name, (q, enc_k, enc_v))
     out = torch.empty_like(q)
-    err = _build.lib().mic_cross_attention_dma_bf16(
+    entry = ("mic_cross_attention_dma_f32" if q.dtype == torch.float32
+             else "mic_cross_attention_dma_bf16")
+    err = getattr(_build.lib(), entry)(
         q.data_ptr(), enc_k.data_ptr(), enc_v.data_ptr(), out.data_ptr(), b, k, s_pad, real_s,
         num_heads, dh, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "mic_cross_attention_dma_bf16")
+    _build.check(err, entry)
     fused_cross_attention_dma.launches += 1
     return out
 
 
-fused_cross_attention_dma.launches = 0
+fused_cross_attention_dma.launches = 0  # both dtypes' launches

@@ -74,6 +74,11 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu", out=None) -> torch.Te
     n, d = x.shape
     f = w1.shape[1]
     tensors = (x, w1, b1, w2, b2)
+    if x.dtype == torch.float32:
+        raise NotImplementedError(
+            "fused_mlp: no float32 kernel yet (ROADMAP B43); serve a float32 model without "
+            "MIC_TPU_EXPERIMENTAL=fused_mlp"
+        )
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError("fused_mlp kernel: every operand must be bfloat16")
     if w1.shape != (d, f) or b1.shape != (f,) or w2.shape != (f, d) or b2.shape != (d,):

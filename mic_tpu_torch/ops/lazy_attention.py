@@ -7,7 +7,8 @@ K/V row.  Both versions write the step K/V into column ``index`` of the
 merged (B*K, T, H*Dh) caches IN PLACE and return only the attention output.
 
 ``lazy_attention_q8`` is the same on the int8 cache ({"q": int8 values,
-"s": (B*K, T) f32 per-row scales}), following the TPU's _kernel_dma_q8:
+"s": (B*K, T) f32 per-row scales}), following the TPU's _kernel_dma_q8
+(q and the step rows bfloat16, or float32 on a float32 model):
 the cached rows are read as int8 with their row scales on the scores and
 the weights, and the step's own K/V row enters UNQUANTIZED (scale 1); the
 step rows are quantized per merged row (ops/quant.py::quantize_rows_dynamic;
@@ -26,7 +27,9 @@ canonical layout: {"q": (B*K, T, H*Dh) int8, "s": (B*K, T, H) f32}, one
 scale per (row, position, head).  Its kernel is a split row walk: the rows
 some beam admits gathered into a list, their K and V head rows copied into
 shared memory once, both products on mma.sync (``blocked_layout`` lays out
-the block's shared memory).  Its plain version is ``attend_rows_plain``,
+the block's shared memory); a float32 model's cache (float32 rows, q and
+step rows) takes the same walk with f32 FMAs, and its per-head int8 cache
+takes float32 q and step rows.  Its plain version is ``attend_rows_plain``,
 mic_tpu's _attend_tiles, which ops/cross_attention.py shares.  ``resolve_mode`` and ``supports`` pick the mode as mic_tpu does;
 mode "0", mic_tpu's XLA chain, is plain tensor code in
 nn/attention.py::lazy_attention_chain.
@@ -51,6 +54,9 @@ _MASK_VALUE = torch.finfo(torch.float32).min
 # the column-writing kernel's entry points by the dtype of q, caches and step rows
 _LAZY_ENTRIES = {torch.bfloat16: "mic_lazy_attention_bf16",
                  torch.float32: "mic_lazy_attention_f32"}
+# the int8 cache's, by the dtype of q and the step rows
+_Q8_ENTRIES = {torch.bfloat16: "mic_lazy_attention_q8",
+               torch.float32: "mic_lazy_attention_q8_f32"}
 
 
 def lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, ancestry,
@@ -191,8 +197,9 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
     b, beams, hd = q.shape
     t = cache_k["q"].shape[1]
     dh = hd // num_heads
-    if any(x.dtype != torch.bfloat16 for x in (q, k_step, v_step)):
-        raise TypeError("lazy_attention_q8 kernel: q and step rows must be bfloat16")
+    if q.dtype not in _Q8_ENTRIES or any(x.dtype != q.dtype for x in (k_step, v_step)):
+        raise TypeError("lazy_attention_q8 kernel: q and step rows must be all bfloat16 or all "
+                        "float32")
     if any(c["q"].dtype != torch.int8 or c["s"].dtype != torch.float32
            for c in (cache_k, cache_v)):
         raise TypeError("lazy_attention_q8 kernel: caches must be int8 values, f32 scales")
@@ -218,17 +225,18 @@ def lazy_attention_q8(q, cache_k, cache_v, k_step, v_step, ancestry,
             raise ValueError("lazy_attention_q8 kernel: tensors must be contiguous, "
                              "16-byte aligned and on one device")
     out = torch.empty_like(q)
-    err = _build.lib().mic_lazy_attention_q8(
+    entry = _Q8_ENTRIES[q.dtype]
+    err = getattr(_build.lib(), entry)(
         *(x.data_ptr() for x in tensors), out.data_ptr(),
         b, beams, t, num_heads, dh, index, group, groups,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "mic_lazy_attention_q8")
+    _build.check(err, entry)
     lazy_attention_q8.launches += 1
     return out
 
 
-lazy_attention_q8.launches = 0
+lazy_attention_q8.launches = 0  # both dtypes' launches
 
 # the shared memory a block of csrc/lazy_attention.cu's kernels may take
 _MAX_SMEM = 232448
@@ -248,7 +256,8 @@ def _q8_bytes(index: int, group: int, groups: int) -> int:
     """q8::Layout's bytes: the sources, K and V row scales and scores of the
     ``index`` live positions (scores for each of the ``group`` heads), the
     position groups' sixteen partial sums a piece, the step scores and
-    weights, and the warps' amaxes."""
+    weights, and the warps' amaxes.  No row of q or the step is staged, so
+    the bfloat16 and float32 instances share it."""
     return (3 * _align16(4 * index) + _align16(4 * group * index) + 256 * group * groups
             + _align16(8 * group) + 256)
 
@@ -399,39 +408,45 @@ def fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams
 # csrc/lazy_attention.cu, namespace blocked: the warps of a block and the
 # most rows a chunk stages (224: at K=4, index 63, every image's admitted
 # rows in one chunk and three blocks an SM, four at small indices; at most
-# the block's 256 threads)
+# the block's 256 threads); on a float32 cache, whose staged rows take
+# 272 bytes, 96 (three blocks an SM at K=4, index 63)
 _BLOCKED_WARPS = 8
 _STAGE_ROWS = 224
+_STAGE_ROWS_F32 = 96
 
 
-def _stage_bytes(stage: int, q8: bool) -> int:
-    """A chunk of ``stage`` staged head rows, 144 bytes each (and their f32
-    scales in int8)."""
-    return stage * 144 + (_align16(4 * stage) if q8 else 0)
+def _stage_bytes(stage: int, q8: bool, f32: bool = False) -> int:
+    """A chunk of ``stage`` staged head rows, 144 bytes each (272 on a
+    float32 cache; and their f32 scales in int8)."""
+    return stage * (272 if f32 else 144) + (_align16(4 * stage) if q8 else 0)
 
 
-def blocked_layout(beams: int, positions: int, q8: bool = False) -> tuple[bool, int, bool, int]:
+def blocked_layout(beams: int, positions: int, q8: bool = False,
+                   f32: bool = False) -> tuple[bool, int, bool, int]:
     """-> (compact, stage, shared, shared bytes) of the blocked kernel's
     block, as csrc/lazy_attention.cu lays it out: the f32 scores, then
     weights, of every (beam, row) of the K * positions rows of an image (at
     least the eight warps' partial sums, which reuse them); where compact
     the list of the rows some beam admits, with the warps' counts (rows no
-    beam admits are never read); and a chunk of ``stage`` K rows and one of
-    V rows, copied in by cp.async at a 144-byte pitch (up to _STAGE_ROWS
-    rows, fewer where shared memory is short), or where ``shared`` one
-    chunk that K's and V's rows take in turn.  Compact where the list fits
-    beside two chunks of min(rows, 32) rows; else the walk takes every row,
-    the dead ones at weight 0."""
+    beam admits are never read); on a float32 cache (``f32``) the beams' q
+    rows in f32; and a chunk of ``stage`` K rows and one of V rows, copied
+    in by cp.async at a 144-byte pitch (272 on a float32 cache; up to
+    _STAGE_ROWS rows, _STAGE_ROWS_F32 on a float32 cache, fewer where shared
+    memory is short), or where ``shared`` one chunk that K's and V's rows
+    take in turn.  Compact where the list fits beside two chunks of
+    min(rows, 32) rows; else the walk takes every row, the dead ones at
+    weight 0."""
     rows = beams * positions
     weights = _align16(4 * max(beams * rows, _BLOCKED_WARPS * beams * 64))
-    want = max(1, min(_STAGE_ROWS, rows))
+    q_rows = _align16(4 * beams * 64) if f32 else 0
+    want = max(1, min(_STAGE_ROWS_F32 if f32 else _STAGE_ROWS, rows))
     for compact, buffers in ((True, 2), (False, 2), (False, 1)):
-        fixed = weights + (_align16(4 * (rows + _BLOCKED_WARPS)) if compact else 0)
-        stage = min(want, max(0, _MAX_SMEM - fixed) // (buffers * _stage_bytes(1, q8)))
-        while stage and fixed + buffers * _stage_bytes(stage, q8) > _MAX_SMEM:
+        fixed = weights + (_align16(4 * (rows + _BLOCKED_WARPS)) if compact else 0) + q_rows
+        stage = min(want, max(0, _MAX_SMEM - fixed) // (buffers * _stage_bytes(1, q8, f32)))
+        while stage and fixed + buffers * _stage_bytes(stage, q8, f32) > _MAX_SMEM:
             stage -= 1
         if stage >= (min(want, 32) if compact else 1):
-            return compact, stage, buffers == 1, fixed + buffers * _stage_bytes(stage, q8)
+            return compact, stage, buffers == 1, fixed + buffers * _stage_bytes(stage, q8, f32)
     raise ValueError(f"fused_lazy_attention kernel: {beams} beams x {positions} positions do "
                      f"not fit a block's shared memory ({weights} > {_MAX_SMEM} bytes)")
 
@@ -454,10 +469,11 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
     kq, vq = (cache_k["q"], cache_v["q"]) if quant else (cache_k, cache_v)
     t = kq.shape[1]
     positions = t if positions is None else positions
-    if any(x.dtype != torch.bfloat16 for x in (q, k_step, v_step)):
-        raise TypeError(f"{name} kernel: q and step rows must be bfloat16")
-    if any(x.dtype != (torch.int8 if quant else torch.bfloat16) for x in (kq, vq)):
-        raise TypeError(f"{name} kernel: caches must be bfloat16, or int8 dicts")
+    if q.dtype not in (torch.bfloat16, torch.float32) or any(
+            x.dtype != q.dtype for x in (k_step, v_step)):
+        raise TypeError(f"{name} kernel: q and step rows must be all bfloat16 or all float32")
+    if any(x.dtype != (torch.int8 if quant else q.dtype) for x in (kq, vq)):
+        raise TypeError(f"{name} kernel: caches must be in q's dtype, or int8 dicts")
     if quant and any(c["s"].dtype != torch.float32 for c in (cache_k, cache_v)):
         raise TypeError(f"{name} kernel: int8 cache scales must be float32")
     if amask.dtype != torch.int8:
@@ -471,17 +487,18 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
             or v_step.shape != q.shape or amask.shape != (b, k * t, k)
             or (quant and any(c["s"].shape != (b * k, t, num_heads) for c in (cache_k, cache_v)))):
         raise ValueError(f"{name} kernel: inconsistent shapes")
-    compact, stage, shared, _ = blocked_layout(k, positions, quant)
+    f32 = q.dtype == torch.float32
+    compact, stage, shared, _ = blocked_layout(k, positions, quant, f32 and not quant)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if quant:
         tensors = (q, kq, cache_k["s"], vq, cache_v["s"], k_step, v_step, amask)
         _build.check_operands(name, tensors)
-        entry = "mic_lazy_attention_blocked_q8"
+        entry = "mic_lazy_attention_blocked_q8_f32" if f32 else "mic_lazy_attention_blocked_q8"
     else:
         tensors = (q, kq, vq, k_step, v_step, amask)
         _build.check_operands(name, tensors)
-        entry = "mic_lazy_attention_blocked_bf16"
+        entry = "mic_lazy_attention_blocked_f32" if f32 else "mic_lazy_attention_blocked_bf16"
     err = getattr(_build.lib(), entry)(
         *(x.data_ptr() for x in tensors), out.data_ptr(), b, k, t, positions, num_heads, dh,
         int(compact), stage, int(shared), stream,
@@ -491,4 +508,4 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
     return out
 
 
-fused_lazy_attention.launches = 0
+fused_lazy_attention.launches = 0  # every cache form's and dtype's launches

@@ -11,7 +11,12 @@ x's dtype.
 (csrc/ln_gemm.cu) for tensors on a CUDA device; it never falls back from one
 to the other.  The kernel runs a 128-row x 192-column wgmma tile with the
 LayerNorm applied to the A operand in shared memory; ``ln_splits`` cuts
-the depth into splits where the output tiles alone leave SMs idle.
+the depth into splits where the output tiles alone leave SMs idle.  A
+float32 model's operands (every one float32) take csrc/ln_gemm_f32.cu:
+the rows' statistics, then 128 x 96 tiles of float32-accurate products on
+the tensor cores (three TF32 products a term, mma.sync) with x normalised
+on its way to shared memory, cut in depth by ``ln_splits_f32``; nothing
+is rounded to bfloat16 there.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from mic_tpu_torch import _build
 
 # csrc/ln_gemm.cu: a block's output rows and columns, and the depth of a slice
 _TILE_ROWS, _TILE_COLS, _SLICE = 128, 192, 64
+# csrc/ln_gemm_f32.cu's output rows and columns a block, and the depth of a slice
+_F32_ROWS, _F32_COLS, _F32_SLICE = 128, 96, 16
 
 
 def supports(x: torch.Tensor, kernel: torch.Tensor) -> bool:
@@ -53,6 +60,15 @@ def ln_splits(n: int, d: int, o: int, sms: int) -> int:
     return max(1, min(-(-d // _SLICE), sms // tiles))
 
 
+def ln_splits_f32(n: int, d: int, o: int, sms: int) -> int:
+    """The float32 kernel's depth splits: as many as the SMs its 128 x 96
+    tiles leave idle allow, at least 1 and at most one a 64 of the depth
+    (each split at least four 16-deep slices).  Split z of Z sums slices
+    [z S / Z, (z + 1) S / Z) of the S = D / 16."""
+    tiles = -(-n // _F32_ROWS) * -(-o // _F32_COLS)
+    return max(1, min(d // (4 * _F32_SLICE), sms // tiles))
+
+
 def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5, out=None) -> torch.Tensor:
     """layer_norm(x) @ kernel + bias for x (N, D), kernel (D, O): -> (N, O);
     written into ``out`` (N, O) where given (the kernel only)."""
@@ -63,8 +79,8 @@ def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5, out=None) -> 
     n, d = x.shape
     o = kernel.shape[1]
     tensors = (x, ln_scale, ln_bias, kernel, bias)
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError("ln_gemm kernel: every operand must be bfloat16")
+    if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError("ln_gemm kernel: every operand must be bfloat16, or every one float32")
     if (ln_scale.shape != (d,) or ln_bias.shape != (d,) or kernel.shape != (d, o)
             or bias.shape != (o,)):
         raise ValueError("ln_gemm kernel: inconsistent shapes")
@@ -73,19 +89,33 @@ def ln_gemm(x, ln_scale, ln_bias, kernel, bias, eps: float = 1e-5, out=None) -> 
     if out is None:
         out = torch.empty((n, o), dtype=x.dtype, device=x.device)
     elif out.shape != (n, o) or out.dtype != x.dtype:
-        raise ValueError(f"ln_gemm kernel: out must be {(n, o)} bfloat16")
+        raise ValueError(f"ln_gemm kernel: out must be {(n, o)} {x.dtype}")
     _build.check_operands("ln_gemm", (*tensors, out))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.float32:
+        splits = ln_splits_f32(n, d, o, sms)
+        stats = torch.empty((2 * n,), dtype=torch.float32, device=x.device)
+        part = (torch.empty((splits * n * o,), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
+        err = _build.lib().mic_ln_gemm_f32(
+            *(t.data_ptr() for t in tensors), stats.data_ptr(),
+            part.data_ptr() if part is not None else 0, out.data_ptr(), n, d, o, eps, splits,
+            stream,
+        )
+        _build.check(err, "mic_ln_gemm_f32")
+        ln_gemm.launches += 1
+        return out
     splits = ln_splits(n, d, o, sms)
     part = (torch.empty((splits * n * o,), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     err = _build.lib().mic_ln_gemm_bf16(
         *(t.data_ptr() for t in tensors), part.data_ptr() if part is not None else 0,
-        out.data_ptr(), n, d, o, eps, splits, torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), n, d, o, eps, splits, stream,
     )
     _build.check(err, "mic_ln_gemm_bf16")
     ln_gemm.launches += 1
     return out
 
 
-ln_gemm.launches = 0
+ln_gemm.launches = 0  # both dtypes' launches

@@ -52,7 +52,14 @@ long S), reruns bit-equal, the merged one bit-equal whether its pad rows
 hold zeros or NaN (it never reads them), every cross kernel bit-equal to
 plain where every sum is exact (q = 0, integer V, power-of-two V scales); the beam permute bit-equal (it copies); the int8 dequant GEMM
 within one bf16 ulp of the plain output plus the worst-case error of f32
-sums in another order, K * 2**-24 * sum |x| |w|.
+sums in another order, K * 2**-24 * sum |x| |w|.  A float32 model's
+instances: row 2 within 1e-5 (f32 throughout, sums in another order), its
+written int8 column and scales bit-equal; rows 3, 13 and 14 (and their
+int8 forms under float32 q) within 2e-2, their float32 outputs holding
+bfloat16 values, bit-equal to plain on exact sums; row 15 within (D 2**-24
++ 2**-20) of sum |xn| |w| + |bias| (3xTF32 products, statistics summed in
+another order); and the refusals still standing (row 16 in float32,
+ROADMAP B43; row 3 past 8 beams, B41) raise before any launch.
 """
 
 import pytest
@@ -1124,11 +1131,13 @@ def test_greedy_generate_runs_through_the_new_kernels(cuda, monkeypatch):
     assert (out.sequences[:, 1] == 7).all() and torch.isfinite(out.scores).all()
 
 
-def _blocked_inputs(cuda, g, b, beams, t, heads, q8, scale=0.5):
+def _blocked_inputs(cuda, g, b, beams, t, heads, q8, scale=0.5, dtype=torch.bfloat16):
+    """q, the caches (in ``dtype``, or int8 dicts with per-head scales) and
+    the step rows of row 3, q and the step rows in ``dtype``."""
     hd = heads * 64
 
     def rand(*shape, scale=scale):
-        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
 
     def cache():
         if not q8:
@@ -2059,3 +2068,287 @@ def test_f32_generate_and_train_step_run_the_f32_kernels(cuda):
             assert (flash_ce_forward.launches, flash_ce_backward_dl.launches) == (
                 counts[0] + 1, counts[1] + 1)
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,beams,t,heads,index", [(3, 4, 32, 2, i) for i in (0, 1, 17, 31)]
+                         + [(256, 4, 64, 16, 17), (256, 4, 64, 16, 63), (3, 1, 37, 2, 36),
+                            (2, 8, 64, 2, 63)])
+def test_lazy_attention_q8_f32_kernel_matches_plain(cuda, b, beams, t, heads, index):
+    """Row 2 on a float32 model's int8 cache (float32 q and step rows and
+    output, the weights not rounded): outputs within 1e-5 (f32 sums in
+    another order), the written int8 column and its scales bit-equal to
+    the plain version's, the other columns untouched, a rerun bit-equal."""
+    hd = heads * 64
+    g = torch.Generator(device=cuda).manual_seed(400 + index + beams)
+    q = torch.randn((b, beams, hd), generator=g, device=cuda) * 0.3
+    ks, vs = (torch.randn((b, beams, hd), generator=g, device=cuda) * 0.5 for _ in range(2))
+    caches = []
+    for _ in range(2):
+        prefix = torch.randn((b * beams, t, hd), generator=g, device=cuda) * 0.5
+        prefix[:, index:] = 0
+        values, scales = quantize_rows_dynamic(prefix)
+        caches.append({"q": values, "s": scales[..., 0].contiguous()})
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=cuda, dtype=torch.int32)
+    plain = [{n: a.clone() for n, a in c.items()} for c in caches]
+    again = [{n: a.clone() for n, a in c.items()} for c in caches]
+    before = [{n: a.clone() for n, a in c.items()} for c in caches]
+    launches = lazy_attention_q8.launches
+    out = lazy_attention_q8(q, *caches, ks, vs, anc, index, heads)
+    rerun = lazy_attention_q8(q, *again, ks, vs, anc, index, heads)
+    ref = lazy_attention_q8_plain(q, *plain, ks, vs, anc, index, heads)
+    torch.cuda.synchronize()
+    assert lazy_attention_q8.launches == launches + 2 and out.dtype == torch.float32
+    assert torch.equal(out, rerun)
+    for c, p, a in zip(caches, plain, again):
+        for name in ("q", "s"):
+            assert torch.equal(c[name], p[name]) and torch.equal(c[name], a[name]), name
+    for c, b0 in zip(caches, before):
+        for name in ("q", "s"):
+            others = torch.arange(t, device=cuda) != index
+            assert torch.equal(c[name][:, others], b0[name][:, others]), name
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("index", [0, 1, 17, 63])
+@pytest.mark.parametrize("beams", [2, 4, 8])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_f32_kernel_matches_plain(cuda, q8, beams, index):
+    """Row 3 on a float32 model (mode "1"): the float32 cache and the
+    per-head int8 cache under float32 q and step rows, on an ancestry mask,
+    random bits and the step rows alone: within 2e-2 of plain (bf16 weights
+    and outputs after f32 sums in another order), the caches untouched, a
+    rerun bit-equal, the output float32 holding bfloat16 values."""
+    b, t, heads = 3, 64, 2
+    g = torch.Generator(device=cuda).manual_seed(500 + 10 * beams + index)
+    q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, q8, dtype=torch.float32)
+    for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
+        before = [{n: a.clone() for n, a in c.items()} if q8 else c.clone() for c in (ck, cv)]
+        launches = fused_lazy_attention.launches
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        again = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        assert fused_lazy_attention.launches == launches + 2
+        assert out.dtype == torch.float32 and torch.equal(out, out.bfloat16().float())
+        assert torch.equal(out, again), name
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2, msg=name)
+        for c, old in zip((ck, cv), before):
+            assert all(torch.equal(c[n], old[n]) for n in old) if q8 else torch.equal(c, old)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("beams", [1, 3, 4, 8])
+@pytest.mark.parametrize("q8", [False, True])
+def test_fused_lazy_attention_f32_kernel_exact_sums(cuda, q8, beams):
+    """q = 0 and integer V (float32 values, or int8 with power-of-two V
+    scales): every weight the same quotient, rounded alike, every sum
+    exact, so the float32 instances equal the plain version bit for bit."""
+    b, t, heads, index = 3, 64, 2, 63
+    hd = heads * 64
+    g = torch.Generator(device=cuda).manual_seed(600 + beams)
+    q = torch.zeros((b, beams, hd), device=cuda)
+    ks = torch.randn((b, beams, hd), generator=g, device=cuda)
+    vs = torch.randint(-3, 4, (b, beams, hd), generator=g, device=cuda).float()
+    values = torch.randint(-3, 4, (b * beams, t, hd), generator=g, device=cuda)
+    if q8:
+        ck = {"q": values.to(torch.int8), "s": torch.ones((b * beams, t, heads), device=cuda)}
+        cv = {"q": values.flip(1).to(torch.int8).contiguous(),
+              "s": torch.exp2(torch.randint(-2, 1, (b * beams, t, heads), generator=g,
+                                            device=cuda).float())}
+    else:
+        ck = torch.randn((b * beams, t, hd), generator=g, device=cuda)
+        cv = values.float()
+    for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
+        out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+        ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), name
+
+
+@pytest.mark.requires_cuda
+def test_fused_lazy_attention_refuses_more_than_eight_beams(cuda):
+    """Row 3 takes 1-8 beams (ROADMAP B41): nine raise on the card, in
+    either dtype, before any launch."""
+    b, beams, t, heads = 2, 9, 16, 2
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=cuda).manual_seed(9)
+        q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, False, dtype=dtype)
+        amask = torch.zeros((b, beams * t, beams), dtype=torch.int8, device=cuda)
+        launches = fused_lazy_attention.launches
+        with pytest.raises(ValueError, match="1-8 beams"):
+            fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=3)
+        assert fused_lazy_attention.launches == launches
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,beams,s,s_pad", [(256, 4, 50, 64), (3, 4, 37, 48), (3, 1, 50, 64),
+                                             (3, 9, 50, 64), (3, 16, 1, 16), (2, 33, 64, 64)])
+@pytest.mark.parametrize("kernel", ["f32", "merged_f32", "int8_f32q"])
+def test_cross_attention_f32_kernels_match_plain(cuda, kernel, b, beams, s, s_pad):
+    """Rows 14 and 13 on a float32 model (float32 q, encoder K/V and
+    output; the merged cache padded to S_pad, NaN in its pad rows, which
+    the kernel never reads) and row 14's int8 form under float32 q: within
+    2e-2 of plain, a rerun bit-equal, the output float32 holding bfloat16
+    values."""
+    heads = 16 if b == 256 else 2
+    g = torch.Generator(device=cuda).manual_seed(700 + beams + s)
+    q = torch.randn((b, beams, heads * 64), generator=g, device=cuda) * 0.3
+    ek, ev = (torch.randn((b, s, heads, 64), generator=g, device=cuda) * 0.5 for _ in range(2))
+    if kernel == "f32":
+        run = lambda: fused_cross_attention(q, ek, ev, beams, heads)  # noqa: E731
+        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+        counter = fused_cross_attention
+    elif kernel == "merged_f32":
+        mk, mv = _merged(ek, s_pad), _merged(ev, s_pad)
+        nk, nv = _merged(ek, s_pad, float("nan")), _merged(ev, s_pad, float("nan"))
+        run = lambda: fused_cross_attention_dma(q, nk, nv, s, beams, heads)  # noqa: E731
+        ref = fused_cross_attention_dma_plain(q, mk, mv, s, beams, heads)
+        counter = fused_cross_attention_dma
+    else:
+        ck, cv = _q8_cache(ek), _q8_cache(ev)
+        run = lambda: fused_cross_attention_q8(q, ck, cv, beams, heads)  # noqa: E731
+        ref = fused_cross_attention_plain(q, ck, cv, beams, heads)
+        counter = fused_cross_attention_q8
+    launches = counter.launches
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 2
+    assert out.dtype == torch.float32 and torch.equal(out, out.bfloat16().float())
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel", ["f32", "merged_f32", "int8_f32q"])
+@pytest.mark.parametrize("beams", [1, 4, 9])
+def test_cross_attention_f32_kernels_exact_sums(cuda, kernel, beams):
+    """q = 0, integer V (and power-of-two V scales in int8): every sum
+    exact, so each float32 instance equals its plain version bit for bit;
+    and at S = 3000 the rows go through in chunks (within 2e-2)."""
+    b, s, heads = 3, 50, 2
+    g = torch.Generator(device=cuda).manual_seed(800 + beams)
+    q = torch.zeros((b, beams, heads * 64), device=cuda)
+    ek = torch.randn((b, s, heads, 64), generator=g, device=cuda)
+    ev = torch.randint(-8, 9, (b, s, heads, 64), generator=g, device=cuda).float()
+    if kernel == "f32":
+        out = fused_cross_attention(q, ek, ev, beams, heads)
+        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+    elif kernel == "merged_f32":
+        mk, mv = _merged(ek, 64), _merged(ev, 64)
+        out = fused_cross_attention_dma(q, mk, mv, s, beams, heads)
+        ref = fused_cross_attention_dma_plain(q, mk, mv, s, beams, heads)
+    else:
+        ck = _q8_cache(ek)
+        cv = {"q": torch.randint(-127, 128, ev.shape, generator=g, device=cuda, dtype=torch.int8),
+              "s": torch.exp2(torch.randint(-9, -3, (b, s, heads), generator=g,
+                                            device=cuda).float())}
+        out = fused_cross_attention_q8(q, ck, cv, beams, heads)
+        ref = fused_cross_attention_plain(q, ck, cv, beams, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    s_long = 3000
+    q = torch.randn((2, beams, heads * 64), generator=g, device=cuda) * 0.3
+    ek, ev = (torch.randn((2, s_long, heads, 64), generator=g, device=cuda) * 0.5
+              for _ in range(2))
+    if kernel == "f32":
+        out = fused_cross_attention(q, ek, ev, beams, heads)
+        ref = fused_cross_attention_plain(q, ek, ev, beams, heads)
+    elif kernel == "merged_f32":
+        mk, mv = _merged(ek, s_long + 8), _merged(ev, s_long + 8)
+        out = fused_cross_attention_dma(q, mk, mv, s_long, beams, heads)
+        ref = fused_cross_attention_dma_plain(q, mk, mv, s_long, beams, heads)
+    else:
+        ck, cv = _q8_cache(ek), _q8_cache(ev)
+        out = fused_cross_attention_q8(q, ck, cv, beams, heads)
+        ref = fused_cross_attention_plain(q, ck, cv, beams, heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,o", [(256, 384), (160, 192), (1024, 3072)])  # 160: a partial tile
+@pytest.mark.parametrize("n", [1, 8, 32, 70, 256, 1024])
+def test_ln_gemm_f32_kernel_matches_plain(cuda, n, d, o):
+    """Row 15 on a float32 model (TF32 off on both sides): every output
+    within (D 2**-24 + 2**-20) of sum |xn| |w| + |bias| (f32 sums in another
+    order, the statistics summed in another order), a rerun bit-equal, the
+    output a view of the first N rows of a larger buffer whose rows past N
+    keep their sentinel (split and unsplit grids)."""
+    g = torch.Generator(device=cuda).manual_seed(900 + n + d)
+    x = torch.randn((n, d), generator=g, device=cuda) * 2 + 0.5
+    scale = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda)
+    shift = 0.1 * torch.randn((d,), generator=g, device=cuda)
+    w = 0.05 * torch.randn((d, o), generator=g, device=cuda)
+    bias = 0.1 * torch.randn((o,), generator=g, device=cuda)
+    buf = torch.full((n + 128, o), 7.0, device=cuda)
+    launches = ln_gemm.launches
+    out = ln_gemm(x, scale, shift, w, bias, out=buf[:n])
+    again = ln_gemm(x, scale, shift, w, bias)
+    ref = ln_gemm_plain(x, scale, shift, w, bias)
+    torch.cuda.synchronize()
+    assert ln_gemm.launches == launches + 2 and out.dtype == torch.float32
+    assert out.data_ptr() == buf.data_ptr() and bool((buf[n:] == 7.0).all())
+    assert torch.equal(out, again)
+    l1 = (torch.nn.functional.layer_norm(x, (d,), scale, shift).abs() @ w.abs()
+          + bias.abs())
+    assert bool(((out - ref).abs() <= (d * 2.0**-24 + 2.0**-20) * l1).all())
+
+
+@pytest.mark.requires_cuda
+def test_fused_mlp_refuses_float32_naming_b43(cuda):
+    """Row 16 has no float32 kernel yet: a float32 MLP raises a
+    NotImplementedError that names ROADMAP B43, before any launch."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((8, 256), generator=g, device=cuda)
+    w1, b1, w2, b2 = (t.float() for t in _mlp_weights(cuda, g, 256, 1024))
+    launches = fused_mlp.launches
+    with pytest.raises(NotImplementedError, match="B43"):
+        fused_mlp(x, w1, b1, w2, b2)
+    assert fused_mlp.launches == launches
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["int8_kv", "fused_float", "fused_int8", "merged_cross"])
+def test_f32_paths_run_the_f32_kernels(cuda, monkeypatch, case):
+    """A small float32 model (two images: N = 8 rows) under each path of a
+    float32 model's int8 cache and fused step: each new float32 kernel once a
+    layer a step; sequences equal to the same generate on the CPU (plain
+    versions), scores within 1e-2 (the attention kernels' bf16 roundings
+    after f32 sums in another order)."""
+    from mic_tpu_torch.core.params import tree_map
+
+    env = {"int8_kv": {}, "merged_cross": {"MIC_TPU_EXPERIMENTAL": "merged_cross"},
+           "fused_float": {"MIC_TPU_FUSED_LAZY_ATTN": "1",
+                           "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,ln_qkv"}}
+    env["fused_int8"] = env["fused_float"]
+    kernels = {"int8_kv": (lazy_attention_q8,), "merged_cross": (fused_cross_attention_dma,),
+               "fused_float": (fused_lazy_attention, fused_cross_attention, ln_gemm)}
+    kernels["fused_int8"] = kernels["fused_float"]
+    for key in ("MIC_TPU_FUSED_LAZY_ATTN", "MIC_TPU_EXPERIMENTAL", "MIC_TPU_KV_QUANT"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env[case].items():
+        monkeypatch.setenv(key, value)
+    config = CaptionerConfig(
+        vision=VisionConfig.tiny(),
+        decoder=DecoderConfig.tiny(vocab_size=1100, d_model=128, num_heads=2,
+                                   ffn_dim=512, max_position_embeddings=64),
+    )
+    assert config.dtype == "float32"
+    params = init_params(config, torch.Generator(device=cuda).manual_seed(11), cuda)
+    images = torch.randint(0, 256, (2, 40, 40, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(12))
+    kw = dict(num_beams=4, max_length=12, forced_bos_token_id=7,
+              kv_quant="int8" if case in ("int8_kv", "fused_int8") else None)
+    for fn in kernels[case]:
+        fn.launches = 0
+    model = Captioner(config)
+    gpu = model.generate(params, preprocess_images(images.to(cuda), 32, torch.float32), **kw)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in kernels[case]] == [config.decoder.num_layers * gpu.steps] * len(
+        kernels[case])
+    cpu = model.generate(tree_map(lambda x: x.cpu(), params),
+                         preprocess_images(images, 32, torch.float32), **kw)
+    assert torch.equal(gpu.sequences.cpu(), cpu.sequences)
+    torch.testing.assert_close(gpu.scores.cpu(), cpu.scores, rtol=0, atol=1e-2)
