@@ -301,7 +301,20 @@ Phases, each of which raises on failure (none catches its own):
      its plain version and identical to the first, the whole generate on
      the plain versions (sequences equal but where beams part at a
      near-tie), and a beam step's time in turns with the bf16 flagship
-     under the same switches.
+     under the same switches;
+ 66. the float32 instances of rows 16 (N=1024 and 32, D=1024, F=4096),
+     9 (the save forward and backward) and 10 (the split backward) at the
+     flagship step (N=4096, V=250054) against their plain versions, reruns
+     bit-equal, and their times beside their plain versions' and bounds
+     (rows 11 and 12 in float32 are checked and timed in phase 35);
+ 67. phase 65's machinery on the whole fused step (fused_mlp included) of
+     the float32 flagship, float32 and per-head int8 cache: rows 3, 14, 15
+     and 16 f32 each 12 times a step, held launch by launch and as a whole
+     path against the plain versions;
+ 68. the float32 flagship's Trainer on flash_ce "split" and "save" (rows 7
+     f32 and 10 f32; row 9 f32's forward and backward), three steps each,
+     counted, held launch by launch against the plain versions and run on
+     them.
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -1103,6 +1116,15 @@ def _train_counts(reset=False):
         for fn, attr in fields.values():
             setattr(fn, attr, 0)
     return {name: getattr(fn, attr) for name, (fn, attr) in fields.items()}
+
+
+def _f32_attention_counts():
+    """Rows 11 and 12's launches since ``_train_counts(reset=True)`` under
+    the kernels line's float32 names: on a float32 model every launch is a
+    float32 instance."""
+    counts = _train_counts()
+    return {f"{name}_f32": counts[name] for name in ("flash_attention", "small_attention_forward",
+                                                     "small_attention_backward")}
 
 
 def _flagship_train_run(dev, tc, host):
@@ -2931,12 +2953,13 @@ def time_sdpa_backward(tf_ms):
     forward's stream, which a graph capture cannot hold).  Last, so that no
     graph-replay time follows a profiler trace.  Puts each time in place of
     its function in ``tf_ms``."""
-    for shape in ATTN_SHAPES:
-        kernel, plain, backward, per_call = tf_ms[("small_bwd", shape)]
+    for key in [k for k in tf_ms if k[0] in ("small_bwd", "small_bwd_f32")]:
+        kernel, plain, backward, per_call = tf_ms[key]
         ms = profiled_ms(backward)
-        tf_ms[("small_bwd", shape)] = (kernel, plain, ms, per_call)
-        print(f"scaled_dot_product_attention backward {shape}: {ms:.4f} ms (its kernels' device "
-              f"time); the small-T backward kernel {kernel:.4f} ms", flush=True)
+        tf_ms[key] = (kernel, plain, ms, per_call)
+        dtype = "float32" if key[0].endswith("f32") else "bf16"
+        print(f"scaled_dot_product_attention backward {key[1]} {dtype}: {ms:.4f} ms (its "
+              f"kernels' device time); the small-T backward kernel {kernel:.4f} ms", flush=True)
 
 
 ATTN_COUNTERS = ("small_attention_forward", "small_attention_backward", "flash_attention")
@@ -4351,7 +4374,8 @@ def run_f32_generate(dev):
     under each select at B=2 the same generate with rows 1 and 4/5 swapped
     for their plain versions on the card (TF32 off): sequences equal,
     scores within 1e-4 (f32 sums in another order) -> launches (the bucket
-    run's rows 1 and 4, the exact run's row 5)."""
+    run's rows 1 and 4, the exact run's row 5; rows 11 and 12 f32 read
+    from the counted generates, summed)."""
     import mic_tpu_torch.models.captioner as captioner_mod
     import mic_tpu_torch.nn.attention as attention_mod
     from mic_tpu_torch.core.config import CaptionerConfig
@@ -4370,14 +4394,17 @@ def run_f32_generate(dev):
     u8 = np.random.default_rng(52).integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
     px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size, torch.float32)
     eos = torch.full((256,), 63, device=dev)
-    launches = {}
+    launches, attention = {}, {}
     for select, head, row in (("bucket", "fused_head", "fused_head_bucket_f32"),
                               ("exact", "fused_head_select", "fused_head_select_f32"),
                               ("window", "fused_head_select", "fused_head_select_f32")):
         with knobs(MIC_TPU_FUSED_SELECT=select):
             model.generate(params, px[:4], eos_positions=eos[:4], **kw)  # warm-up
+            _train_counts(reset=True)
             out, counts, seconds = generate_counted(
                 lambda x: model.generate(params, x, eos_positions=eos, **kw), px)
+            for name, count in _f32_attention_counts().items():
+                attention[name] = attention.get(name, 0) + count
             seqs = check_path_output(out, 256, 64, f"float32 flagship, {select}")
             check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id,
                          config.decoder.pad_token_id, f"float32 flagship, {select}")
@@ -4406,7 +4433,9 @@ def run_f32_generate(dev):
         require(same, f"float32 {select}: the kernels' sequences differ from the plain versions'")
         require(score_err < 1e-4,
                 f"float32 {select}: the kernels' scores differ from the plain versions'")
-    return launches
+    print(f"float32 flagship, the three selects' generates: rows 11 and 12 f32 launched "
+          f"{attention}", flush=True)
+    return {**launches, **attention}
 
 
 def run_f32_training(dev):
@@ -4420,7 +4449,7 @@ def run_f32_training(dev):
     plain "dl" route; TF32 off): the first loss (the forward alone) within
     1e-5 relative of the plain route's, the next two within 1e-4 (the
     gradients' sums in another order move the params by f32 rounding)
-    -> launches."""
+    -> launches (with rows 11 and 12 f32's, read from the counted steps)."""
     import mic_tpu_torch.ops.fused_ce as fused_ce_mod
     from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
     from mic_tpu_torch.ops.flash_ce import flash_ce_backward_dl_plain, flash_ce_forward_plain
@@ -4450,16 +4479,17 @@ def run_f32_training(dev):
                 state, metrics = trainer.train_step(state, batch)
                 losses.append(metrics["loss"].item())
                 ms.append((time.perf_counter() - t1) * 1e3)
+        attention = _f32_attention_counts()
         got = {k: v for k, v in _train_counts().items() if v}
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"float32 flagship training, {label}: losses {losses}, launches {got}, peak "
               f"allocated {peak:.2f} GiB, step times {[round(x, 1) for x in ms]} ms (smoke "
               f"figures), {time.perf_counter() - t0:.1f} s with init", flush=True)
         require(all(np.isfinite(losses)), f"float32 training ({label}): a non-finite loss")
-        runs[label] = (losses, got)
+        runs[label] = (losses, got, attention)
         del trainer, state, batches
         torch.cuda.empty_cache()
-    (losses, got), (plain, plain_got) = runs["kernels"], runs["plain"]
+    (losses, got, attention), (plain, plain_got, _) = runs["kernels"], runs["plain"]
     require(got == {"flash_ce_forward": 3, "flash_ce_backward_dl": 3},
             f"float32 training: launches {got}")
     require(not plain_got, f"float32 training: the plain route launched {plain_got}")
@@ -4469,7 +4499,7 @@ def run_f32_training(dev):
     require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
             "float32 training: the losses differ from the plain dl route's")
     return {"flash_ce_forward_f32": got["flash_ce_forward"],
-            "flash_ce_backward_dl_f32": got["flash_ce_backward_dl"]}
+            "flash_ce_backward_dl_f32": got["flash_ce_backward_dl"], **attention}
 
 
 def run_training_options(dev, root):
@@ -6373,6 +6403,8 @@ F32_PATH_SCORE = 1e-3
 def _f32_step_swaps(la, ca, lg, attention_mod):
     """(module, name, plain, written, check) of each wrapper the paths look
     up, for ``plain_versions`` and ``shadowed``."""
+    import mic_tpu_torch.models.mbart_decoder as decoder_mod
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp_plain
     def close(tol):
         def check(args, out, ref):
             torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
@@ -6392,6 +6424,12 @@ def _f32_step_swaps(la, ca, lg, attention_mod):
                 "ln_gemm f32 on the path: beyond the f32 summation bound")
         return (out - ref).abs().max().item(), 0
 
+    def mlp_check(args, out, ref):
+        limit = mlp_f32_limit(*args[:6])
+        require(bool(((out - ref).abs() <= limit).all()),
+                "fused_mlp f32 on the path: beyond its tolerance")
+        return (out - ref).abs().max().item(), 0
+
     return {
         "lazy_attention_q8": (attention_mod, "lazy_attention_q8", la.lazy_attention_q8_plain,
                               q8_column, close(1e-5)),
@@ -6404,21 +6442,24 @@ def _f32_step_swaps(la, ca, lg, attention_mod):
         "fused_cross_attention_dma": (attention_mod, "fused_cross_attention_dma",
                                       ca.fused_cross_attention_dma_plain, None, close(2e-2)),
         "ln_gemm": (lg, "ln_gemm", lg.ln_gemm_plain, None, ln_check),
+        "fused_mlp": (decoder_mod, "fused_mlp", fused_mlp_plain, None, mlp_check),
     }
 
 
-def run_f32_fused_paths(dev):
-    """Phase 65: the default float32 flagship (CaptionerConfig.
-    clip_vit_b32_mbart50() at its own dtype, full width and depth, random
-    weights from a seed) serving B=64 images, beam 4, length 64, every
-    caption's EOS pinned at 63 (all 63 steps), under each path of
-    ``F32_PATHS``: kv_quant="int8" in mode "2" (row 2 f32); the fused step's
-    switches without fused_mlp (row 16 has no float32 kernel, ROADMAP B43)
-    with the float32 cache (rows 3, 14 and 15 f32) and the per-head int8
-    cache (row 3's int8 form under f32 q, 14 and 15 f32); merged_cross
-    (row 13 f32, with row 1 f32).  For each: the counters set to 0 just
-    before a generate and read just after, each of the path's kernels 12
-    times a step; a second run with every launch of those kernels held
+def run_f32_fused_paths(dev, paths=F32_PATHS):
+    """Phase 65 (and 67, with ``paths`` F32_WHOLE_STEP: the whole fused
+    step, row 16 f32 held within ``mlp_f32_limit``): the default float32
+    flagship (CaptionerConfig.clip_vit_b32_mbart50() at its own dtype, full
+    width and depth, random weights from a seed) serving B=64 images, beam
+    4, length 64, every caption's EOS pinned at 63 (all 63 steps), under
+    each path of ``paths``; in phase 65 kv_quant="int8" in mode "2" (row 2
+    f32); the fused step's switches without fused_mlp with the float32
+    cache (rows 3, 14 and 15 f32) and the per-head int8 cache (row 3's int8
+    form under f32 q, 14 and 15 f32); merged_cross (row 13 f32, with row 1
+    f32).  For each: the counters set to 0 just before a generate and read
+    just after, each of the path's kernels 12 times a step, no other
+    serving kernel but the head (so row 14's int8 form 0 times) and rows 11
+    and 12 read too; a second run with every launch of those kernels held
     against its plain version on the same inputs (row 2 and row 1 within
     1e-5 and their written cells bit-equal, rows 3, 13, 14 within 2e-2, row
     15 within the f32 summation bound) and its sequences and scores
@@ -6426,10 +6467,14 @@ def run_f32_fused_paths(dev):
     for their plain versions on the card: sequences equal but for images
     whose running beams first part at a near-tie (both runs' 4th less 5th
     candidate within BEAM_TIE, ``_first_partings``), the best scores of
-    equal images within ``F32_PATH_SCORE`` and of every image within
-    NEAR_TIE.  Then a beam step's time (host clock around a synchronised
-    generate, over its steps) in turns with the bf16 flagship under the same
-    switches (f32, bf16, bf16, f32) -> launches of each kernels-line name."""
+    equal images within ``F32_PATH_SCORE`` (those of parted images are
+    printed: after a parting at an early step the two searches score
+    different captions of a random model, and the partings are what is
+    held).  Then a beam step's time (host clock around a synchronised
+    generate, over its steps) in turns with the bf16 flagship under the
+    same switches (f32, bf16, bf16, f32) -> launches of each kernels-line
+    name (rows 11 and 12 f32 and row 14's int8 form summed over the
+    paths)."""
     import mic_tpu_torch.nn.attention as attention_mod
     import mic_tpu_torch.ops.cross_attention as ca
     import mic_tpu_torch.ops.lazy_attention as la
@@ -6452,13 +6497,15 @@ def run_f32_fused_paths(dev):
     eos = torch.full((n,), 63, device=dev)
     swaps = _f32_step_swaps(la, ca, lg, attention_mod)
     launches = {}
-    for label, (env, kv, rows) in F32_PATHS.items():
+    for label, (env, kv, rows) in paths.items():
         extra = dict(kw, kv_quant=kv, eos_positions=eos)
         with knobs(**env):
             model.generate(params, px[:8], **dict(extra, eos_positions=eos[:8]))  # warm-up
             with _beam_trace(4) as trace:
+                _train_counts(reset=True)
                 out, counts, seconds = generate_counted(
                     lambda x: model.generate(params, x, **extra), px)
+                attention = _f32_attention_counts()
             seqs = check_path_output(out, n, 64, f"float32 flagship, {label}")
             check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id,
                          config.decoder.pad_token_id, f"float32 flagship, {label}")
@@ -6470,6 +6517,10 @@ def run_f32_fused_paths(dev):
             require(not others, f"float32 {label}: other serving kernels launched: {others}")
             for name, count in found.items():
                 launches.setdefault(name, count)
+            unused = {**attention, "fused_cross_attention_q8_f32": counts[
+                "fused_cross_attention_q8"]}
+            for name, count in unused.items():
+                launches[name] = launches.get(name, 0) + count
             with shadowed(*(swaps[c] for c in rows)) as stats:
                 again = model.generate(params, px, **extra)
             _print_shadow(f"float32 flagship, {label}", stats)
@@ -6487,18 +6538,17 @@ def run_f32_fused_paths(dev):
         del trace, plain_trace
         equal_gap = float(gap[equal].max()) if bool(equal.any()) else 0.0
         print(f"float32 flagship, {label}: B={n} beam 4, {out.steps} steps in {seconds:.3f} s "
-              f"(smoke figure, not a benchmark), launches {found}; against the same generate on "
-              f"the plain versions: {int(equal.sum())} of {n} sequences equal, best-score "
-              f"differences of equal images at most {equal_gap:.3g} (limit "
-              f"{F32_PATH_SCORE}), of all {float(gap.max()):.3g} (limit {NEAR_TIE}); "
+              f"(smoke figure, not a benchmark), launches {found}, of rows 11 and 12 f32 and row "
+              f"14's int8 form {unused}; against the same generate on the plain versions: "
+              f"{int(equal.sum())} of {n} sequences equal, best-score differences of equal "
+              f"images at most {equal_gap:.3g} (limit {F32_PATH_SCORE}), of all "
+              f"{float(gap.max()):.3g} (not held: parted images); "
               f"where running beams first part (image, step, plain's 4th less 5th, the "
               f"kernels', kept-score difference a step before): "
               f"{[(i, st, round(a, 5), round(b, 5), round(d, 5)) for i, st, a, b, d in partings]}"
               f" (limit {BEAM_TIE})", flush=True)
         require(equal_gap <= F32_PATH_SCORE,
                 f"float32 {label}: scores of equal sequences differ from the plain versions'")
-        require(float(gap.max()) <= NEAR_TIE,
-                f"float32 {label}: a best score beyond a near-tie of the plain versions'")
         require(all(a <= BEAM_TIE and b <= BEAM_TIE for _, _, a, b, _ in partings),
                 f"float32 {label}: beams part from the plain versions' where no near-tie is")
 
@@ -6511,7 +6561,7 @@ def run_f32_fused_paths(dev):
         init_params(config, torch.Generator(device=dev).manual_seed(65), dev), torch.float32)
     model16 = Captioner(bf16_config)
     px16 = px.to(torch.bfloat16)
-    for label, (env, kv, _) in F32_PATHS.items():
+    for label, (env, kv, _) in paths.items():
         extra = dict(kw, kv_quant=kv, eos_positions=eos)
         with knobs(**env):
             for turn, dtype in enumerate(("float32", "bfloat16", "bfloat16", "float32"), 1):
@@ -6527,6 +6577,536 @@ def run_f32_fused_paths(dev):
                       f"{seconds / out.steps * 1e3:.2f} ms a beam step", flush=True)
     del params16, params32
     torch.cuda.empty_cache()
+    return launches
+
+
+# The float32 instances of rows 9, 10 and 16 (phases 66-68) and of rows 11
+# and 12 (the attention phase, 35): names as in the kernels line.
+F32_LAST_ROWS = {
+    "fused_mlp_f32": ("fused_mlp_f32.cu", "mic_tpu/ops/fused_mlp.py:89"),
+    "flash_ce_forward_save_f32": ("flash_ce_f32.cu", "mic_tpu/ops/flash_ce.py:157"),
+    "flash_ce_backward_save_f32": ("flash_ce_bwd_f32.cu", "mic_tpu/ops/flash_ce.py:579"),
+    "flash_ce_backward_f32": ("flash_ce_bwd_f32.cu", "mic_tpu/ops/flash_ce.py:407"),
+}
+F32_ATTENTION_ROWS = {
+    "flash_attention_f32": ("flash_attention.cu", "mic_tpu/ops/flash_attention.py:167",
+                            "flash_f32"),
+    "small_attention_forward_f32": ("small_attention.cu", "mic_tpu/ops/small_attention.py:96",
+                                    "small_fwd_f32"),
+    "small_attention_backward_f32": ("small_attention.cu",
+                                     "mic_tpu/ops/small_attention.py:111", "small_bwd_f32"),
+}
+
+
+def attention_bounds_f32(b, tq, tk, heads, dh=64):
+    """Rows 11 f32 and 12 f32 at (B, Tq, Tk, H): float32 q, k, v (and dout)
+    read and the output (dq, dk, dv) written once, the f32 (B, Tq, Tk) bias
+    read once; every product of float32 operands at the f32 FMA rate, each
+    2 B H Tq Tk Dh: two for a forward, five for the small-T backward."""
+    x = b * tq * heads * dh * 4
+    bias = b * tq * tk * 4
+    mm = 2 * b * heads * tq * tk * dh
+    return {"flash_attention_f32": bound(4 * x + bias, 2 * mm, "f32"),
+            "small_attention_forward_f32": bound(4 * x + bias, 2 * mm, "f32"),
+            "small_attention_backward_f32": bound(7 * x + bias, 5 * mm, "f32")}
+
+
+def check_f32_attention_kernels(dev):
+    """Phase 35's float32 half: rows 12 (forward and backward) and 11
+    (forward) on float32 q, k, v at the decoder's (causal, right padding)
+    and vision's shapes against their plain versions, TF32 off: outputs
+    within 1e-5, the small-T gradients within 1e-5 of their largest entry
+    (the card tests' float32 limits: f32 sums in another order), reruns
+    bit-equal.  Then each in CUDA-graph replays beside its plain version
+    and scaled_dot_product_attention in float32 with the same boolean mask
+    (its backward timed last, as bf16's, by ``time_sdpa_backward``)
+    -> (errors, times keyed as phase 36's)."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops import flash_attention as fa
+    from mic_tpu_torch.ops import small_attention as sa
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    errs = dict.fromkeys(F32_ATTENTION_ROWS, 0.0)
+    times = {}
+    for shape, kind in (("decoder", "causal"), ("vision", None)):
+        b, t, heads = ATTN_SHAPES[shape]
+        mask = _attention_case(dev, b, t, heads, kind, 450)[3]
+        g = torch.Generator(device=dev).manual_seed(451)
+        q, k, v, do = (torch.randn((b, t, heads, 64), generator=g, device=dev) * s
+                       for s in (0.3, 0.3, 1.0, 1.0))
+        bias, fbias = sa.mask_bias(mask, b, t), fa.mask_bias(mask, b, t, t)
+        out, again = sa.small_attention_forward(q, k, v, bias), sa.small_attention_forward(q, k, v,
+                                                                                          bias)
+        grads = sa.small_attention_backward(q, k, v, bias, do)
+        grads2 = sa.small_attention_backward(q, k, v, bias, do)
+        fout, fagain = fa.flash_attention_forward(q, k, v, fbias), fa.flash_attention_forward(
+            q, k, v, fbias)
+        ref = sa.small_t_attention_plain(q, k, v, bias)
+        ref_grads = sa.small_t_attention_bwd_plain(q, k, v, bias, do)
+        fref = fa.flash_attention_plain(q, k, v, fbias)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again) and torch.equal(fout, fagain)
+                and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+                f"float32 attention {shape}: a rerun differs")
+        require(all(x.dtype == torch.float32 for x in (out, fout, *grads)),
+                f"float32 attention {shape}: output dtype")
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(fout, fref, rtol=1e-5, atol=1e-5)
+        gerr = max(_scaled_err(a, c) for a, c in zip(grads, ref_grads))
+        require(gerr <= 1e-5, f"small_attention_backward f32 {shape}: {gerr}")
+        errs["small_attention_forward_f32"] = max(errs["small_attention_forward_f32"],
+                                                  (out - ref).abs().max().item())
+        errs["small_attention_backward_f32"] = max(
+            errs["small_attention_backward_f32"],
+            max((a - c).abs().max().item() for a, c in zip(grads, ref_grads)))
+        errs["flash_attention_f32"] = max(errs["flash_attention_f32"],
+                                          (fout - fref).abs().max().item())
+        print(f"float32 attention {shape} B={b} T={t} H={heads} mask {kind}: small-T forward "
+              f"max_abs_err={(out - ref).abs().max().item():.3g}, backward max err / max |ref| "
+              f"{gerr:.3g}; flash max_abs_err={(fout - fref).abs().max().item():.3g} (limits "
+              f"1e-5); reruns bit-equal", flush=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        qh, kh, vh = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0)
+        torch.testing.assert_close(lib_out.detach().transpose(1, 2), ref, rtol=1e-4, atol=1e-4)
+        times[("small_fwd_f32", shape)] = (
+            graph_ms(lambda: sa.small_attention_forward(q, k, v, bias)),
+            graph_ms(lambda: sa.small_t_attention_plain(q, k, v, bias)),
+            graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                            scale=1.0)),
+            median_ms(lambda: sa.small_attention_forward(q, k, v, bias)))
+        times[("small_bwd_f32", shape)] = (
+            graph_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)),
+            graph_ms(lambda: sa.small_t_attention_bwd_plain(q, k, v, bias, do)),
+            lambda a=(lib_out, (qh, kh, vh), do.transpose(1, 2)): torch.autograd.grad(
+                *a, retain_graph=True),
+            median_ms(lambda: sa.small_attention_backward(q, k, v, bias, do)))
+        times[("flash_f32", shape)] = (
+            graph_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)),
+            graph_ms(lambda: fa.flash_attention_plain(q, k, v, fbias)),
+            times[("small_fwd_f32", shape)][2],
+            median_ms(lambda: fa.flash_attention_forward(q, k, v, fbias)))
+    for (name, shape), (kernel, plain, lib, per_call) in times.items():
+        b, t, heads = ATTN_SHAPES[shape]
+        lib_text = ("its backward timed last" if callable(lib)
+                    else f"its forward {lib:.4f} ms in graph replays")
+        print(f"{name} {shape} B={b} T={t} H={heads}: kernel {kernel:.4f} ms (graph replays), "
+              f"{per_call:.4f} ms per call with its wrapper; plain {plain:.4f} ms; "
+              f"scaled_dot_product_attention in float32: {lib_text}", flush=True)
+    return errs, times
+
+
+# Row 16 f32's tolerance, a share of each output's sum |act(x w1 + b1)|
+# |w2| + |b2|: fitted between what sound f32 sums of the two products in
+# two orders differ by and what the nearest faulty kernels differ by
+# (phase 66 prints both, PERF.md §6), not a worst-case bound, which grows
+# with the depth and lets those faults through
+MLP_F32_TOL = 2.0**-18
+
+
+def mlp_f32_limit(x, w1, b1, w2, b2, activation="gelu"):
+    """MLP_F32_TOL of sum |act(x w1 + b1)| |w2| + |b2|, entry by entry
+    (tests/test_torch_cuda_kernels.py::_mlp_f32_limit)."""
+    from mic_tpu_torch.nn.layers import ACTIVATIONS
+    from mic_tpu_torch.ops.fused_mlp import gelu_erf
+
+    act = gelu_erf if activation == "gelu" else ACTIVATIONS[activation]
+    return MLP_F32_TOL * (act(x @ w1 + b1).abs() @ w2.abs() + b2.abs())
+
+
+def tf32_rounded(t):
+    """t's float32 values rounded to TF32's 10 mantissa bits (to nearest)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mlp_f32_controls(x, w1, b1, w2, b2):
+    """What the nearest faulty kernels of the gelu MLP compute, in plain
+    PyTorch on the same inputs: the tanh gelu for the erf one, every
+    product in TF32 alone, the intermediate rounded to bf16, b2 dropped."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.fused_mlp import gelu_erf
+
+    h = x @ w1 + b1
+    act = gelu_erf(h)
+    t1 = gelu_erf(tf32_rounded(x) @ tf32_rounded(w1) + b1)
+    return {"gelu_tanh for gelu": F.gelu(h, approximate="tanh") @ w2 + b2,
+            "TF32 products": tf32_rounded(t1) @ tf32_rounded(w2) + b2,
+            "bf16 intermediate": act.bfloat16().float() @ w2 + b2,
+            "b2 dropped": act @ w2}
+
+
+def mlp_f32_bound(n, d, f):
+    """Row 16 f32: x, W1, b1, W2, b2 read and the output written once in
+    float32 (the (N, F) intermediate counted as kept on chip); 4 N D F
+    products at the float32-accurate rate of the tensor cores."""
+    return bound(4 * (n * d + d * f + f + f * d + d + n * d), 4 * n * d * f, "tf32x3")
+
+
+def f32_ce_route_bounds(n, d=1024, v=250054):
+    """Rows 9 f32 and 10 f32 at N rows, everything float32 but the saved main
+    logits (bf16, as mic_tpu saves them): the save forward reads h, the
+    table and bias, writes the statistics and the saved logits, one 2 N D V
+    product; the save backward reads the saved logits, the table, h and the
+    row terms and writes dh, demb and dbias, two contractions; the split
+    backward reads what dl reads and writes what the save backward writes,
+    one logits product and two contractions (6 N D V, as row 10's bf16
+    bound counts it).  At the float32-accurate rate of the tensor cores."""
+    from mic_tpu_torch.ops.flash_ce import main_columns
+
+    v_main = main_columns(v)
+    table = v * d * 4 + v * 4
+    saved = n * v_main * 2 + n * (v - v_main) * 4
+    grads = n * d * 4 + v * d * 4 + v * 4
+    return {
+        "flash_ce_forward_save_f32": bound(table + n * d * 4 + n * 4 * 4 + saved,
+                                           2 * n * d * v, "tf32x3"),
+        "flash_ce_backward_save_f32": bound(saved + v * d * 4 + n * d * 4 + n * 4 * 3 + grads,
+                                            4 * n * d * v, "tf32x3"),
+        "flash_ce_backward_f32": bound(table + n * d * 4 + n * 4 * 3 + grads, 6 * n * d * v,
+                                       "tf32x3"),
+    }
+
+
+def f32_bwd_scales(hidden, weight, bias, labels, lse, rs, ls):
+    """(|dl| + 2 target rowscale)^T |h| and (|dl| + 2 target rowscale) |W|
+    (tests/test_torch_cuda_kernels.py::_f32_bwd_scales): what an error of
+    1e-4 of each dl entry's own size moves each demb and dh entry by; dl
+    the plain f32 one, 512 rows at a time."""
+    from mic_tpu_torch.ops.flash_ce import _targets, dlogits
+
+    low, conf_low = _targets(ls, weight.shape[0])
+    demb = torch.zeros(weight.shape, device=hidden.device)
+    dh = torch.empty(hidden.shape, device=hidden.device)
+    for i in range(0, hidden.shape[0], 512):
+        rows = slice(i, i + 512)
+        p = torch.exp(hidden[rows] @ weight.T + bias - lse[rows, None])
+        dl = dlogits(p, labels[rows], rs[rows], ls).abs()
+        del p
+        target = torch.full_like(dl, low)
+        target.scatter_(1, labels[rows, None].long(), low + conf_low)
+        dl += 2 * target * rs[rows, None]
+        del target
+        demb += dl.T @ hidden[rows].abs()
+        dh[rows] = dl @ weight.abs()
+    return demb, dh
+
+
+def check_f32_mlp(dev):
+    """Phase 66, row 16 f32 at the flagship's D=1024, F=4096, N=1024 (B=256
+    beam 4) and N=32 (both products split in depth) against its plain
+    version, TF32 off: every output within ``mlp_f32_limit``, a rerun
+    bit-equal; and each of ``mlp_f32_controls`` beyond that limit, held
+    against the same plain version (the limit tells them apart).  Then in
+    CUDA-graph replays beside the plain version and, for scale only, the
+    chain F.linear -> F.gelu -> F.linear in float32 (three calls, none of
+    them the function) -> (error, times by N)."""
+    import torch.nn.functional as F
+
+    from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    d, f = HEAD_D, 4 * HEAD_D
+    g = torch.Generator(device=dev).manual_seed(66)
+    w1 = torch.randn((d, f), generator=g, device=dev) * (1.6 / d**0.5)
+    b1 = 0.1 * torch.randn((f,), generator=g, device=dev)
+    w2 = torch.randn((f, d), generator=g, device=dev) * (1.6 / f**0.5)
+    b2 = 0.1 * torch.randn((d,), generator=g, device=dev)
+    w1t, w2t = w1.t(), w2.t()
+    worst, times = 0.0, {}
+    for n in (FLAG_B * FLAG_K, 32):
+        x = torch.randn((n, d), generator=g, device=dev)
+        out, again = fused_mlp(x, w1, b1, w2, b2), fused_mlp(x, w1, b1, w2, b2)
+        ref = fused_mlp_plain(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        require(out.dtype == torch.float32, "fused_mlp f32: output dtype")
+        require(torch.equal(out, again), f"fused_mlp f32 N={n}: a rerun differs")
+        limit = mlp_f32_limit(x, w1, b1, w2, b2)
+        ratio = ((out - ref).abs() / limit).max().item()
+        require(ratio <= 1.0, f"fused_mlp f32 N={n}: beyond its tolerance")
+        caught = {name: ((c - ref).abs() / limit).max().item()
+                  for name, c in mlp_f32_controls(x, w1, b1, w2, b2).items()}
+        print(f"fused_mlp f32 N={n}: largest |kernel - plain| / (sum |act(h)| |w2| + |b2|) "
+              f"{ratio * MLP_F32_TOL:.3g} (tolerance {MLP_F32_TOL:.3g}); the faulty controls' "
+              + ", ".join(f"{name} {r * MLP_F32_TOL:.3g}" for name, r in caught.items()),
+              flush=True)
+        require(all(r > 1.0 for r in caught.values()),
+                f"fused_mlp f32 N={n}: the tolerance passes a faulty control: {caught}")
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        times[n] = (graph_ms(lambda: fused_mlp(x, w1, b1, w2, b2)),
+                    graph_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2)),
+                    graph_ms(lambda: F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2)))
+        b_ms, by = mlp_f32_bound(n, d, f)
+        print(f"fused_mlp f32 N={n} D={d} F={f}: max_abs_err={err:.3g} ({ratio:.3g} of its "
+              f"tolerance), rerun bit-equal; kernel {times[n][0]:.4f} ms, plain "
+              f"{times[n][1]:.4f} ms (graph replays), bound {b_ms:.4f} ms ({by}), the kernel at "
+              f"{b_ms / times[n][0]:.1%} of it; for scale only F.linear -> F.gelu -> F.linear "
+              f"f32 {times[n][2]:.4f} ms", flush=True)
+    return worst, times
+
+
+def check_f32_ce_routes(dev):
+    """Phase 66, rows 9 f32 and 10 f32 at the flagship step (N=4096, D=1024,
+    V=250054; float32 table at the init's scale, unit hidden rows), TF32
+    off.  The save forward: its statistics bit-equal to the non-saving
+    kernel's (row 7 f32), a rerun bit-equal, its bf16 main span within one
+    bf16 ulp of the f32 logits plus 1e-5, its f32 tail within 1e-5 of the
+    row's |h| |w| + |b|.  The save backward (from the kernel's saved
+    logits) and the split backward (the dl walk a vocab chunk at a time,
+    then both contractions) against their plain versions on the same
+    inputs, smoothing 0 and 0.1, every seventh row's rowscale 0: demb and
+    dh entry by entry within 1e-4 of ``f32_bwd_scales`` (dl formed in f32
+    on both sides, its exp and the logits' sums in other orders), dbias
+    within 1e-5 of its largest entry, a rerun bit-equal.  Then each in
+    CUDA-graph replays (one call a graph) beside its plain version ->
+    (errors, times)."""
+    from mic_tpu_torch.ops import flash_ce as fce
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
+    weight, bias = _f32_table(dev, CE_V, CE_D, 66)
+    n = 4096
+    hidden, labels = _ce_rows(dev, n, 660)
+    hidden = hidden.float()
+    v_main = fce.main_columns(CE_V)
+    errs, times = {}, {}
+    out = fce.flash_ce_forward(hidden, weight, bias, labels, save=True)
+    again = fce.flash_ce_forward(hidden, weight, bias, labels, save=True)
+    stats = fce.flash_ce_forward(hidden, weight, bias, labels)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(out, again)),
+            "flash_ce_forward save f32: a rerun differs")
+    require(all(torch.equal(a, c) for a, c in zip(out[:3], stats)),
+            "flash_ce_forward save f32: statistics differ from the non-saving kernel's")
+    require(out[3].dtype == torch.bfloat16 and out[3].shape == (n, v_main)
+            and out[4].shape == (n, CE_V - v_main), "flash_ce_forward save f32: saved shapes")
+    del again
+    main_err, tail_err = 0.0, 0.0
+    for i in range(0, n, 512):
+        exact = hidden[i:i + 512] @ weight.T + bias
+        main = exact[:, :v_main]
+        d_ = (out[3][i:i + 512].float() - main).abs()
+        require(bool((d_ <= _bf16_ulp(main) + 1e-5).all()),
+                "flash_ce_forward save f32: bf16 logits beyond one ulp of the f32 logits")
+        main_err = max(main_err, d_.max().item())
+        scale = hidden[i:i + 512].abs() @ weight[v_main:].abs().T + bias[v_main:].abs()
+        t_ = (out[4][i:i + 512] - exact[:, v_main:]).abs()
+        require(bool((t_ <= 1e-5 * scale).all()), "flash_ce_forward save f32: tail logits")
+        tail_err = max(tail_err, t_.max().item())
+        del exact, main, d_, scale, t_
+    errs["flash_ce_forward_save_f32"] = main_err
+    print(f"flash_ce_forward save f32 N={n} D={CE_D} V={CE_V} v_main={v_main}: statistics "
+          f"bit-equal to the non-saving kernel, rerun bit-equal; bf16 logits max_abs_err "
+          f"{main_err:.3g} (within one bf16 ulp + 1e-5), tail max_abs_err {tail_err:.3g}",
+          flush=True)
+    lse, lg, tail = out[0], out[3], out[4]
+    del out, stats
+    rs = torch.rand((n,), generator=torch.Generator(device=dev).manual_seed(661), device=dev) / n
+    rs[::7] = 0.0
+    routes = (("flash_ce_backward_f32", fce.flash_ce_backward, fce.flash_ce_backward_dl_plain,
+               ()),
+              ("flash_ce_backward_save_f32", fce.flash_ce_backward_save,
+               fce.flash_ce_backward_save_plain, (lg, tail)))
+    for ls in (0.0, 0.1):
+        demb_scale, dh_scale = f32_bwd_scales(hidden, weight, bias, labels, lse, rs, ls)
+        for name, fn, plain, extra in routes:
+            got = fn(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+            again = fn(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, c) for a, c in zip(got, again)), f"{name}: a rerun differs")
+            del again
+            ref = plain(hidden, weight, bias, labels, lse, rs, ls, None, *extra)
+            require(all(x.dtype == torch.float32 for x in got), f"{name}: gradient dtypes")
+            # a row of rowscale 0 has dl 0: its dh and scale are both 0
+            demb_ratio = ((got[1] - ref[1]).abs() / demb_scale.clamp_min(1e-30)).max().item()
+            dh_ratio = ((got[0] - ref[0]).abs() / dh_scale.clamp_min(1e-30)).max().item()
+            top = ref[2].abs().max().item()
+            db = (got[2] - ref[2]).abs().max().item() / top
+            require(demb_ratio <= 1e-4 and dh_ratio <= 1e-4 and db <= 1e-5,
+                    f"{name} smoothing {ls}: demb {demb_ratio:.3g}, dh {dh_ratio:.3g} (limits "
+                    f"1e-4 of the scales), dbias {db:.3g} (1e-5)")
+            errs[name] = max(errs.get(name, 0.0), (got[1] - ref[1]).abs().max().item())
+            print(f"{name} N={n} smoothing={ls}: max err / scale demb {demb_ratio:.3g}, dh "
+                  f"{dh_ratio:.3g} (limits 1e-4); dbias max err / max |ref| {db:.3g} (1e-5); "
+                  "rerun bit-equal", flush=True)
+            del got, ref
+        del demb_scale, dh_scale
+        torch.cuda.empty_cache()
+    rs = torch.full((n,), 1.0 / n, device=dev)
+    args = (hidden, weight, bias, labels, lse, rs, 0.1, None)
+    runs = {
+        "flash_ce_forward_save_f32": (
+            lambda: fce.flash_ce_forward(hidden, weight, bias, labels, save=True),
+            lambda: fce.flash_ce_forward_plain(hidden, weight, bias, labels, save=True)),
+        "flash_ce_backward_save_f32": (lambda: fce.flash_ce_backward_save(*args, lg, tail),
+                                       lambda: fce.flash_ce_backward_save_plain(*args, lg, tail)),
+        "flash_ce_backward_f32": (lambda: fce.flash_ce_backward(*args),
+                                  lambda: fce.flash_ce_backward_dl_plain(*args)),
+    }
+    bounds = f32_ce_route_bounds(n, CE_D, CE_V)
+    for name, (kernel, plain) in runs.items():
+        times[name] = (graph_ms(kernel, reps=1, runs=3), graph_ms(plain, reps=1, runs=3), None)
+        torch.cuda.empty_cache()
+        b_ms, by = bounds[name]
+        print(f"{name} time at N={n} (graph replays): kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms; bound {b_ms:.4f} ms ({by}), the kernel at "
+              f"{b_ms / times[name][0]:.1%} of it", flush=True)
+    del weight, bias, lg, tail
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+# phase 67's paths: the whole fused beam step on a float32 model
+F32_WHOLE_STEP = {
+    "whole fused step, float32 cache": (
+        {"MIC_TPU_FUSED_LAZY_ATTN": "1",
+         "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,fused_mlp,ln_qkv"},
+        None, {"fused_lazy_attention": "fused_lazy_attention_f32",
+               "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32",
+               "fused_mlp": "fused_mlp_f32"}),
+    "whole fused step, int8 cache": (
+        {"MIC_TPU_FUSED_LAZY_ATTN": "1",
+         "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,fused_mlp,ln_qkv"},
+        "int8", {"fused_lazy_attention": "fused_lazy_attention_q8_f32",
+                 "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32",
+                 "fused_mlp": "fused_mlp_f32"}),
+}
+
+
+def _train_shadow(checks):
+    """Each training wrapper runs as the loss calls it, then its plain
+    version on the same arguments, and ``check(name, args, kwargs, out,
+    ref)`` holds the two ((module, name, plain, check) each) -> {name:
+    calls}."""
+    calls = {name: 0 for _, name, _, _ in checks}
+    old = [(module, name, getattr(module, name)) for module, name, _, _ in checks]
+
+    def make(name, kernel, plain, check):
+        def run(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            check(name, args, kwargs, out, plain(*args, **kwargs))
+            calls[name] += 1
+            return out
+        return run
+
+    for (module, name, plain, check), (_, _, kernel) in zip(checks, old):
+        setattr(module, name, make(name, kernel, plain, check))
+    return calls, old
+
+
+def run_f32_training_routes(dev):
+    """Phase 68: the default float32 flagship's Trainer at the TrainConfig
+    defaults (64 x 64, dropout 0.1, remat "masks", no shadow at float32)
+    with warmup_steps=2 on flash_ce "split" and on "save", three steps each
+    from one seed, the training counters set to 0 just before them and read
+    just after: "split" rows 7 f32 and 10 f32, "save" row 9 f32's forward
+    and backward, once a step.  The same three steps again with every
+    launch of those kernels held against its plain version on the same
+    arguments (the save forward's statistics within 1e-5, its bf16 logits
+    within one bf16 ulp of the plain's plus 1e-5, its tail within 1e-5 of
+    the largest; the backwards' demb and dh entry by entry within 1e-4 of
+    ``f32_bwd_scales``, dbias within 1e-5 of its largest entry), its first
+    loss bit-equal to the first run's and the next within 1e-5 relative.
+    Then the same steps with the
+    kernels swapped for their plain versions: the first loss within 1e-5
+    relative, the next two within 1e-4 (phase 53's limits) -> launches
+    (rows 11 and 12 f32's read from the first runs, summed)."""
+    import mic_tpu_torch.ops.fused_ce as fused_ce_mod
+    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.ops import flash_ce as fce
+    from mic_tpu_torch.train.trainer import Trainer
+
+    def check_forward(name, args, kwargs, out, ref):
+        for got, want in zip(out[:2], ref[:2]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if kwargs.get("save"):
+            ulp = torch.maximum(_bf16_ulp(out[3].float()), _bf16_ulp(ref[3].float()))
+            require(bool(((out[3].float() - ref[3].float()).abs() <= ulp + 1e-5).all()),
+                    f"{name}: saved logits beyond a bf16 ulp of the plain version's")
+            top = ref[4].abs().max().item()
+            require((out[4] - ref[4]).abs().max().item() <= 1e-5 * top, f"{name}: tail")
+
+    def check_backward(name, args, kwargs, out, ref):
+        h, emb, bias, labels, lse, rs, ls = args[:7]
+        demb_scale, dh_scale = f32_bwd_scales(h, emb, bias, labels, lse, rs, ls)
+        require(bool(((out[1] - ref[1]).abs() <= 1e-4 * demb_scale).all()), f"{name}: demb")
+        require(bool(((out[0] - ref[0]).abs() <= 1e-4 * dh_scale).all()), f"{name}: dh")
+        top = ref[2].abs().max().item()
+        require((out[2] - ref[2]).abs().max().item() <= 1e-5 * top, f"{name}: dbias")
+
+    config = CaptionerConfig.clip_vit_b32_mbart50()
+    host = _train_batches(config, 3, TrainConfig().per_device_batch_size,
+                          DataConfig().max_seq_length, 68)
+    expect = {"split": {"flash_ce_forward": 3, "flash_ce_backward": 3},
+              "save": {"flash_ce_forward_save": 3, "flash_ce_backward_save": 3}}
+    backward = {"split": ("flash_ce_backward", fce.flash_ce_backward_dl_plain),
+                "save": ("flash_ce_backward_save", fce.flash_ce_backward_save_plain)}
+    launches = {}
+    for route, want in expect.items():
+        tc = TrainConfig(warmup_steps=2, flash_ce=route)
+        runs = {}
+        for label in ("kernels", "shadowed", "plain"):
+            t0 = time.perf_counter()
+            trainer = Trainer(config, DataConfig(), tc, device=dev)
+            trainer.build(steps_per_epoch=len(host))
+            state = trainer.init_state()
+            require(state.shadow is None, "float32: a shadow was made")
+            batches = [trainer.put_batch(b) for b in host]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bname, bplain = backward[route]
+            checks = [(fused_ce_mod, bname, bplain, check_backward)]
+            if route == "save":
+                checks.append((fused_ce_mod, "flash_ce_forward", fce.flash_ce_forward_plain,
+                               check_forward))
+            calls, old = _train_shadow(checks) if label == "shadowed" else ({}, [])
+            plain_fns = {"flash_ce_forward": fce.flash_ce_forward_plain, bname: bplain}
+            swaps = ([(fused_ce_mod, name, fn) for name, fn in plain_fns.items()]
+                     if label == "plain" else [])
+            _train_counts(reset=True)
+            losses, ms = [], []
+            try:
+                with plain_versions(*swaps):
+                    for batch in batches:
+                        t1 = time.perf_counter()
+                        state, metrics = trainer.train_step(state, batch)
+                        losses.append(metrics["loss"].item())
+                        ms.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                for module, name, fn in old:
+                    setattr(module, name, fn)
+            attention = _f32_attention_counts()
+            got = {k: v for k, v in _train_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"float32 flagship training, route {route!r}, {label}: losses {losses}, "
+                  f"launches {got}, {'' if not calls else f'held against plain {calls}, '}"
+                  f"peak allocated {peak:.2f} GiB, step times {[round(x, 1) for x in ms]} ms "
+                  f"(smoke figures), {time.perf_counter() - t0:.1f} s with init", flush=True)
+            require(all(np.isfinite(losses)), f"float32 {route} ({label}): a non-finite loss")
+            runs[label] = (losses, got, calls, attention)
+            del trainer, state, batches
+            torch.cuda.empty_cache()
+        (losses, got, _, attention), (shadow, shadow_got, calls, _), (plain, plain_got, _, _) = (
+            runs["kernels"], runs["shadowed"], runs["plain"])
+        require(got == want, f"float32 {route}: launches {got}, expected {want}")
+        require(shadow_got == want and all(c == 3 for c in calls.values()),
+                f"float32 {route}: the shadowed run launched {shadow_got}, checked {calls}")
+        require(shadow[0] == losses[0] and all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                                               zip(shadow[1:], losses[1:])),
+                f"float32 {route}: the shadowed run's losses differ from the first run's")
+        require(not plain_got, f"float32 {route}: the plain run launched {plain_got}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        print(f"float32 training, route {route!r}: kernels' losses against the plain versions', "
+              f"relative differences {[f'{r:.3g}' for r in rel]} (limits 1e-5, 1e-4, 1e-4)",
+              flush=True)
+        require(rel[0] <= 1e-5 and max(rel[1:]) <= 1e-4,
+                f"float32 {route}: the losses differ from the plain versions'")
+        for name, count in got.items():
+            launches[f"{name}_f32"] = count
+        for name, count in attention.items():
+            launches[name] = launches.get(name, 0) + count
     return launches
 
 
@@ -6624,6 +7204,9 @@ def main() -> None:
     tf_err = check_attention_kernels(dev)
     tf_ms = time_attention_kernels(dev)
     torch.cuda.empty_cache()
+    tf32_err, tf32_ms = check_f32_attention_kernels(dev)
+    tf_ms.update(tf32_ms)
+    torch.cuda.empty_cache()
     launches.update(run_pallas_path(dev, flag))
     torch.cuda.empty_cache()
     check_attention_small_against_cpu(dev)
@@ -6659,10 +7242,12 @@ def main() -> None:
     took("50")
     f32_err, f32_ms = check_f32_kernels(dev)
     torch.cuda.empty_cache()
-    launches.update(run_f32_generate(dev))
+    f32_runs = [run_f32_generate(dev)]  # the float32 main paths' launches
     torch.cuda.empty_cache()
-    launches.update(run_f32_training(dev))
+    f32_runs.append(run_f32_training(dev))
     torch.cuda.empty_cache()
+    for run in f32_runs:
+        launches.update(run)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as root:
         run_training_options(dev, root)
     torch.cuda.empty_cache()
@@ -6697,8 +7282,18 @@ def main() -> None:
     f32_step_err, f32_step_ms, f32_live = check_f32_step_kernels(dev)
     torch.cuda.empty_cache()
     f32_step_launches = run_f32_fused_paths(dev)
+    f32_runs.append(f32_step_launches)
     torch.cuda.empty_cache()
     took("64-65")
+    mlp32_err, mlp32_ms = check_f32_mlp(dev)
+    ce32_err, ce32_ms = check_f32_ce_routes(dev)
+    torch.cuda.empty_cache()
+    whole_step_launches = run_f32_fused_paths(dev, F32_WHOLE_STEP)
+    torch.cuda.empty_cache()
+    ce32_launches = run_f32_training_routes(dev)
+    f32_runs += [whole_step_launches, ce32_launches]
+    torch.cuda.empty_cache()
+    took("66-68")
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -6728,6 +7323,9 @@ def main() -> None:
         "int8_matmul": int8_matmul_bound(1024, 1024, 3072),
         **f32_bounds(n_beam, 1024, n_ce),
         **f32_step_bounds(f32_live),
+        "fused_mlp_f32": mlp_f32_bound(FLAG_B * FLAG_K, HEAD_D, 4 * HEAD_D),
+        **f32_ce_route_bounds(n_ce),
+        **attention_bounds_f32(dec_b, dec_t, dec_t, dec_h),
     }
     others = {"fused_head N=4": head_bound(4, HEAD_D, HEAD_V, 9, 2, "bf16"),
               "decode_attention N=4": attention_bound(4, 63, HEAD_D, 2),
@@ -6743,6 +7341,7 @@ def main() -> None:
               **{f"int8_matmul M={m} N={n}": int8_matmul_bound(m, 1024, n)
                  for m, n in ((4, 3072), (4, HEAD_V), (1024, HEAD_V))},
               "fused_mlp N=32": mlp_bound(32, HEAD_D, 4 * HEAD_D),
+              "fused_mlp_f32 N=32": mlp_f32_bound(32, HEAD_D, 4 * HEAD_D),
               "fused_head_bucket_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_bucket_f32"],
               "fused_head_select_f32 N=4": f32_bounds(n_beam, 4, n_ce)["fused_head_select_f32"],
               # phases 55 and 56: BART-large's head, the translator's self plane
@@ -6753,6 +7352,8 @@ def main() -> None:
     vis_b, vis_t, vis_h = ATTN_SHAPES["vision"]
     others.update({f"{name} vision": value for name, value in
                    attention_bounds(vis_b, vis_t, vis_t, vis_h).items()})
+    others.update({f"{name} vision": value for name, value in
+                   attention_bounds_f32(vis_b, vis_t, vis_t, vis_h).items()})
     long_b, long_t, long_h = FLASH_LONG
     others["flash_attention T=600"] = attention_bounds(long_b, long_t, long_t,
                                                        long_h)["flash_attention"]
@@ -6872,13 +7473,37 @@ def main() -> None:
     ]
     # the float32 instances of rows 2, 3, 13, 14 and 15 (phases 64-65): SDPA
     # in float32 computes rows 13's and 14's function; row 14's int8 form
-    # has no caller, so no path launches it
+    # has no caller (its count read over phase 65's paths)
     kernels += [
         dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
              max_abs_err=f32_step_err[name], ms=f32_step_ms[name][0],
              plain_ms=f32_step_ms[name][1], library_ms=f32_step_ms[name][2],
-             launches=f32_step_launches.get(name, 0))
+             launches=f32_step_launches[name])
         for name, (source, replaces) in F32_STEP_ROWS.items()
+    ]
+    # rows 16, 9 and 10 in float32 (phases 66-68); no one PyTorch call
+    # computes these functions (row 16's F.linear -> F.gelu -> F.linear
+    # chain is printed in phase 66 for scale, not as library_ms)
+    f32_last = {**ce32_launches, **whole_step_launches}
+    kernels += [
+        dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
+             max_abs_err=mlp32_err if name == "fused_mlp_f32" else ce32_err[name],
+             ms=(mlp32_ms[FLAG_B * FLAG_K] if name == "fused_mlp_f32" else ce32_ms[name])[0],
+             plain_ms=(mlp32_ms[FLAG_B * FLAG_K] if name == "fused_mlp_f32"
+                       else ce32_ms[name])[1],
+             launches=f32_last[name])
+        for name, (source, replaces) in F32_LAST_ROWS.items()
+    ]
+    # rows 11 and 12 in float32 (phase 35, at the decoder's shape), their
+    # launches read over the float32 main paths (phases 52, 53, 65, 67,
+    # 68), none of which sets small_attn or attn_impl="pallas"; SDPA in
+    # float32 computes their functions
+    kernels += [
+        dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
+             max_abs_err=tf32_err[name], ms=tf_ms[(key, "decoder")][0],
+             plain_ms=tf_ms[(key, "decoder")][1], library_ms=tf_ms[(key, "decoder")][2],
+             launches=sum(run[name] for run in f32_runs))
+        for name, (source, replaces, key) in F32_ATTENTION_ROWS.items()
     ]
     for k in kernels:
         k["route"] = "cuda"

@@ -63,11 +63,19 @@ _SIGNATURES = {
     # hidden, weight, bias, hsplit, part_m, part_s, part_z, lse_out,
     # zsum_out, n, d, vocab, runs, stream
     "mic_flash_ce_fwd_f32": [_P] * 9 + [_I] * 4 + [_P],
+    # the same, then logits_main, tail, n, d, vocab, v_main, runs, stream
+    "mic_flash_ce_fwd_save_f32": [_P] * 11 + [_I] * 5 + [_P],
     # hidden, weight, bias, labels, lse, rowscale, dl_out, band_part,
     # dbias_out, low, conf - low, n, d, vocab, runs, stream
     "mic_flash_ce_dl_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
     # the same with hsplit after bias
     "mic_flash_ce_dl_f32": [_P] * 10 + [_F] * 2 + [_I] * 4 + [_P],
+    # hidden (or NULL), weight, bias, hsplit, labels, lse, rowscale, dl,
+    # band_part, dbias, low, conf - low, n, d, vocab, ld, label_base, runs, stream
+    "mic_flash_ce_dl_chunk_f32": [_P] * 10 + [_F] * 2 + [_I] * 6 + [_P],
+    # src, saved, ld, b, lse, rowscale, labels, out, part, dbias, low,
+    # conf - low, n, d, vext, grad_w, accumulate, splits, stream
+    "mic_flash_ce_contract_f32": [_P, _I, _I] + [_P] * 7 + [_F] * 2 + [_I] * 6 + [_P],
     # hidden, weight, bias, logits, labels, lse, rowscale, demb_out,
     # dbias_out, low, conf - low, n, d, vext, saved, stream
     "mic_flash_ce_gw_bf16": [_P] * 9 + [_F] * 2 + [_I] * 4 + [_P],
@@ -113,6 +121,7 @@ _SIGNATURES = {
     "mic_ln_gemm_f32": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
     # x, w1, b1, w2, b2, h, part, out, n, d, f, act, splits1, splits2, stream
     "mic_fused_mlp_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "mic_fused_mlp_f32": [_P] * 8 + [_I] * 6 + [_P],
     # q, k, v, bias (or NULL), out, batch, t, heads, head_dim, stream
     "mic_small_attention_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
     "mic_small_attention_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],

@@ -1,10 +1,12 @@
-// The float32 flash-CE forward and dl kernels: rows 7 and 8 for a float32
-// model.
+// The float32 flash-CE forward, its saving form and the dl kernel: rows 7,
+// 9's forward and 8 for a float32 model.
 //
 // Replace mic_tpu/ops/flash_ce.py::flash_ce_forward (_ce_fwd_kernel via
-// _lse_main) and ::flash_ce_backward_dl (_ce_dl_kernel) where h is float32
+// _lse_main, and via _lse_main_save with save=True) and
+// ::flash_ce_backward_dl (_ce_dl_kernel) where h is float32
 // (CaptionerConfig.dtype "float32": mic_tpu casts the table to h.dtype and
-// runs the same kernels).  The bf16 walk of csrc/flash_ce.cu is wgmma on
+// runs the same kernels).  The dl walk also forms the split route's dl
+// (row 10 f32), a vocab chunk at a time (mic_flash_ce_split_f32 below).  The bf16 walk of csrc/flash_ce.cu is wgmma on
 // bf16 operands and cannot take float32; these compute the logits
 // s = hidden @ weight^T + bias to float32 accuracy on the tensor cores
 // (csrc/tf32x3_wgmma.cuh: TF32 wgmma, each operand split into hi + lo,
@@ -12,6 +14,11 @@
 // by FADDs) and never store them.  Per row over the whole vocab:
 //
 //   forward: lse = log sum exp(s), zsum = sum(s)  (online max + rescaled sum)
+//   save:    the forward's statistics, bit-equal, and s itself: the main
+//            span's columns (< v_main, a multiple of 128, so a tile is
+//            wholly main or wholly tail) rounded to bf16 (N, v_main), as
+//            mic_tpu's _lse_main_save saves them at float32 too, the rest
+//            as the f32 tail (N, V - v_main)
 //   dl:      dl = (exp(s - lse) - target) * rowscale as float32 (N, V), with
 //            target = low + (conf - low) * onehot(label), and the tile's
 //            column sums over the block's 128 rows as the row band's dbias
@@ -52,7 +59,9 @@
 //     float4 a row in shared memory), staged transposed into a 128 x 132 f32
 //     tile (conflict-free: 8 t + g covers the banks) that the producer
 //     warpgroup's three other warps ("storers") write out while the next
-//     tile's products run; the band's column sums are a table row's: over
+//     tile's products run (save stages the logits there the same way, the
+//     storers writing a main tile as bf16 in 16-byte pieces, a tail tile
+//     as dl's); the band's column sums are a table row's: over
 //     the thread's 32 columns, then its quad by two shuffles.  A dl row
 //     starts at row x V x 4 bytes, only 4-byte aligned for an odd V, which
 //     TMA cannot store; the storers shift each row by its start's offset
@@ -75,6 +84,7 @@
 // sharing the hidden boxes by TMA multicast, half their L2 reads, was no
 // faster.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -92,7 +102,7 @@ constexpr int kCols = 128;                        // vocab columns a tile: M, 64
 constexpr int kBox = kRows * 128;                 // a 128-row, 32-deep f32 box: 16384 bytes
 constexpr int kSlot = 3 * kBox;                   // table, hidden hi, hidden lo: 49152
 constexpr int kFwdStages = 4;
-constexpr int kDlStages = 3;                      // room for the staged tile
+constexpr int kDlStages = 3;                      // room for the staged tile (dl, save)
 constexpr int kConsumerWarps = 8;                 // two warpgroups
 constexpr int kConsumerThreads = kConsumerWarps * 32;
 constexpr int kThreads = kConsumerThreads + 128;  // and the producer's warpgroup
@@ -105,17 +115,24 @@ constexpr int kStorerWarps = 3;                   // the producer warpgroup's ot
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kFloor = -1e30f;  // a running max before its first column
 
-__host__ __device__ constexpr int ring_stages(bool dl) { return dl ? kDlStages : kFwdStages; }
+enum Mode { kWalkFwd = 0, kWalkDl = 1, kWalkSave = 2 };
 
-// Alignment slack, the ring, the staged tile and the rows' terms (dl), the
-// barriers (the ring's, and the staged tile's two).
-constexpr size_t smem_bytes(bool dl) {
-  return 1024 + static_cast<size_t>(ring_stages(dl)) * kSlot +
-         (dl ? kTileBytes + kTermBytes : 0) + (2 * ring_stages(dl) + 2) * sizeof(uint64_t);
+// dl and save stage a tile for the storer warps
+__host__ __device__ constexpr bool staged(int mode) { return mode != kWalkFwd; }
+__host__ __device__ constexpr int ring_stages(int mode) {
+  return staged(mode) ? kDlStages : kFwdStages;
 }
-static_assert(smem_bytes(false) <= 232448 && smem_bytes(true) <= 232448,
+
+// Alignment slack, the ring, the staged tile and the rows' terms (dl, save),
+// the barriers (the ring's, and the staged tile's two).
+constexpr size_t smem_bytes(int mode) {
+  return 1024 + static_cast<size_t>(ring_stages(mode)) * kSlot +
+         (staged(mode) ? kTileBytes + kTermBytes : 0) +
+         (2 * ring_stages(mode) + 2) * sizeof(uint64_t);
+}
+static_assert(smem_bytes(kWalkFwd) <= 232448 && smem_bytes(kWalkDl) <= 232448,
               "the walks must fit a block's shared memory");
-static_assert(3 * kConsumerWarps * kRows * 4 <= kFwdStages * kSlot,
+static_assert(3 * kConsumerWarps * kRows * 4 <= kDlStages * kSlot,
               "the warps' statistics merge through the ring");
 
 struct Args {
@@ -126,10 +143,15 @@ struct Args {
   float* part_m;          // forward: (runs, N) partials
   float* part_s;
   float* part_z;
-  float* dl;              // dl: (N, V)
+  float* dl;              // dl: (N, ld)
   float* band;            // dl: (row tiles, V) dbias partials
+  __nv_bfloat16* logits;  // save: (N, v_main)
+  float* tail;            // save: (N, V - v_main)
   float low, conf_low;
   int n, d, vocab;
+  int ld;                 // dl: the row pitch of dl, at least V
+  int label_base;         // dl: a label y is the walk's column y - label_base
+  int v_main;             // save: the main span's columns
 };
 
 // 2^x, one MUFU instruction; 2^-inf = 0.
@@ -255,19 +277,56 @@ __device__ __forceinline__ void dl_tile(const float (&acc)[64], const float (&b)
   }
 }
 
+// The tile's logits into the staged tile (save), as dl_tile places dl.
+__device__ __forceinline__ void save_tile(const float (&acc)[64], const float (&b)[2],
+                                          float* tile, int vl, int t) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * i + 2 * t + e;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) tile[c * kTilePitch + vl + 8 * h] = acc[4 * i + 2 * h + e] + b[h];
+    }
+  }
+}
+
+// A storer warp writes its rows r = sw, sw + 3, ... of the staged tile, a
+// main tile of the save walk, as bf16 into logits (row pitch v_main, a
+// multiple of 128: every row's 256 bytes start 16-byte aligned): half a
+// warp a row, eight values a lane.
+__device__ __forceinline__ void write_main_tile(const float* tile, __nv_bfloat16* out,
+                                                int v_main, int row0, int n, int col0, int sw,
+                                                int lane) {
+  const int rows = min(kRows, n - row0);
+  const int p = 8 * (lane & 15);
+  for (int r = 2 * sw + (lane >> 4); r < rows; r += 2 * kStorerWarps) {
+    const float* src = tile + r * kTilePitch + p;
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(src[2 * j], src[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&pair);
+    }
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * v_main + col0 + p) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // A storer warp writes its rows r = sw, sw + 3, ... of the staged tile into
-// dl (row pitch V): columns < V - col0 of rows < n - row0.  The row's first
-// value e0 = (row0 + r) V + col0 lies sh = e0 % 4 values past a 16-byte
+// out (row pitch ld >= vocab): columns < vocab - col0 of rows < n - row0.
+// The row's first value e0 = (row0 + r) ld + col0 lies sh = e0 % 4 values
+// past a 16-byte
 // boundary; lane j stores the aligned piece of positions [4 j, 4 j + 4)
 // (counted from e0 - sh) where it lies inside the row, lanes 0-3 the row's
 // values in the partial pieces at its ends; the vocab's last tile, if
 // partial, goes value by value.
-__device__ __forceinline__ void write_tile(const float* tile, float* out, int vocab, int row0,
-                                           int n, int col0, int sw, int lane) {
+__device__ __forceinline__ void write_tile(const float* tile, float* out, int vocab, int ld,
+                                           int row0, int n, int col0, int sw, int lane) {
   const int rows = min(kRows, n - row0);
   const int cols = min(kCols, vocab - col0);
   for (int r = sw; r < rows; r += kStorerWarps) {
-    const size_t e0 = static_cast<size_t>(row0 + r) * vocab + col0;
+    const size_t e0 = static_cast<size_t>(row0 + r) * ld + col0;
     const int sh = static_cast<int>(e0 & 3);
     const float* src = tile + r * kTilePitch - sh;  // src[p]: output position p
     float* dst = out + (e0 - sh);
@@ -287,19 +346,21 @@ __device__ __forceinline__ void write_tile(const float* tile, float* out, int vo
   }
 }
 
-template <bool kDl>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 ce_tf32_kernel(const __grid_constant__ CUtensorMap wmap,   // table (V, D), 128-row boxes
                const __grid_constant__ CUtensorMap himap,  // hidden hi (N, D), 128-row boxes
                const __grid_constant__ CUtensorMap lomap,  // hidden lo (N, D)
                const Args a) {
-  constexpr int kStages = ring_stages(kDl);
+  constexpr int kStages = ring_stages(kMode);
+  constexpr bool kDl = kMode == kWalkDl;
+  constexpr bool kStaged = staged(kMode);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align_1024(smem_raw);  // [slot][table, hi, lo][128 rows][128 B]
   unsigned char* rest = ring + kStages * kSlot;
-  float* tile_s = reinterpret_cast<float*>(rest);                   // dl: [128][kTilePitch]
+  float* tile_s = reinterpret_cast<float*>(rest);                   // dl, save: [128][kTilePitch]
   float4* terms = reinterpret_cast<float4*>(rest + kTileBytes);     // dl: [128]
-  if (kDl) rest += kTileBytes + kTermBytes;
+  if (kStaged) rest += kTileBytes + kTermBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(rest);
   uint64_t* empty = full + kStages;
   uint64_t* tile_full = empty + kStages;  // the staged tile written (consumer warps)
@@ -329,7 +390,7 @@ ce_tf32_kernel(const __grid_constant__ CUtensorMap wmap,   // table (V, D), 128-
     const bool live = row < a.n;
     terms[tid] = make_float4(live ? -a.lse[row] * kLog2e : -INFINITY,
                              live ? a.rowscale[row] : 0.f,
-                             __int_as_float(live ? a.labels[row] : -1), 0.f);
+                             __int_as_float(live ? a.labels[row] - a.label_base : -1), 0.f);
   }
   __syncthreads();
 
@@ -354,13 +415,21 @@ ce_tf32_kernel(const __grid_constant__ CUtensorMap wmap,   // table (V, D), 128-
           phase ^= 1;
         }
       }
-    } else if (kDl && warp > kConsumerWarps) {
+    } else if (kStaged && warp > kConsumerWarps) {
       // storers: the u-th tile of the run, once the consumers have staged
       // it, out to device memory while they walk the next tile
       const int sw = warp - kConsumerWarps - 1;
       for (int u = 0; t_begin + u < t_end; ++u) {
+        const int col0 = (t_begin + u) * kCols;
         mbar_wait(tile_full, u & 1);
-        write_tile(tile_s, a.dl, a.vocab, row0, a.n, (t_begin + u) * kCols, sw, lane);
+        if (kDl) {
+          write_tile(tile_s, a.dl, a.vocab, a.ld, row0, a.n, col0, sw, lane);
+        } else if (col0 < a.v_main) {
+          write_main_tile(tile_s, a.logits, a.v_main, row0, a.n, col0, sw, lane);
+        } else {
+          const int vt = a.vocab - a.v_main;
+          write_tile(tile_s, a.tail, vt, vt, row0, a.n, col0 - a.v_main, sw, lane);
+        }
         release(tile_empty, 0);
       }
     }
@@ -423,10 +492,18 @@ ce_tf32_kernel(const __grid_constant__ CUtensorMap wmap,   // table (V, D), 128-
         colsum[h] += __shfl_xor_sync(0xffffffffu, colsum[h], 2);
         if (t == 0 && ok[h]) a.band[static_cast<size_t>(blockIdx.x) * a.vocab + v[h]] = colsum[h];
       }
-    } else if (full_tile) {
-      fold_tile<true>(acc, b, ok, lane, rm, rs, rz);
     } else {
-      fold_tile<false>(acc, b, ok, lane, rm, rs, rz);
+      if constexpr (kStaged) {  // save: the logits out, then the same statistics
+        const int u = tile - t_begin;
+        if (u > 0) mbar_wait(tile_empty, (u - 1) & 1);
+        save_tile(acc, b, tile_s, vl, t);
+        release(tile_full, 0);
+      }
+      if (full_tile) {
+        fold_tile<true>(acc, b, ok, lane, rm, rs, rz);
+      } else {
+        fold_tile<false>(acc, b, ok, lane, rm, rs, rz);
+      }
     }
   }
 
@@ -459,31 +536,40 @@ ce_tf32_kernel(const __grid_constant__ CUtensorMap wmap,   // table (V, D), 128-
   }
 }
 
-// The hidden rows split into hi and lo (hsplit: (2, N, D) f32 scratch),
-// then one walk over (ceil(N / 128) row tiles) x (runs) blocks.
-template <bool kDl>
-int launch(const void* hidden, const void* weight, void* hsplit, const Args& a, int runs,
-           cudaStream_t stream) {
+// One walk over (ceil(N / 128) row tiles) x (runs) blocks, the hidden rows
+// already split into hi and lo (hsplit: (2, N, D) f32).
+template <int kMode>
+cudaError_t walk(const void* weight, const void* hsplit, const Args& a, int runs,
+                 cudaStream_t stream) {
   const int ntiles = (a.vocab + kCols - 1) / kCols;
   if (a.n < 1 || a.vocab < 1 || a.d < 4 || a.d % 4 || runs < 1 || runs > ntiles ||
       runs > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   }
-  cudaError_t err = tf32x3::split_rows(hidden, hsplit, a.n, a.d, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const float* lo = static_cast<const float*>(hsplit) + static_cast<size_t>(a.n) * a.d;
   CUtensorMap wmap, himap, lomap;
-  err = tf32x3::encode_rows(&wmap, weight, a.vocab, a.d, kCols);
+  cudaError_t err = tf32x3::encode_rows(&wmap, weight, a.vocab, a.d, kCols);
   if (err == cudaSuccess) err = tf32x3::encode_rows(&himap, hsplit, a.n, a.d, kRows);
   if (err == cudaSuccess) err = tf32x3::encode_rows(&lomap, lo, a.n, a.d, kRows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t smem = smem_bytes(kDl);
-  err = cudaFuncSetAttribute(ce_tf32_kernel<kDl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = smem_bytes(kMode);
+  err = cudaFuncSetAttribute(ce_tf32_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.n + kRows - 1) / kRows, runs);
-  ce_tf32_kernel<kDl><<<grid, kThreads, smem, stream>>>(wmap, himap, lomap, a);
-  return static_cast<int>(cudaGetLastError());
+  ce_tf32_kernel<kMode><<<grid, kThreads, smem, stream>>>(wmap, himap, lomap, a);
+  return cudaGetLastError();
+}
+
+// The hidden rows split into hi and lo (hsplit: (2, N, D) f32 scratch),
+// then one walk.
+template <int kMode>
+int launch(const void* hidden, const void* weight, void* hsplit, const Args& a, int runs,
+           cudaStream_t stream) {
+  if (a.n < 1 || a.d < 4 || a.d % 4) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = tf32x3::split_rows(hidden, hsplit, a.n, a.d, stream);
+  if (err == cudaSuccess) err = walk<kMode>(weight, hsplit, a, runs, stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -503,7 +589,34 @@ extern "C" int mic_flash_ce_fwd_f32(void* hidden, void* weight, void* bias, void
   a.d = d;
   a.vocab = vocab;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int bad = launch<false>(hidden, weight, hsplit, a, runs, s)) return bad;
+  if (int bad = launch<kWalkFwd>(hidden, weight, hsplit, a, runs, s)) return bad;
+  flash_ce_fwd_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+      a.part_m, a.part_s, a.part_z, static_cast<float*>(lse), static_cast<float*>(zsum), n, runs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward with save: the same statistics, logits_main (N, v_main) bf16
+// and tail (N, V - v_main) float32; v_main a multiple of 128, at most V.
+extern "C" int mic_flash_ce_fwd_save_f32(void* hidden, void* weight, void* bias, void* hsplit,
+                                         void* part_m, void* part_s, void* part_z, void* lse,
+                                         void* zsum, void* logits_main, void* tail, int n, int d,
+                                         int vocab, int v_main, int runs, void* stream) {
+  if (v_main < 0 || v_main > vocab || v_main % kCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{};
+  a.bias = static_cast<const float*>(bias);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_z = static_cast<float*>(part_z);
+  a.logits = static_cast<__nv_bfloat16*>(logits_main);
+  a.tail = static_cast<float*>(tail);
+  a.n = n;
+  a.d = d;
+  a.vocab = vocab;
+  a.v_main = v_main;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int bad = launch<kWalkSave>(hidden, weight, hsplit, a, runs, s)) return bad;
   flash_ce_fwd_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(
       a.part_m, a.part_s, a.part_z, static_cast<float*>(lse), static_cast<float*>(zsum), n, runs);
   return static_cast<int>(cudaGetLastError());
@@ -527,8 +640,48 @@ extern "C" int mic_flash_ce_dl_f32(void* hidden, void* weight, void* bias, void*
   a.n = n;
   a.d = d;
   a.vocab = vocab;
+  a.ld = vocab;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int bad = launch<true>(hidden, weight, hsplit, a, runs, s)) return bad;
+  if (int bad = launch<kWalkDl>(hidden, weight, hsplit, a, runs, s)) return bad;
+  const int bands = (n + kRows - 1) / kRows;
+  flash_ce_band_sum_kernel<<<(vocab + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(band_part), static_cast<float*>(dbias), bands, vocab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split route's dl, a vocab chunk at a time (row 10 f32): the dl walk
+// over the table rows and biases of the chunk (weight and bias point at
+// its first), dl into (N, ld) f32 with ld >= vocab (the chunk's columns) a
+// multiple of 4, a label y counted as the chunk's column y - label_base,
+// then the chunk's dbias (vocab,) from band_part ((ceil(N / 128), vocab)
+// f32 scratch).  hsplit (2, N, D) holds the hidden rows' hi and lo; where
+// hidden is not null they are split into it first.
+extern "C" int mic_flash_ce_dl_chunk_f32(void* hidden, void* weight, void* bias, void* hsplit,
+                                         void* labels, void* lse, void* rowscale, void* dl,
+                                         void* band_part, void* dbias, float low, float conf_low,
+                                         int n, int d, int vocab, int ld, int label_base,
+                                         int runs, void* stream) {
+  if (ld < vocab || ld % 4 || n < 1 || d < 4 || d % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{};
+  a.bias = static_cast<const float*>(bias);
+  a.lse = static_cast<const float*>(lse);
+  a.rowscale = static_cast<const float*>(rowscale);
+  a.labels = static_cast<const int32_t*>(labels);
+  a.dl = static_cast<float*>(dl);
+  a.band = static_cast<float*>(band_part);
+  a.low = low;
+  a.conf_low = conf_low;
+  a.n = n;
+  a.d = d;
+  a.vocab = vocab;
+  a.ld = ld;
+  a.label_base = label_base;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = hidden ? tf32x3::split_rows(hidden, hsplit, n, d, s) : cudaSuccess;
+  if (err == cudaSuccess) err = walk<kWalkDl>(weight, hsplit, a, runs, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int bands = (n + kRows - 1) / kRows;
   flash_ce_band_sum_kernel<<<(vocab + 255) / 256, 256, 0, s>>>(
       static_cast<const float*>(band_part), static_cast<float*>(dbias), bands, vocab);

@@ -30,13 +30,14 @@ else ``emb`` cast once, contiguous (a transposed view is copied).  Each takes it
 plain version for tensors on the CPU.  On a CUDA device it launches the
 kernels of csrc/flash_ce.cu, which never store f32 logits of the main
 vocab span, or raises: they take bfloat16 with D a multiple of 64, at most
-``_BWD_MAX_D`` for the split route's contractions.  A float32 ``h``
-(``CaptionerConfig.dtype`` "float32") runs the forward and dl kernels of
-csrc/flash_ce_f32.cu (the same walk on 3xTF32 ``wgmma``, float32-accurate
-logits; D a multiple of 4; dl in float32, its dh and demb products in full
-float32), so the "dl" and "fwd" routes train a float32 model; the save
-forward and the split and save contractions raise NotImplementedError on it
-(ROADMAP B36).
+``_BWD_MAX_D`` for the split route's contractions (ROADMAP B36b).  A
+float32 ``h`` (``CaptionerConfig.dtype`` "float32") takes D a multiple of 4
+on every route: the forward, its saving form and dl run csrc/flash_ce_f32.cu
+(the same walk on 3xTF32 ``wgmma``, float32-accurate logits; dl in float32,
+its dh and demb products in full float32); the save and split routes'
+contractions run csrc/flash_ce_bwd_f32.cu (3xTF32 ``mma.sync``), the save
+route's from the saved bf16 logits, the split route's from the dl walk's
+output a vocab chunk at a time (``_split_chunk`` columns, never the N x V).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from mic_tpu_torch import _build
+from mic_tpu_torch.ops.ln_gemm import ln_splits_f32
 
 _ROW_TILE = 128   # hidden rows a block of csrc/flash_ce.cu's walk (walk::kRows)
 _VOCAB_TILE = 256  # vocab columns a tile of the walk (walk::kCols)
@@ -53,6 +55,7 @@ _CHUNK = 256       # D columns a consumer warpgroup owns (contract::kChunk)
 _SAVE_ROWS = 128   # output rows a save block owns (contract::kSaveRows)
 _PLAIN_ROWS = 1024  # rows per f32 logits chunk of the plain versions
 _F32_TILE = 128   # vocab columns a tile of the float32 walk (kCols; 128 rows a block, too)
+_SPLIT_DL_BYTES = 1 << 27  # the float32 split route's dl chunk: at most 128 MiB of f32
 
 
 def _table(h, emb, emb_cast):
@@ -115,23 +118,18 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_kernel_args(name, h, w, bias, f32=True):
-    """The kernels' arguments: bfloat16 with D a multiple of 64, or (where
-    ``f32``, rows 7 and 8) float32 with D a multiple of 4.  The save and
-    split routes' float32 kernels are not written: float32 raises there."""
+def _check_kernel_args(name, h, w, bias):
+    """The kernels' arguments: bfloat16 with D a multiple of 64 (ROADMAP
+    B36b), or float32 with D a multiple of 4."""
     n, d = h.shape
     v = w.shape[0]
-    if h.dtype == torch.float32 and not f32:
-        raise NotImplementedError(
-            f"{name}: no float32 kernel yet (ROADMAP B36); train a float32 model on the "
-            "'dl' or 'fwd' flash-CE route"
-        )
     if h.dtype not in (torch.bfloat16, torch.float32) or w.dtype != h.dtype:
         raise TypeError(f"{name} kernel: hidden and table must be both bfloat16 or both float32")
     step = 4 if h.dtype == torch.float32 else 64
     if w.shape != (v, d) or bias.shape != (v,) or d % step:
+        gate = " (bfloat16: ROADMAP B36b)" if step == 64 else ""
         raise ValueError(f"{name} kernel: hidden {tuple(h.shape)}, table {tuple(w.shape)}, "
-                         f"bias {tuple(bias.shape)}; D must be a multiple of {step}")
+                         f"bias {tuple(bias.shape)}; D must be a multiple of {step}{gate}")
 
 
 def _f32_split(h):
@@ -157,7 +155,7 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     if h.device.type != "cuda":
         raise ValueError(f"flash_ce_forward: unsupported device {h.device}")
     w = _table(h, emb, emb_cast)
-    _check_kernel_args("flash_ce_forward", h, w, bias, f32=not save)
+    _check_kernel_args("flash_ce_forward", h, w, bias)
     n, d = h.shape
     v = w.shape[0]
     bias_f = bias.float().contiguous()
@@ -181,9 +179,10 @@ def flash_ce_forward(h, emb, bias, labels, emb_cast=None, save=False):
     v_main = main_columns(v)
     logits_main = torch.empty((n, v_main), dtype=torch.bfloat16, device=h.device)
     tail = torch.empty((n, v - v_main), dtype=torch.float32, device=h.device)
-    err = _build.lib().mic_flash_ce_fwd_save_bf16(
+    entry = "mic_flash_ce_fwd_save_f32" if f32 else "mic_flash_ce_fwd_save_bf16"
+    err = getattr(_build.lib(), entry)(
         *args, logits_main.data_ptr(), tail.data_ptr(), n, d, v, v_main, runs, stream)
-    _build.check(err, "mic_flash_ce_fwd_save_bf16")
+    _build.check(err, entry)
     flash_ce_forward.save_launches += 1
     return lse, _label_logit(h, w, bias_f, labels), zsum, logits_main, tail
 
@@ -305,12 +304,14 @@ flash_ce_backward_dl.launches = 0
 
 
 def _check_backward_args(name, h, w, bias, split=True):
-    """The contractions' arguments: bfloat16 only; the split contractions
-    keep 64 rows over the whole D in shared memory, so they also need
-    D <= _BWD_MAX_D."""
-    _check_kernel_args(name, h, w, bias, f32=False)
-    if split and h.shape[1] > _BWD_MAX_D:
-        raise ValueError(f"{name} kernel: D={h.shape[1]} exceeds {_BWD_MAX_D}")
+    """The contractions' arguments, as ``_check_kernel_args``; the bfloat16
+    split contractions keep 64 rows over the whole D in shared memory, so
+    they also need D <= _BWD_MAX_D (ROADMAP B36b).  The float32 ones stream
+    D and take any multiple of 4."""
+    _check_kernel_args(name, h, w, bias)
+    if split and h.dtype == torch.bfloat16 and h.shape[1] > _BWD_MAX_D:
+        raise ValueError(f"{name} kernel: D={h.shape[1]} exceeds {_BWD_MAX_D} (bfloat16: "
+                         "ROADMAP B36b)")
 
 
 def _contraction_grid(part, saved, n, vext, d, sms):
@@ -346,9 +347,14 @@ def _contract(part, h, w, bias_f, labels32, lse32, rs32, label_smoothing, logits
     n, d = h.shape
     saved = logits is not None
     vext = logits.shape[1] if saved else w.shape[0]
-    entry = _CONTRACTIONS[part]
+    f32 = h.dtype == torch.float32
+    entry = "mic_flash_ce_contract_f32" if f32 else _CONTRACTIONS[part]
     _check_pointers(entry, h.device, h, w, bias_f, labels32, lse32, rs32, out,
                     *(x for x in (logits, dbias) if x is not None))
+    if f32:  # the save route's main span (the split route's run in _split_f32)
+        _contract_f32(part, logits, vext, h if part == "grad_w" else w, lse32, rs32, labels32,
+                      out, dbias, label_smoothing, w.shape[0], n)
+        return
     low, conf_low = _targets(label_smoothing, w.shape[0])
     operands = (h.data_ptr(), w.data_ptr(), bias_f.data_ptr(), logits.data_ptr() if saved else 0,
                 labels32.data_ptr(), lse32.data_ptr(), rs32.data_ptr(), out.data_ptr())
@@ -364,6 +370,72 @@ def _contract(part, h, w, bias_f, labels32, lse32, rs32, label_smoothing, logits
             *operands, scratch.data_ptr() if parts > 1 else 0, low, conf_low, n, d, vext,
             int(saved), parts, stream)
     _build.check(err, entry)
+
+
+def _contract_f32(part, src, vext, b, lse32, rs32, labels32, out, dbias, label_smoothing, vocab,
+                  n, accumulate=False):
+    """One float32 contraction of csrc/flash_ce_bwd_f32.cu over a span of
+    ``vext`` vocab columns of ``src``: the saved (N, >= vext) bf16 logits,
+    or an (N, >= vext) f32 dl chunk (then lse, rowscale and labels are not
+    read).  "grad_w": demb (vext, D) into ``out`` from b = h, and dbias
+    (vext,) where given; "grad_h": dh (N, D) into ``out`` (added to it where
+    ``accumulate``) from b = the table's rows of the span, its depth cut by
+    ln_splits_f32 where its 128 x 96 tiles leave SMs idle."""
+    d = b.shape[1]
+    grad_w = part == "grad_w"
+    splits = 1 if grad_w else ln_splits_f32(n, vext, d, _sms(b.device))
+    scratch = (torch.empty((splits, n, d), dtype=torch.float32, device=b.device)
+               if splits > 1 else None)
+    saved = src.dtype == torch.bfloat16
+    low, conf_low = _targets(label_smoothing, vocab)
+    err = _build.lib().mic_flash_ce_contract_f32(
+        src.data_ptr(), int(saved), src.stride(0), b.data_ptr(), lse32.data_ptr(),
+        rs32.data_ptr(), labels32.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else 0,
+        dbias.data_ptr() if dbias is not None else 0, low, conf_low, n, d, vext, int(grad_w),
+        int(accumulate), splits, torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check(err, "mic_flash_ce_contract_f32")
+
+
+def _split_chunk(n: int, v: int) -> int:
+    """The float32 split route's vocab chunk: as many columns (a multiple
+    of 128) as an (N, chunk) f32 dl of _SPLIT_DL_BYTES holds, at least 128,
+    at most V rounded up to 128.  8192 at the flagship step's N = 4096."""
+    cols = max(_F32_TILE, _SPLIT_DL_BYTES // (4 * n) // _F32_TILE * _F32_TILE)
+    return min(cols, -(-v // _F32_TILE) * _F32_TILE)
+
+
+def _split_f32(h, w, bias_f, labels32, lse32, rs32, label_smoothing, chunk=None):
+    """The float32 split route on the card: -> (dh, demb, dbias) f32.  A
+    vocab chunk at a time, the dl walk of csrc/flash_ce_f32.cu recomputes
+    the chunk's logits on the 3xTF32 tile and writes its f32 dl and dbias,
+    then grad-W writes its demb rows and grad-h adds its part of dh."""
+    n, d = h.shape
+    v = w.shape[0]
+    chunk = chunk or _split_chunk(n, v)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dh, demb, dbias = torch.empty((n, d), **f32), torch.empty((v, d), **f32), torch.empty(v, **f32)
+    _check_pointers("flash_ce_backward", h.device, h, w, bias_f, labels32, lse32, rs32, dh, demb,
+                    dbias)
+    dl = torch.empty((n, chunk), **f32)
+    bands = torch.empty((-(-n // _ROW_TILE), chunk), **f32)
+    hsplit = _f32_split(h)
+    low, conf_low = _targets(label_smoothing, v)
+    sms, stream = _sms(h.device), torch.cuda.current_stream(h.device).cuda_stream
+    lib = _build.lib()
+    for c0 in range(0, v, chunk):
+        vc = min(chunk, v - c0)
+        err = lib.mic_flash_ce_dl_chunk_f32(
+            h.data_ptr() if c0 == 0 else 0, w[c0].data_ptr(), bias_f[c0:].data_ptr(),
+            hsplit.data_ptr(), labels32.data_ptr(), lse32.data_ptr(), rs32.data_ptr(),
+            dl.data_ptr(), bands.data_ptr(), dbias[c0:].data_ptr(), low, conf_low, n, d, vc,
+            chunk, c0, _runs(n, vc, sms, _F32_TILE), stream)
+        _build.check(err, "mic_flash_ce_dl_chunk_f32")
+        _contract_f32("grad_w", dl, vc, h, lse32, rs32, labels32, demb[c0:c0 + vc], None,
+                      label_smoothing, v, n)
+        _contract_f32("grad_h", dl, vc, w[c0:c0 + vc], lse32, rs32, labels32, dh, None,
+                      label_smoothing, v, n, accumulate=c0 > 0)
+    return dh, demb, dbias
 
 
 def _backward_operands(name, h, emb, bias, labels, lse, rowscale, emb_cast, logits_main=None):
@@ -390,6 +462,9 @@ def flash_ce_contraction(part, h, emb, bias, labels, lse, rowscale, label_smooth
     tests; it counts no launch (the route functions below count theirs)."""
     ops = _backward_operands(f"flash_ce_contraction {part}", h, emb, bias, labels, lse,
                              rowscale, emb_cast, logits_main)
+    if h.dtype == torch.float32 and logits_main is None:
+        raise ValueError("flash_ce_contraction: the float32 split route's contractions read "
+                         "the dl walk's chunks and do not run alone")
     if logits_main is not None:
         logits_main = logits_main.contiguous()
     vext = ops[0].shape[0] if logits_main is None else logits_main.shape[1]
@@ -415,6 +490,10 @@ def flash_ce_backward(h, emb, bias, labels, lse, rowscale, label_smoothing, emb_
         return flash_ce_backward_dl_plain(h, emb, bias, labels, lse, rowscale, label_smoothing,
                                           emb_cast)
     ops = _backward_operands("flash_ce_backward", h, emb, bias, labels, lse, rowscale, emb_cast)
+    if h.dtype == torch.float32:
+        dh, demb, dbias = _split_f32(h, *ops[:5], label_smoothing)
+        flash_ce_backward.launches += 1
+        return dh, demb, dbias
     n, d = h.shape
     v = ops[0].shape[0]
     f32 = dict(dtype=torch.float32, device=h.device)

@@ -14,7 +14,12 @@ mic_tpu's kernel runs them.
 (csrc/fused_mlp.cu, every activation) for tensors on a CUDA device; it
 never falls back from one to the other.  The kernel runs both products on
 a 128-row x 256-column wgmma tile; ``mlp_splits`` cuts a product's depth
-into splits where its output tiles alone leave SMs idle.
+into splits where its output tiles alone leave SMs idle.  A float32 model's
+operands (every one float32) take csrc/fused_mlp_f32.cu: both products on
+row 15 f32's 128 x 96 tile of float32-accurate tensor-core products (three
+TF32 products a term, mma.sync), fc1's bias and activation in f32 on its
+accumulators, cut in depth by ``ln_gemm.ln_splits_f32``; nothing is
+rounded to bfloat16 there.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from mic_tpu_torch import _build
 from mic_tpu_torch.nn.layers import ACTIVATIONS
+from mic_tpu_torch.ops.ln_gemm import ln_splits_f32
 
 # the kernel's activation ids (csrc/fused_mlp.cu, enum Act)
 _ACTIVATION_IDS = {"gelu": 0, "gelu_tanh": 1, "quick_gelu": 2, "relu": 3, "silu": 4}
@@ -74,13 +80,8 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu", out=None) -> torch.Te
     n, d = x.shape
     f = w1.shape[1]
     tensors = (x, w1, b1, w2, b2)
-    if x.dtype == torch.float32:
-        raise NotImplementedError(
-            "fused_mlp: no float32 kernel yet (ROADMAP B43); serve a float32 model without "
-            "MIC_TPU_EXPERIMENTAL=fused_mlp"
-        )
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError("fused_mlp kernel: every operand must be bfloat16")
+    if x.dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError("fused_mlp kernel: every operand must be bfloat16, or every one float32")
     if w1.shape != (d, f) or b1.shape != (f,) or w2.shape != (f, d) or b2.shape != (d,):
         raise ValueError("fused_mlp kernel: inconsistent shapes")
     if d < 64 or f < 64 or d % 64 or f % 64 or n < 1:
@@ -88,21 +89,26 @@ def fused_mlp(x, w1, b1, w2, b2, activation: str = "gelu", out=None) -> torch.Te
     if out is None:
         out = torch.empty_like(x)
     elif out.shape != x.shape or out.dtype != x.dtype:
-        raise ValueError(f"fused_mlp kernel: out must be {tuple(x.shape)} bfloat16")
+        raise ValueError(f"fused_mlp kernel: out must be {tuple(x.shape)} {x.dtype}")
     _build.check_operands("fused_mlp", (*tensors, out))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits1, splits2 = mlp_splits(n, f, d, sms), mlp_splits(n, d, f, sms)
+    f32 = x.dtype == torch.float32
+    if f32:  # (rows, depth, cols)
+        splits1, splits2 = ln_splits_f32(n, d, f, sms), ln_splits_f32(n, f, d, sms)
+    else:    # (rows, cols, depth)
+        splits1, splits2 = mlp_splits(n, f, d, sms), mlp_splits(n, d, f, sms)
     h = torch.empty((n, f), dtype=x.dtype, device=x.device)
     scratch = max(splits1 * f if splits1 > 1 else 0, splits2 * d if splits2 > 1 else 0) * n
     part = torch.empty((scratch,), dtype=torch.float32, device=x.device) if scratch else None
-    err = _build.lib().mic_fused_mlp_bf16(
+    entry = "mic_fused_mlp_f32" if f32 else "mic_fused_mlp_bf16"
+    err = getattr(_build.lib(), entry)(
         *(t.data_ptr() for t in tensors), h.data_ptr(), part.data_ptr() if scratch else 0,
         out.data_ptr(), n, d, f, _ACTIVATION_IDS[activation], splits1, splits2,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(err, "mic_fused_mlp_bf16")
+    _build.check(err, entry)
     fused_mlp.launches += 1
     return out
 
 
-fused_mlp.launches = 0
+fused_mlp.launches = 0  # both dtypes' launches

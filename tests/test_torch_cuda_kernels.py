@@ -58,8 +58,11 @@ written int8 column and scales bit-equal; rows 3, 13 and 14 (and their
 int8 forms under float32 q) within 2e-2, their float32 outputs holding
 bfloat16 values, bit-equal to plain on exact sums; row 15 within (D 2**-24
 + 2**-20) of sum |xn| |w| + |bias| (3xTF32 products, statistics summed in
-another order); and the refusals still standing (row 16 in float32,
-ROADMAP B43; row 3 past 8 beams, B41) raise before any launch.
+another order); row 16 within ``_mlp_f32_limit``, a tolerance fitted between
+sound and faulty kernels; rows 9 and 10 in float32 (the save forward's
+statistics bit-equal, its logits within a bf16 ulp; the contractions'
+demb and dh within 1e-4 of what dl's own error moves them by); and the
+refusal still standing (row 3 past 8 beams, B41) raises before any launch.
 """
 
 import pytest
@@ -112,7 +115,8 @@ from mic_tpu_torch.ops.decode_attention import (
 from mic_tpu_torch.ops import flash_attention as flash
 from mic_tpu_torch.ops import flash_ce as fce
 from mic_tpu_torch.ops import small_attention as small
-from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from mic_tpu_torch.nn.layers import ACTIVATIONS
+from mic_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain, gelu_erf
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from mic_tpu_torch.ops.lazy_attention import (
     blocked_layout,
@@ -1981,7 +1985,10 @@ def test_flash_ce_f32_kernels_match_plain(cuda, n, v, d, smoothing):
     |logits|; dl within 1e-4 of |dl| + 2 target rowscale (one relative
     error of p from the logits' f32 summation order), rowscale-0 rows zero,
     dbias within 1e-5 of its largest entry; reruns bit-equal.  The save
-    forward refuses float32 (ROADMAP B36)."""
+    forward (row 9's, float32): its statistics bit-equal to the non-saving
+    call's, its bf16 main span within one bf16 ulp of the plain version's
+    f32 logits plus 1e-5, its f32 tail within 1e-5 relative of the row's
+    |logits| scale, a rerun bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(n + v + d)
     h = torch.randn((n, d), generator=g, device=cuda)
     w = torch.randn((v, d), generator=g, device=cuda) * 0.05
@@ -2012,8 +2019,22 @@ def test_flash_ce_f32_kernels_match_plain(cuda, n, v, d, smoothing):
         limit = 1e-4 * (rdl[i:i + 256].abs() + 2 * target * rs[i:i + 256, None])
         assert bool(((dl[i:i + 256] - rdl[i:i + 256]).abs() <= limit).all())
     torch.testing.assert_close(dbias, rdbias, rtol=0, atol=1e-5 * rdbias.abs().max().item())
-    with pytest.raises(NotImplementedError, match="B36"):
-        flash_ce_forward(h, w, b, y, save=True)
+    saves = flash_ce_forward.save_launches
+    got = flash_ce_forward(h, w, b, y, save=True)
+    again = flash_ce_forward(h, w, b, y, save=True)
+    torch.cuda.synchronize()
+    assert flash_ce_forward.save_launches == saves + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in zip(got[:3], out))
+    v_main = main_columns(v)
+    assert got[3].dtype == torch.bfloat16 and got[3].shape == (n, v_main)
+    assert got[4].dtype == torch.float32 and got[4].shape == (n, v - v_main)
+    for i in range(0, n, 512):
+        exact = h[i:i + 512] @ w.T + b
+        main = exact[:, :v_main]
+        assert bool(((got[3][i:i + 512].float() - main).abs() <= _bf16_ulp(main) + 1e-5).all())
+        scale = (h[i:i + 512].abs() @ w[v_main:].abs().T + b[v_main:].abs())
+        assert bool(((got[4][i:i + 512] - exact[:, v_main:]).abs() <= 1e-5 * scale).all())
 
 
 @pytest.mark.requires_cuda
@@ -2296,17 +2317,151 @@ def test_ln_gemm_f32_kernel_matches_plain(cuda, n, d, o):
     assert bool(((out - ref).abs() <= (d * 2.0**-24 + 2.0**-20) * l1).all())
 
 
+# Row 16 f32's tolerance, a share of each output's sum |act(x w1 + b1)|
+# |w2| + |b2| (chip_smoke.py::MLP_F32_TOL): fitted between what sound f32
+# sums of the two products in two orders differ by and what the nearest
+# faulty kernels (the tanh gelu for the erf one, TF32 products alone, a
+# bf16 intermediate, b2 dropped) differ by; smoke phase 66 prints both
+MLP_F32_TOL = 2.0**-18
+
+
+def _mlp_f32_limit(x, w1, b1, w2, b2, act):
+    """MLP_F32_TOL of sum |act(x w1 + b1)| |w2| + |b2|, entry by entry."""
+    fn = gelu_erf if act == "gelu" else ACTIVATIONS[act]
+    return MLP_F32_TOL * (fn(x @ w1 + b1).abs() @ w2.abs() + b2.abs())
+
+
 @pytest.mark.requires_cuda
-def test_fused_mlp_refuses_float32_naming_b43(cuda):
-    """Row 16 has no float32 kernel yet: a float32 MLP raises a
-    NotImplementedError that names ROADMAP B43, before any launch."""
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "quick_gelu", "relu", "silu"])
+@pytest.mark.parametrize("d,f", [(256, 1024), (1024, 4096)])
+@pytest.mark.parametrize("n", [8, 32, 256, 1024])
+def test_fused_mlp_f32_kernel_matches_plain(cuda, n, d, f, act):
+    """Row 16 on a float32 model (TF32 off on both sides), every activation
+    of its kernel: every output within ``_mlp_f32_limit`` of the plain
+    version's (3xTF32 products against cuBLAS's f32 ones, summed in other
+    orders; the gelu's erf by expf against torch.exp), a rerun bit-equal,
+    the output a view of the first N rows of a larger buffer whose rows past
+    N keep their sentinel (fc1 and fc2 split at N = 8 and 32, unsplit at
+    1024), two launches counted."""
+    g = torch.Generator(device=cuda).manual_seed(1600 + n + d)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    w1, b1, w2, b2 = (t.float() for t in _mlp_weights(cuda, g, d, f))
+    buf = torch.full((n + 128, d), 7.0, device=cuda)
+    launches = fused_mlp.launches
+    out = fused_mlp(x, w1, b1, w2, b2, act, out=buf[:n])
+    again = fused_mlp(x, w1, b1, w2, b2, act)
+    ref = fused_mlp_plain(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == launches + 2 and out.dtype == torch.float32
+    assert out.data_ptr() == buf.data_ptr() and bool((buf[n:] == 7.0).all())
+    assert torch.equal(out, again)
+    assert bool(((out - ref).abs() <= _mlp_f32_limit(x, w1, b1, w2, b2, act)).all())
+
+
+@pytest.mark.requires_cuda
+def test_fused_mlp_refuses_mixed_dtypes(cuda):
+    """Every operand bfloat16, or every one float32: a float32 x with bf16
+    weights raises a TypeError before any launch."""
     g = torch.Generator(device=cuda).manual_seed(16)
     x = torch.randn((8, 256), generator=g, device=cuda)
-    w1, b1, w2, b2 = (t.float() for t in _mlp_weights(cuda, g, 256, 1024))
+    w1, b1, w2, b2 = _mlp_weights(cuda, g, 256, 1024)
     launches = fused_mlp.launches
-    with pytest.raises(NotImplementedError, match="B43"):
+    with pytest.raises(TypeError):
         fused_mlp(x, w1, b1, w2, b2)
     assert fused_mlp.launches == launches
+
+
+def _f32_ce_inputs(cuda, n, v, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn((n, d), generator=g, device=cuda)
+    w = torch.randn((v, d), generator=g, device=cuda) * 0.05
+    b = torch.randn((v,), generator=g, device=cuda) * 0.1
+    y = torch.randint(0, v, (n,), generator=g, device=cuda, dtype=torch.int32)
+    y[:min(n, 3)] = v - 1 - torch.arange(min(n, 3), device=cuda, dtype=torch.int32)
+    rs = torch.rand((n,), generator=g, device=cuda) / n
+    rs[::5] = 0.0
+    return h, w, b, y, rs
+
+
+def _f32_bwd_scales(h, w, b, y, lse, rs, smoothing):
+    """(|dl| + 2 target rowscale)^T |h| and (|dl| + 2 target rowscale) |W|:
+    what an error of 1e-4 of each dl entry's own size (row 8 f32's dl
+    tolerance) moves each demb and dh entry by; dl the plain f32 one."""
+    low, conf_low = fce._targets(smoothing, w.shape[0])
+    demb = torch.zeros(w.shape, device=h.device)
+    dh = torch.empty(h.shape, device=h.device)
+    for i in range(0, h.shape[0], 512):
+        rows = slice(i, i + 512)
+        p = torch.exp(h[rows] @ w.T + b - lse[rows, None])
+        dl = fce.dlogits(p, y[rows], rs[rows], smoothing).abs()
+        target = torch.full_like(dl, low)
+        target.scatter_(1, y[rows, None].long(), low + conf_low)
+        dl += 2 * target * rs[rows, None]
+        demb += dl.T @ h[rows].abs()
+        dh[rows] = dl @ w.abs()
+    return demb, dh
+
+
+# (N, V, D) of the float32 backward contractions: one row and a row past
+# the 128-row tiles; V ragged (v_main 512 of 997, 4096 of 4099); D = 100 (a
+# multiple of 4, not of 64 or of the 96-column tile), 1088 (past the bf16
+# split route's 1024), and the flagship step
+_F32_BWD_SHAPES = [(1, 997, 128), (129, 4099, 100), (70, 997, 1088), (1, 4099, 64),
+                   (129, 250054, 1024), (4096, 250054, 1024)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v,d", _F32_BWD_SHAPES)
+@pytest.mark.parametrize("route", ["split", "save"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_flash_ce_f32_backward_kernels_match_plain(cuda, smoothing, route, n, v, d):
+    """Rows 10 f32 (the split route: the dl walk a vocab chunk at a time,
+    then both contractions) and 9 f32 (the save route's contractions from
+    the plain version's saved logits, the f32 tail plain) against their
+    plain versions on the same inputs, TF32 off: demb and dh entry by entry
+    within 1e-4 of ``_f32_bwd_scales`` (dl formed in f32 on both sides, its
+    exp and the logits' sums in other orders), dbias within 1e-5 of its
+    largest entry; dh float32; a rerun bit-equal; one launch counted a
+    call."""
+    h, w, b, y, rs = _f32_ce_inputs(cuda, n, v, d, 3 * n + v + d)
+    lse, _, _, lg, tail = flash_ce_forward_plain(h, w, b, y, save=True)
+    if route == "split":
+        fn, plain, extra = flash_ce_backward, flash_ce_backward_dl_plain, ()
+    else:
+        fn, plain, extra = flash_ce_backward_save, flash_ce_backward_save_plain, (lg, tail)
+    launches = fn.launches
+    out = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
+    again = fn(h, w, b, y, lse, rs, smoothing, None, *extra)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 2
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    ref = plain(h, w, b, y, lse, rs, smoothing, None, *extra)
+    assert out[0].dtype == out[1].dtype == out[2].dtype == torch.float32
+    assert out[0].shape == (n, d) and out[1].shape == (v, d) and out[2].shape == (v,)
+    demb_scale, dh_scale = _f32_bwd_scales(h, w, b, y, lse, rs, smoothing)
+    assert bool(((out[1] - ref[1]).abs() <= 1e-4 * demb_scale).all())
+    assert bool(((out[0] - ref[0]).abs() <= 1e-4 * dh_scale).all())
+    torch.testing.assert_close(out[2], ref[2], rtol=0, atol=1e-5 * ref[2].abs().max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,v,d", [(129, 997, 100), (70, 4099, 64)])
+def test_flash_ce_f32_split_chunks_agree(cuda, n, v, d):
+    """The float32 split route cut into 256-column vocab chunks against one
+    chunk: demb and dbias bit-equal (each vocab column's sums do not depend
+    on the chunks), dh within 1e-5 of its largest entry (its chunks' parts
+    added in another order); the chunk rule: a multiple of 128, the whole
+    vocab at these N, 8192 columns at the flagship step."""
+    h, w, b, y, rs = _f32_ce_inputs(cuda, n, v, d, 77)
+    lse = flash_ce_forward_plain(h, w, b, y)[0]
+    ops = fce._backward_operands("test", h, w, b, y, lse, rs, None)
+    assert fce._split_chunk(n, v) >= v and fce._split_chunk(4096, 250054) == 8192
+    whole = fce._split_f32(h, *ops[:5], 0.1)
+    cut = fce._split_f32(h, *ops[:5], 0.1, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[1], cut[1]) and torch.equal(whole[2], cut[2])
+    torch.testing.assert_close(cut[0], whole[0], rtol=0,
+                               atol=1e-5 * whole[0].abs().max().item())
 
 
 @pytest.mark.requires_cuda

@@ -13,8 +13,12 @@ entry (one bf16 ulp); losses within 1e-5.  The save forward's bf16 logits
 are the bf16 rounding of the port's own f32 logits exactly, and within one
 bf16 ulp of mic_tpu's (the f32 sums, in another order, can round a tie the
 other way); its f32 tail within 1e-5.  The save backward is fed mic_tpu's
-own saved logits, so the two sides differ only in summation order.  The
-CUDA kernels are held to the plain versions in
+own saved logits, so the two sides differ only in summation order.  A
+float32 model's routes (float32 hidden states and table on both sides)
+hold their statistics and gradients within 1e-5 (1e-5 of the largest
+entry), the save route's gradients within 1e-4 (dl is formed from saved
+bf16 logits, which the two sides round from f32 sums in other orders).
+The CUDA kernels are held to the plain versions in
 tests/test_torch_cuda_kernels.py.
 """
 
@@ -152,9 +156,11 @@ def test_backward_dl_plain_matches_jax_kernel(smoothing):
     _close_scaled(dbias.numpy(), np.asarray(ref[2]), 1e-4, "dbias")
 
 
-def _loss_matches_jax(monkeypatch, mode, smoothing, h, emb, bias, labels, mask, **env):
+def _loss_matches_jax(monkeypatch, mode, smoothing, h, emb, bias, labels, mask, f32=False,
+                      **env):
     """Value and (dh, demb, dbias) of fused_lm_loss, MIC_TPU_FLASH_CE (and
-    ``env``) set alike on both sides (bf16 hidden, f32 table and bias)."""
+    ``env``) set alike on both sides (bf16 hidden, or float32 where ``f32``;
+    f32 table and bias)."""
     monkeypatch.setenv("MIC_TPU_FLASH_CE", mode)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -164,17 +170,20 @@ def _loss_matches_jax(monkeypatch, mode, smoothing, h, emb, bias, labels, mask, 
                                  smoothing, 64)
 
     jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
-        _jbf16(h), jnp.asarray(emb), jnp.asarray(bias))
-    th = _bf16(h).requires_grad_(True)
+        jnp.asarray(h) if f32 else _jbf16(h), jnp.asarray(emb), jnp.asarray(bias))
+    th = (torch.from_numpy(h) if f32 else _bf16(h)).requires_grad_(True)
     te = torch.from_numpy(emb).requires_grad_(True)
     tb = torch.from_numpy(bias).requires_grad_(True)
     loss = fused_lm_loss(th, te, tb, torch.from_numpy(labels), torch.from_numpy(mask),
                          smoothing, 64)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5, atol=1e-5)
-    _close_scaled(th.grad.float().numpy(), np.asarray(jg[0], np.float32), 1 / 128, "dh")
-    _close_scaled(te.grad.numpy(), np.asarray(jg[1]), 1e-4, "demb")
-    _close_scaled(tb.grad.numpy(), np.asarray(jg[2]), 1e-4, "dbias")
+    assert th.grad.dtype == th.dtype
+    grad = 1e-4 if mode == "save" or not f32 else 1e-5
+    _close_scaled(th.grad.float().numpy(), np.asarray(jg[0], np.float32),
+                  grad if f32 else 1 / 128, "dh")
+    _close_scaled(te.grad.numpy(), np.asarray(jg[1]), grad if f32 else 1e-4, "demb")
+    _close_scaled(tb.grad.numpy(), np.asarray(jg[2]), grad if f32 else 1e-4, "dbias")
 
 
 def _loss_inputs(b=2, t=16, d=128, v=997, seed=3):
@@ -183,12 +192,15 @@ def _loss_inputs(b=2, t=16, d=128, v=997, seed=3):
     return h.reshape(b, t, d), emb, bias, labels.reshape(b, t), mask
 
 
-@pytest.mark.parametrize("mode", ["0", "dl", "fwd", "1", "split", "save"])
+@pytest.mark.parametrize("mode", ["0", "dl", "fwd", "1", "split", "save",
+                                  "1:float32", "split:float32", "save:float32"])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_fused_lm_loss_matches_jax(monkeypatch, mode, smoothing):
     """Every flash-CE route, V = 997 (save: a 512-column bf16 span and a
-    485-column f32 tail)."""
-    _loss_matches_jax(monkeypatch, mode, smoothing, *_loss_inputs())
+    485-column f32 tail); ":float32" a float32 model's (float32 hidden
+    states) on the routes whose float32 kernels are rows 9 and 10 f32."""
+    mode, _, dtype = mode.partition(":")
+    _loss_matches_jax(monkeypatch, mode, smoothing, *_loss_inputs(), f32=dtype == "float32")
 
 
 def test_dl_route_with_shadow_table_and_row_cap(monkeypatch):
@@ -300,6 +312,73 @@ def test_backward_split_plain_matches_jax_kernel(v, smoothing):
                             _torch(lse), _torch(rs), smoothing)
     assert flash_ce_backward.launches == launches
     _check_grads(got, ref)
+
+
+@pytest.mark.parametrize("v", [997, 4099])
+def test_save_forward_f32_matches_jax(v):
+    """A float32 model's save forward (row 9's in f32): mic_tpu's kernel in
+    interpret mode on float32 hidden states and table against the port, its
+    statistics bit-equal to the port's non-saving call, lse and label
+    logits within 1e-5 of mic_tpu's; the main span bf16 (mic_tpu saves
+    bf16 at float32 too), the bf16 rounding of the port's f32 logits and
+    within one bf16 ulp of mic_tpu's; the f32 tail within 1e-5."""
+    h, emb, bias, labels = _inputs(v=v, seed=16)
+    ref = jax_forward(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias), jnp.asarray(labels),
+                      True, None, True)
+    args = tuple(torch.from_numpy(a) for a in (h, emb, bias, labels))
+    got = flash_ce_forward(*args, None, True)
+    plain = flash_ce_forward(*args)
+    assert all(torch.equal(a, c) for a, c in zip(got[:3], plain))
+    assert got[3].dtype == torch.bfloat16 and got[4].dtype == torch.float32
+    assert got[3].shape == ref[3].shape and np.asarray(ref[3]).dtype == jnp.bfloat16
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=1e-5, atol=1e-5)
+    v_main = main_columns(v)
+    logits = args[0] @ args[1].T + args[2]
+    assert torch.equal(got[3], logits[:, :v_main].bfloat16())
+    jlg = torch.from_numpy(np.asarray(ref[3], np.float32))
+    ulp = torch.ldexp(torch.ones_like(jlg), torch.frexp(jlg)[1] - 8)
+    assert bool(((got[3].float() - jlg).abs() <= ulp).all())
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("v", [997, 4099])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_backward_save_plain_f32_matches_jax_kernel(v, smoothing):
+    """A float32 model's save backward (row 9's in f32) from mic_tpu's own
+    saved logits against mic_tpu's kernels in interpret mode at
+    out_dtype_name "float32": dh float32, every gradient within 1e-5 of its
+    largest entry (dl formed in f32 from the same bf16 logits; f32 sums in
+    another order)."""
+    jh, jemb, jbias, jy, lse, lg, tail, rs = _backward_inputs(v, 17, f32_hidden=True)
+    ref = jax_backward_save(jh, jemb, jbias, jy, lse, rs, smoothing, "float32", True, None, lg,
+                            tail)
+    launches = flash_ce_backward_save.launches
+    got = flash_ce_backward_save(
+        _torch(jh), _torch(jemb), _torch(jbias), _torch(jy), _torch(lse), _torch(rs),
+        smoothing, None, _torch(lg).bfloat16(), _torch(tail))
+    assert flash_ce_backward_save.launches == launches
+    assert all(g.dtype == torch.float32 for g in got) and np.asarray(ref[0]).dtype == np.float32
+    for a, c, name in zip(got, ref, ("dh", "demb", "dbias")):
+        _close_scaled(a.numpy(), np.asarray(c), 1e-5, name)
+
+
+@pytest.mark.parametrize("v", [997, 4099])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_backward_split_plain_f32_matches_jax_kernel(v, smoothing):
+    """A float32 model's split route (row 10 in f32) against mic_tpu's
+    grad-W and grad-h kernels in interpret mode at out_dtype_name "float32",
+    which recompute the f32 logits over a ragged vocab: dh float32, every
+    gradient within 1e-5 of its largest entry."""
+    jh, jemb, jbias, jy, lse, _, _, rs = _backward_inputs(v, 19, f32_hidden=True)
+    ref = jax_backward(jh, jemb, jbias, jy, lse, rs, smoothing, "float32", True)
+    launches = flash_ce_backward.launches
+    got = flash_ce_backward(_torch(jh), _torch(jemb), _torch(jbias), _torch(jy), _torch(lse),
+                            _torch(rs), smoothing)
+    assert flash_ce_backward.launches == launches
+    assert all(g.dtype == torch.float32 for g in got) and np.asarray(ref[0]).dtype == np.float32
+    for a, c, name in zip(got, ref, ("dh", "demb", "dbias")):
+        _close_scaled(a.numpy(), np.asarray(c), 1e-5, name)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
@@ -573,11 +652,11 @@ def test_3xtf32_walk_keeps_the_card_tolerances(smoothing):
                                   "table_width", "f32_d98"])
 def test_kernel_arguments_raise_as_before(case):
     """What the CUDA kernels do not take raises before any launch; float32
-    hidden states pass for the forward and dl kernels (rows 7 and 8, any D
-    a multiple of 4) and raise NotImplementedError naming ROADMAP B36 for
-    the save and split routes' kernels; another dtype raises TypeError; D
-    off the tiles (64 in bf16, 4 in f32) or a table of another width
-    ValueError."""
+    hidden states pass for every route's kernels (rows 7-10, any D a
+    multiple of 4: the save and split routes' too, float32's D gate left
+    at 4 and the split route's at no bound); another dtype raises
+    TypeError; D off the tiles (64 in bf16, ROADMAP B36b; 4 in f32) or a
+    table of another width ValueError."""
     n, d, v = 8, 128, 997
     h = torch.zeros((n, d), dtype=torch.bfloat16)
     w = torch.zeros((v, d), dtype=torch.bfloat16)
@@ -588,8 +667,15 @@ def test_kernel_arguments_raise_as_before(case):
         return
     if case == "float32_save_split":
         for name in ("flash_ce_forward", "flash_ce_backward", "flash_ce_backward_save"):
-            with pytest.raises(NotImplementedError, match="B36"):
-                _check_kernel_args(name, h.float(), w.float(), bias, f32=False)
+            _check_kernel_args(name, h.float(), w.float(), bias)
+            _check_kernel_args(name, h.float()[:, :100], w.float()[:, :100], bias)
+            for split in (True, False):
+                wide = torch.zeros((n, 1088)), torch.zeros((v, 1088))
+                _check_backward_args(name, *wide, bias, split=split)
+            with pytest.raises(ValueError, match="multiple of 4"):
+                _check_kernel_args(name, h.float()[:, :98], w.float()[:, :98], bias)
+            with pytest.raises(TypeError):
+                _check_kernel_args(name, h.half(), w.half(), bias)
         return
     want = ValueError
     if case == "float16":
@@ -601,7 +687,7 @@ def test_kernel_arguments_raise_as_before(case):
         h, w = h.float()[:, :98], w.float()[:, :98]
     else:
         w = w[:, :64]
-    with pytest.raises(want):
+    with pytest.raises(want, match="B36b" if case in ("d96", "d32") else None):
         _check_kernel_args("flash_ce_forward", h, w, bias)
 
 
@@ -674,10 +760,12 @@ def test_contraction_grid_at_the_flagship_step():
 
 @pytest.mark.parametrize("case", ["float32", "d96", "split_d1088", "save_d1088"])
 def test_backward_arguments_raise(case):
-    """The backward kernels take bfloat16 only (float32 hidden states raise
-    NotImplementedError) and D a multiple of 64 (ValueError); the split
+    """The backward kernels take bfloat16 with D a multiple of 64 and
+    float32 with D a multiple of 4 (ValueError otherwise); the bf16 split
     contractions hold 64 rows over the whole D and stop at _BWD_MAX_D
-    (ValueError past it), the save contractions take any such D."""
+    (ValueError past it naming ROADMAP B36b), the bf16 save contractions
+    take any such D, and the float32 ones (which stream D) any D on both
+    routes, 1088 and 100 too."""
     n, v = 8, 997
     d = 1088 if case.endswith("1088") else 96 if case == "d96" else 128
     h = torch.zeros((n, d), dtype=torch.bfloat16)
@@ -687,9 +775,16 @@ def test_backward_arguments_raise(case):
     if case == "save_d1088":
         _check_backward_args("flash_ce_backward_save", h, w, bias, split=False)
         return
-    want = ValueError
-    if case == "float32":  # no float32 contraction kernel: ROADMAP B36
-        h, w, want = h.float(), w.float(), NotImplementedError
+    if case == "float32":
+        for dd in (128, 100, 1088):
+            hf, wf = torch.zeros((n, dd)), torch.zeros((v, dd))
+            for split in (True, False):
+                _check_backward_args("flash_ce_backward", hf, wf, bias, split=split)
+        for split in (True, False):
+            with pytest.raises(ValueError, match="multiple of 4"):
+                _check_backward_args("flash_ce_backward", h.float()[:, :98], w.float()[:, :98],
+                                     bias, split=split)
+        return
     for split in ((True,) if case == "split_d1088" else (True, False)):
-        with pytest.raises(want):
+        with pytest.raises(ValueError, match="B36b"):
             _check_backward_args("flash_ce_backward", h, w, bias, split=split)

@@ -1,4 +1,4 @@
-"""A float32 model's instances of rows 2, 3, 13, 14 and 15 against mic_tpu.
+"""A float32 model's instances of rows 2, 3, 13, 14, 15 and 16 against mic_tpu.
 
 mic_tpu's kernels have no dtype gate: on the default float32 model its
 int8-cache lazy attention (row 2, fused_lazy_attention_dma), its blocked
@@ -21,6 +21,8 @@ kernel run in interpret mode:
     and 0 in most draws);
   - row 15 within 1e-5: f32 statistics and an f32 product, summed in
     another order;
+  - row 16 (fused_mlp) within 1e-5 under each activation of its kernel:
+    two f32 products and the activation in f32, summed in another order;
   - row 2 on bfloat16-valued float32 q and step rows, which both sides take
     exactly: the written int8 column and its scale bit-equal, the outputs
     within 2e-2, because mic_tpu rounds its weights to bfloat16 and the
@@ -29,9 +31,9 @@ kernel run in interpret mode:
 The layouts the float32 kernels share with their wrappers are pinned
 against a hand count of the kernels' shared bytes, and a small-width
 float32 beam generate under each path that no other test drives at float32
-(the fused step's switches without fused_mlp, whose float32 kernel is not
-written, with either cache, and with merged_cross) against mic_tpu's
-generate, with each wrapper's calls counted.
+(the whole fused step, fused_mlp included, and the step without it, with
+either cache, and with merged_cross) against mic_tpu's generate, with each
+wrapper's calls counted.
 """
 
 import jax
@@ -41,12 +43,14 @@ import pytest
 import torch
 
 from mic_tpu.ops import cross_attention as jax_cross
+from mic_tpu.ops import fused_mlp as jax_mlp
 from mic_tpu.ops import lazy_attention as jax_lazy
 from mic_tpu.ops import ln_gemm as jax_ln_gemm
 from mic_tpu.ops.image_prep import preprocess_images as jax_preprocess
 from mic_tpu.ops.quant import quantize_rows_dynamic as jax_quantize_rows
+from mic_tpu_torch.models import mbart_decoder
 from mic_tpu_torch.nn import attention
-from mic_tpu_torch.ops import cross_attention, lazy_attention, ln_gemm
+from mic_tpu_torch.ops import cross_attention, fused_mlp, lazy_attention, ln_gemm
 from mic_tpu_torch.ops.image_prep import preprocess_images
 from test_torch_captioner import _images, _models
 from test_torch_fused_step import _config, _set
@@ -279,7 +283,13 @@ def test_q8_layout_is_the_same_at_float32(heads, index):
 
 FUSED_NO_MLP = {"MIC_TPU_FUSED_LAZY_ATTN": "1",
                 "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,ln_qkv"}
+FUSED_STEP = {"MIC_TPU_FUSED_LAZY_ATTN": "1",
+              "MIC_TPU_EXPERIMENTAL": "fused_cross_attn,fused_mlp,ln_qkv"}
 F32_PATHS = {
+    "fused_step_float": (FUSED_STEP, None, ("fused_lazy_attention", "fused_cross_attention",
+                                            "ln_gemm", "fused_mlp")),
+    "fused_step_int8": (FUSED_STEP, "int8", ("fused_lazy_attention", "fused_cross_attention",
+                                             "ln_gemm", "fused_mlp")),
     # case: (switches, kv_quant, wrappers called once a layer a step)
     "fused_float": (FUSED_NO_MLP, None, ("fused_lazy_attention", "fused_cross_attention",
                                          "ln_gemm")),
@@ -293,9 +303,9 @@ F32_PATHS = {
 
 @pytest.mark.parametrize("case", sorted(F32_PATHS))
 def test_f32_fused_path_generate_near_jax(case, monkeypatch):
-    """A small-width float32 beam-4 generate under the fused step's switches
-    the card runs a float32 model on (fused_mlp left off), with the float
-    and the per-head int8 cache, and with merged_cross, against mic_tpu's
+    """A small-width float32 beam-4 generate under the whole fused step
+    (fused_mlp included) and the step without fused_mlp, with the float and
+    the per-head int8 cache, and with merged_cross, against mic_tpu's
     generate under the same switches (its XLA path on the CPU): each
     wrapper's plain version once a layer a step; best scores within 1e-2
     (the port rounds the attention's weights and outputs to bfloat16 where
@@ -311,7 +321,7 @@ def test_f32_fused_path_generate_near_jax(case, monkeypatch):
     assert config.dtype == "float32"
     jax_model, jparams, model, tparams = _models(config, seed=2, scale=0.5)
     calls = {name: 0 for name in called}
-    modules = {"ln_gemm": ln_gemm}
+    modules = {"ln_gemm": ln_gemm, "fused_mlp": mbart_decoder}
     for name in called:
         module = modules.get(name, attention)
         fn = getattr(module, name)
@@ -340,3 +350,26 @@ def test_ln_splits_f32_fill_the_card(n, splits):
     leave idle allow, at most 16 splits of four 16-deep slices."""
     assert ln_gemm.ln_splits_f32(n, 1024, 3072, 132) == splits
     assert ln_gemm.ln_splits_f32(n, 128, 384, 132) <= 128 // 64
+
+
+@pytest.mark.parametrize("activation", ["gelu", "gelu_tanh", "quick_gelu", "relu", "silu"])
+@pytest.mark.parametrize("n,d,f", [(8, 128, 512), (32, 256, 1024)])
+def test_fused_mlp_f32_plain_matches_pallas_kernel(n, d, f, activation):
+    """Row 16 on a float32 model, every activation its CUDA kernel takes
+    (``fused_mlp._ACTIVATION_IDS``): the plain version (what the float32
+    kernel is held to on the card) against mic_tpu's kernel in interpret
+    mode on the same float32 inputs, within 1e-5 (two f32 products and the
+    activation in f32, summed in another order; the gelu's erf the same
+    Abramowitz & Stegun polynomial on both sides)."""
+    assert activation in fused_mlp._ACTIVATION_IDS
+    rng = np.random.default_rng(n + d + len(activation))
+    x = _f32(rng, n, d)
+    w1, b1 = _f32(rng, d, f, scale=0.1), _f32(rng, f, scale=0.1)
+    w2, b2 = _f32(rng, f, d, scale=0.05), _f32(rng, d, scale=0.1)
+    ref = np.asarray(jax_mlp.fused_mlp(*(jnp.asarray(t.numpy()) for t in (x, w1, b1, w2, b2)),
+                                       activation, True))
+    launches = fused_mlp.fused_mlp.launches
+    got = fused_mlp.fused_mlp(x, w1, b1, w2, b2, activation)
+    assert fused_mlp.fused_mlp.launches == launches  # CPU tensors: the plain version
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
