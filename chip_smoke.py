@@ -187,7 +187,8 @@ Phases, each of which raises on failure (none catches its own):
      alone, card against CPU;
  48. the bf16 bucket head's ring: in its kernel's SASS no slot released
      before the products reading it retire, and twenty reruns bit-equal;
- 49. checkpoints and model directories at flagship width: Trainer.train()
+ 49. checkpoints and model directories at flagship width (2 of 12
+     layers, as in phases 58-60): Trainer.train()
      over a synthetic TSV of 256 PNGs for 4 steps saving every 2 (2 kept),
      the model directory reloaded by from_pretrained bit-equal and its
      beam-4 generate equal to the in-memory params' (rows 1 and 4), the
@@ -246,8 +247,8 @@ Phases, each of which raises on failure (none catches its own):
      pytorch_model.bin (written by tools/torch_hf_towers.py's state dicts)
      read by load_pretrained_towers (every leaf but proj
      bit-equal), each write and read timed;
- 58. the checkpoint manager's background save (no data_meta) of a flagship
-     train checkpoint (4.38 GB): the time save takes to return (before
+ 58. the checkpoint manager's background save (no data_meta) of a
+     flagship-width train checkpoint: the time save takes to return (before
      the write is complete), a train step taken during the write, the
      time wait blocks, the restore bit-equal to the state at the save, and
      the synchronous save's time;
@@ -314,7 +315,22 @@ Phases, each of which raises on failure (none catches its own):
  68. the float32 flagship's Trainer on flash_ce "split" and "save" (rows 7
      f32 and 10 f32; row 9 f32's forward and backward), three steps each,
      counted, held launch by launch against the plain versions and run on
-     them.
+     them;
+ 69. past eight beams (ROADMAP B41, B45): row 3's 9-16-beam instance in
+     every form (bf16, per-head int8 under bf16 and float32 q, float32) at
+     B=64 K in {9, 12, 16} T=64 index in {1, 17, 63}, and where its walk
+     takes every row or one buffer, exact sums bit-equal; the selects' and
+     row 17's 17-40-candidate instances at N=1024 (and 4, 65) k in {17,
+     37, 40} against plain, with ties and planted rows; each timed in
+     CUDA-graph replays beside its plain version, its bound (row 17 beside
+     torch.topk + torch.logsumexp) and the narrow instances;
+ 70. the flagship (bf16 and float32) at B=64, beam 16 (and 12), length 64,
+     under the default path, the exact select with an n-gram ban (k=37),
+     int8 weights and KV with the window select, the fused step with the
+     exact select (either cache), pallas_topk with an n-gram ban: every
+     launch held against its plain version on the path's inputs, launch
+     counts, and the same generate on the plain versions parting only at
+     near-ties (on the float32 cache at least 60 of 64 captions equal).
 It then prints the card's name and power limit, one JSON line describing
 the kernels (each with its time, its plain version's, its bound and a
 library call's where one computes the same function), and as its last line
@@ -759,16 +775,18 @@ def check_fused_head(dev):
     return worst, *times[1024]
 
 
-def flagship(dev):
+def flagship(dev, layers=None):
     """Flagship-width random bf16 serving params (CLIP ViT-B/32 -> 12-layer
-    mBART-50 -> tied 250054-token head), the model, the generate arguments
-    and a maker of preprocessed random images."""
+    mBART-50 -> tied 250054-token head; ``layers`` vision and decoder
+    layers where given), the model, the generate arguments and a maker of
+    preprocessed random images."""
     from mic_tpu_torch.core.config import CaptionerConfig
     from mic_tpu_torch.core.params import make_serving_params
     from mic_tpu_torch.models.captioner import Captioner, init_params
     from mic_tpu_torch.ops.image_prep import preprocess_images
 
-    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    config = (CaptionerConfig.clip_vit_b32_mbart50() if layers is None
+              else _flagship_depth(layers)).replace(dtype="bfloat16")
     t0 = time.perf_counter()
     params = make_serving_params(
         init_params(config, torch.Generator(device=dev).manual_seed(0), dev)
@@ -3742,7 +3760,8 @@ def _bytes_under(path) -> int:
 def run_checkpoint_path(dev, root):
     """Phase 49: the port keeps what it trains and serves it from a saved
     directory, at flagship width (CaptionerConfig.clip_vit_b32_mbart50 in
-    bf16, TrainConfig defaults: batch 64 x 64, dropout 0.1, bf16 moments and
+    bf16, depth cut to CUT_LAYERS vision and decoder layers, TrainConfig
+    defaults: batch 64 x 64, dropout 0.1, bf16 moments and
     shadow, the dl route; warmup_steps=2).  Run A: Trainer.train() over a
     synthetic TSV of 256 PNGs (256 x 256, 4 languages, a SimpleTokenizer fit
     on its captions) for one epoch of 4 steps, save_steps=2,
@@ -3758,7 +3777,7 @@ def run_checkpoint_path(dev, root):
     resume_from A's checkpoint 2 into a new directory; steps 3 and 4 give
     the params, moments, step and logged losses of A bit-equal."""
     from mic_tpu_torch.cli import caption, evaluate
-    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.config import DataConfig, TrainConfig
     from mic_tpu_torch.core.params import tree_leaves
     from mic_tpu_torch.data.tokenizer import SimpleTokenizer
     from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
@@ -3775,7 +3794,7 @@ def run_checkpoint_path(dev, root):
     tok.save(tok_path)
     print(f"checkpoints: 256 PNGs and a TSV written in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    config = _flagship_depth(CUT_LAYERS).replace(dtype="bfloat16")
     dc = DataConfig(train_file=tsv, images_dir=images)
     run_a, run_b = os.path.join(root, "run_a"), os.path.join(root, "run_b")
     tc = TrainConfig(output_dir=run_a, num_epochs=1, warmup_steps=2, save_steps=2,
@@ -5105,19 +5124,20 @@ def _raises(exc, fn, *args) -> bool:
 
 def run_async_save(dev, root):
     """Phase 58: the checkpoint manager's save without data_meta (mic_tpu's
-    background write) on a flagship train checkpoint (bf16 flagship at the
-    TrainConfig defaults: float32 params, bf16 moments, about 4.38 GB):
+    background write) on a flagship-width train checkpoint (the bf16
+    flagship, depth cut to CUT_LAYERS vision and decoder layers, at the
+    TrainConfig defaults: float32 params, bf16 moments):
     the time ``save`` takes to return (the host copy), a train step taken
     while the write runs (params changed in place), the time ``wait`` then
     blocks, and the restore bit-equal to the state as it was at the save;
     then the trainer's synchronous save (with data_meta) of the same tree
     timed.  Host clock, fsync'd writes."""
-    from mic_tpu_torch.core.config import CaptionerConfig, DataConfig, TrainConfig
+    from mic_tpu_torch.core.config import DataConfig, TrainConfig
     from mic_tpu_torch.io.checkpoint import TrainCheckpointManager
     from mic_tpu_torch.train.state import checkpoint_tree
     from mic_tpu_torch.train.trainer import Trainer
 
-    config = CaptionerConfig.clip_vit_b32_mbart50(dtype="bfloat16")
+    config = _flagship_depth(CUT_LAYERS).replace(dtype="bfloat16")
     tc = TrainConfig(warmup_steps=2, output_dir=os.path.join(root, "unused"))
     trainer = Trainer(config, DataConfig(), tc, device=dev)
     trainer.build(steps_per_epoch=2)
@@ -5147,7 +5167,7 @@ def run_async_save(dev, root):
     t3 = time.perf_counter()
     sync.save(1, checkpoint_tree(state), data_meta={"epoch": 0, "next_batch": 1})
     sync_s = time.perf_counter() - t3
-    print(f"async save, flagship train checkpoint of {nbytes} B: save returned in "
+    print(f"async save, flagship-width train checkpoint of {nbytes} B: save returned in "
           f"{returned:.3f} s (directory complete then: {complete}), a train step during the "
           f"write {step_s:.3f} s (loss {loss:.4f}), wait blocked {waited:.3f} s more; the "
           f"synchronous save with data_meta {sync_s:.3f} s; restore bit-equal to the state at "
@@ -5240,7 +5260,8 @@ def _first_partings(ref, got, images: int, beams: int) -> list:
 def run_lazy_chain_path(dev):
     """Phase 59: lazy-attention mode "0" (mic_tpu's XLA chain, plain tensor
     code on the card, nn/attention.py::lazy_attention_chain) at flagship
-    width, B=8 images, beam 4, max_length 64.  In bf16 with the bf16 KV
+    width, depth cut to CUT_LAYERS, B=8 images, beam 4, max_length 64.  In
+    bf16 with the bf16 KV
     cache and the int8 one (per-head scales under mode "0", per-row under
     mode "2"): rows 1, 2 and 3 never launched, row 4 once a step, a rerun
     identical; every chain call held against a kernel on the same inputs
@@ -5262,12 +5283,11 @@ def run_lazy_chain_path(dev):
     synchronised generate, over its steps) under each mode in turns (2, 0,
     0, 2), both caches."""
     import mic_tpu_torch.nn.attention as attention_mod
-    from mic_tpu_torch.core.config import CaptionerConfig
     from mic_tpu_torch.core.params import tree_map
     from mic_tpu_torch.models.captioner import Captioner, init_params
     from mic_tpu_torch.ops import lazy_attention as la
 
-    config, params, model, kw, pixels = flagship(dev)
+    config, params, model, kw, pixels = flagship(dev, CUT_LAYERS)
     layers = config.decoder.num_layers
     px = pixels(8, 0)
     model32 = Captioner(config.replace(dtype="float32"))
@@ -5346,7 +5366,7 @@ def run_lazy_chain_path(dev):
                 f"{label}: the runs' beams part where no near-tie is: {partings}")
     del params, params32, model32
 
-    f32 = CaptionerConfig.clip_vit_b32_mbart50()
+    f32 = _flagship_depth(CUT_LAYERS)
     params32 = init_params(f32, torch.Generator(device=dev).manual_seed(59), dev)
     model32 = Captioner(f32)
     px32 = pixels(8, 0).float()
@@ -5369,7 +5389,7 @@ def run_lazy_chain_path(dev):
     require(f_err <= 1e-3, "mode 0, float32: the rescoring differs from the search's scores")
     del params32, model32
 
-    config, params, model, kw, pixels = flagship(dev)
+    config, params, model, kw, pixels = flagship(dev, CUT_LAYERS)
     for kv in (None, "int8"):
         extra = dict(kw, kv_quant=kv)
         for turn, mode in enumerate(("2", "0", "0", "2"), 1):
@@ -5385,10 +5405,11 @@ def run_lazy_chain_path(dev):
     del params, model
 
 
-# the two-rank phase's model: the default float32 flagship at full width,
-# depth cut to 2 vision and 2 decoder layers (its embedding table, 250054 x
-# 1024, is most of the state either way)
-DP_LAYERS = 2
+# the depth of the phases that cut it (49 and 58-60: the checkpoints, the
+# lazy chain, two ranks): the flagship at full width with 2 vision and 2
+# decoder layers (its embedding table, 250054 x 1024, is most of the state
+# either way)
+CUT_LAYERS = 2
 
 
 def _rank_tools():
@@ -5524,14 +5545,14 @@ def run_two_ranks(dev, root):
     """Phase 60: data-parallel and FSDP training in two processes on the
     one card (gloo: NCCL refuses two ranks on one device; the gather and
     scatter collectives go through host memory), on the default float32
-    flagship at full width with depth cut to ``DP_LAYERS`` vision and
+    flagship at full width with depth cut to ``CUT_LAYERS`` vision and
     decoder layers, a per-device batch of 8 x 64 tokens, three steps,
     held as ``run_ranks`` holds them, the fsdp checkpoint resumed."""
     print(f"two ranks on one card: backend gloo, world size 2, float32 flagship width, "
-          f"{DP_LAYERS} vision and {DP_LAYERS} decoder layers, per-device batch 8", flush=True)
+          f"{CUT_LAYERS} vision and {CUT_LAYERS} decoder layers, per-device batch 8", flush=True)
     spec = {"init_method": f"file://{os.path.join(root, 'rendezvous')}", "backend": "gloo",
             "device": "cuda:0"}
-    run_ranks(dev, root, _flagship_depth(DP_LAYERS), 2, 8, 3, spec, True, "gloo", 900)
+    run_ranks(dev, root, _flagship_depth(CUT_LAYERS), 2, 8, 3, spec, True, "gloo", 900)
 
 
 def run_caption_over_cards(devices: list, root, config=None):
@@ -7110,6 +7131,616 @@ def run_f32_training_routes(dev):
     return launches
 
 
+# Phases 69-70 (ROADMAP B41, B45): wide beam search.  Row 3 at 9-16 beams
+# (one kernel instance, K read at run time), the exact and window selects
+# (rows 5, 5 f32, 6) and row 17 at 17-40 candidates (16 beams with an
+# n-gram ban ask for 2 x 16 + 5 = 37 a row).
+WIDE_B = 64  # images: at 16 beams the same 1024 beam rows as B=256 beam 4
+WIDE_BEAMS = (9, 12, 16)
+WIDE_KS = (17, 37, 40)
+WIDE_INDICES = (1, 17, 63)
+# row 3's cache forms: (q's dtype, the cache's: None the q dtype, "int8"
+# the per-head int8 cache)
+WIDE_FORMS = {"bf16": (torch.bfloat16, None), "int8": (torch.bfloat16, "int8"),
+              "f32": (torch.float32, None), "int8 f32 q": (torch.float32, "int8")}
+# (beams, T, index) where row 3's walk takes every row in order (two chunk
+# buffers), and where K's and V's chunks share one buffer (blocked_layout)
+WIDE_WALKS = {"bf16": ((16, 240, 210), (15, 264, 258)),
+              "int8": ((16, 240, 210), (15, 264, 258)),
+              "f32": ((16, 240, 210), (9, 712, 709)),
+              "int8 f32 q": ((16, 240, 210), (15, 264, 258))}
+
+
+def _wide_blocked_inputs(dev, g, form, b, beams, t, index):
+    """Row 3's inputs in ``form`` (WIDE_FORMS): q, the step rows, both
+    caches and the ancestry mask of a random ancestry at write ``index``."""
+    from mic_tpu_torch.ops.lazy_attention import build_ancestry_mask
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    dtype, cache_kind = WIDE_FORMS[form]
+    heads, hd = FLAG_H, FLAG_H * FLAG_DH
+
+    def rand(*shape, scale=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def cache():
+        prefix = rand(b * beams, t, hd)
+        if cache_kind is None:
+            return prefix
+        values, scales = quantize_rows_dynamic(prefix.reshape(b * beams, t, heads, FLAG_DH))
+        return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
+
+    q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+    ck, cv = cache(), cache()
+    anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+    return q, ck, cv, ks, vs, build_ancestry_mask(anc, index)
+
+
+def _wide_layout(form, beams, index):
+    from mic_tpu_torch.ops.lazy_attention import blocked_layout
+
+    _, cache_kind = WIDE_FORMS[form]
+    compact, stage, shared, nbytes = blocked_layout(beams, index, cache_kind == "int8",
+                                                    form == "f32")
+    return ("list" if compact else "every row") + (", one shared buffer" if shared else "") + \
+        f", {stage} rows a chunk, {nbytes} B"
+
+
+def check_wide_attention(dev):
+    """Phase 69, row 3: the kernel's 9-16-beam instance against its plain
+    version in every form (WIDE_FORMS) at B=64, T=64, H=16, K in {9, 12,
+    16} (12 and 9: mask rows not 4-byte aligned), index in {1, 17, 63}, the
+    walk over the list; then at the shapes of WIDE_WALKS (every row in
+    order; one buffer for K's and V's chunks): within 2e-2 (bf16 weights and
+    output after f32 sums in another order), a rerun bit-equal, the caches
+    untouched.  Then on a mask of random bits with q = 0 and integer V
+    values (every admitted weight 1 / (live rows + 1), every sum exact) at
+    K in {12, 16}, bf16 and int8: bit-equal to plain, which routes each
+    beam's bits, weights and output rows.  Eight beams and fewer, in each
+    form, still run their own instances (K=8, index 63).  -> worst error a
+    form."""
+    from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, fused_lazy_attention_plain
+
+    heads, hd = FLAG_H, FLAG_H * FLAG_DH
+    g = torch.Generator(device=dev).manual_seed(69)
+    worst = {}
+    for form in WIDE_FORMS:
+        cases = [(WIDE_B, beams, FLAG_T, index) for beams in WIDE_BEAMS for index in WIDE_INDICES]
+        cases += [(WIDE_B, beams, t, index) for beams, t, index in WIDE_WALKS[form]]
+        cases += [(WIDE_B * 2, 8, FLAG_T, 63)]
+        worst[form] = 0.0
+        for b, beams, t, index in cases:
+            q, ck, cv, ks, vs, amask = _wide_blocked_inputs(dev, g, form, b, beams, t, index)
+            planes = [a for c in (ck, cv) for a in (c.values() if isinstance(c, dict) else (c,))]
+            before = [a.clone() for a in planes]
+            args = (q, ck, cv, ks, vs, amask, beams, heads)
+            out = fused_lazy_attention(*args, positions=index)
+            again = fused_lazy_attention(*args, positions=index)
+            ref = fused_lazy_attention_plain(*args)
+            torch.cuda.synchronize()
+            what = f"fused_lazy_attention {form} B={b} K={beams} T={t} index={index}"
+            require(out.dtype == q.dtype, f"{what}: output dtype")
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            require(torch.equal(out, again), f"{what}: a rerun differs")
+            require(all(torch.equal(a, o) for a, o in zip(planes, before)),
+                    f"{what}: a cache it only reads changed")
+            err = (out.float() - ref.float()).abs().max().item()
+            worst[form] = max(worst[form], err)
+            print(f"{what} ({_wide_layout(form, beams, index)}): max_abs_err={err:.6g}, rerun "
+                  "bit-equal, caches untouched", flush=True)
+            del q, ck, cv, ks, vs, amask, planes, before, out, again, ref
+        torch.cuda.empty_cache()
+    for form in ("bf16", "int8"):
+        for beams in (12, 16):
+            b, t, index = WIDE_B, FLAG_T, 63
+            q8 = form == "int8"
+            q = torch.zeros((b, beams, hd), dtype=torch.bfloat16, device=dev)
+            ks = (torch.randn((b, beams, hd), generator=g, device=dev) * 0.5).bfloat16()
+            vs = torch.randint(-3, 4, (b, beams, hd), generator=g, device=dev).bfloat16()
+            ck = _wide_blocked_inputs(dev, g, form, b, beams, t, index)[1]
+            values = torch.randint(-3, 4, (b * beams, t, hd), generator=g, device=dev)
+            cv = ({"q": values.to(torch.int8),
+                   "s": torch.randint(1, 3, (b * beams, t, heads), generator=g,
+                                      device=dev).float()}
+                  if q8 else values.bfloat16())
+            live = (torch.arange(t, device=dev) < index).repeat(beams)[None, :, None]
+            amask = (torch.randint(0, 2, (b, beams * t, beams), generator=g, device=dev)
+                     * live).to(torch.int8)
+            out = fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+            ref = fused_lazy_attention_plain(q, ck, cv, ks, vs, amask, beams, heads)
+            torch.cuda.synchronize()
+            require(torch.equal(out, ref), f"fused_lazy_attention {form} K={beams}: exact sums "
+                    "not bit-equal to plain")
+            print(f"fused_lazy_attention {form} K={beams} index=63, random-bit mask, q = 0 and "
+                  "integer V (exact sums): bit-equal to plain", flush=True)
+    return worst
+
+
+def _tied_bias(dev, v):
+    """A bias of many ties for the selects' order: 20 columns at 3, 20 at
+    2, the rest 0."""
+    g = torch.Generator(device="cpu").manual_seed(70)
+    b = torch.zeros((v,), dtype=torch.bfloat16)
+    cols = torch.randperm(v, generator=g)[:40]
+    b[cols[:20]], b[cols[20:]] = 3.0, 2.0
+    return b.to(dev)
+
+
+def check_wide_heads(dev, table):
+    """Phase 69, rows 5, 5 f32, 6 and 17: the wide instances (17 <= k <=
+    40) against their plain versions at N=1024 (and N=4 and 65), D=1024,
+    V=250054, k in {17, 37, 40}.  bf16 select (row 5): phase 13's
+    tolerances (``_bf16_head_case``); int8 select (row 6): ids equal, each
+    lp exactly the plain logit minus the kernel's lse; float32 select (row
+    5 f32): ``_f32_head_case``'s; each exact and window.  Ties (zero hidden
+    rows: the logits are a bias of ties) in all three at k = 37: ids equal
+    to plain (the lower id first; in a window the highest lane).  Row 17:
+    bf16 and f32 logits, ids equal and lp within 1e-5 of plain, at N=1024
+    and on ``planted_logits`` rows (the 16 planted columns first, reruns
+    bit-equal).  k = 16 beside k = 17 on the same rows: the narrow and the
+    wide instance agree on their first 16 candidates.  -> worst errors by
+    name."""
+    from mic_tpu_torch.ops.fused_head import (
+        _logits, _logits_q8, fused_head_topk, fused_head_topk_plain, fused_head_topk_q8,
+        fused_head_topk_q8_plain,
+    )
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
+
+    weight, bias, wq, ws = table
+    w32, b32 = weight.float(), bias.float()
+    worst = {"fused_head_select_bf16": 0.0, "fused_head_select": 0.0,
+             "fused_head_select_f32": 0.0, "topk_log_probs": 0.0}
+    narrow = {}  # select -> the k = 16 candidates at N=1024
+    for n in (4, 65, 1024):
+        hidden = _hidden(dev, n, HEAD_D, 690 + n)
+        logits = _logits(hidden, weight, bias)
+        logits_q8 = _logits_q8(*quantize_rows_dynamic(hidden), wq, ws, bias)
+        h32 = hidden.float()
+        logits32 = _logits(h32, w32, b32)
+        for k in ((16,) + WIDE_KS if n == 1024 else (37,)):
+            for select in ("exact", "window"):
+                what = f"N={n} k={k} {select}"
+                got = fused_head_topk(hidden, weight, bias, k, select)
+                ref = fused_head_topk_plain(hidden, weight, bias, k, select)
+                torch.cuda.synchronize()
+                err, ties = _bf16_head_case(got, ref, logits, f"select bf16 {what}", False)
+                worst["fused_head_select_bf16"] = max(worst["fused_head_select_bf16"], err)
+                lp, ids, lse = fused_head_topk_q8(hidden, wq, ws, bias, k, select)
+                rlp, rids, rlse = fused_head_topk_q8_plain(hidden, wq, ws, bias, k, select)
+                torch.cuda.synchronize()
+                require(torch.equal(ids, rids), f"select int8 {what}: ids differ from plain")
+                require(torch.equal(lp, logits_q8.gather(1, ids.long()) - lse),
+                        f"select int8 {what}: a candidate's logit differs from plain")
+                torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+                q8_err = (lp - rlp).abs().max().item()
+                worst["fused_head_select"] = max(worst["fused_head_select"], q8_err)
+                got32 = fused_head_topk(h32, w32, b32, k, select)
+                ref32 = fused_head_topk_plain(h32, w32, b32, k, select)
+                torch.cuda.synchronize()
+                err32, ties32 = _f32_head_case(got32, ref32, logits32, f"select f32 {what}")
+                worst["fused_head_select_f32"] = max(worst["fused_head_select_f32"], err32)
+                print(f"fused_head_select {what}: bf16 lp max_abs_err={err:.3g} (near-tie id "
+                      f"differences {ties}), int8 {q8_err:.3g} (ids equal, logits bit-equal), "
+                      f"f32 {err32:.3g} (near-tie id differences {ties32})", flush=True)
+                if k == 16:
+                    narrow[select] = (got[1], lp, got32[1])
+                elif k == 17:
+                    ids16, lp16, ids16_f32 = narrow[select]
+                    require(torch.equal(ids16, got[1][:, :16]) and
+                            torch.equal(ids16_f32, got32[1][:, :16]),
+                            f"select {what}: k=17's first 16 ids differ from k=16's")
+                    require(torch.equal(lp16, lp[:, :16]),
+                            f"select int8 {what}: k=17's first 16 lp differ from k=16's")
+        del logits, logits_q8, logits32
+    # ties: zero hidden rows, a bias of ties
+    tb = _tied_bias(dev, 5000)
+    zero = torch.zeros((4, HEAD_D), device=dev, dtype=torch.bfloat16)
+    for select in ("exact", "window"):
+        outs = {"bf16": fused_head_topk(zero, weight[:5000], tb, 37, select),
+                "int8": fused_head_topk_q8(zero, wq[:5000], ws[:5000], tb, 37, select),
+                "f32": fused_head_topk(zero.float(), w32[:5000], tb.float(), 37, select)}
+        ref = fused_head_topk_plain(zero, weight[:5000], tb, 37, select)
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            require(torch.equal(out[1], ref[1]), f"fused_head_select {name} {select} ties at "
+                    f"k=37: ids {out[1][0].tolist()}, want {ref[1][0].tolist()}")
+    print("fused_head_select ties at k=37: bf16, int8 and f32 ids equal to plain (lower id "
+          "first; the highest lane in a window)", flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(691)
+    for n, v in ((1024, HEAD_V), (70, 997)):
+        x = torch.randn((n, v), generator=g, device=dev) * 2
+        if v == 997:
+            x[0] = 0.0
+            x[1, [900, 5, 300]] = 9.0
+            x[2] = torch.round(x[2] * 2)
+        for dtype in (torch.bfloat16, torch.float32):
+            for k in WIDE_KS:
+                lp, ids = topk_log_probs(x.to(dtype), k)
+                rlp, rids = topk_log_probs_plain(x.to(dtype), k)
+                torch.cuda.synchronize()
+                what = f"topk_log_probs N={n} V={v} k={k} {dtype}"
+                require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                err = (lp - rlp).abs().max().item()
+                require(err <= 1e-5, f"{what}: log-probs differ from plain")
+                worst["topk_log_probs"] = max(worst["topk_log_probs"], err)
+            print(f"topk_log_probs N={n} V={v} {dtype}: k in {WIDE_KS} ids equal, lp within "
+                  f"1e-5 (worst so far {worst['topk_log_probs']:.3g})", flush=True)
+    for v in (997, HEAD_V):
+        for dtype in (torch.bfloat16, torch.float32):
+            for offset in (0, 3, 7):
+                x, cols = planted_logits(g, 24, v, offset, dtype)
+                for k in WIDE_KS:
+                    lp, ids = topk_log_probs(x, k)
+                    lp2, ids2 = topk_log_probs(x, k)
+                    rlp, rids = topk_log_probs_plain(x, k)
+                    torch.cuda.synchronize()
+                    what = f"topk_log_probs planted V={v} offset={offset} k={k} {dtype}"
+                    require(torch.equal(ids, rids), f"{what}: ids differ from plain")
+                    require(torch.equal(ids[:, :16].cpu().long(), cols),
+                            f"{what}: a planted column was missed")
+                    require(torch.equal(lp, lp2) and torch.equal(ids, ids2),
+                            f"{what}: a rerun differs")
+                    require((lp - rlp).abs().max().item() <= 1e-5,
+                            f"{what}: log-probs differ from plain")
+        print(f"topk_log_probs planted rows N=24 V={v}, offsets 0, 3, 7, k in {WIDE_KS}, bf16 "
+              "and f32: ids equal, the planted columns first, reruns bit-equal", flush=True)
+    return worst
+
+
+def time_wide_instances(dev, table):
+    """Phase 69's times: each wide instance in CUDA-graph replays
+    (``graph_ms``) beside its plain version's (heads: two calls a replay)
+    and its bound; row 3 at B=64 K=16 T=64 H=16, index 63 and 17, each
+    form; the selects at N=1024, k=37, exact and window; row 17 at N=1024
+    k=37 in bf16 beside torch.topk + torch.logsumexp.  The narrow instances
+    beside them on the same card: row 3 at B=256 K=4 index 63, the selects
+    and row 17 at k=9.  -> {kernels-line name: (ms, plain ms, library ms)},
+    {name: bound}, and every time by case."""
+    from mic_tpu_torch.ops.fused_head import (
+        fused_head_topk, fused_head_topk_plain, fused_head_topk_q8, fused_head_topk_q8_plain,
+    )
+    from mic_tpu_torch.ops.lazy_attention import fused_lazy_attention, fused_lazy_attention_plain
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
+
+    g = torch.Generator(device=dev).manual_seed(692)
+    heads = FLAG_H
+    times, bounds, cases = {}, {}, {}
+    names = {"bf16": "fused_lazy_attention_wide", "int8": "fused_lazy_attention_q8_wide",
+             "f32": "fused_lazy_attention_f32_wide",
+             "int8 f32 q": "fused_lazy_attention_q8_f32_wide"}
+    for form, name in names.items():
+        for b, beams, index in ((WIDE_B, 16, 63), (WIDE_B, 16, 17), (FLAG_B, FLAG_K, 63)):
+            args = _wide_blocked_inputs(dev, g, form, b, beams, FLAG_T, index) + (beams, heads)
+            ms = graph_ms(lambda: fused_lazy_attention(*args, positions=index))
+            cases[f"fused_lazy_attention {form} B={b} K={beams} index={index}"] = ms
+            if beams == 16 and index == 63:
+                plain_ms = graph_ms(lambda: fused_lazy_attention_plain(*args))
+                times[name] = (ms, plain_ms, None)
+                live = int((args[5] != 0).any(-1).sum())
+                q8 = WIDE_FORMS[form][1] == "int8"
+                f32q = WIDE_FORMS[form][0] == torch.float32
+                bounds[name] = blocked_attention_bound(
+                    live, b, beams, index, HEAD_D, heads, 1 if q8 else 4 if f32q else 2,
+                    scale_bytes=4 if q8 else 0, io_bytes=4 if f32q else 2)
+                cases[f"fused_lazy_attention {form} K=16 plain"] = plain_ms
+                print(f"fused_lazy_attention {form} B={b} K=16 index 63: masks admit {live} of "
+                      f"{b * beams * 63} cached rows", flush=True)
+            del args
+        torch.cuda.empty_cache()
+    weight, bias, wq, ws = table
+    w32, b32 = weight.float(), bias.float()
+    hidden = _hidden(dev, 1024, HEAD_D, 693)
+    h32 = hidden.float()
+    runs = {
+        "fused_head_select_bf16_wide": (lambda k, s: fused_head_topk(hidden, weight, bias, k, s),
+                                        lambda k, s: fused_head_topk_plain(hidden, weight, bias,
+                                                                           k, s)),
+        "fused_head_select_wide": (lambda k, s: fused_head_topk_q8(hidden, wq, ws, bias, k, s),
+                                   lambda k, s: fused_head_topk_q8_plain(hidden, wq, ws, bias,
+                                                                         k, s)),
+        "fused_head_select_f32_wide": (lambda k, s: fused_head_topk(h32, w32, b32, k, s),
+                                       lambda k, s: fused_head_topk_plain(h32, w32, b32, k, s)),
+    }
+    for name, (kernel, plain) in runs.items():
+        for select in ("exact", "window"):
+            for k in (37, 9):
+                cases[f"{name} {select} k={k}"] = graph_ms(lambda: kernel(k, select))
+            cases[f"{name} {select} k=37 plain"] = graph_ms(lambda: plain(37, select), reps=2,
+                                                            runs=3)
+            torch.cuda.empty_cache()
+        times[name] = (cases[f"{name} exact k=37"], cases[f"{name} exact k=37 plain"], None)
+    bounds["fused_head_select_bf16_wide"] = head_bound(1024, HEAD_D, HEAD_V, 37, 2, "bf16")
+    bounds["fused_head_select_wide"] = head_bound(1024, HEAD_D, HEAD_V, 37, 1, "int8",
+                                                  scales=True)
+    table32 = HEAD_V * HEAD_D * 4 + HEAD_V * 4
+    bounds["fused_head_select_f32_wide"] = bound(table32 + 1024 * HEAD_D * 4 + 1024 * (8 * 37 + 4),
+                                                 2 * 1024 * HEAD_D * HEAD_V, "tf32x3")
+    x = (torch.randn((1024, HEAD_V), generator=g, device=dev) * 2).bfloat16()
+    for k in (37, 9):
+        cases[f"topk_log_probs k={k}"] = graph_ms(lambda: topk_log_probs(x, k))
+    cases["topk_log_probs k=37 plain"] = graph_ms(lambda: topk_log_probs_plain(x, 37), reps=2,
+                                                  runs=3)
+    cases["torch.topk + torch.logsumexp k=37"] = graph_ms(
+        lambda: (torch.topk(x, 37), torch.logsumexp(x, dim=-1)))
+    times["topk_log_probs_wide"] = (cases["topk_log_probs k=37"],
+                                    cases["topk_log_probs k=37 plain"],
+                                    cases["torch.topk + torch.logsumexp k=37"])
+    bounds["topk_log_probs_wide"] = topk_bound(1024, HEAD_V, 37, 2)
+    del x
+    torch.cuda.empty_cache()
+    print("phase 69, CUDA-graph replay ms (the narrow instances beside): " + ", ".join(
+        f"{case} {ms:.4f}" for case, ms in cases.items()), flush=True)
+    print("phase 69, the wide instances (ms, plain ms, library ms; bound ms): " + ", ".join(
+        f"{name} {t[0]:.4f}, {t[1]:.4f}, {t[2] if t[2] is None else round(t[2], 4)}; "
+        f"{bounds[name][0]:.4f} ({bounds[name][1]})" for name, t in times.items()), flush=True)
+    return times, bounds
+
+
+# Phase 70's paths: (model dtype, switches, generate's extra arguments,
+# beams, {counter: kernels-line name}); each counter reads 12 a step for
+# the attention rows and one a step for the heads (but at forced tokens).
+WIDE_FUSED = dict(FUSED_STEP, MIC_TPU_FUSED_SELECT="exact")
+WIDE_PATHS = {
+    "(a) default": ("bfloat16", {}, {}, 16,
+                    {"lazy_attention": "lazy_attention", "fused_head": "fused_head_bucket"}),
+    "(b) exact, n-gram 3": ("bfloat16", {"MIC_TPU_FUSED_SELECT": "exact"},
+                            {"no_repeat_ngram_size": 3}, 16,
+                            {"lazy_attention": "lazy_attention",
+                             "fused_head_select": "fused_head_select_bf16_wide"}),
+    "(c) int8 weights and KV, window": ("bfloat16", {"MIC_TPU_FUSED_SELECT": "window"},
+                                        {"quantize": "int8", "kv_quant": "int8"}, 16,
+                                        {"lazy_attention_q8": "lazy_attention_q8",
+                                         "fused_head_select": "fused_head_select_wide"}),
+    "(d) fused step, exact": ("bfloat16", WIDE_FUSED, {}, 16,
+                              {"fused_lazy_attention": "fused_lazy_attention_wide",
+                               "fused_cross_attention": "fused_cross_attention",
+                               "ln_gemm": "ln_gemm", "fused_mlp": "fused_mlp",
+                               "fused_head_select": "fused_head_select_bf16_wide"}),
+    "(d) at 12 beams, int8 cache": ("bfloat16", WIDE_FUSED, {"kv_quant": "int8"}, 12,
+                                    {"fused_lazy_attention": "fused_lazy_attention_q8_wide",
+                                     "fused_cross_attention": "fused_cross_attention",
+                                     "ln_gemm": "ln_gemm", "fused_mlp": "fused_mlp",
+                                     "fused_head_select": "fused_head_select_bf16_wide"}),
+    "(e) pallas_topk, n-gram 3": ("bfloat16", {"MIC_TPU_FUSED_HEAD": "0",
+                                               "MIC_TPU_EXPERIMENTAL": "pallas_topk"},
+                                  {"no_repeat_ngram_size": 3}, 16,
+                                  {"lazy_attention": "lazy_attention",
+                                   "topk_log_probs": "topk_log_probs_wide"}),
+    "(f) float32 model, fused step, exact": (
+        "float32", WIDE_FUSED, {}, 16,
+        {"fused_lazy_attention": "fused_lazy_attention_f32_wide",
+         "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32",
+         "fused_mlp": "fused_mlp_f32", "fused_head_select": "fused_head_select_f32_wide"}),
+    "(f) at 12 beams, int8 cache": (
+        "float32", WIDE_FUSED, {"kv_quant": "int8"}, 12,
+        {"fused_lazy_attention": "fused_lazy_attention_q8_f32_wide",
+         "fused_cross_attention": "fused_cross_attention_f32", "ln_gemm": "ln_gemm_f32",
+         "fused_mlp": "fused_mlp_f32", "fused_head_select": "fused_head_select_f32_wide"}),
+}
+# of 64 captions equal to the plain versions' run, on the float32 model's
+# float32 cache (61 measured).
+# In bf16 at 16 beams the two runs part on most images (41 of 64 equal on
+# path (a), which runs no kernel of the wide instances): the K-th and
+# (K+1)-th of 2K candidates sit within a bf16 rounding of an attention
+# output, which the plain versions place elsewhere; the float32 model's
+# int8 cache, whose kernel rounds q and the weights to bf16, kept 59 at 12
+# beams.  There every launch is held against its plain version on the
+# path's own inputs, every parting to BEAM_TIE plus the drift before it,
+# and the count printed.
+WIDE_EQUAL = 60
+# the largest difference between the two runs' kept scores a step before
+# a parting that phase 70 takes as drift: bf16 rounding moves them apart
+# over the steps (0.196 the largest measured, path (e); 0.174 on path (d)
+# at 12 beams, where the plain run's margin was 0.169)
+WIDE_DRIFT = 0.25
+# phase 70's paths run once more with their head alone on its plain
+# version, the captions equal to the kernels' run printed: how many of the
+# whole plain run's partings the head makes
+WIDE_HEAD_ALONE = ("(e) pallas_topk, n-gram 3",)
+# the wide instances in the kernels line: (source, the TPU kernel)
+WIDE_ROWS = {
+    "fused_lazy_attention_wide": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_lazy_attention_q8_wide": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_lazy_attention_f32_wide": ("lazy_attention.cu", "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_lazy_attention_q8_f32_wide": ("lazy_attention.cu",
+                                         "mic_tpu/ops/lazy_attention.py:257"),
+    "fused_head_select_bf16_wide": ("fused_head.cu", "mic_tpu/ops/fused_head.py:290"),
+    "fused_head_select_wide": ("fused_head.cu", "mic_tpu/ops/fused_head.py:461"),
+    "fused_head_select_f32_wide": ("fused_head.cu", "mic_tpu/ops/fused_head.py:290"),
+    "topk_log_probs_wide": ("topk_lse.cu", "mic_tpu/ops/topk_lse.py:94"),
+}
+ATTENTION_ROWS = ("lazy_attention", "lazy_attention_q8", "fused_lazy_attention",
+                  "fused_cross_attention", "ln_gemm", "fused_mlp")
+
+
+def _check_path_head(args, out, ref):
+    """Rows 4, 5 and 5 f32 on phase 70's paths: phase 69's tolerances
+    (``_bf16_head_case``, lp over every entry for the bucket and where the
+    ids agree for a select; ``_f32_head_case``)."""
+    from mic_tpu_torch.ops.fused_head import _logits
+
+    hidden, weight, bias, k, select = args[:5]
+    logits = _logits(hidden, weight, bias)
+    what = f"fused_head_topk {select} k={k} on the path"
+    if hidden.dtype == torch.float32:
+        return _f32_head_case(out, ref, logits, what)
+    return _bf16_head_case(out, ref, logits, what, select == "bucket")
+
+
+def _check_path_head_q8(args, out, ref):
+    """Row 6 on phase 70's paths, as phase 69 holds it: ids equal, each lp
+    exactly the plain logit less the kernel's lse, lse within 1e-5."""
+    from mic_tpu_torch.ops.fused_head import _logits_q8
+    from mic_tpu_torch.ops.quant import quantize_rows_dynamic
+
+    hidden, wq, ws, bias = args[:4]
+    (lp, ids, lse), (rlp, rids, rlse) = out, ref
+    require(torch.equal(ids, rids), "fused_head_topk_q8: ids differ from plain on the path")
+    logits = _logits_q8(*quantize_rows_dynamic(hidden), wq, ws, bias)
+    require(torch.equal(lp, logits.gather(1, ids.long()) - lse),
+            "fused_head_topk_q8: a candidate's logit differs from plain on the path")
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    return (lp - rlp).abs().max().item(), 0
+
+
+def _wide_swaps(dtype, la, ca, lg, attention_mod):
+    """``_f32_step_swaps`` with the bf16 tolerances on a bf16 model: rows 1
+    and 2 within 2e-2 (``_check_attention``, the written cells bit-equal),
+    row 15 within phase 25's bound, row 16 within 1e-2 of its largest
+    output (phase 26's)."""
+    swaps = _f32_step_swaps(la, ca, lg, attention_mod)
+    if dtype == "float32":
+        return swaps
+
+    def ln_check(args, out, ref):
+        x, scale, shift, w, bias = args[:5]
+        terms = (ref.float() - bias.float()).abs() + bias.float().abs()
+        l1 = torch.nn.functional.layer_norm(x.float(), (x.shape[1],), scale.float(),
+                                            shift.float()).abs() @ w.float().abs()
+        diff = (out.float() - ref.float()).abs()
+        require(bool((diff <= 2 * _bf16_ulp(terms.bfloat16()) + 2.0**-8 * l1).all()),
+                "ln_gemm on the path: an output beyond phase 25's bound")
+        return diff.max().item(), 0
+
+    def mlp_check(args, out, ref):
+        err = (out.float() - ref.float()).abs().max().item()
+        require(err <= 1e-2 * ref.float().abs().max().item(),
+                "fused_mlp on the path: beyond 1e-2 of its largest output")
+        return err, 0
+
+    for name, check in (("lazy_attention", _check_attention),
+                        ("lazy_attention_q8", _check_attention), ("ln_gemm", ln_check),
+                        ("fused_mlp", mlp_check)):
+        module, attr, plain, written, _ = swaps[name]
+        swaps[name] = (module, attr, plain, written, check)
+    return swaps
+
+
+def run_wide_beam_paths(dev):
+    """Phase 70: wide beam search at full width.  The flagship
+    (CaptionerConfig.clip_vit_b32_mbart50(): D=1024, 12 layers, V=250054)
+    in bf16 and in float32, random weights from a seed, B=64 images,
+    max_length 64, every caption's EOS pinned at 63 (all 63 steps), under
+    each path of WIDE_PATHS at 16 beams (and the fused step at 12).  For
+    each: a first run with every launch of the path's kernels held against
+    its plain version on the same inputs (``shadowed``: attention rows
+    within 2e-2, rows 1 and 2 f32 within 1e-5, rows 15 and 16 within their
+    phases' bounds, the heads within phase 69's tolerances, row 17 with ids
+    equal and lp within 1e-5); the counters set to 0 just before a second
+    generate and read just after, each attention row 12 times a step and
+    each head once a step but at forced tokens, no other serving kernel,
+    its sequences and scores bit-equal to the first run's; then the same
+    generate with every one of the path's kernels swapped for its plain
+    version on the card: every image whose running beams part from the
+    plain run's parts at a near-tie (each run's K-th less (K+1)-th
+    candidate at most BEAM_TIE plus how far the two runs' kept scores were
+    apart a step before, that drift at most WIDE_DRIFT;
+    ``_first_partings``, margins printed), and on the float32 model's
+    float32 cache at least WIDE_EQUAL of 64 captions equal (else the count
+    printed).  The paths of WIDE_HEAD_ALONE run once more with their head
+    alone on its plain version, the captions equal to the kernels' run
+    printed ->
+    launches by kernels-line name (a name's largest count over the paths)."""
+    import mic_tpu_torch.generate.search as search_mod
+    import mic_tpu_torch.models.captioner as captioner_mod
+    import mic_tpu_torch.nn.attention as attention_mod
+    import mic_tpu_torch.ops.cross_attention as ca
+    import mic_tpu_torch.ops.lazy_attention as la
+    import mic_tpu_torch.ops.ln_gemm as lg
+    from mic_tpu_torch.core.config import CaptionerConfig
+    from mic_tpu_torch.core.params import make_serving_params
+    from mic_tpu_torch.models.captioner import Captioner, init_params
+    from mic_tpu_torch.ops.fused_head import fused_head_topk_plain, fused_head_topk_q8_plain
+    from mic_tpu_torch.ops.image_prep import preprocess_images
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs_plain
+
+    n, length = WIDE_B, 64
+    u8 = np.random.default_rng(70).integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+    eos = torch.full((n,), length - 1, device=dev)
+    heads = {"topk_log_probs": (search_mod, "topk_log_probs", topk_log_probs_plain, None,
+                                _check_topk),
+             "q8": (captioner_mod, "fused_head_topk_q8", fused_head_topk_q8_plain, None,
+                    _check_path_head_q8),
+             "bf16": (captioner_mod, "fused_head_topk", fused_head_topk_plain, None,
+                      _check_path_head)}
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        config = CaptionerConfig.clip_vit_b32_mbart50(dtype=dtype)
+        torch_dtype = getattr(torch, dtype)
+        params = make_serving_params(
+            init_params(config, torch.Generator(device=dev).manual_seed(70), dev), torch_dtype)
+        model = Captioner(config)
+        layers = config.decoder.num_layers
+        px = preprocess_images(torch.from_numpy(u8).to(dev), config.vision.image_size,
+                               torch_dtype)
+        swaps = _wide_swaps(dtype, la, ca, lg, attention_mod)
+        for label, (path_dtype, env, extra, beams, rows) in WIDE_PATHS.items():
+            if path_dtype != dtype:
+                continue
+            kw = dict(extra, num_beams=beams, max_length=length,
+                      forced_bos_token_id=FLAGSHIP_BOS, eos_positions=eos)
+            head = heads["topk_log_probs" if "topk_log_probs" in rows else
+                         "q8" if extra.get("quantize") else "bf16"]
+            held = [swaps[c] for c in rows if c in swaps] + [head]
+            # the plain versions take the wrappers' positional arguments
+            plain = [(m, a, lambda *args, _p=p, **_: _p(*args)) for m, a, p, _, _ in held]
+            with knobs(**env):
+                with shadowed(*held) as stats:  # also the warm-up
+                    first = model.generate(params, px, **kw)
+                _print_shadow(f"phase 70, {label}", stats)
+                with _beam_trace(beams) as trace:
+                    out, counts, seconds = generate_counted(
+                        lambda x: model.generate(params, x, **kw), px)
+                _require_rerun_identical(f"phase 70, {label}", first, out)
+                del first
+                seqs = check_path_output(out, n, length, f"{label}, {beams} beams")
+                check_pinned(seqs, eos.cpu(), config.decoder.eos_token_id,
+                             config.decoder.pad_token_id, f"{label}, {beams} beams")
+                found = {c: counts.pop(c) for c in rows}
+                for c, count in found.items():
+                    # the heads: every step but the forced ones (BOS, and
+                    # mBART's forced EOS at the last position)
+                    ok = (count == layers * out.steps if c in ATTENTION_ROWS
+                          else out.steps - 2 <= count <= out.steps)
+                    require(ok, f"{label}: {c} launched {count} times in {out.steps} steps")
+                others = {k: v for k, v in counts.items() if v}
+                require(not others, f"{label}: other serving kernels launched: {others}")
+                for c, count in found.items():
+                    launches[rows[c]] = max(launches.get(rows[c], 0), count)
+                with plain_versions(*plain), _beam_trace(beams) as plain_trace:
+                    ref = model.generate(params, px, **kw)
+                if label in WIDE_HEAD_ALONE:
+                    with plain_versions(plain[-1]):
+                        alone = model.generate(params, px, **kw).sequences.cpu()
+            torch.cuda.synchronize()
+            equal = (seqs == ref.sequences.cpu()).all(1)
+            partings = _first_partings(plain_trace, trace, n, beams)
+            del trace, plain_trace
+            print(f"phase 70, {label}: {dtype} flagship, B={n} beam {beams}, {out.steps} steps "
+                  f"in {seconds:.3f} s (smoke figure, not a benchmark), launches "
+                  f"{ {rows[c]: v for c, v in found.items()} }; against the same generate on "
+                  f"the plain versions: {int(equal.sum())} of {n} captions equal; where "
+                  f"running beams first part (image, step, plain's K-th less (K+1)-th, the "
+                  f"kernels', kept-score difference a step before): "
+                  f"{[(i, st, round(a, 5), round(b, 5), round(d, 5)) for i, st, a, b, d in partings]}"
+                  f" (limit {BEAM_TIE} plus that difference, itself at most {WIDE_DRIFT})",
+                  flush=True)
+            require(dtype == "bfloat16" or kw.get("kv_quant") or int(equal.sum()) >= WIDE_EQUAL,
+                    f"{label}: fewer than {WIDE_EQUAL} captions equal to the plain versions'")
+            require(all(d <= WIDE_DRIFT and a <= BEAM_TIE + d and b <= BEAM_TIE + d
+                        for _, _, a, b, d in partings),
+                    f"{label}: beams part from the plain versions' where no near-tie is")
+            if label in WIDE_HEAD_ALONE:
+                kept = int((seqs == alone).all(1).sum())
+                print(f"phase 70, {label}, its head alone on its plain version: {kept} of {n} "
+                      "captions equal to the kernels' run", flush=True)
+        del params, model, px
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is false")
@@ -7294,6 +7925,16 @@ def main() -> None:
     f32_runs += [whole_step_launches, ce32_launches]
     torch.cuda.empty_cache()
     took("66-68")
+    wide_attn_err = check_wide_attention(dev)
+    table = _head_table(dev)
+    wide_head_err = check_wide_heads(dev, table)
+    wide_ms, wide_bounds = time_wide_instances(dev, table)
+    del table
+    torch.cuda.empty_cache()
+    took("69")
+    wide_launches = run_wide_beam_paths(dev)
+    torch.cuda.empty_cache()
+    took("70")
 
     print(card_name_and_limit(), flush=True)
     # each bound at the shape its time was taken at (flagship widths)
@@ -7504,6 +8145,23 @@ def main() -> None:
              plain_ms=tf_ms[(key, "decoder")][1], library_ms=tf_ms[(key, "decoder")][2],
              launches=sum(run[name] for run in f32_runs))
         for name, (source, replaces, key) in F32_ATTENTION_ROWS.items()
+    ]
+    # the wide instances of rows 3, 3 f32, 5, 5 f32, 6 and 17 (phases
+    # 69-70): times at 16 beams and k=37, launches over phase 70's paths
+    wide_err = {**{name: wide_attn_err[form] for form, name in (
+        ("bf16", "fused_lazy_attention_wide"), ("int8", "fused_lazy_attention_q8_wide"),
+        ("f32", "fused_lazy_attention_f32_wide"),
+        ("int8 f32 q", "fused_lazy_attention_q8_f32_wide"))},
+        "fused_head_select_bf16_wide": wide_head_err["fused_head_select_bf16"],
+        "fused_head_select_wide": wide_head_err["fused_head_select"],
+        "fused_head_select_f32_wide": wide_head_err["fused_head_select_f32"],
+        "topk_log_probs_wide": wide_head_err["topk_log_probs"]}
+    bounds.update(wide_bounds)
+    kernels += [
+        dict(name=name, source=f"mic_tpu_torch/csrc/{source}", replaces=replaces,
+             max_abs_err=wide_err[name], ms=wide_ms[name][0], plain_ms=wide_ms[name][1],
+             library_ms=wide_ms[name][2], launches=wide_launches[name])
+        for name, (source, replaces) in WIDE_ROWS.items()
     ]
     for k in kernels:
         k["route"] = "cuda"

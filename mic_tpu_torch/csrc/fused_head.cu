@@ -100,6 +100,17 @@
 // as A; s = acc * xs[row] * ws[col] + b[col] in f32 in the plain version's
 // order (bit-equal logits; the tile's ws and b arrive by TMA beside its
 // last slice).
+//   Wide instances (17 <= k <= 40; beam search asks for 2K + 5 candidates
+// a row under an n-gram ban, 37 at 16 beams): the same kernels with lists
+// of kCapWide = 44 entries a row (kCap = 24 up to k = 16), which the 64
+// resident hidden rows leave room for only beside fewer ring slots: three
+// in the bf16 select at D = 1024 (a slot then serves the two warpgroups in
+// turn, slice s in slot s % stages, where the narrow instance gives each
+// warpgroup the slots of its parity), three stages in the int8 select,
+// four slots in the float32 one (two of each parity, as its narrow six).
+// The merge of their runs is a k-way merge of the runs' lists
+// (fused_head_select_merge_wide_kernel), which are in rank order already:
+// no list of k entries is kept in registers.
 //
 // Bound at the flagship decode shape (N = 1024 rows, D = 1024, V = 250054):
 // the product, 0.52 TFLOP, at the tensor-core rate (0.53 ms in bf16, 0.265
@@ -124,7 +135,8 @@ using namespace head_wgmma;
 
 constexpr float kNegInf = -1e30f;   // NEG_INF of mic_tpu/ops/topk_lse.py
 constexpr float kExpClamp = 60.f;   // _EXP_CLAMP of mic_tpu/ops/fused_head.py
-constexpr int kTopK = 16;           // the largest k served
+constexpr int kTopK = 16;           // the largest k of the narrow instances
+constexpr int kTopKWide = 40;       // the largest k of the wide ones (ROADMAP B45)
 constexpr int kConsumerWarps = 8;                      // two warpgroups
 constexpr int kThreads = (kConsumerWarps + 4) * 32;    // and the producer's warpgroup
 constexpr int kConsumerThreads = kConsumerWarps * 32;
@@ -132,7 +144,9 @@ constexpr int kProducerRegs = 40;                      // registers a thread aft
 constexpr int kConsumerRegs = 232;
 constexpr int kMaxSmem = 232448;
 constexpr int kMaxStages = 8;
-constexpr int kCap = 24;           // candidate entries a row (exact/window)
+constexpr int kCap = 24;           // candidate entries a row (exact/window), k <= 16
+constexpr int kCapWide = 44;       // the same for 17 <= k <= 40: three ring slots still fit
+constexpr int kMergeHeads = 9;     // the wide merge's runs a lane, at most (288 runs)
 
 // (v, id) ranks before (tv, ti): higher value, or the same value and lower id
 __device__ __forceinline__ bool ranks_before(float v, int id, float tv, int ti) {
@@ -288,16 +302,107 @@ __global__ void fused_head_select_merge_kernel(const float* __restrict__ part_m,
   if (lane == 0) lse[row] = lse_r;
 }
 
-// After the select walk's launch: the merge of its runs into lp, ids, lse.
+// The merge of 17 <= k <= 40 candidates a run, one warp a row: a run's
+// list is in rank order, so the row's top k is a k-way merge of the runs'
+// lists.  Lane j holds the head (next entry) of each of runs j, j + 32, ...
+// (up to kMergeHeads of them); each of k rounds takes the best head of the
+// warp (the total order: value, then lower id), and the lane holding it
+// moves that run's head on.  No list is kept in registers.  (max, sum) as
+// the narrow merge.
+__global__ void fused_head_select_merge_wide_kernel(const float* __restrict__ part_m,
+                                                    const float* __restrict__ part_l,
+                                                    const float* __restrict__ part_v,
+                                                    const int32_t* __restrict__ part_i,
+                                                    float* __restrict__ lp,
+                                                    int32_t* __restrict__ ids,
+                                                    float* __restrict__ lse, int n, int k,
+                                                    int runs) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;  // warp-uniform
+  float m = -INFINITY;
+  for (int z = lane; z < runs; z += 32) m = fmaxf(m, part_m[static_cast<size_t>(z) * n + row]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float l = 0.f;
+  for (int z = lane; z < runs; z += 32) {
+    const float mz = part_m[static_cast<size_t>(z) * n + row];
+    if (mz > -INFINITY) l += part_l[static_cast<size_t>(z) * n + row] * expf(mz - m);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  const float lse_r = logf(l) + m;
+  float hv[kMergeHeads];
+  int hi[kMergeHeads], at[kMergeHeads];
+  auto head = [&](int u) {  // run lane + 32 u's entry at[u], or past its list
+    const int z = lane + 32 * u;
+    const bool in = z < runs && at[u] < k;
+    const size_t o = (static_cast<size_t>(z) * n + row) * k + at[u];
+    hv[u] = in ? part_v[o] : -INFINITY;
+    hi[u] = in ? part_i[o] : INT32_MAX;
+  };
+#pragma unroll
+  for (int u = 0; u < kMergeHeads; ++u) {
+    at[u] = 0;
+    head(u);
+  }
+  for (int r = 0; r < k; ++r) {
+    float bv = hv[0];
+    int bi = hi[0], bu = 0;
+#pragma unroll
+    for (int u = 1; u < kMergeHeads; ++u) {
+      if (ranks_before(hv[u], hi[u], bv, bi)) {
+        bv = hv[u];
+        bi = hi[u];
+        bu = u;
+      }
+    }
+    float wv = bv;
+    int wi = bi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, wv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, wi, o);
+      if (ranks_before(ov, oi, wv, wi)) {
+        wv = ov;
+        wi = oi;
+      }
+    }
+    if (bv == wv && bi == wi) {  // the lane holding it (or every lane, once all are spent)
+#pragma unroll
+      for (int u = 0; u < kMergeHeads; ++u) {
+        if (u == bu) {
+          ++at[u];
+          head(u);
+        }
+      }
+    }
+    if (lane == 0) {
+      lp[static_cast<size_t>(row) * k + r] = wv - lse_r;
+      ids[static_cast<size_t>(row) * k + r] = wi;
+    }
+  }
+  if (lane == 0) lse[row] = lse_r;
+}
+
+// After the select walk's launch: the merge of its runs into lp, ids, lse
+// (the wide merge past k = 16).
 int select_merge(void* part_m, void* part_l, void* part_v, void* part_i, void* lp, void* ids,
                  void* lse, int n, int k, int runs, cudaStream_t s) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_head_select_merge_kernel<<<(n + 3) / 4, 128, 0, s>>>(
+  auto merge = k > kTopK ? fused_head_select_merge_wide_kernel : fused_head_select_merge_kernel;
+  merge<<<(n + 3) / 4, 128, 0, s>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
       static_cast<const float*>(part_v), static_cast<const int32_t*>(part_i),
       static_cast<float*>(lp), static_cast<int32_t*>(ids), static_cast<float*>(lse), n, k, runs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The select instances by k: kCap entries a row for k <= 16, kCapWide up
+// to 40; the wide merge takes at most 32 kMergeHeads runs.
+bool select_k_ok(int k, int runs) {
+  return k >= 1 && k <= kTopKWide && (k <= kTopK || runs <= 32 * kMergeHeads);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,6 +754,7 @@ struct RowPair {
   int ti[2];
   int cnt[2];        // entries in the row's candidate list
   int floor_key[2];  // the row's floor as the runs have raised it (exact)
+  int srt[2];        // the list's first entries in rank order (the wide lists)
 };
 
 __device__ __forceinline__ void rows_init(RowPair& st, int row, int n) {
@@ -661,6 +767,7 @@ __device__ __forceinline__ void rows_init(RowPair& st, int row, int n) {
     st.ti[h] = INT32_MAX;
     st.cnt[h] = 0;
     st.floor_key[h] = 0;
+    st.srt[h] = 0;
   }
 }
 
@@ -677,10 +784,19 @@ __device__ __forceinline__ float value(int x) { return __int_as_float(x); }
 // Cut a row's candidate list (its quad's shared entries [0, cnt)) back to its
 // top k, in rank order; the row's threshold becomes its k-th entry.  Every
 // entry's rank is the number of entries that rank before it: distinct,
-// since ids are.
+// since ids are.  With kSorted (the bf16 and int8 selects' wide lists)
+// the list keeps its first `srt` entries in rank order from the last cut,
+// so only the entries after them are compared with all: an earlier
+// entry's rank is its index plus the later entries before it, a later
+// entry's the earlier entries before it (a binary search) plus the later
+// ones; `srt` becomes the entries kept.  (The float32 select keeps the
+// full cut: with this one it measured 13.14 ms against 11.66-11.98 at k =
+// 37, before its epilogue went out of line.)
+template <int kCapT, bool kSorted>
 __device__ __forceinline__ void compact_row(float* bv, int* bi, int& cnt, int k, float& tv,
-                                            int& ti, int t, unsigned quad) {
-  constexpr int kPer = kCap / 4;
+                                            int& ti, int t, unsigned quad, int& srt) {
+  constexpr int kPer = kCapT / 4;
+  const int from = kSorted ? srt : 0;
   float ev[kPer];
   int ei[kPer];
   int rk[kPer];
@@ -691,11 +807,31 @@ __device__ __forceinline__ void compact_row(float* bv, int* bi, int& cnt, int k,
     ei[q] = e < cnt ? bi[e] : INT32_MAX;
     rk[q] = 0;
   }
-  for (int x = 0; x < cnt; ++x) {
+  for (int x = from; x < cnt; ++x) {
     const float xv = bv[x];
     const int xid = bi[x];
 #pragma unroll
     for (int q = 0; q < kPer; ++q) rk[q] += ranks_before(xv, xid, ev[q], ei[q]) ? 1 : 0;
+  }
+  if constexpr (kSorted) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int e = t + 4 * q;
+      if (e < from) {
+        rk[q] += e;
+      } else if (e < cnt) {
+        int lo = 0, hi = from;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (ranks_before(bv[mid], bi[mid], ev[q], ei[q])) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        rk[q] += lo;
+      }
+    }
   }
   __syncwarp(quad);
 #pragma unroll
@@ -707,6 +843,7 @@ __device__ __forceinline__ void compact_row(float* bv, int* bi, int& cnt, int k,
   }
   __syncwarp(quad);
   cnt = min(cnt, k);
+  srt = cnt;
   if (cnt == k) {
     tv = bv[k - 1];
     ti = bi[k - 1];
@@ -718,9 +855,9 @@ __device__ __forceinline__ void compact_row(float* bv, int* bi, int& cnt, int k,
 
 // A complete tile's logits sv (columns >= V at -inf) into the rows' state:
 // the online (max, sum), then the candidates.  cand_v / cand_i: row h = 0's
-// list (row h = 1's is 8 * kCap further); floor: row h = 0's floor in
+// list (row h = 1's is 8 * kCapT further); floor: row h = 0's floor in
 // global memory.  Called by whole warps.
-template <bool kWindow, typename T>
+template <bool kWindow, int kCapT, bool kSorted, typename T>
 __device__ __forceinline__ void select_tile(const T (&sv)[64], int col0, int vocab, int k,
                                             RowPair& st, float* cand_v, int* cand_i, int* floor,
                                             int t, unsigned quad) {
@@ -779,13 +916,14 @@ __device__ __forceinline__ void select_tile(const T (&sv)[64], int col0, int voc
     float tv = h ? st.tv[1] : st.tv[0];
     int ti = h ? st.ti[1] : st.ti[0];
     int c = h ? st.cnt[1] : st.cnt[0];
-    float* rbv = cand_v + 8 * h * kCap;
-    int* rbi = cand_i + 8 * h * kCap;
+    int srt = h ? st.srt[1] : st.srt[0];
+    float* rbv = cand_v + 8 * h * kCapT;
+    int* rbi = cand_i + 8 * h * kCapT;
     if constexpr (kWindow) {
       const float v = h ? wv[1] : wv[0];
       const int id = h ? wi[1] : wi[0];
       if (lv && id >= 0 && ranks_before(v, id, tv, ti)) {  // quad-uniform
-        if (c == kCap) compact_row(rbv, rbi, c, k, tv, ti, t, quad);
+        if (c == kCapT) compact_row<kCapT, kSorted>(rbv, rbi, c, k, tv, ti, t, quad, srt);
         if (t == 0) {
           rbv[c] = v;
           rbi[c] = id;
@@ -830,7 +968,7 @@ __device__ __forceinline__ void select_tile(const T (&sv)[64], int col0, int voc
         }
         const int total = __shfl_sync(0xffffffffu, incl, 3, 4);
         const int before = incl - mine_n;
-        const int space = kCap - c;
+        const int space = kCapT - c;
         const int allow = min(mine_n, max(0, space - before));
         // the first `allow` of them, lowest column first; a value is picked
         // out of the registers by a chain of selects
@@ -850,7 +988,7 @@ __device__ __forceinline__ void select_tile(const T (&sv)[64], int col0, int voc
         __syncwarp();
         if (!__any_sync(0xffffffffu, more)) break;
         if (more) {
-          compact_row(rbv, rbi, c, k, tv, ti, t, quad);
+          compact_row<kCapT, kSorted>(rbv, rbi, c, k, tv, ti, t, quad, srt);
           if (t == 0 && c == k) atomicMax(floor + 8 * h, order_key(tv));
         }
         __syncwarp();
@@ -860,16 +998,19 @@ __device__ __forceinline__ void select_tile(const T (&sv)[64], int col0, int voc
       st.tv[1] = tv;
       st.ti[1] = ti;
       st.cnt[1] = c;
+      st.srt[1] = srt;
     } else {
       st.tv[0] = tv;
       st.ti[0] = ti;
       st.cnt[0] = c;
+      st.srt[0] = srt;
     }
   }
 }
 
 // The rows' (max, sum) over their quads and their candidates in rank order,
 // written as run entry o0 (row h = 0; row h = 1 is 8 further) of the parts.
+template <int kCapT, bool kSorted>
 __device__ __forceinline__ void select_finish(RowPair& st, float* cand_v, int* cand_i, int k,
                                               int t, unsigned quad, float* part_m, float* part_l,
                                               float* part_v, int32_t* part_i, size_t o0) {
@@ -893,9 +1034,10 @@ __device__ __forceinline__ void select_finish(RowPair& st, float* cand_v, int* c
     float tv = h ? st.tv[1] : st.tv[0];
     int ti = h ? st.ti[1] : st.ti[0];
     int c = h ? st.cnt[1] : st.cnt[0];
-    float* rbv = cand_v + 8 * h * kCap;
-    int* rbi = cand_i + 8 * h * kCap;
-    compact_row(rbv, rbi, c, k, tv, ti, t, quad);
+    int srt = h ? st.srt[1] : st.srt[0];
+    float* rbv = cand_v + 8 * h * kCapT;
+    int* rbi = cand_i + 8 * h * kCapT;
+    compact_row<kCapT, kSorted>(rbv, rbi, c, k, tv, ti, t, quad, srt);
     const size_t o = o0 + 8 * h;
     if (t == 0) {
       part_m[o] = h ? st.m[1] : st.m[0];
@@ -919,23 +1061,32 @@ constexpr int kSSlice = kSCols * kSDepth * 2;  // 16384 bytes
 constexpr int kSSide = kSCols * 4;             // a tile's bias beside its last slice
 
 // Alignment slack, the 64 resident hidden rows in 64-deep blocks, `stages`
-// slots with a tile's biases beside each, the candidate lists of both
-// warpgroups' 64 rows, the barriers.
-size_t select_smem_bytes(int d, int stages) {
+// slots with a tile's biases beside each, the candidate lists (`cap`
+// entries a row) of both warpgroups' 64 rows, the barriers (a full barrier
+// a slot for each warpgroup, an empty barrier a slot, the rows' barrier).
+size_t select_smem_bytes(int d, int stages, int cap) {
   const int nkb = (d + kSDepth - 1) / kSDepth;
   return 1024 + static_cast<size_t>(nkb) * kSRows * 128 + static_cast<size_t>(stages) *
-         (kSSlice + kSSide) + 2 * kSRows * kCap * 8 + (2 * stages + 1) * sizeof(uint64_t);
+         (kSSlice + kSSide) + 2 * kSRows * cap * 8 + (3 * stages + 1) * sizeof(uint64_t);
 }
 
-// As many slots as fit, up to eight, an even number (each warpgroup the
-// same): the producer runs that many slices ahead of the products.
-int select_stages(int d) {
+// As many slots as fit, up to eight: the producer runs that many slices
+// ahead of the products.  Slice s goes to slot s % stages.  With the
+// narrow lists (kCap) the count is even, so each warpgroup keeps the slots
+// of its own parity.  The wide lists (kCapWide) take any count, so that
+// three fit at D = 1024 where two would leave each warpgroup one; an odd
+// count makes a slot serve the two warpgroups in turn.  A warpgroup then
+// skips the other's uses of a slot, so each slot has a full barrier for
+// each warpgroup: a barrier's parity names one of two phases, and a wait
+// that skipped one would pass on the other warpgroup's.
+int select_stages(int d, int cap) {
+  const int step = cap == kCap ? 2 : 1;
   int stages = kMaxStages;
-  while (stages > 0 && select_smem_bytes(d, stages) > kMaxSmem) stages -= 2;
+  while (stages > 0 && select_smem_bytes(d, stages, cap) > kMaxSmem) stages -= step;
   return stages;
 }
 
-template <bool kWindow>
+template <bool kWindow, int kCapT>
 __global__ void __launch_bounds__(kThreads, 1)
 select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x 64 boxes
               const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 64-deep boxes
@@ -951,10 +1102,10 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
   unsigned char* xs = align_1024(smem_raw);                 // [nkb][64 rows][128 B], swizzled
   unsigned char* ring = xs + nkb * kSRows * 128;            // [slot][128 cols][128 B], swizzled
   unsigned char* side = ring + stages * kSSlice;            // [slot][bias 128] f32
-  float* cand_v = reinterpret_cast<float*>(side + stages * kSSide);  // [2 x 64 rows][kCap]
-  int* cand_i = reinterpret_cast<int*>(cand_v + 2 * kSRows * kCap);
-  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + 2 * kSRows * kCap);
-  uint64_t* empty = full + stages;
+  float* cand_v = reinterpret_cast<float*>(side + stages * kSSide);  // [2 x 64 rows][kCapT]
+  int* cand_i = reinterpret_cast<int*>(cand_v + 2 * kSRows * kCapT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + 2 * kSRows * kCapT);  // [slot][warpgroup]
+  uint64_t* empty = full + 2 * stages;
   uint64_t* xfull = empty + stages;
 
   const int tid = threadIdx.x;
@@ -971,7 +1122,8 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
 
   if (tid == 0) {
     for (int i = 0; i < stages; ++i) {
-      mbar_init(&full[i], 1);
+      mbar_init(&full[2 * i], 1);
+      mbar_init(&full[2 * i + 1], 1);
       mbar_init(&empty[i], 4);
     }
     mbar_init(xfull, 1);
@@ -995,13 +1147,14 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
         const int j = s >> 1;
         const int kb = j % nkb;
         const int tile = t_begin + 2 * (j / nkb) + (s & 1);
+        uint64_t* f = &full[2 * slot + (s & 1)];
         if (tile < t_end) {
           const bool last = kb == nkb - 1;
-          mbar_expect_tx(&full[slot], last ? kSSlice + kSSide : kSSlice);
-          tma_load_2d(ring + slot * kSSlice, &wmap, &full[slot], kb * kSDepth, tile * kSCols);
-          if (last) tma_load_1d(side + slot * kSSide, &bmap, &full[slot], tile * kSCols);
+          mbar_expect_tx(f, last ? kSSlice + kSSide : kSSlice);
+          tma_load_2d(ring + slot * kSSlice, &wmap, f, kb * kSDepth, tile * kSCols);
+          if (last) tma_load_1d(side + slot * kSSide, &bmap, f, tile * kSCols);
         } else {
-          mbar_arrive(&full[slot]);
+          mbar_arrive(f);
         }
         if (++slot == stages) {
           slot = 0;
@@ -1021,8 +1174,8 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
   // this thread's rows: block rows 16 w + g + 8 h; its candidate lists are
   // the warpgroup's own
   const int rr = 16 * w + g;
-  float* my_cand_v = cand_v + (64 * wg + rr) * kCap;
-  int* my_cand_i = cand_i + (64 * wg + rr) * kCap;
+  float* my_cand_v = cand_v + (64 * wg + rr) * kCapT;
+  int* my_cand_i = cand_i + (64 * wg + rr) * kCapT;
   int* my_floor = row_floor + row0 + rr;
   RowPair st;
   rows_init(st, row0 + rr, n);
@@ -1031,26 +1184,33 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
   float acc[64];
 #pragma unroll
   for (int x = 0; x < 64; ++x) acc[x] = 0.f;
-  int slot = wg, phase = 0;
+  // this warpgroup's slice u is in slot (2 u + wg) % stages: its (u /
+  // period)-th use of the slot, on the warpgroup's own full barrier (an odd
+  // count shares each slot; an even one leaves each its parity's slots);
+  // kept by increments, not by a division and a remainder a slice
+  const int period = stages & 1 ? stages : stages / 2;
+  int slot = wg, phase = 0, left = period;
   auto advance = [&]() {
     slot += 2;
-    if (slot >= stages) {
-      slot -= stages;
+    if (slot >= stages) slot -= stages;
+    if (--left == 0) {
+      left = period;
       phase ^= 1;
     }
   };
+  auto full_of = [&](int at) { return &full[2 * at + wg]; };
   for (int p = 0; p < npairs; ++p) {
     const int tile = t_begin + 2 * p + wg;
     if (tile >= t_end) {  // warpgroup-uniform
       for (int kb = 0; kb < nkb; ++kb) {
-        mbar_wait(&full[slot], phase);
+        mbar_wait(full_of(slot), phase);
         release(empty, slot);
         advance();
       }
       continue;
     }
     for (int kb = 0; kb < nkb; ++kb) {
-      mbar_wait(&full[slot], phase);
+      mbar_wait(full_of(slot), phase);
       if (!kWindow && kb == 0) read_floors(st, my_floor);
 #pragma unroll
       for (int x = 0; x < 64; ++x) fence_operand(acc[x]);
@@ -1095,23 +1255,27 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // hidden (N, D), 64 x
       }
       release(empty, slot);
       advance();
-      select_tile<kWindow>(acc, col0, vocab, k, st, my_cand_v, my_cand_i, my_floor, t, quad);
+      select_tile<kWindow, kCapT, kCapT == kCapWide>(acc, col0, vocab, k, st, my_cand_v,
+                                                     my_cand_i, my_floor, t, quad);
     }
   }
   // each warpgroup's state is a run of its own: entry 2 y + wg
-  select_finish(st, my_cand_v, my_cand_i, k, t, quad, part_m, part_l, part_v, part_i,
-                (2 * static_cast<size_t>(blockIdx.y) + wg) * n + row0 + rr);
+  select_finish<kCapT, kCapT == kCapWide>(st, my_cand_v, my_cand_i, k, t, quad, part_m, part_l,
+                                          part_v, part_i,
+                                          (2 * static_cast<size_t>(blockIdx.y) + wg) * n +
+                                              row0 + rr);
 }
 
-template <bool kWindow>
-int launch_select(const void* x, const void* weight, const void* bias, void* row_floor,
-                  void* part_m, void* part_l, void* part_v, void* part_i, void* lp, void* ids,
-                  void* lse, int n, int d, int vocab, int k, int runs, void* stream) {
-  const int stages = select_stages(d);
-  const size_t smem = select_smem_bytes(d, stages);
+template <bool kWindow, int kCapT>
+int launch_select_cap(const void* x, const void* weight, const void* bias, void* row_floor,
+                      void* part_m, void* part_l, void* part_v, void* part_i, void* lp,
+                      void* ids, void* lse, int n, int d, int vocab, int k, int runs,
+                      void* stream) {
+  const int stages = select_stages(d, kCapT);
+  const size_t smem = select_smem_bytes(d, stages, kCapT);
   const int ntiles = (vocab + kSCols - 1) / kSCols;
-  if (n < 1 || vocab < 1 || d % 32 != 0 || stages < 2 || smem > kMaxSmem || k < 1 ||
-      k > kTopK || runs < 1 || runs > ntiles) {
+  if (n < 1 || vocab < 1 || d % 32 != 0 || stages < 2 || smem > kMaxSmem ||
+      !select_k_ok(k, 2 * runs) || runs < 1 || runs > ntiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap xmap, wmap, bmap;
@@ -1123,7 +1287,8 @@ int launch_select(const void* x, const void* weight, const void* bias, void* row
   }
   if (err == cudaSuccess) err = encode_1d_f32(&bmap, bias, vocab, kSCols);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(select_kernel<kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = select_kernel<kWindow, kCapT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1132,11 +1297,22 @@ int launch_select(const void* x, const void* weight, const void* bias, void* row
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles vary fastest, so the blocks of one run are scheduled together
   const dim3 grid((n + kSRows - 1) / kSRows, runs);
-  select_kernel<kWindow><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       xmap, wmap, bmap, static_cast<int*>(row_floor), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_v), static_cast<int32_t*>(part_i), n,
       d, vocab, k, stages);
   return select_merge(part_m, part_l, part_v, part_i, lp, ids, lse, n, k, 2 * runs, s);
+}
+
+// k <= 16 on the narrow lists, 17-40 on the wide ones.
+template <bool kWindow>
+int launch_select(const void* x, const void* weight, const void* bias, void* row_floor,
+                  void* part_m, void* part_l, void* part_v, void* part_i, void* lp, void* ids,
+                  void* lse, int n, int d, int vocab, int k, int runs, void* stream) {
+  auto launch = k <= kTopK ? launch_select_cap<kWindow, kCap>
+                           : launch_select_cap<kWindow, kCapWide>;
+  return launch(x, weight, bias, row_floor, part_m, part_l, part_v, part_i, lp, ids, lse, n, d,
+                vocab, k, runs, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1148,17 +1324,18 @@ namespace q8 {
 constexpr int kSRows = 128;
 constexpr int kSCols = 128;
 constexpr int kSDepth = 128;
-constexpr int kSStages = 4;
+constexpr int kSStages = 4;      // with the narrow lists
+constexpr int kSStagesWide = 3;  // with the wide lists (kCapWide), which take the fourth
 constexpr int kSSlice = kSCols * kSDepth;  // 16384 bytes
 constexpr int kSSide = kSCols * 8;         // a tile's ws and bias beside its last slice
 
-size_t select_smem_bytes(int d) {
+size_t select_smem_bytes(int d, int stages, int cap) {
   const int nkb = (d + kSDepth - 1) / kSDepth;
-  return 1024 + static_cast<size_t>(nkb) * kSRows * kSDepth + kSStages * (kSSlice + kSSide) +
-         static_cast<size_t>(kSRows) * kCap * 8 + (2 * kSStages + 1) * sizeof(uint64_t);
+  return 1024 + static_cast<size_t>(nkb) * kSRows * kSDepth + stages * (kSSlice + kSSide) +
+         static_cast<size_t>(kSRows) * cap * 8 + (2 * stages + 1) * sizeof(uint64_t);
 }
 
-template <bool kWindow>
+template <bool kWindow, int kCapT, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
 select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 128-byte boxes
               const __grid_constant__ CUtensorMap wmap,   // weight (V, D), the same boxes
@@ -1175,12 +1352,12 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 12
   const int nkb = (d + kSDepth - 1) / kSDepth;
   unsigned char* xs = align_1024(smem_raw);                 // [nkb][128 rows][128 B], swizzled
   unsigned char* ring = xs + nkb * kSRows * kSDepth;        // [stage][128 cols][128 B], swizzled
-  unsigned char* side = ring + kSStages * kSSlice;          // [stage][ws 128, bias 128] f32
-  float* cand_v = reinterpret_cast<float*>(side + kSStages * kSSide);  // [128 rows][kCap]
-  int* cand_i = reinterpret_cast<int*>(cand_v + kSRows * kCap);
-  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + kSRows * kCap);
-  uint64_t* empty = full + kSStages;
-  uint64_t* xfull = empty + kSStages;
+  unsigned char* side = ring + kStages * kSSlice;          // [stage][ws 128, bias 128] f32
+  float* cand_v = reinterpret_cast<float*>(side + kStages * kSSide);  // [128 rows][kCapT]
+  int* cand_i = reinterpret_cast<int*>(cand_v + kSRows * kCapT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + kSRows * kCapT);
+  uint64_t* empty = full + kStages;
+  uint64_t* xfull = empty + kStages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -1192,7 +1369,7 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 12
   const int nslices = (t_end - t_begin) * nkb;
 
   if (tid == 0) {
-    for (int i = 0; i < kSStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], kConsumerWarps);
     }
@@ -1212,8 +1389,8 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 12
         tma_load_2d(xs + kb * kSRows * kSDepth, &xmap, xfull, kb * kSDepth, row0);
       }
       for (int s = 0; s < nslices; ++s) {
-        const int slot = s % kSStages;
-        if (s >= kSStages) mbar_wait(&empty[slot], ((s / kSStages) - 1) & 1);
+        const int slot = s % kStages;
+        if (s >= kStages) mbar_wait(&empty[slot], ((s / kStages) - 1) & 1);
         const int col0 = (t_begin + s / nkb) * kSCols;
         const bool last = s % nkb == nkb - 1;
         mbar_expect_tx(&full[slot], last ? kSSlice + kSSide : kSSlice);
@@ -1247,9 +1424,9 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 12
 #pragma unroll
   for (int x = 0; x < 64; ++x) acc[x] = 0;
   for (int s = 0; s < nslices; ++s) {
-    const int slot = s % kSStages;
+    const int slot = s % kStages;
     const int kb = s % nkb;
-    mbar_wait(&full[slot], (s / kSStages) & 1);
+    mbar_wait(&full[slot], (s / kStages) & 1);
     if (!kWindow && kb == 0) read_floors(st, row_floor + row0 + rb);
     if (wg_live) {
 #pragma unroll
@@ -1299,22 +1476,24 @@ select_kernel(const __grid_constant__ CUtensorMap xmap,   // xq (N, D), 128 x 12
       }
     }
     release(empty, slot);
-    select_tile<kWindow>(acc, col0, vocab, k, st, cand_v + rb * kCap, cand_i + rb * kCap,
-                         row_floor + row0 + rb, t, quad);
+    select_tile<kWindow, kCapT, kCapT == kCapWide>(acc, col0, vocab, k, st, cand_v + rb * kCapT,
+                                                   cand_i + rb * kCapT, row_floor + row0 + rb,
+                                                   t, quad);
   }
-  select_finish(st, cand_v + rb * kCap, cand_i + rb * kCap, k, t, quad, part_m, part_l, part_v,
-                part_i, static_cast<size_t>(blockIdx.y) * n + row0 + rb);
+  select_finish<kCapT, kCapT == kCapWide>(st, cand_v + rb * kCapT, cand_i + rb * kCapT, k, t,
+                                          quad, part_m, part_l, part_v, part_i,
+                                          static_cast<size_t>(blockIdx.y) * n + row0 + rb);
 }
 
-template <bool kWindow>
-int launch_select(const void* xq, const void* xscale, const void* weight, const void* wscale,
-                  const void* bias, void* row_floor, void* part_m, void* part_l, void* part_v,
-                  void* part_i, void* lp, void* ids, void* lse, int n, int d, int vocab, int k,
-                  int runs, void* stream) {
-  const size_t smem = select_smem_bytes(d);
+template <bool kWindow, int kCapT, int kStages>
+int launch_select_cap(const void* xq, const void* xscale, const void* weight, const void* wscale,
+                      const void* bias, void* row_floor, void* part_m, void* part_l,
+                      void* part_v, void* part_i, void* lp, void* ids, void* lse, int n, int d,
+                      int vocab, int k, int runs, void* stream) {
+  const size_t smem = select_smem_bytes(d, kStages, kCapT);
   const int ntiles = (vocab + kSCols - 1) / kSCols;
-  if (n < 1 || vocab < 1 || d % 64 != 0 || smem > kMaxSmem || k < 1 || k > kTopK || runs < 1 ||
-      runs > ntiles) {
+  if (n < 1 || vocab < 1 || d % 64 != 0 || smem > kMaxSmem || !select_k_ok(k, runs) ||
+      runs < 1 || runs > ntiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap xmap, wmap, wsmap, bmap;
@@ -1327,7 +1506,8 @@ int launch_select(const void* xq, const void* xscale, const void* weight, const 
   if (err == cudaSuccess) err = encode_1d_f32(&wsmap, wscale, vocab, kSCols);
   if (err == cudaSuccess) err = encode_1d_f32(&bmap, bias, vocab, kSCols);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(select_kernel<kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = select_kernel<kWindow, kCapT, kStages>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1336,12 +1516,23 @@ int launch_select(const void* xq, const void* xscale, const void* weight, const 
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles vary fastest, so the blocks of one run are scheduled together
   const dim3 grid((n + kSRows - 1) / kSRows, runs);
-  select_kernel<kWindow><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       xmap, wmap, wsmap, bmap, static_cast<const float*>(xscale),
       static_cast<int*>(row_floor), static_cast<float*>(part_m),
       static_cast<float*>(part_l),
       static_cast<float*>(part_v), static_cast<int32_t*>(part_i), n, d, vocab, k);
   return select_merge(part_m, part_l, part_v, part_i, lp, ids, lse, n, k, runs, s);
+}
+
+template <bool kWindow>
+int launch_select(const void* xq, const void* xscale, const void* weight, const void* wscale,
+                  const void* bias, void* row_floor, void* part_m, void* part_l, void* part_v,
+                  void* part_i, void* lp, void* ids, void* lse, int n, int d, int vocab, int k,
+                  int runs, void* stream) {
+  auto launch = k <= kTopK ? launch_select_cap<kWindow, kCap, kSStages>
+                           : launch_select_cap<kWindow, kCapWide, kSStagesWide>;
+  return launch(xq, xscale, weight, wscale, bias, row_floor, part_m, part_l, part_v, part_i, lp,
+                ids, lse, n, d, vocab, k, runs, stream);
 }
 
 }  // namespace q8
@@ -1368,15 +1559,18 @@ constexpr int kBox = tf32x3::kBox;
 constexpr int kSSlot = 4 * kBox;     // two table boxes, hidden hi, hidden lo: 32 KB
 constexpr int kSSide = kSCols * 4;   // a tile's bias beside its last slice
 
-size_t select_smem_bytes(int stages) {
-  return 1024 + static_cast<size_t>(stages) * (kSSlot + kSSide) + 2 * kSRows * kCap * 8 +
+size_t select_smem_bytes(int stages, int cap) {
+  return 1024 + static_cast<size_t>(stages) * (kSSlot + kSSide) + 2 * kSRows * cap * 8 +
          2 * stages * sizeof(uint64_t);
 }
 
-// As many slots as fit, up to eight, an even number (each warpgroup the same).
-int select_stages() {
+// As many slots as fit, up to eight, an even number (each warpgroup the
+// same): six with the narrow lists, four with the wide ones.  (Five slots
+// that serve the warpgroups in turn, as the bf16 select's wide instance
+// has them, made the window select 4% slower: PERF.md, PR 30.)
+int select_stages(int cap) {
   int stages = kMaxStages;
-  while (stages > 0 && select_smem_bytes(stages) > kMaxSmem) stages -= 2;
+  while (stages > 0 && select_smem_bytes(stages, cap) > kMaxSmem) stages -= 2;
   return stages;
 }
 
@@ -1393,7 +1587,18 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
-template <bool kWindow>
+// The epilogue out of line for the wide lists: inlined, its candidate
+// loop's registers made ptxas keep 52 of the tile's accumulators in local
+// memory across every slice's products (a store and a load of each a
+// slice): 11.83-12.43 ms at k = 17-40 against 5.86-7.04 out of line.
+template <bool kWindow, int kCapT>
+__device__ __noinline__ void select_tile_wide(const float (&sv)[64], int col0, int vocab, int k,
+                                              RowPair& st, float* cand_v, int* cand_i,
+                                              int* floor, int t, unsigned quad) {
+  select_tile<kWindow, kCapT, false>(sv, col0, vocab, k, st, cand_v, cand_i, floor, t, quad);
+}
+
+template <bool kWindow, int kCapT>
 __global__ void __launch_bounds__(kThreads, 1)
 select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-row boxes
               const __grid_constant__ CUtensorMap himap,  // hidden hi (N, D), 64-row boxes
@@ -1409,9 +1614,9 @@ select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-
   const int nk = (d + tf32x3::kDepth - 1) / tf32x3::kDepth;
   unsigned char* ring = align_1024(smem_raw);               // [slot][table 2 boxes, hi, lo]
   unsigned char* side = ring + stages * kSSlot;             // [slot][bias 128] f32
-  float* cand_v = reinterpret_cast<float*>(side + stages * kSSide);  // [2 x 64 rows][kCap]
-  int* cand_i = reinterpret_cast<int*>(cand_v + 2 * kSRows * kCap);
-  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + 2 * kSRows * kCap);
+  float* cand_v = reinterpret_cast<float*>(side + stages * kSSide);  // [2 x 64 rows][kCapT]
+  int* cand_i = reinterpret_cast<int*>(cand_v + 2 * kSRows * kCapT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cand_i + 2 * kSRows * kCapT);
   uint64_t* empty = full + stages;
 
   const int tid = threadIdx.x;
@@ -1447,17 +1652,18 @@ select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-
         const int j = s >> 1;
         const int kb = j % nk;
         const int tile = t_begin + 2 * (j / nk) + (s & 1);
+        uint64_t* f = &full[slot];
         if (tile < t_end) {
           const bool last = kb == nk - 1;
           const int kk = kb * tf32x3::kDepth;
           unsigned char* dst = ring + slot * kSSlot;
-          mbar_expect_tx(&full[slot], last ? kSSlot + kSSide : kSSlot);
-          tma_load_2d(dst, &wmap, &full[slot], kk, tile * kSCols);
-          tma_load_2d(dst + 2 * kBox, &himap, &full[slot], kk, row0);
-          tma_load_2d(dst + 3 * kBox, &lomap, &full[slot], kk, row0);
-          if (last) tma_load_1d(side + slot * kSSide, &bmap, &full[slot], tile * kSCols);
+          mbar_expect_tx(f, last ? kSSlot + kSSide : kSSlot);
+          tma_load_2d(dst, &wmap, f, kk, tile * kSCols);
+          tma_load_2d(dst + 2 * kBox, &himap, f, kk, row0);
+          tma_load_2d(dst + 3 * kBox, &lomap, f, kk, row0);
+          if (last) tma_load_1d(side + slot * kSSide, &bmap, f, tile * kSCols);
         } else {
-          mbar_arrive(&full[slot]);
+          mbar_arrive(f);
         }
         if (++slot == stages) {
           slot = 0;
@@ -1477,8 +1683,8 @@ select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-
   // this thread's rows in the select layout: block rows 16 w + g + 8 h; its
   // candidate lists are the warpgroup's own
   const int rr = 16 * w + g;
-  float* my_cand_v = cand_v + (64 * wg + rr) * kCap;
-  int* my_cand_i = cand_i + (64 * wg + rr) * kCap;
+  float* my_cand_v = cand_v + (64 * wg + rr) * kCapT;
+  int* my_cand_i = cand_i + (64 * wg + rr) * kCapT;
   int* my_floor = row_floor + row0 + rr;
   RowPair st;
   rows_init(st, row0 + rr, n);
@@ -1557,24 +1763,30 @@ select_kernel(const __grid_constant__ CUtensorMap wmap,   // weight (V, D), 128-
       fence_proxy_async();
       release(empty, slot);
       advance();
-      select_tile<kWindow>(sv, col0, vocab, k, st, my_cand_v, my_cand_i, my_floor, t, quad);
+      if constexpr (kCapT == kCapWide) {
+        select_tile_wide<kWindow, kCapT>(sv, col0, vocab, k, st, my_cand_v, my_cand_i, my_floor,
+                                         t, quad);
+      } else {
+        select_tile<kWindow, kCapT, false>(sv, col0, vocab, k, st, my_cand_v, my_cand_i,
+                                           my_floor, t, quad);
+      }
     }
   }
   // each warpgroup's state is a run of its own: entry 2 y + wg
-  select_finish(st, my_cand_v, my_cand_i, k, t, quad, part_m, part_l, part_v, part_i,
-                (2 * static_cast<size_t>(blockIdx.y) + wg) * n + row0 + rr);
+  select_finish<kCapT, false>(st, my_cand_v, my_cand_i, k, t, quad, part_m, part_l, part_v,
+                              part_i, (2 * static_cast<size_t>(blockIdx.y) + wg) * n + row0 + rr);
 }
 
-template <bool kWindow>
-int launch_select(const void* x, const void* weight, const void* bias, void* xsplit,
-                  void* row_floor, void* part_m, void* part_l, void* part_v, void* part_i,
-                  void* lp, void* ids, void* lse, int n, int d, int vocab, int k, int runs,
-                  void* stream) {
-  const int stages = select_stages();
-  const size_t smem = select_smem_bytes(stages);
+template <bool kWindow, int kCapT>
+int launch_select_cap(const void* x, const void* weight, const void* bias, void* xsplit,
+                      void* row_floor, void* part_m, void* part_l, void* part_v, void* part_i,
+                      void* lp, void* ids, void* lse, int n, int d, int vocab, int k, int runs,
+                      void* stream) {
+  const int stages = select_stages(kCapT);
+  const size_t smem = select_smem_bytes(stages, kCapT);
   const int ntiles = (vocab + kSCols - 1) / kSCols;
-  if (n < 1 || vocab < 1 || d < 4 || d % 4 != 0 || stages < 2 || smem > kMaxSmem || k < 1 ||
-      k > kTopK || runs < 1 || runs > ntiles) {
+  if (n < 1 || vocab < 1 || d < 4 || d % 4 != 0 || stages < 2 || smem > kMaxSmem ||
+      !select_k_ok(k, 2 * runs) || runs < 1 || runs > ntiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1587,7 +1799,8 @@ int launch_select(const void* x, const void* weight, const void* bias, void* xsp
   if (err == cudaSuccess) err = tf32x3::encode_rows(&lomap, lo, n, d, kSRows);
   if (err == cudaSuccess) err = encode_1d_f32(&bmap, bias, vocab, kSCols);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(select_kernel<kWindow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = select_kernel<kWindow, kCapT>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // every row's floor starts below every value (order_key 0x80808080)
@@ -1595,11 +1808,22 @@ int launch_select(const void* x, const void* weight, const void* bias, void* xsp
   if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles vary fastest, so the blocks of one run are scheduled together
   const dim3 grid((n + kSRows - 1) / kSRows, runs);
-  select_kernel<kWindow><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       wmap, himap, lomap, bmap, static_cast<int*>(row_floor), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_v), static_cast<int32_t*>(part_i), n,
       d, vocab, k, stages);
   return select_merge(part_m, part_l, part_v, part_i, lp, ids, lse, n, k, 2 * runs, s);
+}
+
+template <bool kWindow>
+int launch_select(const void* x, const void* weight, const void* bias, void* xsplit,
+                  void* row_floor, void* part_m, void* part_l, void* part_v, void* part_i,
+                  void* lp, void* ids, void* lse, int n, int d, int vocab, int k, int runs,
+                  void* stream) {
+  auto launch = k <= kTopK ? launch_select_cap<kWindow, kCap>
+                           : launch_select_cap<kWindow, kCapWide>;
+  return launch(x, weight, bias, xsplit, row_floor, part_m, part_l, part_v, part_i, lp, ids, lse,
+                n, d, vocab, k, runs, stream);
 }
 
 }  // namespace f32

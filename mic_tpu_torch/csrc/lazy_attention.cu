@@ -701,6 +701,16 @@ extern "C" int mic_lazy_attention_q8_f32(void* q, void* cache_k, void* k_scale, 
 // staged row for the scores (every beam's dot product with it), warp w the
 // rows w, w + 8, ... for the V product (lane l every beam's dims 2 l, 2 l +
 // 1), each warp's sums added in warp order as in the bf16 walk.
+// Nine to sixteen beams take one instance per form, K read at run time
+// (kWide): q's 16 rows of the A operand hold beams g and g + 8 (rows past K
+// zero), so both products are the same chains as at eight beams; warp w
+// runs the softmax of beams w and w + 8; a row's K mask bytes are read as
+// words where K % 4 == 0 (its bytes start at row * K), as halves where K is
+// even, else byte by byte, and its sixteen beam bits go in the list beside
+// the row's position (12 bits) and source beam (4 bits).  Two blocks an SM
+// at most (128 registers): at sixteen beams the scores of every (beam, row)
+// take 64 KB at index 63.  Past sixteen beams the tile needs a second M
+// tile (ROADMAP B41b).
 namespace {
 namespace blocked {
 
@@ -718,6 +728,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPitch = 144;
 constexpr int kPitchF32 = 272;
 constexpr size_t kMaxSmem = 232448;
+constexpr int kWide = 16;  // the instance of 9-16 beams: the A tile's rows
 
 struct Args {
   const void* q;        // (B, K, H*Dh), pre-scaled by Dh**-0.5, bf16 or f32
@@ -730,6 +741,7 @@ struct Args {
   const int8_t* amask;  // (B, K*t_max, K)
   void* out;            // (B, K, H*Dh), q's dtype
   int t_max, positions, heads, compact, stage, shared;
+  int beams;            // K, which the kWide instance reads at run time
 };
 
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) / 16 * 16; }
@@ -788,6 +800,36 @@ __device__ __forceinline__ unsigned live_bits(const int8_t* m) {
   return bits;
 }
 
+// The same for 9-16 beams, K at run time: a row's bytes start at row * K,
+// 4-byte aligned where K % 4 == 0 and 2-byte aligned where K is even.
+__device__ __forceinline__ unsigned live_bits_wide(const int8_t* m, int K) {
+  unsigned bits = 0;
+  if ((K & 3) == 0) {
+#pragma unroll
+    for (int w = 0; w < kWide / 4; ++w) {
+      if (4 * w < K) {
+        const uint32_t x = *reinterpret_cast<const uint32_t*>(m + 4 * w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bits |= ((x >> (8 * e)) & 0xffu ? 1u : 0u) << (4 * w + e);
+      }
+    }
+  } else if ((K & 1) == 0) {
+#pragma unroll
+    for (int w = 0; w < kWide / 2; ++w) {
+      if (2 * w < K) {
+        const uint32_t x = *reinterpret_cast<const uint16_t*>(m + 2 * w);
+        bits |= ((x & 0xffu ? 1u : 0u) | (x & 0xff00u ? 2u : 0u)) << (2 * w);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kWide; ++k) {
+      if (k < K) bits |= (m[k] ? 1u : 0u) << k;
+    }
+  }
+  return bits;
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -814,12 +856,14 @@ __device__ __forceinline__ void store_out(float* p, float x, float y) {
 // one f32 (K, or V) and run as f32 FMAs: at K=4 each 4-byte element loaded
 // feeds 8 flops, below the card's ~20 flops a byte, so the walk stays bound
 // by its bytes.
-template <typename T, typename Q, int K>
-__global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
+template <typename T, typename Q, int KT>
+__global__ void __launch_bounds__(kThreads, KT == kWide ? 2 : 4) blocked_kernel(const Args a) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
   constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr bool kW = KT == kWide;  // 9-16 beams: beams g and g + 8 in the A tile
   constexpr int kPieces = kHeadDim * sizeof(T) / 16;  // 16-byte pieces of a head row (8, 4, 16)
   constexpr int kRowPitch = kF32 ? kPitchF32 : kPitch;
+  const int K = kW ? a.beams : KT;
   const Q* q_in = static_cast<const Q*>(a.q);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x;
@@ -836,7 +880,8 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   float* w = reinterpret_cast<float*>(smem_raw);  // [K][rows]: scores, then weights
   float* part = w;                                // [kWarps][K][Dh], after the walk
   unsigned char* next = smem_raw + weight_bytes(K, positions);
-  int* list = reinterpret_cast<int*>(next);  // [rows]: j t_max + t | bits << 24
+  // [rows]: j t_max + t | bits << 24, or where kW t | j << 12 | bits << 16
+  int* list = reinterpret_cast<int*>(next);
   int* counts = list + rows;                 // [kWarps]
   next += list_bytes(K, positions, a.compact);
   float* q_s = reinterpret_cast<float*>(next);  // [K][Dh], f32 caches only
@@ -848,11 +893,27 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   const size_t row0 = static_cast<size_t>(b) * K * a.t_max;  // the image's first cache row
 
   // q as the A operand of the scores (beam g's dims 16 s + 2 c (+ 1, + 8,
-  // + 9); rows 8-15 and beams past K are zero), or on a float32 cache the
-  // beams' q rows in shared memory; and warp k's pairs of beam k's q and
-  // step rows for the softmax and the output, loaded first: their latency
-  // hides behind the mask's
-  uint32_t qa[4][2] = {};
+  // + 9); rows 8-15 beam g + 8's where kW, else zero, and beams past K
+  // zero), or on a float32 cache the beams' q rows in shared memory; and
+  // warp k's pairs of beam k's (and k + 8's) q and step rows for the
+  // softmax and the output, loaded first: their latency hides behind the
+  // mask's
+  uint32_t qa[4][2] = {}, qb[4][2] = {};
+  auto load_q = [&](int beam, uint32_t (&frag)[4][2]) {
+    const Q* qg = q_in + (static_cast<size_t>(b) * K + beam) * hd + h * kHeadDim + 2 * c;
+#pragma unroll
+    for (int st = 0; st < 4; ++st) {
+      if constexpr (std::is_same<Q, float>::value) {
+        const float2 lo = load_pair(qg + 16 * st);
+        const float2 hi = load_pair(qg + 16 * st + 8);
+        frag[st][0] = pack_bf16(lo.x, lo.y);
+        frag[st][1] = pack_bf16(hi.x, hi.y);
+      } else {
+        frag[st][0] = *reinterpret_cast<const uint32_t*>(qg + 16 * st);
+        frag[st][1] = *reinterpret_cast<const uint32_t*>(qg + 16 * st + 8);
+      }
+    }
+  };
   if constexpr (kF32) {
     if (tid < K * kHeadDim / 4) {
       const int k = tid / (kHeadDim / 4);
@@ -862,29 +923,35 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       *reinterpret_cast<float4*>(q_s + k * kHeadDim + d) =
           make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
     }
-  } else if (g < K) {
-    const Q* qg = q_in + (static_cast<size_t>(b) * K + g) * hd + h * kHeadDim + 2 * c;
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-      if constexpr (std::is_same<Q, float>::value) {
-        const float2 lo = load_pair(qg + 16 * st);
-        const float2 hi = load_pair(qg + 16 * st + 8);
-        qa[st][0] = pack_bf16(lo.x, lo.y);
-        qa[st][1] = pack_bf16(hi.x, hi.y);
-      } else {
-        qa[st][0] = *reinterpret_cast<const uint32_t*>(qg + 16 * st);
-        qa[st][1] = *reinterpret_cast<const uint32_t*>(qg + 16 * st + 8);
-      }
+  } else {
+    if (g < K) load_q(g, qa);
+    if constexpr (kW) {
+      if (g + 8 < K) load_q(g + 8, qb);
     }
   }
   const size_t qrow =
       (static_cast<size_t>(b) * K + warp) * hd + static_cast<size_t>(h) * kHeadDim + 2 * lane;
-  float2 q2 = {}, ks = {}, vs = {};
+  const size_t qrow8 = qrow + 8 * static_cast<size_t>(hd);  // beam warp + 8's (kW)
+  float2 q2 = {}, ks = {}, vs = {}, q2b = {}, ksb = {}, vsb = {};
   if (warp < K) {
     q2 = load_bf16_pair(q_in + qrow);
     ks = load_bf16_pair(static_cast<const Q*>(a.k_step) + qrow);
     vs = load_bf16_pair(static_cast<const Q*>(a.v_step) + qrow);
   }
+  if constexpr (kW) {
+    if (warp + 8 < K) {
+      q2b = load_bf16_pair(q_in + qrow8);
+      ksb = load_bf16_pair(static_cast<const Q*>(a.k_step) + qrow8);
+      vsb = load_bf16_pair(static_cast<const Q*>(a.v_step) + qrow8);
+    }
+  }
+  auto mask_bits = [&](size_t row) {
+    if constexpr (kW) {
+      return live_bits_wide(a.amask + row * K, K);
+    } else {
+      return live_bits<KT>(a.amask + row * K);
+    }
+  };
 
   // 0. the rows some beam admits, in row order, with their beams' bits
   int n = rows;
@@ -893,11 +960,14 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
     for (int base = 0; base < rows; base += kThreads) {
       const int r = base + tid;
       int at = 0;  // the row's offset in the image's cache rows
+      int entry = 0;
       unsigned bits = 0u;
       if (r < rows) {
         const int j = r / positions;
-        at = j * a.t_max + (r - j * positions);
-        bits = live_bits<K>(a.amask + (row0 + at) * K);
+        const int t = r - j * positions;
+        at = j * a.t_max + t;
+        bits = mask_bits(row0 + at);
+        entry = kW ? t | (j << 12) | static_cast<int>(bits << 16) : at | (bits << 24);
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, bits != 0u);
       if (lane == 0) counts[warp] = __popc(ballot);
@@ -908,19 +978,25 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
         before += v < warp ? counts[v] : 0;
         n += counts[v];
       }
-      if (bits) list[before + __popc(ballot & ((1u << lane) - 1u))] = at | (bits << 24);
+      if (bits) list[before + __popc(ballot & ((1u << lane) - 1u))] = entry;
       __syncthreads();
     }
   }
   // entry i's cache row, and its beams' bits
   auto entry_row = [&](int i) {
-    if (a.compact) return row0 + (list[i] & 0xffffff);
+    if (a.compact) {
+      if constexpr (kW) {
+        return row0 + static_cast<size_t>((list[i] >> 12) & 15) * a.t_max + (list[i] & 0xfff);
+      } else {
+        return row0 + (list[i] & 0xffffff);
+      }
+    }
     const int j = i / positions;
     return row0 + static_cast<size_t>(j) * a.t_max + (i - j * positions);
   };
   auto entry_bits = [&](int i) {
-    return a.compact ? static_cast<unsigned>(list[i]) >> 24
-                     : live_bits<K>(a.amask + entry_row(i) * K);
+    return a.compact ? static_cast<unsigned>(list[i]) >> (kW ? 16 : 24)
+                     : mask_bits(entry_row(i));
   };
 
   // 1. bf16 and f32: entries [c0, c1) of the cache (K or V) into `tile` by
@@ -997,25 +1073,29 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       // reads the same for the warp (a broadcast)
       for (int il = tid; il < nc; il += kThreads) {
         const float* kr = reinterpret_cast<const float*>(k_tile + il * kRowPitch);
-        float acc[K];
+        float acc[KT];
 #pragma unroll
-        for (int k = 0; k < K; ++k) acc[k] = 0.f;
+        for (int k = 0; k < KT; ++k) acc[k] = 0.f;
 #pragma unroll 4
         for (int d = 0; d < kHeadDim; d += 4) {
           const float4 kv = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float4 qv = *reinterpret_cast<const float4*>(q_s + k * kHeadDim + d);
-            acc[k] = fmaf(qv.x, kv.x, acc[k]);
-            acc[k] = fmaf(qv.y, kv.y, acc[k]);
-            acc[k] = fmaf(qv.z, kv.z, acc[k]);
-            acc[k] = fmaf(qv.w, kv.w, acc[k]);
+          for (int k = 0; k < KT; ++k) {
+            if (k < K) {
+              const float4 qv = *reinterpret_cast<const float4*>(q_s + k * kHeadDim + d);
+              acc[k] = fmaf(qv.x, kv.x, acc[k]);
+              acc[k] = fmaf(qv.y, kv.y, acc[k]);
+              acc[k] = fmaf(qv.z, kv.z, acc[k]);
+              acc[k] = fmaf(qv.w, kv.w, acc[k]);
+            }
           }
         }
         const int i = c0 + il;
         const unsigned bits = entry_bits(i);
 #pragma unroll
-        for (int k = 0; k < K; ++k) w[k * rows + i] = (bits >> k) & 1u ? acc[k] : kMaskValue;
+        for (int k = 0; k < KT; ++k) {
+          if (k < K) w[k * rows + i] = (bits >> k) & 1u ? acc[k] : kMaskValue;
+        }
       }
       continue;
     }
@@ -1029,7 +1109,7 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int st = 0; st < 4; ++st) {
-        const uint32_t af[4] = {qa[st][0], 0u, qa[st][1], 0u};
+        const uint32_t af[4] = {qa[st][0], kW ? qb[st][0] : 0u, qa[st][1], kW ? qb[st][1] : 0u};
         const uint32_t b0 = st < 2 ? lo[2 * st] : hi[2 * st - 4];
         const uint32_t b1 = st < 2 ? lo[2 * st + 1] : hi[2 * st - 3];
         mma_bf16(d, af, b0, b1);
@@ -1040,8 +1120,15 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
           const int il = r0 + 2 * c + e;
           if (il < nc) {
             const int i = c0 + il;
+            const unsigned bits = entry_bits(i);
             const float sc = kQ8 ? __fmul_rn(d[e], k_sc[il]) : d[e];
-            w[g * rows + i] = (entry_bits(i) >> g) & 1u ? sc : kMaskValue;
+            w[g * rows + i] = (bits >> g) & 1u ? sc : kMaskValue;
+            if constexpr (kW) {
+              if (g + 8 < K) {
+                const float s8 = kQ8 ? __fmul_rn(d[2 + e], k_sc[il]) : d[2 + e];
+                w[(g + 8) * rows + i] = (bits >> (g + 8)) & 1u ? s8 : kMaskValue;
+              }
+            }
           }
         }
       }
@@ -1049,15 +1136,14 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   }
   __syncthreads();
 
-  // 3. warp k: beam k's softmax; its step row's weight stays in registers.
-  // bf16 and f32 caches' weights are rounded to bf16 here; int8 ones after
-  // their V scale, in 4.
-  float w_step = 0.f;
-  if (warp < K) {
-    float* wk = w + warp * rows;
+  // 3. warp k: beam k's softmax (and beam k + 8's where kW); its step row's
+  // weight stays in registers.  bf16 and f32 caches' weights are rounded to
+  // bf16 here; int8 ones after their V scale, in 4.
+  auto softmax = [&](int beam, float2 qq, float2 kk) {
+    float* wk = w + beam * rows;
     float m = kMaskValue;
     for (int i = lane; i < n; i += 32) m = fmaxf(m, wk[i]);
-    const float s_step = warp_sum(q2.x * ks.x + q2.y * ks.y);
+    const float s_step = warp_sum(qq.x * kk.x + qq.y * kk.y);
     m = fmaxf(warp_max(m), s_step);
     float l = 0.f;
     for (int i = lane; i < n; i += 32) {
@@ -1071,20 +1157,25 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       const float x = __fdiv_rn(wk[i], l);
       wk[i] = kQ8 ? x : bf16_round(x);
     }
-    w_step = bf16_round(__fdiv_rn(e_step, l));
+    return bf16_round(__fdiv_rn(e_step, l));
+  };
+  float w_step = 0.f, w_step8 = 0.f;
+  if (warp < K) w_step = softmax(warp, q2, ks);
+  if constexpr (kW) {
+    if (warp + 8 < K) w_step8 = softmax(warp + 8, q2b, ksb);
   }
 
   // 4. the V walk: warp w takes groups of sixteen staged rows w, w + 8, ...
   // (on a float32 cache the rows w, w + 8, ..., lane l every beam's dims
   // 2 l and 2 l + 1, the weights' reads a broadcast)
-  float acc[8][4];  // beam g's output dims 8 nb + 2 c (+ 1) in [nb][0..1]
+  float acc[8][4];  // beam g's output dims 8 nb + 2 c (+ 1) in [nb][0..1], g + 8's in [2..3]
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[nb][x] = 0.f;
-  float accf[K][2];  // f32 caches: beam k's dims 2 lane (+ 1)
+  float accf[KT][2];  // f32 caches: beam k's dims 2 lane (+ 1)
 #pragma unroll
-  for (int k = 0; k < K; ++k) accf[k][0] = accf[k][1] = 0.f;
+  for (int k = 0; k < KT; ++k) accf[k][0] = accf[k][1] = 0.f;
   for (int ch = 0; ch < chunks; ++ch) {
     const int c0 = ch * stage;
     const int nc = min(n, c0 + stage) - c0;
@@ -1102,28 +1193,36 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
       for (int il = warp; il < nc; il += kWarps) {
         const float2 v2 = *reinterpret_cast<const float2*>(v_tile + il * kRowPitch + 8 * lane);
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float wk = w[k * rows + c0 + il];
-          accf[k][0] = fmaf(wk, v2.x, accf[k][0]);
-          accf[k][1] = fmaf(wk, v2.y, accf[k][1]);
+        for (int k = 0; k < KT; ++k) {
+          if (k < K) {
+            const float wk = w[k * rows + c0 + il];
+            accf[k][0] = fmaf(wk, v2.x, accf[k][0]);
+            accf[k][1] = fmaf(wk, v2.y, accf[k][1]);
+          }
         }
       }
       continue;
     }
     for (int e0 = 16 * warp; e0 < nc; e0 += 16 * kWarps) {
-      // beam g's weights of rows e0 + 2 c (+ 1, + 8, + 9); 0 past the chunk
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (g < K) {
+      // beam g's (and g + 8's) weights of rows e0 + 2 c (+ 1, + 8, + 9); 0
+      // past the chunk
+      auto weights = [&](int beam, float (&x)[4]) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int il = e0 + 2 * c + (e & 1) + 8 * (e >> 1);
           if (il < nc) {
-            x[e] = w[g * rows + c0 + il];
+            x[e] = w[beam * rows + c0 + il];
             if (kQ8) x[e] = bf16_round(x[e] != 0.f ? __fmul_rn(x[e], v_sc[il]) : x[e]);
           }
         }
+      };
+      float x[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+      if (g < K) weights(g, x);
+      if constexpr (kW) {
+        if (g + 8 < K) weights(g + 8, y);
       }
-      const uint32_t af[4] = {pack_bf16(x[0], x[1]), 0u, pack_bf16(x[2], x[3]), 0u};
+      const uint32_t af[4] = {pack_bf16(x[0], x[1]), kW ? pack_bf16(y[0], y[1]) : 0u,
+                              pack_bf16(x[2], x[3]), kW ? pack_bf16(y[2], y[3]) : 0u};
       // rows past the chunk read as its last row, at weight 0
       const int row = min(e0 + 8 * ((lane >> 3) & 1) + (lane & 7), nc - 1);
       const uint32_t at = smem_addr(v_tile + row * kRowPitch + 16 * (lane >> 4));
@@ -1139,39 +1238,57 @@ __global__ void __launch_bounds__(kThreads, 4) blocked_kernel(const Args a) {
   __syncthreads();  // every weight read: the partial sums take their place
   if constexpr (kF32) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      *reinterpret_cast<float2*>(part + (warp * K + k) * kHeadDim + 2 * lane) =
-          make_float2(accf[k][0], accf[k][1]);
+    for (int k = 0; k < KT; ++k) {
+      if (k < K) {
+        *reinterpret_cast<float2*>(part + (warp * K + k) * kHeadDim + 2 * lane) =
+            make_float2(accf[k][0], accf[k][1]);
+      }
     }
-  } else if (g < K) {
+  } else {
+    if (g < K) {
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      *reinterpret_cast<float2*>(part + (warp * K + g) * kHeadDim + 8 * nb + 2 * c) =
-          make_float2(acc[nb][0], acc[nb][1]);
+      for (int nb = 0; nb < 8; ++nb) {
+        *reinterpret_cast<float2*>(part + (warp * K + g) * kHeadDim + 8 * nb + 2 * c) =
+            make_float2(acc[nb][0], acc[nb][1]);
+      }
+    }
+    if constexpr (kW) {
+      if (g + 8 < K) {
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          *reinterpret_cast<float2*>(part + (warp * K + g + 8) * kHeadDim + 8 * nb + 2 * c) =
+              make_float2(acc[nb][2], acc[nb][3]);
+        }
+      }
     }
   }
   __syncthreads();
-  if (warp < K) {
+  auto finish = [&](int beam, float ws, float2 v, size_t at) {
     float ax = 0.f, ay = 0.f;
 #pragma unroll
-    for (int v = 0; v < kWarps; ++v) {
-      const float2 p = *reinterpret_cast<const float2*>(part + (v * K + warp) * kHeadDim +
+    for (int u = 0; u < kWarps; ++u) {
+      const float2 p = *reinterpret_cast<const float2*>(part + (u * K + beam) * kHeadDim +
                                                         2 * lane);
       ax += p.x;
       ay += p.y;
     }
-    ax = fmaf(w_step, vs.x, ax);
-    ay = fmaf(w_step, vs.y, ay);
-    store_out(static_cast<Q*>(a.out) + qrow, ax, ay);
+    ax = fmaf(ws, v.x, ax);
+    ay = fmaf(ws, v.y, ay);
+    store_out(static_cast<Q*>(a.out) + at, ax, ay);
+  };
+  if (warp < K) finish(warp, w_step, vs, qrow);
+  if constexpr (kW) {
+    if (warp + 8 < K) finish(warp + 8, w_step8, vsb, qrow8);
   }
 }
 
-template <typename T, typename Q, int K>
+template <typename T, typename Q, int KT>
 int launch_beams(const Args& a, int batch, cudaStream_t stream) {
-  const size_t smem = smem_bytes(K, a.positions, a.compact, a.stage, a.shared,
-                                 std::is_same<T, int8_t>::value, std::is_same<T, float>::value);
+  const size_t smem = smem_bytes(KT == kWide ? a.beams : KT, a.positions, a.compact, a.stage,
+                                 a.shared, std::is_same<T, int8_t>::value,
+                                 std::is_same<T, float>::value);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = blocked_kernel<T, Q, K>;
+  auto kernel = blocked_kernel<T, Q, KT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1181,12 +1298,16 @@ int launch_beams(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// 1-8 beams an instance each; 9-16 the kWide instance, whose list keeps a
+// row's position in 12 bits (positions < 4096: the scores of 9 beams fit
+// 717 at most).
 template <typename T, typename Q>
 int launch(const Args& a, int batch, int beams, int head_dim, cudaStream_t stream) {
-  if (head_dim != kHeadDim || beams < 1 || beams > 8 || a.positions < 0 ||
-      a.positions > a.t_max || a.heads < 1 || batch < 1 || batch > 65535 || a.stage < 1 ||
-      a.stage > kThreads ||
-      static_cast<int64_t>(beams) * a.t_max >= (1 << 24)) {
+  if (head_dim != kHeadDim || beams < 1 || beams > kWide || beams != a.beams ||
+      a.positions < 0 || a.positions > a.t_max || a.heads < 1 || batch < 1 || batch > 65535 ||
+      a.stage < 1 || a.stage > kThreads ||
+      static_cast<int64_t>(beams) * a.t_max >= (1 << 24) ||
+      (beams > 8 && a.compact && a.positions >= 4096)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (beams) {
@@ -1197,7 +1318,8 @@ int launch(const Args& a, int batch, int beams, int head_dim, cudaStream_t strea
     case 5: return launch_beams<T, Q, 5>(a, batch, stream);
     case 6: return launch_beams<T, Q, 6>(a, batch, stream);
     case 7: return launch_beams<T, Q, 7>(a, batch, stream);
-    default: return launch_beams<T, Q, 8>(a, batch, stream);
+    case 8: return launch_beams<T, Q, 8>(a, batch, stream);
+    default: return launch_beams<T, Q, kWide>(a, batch, stream);
   }
 }
 
@@ -1215,7 +1337,7 @@ extern "C" int mic_lazy_attention_blocked_bf16(void* q, void* cache_k, void* cac
                                                void* stream) {
   const blocked::Args a{q, cache_k, cache_v, nullptr, nullptr, k_step, v_step,
                         static_cast<const int8_t*>(amask), out,
-                        t_max, positions, heads, compact, stage, shared};
+                        t_max, positions, heads, compact, stage, shared, beams};
   return blocked::launch<__nv_bfloat16, __nv_bfloat16>(a, batch, beams, head_dim,
                                                        static_cast<cudaStream_t>(stream));
 }
@@ -1228,7 +1350,7 @@ extern "C" int mic_lazy_attention_blocked_f32(void* q, void* cache_k, void* cach
                                               void* stream) {
   const blocked::Args a{q, cache_k, cache_v, nullptr, nullptr, k_step, v_step,
                         static_cast<const int8_t*>(amask), out,
-                        t_max, positions, heads, compact, stage, shared};
+                        t_max, positions, heads, compact, stage, shared, beams};
   return blocked::launch<float, float>(a, batch, beams, head_dim,
                                        static_cast<cudaStream_t>(stream));
 }
@@ -1243,7 +1365,7 @@ int launch_blocked_q8(void* q, void* cache_k, void* k_scale, void* cache_v, void
   const blocked::Args a{q, cache_k, cache_v, static_cast<const float*>(k_scale),
                         static_cast<const float*>(v_scale), k_step, v_step,
                         static_cast<const int8_t*>(amask), out,
-                        t_max, positions, heads, compact, stage, shared};
+                        t_max, positions, heads, compact, stage, shared, beams};
   return blocked::launch<int8_t, Q>(a, batch, beams, head_dim, static_cast<cudaStream_t>(stream));
 }
 

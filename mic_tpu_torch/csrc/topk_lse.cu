@@ -37,7 +37,9 @@
 //     at most 2^-25 (lse - mean) (about 5e-7 for a flat row of 250054).
 //     So the lse is within a few 1e-7 of the exact one at these sizes,
 //     below the 1e-5 the checks hold lp to;
-//   - the warp keeps one top-k list, entry j in lane j.  A batch costs one
+//   - the warp keeps one top-k list, entry j in lane j (k <= 32; past 32,
+//     up to 40, each lane holds two slots: entry j in lane j % 32, slot
+//     j / 32, List2 below).  A batch costs one
 //     compare a piece (its max >= the k-th value) and one vote; only where a
 //     piece holds a candidate are its values offered, with their ids, to
 //     the list (out of line: the walk's loop stays small), which takes them
@@ -46,7 +48,9 @@
 //     k-th with a lower id ranks before it (the peeled tail, walked first,
 //     can hold the k-th).  While the list fills, more than k lanes vote:
 //     then the k-th largest of the lanes' maxima (a bitonic sort across the
-//     lanes) cuts the values offered, since at least k values reach it.
+//     lanes) cuts the values offered, since at least k values reach it;
+//     past k = 32, the ceil(k / 2)-th largest of the lanes' second-largest
+//     piece maxima, each lane below it holding two values that reach it.
 // One launch: 8 warps a block, at most 128 registers (two blocks an SM).
 // Measured as patched copies (tools/torch_topk_variants.py): 2 or 8 loads a
 // batch, three blocks an SM, runs of at least 1024 or 2048 columns, and the
@@ -65,10 +69,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 8;  // warps a block, one (row, run) each
-constexpr int kMaxK = 16;
+constexpr int kMaxK = 40;   // ROADMAP B45: 16 beams with an n-gram ban ask for 37
 constexpr int kVecs = 4;   // 16-byte loads a lane issues a batch
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -187,6 +193,61 @@ struct List {
   }
 };
 
+// The same list for 32 < k <= 64: entry j in lane j % 32, slot j / 32.  An
+// insert shifts both slots right by a lane, lane 31's first slot into lane
+// 0's second.
+struct List2 {
+  float lv[2] = {-INFINITY, -INFINITY}, thr_v = -INFINITY;
+  int li[2] = {INT32_MAX, INT32_MAX}, thr_i = INT32_MAX;
+
+  __device__ __forceinline__ void offer(float v, int id, bool valid, int lane, int k) {
+    bool pending = valid && ranks_before(v, id, thr_v, thr_i);
+    unsigned ballot = __ballot_sync(kFull, pending);
+    while (ballot) {
+      const int src = __ffs(ballot) - 1;
+      const float nv = __shfl_sync(kFull, v, src);
+      const int ni = __shfl_sync(kFull, id, src);
+      bool after[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        after[q] = 32 * q + lane < k && ranks_before(nv, ni, lv[q], li[q]);
+      }
+      // each entry's left neighbour: the lane before's, lane 0's second
+      // slot lane 31's first
+      float left_v[2];
+      int left_i[2];
+      bool left_after[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        left_v[q] = __shfl_up_sync(kFull, lv[q], 1);
+        left_i[q] = __shfl_up_sync(kFull, li[q], 1);
+        left_after[q] = __shfl_up_sync(kFull, static_cast<int>(after[q]), 1);
+      }
+      const float wrap_v = __shfl_sync(kFull, lv[0], 31);
+      const int wrap_i = __shfl_sync(kFull, li[0], 31);
+      const bool wrap_after = __shfl_sync(kFull, static_cast<int>(after[0]), 31);
+      if (lane == 0) {
+        left_after[0] = false;
+        left_v[1] = wrap_v;
+        left_i[1] = wrap_i;
+        left_after[1] = wrap_after;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (after[q]) {
+          lv[q] = left_after[q] ? left_v[q] : nv;
+          li[q] = left_after[q] ? left_i[q] : ni;
+        }
+      }
+      const int last = (k - 1) & 31;
+      thr_v = __shfl_sync(kFull, k > 32 ? lv[1] : lv[0], last);
+      thr_i = __shfl_sync(kFull, k > 32 ? li[1] : li[0], last);
+      pending = pending && lane != src && ranks_before(v, id, thr_v, thr_i);
+      ballot = __ballot_sync(kFull, pending);
+    }
+  }
+};
+
 // The k-th largest of the warp's 32 values x (k <= 32) in every lane, by a
 // bitonic sort across the lanes, descending.  Where more than k lanes hold
 // candidates, at least k values are at least this large, so no value below
@@ -220,9 +281,9 @@ __device__ __forceinline__ void load_batch(uint4 (&r)[kVecs], const uint4* body,
 // The rare path, out of line so that the walk's loop stays small: one
 // piece a lane (its first column col0) offered to the list value by value,
 // values under `cut` not at all.
-template <typename T>
-__device__ __noinline__ List offer_piece(List list, uint4 r, int col0, bool valid, float cut,
-                                         int lane, int k) {
+template <typename T, typename L>
+__device__ __noinline__ L offer_piece(L list, uint4 r, int col0, bool valid, float cut, int lane,
+                                      int k) {
 #pragma unroll 1
   for (int e = 0; e < Piece<T>::kN; ++e) {
     const float v = Piece<T>::at(r, e);
@@ -237,8 +298,8 @@ __device__ __noinline__ List offer_piece(List list, uint4 r, int col0, bool vali
 // only a piece that holds one, in some lane, is offered.  Where more than k
 // lanes vote (the list filling), the k-th largest of the lanes' maxima
 // cuts the offers further.
-template <typename T>
-__device__ __forceinline__ void take_batch(const uint4 (&r)[kVecs], Lse& lse, List& list, int b,
+template <typename T, typename L>
+__device__ __forceinline__ void take_batch(const uint4 (&r)[kVecs], Lse& lse, L& list, int b,
                                            int pieces, int col0, int lane, int k) {
   constexpr int W = Piece<T>::kN;
   float top[kVecs];
@@ -270,13 +331,27 @@ __device__ __forceinline__ void take_batch(const uint4 (&r)[kVecs], Lse& lse, Li
   }
   const unsigned voters = __ballot_sync(kFull, any);
   if (voters == 0) return;
-  float cut = __popc(voters) > k ? warp_kth(best, k, lane) : -INFINITY;
+  float cut;
+  if constexpr (std::is_same<L, List>::value) {
+    cut = __popc(voters) > k ? warp_kth(best, k, lane) : -INFINITY;
+  } else {
+    // the lane's second-largest piece maximum: ceil(k / 2) lanes at or
+    // above the cut hold k values that reach it
+    float first = -INFINITY, second = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      second = fmaxf(second, fminf(first, top[u]));
+      first = fmaxf(first, top[u]);
+    }
+    const int half = (k + 1) / 2;
+    cut = __popc(voters) > half ? warp_kth(second, half, lane) : -INFINITY;
+  }
 #pragma unroll
   for (int u = 0; u < kVecs; ++u) {
     cut = fmaxf(cut, list.thr_v);
     if (__any_sync(kFull, top[u] >= cut)) {
       const int j = b * 32 * kVecs + 32 * u + lane;
-      list = offer_piece<T>(list, r[u], col0 + j * W, j < pieces, cut, lane, k);
+      list = offer_piece<T, L>(list, r[u], col0 + j * W, j < pieces, cut, lane, k);
     }
   }
 }
@@ -285,6 +360,7 @@ __device__ __forceinline__ void take_batch(const uint4 (&r)[kVecs], Lse& lse, Li
 // z (z + 32, ...) and then the butterfly; their lists offered 32 entries at
 // a time to one list; lp = value - lse.  The partials are read from L2
 // (other SMs wrote them).
+template <typename L>
 __device__ void fold_row(const float* part_m, const float* part_l, const float* part_v,
                          const int32_t* part_i, float* lp, int32_t* ids, int row, int n, int k,
                          int runs, int lane) {
@@ -295,7 +371,7 @@ __device__ void fold_row(const float* part_m, const float* part_l, const float* 
   }
   warp_fold(lse);
   const float total = __shfl_sync(kFull, lse.value(), 0);
-  List list;
+  L list;
   const int entries = runs * k;
   for (int t0 = 0; t0 < entries; t0 += 32) {  // warp-uniform
     const int t = t0 + lane;
@@ -311,13 +387,24 @@ __device__ void fold_row(const float* part_m, const float* part_l, const float* 
     const float cut = __popc(voters) > k ? warp_kth(v, k, lane) : -INFINITY;
     list.offer(v, id, valid && v >= cut, lane, k);
   }
-  if (lane < k) {
-    lp[static_cast<size_t>(row) * k + lane] = list.lv - total;
-    ids[static_cast<size_t>(row) * k + lane] = list.li;
+  if constexpr (std::is_same<L, List>::value) {
+    if (lane < k) {
+      lp[static_cast<size_t>(row) * k + lane] = list.lv - total;
+      ids[static_cast<size_t>(row) * k + lane] = list.li;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (32 * q + lane < k) {
+        lp[static_cast<size_t>(row) * k + 32 * q + lane] = list.lv[q] - total;
+        ids[static_cast<size_t>(row) * k + 32 * q + lane] = list.li[q];
+      }
+    }
   }
 }
 
-template <typename T>
+// L: List (k <= 32) or List2 (32 < k <= 64)
+template <typename T, typename L>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 topk_lse_kernel(const T* __restrict__ logits,  // (N, V)
                 float* __restrict__ part_m,    // (runs, N)
@@ -343,7 +430,7 @@ topk_lse_kernel(const T* __restrict__ logits,  // (N, V)
   const uint4* body = reinterpret_cast<const uint4*>(x + ca);
 
   Lse lse;
-  List list;
+  L list;
   {  // the head and the tail, fewer than W columns each: one a lane
     const int tail = c1 - cb;
     const bool valid = lane < head + tail;
@@ -358,10 +445,10 @@ topk_lse_kernel(const T* __restrict__ logits,  // (N, V)
   load_batch<T>(r0, body, 0, pieces, lane);
   for (int b = 0; b < batches; b += 2) {  // warp-uniform
     load_batch<T>(r1, body, b + 1, pieces, lane);
-    take_batch<T>(r0, lse, list, b, pieces, ca, lane, k);
+    take_batch<T, L>(r0, lse, list, b, pieces, ca, lane, k);
     if (b + 1 < batches) {
       load_batch<T>(r0, body, b + 2, pieces, lane);
-      take_batch<T>(r1, lse, list, b + 1, pieces, ca, lane, k);
+      take_batch<T, L>(r1, lse, list, b + 1, pieces, ca, lane, k);
     }
   }
   warp_fold(lse);
@@ -371,9 +458,19 @@ topk_lse_kernel(const T* __restrict__ logits,  // (N, V)
     part_m[o] = lse.m;
     part_l[o] = lse.l;
   }
-  if (lane < k) {
-    part_v[o * k + lane] = list.lv;
-    part_i[o * k + lane] = list.li;
+  if constexpr (std::is_same<L, List>::value) {
+    if (lane < k) {
+      part_v[o * k + lane] = list.lv;
+      part_i[o * k + lane] = list.li;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (32 * q + lane < k) {
+        part_v[o * k + 32 * q + lane] = list.lv[q];
+        part_i[o * k + 32 * q + lane] = list.li[q];
+      }
+    }
   }
   __threadfence();  // this run's partials are visible before it counts itself in
   __syncwarp();
@@ -382,15 +479,15 @@ topk_lse_kernel(const T* __restrict__ logits,  // (N, V)
   prior = __shfl_sync(kFull, prior, 0);
   if (prior != static_cast<unsigned>(runs - 1)) return;
   __threadfence();  // the last run in: every run's partials are visible
-  fold_row(part_m, part_l, part_v, part_i, lp, ids, row, n, k, runs, lane);
+  fold_row<L>(part_m, part_l, part_v, part_i, lp, ids, row, n, k, runs, lane);
   if (lane == 0) arrivals[row] = 0;
 }
 
 constexpr int kMaxDevices = 64;
 
-// Resident warps of topk_lse_kernel<T> in one wave on the current device,
-// queried once a device: the launch runs once a decode step.
-template <typename T>
+// Resident warps of topk_lse_kernel<T, L> in one wave on the current
+// device, queried once a device: the launch runs once a decode step.
+template <typename T, typename L>
 cudaError_t wave_warps(int* wave) {
   static int cached[kMaxDevices] = {};
   int dev = 0;
@@ -402,7 +499,7 @@ cudaError_t wave_warps(int* wave) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_lse_kernel<T>,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_lse_kernel<T, L>,
                                                           kWarps * 32, 0);
     }
     if (err != cudaSuccess) return err;
@@ -414,6 +511,26 @@ cudaError_t wave_warps(int* wave) {
 
 // part_* hold max_runs partials a row; the launch uses as many as fill a
 // wave.  arrivals: n counters, 0 on entry and again on return.
+template <typename T, typename L>
+int launch_list(const void* logits, void* part_m, void* part_l, void* part_v, void* part_i,
+                void* arrivals, void* lp, void* ids, int n, int vocab, int k, int max_runs,
+                void* stream) {
+  int wave = 0;
+  cudaError_t err = wave_warps<T, L>(&wave);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int want = max(1, min(max_runs, wave / n));
+  const int run_cols = (vocab + want - 1) / want;
+  const int runs = (vocab + run_cols - 1) / run_cols;  // none empty
+  const int blocks = static_cast<int>((static_cast<int64_t>(n) * runs + kWarps - 1) / kWarps);
+  topk_lse_kernel<T, L><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(logits), static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(part_v), static_cast<int32_t*>(part_i),
+      static_cast<unsigned*>(arrivals), static_cast<float*>(lp), static_cast<int32_t*>(ids), n,
+      vocab, k, runs, run_cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k <= 32 on the one-slot list, 33-40 on the two-slot one.
 template <typename T>
 int launch(const void* logits, void* part_m, void* part_l, void* part_v, void* part_i,
            void* arrivals, void* lp, void* ids, int n, int vocab, int k, int max_runs,
@@ -422,19 +539,9 @@ int launch(const void* logits, void* part_m, void* part_l, void* part_v, void* p
       max_runs > vocab) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int wave = 0;
-  cudaError_t err = wave_warps<T>(&wave);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int want = max(1, min(max_runs, wave / n));
-  const int run_cols = (vocab + want - 1) / want;
-  const int runs = (vocab + run_cols - 1) / run_cols;  // none empty
-  const int blocks = static_cast<int>((static_cast<int64_t>(n) * runs + kWarps - 1) / kWarps);
-  topk_lse_kernel<T><<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(logits), static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_v), static_cast<int32_t*>(part_i),
-      static_cast<unsigned*>(arrivals), static_cast<float*>(lp), static_cast<int32_t*>(ids), n,
-      vocab, k, runs, run_cols);
-  return static_cast<int>(cudaGetLastError());
+  auto run = k <= 32 ? launch_list<T, List> : launch_list<T, List2>;
+  return run(logits, part_m, part_l, part_v, part_i, arrivals, lp, ids, n, vocab, k, max_runs,
+             stream);
 }
 
 }  // namespace

@@ -38,6 +38,11 @@ few, ``bucket_f32_route``), its exact and window selects
 csrc/fused_head.cu's f32::select_kernel on the same tile.  They compute
 the logits to float32 accuracy (the tile with three TF32 products a term,
 the stream with f32 FMAs); D is any multiple of 4.
+
+The exact and window kernels take k up to 40 (beam search asks for 2K + 5
+candidates a row under an n-gram ban: 37 at 16 beams): up to 16 on their
+narrow candidate lists, 17-40 on wide ones (``select_candidates``) beside
+fewer ring slots; more raise, naming ROADMAP B41b.
 """
 
 from __future__ import annotations
@@ -54,9 +59,12 @@ WINDOW = 128   # _WINDOW of mic_tpu/ops/fused_head.py
 _ROW_TILE = 64  # hidden rows per block of csrc/fused_head.cu (kBRows, kSRows)
 _COL_TILE = 64  # bucket columns per block of the bucket kernels (kBCols)
 _Q8_SELECT_ROWS = 128  # hidden rows per block of the int8 select kernel (q8::kSRows)
-_TOPK_MAX = 16  # the largest k of the select kernels (kTopK)
+_TOPK_NARROW = 16  # the largest k of the select kernels' narrow lists (kTopK)
+_TOPK_MAX = 40  # the largest k of the wide lists (kTopKWide; ROADMAP B45, more is B41b)
 _MAX_STAGES = 8  # ring stages of the kernels (kMaxStages)
 _CANDIDATES = 24  # candidate entries a row of the select kernels (kCap)
+_CANDIDATES_WIDE = 44  # the same past k = 16 (kCapWide)
+_MERGE_RUNS = 32 * 9  # runs the wide merge takes (32 kMergeHeads)
 SMEM_LIMIT = 232448  # shared memory a block can have on the H100
 SELECTS = ("bucket", "exact", "window")
 _F32_BOX = 64 * 128  # a 64-row, 32-deep f32 box of the 3xTF32 tile (tf32x3::kBox)
@@ -259,50 +267,71 @@ def bucket_bf16_stages(d: int) -> int:
     return stages
 
 
-def select_q8_smem_bytes(d: int) -> int:
+def select_candidates(k: int) -> int:
+    """The candidate entries a row of the exact/window kernels at k: 24 up
+    to k = 16 (kCap), 44 past it (kCapWide; a list cut back to its top k
+    when full, which stays rare at 7 or more spare entries)."""
+    return _CANDIDATES if k <= _TOPK_NARROW else _CANDIDATES_WIDE
+
+
+def select_q8_stages(k: int = 1) -> int:
+    """The int8 exact/window kernel's ring stages: four with the narrow
+    lists (kSStages), three with the wide ones (kSStagesWide)."""
+    return 4 if k <= _TOPK_NARROW else 3
+
+
+def select_q8_smem_bytes(d: int, k: int = 1) -> int:
     """Shared memory of the int8 exact/window kernel (q8::select_smem_bytes):
-    alignment slack, the 128 resident int8 rows in 128-deep blocks, four
-    ring stages of 128 x 128 bytes with a tile's 128 scales and biases beside
-    each, 24 candidates (value, id) for each of the 128 rows, nine
-    mbarriers."""
-    return 1024 + -(-d // 128) * 128 * 128 + 4 * (128 * 128 + 128 * 8) + 128 * 24 * 8 + 9 * 8
+    alignment slack, the 128 resident int8 rows in 128-deep blocks, the ring
+    stages (``select_q8_stages``) of 128 x 128 bytes with a tile's 128
+    scales and biases beside each, ``select_candidates(k)`` candidates
+    (value, id) for each of the 128 rows, the mbarriers."""
+    stages = select_q8_stages(k)
+    return (1024 + -(-d // 128) * 128 * 128 + stages * (128 * 128 + 128 * 8)
+            + 128 * select_candidates(k) * 8 + (2 * stages + 1) * 8)
 
 
-def select_bf16_smem_bytes(d: int, stages: int) -> int:
+def select_bf16_smem_bytes(d: int, stages: int, k: int = 1) -> int:
     """Shared memory of the bf16 exact/window kernel (select_smem_bytes):
     alignment slack, the 64 resident hidden rows in 64-deep blocks of 128
     bytes a row, ``stages`` slots of a 128-column x 64-deep bf16 slice with
-    a tile's 128 biases beside each, 24 candidates (value, id) for each of
-    the two warpgroups' 64 rows, the barriers."""
+    a tile's 128 biases beside each, ``select_candidates(k)`` candidates
+    (value, id) for each of the two warpgroups' 64 rows, the barriers (a
+    full barrier a slot for each warpgroup, an empty one a slot, the
+    rows')."""
     return (1024 + -(-d // 64) * 64 * 128 + stages * (128 * 64 * 2 + 128 * 4)
-            + 2 * 64 * _CANDIDATES * 8 + (2 * stages + 1) * 8)
+            + 2 * 64 * select_candidates(k) * 8 + (3 * stages + 1) * 8)
 
 
-def select_bf16_stages(d: int) -> int:
+def select_bf16_stages(d: int, k: int = 1) -> int:
     """The bf16 select kernel's slots at depth D (select_stages): as many as
     fit, up to eight, an even number (half of them each warpgroup's); it
     takes D when there are two or more, D <= 1344 (four or more, two a
-    warpgroup, load a warpgroup's next slice while it multiplies one)."""
+    warpgroup, load a warpgroup's next slice while it multiplies one).  Past
+    k = 16 any number: the slots then serve the warpgroups in turn, three at
+    D = 1024."""
+    step = 2 if k <= _TOPK_NARROW else 1
     stages = _MAX_STAGES
-    while stages > 0 and select_bf16_smem_bytes(d, stages) > SMEM_LIMIT:
-        stages -= 2
+    while stages > 0 and select_bf16_smem_bytes(d, stages, k) > SMEM_LIMIT:
+        stages -= step
     return stages
 
 
-def select_f32_smem_bytes(stages: int) -> int:
+def select_f32_smem_bytes(stages: int, k: int = 1) -> int:
     """Shared memory of the float32 exact/window kernel
     (f32::select_smem_bytes): alignment slack, ``stages`` slots of a tile's
     128 table rows and the 64 hidden rows' hi and lo (32-deep f32 boxes, 32
     KB) with a tile's 128 biases beside each, the candidate lists of both
     warpgroups' 64 rows, the barriers; the same at every D."""
-    return 1024 + stages * (4 * _F32_BOX + 128 * 4) + 2 * 64 * _CANDIDATES * 8 + 2 * stages * 8
+    return (1024 + stages * (4 * _F32_BOX + 128 * 4) + 2 * 64 * select_candidates(k) * 8
+            + 2 * stages * 8)
 
 
-def select_f32_stages() -> int:
+def select_f32_stages(k: int = 1) -> int:
     """The float32 select kernel's slots (f32::select_stages): as many as
-    fit, up to eight, an even number."""
+    fit, up to eight, an even number (six; four past k = 16)."""
     stages = _MAX_STAGES
-    while stages > 0 and select_f32_smem_bytes(stages) > SMEM_LIMIT:
+    while stages > 0 and select_f32_smem_bytes(stages, k) > SMEM_LIMIT:
         stages -= 2
     return stages
 
@@ -397,11 +426,12 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     kind = "q8" if q8 else "f32" if f32 else "bf16"
     entry = f"mic_fused_head_select_{kind}"
     candidates = -(-v // WINDOW) if window else v
-    fits = {"q8": d % 64 == 0 and select_q8_smem_bytes(d) <= SMEM_LIMIT,
-            "f32": d % 4 == 0 and d >= 4 and select_f32_stages() >= 2,
-            "bf16": d % 32 == 0 and select_bf16_stages(d) >= 2}[kind]
-    if (weight.shape != (v, d) or bias.shape != (v,) or not fits
-            or not 1 <= k <= min(_TOPK_MAX, candidates)):
+    if not 1 <= k <= _TOPK_MAX:
+        raise ValueError(f"{entry}: k={k} outside 1..{_TOPK_MAX} (ROADMAP B41b)")
+    fits = {"q8": d % 64 == 0 and select_q8_smem_bytes(d, k) <= SMEM_LIMIT,
+            "f32": d % 4 == 0 and d >= 4 and select_f32_stages(k) >= 2,
+            "bf16": d % 32 == 0 and select_bf16_stages(d, k) >= 2}[kind]
+    if (weight.shape != (v, d) or bias.shape != (v,) or not fits or k > candidates):
         raise ValueError(f"{entry}: x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}, k={k}")
     want = {"q8": torch.int8, "f32": torch.float32, "bf16": torch.bfloat16}[kind]
@@ -413,6 +443,8 @@ def fused_head_select(x, xscale, weight, wscale, bias, k: int, window: bool):
     runs = select_runs(n, v, _sms(x.device), _Q8_SELECT_ROWS if q8 else _ROW_TILE)
     # the bf16 and f32 kernels' two warpgroups each write their state as a run
     entries = runs if q8 else 2 * runs
+    if k > _TOPK_NARROW and entries > _MERGE_RUNS:
+        raise ValueError(f"{entry}: {entries} runs exceed the wide merge's {_MERGE_RUNS}")
     fl = dict(dtype=torch.float32, device=x.device)
     part_m, part_l = torch.empty((2, entries, n), **fl)
     part_v = torch.empty((entries, n, k), **fl)

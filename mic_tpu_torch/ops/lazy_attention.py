@@ -409,10 +409,16 @@ def fused_lazy_attention_plain(q, cache_k, cache_v, k_step, v_step, amask, beams
 # most rows a chunk stages (224: at K=4, index 63, every image's admitted
 # rows in one chunk and three blocks an SM, four at small indices; at most
 # the block's 256 threads); on a float32 cache, whose staged rows take
-# 272 bytes, 96 (three blocks an SM at K=4, index 63)
+# 272 bytes, 96 (three blocks an SM at K=4, index 63).  Nine to sixteen
+# beams (the kWide instance) stage at most 128 rows, 64 on a float32
+# cache: at K=16, index 63, the scores take 64 KB and two blocks still fit
+# an SM.  Past 16 beams the kernel needs a second M tile (ROADMAP B41b).
 _BLOCKED_WARPS = 8
 _STAGE_ROWS = 224
 _STAGE_ROWS_F32 = 96
+_STAGE_ROWS_WIDE = 128
+_STAGE_ROWS_WIDE_F32 = 64
+BLOCKED_MAX_BEAMS = 16
 
 
 def _stage_bytes(stage: int, q8: bool, f32: bool = False) -> int:
@@ -431,15 +437,22 @@ def blocked_layout(beams: int, positions: int, q8: bool = False,
     beam admits are never read); on a float32 cache (``f32``) the beams' q
     rows in f32; and a chunk of ``stage`` K rows and one of V rows, copied
     in by cp.async at a 144-byte pitch (272 on a float32 cache; up to
-    _STAGE_ROWS rows, _STAGE_ROWS_F32 on a float32 cache, fewer where shared
-    memory is short), or where ``shared`` one chunk that K's and V's rows
-    take in turn.  Compact where the list fits beside two chunks of
-    min(rows, 32) rows; else the walk takes every row, the dead ones at
-    weight 0."""
+    _STAGE_ROWS rows, _STAGE_ROWS_F32 on a float32 cache, and at 9-16 beams
+    _STAGE_ROWS_WIDE or _STAGE_ROWS_WIDE_F32; fewer where shared memory is
+    short), or where ``shared`` one chunk that K's and V's rows take in
+    turn.  Compact where the list fits beside two chunks of min(rows, 32)
+    rows; else the walk takes every row, the dead ones at weight 0.  Raises
+    a ValueError naming ROADMAP B41b past 16 beams, or where the scores
+    leave no room for a staged row (16 beams past 226 positions)."""
+    if not 1 <= beams <= BLOCKED_MAX_BEAMS:
+        raise ValueError(f"fused_lazy_attention kernel: {beams} beams; the kernel takes 1-"
+                         f"{BLOCKED_MAX_BEAMS} (ROADMAP B41b: more need a second M tile)")
     rows = beams * positions
     weights = _align16(4 * max(beams * rows, _BLOCKED_WARPS * beams * 64))
     q_rows = _align16(4 * beams * 64) if f32 else 0
-    want = max(1, min(_STAGE_ROWS_F32 if f32 else _STAGE_ROWS, rows))
+    cap = ((_STAGE_ROWS_WIDE_F32 if f32 else _STAGE_ROWS_WIDE) if beams > 8
+           else _STAGE_ROWS_F32 if f32 else _STAGE_ROWS)
+    want = max(1, min(cap, rows))
     for compact, buffers in ((True, 2), (False, 2), (False, 1)):
         fixed = weights + (_align16(4 * (rows + _BLOCKED_WARPS)) if compact else 0) + q_rows
         stage = min(want, max(0, _MAX_SMEM - fixed) // (buffers * _stage_bytes(1, q8, f32)))
@@ -448,7 +461,8 @@ def blocked_layout(beams: int, positions: int, q8: bool = False,
         if stage >= (min(want, 32) if compact else 1):
             return compact, stage, buffers == 1, fixed + buffers * _stage_bytes(stage, q8, f32)
     raise ValueError(f"fused_lazy_attention kernel: {beams} beams x {positions} positions do "
-                     f"not fit a block's shared memory ({weights} > {_MAX_SMEM} bytes)")
+                     f"not fit a block's shared memory ({weights} > {_MAX_SMEM} bytes; "
+                     f"ROADMAP B41b)")
 
 
 def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
@@ -478,9 +492,10 @@ def fused_lazy_attention(q, cache_k, cache_v, k_step, v_step, amask, beams: int,
         raise TypeError(f"{name} kernel: int8 cache scales must be float32")
     if amask.dtype != torch.int8:
         raise TypeError(f"{name} kernel: the ancestry mask must be int8")
-    if dh != 64 or hd != num_heads * dh or beams != k or not 1 <= k <= 8:
-        raise ValueError(f"{name} kernel: head_dim 64 and 1-8 beams, got {hd}/{num_heads}, "
-                         f"beams={beams}")
+    if dh != 64 or hd != num_heads * dh or beams != k or not 1 <= k <= BLOCKED_MAX_BEAMS:
+        raise ValueError(f"{name} kernel: head_dim 64 and 1-{BLOCKED_MAX_BEAMS} beams, got "
+                         f"{hd}/{num_heads}, beams={beams} (ROADMAP B41b: more beams need a "
+                         "second M tile)")
     if not 0 <= positions <= t:
         raise ValueError(f"{name} kernel: positions={positions}, T={t}")
     if (kq.shape != (b * k, t, hd) or vq.shape != kq.shape or k_step.shape != q.shape

@@ -8,9 +8,9 @@ Every top-k of the port goes through ``top_k`` below.
 
 ``topk_log_probs`` (MIC_TPU_EXPERIMENTAL=pallas_topk in the dense-logits
 candidate select) returns the top-k entries of log_softmax(logits) without
-a vocab-wide log-softmax.  Its wrapper takes the plain version for tensors
-on the CPU and its kernel (csrc/topk_lse.cu) for tensors on a CUDA device;
-it never falls back from one to the other.
+a vocab-wide log-softmax, for k up to ``TOPK_MAX``.  Its wrapper takes
+the plain version for tensors on the CPU and its kernel (csrc/topk_lse.cu)
+for tensors on a CUDA device; it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -21,7 +21,10 @@ from mic_tpu_torch import _build
 
 # masked vocab columns of the LM head (mic_tpu/ops/topk_lse.py NEG_INF)
 NEG_INF = -1e30
-TOPK_MAX = 16     # the largest k the kernel keeps; the search asks for at most 13
+# the largest k the kernel keeps: beam search asks for 2K + 1 candidates a
+# row, 2K + 5 under no_repeat_ngram_size, so 37 at 16 beams (ROADMAP B45;
+# more is B41b)
+TOPK_MAX = 40
 _RUN_COLS = 4096  # the fewest vocab columns a run of the kernel walks
 _ENTRIES = {torch.bfloat16: "mic_topk_lse_bf16", torch.float32: "mic_topk_lse_f32"}
 
@@ -54,7 +57,8 @@ def topk_log_probs(logits: torch.Tensor, k: int):
                         f"got {logits.dtype}")
     n, v = logits.shape
     if not 1 <= k <= min(TOPK_MAX, v):
-        raise ValueError(f"topk_log_probs kernel: k={k} outside 1..{min(TOPK_MAX, v)}")
+        raise ValueError(f"topk_log_probs kernel: k={k} outside 1..{min(TOPK_MAX, v)} "
+                         "(ROADMAP B41b)")
     if not logits.is_contiguous():
         raise ValueError("topk_log_probs kernel: logits must be contiguous")
     # partials for up to one run a _RUN_COLS columns, in one buffer: (max,

@@ -282,13 +282,26 @@ GENERATE_CASES = {
                         env={"MIC_TPU_FUSED_HEAD": "1", "MIC_TPU_FUSED_SELECT": "bucket",
                              "MIC_TPU_DECODE_QUANT": "int8"},
                         decode={}, kw=dict(max_length=10, forced_bos_token_id=7)),
+    # twelve beams with an n-gram ban: the search asks the head for 2 x 12 +
+    # 5 = 29 candidates a row, past the narrow selects' 16 (ROADMAP B45);
+    # the exact and window selects' plain versions on both sides (V = 4000:
+    # 32 windows of 128 for the window's 29)
+    "exact_k12_ngram3": dict(vocab=4000,
+                             env={"MIC_TPU_FUSED_HEAD": "1", "MIC_TPU_FUSED_SELECT": "exact"},
+                             decode={}, kw=dict(num_beams=12, max_length=8,
+                                                forced_bos_token_id=7, no_repeat_ngram_size=3)),
+    "window_k12_ngram3": dict(vocab=4000,
+                              env={"MIC_TPU_FUSED_HEAD": "1", "MIC_TPU_FUSED_SELECT": "window"},
+                              decode={}, kw=dict(num_beams=12, max_length=8,
+                                                 forced_bos_token_id=7, no_repeat_ngram_size=3)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GENERATE_CASES))
 def test_beam_generate_matches_jax(case, monkeypatch):
-    """Beam-4 generate from uint8 images with a forced BOS: sequences equal
-    to JAX's CPU generate, scores within 1e-5."""
+    """Beam-4 generate (a case's ``num_beams`` where it sets one) from uint8
+    images with a forced BOS: sequences equal to JAX's CPU generate, scores
+    within 1e-5."""
     spec = GENERATE_CASES[case]
     for key, value in spec["env"].items():
         monkeypatch.setenv(key, value)
@@ -297,7 +310,7 @@ def test_beam_generate_matches_jax(case, monkeypatch):
     jax_model, jparams, model, tparams = _models(config, seed=2, scale=0.5,
                                                  eos_bias=spec.get("eos_bias", 0.0))
     u8 = _images(n=3, seed=3)
-    kw = dict(num_beams=4, **spec["kw"])
+    kw = {"num_beams": 4, **spec["kw"]}
     ref = jax.jit(lambda p, x: jax_model.generate(p, x, **kw))(
         jparams, jax_preprocess(jnp.asarray(u8), 32)
     )

@@ -62,7 +62,11 @@ another order); row 16 within ``_mlp_f32_limit``, a tolerance fitted between
 sound and faulty kernels; rows 9 and 10 in float32 (the save forward's
 statistics bit-equal, its logits within a bf16 ulp; the contractions'
 demb and dh within 1e-4 of what dl's own error moves them by); and the
-refusal still standing (row 3 past 8 beams, B41) raises before any launch.
+refusals still standing (row 3 past 16 beams, the selects and row 17 past
+40 candidates: ROADMAP B41b) raise before any launch.  Rows 3, 5, 5 f32, 6
+and 17 past eight beams (B41, B45): row 3 at 9-16 beams in every form, the
+selects and row 17 at k in {17, 25, 37, 40} against plain, ties too, and
+the wide instances' first 16 candidates equal to the narrow ones'.
 """
 
 import pytest
@@ -417,6 +421,85 @@ def test_fused_head_select_kernel_ties(cuda, q8):
             ids = fused_head_topk(hidden, weight, bias, k, select)[1]
         torch.cuda.synchronize()
         assert ids.tolist() == [want] * 4, (select, ids.tolist())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [70, 1024])
+@pytest.mark.parametrize("k", [17, 25, 37, 40])
+@pytest.mark.parametrize("select", ["exact", "window"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_fused_head_select_wide_kernels_match_plain(cuda, kind, select, k, n):
+    """The selects' wide instances (17 <= k <= 40, ROADMAP B45) against
+    plain on V = 5000 (40 windows), D = 128: bf16 as the narrow one's
+    tolerances, int8 ids equal and lp within 1e-5, float32 within
+    ``_f32_head_close``; a rerun bit-equal; k = 16 (the narrow instance) on
+    the same rows gives the wide one's first 16 ids."""
+    hidden, weight, bias, wq, ws = _head_inputs(cuda, n, 128, 5000, 40 + n + k)
+
+    def run(kk):
+        if kind == "int8":
+            return fused_head_topk_q8(hidden, wq, ws, bias, kk, select)
+        if kind == "f32":
+            return fused_head_topk(hidden.float(), weight.float(), bias.float(), kk, select)
+        return fused_head_topk(hidden, weight, bias, kk, select)
+
+    launches = fused_head_select.launches
+    out, again, narrow = run(k), run(k), run(16)
+    if kind == "int8":
+        ref = fused_head_topk_q8_plain(hidden, wq, ws, bias, k, select)
+    elif kind == "f32":
+        ref = fused_head_topk_plain(hidden.float(), weight.float(), bias.float(), k, select)
+    else:
+        ref = fused_head_topk_plain(hidden, weight, bias, k, select)
+    torch.cuda.synchronize()
+    assert fused_head_select.launches == launches + 3
+    assert all(torch.equal(a, c) for a, c in zip(out, again))
+    assert torch.equal(narrow[1], out[1][:, :16])
+    (lp, ids, lse), (rlp, rids, rlse) = out, ref
+    if kind == "int8":
+        assert torch.equal(ids, rids)
+        torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
+        torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=0)
+    elif kind == "f32":
+        _f32_head_close(out, ref, hidden.float() @ weight.float().T + bias.float())
+    else:
+        logits = hidden.float() @ weight.float().T + bias.float()
+        gap = (logits.gather(1, ids.long()) - logits.gather(1, rids.long())).abs()
+        assert bool((gap[ids != rids] < 1e-2).all())
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=0)
+        torch.testing.assert_close(lp[ids == rids], rlp[ids == rids], rtol=0, atol=2e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_fused_head_select_wide_kernel_ties(cuda, kind):
+    """Zero hidden rows over a bias of ties (20 columns at 3, 20 at 2, the
+    rest 0) at k = 37: the wide instances' ids equal the plain version's
+    (the lower id first; the highest lane in a window, then window order),
+    across the runs the kernels cut the vocab into; 41 candidates raise
+    naming ROADMAP B41b before any launch."""
+    _, weight, _, wq, ws = _head_inputs(cuda, 4, 128, 5000, 31)
+    hidden = torch.zeros((4, 128), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros((5000,), device=cuda, dtype=torch.bfloat16)
+    cols = torch.randperm(5000, generator=torch.Generator().manual_seed(5))[:40].to(cuda)
+    bias[cols[:20]], bias[cols[20:]] = 3.0, 2.0
+
+    def run(select, k):
+        if kind == "int8":
+            return fused_head_topk_q8(hidden, wq, ws, bias, k, select)
+        if kind == "f32":
+            return fused_head_topk(hidden.float(), weight.float(), bias.float(), k, select)
+        return fused_head_topk(hidden, weight, bias, k, select)
+
+    for select in ("exact", "window"):
+        ids = run(select, 37)[1]
+        ref = fused_head_topk_plain(hidden, weight, bias, 37, select)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(ids, ref), (select, ids[0].tolist(), ref[0].tolist())
+        launches = fused_head_select.launches
+        with pytest.raises(ValueError, match="B41b"):
+            run(select, 41)
+        assert fused_head_select.launches == launches
 
 
 _HEAD_TABLES = {}
@@ -1002,7 +1085,7 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("v", [997, 20011, 250054])  # odd: rows of every 16-byte alignment
 @pytest.mark.parametrize("n", [1, 5, 70, 256])        # one run to many; a partial block
-@pytest.mark.parametrize("k", [1, 2, 9, 13, 16])
+@pytest.mark.parametrize("k", [1, 2, 9, 13, 16, 17, 25, 37, 40])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_topk_lse_kernel_matches_plain(cuda, dtype, k, n, v):
     g = torch.Generator(device=cuda).manual_seed(300 + k)
@@ -1072,13 +1155,13 @@ def test_topk_lse_kernel_finds_planted_columns(cuda, dtype, v):
     g = torch.Generator(device=cuda).manual_seed(330)
     for offset in range(8):
         x, cols = _planted_logits(g, 24, v, offset, dtype)
-        for k in (1, 9, 16):
+        for k in (1, 9, 16, 17, 37, 40):
             lp, ids = topk_log_probs(x, k)
             again = topk_log_probs(x, k)
             rlp, rids = topk_log_probs_plain(x, k)
             torch.cuda.synchronize()
             assert torch.equal(ids, rids), (offset, k)
-            assert torch.equal(ids.cpu().long(), cols[:, :k]), (offset, k)
+            assert torch.equal(ids[:, :16].cpu().long(), cols[:, :k]), (offset, k)
             torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
             assert torch.equal(lp, again[0]) and torch.equal(ids, again[1])
 
@@ -1096,7 +1179,7 @@ def test_topk_lse_kernel_ties_go_to_the_lower_id(cuda):
     logits[3, ::3] = -torch.inf
     for dtype in (torch.float32, torch.bfloat16):
         x = logits.to(dtype)
-        for k in (13, 16):
+        for k in (13, 16, 17, 37, 40):
             lp, ids = topk_log_probs(x, k)
             again = topk_log_probs(x, k)
             rlp, rids = topk_log_probs_plain(x, k)
@@ -1105,8 +1188,10 @@ def test_topk_lse_kernel_ties_go_to_the_lower_id(cuda):
             assert ids[0].tolist() == list(range(k)) and ids[1, :3].tolist() == [5, 9000, 19000]
             torch.testing.assert_close(lp, rlp, rtol=0, atol=1e-5)
             assert torch.equal(lp, again[0]) and torch.equal(ids, again[1])
-    with pytest.raises(ValueError, match="k=17"):
-        topk_log_probs(logits, 17)
+    launches = topk_log_probs.launches
+    with pytest.raises(ValueError, match="B41b"):
+        topk_log_probs(logits, 41)
+    assert topk_log_probs.launches == launches
 
 
 @pytest.mark.requires_cuda
@@ -1166,7 +1251,7 @@ def _blocked_masks(cuda, g, b, beams, t, index):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("index", [0, 1, 17, 63])
-@pytest.mark.parametrize("beams", [1, 4, 8])
+@pytest.mark.parametrize("beams", [1, 4, 8, 9, 12, 16])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_lazy_attention_kernel_matches_plain(cuda, q8, beams, index):
     """Mode "1" on an ancestry mask, on a mask of random bits (several
@@ -1190,7 +1275,7 @@ def test_fused_lazy_attention_kernel_matches_plain(cuda, q8, beams, index):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("beams", [1, 3, 4, 8])
+@pytest.mark.parametrize("beams", [1, 3, 4, 8, 9, 12, 15, 16])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_lazy_attention_kernel_exact_sums(cuda, q8, beams):
     """With q = 0 every admitted score is 0: each weight is 1 / (live rows
@@ -1221,17 +1306,18 @@ def test_fused_lazy_attention_kernel_exact_sums(cuda, q8, beams):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("beams,index", [(8, 850), (1, 58048)])
+@pytest.mark.parametrize("beams,index", [(8, 850), (1, 58048), (16, 210), (15, 258)])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_lazy_attention_kernel_walks_every_row_past_the_list(cuda, q8, beams, index):
-    """Eight beams at 850 positions: the list of admitted rows no longer
-    fits beside the scores (blocked_layout), so the walk takes every row,
-    the dead ones at weight 0, in chunks of a few dozen staged rows; one
-    beam at 58048 positions (the most the earlier kernel took): one staged
-    row at a time, K's and V's taking turns in one buffer."""
+    """Eight beams at 850 positions (sixteen at 210): the list of admitted
+    rows no longer fits beside the scores (blocked_layout), so the walk
+    takes every row, the dead ones at weight 0, in chunks of a few dozen
+    staged rows; one beam at 58048 positions (the most the earlier kernel
+    took) and fifteen at 258: a few staged rows at a time, K's and V's
+    taking turns in one buffer."""
     b, t, heads = 1, index + 6, 2
     compact, stage, shared, _ = blocked_layout(beams, index, q8)
-    assert not compact and stage < 128 and shared == (beams == 1)
+    assert not compact and stage < 128 and shared == (beams in (1, 15))
     g = torch.Generator(device=cuda).manual_seed(300)
     q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, q8)
     for name, amask in _blocked_masks(cuda, g, b, beams, t, index).items():
@@ -2133,7 +2219,7 @@ def test_lazy_attention_q8_f32_kernel_matches_plain(cuda, b, beams, t, heads, in
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("index", [0, 1, 17, 63])
-@pytest.mark.parametrize("beams", [2, 4, 8])
+@pytest.mark.parametrize("beams", [2, 4, 8, 9, 12, 16])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_lazy_attention_f32_kernel_matches_plain(cuda, q8, beams, index):
     """Row 3 on a float32 model (mode "1"): the float32 cache and the
@@ -2160,7 +2246,7 @@ def test_fused_lazy_attention_f32_kernel_matches_plain(cuda, q8, beams, index):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("beams", [1, 3, 4, 8])
+@pytest.mark.parametrize("beams", [1, 3, 4, 8, 9, 16])
 @pytest.mark.parametrize("q8", [False, True])
 def test_fused_lazy_attention_f32_kernel_exact_sums(cuda, q8, beams):
     """q = 0 and integer V (float32 values, or int8 with power-of-two V
@@ -2189,18 +2275,20 @@ def test_fused_lazy_attention_f32_kernel_exact_sums(cuda, q8, beams):
 
 
 @pytest.mark.requires_cuda
-def test_fused_lazy_attention_refuses_more_than_eight_beams(cuda):
-    """Row 3 takes 1-8 beams (ROADMAP B41): nine raise on the card, in
-    either dtype, before any launch."""
-    b, beams, t, heads = 2, 9, 16, 2
-    for dtype in (torch.bfloat16, torch.float32):
-        g = torch.Generator(device=cuda).manual_seed(9)
-        q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, False, dtype=dtype)
-        amask = torch.zeros((b, beams * t, beams), dtype=torch.int8, device=cuda)
-        launches = fused_lazy_attention.launches
-        with pytest.raises(ValueError, match="1-8 beams"):
-            fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=3)
-        assert fused_lazy_attention.launches == launches
+def test_fused_lazy_attention_refuses_more_than_sixteen_beams(cuda):
+    """Row 3 takes 1-16 beams: seventeen (a second M tile) raise on the
+    card, in either dtype, before any launch, naming ROADMAP B41b; so do
+    sixteen past the window whose scores fit a block (T = 256)."""
+    b, heads = 2, 2
+    for beams, t, index in ((17, 16, 3), (16, 256, 250)):
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=cuda).manual_seed(9)
+            q, ck, cv, ks, vs = _blocked_inputs(cuda, g, b, beams, t, heads, False, dtype=dtype)
+            amask = torch.zeros((b, beams * t, beams), dtype=torch.int8, device=cuda)
+            launches = fused_lazy_attention.launches
+            with pytest.raises(ValueError, match="B41b"):
+                fused_lazy_attention(q, ck, cv, ks, vs, amask, beams, heads, positions=index)
+            assert fused_lazy_attention.launches == launches
 
 
 @pytest.mark.requires_cuda

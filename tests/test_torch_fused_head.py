@@ -137,6 +137,35 @@ def test_plain_f32_matches_pallas_select_kernel(select):
     np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
 
 
+@pytest.mark.parametrize("select", ["exact", "window"])
+@pytest.mark.parametrize("k", [17, 25, 37])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+def test_wide_select_plain_matches_jax(kind, k, select):
+    """Past 16 candidates (ROADMAP B45: beam search asks for 2K + 5 a row
+    under an n-gram ban, 37 at 16 beams), on V = 5000 (40 windows): the
+    bf16 head on bf16-valued hidden rows and table, and the int8 head,
+    against mic_tpu's functions; a float32 model's head against mic_tpu's
+    exact/window kernel in interpret mode.  Ids equal, log-probs and lse
+    within 1e-5."""
+    hidden, weight, bias = _inputs(n=6, v=5000, seed=60 + k)
+    if kind == "int8":
+        _compare_q8(hidden, weight, bias, k, select)
+        return
+    if kind == "bf16":
+        hidden, weight, bias = (torch.from_numpy(a).bfloat16().float().numpy()
+                                for a in (hidden, weight, bias))
+        _compare(hidden, weight, bias, k, select)
+        return
+    ref = jax_fused_head_topk(jnp.asarray(hidden), jnp.asarray(weight).T, jnp.asarray(bias), k,
+                              select, interpret=True)
+    got = fused_head_topk(torch.from_numpy(hidden), torch.from_numpy(weight),
+                          torch.from_numpy(bias), k, select)
+    lp, ids, lse = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(got[1].numpy(), ids)
+    np.testing.assert_allclose(got[0].numpy(), lp, **TOL)
+    np.testing.assert_allclose(got[2].numpy(), lse, **TOL)
+
+
 @pytest.mark.parametrize("splits", [1, 3])
 def test_f32_bucket_finish_matches_the_dense_bucket_select(splits):
     """The float32 bucket kernels' outputs, made here from dense f32 logits
@@ -455,21 +484,41 @@ def test_bf16_select_kernel_fits_shared_memory(d):
     assert d > 1024 or stages >= 4
 
 
+@pytest.mark.parametrize("d", list(range(64, 1025, 64)))
+def test_wide_select_kernels_fit_shared_memory(d):
+    """The selects' wide lists (k = 17-40, 44 entries a row) fit a block's
+    232,448 bytes at every D of the flagship's width and below: the bf16
+    select with three slots or more (the slots serve both warpgroups in
+    turn), the int8 select with its three stages, the float32 select (the
+    same at every D) with four, two a warpgroup."""
+    stages = select_bf16_stages(d, 37)
+    assert stages >= 3
+    assert select_bf16_smem_bytes(d, stages, 37) <= SMEM_LIMIT
+    assert stages == 8 or select_bf16_smem_bytes(d, stages + 1, 37) > SMEM_LIMIT
+    assert select_q8_smem_bytes(d, 37) <= SMEM_LIMIT
+    assert select_f32_stages(37) == 4
+    assert select_f32_smem_bytes(4, 37) <= SMEM_LIMIT < select_f32_smem_bytes(6, 37)
+    # the narrow instances' layouts are as before
+    assert select_q8_smem_bytes(d) == select_q8_smem_bytes(d, 16)
+    assert select_bf16_stages(d) == select_bf16_stages(d, 16)
+
+
 @pytest.mark.parametrize("case", ["bucket D=1472", "bucket D=96", "bucket k>bv",
-                                  "select D=1376", "select D=48", "select k=17"])
+                                  "select D=1376", "select D=48", "select k=41"])
 def test_head_kernels_refuse_shapes_they_do_not_take(monkeypatch, case):
     """The kernels' launchers raise on a shape their kernel does not take,
     before any launch (on the CPU tensors here, no library is built): the
     bucket kernel past D = 1408 or off D % 64, k above the bucket width;
-    the bf16 select past D = 1344 or off D % 32, k above 16."""
+    the bf16 select past D = 1344 or off D % 32, k above 40 (ROADMAP
+    B41b)."""
     monkeypatch.setenv("MIC_TPU_EXPERIMENTAL", "bucket_bv=8")
     kind, what = case.split(" ")
     d = int(what[2:]) if what.startswith("D=") else 64
-    k = {"k>bv": 9, "k=17": 17}.get(what, 1)
+    k = {"k>bv": 9, "k=41": 41}.get(what, 1)
     hidden = torch.zeros((4, d), dtype=torch.bfloat16)
     weight = torch.zeros((300, d), dtype=torch.bfloat16)
     bias = torch.zeros((300,))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="B41b" if what == "k=41" else None):
         if kind == "bucket":
             _bucket_kernel("mic_fused_head_bucket_bf16", hidden, weight, None, bias, k)
         else:

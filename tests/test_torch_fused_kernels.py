@@ -68,13 +68,21 @@ def _ancestry(rng, b, beams, t, index):
     return anc
 
 
-@pytest.mark.parametrize("index,seed", [(0, 0), (1, 1), (9, 2), (15, 3)])
+# (index, seed, beams): four beams, and past eight (ROADMAP B41: the card's
+# kernel takes 9-16 in one instance)
+LAZY_CASES = [pytest.param(0, 0, 4, id="0-0"), pytest.param(1, 1, 4, id="1-1"),
+              pytest.param(9, 2, 4, id="9-2"), pytest.param(15, 3, 4, id="15-3"),
+              pytest.param(15, 4, 9, id="15-4-K9"), pytest.param(9, 5, 12, id="9-5-K12"),
+              pytest.param(15, 6, 16, id="15-6-K16")]
+
+
+@pytest.mark.parametrize("index,seed,beams", LAZY_CASES)
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_fused_lazy_attention_plain_matches_pallas_kernel(kv, index, seed):
+def test_fused_lazy_attention_plain_matches_pallas_kernel(kv, index, seed, beams):
     """Mode "1" on the pre-update cache: the port's plain version against
     _kernel_bf16 / _kernel_q8 in interpret mode, on the mask each package
-    builds from the same ancestry (equal)."""
-    b, beams, heads, dh, t = 2, 4, 2, 64, 16
+    builds from the same ancestry (equal), at 4, 9, 12 and 16 beams."""
+    b, heads, dh, t = 2, 2, 64, 16
     hd = heads * dh
     rng = np.random.default_rng(seed)
     q, ks, vs = (_bf16(rng.normal(size=(b, beams, hd)) * s) for s in (0.3, 0.5, 0.5))
@@ -277,3 +285,25 @@ def test_blocked_layout_takes_every_shape_the_earlier_walk_took(beams, q8):
     assert compact and not shared and stage == min(lazy_attention._STAGE_ROWS, beams * 63)
     with pytest.raises(ValueError, match="shared memory"):
         lazy_attention.blocked_layout(beams, limit // (4 * beams * beams) + 1, q8)
+
+
+@pytest.mark.parametrize("beams", range(9, 17))
+def test_blocked_layout_fits_nine_to_sixteen_beams(beams):
+    """The 9-16-beam instance's block at T in {16, 64, 128} on every cache
+    form: the list walk, chunks of up to 128 staged rows (64 on a float32
+    cache), within a block's 232,448 bytes, the scores of every (beam, row)
+    counted; at 16 beams past 226 positions (T = 256) no staged row fits
+    beside the scores, and 17 beams need a second M tile: both raise
+    naming ROADMAP B41b."""
+    limit = 232448
+    for t in (16, 64, 128):
+        for q8, f32 in ((False, False), (True, False), (False, True)):
+            compact, stage, shared, nbytes = lazy_attention.blocked_layout(beams, t, q8, f32)
+            rows = beams * t
+            assert compact and not shared
+            assert stage == min(64 if f32 else 128, rows)
+            assert 4 * beams * rows + 4 * (rows + 8) < nbytes <= limit
+    with pytest.raises(ValueError, match="B41b"):
+        lazy_attention.blocked_layout(16, 256)
+    with pytest.raises(ValueError, match="B41b"):
+        lazy_attention.blocked_layout(17, 16)

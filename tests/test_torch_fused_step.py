@@ -75,14 +75,17 @@ def _torch_tree(tree):
     return {k: {n: torch.from_numpy(a) for n, a in p.items()} for k, p in tree.items()}
 
 
-@pytest.mark.parametrize("index,seed", [(0, 0), (7, 1), (15, 2)])
+@pytest.mark.parametrize("index,seed,beams", [
+    pytest.param(0, 0, 4, id="0-0"), pytest.param(7, 1, 4, id="7-1"),
+    pytest.param(15, 2, 4, id="15-2"), pytest.param(9, 5, 12, id="9-5-K12")])
 @pytest.mark.parametrize("ln", [False, True])
-def test_mha_decode_step_lazy_mode_1_near_jax_xla_path(ln, index, seed):
+def test_mha_decode_step_lazy_mode_1_near_jax_xla_path(ln, index, seed, beams):
     """Mode "1" (the blocked kernel's plain version on the step's ancestry
     mask, then the column store), with and without the LayerNorm folded into
     the qkv GEMM, against mic_tpu's XLA path on the same float32 inputs (its
-    ln branch runs its LN -> GEMM kernel in interpret mode)."""
-    b, beams, heads, dh, t = 2, 4, 2, 64, 16
+    ln branch runs its LN -> GEMM kernel in interpret mode), at 4 beams and
+    at 12 (a float32 model's row 3 past eight beams, ROADMAP B41)."""
+    b, heads, dh, t = 2, 2, 64, 16
     d = heads * dh
     rng = np.random.default_rng(seed)
     params = _tree(rng, d)
@@ -193,30 +196,56 @@ def test_mha_cross_grouped_kernel_matches_jax(ref_path):
         assert np.abs(got - ref).max() < 2e-2 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("kv_quant", [None, "int8"])
-def test_fused_beam_generate_near_jax(kv_quant, monkeypatch):
-    """Beam-4 generate under the four switches against mic_tpu's generate
+# case id: (kv_quant, beams, no_repeat_ngram_size, vocab, model seed, image
+# seed, max_length)
+BEAM_CASES = {
+    "None": (None, 4, 0, 600, 2, 3, 12),
+    "int8": ("int8", 4, 0, 600, 2, 3, 12),
+    # twelve beams with an n-gram ban (29 candidates a row): row 3's plain
+    # version twelve beams wide, the mask rows off 4-byte alignment on the
+    # card (ROADMAP B41)
+    "K12-ngram3-None": (None, 12, 3, 4000, 12, 12, 8),
+    "K12-ngram3-int8": ("int8", 12, 3, 4000, 12, 12, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_fused_beam_generate_near_jax(case, monkeypatch):
+    """Beam generate under the four switches against mic_tpu's generate
     under the same switches (its XLA path on the CPU; with kv_quant="int8"
-    on its canonical per-head cache).  Every image's best-beam score within
-    1e-2: the port rounds the attention's weights and outputs to bfloat16
-    where mic_tpu's float32 XLA path does not (2.7e-3 measured with the
-    float cache, 1.9e-3 with the int8 one).  Sequences equal with the float
-    cache; with the int8 one, where the kernel attends to each step row
-    unquantized and the XLA path to it quantized, equal but for at most one
-    image, whose near-tie between two captions can flip (one flips here)."""
+    on its canonical per-head cache), at 4 beams and at 12 with an n-gram
+    ban.  Every image's best-beam score within 1e-2: the port rounds the
+    attention's weights and outputs to bfloat16 where mic_tpu's float32 XLA
+    path does not (2.7e-3 measured with the float cache, 1.9e-3 with the
+    int8 one).  Sequences equal with the float cache; with the int8 one,
+    where the kernel attends to each step row unquantized and the XLA path
+    to it quantized, equal but for at most one image, whose near-tie
+    between two captions can flip (one flips at 4 beams).  Row 3's plain
+    version is called at the case's beams."""
+    kv_quant, beams, ngram, vocab, seed, image_seed, length = BEAM_CASES[case]
     _set(monkeypatch, FUSED)
-    config = _config()
-    jax_model, jparams, model, tparams = _models(config, seed=2, scale=0.5)
-    u8 = _images(n=2, seed=3)
-    kw = dict(num_beams=4, max_length=12, forced_bos_token_id=7, kv_quant=kv_quant)
+    config = _config(vocab=vocab)
+    jax_model, jparams, model, tparams = _models(config, seed=seed, scale=0.5)
+    u8 = _images(n=2, seed=image_seed)
+    kw = dict(num_beams=beams, max_length=length, forced_bos_token_id=7, kv_quant=kv_quant,
+              no_repeat_ngram_size=ngram)
     ref = jax.jit(lambda p, x: jax_model.generate(p, x, **kw))(
         jparams, jax_preprocess(jnp.asarray(u8), 32)
     )
+    calls = []
+    plain = lazy_attention.fused_lazy_attention_plain
+
+    def counted(q, *args):
+        calls.append(q.shape[1])
+        return plain(q, *args)
+
+    monkeypatch.setattr(lazy_attention, "fused_lazy_attention_plain", counted)
     out = model.generate(tparams, preprocess_images(torch.from_numpy(u8), 32), **kw)
     differ = (out.sequences.numpy() != np.asarray(ref.sequences)).any(axis=1)
     assert differ.sum() <= (1 if kv_quant else 0), differ
     assert (out.sequences[:, 1] == 7).all()
     np.testing.assert_allclose(out.scores.numpy(), np.asarray(ref.scores), rtol=0, atol=1e-2)
+    assert set(calls) == {beams}
 
 
 ROUTES = {

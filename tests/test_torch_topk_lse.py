@@ -4,7 +4,7 @@ mic_tpu's topk_log_probs.
 On the CPU the port's wrapper runs its plain version.  It is held to
 mic_tpu's function through its CPU branch and to its Pallas kernel in
 interpret mode (as tests/test_topk_lse.py runs it), on a ragged vocab, in
-bf16 and f32, at every k the search asks for, and on rows with tied
+bf16 and f32, at k the search asks for up to 16 beams, and on rows with tied
 maxima.  Ids equal (ties to the lower id on every side); log-probs within
 1e-6: the logits keep every row's logsumexp below 8, where one float32 ulp
 is 4.8e-7, and the two sides sum the logsumexp in another order.
@@ -20,7 +20,7 @@ from mic_tpu_torch.ops.topk_lse import topk_log_probs, topk_log_probs_plain
 from test_topk_lse import run_kernel_interpret
 
 N, V = 12, 997  # V is no multiple of the kernel's vocab block: a ragged tail
-KS = [1, 2, 9, 13]
+KS = [1, 2, 9, 13, 25, 37]  # 37: 16 beams with an n-gram ban (ROADMAP B45)
 
 
 def _logits(dtype, seed):

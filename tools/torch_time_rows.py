@@ -11,7 +11,8 @@ Run from the root of a checkout of the port (it imports that checkout's
 mic_tpu_torch and chip_smoke.py, and builds its kernels there):
 
     python3 tools/torch_time_rows.py [--turns 2]
-                                     [--cases decode,heads,ce,fused,lazy,attn,topk,mm,f32few]
+                                     [--cases decode,heads,ce,fused,lazy,attn,topk,mm,f32few,
+                                              narrow,ksweep]
                                      [--label NAME] [--out FILE]
 
 Shapes: row 18 at L=12 T=64 H=16 Dh=64 index 63 with N in {4, 256}; the
@@ -40,7 +41,12 @@ torch.topk + torch.logsumexp; --cases mm: row 20 at K=1024 and (M, N) in
 the dequantised bf16 weight (for scale: it reads twice the weight bytes),
 as ``mm_cases`` says; --cases f32few: row 4 f32 at N in {1, 2, 4} on the
 route it takes, on the 3xTF32 tile and in its plain version, as
-``f32few_cases`` says.  Each time
+``f32few_cases`` says; --cases narrow: the instances that beam 4 and k=9
+run in rows 3 (all four cache forms), 5, 5 f32, 6 and 17, which work in
+a checkout from before their wide instances too, so the two can be timed
+in turns, as ``narrow_cases`` says (chip_smoke.py's phase 69 times the
+wide instances); --cases ksweep: the selects and row 17 at k on both
+sides of their narrow and wide lists, as ``k_sweep_cases`` says.  Each time
 is printed twice: the device time of CUDA-graph replays (``graph_ms``) and
 the per-call time with the wrapper's host work (``median_ms``).  With
 --generate, each turn also times the flagship's B=256 beam-4 length-64
@@ -338,6 +344,88 @@ def topk_cases(dev):
                lambda x=x, k=k: (torch.topk(x, k), torch.logsumexp(x, dim=-1)))
 
 
+def narrow_cases(dev):
+    """Row 3 in each cache form (bf16; per-head int8 under bf16 q; float32;
+    per-head int8 under float32 q) at B=256 K=4 T=64 H=16, index 63 and
+    17, on the masks of a random ancestry; the exact and window selects in
+    bf16, int8 and float32 at N=1024 D=1024 V=250054 k=9; row 17 at
+    N=1024 V=250054 bf16 k=9, beside torch.topk + torch.logsumexp."""
+    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
+    from mic_tpu_torch.ops.lazy_attention import build_ancestry_mask, fused_lazy_attention
+    from mic_tpu_torch.ops.quant import quantize_array, quantize_rows_dynamic
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs
+
+    b, beams, k = 256, 4, 9
+    t, heads, dh = 64, 16, 64
+    hd = heads * dh
+    g = torch.Generator(device=dev).manual_seed(33)
+    forms = {"bf16": (torch.bfloat16, False), "int8 per-head": (torch.bfloat16, True),
+             "f32": (torch.float32, False), "int8 per-head f32 q": (torch.float32, True)}
+    for form, (dtype, q8) in forms.items():
+        def rand(*shape, scale=0.5):
+            return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+        def cache():
+            if not q8:
+                return rand(b * beams, t, hd)
+            values, scales = quantize_rows_dynamic(rand(b * beams, t, heads, dh))
+            return {"q": values.reshape(b * beams, t, hd), "s": scales[..., 0].contiguous()}
+
+        q, ks, vs = rand(b, beams, hd, scale=0.3), rand(b, beams, hd), rand(b, beams, hd)
+        ck, cv = cache(), cache()
+        anc = torch.randint(0, beams, (b, beams, t), generator=g, device=dev, dtype=torch.int32)
+        for index in (63, 17):
+            amask = build_ancestry_mask(anc, index)
+            yield (f"fused_lazy_attention {form} B={b} K={beams} index={index}",
+                   lambda a=(q, ck, cv, ks, vs, amask), i=index: fused_lazy_attention(
+                       *a, beams, heads, positions=i), None)
+    weight = (torch.randn((HEAD_V, HEAD_D), generator=g, device=dev) * 0.02).bfloat16()
+    bias = (torch.randn((HEAD_V,), generator=g, device=dev) * 0.1).bfloat16()
+    wq, ws = quantize_array(weight, axis=1)
+    w32, b32 = weight.float(), bias.float()
+    hidden = torch.randn((1024, HEAD_D), generator=g, device=dev).bfloat16()
+    h32 = hidden.float()
+    for select in ("exact", "window"):
+        yield (f"bf16 {select} N=1024 k={k}",
+               lambda s=select: fused_head_topk(hidden, weight, bias, k, s), None)
+        yield (f"int8 {select} N=1024 k={k}",
+               lambda s=select: fused_head_topk_q8(hidden, wq, ws, bias, k, s), None)
+        yield (f"f32 {select} N=1024 k={k}",
+               lambda s=select: fused_head_topk(h32, w32, b32, k, s), None)
+    x = (torch.randn((1024, HEAD_V), generator=g, device=dev) * 2).bfloat16()
+    yield (f"topk_log_probs N=1024 k={k}", lambda: topk_log_probs(x, k),
+           lambda: (torch.topk(x, k), torch.logsumexp(x, dim=-1)))
+
+
+def k_sweep_cases(dev):
+    """The exact selects in bf16, int8 and float32 at N=1024 D=1024
+    V=250054 and the window selects, at k across the narrow and wide lists
+    (16 | 17) and the wide lists' fill (25, 37, 40); row 17 at N=1024
+    V=250054 bf16 across its one-slot and two-slot lists (32 | 33)."""
+    from mic_tpu_torch.ops.fused_head import fused_head_topk, fused_head_topk_q8
+    from mic_tpu_torch.ops.quant import quantize_array
+    from mic_tpu_torch.ops.topk_lse import topk_log_probs
+
+    g = torch.Generator(device=dev).manual_seed(34)
+    weight = (torch.randn((HEAD_V, HEAD_D), generator=g, device=dev) * 0.02).bfloat16()
+    bias = (torch.randn((HEAD_V,), generator=g, device=dev) * 0.1).bfloat16()
+    wq, ws = quantize_array(weight, axis=1)
+    w32, b32 = weight.float(), bias.float()
+    hidden = torch.randn((1024, HEAD_D), generator=g, device=dev).bfloat16()
+    h32 = hidden.float()
+    for select, ks in (("exact", (9, 16, 17, 25, 37, 40)), ("window", (9, 17, 37))):
+        for k in ks:
+            yield (f"bf16 {select} N=1024 k={k}",
+                   lambda s=select, k=k: fused_head_topk(hidden, weight, bias, k, s), None)
+            yield (f"int8 {select} N=1024 k={k}",
+                   lambda s=select, k=k: fused_head_topk_q8(hidden, wq, ws, bias, k, s), None)
+            yield (f"f32 {select} N=1024 k={k}",
+                   lambda s=select, k=k: fused_head_topk(h32, w32, b32, k, s), None)
+    x = (torch.randn((1024, HEAD_V), generator=g, device=dev) * 2).bfloat16()
+    for k in (9, 16, 17, 32, 33, 37, 40):
+        yield (f"topk_log_probs N=1024 k={k}", lambda k=k: topk_log_probs(x, k), None)
+
+
 def generate_case(dev, batch: int = 256):
     """-> a function running the flagship's beam-4 bf16 generate of
     ``batch`` images, returning its captions/s."""
@@ -374,7 +462,8 @@ def main() -> None:
     lines = []
     groups = {"decode": decode_cases, "heads": head_cases, "ce": ce_cases, "fused": fused_cases,
               "lazy": lazy_cases, "attn": attn_cases, "topk": topk_cases, "mm": mm_cases,
-              "f32few": f32few_cases}
+              "f32few": f32few_cases, "narrow": narrow_cases,
+              "ksweep": k_sweep_cases}
     cases = [case for name in args.cases.split(",") for case in groups[name](dev)]
     generate = generate_case(dev) if args.generate else None
     profiled = []  # (row, timer, fn): timed after everything else
